@@ -7,20 +7,26 @@ Run from the root of a checkout, with no arguments:
 
 It builds the port's CUDA kernels from ``maest_tpu_torch/csrc``, holds each
 against its plain PyTorch version on the card, checks the full-width 30 s
-ViT-B fp32 forward against the JAX package's golden logits, drives the main
-path (``get_maest(...).predict_labels`` in bf16, and the HTTP server) with
-the kernels' launch counters reset, and times the kernels and the batch-32
-tagging step with CUDA events. Every phase prints one line; any failure
-raises, so the exit code is not 0. The line before the last is the JSON
-record of the kernels, the last line the device record. Without torch or a
-CUDA card, or outside a checkout, it exits with a non-zero code and prints
-no result.
+ViT-B fp32 forward against the JAX package's golden logits, drives the
+tagging path (``get_maest(...).predict_labels`` in bf16, and the HTTP
+server) with the kernels' launch counters reset, and times the kernels and
+the batch-32 tagging step with CUDA events (phases 1-8). Then the training
+path: the training forward (K3a) and backward (K3b/K4) against their plain
+versions, one full-width fp32 train step against the JAX package's golden,
+the 30 s pre-training recipe step (ViT-B, batch 32, bf16 over fp32
+parameters) with its launch counters reset, and the kernels' and both
+recipe shapes' times (phases 9-12). Every phase prints one line per check;
+any failure raises, so the exit code is not 0. The line before the last is
+the JSON record of the kernels, the last line the device record. Without
+torch or a CUDA card, or outside a checkout, it exits with a non-zero code
+and prints no result.
 
-Weights are random, drawn from the golden file's seed; no file is fetched.
+Weights are random, drawn from the golden files' seeds; no file is fetched.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -28,6 +34,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -49,6 +56,16 @@ GOLDEN_TOL = 5e-4   # fp32 logits vs tests/golden (the JAX package's bound)
 TIER_TOL = 1e-2     # bf16 activations vs the fp32 tier's
 SERVE_TOL = 1e-2    # served vs predict_labels, bf16: another bucket size may
                     # take other cuBLAS kernels that round in another order
+LSE_TOL = 1e-4      # K3a lse vs plain: fp32 log2-sum-exp, sums in other orders
+# the fp32 train step vs tests/golden/vitb_30s_train_step.npz (JAX on the
+# CPU): fp32 sums in other orders through 12 layers and back; measured on
+# the H100 8e-8, 3.8e-7, 2.1e-6 and 4.6e-6, so each bound keeps a margin
+# of ~20x or more and still catches a wrong roundoff-sized term
+STEP_LOSS_RTOL = 1e-6
+STEP_NORM_TOL = (2e-5, 1e-9)   # (rtol, atol) of each gradient's L2 norm
+STEP_GRAD_RTOL = 1e-4          # small gradients, relative to their max
+STEP_LOGIT_TOL = 1e-4          # logits after the AdamW step (lr 1e-4)
+RECIPE = "maest_30s_from_passt_pretrain"
 
 
 def sh(cmd: list[str]) -> str:
@@ -312,6 +329,369 @@ def phase_times(dev, model, gpu):
     return t
 
 
+def phase_train_kernels(dev):
+    """Phase 9: K3a and the backward (K3b at both recipes' shapes; K4's
+    regime at N 4500) against their plain versions on the same inputs and
+    saved tensors."""
+    from maest_tpu_torch.ops.attention import (
+        attention_bwd,
+        attention_bwd_reference,
+        attention_reference_lse,
+        flash_attention_fwd_lse,
+    )
+
+    rng = np.random.default_rng(3)
+    errs = {}
+    # the 30 s recipe's N, padded with n_real, the 10 s recipe's batch and
+    # N, and K4's regime (N 4500 > the TPU's 4096 switch)
+    for b, n, n_real in ((BATCH, 866, None), (BATCH, 896, 866),
+                         (100, 281, None), (2, 4500, 4400)):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            qkv = torch.from_numpy(rng.standard_normal(
+                (b, n, 3, 12, 64)).astype(np.float32)).to(dev, dtype)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            g = torch.from_numpy(rng.standard_normal(
+                (b, n, 12, 64)).astype(np.float32)).to(dev, dtype)
+            before = (flash_attention_fwd_lse.launches, attention_bwd.launches)
+            o, lse = flash_attention_fwd_lse(q, k, v, n_real=n_real)
+            ro, rlse = attention_reference_lse(q, k, v, n_real)
+            grads = attention_bwd(q, k, v, ro, rlse, g, n_real)
+            ref = attention_bwd_reference(q, k, v, ro, rlse, g, n_real)
+            torch.cuda.synchronize()
+            check((flash_attention_fwd_lse.launches, attention_bwd.launches)
+                  == (before[0] + 1, before[1] + 1), "K3a/K3b counters")
+            e = {"o": max_err(o, ro), "lse": max_err(lse, rlse)}
+            e.update({w: max_err(a, r) for w, a, r in zip(
+                ("dq", "dk", "dv"), grads, ref)})
+            tol = ATTN_TOL[name]
+            check(e["lse"] <= LSE_TOL, f"K3a lse {name} N{n} {e['lse']}")
+            for w in ("o", "dq", "dk", "dv"):
+                check(e[w] <= tol, f"K3 {w} {name} N{n} err {e[w]} > {tol}")
+            if n_real is not None:
+                check(not grads[1][:, n_real:].any()
+                      and not grads[2][:, n_real:].any(), "masked dk/dv")
+            errs[(b, n, name)] = e
+            print(f"phase 9 K3a/K3b train attention: ({b}, {n}, 12, 64) "
+                  f"n_real {n_real} {name} max_abs_err lse {e['lse']:.3e} <= "
+                  f"{LSE_TOL}, o {e['o']:.3e}, dq {e['dq']:.3e}, dk "
+                  f"{e['dk']:.3e}, dv {e['dv']:.3e} <= {tol}", flush=True)
+            del qkv, q, k, v, g, o, lse, ro, rlse, grads, ref
+            torch.cuda.empty_cache()
+    return errs[(BATCH, 866, "bfloat16")]
+
+
+def _launch_counts():
+    from maest_tpu_torch.ops.attention import (
+        attention_bwd,
+        flash_attention,
+        flash_attention_fwd_lse,
+    )
+    return (flash_attention.launches, flash_attention_fwd_lse.launches,
+            attention_bwd.launches)
+
+
+def phase_golden_step(dev):
+    """Phase 10: one full-width fp32 train step (K3a, K3b in fp32) against
+    the JAX package's golden: loss, every gradient's L2 norm, the small
+    gradients, and the logits after the AdamW step."""
+    from maest_tpu_torch.checkpoints import load_into
+    from maest_tpu_torch.models.registry import build_config
+    from maest_tpu_torch.models.vit import MAESTNet, TrainDraws
+    from maest_tpu_torch.train import (
+        AugmentConfig,
+        TrainState,
+        make_eval_step,
+        make_optimizer,
+        make_train_step,
+    )
+    from torch_oracle import make_state
+
+    golden = np.load(ROOT / "tests" / "golden" / "vitb_30s_train_step.npz")
+    rng = np.random.default_rng(int(golden["seed"]))  # the golden's draws
+    drop = np.sort(rng.choice(186, 90, replace=False))
+    check(np.array_equal(drop, golden["drop_t"]), "golden draws")
+    cfg = build_config(ARCH, s_patchout_t_indices=tuple(int(i) for i in drop))
+    sd = make_state(rng, cfg)
+    x = rng.standard_normal((2, 96, 1875)).astype("f4") + 2.0
+    y = (rng.random((2, 400)) < 0.05).astype("f4")
+
+    net = load_into(MAESTNet(cfg, device=dev), sd)
+    tx = make_optimizer(lr_schedule=float(golden["lr"]), weight_decay=1e-4)
+    state = TrainState.create(net, tx, with_swa=False)
+    names = {id(p): k for k, p in net.named_parameters()}
+    grads = {}
+
+    def keep_grads(opt, args, kwargs):
+        for group in opt.param_groups:
+            for p in group["params"]:
+                if p.grad is not None:
+                    grads[names[id(p)]] = p.grad.detach().double()
+
+    state.optimizer.register_step_pre_hook(keep_grads)
+    aug = AugmentConfig(masking=False, mixup_alpha=0.0)
+    before = _launch_counts()
+    state, metrics = make_train_step(net, tx, aug)(
+        state, {"x": x, "y": y},
+        draws=TrainDraws(time_offset=int(golden["time_offset"])))
+    grew = [a - b for a, b in zip(_launch_counts(), before)]
+    check(grew == [0, cfg.depth, cfg.depth], f"golden step launches {grew}")
+    logits = make_eval_step(net, aug, with_swa=False)(state, x)[""]
+    torch.cuda.synchronize()
+
+    loss_err = abs(metrics["train_loss"] - float(golden["loss"])) / float(
+        golden["loss"])
+    check(metrics["nonfinite_skipped"] == 0.0, "golden step skipped")
+    check(loss_err <= STEP_LOSS_RTOL, f"golden loss rel err {loss_err}")
+    norm_err = grad_err = 0.0
+    for key in golden.files:
+        if key.startswith("norm:"):
+            want = float(golden[key])
+            got = grads[key[5:]].norm().item()
+            check(abs(got - want) <= STEP_NORM_TOL[0] * want + STEP_NORM_TOL[1],
+                  f"gradient norm {key}: {got} vs {want}")
+            norm_err = max(norm_err, abs(got - want) / want)
+        elif key.startswith("grad:"):
+            want = torch.from_numpy(golden[key]).double()
+            err = (grads[key[5:]].cpu() - want).abs().max().item()
+            rel = err / max(want.abs().max().item(), 1e-30)
+            check(rel <= STEP_GRAD_RTOL, f"gradient {key}: rel err {rel}")
+            grad_err = max(grad_err, rel)
+    n_norms = sum(k.startswith("norm:") for k in golden.files)
+    check(n_norms == len(grads), f"{len(grads)} gradients, golden {n_norms}")
+    logit_err = float(np.abs(logits.cpu().numpy() - golden["logits"]).max())
+    check(bool(torch.isfinite(logits).all()), "golden step logits")
+    check(logit_err <= STEP_LOGIT_TOL, f"post-step logits err {logit_err}")
+    print(f"phase 10 golden train step: 30 s ViT-B fp32 batch 2 N 866 vs "
+          f"tests/golden/vitb_30s_train_step.npz: loss {metrics['train_loss']:.6f}"
+          f" rel err {loss_err:.3e} <= {STEP_LOSS_RTOL}; {n_norms} gradient "
+          f"norms max rel err {norm_err:.3e} <= {STEP_NORM_TOL[0]}; "
+          f"{sum(k.startswith('grad:') for k in golden.files)} small gradients"
+          f" max rel err {grad_err:.3e} <= {STEP_GRAD_RTOL}; post-step logits "
+          f"max_abs_err {logit_err:.3e} <= {STEP_LOGIT_TOL}; launches K3a "
+          f"+{grew[1]} K3b +{grew[2]}", flush=True)
+    del net, state, grads
+
+
+def _recipe(dev, preset, batch, seed):
+    """The pre-training recipe of ``preset`` at full width: the model (bf16
+    compute over fp32 parameters), its AdamW state, the step and a batch of
+    random mel input on the card."""
+    from maest_tpu_torch.configs import build_experiment_config
+    from maest_tpu_torch.models.vit import MAESTNet
+    from maest_tpu_torch.train import (
+        TrainState,
+        augment_config,
+        make_optimizer,
+        make_schedule,
+        make_train_step,
+        model_config,
+    )
+
+    cfg = build_experiment_config([preset], ["maest.pretrained=False"])
+    mcfg = model_config(cfg)
+    opt = cfg["module"]["optimizer"]
+    steps_per_epoch = cfg["datamodule"]["sampler"]["epoch_len"] // batch
+    schedule = make_schedule(
+        opt["schedule_mode"], opt["lr"], steps_per_epoch,
+        warm_up_len=opt["warm_up_len"], ramp_down_start=opt["ramp_down_start"],
+        ramp_down_len=opt["ramp_down_len"], last_lr_value=opt["last_lr_value"],
+        do_swa=cfg["module"]["do_swa"],
+        swa_epoch_start=cfg["module"]["swa_epoch_start"],
+        swa_lr=cfg["module"]["swa_lrs"])
+    net = MAESTNet(mcfg, dtype=torch.bfloat16, param_dtype=torch.float32,
+                   device=dev, generator=torch.Generator().manual_seed(seed))
+    tx = make_optimizer(lr_schedule=schedule, adamw=opt["adamw"],
+                        weight_decay=opt["weight_decay"])
+    state = TrainState.create(net, tx, with_swa=cfg["module"]["do_swa"])
+    teacher = cfg["datamodule"]["teacher_student"]["do"]
+    step = make_train_step(net, tx, augment_config(cfg),
+                           teacher_student=teacher)
+    rng = np.random.default_rng(seed)
+    f, t = mcfg.img_size
+    data = {"x": torch.from_numpy(rng.standard_normal((batch, f, t)).astype(
+        np.float32) * 1.3 + 2.0).to(dev),
+        "y": torch.from_numpy((rng.random((batch, 400)) < 0.05).astype(
+            np.float32)).to(dev)}
+    if teacher:
+        data["y_teacher"] = torch.from_numpy(rng.random((batch, 400)).astype(
+            np.float32)).to(dev)
+    return cfg, mcfg, net, state, step, data
+
+
+def phase_recipe(dev):
+    """Phase 11: the 30 s pre-training recipe step (ViT-B, batch 32, s
+    patchout t 90: N 866, bf16 over fp32 parameters, SpecAugment and
+    mixup on) with the launch counters reset: 12 K3a and 12 K3b a step, a
+    finite loss, moving parameters; then swa_update, an eval step over the
+    live and SWA weights, and one teacher-student step (batch 4)."""
+    from maest_tpu_torch.ops.attention import (
+        attention_bwd,
+        flash_attention,
+        flash_attention_fwd_lse,
+    )
+    from maest_tpu_torch.train import make_eval_step, swa_update
+
+    cfg, mcfg, net, state, step, data = _recipe(dev, RECIPE, BATCH, 0)
+    start = {k: p.detach().clone() for k, p in net.named_parameters()}
+    gen = torch.Generator().manual_seed(0)
+    steps = 3
+    flash_attention.launches = 0
+    flash_attention_fwd_lse.launches = 0
+    attention_bwd.launches = 0
+    per_step, losses = [], []
+    for _ in range(steps):
+        before = _launch_counts()
+        state, metrics = step(state, data, gen)
+        per_step.append([a - b for a, b in zip(_launch_counts(), before)])
+        losses.append(metrics["train_loss"])
+        check(metrics["nonfinite_skipped"] == 0.0, "recipe step skipped")
+    torch.cuda.synchronize()
+    launches = {"fwd_lse": flash_attention_fwd_lse.launches,
+                "bwd": attention_bwd.launches}
+    check(all(c == [0, mcfg.depth, mcfg.depth] for c in per_step),
+          f"recipe launches per step {per_step}")
+    check(all(np.isfinite(losses)), f"recipe losses {losses}")
+    moved = [k for k, p in net.named_parameters()
+             if not torch.equal(p.detach(), start[k])]
+    # under distilled_type "mean" the loss never reaches head_dist
+    idle = ({"head_dist.weight", "head_dist.bias"}
+            if mcfg.distilled_type == "mean" else set())
+    check(set(start) - set(moved) == idle,
+          f"parameters that did not move: {sorted(set(start) - set(moved))}")
+    check(state.step == steps and state.count == steps, "recipe counters")
+
+    # remat at full depth: full and dots recompute each block, attention
+    # included (2 K3a a layer); attn_out keeps o and lse (1 a layer)
+    remat = {}
+    for policy, fwd in (("full", 2), ("dots", 2), ("attn_out", 1)):
+        net.cfg = dataclasses.replace(mcfg, remat=True, remat_policy=policy)
+        before = _launch_counts()
+        state, metrics = step(state, data, gen)
+        remat[policy] = [a - b for a, b in zip(_launch_counts(), before)]
+        check(remat[policy] == [0, fwd * mcfg.depth, mcfg.depth]
+              and np.isfinite(metrics["train_loss"])
+              and metrics["nonfinite_skipped"] == 0.0,
+              f"remat {policy}: launches {remat[policy]}, {metrics}")
+    net.cfg = mcfg
+
+    swa_update(state)
+    swa_update(state)  # the mean of the last two states
+    out = make_eval_step(net)(state, data["x"])
+    check(set(out) == {"", "swa"} and all(
+        o.shape == (BATCH, 400) and bool(torch.isfinite(o).all())
+        for o in out.values()), "eval step")
+    check(state.swa_n == 2, "swa_n")
+    print(f"phase 11 recipe step: {RECIPE} ViT-B batch {BATCH} N "
+          f"{9 * (186 - mcfg.s_patchout_t) + 2} bf16 over fp32 parameters, "
+          f"{steps} steps: losses {[round(v, 6) for v in losses]}, "
+          f"nonfinite_skipped 0, {len(moved)}/{len(start)} parameters moved; "
+          f"launches per step (K2, K3a, K3b) {per_step}, one step under "
+          f"each remat policy {remat}; swa_update x2 + eval step live/SWA "
+          f"logits {tuple(out[''].shape)} finite", flush=True)
+    del net, state, step, data, start, out
+    torch.cuda.empty_cache()
+
+    ts = "maest_30s_from_passt_teacher_student_pretrain"
+    cfg, mcfg, net, state, step, data = _recipe(dev, ts, 4, 1)
+    b = cfg["datamodule"]["batch_size_train"]
+    check(b == 4 and mcfg.distilled_type == "separated", "TS preset")
+    # the heads start at zero, which gives both losses ln 2 whatever the
+    # rest computes: draw them, so each loss reads its own head
+    heads = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        for lin in (net.head[1], net.head_dist):
+            lin.weight.normal_(0.0, 0.05, generator=heads)
+    state, metrics = step(state, data, torch.Generator().manual_seed(1))
+    parts = ("train_loss", "train_loss_standard", "train_loss_teacher")
+    check(metrics["nonfinite_skipped"] == 0.0 and all(
+        np.isfinite(metrics[k]) for k in parts), "TS step")
+    check(abs(metrics["train_loss_standard"] - metrics["train_loss_teacher"])
+          > 1e-3 and all(abs(metrics[k] - np.log(2)) > 1e-3 for k in parts),
+          f"TS losses not apart from each other and from ln 2: {metrics}")
+    check(abs(metrics["train_loss"] - (metrics["train_loss_standard"]
+                                       + metrics["train_loss_teacher"]) / 2)
+          <= 1e-6, "TS loss is the mean of its parts")
+    print(f"phase 11 teacher-student step: {ts} batch {b}: "
+          + ", ".join(f"{k} {metrics[k]:.6f}" for k in sorted(metrics)),
+          flush=True)
+    del net, state, step, data
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_times(dev, gpu):
+    """Phase 12: K3a and the backward against their plain versions at the
+    recipe's (32, 866, 12, 64) and at K4's regime (2, 4500, 12, 64), bf16,
+    and the recipe step at both bench_train.py shapes, all with CUDA events
+    after warm-up; the launch counters are reset before each recipe shape's
+    steps, which must launch K3a and K3b once a layer each."""
+    from maest_tpu_torch.ops.attention import (
+        attention_bwd,
+        attention_bwd_reference,
+        attention_reference_lse,
+        flash_attention,
+        flash_attention_fwd_lse,
+    )
+
+    rng = np.random.default_rng(4)
+    t = {}
+    # the recipe's shape, and K4's regime (N 4500 > the TPU's 4096 switch)
+    for b, n, n_real, tag in ((BATCH, 866, None, ""), (2, 4500, 4400, "_k4")):
+        qkv = torch.from_numpy(rng.standard_normal(
+            (b, n, 3, 12, 64)).astype(np.float32)).to(dev, torch.bfloat16)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        g = torch.randn((b, n, 12, 64), device=dev, dtype=torch.bfloat16)
+        o, lse = flash_attention_fwd_lse(q, k, v, n_real)
+        t["fwd_lse" + tag] = (
+            cuda_ms(lambda: flash_attention_fwd_lse(q, k, v, n_real), 10),
+            cuda_ms(lambda: attention_reference_lse(q, k, v, n_real), 5))
+        t["bwd" + tag] = (
+            cuda_ms(lambda: attention_bwd(q, k, v, o, lse, g, n_real), 10),
+            cuda_ms(lambda: attention_bwd_reference(q, k, v, o, lse, g,
+                                                    n_real), 5))
+        for name, what in (("fwd_lse", "K3a forward+lse"),
+                           ("bwd", "K4 backward" if tag else "K3b backward")):
+            print(f"phase 12 time {what} ({b}, {n}, 12, 64) n_real {n_real} "
+                  f"bf16: kernel {t[name + tag][0]:.4f} ms, plain "
+                  f"{t[name + tag][1]:.4f} ms [{gpu}]", flush=True)
+        del qkv, q, k, v, g, o, lse
+        torch.cuda.empty_cache()
+
+    for preset, batch in ((RECIPE, BATCH), ("maest_10s_from_passt_pretrain",
+                                            100)):
+        cfg, mcfg, net, state, step, data = _recipe(dev, preset, batch, 2)
+        gen = torch.Generator().manual_seed(2)
+        per_step, losses = [], []
+
+        def one_step():
+            before = _launch_counts()
+            _, metrics = step(state, data, gen)
+            per_step.append([a - b for a, b in zip(_launch_counts(), before)])
+            losses.append(metrics["train_loss"]
+                          if metrics["nonfinite_skipped"] == 0.0 else None)
+
+        flash_attention.launches = 0
+        flash_attention_fwd_lse.launches = 0
+        attention_bwd.launches = 0
+        ms = cuda_ms(one_step, 5)
+        check(all(c == [0, mcfg.depth, mcfg.depth] for c in per_step),
+              f"{preset} launches per step {per_step}")
+        check(all(v is not None and np.isfinite(v) for v in losses),
+              f"{preset} losses {losses}")
+        n = 9 * ((mcfg.img_size[1] - 16) // 10 + 1 - mcfg.s_patchout_t) + 2
+        t[preset] = (ms, batch / (ms / 1e3))
+        print(f"phase 12 time recipe step {preset}: batch {batch}, s patchout "
+              f"t {mcfg.s_patchout_t}, N {n}, bf16 over fp32 parameters, "
+              f"AdamW + SWA + SpecAugment + mixup: {ms:.3f} ms/step = "
+              f"{t[preset][1]:.1f} specs/s [{gpu}]; {len(per_step)} steps, "
+              f"each with launches (K2, K3a, K3b) {per_step[0]}, finite loss",
+              flush=True)
+        del net, state, step, data
+        torch.cuda.empty_cache()
+    return t
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on a GPU",
@@ -333,15 +713,25 @@ def main() -> int:
           f"{torch.version.cuda}; {kind}; fp32 matmul precision "
           f"{torch.get_float32_matmul_precision()!r}", flush=True)
 
+    def timed_build(lib):
+        t = time.perf_counter()
+        log = _build.build(lib)[1]
+        return log, time.perf_counter() - t
+
     t0 = time.perf_counter()
-    for lib in ("mel_kernel", "attention_fwd"):
+    libs = ("mel_kernel", "attention_fwd", "attention_bwd")
+    with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source
+        built = dict(zip(libs, pool.map(timed_build, libs)))
+    wall = time.perf_counter() - t0
+    for lib in libs:
         _build.load_library(lib)
     regs = [line.split(":", 1)[1].strip()
-            for lib in ("mel_kernel", "attention_fwd")
-            for line in _build.build_log[lib].splitlines()
-            if "registers" in line]
-    print(f"phase 2 build: {time.perf_counter() - t0:.1f} s with nvcc "
-          f"sm_90a into build/maest_tpu_torch; ptxas {regs}", flush=True)
+            for log, _ in built.values()
+            for line in log.splitlines() if "registers" in line]
+    print(f"phase 2 build: {wall:.1f} s with nvcc sm_90a into "
+          f"build/maest_tpu_torch, one nvcc per source at once ("
+          + ", ".join(f"{lib} {s:.1f} s" for lib, (_, s) in built.items())
+          + f"); ptxas {regs}", flush=True)
 
     mel_err, attn_err = phase_kernels_vs_plain(dev)
     sd = phase_golden(dev)
@@ -349,6 +739,12 @@ def main() -> int:
         model, launches, inputs = phase_main_path(dev, sd, tmp)
     phase_server(model, inputs)
     t = phase_times(dev, model, gpu)
+    del model
+    torch.cuda.empty_cache()
+    train_err = phase_train_kernels(dev)
+    phase_golden_step(dev)
+    train_launches = phase_recipe(dev)
+    tt = phase_train_times(dev, gpu)
 
     kernels = [
         {"name": "fused_logmel", "route": "cuda",
@@ -361,6 +757,18 @@ def main() -> int:
          "replaces": "maest_tpu/ops/attention.py:176",
          "launches": launches["attention"], "max_abs_err": attn_err,
          "ms": t["bfloat16"][0], "plain_ms": t["bfloat16"][1]},
+        {"name": "attention_fwd_lse", "route": "cuda",
+         "source": "maest_tpu_torch/csrc/attention_fwd.cu",
+         "replaces": "maest_tpu/ops/attention.py:404",
+         "launches": train_launches["fwd_lse"],
+         "max_abs_err": max(train_err["o"], train_err["lse"]),
+         "ms": tt["fwd_lse"][0], "plain_ms": tt["fwd_lse"][1]},
+        {"name": "attention_bwd", "route": "cuda",
+         "source": "maest_tpu_torch/csrc/attention_bwd.cu",
+         "replaces": "maest_tpu/ops/attention.py:483",
+         "launches": train_launches["bwd"],
+         "max_abs_err": max(train_err[w] for w in ("dq", "dk", "dv")),
+         "ms": tt["bwd"][0], "plain_ms": tt["bwd"][1]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -1,10 +1,11 @@
 """maest_tpu_torch — the MAEST tagging stack on PyTorch and CUDA.
 
-A port of ``maest_tpu`` (JAX/TPU) to one NVIDIA Hopper GPU. It imports
-torch and never jax; the JAX package stays the reference it is tested
-against. The mel front-end and attention run hand-written CUDA kernels on
-the card (``maest_tpu_torch/csrc``) and their plain PyTorch versions on
-the CPU::
+A port of ``maest_tpu`` (JAX/TPU) to one NVIDIA Hopper GPU: inference
+(this module's API) and the train step (``maest_tpu_torch.train``). It
+imports torch and never jax; the JAX package stays the reference it is
+tested against. The mel front-end and attention (forward and backward)
+run hand-written CUDA kernels on the card (``maest_tpu_torch/csrc``) and
+their plain PyTorch versions on the CPU::
 
     from maest_tpu_torch import get_maest
     model = get_maest(arch="discogs-maest-30s-pw-129e", device="cuda")

@@ -6,6 +6,7 @@ from .convert import (
     normalize_state,
     state_from_jax_params,
     strip_prefix,
+    train_state_from_jax,
 )
 
 __all__ = [
@@ -16,4 +17,5 @@ __all__ = [
     "normalize_state",
     "state_from_jax_params",
     "strip_prefix",
+    "train_state_from_jax",
 ]

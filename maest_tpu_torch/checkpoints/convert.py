@@ -3,6 +3,8 @@
 * ``state_from_jax_params`` — the JAX package's param tree (nested
   numpy arrays) -> this port's ``state_dict`` (port of
   ``maest_tpu/packaging/hf_ast.py::jax_to_torch_state``).
+* ``train_state_from_jax`` — a JAX ``TrainState`` (parameters, Adam
+  moments and count, SWA, accumulator) -> the port's ``TrainState``.
 * ``load_checkpoint_file`` / ``normalize_state`` / ``load_into`` — a
   ``.ckpt``/``.pt``/``.safetensors`` file -> SWA or live weights -> the
   module, with the JAX package's ``strict=False`` semantics: missing keys
@@ -136,3 +138,63 @@ def load_into(net: torch.nn.Module, state: Mapping[str, object], *,
                                  f"{tuple(t.shape)}")
             t.copy_(torch.from_numpy(v))
     return net
+
+
+def _find(tree, *attrs):
+    """The first node of a (nested tuple / namedtuple) optax state with all
+    of ``attrs``, or None."""
+    if all(hasattr(tree, a) for a in attrs):
+        return tree
+    if isinstance(tree, (tuple, list)):
+        for sub in tree:
+            hit = _find(sub, *attrs)
+            if hit is not None:
+                return hit
+    return None
+
+
+def train_state_from_jax(state, cfg, tx, *, dtype: torch.dtype = torch.float32,
+                         device="cpu"):
+    """A JAX ``TrainState`` (numpy leaves) -> the port's ``TrainState``.
+
+    The parameters, the SWA parameters, the Adam moments ``mu``/``nu`` and
+    the ``optax.MultiSteps`` accumulator all go through
+    ``state_from_jax_params`` (one key and transpose map); the Adam update
+    count, ``step``, ``swa_n`` and the accumulator's ``mini_step`` carry
+    over. ``tx`` is the port's optimizer recipe (``make_optimizer``); the
+    module computes in ``dtype`` over float32 parameters on ``device``."""
+    from ..models.vit import MAESTNet
+    from ..train.state import TrainState
+
+    net = MAESTNet(cfg, dtype=dtype, param_dtype=torch.float32)
+    load_into(net, state_from_jax_params(state.params, cfg))
+    net.to(device)
+    swa = dict(state.swa_params) if state.swa_params else {}
+    out = TrainState.create(net, tx, with_swa=bool(swa))
+    out.step = int(np.asarray(state.step))
+    out.swa_n = int(np.asarray(state.swa_n))
+    named = dict(net.named_parameters())
+    with torch.no_grad():
+        if swa:
+            for k, v in state_from_jax_params(swa, cfg).items():
+                out.swa_params[k].copy_(v)
+        multi = _find(state.opt_state, "mini_step", "acc_grads")
+        if multi is not None and out.accum:
+            out.mini_step = int(np.asarray(multi.mini_step))
+            for k, v in state_from_jax_params(multi.acc_grads, cfg).items():
+                out.accum[k].copy_(v)
+    adam = _find(state.opt_state, "mu", "nu", "count")
+    if adam is None:
+        raise ValueError("no Adam state (mu, nu, count) in opt_state")
+    out.count = int(np.asarray(adam.count))
+    if out.count:
+        mu = state_from_jax_params(adam.mu, cfg)
+        nu = state_from_jax_params(adam.nu, cfg)
+        for k, m in mu.items():
+            p = named[k]
+            out.optimizer.state[p] = {
+                "step": torch.tensor(float(out.count)),
+                "exp_avg": m.to(p.device),
+                "exp_avg_sq": nu[k].to(p.device),
+            }
+    return out

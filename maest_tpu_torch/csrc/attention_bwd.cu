@@ -1,0 +1,668 @@
+// Attention backward for Hopper (sm_90a), head_dim 64.
+//
+// Replaces maest_tpu/ops/attention.py::_attn_bwd_kernel + _bwd_body (the
+// combined full-K backward, K3b, called from _flash_bwd) and _bwd_dq_kernel +
+// _bwd_dkv_kernel (the split backward for n_pad > 4096, K4, called from
+// _flash_bwd_split). It computes what both compute, for any N:
+//
+//   delta = rowsum(do * o)                       (fp32)
+//   p     = exp2(q.k * scale * log2(e) - lse)    keys >= n_real: p = 0
+//   dv    = p^T . do          p rounded to the input dtype first
+//   dp    = do . v^T
+//   ds    = p * (dp - delta) * scale             rounded to the input dtype
+//   dq    = ds . k            dk = ds^T . q
+//
+// with fp32 accumulation; dq, dk and dv are stored in the input dtype. lse
+// is the forward's m + log2(l) per query row (attention_fwd.cu, K3a).
+// Query rows >= n_real still contribute; only masked keys get exactly zero
+// dk and dv.
+//
+// Why not the TPU design: the TPU kernel accumulates dk/dv across q blocks
+// in grid-resident output blocks because its grid runs the q blocks in
+// sequence. CUDA blocks run concurrently, so that accumulation would need
+// atomics (fp32 atomicAdd: nondeterministic sums). Here the work is split
+// as in the TPU's own split backward, three launches:
+//   1. delta, eight threads per row;
+//   2. dk/dv: a block owns a tile of keys and streams every q tile,
+//      rebuilding p from lse; its dk/dv stay in registers until the end;
+//   3. dq: a block owns a tile of q rows and streams every key tile.
+// Scores are computed twice (once per kernel), as in the TPU's split path;
+// the working set is bounded by the tiles, so any N runs, and every sum
+// is taken in one fixed order: the result is deterministic.
+//
+// What bounds it on the H100: arithmetic, as in the forward. Per (batch,
+// head) the backward does 2 x 2 N^2 64 flops for the two score recomputes
+// and 3 x 2 N^2 64 for dv, dp/dq and dk (5 products of N^2 64) against
+// 8 N 64 elements moved, plus the N^2 exp2.
+//
+// Layout: q, k, v, o, do (reads) and dq, dk, dv (writes) are (B, N, H, 64)
+// views with any batch/token/head strides and a contiguous last dimension,
+// so the q/k/v slices of the fused qkv projection are read in place.
+//
+// bf16 design: mma.sync m16n8k16 on the tensor cores, with the helpers of
+// mma_bf16.cuh. In the dk/dv kernel each warp owns 16 keys and keeps their
+// K and V rows as A fragments in registers; the block's q and do tiles are
+// double-buffered in shared memory with cp.async. Scores are formed
+// transposed, S^T = K.Q^T, so the accumulator rows are keys: p^T and ds^T
+// then serve as A operands of p^T.do and ds^T.q without leaving registers.
+// The dq kernel is the forward's structure: each warp owns 16 q rows (Q and
+// do fragments in registers), K and V tiles are double-buffered, and ds
+// (registers) times K (ldmatrix.trans) accumulates dq.
+//
+// fp32 design (the parity tier, which must stay true fp32): scalar FMA. In
+// the dk/dv kernel a thread owns one key (its k and v rows in shared memory
+// rows padded to 65 floats, so 32 threads hit 32 banks; dk and dv in
+// registers) and q/do tiles are read as broadcasts; in the dq kernel a
+// thread owns one q row the same way and k/v tiles are the broadcasts.
+
+#include "mma_bf16.cuh"
+
+namespace {
+
+using namespace maest;
+
+// -------------------------------------------------------------- delta ---
+// eight 16-byte-aligned elements as fp32
+__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+__device__ __forceinline__ void load8(const bf16* p, float (&x)[8]) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+// delta = rowsum(do * o): eight lanes per row, eight elements per lane,
+// rows in (b, n, h) order so that neighbouring rows of a (b, n) are
+// neighbouring memory and a warp reads four whole rows at once
+template <typename T>
+__global__ void __launch_bounds__(256)
+attn_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                      float* __restrict__ delta, int batch, int n, int heads,
+                      Strides os, Strides ds) {
+  const long long r =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 3;
+  const int part = threadIdx.x & 7;
+  const bool live = r < static_cast<long long>(batch) * n * heads;
+  int b = 0, row = 0, h = 0;
+  float acc = 0.f;
+  if (live) {
+    h = static_cast<int>(r % heads);
+    const long long bn = r / heads;
+    row = static_cast<int>(bn % n);
+    b = static_cast<int>(bn / n);
+    float x[8], y[8];
+    load8(o + b * os.b + row * os.n + h * os.h + part * 8, x);
+    load8(dout + b * ds.b + row * ds.n + h * ds.h + part * 8, y);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc = fmaf(y[i], x[i], acc);
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+  if (live && part == 0)
+    delta[(static_cast<long long>(b) * heads + h) * n + row] = acc;  // (B, H, N)
+}
+
+// ---------------------------------------------------------------- fp32 ---
+constexpr int F_ROWS = 64;  // keys (dk/dv) or q rows (dq) per block
+constexpr int F_TILE = 16;  // streamed rows per shared-memory tile
+constexpr int F_LD = D + 1; // padded owned-row stride (conflict-free)
+
+__global__ void __launch_bounds__(F_ROWS)
+attn_bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, float* __restrict__ dk,
+                         float* __restrict__ dv, int n, int n_real, int heads,
+                         Strides qs, Strides ks, Strides vs, Strides dos,
+                         Strides dks, Strides dvs, float sl, float scale) {
+  __shared__ float k_own[F_ROWS][F_LD];
+  __shared__ float v_own[F_ROWS][F_LD];
+  __shared__ float4 q_t[F_TILE][D / 4];
+  __shared__ float4 do_t[F_TILE][D / 4];
+  __shared__ float lse_t[F_TILE];
+  __shared__ float delta_t[F_TILE];
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int key0 = blockIdx.y * F_ROWS;
+  const int key = key0 + threadIdx.x;
+  float acc_k[D], acc_v[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc_k[d] = acc_v[d] = 0.f;
+
+  if (key0 < n_real) {  // tiles wholly at or past n_real: dk = dv = 0
+    for (int i = threadIdx.x; i < F_ROWS * D; i += F_ROWS) {
+      const int j = i / D;
+      const int d = i - j * D;
+      const long long r = min(key0 + j, n - 1);
+      k_own[j][d] = k[b * ks.b + r * ks.n + h * ks.h + d];
+      v_own[j][d] = v[b * vs.b + r * vs.n + h * vs.h + d];
+    }
+    const float* lse_bh = lse + static_cast<long long>(bh) * n;
+    const float* delta_bh = delta + static_cast<long long>(bh) * n;
+    const bool live = key < n_real;
+    for (int base = 0; base < n; base += F_TILE) {
+      __syncthreads();  // the previous tile is consumed (and own rows staged)
+      float* qt = reinterpret_cast<float*>(q_t);
+      float* dt = reinterpret_cast<float*>(do_t);
+      for (int i = threadIdx.x; i < F_TILE * D; i += F_ROWS) {
+        const int j = i / D;
+        const int d = i - j * D;
+        const int row = base + j;
+        float qv = 0.f, dv_ = 0.f;
+        if (row < n) {
+          qv = q[b * qs.b + static_cast<long long>(row) * qs.n + h * qs.h + d];
+          dv_ = dout[b * dos.b + static_cast<long long>(row) * dos.n + h * dos.h + d];
+        }
+        qt[i] = qv;
+        dt[i] = dv_;
+      }
+      if (threadIdx.x < F_TILE) {
+        const int row = base + threadIdx.x;
+        // rows past N: lse +inf gives p = 0, delta 0 gives ds = 0
+        lse_t[threadIdx.x] = row < n ? lse_bh[row] : __int_as_float(0x7f800000);
+        delta_t[threadIdx.x] = row < n ? delta_bh[row] : 0.f;
+      }
+      __syncthreads();
+      if (!live) continue;
+      const int rows = min(F_TILE, n - base);
+      for (int j = 0; j < rows; ++j) {
+        float s = 0.f, dp = 0.f;
+#pragma unroll
+        for (int d4 = 0; d4 < D / 4; ++d4) {
+          const float4 qq = q_t[j][d4];
+          const float4 gg = do_t[j][d4];
+          s = fmaf(k_own[threadIdx.x][4 * d4 + 0], qq.x, s);
+          s = fmaf(k_own[threadIdx.x][4 * d4 + 1], qq.y, s);
+          s = fmaf(k_own[threadIdx.x][4 * d4 + 2], qq.z, s);
+          s = fmaf(k_own[threadIdx.x][4 * d4 + 3], qq.w, s);
+          dp = fmaf(v_own[threadIdx.x][4 * d4 + 0], gg.x, dp);
+          dp = fmaf(v_own[threadIdx.x][4 * d4 + 1], gg.y, dp);
+          dp = fmaf(v_own[threadIdx.x][4 * d4 + 2], gg.z, dp);
+          dp = fmaf(v_own[threadIdx.x][4 * d4 + 3], gg.w, dp);
+        }
+        const float p = exp2f(s * sl - lse_t[j]);
+        const float dsv = p * (dp - delta_t[j]) * scale;
+#pragma unroll
+        for (int d4 = 0; d4 < D / 4; ++d4) {
+          const float4 qq = q_t[j][d4];
+          const float4 gg = do_t[j][d4];
+          acc_v[4 * d4 + 0] = fmaf(p, gg.x, acc_v[4 * d4 + 0]);
+          acc_v[4 * d4 + 1] = fmaf(p, gg.y, acc_v[4 * d4 + 1]);
+          acc_v[4 * d4 + 2] = fmaf(p, gg.z, acc_v[4 * d4 + 2]);
+          acc_v[4 * d4 + 3] = fmaf(p, gg.w, acc_v[4 * d4 + 3]);
+          acc_k[4 * d4 + 0] = fmaf(dsv, qq.x, acc_k[4 * d4 + 0]);
+          acc_k[4 * d4 + 1] = fmaf(dsv, qq.y, acc_k[4 * d4 + 1]);
+          acc_k[4 * d4 + 2] = fmaf(dsv, qq.z, acc_k[4 * d4 + 2]);
+          acc_k[4 * d4 + 3] = fmaf(dsv, qq.w, acc_k[4 * d4 + 3]);
+        }
+      }
+    }
+  }
+  if (key < n) {
+    float* kp = dk + b * dks.b + static_cast<long long>(key) * dks.n + h * dks.h;
+    float* vp = dv + b * dvs.b + static_cast<long long>(key) * dvs.n + h * dvs.h;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      kp[d] = acc_k[d];
+      vp[d] = acc_v[d];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(F_ROWS)
+attn_bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, float* __restrict__ dq,
+                        int n, int n_real, int heads, Strides qs, Strides ks,
+                        Strides vs, Strides dos, Strides dqs, float sl,
+                        float scale) {
+  __shared__ float q_own[F_ROWS][F_LD];
+  __shared__ float do_own[F_ROWS][F_LD];
+  __shared__ float4 k_t[F_TILE][D / 4];
+  __shared__ float4 v_t[F_TILE][D / 4];
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int row0 = blockIdx.y * F_ROWS;
+  const int row = row0 + threadIdx.x;
+  for (int i = threadIdx.x; i < F_ROWS * D; i += F_ROWS) {
+    const int j = i / D;
+    const int d = i - j * D;
+    const long long r = min(row0 + j, n - 1);
+    q_own[j][d] = q[b * qs.b + r * qs.n + h * qs.h + d];
+    do_own[j][d] = dout[b * dos.b + r * dos.n + h * dos.h + d];
+  }
+  const long long stat = static_cast<long long>(bh) * n + min(row, n - 1);
+  const float lse_r = lse[stat];
+  const float delta_r = delta[stat];
+  float acc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc[d] = 0.f;
+
+  for (int base = 0; base < n_real; base += F_TILE) {
+    __syncthreads();
+    float* kt = reinterpret_cast<float*>(k_t);
+    float* vt = reinterpret_cast<float*>(v_t);
+    for (int i = threadIdx.x; i < F_TILE * D; i += F_ROWS) {
+      const int j = i / D;
+      const int d = i - j * D;
+      const int key = base + j;
+      float kv = 0.f, vv = 0.f;
+      if (key < n) {
+        kv = k[b * ks.b + static_cast<long long>(key) * ks.n + h * ks.h + d];
+        vv = v[b * vs.b + static_cast<long long>(key) * vs.n + h * vs.h + d];
+      }
+      kt[i] = kv;
+      vt[i] = vv;
+    }
+    __syncthreads();
+    const int keys = min(F_TILE, n_real - base);
+    for (int j = 0; j < keys; ++j) {
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int d4 = 0; d4 < D / 4; ++d4) {
+        const float4 kk = k_t[j][d4];
+        const float4 vv = v_t[j][d4];
+        s = fmaf(q_own[threadIdx.x][4 * d4 + 0], kk.x, s);
+        s = fmaf(q_own[threadIdx.x][4 * d4 + 1], kk.y, s);
+        s = fmaf(q_own[threadIdx.x][4 * d4 + 2], kk.z, s);
+        s = fmaf(q_own[threadIdx.x][4 * d4 + 3], kk.w, s);
+        dp = fmaf(do_own[threadIdx.x][4 * d4 + 0], vv.x, dp);
+        dp = fmaf(do_own[threadIdx.x][4 * d4 + 1], vv.y, dp);
+        dp = fmaf(do_own[threadIdx.x][4 * d4 + 2], vv.z, dp);
+        dp = fmaf(do_own[threadIdx.x][4 * d4 + 3], vv.w, dp);
+      }
+      const float p = exp2f(s * sl - lse_r);
+      const float dsv = p * (dp - delta_r) * scale;
+#pragma unroll
+      for (int d4 = 0; d4 < D / 4; ++d4) {
+        const float4 kk = k_t[j][d4];
+        acc[4 * d4 + 0] = fmaf(dsv, kk.x, acc[4 * d4 + 0]);
+        acc[4 * d4 + 1] = fmaf(dsv, kk.y, acc[4 * d4 + 1]);
+        acc[4 * d4 + 2] = fmaf(dsv, kk.z, acc[4 * d4 + 2]);
+        acc[4 * d4 + 3] = fmaf(dsv, kk.w, acc[4 * d4 + 3]);
+      }
+    }
+  }
+  if (row < n) {
+    float* op = dq + b * dqs.b + static_cast<long long>(row) * dqs.n + h * dqs.h;
+#pragma unroll
+    for (int d = 0; d < D; ++d) op[d] = acc[d];
+  }
+}
+
+// ---------------------------------------------------------------- bf16 ---
+constexpr int WARPS = 4;
+constexpr int ROWS = 16 * WARPS;  // keys (dk/dv) or q rows (dq) per block
+constexpr int TILE = 64;          // streamed rows per shared-memory tile
+constexpr int SUB = 32;           // streamed rows per register pass
+constexpr int LD = D + 8;         // padded bf16 row: 144 bytes, so the 8 rows
+                                  // an ldmatrix phase reads hit 32 banks
+
+// stage rows [row0, row0 + TILE) of two (row, 64) bf16 views into a/b via
+// cp.async; rows past n are zero-filled
+__device__ __forceinline__ void stage_pair(bf16 (*a)[LD], bf16 (*bsm)[LD],
+                                           const bf16* ga, long long as,
+                                           const bf16* gb, long long bs,
+                                           int row0, int n) {
+  for (int i = threadIdx.x; i < TILE * (D / 8); i += 32 * WARPS) {
+    const int j = i >> 3;
+    const int c = (i & 7) * 8;
+    const int row = row0 + j;
+    const long long src = static_cast<long long>(min(row, n - 1));
+    const int bytes = row < n ? 16 : 0;
+    cp_async16(&a[j][c], ga + src * as + c, bytes);
+    cp_async16(&bsm[j][c], gb + src * bs + c, bytes);
+  }
+  cp_async_commit();
+}
+
+// 16 x SUB product X.Y^T of a warp's A fragments (16 rows x 64) with SUB
+// rows of a staged tile (rows r0.., contraction over d): C layout, n-tile
+// nt covers tile rows r0 + 8 nt ..
+__device__ __forceinline__ void rows_dot(float (&c)[SUB / 8][4],
+                                         const uint32_t (&a)[4][4],
+                                         const bf16 (*tile)[LD], int r0,
+                                         int lr, int li) {
+#pragma unroll
+  for (int nt = 0; nt < SUB / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[nt][e] = 0.f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      uint32_t f[4];
+      ldmatrix_x4(f, &tile[r0 + nt * 8 + lr][half * 32 + li * 8]);
+      mma_16816(c[nt], a[2 * half], f[0], f[1]);
+      mma_16816(c[nt], a[2 * half + 1], f[2], f[3]);
+    }
+  }
+}
+
+// acc (16 x 64) += P (16 x SUB, bf16 A fragments) . tile rows r0..r0+SUB
+__device__ __forceinline__ void acc_pv(float (&acc)[8][4],
+                                       const uint32_t (&p)[SUB / 16][4],
+                                       const bf16 (*tile)[LD], int r0, int lr,
+                                       int li) {
+#pragma unroll
+  for (int kj = 0; kj < SUB / 16; ++kj) {
+#pragma unroll
+    for (int dp = 0; dp < 4; ++dp) {
+      uint32_t f[4];
+      ldmatrix_x4_trans(
+          f, &tile[r0 + kj * 16 + (li & 1) * 8 + lr][dp * 16 + (li >> 1) * 8]);
+      mma_16816(acc[2 * dp], p[kj], f[0], f[1]);
+      mma_16816(acc[2 * dp + 1], p[kj], f[2], f[3]);
+    }
+  }
+}
+
+// the C-layout tile x (16 x SUB) as bf16 A fragments of SUB / 16 k-steps
+__device__ __forceinline__ void to_a_frags(uint32_t (&f)[SUB / 16][4],
+                                           const float (&x)[SUB / 8][4]) {
+#pragma unroll
+  for (int nt = 0; nt < SUB / 8; ++nt) {
+    f[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(x[nt][0], x[nt][1]);
+    f[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(x[nt][2], x[nt][3]);
+  }
+}
+
+__device__ __forceinline__ void store_rows(bf16* base, long long rs,
+                                           const float (&acc)[8][4], int row0,
+                                           int n, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= n) continue;
+    bf16* p = base + static_cast<long long>(row) * rs + 2 * t;
+#pragma unroll
+    for (int dt = 0; dt < 8; ++dt)
+      *reinterpret_cast<__nv_bfloat162*>(p + dt * 8) =
+          __floats2bfloat162_rn(acc[dt][2 * r], acc[dt][2 * r + 1]);
+  }
+}
+
+__global__ void __launch_bounds__(32 * WARPS)
+attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, int n, int n_real, int heads,
+                         Strides qs, Strides ks, Strides vs, Strides dos,
+                         Strides dks, Strides dvs, float sl, float scale) {
+  __shared__ __align__(128) bf16 q_sm[2][TILE][LD];
+  __shared__ __align__(128) bf16 do_sm[2][TILE][LD];
+  __shared__ float lse_sm[2][TILE];
+  __shared__ float delta_sm[2][TILE];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int lr = lane & 7;
+  const int li = lane >> 3;
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int key0 = blockIdx.y * ROWS + warp * 16 + g;  // and key0 + 8
+
+  float acc_k[8][4], acc_v[8][4];
+#pragma unroll
+  for (int dt = 0; dt < 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[dt][e] = acc_v[dt][e] = 0.f;
+
+  if (blockIdx.y * ROWS < n_real) {  // else dk = dv = 0
+    const bf16* qb = q + b * qs.b + h * qs.h;
+    const bf16* dob = dout + b * dos.b + h * dos.h;
+    const float* lse_bh = lse + static_cast<long long>(bh) * n;
+    const float* delta_bh = delta + static_cast<long long>(bh) * n;
+    auto stage = [&](int tile, int buf) {
+      stage_pair(q_sm[buf], do_sm[buf], qb, qs.n, dob, dos.n, tile * TILE, n);
+      for (int i = threadIdx.x; i < TILE; i += 32 * WARPS) {
+        const int row = tile * TILE + i;
+        // rows past N: lse +inf gives p = 0, delta 0 gives ds = 0
+        lse_sm[buf][i] = row < n ? lse_bh[row] : __int_as_float(0x7f800000);
+        delta_sm[buf][i] = row < n ? delta_bh[row] : 0.f;
+      }
+    };
+    stage(0, 0);
+
+    uint32_t kf[4][4], vf[4][4];  // this warp's 16 keys, A fragments
+    load_row_frags(kf, k + b * ks.b + h * ks.h, ks.n, key0, n, t);
+    load_row_frags(vf, v + b * vs.b + h * vs.h, vs.n, key0, n, t);
+    const bool live0 = key0 < n_real;
+    const bool live1 = key0 + 8 < n_real;
+
+    const int n_tiles = (n + TILE - 1) / TILE;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int buf = it & 1;
+      if (it + 1 < n_tiles) {
+        stage(it + 1, buf ^ 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+#pragma unroll
+      for (int r0 = 0; r0 < TILE; r0 += SUB) {
+        // S^T = K.Q^T: rows are this warp's keys, columns q rows r0..
+        float p[SUB / 8][4];
+        rows_dot(p, kf, q_sm[buf], r0, lr, li);
+#pragma unroll
+        for (int nt = 0; nt < SUB / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = exp2f(p[nt][e] * sl - lse_sm[buf][r0 + nt * 8 + 2 * t + (e & 1)]);
+            p[nt][e] = ((e >> 1) ? live1 : live0) ? x : 0.f;
+          }
+        uint32_t pf[SUB / 16][4];
+        to_a_frags(pf, p);
+        acc_pv(acc_v, pf, do_sm[buf], r0, lr, li);  // dv += p^T . do
+
+        float ds[SUB / 8][4];
+        rows_dot(ds, vf, do_sm[buf], r0, lr, li);  // dp^T = V.dO^T
+#pragma unroll
+        for (int nt = 0; nt < SUB / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            ds[nt][e] = p[nt][e] *
+                        (ds[nt][e] - delta_sm[buf][r0 + nt * 8 + 2 * t + (e & 1)]) *
+                        scale;
+        uint32_t dsf[SUB / 16][4];
+        to_a_frags(dsf, ds);
+        acc_pv(acc_k, dsf, q_sm[buf], r0, lr, li);  // dk += ds^T . q
+      }
+      __syncthreads();  // every warp is done with `buf` before it is refilled
+    }
+  }
+  store_rows(dk + b * dks.b + h * dks.h, dks.n, acc_k, key0, n, t);
+  store_rows(dv + b * dvs.b + h * dvs.h, dvs.n, acc_v, key0, n, t);
+}
+
+__global__ void __launch_bounds__(32 * WARPS)
+attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, bf16* __restrict__ dq,
+                        int n, int n_real, int heads, Strides qs, Strides ks,
+                        Strides vs, Strides dos, Strides dqs, float sl,
+                        float scale) {
+  __shared__ __align__(128) bf16 k_sm[2][TILE][LD];
+  __shared__ __align__(128) bf16 v_sm[2][TILE][LD];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int lr = lane & 7;
+  const int li = lane >> 3;
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int row0 = blockIdx.y * ROWS + warp * 16 + g;  // and row0 + 8
+
+  const bf16* kb = k + b * ks.b + h * ks.h;
+  const bf16* vb = v + b * vs.b + h * vs.h;
+  stage_pair(k_sm[0], v_sm[0], kb, ks.n, vb, vs.n, 0, n);
+
+  uint32_t qf[4][4], dof[4][4];
+  load_row_frags(qf, q + b * qs.b + h * qs.h, qs.n, row0, n, t);
+  load_row_frags(dof, dout + b * dos.b + h * dos.h, dos.n, row0, n, t);
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long i = static_cast<long long>(bh) * n + min(row0 + 8 * r, n - 1);
+    lse_r[r] = lse[i];
+    delta_r[r] = delta[i];
+  }
+
+  float acc[8][4];
+#pragma unroll
+  for (int dt = 0; dt < 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+
+  const int n_tiles = (n_real + TILE - 1) / TILE;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_tiles) {
+      stage_pair(k_sm[buf ^ 1], v_sm[buf ^ 1], kb, ks.n, vb, vs.n,
+                 (it + 1) * TILE, n);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int base = it * TILE;
+#pragma unroll
+    for (int r0 = 0; r0 < TILE; r0 += SUB) {
+      float p[SUB / 8][4];
+      rows_dot(p, qf, k_sm[buf], r0, lr, li);  // S = Q.K^T
+#pragma unroll
+      for (int nt = 0; nt < SUB / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = base + r0 + nt * 8 + 2 * t + (e & 1);
+          p[nt][e] = key < n_real ? exp2f(p[nt][e] * sl - lse_r[e >> 1]) : 0.f;
+        }
+      float ds[SUB / 8][4];
+      rows_dot(ds, dof, v_sm[buf], r0, lr, li);  // dP = dO.V^T
+#pragma unroll
+      for (int nt = 0; nt < SUB / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[nt][e] = p[nt][e] * (ds[nt][e] - delta_r[e >> 1]) * scale;
+      uint32_t dsf[SUB / 16][4];
+      to_a_frags(dsf, ds);
+      acc_pv(acc, dsf, k_sm[buf], r0, lr, li);  // dq += ds . k
+    }
+    __syncthreads();
+  }
+  store_rows(dq + b * dqs.b + h * dqs.h, dqs.n, acc, row0, n, t);
+}
+
+// ---------------------------------------------------------------- entry ---
+struct Views {
+  Strides q, k, v, o, dout, dq, dk, dv;
+};
+
+Views views(const long long* st) {
+  Views w;
+  Strides* s[8] = {&w.q, &w.k, &w.v, &w.o, &w.dout, &w.dq, &w.dk, &w.dv};
+  for (int i = 0; i < 8; ++i) *s[i] = Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
+  return w;
+}
+
+template <typename T>
+int launch_delta(const void* o, const void* dout, float* delta, int batch,
+                 int n, int heads, const Views& w, cudaStream_t s) {
+  const long long threads = 8LL * batch * heads * n;  // eight per row
+  attn_bwd_delta_kernel<T><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, s>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, batch, n,
+      heads, w.o, w.dout);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* maest_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// q, k, v, o, dout (reads) and dq, dk, dv (writes): (batch, n, heads, 64)
+// with element strides strides[0..23] = (b, n, h) of q, k, v, o, dout, dq,
+// dk, dv in that order, and a contiguous last dimension. lse: contiguous
+// fp32 (batch, heads, n) from the forward; delta: fp32 scratch of the same
+// shape. sl = scale * log2(e), scale = head_dim^-0.5. 1 <= n_real <= n.
+// Every o and dout row (both entries) and every q/k/v row (bf16 entry)
+// must start on a 16-byte boundary. Three launches on `stream` (delta, dk/dv, dq); returns the
+// first non-zero cudaGetLastError().
+int maest_attn_bwd_fp32(const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const float* lse,
+                        float* delta, void* dq, void* dk, void* dv, int batch,
+                        int n, int heads, int n_real, const long long* strides,
+                        float sl, float scale, void* stream) {
+  if (batch <= 0 || n <= 0) return 0;
+  const Views w = views(strides);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err = launch_delta<float>(o, dout, delta, batch, n, heads, w, s);
+  if (err) return err;
+  const dim3 grid(batch * heads, (n + F_ROWS - 1) / F_ROWS);
+  attn_bwd_dkv_fp32_kernel<<<grid, F_ROWS, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
+      static_cast<float*>(dk), static_cast<float*>(dv), n, n_real, heads, w.q,
+      w.k, w.v, w.dout, w.dk, w.dv, sl, scale);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  attn_bwd_dq_fp32_kernel<<<grid, F_ROWS, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
+      static_cast<float*>(dq), n, n_real, heads, w.q, w.k, w.v, w.dout, w.dq,
+      sl, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int maest_attn_bwd_bf16(const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const float* lse,
+                        float* delta, void* dq, void* dk, void* dv, int batch,
+                        int n, int heads, int n_real, const long long* strides,
+                        float sl, float scale, void* stream) {
+  if (batch <= 0 || n <= 0) return 0;
+  const Views w = views(strides);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err = launch_delta<bf16>(o, dout, delta, batch, n, heads, w, s);
+  if (err) return err;
+  const dim3 grid(batch * heads, (n + ROWS - 1) / ROWS);
+  attn_bwd_dkv_bf16_kernel<<<grid, 32 * WARPS, 0, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, n_real, heads, w.q,
+      w.k, w.v, w.dout, w.dk, w.dv, sl, scale);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  attn_bwd_dq_bf16_kernel<<<grid, 32 * WARPS, 0, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
+      static_cast<bf16*>(dq), n, n_real, heads, w.q, w.k, w.v, w.dout, w.dq,
+      sl, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

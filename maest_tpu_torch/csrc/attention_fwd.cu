@@ -1,8 +1,11 @@
 // Attention forward for Hopper (sm_90a): online softmax, head_dim 64.
 //
 // Replaces maest_tpu/ops/attention.py::_attn_kernel + _attn_body (called
-// from _flash_fwd / _flash_fwd_lse(with_lse=False) / flash_attention), the
-// inference forward without the log-sum-exp output. Semantics are those of
+// from _flash_fwd_lse): the inference forward without the log-sum-exp
+// output (K2, lse == nullptr) and the training forward with it (K3a, from
+// _fwd of the custom VJP). The lse is m + log2(l) per query row, fp32, in
+// the log2 domain of _attn_body, written as (B, H, N); the backward in
+// attention_bwd.cu rebuilds the probabilities from it. Semantics are those of
 // _attn_body: scores q.k are scaled by scale*log2(e) and exponentiated with
 // exp2; keys at index >= n_real get -1e30; the running max and sum are fp32
 // and P.V accumulates in fp32; the output is divided by the sum once, at
@@ -45,18 +48,11 @@
 // >= n_real are masked with -1e30 as in the TPU kernel. Query rows past N
 // are computed on clamped inputs and never stored, so any N works.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_bf16.cuh"
 
 namespace {
 
-constexpr int D = 64;  // head_dim, fixed at compile time
-constexpr float NEG_INF = -1e30f;
-
-struct Strides {  // element strides of a (B, N, H, D) view
-  long long b, n, h;
-};
+using namespace maest;
 
 // ---------------------------------------------------------------- fp32 ---
 constexpr int BQ = 128;  // query rows per block, one per thread
@@ -66,8 +62,8 @@ constexpr int SUB = 16;  // keys per softmax update
 __global__ void __launch_bounds__(BQ)
 attn_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
-                     int n, int n_real, int heads, Strides qs, Strides ks,
-                     Strides vs, Strides os, float sl) {
+                     float* __restrict__ lse, int n, int n_real, int heads,
+                     Strides qs, Strides ks, Strides vs, Strides os, float sl) {
   __shared__ float4 k_tile[BK][D / 4];
   __shared__ float4 v_tile[BK][D / 4];
 
@@ -151,80 +147,25 @@ attn_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* op = out + b * os.b + static_cast<long long>(row) * os.n + h * os.h;
 #pragma unroll
     for (int d = 0; d < D; ++d) op[d] = acc[d] / l;
+    if (lse != nullptr) lse[static_cast<long long>(bh) * n + row] = m + log2f(l);
   }
 }
 
 // ---------------------------------------------------------------- bf16 ---
-using bf16 = __nv_bfloat16;
 constexpr int WARPS = 8;
 constexpr int MQ = 16 * WARPS;  // query rows per block
 constexpr int MK = 64;          // keys per shared-memory tile
 constexpr int LD = D + 8;       // shared-memory row, bf16: 144 bytes, so the
                                 // 8 rows an ldmatrix phase reads hit 32 banks
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy that bypasses registers; src_bytes 0 fills
-// the destination with zeros (keys past the end of the sequence)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row-major) * b (16x8, column-major); fp32 accumulators
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Fragment layout of m16n8k16 (PTX ISA), lane = 4 g + t:
-//   A: a0 (row g, cols 2t..2t+1), a1 (row g+8, same), a2 (row g, cols
-//      2t+8..2t+9), a3 (row g+8, same)
-//   B: b0 (rows 2t..2t+1, col g), b1 (rows 2t+8..2t+9, col g)
-//   C: c0,c1 (row g, cols 2t..2t+1), c2,c3 (row g+8, same)
-// ldmatrix.x4 gives lane the pair (row g, cols 2t..2t+1) of each of four
-// 8x8 tiles whose rows lanes 8i..8i+7 address; .trans gives the pair
-// (rows 2t..2t+1, col g). On row-major K (key, d) the first is the B
-// operand of Q.K^T, on row-major V (key, d) the second that of P.V.
+// Fragment layouts: see mma_bf16.cuh.
 // two blocks per SM: caps the kernel at 128 registers a thread (it needs
 // 132 uncapped, which leaves room for one block); measured 1.39 vs 1.64 ms
 __global__ void __launch_bounds__(32 * WARPS, 2)
 attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
-                     int n, int n_real, int heads, Strides qs, Strides ks,
-                     Strides vs, Strides os, float sl) {
+                     float* __restrict__ lse, int n, int n_real, int heads,
+                     Strides qs, Strides ks, Strides vs, Strides os, float sl) {
   __shared__ __align__(128) bf16 k_sm[2][MK][LD];  // double-buffered tiles
   __shared__ __align__(128) bf16 v_sm[2][MK][LD];
 
@@ -386,24 +327,26 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int dt = 0; dt < 8; ++dt)
       *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) = __floats2bfloat162_rn(
           o[dt][2 * r] / l[r], o[dt][2 * r + 1] / l[r]);
+    if (lse != nullptr && t == 0)
+      lse[static_cast<long long>(bh) * n + row] = m[r] + log2f(l[r]);
   }
 }
 
 // ---------------------------------------------------------------- entry ---
 template <typename T>
-int launch(void (*kernel)(const T*, const T*, const T*, T*, int, int, int,
-                          Strides, Strides, Strides, Strides, float),
+int launch(void (*kernel)(const T*, const T*, const T*, T*, float*, int, int,
+                          int, Strides, Strides, Strides, Strides, float),
            int rows_per_block, int threads, const void* q, const void* k,
-           const void* v, void* out, int batch, int n, int heads, int n_real,
-           const long long* st, float sl, void* stream) {
+           const void* v, void* out, float* lse, int batch, int n, int heads,
+           int n_real, const long long* st, float sl, void* stream) {
   if (batch <= 0 || n <= 0) return 0;
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
   const dim3 grid(batch * heads, (n + rows_per_block - 1) / rows_per_block);
   kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), n, n_real, heads, qs, ks,
-      vs, os, sl);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, n, n_real, heads,
+      qs, ks, vs, os, sl);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -417,21 +360,23 @@ const char* maest_cuda_error_string(int err) {
 
 // q, k, v, out: (batch, n, heads, 64) with element strides
 // strides[0..11] = (q_b, q_n, q_h, k_b, k_n, k_h, v_b, v_n, v_h, o_b, o_n,
-// o_h) and a contiguous last dimension. sl = head_dim^-0.5 * log2(e).
-// 1 <= n_real <= n. The bf16 entry also needs every q/k/v row to start on
-// a 16-byte boundary. Launches on `stream`; returns cudaGetLastError().
+// o_h) and a contiguous last dimension. lse: nullptr (inference), or a
+// contiguous fp32 (batch, heads, n) that receives m + log2(l) per row.
+// sl = head_dim^-0.5 * log2(e). 1 <= n_real <= n. The bf16 entry also
+// needs every q/k/v row to start on a 16-byte boundary. Launches on
+// `stream`; returns cudaGetLastError().
 int maest_attn_fwd_fp32(const void* q, const void* k, const void* v, void* out,
-                        int batch, int n, int heads, int n_real,
+                        float* lse, int batch, int n, int heads, int n_real,
                         const long long* strides, float sl, void* stream) {
-  return launch<float>(attn_fwd_fp32_kernel, BQ, BQ, q, k, v, out, batch, n, heads,
-                       n_real, strides, sl, stream);
+  return launch<float>(attn_fwd_fp32_kernel, BQ, BQ, q, k, v, out, lse, batch,
+                       n, heads, n_real, strides, sl, stream);
 }
 
 int maest_attn_fwd_bf16(const void* q, const void* k, const void* v, void* out,
-                        int batch, int n, int heads, int n_real,
+                        float* lse, int batch, int n, int heads, int n_real,
                         const long long* strides, float sl, void* stream) {
-  return launch<bf16>(attn_fwd_bf16_kernel, MQ, 32 * WARPS, q, k, v, out, batch, n, heads,
-                      n_real, strides, sl, stream);
+  return launch<bf16>(attn_fwd_bf16_kernel, MQ, 32 * WARPS, q, k, v, out, lse,
+                      batch, n, heads, n_real, strides, sl, stream);
 }
 
 }  // extern "C"

@@ -1,0 +1,104 @@
+// Tensor-core helpers shared by the attention kernels (sm_90a): bf16
+// packing, cp.async staging, ldmatrix and mma.sync m16n8k16.
+//
+// Fragment layout of m16n8k16 (PTX ISA), lane = 4 g + t:
+//   A: a0 (row g, cols 2t..2t+1), a1 (row g+8, same), a2 (row g, cols
+//      2t+8..2t+9), a3 (row g+8, same)
+//   B: b0 (rows 2t..2t+1, col g), b1 (rows 2t+8..2t+9, col g)
+//   C: c0,c1 (row g, cols 2t..2t+1), c2,c3 (row g+8, same)
+// ldmatrix.x4 gives lane the pair (row g, cols 2t..2t+1) of each of four
+// 8x8 tiles whose rows lanes 8i..8i+7 address; .trans gives the pair
+// (rows 2t..2t+1, col g). On a row-major (row, d) tile in shared memory
+// the first is the B operand of X.Y^T (contraction over d), the second
+// that of P.Y (contraction over the tile's rows).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace maest {
+
+constexpr int D = 64;  // head_dim, fixed at compile time
+constexpr float NEG_INF = -1e30f;
+
+struct Strides {  // element strides of a (B, N, H, D) view
+  long long b, n, h;
+};
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy that bypasses registers; src_bytes 0 fills
+// the destination with zeros (rows past the end of the sequence)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a (16x16, row-major) * b (16x8, column-major); fp32 accumulators
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A fragments (4 k-steps of 16 over d) of the 16 rows row0 / row0 + 8 of a
+// (row, 64) bf16 view, read from global memory; rows are clamped to n - 1
+__device__ __forceinline__ void load_row_frags(uint32_t (&f)[4][4],
+                                               const bf16* base, long long rs,
+                                               int row0, int n, int t) {
+  const bf16* r0 = base + static_cast<long long>(min(row0, n - 1)) * rs;
+  const bf16* r1 = base + static_cast<long long>(min(row0 + 8, n - 1)) * rs;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int c = kk * 16 + 2 * t;
+    f[kk][0] = ld_u32(r0 + c);
+    f[kk][1] = ld_u32(r1 + c);
+    f[kk][2] = ld_u32(r0 + c + 8);
+    f[kk][3] = ld_u32(r1 + c + 8);
+  }
+}
+
+}  // namespace maest

@@ -1,4 +1,4 @@
-"""MAEST ViT, eval mode, port of ``maest_tpu/models/vit.py``.
+"""MAEST ViT, port of ``maest_tpu/models/vit.py``: eval and train modes.
 
 Parameter names follow the torch layout of the released checkpoints
 (``blocks.{i}.attn.qkv.weight``, ``head.0``/``head.1``, ``head_dist``, ...),
@@ -7,30 +7,52 @@ takes NCHW ``(B, 1, F, T)`` spectrograms; the JAX module takes NHWC.
 
 Numerics tiers, as in the JAX package: float32 is the parity tier (exact
 erf GELU, full-fp32 patch projection); bfloat16 is the production tier
-(tanh GELU). Attention goes through ``ops.attention.flash_attention``:
-the CUDA kernel on the card, the plain version on the CPU.
+(tanh GELU). ``dtype`` is the compute dtype; ``param_dtype`` (default: the
+compute dtype) is the storage dtype of the parameters, which are cast per
+use, as flax's ``dtype``/``param_dtype`` do. Inference stores bf16
+weights for the bf16 tier; training keeps fp32 parameters under bf16
+compute, so that an optimizer step smaller than bf16's spacing is not
+lost. Attention goes through ``ops.attention.flash_attention``: the CUDA
+kernels on the card, the plain versions on the CPU.
 
-Not ported yet, and refused with ``NotImplementedError``: the training
-forward (patchout, dropout, drop_path, remat, the random time pos-embed
-crop), ``forward_mode`` front/tail, mesh and sequence parallelism, and the
-per-frequency patch embedding.
+The train forward (``forward(x, train=True, generator=...)``) ports the
+random time pos-embed crop, structured and unstructured patchout, token /
+projection / MLP dropout, attention-matrix dropout (materialised softmax,
+the JAX package's XLA path), per-sample drop_path, and block remat with
+the policies ``full``, ``dots`` and ``attn_out``. Its random draws come
+from an explicit CPU ``torch.Generator`` (``draw_train``), or are handed
+in as ``TrainDraws``; dropout masks are drawn on the tensors' device from
+per-block seeds, so a rematerialized block redraws the same masks.
+
+Not ported yet, and refused with ``NotImplementedError``:
+``forward_mode`` front/tail (pipeline seams, ROADMAP queue 1 item 7),
+mesh and sequence parallelism (item 7), the per-frequency patch
+embedding and non-distilled configs (items 1-4).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
-from ..ops.attention import flash_attention
+from ..ops.attention import flash_attention_qkv, record_outputs, replay_outputs
 from .config import MAESTConfig
 
 # timm trunc_normal_(std=0.02) for dense kernels; the pos embeds / tokens
 # use the std-corrected draw the JAX package uses (0.02 / 0.8796...)
 _DENSE_STD = 0.02
 _POS_STD = 0.02 / 0.87962566103423978
+_REMAT_POLICIES = ("full", "dots", "attn_out")
 
 
 def _gelu_mode(cfg: MAESTConfig, dtype: torch.dtype) -> str:
@@ -42,67 +64,141 @@ def _gelu_mode(cfg: MAESTConfig, dtype: torch.dtype) -> str:
     return "none" if mode == "exact" else "tanh"
 
 
+def _cast(t: Optional[torch.Tensor], dtype: torch.dtype):
+    """A parameter in the compute dtype (no copy when it is stored so)."""
+    return None if t is None else t.to(dtype)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in its input's dtype."""
+
+    def forward(self, x):
+        return F.linear(x, _cast(self.weight, x.dtype), _cast(self.bias, x.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` computing in its input's dtype."""
+
+    def forward(self, x):
+        return F.layer_norm(x, self.normalized_shape,
+                            _cast(self.weight, x.dtype),
+                            _cast(self.bias, x.dtype), self.eps)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate, scale by
+    1 / (1 - rate); off when ``generator`` is None (eval) or rate is 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
+    return x * mask / keep
+
+
+def drop_path(x: torch.Tensor, rate: float,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Per-sample stochastic depth (reference:
+    models/helpers/vit_helpers.py:74-104): one keep draw per sample."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.empty((x.shape[0],) + (1,) * (x.ndim - 1), device=x.device,
+                       dtype=x.dtype).bernoulli_(keep, generator=generator)
+    return x * mask / keep
+
+
 class Mlp(nn.Module):
     """Transformer MLP (reference: models/maest.py:183-208)."""
 
-    def __init__(self, dim: int, hidden: int, gelu: str):
+    def __init__(self, dim: int, hidden: int, gelu: str, drop: float = 0.0):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc1 = Linear(dim, hidden)
+        self.fc2 = Linear(hidden, dim)
         self.gelu = gelu  # "none" = exact erf, "tanh" = approximation
+        self.drop = drop
 
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate=self.gelu))
+    def forward(self, x, generator=None):
+        x = dropout(F.gelu(self.fc1(x), approximate=self.gelu), self.drop,
+                    generator)
+        return dropout(self.fc2(x), self.drop, generator)
 
 
 class Attention(nn.Module):
     """Multi-head self-attention with a fused qkv projection (reference:
     models/maest.py:346-378). q, k and v are strided views of the qkv
-    output; the kernel reads them in place."""
+    output; the kernels read them in place."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
-                 quant: str = "none"):
+                 quant: str = "none", bwd_quant: str = "none",
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"embed_dim {dim} not divisible by num_heads "
                              f"{num_heads}")
         self.num_heads = num_heads
         self.quant = quant
-        self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
-        self.proj = nn.Linear(dim, dim)
+        self.bwd_quant = bwd_quant
+        self.attn_drop = attn_drop
+        self.proj_drop = proj_drop
+        self.qkv = Linear(dim, dim * 3, bias=qkv_bias)
+        self.proj = Linear(dim, dim)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         b, n, c = x.shape
         qkv = self.qkv(x).view(b, n, 3, self.num_heads, c // self.num_heads)
-        out = flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
-                              quant=self.quant)
-        return self.proj(out.reshape(b, n, c))
+        if generator is not None and self.attn_drop > 0.0:
+            # attention-matrix dropout needs the materialised softmax (the
+            # JAX package's XLA path, models/vit.py:179-193)
+            q, k, v = qkv.unbind(2)
+            s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float())
+            p = torch.softmax(s * q.shape[-1] ** -0.5, dim=-1)
+            p = dropout(p, self.attn_drop, generator).to(x.dtype)
+            out = torch.einsum("bhnm,bmhd->bnhd", p, v)
+        else:
+            out = flash_attention_qkv(qkv, quant=self.quant,
+                                      bwd_quant=self.bwd_quant)
+        return dropout(self.proj(out.reshape(b, n, c)), self.proj_drop,
+                       generator)
 
 
 class Block(nn.Module):
     """Pre-LN transformer block (reference: models/maest.py:381-420)."""
 
-    def __init__(self, cfg: MAESTConfig, gelu: str):
+    def __init__(self, cfg: MAESTConfig, gelu: str, drop_path_rate: float = 0.0):
         super().__init__()
         e = cfg.embed_dim
-        self.norm1 = nn.LayerNorm(e, eps=cfg.layer_norm_eps)
+        self.norm1 = LayerNorm(e, eps=cfg.layer_norm_eps)
         self.attn = Attention(e, cfg.num_heads, cfg.qkv_bias,
-                              cfg.attention_quant)
-        self.norm2 = nn.LayerNorm(e, eps=cfg.layer_norm_eps)
-        self.mlp = Mlp(e, int(e * cfg.mlp_ratio), gelu)
+                              cfg.attention_quant, cfg.attention_bwd_quant,
+                              cfg.attn_drop_rate, cfg.drop_rate)
+        self.norm2 = LayerNorm(e, eps=cfg.layer_norm_eps)
+        self.mlp = Mlp(e, int(e * cfg.mlp_ratio), gelu, cfg.drop_rate)
+        self.drop_path_rate = drop_path_rate
 
-    def forward(self, x, return_self_attention: bool = False):
+    def forward(self, x, seed: Optional[int] = None,
+                return_self_attention: bool = False):
+        """``seed``: train mode with dropout; the block's masks are drawn
+        from a generator on ``x``'s device seeded with it."""
+        gen = None
+        if seed is not None:
+            gen = torch.Generator(device=x.device)
+            gen.manual_seed(seed)
         if return_self_attention:
-            return self.attn(self.norm1(x))
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+            return self.attn(self.norm1(x), gen)
+        x = x + drop_path(self.attn(self.norm1(x), gen), self.drop_path_rate,
+                          gen)
+        return x + drop_path(self.mlp(self.norm2(x), gen),
+                             self.drop_path_rate, gen)
 
 
 class PatchEmbed(nn.Module):
     """Patch projection, computed as im2col + matmul. cuDNN would run a
     float32 convolution in TF32 by default (~1e-3 relative); a float32
     matmul stays full fp32, which the parity tier needs, and the global
-    backend flags stay untouched."""
+    backend flags stay untouched. The patches are strided views of the
+    input gathered by one copy (``F.unfold`` launches one kernel per
+    sample, and its backward as many)."""
 
     def __init__(self, cfg: MAESTConfig):
         super().__init__()
@@ -112,10 +208,15 @@ class PatchEmbed(nn.Module):
     def forward(self, x):
         w, stride = self.proj.weight, self.proj.stride
         p = w.shape[-1]
-        f_out = (x.shape[2] - p) // stride[0] + 1
-        t_out = (x.shape[3] - p) // stride[1] + 1
-        cols = F.unfold(x, p, stride=stride)  # (B, C*p*p, F'*T')
-        out = w.flatten(1) @ cols + self.proj.bias[:, None]
+        b, c = x.shape[:2]
+        # (B, C, F', T', p, p) -> (B, C*p*p, F'*T'), features (c, kh, kw)
+        # as in w.flatten(1)
+        patches = x.unfold(2, p, stride[0]).unfold(3, p, stride[1])
+        f_out, t_out = patches.shape[2:4]
+        cols = patches.permute(0, 1, 4, 5, 2, 3).reshape(
+            b, c * p * p, f_out * t_out)
+        out = (_cast(w, x.dtype).flatten(1) @ cols
+               + _cast(self.proj.bias, x.dtype)[:, None])
         return out.view(x.shape[0], -1, f_out, t_out)
 
 
@@ -137,8 +238,43 @@ def _static_keep_indices(dim: int, drop_indices, interleave: int):
     return None
 
 
+@dataclass
+class TrainDraws:
+    """The random draws of one train forward: the time pos-embed crop
+    offset, the sorted kept indices of structured (time, frequency) and
+    unstructured patchout (None: that patchout is off), and the seed of the
+    dropout / drop_path masks (None: every rate is 0)."""
+
+    time_offset: int = 0
+    keep_t: Optional[torch.Tensor] = None
+    keep_f: Optional[torch.Tensor] = None
+    keep_u: Optional[torch.Tensor] = None
+    seed: Optional[int] = None
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``dots`` remat: keep the outputs of the 2-D matrix products (the
+    qkv / proj / fc1 / fc2 projections: jax's dots_with_no_batch_dims),
+    recompute the rest, attention included."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+def _attn_out_contexts():
+    """``attn_out`` remat: keep each attention output (and its lse) from
+    the forward, so the recomputed block never runs the attention forward
+    again; the rest of the block is recomputed."""
+    store: list = []
+    return record_outputs(store), replay_outputs(store)
+
+
 class MAESTNet(nn.Module):
-    """The MAEST transformer body + heads, eval mode.
+    """The MAEST transformer body + heads.
 
     ``forward`` returns, depending on ``transformer_block``:
       * -1: per ``distilled_type`` — "mean": (logits, features),
@@ -150,7 +286,8 @@ class MAESTNet(nn.Module):
     """
 
     def __init__(self, cfg: MAESTConfig, dtype: torch.dtype = torch.float32,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if cfg.per_freq_patch_embed:
             raise NotImplementedError(
@@ -168,7 +305,15 @@ class MAESTNet(nn.Module):
         if cfg.distilled_type not in ("mean", "separated"):
             raise ValueError(f"unknown distilled_type {cfg.distilled_type!r}; "
                              "expected 'mean' or 'separated'")
+        if cfg.attention_bwd_quant == "int8":
+            raise NotImplementedError(
+                "attention_bwd_quant 'int8' is not ported yet (ROADMAP queue "
+                "2, K7)")
+        if cfg.remat_policy not in _REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
+                             "expected 'full' | 'dots' | 'attn_out'")
         self.cfg = cfg
+        self.compute_dtype = dtype
         e = cfg.embed_dim
         gf, gt = cfg.grid_size
         gelu = _gelu_mode(cfg, dtype)
@@ -179,14 +324,16 @@ class MAESTNet(nn.Module):
         self.new_pos_embed = nn.Parameter(torch.empty(1, cfg.num_tokens, e))
         self.freq_new_pos_embed = nn.Parameter(torch.empty(1, e, gf, 1))
         self.time_new_pos_embed = nn.Parameter(torch.empty(1, e, 1, gt))
-        self.blocks = nn.ModuleList(Block(cfg, gelu) for _ in range(cfg.depth))
-        self.norm = nn.LayerNorm(e, eps=cfg.layer_norm_eps)
+        dpr = np.linspace(0.0, cfg.drop_path_rate, cfg.depth)
+        self.blocks = nn.ModuleList(Block(cfg, gelu, float(dpr[i]))
+                                    for i in range(cfg.depth))
+        self.norm = LayerNorm(e, eps=cfg.layer_norm_eps)
         # head norm keeps torch's default eps 1e-5 (reference:
         # models/maest.py:570-571 vs :499)
-        self.head = nn.Sequential(nn.LayerNorm(e), nn.Linear(e, cfg.num_classes))
-        self.head_dist = nn.Linear(e, cfg.num_classes)
+        self.head = nn.Sequential(LayerNorm(e), Linear(e, cfg.num_classes))
+        self.head_dist = Linear(e, cfg.num_classes)
         self.reset_parameters(generator)
-        self.to(device=device, dtype=dtype)
+        self.to(device=device, dtype=param_dtype or dtype)
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -218,24 +365,65 @@ class MAESTNet(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.cls_token.dtype
+        """The compute dtype."""
+        return self.compute_dtype
+
+    def _kept_len(self, dim: int, s_patchout: int, drop_indices,
+                  interleave: int) -> int:
+        if s_patchout:
+            dim -= s_patchout
+        kept = _static_keep_indices(dim, drop_indices, interleave)
+        return dim if kept is None else len(kept)
+
+    def draw_train(self, generator: Optional[torch.Generator], f_dim: int,
+                   t_dim: int) -> TrainDraws:
+        """Draw one train forward's randomness from ``generator`` (a CPU
+        generator; None: torch's default one) for a patch grid of
+        (f_dim, t_dim) (reference draws: models/vit.py:470-533)."""
+        cfg = self.cfg
+        grid_t = cfg.grid_size[1]
+
+        def keep(n, drop):
+            if n - drop <= 0:
+                raise ValueError(f"patchout of {drop} >= the {n} positions")
+            return torch.sort(torch.randperm(n, generator=generator)[:n - drop]
+                              ).values
+
+        d = TrainDraws()
+        if t_dim < grid_t:
+            d.time_offset = int(torch.randint(0, grid_t - t_dim + 1, (),
+                                              generator=generator))
+        if cfg.s_patchout_t:
+            d.keep_t = keep(t_dim, cfg.s_patchout_t)
+        if cfg.s_patchout_f:
+            d.keep_f = keep(f_dim, cfg.s_patchout_f)
+        if cfg.u_patchout:
+            n = self._kept_len(f_dim, cfg.s_patchout_f, cfg.s_patchout_f_indices,
+                               cfg.s_patchout_f_interleaved) * self._kept_len(
+                t_dim, cfg.s_patchout_t, cfg.s_patchout_t_indices,
+                cfg.s_patchout_t_interleaved)
+            d.keep_u = keep(n, cfg.u_patchout)
+        if (cfg.drop_rate or cfg.attn_drop_rate or cfg.drop_path_rate):
+            d.seed = int(torch.randint(0, 2**62, (), generator=generator))
+        return d
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 transformer_block: int = -1,
                 return_self_attention: bool = False,
                 return_layer_tokens: bool = False,
                 tap_block: Optional[int] = None,
-                forward_mode: str = "full"):
+                forward_mode: str = "full",
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[TrainDraws] = None):
+        """``train``: the train forward, with its draws taken from
+        ``generator`` or handed in as ``draws``."""
         cfg = self.cfg
-        if train:
-            raise NotImplementedError(
-                "the training forward is not ported yet (ROADMAP queue 1, "
-                "training step)")
         if forward_mode not in ("full", "front", "tail"):
             raise ValueError(f"unknown forward_mode {forward_mode!r}")
         if forward_mode != "full":
             raise NotImplementedError(
-                "forward_mode front/tail (pipeline seams) is not ported yet")
+                "forward_mode front/tail (pipeline seams) is not ported yet "
+                "(ROADMAP queue 1, item 7)")
         if tap_block is not None and (transformer_block != -1
                                       or return_layer_tokens):
             raise ValueError(
@@ -248,38 +436,77 @@ class MAESTNet(nn.Module):
         if tap_block is not None and not 0 <= tap_block < cfg.depth:
             raise ValueError(
                 f"tap_block {tap_block} out of range for depth {cfg.depth}")
+        dt = self.dtype
 
         # --- patch embedding: (B, C, F, T) -> (B, E, F', T') ---
-        x = self.patch_embed(x.to(self.dtype))
+        x = self.patch_embed(x.to(dt))
         b, e, f_dim, t_dim = x.shape
         grid_t = cfg.grid_size[1]
         if t_dim > grid_t:
             raise ValueError(
                 f"input yields {t_dim} time patches but the time pos-embed "
                 f"table has {grid_t}; reduce the input duration.")
-        x = x + self.time_new_pos_embed[:, :, :, :t_dim]
-        x = x + self.freq_new_pos_embed[:, :, :f_dim]
+        if train and draws is None:
+            draws = self.draw_train(generator, f_dim, t_dim)
+        if train and draws.seed is None and (
+                cfg.drop_rate or cfg.attn_drop_rate or cfg.drop_path_rate):
+            raise ValueError("train draws without a seed: the config's "
+                             "dropout / drop_path masks need one")
+        off = draws.time_offset if train else 0
+        x = x + _cast(self.time_new_pos_embed[:, :, :, off:off + t_dim], dt)
+        x = x + _cast(self.freq_new_pos_embed[:, :, :f_dim], dt)
 
+        # structured patchout (train only), then the static index sets;
+        # index_select, whose backward is one index_add (advanced indexing
+        # backpropagates through a sort)
+        def keep(x, dim, idx):
+            return x.index_select(dim, torch.as_tensor(idx, device=x.device))
+
+        if train and draws.keep_t is not None:
+            x = keep(x, 3, draws.keep_t)
+        if train and draws.keep_f is not None:
+            x = keep(x, 2, draws.keep_f)
         kept = _static_keep_indices(
-            f_dim, cfg.s_patchout_f_indices, cfg.s_patchout_f_interleaved)
+            x.shape[2], cfg.s_patchout_f_indices, cfg.s_patchout_f_interleaved)
         if kept is not None:
-            x = x[:, :, kept, :]
+            x = keep(x, 2, kept)
         kept = _static_keep_indices(
             x.shape[3], cfg.s_patchout_t_indices, cfg.s_patchout_t_interleaved)
         if kept is not None:
-            x = x[:, :, :, kept]
+            x = keep(x, 3, kept)
 
         # tokens flatten frequency-major, as the reference does
         x = x.flatten(2).transpose(1, 2)  # (B, N, E)
-        cls = (self.cls_token + self.new_pos_embed[:, :1]).expand(b, -1, -1)
-        dist = (self.dist_token + self.new_pos_embed[:, 1:2]).expand(b, -1, -1)
+        if train and draws.keep_u is not None:
+            x = keep(x, 1, draws.keep_u)
+        pos = self.new_pos_embed  # tokens + pos in the storage dtype, cast
+        cls = _cast(self.cls_token + pos[:, :1], dt).expand(b, -1, -1)
+        dist = _cast(self.dist_token + pos[:, 1:2], dt).expand(b, -1, -1)
         x = torch.cat([cls, dist, x], dim=1)
+
+        seeds = [None] * cfg.depth
+        if train and draws.seed is not None:
+            gen = torch.Generator(device=x.device)
+            gen.manual_seed(draws.seed)
+            x = dropout(x, cfg.drop_rate, gen)
+            seeds = [draws.seed + 1 + i for i in range(cfg.depth)]
+
+        remat = train and cfg.remat and not return_self_attention
+
+        def run(i, x):
+            blk = self.blocks[i]
+            if not remat:
+                return blk(x, seeds[i])
+            ctx = {"full": None, "dots": _dots_contexts,
+                   "attn_out": _attn_out_contexts}[cfg.remat_policy]
+            kw = {} if ctx is None else {"context_fn": ctx}
+            return checkpoint(blk, x, seeds[i], use_reentrant=False, **kw)
 
         if transformer_block == -1:
             layer_tokens = []
             tap = None
-            for i, blk in enumerate(self.blocks):
-                x = blk(x)
+            for i in range(cfg.depth):
+                x = run(i, x)
                 if return_layer_tokens:
                     layer_tokens.append(x)
                 if tap_block is not None and i == tap_block:
@@ -291,12 +518,14 @@ class MAESTNet(nn.Module):
                 return out + (tuple(layer_tokens),)
             return out
 
-        # embedding tap (reference: models/maest.py:811-829)
-        for i, blk in enumerate(self.blocks):
-            if i == transformer_block:
-                x = blk(x, return_self_attention)
-                break
-            x = blk(x)
+        # embedding tap (reference: models/maest.py:811-829); the attention
+        # map tap opts out of remat, as in the JAX package
+        for i in range(transformer_block):
+            x = run(i, x)
+        if return_self_attention:
+            x = self.blocks[transformer_block](x, seeds[transformer_block], True)
+        else:
+            x = run(transformer_block, x)
         return None, self._block_embedding(x)
 
     @staticmethod

@@ -1,5 +1,5 @@
-"""Attention forward of the PyTorch port against the JAX package's Pallas
-flash kernel, run in interpret mode on the CPU.
+"""Attention forward and backward of the PyTorch port against the JAX
+package's Pallas flash kernels, run in interpret mode on the CPU.
 
 Tolerances: fp32 atol 2e-5 (two fp32 softmax pipelines that sum in other
 orders); bf16 atol 2e-2, compared in fp32 (bf16 keeps 8 mantissa bits, so
@@ -15,7 +15,14 @@ import torch
 import jax.numpy as jnp
 
 from maest_tpu.ops.attention import flash_attention as jax_flash
-from maest_tpu_torch.ops.attention import attention_reference, flash_attention
+from maest_tpu_torch.ops.attention import (
+    attention_bwd,
+    attention_bwd_reference,
+    attention_reference,
+    attention_reference_lse,
+    flash_attention,
+    flash_attention_fwd_lse,
+)
 
 ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -83,3 +90,120 @@ def test_cpu_takes_plain_version_and_counts_no_launch():
     out = flash_attention(q, k, v, n_real=33)
     assert flash_attention.launches == before
     assert torch.equal(out, attention_reference(q, k, v, n_real=33))
+
+
+# --- training: forward with lse (K3a) and backward (K3b, K4) -------------
+# Tolerances, as the JAX package's own (tests/test_flash_attention.py):
+# fp32 rtol 1e-3 / atol 1e-4; bf16 2e-2 (absolute and relative), compared
+# in fp32.
+GRAD_TOL = {torch.float32: dict(rtol=1e-3, atol=1e-4),
+            torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n,n_real", [(200, None), (256, 190)],
+                         ids=["n200", "n256_real190"])
+def test_lse_and_grads_match_jax_flash_interpret(n, n_real, dtype):
+    """The port's Function (forward with lse, backward) against the JAX
+    custom VJP with its Pallas kernels in interpret mode."""
+    import jax
+
+    from maest_tpu.ops.attention import _flash_fwd_lse
+
+    x = _qkv(2, n, 2, seed=3)
+    g = np.random.default_rng(4).standard_normal((2, n, 2, 64)).astype("f4")
+    xt = torch.from_numpy(x).to(dtype).requires_grad_(True)
+    out = flash_attention(xt[:, :, 0], xt[:, :, 1], xt[:, :, 2], n_real=n_real)
+    out.backward(torch.from_numpy(g).to(dtype))
+    _, lse = flash_attention_fwd_lse(*(xt[:, :, i].detach() for i in range(3)),
+                                     n_real=n_real)
+
+    xj = jnp.asarray(x).astype(JNP[dtype])
+    q, k, v = xj[:, :, 0], xj[:, :, 1], xj[:, :, 2]
+    ref, vjp = jax.vjp(
+        lambda q, k, v: jax_flash(q, k, v, n_real=n_real, interpret=True),
+        q, k, v)
+    grads = vjp(jnp.asarray(g).astype(JNP[dtype]))
+    _, ref_lse = _flash_fwd_lse(q, k, v, block_q=896, block_k=448,
+                                interpret=True, n_real=n_real)
+    # the TPU lse is (B*H, 1, N_pad): compare its first N rows
+    ref_lse = np.asarray(ref_lse).reshape(2, 2, -1)[:, :, :n]
+    assert lse.shape == (2, 2, n) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), ref_lse, **GRAD_TOL[torch.float32])
+    np.testing.assert_allclose(out.detach().float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               **GRAD_TOL[dtype])
+    for i in range(3):
+        assert xt.grad.dtype == dtype
+        np.testing.assert_allclose(xt.grad[:, :, i].float().numpy(),
+                                   np.asarray(grads[i].astype(jnp.float32)),
+                                   **GRAD_TOL[dtype])
+    if n_real is not None:  # masked keys get exactly zero dk / dv
+        assert not xt.grad[:, n_real:, 1:].any()
+
+
+def test_backward_matches_jax_split_kernels():
+    """The split backward (the TPU's path for n_pad > 4096) at N 300, driven
+    directly as tests/test_flash_attention.py drives it."""
+    from maest_tpu.ops.attention import _flash_bwd_split, _flash_fwd_lse
+
+    x = _qkv(1, 300, 2, seed=5)
+    g = np.random.default_rng(6).standard_normal((1, 300, 2, 64)).astype("f4")
+    xj = jnp.asarray(x)
+    q, k, v = xj[:, :, 0], xj[:, :, 1], xj[:, :, 2]
+    o, lse = _flash_fwd_lse(q, k, v, block_q=128, block_k=128, interpret=True)
+    ref = _flash_bwd_split(q, k, v, o, lse, jnp.asarray(g), block_q=128,
+                           block_k=128, interpret=True)
+
+    xt = torch.from_numpy(x)
+    qt, kt, vt = xt[:, :, 0], xt[:, :, 1], xt[:, :, 2]
+    ot, lse_t = flash_attention_fwd_lse(qt, kt, vt)
+    ours = attention_bwd(qt, kt, vt, ot, lse_t, torch.from_numpy(g))
+    for a, b in zip(ours, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-3,
+                                   atol=1e-4)
+
+
+def test_backward_plain_version_matches_autograd():
+    """attention_bwd_reference equals autograd through the plain forward of
+    the same fp32 inputs (fp32 sums in other orders: atol 2e-6)."""
+    x = torch.from_numpy(_qkv(2, 37, 3, seed=7)).requires_grad_(True)
+    g = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (2, 37, 3, 64)).astype("f4"))
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    attention_reference(q, k, v, n_real=30).backward(g)
+    o, lse = attention_reference_lse(q.detach(), k.detach(), v.detach(), 30)
+    ours = attention_bwd_reference(q.detach(), k.detach(), v.detach(), o, lse,
+                                   g, 30)
+    for i in range(3):
+        np.testing.assert_allclose(ours[i].numpy(), x.grad[:, :, i].numpy(),
+                                   rtol=1e-5, atol=2e-6)
+
+
+def test_bwd_quant_errors():
+    """The int8 backward (K7) is refused, not silently run in bf16."""
+    x = torch.from_numpy(_qkv(1, 16, 1)).requires_grad_(True)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    torch.testing.assert_close(flash_attention(q, k, v, bwd_quant="none"),
+                               flash_attention(q, k, v))
+    with pytest.raises(NotImplementedError, match="K7"):
+        flash_attention(q, k, v, bwd_quant="int8")
+    with pytest.raises(ValueError, match="unknown attention bwd_quant"):
+        flash_attention(q, k, v, bwd_quant="int4")
+
+
+def test_inference_path_saves_nothing_and_counts_no_launch():
+    """With gradients off the forward takes the lse-free path; on the CPU
+    no launch is counted either way."""
+    x = torch.from_numpy(_qkv(1, 20, 2)).requires_grad_(True)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    counts = (flash_attention.launches, flash_attention_fwd_lse.launches,
+              attention_bwd.launches)
+    with torch.no_grad():
+        assert flash_attention(q, k, v).grad_fn is None
+    out = flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert counts == (flash_attention.launches,
+                      flash_attention_fwd_lse.launches, attention_bwd.launches)

@@ -5,10 +5,11 @@ runs on a machine without jax (``tests/conftest.py`` imports jax; skip it):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: mel 1e-4 (the front-end's fp32 bound); attention fp32 2e-5
-(fp32 sums in other orders), bf16 2e-2 compared in fp32 (bf16 rounds the
-probabilities and the output at ~4e-3 relative); the fp32 model on the
-card against the same model on the CPU rtol 2e-4, atol 2e-5.
+Tolerances: mel 1e-4 (the front-end's fp32 bound); attention forward
+and backward fp32 2e-5 (fp32 sums in other orders), bf16 2e-2 compared in
+fp32 (bf16 rounds the probabilities, ds and the outputs at ~4e-3
+relative), lse 1e-4; the fp32 model on the card against the same model on
+the CPU rtol 2e-4, atol 2e-5; the train step as its docstring says.
 """
 
 import numpy as np
@@ -17,7 +18,14 @@ import torch
 
 from maest_tpu_torch.api import get_maest
 from maest_tpu_torch.dsp.mel import frame_waveforms
-from maest_tpu_torch.ops.attention import attention_reference, flash_attention
+from maest_tpu_torch.ops.attention import (
+    attention_bwd,
+    attention_bwd_reference,
+    attention_reference,
+    attention_reference_lse,
+    flash_attention,
+    flash_attention_fwd_lse,
+)
 from maest_tpu_torch.ops.mel_kernel import (
     fused_logmel_from_frames,
     fused_logmel_from_frames_reference,
@@ -138,3 +146,137 @@ def test_bf16_service_on_card(cuda_device):
             np.testing.assert_allclose(acts, ref, atol=1e-2)
     finally:
         svc.close()
+
+
+# --- training: K3a (forward with lse), K3b / K4 (backward) ----------------
+# lse 1e-4 (fp32 log2-sum-exp of sums in other orders); gradients as the
+# forward: fp32 2e-5, bf16 2e-2 compared in fp32.
+LSE_TOL = 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,n,n_real", [(2, 200, None), (2, 256, 190),
+                                        (1, 1, None), (3, 130, 129),
+                                        (1, 4500, 4400)])
+def test_train_kernels_match_plain(cuda_device, b, n, n_real, dtype):
+    """K3a against attention_reference_lse, and the backward (one design
+    for K3b's and K4's regimes, here up to N 4500) against
+    attention_bwd_reference on the same saved tensors."""
+    x = _rand((b, n, 3, 12, 64), 7).to(cuda_device, dtype)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    g = _rand((b, n, 12, 64), 8).to(cuda_device, dtype)
+    counts = (flash_attention_fwd_lse.launches, attention_bwd.launches)
+    o, lse = flash_attention_fwd_lse(q, k, v, n_real=n_real)
+    ro, rlse = attention_reference_lse(q, k, v, n_real)
+    grads = attention_bwd(q, k, v, ro, rlse, g, n_real)
+    ref = attention_bwd_reference(q, k, v, ro, rlse, g, n_real)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd_lse.launches, attention_bwd.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    assert lse.shape == (b, 12, n) and lse.dtype == torch.float32
+    assert (lse - rlse).abs().max().item() <= LSE_TOL
+    assert (o.float() - ro.float()).abs().max().item() <= ATTN_TOL[dtype]
+    for ours, want in zip(grads, ref):
+        assert ours.shape == q.shape and ours.dtype == dtype
+        err = (ours.float() - want.float()).abs().max().item()
+        assert err <= ATTN_TOL[dtype], err
+    if n_real is not None and n_real < n:
+        assert not grads[1][:, n_real:].any() and not grads[2][:, n_real:].any()
+
+
+def test_autograd_on_card_matches_cpu(cuda_device):
+    """flash_attention under autograd: K3a forward, K3b backward on the
+    card, the plain versions on the CPU, same fp32 inputs."""
+    x = _rand((2, 150, 3, 4, 64), 9).requires_grad_(True)
+    xg = x.detach().to(cuda_device).requires_grad_(True)
+    for t in (x, xg):
+        out = flash_attention(t[:, :, 0], t[:, :, 1], t[:, :, 2], n_real=140)
+        (out * out).sum().backward()
+    np.testing.assert_allclose(xg.grad.cpu().numpy(), x.grad.numpy(),
+                               rtol=2e-4, atol=2e-5)
+
+
+def test_backward_rejects_a_bad_lse(cuda_device):
+    x = torch.zeros(1, 8, 3, 2, 64, device=cuda_device)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    with pytest.raises(ValueError, match="lse"):
+        attention_bwd(q, k, v, q, torch.zeros(1, 8, 2, device=cuda_device), q)
+
+
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """Two fp32 train steps of a tiny model (masking and mixup off) on the
+    card (K3a, K3b) and on the CPU: losses rtol 1e-5; every parameter
+    within Adam's bound, 2 lr a step (Adam divides each coordinate's
+    gradient by its own magnitude, so a coordinate whose gradient is near
+    zero moves by its fp32 noise: the key bias, whose gradient is zero in
+    exact arithmetic, and a few others); all but 1e-4 of the coordinates
+    (the key bias aside) within rtol 1e-4 / atol 2e-6."""
+    from maest_tpu_torch.models.registry import build_config
+    from maest_tpu_torch.models.vit import MAESTNet
+    from maest_tpu_torch.train import (
+        AugmentConfig,
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+
+    cfg = build_config("discogs-maest-30s-pw-129e", embed_dim=128, depth=2,
+                       num_heads=2, input_t=206, n_classes=16,
+                       s_patchout_t_indices=(3, 7))
+    rng = np.random.default_rng(10)
+    batch = {"x": rng.standard_normal((4, 96, 206)).astype("f4"),
+             "y": (rng.random((4, 16)) < 0.3).astype("f4")}
+    aug = AugmentConfig(masking=False, mixup_alpha=0.0)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        net = MAESTNet(cfg, generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            net.head[1].weight.copy_(_rand((16, 128), 11, 0.2))
+        net.to(dev)
+        tx = make_optimizer(lr_schedule=1e-3)
+        st = TrainState.create(net, tx)
+        step = make_train_step(net, tx, aug)
+        gen = torch.Generator().manual_seed(0)
+        losses = [step(st, batch, gen)[1]["train_loss"] for _ in range(2)]
+        runs[str(dev)] = (losses, {k: p.detach().cpu() for k, p in
+                                   net.named_parameters()})
+    (l_cpu, p_cpu), (l_gpu, p_gpu) = runs["cpu"], runs[str(cuda_device)]
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)
+    adam_bound = 2 * 2 * 1e-3  # 2 lr a step, 2 steps
+    far = total = 0
+    for k, a in p_gpu.items():
+        a, b = a.numpy(), p_cpu[k].numpy()
+        assert np.abs(a - b).max() <= adam_bound, k
+        if k.endswith("attn.qkv.bias"):
+            a, b = np.delete(a, np.s_[128:256]), np.delete(b, np.s_[128:256])
+        far += int((np.abs(a - b) > 2e-6 + 1e-4 * np.abs(b)).sum())
+        total += a.size
+    assert far <= 1e-4 * total, (far, total)
+
+
+@pytest.mark.parametrize("policy,fwd", [(None, 1), ("full", 2), ("dots", 2),
+                                        ("attn_out", 1)])
+def test_remat_launch_counts_on_card(cuda_device, policy, fwd):
+    """Training forward launches a layer: one without remat and under
+    attn_out (the backward reuses the saved o and lse), two under full and
+    dots (the block, attention included, is recomputed); one backward."""
+    from maest_tpu_torch.models.registry import build_config
+    from maest_tpu_torch.models.vit import MAESTNet
+
+    cfg = build_config("discogs-maest-30s-pw-129e", embed_dim=128, depth=2,
+                       num_heads=2, input_t=206, n_classes=16,
+                       remat=policy is not None,
+                       remat_policy=policy or "full")
+    net = MAESTNet(cfg, dtype=torch.bfloat16, param_dtype=torch.float32,
+                   device=cuda_device)
+    x = _rand((2, 1, 96, 206), 12).to(cuda_device)
+    before = (flash_attention.launches, flash_attention_fwd_lse.launches,
+              attention_bwd.launches)
+    net(x, train=True, generator=torch.Generator().manual_seed(0))[0].float(
+        ).sum().backward()
+    torch.cuda.synchronize()
+    grew = [a - b for a, b in zip((flash_attention.launches,
+                                   flash_attention_fwd_lse.launches,
+                                   attention_bwd.launches), before)]
+    assert grew == [0, fwd * cfg.depth, cfg.depth]

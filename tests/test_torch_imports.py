@@ -2,8 +2,10 @@
 (architectures, labels, mel filterbank) with the JAX package."""
 
 import dataclasses
+import re
 import subprocess
 import sys
+import tomllib
 from pathlib import Path
 
 import numpy as np
@@ -19,13 +21,33 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, maest_tpu_torch, maest_tpu_torch.serve, "
-            "maest_tpu_torch.apps.serve; "
-            "print(sorted(m for m in ('jax', 'jaxlib', 'flax') "
+            "maest_tpu_torch.apps.serve, maest_tpu_torch.train, "
+            "maest_tpu_torch.configs, maest_tpu_torch.ops.augment; "
+            "print(sorted(m for m in ('jax', 'jaxlib', 'flax', 'optax') "
             "if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_package_data_ships_every_cuda_source_and_header():
+    """An installed package builds its kernels from the files its package
+    data lists: every .cu source and every file one of them includes. The
+    build hashes the shared .cuh headers, so an include is one of them."""
+    with open(ROOT / "pyproject.toml", "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"][
+            "maest_tpu_torch"]
+    pkg = ROOT / "maest_tpu_torch"
+    csrc = pkg / "csrc"
+    shipped = {p for g in globs for p in pkg.glob(g)}
+    sources = sorted(csrc.glob("*.cu"))
+    assert sources and set(sources) <= shipped
+    headers = set(csrc.glob("*.cuh"))
+    for src in sources:
+        for inc in re.findall(r'^#include "([^"]+)"', src.read_text(), re.M):
+            assert csrc / inc in shipped, (src.name, inc)
+            assert csrc / inc in headers, (src.name, inc)
 
 
 def test_archs_match():

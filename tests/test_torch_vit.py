@@ -2,7 +2,8 @@
 (embed 64, depth 2, 4 heads, 26 x 46 input), with the same weights:
 JAX ``init_params`` (heads perturbed so logits are not trivially zero)
 -> ``state_from_jax_params`` -> the port. Tolerance rtol 2e-4, atol 2e-5,
-the bound of tests/test_torch_parity.py (fp32 tier on both sides)."""
+the bound of tests/test_torch_parity.py (fp32 tier on both sides). The
+train mode is held in tests/test_torch_vit_train.py."""
 
 import numpy as np
 import pytest
@@ -147,8 +148,13 @@ def test_range_checks_and_unported_modes(setup):
         tnet(xt, tap_block=0, return_layer_tokens=True)
     with pytest.raises(ValueError, match="time pos-embed"):
         tnet(torch.zeros(1, 1, 26, 66))
-    with pytest.raises(NotImplementedError, match="training"):
-        tnet(xt, train=True)
+    # the train forward is ported; the int8 backward and unknown remat
+    # policies are refused when the module is built
+    assert tnet(xt, train=True)[0].shape == (2, 10)
+    with pytest.raises(NotImplementedError, match="K7"):
+        MAESTNet(MAESTConfig(**GEOM, attention_bwd_quant="int8"))
+    with pytest.raises(ValueError, match="remat_policy"):
+        MAESTNet(MAESTConfig(**GEOM, remat_policy="everything"))
     with pytest.raises(NotImplementedError):
         tnet(xt, forward_mode="front")
     with pytest.raises(NotImplementedError):
