@@ -15,9 +15,17 @@ path: the training forward (K3a) and backward (K3b/K4) against their plain
 versions, one full-width fp32 train step against the JAX package's golden,
 the 30 s pre-training recipe step (ViT-B, batch 32, bf16 over fp32
 parameters) with its launch counters reset, and the kernels' and both
-recipe shapes' times (phases 9-12). Every phase prints one line per check;
-any failure raises, so the exit code is not 0. The line before the last is
-the JSON record of the kernels, the last line the device record. Without
+recipe shapes' times (phases 9-12). Then the 8-bit attention modes: the
+int8 / e4m3 forward (K5, K6) against its plain version in every mode
+(phase 13), the tagging path in each mode with the counters reset (14),
+the int8 backward (K7) against its plain version and against the bf16
+backward (15), the 30 s recipe step with ``attention_bwd_quant="int8"``,
+then with ``attention_quant="qk8"`` and with both (16), and the PyTorch
+library calls timed as yardsticks beside K2, K3a and K3b (17). Every phase
+prints one line per check; any failure raises, so the exit code is not 0.
+The card's name and power limit, the JSON record of the kernels (with each
+one's bound: the least time the card could take for its work at the
+data-sheet rates) and the device record are the last three lines. Without
 torch or a CUDA card, or outside a checkout, it exits with a non-zero code
 and prints no result.
 
@@ -28,6 +36,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -66,6 +76,48 @@ STEP_NORM_TOL = (2e-5, 1e-9)   # (rtol, atol) of each gradient's L2 norm
 STEP_GRAD_RTOL = 1e-4          # small gradients, relative to their max
 STEP_LOGIT_TOL = 1e-4          # logits after the AdamW step (lr 1e-4)
 RECIPE = "maest_30s_from_passt_pretrain"
+Q8_MODES = ("qk8", "qk8pv8", "fp8", "fp8pv8")
+# K5/K6 vs plain on the same 64-key tiles, compared in fp32: both round
+# one fp32 output to bf16, and their fp32 values differ by far less than a
+# bf16 ulp (sums in another order; an exp2 ulp that flips one 8-bit p moves
+# o by ~|v| / (127 l)), so an element may round one ulp apart: the bound is
+# Q8_ULPS bf16 ulps of the largest |o| of the plain version
+Q8_ULPS = 2
+K7_TOL = 2e-2       # K7 vs plain, relative to each gradient's max: the bf16
+                    # bound (bf16 outputs; an exp2 ulp may flip one p8/ds8)
+K7_COS = 0.9999
+# H100 SXM data-sheet peaks (dense), for the bounds of the kernels line
+PEAK = {"bf16": 989e12, "fp8": 1979e12, "int8": 1979e12, "fp32": 67e12}
+HBM = 3.35e12       # bytes/s
+
+
+def bound(nbytes: float, ops: dict) -> tuple[float, str]:
+    """(ms, what binds): the larger of the bytes over the memory rate and
+    the operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM
+    t_ops = sum(n / PEAK[k] for k, n in ops.items())
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes > t_ops else "operations")
+
+
+def attn_bound(b, n, h, n_real=None, pv="bf16", qk="bf16", lse=False):
+    """The forward at (b, n, h, 64): the two products over the real keys,
+    q/k/v read and the bf16 output (and the fp32 lse) written once."""
+    flops = 2 * b * h * n * (n_real or n) * 64
+    nbytes = 4 * b * n * h * 64 * 2 + (4 * b * h * n if lse else 0)
+    ops: dict = {}
+    ops[qk] = ops.get(qk, 0) + flops
+    ops[pv] = ops.get(pv, 0) + flops
+    return bound(nbytes, ops)
+
+
+def bwd_bound(b, n, h, n_real=None, kind="bf16"):
+    """The backward at (b, n, h, 64): its five products over the real keys
+    (dv, dp, dq, dk and the score recompute), q/k/v/o/do and lse read, and
+    dq/dk/dv written once."""
+    flops = 5 * 2 * b * h * n * (n_real or n) * 64
+    nbytes = 8 * b * n * h * 64 * 2 + 4 * b * h * n
+    return bound(nbytes, {kind: flops})
 
 
 def sh(cmd: list[str]) -> str:
@@ -87,8 +139,26 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_ms_median(fn, iters: int, reps: int = 3) -> float:
+    """The median of ``reps`` runs of ``cuda_ms``: one run's mean carries
+    any stall of the shared host that lands in it."""
+    return float(np.median([cuda_ms(fn, iters) for _ in range(reps)]))
+
+
 def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+def cosine(a, b) -> float:
+    """Cosine similarity of two tensors, summed in float64: an fp32 sum over
+    millions of elements can miss 1 by more than the 1e-4 it must show."""
+    a, b = a.double().flatten(), b.double().flatten()
+    return (a @ b / (a.norm() * b.norm())).item()
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
 
 
 def check(ok: bool, what: str) -> None:
@@ -473,10 +543,10 @@ def phase_golden_step(dev):
     del net, state, grads
 
 
-def _recipe(dev, preset, batch, seed):
-    """The pre-training recipe of ``preset`` at full width: the model (bf16
-    compute over fp32 parameters), its AdamW state, the step and a batch of
-    random mel input on the card."""
+def _recipe(dev, preset, batch, seed, overrides=()):
+    """The pre-training recipe of ``preset`` (with dotted ``overrides``) at
+    full width: the model (bf16 compute over fp32 parameters), its AdamW
+    state, the step and a batch of random mel input on the card."""
     from maest_tpu_torch.configs import build_experiment_config
     from maest_tpu_torch.models.vit import MAESTNet
     from maest_tpu_torch.train import (
@@ -488,7 +558,8 @@ def _recipe(dev, preset, batch, seed):
         model_config,
     )
 
-    cfg = build_experiment_config([preset], ["maest.pretrained=False"])
+    cfg = build_experiment_config([preset], ["maest.pretrained=False",
+                                             *overrides])
     mcfg = model_config(cfg)
     opt = cfg["module"]["optimizer"]
     steps_per_epoch = cfg["datamodule"]["sampler"]["epoch_len"] // batch
@@ -692,6 +763,381 @@ def phase_train_times(dev, gpu):
     return t
 
 
+def _q8_counts():
+    from maest_tpu_torch.ops.attention import (
+        attention_bwd,
+        attention_bwd_int8,
+        attention_fwd_fp8,
+        attention_fwd_int8,
+        flash_attention,
+        flash_attention_fwd_lse,
+    )
+    fns = (flash_attention, flash_attention_fwd_lse, attention_bwd,
+           attention_fwd_int8, attention_fwd_fp8, attention_bwd_int8)
+    return fns, [f.launches for f in fns]
+
+
+def _reset_counts():
+    for f in _q8_counts()[0]:
+        f.launches = 0
+
+
+def phase_q8_kernels(dev, gpu):
+    """Phase 13: K5 (qk8, qk8pv8) and K6 (fp8, fp8pv8) against their plain
+    versions on the same 64-key tiles, with and without lse, at the tagging
+    shape, the 30 s recipe's (32, 866) (K5 with lse on the qk8 training
+    path) and (2, 300) with n_real 290. The bound is Q8_ULPS bf16 ulps of
+    the largest |o|, and each mode's kernel must miss every other mode's
+    plain version by more than it: the check tells the modes' arithmetic
+    apart. An e4m3 overflow case; times at the tagging shape: the wrapper
+    (PyTorch quantization + kernel) and the plain version with CUDA events,
+    the kernel alone from torch.profiler."""
+    from maest_tpu_torch.ops import attention as A
+
+    rng = np.random.default_rng(5)
+    err = {"int8": 0.0, "fp8": 0.0}
+    times = {}
+    for b, n, n_real in ((BATCH, 1676, None), (BATCH, 866, None),
+                         (2, 300, 290)):
+        qkv = torch.from_numpy(rng.standard_normal(
+            (b, n, 3, 12, 64)).astype(np.float32)).to(dev, torch.bfloat16)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        plain = {m: A.attention_q8_reference(q, k, v, n_real, m)
+                 for m in Q8_MODES}
+        for mode in Q8_MODES:
+            kind = "int8" if mode.startswith("qk8") else "fp8"
+            wrap = getattr(A, f"attention_fwd_{kind}")
+            pv8 = mode.endswith("pv8")
+            before = wrap.launches
+            o, none = wrap(q, k, v, n_real, pv8)
+            o2, lse = wrap(q, k, v, n_real, pv8, with_lse=True)
+            ro, rlse = plain[mode]
+            torch.cuda.synchronize()
+            check(wrap.launches == before + 2 and none is None,
+                  f"{mode} counter")
+            tol = Q8_ULPS * bf16_ulp(ro.float().abs().max().item())
+            e = max(max_err(o, ro), max_err(o2, ro))
+            el = max_err(lse, rlse)
+            other, apart = min(((m, max_err(o, plain[m][0]))
+                                for m in Q8_MODES if m != mode),
+                               key=lambda x: x[1])
+            check(e <= tol and el <= LSE_TOL,
+                  f"{mode} ({b}, {n}) err o {e} (bound {tol}) lse {el}")
+            check(apart > tol, f"{mode} ({b}, {n}) kernel within {apart} of "
+                  f"{other}'s plain version: the bound {tol} cannot tell them "
+                  "apart")
+            err[kind] = max(err[kind], e, el)
+            line = (f"phase 13 {'K5' if kind == 'int8' else 'K6'} {mode}: "
+                    f"({b}, {n}, 12, 64) n_real {n_real} bf16 max_abs_err o "
+                    f"{e:.3e} <= {tol:.3e} ({Q8_ULPS} bf16 ulps of max|o|), "
+                    f"lse {el:.3e} <= {LSE_TOL}; vs the nearest other mode's "
+                    f"plain version ({other}) {apart:.3e} > {tol:.3e}")
+            if n == 1676:
+                times[mode] = (
+                    cuda_ms(lambda: wrap(q, k, v, n_real, pv8), 5),
+                    cuda_ms(lambda: A.attention_q8_reference(
+                        q, k, v, n_real, mode), 3))
+                alone = _kernel_ms(lambda: wrap(q, k, v, n_real, pv8),
+                                   "attn_fwd_q8_kernel")
+                line += (f"; time: kernel with its quantization "
+                         f"{times[mode][0]:.4f} ms, plain {times[mode][1]:.4f}"
+                         f" ms, kernel alone (torch.profiler) "
+                         f"{_fmt_ms(alone)} [{gpu}]")
+            print(line, flush=True)
+            del o, o2, lse
+        del qkv, q, k, v, plain
+        torch.cuda.empty_cache()
+
+    # e4m3 overflow: |x| past 464 is NaN, as the JAX package casts
+    qkv = torch.from_numpy(rng.standard_normal((1, 130, 3, 2, 64)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    qkv[0, 5, 0, 0, 3] = 470.0    # q: row 5 of head 0
+    qkv[0, 9, 1, 1, 7] = -600.0   # k: key 9 of head 1, every row of it
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    for mode in ("fp8", "fp8pv8"):
+        o, _ = A.attention_fwd_fp8(q, k, v, None, mode == "fp8pv8")
+        ro, _ = A.attention_q8_reference(q, k, v, None, mode)
+        nan = torch.isnan(o)
+        check(torch.equal(nan, torch.isnan(ro)) and bool(nan[0, 5, 0].all())
+              and bool(nan[:, :, 1].all()) and not bool(nan[0, 6, 0].any()),
+              f"{mode} overflow NaN pattern")
+        tol = Q8_ULPS * bf16_ulp(ro[~nan].float().abs().max().item())
+        check(max_err(o[~nan], ro[~nan]) <= tol, f"{mode} overflow err")
+    print("phase 13 K6 e4m3 overflow: q 470 and k -600 give NaN in the rows "
+          "they reach, as the plain version (and the JAX package's cast) "
+          f"does, and values within {Q8_ULPS} bf16 ulps elsewhere", flush=True)
+    return {"err_int8": err["int8"], "err_fp8": err["fp8"],
+            "qk8": times["qk8"], "fp8": times["fp8"]}
+
+
+def phase_q8_tagging(dev, sd, gpu):
+    """Phase 14: the tagging path in each 8-bit mode: get_maest with
+    attention_quant on phase 5's weights, bf16, predict_labels on 32 clips
+    of 30 s with the counters reset; 12 launches of the mode's kernel and
+    none of K2; activations within TIER_TOL of the unquantized bf16
+    model's; the batch-32 step time."""
+    from maest_tpu_torch import get_maest
+    from maest_tpu_torch.serve import BucketPrograms
+
+    rng = np.random.default_rng(6)
+    waves = rng.standard_normal((BATCH, CLIP)).astype(np.float32) * 0.1
+    waves_dev = torch.from_numpy(waves).to(dev)
+    launches = {"int8": 0, "fp8": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "random-vitb.pt")
+        torch.save(sd, ckpt)
+        kw = dict(pretrained=False, checkpoint=ckpt, device=dev,
+                  dtype=torch.bfloat16)
+        def per_clip(model):  # (32, 400) sigmoid activations
+            with torch.inference_mode():
+                return torch.sigmoid(model(waves)[0].float()).cpu().numpy()
+
+        ref = per_clip(get_maest(ARCH, **kw))
+        for mode in Q8_MODES:
+            model = get_maest(ARCH, attention_quant=mode, **kw)
+            _reset_counts()
+            acts = model.predict_labels(waves)[0]
+            torch.cuda.synchronize()
+            fns, counts = _q8_counts()
+            kind = "int8" if mode.startswith("qk8") else "fp8"
+            want = [0, 0, 0, 12 if kind == "int8" else 0,
+                    12 if kind == "fp8" else 0, 0]
+            check(counts == want, f"{mode} tagging launches {counts}")
+            launches[kind] += counts[3] + counts[4]
+            clips = per_clip(model)
+            err = float(np.abs(clips - ref).max())
+            check(acts.shape == (400,) and bool(np.isfinite(clips).all())
+                  and np.allclose(acts, clips.mean(0), rtol=0, atol=1e-6)
+                  and err <= TIER_TOL, f"{mode} activations err {err}")
+            prog = BucketPrograms(model, buckets=(BATCH,), fused_wave=True)
+            with torch.inference_mode():
+                step = cuda_ms(lambda: prog._activations(waves_dev), 3)
+            print(f"phase 14 tagging {mode}: get_maest(attention_quant="
+                  f"{mode!r}) bf16 predict_labels on {BATCH} clips of 30 s: "
+                  f"launches {'K5' if kind == 'int8' else 'K6'} "
+                  f"{counts[3] + counts[4]}, K2 {counts[0]}; per-clip "
+                  f"activations vs the unquantized bf16 model max_abs_err "
+                  f"{err:.3e} <= "
+                  f"{TIER_TOL}; batch-{BATCH} step {step:.3f} ms = "
+                  f"{BATCH * 30 / (step / 1e3):.1f} audio-s/s [{gpu}]",
+                  flush=True)
+            del model, prog
+            torch.cuda.empty_cache()
+    return launches
+
+
+def phase_k7_kernel(dev, gpu):
+    """Phase 15: K7 against its plain version on the same saved tensors at
+    the 30 s recipe's (32, 866), padded (32, 896) with n_real 866, the 10 s
+    recipe's (100, 281), and (2, 1800) with n_real 1790 (three 640-row
+    q-blocks of scales), q, k and v drawn normal x 1; masked keys get zero
+    dk/dv. Then at (32, 866) with q, k and v drawn as the JAX package's
+    tests draw them (normal x 0.5): K7 against its plain version, against
+    the bf16 backward (K3b) within the JAX package's bounds, which were set
+    on that draw (the int8 gradients' distance from the bf16 ones grows
+    with the spread of the scores, as p and ds share one scale per (head,
+    q-block): at normal x 1 the cosine is ~0.99), and the times."""
+    from maest_tpu_torch.ops import attention as A
+
+    rng = np.random.default_rng(7)
+    worst, out = 0.0, {}
+    for b, n, n_real, scale in ((BATCH, 866, None, 1.0),
+                                (BATCH, 896, 866, 1.0),
+                                (100, 281, None, 1.0),
+                                (2, 1800, 1790, 1.0),
+                                (BATCH, 866, None, 0.5)):
+        qkv = torch.from_numpy(rng.standard_normal(
+            (b, n, 3, 12, 64)).astype(np.float32) * scale).to(
+            dev, torch.bfloat16)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        g = torch.from_numpy(rng.standard_normal(
+            (b, n, 12, 64)).astype(np.float32)).to(dev, torch.bfloat16)
+        o, lse = A.flash_attention_fwd_lse(q, k, v, n_real)
+        before = A.attention_bwd_int8.launches
+        got = A.attention_bwd_int8(q, k, v, o, lse, g, n_real)
+        ref = A.attention_bwd_int8_reference(q, k, v, o, lse, g, n_real)
+        torch.cuda.synchronize()
+        check(A.attention_bwd_int8.launches == before + 1, "K7 counter")
+        parts = []
+        for w, a, r in zip(("dq", "dk", "dv"), got, ref):
+            e = max_err(a, r)
+            top = r.float().abs().max().item()
+            cos = cosine(a, r)
+            check(e <= K7_TOL * top and cos >= K7_COS,
+                  f"K7 {w} ({b}, {n}) x{scale} err {e} of max {top}, "
+                  f"cos {cos}")
+            worst = max(worst, e)
+            parts.append(f"{w} {e:.3e} ({e / top:.2e} of max, cos {cos:.6f})")
+        if n_real is not None:
+            check(not got[1][:, n_real:].any() and not got[2][:, n_real:].any(),
+                  "K7 masked dk/dv")
+        line = (f"phase 15 K7 int8 backward: ({b}, {n}, 12, 64) n_real "
+                f"{n_real} q, k, v normal x {scale} q-block "
+                f"{A.bwd_q_block(n)} max_abs_err " + ", ".join(parts)
+                + f" <= {K7_TOL} of max, cos >= {K7_COS}")
+        if scale == 0.5:
+            bf = A.attention_bwd(q, k, v, o, lse, g, n_real)
+            vs = []
+            for w, a, r in zip(("dq", "dk", "dv"), got, bf):
+                a, r = a.float(), r.float()
+                cos = cosine(a, r)
+                rel = ((a - r).abs().max() / r.abs().max()).item()
+                check(cos > 0.999 and rel < 0.15,
+                      f"K7 vs K3b {w}: cos {cos} relmax {rel}")
+                vs.append(f"{w} cos {cos:.5f} relmax {rel:.3f}")
+            out["ms"] = (
+                cuda_ms(lambda: A.attention_bwd_int8(q, k, v, o, lse, g), 10),
+                cuda_ms(lambda: A.attention_bwd_int8_reference(
+                    q, k, v, o, lse, g), 3))
+            k3b = cuda_ms(lambda: A.attention_bwd(q, k, v, o, lse, g), 10)
+            parts = _kernel_ms(
+                lambda: A.attention_bwd_int8(q, k, v, o, lse, g), "bwd_q8_")
+            line += ("; vs the bf16 backward (K3b): " + ", ".join(vs)
+                     + " (cos > 0.999, relmax < 0.15); time: kernel "
+                     f"{out['ms'][0]:.4f} ms, plain {out['ms'][1]:.4f} ms, "
+                     f"K3b {k3b:.4f} ms [{gpu}]; K7's launches by device "
+                     f"time: {_fmt_ms(parts)}")
+            del bf
+        print(line, flush=True)
+        del qkv, q, k, v, g, o, lse, got, ref
+        torch.cuda.empty_cache()
+    out["err"] = worst
+    return out
+
+
+def _kernel_ms(fn, prefix: str) -> dict:
+    """Device ms of each kernel whose name holds ``prefix`` in one call of
+    ``fn``, from torch.profiler; empty where it records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for e in prof.key_averages():
+        name = re.search(prefix + r"\w*(<\w+>)?", e.key)
+        if name:
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = e.cuda_time_total
+            rows[name.group(0)] = rows.get(name.group(0), 0.0) + us / 1e3
+    return rows
+
+
+def _fmt_ms(rows: dict) -> str:
+    return (", ".join(f"{k} {v:.4f} ms" for k, v in rows.items())
+            or "not measured (no device events)")
+
+
+def phase_int8_recipe(dev, gpu):
+    """Phase 16: the 30 s recipe step (B32, N 866) with
+    attention_bwd_quant="int8": five steps timed one by one (their median:
+    a single step's host work spreads), with the counters reset,
+    each launching 12 K3a, 12 K7 and no K3b, with a finite loss; then one
+    step with attention_quant="qk8" (12 K5 with lse, 12 K3b) and one with
+    both options (12 K5 with lse, 12 K7)."""
+    runs = (("int8", ["maest.attention_bwd_quant=int8"], [0, 12, 0, 0, 0, 12]),
+            ("qk8", ["maest.attention_quant=qk8"], [0, 0, 12, 12, 0, 0]),
+            ("qk8+int8", ["maest.attention_quant=qk8",
+                          "maest.attention_bwd_quant=int8"],
+             [0, 0, 0, 12, 0, 12]))
+    k7 = 0
+    for name, over, want in runs:
+        cfg, mcfg, net, state, step, data = _recipe(dev, RECIPE, BATCH, 3, over)
+        gen = torch.Generator().manual_seed(3)
+        per_step, losses = [], []
+
+        def one_step():
+            before = _q8_counts()[1]
+            _, metrics = step(state, data, gen)
+            per_step.append([a - b for a, b in zip(_q8_counts()[1], before)])
+            losses.append(metrics["train_loss"]
+                          if metrics["nonfinite_skipped"] == 0.0 else None)
+
+        _reset_counts()
+        if name == "int8":  # one warm-up step, five timed one by one
+            one_step()
+            times = []
+            for _ in range(5):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                one_step()
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            ms = float(np.median(times))
+            k7 = _q8_counts()[1][5]
+        else:
+            one_step()
+            torch.cuda.synchronize()
+        check(all(c == want for c in per_step),
+              f"{name} recipe launches per step {per_step}")
+        check(all(v is not None and np.isfinite(v) for v in losses),
+              f"{name} recipe losses {losses}")
+        line = (f"phase 16 recipe step {RECIPE} batch {BATCH} N 866 with "
+                f"{', '.join(over)}: {len(per_step)} steps, launches (K2, K3a,"
+                f" K3b, K5, K6, K7) {per_step[0]} each, losses "
+                f"{[round(v, 6) for v in losses]}")
+        if name == "int8":
+            line += (f"; median {ms:.3f} ms/step = {BATCH / (ms / 1e3):.1f} "
+                     f"specs/s (steps {[round(x, 3) for x in times]} ms) "
+                     f"[{gpu}]")
+        print(line, flush=True)
+        del net, state, step, data
+        torch.cuda.empty_cache()
+    return k7
+
+
+def phase_library(dev, gpu):
+    """Phase 17: one PyTorch call that computes what K2, K3a and K3b
+    compute, on the same shapes, timed as a yardstick (the port never calls
+    them): scaled_dot_product_attention on its flash backend (K2), the
+    flash forward that also returns the log-sum-exp (K3a), and SDPA's
+    backward through autograd, its forward time subtracted (K3b). Each is
+    the median of three timed runs."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    rng = np.random.default_rng(8)
+    out = {}
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        for n, key in ((1676, "fwd"), (866, "train")):
+            x = torch.from_numpy(rng.standard_normal(
+                (BATCH, n, 3, 12, 64)).astype(np.float32)).to(
+                dev, torch.bfloat16)
+            q, k, v = (x[:, :, i].transpose(1, 2) for i in range(3))
+            if key == "fwd":
+                out["fwd"] = cuda_ms_median(
+                    lambda: F.scaled_dot_product_attention(q, k, v), 10)
+                del x, q, k, v
+                continue
+            out["fwd_lse"] = cuda_ms_median(
+                lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                    q, k, v), 10)
+            qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+            g = torch.randn_like(qg)
+
+            def fwd_bwd():
+                F.scaled_dot_product_attention(qg, kg, vg).backward(g)
+
+            fwd = cuda_ms_median(
+                lambda: F.scaled_dot_product_attention(qg, kg, vg), 10)
+            out["bwd"] = cuda_ms_median(fwd_bwd, 10) - fwd
+            del x, q, k, v, qg, kg, vg, g
+    torch.cuda.empty_cache()
+    print(f"phase 17 library yardsticks (bf16, flash backend, never called "
+          f"by the port): scaled_dot_product_attention ({BATCH}, 1676, 12, "
+          f"64) {out['fwd']:.4f} ms (beside K2); _scaled_dot_product_flash_"
+          f"attention with its log-sum-exp ({BATCH}, 866) {out['fwd_lse']:.4f}"
+          f" ms (beside K3a); its backward through autograd, forward "
+          f"subtracted, {out['bwd']:.4f} ms (beside K3b) [{gpu}]", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on a GPU",
@@ -719,7 +1165,8 @@ def main() -> int:
         return log, time.perf_counter() - t
 
     t0 = time.perf_counter()
-    libs = ("mel_kernel", "attention_fwd", "attention_bwd")
+    libs = ("mel_kernel", "attention_fwd", "attention_bwd", "attention_fwd_q8",
+            "attention_bwd_q8")
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source
         built = dict(zip(libs, pool.map(timed_build, libs)))
     wall = time.perf_counter() - t0
@@ -746,32 +1193,53 @@ def main() -> int:
     train_launches = phase_recipe(dev)
     tt = phase_train_times(dev, gpu)
 
-    kernels = [
-        {"name": "fused_logmel", "route": "cuda",
-         "source": "maest_tpu_torch/csrc/mel_kernel.cu",
-         "replaces": "maest_tpu/ops/mel_kernel.py:39",
-         "launches": launches["mel"], "max_abs_err": mel_err,
-         "ms": t["mel"][0], "plain_ms": t["mel"][1]},
-        {"name": "attention_fwd", "route": "cuda",
-         "source": "maest_tpu_torch/csrc/attention_fwd.cu",
-         "replaces": "maest_tpu/ops/attention.py:176",
-         "launches": launches["attention"], "max_abs_err": attn_err,
-         "ms": t["bfloat16"][0], "plain_ms": t["bfloat16"][1]},
-        {"name": "attention_fwd_lse", "route": "cuda",
-         "source": "maest_tpu_torch/csrc/attention_fwd.cu",
-         "replaces": "maest_tpu/ops/attention.py:404",
-         "launches": train_launches["fwd_lse"],
-         "max_abs_err": max(train_err["o"], train_err["lse"]),
-         "ms": tt["fwd_lse"][0], "plain_ms": tt["fwd_lse"][1]},
-        {"name": "attention_bwd", "route": "cuda",
-         "source": "maest_tpu_torch/csrc/attention_bwd.cu",
-         "replaces": "maest_tpu/ops/attention.py:483",
-         "launches": train_launches["bwd"],
-         "max_abs_err": max(train_err[w] for w in ("dq", "dk", "dv")),
-         "ms": tt["bwd"][0], "plain_ms": tt["bwd"][1]},
+    q8 = phase_q8_kernels(dev, gpu)
+    q8_launches = phase_q8_tagging(dev, sd, gpu)
+    k7 = phase_k7_kernel(dev, gpu)
+    k7_launches = phase_int8_recipe(dev, gpu)
+    lib = phase_library(dev, gpu)
+
+    frames = BATCH * 1876  # frames of 32 clips of 30 s
+    mel_ops = frames * (512 + 4 * 512 * 257 + 3 * 257 + 2 * 257 * 96 + 96)
+    bounds = {
+        "mel": bound(frames * (512 + 96) * 4, {"fp32": mel_ops}),
+        "fwd": attn_bound(BATCH, 1676, 12),
+        "fwd_lse": attn_bound(BATCH, 866, 12, lse=True),
+        "bwd": bwd_bound(BATCH, 866, 12),
+        "qk8": attn_bound(BATCH, 1676, 12, qk="int8"),
+        "fp8": attn_bound(BATCH, 1676, 12, qk="fp8"),
+        "k7": bwd_bound(BATCH, 866, 12, kind="int8"),
+    }
+    src = "maest_tpu_torch/csrc/"
+    rows = [
+        ("fused_logmel", "mel_kernel.cu", "maest_tpu/ops/mel_kernel.py:39",
+         launches["mel"], mel_err, t["mel"], "mel", None),
+        ("attention_fwd", "attention_fwd.cu", "maest_tpu/ops/attention.py:176",
+         launches["attention"], attn_err, t["bfloat16"], "fwd", lib["fwd"]),
+        ("attention_fwd_lse", "attention_fwd.cu",
+         "maest_tpu/ops/attention.py:404", train_launches["fwd_lse"],
+         max(train_err["o"], train_err["lse"]), tt["fwd_lse"], "fwd_lse",
+         lib["fwd_lse"]),
+        ("attention_bwd", "attention_bwd.cu", "maest_tpu/ops/attention.py:483",
+         train_launches["bwd"], max(train_err[w] for w in ("dq", "dk", "dv")),
+         tt["bwd"], "bwd", lib["bwd"]),
+        ("attention_fwd_int8", "attention_fwd_q8.cu",
+         "maest_tpu/ops/attention.py:140", q8_launches["int8"], q8["err_int8"],
+         q8["qk8"], "qk8", None),
+        ("attention_fwd_fp8", "attention_fwd_q8.cu",
+         "maest_tpu/ops/attention.py:390", q8_launches["fp8"], q8["err_fp8"],
+         q8["fp8"], "fp8", None),
+        ("attention_bwd_int8", "attention_bwd_q8.cu",
+         "maest_tpu/ops/attention.py:530", k7_launches, k7["err"], k7["ms"],
+         "k7", None),
     ]
-    print(json.dumps({"kernels": kernels}))
+    kernels = [{"name": name, "route": "cuda", "source": src + file,
+                "replaces": rep, "launches": n, "max_abs_err": err,
+                "ms": ms[0], "plain_ms": ms[1], "bound_ms": bounds[key][0],
+                "bound_by": bounds[key][1], "library_ms": library}
+               for name, file, rep, n, err, ms, key, library in rows]
     print(gpu)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

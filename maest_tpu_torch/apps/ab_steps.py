@@ -1,0 +1,114 @@
+"""Time the bf16 tagging step and the 30 s pre-training recipe step of one
+or more checkouts of this repo on one CUDA card, each run in a process of
+its own, in the order given:
+
+    python3 maest_tpu_torch/apps/ab_steps.py PARENT . . PARENT
+
+Each argument is the root of a checkout (``git archive`` of a commit,
+unpacked into a git-ignored directory, or ``.``). Its process imports that
+checkout's ``maest_tpu_torch`` and ``chip_smoke.py``, builds its kernels,
+and times two steps with CUDA events, one step at a time after two warm-up
+steps; it reports the median and every reading:
+
+- tagging: ``BucketPrograms._activations`` on 32 clips of 30 s, bf16,
+  random weights (wave -> mel -> ViT-B -> sigmoid, as ``chip_smoke.py``
+  phase 8 times it);
+- training: ``chip_smoke._recipe`` of ``maest_30s_from_passt_pretrain``
+  (ViT-B, batch 32, N 866, bf16 over fp32 parameters), as phase 12.
+
+Compare readings only within one run: the card's host is shared, so single
+steps spread by several per cent between runs. Prints the card's name and
+power limit, one JSON line per checkout, and a summary.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+STEPS = 11
+
+CHILD = r"""
+import json, sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+import numpy as np, torch
+sys.path.insert(0, "tests")
+import chip_smoke as cs
+from maest_tpu_torch import get_maest
+from maest_tpu_torch.ops import _build
+from maest_tpu_torch.serve import BucketPrograms
+
+steps = int(sys.argv[1])
+libs = sorted(p.stem for p in Path("maest_tpu_torch/csrc").glob("*.cu"))
+with ThreadPoolExecutor(len(libs)) as pool:
+    list(pool.map(_build.build, libs))
+dev = torch.device("cuda:0")
+torch.cuda.set_device(dev)
+
+
+def single_steps(fn):
+    for _ in range(2):
+        fn()
+    ms = []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return float(np.median(ms)), [round(x, 3) for x in ms]
+
+
+model = get_maest(cs.ARCH, pretrained=False, dtype=torch.bfloat16, device=dev)
+prog = BucketPrograms(model, buckets=(cs.BATCH,), fused_wave=True)
+waves = torch.from_numpy(np.random.default_rng(2).standard_normal(
+    (cs.BATCH, cs.CLIP)).astype(np.float32) * 0.1).to(dev)
+with torch.inference_mode():
+    tag = single_steps(lambda: prog._activations(waves))
+del model, prog, waves
+torch.cuda.empty_cache()
+
+cfg, mcfg, net, state, step, data = cs._recipe(dev, cs.RECIPE, cs.BATCH, 2)
+gen = torch.Generator().manual_seed(2)
+train = single_steps(lambda: step(state, data, gen))
+print(json.dumps({"tag_ms": tag[0], "tag_steps": tag[1],
+                  "train_ms": train[0], "train_steps": train[1]}))
+"""
+
+
+def main(roots: list[str]) -> int:
+    if not roots:
+        print(__doc__, file=sys.stderr)
+        return 2
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(gpu, flush=True)
+    rows = []
+    for i, root in enumerate(roots):
+        out = subprocess.run([sys.executable, "-c", CHILD, str(STEPS)],
+                             cwd=Path(root).resolve(), capture_output=True,
+                             text=True, timeout=900)
+        if out.returncode != 0:
+            print(out.stderr, file=sys.stderr)
+            return out.returncode
+        row = {"run": i, "root": root, **json.loads(
+            out.stdout.strip().splitlines()[-1])}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    for row in rows:
+        print(f"run {row['run']} {row['root']}: tagging batch-32 30 s bf16 "
+              f"median {row['tag_ms']:.3f} ms, 30 s recipe step B32 median "
+              f"{row['train_ms']:.3f} ms, of {STEPS} single steps each "
+              f"[{gpu}]")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

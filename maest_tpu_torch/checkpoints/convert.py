@@ -12,24 +12,178 @@
 
 The numpy helpers ``strip_prefix``, ``load_torch_checkpoint`` and
 ``adapt_pos_embeds`` (pos-embed grid retargeting and ImageNet table
-splitting) are the JAX package's own, from ``maest_tpu/checkpoints/
-convert.py``, loaded without JAX.
+splitting, with the torch-equivalent bicubic resize they use) are copies of
+those of ``maest_tpu/checkpoints/convert.py``, their arithmetic unchanged:
+the port keeps its own, so that it reads nothing of the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+import math
+from typing import TYPE_CHECKING, Dict, Mapping
 
 import numpy as np
 import torch
 
-from .._reference import load
+if TYPE_CHECKING:  # an import at run time would cycle through models/vit.py
+    from ..models.config import MAESTConfig
 
-_convert = load("checkpoints.convert")
 
-adapt_pos_embeds = _convert.adapt_pos_embeds
-load_torch_checkpoint = _convert.load_torch_checkpoint
-strip_prefix = _convert.strip_prefix
+def _cubic_kernel(x: np.ndarray, a: float = -0.75) -> np.ndarray:
+    ax = np.abs(x)
+    ax2 = ax * ax
+    ax3 = ax2 * ax
+    w = np.where(
+        ax <= 1.0,
+        (a + 2.0) * ax3 - (a + 3.0) * ax2 + 1.0,
+        np.where(ax < 2.0, a * ax3 - 5.0 * a * ax2 + 8.0 * a * ax - 4.0 * a, 0.0),
+    )
+    return w
+
+
+def _cubic_weights_1d(in_size: int, out_size: int):
+    """Sample positions + 4-tap weights for one axis (align_corners=False)."""
+    if in_size == out_size:
+        return None
+    scale = in_size / out_size
+    out = np.arange(out_size, dtype=np.float64)
+    center = (out + 0.5) * scale - 0.5
+    base = np.floor(center).astype(np.int64)
+    frac = center - base
+    # taps at base-1 .. base+2
+    taps = base[:, None] + np.arange(-1, 3)[None, :]
+    dist = taps - center[:, None]
+    w = _cubic_kernel(dist)
+    w = w / w.sum(axis=1, keepdims=True)
+    taps = np.clip(taps, 0, in_size - 1)
+    return taps, w
+
+
+def _bicubic_impl(arr: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    out = arr
+    hw = _cubic_weights_1d(arr.shape[-2], out_h)
+    if hw is not None:
+        taps, wts = hw  # (out_h, 4)
+        gathered = out[..., taps, :]  # (..., out_h, 4, W)
+        out = (gathered * wts[..., None]).sum(axis=-2)
+    ww = _cubic_weights_1d(arr.shape[-1], out_w)
+    if ww is not None:
+        taps, wts = ww  # (out_w, 4)
+        gathered = out[..., taps]  # (..., H', out_w, 4)
+        out = (gathered * wts).sum(axis=-1)
+    return out
+
+
+def strip_prefix(state: Mapping[str, np.ndarray], swa_weights: bool = True
+                 ) -> Dict[str, np.ndarray]:
+    """Select SWA or live weights from a Lightning checkpoint state dict.
+
+    Mirrors the reference's prefix strip (models/maest.py:1554-1562): with
+    ``swa_weights`` the ``net_swa.`` prefix is removed (so SWA weights shadow
+    the ``net.``-prefixed live weights); otherwise keys are kept as-is minus
+    the ``net.`` prefix.
+    """
+    out: Dict[str, np.ndarray] = {}
+    if swa_weights and any(k.startswith("net_swa.") for k in state):
+        # live weights first, SWA overrides
+        for k, v in state.items():
+            if k.startswith("net."):
+                out[k[len("net."):]] = v
+        for k, v in state.items():
+            if k.startswith("net_swa."):
+                out[k[len("net_swa."):]] = v
+        return out
+    for k, v in state.items():
+        if k.startswith("net."):
+            out[k[len("net."):]] = v
+        elif not k.startswith("net_swa."):
+            out[k] = v
+    return out
+
+
+def _to_numpy(v) -> np.ndarray:
+    if isinstance(v, np.ndarray):
+        return v
+    try:  # torch tensor
+        return v.detach().cpu().numpy()
+    except AttributeError:
+        return np.asarray(v)
+
+
+def adapt_pos_embeds(state: Dict[str, np.ndarray], cfg: MAESTConfig
+                     ) -> Dict[str, np.ndarray]:
+    """Positional-embedding adaptation (reference: models/maest.py:1051-1102)."""
+    grid_f, grid_t = cfg.grid_size
+    if "time_new_pos_embed" not in state and "pos_embed" in state:
+        # ImageNet-style joint pos embed -> decoupled tables
+        posemb = np.asarray(state.pop("pos_embed"), dtype=np.float64)  # (1, N, E)
+        ntok = cfg.num_tokens
+        posemb_tok, posemb_grid = posemb[:, :ntok], posemb[0, ntok:]
+        gs_old = int(math.sqrt(len(posemb_grid)))
+        grid = posemb_grid.reshape(gs_old, gs_old, -1).transpose(2, 0, 1)  # (E,H,W)
+        grid = _bicubic_impl(grid, grid_f, grid_t)  # (E, grid_f, grid_t)
+        state["new_pos_embed"] = posemb_tok.astype(np.float32)
+        state["freq_new_pos_embed"] = grid.mean(axis=2, keepdims=True)[None].astype(
+            np.float32
+        )  # (1,E,F,1)
+        state["time_new_pos_embed"] = grid.mean(axis=1, keepdims=True)[None].astype(
+            np.float32
+        )  # (1,E,1,T)
+    elif "time_new_pos_embed" in state:
+        freq = np.asarray(state["freq_new_pos_embed"], dtype=np.float64)  # (1,E,F,1)
+        time = np.asarray(state["time_new_pos_embed"], dtype=np.float64)  # (1,E,1,T)
+        f_old, t_old = freq.shape[2], time.shape[3]
+        if f_old != grid_f or t_old != grid_t:
+            state["freq_new_pos_embed"] = _bicubic_impl(freq, grid_f, 1).astype(
+                np.float32
+            )
+            state["time_new_pos_embed"] = _bicubic_impl(time, 1, grid_t).astype(
+                np.float32
+            )
+    return state
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:
+    """Load a torch ``.ckpt``/``.pt`` file into a numpy state dict."""
+    try:
+        # The restricted unpickler: checkpoint files can arrive via
+        # auto-download (checkpoints/fetch.py), and a full unpickle executes
+        # arbitrary code. Plain state-dict and DeiT release files load fine
+        # this way; only Lightning ckpts carrying exotic hparams objects
+        # need the legacy loader — which is EXPLICIT OPT-IN: an automatic
+        # fallback would hand any file that fails the restricted loader
+        # straight to the unsafe one, making the protection worthless.
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception as err:
+        import os
+
+        if os.environ.get("MAEST_TPU_UNSAFE_LOAD") != "1":
+            raise ValueError(
+                f"restricted (weights_only) torch.load failed for {path}: "
+                f"{err}\nA full unpickle executes arbitrary code from the "
+                "file. If you trust this checkpoint (e.g. a Lightning ckpt "
+                "with custom hparams classes), set MAEST_TPU_UNSAFE_LOAD=1 "
+                "to allow the legacy loader."
+            ) from err
+        import logging
+
+        logging.getLogger(__name__).warning(
+            "weights_only torch.load failed for %s (%s); MAEST_TPU_UNSAFE_"
+            "LOAD=1 set — falling back to the full unpickler", path, err)
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    if (isinstance(obj, dict) and "model" in obj
+            and not torch_is_tensor(obj["model"])):
+        # deit release format {"model": state_dict}
+        inner = obj["model"]
+        if isinstance(inner, dict):
+            obj = inner
+    return {k: _to_numpy(v) for k, v in obj.items()}
+
+
+def torch_is_tensor(v) -> bool:
+    return hasattr(v, "detach") and hasattr(v, "cpu")
 
 
 def state_from_jax_params(params: Mapping[str, object], cfg

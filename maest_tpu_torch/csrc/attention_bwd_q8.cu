@@ -1,0 +1,642 @@
+// int8 attention backward for Hopper (sm_90a), head_dim 64 (K7).
+//
+// Replaces maest_tpu/ops/attention.py::_attn_bwd_kernel_q8 + _q8_tensor
+// (called from _flash_bwd_q8 when bwd_quant="int8" and round_up(N, 128) <=
+// 4096). All five products run in int8 with int32 sums, and every scale is
+// a scalar, as there:
+//
+//   scale(x) = max(max|x|, 1e-30) (1/127); x8 = round(x (1/scale(x)))
+//   q, do: one scale per (head, q-block); k, v: one per head (all N keys)
+//   s   = s_int (qs ks sl); keys >= n_real: -1e30;  p = exp2(s - lse)
+//   pst = max(max p, 1e-30);   p8 = round(p (127 / pst))        per q-block
+//   dv  = sum over q-blocks of (p8^T . do8) (dos pst (1/127))
+//   dp  = (do8 . v8^T) (dos vs);   ds = p (dp - delta) scale
+//   dst = max(max |ds|, 1e-30);  ds8 = round(ds (127 / dst))    per q-block
+//   dq  = (ds8 . k8) (dst ks (1/127));  dk = sum of (ds8^T . q8) (dst qs (1/127))
+//
+// with the TPU's association order in every scale product, delta =
+// rowsum(do * o) in fp32 from the stored bf16 o, dk and dv summed over the
+// q-blocks in fp32 and stored in bf16. The q-block is the TPU's
+// (ops/attention.py, bwd_q_block): one block per head at every shipped
+// training shape, three at N 1800. Masked keys get exactly zero dk and dv.
+//
+// Why five launches: pst and dst are maxima over a whole (head, q-block)
+// of p and ds, and must be known before the first p8 or ds8 exists. The
+// TPU kernel holds a full q-block's scores in VMEM; here a block owns 64
+// rows, and CUDA blocks run in no order, so the maxima take a pass of their
+// own. Like the bf16 backward (attention_bwd.cu), dk/dv and dq are two
+// kernels that each own their output rows, so no sum is taken with atomics
+// and the result is deterministic (the maxima use atomicMax on the bits of
+// non-negative floats, which is order-free):
+//   1. amax:  max|q|, max|do| per (head, q-block); max|k|, max|v| per head;
+//   2. quant: int8 q, k, v, do (row-major) and q, do, k transposed in the
+//      seq_pos order of mma_8bit.cuh (8-bit products that contract over the
+//      sequence read those), and delta;
+//   3. scale pass: s and dp over every (row, key), pst and dst;
+//   4. dk/dv: a block owns 64 keys and streams every q tile: S^T, dP^T,
+//      then p8^T.do8 and ds8^T.q8 with the accumulators as A operands;
+//      int32 sums per q-block, folded into fp32 with that block's scalars;
+//   5. dq: a block owns 64 q rows and streams the key tiles: ds8.k8.
+//
+// What bounds it on the H100: at (32, 866, 12, 64) the bf16 tensors it
+// must read (q, k, v, o, do) and write (dq, dk, dv), ~340 MB, take 0.10 ms
+// at the data-sheet rate, the five products of N^2 64 in int8 0.093 ms.
+// This design does more: the scale pass and the two output kernels
+// recompute s and dp (nine products in all), and it takes 3 N^2 exp2 on
+// the special-function units (16 a clock per SM: ~0.23 ms at 1.8 GHz),
+// which bind it before the tensor cores do.
+
+#include "mma_8bit.cuh"
+
+namespace {
+
+using namespace maest;
+
+constexpr float INV127 = static_cast<float>(1.0 / 127.0);
+constexpr float EPS = 1e-30f;
+constexpr int BW = 4;           // warps of the three product kernels
+constexpr int BR = 16 * BW;     // rows (q rows or keys) a block owns
+constexpr int TILE = 64;        // streamed rows per shared-memory tile
+
+__device__ __forceinline__ float q8_scale(float amax) {
+  return __fmul_rn(fmaxf(amax, EPS), INV127);
+}
+
+// per (head, q-block): max|q|, max|do|, max p, max|ds|; per head: max|k|,
+// max|v|. Non-negative floats, zeroed by the caller, raised with atomicMax
+// on their bits.
+struct Stats {
+  float *qmax, *domax, *pmax, *dsmax, *kmax, *vmax;
+};
+
+// the int8 copies: q, k, v, do (bh, N_pad, 64); q, do, k as (bh, 64, N_pad)
+struct Bytes8 {
+  uint8_t *q, *k, *v, *dout, *qt, *dot, *kt;
+};
+
+__device__ __forceinline__ void atomic_max_pos(float* p, float x) {
+  atomicMax(reinterpret_cast<int*>(p), __float_as_int(x));
+}
+
+__device__ __forceinline__ void load16(const bf16* p, float (&x)[16]) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const uint4 a = *reinterpret_cast<const uint4*>(p + 8 * half);
+    const uint32_t w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      x[8 * half + 2 * i] = f.x;
+      x[8 * half + 2 * i + 1] = f.y;
+    }
+  }
+}
+
+__device__ __forceinline__ float amax8(const bf16* p) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {a.x, a.y, a.z, a.w};
+  float m = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    m = fmaxf(m, fmaxf(fabsf(f.x), fabsf(f.y)));
+  }
+  return m;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// ------------------------------------------------------------ 1. amax ---
+__global__ void __launch_bounds__(256)
+bwd_q8_amax_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   Stats st, int n, int heads, int bq, int nqb, Strides qs,
+                   Strides ks, Strides vs, Strides ds) {
+  __shared__ float red[8][4];
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int j = blockIdx.y;
+  const int r0 = j * bq;
+  const int r1 = min(n, r0 + bq);
+  float mx[4] = {0.f, 0.f, 0.f, 0.f};  // q, do, k, v
+  for (int i = threadIdx.x; i < (r1 - r0) * 8; i += 256) {
+    const long long row = r0 + (i >> 3);
+    const int c = (i & 7) * 8;
+    mx[0] = fmaxf(mx[0], amax8(q + b * qs.b + row * qs.n + h * qs.h + c));
+    mx[1] = fmaxf(mx[1], amax8(dout + b * ds.b + row * ds.n + h * ds.h + c));
+    mx[2] = fmaxf(mx[2], amax8(k + b * ks.b + row * ks.n + h * ks.h + c));
+    mx[3] = fmaxf(mx[3], amax8(v + b * vs.b + row * vs.n + h * vs.h + c));
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    mx[e] = warp_max(mx[e]);
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5][e] = mx[e];
+  }
+  __syncthreads();
+  if (threadIdx.x < 4) {
+    float x = 0.f;
+    for (int w = 0; w < 8; ++w) x = fmaxf(x, red[w][threadIdx.x]);
+    const int qb = bh * nqb + j;
+    if (threadIdx.x == 0) st.qmax[qb] = x;
+    if (threadIdx.x == 1) st.domax[qb] = x;
+    if (threadIdx.x == 2) atomic_max_pos(st.kmax + bh, x);
+    if (threadIdx.x == 3) atomic_max_pos(st.vmax + bh, x);
+  }
+}
+
+// ----------------------------------------------------------- 2. quant ---
+// a block quantizes 64 rows of one head; rows >= n are written as zeros
+__global__ void __launch_bounds__(256)
+bwd_q8_quant_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ o,
+                    const bf16* __restrict__ dout, Stats st, Bytes8 by,
+                    float* __restrict__ delta, int n, int heads, int bq,
+                    int nqb, Strides qs, Strides ks, Strides vs, Strides os,
+                    Strides ds) {
+  __shared__ __align__(16) uint8_t tr[3][D][LD8];  // q, do, k transposed
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int t0 = blockIdx.y * TILE;
+  const int npad = (n + TILE - 1) / TILE * TILE;
+  const int qb = bh * nqb + t0 / bq;  // a 64-row tile lies in one q-block
+  const int r = threadIdx.x >> 2;     // row of the tile
+  const int c0 = (threadIdx.x & 3) * 16;  // its 16 columns
+  const long long row = t0 + r;
+  const float inv[4] = {1.f / q8_scale(st.qmax[qb]), 1.f / q8_scale(st.domax[qb]),
+                        1.f / q8_scale(st.kmax[bh]), 1.f / q8_scale(st.vmax[bh])};
+  uint32_t w[4][4];  // q8, do8, k8, v8: 16 bytes each
+  float dsum = 0.f;
+  if (row < n) {
+    float x[16], y[16];
+    const bf16* src[4] = {q + b * qs.b + row * qs.n + h * qs.h + c0,
+                          dout + b * ds.b + row * ds.n + h * ds.h + c0,
+                          k + b * ks.b + row * ks.n + h * ks.h + c0,
+                          v + b * vs.b + row * vs.n + h * vs.h + c0};
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      load16(src[a], x);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        w[a][i] = pack4(to_s8(__fmul_rn(x[4 * i], inv[a])),
+                        to_s8(__fmul_rn(x[4 * i + 1], inv[a])),
+                        to_s8(__fmul_rn(x[4 * i + 2], inv[a])),
+                        to_s8(__fmul_rn(x[4 * i + 3], inv[a])));
+      if (a == 1) {  // delta = rowsum(do * o), fp32
+        load16(o + b * os.b + row * os.n + h * os.h + c0, y);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) dsum = fmaf(x[i], y[i], dsum);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) w[a][i] = 0u;
+  }
+  const long long off = (static_cast<long long>(bh) * npad + row) * D + c0;
+  uint8_t* rows[4] = {by.q, by.dout, by.k, by.v};
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+    *reinterpret_cast<uint4*>(rows[a] + off) = make_uint4(w[a][0], w[a][1], w[a][2], w[a][3]);
+  const int pos = seq_pos(r);
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) tr[a][c0 + i][pos] = (w[a][i >> 2] >> (8 * (i & 3))) & 0xffu;
+  dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
+  dsum += __shfl_xor_sync(0xffffffffu, dsum, 2);
+  if (row < n && c0 == 0) delta[static_cast<long long>(bh) * n + row] = dsum;
+  __syncthreads();
+  const int dr = threadIdx.x >> 2;  // d row of the transposed tiles
+  const long long toff = (static_cast<long long>(bh) * D + dr) * npad + t0 + c0;
+  uint8_t* cols[3] = {by.qt, by.dot, by.kt};
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    *reinterpret_cast<uint4*>(cols[a] + toff) = *reinterpret_cast<const uint4*>(&tr[a][dr][c0]);
+}
+
+// stage rows [row0, row0 + 64) of a (rows, 64) byte array, 16-byte chunks
+__device__ __forceinline__ void stage_rows8(uint8_t (*dst)[LD8], const uint8_t* src,
+                                            long long rs, int row0) {
+  for (int i = threadIdx.x; i < TILE * 4; i += 32 * BW) {
+    const int j = i >> 2;
+    const int c = (i & 3) * 16;
+    cp_async16(&dst[j][c], src + static_cast<long long>(row0 + j) * rs + c, 16);
+  }
+}
+
+// the 16 x 32 int32 product of a warp's A fragments (16 rows x 64) with
+// the 32 staged rows r0.. of `tile` (contraction over the row's 64 bytes)
+__device__ __forceinline__ void rows_dot8(int (&c)[4][4], const uint32_t (&a)[2][4],
+                                          const uint8_t (*tile)[LD8], int r0,
+                                          int lr, int li) {
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[nt][e] = 0;
+    uint32_t f[4];
+    ldmatrix_x4(f, &tile[r0 + nt * 8 + lr][li * 16]);
+    mma_s8(c[nt], a[0], f[0], f[1]);
+    mma_s8(c[nt], a[1], f[2], f[3]);
+  }
+}
+
+// acc (16 x 64) += A (16 x 32, one k-step) . the transposed tile's sequence
+// columns r0..r0+31 (rows of the tile are d)
+__device__ __forceinline__ void acc_seq8(int (&acc)[8][4], const uint32_t (&a)[4],
+                                         const uint8_t (*tile)[LD8], int r0,
+                                         int lr, int li) {
+#pragma unroll
+  for (int dp = 0; dp < 4; ++dp) {
+    uint32_t f[4];
+    ldmatrix_x4(f, &tile[(2 * dp + (li >> 1)) * 8 + lr][r0 + (li & 1) * 16]);
+    mma_s8(acc[2 * dp], a, f[0], f[1]);
+    mma_s8(acc[2 * dp + 1], a, f[2], f[3]);
+  }
+}
+
+// p and ds of one score element, as _attn_bwd_kernel_q8 rounds them
+__device__ __forceinline__ float prob(int s_int, float c_s, bool live, float lse) {
+  const float s = live ? __fmul_rn(__int2float_rn(s_int), c_s) : NEG_INF;
+  return exp2f(__fsub_rn(s, lse));
+}
+__device__ __forceinline__ float dscore(float p, int dp_int, float c_dp,
+                                        float delta, float scale) {
+  const float dp = __fmul_rn(__int2float_rn(dp_int), c_dp);
+  return __fmul_rn(__fmul_rn(p, __fsub_rn(dp, delta)), scale);
+}
+
+// ----------------------------------------- 3. scale pass and 5. dq ---
+// a block owns 64 q rows of one head (one q-block) and streams the key
+// tiles below n_real; DQ = false: max p and max |ds| into st.pmax /
+// st.dsmax; DQ = true: dq = (ds8 . k8) (dst ks (1/127))
+template <bool DQ>
+__global__ void __launch_bounds__(32 * BW)
+bwd_q8_rows_kernel(Bytes8 by, const float* __restrict__ lse,
+                   const float* __restrict__ delta, Stats st,
+                   bf16* __restrict__ dq, int n, int n_real, int heads, int bq,
+                   int nqb, Strides dqs, float sl, float scale) {
+  __shared__ __align__(128) uint8_t k_sm[2][TILE][LD8];
+  __shared__ __align__(128) uint8_t v_sm[2][TILE][LD8];
+  __shared__ __align__(128) uint8_t kt_sm[DQ ? 2 : 1][D][LD8];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int lr = lane & 7;
+  const int li = lane >> 3;
+  const int bh = blockIdx.x;
+  const int npad = (n + TILE - 1) / TILE * TILE;
+  const int qb = bh * nqb + blockIdx.y * BR / bq;
+  const int row0 = blockIdx.y * BR + warp * 16 + g;  // and row0 + 8
+
+  const float qsc = q8_scale(st.qmax[qb]);
+  const float ksc = q8_scale(st.kmax[bh]);
+  const float c_s = __fmul_rn(__fmul_rn(qsc, ksc), sl);
+  const float c_dp = __fmul_rn(q8_scale(st.domax[qb]), q8_scale(st.vmax[bh]));
+  float c_ds = 0.f, c_dq = 0.f;
+  if constexpr (DQ) {
+    const float dst = fmaxf(st.dsmax[qb], EPS);
+    c_ds = __fdiv_rn(127.f, dst);
+    c_dq = __fmul_rn(__fmul_rn(dst, ksc), INV127);
+  }
+
+  const long long head = static_cast<long long>(bh) * npad * D;
+  const uint8_t* kb = by.k + head;
+  const uint8_t* vb = by.v + head;
+  const uint8_t* ktb = by.kt + head;  // (64, N_pad) of this head
+  auto stage = [&](int tile, int buf) {
+    stage_rows8(k_sm[buf], kb, D, tile * TILE);
+    stage_rows8(v_sm[buf], vb, D, tile * TILE);
+    if constexpr (DQ) {
+      for (int i = threadIdx.x; i < D * 4; i += 32 * BW) {
+        const int j = i >> 2;
+        const int c = (i & 3) * 16;
+        cp_async16(&kt_sm[buf][j][c], ktb + static_cast<long long>(j) * npad + tile * TILE + c, 16);
+      }
+    }
+    cp_async_commit();
+  };
+  stage(0, 0);
+
+  uint32_t qf[2][4], dof[2][4];
+  load_row_frags8(qf, by.q + head, D, row0, npad, t);
+  load_row_frags8(dof, by.dout + head, D, row0, npad, t);
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const long long i = static_cast<long long>(bh) * n + row;
+    // rows past N: lse +inf gives p = 0, delta 0 gives ds = 0
+    lse_r[r] = row < n ? lse[i] : __int_as_float(0x7f800000);
+    delta_r[r] = row < n ? delta[i] : 0.f;
+  }
+
+  float pmax = 0.f, dsmax = 0.f;
+  int acc[8][4];
+#pragma unroll
+  for (int dt = 0; dt < 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0;
+
+  const int n_tiles = (n_real + TILE - 1) / TILE;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_tiles) {
+      stage(it + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int base = it * TILE;
+#pragma unroll
+    for (int r0 = 0; r0 < TILE; r0 += 32) {
+      int si[4][4], dpi[4][4];
+      rows_dot8(si, qf, k_sm[buf], r0, lr, li);   // S = Q8.K8^T
+      rows_dot8(dpi, dof, v_sm[buf], r0, lr, li);  // dP = dO8.V8^T
+      uint32_t x[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = base + r0 + nt * 8 + 2 * t + (e & 1);
+          const float p = prob(si[nt][e], c_s, key < n_real, lse_r[e >> 1]);
+          const float dsv = dscore(p, dpi[nt][e], c_dp, delta_r[e >> 1], scale);
+          if constexpr (DQ) {
+            x[nt][e] = to_s8(__fmul_rn(dsv, c_ds));
+          } else {
+            pmax = fmaxf(pmax, p);
+            dsmax = fmaxf(dsmax, fabsf(dsv));
+          }
+        }
+      if constexpr (DQ) {
+        uint32_t a[4];
+        pack_a(a, x);
+        acc_seq8(acc, a, kt_sm[buf], r0, lr, li);  // dQ += dS8.K8
+      }
+    }
+    __syncthreads();  // every warp is done with `buf` before it is refilled
+  }
+
+  if constexpr (DQ) {
+    const int b = bh / heads;
+    const int h = bh - b * heads;
+    bf16* base = dq + b * dqs.b + h * dqs.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= n) continue;
+      bf16* p = base + static_cast<long long>(row) * dqs.n + 2 * t;
+#pragma unroll
+      for (int dt = 0; dt < 8; ++dt)
+        *reinterpret_cast<__nv_bfloat162*>(p + dt * 8) = __floats2bfloat162_rn(
+            __fmul_rn(__int2float_rn(acc[dt][2 * r]), c_dq),
+            __fmul_rn(__int2float_rn(acc[dt][2 * r + 1]), c_dq));
+    }
+  } else {
+    pmax = warp_max(pmax);
+    dsmax = warp_max(dsmax);
+    if (lane == 0) {
+      atomic_max_pos(st.pmax + qb, pmax);
+      atomic_max_pos(st.dsmax + qb, dsmax);
+    }
+  }
+}
+
+// ----------------------------------------------------------- 4. dk/dv ---
+__device__ __forceinline__ void store_rows_f(bf16* base, long long rs,
+                                             const float (&x)[8][4], int row0,
+                                             int n, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= n) continue;
+    bf16* p = base + static_cast<long long>(row) * rs + 2 * t;
+#pragma unroll
+    for (int dt = 0; dt < 8; ++dt)
+      *reinterpret_cast<__nv_bfloat162*>(p + dt * 8) =
+          __floats2bfloat162_rn(x[dt][2 * r], x[dt][2 * r + 1]);
+  }
+}
+
+// f += float(i) c, i = 0: one q-block's int32 sums into the fp32 totals
+__device__ __forceinline__ void fold(float (&f)[8][4], int (&i)[8][4], float c) {
+#pragma unroll
+  for (int dt = 0; dt < 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      f[dt][e] = __fadd_rn(f[dt][e], __fmul_rn(__int2float_rn(i[dt][e]), c));
+      i[dt][e] = 0;
+    }
+}
+
+__global__ void __launch_bounds__(32 * BW)
+bwd_q8_dkdv_kernel(Bytes8 by, const float* __restrict__ lse,
+                   const float* __restrict__ delta, Stats st,
+                   bf16* __restrict__ dk, bf16* __restrict__ dv, int n,
+                   int n_real, int heads, int bq, int nqb, Strides dks,
+                   Strides dvs, float sl, float scale) {
+  __shared__ __align__(128) uint8_t q_sm[2][TILE][LD8];
+  __shared__ __align__(128) uint8_t do_sm[2][TILE][LD8];
+  __shared__ __align__(128) uint8_t qt_sm[2][D][LD8];
+  __shared__ __align__(128) uint8_t dot_sm[2][D][LD8];
+  __shared__ float lse_sm[2][TILE];
+  __shared__ float delta_sm[2][TILE];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int lr = lane & 7;
+  const int li = lane >> 3;
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int npad = (n + TILE - 1) / TILE * TILE;
+  const int key0 = blockIdx.y * BR + warp * 16 + g;  // and key0 + 8
+
+  float fk[8][4], fv[8][4];
+  int ik[8][4], iv[8][4];
+#pragma unroll
+  for (int dt = 0; dt < 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      fk[dt][e] = fv[dt][e] = 0.f;
+      ik[dt][e] = iv[dt][e] = 0;
+    }
+
+  if (blockIdx.y * BR < n_real) {  // else dk = dv = 0
+    const long long head = static_cast<long long>(bh) * npad * D;
+    const float* lse_bh = lse + static_cast<long long>(bh) * n;
+    const float* delta_bh = delta + static_cast<long long>(bh) * n;
+    auto stage = [&](int tile, int buf) {
+      stage_rows8(q_sm[buf], by.q + head, D, tile * TILE);
+      stage_rows8(do_sm[buf], by.dout + head, D, tile * TILE);
+      for (int i = threadIdx.x; i < D * 4; i += 32 * BW) {
+        const int j = i >> 2;
+        const int c = (i & 3) * 16;
+        const long long src = head + static_cast<long long>(j) * npad + tile * TILE + c;
+        cp_async16(&qt_sm[buf][j][c], by.qt + src, 16);
+        cp_async16(&dot_sm[buf][j][c], by.dot + src, 16);
+      }
+      for (int i = threadIdx.x; i < TILE; i += 32 * BW) {
+        const int row = tile * TILE + i;
+        // rows past N: lse +inf gives p = 0, delta 0 gives ds = 0
+        lse_sm[buf][i] = row < n ? lse_bh[row] : __int_as_float(0x7f800000);
+        delta_sm[buf][i] = row < n ? delta_bh[row] : 0.f;
+      }
+      cp_async_commit();
+    };
+    stage(0, 0);
+
+    uint32_t kf[2][4], vf[2][4];  // this warp's 16 keys, A fragments
+    load_row_frags8(kf, by.k + head, D, key0, npad, t);
+    load_row_frags8(vf, by.v + head, D, key0, npad, t);
+    const bool live[2] = {key0 < n_real, key0 + 8 < n_real};
+    const float ksc = q8_scale(st.kmax[bh]);
+    const float vsc = q8_scale(st.vmax[bh]);
+
+    int jq = -1;  // the q-block of the tiles being summed
+    float c_s = 0.f, c_p = 0.f, c_dp = 0.f, c_ds = 0.f, c_dv = 0.f, c_dk = 0.f;
+    const int n_tiles = npad / TILE;
+    for (int it = 0; it < n_tiles; ++it) {
+      if (it * TILE / bq != jq) {  // a new q-block: fold, then its scalars
+        if (jq >= 0) {
+          fold(fk, ik, c_dk);
+          fold(fv, iv, c_dv);
+        }
+        jq = it * TILE / bq;
+        const int qb = bh * nqb + jq;
+        const float qsc = q8_scale(st.qmax[qb]);
+        const float dosc = q8_scale(st.domax[qb]);
+        const float pst = fmaxf(st.pmax[qb], EPS);
+        const float dst = fmaxf(st.dsmax[qb], EPS);
+        c_s = __fmul_rn(__fmul_rn(qsc, ksc), sl);
+        c_p = __fdiv_rn(127.f, pst);
+        c_dp = __fmul_rn(dosc, vsc);
+        c_ds = __fdiv_rn(127.f, dst);
+        c_dv = __fmul_rn(__fmul_rn(dosc, pst), INV127);
+        c_dk = __fmul_rn(__fmul_rn(dst, qsc), INV127);
+      }
+      const int buf = it & 1;
+      if (it + 1 < n_tiles) {
+        stage(it + 1, buf ^ 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+#pragma unroll
+      for (int r0 = 0; r0 < TILE; r0 += 32) {
+        // S^T = K8.Q8^T: rows are this warp's keys, columns q rows r0..
+        int si[4][4];
+        rows_dot8(si, kf, q_sm[buf], r0, lr, li);
+        float p[4][4];
+        uint32_t x[4][4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = r0 + nt * 8 + 2 * t + (e & 1);
+            p[nt][e] = prob(si[nt][e], c_s, live[e >> 1], lse_sm[buf][col]);
+            x[nt][e] = to_s8(__fmul_rn(p[nt][e], c_p));
+          }
+        uint32_t a[4];
+        pack_a(a, x);
+        acc_seq8(iv, a, dot_sm[buf], r0, lr, li);  // dV += P8^T.dO8
+
+        int dpi[4][4];
+        rows_dot8(dpi, vf, do_sm[buf], r0, lr, li);  // dP^T = V8.dO8^T
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = r0 + nt * 8 + 2 * t + (e & 1);
+            x[nt][e] = to_s8(__fmul_rn(
+                dscore(p[nt][e], dpi[nt][e], c_dp, delta_sm[buf][col], scale), c_ds));
+          }
+        pack_a(a, x);
+        acc_seq8(ik, a, qt_sm[buf], r0, lr, li);  // dK += dS8^T.Q8
+      }
+      __syncthreads();  // every warp is done with `buf` before it is refilled
+    }
+    fold(fk, ik, c_dk);
+    fold(fv, iv, c_dv);
+  }
+  store_rows_f(dk + b * dks.b + h * dks.h, dks.n, fk, key0, n, t);
+  store_rows_f(dv + b * dvs.b + h * dvs.h, dvs.n, fv, key0, n, t);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* maest_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// q, k, v, o, dout (bf16 reads) and dq, dk, dv (bf16 writes): (batch, n,
+// heads, 64) with element strides strides[0..23] = (b, n, h) of q, k, v, o,
+// dout, dq, dk, dv in that order, a contiguous last dimension and rows on
+// 16-byte boundaries. lse: contiguous fp32 (batch, heads, n) from the
+// forward. bq: the q-block of the scales, a multiple of 128. Scratch, from
+// the caller: stats, 4 (batch heads nqb) + 2 (batch heads) fp32 zeros
+// (nqb = ceil(n / bq)); bytes, 7 (batch heads round_up(n, 64) 64) bytes;
+// delta, fp32 (batch, heads, n). sl = scale * log2(e), scale =
+// head_dim^-0.5. 1 <= n_real <= n. Five launches on `stream`; returns the
+// first non-zero cudaGetLastError().
+int maest_attn_bwd_q8(const void* q, const void* k, const void* v,
+                      const void* o, const void* dout, const float* lse,
+                      float* stats, void* bytes, float* delta, void* dq,
+                      void* dk, void* dv, int batch, int n, int heads,
+                      int n_real, int bq, const long long* strides, float sl,
+                      float scale, void* stream) {
+  if (batch <= 0 || n <= 0) return 0;
+  Strides w[8];
+  for (int i = 0; i < 8; ++i)
+    w[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  const int bh = batch * heads;
+  const int nqb = (n + bq - 1) / bq;
+  const int npad = (n + TILE - 1) / TILE * TILE;
+  const long long plane = static_cast<long long>(bh) * npad * D;
+  uint8_t* b8 = static_cast<uint8_t*>(bytes);
+  const Bytes8 by{b8, b8 + plane, b8 + 2 * plane, b8 + 3 * plane,
+                  b8 + 4 * plane, b8 + 5 * plane, b8 + 6 * plane};
+  const long long nb = static_cast<long long>(bh) * nqb;
+  const Stats st{stats, stats + nb, stats + 2 * nb, stats + 3 * nb,
+                 stats + 4 * nb, stats + 4 * nb + bh};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16 *bq_ = static_cast<const bf16*>(q), *bk = static_cast<const bf16*>(k),
+             *bv = static_cast<const bf16*>(v), *bo = static_cast<const bf16*>(o),
+             *bd = static_cast<const bf16*>(dout);
+  int err;
+  bwd_q8_amax_kernel<<<dim3(bh, nqb), 256, 0, s>>>(bq_, bk, bv, bd, st, n, heads,
+                                                   bq, nqb, w[0], w[1], w[2], w[4]);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  const dim3 tiles(bh, npad / TILE);
+  bwd_q8_quant_kernel<<<tiles, 256, 0, s>>>(bq_, bk, bv, bo, bd, st, by, delta, n,
+                                            heads, bq, nqb, w[0], w[1], w[2],
+                                            w[3], w[4]);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  bwd_q8_rows_kernel<false><<<tiles, 32 * BW, 0, s>>>(
+      by, lse, delta, st, nullptr, n, n_real, heads, bq, nqb, w[5], sl, scale);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  bwd_q8_dkdv_kernel<<<tiles, 32 * BW, 0, s>>>(
+      by, lse, delta, st, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n,
+      n_real, heads, bq, nqb, w[6], w[7], sl, scale);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  bwd_q8_rows_kernel<true><<<tiles, 32 * BW, 0, s>>>(
+      by, lse, delta, st, static_cast<bf16*>(dq), n, n_real, heads, bq, nqb,
+      w[5], sl, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -13,7 +13,9 @@ use, as flax's ``dtype``/``param_dtype`` do. Inference stores bf16
 weights for the bf16 tier; training keeps fp32 parameters under bf16
 compute, so that an optimizer step smaller than bf16's spacing is not
 lost. Attention goes through ``ops.attention.flash_attention``: the CUDA
-kernels on the card, the plain versions on the CPU.
+kernels on the card, the plain versions on the CPU; ``attention_quant``
+selects an 8-bit forward (int8 or e4m3) and ``attention_bwd_quant="int8"``
+the int8 backward, as in the JAX package.
 
 The train forward (``forward(x, train=True, generator=...)``) ports the
 random time pos-embed crop, structured and unstructured patchout, token /
@@ -305,10 +307,15 @@ class MAESTNet(nn.Module):
         if cfg.distilled_type not in ("mean", "separated"):
             raise ValueError(f"unknown distilled_type {cfg.distilled_type!r}; "
                              "expected 'mean' or 'separated'")
-        if cfg.attention_bwd_quant == "int8":
-            raise NotImplementedError(
-                "attention_bwd_quant 'int8' is not ported yet (ROADMAP queue "
-                "2, K7)")
+        if cfg.attention_quant not in ("none", None, "qk8", "qk8pv8", "fp8",
+                                       "fp8pv8"):
+            raise ValueError(f"unknown attention_quant {cfg.attention_quant!r}"
+                             "; expected 'none', 'qk8', 'qk8pv8', 'fp8' or "
+                             "'fp8pv8'")
+        if cfg.attention_bwd_quant not in ("none", None, "int8"):
+            raise ValueError("unknown attention_bwd_quant "
+                             f"{cfg.attention_bwd_quant!r}; expected 'none' "
+                             "or 'int8'")
         if cfg.remat_policy not in _REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
                              "expected 'full' | 'dots' | 'attn_out'")

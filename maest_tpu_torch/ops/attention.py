@@ -2,20 +2,28 @@
 
 ``flash_attention(q, k, v, n_real=None, quant=None, bwd_quant=None)``
 takes and returns (B, N, H, D). With gradients off it runs the inference
-forward (K2, no lse). When autograd records it (grad mode on and an input
-that requires a gradient) it is a ``torch.autograd.Function``: the forward
-(K3a) also writes the per-row log2-sum-exp ``lse`` (B, H, N) and saves
-(q, k, v, o, lse); the backward (K3b/K4) rebuilds the probabilities from
-lse and returns dq, dk, dv in the inputs' dtype.
+forward (K2, no lse; K5/K6 under an 8-bit ``quant`` mode). When autograd
+records it (grad mode on and an input that requires a gradient) it is a
+``torch.autograd.Function``: the forward (K3a, or K5/K6 with ``quant``)
+also writes the per-row log2-sum-exp ``lse`` (B, H, N) and saves
+(q, k, v, o, lse); the backward (K3b/K4, or K7 with ``bwd_quant="int8"``)
+rebuilds the probabilities from lse and returns dq, dk, dv in the inputs'
+dtype.
 
 On CUDA tensors each step launches its hand-written kernel
 (``csrc/attention_fwd.cu``, ``csrc/attention_bwd.cu``: bf16 on the tensor
-cores, fp32 in scalar fp32 FMA; head_dim 64, any N, strided views); on CPU
-tensors it runs the plain PyTorch version (``attention_reference``,
-``attention_reference_lse``, ``attention_bwd_reference``). The TPU
+cores, fp32 in scalar fp32 FMA; ``csrc/attention_fwd_q8.cu`` and
+``csrc/attention_bwd_q8.cu``: int8 / e4m3 on the tensor cores, bf16
+inputs only; head_dim 64, any N, strided views); on CPU tensors it runs
+the plain PyTorch version (``attention_reference``,
+``attention_reference_lse``, ``attention_bwd_reference``,
+``attention_q8_reference``, ``attention_bwd_int8_reference``). The TPU
 kernels' block tuning, head grouping, sublane padding and the full-K /
 split backward switch have no counterpart here: one backward design covers
-every N. The 8-bit modes are not ported yet (ROADMAP queue 2, K5-K7).
+every N. Two TPU blockings are semantics, not tuning, and are kept: the
+8-bit forward rounds p against the running max of its key blocks (the
+kernel's 64-key tile, ``Q8_BLOCK_K``), and the int8 backward's scales are
+taken over the TPU's q blocks (``bwd_q_block``).
 """
 
 from __future__ import annotations
@@ -83,23 +91,207 @@ def attention_bwd_reference(q, k, v, o, lse, do, n_real: int | None = None):
     return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# --- 8-bit modes (K5, K6, K7) ---------------------------------------------
+Q8_BLOCK_K = 64  # the 8-bit forward kernel's key tile
+_EPS = 1e-30     # scale floor: all-zero rows and heads stay finite
+# |x| above 464 rounds past e4m3's largest finite value (448, ties to even)
+_E4M3_OVERFLOW = 464.0
+
+
+def _div(x, c: float) -> torch.Tensor:
+    """x / c, rounded once. PyTorch's CUDA kernels multiply by the
+    reciprocal of a Python-scalar divisor, which can land one ulp off the
+    TPU package's division."""
+    return x / torch.full_like(x, c)
+
+
+def _rdiv(c: float, x) -> torch.Tensor:
+    """c / x, rounded once (``c / tensor`` is ``reciprocal(x) * c``)."""
+    return torch.full_like(x, c) / x
+
+
+def quantize_rows(x: torch.Tensor):
+    """Symmetric per-row int8 over the last axis (copy of the JAX package's
+    ``_quantize_rows``): x (..., d) -> (int8 values, fp32 scales (...,)),
+    scale max(amax, 1e-30) / 127, values round(x / scale) half to even."""
+    xf = x.float()
+    scales = _div(torch.clamp_min(xf.abs().amax(dim=-1), _EPS), 127.0)
+    return torch.round(xf / scales[..., None]).to(torch.int8), scales
+
+
+def quantize_tensor(x: torch.Tensor, dim=None):
+    """Symmetric int8 with one scale (copy of ``_q8_tensor``): over all of
+    ``x``, or over the axes ``dim`` (one scale per the rest, kept as size-1
+    axes). scale = max(amax, 1e-30) * (1/127); values round(x * (1/scale))
+    half to even: a multiply by the reciprocal, as the TPU kernel does."""
+    xf = x.float()
+    amax = xf.abs().amax() if dim is None else xf.abs().amax(dim=dim,
+                                                              keepdim=True)
+    scale = torch.clamp_min(amax, _EPS) * (1.0 / 127.0)
+    return torch.round(xf * (1.0 / scale)).to(torch.int8), scale
+
+
+def to_e4m3(x: torch.Tensor) -> torch.Tensor:
+    """x cast to float8_e4m3fn as the JAX package casts it: round to nearest
+    even, and NaN where the value rounds past 448 (torch's own cast
+    saturates to +-448 there)."""
+    xf = x.float()
+    return torch.where(xf.abs() > _E4M3_OVERFLOW, float("nan"), xf).to(
+        torch.float8_e4m3fn)
+
+
+def _heads(*ts):
+    return [t.transpose(1, 2) for t in ts]  # (B, N, H, D) -> (B, H, N, D)
+
+
+def attention_q8_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           n_real: int | None = None, quant: str = "qk8",
+                           block_k: int = Q8_BLOCK_K):
+    """Plain PyTorch forward of an 8-bit mode on (B, N, H, D): (o, lse).
+
+    The arithmetic of ``_attn_body_q8`` ("qk8", "qk8pv8") and of
+    ``_attn_body`` on e4m3 operands ("fp8", "fp8pv8"), walked over key
+    blocks of ``block_k``: p is taken against the running max of the blocks
+    seen so far, so its 8-bit (or bf16) rounding depends on the blocks.
+    int8 products are integers, summed exactly in float64 (|sum| < 2^24,
+    so the fp32 value is the TPU's int32 one); e4m3 products are exact in
+    fp32 (4-bit mantissas), so those run in fp32 and round only in the
+    sums, as the kernels' fp32 accumulators do."""
+    if quant not in _QUANT_MODES[1:]:
+        raise ValueError(f"unknown attention quant mode {quant!r}")
+    b, n, h, d = q.shape
+    nr = n if n_real is None else n_real
+    sl = d**-0.5 * _LOG2E
+    qh, kh, vh = _heads(q, k, v)
+    int8 = quant in ("qk8", "qk8pv8")
+    if int8:
+        qi, sq = quantize_rows(qh)
+        ki, sk = quantize_rows(kh)
+        qa, ka, qs = qi.double(), ki.double(), sq * sl
+    else:
+        qa, ka = to_e4m3(qh).float(), to_e4m3(kh).float()
+    if quant == "qk8pv8":
+        sv = _div(torch.clamp_min(vh.float().abs().amax(dim=2), _EPS), 127.0)
+        va = torch.round(vh.float() / sv[:, :, None]).to(torch.int8).double()
+    elif quant == "fp8pv8":
+        va = to_e4m3(vh).float()
+    else:
+        va = vh.float()
+    m = torch.full((b, h, n, 1), _NEG_INF, device=q.device)
+    l = torch.zeros((b, h, n, 1), device=q.device)
+    acc = torch.zeros((b, h, n, d), device=q.device)
+    # key blocks wholly at or past n_real add exactly nothing (p = 0)
+    for base in range(0, nr, block_k):
+        hi = min(base + block_k, n)
+        s = (qa @ ka[:, :, base:hi].transpose(-1, -2)).float()
+        s = s * qs[..., None] * sk[:, :, None, base:hi] if int8 else s * sl
+        if hi > nr:
+            s[..., nr - base:] = _NEG_INF
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        if quant == "qk8pv8":
+            pv = (torch.round(p * 127.0).double() @ va[:, :, base:hi]).float()
+        elif quant == "fp8pv8":
+            pv = p.to(torch.float8_e4m3fn).float() @ va[:, :, base:hi]
+        else:  # p rounded to v's dtype, products exact in fp32
+            pv = p.to(v.dtype).float() @ va[:, :, base:hi]
+        acc = acc * corr + pv
+        m = m_new
+    if quant == "qk8pv8":
+        acc = acc * _div(sv, 127.0)[:, :, None]
+    o = (acc / l).transpose(1, 2).to(q.dtype)
+    return o, (m + torch.log2(l))[..., 0]
+
+
+# The TPU's int8 backward is full-K only; past this n_pad its caller runs
+# the bf16 split backward (maest_tpu/ops/attention.py _bwd).
+_FULL_K_BWD_MAX_N_PAD = 4096
+_BWD_VMEM_ROWS = 896 * 1792
+
+
+def bwd_q_block(n: int) -> int:
+    """The q-block of the int8 backward's scales, for sequence length n.
+
+    A copy of the TPU package's ``_pick_bwd_block(round_up(n, 128))``: the
+    largest 128-multiple divisor of n_pad with block * n_pad <= 896 * 1792.
+    It is kept as semantics, not tuning: q, do, p and ds each share one
+    int8 scale over a (head, q-block), so another blocking moves every int8
+    grid and gives other numbers everywhere. One block per head at every
+    shipped training shape (n_pad 384, 640, 896, 1152)."""
+    n_pad = -(-n // 128) * 128
+    best = 128
+    for cand in range(128, n_pad + 1, 128):
+        if n_pad % cand == 0 and cand * n_pad <= _BWD_VMEM_ROWS:
+            best = cand
+    return best
+
+
+def int8_bwd_applies(n: int) -> bool:
+    """Whether ``bwd_quant="int8"`` runs the int8 backward (K7) at length
+    n; beyond n_pad 4096 the TPU package runs its bf16 backward instead."""
+    return -(-n // 128) * 128 <= _FULL_K_BWD_MAX_N_PAD
+
+
+def attention_bwd_int8_reference(q, k, v, o, lse, do,
+                                 n_real: int | None = None):
+    """Plain PyTorch int8 backward (``_attn_bwd_kernel_q8``): per (head,
+    q-block) scalar scales for q and do, per head for k and v; p and ds
+    requantized with their block maxima; all five products int8, summed
+    exactly in float64 (an integer sum below 2^53, which fp32 then rounds
+    as the TPU's int32 -> fp32 cast does). Every scale product keeps the
+    TPU's association order. dq in q's dtype; dk and dv summed over the q
+    blocks in fp32, then cast. Beyond n_pad 4096: the bf16 backward."""
+    b, n, h, d = q.shape
+    if not int8_bwd_applies(n):
+        return attention_bwd_reference(q, k, v, o, lse, do, n_real)
+    nr = n if n_real is None else n_real
+    scale = d**-0.5
+    sl = scale * _LOG2E
+    qh, kh, vh, oh, doh = _heads(q, k, v, o, do)
+    k8, ks = quantize_tensor(kh, dim=(2, 3))
+    v8, vs = quantize_tensor(vh, dim=(2, 3))
+    k8, v8 = k8.double(), v8.double()
+    delta = (doh.float() * oh.float()).sum(-1, keepdim=True)  # (B, H, N, 1)
+    dq = torch.empty((b, h, n, d), device=q.device)
+    dk = torch.zeros((b, h, n, d), device=q.device)
+    dv = torch.zeros((b, h, n, d), device=q.device)
+    bq = bwd_q_block(n)
+    for r0 in range(0, n, bq):
+        r = slice(r0, min(r0 + bq, n))
+        q8, qs = quantize_tensor(qh[:, :, r], dim=(2, 3))
+        do8, dos = quantize_tensor(doh[:, :, r], dim=(2, 3))
+        q8, do8 = q8.double(), do8.double()
+        s = (q8 @ k8.transpose(-1, -2)).float() * (qs * ks * sl)
+        s[..., nr:] = _NEG_INF
+        p = torch.exp2(s - lse[:, :, r, None])
+        pst = torch.clamp_min(p.amax(dim=(2, 3), keepdim=True), _EPS)
+        p8 = torch.round(p * _rdiv(127.0, pst)).double()
+        dv += (p8.transpose(-1, -2) @ do8).float() * (dos * pst * (1.0 / 127.0))
+        dp = (do8 @ v8.transpose(-1, -2)).float() * (dos * vs)
+        ds = p * (dp - delta[:, :, r]) * scale
+        dst = torch.clamp_min(ds.abs().amax(dim=(2, 3), keepdim=True), _EPS)
+        ds8 = torch.round(ds * _rdiv(127.0, dst)).double()
+        dq[:, :, r] = (ds8 @ k8).float() * (dst * ks * (1.0 / 127.0))
+        dk += (ds8.transpose(-1, -2) @ q8).float() * (dst * qs * (1.0 / 127.0))
+    dq, dk, dv = _heads(dq, dk, dv)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _check_args(q, k, v, n_real, quant, bwd_quant=None):
-    if quant == "none":  # config-file spelling of "off"
+    """Validate; return (n_real or None when it is N, quant, bwd_quant) with
+    the config-file spelling "none" of off turned into None."""
+    if quant == "none":
         quant = None
     if quant not in _QUANT_MODES:
         raise ValueError(f"unknown attention quant mode {quant!r}; expected "
                          "None, 'qk8', 'qk8pv8', 'fp8' or 'fp8pv8'")
-    if quant is not None:
-        raise NotImplementedError(
-            f"attention quant mode {quant!r} is not ported yet (ROADMAP "
-            "queue 2: K5 for qk8/qk8pv8, K6 for fp8/fp8pv8)")
-    if bwd_quant not in (None, "none", "int8"):
+    if bwd_quant == "none":
+        bwd_quant = None
+    if bwd_quant not in (None, "int8"):
         raise ValueError(f"unknown attention bwd_quant mode {bwd_quant!r}; "
                          "expected None or 'int8'")
-    if bwd_quant == "int8":
-        raise NotImplementedError(
-            "attention bwd_quant 'int8' is not ported yet (ROADMAP queue 2, "
-            "K7)")
     if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError("q, k, v must share one (B, N, H, D) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -109,7 +301,7 @@ def _check_args(q, k, v, n_real, quant, bwd_quant=None):
         raise ValueError(f"n_real={n_real} exceeds the sequence length {n}")
     if n_real is not None and n_real < 1:
         raise ValueError(f"n_real={n_real} must be at least 1")
-    return None if n_real is None or n_real == n else n_real
+    return (None if n_real is None or n_real == n else n_real), quant, bwd_quant
 
 
 class _SavedOutputs(threading.local):
@@ -147,13 +339,10 @@ def replay_outputs(store: list):
         _saved.replay = prev
 
 
-def _forward_lse(q, k, v, n_real):
+def _forward_lse(q, k, v, n_real, quant):
     if _saved.replay:
         return _saved.replay.pop(0)
-    if q.device.type == "cpu":
-        o, lse = attention_reference_lse(q, k, v, n_real)
-    else:
-        o, lse = _launch_fwd(q, k, v, n_real, with_lse=True)
+    o, lse = _fwd(q, k, v, n_real, quant, with_lse=True)
     if _saved.record is not None:
         _saved.record.append((o.detach(), lse))
     return o, lse
@@ -166,16 +355,17 @@ class _FlashAttention(torch.autograd.Function):
     (B, N, 3, H, D) gradient, a copy and a sum."""
 
     @staticmethod
-    def forward(ctx, qkv, n_real):
-        o, lse = _forward_lse(*qkv.unbind(2), n_real)
+    def forward(ctx, qkv, n_real, quant, bwd_quant):
+        o, lse = _forward_lse(*qkv.unbind(2), n_real, quant)
         ctx.save_for_backward(qkv, o, lse)
-        ctx.n_real = n_real
+        ctx.n_real, ctx.bwd_quant = n_real, bwd_quant
         return o
 
     @staticmethod
     def backward(ctx, do):
         qkv, o, lse = ctx.saved_tensors
-        return _bwd_qkv(*qkv.unbind(2), o, lse, do, ctx.n_real), None
+        return (_bwd_qkv(*qkv.unbind(2), o, lse, do, ctx.n_real,
+                         ctx.bwd_quant), None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -185,17 +375,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Fused multi-head attention; inputs/outputs (B, N, H, D).
 
     ``n_real``: keys at positions >= n_real get no softmax mass (their
-    query rows are still computed, and still reach dk/dv). ``quant`` and
-    ``bwd_quant``: only None / "none"; the 8-bit modes raise
-    ``NotImplementedError``. CUDA launches are counted in
-    ``flash_attention.launches`` (inference forward, K2),
-    ``flash_attention_fwd_lse.launches`` (training forward, K3a) and
-    ``attention_bwd.launches`` (backward, K3b/K4)."""
-    n_real = _check_args(q, k, v, n_real, quant, bwd_quant)
+    query rows are still computed, and still reach dk/dv). ``quant``:
+    None | "qk8" | "qk8pv8" | "fp8" | "fp8pv8", the 8-bit forward (K5 for
+    the int8 modes, K6 for the e4m3 ones; under autograd the backward of
+    the saved quantized forward is the bf16 one, straight through).
+    ``bwd_quant``: None | "int8", the int8 backward (K7) while
+    round_up(N, 128) <= 4096, the bf16 one beyond, as the TPU package
+    does. On CUDA the 8-bit modes take bf16 inputs. Launches are counted
+    in ``flash_attention.launches`` (K2), ``flash_attention_fwd_lse.
+    launches`` (K3a), ``attention_bwd.launches`` (K3b/K4),
+    ``attention_fwd_int8.launches`` (K5), ``attention_fwd_fp8.launches``
+    (K6) and ``attention_bwd_int8.launches`` (K7)."""
+    n_real, quant, bwd_quant = _check_args(q, k, v, n_real, quant, bwd_quant)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FlashAttention.apply(torch.stack((q, k, v), dim=2), n_real)
-    return _forward(q, k, v, n_real)
+        return _FlashAttention.apply(torch.stack((q, k, v), dim=2), n_real,
+                                     quant, bwd_quant)
+    return _fwd(q, k, v, n_real, quant, with_lse=False)[0]
 
 
 def flash_attention_qkv(qkv: torch.Tensor, n_real: int | None = None,
@@ -207,26 +403,58 @@ def flash_attention_qkv(qkv: torch.Tensor, n_real: int | None = None,
     if qkv.ndim != 5 or qkv.shape[2] != 3:
         raise ValueError(f"qkv must be (B, N, 3, H, D), got {tuple(qkv.shape)}")
     q, k, v = qkv.unbind(2)
-    n_real = _check_args(q, k, v, n_real, quant, bwd_quant)
+    n_real, quant, bwd_quant = _check_args(q, k, v, n_real, quant, bwd_quant)
     if torch.is_grad_enabled() and qkv.requires_grad:
-        return _FlashAttention.apply(qkv, n_real)
-    return _forward(q, k, v, n_real)
+        return _FlashAttention.apply(qkv, n_real, quant, bwd_quant)
+    return _fwd(q, k, v, n_real, quant, with_lse=False)[0]
 
 
-def _forward(q, k, v, n_real):
-    """The inference forward: K2 on the card, the plain version on the CPU."""
+def _fwd(q, k, v, n_real, quant, with_lse):
+    """(o, lse or None) of the forward that ``quant`` names."""
+    if quant in ("qk8", "qk8pv8"):
+        return attention_fwd_int8(q, k, v, n_real, quant == "qk8pv8", with_lse)
+    if quant in ("fp8", "fp8pv8"):
+        return attention_fwd_fp8(q, k, v, n_real, quant == "fp8pv8", with_lse)
     if q.device.type == "cpu":
-        return attention_reference(q, k, v, n_real)
-    return _launch_fwd(q, k, v, n_real, with_lse=False)[0]
+        if with_lse:
+            return attention_reference_lse(q, k, v, n_real)
+        return attention_reference(q, k, v, n_real), None
+    return _launch_fwd(q, k, v, n_real, with_lse)
 
 
 def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, n_real: int | None = None):
     """The training forward alone: (o, lse (B, H, N) fp32)."""
-    n_real = _check_args(q, k, v, n_real, None)
+    n_real, _, _ = _check_args(q, k, v, n_real, None)
+    return _fwd(q, k, v, n_real, None, with_lse=True)
+
+
+def attention_fwd_int8(q, k, v, n_real: int | None = None, pv8: bool = False,
+                       with_lse: bool = False):
+    """The int8 forward (K5): "qk8", or "qk8pv8" with ``pv8``; (o, lse or
+    None). CUDA tensors launch ``csrc/attention_fwd_q8.cu``, CPU tensors
+    run ``attention_q8_reference``."""
+    return _fwd_q8(attention_fwd_int8, "qk8pv8" if pv8 else "qk8", q, k, v,
+                   n_real, with_lse)
+
+
+def attention_fwd_fp8(q, k, v, n_real: int | None = None, pv8: bool = False,
+                      with_lse: bool = False):
+    """The e4m3 forward (K6): "fp8", or "fp8pv8" with ``pv8``; (o, lse or
+    None). CUDA tensors launch ``csrc/attention_fwd_q8.cu``, CPU tensors
+    run ``attention_q8_reference``."""
+    return _fwd_q8(attention_fwd_fp8, "fp8pv8" if pv8 else "fp8", q, k, v,
+                   n_real, with_lse)
+
+
+def _fwd_q8(wrapper, quant, q, k, v, n_real, with_lse):
     if q.device.type == "cpu":
-        return attention_reference_lse(q, k, v, n_real)
-    return _launch_fwd(q, k, v, n_real, with_lse=True)
+        o, lse = attention_q8_reference(q, k, v, n_real, quant)
+        return o, (lse if with_lse else None)
+    _check_q8_views((q, k, v), "q/k/v")
+    out = _launch_fwd_q8(q, k, v, n_real, quant, with_lse)
+    wrapper.launches += 1
+    return out
 
 
 def _aligned(t):
@@ -298,24 +526,105 @@ def _launch_fwd(q, k, v, n_real, with_lse):
     return out, lse
 
 
+_FP32_Q8 = ("the CUDA 8-bit attention kernels take bfloat16 inputs; float32 "
+            "with an 8-bit mode runs on the CPU only (ROADMAP queue 2: "
+            "'fp32 inputs with an 8-bit attention mode on CUDA')")
+
+
+def _check_q8_views(tensors, what):
+    if tensors[0].device.type == "cuda" and tensors[0].dtype == torch.float32:
+        raise NotImplementedError(_FP32_Q8)
+    _check_views(tensors, torch.bfloat16, what)
+
+
+def _seq_major(x8: torch.Tensor) -> torch.Tensor:
+    """(B, H, N, 64) 8-bit -> (B, H, 64, N_pad) bytes, N_pad = round_up(N,
+    64), zero-filled. An 8-bit product that contracts over the sequence
+    reads this copy: ldmatrix cannot transpose 8-bit elements. Within each
+    16-row group, row 8a + 2t + c goes to column 4t + 2a + c: the order in
+    which the m16n8 accumulator of the preceding product hands a thread its
+    values, so that accumulator becomes the next product's A operand as it
+    lies (csrc/mma_8bit.cuh)."""
+    b, h, n, d = x8.shape
+    npad = -(-n // 64) * 64
+    xp = torch.zeros((b, h, npad, d), dtype=torch.uint8, device=x8.device)
+    xp[:, :, :n] = x8.view(torch.uint8)
+    xp = xp.view(b, h, npad // 16, 2, 4, 2, d).permute(0, 1, 6, 2, 4, 3, 5)
+    return xp.reshape(b, h, d, npad)
+
+
+def _launch_fwd_q8(q, k, v, n_real, quant, with_lse):
+    """K5/K6: the 8-bit inputs, made in PyTorch as the TPU package makes
+    them in XLA outside its kernel, then ``csrc/attention_fwd_q8.cu``;
+    (o, lse or None)."""
+    b, n, h, d = q.shape
+    sl = d**-0.5 * _LOG2E
+    qs = sk = sv127 = None
+    if quant in ("qk8", "qk8pv8"):
+        q8, sq = quantize_rows(q)
+        k8, sk = quantize_rows(k)
+        qs = (sq * sl).transpose(1, 2).contiguous()  # (B, H, N)
+        sk = sk.transpose(1, 2).contiguous()
+    else:
+        q8, k8 = to_e4m3(q), to_e4m3(k)
+    q8, k8 = q8.contiguous(), k8.contiguous()  # 16-byte rows for cp.async
+    if quant == "qk8pv8":
+        vh = v.transpose(1, 2).float()
+        sv = _div(torch.clamp_min(vh.abs().amax(dim=2), _EPS), 127.0)
+        v_in = _seq_major(torch.round(vh / sv[:, :, None]).to(torch.int8))
+        sv127 = _div(sv, 127.0).contiguous()  # (B, H, 64)
+    elif quant == "fp8pv8":
+        v_in = _seq_major(to_e4m3(v.transpose(1, 2)))
+    else:
+        v_in = v
+    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    lib = _build.load_library("attention_fwd_q8")
+    name = f"maest_attn_fwd_{quant}"
+    fn = _entry(lib, name, 8, 1)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q8.data_ptr(), k8.data_ptr(), ptr(qs), ptr(sk),
+                 v_in.data_ptr(), ptr(sv127), out.data_ptr(), ptr(lse),
+                 b, n, h, n if n_real is None else n_real,
+                 _strides(q8, k8, v, out), sl, stream)
+    _build.check(lib, err, name)
+    return out, lse
+
+
 def attention_bwd(q, k, v, o, lse, do, n_real: int | None = None):
     """(dq, dk, dv) of attention from the saved (q, k, v, o, lse) and the
     output gradient ``do``; all (B, N, H, D) but lse (B, H, N) fp32. CUDA
     tensors launch ``csrc/attention_bwd.cu`` (counted in
     ``attention_bwd.launches``), CPU tensors run
     ``attention_bwd_reference``."""
-    return _bwd_qkv(q, k, v, o, lse, do, n_real).unbind(2)
+    return _bwd_qkv(q, k, v, o, lse, do, n_real, None).unbind(2)
 
 
-def _bwd_qkv(q, k, v, o, lse, do, n_real):
+def attention_bwd_int8(q, k, v, o, lse, do, n_real: int | None = None):
+    """The int8 backward (K7): as ``attention_bwd``, with the arithmetic of
+    ``attention_bwd_int8_reference``. CUDA tensors launch
+    ``csrc/attention_bwd_q8.cu`` (counted in ``attention_bwd_int8.
+    launches``) while round_up(N, 128) <= 4096, and the bf16 backward
+    beyond, as the TPU package does."""
+    return _bwd_qkv(q, k, v, o, lse, do, n_real, "int8").unbind(2)
+
+
+def _bwd_qkv(q, k, v, o, lse, do, n_real, bwd_quant):
     """The backward as one (B, N, 3, H, D) gradient of q, k, v."""
+    int8 = bwd_quant == "int8" and int8_bwd_applies(q.shape[1])
     if q.device.type == "cpu":
-        return torch.stack(attention_bwd_reference(q, k, v, o, lse, do,
-                                                   n_real), dim=2)
+        ref = attention_bwd_int8_reference if int8 else attention_bwd_reference
+        return torch.stack(ref(q, k, v, o, lse, do, n_real), dim=2)
     # the delta pass reads o and do rows with 16-byte loads
     o, do = (t if t.dtype == q.dtype and t.stride(3) == 1 and _aligned(t)
              else t.to(q.dtype).contiguous() for t in (o, do))
-    _check_views((q, k, v, o, do), q.dtype, "q/k/v/o/do")
+    if int8:
+        _check_q8_views((q, k, v, o, do), "q/k/v/o/do")
+    else:
+        _check_views((q, k, v, o, do), q.dtype, "q/k/v/o/do")
     b, n, h, d = q.shape
     if lse.shape != (b, h, n) or lse.dtype != torch.float32 or (
             not lse.is_contiguous()) or lse.device != q.device:
@@ -326,6 +635,12 @@ def _bwd_qkv(q, k, v, o, lse, do, n_real):
     grads = torch.empty((b, n, 3, h, d), dtype=q.dtype, device=q.device)
     dq, dk, dv = grads[:, :, 0], grads[:, :, 1], grads[:, :, 2]
     delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    n_real = n if n_real is None else n_real
+    strides = _strides(q, k, v, o, do, dq, dk, dv)
+    if int8:
+        _launch_bwd_q8(q, k, v, o, do, lse, delta, dq, dk, dv, n_real, strides)
+        attention_bwd_int8.launches += 1
+        return grads
     lib = _build.load_library("attention_bwd")
     name = ("maest_attn_bwd_fp32" if q.dtype == torch.float32
             else "maest_attn_bwd_bf16")
@@ -335,14 +650,45 @@ def _bwd_qkv(q, k, v, o, lse, do, n_real):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 b, n, h, n if n_real is None else n_real,
-                 _strides(q, k, v, o, do, dq, dk, dv),
-                 d**-0.5 * _LOG2E, d**-0.5, stream)
+                 b, n, h, n_real, strides, d**-0.5 * _LOG2E, d**-0.5, stream)
     _build.check(lib, err, name)
     attention_bwd.launches += 1
     return grads
 
 
+def _launch_bwd_q8(q, k, v, o, do, lse, delta, dq, dk, dv, n_real, strides):
+    """K7: scratch for the maxima and the int8 copies, then the kernels of
+    ``csrc/attention_bwd_q8.cu`` (pre-pass, scale pass, dk/dv, dq)."""
+    b, n, h, d = q.shape
+    bq = bwd_q_block(n)
+    nqb = -(-n // bq)
+    npad = -(-n // 64) * 64
+    # maxima of |q|, |do| per (head, q-block), of |k|, |v| per head, and of
+    # p, |ds| per (head, q-block): atomicMax targets, so zeroed
+    stats = torch.zeros(4 * b * h * nqb + 2 * b * h, dtype=torch.float32,
+                        device=q.device)
+    # q8, k8, v8, do8 (B*H, N_pad, 64) and q, do, k transposed (_seq_major)
+    bytes8 = torch.empty(7 * b * h * npad * d, dtype=torch.int8,
+                         device=q.device)
+    lib = _build.load_library("attention_bwd_q8")
+    fn = lib.maest_attn_bwd_q8
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_float,
+        ctypes.c_void_p]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), stats.data_ptr(),
+                 bytes8.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), b, n, h, n_real, bq, strides,
+                 d**-0.5 * _LOG2E, d**-0.5, stream)
+    _build.check(lib, err, "maest_attn_bwd_q8")
+
+
 flash_attention.launches = 0
 flash_attention_fwd_lse.launches = 0
 attention_bwd.launches = 0
+attention_fwd_int8.launches = 0
+attention_fwd_fp8.launches = 0
+attention_bwd_int8.launches = 0

@@ -17,7 +17,9 @@ import jax.numpy as jnp
 from maest_tpu.ops.attention import flash_attention as jax_flash
 from maest_tpu_torch.ops.attention import (
     attention_bwd,
+    attention_bwd_int8_reference,
     attention_bwd_reference,
+    attention_q8_reference,
     attention_reference,
     attention_reference_lse,
     flash_attention,
@@ -72,9 +74,12 @@ def test_api_errors():
                                flash_attention(q, k, v))
     with pytest.raises(ValueError, match="unknown attention quant"):
         flash_attention(q, k, v, quant="int4")
+    # the 8-bit modes run: on the CPU, their plain version
     for mode in ("qk8", "qk8pv8", "fp8", "fp8pv8"):
-        with pytest.raises(NotImplementedError, match="K5|K6"):
-            flash_attention(q, k, v, quant=mode)
+        torch.testing.assert_close(flash_attention(q, k, v, quant=mode),
+                                   attention_q8_reference(q, k, v, None,
+                                                          mode)[0],
+                                   rtol=0, atol=0)
     with pytest.raises(ValueError, match="exceeds the sequence length"):
         flash_attention(q, k, v, n_real=17)
     with pytest.raises(ValueError, match="at least 1"):
@@ -182,13 +187,22 @@ def test_backward_plain_version_matches_autograd():
 
 
 def test_bwd_quant_errors():
-    """The int8 backward (K7) is refused, not silently run in bf16."""
+    """The int8 backward (K7) runs its own arithmetic, not the bf16
+    backward; unknown modes are refused."""
     x = torch.from_numpy(_qkv(1, 16, 1)).requires_grad_(True)
     q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
     torch.testing.assert_close(flash_attention(q, k, v, bwd_quant="none"),
                                flash_attention(q, k, v))
-    with pytest.raises(NotImplementedError, match="K7"):
-        flash_attention(q, k, v, bwd_quant="int8")
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (1, 16, 1, 64)).astype("f4"))
+    flash_attention(q, k, v, bwd_quant="int8").backward(g)
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    o, lse = attention_reference_lse(qd, kd, vd)
+    want = attention_bwd_int8_reference(qd, kd, vd, o, lse, g)
+    bf16_path = attention_bwd_reference(qd, kd, vd, o, lse, g)
+    for i in range(3):
+        assert torch.equal(x.grad[:, :, i], want[i])
+        assert not torch.equal(want[i], bf16_path[i])
     with pytest.raises(ValueError, match="unknown attention bwd_quant"):
         flash_attention(q, k, v, bwd_quant="int4")
 

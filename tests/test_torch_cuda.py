@@ -280,3 +280,80 @@ def test_remat_launch_counts_on_card(cuda_device, policy, fwd):
                                    flash_attention_fwd_lse.launches,
                                    attention_bwd.launches), before)]
     assert grew == [0, fwd * cfg.depth, cfg.depth]
+
+
+# --- the 8-bit modes: K5 / K6 (forward), K7 (int8 backward) ---------------
+# K5/K6 against attention_q8_reference on the same 64-key tiles and K7
+# against attention_bwd_int8_reference: 2e-2 compared in fp32 (bf16
+# outputs; an exp2 ulp may flip the rounding of one 8-bit p or ds), K7
+# relative to each gradient's max.
+Q8_MODES = ("qk8", "qk8pv8", "fp8", "fp8pv8")
+
+
+@pytest.mark.parametrize("b,n,n_real", [(2, 300, 290), (1, 1, None),
+                                        (3, 130, 129), (1, 1676, None)])
+@pytest.mark.parametrize("mode", Q8_MODES)
+def test_q8_forward_kernels_match_plain(cuda_device, mode, b, n, n_real):
+    from maest_tpu_torch.ops import attention as A
+
+    x = _rand((b, n, 3, 12, 64), 10).to(cuda_device, torch.bfloat16)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    wrap = A.attention_fwd_int8 if mode.startswith("qk8") else A.attention_fwd_fp8
+    before = wrap.launches
+    o, lse = wrap(q, k, v, n_real, mode.endswith("pv8"), with_lse=True)
+    ro, rlse = A.attention_q8_reference(q, k, v, n_real, mode)
+    torch.cuda.synchronize()
+    assert wrap.launches == before + 1
+    assert o.dtype == torch.bfloat16 and lse.shape == (b, 12, n)
+    assert (o.float() - ro.float()).abs().max().item() <= 2e-2
+    assert (lse - rlse).abs().max().item() <= LSE_TOL
+
+
+@pytest.mark.parametrize("b,n,n_real", [(2, 300, 290), (2, 1800, 1790),
+                                        (4, 866, None), (1, 1, None)])
+def test_int8_backward_kernel_matches_plain(cuda_device, b, n, n_real):
+    from maest_tpu_torch.ops import attention as A
+
+    x = _rand((b, n, 3, 12, 64), 11).to(cuda_device, torch.bfloat16)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    g = _rand((b, n, 12, 64), 12).to(cuda_device, torch.bfloat16)
+    o, lse = flash_attention_fwd_lse(q, k, v, n_real)
+    before = A.attention_bwd_int8.launches
+    got = A.attention_bwd_int8(q, k, v, o, lse, g, n_real)
+    ref = A.attention_bwd_int8_reference(q, k, v, o, lse, g, n_real)
+    torch.cuda.synchronize()
+    assert A.attention_bwd_int8.launches == before + 1
+    for ours, want in zip(got, ref):
+        top = want.float().abs().max().item()
+        assert (ours.float() - want.float()).abs().max().item() <= 2e-2 * top
+    if n_real is not None:
+        assert not got[1][:, n_real:].any() and not got[2][:, n_real:].any()
+
+
+def test_q8_autograd_on_card_matches_cpu(cuda_device):
+    """quant and bwd_quant together under autograd: K5 with lse and K7 on
+    the card, the plain versions on the CPU, the same bf16 inputs."""
+    x = _rand((2, 150, 3, 4, 64), 13).to(torch.bfloat16).requires_grad_(True)
+    xg = x.detach().to(cuda_device).requires_grad_(True)
+    for t in (x, xg):
+        out = flash_attention(t[:, :, 0], t[:, :, 1], t[:, :, 2], n_real=140,
+                              quant="qk8", bwd_quant="int8")
+        out.float().square().sum().backward()
+    top = x.grad.float().abs().max().item()
+    assert (xg.grad.cpu().float() - x.grad.float()).abs().max().item() <= (
+        2e-2 * top)
+
+
+def test_q8_modes_refuse_fp32_on_card(cuda_device):
+    """The CUDA 8-bit kernels take bf16; fp32 with a mode is refused on
+    the card (it runs on the CPU, as the JAX package's does)."""
+    x = _rand((1, 64, 3, 2, 64), 14).to(cuda_device)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    for mode in Q8_MODES:
+        with pytest.raises(NotImplementedError, match="8-bit attention"):
+            flash_attention(q, k, v, quant=mode)
+    xg = x.detach().requires_grad_(True)
+    out = flash_attention(xg[:, :, 0], xg[:, :, 1], xg[:, :, 2],
+                          bwd_quant="int8")
+    with pytest.raises(NotImplementedError, match="8-bit attention"):
+        out.sum().backward()

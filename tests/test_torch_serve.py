@@ -95,6 +95,38 @@ def test_concurrent_mixed_requests(model):
         svc.close()
 
 
+def test_service_serves_an_8bit_attention_model():
+    """A model built with attention_quant serves as its own predict_labels
+    does: the 8-bit scales are per row, per key and per sample, so batching
+    other requests beside a clip changes none of its numbers."""
+    m = get_maest("discogs-maest-30s-pw-129e", pretrained=False, device="cpu",
+                  embed_dim=64, depth=2, num_heads=1, input_t=62, n_classes=16,
+                  attention_quant="qk8pv8")
+    assert all(b.attn.quant == "qk8pv8" for b in m.net.blocks)
+    with torch.no_grad():
+        m.net.head[1].weight.normal_(0.0, 0.1,
+                                     generator=torch.Generator().manual_seed(8))
+    svc = TagService(m, buckets=(1, 2, 4), max_wait_ms=20.0)
+    try:
+        reqs = [_wave(1.0, seed=s) for s in range(3)] + [_wave(2.5, seed=9)]
+        outs = [None] * len(reqs)
+
+        def worker(i):
+            outs[i] = svc.tag(reqs[i])[0]
+
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        for got, r in zip(outs, reqs):
+            np.testing.assert_allclose(got, m.predict_labels(r)[0], **TOL)
+    finally:
+        svc.close()
+
+
 def test_oversized_request_splits_and_empty_resolves(model):
     svc = TagService(model, buckets=(1, 2), max_wait_ms=0.0)
     try:

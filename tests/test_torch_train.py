@@ -437,13 +437,37 @@ def test_fp32_parameters_keep_a_small_adamw_step():
 
 
 def test_int8_backward_is_refused():
-    """attention_bwd_quant="int8" used to build and train on the bf16
-    backward without a word; now the model and get_maest refuse it."""
+    """attention_bwd_quant="int8" once built and trained on the bf16
+    backward without a word, then was refused; now it reaches the model
+    from get_maest and the train step runs the int8 backward (the plain
+    K7 on the CPU), and an unknown mode is refused."""
     from maest_tpu_torch import get_maest
+    from maest_tpu_torch.ops import attention as A
 
-    with pytest.raises(NotImplementedError, match="K7"):
+    m = get_maest(pretrained=False, device="cpu", embed_dim=64, depth=1,
+                  num_heads=1, attention_bwd_quant="int8",
+                  attention_quant="qk8")
+    assert (m.net.cfg.attention_bwd_quant, m.net.cfg.attention_quant) == (
+        "int8", "qk8")
+    from maest_tpu_torch.configs import build_experiment_config
+    from maest_tpu_torch.train import model_config
+    mc = model_config(build_experiment_config([], [
+        "maest.attention_quant=fp8pv8", "maest.attention_bwd_quant=int8"]))
+    assert (mc.attention_quant, mc.attention_bwd_quant) == ("fp8pv8", "int8")
+    (jn, jtx, js), (net, ttx, tst), tcfg = _setup(attention_bwd_quant="int8")
+    calls = []
+    orig = A.attention_bwd_int8_reference
+    try:
+        A.attention_bwd_int8_reference = lambda *a: calls.append(1) or orig(*a)
+        tst, tm = make_train_step(net, ttx, AugmentConfig(**AUG_OFF))(
+            tst, _batch())
+    finally:
+        A.attention_bwd_int8_reference = orig
+    assert len(calls) == tcfg.depth and np.isfinite(tm["train_loss"])
+    assert tm["nonfinite_skipped"] == 0.0
+    with pytest.raises(ValueError, match="attention_bwd_quant"):
         get_maest(pretrained=False, device="cpu", embed_dim=64, depth=1,
-                  num_heads=1, attention_bwd_quant="int8")
+                  num_heads=1, attention_bwd_quant="int4")
 
 
 # --- full-width golden -------------------------------------------------------

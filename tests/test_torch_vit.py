@@ -148,11 +148,16 @@ def test_range_checks_and_unported_modes(setup):
         tnet(xt, tap_block=0, return_layer_tokens=True)
     with pytest.raises(ValueError, match="time pos-embed"):
         tnet(torch.zeros(1, 1, 26, 66))
-    # the train forward is ported; the int8 backward and unknown remat
-    # policies are refused when the module is built
+    # the train forward and the 8-bit attention modes are ported; unknown
+    # modes and remat policies are refused when the module is built
     assert tnet(xt, train=True)[0].shape == (2, 10)
-    with pytest.raises(NotImplementedError, match="K7"):
-        MAESTNet(MAESTConfig(**GEOM, attention_bwd_quant="int8"))
+    q8net = MAESTNet(MAESTConfig(**GEOM, attention_quant="qk8pv8",
+                                 attention_bwd_quant="int8"))
+    assert q8net(xt, train=True)[0].shape == (2, 10)
+    with pytest.raises(ValueError, match="attention_bwd_quant"):
+        MAESTNet(MAESTConfig(**GEOM, attention_bwd_quant="fp8"))
+    with pytest.raises(ValueError, match="attention_quant"):
+        MAESTNet(MAESTConfig(**GEOM, attention_quant="int4"))
     with pytest.raises(ValueError, match="remat_policy"):
         MAESTNet(MAESTConfig(**GEOM, remat_policy="everything"))
     with pytest.raises(NotImplementedError):

@@ -150,6 +150,35 @@ def test_remat_policies_match_no_remat(policy, monkeypatch):
                                    rtol=1e-6, atol=1e-6, err_msg=k)
 
 
+def test_attn_out_remat_replays_the_8bit_forward(monkeypatch):
+    """Under attention_quant and attention_bwd_quant="int8", attn_out remat
+    records the 8-bit forward's (o, lse) once a layer and replays them
+    unchanged: the gradients equal those of the plain train forward
+    (rtol/atol 1e-6, as above)."""
+    from maest_tpu_torch.ops import attention as A
+
+    over = dict(s_patchout_t=1, attention_quant="qk8pv8",
+                attention_bwd_quant="int8")
+    _, _, plain = _train_pair(**over)
+    _, _, remat = _train_pair(**over, remat=True, remat_policy="attn_out")
+    x = torch.from_numpy(
+        np.random.default_rng(11).standard_normal((2, 1, 36, 66)).astype("f4"))
+    draws = plain.draw_train(torch.Generator().manual_seed(2), 3, 6)
+    calls = []
+    real = A.attention_q8_reference
+    monkeypatch.setattr(A, "attention_q8_reference",
+                        lambda *a: calls.append(a[-1]) or real(*a))
+    ref = _grads(plain, x, draws)
+    assert calls == ["qk8pv8"] * 2
+    calls.clear()
+    ours = _grads(remat, x, draws)
+    assert calls == ["qk8pv8"] * 2
+    assert sorted(ours) == sorted(ref)
+    for k in ref:
+        np.testing.assert_allclose(ours[k].numpy(), ref[k].numpy(),
+                                   rtol=1e-6, atol=1e-6, err_msg=k)
+
+
 def test_attention_dropout_takes_the_materialised_path():
     """attn_drop_rate > 0 in train mode: the softmax is materialised and
     dropped (no flash call); remat still reproduces its masks."""
