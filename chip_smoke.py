@@ -21,8 +21,13 @@ int8 / e4m3 forward (K5, K6) against its plain version in every mode
 the int8 backward (K7) against its plain version and against the bf16
 backward (15), the 30 s recipe step with ``attention_bwd_quant="int8"``,
 then with ``attention_quant="qk8"`` and with both (16), and the PyTorch
-library calls timed as yardsticks beside K2, K3a and K3b (17). Every phase
-prints one line per check; any failure raises, so the exit code is not 0.
+library calls timed as yardsticks beside K2, K3a, K3b and K4 (17). Then
+the decomposition rig: its four probe kernels (P6a-d, the variants of K2's
+loop in ``csrc/attention_probe.cu``) against their plain versions and K2
+(18), and ``python -m maest_tpu_torch.probes.attn_profile`` at both
+tagging and training shapes, called in process with the launch counters
+reset (19). Every phase prints one line per check; any failure raises, so
+the exit code is not 0.
 The card's name and power limit, the JSON record of the kernels (with each
 one's bound: the least time the card could take for its work at the
 data-sheet rates) and the device record are the last three lines. Without
@@ -86,6 +91,14 @@ Q8_ULPS = 2
 K7_TOL = 2e-2       # K7 vs plain, relative to each gradient's max: the bf16
                     # bound (bf16 outputs; an exp2 ulp may flip one p8/ds8)
 K7_COS = 0.9999
+# P6a-d vs plain on the same 64-key tiles: as Q8_ULPS, both round one fp32
+# output to bf16 and their fp32 values differ by sums in other orders
+PROBE_ULPS = 2
+# noexp_max and bf16s vs K2 (both softmax attention): bf16 rounds their p
+# (and bf16s its scores) elsewhere than K2's, relative errors, so the bound
+# is 1e-2 of max(1, the largest |o|): at N 100 |o| reaches 1.5, where one
+# bf16 ulp is 7.8e-3
+PROBE_VS_K2 = 1e-2
 # H100 SXM data-sheet peaks (dense), for the bounds of the kernels line
 PEAK = {"bf16": 989e12, "fp8": 1979e12, "int8": 1979e12, "fp32": 67e12}
 HBM = 3.35e12       # bytes/s
@@ -448,7 +461,7 @@ def phase_train_kernels(dev):
                   f"{e['dk']:.3e}, dv {e['dv']:.3e} <= {tol}", flush=True)
             del qkv, q, k, v, g, o, lse, ro, rlse, grads, ref
             torch.cuda.empty_cache()
-    return errs[(BATCH, 866, "bfloat16")]
+    return errs[(BATCH, 866, "bfloat16")], errs[(2, 4500, "bfloat16")]
 
 
 def _launch_counts():
@@ -1093,21 +1106,24 @@ def phase_int8_recipe(dev, gpu):
 
 
 def phase_library(dev, gpu):
-    """Phase 17: one PyTorch call that computes what K2, K3a and K3b
+    """Phase 17: one PyTorch call that computes what K2, K3a, K3b and K4
     compute, on the same shapes, timed as a yardstick (the port never calls
     them): scaled_dot_product_attention on its flash backend (K2), the
     flash forward that also returns the log-sum-exp (K3a), and SDPA's
-    backward through autograd, its forward time subtracted (K3b). Each is
-    the median of three timed runs."""
+    backward through autograd, its forward time subtracted (K3b; K4 at
+    (2, 4400) over the real keys of its (2, 4500) n_real 4400 regime: the
+    flash backend takes no key mask). Each is the median of three timed
+    runs."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     rng = np.random.default_rng(8)
     out = {}
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        for n, key in ((1676, "fwd"), (866, "train")):
+        for b, n, key in ((BATCH, 1676, "fwd"), (BATCH, 866, "bwd"),
+                          (2, 4400, "bwd_k4")):
             x = torch.from_numpy(rng.standard_normal(
-                (BATCH, n, 3, 12, 64)).astype(np.float32)).to(
+                (b, n, 3, 12, 64)).astype(np.float32)).to(
                 dev, torch.bfloat16)
             q, k, v = (x[:, :, i].transpose(1, 2) for i in range(3))
             if key == "fwd":
@@ -1115,9 +1131,10 @@ def phase_library(dev, gpu):
                     lambda: F.scaled_dot_product_attention(q, k, v), 10)
                 del x, q, k, v
                 continue
-            out["fwd_lse"] = cuda_ms_median(
-                lambda: torch.ops.aten._scaled_dot_product_flash_attention(
-                    q, k, v), 10)
+            if key == "bwd":
+                out["fwd_lse"] = cuda_ms_median(
+                    lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                        q, k, v), 10)
             qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
             g = torch.randn_like(qg)
 
@@ -1126,7 +1143,7 @@ def phase_library(dev, gpu):
 
             fwd = cuda_ms_median(
                 lambda: F.scaled_dot_product_attention(qg, kg, vg), 10)
-            out["bwd"] = cuda_ms_median(fwd_bwd, 10) - fwd
+            out[key] = cuda_ms_median(fwd_bwd, 10) - fwd
             del x, q, k, v, qg, kg, vg, g
     torch.cuda.empty_cache()
     print(f"phase 17 library yardsticks (bf16, flash backend, never called "
@@ -1134,8 +1151,105 @@ def phase_library(dev, gpu):
           f"64) {out['fwd']:.4f} ms (beside K2); _scaled_dot_product_flash_"
           f"attention with its log-sum-exp ({BATCH}, 866) {out['fwd_lse']:.4f}"
           f" ms (beside K3a); its backward through autograd, forward "
-          f"subtracted, {out['bwd']:.4f} ms (beside K3b) [{gpu}]", flush=True)
+          f"subtracted, {out['bwd']:.4f} ms (beside K3b) and at (2, 4400) "
+          f"{out['bwd_k4']:.4f} ms (beside K4 at (2, 4500) n_real 4400) "
+          f"[{gpu}]", flush=True)
     return out
+
+
+def phase_probe_kernels(dev):
+    """Phase 18: the four probe kernels (P6a-d) against their plain
+    versions on the same 64-key tiles, N(0, 1) inputs, at (2, 1676),
+    (2, 866), (3, 100) and the rig's (32, 1676) and (32, 866): within
+    PROBE_ULPS bf16
+    ulps of the largest |o| (mxu_only: of its own, ~250). noexp_max and
+    bf16s compute softmax attention: within PROBE_VS_K2 of K2's output at
+    the first three shapes; novmax is another function, farther than that
+    at (2, 1676). Returns each variant's max_abs_err and its plain
+    version's ms at (32, 1676)."""
+    from maest_tpu_torch.ops.attention import flash_attention
+    from maest_tpu_torch.ops.attention_probe import (
+        VARIANTS,
+        attention_probe,
+        attention_probe_reference,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    err, plain = {}, {}
+    for b, n in ((2, 1676), (2, 866), (3, 100), (BATCH, 1676),
+                 (BATCH, 866)):
+        qkv = torch.randn((b, n, 3, 12, 64), generator=gen, device=dev).to(
+            torch.bfloat16)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        k2 = flash_attention(q, k, v)
+        top_k2 = k2.float().abs().max().item()
+        parts = []
+        for var in VARIANTS:
+            before = attention_probe.launches[var]
+            o = attention_probe(q, k, v, var)
+            r = attention_probe_reference(q, k, v, var)
+            torch.cuda.synchronize()
+            check(attention_probe.launches[var] == before + 1,
+                  f"{var} counter")
+            tol = PROBE_ULPS * bf16_ulp(r.float().abs().max().item())
+            e = max_err(o, r)
+            check(e <= tol, f"{var} ({b}, {n}) err {e} > {tol}")
+            d = max_err(o, k2)
+            part = f"{var} {e:.3e} <= {tol:.3e}, vs K2 {d:.3e}"
+            if b != BATCH and var in ("noexp_max", "bf16s"):
+                bound = PROBE_VS_K2 * max(1.0, top_k2)
+                check(d <= bound, f"{var} ({b}, {n}) vs K2 {d} > {bound}")
+                part += f" <= {bound:.3e}"
+            if (b, n) == (2, 1676) and var == "novmax":
+                check(d > PROBE_VS_K2, f"novmax within {d} of K2")
+                part += f" > {PROBE_VS_K2}"
+            if (b, n) == (BATCH, 1676):
+                err[var] = e
+                plain[var] = cuda_ms(
+                    lambda: attention_probe_reference(q, k, v, var), 3)
+            parts.append(part)
+            del o, r
+        print(f"phase 18 P6a-d probe kernels ({b}, {n}, 12, 64) bf16 "
+              f"max_abs_err vs plain ({PROBE_ULPS} bf16 ulps of max|o|): "
+              + "; ".join(parts), flush=True)
+        del qkv, q, k, v, k2
+        torch.cuda.empty_cache()
+    return err, plain
+
+
+def phase_probe_rig():
+    """Phase 19: the slice's path, the decomposition rig as a user runs it
+    (``python -m maest_tpu_torch.probes.attn_profile --shapes
+    30s,30s-train --batch 32``, here its ``main`` in process; it prints
+    the card's name and power limit first), with the launch counters of
+    K2 and the probes set to 0 just before and read just after: each
+    kernel must have run (a CUDA graph's replays are launches the counters
+    do not see: they count the captured calls), every variant but plain
+    must have a graph time, and bf16s's kernel alone and its pre-scaling
+    pass must each take less than the two together.
+    Returns {shape: {variant: times}} and the launches."""
+    from maest_tpu_torch.ops.attention import flash_attention
+    from maest_tpu_torch.ops.attention_probe import attention_probe
+    from maest_tpu_torch.probes import attn_profile
+
+    print("phase 19 decomposition rig: python -m "
+          "maest_tpu_torch.probes.attn_profile --shapes 30s,30s-train "
+          f"--batch {BATCH}", flush=True)
+    flash_attention.launches = 0
+    for var in attention_probe.launches:
+        attention_probe.launches[var] = 0
+    times = attn_profile.main(["--shapes", "30s,30s-train", "--batch",
+                               str(BATCH)])
+    launches = {"flash": flash_attention.launches, **attention_probe.launches}
+    check(all(launches.values()), f"rig launches {launches}")
+    for rows in times.values():
+        check(all(r["graph_ms"] > 0 for v, r in rows.items() if v != "plain"),
+              f"rig graph times {rows}")
+        bf = rows["bf16s"]
+        check(0 < bf["kernel_ms"] < bf["ms"] and 0 < bf["pass_ms"] < bf["ms"],
+              f"bf16s split {bf}")
+    print(f"phase 19 launches in the rig's run: {launches}", flush=True)
+    return times, launches
 
 
 def main() -> int:
@@ -1166,15 +1280,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = ("mel_kernel", "attention_fwd", "attention_bwd", "attention_fwd_q8",
-            "attention_bwd_q8")
+            "attention_bwd_q8", "attention_probe")
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source
         built = dict(zip(libs, pool.map(timed_build, libs)))
     wall = time.perf_counter() - t0
     for lib in libs:
         _build.load_library(lib)
-    regs = [line.split(":", 1)[1].strip()
+    # ptxas's spill line, then its register line, for each kernel
+    regs = [line.split(":")[-1].strip()
             for log, _ in built.values()
-            for line in log.splitlines() if "registers" in line]
+            for line in log.splitlines()
+            if "registers" in line or "spill" in line]
     print(f"phase 2 build: {wall:.1f} s with nvcc sm_90a into "
           f"build/maest_tpu_torch, one nvcc per source at once ("
           + ", ".join(f"{lib} {s:.1f} s" for lib, (_, s) in built.items())
@@ -1188,7 +1304,7 @@ def main() -> int:
     t = phase_times(dev, model, gpu)
     del model
     torch.cuda.empty_cache()
-    train_err = phase_train_kernels(dev)
+    train_err, k4_err = phase_train_kernels(dev)
     phase_golden_step(dev)
     train_launches = phase_recipe(dev)
     tt = phase_train_times(dev, gpu)
@@ -1198,6 +1314,8 @@ def main() -> int:
     k7 = phase_k7_kernel(dev, gpu)
     k7_launches = phase_int8_recipe(dev, gpu)
     lib = phase_library(dev, gpu)
+    probe_err, probe_plain = phase_probe_kernels(dev)
+    rig, rig_launches = phase_probe_rig()
 
     frames = BATCH * 1876  # frames of 32 clips of 30 s
     mel_ops = frames * (512 + 4 * 512 * 257 + 3 * 257 + 2 * 257 * 96 + 96)
@@ -1209,6 +1327,7 @@ def main() -> int:
         "qk8": attn_bound(BATCH, 1676, 12, qk="int8"),
         "fp8": attn_bound(BATCH, 1676, 12, qk="fp8"),
         "k7": bwd_bound(BATCH, 866, 12, kind="int8"),
+        "k4": bwd_bound(2, 4500, 12, 4400),
     }
     src = "maest_tpu_torch/csrc/"
     rows = [
@@ -1232,7 +1351,20 @@ def main() -> int:
         ("attention_bwd_int8", "attention_bwd_q8.cu",
          "maest_tpu/ops/attention.py:530", k7_launches, k7["err"], k7["ms"],
          "k7", None),
+        ("attention_bwd_split", "attention_bwd.cu",
+         "maest_tpu/ops/attention.py:739", 0,
+         max(k4_err[w] for w in ("dq", "dk", "dv")), tt["bwd_k4"], "k4",
+         lib["bwd_k4"]),
     ]
+    # P6a-d: times from phase 19's rig at (32, 1676); SDPA computes what
+    # the two softmax variants compute, no PyTorch call the other two
+    for var, line in (("mxu_only", 47), ("noexp_max", 63), ("novmax", 88),
+                      ("bf16s", 113)):
+        rows.append((f"attention_probe_{var}", "attention_probe.cu",
+                     f"scripts/attn_profile_r2.py:{line}", rig_launches[var],
+                     probe_err[var], (rig["30s"][var]["ms"], probe_plain[var]),
+                     "fwd", rig["30s"]["sdpa"]["ms"]
+                     if var in ("noexp_max", "bf16s") else None))
     kernels = [{"name": name, "route": "cuda", "source": src + file,
                 "replaces": rep, "launches": n, "max_abs_err": err,
                 "ms": ms[0], "plain_ms": ms[1], "bound_ms": bounds[key][0],

@@ -12,6 +12,8 @@ relative), lse 1e-4; the fp32 model on the card against the same model on
 the CPU rtol 2e-4, atol 2e-5; the train step as its docstring says.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +27,11 @@ from maest_tpu_torch.ops.attention import (
     attention_reference_lse,
     flash_attention,
     flash_attention_fwd_lse,
+)
+from maest_tpu_torch.ops.attention_probe import (
+    VARIANTS,
+    attention_probe,
+    attention_probe_reference,
 )
 from maest_tpu_torch.ops.mel_kernel import (
     fused_logmel_from_frames,
@@ -357,3 +364,76 @@ def test_q8_modes_refuse_fp32_on_card(cuda_device):
                           bwd_quant="int8")
     with pytest.raises(NotImplementedError, match="8-bit attention"):
         out.sum().backward()
+
+
+# --- the decomposition probes P6a-d (ops/attention_probe.py) --------------
+# against attention_probe_reference on the same 64-key tiles: 2 bf16 ulps of
+# the largest |o| (both round one fp32 output to bf16; the fp32 values
+# differ by sums in other orders).
+@pytest.mark.parametrize("b,n", [(2, 100), (2, 866), (2, 1676)])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_probe_kernels_match_plain(cuda_device, variant, b, n):
+    x = _rand((b, n, 3, 12, 64), 15).to(cuda_device, torch.bfloat16)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    for n_real in (None, None if variant == "mxu_only" else n - 7):
+        before = attention_probe.launches[variant]
+        out = attention_probe(q, k, v, variant, n_real)
+        ref = attention_probe_reference(q, k, v, variant, n_real)
+        torch.cuda.synchronize()
+        assert attention_probe.launches[variant] == before + 1
+        assert out.shape == q.shape and out.dtype == torch.bfloat16
+        top = ref.float().abs().max().item()
+        tol = 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_probe_kernels_reject_what_they_do_not_take(cuda_device):
+    x = _rand((1, 64, 3, 2, 64), 16).to(cuda_device, torch.bfloat16)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    with pytest.raises(TypeError, match="bfloat16"):
+        attention_probe(q.float(), k.float(), v.float(), "noexp_max")
+    y = torch.zeros(1, 8, 3, 2, 32, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention_probe(y[:, :, 0], y[:, :, 1], y[:, :, 2], "novmax")
+    with pytest.raises(ValueError, match="unknown attention probe variant"):
+        attention_probe(q, k, v, "gh8")
+    with pytest.raises(ValueError, match="n_real = N only"):
+        attention_probe(q, k, v, "mxu_only", n_real=60)
+    z = torch.zeros(1, 8, 2, 65, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_probe(z[..., 1:], z[..., 1:], z[..., 1:], "novmax")
+    with pytest.raises(ValueError, match="one device"):
+        attention_probe(q, k.cpu(), v, "bf16s")
+
+
+def test_rig_times_graphs_and_splits_bf16s_on_the_card(cuda_device, capsys):
+    """The rig's graph times, and bf16s's kernel alone and its pass."""
+    from maest_tpu_torch.probes import attn_profile
+
+    out = attn_profile.main(["--batch", "2", "--heads", "2", "--shapes",
+                             "200", "--iters", "4", "--variants",
+                             "flash,mxu_only,bf16s,plain"])
+    rows = out["200"]
+    for variant in ("flash", "mxu_only", "bf16s"):
+        assert rows[variant]["graph_ms"] > 0
+        assert rows[variant]["idle"] == pytest.approx(
+            1 - rows[variant]["graph_ms"] / rows[variant]["ms"])
+    assert rows["plain"]["graph_ms"] is None
+    assert 0 < rows["bf16s"]["kernel_ms"] < rows["bf16s"]["ms"]
+    assert 0 < rows["bf16s"]["pass_ms"] < rows["bf16s"]["ms"]
+    assert "ms (graphs); its kernel alone" in capsys.readouterr().out
+
+
+def test_launch_probe_is_the_kernel_alone(cuda_device):
+    """launch_probe on a pre-scaled q is attention_probe's bf16s; it
+    launches on CUDA tensors only."""
+    from maest_tpu_torch.ops.attention_probe import launch_probe, prescale_q
+
+    x = _rand((2, 130, 3, 2, 64), 17).to(cuda_device, torch.bfloat16)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    assert torch.equal(launch_probe(prescale_q(q), k, v, "bf16s"),
+                       attention_probe(q, k, v, "bf16s"))
+    assert torch.equal(launch_probe(q, k, v, "novmax"),
+                       attention_probe(q, k, v, "novmax"))
+    with pytest.raises(ValueError, match="launches the CUDA kernel"):
+        launch_probe(q.cpu(), k.cpu(), v.cpu(), "novmax")

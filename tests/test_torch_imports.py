@@ -146,14 +146,14 @@ def _imports(path: Path):
 
 
 def test_port_runs_without_the_jax_package(tmp_path):
-    """The port and chip_smoke.py name no module of the JAX package, and
-    run from a directory that holds no maest_tpu/: every module imports, a
-    tiny model tags a waveform and takes one train step (with the 8-bit
-    modes on)."""
+    """The port and chip_smoke.py name no module of the JAX package or of
+    scripts/, and run from a directory that holds neither: every module
+    imports, a tiny model tags a waveform and takes one train step (with
+    the 8-bit modes on), and the decomposition rig runs."""
     files = [*(ROOT / "maest_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
     for f in files:
         bad = [m for m in _imports(f)
-               if m == "maest_tpu" or m.startswith("maest_tpu.")]
+               if m.split(".")[0] in ("maest_tpu", "scripts")]
         assert not bad, (f, bad)
     shutil.copytree(ROOT / "maest_tpu_torch", tmp_path / "maest_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -189,6 +189,10 @@ batch = {"x": rng.standard_normal((2, 96, 62)).astype("f4"),
 state, metrics = make_train_step(net, tx, AugmentConfig(
     masking=False, mixup_alpha=0.0))(state, batch)
 assert np.isfinite(metrics["train_loss"]) and state.step == 1
+from maest_tpu_torch.probes import attn_profile
+times = attn_profile.main(["--device", "cpu", "--batch", "1", "--heads", "1",
+                           "--shapes", "64", "--iters", "1"])
+assert set(times["64"]) == set(attn_profile.DEFAULT_VARIANTS.split(","))
 assert not any(n.startswith("maest_tpu.") or n == "maest_tpu"
                for n in sys.modules)
 print("ok")
