@@ -26,8 +26,14 @@ the decomposition rig: its four probe kernels (P6a-d, the variants of K2's
 loop in ``csrc/attention_probe.cu``) against their plain versions and K2
 (18), and ``python -m maest_tpu_torch.probes.attn_profile`` at both
 tagging and training shapes, called in process with the launch counters
-reset (19). Every phase prints one line per check; any failure raises, so
-the exit code is not 0.
+reset (19). Then the last rigs' kernels: K2 with G heads a block (P6e)
+bit-equal to K2 and the int8 rig's kernel (P6f) against its plain version
+and, times 127, against attention (20), the five softmax-arithmetic kinds
+of ``scripts/attn_vpu_probe.py`` (P5) against their plain versions and K2
+(21), and both rigs, ``attn_profile`` with ``gh<G>`` and ``int8`` and
+``python -m maest_tpu_torch.probes.attn_vpu``, called in process with the
+launch counters reset (22). Every phase prints one line per check; any
+failure raises, so the exit code is not 0.
 The card's name and power limit, the JSON record of the kernels (with each
 one's bound: the least time the card could take for its work at the
 data-sheet rates) and the device record are the last three lines. Without
@@ -99,6 +105,28 @@ PROBE_ULPS = 2
 # is 1e-2 of max(1, the largest |o|): at N 100 |o| reaches 1.5, where one
 # bf16 ulp is 7.8e-3
 PROBE_VS_K2 = 1e-2
+# P6e: gh<G> vs K2 is torch.equal (each head runs K2's arithmetic).
+# P6f int8 vs plain (fp32 outputs), each row (b, n, h): one exp2 ulp may
+# flip the rounding of one p8, which moves the row by at most
+# max|v| / (127 l), l its sum of p; INT8_FLIPS such flips a row, plus
+# INT8_SUMS of max|o| for fp32 sums taken in another order
+INT8_FLIPS = 1
+INT8_SUMS = 1e-5
+# int8 * 127 vs fp32 attention on the rig's N(0, 0.5^2) inputs: int8 rounds
+# q, k, v and p to 1/254 of their row / column maxima (the rig's output is
+# attention / 127: ops/attention_probe.py attention_probe_int8)
+INT8_X127 = 1e-2
+# P5 vs plain: ops/attention_vpu.py plain_gap, within 2 bf16 ulps of
+# max|o| (plus 2^-7 max|o| for bf16sm, fp8sm and fp8nomask, whose p comes
+# from the packed ex2.approx.ftz.bf16x2: relative error <= 2^-7, against
+# 2^-8 for the plain version's exp2 rounded to bf16, independent from key
+# to key) and within 1e-2 by relative L2; a planted fault (mask off, corr
+# 1) fails it (tests/test_torch_cuda.py). Against K2, on
+# the rig's N(0, 0.3^2) inputs, as a relative L2 distance |o - K2| / |K2|:
+# bf16sm, fp8sm, fp8noexp and fp8lean within VPU_VS_K2 (fp8lean's e4m3 v
+# and p, 3 mantissa bits, cost ~3.6 %), fp8nomask farther at N 1676 (its 116
+# zero keys take ~6.5 % of the mass)
+VPU_VS_K2 = 0.05
 # H100 SXM data-sheet peaks (dense), for the bounds of the kernels line
 PEAK = {"bf16": 989e12, "fp8": 1979e12, "int8": 1979e12, "fp32": 67e12}
 HBM = 3.35e12       # bytes/s
@@ -113,11 +141,13 @@ def bound(nbytes: float, ops: dict) -> tuple[float, str]:
             "bytes" if t_bytes > t_ops else "operations")
 
 
-def attn_bound(b, n, h, n_real=None, pv="bf16", qk="bf16", lse=False):
-    """The forward at (b, n, h, 64): the two products over the real keys,
-    q/k/v read and the bf16 output (and the fp32 lse) written once."""
+def attn_bound(b, n, h, n_real=None, pv="bf16", qk="bf16", lse=False,
+               elem=2):
+    """The forward at (b, n, h, 64): the two products over the real keys
+    (n_real of them), q/k/v read and the output (and the fp32 lse) written
+    once, ``elem`` bytes an element (bf16; fp32 for the int8 rig)."""
     flops = 2 * b * h * n * (n_real or n) * 64
-    nbytes = 4 * b * n * h * 64 * 2 + (4 * b * h * n if lse else 0)
+    nbytes = 4 * b * n * h * 64 * elem + (4 * b * h * n if lse else 0)
     ops: dict = {}
     ops[qk] = ops.get(qk, 0) + flops
     ops[pv] = ops.get(pv, 0) + flops
@@ -1252,6 +1282,180 @@ def phase_probe_rig():
     return times, launches
 
 
+def phase_gh_int8(dev):
+    """Phase 20: P6e and P6f against K2 and their plain versions, at the
+    shapes phase 22's rig runs them and smaller ones. gh<G>, G 1, 2, 4 and
+    8, must equal K2 bit for bit at (2, 1676), (32, 1676), (32, 272) and
+    (32, 281) on N(0, 1) bf16 inputs. int8 on the rig's N(0, 0.5^2) fp32
+    inputs at (3, 100), (2, 1676), (32, 1676), (32, 272) and (32, 281):
+    each row within INT8_FLIPS p flips of its plain version (plus
+    INT8_SUMS of max|o|), and its output times 127 within INT8_X127 of
+    fp32 attention. Returns each one's max_abs_err and plain ms at
+    (32, 1676)."""
+    from maest_tpu_torch.ops.attention import attention_reference, flash_attention
+    from maest_tpu_torch.ops.attention_probe import (
+        GROUPS,
+        attention_probe_gh,
+        attention_probe_gh_reference,
+        attention_probe_int8,
+        attention_probe_int8_reference,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    out = {"gh_err": 0.0, "int8_err": 0.0}
+    for b, n in ((2, 1676), (BATCH, 1676), (BATCH, 272), (BATCH, 281)):
+        qkv = torch.randn((b, n, 3, 12, 64), generator=gen, device=dev).to(
+            torch.bfloat16)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        k2 = flash_attention(q, k, v)
+        for g in GROUPS:
+            before = attention_probe_gh.launches[g]
+            o = attention_probe_gh(q, k, v, g)
+            torch.cuda.synchronize()
+            check(attention_probe_gh.launches[g] == before + 1, f"gh{g} counter")
+            check(torch.equal(o, k2), f"gh{g} ({b}, {n}) differs from K2 by "
+                  f"{max_err(o, k2)}")
+            out["gh_err"] = max(out["gh_err"], max_err(o, k2))
+        if (b, n) == (BATCH, 1676):
+            out["gh_plain"] = cuda_ms(
+                lambda: attention_probe_gh_reference(q, k, v, 8), 3)
+        print(f"phase 20 P6e gh1/gh2/gh4/gh8 ({b}, {n}, 12, 64) bf16: "
+              "torch.equal to K2", flush=True)
+        del qkv, q, k, v, k2, o
+    for b, n in ((3, 100), (2, 1676), (BATCH, 1676), (BATCH, 272),
+                 (BATCH, 281)):
+        qkv = torch.randn((b, n, 3, 12, 64), generator=gen, device=dev) * 0.5
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        before = attention_probe_int8.launches
+        o = attention_probe_int8(q, k, v)
+        r, l = attention_probe_int8_reference(q, k, v, with_l=True)
+        att = attention_reference(q, k, v)
+        torch.cuda.synchronize()
+        check(attention_probe_int8.launches == before + 1, "int8 counter")
+        check(o.dtype == torch.float32 and o.shape == q.shape, "int8 output")
+        top = r.abs().max().item()
+        row_err = (o - r).abs().amax(dim=-1)
+        row_tol = (INT8_FLIPS * v.abs().max().item() / (127 * l)
+                   + INT8_SUMS * top)
+        e, x127 = max_err(o, r), max_err(o * 127, att)
+        check(bool((row_err <= row_tol).all()),
+              f"int8 ({b}, {n}) err {e} beyond its rows' bounds")
+        check(x127 <= INT8_X127, f"int8 ({b}, {n}) x 127 vs attention {x127}")
+        out["int8_err"] = max(out["int8_err"], e)
+        if (b, n) == (BATCH, 1676):
+            out["int8_plain"] = cuda_ms(
+                lambda: attention_probe_int8_reference(q, k, v), 3)
+        print(f"phase 20 P6f int8 ({b}, {n}, 12, 64) fp32: max_abs_err vs "
+              f"plain {e:.3e} (max|o| {top:.3e}; each row within "
+              f"{INT8_FLIPS} p flip, max|v| / (127 l), + {INT8_SUMS} max|o|: "
+              f"the tightest row's bound {row_tol.min().item():.3e}); its "
+              f"output x 127 vs fp32 attention {x127:.3e} <= {INT8_X127} "
+              "(the rig's output is attention / 127)", flush=True)
+        del qkv, q, k, v, o, r, l, att
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_vpu_kernels(dev):
+    """Phase 21: the five P5 kinds against their plain versions at
+    (3, 100), (2, 1676) and (32, 1676) on the rig's N(0, 0.3^2) bf16
+    inputs, within the bounds stated at VPU_VS_K2; against K2 by relative
+    L2 distance: within VPU_VS_K2 but for fp8nomask, which must lie
+    farther at N 1676. Returns each kind's max_abs_err and plain ms at
+    (32, 1676)."""
+    from maest_tpu_torch.ops.attention import flash_attention
+    from maest_tpu_torch.ops.attention_vpu import (
+        KINDS,
+        PLAIN_REL_L2,
+        attention_vpu_probe,
+        attention_vpu_probe_reference,
+        plain_gap,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    err, plain = dict.fromkeys(KINDS, 0.0), {}
+    for b, n in ((3, 100), (2, 1676), (BATCH, 1676)):
+        qkv = (torch.randn((b, n, 3, 12, 64), generator=gen, device=dev)
+               * 0.3).to(torch.bfloat16)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        k2 = flash_attention(q, k, v).float()
+        parts = []
+        for kind in KINDS:
+            before = attention_vpu_probe.launches[kind]
+            o = attention_vpu_probe(q, k, v, kind)
+            r = attention_vpu_probe_reference(q, k, v, kind)
+            torch.cuda.synchronize()
+            check(attention_vpu_probe.launches[kind] == before + 1,
+                  f"{kind} counter")
+            e, tol, rel = plain_gap(kind, o, r)
+            vs = ((o.float() - k2).norm() / k2.norm()).item()
+            check(e <= tol and rel <= PLAIN_REL_L2,
+                  f"{kind} ({b}, {n}) err {e} > {tol} or relative L2 {rel} "
+                  f"> {PLAIN_REL_L2}")
+            if kind != "fp8nomask":
+                check(vs <= VPU_VS_K2, f"{kind} ({b}, {n}) vs K2 {vs}")
+            elif n == 1676:
+                check(vs > VPU_VS_K2, f"fp8nomask ({b}, {n}) within {vs} of K2")
+            err[kind] = max(err[kind], e)
+            parts.append(f"{kind} {e:.3e} <= {tol:.3e}, relative L2 "
+                         f"{rel:.2e} <= {PLAIN_REL_L2}; vs K2 {vs:.2e}")
+            if b == BATCH:
+                plain[kind] = cuda_ms(
+                    lambda: attention_vpu_probe_reference(q, k, v, kind), 3)
+            del o, r
+        print(f"phase 21 P5 kinds ({b}, {n}, 12, 64) bf16 max_abs_err vs "
+              f"plain (relative L2 vs K2 <= {VPU_VS_K2} but fp8nomask, "
+              f"farther at N 1676): " + "; ".join(parts), flush=True)
+        del qkv, q, k, v, k2
+        torch.cuda.empty_cache()
+    return err, plain
+
+
+def phase_rigs():
+    """Phase 22: the slice's path, both rigs as a user runs them, here
+    their ``main`` in process (each prints the card's name and power limit
+    first): ``python -m maest_tpu_torch.probes.attn_profile --variants
+    flash,gh1,gh2,gh4,gh8,int8,sdpa --shapes 30s,5s,10s-train`` and
+    ``python -m maest_tpu_torch.probes.attn_vpu``, with the launch counters
+    of K2, gh, int8 and the P5 kinds set to 0 just before and read just
+    after: each kernel must have run and every variant and kind must have a
+    graph time. Returns both rigs' results and the launches."""
+    from maest_tpu_torch.ops.attention import flash_attention
+    from maest_tpu_torch.ops.attention_probe import (
+        attention_probe_gh,
+        attention_probe_int8,
+    )
+    from maest_tpu_torch.ops.attention_vpu import attention_vpu_probe
+    from maest_tpu_torch.probes import attn_profile, attn_vpu
+
+    args = ["--variants", "flash,gh1,gh2,gh4,gh8,int8,sdpa", "--shapes",
+            "30s,5s,10s-train", "--batch", str(BATCH)]
+    print("phase 22 rigs: python -m maest_tpu_torch.probes.attn_profile "
+          + " ".join(args) + "; python -m maest_tpu_torch.probes.attn_vpu",
+          flush=True)
+    flash_attention.launches = 0
+    attention_probe_int8.launches = 0
+    for counts in (attention_probe_gh.launches, attention_vpu_probe.launches):
+        for key in counts:
+            counts[key] = 0
+    times = attn_profile.main(args)
+    vpu = attn_vpu.main([])
+    launches = {"flash": flash_attention.launches,
+                **{f"gh{g}": c for g, c in attention_probe_gh.launches.items()},
+                "int8": attention_probe_int8.launches,
+                **attention_vpu_probe.launches}
+    check(all(launches.values()), f"rig launches {launches}")
+    for rows in times.values():
+        check(all(r["graph_ms"] > 0 for r in rows.values()),
+              f"rig graph times {rows}")
+        check(0 < rows["int8"]["kernel_ms"] < rows["int8"]["ms"],
+              f"int8 split {rows['int8']}")
+    check(all(r["graph_ms"] > 0 for r in vpu.values()),
+          f"vpu graph times {vpu}")
+    print(f"phase 22 launches in the rigs' run: {launches}", flush=True)
+    return times, vpu, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on a GPU",
@@ -1268,7 +1472,7 @@ def main() -> int:
     torch.cuda.set_device(dev)
     gpu = sh(["nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader"]).splitlines()[0]
-    kind = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)  # the device record's "kind"
     print(f"phase 1 device: {gpu}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; {kind}; fp32 matmul precision "
           f"{torch.get_float32_matmul_precision()!r}", flush=True)
@@ -1316,6 +1520,9 @@ def main() -> int:
     lib = phase_library(dev, gpu)
     probe_err, probe_plain = phase_probe_kernels(dev)
     rig, rig_launches = phase_probe_rig()
+    p6ef = phase_gh_int8(dev)
+    vpu_err, vpu_plain = phase_vpu_kernels(dev)
+    rig2, vpu, rig2_launches = phase_rigs()
 
     frames = BATCH * 1876  # frames of 32 clips of 30 s
     mel_ops = frames * (512 + 4 * 512 * 257 + 3 * 257 + 2 * 257 * 96 + 96)
@@ -1328,6 +1535,12 @@ def main() -> int:
         "fp8": attn_bound(BATCH, 1676, 12, qk="fp8"),
         "k7": bwd_bound(BATCH, 866, 12, kind="int8"),
         "k4": bwd_bound(2, 4500, 12, 4400),
+        "int8_rig": attn_bound(BATCH, 1676, 12, qk="int8", pv="int8", elem=4),
+        "bf16sm": attn_bound(BATCH, 1676, 12),
+        "fp8sm": attn_bound(BATCH, 1676, 12, qk="fp8"),
+        "fp8noexp": attn_bound(BATCH, 1676, 12, qk="fp8"),
+        "fp8nomask": attn_bound(BATCH, 1676, 12, 1792, qk="fp8"),
+        "fp8lean": attn_bound(BATCH, 1676, 12, qk="fp8", pv="fp8"),
     }
     src = "maest_tpu_torch/csrc/"
     rows = [
@@ -1365,6 +1578,28 @@ def main() -> int:
                      probe_err[var], (rig["30s"][var]["ms"], probe_plain[var]),
                      "fwd", rig["30s"]["sdpa"]["ms"]
                      if var in ("noexp_max", "bf16s") else None))
+    # P6e (gh8, the TPU rig's group) and P6f: times from phase 22's rig at
+    # (32, 1676); gh computes K2's function, whose library call is SDPA
+    r30 = rig2["30s"]
+    rows.append(("attention_probe_gh", "attention_probe.cu",
+                 "scripts/attn_profile_r2.py:148",
+                 sum(rig2_launches[f"gh{g}"] for g in (1, 2, 4, 8)),
+                 p6ef["gh_err"], (r30["gh8"]["ms"], p6ef["gh_plain"]), "fwd",
+                 r30["sdpa"]["ms"]))
+    rows.append(("attention_probe_int8", "attention_probe.cu",
+                 "scripts/attn_profile_r2.py:226", rig2_launches["int8"],
+                 p6ef["int8_err"], (r30["int8"]["ms"], p6ef["int8_plain"]),
+                 "int8_rig", None))
+    # P5: the wrapper's time (casts included) from phase 22's vpu rig. SDPA
+    # computes bf16sm's function on its bf16 q, k, v (bf16 only rounds the
+    # softmax's insides), as for bf16s; no PyTorch call computes the e4m3
+    # kinds' (their q.k operands are e4m3-rounded) or fp8noexp's and
+    # fp8nomask's (not attention)
+    for vk in ("bf16sm", "fp8sm", "fp8noexp", "fp8nomask", "fp8lean"):
+        rows.append((f"attention_vpu_{vk}", "attention_probe.cu",
+                     "scripts/attn_vpu_probe.py:54", rig2_launches[vk],
+                     vpu_err[vk], (vpu[vk]["ms"], vpu_plain[vk]), vk,
+                     r30["sdpa"]["ms"] if vk == "bf16sm" else None))
     kernels = [{"name": name, "route": "cuda", "source": src + file,
                 "replaces": rep, "launches": n, "max_abs_err": err,
                 "ms": ms[0], "plain_ms": ms[1], "bound_ms": bounds[key][0],

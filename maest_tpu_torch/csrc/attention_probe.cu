@@ -1,23 +1,32 @@
-// The attention-decomposition variants of the bf16 forward (sm_90a),
-// head_dim 64: measurement kernels, on no production path.
+// The measurement variants of the attention forward (sm_90a), head_dim 64:
+// kernels on no production path, each an instantiation of a production
+// loop (K2's attn_fwd_bf16.cuh, K5/K6's attn_fwd_q8.cuh) with one section
+// changed as the header lists, so the production kernel's time minus a
+// variant's is the time of what the variant leaves out or changes.
 //
-// Replaces scripts/attn_profile_r2.py::_mxu_only_kernel (:47),
-// _noexp_max_kernel (:63), _novmax_kernel (:88) and _bf16_scores_kernel
-// (:113), the TPU rig that split the flash forward's time between the
-// matrix products and pipeline, the softmax arithmetic and the running-max
-// bookkeeping. Each is an instantiation of the production loop of
-// attn_fwd_bf16.cuh (K2, attention_fwd.cu) with its softmax section and
-// epilogue changed as that header lists, so K2's time minus a variant's is
-// the time of what the variant leaves out.
+// Replaces, in scripts/attn_profile_r2.py (the TPU rig that split the flash
+// forward's time between the products and pipeline, the softmax arithmetic
+// and the running-max bookkeeping): _mxu_only_kernel (:47),
+// _noexp_max_kernel (:63), _novmax_kernel (:88), _bf16_scores_kernel
+// (:113), _gh_kernel (:148, G heads a block) and _int8_kernel (:226, int8
+// q.k and p.v with p's fixed scale 127); in scripts/attn_vpu_probe.py (the
+// TPU rig that asked which softmax arithmetic the cheaper 8-bit products
+// would expose): _variant_kernel (:54), kinds bf16sm, fp8sm, fp8noexp,
+// fp8nomask and fp8lean.
 //
-// What bounds them on the H100: as K2, arithmetic: the two products
-// (4 N n_real 64 flops per (batch, head)) on mma.sync and, in every
-// variant but MXU_ONLY, the N n_real exp2 on the special-function units
-// (16 a clock per SM). MXU_ONLY keeps the products, the cp.async pipeline
-// and the bf16 packing of p; the difference to K2 is the softmax time K2
-// does not hide behind them.
+// What bounds them on the H100: as K2, arithmetic. The two products (4 N
+// n_real 64 flops per (batch, head)) at the tensor-core rate of their
+// types (bf16 989 TFLOP/s; int8 and e4m3 1979) and, in every variant but
+// MXU_ONLY, the N n_real exp2 on the special-function units (16 a clock
+// per SM: ~0.26 ms at (32, 1676, 12)). With 8-bit products the exp2 floor
+// lies above the product bound (0.140-0.209 ms there), which is what the
+// fp8 kinds measure: the softmax arithmetic each one removes. Bf16sm and
+// the fp8 kinds with a bf16 softmax run max, subtraction and exp2 on packed
+// bf16x2 pairs (two values an instruction). G > 1 amortises a block's
+// prologue (q fragments, first tile) and epilogue over G heads at the cost
+// of G times fewer blocks.
 
-#include "attn_fwd_bf16.cuh"
+#include "attn_fwd_q8.cuh"  // and attn_fwd_bf16.cuh
 
 extern "C" {
 
@@ -25,14 +34,14 @@ const char* maest_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// variant: 1 mxu_only, 2 noexp_max, 3 novmax, 4 bf16s (maest::FwdVariant).
-// q, k, v, out: (batch, n, heads, 64) bf16 with element strides
-// strides[0..11] = (q_b, q_n, q_h, k_b, k_n, k_h, v_b, v_n, v_h, o_b, o_n,
-// o_h), a contiguous last dimension and rows on 16-byte boundaries.
-// sl: the factor of the scores: head_dim^-0.5 for mxu_only,
-// head_dim^-0.5 * log2(e) for noexp_max and novmax, unused by bf16s (whose
-// q comes pre-scaled). 1 <= n_real <= n, and n_real == n for mxu_only.
-// Launches on `stream`; returns cudaGetLastError(), or
+// variant: 1 mxu_only, 2 noexp_max, 3 novmax, 4 bf16s, 5 bf16sm
+// (maest::FwdVariant). q, k, v, out: (batch, n, heads, 64) bf16 with
+// element strides strides[0..11] = (q_b, q_n, q_h, k_b, k_n, k_h, v_b, v_n,
+// v_h, o_b, o_n, o_h), a contiguous last dimension and rows on 16-byte
+// boundaries. sl: the factor of the scores: head_dim^-0.5 for mxu_only,
+// head_dim^-0.5 * log2(e) for noexp_max, novmax and bf16sm, unused by
+// bf16s (whose q comes pre-scaled). 1 <= n_real <= n, and n_real == n for
+// mxu_only. Launches on `stream`; returns cudaGetLastError(), or
 // cudaErrorInvalidValue for another variant.
 int maest_attn_probe_bf16(int variant, const void* q, const void* k,
                           const void* v, void* out, int batch, int n,
@@ -45,10 +54,77 @@ int maest_attn_probe_bf16(int variant, const void* q, const void* k,
     case NOEXP_MAX: kernel = attn_fwd_bf16_kernel<NOEXP_MAX>; break;
     case NOVMAX: kernel = attn_fwd_bf16_kernel<NOVMAX>; break;
     case BF16S: kernel = attn_fwd_bf16_kernel<BF16S>; break;
+    case BF16SM: kernel = attn_fwd_bf16_kernel<BF16SM>; break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch<bf16>(kernel, MQ, 32 * WARPS, q, k, v, out, nullptr, batch, n,
                       heads, n_real, strides, sl, stream);
+}
+
+// K2 (FLASH) with `group` (batch, head) pairs a block, group 1, 2, 4 or 8
+// dividing batch * heads; the arguments as maest_attn_probe_bf16's, sl =
+// head_dim^-0.5 * log2(e). Returns cudaErrorInvalidValue for another group.
+int maest_attn_probe_gh(int group, const void* q, const void* k,
+                        const void* v, void* out, int batch, int n, int heads,
+                        int n_real, const long long* strides, float sl,
+                        void* stream) {
+  using namespace maest;
+  decltype(&attn_fwd_bf16_kernel<FLASH>) kernel;
+  switch (group) {
+    case 1: kernel = attn_fwd_bf16_kernel<FLASH, 1>; break;
+    case 2: kernel = attn_fwd_bf16_kernel<FLASH, 2>; break;
+    case 4: kernel = attn_fwd_bf16_kernel<FLASH, 4>; break;
+    case 8: kernel = attn_fwd_bf16_kernel<FLASH, 8>; break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (batch * heads % group != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<bf16>(kernel, MQ, 32 * WARPS, q, k, v, out, nullptr, batch, n,
+                      heads, n_real, strides, sl, stream, group);
+}
+
+// mode: 4 int8 (the rig's _int8_kernel), 5 fp8sm, 6 fp8noexp, 7 fp8nomask,
+// 3 fp8lean (maest::Q8Mode; fp8lean is FP8PV8 on a pre-scaled q, sl 1).
+// q8, k8: (batch, n, heads, 64) int8 (int8) or e4m3 with element strides
+// strides[0..5] and 16-byte rows. int8: qsl contiguous fp32 (batch, heads,
+// n) of qs / 127^2 * sl, sk of max|k| per key, the same shape; v the
+// contiguous (batch * heads, 64, round_up(n, 64)) transposed int8 copy in
+// seq_pos order, sv127 contiguous fp32 (batch, heads, 64) of vs / 127^2;
+// out fp32. fp8lean: v the transposed e4m3 copy, no scales. fp8sm,
+// fp8noexp, fp8nomask: v the bf16 (batch, n, heads, 64) view with
+// strides[6..8], no scales. out: (batch, n, heads, 64), bf16 but for int8,
+// strides[9..11], 8-byte aligned rows. sl: head_dim^-0.5 * log2(e), 1 for
+// fp8lean. 1 <= n_real <= n, but for fp8nomask, which takes n_pad there:
+// a multiple of 64 at or past n. Launches on `stream`; returns
+// cudaGetLastError(), or cudaErrorInvalidValue for another mode or an
+// n_real out of range.
+int maest_attn_probe_q8(int mode, const void* q8, const void* k8,
+                        const float* qsl, const float* sk, const void* v,
+                        const float* sv127, void* out, int batch, int n,
+                        int heads, int n_real, const long long* strides,
+                        float sl, void* stream) {
+  using namespace maest;
+  const bool nomask_ok = n_real >= n && n_real % MK == 0;
+  if (mode == FP8NOMASK ? !nomask_ok : n_real < 1 || n_real > n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (mode) {
+    case INT8_RIG:
+      return launch_q8<INT8_RIG>(q8, k8, qsl, sk, v, sv127, out, nullptr,
+                                 batch, n, heads, n_real, strides, sl, stream);
+    case FP8SM:
+      return launch_q8<FP8SM>(q8, k8, qsl, sk, v, sv127, out, nullptr, batch,
+                              n, heads, n_real, strides, sl, stream);
+    case FP8NOEXP:
+      return launch_q8<FP8NOEXP>(q8, k8, qsl, sk, v, sv127, out, nullptr,
+                                 batch, n, heads, n_real, strides, sl, stream);
+    case FP8NOMASK:
+      return launch_q8<FP8NOMASK>(q8, k8, qsl, sk, v, sv127, out, nullptr,
+                                  batch, n, heads, n_real, strides, sl, stream);
+    case FP8PV8:
+      return launch_q8<FP8PV8>(q8, k8, qsl, sk, v, sv127, out, nullptr, batch,
+                               n, heads, n_real, strides, sl, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

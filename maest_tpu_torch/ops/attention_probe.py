@@ -1,5 +1,5 @@
-"""The attention-decomposition variants of the bf16 forward, port of the
-four float kernels of ``scripts/attn_profile_r2.py``.
+"""The attention-decomposition variants of the forward, port of the six
+kernels of ``scripts/attn_profile_r2.py``.
 
 ``attention_probe(q, k, v, variant, n_real=None)`` takes and returns
 (B, N, H, 64) bf16. Each variant is K2's loop (``csrc/attn_fwd_bf16.cuh``)
@@ -22,6 +22,14 @@ Every variant rounds p to bf16 for the P.V product and sums in fp32. On
 CUDA tensors the wrapper launches ``csrc/attention_probe.cu`` (counted per
 variant in ``attention_probe.launches``); on CPU tensors it runs the plain
 version, ``attention_probe_reference``, which walks the same 64-key tiles.
+
+Two more wrappers, each with its plain version and launch count:
+
+- ``attention_probe_gh(q, k, v, group)``: K2 with ``group`` (batch, head)
+  pairs a block (the rig's ``_gh_kernel``), the same function as K2.
+- ``attention_probe_int8(q, k, v)``: the rig's ``_int8_kernel`` with its
+  quantization pass, fp32 in and out; its output is attention / 127 (see
+  its docstring).
 """
 
 from __future__ import annotations
@@ -37,12 +45,32 @@ from .attention import (
     HEAD_DIM,
     _check_args,
     _check_views,
+    _div,
+    _seq_major,
     _strides,
 )
 
 VARIANTS = ("mxu_only", "noexp_max", "novmax", "bf16s")
 BLOCK_K = 64  # the kernel's key tile: novmax's max is taken over it
 _ID = {name: i + 1 for i, name in enumerate(VARIANTS)}  # maest::FwdVariant
+GROUPS = (1, 2, 4, 8)  # the head groups attention_probe_gh's kernel takes
+P127_SHIFT = 6.9886    # the int8 rig's log2(127): p = exp2(s - m + it) <= 127
+_INT8_RIG = 4          # maest::Q8Mode
+_SCALE_FLOOR = 1e-6    # the int8 rig's floor of a scale (max|x|)
+
+
+def _check_qkv(q, k, v, n_real, dtype=torch.bfloat16):
+    """Validate (B, N, H, 64) q, k, v of ``dtype`` (bf16; fp32 for the int8
+    rig); return n_real as an int."""
+    n_real, _, _ = _check_args(q, k, v, n_real, None)
+    if any(t.dtype != dtype for t in (q, k, v)):
+        raise TypeError(f"the attention probe kernels take {dtype} q/k/v "
+                        "here, got "
+                        f"{', '.join(str(t.dtype) for t in (q, k, v))}")
+    if q.shape[-1] != HEAD_DIM:
+        raise ValueError(f"the CUDA attention kernels are built for head_dim "
+                         f"{HEAD_DIM}, got {q.shape[-1]}")
+    return q.shape[1] if n_real is None else n_real
 
 
 def _check(q, k, v, variant, n_real):
@@ -50,17 +78,11 @@ def _check(q, k, v, variant, n_real):
     if variant not in VARIANTS:
         raise ValueError(f"unknown attention probe variant {variant!r}; "
                          f"expected one of {', '.join(VARIANTS)}")
-    n_real, _, _ = _check_args(q, k, v, n_real, None)
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise TypeError("the attention probe kernels take bfloat16 q/k/v, got "
-                        f"{', '.join(str(t.dtype) for t in (q, k, v))}")
-    if q.shape[-1] != HEAD_DIM:
-        raise ValueError(f"the CUDA attention kernels are built for head_dim "
-                         f"{HEAD_DIM}, got {q.shape[-1]}")
-    if variant == "mxu_only" and n_real is not None:
+    nr = _check_qkv(q, k, v, n_real)
+    if variant == "mxu_only" and nr != q.shape[1]:
         raise ValueError("mxu_only masks no key: it takes n_real = N only, "
                          f"got n_real={n_real} of {q.shape[1]}")
-    return q.shape[1] if n_real is None else n_real
+    return nr
 
 
 def prescale_q(q: torch.Tensor) -> torch.Tensor:
@@ -68,13 +90,9 @@ def prescale_q(q: torch.Tensor) -> torch.Tensor:
     return (q.float() * (q.shape[-1]**-0.5 * _LOG2E)).to(q.dtype)
 
 
-def attention_probe_reference(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, variant: str,
-                              n_real: int | None = None) -> torch.Tensor:
-    """Plain PyTorch version of ``attention_probe``: 64-key tiles in fp32,
-    rounding where the kernel rounds (p to bf16 before P.V; for ``bf16s``
-    the pre-scaled q, the scores and the mask value to bf16)."""
-    nr = _check(q, k, v, variant, n_real)
+def _walk(q, k, v, variant, nr):
+    """64-key tiles in fp32, rounding where the kernel of ``variant`` (one
+    of VARIANTS, or "flash": K2's online softmax) rounds."""
     d = q.shape[-1]
     scale = d**-0.5
     sl = scale * _LOG2E
@@ -103,7 +121,7 @@ def attention_probe_reference(q: torch.Tensor, k: torch.Tensor,
             p = torch.exp2(s)
         elif variant == "novmax":
             p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
-        else:  # bf16s: the online softmax
+        else:  # bf16s and flash: the online softmax
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             corr = torch.exp2(m - m_new)
             p = torch.exp2(s - m_new)
@@ -114,6 +132,15 @@ def attention_probe_reference(q: torch.Tensor, k: torch.Tensor,
         acc += p.to(torch.bfloat16).float() @ vt
     out = acc if variant == "mxu_only" else acc / l
     return out.transpose(1, 2).to(torch.bfloat16)
+
+
+def attention_probe_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, variant: str,
+                              n_real: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of ``attention_probe``: 64-key tiles in fp32,
+    rounding where the kernel rounds (p to bf16 before P.V; for ``bf16s``
+    the pre-scaled q, the scores and the mask value to bf16)."""
+    return _walk(q, k, v, variant, _check(q, k, v, variant, n_real))
 
 
 def attention_probe(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -127,33 +154,219 @@ def attention_probe(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         variant, n_real)
 
 
+def _on_card(t, fn):
+    if t.device.type != "cuda":
+        raise ValueError(f"{fn} launches the CUDA kernel; got {t.device} "
+                         "tensors (the wrappers run the plain version there)")
+
+
+def _call(lib, name, argtypes, *args):
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    return fn(*args)
+
+
+_BF16_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+              + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                 ctypes.c_void_p])
+_Q8_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+            + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+               ctypes.c_void_p])
+
+
+def launch_bf16(name: str, select: int, q, k, v, n_real: int,
+                sl: float) -> torch.Tensor:
+    """Launch the bf16 entry ``name`` of ``csrc/attention_probe.cu`` (its
+    variant or group ``select``) on checked CUDA views; return the bf16
+    output."""
+    _check_views((q, k, v), torch.bfloat16, "q/k/v")
+    b, n, h, _ = q.shape
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lib = _build.load_library("attention_probe")
+    with torch.cuda.device(q.device):
+        err = _call(lib, name, _BF16_ARGS, select, q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), out.data_ptr(), b, n, h, n_real,
+                    _strides(q, k, v, out), sl,
+                    torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, f"{name} ({select})")
+    return out
+
+
+def launch_q8(mode: int, q8, k8, qsl, sk, v, sv127, out, n_real: int,
+              sl: float, v_strides_of) -> torch.Tensor:
+    """Launch ``maest_attn_probe_q8`` (the 8-bit loop's ``mode``) on made
+    CUDA inputs; ``v_strides_of`` is the (B, N, H, 64) view whose strides
+    stand for v's (unused where v is a transposed copy)."""
+    b, n, h, _ = q8.shape
+    lib = _build.load_library("attention_probe")
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    with torch.cuda.device(q8.device):
+        err = _call(lib, "maest_attn_probe_q8", _Q8_ARGS, mode, q8.data_ptr(),
+                    k8.data_ptr(), ptr(qsl), ptr(sk), v.data_ptr(), ptr(sv127),
+                    out.data_ptr(), b, n, h, n_real,
+                    _strides(q8, k8, v_strides_of, out), sl,
+                    torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, f"maest_attn_probe_q8 ({mode})")
+    return out
+
+
 def launch_probe(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  variant: str, n_real: int | None = None) -> torch.Tensor:
     """The ``variant`` kernel alone on CUDA tensors, as ``attention_probe``
     launches it: for ``bf16s`` q must come through ``prescale_q`` (the rig
     times the kernel so, apart from that pass)."""
     nr = _check(q, k, v, variant, n_real)
-    if q.device.type != "cuda":
-        raise ValueError(f"launch_probe launches the CUDA kernel; got {q.device}"
-                         " tensors (attention_probe runs the plain version)")
-    _check_views((q, k, v), torch.bfloat16, "q/k/v")
-    b, n, h, d = q.shape
-    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
-    lib = _build.load_library("attention_probe")
-    fn = lib.maest_attn_probe_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                      ctypes.c_void_p])
-    sl = d**-0.5 * (1.0 if variant == "mxu_only" else _LOG2E)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(_ID[variant], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), b, n, h, nr, _strides(q, k, v, out), sl,
-                 stream)
-    _build.check(lib, err, f"maest_attn_probe_bf16 ({variant})")
+    _on_card(q, "launch_probe")
+    sl = q.shape[-1]**-0.5 * (1.0 if variant == "mxu_only" else _LOG2E)
+    out = launch_bf16("maest_attn_probe_bf16", _ID[variant], q, k, v, nr, sl)
     attention_probe.launches[variant] += 1
     return out
 
 
+# --- P6e: G heads a block ---------------------------------------------------
+def _check_gh(q, k, v, group, n_real):
+    if group not in GROUPS:
+        raise ValueError(f"attention_probe_gh takes a group of "
+                         f"{', '.join(map(str, GROUPS))}; got {group!r}")
+    nr = _check_qkv(q, k, v, n_real)
+    if q.shape[0] * q.shape[2] % group:
+        raise ValueError(f"batch * heads = {q.shape[0] * q.shape[2]} is not "
+                         f"divisible by the group {group}")
+    return nr
+
+
+def attention_probe_gh_reference(q, k, v, group: int,
+                                 n_real: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of ``attention_probe_gh``: K2's online softmax
+    over the same 64-key tiles (the group changes which block computes a
+    head, not what it computes)."""
+    return _walk(q, k, v, "flash", _check_gh(q, k, v, group, n_real))
+
+
+def attention_probe_gh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       group: int, n_real: int | None = None) -> torch.Tensor:
+    """K2's forward on (B, N, H, 64) bf16 with ``group`` (batch, head) pairs
+    a block, B*H divisible by it (the rig's ``gh<G>``): on CUDA tensors the
+    kernel, whose output equals K2's bit for bit; on CPU tensors
+    ``attention_probe_gh_reference``. Launches counted per group in
+    ``attention_probe_gh.launches``."""
+    nr = _check_gh(q, k, v, group, n_real)
+    if q.device.type == "cpu":
+        return attention_probe_gh_reference(q, k, v, group, n_real)
+    out = launch_bf16("maest_attn_probe_gh", group, q, k, v, nr,
+                      q.shape[-1]**-0.5 * _LOG2E)
+    attention_probe_gh.launches[group] += 1
+    return out
+
+
+# --- P6f: int8 q.k and p.v, p's fixed scale 127 ------------------------------
+def _quantize_int8_rig(q, k, v):
+    """The rig's quantization (attn_profile_r2.py:290-299): q8, k8 (B, N, H,
+    64) int8 = round(x / s * 127), s = max(max|x| over d, 1e-6), with their
+    s as qs, ks (B, H, N); v8 (B, H, N, 64) int8 and vs (B, H, 64), s over
+    the sequence for each column."""
+    def quant(x, dim):
+        s = torch.clamp_min(x.abs().amax(dim=dim, keepdim=True), _SCALE_FLOOR)
+        return torch.round(x / s * 127.0).to(torch.int8), s
+
+    q8, qs = quant(q, -1)
+    k8, ks = quant(k, -1)
+    v8, vs = quant(v.transpose(1, 2), 2)
+    return (q8, k8, qs[..., 0].transpose(1, 2), ks[..., 0].transpose(1, 2),
+            v8, vs[:, :, 0])
+
+
+def _fold127(s):
+    """s / 127 / 127, each division rounded as the rig's (:303-304)."""
+    return _div(_div(s, 127.0), 127.0)
+
+
+def int8_rig_pass(q, k, v):
+    """The int8 rig's pass before its kernel, as PyTorch ops (XLA in the
+    rig): the quantization and the folds of /127^2 into the row scales (with
+    scale * log2(e)) and into v's column scales; returns the kernel's inputs
+    (q8, k8, qsl, ks, v8 transposed in seq_pos order, vs / 127^2)."""
+    q8, k8, qs, ks, v8, vs = _quantize_int8_rig(q, k, v)
+    sl = q.shape[-1]**-0.5 * _LOG2E
+    return (q8.contiguous(), k8.contiguous(), (_fold127(qs) * sl).contiguous(),
+            ks.contiguous(), _seq_major(v8), _fold127(vs).contiguous())
+
+
+def attention_probe_int8_reference(q, k, v, n_real: int | None = None, *,
+                                   with_l: bool = False):
+    """Plain PyTorch version of ``attention_probe_int8``, the rig's
+    ``_int8_kernel`` (:226-267) over the same 64-key tiles: s = (q8.k8 *
+    (qs / 127^2 * sl)) * ks, keys >= n_real at -1e30, the online max m,
+    p = exp2((s - m) + 6.9886), l = l corr + sum of p, acc = acc corr +
+    round(p).v8, out = (acc * vs / 127^2) / l, fp32. Integer products are
+    summed exactly in float64. With ``with_l`` also the row sums l (B, N,
+    H): one p that rounds the other way moves a row by at most max|v| /
+    (127 l)."""
+    nr = _check_qkv(q, k, v, n_real, torch.float32)
+    q8, k8, qs, ks, v8, vs = _quantize_int8_rig(q, k, v)
+    d = q.shape[-1]
+    qsl = _fold127(qs) * (d**-0.5 * _LOG2E)
+    qa, ka = (t.transpose(1, 2).double() for t in (q8, k8))
+    va = v8.double()
+    b, h, n, _ = qa.shape
+    m = torch.full((b, h, n, 1), _NEG_INF, device=q.device)
+    l = torch.zeros((b, h, n, 1), device=q.device)
+    acc = torch.zeros((b, h, n, d), device=q.device)
+    for base in range(0, nr, BLOCK_K):
+        hi = min(base + BLOCK_K, n)
+        s = (qa @ ka[:, :, base:hi].transpose(-1, -2)).float()
+        s = s * qsl[..., None] * ks[:, :, None, base:hi]
+        if hi > nr:
+            s[..., nr - base:] = _NEG_INF
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new + P127_SHIFT)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + (torch.round(p).double() @ va[:, :, base:hi]).float()
+        m = m_new
+    out = (acc * _fold127(vs)[:, :, None] / l).transpose(1, 2)
+    return (out, l[..., 0].transpose(1, 2)) if with_l else out
+
+
+def launch_int8(inputs, n_real: int | None = None) -> torch.Tensor:
+    """The int8 kernel alone on the CUDA inputs ``int8_rig_pass`` made (the
+    rig times it so, apart from that pass); fp32 (B, N, H, 64) out."""
+    q8 = inputs[0]
+    _on_card(q8, "launch_int8")
+    n = q8.shape[1]
+    nr = n if n_real is None else n_real
+    if not 1 <= nr <= n:
+        raise ValueError(f"n_real={n_real} must lie in 1..{n}")
+    out = torch.empty(q8.shape, dtype=torch.float32, device=q8.device)
+    launch_q8(_INT8_RIG, *inputs, out, nr, q8.shape[-1]**-0.5 * _LOG2E, q8)
+    attention_probe_int8.launches += 1
+    return out
+
+
+def attention_probe_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         n_real: int | None = None) -> torch.Tensor:
+    """The int8 rig's forward (``_int8_kernel`` with ``time_int8``'s
+    quantization, attn_profile_r2.py:226-321) on fp32 (B, N, H, 64): int8
+    q.k and int8 p.v with p's fixed scale 127, fp32 out. On CUDA tensors
+    ``int8_rig_pass`` then the kernel (``launch_int8``); on CPU tensors
+    ``attention_probe_int8_reference``. Launches counted in
+    ``attention_probe_int8.launches``.
+
+    The output is attention / 127, as the rig's is: its fold ``vsc = vs /
+    127 / 127`` (:304) divides by a second 127 for p, but l sums the same
+    127-scaled p (:258-260), so that factor never cancels. Run in interpret
+    mode at (1, 100, 2, 64) on N(0, 0.5^2) inputs, the rig's kernel gave
+    max|out| 1.382e-3 against 0.1751 for attention (a ratio of 126.7), and
+    out * 127 lay within 1.94e-3 of attention. The port computes the rig's
+    function, factor included; a later rig would fold ``vs / 127``."""
+    _check_qkv(q, k, v, n_real, torch.float32)
+    if q.device.type == "cpu":
+        return attention_probe_int8_reference(q, k, v, n_real)
+    _check_views((q, k, v), torch.float32, "q/k/v")
+    return launch_int8(int8_rig_pass(q, k, v), n_real)
+
+
 attention_probe.launches = dict.fromkeys(VARIANTS, 0)
+attention_probe_gh.launches = dict.fromkeys(GROUPS, 0)
+attention_probe_int8.launches = 0

@@ -15,42 +15,51 @@ pipeline, the softmax arithmetic and the running-max bookkeeping:
   novmax     the max of each 64-key tile only, no correction
   bf16s      the online softmax on bf16 scores, q pre-scaled in bf16 (the
              pre-scaling pass is part of its time, as in the TPU rig)
+  gh<G>      K2 with G (batch, head) pairs a block, G 1, 2, 4 or 8: the
+             same function, G times fewer blocks (not in the default list)
+  int8       the TPU rig's int8 kernel (int8 q.k and p.v, p's fixed scale
+             127) on fp32 copies of the inputs, with its quantization pass;
+             its output is attention / 127, as the rig's (not in the
+             default list)
   plain      ``attention_reference``, the materialising plain version
   sdpa       ``scaled_dot_product_attention`` on its flash backend: a
              library yardstick, called by nothing else in the port
 
-(``ops/attention_probe.py`` defines the four probes.) Each time is the
+(``ops/attention_probe.py`` defines the probes.) Each time is the
 median of three runs of ``--iters`` calls after one warm-up call, from CUDA
 events; the calls repeat on the same inputs, which take no dependency on
-each other. Each line prints ms, TFLOP/s and the share of the H100's 989
-TFLOP/s bf16 peak, counting the two products over the real keys, 4 b h N
-n_real 64 flop (n_real = N here; the TPU rig counted its padded length),
-and the exp2 floor: b h N n_real exp2 at 16 a clock per SM (the
-special-function units' ex2 throughput, assumed) on the SM count and
-clock of ``torch.cuda.get_device_properties``.
+each other. Each line prints ms, TFLOP/s and the share of the H100's peak
+for the variant's product types (989 TFLOP/s bf16, 1979 int8), counting
+the two products over the real keys, 4 b h N n_real 64 flop (n_real = N
+here; the TPU rig counted its padded length), and the exp2 floor: b h N
+n_real exp2 at 16 a clock per SM (the special-function units' ex2
+throughput, assumed) on the SM count and clock of
+``torch.cuda.get_device_properties``.
 
 On the card the line adds the time a call of a CUDA graph that replays
 the same ``--iters`` calls (median of three replays; not for plain, which
 materialises its N^2 scores and is no yardstick of speed): the
 device's time with no host issue between the calls, and the idle share of
 the event-timed calls, 1 - graph time / event time. A large idle share says
-the host's issue rate set that reading, not the kernels. bf16s adds its
-kernel alone, on a q pre-scaled once outside the timing (``launch_probe``),
-and the pre-scaling pass alone (``prescale_q``), both from events.
+the host's launch rate set that reading, not the kernels. bf16s and int8
+add their kernel alone, on inputs made once outside the timing
+(``launch_probe`` on a pre-scaled q, ``launch_int8`` on the quantized
+inputs), and their pass alone (``prescale_q``, ``int8_rig_pass``), both
+from events.
 
 After each shape it prints the differences the rig exists for (flash -
-mxu_only, flash - noexp_max, flash - novmax, bf16s - flash), from the event
-times and, on the card, from the graph times; for bf16s - flash also its
-kernel alone and its pass.
+mxu_only, flash - noexp_max, flash - novmax, bf16s - flash, gh<G> -
+flash), from the event times and, on the card, from the graph times; for
+a variant with a pass also its kernel alone and its pass.
 
 ``--check`` instead prints each variant's max|diff| against fp32 attention
 (``attention_reference`` on fp32 copies) at (2, N, heads, 64) on N(0, 1)
-inputs, N the first shape's. Only flash, noexp_max, bf16s, plain and sdpa
-compute softmax attention; mxu_only and novmax are printed beside them.
+inputs, N the first shape's. Only flash, noexp_max, bf16s, gh<G>, plain
+and sdpa compute softmax attention; mxu_only and novmax are printed beside
+them, and int8 also with its output times 127.
 
 The rig runs on the card; ``--device cpu`` runs the plain versions with the
-host's clock, for tests, and prints no device rate. ``gh<G>`` and ``int8``
-(the TPU rig's head-grouped and int8 kernels) are not ported yet.
+host's clock, for tests, and prints no device rate.
 """
 
 from __future__ import annotations
@@ -63,21 +72,30 @@ import numpy as np
 import torch
 
 from ..ops.attention import attention_reference, flash_attention
+from ..ops.attention_probe import GROUPS
 from ..ops.attention_probe import VARIANTS as PROBES
-from ..ops.attention_probe import attention_probe, launch_probe, prescale_q
+from ..ops.attention_probe import (
+    attention_probe,
+    attention_probe_gh,
+    attention_probe_int8,
+    int8_rig_pass,
+    launch_int8,
+    launch_probe,
+    prescale_q,
+)
 
 ARCH_N = {"5s": 272, "10s": 551, "20s": 1118, "30s": 1676,
           "30s-train": 866, "10s-train": 281, "20s-train": 578}
 DEFAULT_VARIANTS = "flash,mxu_only,noexp_max,novmax,bf16s,plain,sdpa"
 PEAK_BF16 = 989e12          # H100 SXM data sheet, dense bf16 flop/s
+PEAK_INT8 = 1979e12         # and dense int8 op/s
 EXP2_PER_CLOCK_PER_SM = 16  # special-function unit ex2 rate, assumed
 DIFFS = (("flash", "mxu_only", "softmax time K2 does not hide"),
          ("flash", "noexp_max", "running-max bookkeeping"),
          ("flash", "novmax", "correction multiplies"),
          ("bf16s", "flash", "bf16 scores against fp32 ones"))
 _SOFTMAX = {"flash", "noexp_max", "bf16s", "plain", "sdpa"}
-_NOT_PORTED = ("the TPU rig's {} kernel is not ported yet (ROADMAP queue 2: "
-               "P6e/P6f)")
+_PASS = {"bf16s": "pre-scaling pass", "int8": "quantization pass"}
 
 
 def tokens(shape: str) -> int:
@@ -100,10 +118,27 @@ def _sdpa(q, k, v):
         ).transpose(1, 2)
 
 
+def _group(variant: str) -> int | None:
+    """G of a ``gh<G>`` variant, None for another name."""
+    g = variant[2:]
+    if variant.startswith("gh") and g.isdigit() and int(g) in GROUPS:
+        return int(g)
+    return None
+
+
+def _fp32(*ts):
+    return [None if t is None else t.float() for t in ts]
+
+
 def variant_fn(variant: str, q, k, v):
-    """The call that computes ``variant`` on (B, N, H, 64) q, k, v."""
-    if variant.startswith("gh") or variant == "int8":
-        raise NotImplementedError(_NOT_PORTED.format(variant))
+    """The call that computes ``variant`` on (B, N, H, 64) q, k, v (int8:
+    on fp32 copies of them, made here, outside the call)."""
+    g = _group(variant)
+    if g is not None:
+        return lambda: attention_probe_gh(q, k, v, g)
+    if variant == "int8":
+        qf, kf, vf = _fp32(q, k, v)
+        return lambda: attention_probe_int8(qf, kf, vf)
     if variant == "flash":
         return lambda: flash_attention(q, k, v)
     if variant in PROBES:
@@ -113,7 +148,21 @@ def variant_fn(variant: str, q, k, v):
     if variant == "sdpa":
         return lambda: _sdpa(q, k, v)
     raise ValueError(f"unknown variant {variant!r}; expected one of "
-                     f"{DEFAULT_VARIANTS}")
+                     f"{DEFAULT_VARIANTS}, gh1, gh2, gh4, gh8, int8")
+
+
+def split_fns(variant: str, q, k, v):
+    """(kernel alone, pass alone) of a variant with a pass before its
+    kernel (bf16s, int8), on inputs made once here; None for another."""
+    if variant == "bf16s":
+        qs = prescale_q(q)
+        return (lambda: launch_probe(qs, k, v, "bf16s"),
+                lambda: prescale_q(q))
+    if variant == "int8":
+        qf, kf, vf = _fp32(q, k, v)
+        made = int8_rig_pass(qf, kf, vf)
+        return lambda: launch_int8(made), lambda: int8_rig_pass(qf, kf, vf)
+    return None
 
 
 def time_ms(fn, iters: int, device: torch.device, reps: int = 3) -> float:
@@ -198,7 +247,8 @@ def _inputs(b, n, h, scale, seed, device):
 
 def check(n: int, heads: int, variants, seed: int, device) -> dict:
     """max|diff| of each variant against fp32 attention at (2, n, heads,
-    64), inputs N(0, 1)."""
+    64), inputs N(0, 1); for int8 also "int8 x 127", of its output times
+    127."""
     q, k, v = _inputs(2, n, heads, 1.0, seed, device)
     ref = attention_reference(q.float(), k.float(), v.float())
     diffs = {}
@@ -207,17 +257,33 @@ def check(n: int, heads: int, variants, seed: int, device) -> dict:
             got = variant_fn(variant, q, k, v)().float()
             diffs[variant] = (got - ref).abs().max().item()
             what = ("softmax attention" if variant in _SOFTMAX
-                    else "not softmax attention")
-            print(f"  check {variant:10s} max|diff| vs fp32 attention: "
-                  f"{diffs[variant]:.3e} ({what})", flush=True)
+                    or _group(variant) else "not softmax attention")
+            line = (f"  check {variant:10s} max|diff| vs fp32 attention: "
+                    f"{diffs[variant]:.3e}")
+            if variant == "int8":
+                x127 = (got * 127 - ref).abs().max().item()
+                line += (f"; of its output x 127: {x127:.3e} (the rig's "
+                         "output is attention / 127: its fold vs / 127^2 "
+                         "keeps p's factor 127, attn_profile_r2.py:304)")
+                diffs["int8 x 127"] = x127
+            else:
+                line += f" ({what})"
+            print(line, flush=True)
     return diffs
+
+
+def _diffs(variants):
+    """The (a, b, what) differences printed after a shape: DIFFS and each
+    gh<G> against K2."""
+    return DIFFS + tuple((v, "flash", "head groups of G against K2's one")
+                         for v in variants if _group(v))
 
 
 def profile(shapes, batch: int, heads: int, iters: int, variants, seed: int,
             device: torch.device) -> dict:
-    """{shape: {variant: {"ms", "graph_ms", "idle"}}}, and for bf16s also
-    "kernel_ms" and "pass_ms" (``None`` where not measured: every field but
-    ms on the CPU, graph_ms and idle for plain), printing one line per
+    """{shape: {variant: {"ms", "graph_ms", "idle"}}}, and for bf16s and int8
+    also "kernel_ms" and "pass_ms" (``None`` where not measured: every field
+    but ms on the CPU, graph_ms and idle for plain), printing one line per
     variant and the decomposition after each shape."""
     on_card = device.type == "cuda"
     out = {}
@@ -241,7 +307,7 @@ def profile(shapes, batch: int, heads: int, iters: int, variants, seed: int,
                           flush=True)
                     continue
                 tf = flop / (row["ms"] / 1e3) / 1e12
-                peak = PEAK_BF16 / 1e12
+                peak = (PEAK_INT8 if variant == "int8" else PEAK_BF16) / 1e12
                 line += (f" {tf:7.1f} TFLOP/s {tf / peak * 100:5.1f} % of "
                          f"{peak:.0f}; exp2 floor "
                          f"{exp2_floor_ms(n_exp2, device):.4f} ms")
@@ -250,25 +316,23 @@ def profile(shapes, batch: int, heads: int, iters: int, variants, seed: int,
                     row["idle"] = 1.0 - row["graph_ms"] / row["ms"]
                     line += (f"; graph {row['graph_ms']:.4f} ms, idle "
                              f"{row['idle'] * 100:.1f} %")
-                if variant == "bf16s":
-                    qs = prescale_q(q)
-                    row["kernel_ms"] = time_ms(
-                        lambda: launch_probe(qs, k, v, "bf16s"), iters, device)
-                    row["pass_ms"] = time_ms(lambda: prescale_q(q), iters,
-                                             device)
+                split = split_fns(variant, q, k, v)
+                if split is not None:
+                    row["kernel_ms"] = time_ms(split[0], iters, device)
+                    row["pass_ms"] = time_ms(split[1], iters, device)
                     line += (f"; kernel alone {row['kernel_ms']:.4f} ms, "
-                             f"pre-scaling pass {row['pass_ms']:.4f} ms")
-                    del qs
+                             f"{_PASS[variant]} {row['pass_ms']:.4f} ms")
+                    del split
                 print(line, flush=True)
         del q, k, v
-        for a, b, what in DIFFS:
+        for a, b, what in _diffs(variants):
             if a in rows and b in rows:
                 ra, rb = rows[a], rows[b]
                 line = f"  {a} - {b} = {ra['ms'] - rb['ms']:+.4f} ms"
                 if on_card:
                     line += f" (events), {ra['graph_ms'] - rb['graph_ms']:+.4f}"
                     line += " ms (graphs)"
-                    if a == "bf16s":
+                    if "kernel_ms" in ra:
                         line += (f"; its kernel alone "
                                  f"{ra['kernel_ms'] - rb['ms']:+.4f} ms, its "
                                  f"pass {ra['pass_ms']:.4f} ms")

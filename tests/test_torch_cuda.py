@@ -437,3 +437,180 @@ def test_launch_probe_is_the_kernel_alone(cuda_device):
                        attention_probe(q, k, v, "novmax"))
     with pytest.raises(ValueError, match="launches the CUDA kernel"):
         launch_probe(q.cpu(), k.cpu(), v.cpu(), "novmax")
+
+
+# --- P6e (gh), P6f (int8) and the P5 kinds --------------------------------
+# gh: torch.equal to K2 (each head runs K2's arithmetic). int8 (fp32 out):
+# each row within one p flip of plain, max|v| / (127 l), + 1e-5 of max|o|.
+# P5 against plain: attention_vpu.plain_gap, 2 bf16 ulps of max|o| (bf16sm,
+# fp8sm, fp8nomask add 2^-7 max|o|: the packed ex2's relative error in each
+# p, against the plain version's bf16 rounding) and relative L2 1e-2.
+@pytest.mark.parametrize("b,n,n_real", [(2, 1676, None), (4, 272, None),
+                                        (2, 300, 290), (2, 1, None)])
+def test_gh_kernels_equal_k2(cuda_device, b, n, n_real):
+    from maest_tpu_torch.ops.attention_probe import GROUPS, attention_probe_gh
+
+    x = _rand((b, n, 3, 12, 64), 18).to(cuda_device, torch.bfloat16)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    k2 = flash_attention(q, k, v, n_real=n_real)
+    for g in GROUPS:
+        before = attention_probe_gh.launches[g]
+        out = attention_probe_gh(q, k, v, g, n_real)
+        torch.cuda.synchronize()
+        assert attention_probe_gh.launches[g] == before + 1
+        assert torch.equal(out, k2), g
+
+
+@pytest.mark.parametrize("b,n,n_real", [(3, 100, None), (2, 1676, None),
+                                        (2, 300, 290), (1, 1, None)])
+def test_int8_kernel_matches_plain(cuda_device, b, n, n_real):
+    from maest_tpu_torch.ops.attention_probe import (
+        attention_probe_int8,
+        attention_probe_int8_reference,
+        int8_rig_pass,
+        launch_int8,
+    )
+
+    x = _rand((b, n, 3, 12, 64), 19, 0.5).to(cuda_device)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    before = attention_probe_int8.launches
+    out = attention_probe_int8(q, k, v, n_real)
+    ref, l = attention_probe_int8_reference(q, k, v, n_real, with_l=True)
+    torch.cuda.synchronize()
+    assert attention_probe_int8.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    top = ref.abs().max().item()
+    tol = v.abs().max().item() / (127 * l) + 1e-5 * top
+    assert bool(((out - ref).abs().amax(-1) <= tol).all())
+    assert torch.equal(launch_int8(int8_rig_pass(q, k, v), n_real), out)
+    att = attention_reference(q, k, v, n_real)
+    assert (out * 127 - att).abs().max().item() <= 1e-2
+
+
+@pytest.mark.parametrize("b,n", [(3, 100), (2, 1676), (2, 300)])
+@pytest.mark.parametrize("kind", ["bf16sm", "fp8sm", "fp8noexp", "fp8nomask",
+                                  "fp8lean"])
+def test_vpu_kernels_match_plain(cuda_device, kind, b, n):
+    from maest_tpu_torch.ops.attention_vpu import (
+        PLAIN_REL_L2,
+        attention_vpu_probe,
+        attention_vpu_probe_reference,
+        launch_vpu,
+        plain_gap,
+        vpu_pass,
+    )
+
+    x = _rand((b, n, 3, 12, 64), 20, 0.3).to(cuda_device, torch.bfloat16)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    n_real = None if kind == "fp8nomask" else n - 5
+    before = attention_vpu_probe.launches[kind]
+    out = attention_vpu_probe(q, k, v, kind, n_real)
+    ref = attention_vpu_probe_reference(q, k, v, kind, n_real)
+    torch.cuda.synchronize()
+    assert attention_vpu_probe.launches[kind] == before + 1
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    err, tol, rel = plain_gap(kind, out, ref)
+    assert err <= tol and rel <= PLAIN_REL_L2
+    assert torch.equal(launch_vpu(vpu_pass(q, k, v, kind), kind, n_real), out)
+
+
+# faults planted in a copy of the packed-ex2 softmax (attn_fwd_bf16.cuh
+# softmax_bf16, shared by bf16sm, fp8sm and fp8nomask): the key mask off,
+# or the correction corr held at 1; "zeros" stands for a kernel that writes
+# nothing. Each must fail plain_gap in every kind it touches.
+_FAULTS = {
+    "mask_off": ("if constexpr (MASK) {", "if constexpr (false) {"),
+    "corr_1": ("    m[r] = mr;\n    l[r] *= corr[r];",
+               "    m[r] = mr;\n    corr[r] = 1.0f;\n    l[r] *= corr[r];"),
+}
+_HIT = {"zeros": ("bf16sm", "fp8sm", "fp8noexp", "fp8nomask", "fp8lean"),
+        "mask_off": ("bf16sm", "fp8sm"),
+        "corr_1": ("bf16sm", "fp8sm", "fp8nomask")}
+
+
+@pytest.mark.parametrize("fault", ["zeros", "mask_off", "corr_1"])
+def test_vpu_check_refuses_planted_faults(cuda_device, tmp_path, monkeypatch,
+                                          fault):
+    """plain_gap refuses each planted fault in every kind it touches at
+    (3, 100) and (2, 1676), and passes the kinds it leaves alone. Run with
+    -s to see each kind's gap."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    from maest_tpu_torch.ops import _build
+    from maest_tpu_torch.ops.attention_vpu import (
+        KINDS,
+        PLAIN_REL_L2,
+        attention_vpu_probe,
+        attention_vpu_probe_reference,
+        plain_gap,
+    )
+
+    if fault in _FAULTS:
+        src = tmp_path / "csrc"
+        shutil.copytree(_build.CSRC, src)
+        header = src / "attn_fwd_bf16.cuh"
+        text = header.read_text()
+        old, new = _FAULTS[fault]
+        assert text.count(old) == 1
+        header.write_text(text.replace(old, new))
+        lib = tmp_path / "attention_probe.so"
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                        str(src / "attention_probe.cu")], check=True,
+                       capture_output=True)
+        monkeypatch.setitem(_build._libs, "attention_probe",
+                            ctypes.CDLL(str(lib)))
+    for b, n in ((3, 100), (2, 1676)):
+        x = _rand((b, n, 3, 12, 64), 22, 0.3).to(cuda_device, torch.bfloat16)
+        q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+        for kind in KINDS:
+            ref = attention_vpu_probe_reference(q, k, v, kind)
+            out = (torch.zeros_like(ref) if fault == "zeros"
+                   else attention_vpu_probe(q, k, v, kind))
+            err, tol, rel = plain_gap(kind, out, ref)
+            within = err <= tol and rel <= PLAIN_REL_L2
+            print(f"planted {fault} {kind} ({b}, {n}): max|o - plain| "
+                  f"{err:.3e} (bound {tol:.3e}), relative L2 {rel:.3e} "
+                  f"(bound {PLAIN_REL_L2}): {'within' if within else 'refused'}")
+            assert within != (kind in _HIT[fault]), (fault, kind, b, n)
+
+
+def test_vpu_kernels_reject_what_they_do_not_take(cuda_device):
+    from maest_tpu_torch.ops.attention_probe import attention_probe_gh
+    from maest_tpu_torch.ops.attention_vpu import attention_vpu_probe
+
+    x = _rand((1, 64, 3, 6, 64), 21).to(cuda_device, torch.bfloat16)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    with pytest.raises(ValueError, match="not divisible by the group 4"):
+        attention_probe_gh(q, k, v, 4)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        attention_vpu_probe(q, k, v, "fp8nomask", n_pad=100)
+    with pytest.raises(ValueError, match="one device"):
+        attention_vpu_probe(q, k.cpu(), v, "fp8sm")
+    z = torch.zeros(1, 8, 2, 65, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_vpu_probe(z[..., 1:], z[..., 1:], z[..., 1:], "bf16sm")
+
+
+def test_rigs_time_gh_int8_and_the_vpu_kinds_on_the_card(cuda_device, capsys):
+    """attn_profile's gh<G> and int8 (with int8's kernel alone and pass),
+    and attn_vpu's kinds, each with a graph time."""
+    from maest_tpu_torch.probes import attn_profile, attn_vpu
+
+    out = attn_profile.main(["--batch", "2", "--heads", "4", "--shapes",
+                             "200", "--iters", "4", "--variants",
+                             "flash,gh2,gh8,int8"])
+    rows = out["200"]
+    assert all(r["graph_ms"] > 0 for r in rows.values())
+    # at this size the pass (~30 small ops) is host-bound and reads as long
+    # as the whole wrapper within the noise
+    assert 0 < rows["int8"]["kernel_ms"] < rows["int8"]["ms"]
+    assert rows["int8"]["pass_ms"] > 0
+    vpu = attn_vpu.main(["--batch", "2", "--tokens", "200", "--heads", "4",
+                         "--iters", "4", "--rounds", "2"])
+    assert all(r["graph_ms"] > 0 for r in vpu.values())
+    assert all(vpu[k]["kernel_graph_ms"] > 0 for k in vpu if k.startswith("fp8"))
+    text = capsys.readouterr().out
+    assert "gh8 - flash = " in text and "quantization pass" in text
+    assert "product bound (fp8/fp8)" in text

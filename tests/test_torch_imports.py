@@ -27,7 +27,10 @@ ROOT = Path(__file__).resolve().parent.parent
 def test_import_pulls_in_no_jax():
     code = ("import sys, maest_tpu_torch, maest_tpu_torch.serve, "
             "maest_tpu_torch.apps.serve, maest_tpu_torch.train, "
-            "maest_tpu_torch.configs, maest_tpu_torch.ops.augment; "
+            "maest_tpu_torch.configs, maest_tpu_torch.ops.augment, "
+            "maest_tpu_torch.ops.attention_vpu, "
+            "maest_tpu_torch.probes.attn_profile, "
+            "maest_tpu_torch.probes.attn_vpu; "
             "print(sorted(m for m in ('jax', 'jaxlib', 'flax', 'optax') "
             "if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -149,7 +152,7 @@ def test_port_runs_without_the_jax_package(tmp_path):
     """The port and chip_smoke.py name no module of the JAX package or of
     scripts/, and run from a directory that holds neither: every module
     imports, a tiny model tags a waveform and takes one train step (with
-    the 8-bit modes on), and the decomposition rig runs."""
+    the 8-bit modes on), and both rigs run (gh<G> and int8 too)."""
     files = [*(ROOT / "maest_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
     for f in files:
         bad = [m for m in _imports(f)
@@ -193,6 +196,14 @@ from maest_tpu_torch.probes import attn_profile
 times = attn_profile.main(["--device", "cpu", "--batch", "1", "--heads", "1",
                            "--shapes", "64", "--iters", "1"])
 assert set(times["64"]) == set(attn_profile.DEFAULT_VARIANTS.split(","))
+times = attn_profile.main(["--device", "cpu", "--batch", "2", "--heads", "2",
+                           "--shapes", "64", "--iters", "1", "--variants",
+                           "gh4,int8"])
+assert set(times["64"]) == {"gh4", "int8"}
+from maest_tpu_torch.probes import attn_vpu
+vpu = attn_vpu.main(["--device", "cpu", "--batch", "1", "--tokens", "64",
+                     "--heads", "1", "--iters", "1", "--rounds", "1"])
+assert set(vpu) == set(attn_vpu.ALL)
 assert not any(n.startswith("maest_tpu.") or n == "maest_tpu"
                for n in sys.modules)
 print("ok")

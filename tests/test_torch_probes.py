@@ -1,13 +1,19 @@
 """The attention-decomposition variants of the port (``ops/attention_probe.py``,
 ``probes/attn_profile.py``) against the TPU rig they port,
 ``scripts/attn_profile_r2.py``, whose Pallas kernels run here in interpret
-mode on the CPU, built as its ``time_variant`` builds them (grid (B*H, 1),
-q pre-scaled for bf16s), with the port's 64-key tile as ``block_k``.
+mode on the CPU, built as its ``time_variant``, ``time_gh`` and
+``time_int8`` build them (q pre-scaled for bf16s, G heads a program for
+gh, the rig's quantization for int8), with the port's 64-key tile as
+``block_k``.
 
-Tolerance: two bf16 ulps of the largest |o|. Both sides round one fp32
-output to bf16, and their fp32 values differ only by sums taken in other
-orders (and XLA's exp2 against PyTorch's, a few fp32 ulps), so an element
-may round one ulp apart, never two.
+Tolerances: two bf16 ulps of the largest |o| for the bf16 variants and gh.
+Both sides round one fp32 output to bf16, and their fp32 values differ
+only by sums taken in other orders (and XLA's exp2 against PyTorch's, a
+few fp32 ulps), so an element may round one ulp apart, never two. int8
+(fp32 output): each row within one p flip of the rig, max|v| / (127 l)
+(an exp2 ulp may round one p8 the other way), plus 1e-5 of max|o| for
+sums in other orders; its output times 127 within 1e-2 of fp32 attention
+(int8 rounds q, k, v and p to 1/254 of their maxima).
 
 On the CPU ``attention_probe`` runs its plain version;
 ``tests/test_torch_cuda.py`` holds the kernels to it on the card."""
@@ -29,8 +35,13 @@ import jax.numpy as jnp
 from maest_tpu_torch.ops.attention import attention_reference, flash_attention
 from maest_tpu_torch.ops.attention_probe import (
     BLOCK_K,
+    GROUPS,
     VARIANTS,
     attention_probe,
+    attention_probe_gh,
+    attention_probe_gh_reference,
+    attention_probe_int8,
+    attention_probe_int8_reference,
     attention_probe_reference,
 )
 from maest_tpu_torch.probes import attn_profile
@@ -210,9 +221,36 @@ def test_rig_check_prints_a_diff_per_variant(capsys):
     assert diffs["novmax"] > 1e-2 and diffs["mxu_only"] > 1.0
 
 
-@pytest.mark.parametrize("variant", ["gh8", "int8"])
-def test_rig_refuses_the_kernels_not_ported(variant):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+def test_rig_runs_gh_and_int8_and_prints_their_differences(capsys):
+    out = attn_profile.main(["--device", "cpu", "--batch", "2", "--heads",
+                             "2", "--shapes", "64,90", "--iters", "1",
+                             "--variants", "flash,gh1,gh2,gh4,int8"])
+    text = capsys.readouterr().out
+    assert list(out) == ["64", "90"]
+    for row in out.values():
+        assert set(row) == {"flash", "gh1", "gh2", "gh4", "int8"}
+        assert all(t["ms"] > 0 and t["graph_ms"] is None
+                   for t in row.values())
+    for g in (1, 2, 4):
+        assert text.count(f"gh{g} - flash = ") == 2
+    assert len(re.findall(r"\s+int8\s+[\d.]+ ms \(host clock", text)) == 2
+
+
+def test_rig_check_prints_int8_times_127(capsys):
+    diffs = attn_profile.main(["--device", "cpu", "--heads", "2", "--shapes",
+                               "120", "--check", "--variants",
+                               "flash,gh2,int8"])
+    text = capsys.readouterr().out
+    assert "the rig's output is attention / 127" in text
+    assert diffs["gh2"] <= 1e-2 and diffs["flash"] <= 1e-2
+    # on --check's N(0, 1) inputs int8's rounding of the scores costs more
+    # than on the rig's N(0, 0.5^2) (~2e-2 against ~2e-3)
+    assert diffs["int8 x 127"] <= 5e-2 < 0.5 < diffs["int8"]
+
+
+@pytest.mark.parametrize("variant", ["gh3", "gh16", "gh", "int4"])
+def test_rig_refuses_groups_it_has_no_kernel_for(variant):
+    with pytest.raises(ValueError, match="unknown variant"):
         attn_profile.main(["--device", "cpu", "--variants", f"flash,{variant}",
                            "--shapes", "64", "--batch", "1", "--heads", "1"])
 
@@ -235,7 +273,6 @@ def test_flash_variant_is_k2():
                        flash_attention(q, k, v))
 
 
-
 def test_launch_probe_refuses_cpu_tensors():
     """The kernel alone runs on the card only: on CPU tensors
     attention_probe is the plain version and launch_probe raises."""
@@ -247,3 +284,191 @@ def test_launch_probe_refuses_cpu_tensors():
         launch_probe(q, k, v, "bf16s")
     with pytest.raises(ValueError, match="unknown attention probe variant"):
         launch_probe(q, k, v, "flash")
+
+
+# --- P6e (gh) and P6f (int8) against the rig's Pallas kernels -------------
+def _tpu_gh(rig, x, g):
+    """The rig's ``_gh_kernel`` on bf16 x (B, N, 3, H, 64) as ``time_gh``
+    builds it (:188-209): G heads a program, keys padded to 128."""
+    from jax.experimental import pallas as pl
+
+    A = rig.A
+    b, n, _, h, d = x.shape
+    n_pad, bh = -(-n // 128) * 128, b * h
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    qf, kf, vf = A._flatten_pad(n_pad, xj[:, :, 0], xj[:, :, 1], xj[:, :, 2])
+    kt = jnp.swapaxes(kf, 1, 2)
+    qg = qf.reshape(bh // g, g, n_pad, 64)
+    ktg = kt.reshape(bh // g, g, 64, n_pad)
+    vg = vf.reshape(bh // g, g, n_pad, 64)
+    (out,) = pl.pallas_call(
+        functools.partial(rig._gh_kernel, scale=64**-0.5, n_real=n,
+                          block_k=BLOCK_K),
+        out_shape=[jax.ShapeDtypeStruct((bh // g, g, n_pad, 64),
+                                        jnp.bfloat16)],
+        grid=(bh // g,),
+        in_specs=[
+            pl.BlockSpec((1, g, n_pad, 64), lambda i: (i, 0, 0, 0)),
+            pl.BlockSpec((1, g, 64, n_pad), lambda i: (i, 0, 0, 0)),
+            pl.BlockSpec((1, g, n_pad, 64), lambda i: (i, 0, 0, 0)),
+        ],
+        out_specs=[pl.BlockSpec((1, g, n_pad, 64), lambda i: (i, 0, 0, 0))],
+        interpret=True,
+    )(qg, ktg, vg)
+    out = A._unflatten(out.reshape(bh, n_pad, 64), b, n, h, 64)
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _tpu_int8(rig, q, k, v):
+    """The rig's ``_int8_kernel`` on fp32 (B, N, H, 64) with ``time_int8``'s
+    quantization and call (:288-321), one q block per head."""
+    from jax.experimental import pallas as pl
+
+    A = rig.A
+    b, n, h, _ = q.shape
+    n_pad, bh = -(-n // 128) * 128, b * h
+    qf, kf, vf = A._flatten_pad(n_pad, *(jnp.asarray(t) for t in (q, k, v)))
+    qs = jnp.max(jnp.abs(qf), axis=2, keepdims=True)
+    qs = jnp.maximum(qs, 1e-6)
+    q8 = jnp.round(qf / qs * 127.0).astype(jnp.int8)
+    ks = jnp.max(jnp.abs(kf), axis=2, keepdims=True)
+    ks = jnp.maximum(ks, 1e-6)
+    k8 = jnp.round(kf / ks * 127.0).astype(jnp.int8)
+    vs = jnp.max(jnp.abs(vf), axis=1, keepdims=True)
+    vs = jnp.maximum(vs, 1e-6)
+    v8 = jnp.round(vf / vs * 127.0).astype(jnp.int8)
+    kt8 = jnp.swapaxes(k8, 1, 2)
+    kst = jnp.swapaxes(ks, 1, 2)
+    qsc = qs / 127.0 / 127.0
+    vsc = vs / 127.0 / 127.0
+    (out,) = pl.pallas_call(
+        functools.partial(rig._int8_kernel, scale=64**-0.5, n_real=n,
+                          block_k=BLOCK_K),
+        out_shape=[jax.ShapeDtypeStruct((bh, n_pad, 64), jnp.float32)],
+        grid=(bh, 1),
+        in_specs=[
+            pl.BlockSpec((1, n_pad, 64), lambda i, j: (i, j, 0)),
+            pl.BlockSpec((1, 64, n_pad), lambda i, j: (i, 0, 0)),
+            pl.BlockSpec((1, n_pad, 64), lambda i, j: (i, 0, 0)),
+            pl.BlockSpec((1, n_pad, 1), lambda i, j: (i, j, 0)),
+            pl.BlockSpec((1, 1, n_pad), lambda i, j: (i, 0, 0)),
+            pl.BlockSpec((1, 1, 64), lambda i, j: (i, 0, 0)),
+        ],
+        out_specs=[pl.BlockSpec((1, n_pad, 64), lambda i, j: (i, j, 0))],
+        interpret=True,
+    )(q8, kt8, v8, qsc, kst, vsc)
+    return np.asarray(A._unflatten(out, b, n, h, 64))
+
+
+def test_rig_gh_and_int8_kernels_are_the_ported_ones(rig):
+    assert rig._gh_kernel.__name__ == "_gh_kernel"
+    assert rig._int8_kernel.__name__ == "_int8_kernel"
+    assert "int8" not in rig.KERNELS and not any(
+        name.startswith("gh") for name in rig.KERNELS)
+
+
+@pytest.mark.parametrize("b,n,h,g", [(2, 100, 2, 2), (1, 200, 4, 4)])
+def test_gh_matches_tpu_rig_interpret(rig, b, n, h, g):
+    x = _qkv(b, n, h, seed=n + g)
+    want = _tpu_gh(rig, x, g)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    q, k, v = xt[:, :, 0], xt[:, :, 1], xt[:, :, 2]
+    got = attention_probe_gh(q, k, v, g)
+    assert got.shape == (b, n, h, 64) and got.dtype == torch.bfloat16
+    top = float(np.abs(want).max())
+    assert float(np.abs(got.float().numpy() - want).max()) <= 2 * _bf16_ulp(top)
+    # the group moves heads between blocks, not the arithmetic
+    for other in GROUPS:
+        if b * h % other == 0:
+            assert torch.equal(attention_probe_gh(q, k, v, other), got)
+
+
+@pytest.mark.parametrize("b,n,h", [(1, 100, 2), (2, 200, 2), (1, 64, 3)])
+def test_int8_matches_tpu_rig_interpret(rig, b, n, h):
+    x = _qkv(b, n, h, seed=7 * n + b) * 0.5  # the rig's N(0, 0.5^2)
+    q, k, v = (np.ascontiguousarray(x[:, :, i]) for i in range(3))
+    want = _tpu_int8(rig, q, k, v)
+    qt, kt, vt = (torch.from_numpy(t) for t in (q, k, v))
+    got, l = attention_probe_int8_reference(qt, kt, vt, with_l=True)
+    assert torch.equal(attention_probe_int8(qt, kt, vt), got)
+    assert got.shape == (b, n, h, 64) and got.dtype == torch.float32
+    top = float(np.abs(want).max())
+    row_err = np.abs(got.numpy() - want).max(axis=-1)
+    row_tol = np.abs(v).max() / (127 * l.numpy()) + 1e-5 * top
+    assert (row_err <= row_tol).all(), (row_err.max(), row_tol.min())
+    # the rig's output is attention / 127: pinned by the port and the rig
+    att = attention_reference(qt, kt, vt).numpy()
+    assert np.abs(want * 127 - att).max() <= 1e-2
+    assert np.abs(got.numpy() * 127 - att).max() <= 1e-2
+    assert 120 < np.abs(att).max() / top < 135
+
+
+def test_gh_and_int8_on_the_cpu_are_plain_and_count_no_launch():
+    x = torch.from_numpy(_qkv(2, 90, 4, seed=5))
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    before = (dict(attention_probe_gh.launches), attention_probe_int8.launches)
+    for g in GROUPS:
+        assert torch.equal(attention_probe_gh(qb, kb, vb, g, 77),
+                           attention_probe_gh_reference(qb, kb, vb, g, 77))
+    assert torch.equal(attention_probe_int8(q, k, v, 77),
+                       attention_probe_int8_reference(q, k, v, 77))
+    assert (attention_probe_gh.launches, attention_probe_int8.launches) == before
+    # gh is K2's online softmax on the same tiles as bf16s, without its
+    # roundings; both are softmax attention
+    ref = attention_reference(q, k, v, n_real=77)
+    assert (attention_probe_gh(qb, kb, vb, 2, 77).float() - ref).abs().max() < 1e-2
+    # keys past n_real change nothing (their values do: v's scale is taken
+    # over the whole sequence, as the rig takes it)
+    y = x.clone()
+    y[:, 77:, 1] = 5.0
+    assert torch.equal(attention_probe_int8(q, k, v, 77),
+                       attention_probe_int8(y[:, :, 0], y[:, :, 1], y[:, :, 2],
+                                            77))
+
+
+def test_gh_and_int8_reject_what_their_kernels_do_not_take():
+    from maest_tpu_torch.ops.attention_probe import int8_rig_pass, launch_int8
+
+    x = torch.zeros(1, 16, 3, 6, 64)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    with pytest.raises(ValueError, match="group of 1, 2, 4, 8"):
+        attention_probe_gh(qb, kb, vb, 3)
+    with pytest.raises(ValueError, match="not divisible by the group 4"):
+        attention_probe_gh(qb, kb, vb, 4)
+    with pytest.raises(TypeError, match="bfloat16"):
+        attention_probe_gh(q, k, v, 2)
+    with pytest.raises(TypeError, match="float32"):
+        attention_probe_int8(qb, kb, vb)
+    with pytest.raises(ValueError, match="exceeds the sequence length"):
+        attention_probe_int8(q, k, v, 17)
+    y = torch.zeros(1, 16, 3, 2, 32)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention_probe_int8(y[:, :, 0], y[:, :, 1], y[:, :, 2])
+    with pytest.raises(ValueError, match="launches the CUDA kernel"):
+        launch_int8(int8_rig_pass(q, k, v))
+
+
+def test_int8_rig_pass_makes_the_kernels_inputs():
+    """The pass's quantization is the rig's: division first, floors at
+    1e-6, the folds of /127^2, v transposed in seq_pos order."""
+    from maest_tpu_torch.ops.attention import _seq_major
+    from maest_tpu_torch.ops.attention_probe import _LOG2E, int8_rig_pass
+
+    x = torch.from_numpy(_qkv(1, 70, 2, seed=6))
+    x[0, 3, 0, 1] = 0.0  # an all-zero q row: scale 1e-6, values 0
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    q8, k8, qsl, ks, v8t, vsc = int8_rig_pass(q, k, v)
+    qs = q.abs().amax(-1).clamp_min(1e-6)
+    assert torch.equal(q8, torch.round(q / qs[..., None] * 127.0).to(torch.int8))
+    assert not q8[0, 3, 1].any()
+    assert torch.equal(qsl, (qs / 127.0 / 127.0 * (64**-0.5 * _LOG2E))
+                       .transpose(1, 2))
+    assert torch.equal(ks, k.abs().amax(-1).transpose(1, 2))
+    vs = v.abs().amax(1)  # (B, H, 64): over the sequence
+    assert torch.equal(vsc, vs / 127.0 / 127.0)
+    v8 = torch.round(v / vs[:, None] * 127.0).to(torch.int8)
+    assert torch.equal(v8t, _seq_major(v8.transpose(1, 2)))
+    assert q8.is_contiguous() and k8.is_contiguous() and v8t.shape == (
+        1, 2, 64, 128)
