@@ -34,15 +34,25 @@ of ``scripts/attn_vpu_probe.py`` (P5) against their plain versions and K2
 ``python -m maest_tpu_torch.probes.attn_vpu``, called in process with the
 launch counters reset (22). Then the routes that close ROADMAP queue 3 on
 the card: head_dim 16 and 32 through the kernels on zero-padded inputs,
-fp32 under every 8-bit mode (the fp32 instances of K5/K6 and K7) and the
-refusal of head_dim 128 (23); K2 and K3b at other tiles, the kernels of
-``scripts/qpad_probe.py`` (P9) and ``scripts/attn_tune.py`` (P7), against
-their plain versions at every shape a phase launches them at and bit-equal
-to K2 / K3b where their arithmetic is K2's / K3b's (24); and both rigs,
+fp32 under every 8-bit mode (the fp32 instances of K5/K6 and K7), head_dim
+96 and 128 through the D = 128 instances of every production kernel in
+bf16 and fp32, and the refusal of head_dim 192 (23); K2 and K3b at other
+tiles, the kernels of ``scripts/qpad_probe.py`` (P9) and
+``scripts/attn_tune.py`` (P7), against their plain versions at every shape
+a phase launches them at and bit-equal to K2 / K3b where their arithmetic
+is K2's / K3b's (24); and both rigs,
 ``python -m maest_tpu_torch.probes.qpad`` and ``python -m
 maest_tpu_torch.probes.attn_tune [--bwd]``, called in process with the
-launch counters reset (25). Every phase prints one line per check; any
-failure raises, so the exit code is not 0.
+launch counters reset (25). Then this slice: the product kernel of
+``scripts/mxu_probe.py`` (P1) and ``scripts/fp8_mlp_probe.py`` (P8)
+against its plain versions in every kind, shape and type, with a planted
+fault refused (26); both rigs, ``python -m maest_tpu_torch.probes.mxu``
+and ``... probes.fp8_mlp``, in process with the counters reset, and
+head_dim 128 (and 96, zero-padded) at full width through the kernels' D =
+128 instances: ``get_maest(embed_dim=768, num_heads=6)`` tagging against
+the CPU and timed at batch 32, one 30 s recipe step, K2, K3a, K3b, K7
+and the 8-bit forwards against plain, timed beside SDPA (27). Every phase
+prints one line per check; any failure raises, so the exit code is not 0.
 The card's name and power limit, the JSON record of the kernels (with each
 one's bound: the least time the card could take for its work at the
 data-sheet rates) and the device record are the last three lines. Without
@@ -152,6 +162,13 @@ Q8F32_REL_L2 = 1e-5
 # relative L2 of at most TILE_REL_L2, which a zero output (1.0) and the
 # last tile's zero keys left unmasked (~0.2 at N 281) both exceed
 TILE_REL_L2 = 1e-2
+# P1/P8 vs plain (phase 26): both sum exact products of bf16 (or e4m3)
+# values in fp32, in other orders, and round once to bf16, so an element
+# may round one ulp apart: MMA_ULPS bf16 ulps of max|out|, and a relative
+# L2 of at most MMA_REL_L2, which one of k64big's 56 column blocks left out
+# (~sqrt(1/56) = 0.13) exceeds
+MMA_ULPS = 2
+MMA_REL_L2 = 1e-2
 # H100 SXM data-sheet peaks (dense), for the bounds of the kernels line
 PEAK = {"bf16": 989e12, "fp8": 1979e12, "int8": 1979e12, "fp32": 67e12}
 HBM = 3.35e12       # bytes/s
@@ -167,26 +184,26 @@ def bound(nbytes: float, ops: dict) -> tuple[float, str]:
 
 
 def attn_bound(b, n, h, n_real=None, pv="bf16", qk="bf16", lse=False,
-               elem=2):
-    """The forward at (b, n, h, 64): the two products over the real keys
+               elem=2, d=64):
+    """The forward at (b, n, h, d): the two products over the real keys
     (n_real of them), q.k in ``qk``'s type and p.v in ``pv``'s, q/k/v read
     and the output (and the fp32 lse) written once, ``elem`` bytes an
     element (bf16; fp32 for the int8 rig and the fp32 tier)."""
-    flops = 2 * b * h * n * (n_real or n) * 64
-    nbytes = 4 * b * n * h * 64 * elem + (4 * b * h * n if lse else 0)
+    flops = 2 * b * h * n * (n_real or n) * d
+    nbytes = 4 * b * n * h * d * elem + (4 * b * h * n if lse else 0)
     ops: dict = {}
     ops[qk] = ops.get(qk, 0) + flops
     ops[pv] = ops.get(pv, 0) + flops
     return bound(nbytes, ops)
 
 
-def bwd_bound(b, n, h, n_real=None, kind="bf16", elem=2):
-    """The backward at (b, n, h, 64): its five products over the real keys
+def bwd_bound(b, n, h, n_real=None, kind="bf16", elem=2, d=64):
+    """The backward at (b, n, h, d): its five products over the real keys
     (dv, dp, dq, dk and the score recompute) in ``kind``'s type,
     q/k/v/o/do and lse read, and dq/dk/dv written once, ``elem`` bytes an
     element."""
-    flops = 5 * 2 * b * h * n * (n_real or n) * 64
-    nbytes = 8 * b * n * h * 64 * elem + 4 * b * h * n
+    flops = 5 * 2 * b * h * n * (n_real or n) * d
+    nbytes = 8 * b * n * h * d * elem + 4 * b * h * n
     return bound(nbytes, {kind: flops})
 
 
@@ -1599,17 +1616,20 @@ def phase_queue3(dev, gpu):
     (``_queue3_routes``). Then head_dim 16 and 32 run K2, K3a and K3b on
     zero-padded inputs: the forward, lse and backward against their plain
     versions at (4, 281, 12, d) in bf16 and fp32, and K5/K6 and K7 at d 32
-    in fp32. fp32 under every 8-bit mode runs the fp32 instances of K5/K6
+    in fp32; head_dim 96 (zero-padded) and 128 run the D = 128 instances of
+    K2, K3a, K3b, K5/K6 in every mode and K7, in bf16 and fp32, each against
+    its plain version within the bound head_dim 64 is held to, each launch
+    counted. fp32 under every 8-bit mode runs the fp32 instances of K5/K6
     (with lse, as the recipe step launches them) and K7: against
     attention_q8_reference and attention_bwd_int8_reference at the path's
     (2, 866, 12, 64), with the launch counters checked and the times; K7's
-    gradients rounded to bf16 fail its bound. head_dim 128 is refused.
+    gradients rounded to bf16 fail its bound. head_dim 192 is refused.
     Returns the errors, times and the path's launches."""
     from maest_tpu_torch.ops import attention as A
 
     launches = _queue3_routes(dev)
     gen = torch.Generator(device=dev).manual_seed(12)
-    for d in (16, 32):
+    for d in (16, 32, 96, 128):
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[1]
             x = torch.randn((4, 281, 5, 12, d), generator=gen, device=dev).to(
@@ -1630,26 +1650,14 @@ def phase_queue3(dev, gpu):
             el = max_err(lse, rlse)
             check(e <= tol and el <= LSE_TOL and o.shape == q.shape
                   and grads[0].shape == q.shape, f"d{d} {name} err {e} {el}")
+            pad = ("" if d in A.HEAD_DIMS else
+                   f" on inputs zero-padded to {A.padded_dim(d)}")
             line = (f"phase 23 head_dim {d} {name}: (4, 281, 12, {d}) K2, K3a "
-                    f"and K3b on inputs zero-padded to 64 vs plain max_abs_err"
-                    f" {e:.3e} <= {tol}, lse {el:.3e} <= {LSE_TOL}")
-            if d == 32 and dtype == torch.float32:
-                parts = []
-                for mode in Q8_MODES:
-                    wrap = getattr(A, "attention_fwd_int8" if mode.startswith(
-                        "qk8") else "attention_fwd_fp8")
-                    o8 = wrap(q, k, v, None, mode.endswith("pv8"))[0]
-                    r8 = A.attention_q8_reference(q, k, v, None, mode)[0]
-                    e8 = _q8_fp32_gap(mode, o8, r8)
-                    parts.append(f"{mode} {e8[0]:.3e} (relative L2 "
-                                 f"{e8[1]:.2e})")
-                g8 = A.attention_bwd_int8(q, k, v, ro, rlse, g)
-                r8 = A.attention_bwd_int8_reference(q, k, v, ro, rlse, g)
-                e7 = max(max_err(a, r) / r.abs().max().item()
-                         for a, r in zip(g8, r8))
-                check(e7 <= K7F32_TOL, f"K7 fp32 d{d} err {e7}")
-                line += ("; the fp32 8-bit forward " + ", ".join(parts)
-                         + f", K7 fp32 {e7:.3e} of max <= {K7F32_TOL}")
+                    f"and K3b{pad} vs plain max_abs_err {e:.3e} <= {tol}, lse "
+                    f"{el:.3e} <= {LSE_TOL}")
+            if d > 64 or (d == 32 and dtype == torch.float32):
+                line += ("; " + _q8_fwd_vs_plain(q, k, v) + "; "
+                         + _k7_vs_plain(q, k, v, ro, rlse, g))
             print(line, flush=True)
             del x, q, k, v, g, o, o2, lse, ro, rlse, grads, ref
 
@@ -1708,17 +1716,79 @@ def phase_queue3(dev, gpu):
           " and the bf16-rounded gradients fail it; "
           f"time: kernel {out['k7_ms'][0]:.4f} ms, plain {out['k7_ms'][1]:.4f}"
           f" ms [{gpu}]", flush=True)
-    wide = torch.zeros((1, 8, 2, 128), device=dev, dtype=torch.bfloat16)
+    wide = torch.zeros((1, 8, 2, 192), device=dev, dtype=torch.bfloat16)
     try:
         A.flash_attention(wide, wide, wide)
-        check(False, "head_dim 128 ran")
+        check(False, "head_dim 192 ran")
     except ValueError as err:
-        check("ROADMAP queue 3" in str(err), f"head_dim 128: {err}")
-    print("phase 23 head_dim 128: refused (ValueError naming ROADMAP queue "
-          "3)", flush=True)
+        check("ROADMAP queue 3" in str(err), f"head_dim 192: {err}")
+    print("phase 23 head_dim 192: refused (ValueError naming ROADMAP queue "
+          "3; 65-128 run the D = 128 instances, phase 27)", flush=True)
     del x, q, k, v, g, o, lse, got, ref
     torch.cuda.empty_cache()
     return out
+
+
+def _q8_fwd_vs_plain(q, k, v):
+    """Every K5/K6 mode, with and without lse, against
+    attention_q8_reference, each launch counted, within the bounds head_dim
+    64 is held to: in bf16 Q8_ULPS bf16 ulps of max|o| (phase 13), in fp32
+    ``_q8_fp32_gap``; lse within LSE_TOL. Returns the line's text."""
+    from maest_tpu_torch.ops import attention as A
+
+    parts = []
+    for mode in Q8_MODES:
+        wrap = getattr(A, "attention_fwd_int8" if mode.startswith("qk8")
+                       else "attention_fwd_fp8")
+        pv8 = mode.endswith("pv8")
+        before = wrap.launches
+        o, none = wrap(q, k, v, None, pv8)
+        o2, lse = wrap(q, k, v, None, pv8, with_lse=True)
+        ro, rlse = A.attention_q8_reference(q, k, v, None, mode)
+        torch.cuda.synchronize()
+        check(wrap.launches == before + 2 and none is None,
+              f"{mode} {tuple(q.shape)} counter")
+        el = max_err(lse, rlse)
+        check(el <= LSE_TOL, f"{mode} {tuple(q.shape)} lse {el}")
+        if q.dtype == torch.bfloat16:
+            tol = Q8_ULPS * bf16_ulp(ro.float().abs().max().item())
+            e = max(max_err(o, ro), max_err(o2, ro))
+            check(e <= tol, f"{mode} {tuple(q.shape)} err {e} > {tol}")
+            parts.append(f"{mode} {e:.3e} <= {tol:.3e}")
+        else:
+            gaps = [_q8_fp32_gap(mode, x, ro) for x in (o, o2)]
+            parts.append(f"{mode} {max(x[0] for x in gaps):.3e} (relative "
+                         f"L2 {max(x[1] for x in gaps):.2e})")
+        del o, o2, lse, ro, rlse
+    return (f"the {str(q.dtype).split('.')[1]} 8-bit forward with and "
+            "without lse vs plain max_abs_err " + ", ".join(parts)
+            + f", lse <= {LSE_TOL}")
+
+
+def _k7_vs_plain(q, k, v, o, lse, g):
+    """K7 against attention_bwd_int8_reference on the same saved tensors,
+    its launch counted, within the bound head_dim 64 is held to: K7_TOL
+    (bf16, phase 15) or K7F32_TOL (fp32) of each gradient's max, and a
+    cosine of at least K7_COS. Returns (the line's text, the worst error
+    relative to its gradient's max)."""
+    from maest_tpu_torch.ops import attention as A
+
+    before = A.attention_bwd_int8.launches
+    got = A.attention_bwd_int8(q, k, v, o, lse, g)
+    ref = A.attention_bwd_int8_reference(q, k, v, o, lse, g)
+    torch.cuda.synchronize()
+    check(A.attention_bwd_int8.launches == before + 1
+          and got[0].dtype == q.dtype, f"K7 {tuple(q.shape)} counter")
+    tol = K7_TOL if q.dtype == torch.bfloat16 else K7F32_TOL
+    parts = []
+    for w, a, r in zip(("dq", "dk", "dv"), got, ref):
+        e = max_err(a, r) / r.float().abs().max().item()
+        cos = cosine(a, r)
+        check(e <= tol and cos >= K7_COS,
+              f"K7 {tuple(q.shape)} {w} {e} of max, cos {cos}")
+        parts.append(f"{w} {e:.2e} of max (cos {cos:.6f})")
+    return (f"K7 {str(q.dtype).split('.')[1]} vs plain " + ", ".join(parts)
+            + f" <= {tol}, cos >= {K7_COS}")
 
 
 def _q8_fp32_gap(mode, o, r):
@@ -1949,6 +2019,300 @@ def phase_tune_rigs():
     return res, alone, launches
 
 
+def _mma_gap(out, ref):
+    """(max |out - ref|, MMA_ULPS bf16 ulps of max|ref|, relative L2)."""
+    ref = ref.float()
+    diff = out.float() - ref
+    return (diff.abs().max().item(), MMA_ULPS * bf16_ulp(ref.abs().max().item()),
+            (diff.norm() / ref.norm()).item())
+
+
+def phase_mma_kernels(dev, gpu):
+    """Phase 26: the product kernel of P1 and P8 (``csrc/mma_probe.cu``)
+    against its plain versions at the rigs' shapes with the programs cut to
+    2: every P1 kind, and every P8 shape in bf16 and e4m3, within MMA_ULPS
+    bf16 ulps of max|out| and a relative L2 of MMA_REL_L2, each launch
+    counted; a planted fault (one of k64big's 56 column blocks zeroed in b,
+    as a kernel that skipped it) fails the check. Then the plain versions
+    and the library's product (torch.matmul, never called by the port) at
+    the rigs' programs for the kernels line: k64big (48 programs; the
+    library's call is one product of a repeated 56 times along K and b's
+    column blocks stacked along K, the same flops) and fc1 bf16 (32).
+    Returns the errors and times."""
+    from maest_tpu_torch.ops import mma_probe as M
+    from maest_tpu_torch.probes import fp8_mlp, mxu
+    from maest_tpu_torch.probes.attn_profile import graph_ms
+
+    err, parts = {}, []
+    runs = [(kind, "bf16") for kind in M.KINDS] + [
+        (shape, dt) for shape in fp8_mlp.SHAPES for dt in fp8_mlp.DTYPES]
+    for name, dt in runs:
+        p1 = name in M.KINDS
+        a, b = (mxu.operands(name, 2, dev) if p1
+                else fp8_mlp.operands(name, dt, 2, dev))
+        wrap = M.mxu_probe if p1 else M.mlp_probe
+        before = wrap.launches
+        if p1:
+            out, ref = M.mxu_probe(a, b, name), M.mxu_probe_reference(a, b, name)
+        else:
+            out, ref = M.mlp_probe(a, b), M.mlp_probe_reference(a, b)
+        torch.cuda.synchronize()
+        e, tol, rel = _mma_gap(out, ref)
+        key = name if p1 else f"{name}_{dt}"
+        check(wrap.launches == before + 1 and out.shape == ref.shape
+              and e <= tol and rel <= MMA_REL_L2,
+              f"{key}: max_abs_err {e} (bound {tol}), relative L2 {rel}")
+        err[key] = e
+        parts.append(f"{key} {e:.2e} (<= {tol:.2e}; rel L2 {rel:.1e})")
+        del a, b, out, ref
+    a, b = mxu.operands("k64big", 2, dev)
+    skipped = b.clone()
+    skipped[..., 13 * M.BLOCK:14 * M.BLOCK] = 0
+    e, tol, rel = _mma_gap(M.mxu_probe(a, skipped, "k64big"),
+                           M.mxu_probe_reference(a, b, "k64big"))
+    check(e > tol and rel > MMA_REL_L2, f"the planted fault passed: {e} {rel}")
+    print("phase 26 P1/P8 product kernel (csrc/mma_probe.cu) vs plain at the "
+          "rigs' shapes, 2 programs: max_abs_err " + ", ".join(parts)
+          + f"; planted fault (k64big's column block 13 of 56 skipped): "
+          f"{e:.3e} > {tol:.3e}, relative L2 {rel:.4f} > {MMA_REL_L2}: "
+          "refused", flush=True)
+    t = {}
+    a, b = mxu.operands("k64big", 48, dev)
+    a_rep = a.repeat(1, 1, 56)  # (48, N, 56 * 64): a once a column block
+    b_stack = b.reshape(48, 64, 56, M.BLOCK).transpose(1, 2).reshape(
+        48, 56 * 64, M.BLOCK)
+    e = max_err(torch.matmul(a_rep[:2], b_stack[:2]),
+                M.mxu_probe_reference(a[:2], b[:2], "k64big"))
+    check(e <= MMA_ULPS * bf16_ulp(M.mxu_probe_reference(
+        a[:2], b[:2], "k64big").float().abs().max().item()),
+          f"the folded library product is not k64big's: {e}")
+    t["k64big"] = (cuda_ms(lambda: M.mxu_probe_reference(a, b, "k64big"), 3),
+                   graph_ms(lambda: torch.matmul(a_rep, b_stack), 20, dev))
+    del a, b, a_rep, b_stack
+    a, b = fp8_mlp.operands("fc1", "bf16", 32, dev)
+    t["fc1_bf16"] = (cuda_ms(lambda: M.mlp_probe_reference(a, b), 3),
+                     graph_ms(lambda: torch.matmul(a, b), 20, dev))
+    del a, b
+    torch.cuda.empty_cache()
+    print(f"phase 26 plain / library (torch.matmul, CUDA-graph replays) ms: "
+          f"k64big (48 programs) {t['k64big'][0]:.4f} / {t['k64big'][1]:.4f} "
+          f"(one product over K 56 x 64), fc1 bf16 (32 programs) "
+          f"{t['fc1_bf16'][0]:.4f} / {t['fc1_bf16'][1]:.4f} [{gpu}]",
+          flush=True)
+    return {"err": err, "ms": t}
+
+
+def _tagging(dev, heads, seed):
+    """get_maest(embed_dim=768, num_heads=heads) at full depth on random
+    weights, tagging 2 clips of 30 s: fp32 on the card against the same
+    weights on the CPU (plain attention), bf16 against the card's fp32
+    tier; returns (bf16 model, errors, the spread of the CPU's
+    activations). The heads are drawn N(0, 0.05^2): zero heads would hide
+    every difference, and at 0.05 the 768 features give logits of about
+    unit scale, where the activations move with the logits (at 0.2, as
+    phase 23 draws 192 features, most saturate and bf16's logit errors
+    reach the rest 4x amplified)."""
+    from maest_tpu_torch import get_maest
+
+    geo = dict(pretrained=False, embed_dim=768, num_heads=heads)
+    cpu = get_maest(device="cpu", **geo)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for lin in (cpu.net.head[1], cpu.net.head_dist):
+            lin.weight.normal_(0.0, 0.05, generator=gen)
+    card = {dt: get_maest(device=dev, dtype=dt, **geo)
+            for dt in (torch.float32, torch.bfloat16)}
+    for m in card.values():
+        m.net.load_state_dict(cpu.net.state_dict())
+    waves = np.random.default_rng(seed).standard_normal((2, CLIP)).astype(
+        np.float32) * 0.3
+    ref = cpu.predict_labels(waves)[0]
+    got = {dt: m.predict_labels(waves)[0] for dt, m in card.items()}
+    e32 = float(np.abs(got[torch.float32] - ref).max())
+    e16 = float(np.abs(got[torch.bfloat16] - got[torch.float32]).max())
+    check(e32 <= 2e-4 * float(np.abs(ref).max()) + 2e-5 and e16 <= TIER_TOL
+          and np.ptp(ref) > 1e-2 and got[torch.bfloat16].shape == ref.shape,
+          f"head_dim {768 // heads} tagging fp32 {e32} bf16 {e16}, "
+          f"activations spread {np.ptp(ref)}")
+    return card[torch.bfloat16], (e32, e16), float(np.ptp(ref))
+
+
+def phase_wide_heads_and_mma_rigs(dev, gpu):
+    """Phase 27: the slice's path, with the launch counters set to 0 just
+    before and read just after. Both rigs as a user runs them, here their
+    ``main`` in process at their default programs (``python -m
+    maest_tpu_torch.probes.mxu --kinds <every kind>``, ``python -m
+    maest_tpu_torch.probes.fp8_mlp``). Then head_dim 128 at full width:
+    ``get_maest(embed_dim=768, num_heads=6)`` tagging 2 clips of 30 s
+    through K2's D = 128 instance (``_tagging``), its batch-32 30 s bf16
+    step timed; ``num_heads=8`` (head_dim 96, zero-padded to 128) the same;
+    one bf16 step of the 30 s recipe at 6 heads (N 866), its heads drawn,
+    through K3a and K3b at D = 128, 12 of each. Then K2 at (32, 1676, 6,
+    128) and K3a and K3b at (32, 866, 6, 128) against their plain versions,
+    K2 and K3b timed beside them and SDPA (flash backend, never called by
+    the port), and K7 and the 8-bit forwards at D = 128 against their plain
+    versions and timed, K3a timed. Returns the rigs' results, the launches,
+    errors and times."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from maest_tpu_torch.ops import attention as A
+    from maest_tpu_torch.ops import mma_probe as M
+    from maest_tpu_torch.probes import fp8_mlp, mxu
+    from maest_tpu_torch.serve import BucketPrograms
+
+    kinds = ",".join(M.KINDS)
+    print(f"phase 27 rigs: python -m maest_tpu_torch.probes.mxu --kinds "
+          f"{kinds}; python -m maest_tpu_torch.probes.fp8_mlp", flush=True)
+    _reset_counts()
+    M.mxu_probe.launches = M.mlp_probe.launches = 0
+    rigs = {"mxu": mxu.main(["--kinds", kinds]), "mlp": fp8_mlp.main([])}
+    launches = {"mxu": M.mxu_probe.launches, "mlp": M.mlp_probe.launches}
+    check(all(launches.values()), f"rig launches {launches}")
+
+    out = {"err": {}, "ms": {}}
+    waves = torch.from_numpy(np.random.default_rng(27).standard_normal(
+        (BATCH, CLIP)).astype(np.float32) * 0.1).to(dev)
+    for heads in (6, 8):
+        before = _q8_counts()[1]
+        model, errs, spread = _tagging(dev, heads, 27 + heads)
+        grew = [a - b for a, b in zip(_q8_counts()[1], before)]
+        check(grew[0] == 2 * model.net.cfg.depth and not any(grew[1:]),
+              f"head_dim {768 // heads} tagging launches {grew}")
+        prog = BucketPrograms(model, buckets=(BATCH,), fused_wave=True)
+        with torch.inference_mode():
+            step = cuda_ms(lambda: prog._activations(waves), 5)
+        out["ms"][f"tag_d{768 // heads}"] = step
+        launches[f"k2_d{768 // heads}"] = grew[0]
+        print(f"phase 27 head_dim {768 // heads}: get_maest(embed_dim=768, "
+              f"num_heads={heads}) tagging 2 clips of 30 s through K2's "
+              f"D = 128 instance{' on inputs zero-padded to 128' * (heads == 8)}"
+              f": fp32 vs the CPU's plain attention max_abs_err {errs[0]:.3e}, "
+              f"bf16 vs fp32 {errs[1]:.3e} <= {TIER_TOL} (activations spread "
+              f"over {spread:.3f}); launches (K2, K3a, K3b, K5, K6, K7) "
+              f"{grew}; batch-{BATCH} 30 s bf16 step {step:.3f} ms = "
+              f"{BATCH * 30 / (step / 1e3):.1f} audio-s/s [{gpu}]", flush=True)
+        del model, prog
+        torch.cuda.empty_cache()
+    del waves
+
+    _, mcfg, net, state, step, data = _recipe(dev, RECIPE, BATCH, 27,
+                                              ["maest.num_heads=6"])
+    drawn = torch.Generator(device=dev).manual_seed(27)
+    with torch.no_grad():  # zero heads give loss ln 2 and do = 0
+        for lin in (net.head[1], net.head_dist):
+            lin.weight.normal_(0.0, 0.05, generator=drawn)
+    before = _q8_counts()[1]
+    _, metrics = step(state, data, torch.Generator().manual_seed(27))
+    torch.cuda.synchronize()
+    grew = [a - b for a, b in zip(_q8_counts()[1], before)]
+    check(grew == [0, mcfg.depth, mcfg.depth, 0, 0, 0]
+          and metrics["nonfinite_skipped"] == 0.0
+          and np.isfinite(metrics["train_loss"])
+          and abs(metrics["train_loss"] - np.log(2)) > 1e-3,
+          f"head_dim 128 recipe step: launches {grew}, {metrics}")
+    launches["k3a_d128"], launches["k3b_d128"] = grew[1], grew[2]
+    print(f"phase 27 {RECIPE} at num_heads 6 (head_dim 128), batch {BATCH}, "
+          f"bf16 over fp32 parameters, heads drawn N(0, 0.05^2): one step, "
+          f"loss {metrics['train_loss']:.6f} (not ln 2), launches (K2, K3a, "
+          f"K3b, K5, K6, K7) {grew}", flush=True)
+    del net, state, step, data
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(28)
+    for b, n in ((BATCH, 1676), (BATCH, 866)):
+        x = (torch.randn((b, n, 4, 6, 128), generator=gen, device=dev)
+             ).to(torch.bfloat16)
+        q, k, v, g = x[:, :, 0], x[:, :, 1], x[:, :, 2], x[:, :, 3]
+        qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+        if n == 1676:
+            with torch.inference_mode():
+                e = max_err(A.flash_attention(q, k, v),
+                            A.attention_reference(q, k, v))
+                ms = (cuda_ms_median(lambda: A.flash_attention(q, k, v), 10),
+                      cuda_ms(lambda: A.attention_reference(q, k, v), 3))
+                with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                    lib = cuda_ms_median(
+                        lambda: F.scaled_dot_product_attention(qs, ks, vs), 10)
+            key = "fwd_d128"
+        else:
+            o, lse = A.flash_attention_fwd_lse(q, k, v)
+            ro, rlse = A.attention_reference_lse(q, k, v)
+            ea, el = max_err(o, ro), max_err(lse, rlse)
+            check(ea <= ATTN_TOL["bfloat16"] and el <= LSE_TOL,
+                  f"K3a D = 128 vs plain {ea} lse {el}")
+            out["err"]["fwd_lse_d128"] = max(ea, el)
+            print(f"phase 27 K3a D = 128 at ({b}, {n}, 6, 128) bf16: "
+                  f"max_abs_err vs plain o {ea:.3e} <= {ATTN_TOL['bfloat16']},"
+                  f" lse {el:.3e} <= {LSE_TOL}", flush=True)
+            del ro, rlse
+            got = A.attention_bwd(q, k, v, o, lse, g)
+            ref = A.attention_bwd_reference(q, k, v, o, lse, g)
+            e = max(max_err(a, r) for a, r in zip(got, ref))
+            ms = (cuda_ms_median(
+                lambda: A.attention_bwd(q, k, v, o, lse, g), 10), cuda_ms(
+                lambda: A.attention_bwd_reference(q, k, v, o, lse, g), 3))
+            qg, kg, vg = (t.detach().requires_grad_(True) for t in (qs, ks, vs))
+            gs = g.transpose(1, 2)
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                fwd = cuda_ms_median(
+                    lambda: F.scaled_dot_product_attention(qg, kg, vg), 10)
+                lib = cuda_ms_median(lambda: F.scaled_dot_product_attention(
+                    qg, kg, vg).backward(gs), 10) - fwd
+            key = "bwd_d128"
+            del o, lse, got, ref, qg, kg, vg
+        check(e <= ATTN_TOL["bfloat16"], f"{key} vs plain {e}")
+        out["err"][key], out["ms"][key], out["ms"][f"{key}_sdpa"] = e, ms, lib
+        print(f"phase 27 {'K2' if n == 1676 else 'K3b'} D = 128 at ({b}, {n}, "
+              f"6, 128) bf16: max_abs_err vs plain {e:.3e} <= "
+              f"{ATTN_TOL['bfloat16']}; kernel {ms[0]:.4f} ms, plain "
+              f"{ms[1]:.4f} ms, SDPA {lib:.4f} ms [{gpu}]", flush=True)
+        del x, q, k, v, g, qs, ks, vs
+        torch.cuda.empty_cache()
+    # the other production kernels at D = 128, each against its plain
+    # version within phase 15's and phase 13's bounds, then timed: K3a
+    # (held to plain above) and K7 at (32, 866, 6, 128), the four 8-bit
+    # forwards (the wrappers, their PyTorch pass included) at (32, 1676, 6,
+    # 128)
+    for n in (866, 1676):
+        x = (torch.randn((BATCH, n, 4, 6, 128), generator=gen, device=dev)
+             ).to(torch.bfloat16)
+        q, k, v, g = x[:, :, 0], x[:, :, 1], x[:, :, 2], x[:, :, 3]
+        if n == 866:
+            o, lse = A.flash_attention_fwd_lse(q, k, v)
+            text = _k7_vs_plain(q, k, v, o, lse, g)
+            del o, lse
+        else:
+            text = _q8_fwd_vs_plain(q, k, v)
+        print(f"phase 27 D = 128 at ({BATCH}, {n}, 6, 128): {text}",
+              flush=True)
+        torch.cuda.empty_cache()
+        with torch.inference_mode():
+            if n == 866:
+                o, lse = A.flash_attention_fwd_lse(q, k, v)
+                out["ms"]["k3a_d128"] = cuda_ms_median(
+                    lambda: A.flash_attention_fwd_lse(q, k, v), 10)
+                out["ms"]["k7_d128"] = cuda_ms_median(
+                    lambda: A.attention_bwd_int8(q, k, v, o, lse, g), 10)
+                del o, lse
+            else:
+                for mode in Q8_MODES:
+                    wrap = getattr(A, "attention_fwd_int8" if mode.startswith(
+                        "qk8") else "attention_fwd_fp8")
+                    out["ms"][f"{mode}_d128"] = cuda_ms_median(
+                        lambda: wrap(q, k, v, None, mode.endswith("pv8")), 10)
+        del x, q, k, v, g
+    print("phase 27 D = 128 times (CUDA events, ms): K3a (32, 866, 6, 128) "
+          f"{out['ms']['k3a_d128']:.4f}, K7 {out['ms']['k7_d128']:.4f}; at "
+          "(32, 1676, 6, 128) the 8-bit forward wrappers " + ", ".join(
+              f"{m} {out['ms'][m + '_d128']:.4f}" for m in Q8_MODES)
+          + f" [{gpu}]", flush=True)
+    torch.cuda.empty_cache()
+    print(f"phase 27 launches in the path's run: {launches}", flush=True)
+    out["rigs"], out["launches"] = rigs, launches
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on a GPU",
@@ -1977,7 +2341,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = ("mel_kernel", "attention_fwd", "attention_bwd", "attention_fwd_q8",
-            "attention_bwd_q8", "attention_probe")
+            "attention_bwd_q8", "attention_probe", "mma_probe")
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source
         built = dict(zip(libs, pool.map(timed_build, libs)))
     wall = time.perf_counter() - t0
@@ -2017,6 +2381,8 @@ def main() -> int:
     q3 = phase_queue3(dev, gpu)
     tiles = phase_tile_kernels(dev)
     tune, alone, tune_launches = phase_tune_rigs()
+    mma = phase_mma_kernels(dev, gpu)
+    wide = phase_wide_heads_and_mma_rigs(dev, gpu)
 
     frames = BATCH * 1876  # frames of 32 clips of 30 s
     mel_ops = frames * (512 + 4 * 512 * 257 + 3 * 257 + 2 * 257 * 96 + 96)
@@ -2044,7 +2410,13 @@ def main() -> int:
         "fwd_q8_fp32": attn_bound(2, 866, 12, qk="int8", pv="fp32", lse=True,
                                   elem=4),
         "k7_fp32": bwd_bound(2, 866, 12, kind="int8", elem=4),
+        "fwd_d128": attn_bound(BATCH, 1676, 6, d=128),
+        "bwd_d128": bwd_bound(BATCH, 866, 6, d=128),
     }
+    # P1 k64big (48 programs) and P8 fc1 bf16 (32): the rigs' own bounds
+    from maest_tpu_torch.probes import fp8_mlp, mxu
+    bounds["mxu"] = mxu.bound("k64big", 48)
+    bounds["mlp"] = fp8_mlp.bound("fc1", "bf16", 32)
     src = "maest_tpu_torch/csrc/"
     rows = [
         ("fused_logmel", "mel_kernel.cu", "maest_tpu/ops/mel_kernel.py:39",
@@ -2138,6 +2510,29 @@ def main() -> int:
         ("attention_bwd_int8_fp32", "attention_bwd_q8.cu",
          "maest_tpu/ops/attention.py:530", q3["launches"]["k7_fp32"],
          q3["k7_err"], q3["k7_ms"], "k7_fp32", None),
+    ]
+    # P1 k64big and P8 fc1 bf16 at the rigs' programs: the kernel's time
+    # from phase 27's rigs (CUDA-graph replays), plain and library (the
+    # folded torch.matmul, graphs) from phase 26; K2 and K3b at D = 128 from
+    # phase 27, library SDPA
+    r = wide["rigs"]
+    rows += [
+        ("mma_probe_mxu", "mma_probe.cu", "scripts/mxu_probe.py:38",
+         wide["launches"]["mxu"], mma["err"]["k64big"],
+         (r["mxu"]["k64big"]["ms"], mma["ms"]["k64big"][0]), "mxu",
+         mma["ms"]["k64big"][1]),
+        ("mma_probe_mlp", "mma_probe.cu", "scripts/fp8_mlp_probe.py:47",
+         wide["launches"]["mlp"], mma["err"]["fc1_bf16"],
+         (r["mlp"]["fc1_bf16"]["ms"], mma["ms"]["fc1_bf16"][0]), "mlp",
+         mma["ms"]["fc1_bf16"][1]),
+        ("attention_fwd_d128", "attention_fwd.cu",
+         "maest_tpu/ops/attention.py:176", wide["launches"]["k2_d128"]
+         + wide["launches"]["k2_d96"], wide["err"]["fwd_d128"],
+         wide["ms"]["fwd_d128"], "fwd_d128", wide["ms"]["fwd_d128_sdpa"]),
+        ("attention_bwd_d128", "attention_bwd.cu",
+         "maest_tpu/ops/attention.py:483", wide["launches"]["k3b_d128"],
+         wide["err"]["bwd_d128"], wide["ms"]["bwd_d128"], "bwd_d128",
+         wide["ms"]["bwd_d128_sdpa"]),
     ]
     kernels = [{"name": name, "route": "cuda", "source": src + file,
                 "replaces": rep, "launches": n, "max_abs_err": err,

@@ -1,4 +1,5 @@
-// Attention backward for Hopper (sm_90a), head_dim 64.
+// Attention backward for Hopper (sm_90a), head_dim 64 and 128 (a template
+// parameter D_ of each kernel; the caller zero-pads a smaller head_dim).
 //
 // Replaces maest_tpu/ops/attention.py::_attn_bwd_kernel + _bwd_body (the
 // combined full-K backward, K3b, called from _flash_bwd) and _bwd_dq_kernel +
@@ -35,7 +36,7 @@
 // and 3 x 2 N^2 64 for dv, dp/dq and dk (5 products of N^2 64) against
 // 8 N 64 elements moved, plus the N^2 exp2.
 //
-// Layout: q, k, v, o, do (reads) and dq, dk, dv (writes) are (B, N, H, 64)
+// Layout: q, k, v, o, do (reads) and dq, dk, dv (writes) are (B, N, H, D)
 // views with any batch/token/head strides and a contiguous last dimension,
 // so the q/k/v slices of the fused qkv projection are read in place.
 //
@@ -64,6 +65,20 @@
 // rows padded to 65 floats, so 32 threads hit 32 banks; dk and dv in
 // registers) and q/do tiles are read as broadcasts; in the dq kernel a
 // thread owns one q row the same way and k/v tiles are the broadcasts.
+//
+// head_dim 128 (D_ = 128). A warp's dk and dv sums, with its K and V rows
+// held as A fragments, would take ~2 x 64 + 2 x 32 registers a thread in
+// the bf16 dk/dv kernel, so it computes the gradients in 64-column slices
+// over a third grid axis: each slice's block recomputes s and dp over the
+// full head_dim and sums only its 64 columns of dk and dv, which keeps
+// d = 64's accumulators (1.5x the products of one unsliced pass: two score
+// and two dp products of 128, against one each). The dq kernel keeps its
+// 64-register output sums unsliced beside 64 registers of q and do
+// fragments. The fp32 dk/dv kernel slices the same way (64 + 64 fp32 sums a
+// thread, as at 64); both fp32 kernels own 32 rows a block and stream
+// 8-row tiles, so the owned rows (129 floats) and tiles stay within the 48
+// KB of static shared memory. The bf16 tiles (rows of 136) take dynamic
+// shared memory at 128 (bwd_smem_bytes).
 
 #include "mma_bf16.cuh"
 
@@ -90,10 +105,11 @@ __device__ __forceinline__ void load8(const bf16* p, float (&x)[8]) {
   }
 }
 
-// delta = rowsum(do * o): eight lanes per row, eight elements per lane,
-// rows in (b, n, h) order so that neighbouring rows of a (b, n) are
-// neighbouring memory and a warp reads four whole rows at once
-template <typename T>
+// delta = rowsum(do * o): eight lanes per row, eight elements per lane in
+// each 64 columns of the head_dim D_, rows in (b, n, h) order so that
+// neighbouring rows of a (b, n) are neighbouring memory and a warp reads
+// four whole rows at once
+template <typename T, int D_ = D>
 __global__ void __launch_bounds__(256)
 attn_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                       float* __restrict__ delta, int batch, int n, int heads,
@@ -109,11 +125,14 @@ attn_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
     const long long bn = r / heads;
     row = static_cast<int>(bn % n);
     b = static_cast<int>(bn / n);
-    float x[8], y[8];
-    load8(o + b * os.b + row * os.n + h * os.h + part * 8, x);
-    load8(dout + b * ds.b + row * ds.n + h * ds.h + part * 8, y);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc = fmaf(y[i], x[i], acc);
+    for (int c = 0; c < D_; c += 64) {
+      float x[8], y[8];
+      load8(o + b * os.b + row * os.n + h * os.h + c + part * 8, x);
+      load8(dout + b * ds.b + row * ds.n + h * ds.h + c + part * 8, y);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc = fmaf(y[i], x[i], acc);
+    }
   }
   acc += __shfl_xor_sync(0xffffffffu, acc, 1);
   acc += __shfl_xor_sync(0xffffffffu, acc, 2);
@@ -125,9 +144,14 @@ attn_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 // ---------------------------------------------------------------- fp32 ---
 constexpr int F_ROWS = 64;  // keys (dk/dv) or q rows (dq) per block
 constexpr int F_TILE = 16;  // streamed rows per shared-memory tile
-constexpr int F_LD = D + 1; // padded owned-row stride (conflict-free)
+constexpr int SLICE = 64;   // gradient columns a dk/dv block sums
 
-__global__ void __launch_bounds__(F_ROWS)
+// the fp32 tiles at head_dim d: rows a block, streamed rows a tile
+__host__ __device__ constexpr int f_rows(int d) { return F_ROWS * D / d; }
+__host__ __device__ constexpr int f_tile(int d) { return F_TILE * D / d; }
+
+template <int D_ = D>
+__global__ void __launch_bounds__(f_rows(D_))
 attn_bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
                          const float* __restrict__ lse,
@@ -135,26 +159,30 @@ attn_bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ 
                          float* __restrict__ dv, int n, int n_real, int heads,
                          Strides qs, Strides ks, Strides vs, Strides dos,
                          Strides dks, Strides dvs, float sl, float scale) {
-  __shared__ float k_own[F_ROWS][F_LD];
-  __shared__ float v_own[F_ROWS][F_LD];
-  __shared__ float4 q_t[F_TILE][D / 4];
-  __shared__ float4 do_t[F_TILE][D / 4];
-  __shared__ float lse_t[F_TILE];
-  __shared__ float delta_t[F_TILE];
+  constexpr int ROWS = f_rows(D_), TL = f_tile(D_);
+  // owned rows padded by one float, so 32 threads hit 32 banks
+  __shared__ float k_own[ROWS][D_ + 1];
+  __shared__ float v_own[ROWS][D_ + 1];
+  __shared__ float4 q_t[TL][D_ / 4];
+  __shared__ float4 do_t[TL][D_ / 4];
+  __shared__ float lse_t[TL];
+  __shared__ float delta_t[TL];
 
   const int bh = blockIdx.x;
   const int b = bh / heads;
   const int h = bh - b * heads;
-  const int key0 = blockIdx.y * F_ROWS;
+  const int key0 = blockIdx.y * ROWS;
   const int key = key0 + threadIdx.x;
-  float acc_k[D], acc_v[D];
+  // this block's gradient columns (D_ > 64: a slice of SLICE)
+  const int c0 = D_ > SLICE ? blockIdx.z * SLICE : 0;
+  float acc_k[SLICE], acc_v[SLICE];
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc_k[d] = acc_v[d] = 0.f;
+  for (int d = 0; d < SLICE; ++d) acc_k[d] = acc_v[d] = 0.f;
 
   if (key0 < n_real) {  // tiles wholly at or past n_real: dk = dv = 0
-    for (int i = threadIdx.x; i < F_ROWS * D; i += F_ROWS) {
-      const int j = i / D;
-      const int d = i - j * D;
+    for (int i = threadIdx.x; i < ROWS * D_; i += ROWS) {
+      const int j = i / D_;
+      const int d = i - j * D_;
       const long long r = min(key0 + j, n - 1);
       k_own[j][d] = k[b * ks.b + r * ks.n + h * ks.h + d];
       v_own[j][d] = v[b * vs.b + r * vs.n + h * vs.h + d];
@@ -162,13 +190,13 @@ attn_bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ 
     const float* lse_bh = lse + static_cast<long long>(bh) * n;
     const float* delta_bh = delta + static_cast<long long>(bh) * n;
     const bool live = key < n_real;
-    for (int base = 0; base < n; base += F_TILE) {
+    for (int base = 0; base < n; base += TL) {
       __syncthreads();  // the previous tile is consumed (and own rows staged)
       float* qt = reinterpret_cast<float*>(q_t);
       float* dt = reinterpret_cast<float*>(do_t);
-      for (int i = threadIdx.x; i < F_TILE * D; i += F_ROWS) {
-        const int j = i / D;
-        const int d = i - j * D;
+      for (int i = threadIdx.x; i < TL * D_; i += ROWS) {
+        const int j = i / D_;
+        const int d = i - j * D_;
         const int row = base + j;
         float qv = 0.f, dv_ = 0.f;
         if (row < n) {
@@ -178,7 +206,7 @@ attn_bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ 
         qt[i] = qv;
         dt[i] = dv_;
       }
-      if (threadIdx.x < F_TILE) {
+      if (threadIdx.x < TL) {
         const int row = base + threadIdx.x;
         // rows past N: lse +inf gives p = 0, delta 0 gives ds = 0
         lse_t[threadIdx.x] = row < n ? lse_bh[row] : __int_as_float(0x7f800000);
@@ -186,11 +214,11 @@ attn_bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ 
       }
       __syncthreads();
       if (!live) continue;
-      const int rows = min(F_TILE, n - base);
+      const int rows = min(TL, n - base);
       for (int j = 0; j < rows; ++j) {
         float s = 0.f, dp = 0.f;
 #pragma unroll
-        for (int d4 = 0; d4 < D / 4; ++d4) {
+        for (int d4 = 0; d4 < D_ / 4; ++d4) {
           const float4 qq = q_t[j][d4];
           const float4 gg = do_t[j][d4];
           s = fmaf(k_own[threadIdx.x][4 * d4 + 0], qq.x, s);
@@ -205,9 +233,9 @@ attn_bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ 
         const float p = exp2f(s * sl - lse_t[j]);
         const float dsv = p * (dp - delta_t[j]) * scale;
 #pragma unroll
-        for (int d4 = 0; d4 < D / 4; ++d4) {
-          const float4 qq = q_t[j][d4];
-          const float4 gg = do_t[j][d4];
+        for (int d4 = 0; d4 < SLICE / 4; ++d4) {
+          const float4 qq = q_t[j][c0 / 4 + d4];
+          const float4 gg = do_t[j][c0 / 4 + d4];
           acc_v[4 * d4 + 0] = fmaf(p, gg.x, acc_v[4 * d4 + 0]);
           acc_v[4 * d4 + 1] = fmaf(p, gg.y, acc_v[4 * d4 + 1]);
           acc_v[4 * d4 + 2] = fmaf(p, gg.z, acc_v[4 * d4 + 2]);
@@ -221,17 +249,18 @@ attn_bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ 
     }
   }
   if (key < n) {
-    float* kp = dk + b * dks.b + static_cast<long long>(key) * dks.n + h * dks.h;
-    float* vp = dv + b * dvs.b + static_cast<long long>(key) * dvs.n + h * dvs.h;
+    float* kp = dk + b * dks.b + static_cast<long long>(key) * dks.n + h * dks.h + c0;
+    float* vp = dv + b * dvs.b + static_cast<long long>(key) * dvs.n + h * dvs.h + c0;
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < SLICE; ++d) {
       kp[d] = acc_k[d];
       vp[d] = acc_v[d];
     }
   }
 }
 
-__global__ void __launch_bounds__(F_ROWS)
+template <int D_ = D>
+__global__ void __launch_bounds__(f_rows(D_))
 attn_bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ dout,
                         const float* __restrict__ lse,
@@ -239,19 +268,20 @@ attn_bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k
                         int n, int n_real, int heads, Strides qs, Strides ks,
                         Strides vs, Strides dos, Strides dqs, float sl,
                         float scale) {
-  __shared__ float q_own[F_ROWS][F_LD];
-  __shared__ float do_own[F_ROWS][F_LD];
-  __shared__ float4 k_t[F_TILE][D / 4];
-  __shared__ float4 v_t[F_TILE][D / 4];
+  constexpr int ROWS = f_rows(D_), TL = f_tile(D_);
+  __shared__ float q_own[ROWS][D_ + 1];
+  __shared__ float do_own[ROWS][D_ + 1];
+  __shared__ float4 k_t[TL][D_ / 4];
+  __shared__ float4 v_t[TL][D_ / 4];
 
   const int bh = blockIdx.x;
   const int b = bh / heads;
   const int h = bh - b * heads;
-  const int row0 = blockIdx.y * F_ROWS;
+  const int row0 = blockIdx.y * ROWS;
   const int row = row0 + threadIdx.x;
-  for (int i = threadIdx.x; i < F_ROWS * D; i += F_ROWS) {
-    const int j = i / D;
-    const int d = i - j * D;
+  for (int i = threadIdx.x; i < ROWS * D_; i += ROWS) {
+    const int j = i / D_;
+    const int d = i - j * D_;
     const long long r = min(row0 + j, n - 1);
     q_own[j][d] = q[b * qs.b + r * qs.n + h * qs.h + d];
     do_own[j][d] = dout[b * dos.b + r * dos.n + h * dos.h + d];
@@ -259,17 +289,17 @@ attn_bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k
   const long long stat = static_cast<long long>(bh) * n + min(row, n - 1);
   const float lse_r = lse[stat];
   const float delta_r = delta[stat];
-  float acc[D];
+  float acc[D_];
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
+  for (int d = 0; d < D_; ++d) acc[d] = 0.f;
 
-  for (int base = 0; base < n_real; base += F_TILE) {
+  for (int base = 0; base < n_real; base += TL) {
     __syncthreads();
     float* kt = reinterpret_cast<float*>(k_t);
     float* vt = reinterpret_cast<float*>(v_t);
-    for (int i = threadIdx.x; i < F_TILE * D; i += F_ROWS) {
-      const int j = i / D;
-      const int d = i - j * D;
+    for (int i = threadIdx.x; i < TL * D_; i += ROWS) {
+      const int j = i / D_;
+      const int d = i - j * D_;
       const int key = base + j;
       float kv = 0.f, vv = 0.f;
       if (key < n) {
@@ -280,11 +310,11 @@ attn_bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k
       vt[i] = vv;
     }
     __syncthreads();
-    const int keys = min(F_TILE, n_real - base);
+    const int keys = min(TL, n_real - base);
     for (int j = 0; j < keys; ++j) {
       float s = 0.f, dp = 0.f;
 #pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
+      for (int d4 = 0; d4 < D_ / 4; ++d4) {
         const float4 kk = k_t[j][d4];
         const float4 vv = v_t[j][d4];
         s = fmaf(q_own[threadIdx.x][4 * d4 + 0], kk.x, s);
@@ -299,7 +329,7 @@ attn_bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k
       const float p = exp2f(s * sl - lse_r);
       const float dsv = p * (dp - delta_r) * scale;
 #pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
+      for (int d4 = 0; d4 < D_ / 4; ++d4) {
         const float4 kk = k_t[j][d4];
         acc[4 * d4 + 0] = fmaf(dsv, kk.x, acc[4 * d4 + 0]);
         acc[4 * d4 + 1] = fmaf(dsv, kk.y, acc[4 * d4 + 1]);
@@ -311,7 +341,7 @@ attn_bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k
   if (row < n) {
     float* op = dq + b * dqs.b + static_cast<long long>(row) * dqs.n + h * dqs.h;
 #pragma unroll
-    for (int d = 0; d < D; ++d) op[d] = acc[d];
+    for (int d = 0; d < D_; ++d) op[d] = acc[d];
   }
 }
 
@@ -320,24 +350,24 @@ constexpr int WARPS = 4;          // K3b: 4 warps own 64 rows (keys in dk/dv,
                                   // q rows in dq) per block
 constexpr int TILE = 64;          // streamed rows per shared-memory tile
 constexpr int SUB = 32;           // streamed rows per register pass
-constexpr int LD = D + 8;         // padded bf16 row: 144 bytes, so the 8 rows
-                                  // an ldmatrix phase reads hit 32 banks
-
 // dynamic shared memory of a tile's two double-buffered bf16 tiles
-__host__ __device__ constexpr int bwd_smem_bytes(int tile) {
-  return tile > 64 ? 2 * 2 * tile * LD * static_cast<int>(sizeof(bf16)) : 0;
+__host__ __device__ constexpr int bwd_smem_bytes(int tile, int d = D) {
+  return tile > 64 || d > 64
+             ? 2 * 2 * tile * ld_bf16(d) * static_cast<int>(sizeof(bf16))
+             : 0;
 }
 
-// stage rows [row0, row0 + TILE_) of two (row, 64) bf16 views into a/b via
+// stage rows [row0, row0 + TILE_) of two (row, D_) bf16 views into a/b via
 // cp.async; rows past n are zero-filled
-template <int WARPS_, int TILE_>
-__device__ __forceinline__ void stage_pair(bf16 (*a)[LD], bf16 (*bsm)[LD],
+template <int WARPS_, int TILE_, int D_>
+__device__ __forceinline__ void stage_pair(bf16 (*a)[ld_bf16(D_)],
+                                           bf16 (*bsm)[ld_bf16(D_)],
                                            const bf16* ga, long long as,
                                            const bf16* gb, long long bs,
                                            int row0, int n) {
-  for (int i = threadIdx.x; i < TILE_ * (D / 8); i += 32 * WARPS_) {
-    const int j = i >> 3;
-    const int c = (i & 7) * 8;
+  for (int i = threadIdx.x; i < TILE_ * (D_ / 8); i += 32 * WARPS_) {
+    const int j = i >> ilog2(D_ / 8);
+    const int c = (i & (D_ / 8 - 1)) * 8;
     const int row = row0 + j;
     const long long src = static_cast<long long>(min(row, n - 1));
     const int bytes = row < n ? 16 : 0;
@@ -347,19 +377,20 @@ __device__ __forceinline__ void stage_pair(bf16 (*a)[LD], bf16 (*bsm)[LD],
   cp_async_commit();
 }
 
-// 16 x SUB product X.Y^T of a warp's A fragments (16 rows x 64) with SUB
+// 16 x SUB product X.Y^T of a warp's A fragments (16 rows x 16 KS) with SUB
 // rows of a staged tile (rows r0.., contraction over d): C layout, n-tile
 // nt covers tile rows r0 + 8 nt ..
+template <int KS>
 __device__ __forceinline__ void rows_dot(float (&c)[SUB / 8][4],
-                                         const uint32_t (&a)[4][4],
-                                         const bf16 (*tile)[LD], int r0,
-                                         int lr, int li) {
+                                         const uint32_t (&a)[KS][4],
+                                         const bf16 (*tile)[ld_bf16(16 * KS)],
+                                         int r0, int lr, int li) {
 #pragma unroll
   for (int nt = 0; nt < SUB / 8; ++nt) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) c[nt][e] = 0.f;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
+    for (int half = 0; half < KS / 2; ++half) {
       uint32_t f[4];
       ldmatrix_x4(f, &tile[r0 + nt * 8 + lr][half * 32 + li * 8]);
       mma_16816(c[nt], a[2 * half], f[0], f[1]);
@@ -368,18 +399,20 @@ __device__ __forceinline__ void rows_dot(float (&c)[SUB / 8][4],
   }
 }
 
-// acc (16 x 64) += P (16 x SUB, bf16 A fragments) . tile rows r0..r0+SUB
-__device__ __forceinline__ void acc_pv(float (&acc)[8][4],
+// acc (16 x 8 NDT) += P (16 x SUB, bf16 A fragments) . tile rows
+// r0..r0+SUB, columns c0.. of rows of LD_
+template <int NDT, int LD_>
+__device__ __forceinline__ void acc_pv(float (&acc)[NDT][4],
                                        const uint32_t (&p)[SUB / 16][4],
-                                       const bf16 (*tile)[LD], int r0, int lr,
-                                       int li) {
+                                       const bf16 (*tile)[LD_], int r0, int lr,
+                                       int li, int c0 = 0) {
 #pragma unroll
   for (int kj = 0; kj < SUB / 16; ++kj) {
 #pragma unroll
-    for (int dp = 0; dp < 4; ++dp) {
+    for (int dp = 0; dp < NDT / 2; ++dp) {
       uint32_t f[4];
-      ldmatrix_x4_trans(
-          f, &tile[r0 + kj * 16 + (li & 1) * 8 + lr][dp * 16 + (li >> 1) * 8]);
+      ldmatrix_x4_trans(f, &tile[r0 + kj * 16 + (li & 1) * 8 + lr]
+                                [c0 + dp * 16 + (li >> 1) * 8]);
       mma_16816(acc[2 * dp], p[kj], f[0], f[1]);
       mma_16816(acc[2 * dp + 1], p[kj], f[2], f[3]);
     }
@@ -396,8 +429,9 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&f)[SUB / 16][4],
   }
 }
 
+template <int NDT>
 __device__ __forceinline__ void store_rows(bf16* base, long long rs,
-                                           const float (&acc)[8][4], int row0,
+                                           const float (&acc)[NDT][4], int row0,
                                            int n, int t) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -405,13 +439,13 @@ __device__ __forceinline__ void store_rows(bf16* base, long long rs,
     if (row >= n) continue;
     bf16* p = base + static_cast<long long>(row) * rs + 2 * t;
 #pragma unroll
-    for (int dt = 0; dt < 8; ++dt)
+    for (int dt = 0; dt < NDT; ++dt)
       *reinterpret_cast<__nv_bfloat162*>(p + dt * 8) =
           __floats2bfloat162_rn(acc[dt][2 * r], acc[dt][2 * r + 1]);
   }
 }
 
-template <int WARPS_ = WARPS, int TILE_ = TILE>
+template <int WARPS_ = WARPS, int TILE_ = TILE, int D_ = D>
 __global__ void __launch_bounds__(32 * WARPS_)
 attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -421,17 +455,18 @@ attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          Strides qs, Strides ks, Strides vs, Strides dos,
                          Strides dks, Strides dvs, float sl, float scale) {
   constexpr int ROWS = 16 * WARPS_;  // keys per block
-  constexpr bool DYN = bwd_smem_bytes(TILE_) > 0;
+  constexpr int LD_ = ld_bf16(D_);
+  constexpr bool DYN = bwd_smem_bytes(TILE_, D_) > 0;
   constexpr int ST = DYN ? 1 : TILE_;
-  __shared__ __align__(128) bf16 q_st[2][ST][LD];
-  __shared__ __align__(128) bf16 do_st[2][ST][LD];
+  __shared__ __align__(128) bf16 q_st[2][ST][LD_];
+  __shared__ __align__(128) bf16 do_st[2][ST][LD_];
   __shared__ float lse_sm[2][TILE_];
   __shared__ float delta_sm[2][TILE_];
   extern __shared__ __align__(128) bf16 tiles_dyn[];
-  bf16(*q_sm)[TILE_][LD];
-  bf16(*do_sm)[TILE_][LD];
+  bf16(*q_sm)[TILE_][LD_];
+  bf16(*do_sm)[TILE_][LD_];
   if constexpr (DYN) {
-    q_sm = reinterpret_cast<bf16(*)[TILE_][LD]>(tiles_dyn);
+    q_sm = reinterpret_cast<bf16(*)[TILE_][LD_]>(tiles_dyn);
     do_sm = q_sm + 2;
   } else {
     q_sm = q_st;
@@ -448,6 +483,8 @@ attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int b = bh / heads;
   const int h = bh - b * heads;
   const int key0 = blockIdx.y * ROWS + warp * 16 + g;  // and key0 + 8
+  // this block's 64 gradient columns (D_ > 64: a slice of the head_dim)
+  const int c0 = D_ > 64 ? blockIdx.z * 64 : 0;
 
   float acc_k[8][4], acc_v[8][4];
 #pragma unroll
@@ -461,8 +498,8 @@ attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float* lse_bh = lse + static_cast<long long>(bh) * n;
     const float* delta_bh = delta + static_cast<long long>(bh) * n;
     auto stage = [&](int tile, int buf) {
-      stage_pair<WARPS_, TILE_>(q_sm[buf], do_sm[buf], qb, qs.n, dob, dos.n,
-                                tile * TILE_, n);
+      stage_pair<WARPS_, TILE_, D_>(q_sm[buf], do_sm[buf], qb, qs.n, dob,
+                                    dos.n, tile * TILE_, n);
       for (int i = threadIdx.x; i < TILE_; i += 32 * WARPS_) {
         const int row = tile * TILE_ + i;
         // rows past N: lse +inf gives p = 0, delta 0 gives ds = 0
@@ -472,7 +509,8 @@ attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     };
     stage(0, 0);
 
-    uint32_t kf[4][4], vf[4][4];  // this warp's 16 keys, A fragments
+    // this warp's 16 keys over the full head_dim, A fragments
+    uint32_t kf[D_ / 16][4], vf[D_ / 16][4];
     load_row_frags(kf, k + b * ks.b + h * ks.h, ks.n, key0, n, t);
     load_row_frags(vf, v + b * vs.b + h * vs.h, vs.n, key0, n, t);
     const bool live0 = key0 < n_real;
@@ -502,7 +540,7 @@ attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           }
         uint32_t pf[SUB / 16][4];
         to_a_frags(pf, p);
-        acc_pv(acc_v, pf, do_sm[buf], r0, lr, li);  // dv += p^T . do
+        acc_pv(acc_v, pf, do_sm[buf], r0, lr, li, c0);  // dv += p^T . do
 
         float ds[SUB / 8][4];
         rows_dot(ds, vf, do_sm[buf], r0, lr, li);  // dp^T = V.dO^T
@@ -515,16 +553,16 @@ attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         scale;
         uint32_t dsf[SUB / 16][4];
         to_a_frags(dsf, ds);
-        acc_pv(acc_k, dsf, q_sm[buf], r0, lr, li);  // dk += ds^T . q
+        acc_pv(acc_k, dsf, q_sm[buf], r0, lr, li, c0);  // dk += ds^T . q
       }
       __syncthreads();  // every warp is done with `buf` before it is refilled
     }
   }
-  store_rows(dk + b * dks.b + h * dks.h, dks.n, acc_k, key0, n, t);
-  store_rows(dv + b * dvs.b + h * dvs.h, dvs.n, acc_v, key0, n, t);
+  store_rows(dk + b * dks.b + h * dks.h + c0, dks.n, acc_k, key0, n, t);
+  store_rows(dv + b * dvs.b + h * dvs.h + c0, dvs.n, acc_v, key0, n, t);
 }
 
-template <int WARPS_ = WARPS, int TILE_ = TILE>
+template <int WARPS_ = WARPS, int TILE_ = TILE, int D_ = D>
 __global__ void __launch_bounds__(32 * WARPS_)
 attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -534,15 +572,16 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         Strides vs, Strides dos, Strides dqs, float sl,
                         float scale) {
   constexpr int ROWS = 16 * WARPS_;  // q rows per block
-  constexpr bool DYN = bwd_smem_bytes(TILE_) > 0;
+  constexpr int LD_ = ld_bf16(D_);
+  constexpr bool DYN = bwd_smem_bytes(TILE_, D_) > 0;
   constexpr int ST = DYN ? 1 : TILE_;
-  __shared__ __align__(128) bf16 k_st[2][ST][LD];
-  __shared__ __align__(128) bf16 v_st[2][ST][LD];
+  __shared__ __align__(128) bf16 k_st[2][ST][LD_];
+  __shared__ __align__(128) bf16 v_st[2][ST][LD_];
   extern __shared__ __align__(128) bf16 tiles_dyn[];
-  bf16(*k_sm)[TILE_][LD];
-  bf16(*v_sm)[TILE_][LD];
+  bf16(*k_sm)[TILE_][LD_];
+  bf16(*v_sm)[TILE_][LD_];
   if constexpr (DYN) {
-    k_sm = reinterpret_cast<bf16(*)[TILE_][LD]>(tiles_dyn);
+    k_sm = reinterpret_cast<bf16(*)[TILE_][LD_]>(tiles_dyn);
     v_sm = k_sm + 2;
   } else {
     k_sm = k_st;
@@ -562,9 +601,9 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const bf16* kb = k + b * ks.b + h * ks.h;
   const bf16* vb = v + b * vs.b + h * vs.h;
-  stage_pair<WARPS_, TILE_>(k_sm[0], v_sm[0], kb, ks.n, vb, vs.n, 0, n);
+  stage_pair<WARPS_, TILE_, D_>(k_sm[0], v_sm[0], kb, ks.n, vb, vs.n, 0, n);
 
-  uint32_t qf[4][4], dof[4][4];
+  uint32_t qf[D_ / 16][4], dof[D_ / 16][4];
   load_row_frags(qf, q + b * qs.b + h * qs.h, qs.n, row0, n, t);
   load_row_frags(dof, dout + b * dos.b + h * dos.h, dos.n, row0, n, t);
   float lse_r[2], delta_r[2];
@@ -575,9 +614,9 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     delta_r[r] = delta[i];
   }
 
-  float acc[8][4];
+  float acc[D_ / 8][4];
 #pragma unroll
-  for (int dt = 0; dt < 8; ++dt)
+  for (int dt = 0; dt < D_ / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
 
@@ -585,8 +624,8 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int it = 0; it < n_tiles; ++it) {
     const int buf = it & 1;
     if (it + 1 < n_tiles) {
-      stage_pair<WARPS_, TILE_>(k_sm[buf ^ 1], v_sm[buf ^ 1], kb, ks.n, vb,
-                                vs.n, (it + 1) * TILE_, n);
+      stage_pair<WARPS_, TILE_, D_>(k_sm[buf ^ 1], v_sm[buf ^ 1], kb, ks.n,
+                                    vb, vs.n, (it + 1) * TILE_, n);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -632,19 +671,20 @@ Views views(const long long* st) {
   return w;
 }
 
-template <typename T>
+template <typename T, int D_ = D>
 int launch_delta(const void* o, const void* dout, float* delta, int batch,
                  int n, int heads, const Views& w, cudaStream_t s) {
   const long long threads = 8LL * batch * heads * n;  // eight per row
-  attn_bwd_delta_kernel<T><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, s>>>(
+  attn_bwd_delta_kernel<T, D_><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, s>>>(
       static_cast<const T*>(o), static_cast<const T*>(dout), delta, batch, n,
       heads, w.o, w.dout);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the three launches of the bf16 backward at the tile (16 WARPS_ rows,
-// TILE_ streamed rows): delta, dk/dv, dq
-template <int WARPS_, int TILE_>
+// TILE_ streamed rows) and head_dim D_: delta, dk/dv (D_ / 64 column
+// slices), dq
+template <int WARPS_, int TILE_, int D_ = D>
 int launch_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
                     const void* dout, const float* lse, float* delta, void* dq,
                     void* dk, void* dv, int batch, int n, int heads,
@@ -653,35 +693,66 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
   if (batch <= 0 || n <= 0) return 0;
   const Views w = views(strides);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = launch_delta<bf16>(o, dout, delta, batch, n, heads, w, s);
+  int err = launch_delta<bf16, D_>(o, dout, delta, batch, n, heads, w, s);
   if (err) return err;
-  constexpr int smem = bwd_smem_bytes(TILE_);
+  constexpr int smem = bwd_smem_bytes(TILE_, D_);
   // once an instance, before any launch a graph captures; the setting holds
   // for the current device only: the port drives one card a process
   if (smem > 0) {
     static const cudaError_t attr = [] {
       const cudaFuncAttribute a = cudaFuncAttributeMaxDynamicSharedMemorySize;
       const cudaError_t e = cudaFuncSetAttribute(
-          attn_bwd_dkv_bf16_kernel<WARPS_, TILE_>, a, bwd_smem_bytes(TILE_));
+          attn_bwd_dkv_bf16_kernel<WARPS_, TILE_, D_>, a, smem);
       return e != cudaSuccess
                  ? e
-                 : cudaFuncSetAttribute(attn_bwd_dq_bf16_kernel<WARPS_, TILE_>,
-                                        a, bwd_smem_bytes(TILE_));
+                 : cudaFuncSetAttribute(
+                       attn_bwd_dq_bf16_kernel<WARPS_, TILE_, D_>, a, smem);
     }();
     if (attr != cudaSuccess) return static_cast<int>(attr);
   }
   const dim3 grid(batch * heads, (n + 16 * WARPS_ - 1) / (16 * WARPS_));
-  attn_bwd_dkv_bf16_kernel<WARPS_, TILE_><<<grid, 32 * WARPS_, smem, s>>>(
+  const dim3 grid_kv(grid.x, grid.y, D_ / 64);
+  attn_bwd_dkv_bf16_kernel<WARPS_, TILE_, D_><<<grid_kv, 32 * WARPS_, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, n_real, heads, w.q,
       w.k, w.v, w.dout, w.dk, w.dv, sl, scale);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  attn_bwd_dq_bf16_kernel<WARPS_, TILE_><<<grid, 32 * WARPS_, smem, s>>>(
+  attn_bwd_dq_bf16_kernel<WARPS_, TILE_, D_><<<grid, 32 * WARPS_, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
       static_cast<bf16*>(dq), n, n_real, heads, w.q, w.k, w.v, w.dout, w.dq,
+      sl, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the three launches of the fp32 backward at head_dim D_: delta, dk/dv
+// (D_ / 64 column slices), dq
+template <int D_ = D>
+int launch_bwd_fp32(const void* q, const void* k, const void* v, const void* o,
+                    const void* dout, const float* lse, float* delta, void* dq,
+                    void* dk, void* dv, int batch, int n, int heads,
+                    int n_real, const long long* strides, float sl,
+                    float scale, void* stream) {
+  if (batch <= 0 || n <= 0) return 0;
+  const Views w = views(strides);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err = launch_delta<float, D_>(o, dout, delta, batch, n, heads, w, s);
+  if (err) return err;
+  constexpr int rows = f_rows(D_);
+  const dim3 grid(batch * heads, (n + rows - 1) / rows);
+  attn_bwd_dkv_fp32_kernel<D_><<<dim3(grid.x, grid.y, D_ / SLICE), rows, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
+      static_cast<float*>(dk), static_cast<float*>(dv), n, n_real, heads, w.q,
+      w.k, w.v, w.dout, w.dk, w.dv, sl, scale);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  attn_bwd_dq_fp32_kernel<D_><<<grid, rows, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
+      static_cast<float*>(dq), n, n_real, heads, w.q, w.k, w.v, w.dout, w.dq,
       sl, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -707,25 +778,8 @@ int maest_attn_bwd_fp32(const void* q, const void* k, const void* v,
                         float* delta, void* dq, void* dk, void* dv, int batch,
                         int n, int heads, int n_real, const long long* strides,
                         float sl, float scale, void* stream) {
-  if (batch <= 0 || n <= 0) return 0;
-  const Views w = views(strides);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = launch_delta<float>(o, dout, delta, batch, n, heads, w, s);
-  if (err) return err;
-  const dim3 grid(batch * heads, (n + F_ROWS - 1) / F_ROWS);
-  attn_bwd_dkv_fp32_kernel<<<grid, F_ROWS, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
-      static_cast<float*>(dk), static_cast<float*>(dv), n, n_real, heads, w.q,
-      w.k, w.v, w.dout, w.dk, w.dv, sl, scale);
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  attn_bwd_dq_fp32_kernel<<<grid, F_ROWS, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
-      static_cast<float*>(dq), n, n_real, heads, w.q, w.k, w.v, w.dout, w.dq,
-      sl, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_bwd_fp32(q, k, v, o, dout, lse, delta, dq, dk, dv, batch, n,
+                         heads, n_real, strides, sl, scale, stream);
 }
 
 int maest_attn_bwd_bf16(const void* q, const void* k, const void* v,
@@ -736,6 +790,29 @@ int maest_attn_bwd_bf16(const void* q, const void* k, const void* v,
   return launch_bwd_bf16<WARPS, TILE>(q, k, v, o, dout, lse, delta, dq, dk, dv,
                                       batch, n, heads, n_real, strides, sl,
                                       scale, stream);
+}
+
+// The same two entries at head_dim 128: (batch, n, heads, 128) views, scale
+// = 128^-0.5 or, on inputs zero-padded from a head_dim d, d^-0.5.
+int maest_attn_bwd_fp32_d128(const void* q, const void* k, const void* v,
+                             const void* o, const void* dout, const float* lse,
+                             float* delta, void* dq, void* dk, void* dv,
+                             int batch, int n, int heads, int n_real,
+                             const long long* strides, float sl, float scale,
+                             void* stream) {
+  return launch_bwd_fp32<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch,
+                              n, heads, n_real, strides, sl, scale, stream);
+}
+
+int maest_attn_bwd_bf16_d128(const void* q, const void* k, const void* v,
+                             const void* o, const void* dout, const float* lse,
+                             float* delta, void* dq, void* dk, void* dv,
+                             int batch, int n, int heads, int n_real,
+                             const long long* strides, float sl, float scale,
+                             void* stream) {
+  return launch_bwd_bf16<WARPS, TILE, 128>(q, k, v, o, dout, lse, delta, dq,
+                                           dk, dv, batch, n, heads, n_real,
+                                           strides, sl, scale, stream);
 }
 
 // The bf16 backward at another tile: rows (16 a warp: 32, 64 or 128) and

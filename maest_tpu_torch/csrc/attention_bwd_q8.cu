@@ -1,4 +1,5 @@
-// int8 attention backward for Hopper (sm_90a), head_dim 64 (K7).
+// int8 attention backward for Hopper (sm_90a), head_dim 64 and 128 (K7;
+// a template parameter D_ of each kernel).
 //
 // Replaces maest_tpu/ops/attention.py::_attn_bwd_kernel_q8 + _q8_tensor
 // (called from _flash_bwd_q8 when bwd_quant="int8" and round_up(N, 128) <=
@@ -51,6 +52,15 @@
 // fp32 (maest_attn_bwd_q8_fp32, K7 under the fp32 tier). The int8 copies,
 // the scales and the five int8 products do not depend on T; fp32 inputs
 // are quantized from their own values and the gradients stored unrounded.
+//
+// head_dim 128 (D_ = 128): the dk/dv kernel's four sets of sums (fp32 and
+// int32, dk and dv) would take 4 x 64 registers a thread, so, as the bf16
+// backward, it computes dk and dv in 64-column slices over a third grid
+// axis: each slice's block recomputes s and dp over the full head_dim and
+// stages only its 64 d rows of the transposed q and do. The scale pass and
+// dq keep their rows whole (dq's int32 sums: 64 registers). The tiles of
+// the product kernels then pass the 48 KB of static shared memory and take
+// dynamic shared memory (q8b_smem_bytes).
 
 #include "mma_8bit.cuh"
 
@@ -75,7 +85,7 @@ struct Stats {
   float *qmax, *domax, *pmax, *dsmax, *kmax, *vmax;
 };
 
-// the int8 copies: q, k, v, do (bh, N_pad, 64); q, do, k as (bh, 64, N_pad)
+// the int8 copies: q, k, v, do (bh, N_pad, D); q, do, k as (bh, D, N_pad)
 struct Bytes8 {
   uint8_t *q, *k, *v, *dout, *qt, *dot, *kt;
 };
@@ -146,7 +156,7 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 }
 
 // ------------------------------------------------------------ 1. amax ---
-template <typename T>
+template <typename T, int D_ = D>
 __global__ void __launch_bounds__(256)
 bwd_q8_amax_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const T* __restrict__ dout,
@@ -160,9 +170,9 @@ bwd_q8_amax_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r0 = j * bq;
   const int r1 = min(n, r0 + bq);
   float mx[4] = {0.f, 0.f, 0.f, 0.f};  // q, do, k, v
-  for (int i = threadIdx.x; i < (r1 - r0) * 8; i += 256) {
-    const long long row = r0 + (i >> 3);
-    const int c = (i & 7) * 8;
+  for (int i = threadIdx.x; i < (r1 - r0) * (D_ / 8); i += 256) {
+    const long long row = r0 + (i >> ilog2(D_ / 8));
+    const int c = (i & (D_ / 8 - 1)) * 8;
     mx[0] = fmaxf(mx[0], amax8(q + b * qs.b + row * qs.n + h * qs.h + c));
     mx[1] = fmaxf(mx[1], amax8(dout + b * ds.b + row * ds.n + h * ds.h + c));
     mx[2] = fmaxf(mx[2], amax8(k + b * ks.b + row * ks.n + h * ks.h + c));
@@ -187,7 +197,7 @@ bwd_q8_amax_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ----------------------------------------------------------- 2. quant ---
 // a block quantizes 64 rows of one head; rows >= n are written as zeros
-template <typename T>
+template <typename T, int D_ = D>
 __global__ void __launch_bounds__(256)
 bwd_q8_quant_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ o,
@@ -195,7 +205,7 @@ bwd_q8_quant_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     float* __restrict__ delta, int n, int heads, int bq,
                     int nqb, Strides qs, Strides ks, Strides vs, Strides os,
                     Strides ds) {
-  __shared__ __align__(16) uint8_t tr[3][D][LD8];  // q, do, k transposed
+  __shared__ __align__(16) uint8_t tr[3][D_][LD8];  // q, do, k transposed
   const int bh = blockIdx.x;
   const int b = bh / heads;
   const int h = bh - b * heads;
@@ -203,94 +213,109 @@ bwd_q8_quant_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int npad = (n + TILE - 1) / TILE * TILE;
   const int qb = bh * nqb + t0 / bq;  // a 64-row tile lies in one q-block
   const int r = threadIdx.x >> 2;     // row of the tile
-  const int c0 = (threadIdx.x & 3) * 16;  // its 16 columns
+  const int s0 = (threadIdx.x & 3) * 16;  // its 16 columns (of each 64)
   const long long row = t0 + r;
   const float inv[4] = {1.f / q8_scale(st.qmax[qb]), 1.f / q8_scale(st.domax[qb]),
                         1.f / q8_scale(st.kmax[bh]), 1.f / q8_scale(st.vmax[bh])};
-  uint32_t w[4][4];  // q8, do8, k8, v8: 16 bytes each
   float dsum = 0.f;
-  if (row < n) {
-    float x[16], y[16];
-    const T* src[4] = {q + b * qs.b + row * qs.n + h * qs.h + c0,
-                       dout + b * ds.b + row * ds.n + h * ds.h + c0,
-                       k + b * ks.b + row * ks.n + h * ks.h + c0,
-                       v + b * vs.b + row * vs.n + h * vs.h + c0};
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      load16(src[a], x);
+  for (int hh = 0; hh < D_ / 64; ++hh) {  // each 64 columns of the row
+    const int c0 = hh * 64 + s0;
+    uint32_t w[4][4];  // q8, do8, k8, v8: 16 bytes each
+    if (row < n) {
+      float x[16], y[16];
+      const T* src[4] = {q + b * qs.b + row * qs.n + h * qs.h + c0,
+                         dout + b * ds.b + row * ds.n + h * ds.h + c0,
+                         k + b * ks.b + row * ks.n + h * ks.h + c0,
+                         v + b * vs.b + row * vs.n + h * vs.h + c0};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        w[a][i] = pack4(to_s8(__fmul_rn(x[4 * i], inv[a])),
-                        to_s8(__fmul_rn(x[4 * i + 1], inv[a])),
-                        to_s8(__fmul_rn(x[4 * i + 2], inv[a])),
-                        to_s8(__fmul_rn(x[4 * i + 3], inv[a])));
-      if (a == 1) {  // delta = rowsum(do * o), fp32
-        load16(o + b * os.b + row * os.n + h * os.h + c0, y);
+      for (int a = 0; a < 4; ++a) {
+        load16(src[a], x);
 #pragma unroll
-        for (int i = 0; i < 16; ++i) dsum = fmaf(x[i], y[i], dsum);
+        for (int i = 0; i < 4; ++i)
+          w[a][i] = pack4(to_s8(__fmul_rn(x[4 * i], inv[a])),
+                          to_s8(__fmul_rn(x[4 * i + 1], inv[a])),
+                          to_s8(__fmul_rn(x[4 * i + 2], inv[a])),
+                          to_s8(__fmul_rn(x[4 * i + 3], inv[a])));
+        if (a == 1) {  // delta = rowsum(do * o), fp32
+          load16(o + b * os.b + row * os.n + h * os.h + c0, y);
+#pragma unroll
+          for (int i = 0; i < 16; ++i) dsum = fmaf(x[i], y[i], dsum);
+        }
       }
+    } else {
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) w[a][i] = 0u;
     }
-  } else {
+    const long long off = (static_cast<long long>(bh) * npad + row) * D_ + c0;
+    uint8_t* rows[4] = {by.q, by.dout, by.k, by.v};
 #pragma unroll
     for (int a = 0; a < 4; ++a)
+      *reinterpret_cast<uint4*>(rows[a] + off) = make_uint4(w[a][0], w[a][1], w[a][2], w[a][3]);
+    const int pos = seq_pos(r);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) w[a][i] = 0u;
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) tr[a][c0 + i][pos] = (w[a][i >> 2] >> (8 * (i & 3))) & 0xffu;
   }
-  const long long off = (static_cast<long long>(bh) * npad + row) * D + c0;
-  uint8_t* rows[4] = {by.q, by.dout, by.k, by.v};
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-    *reinterpret_cast<uint4*>(rows[a] + off) = make_uint4(w[a][0], w[a][1], w[a][2], w[a][3]);
-  const int pos = seq_pos(r);
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-#pragma unroll
-    for (int i = 0; i < 16; ++i) tr[a][c0 + i][pos] = (w[a][i >> 2] >> (8 * (i & 3))) & 0xffu;
   dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
   dsum += __shfl_xor_sync(0xffffffffu, dsum, 2);
-  if (row < n && c0 == 0) delta[static_cast<long long>(bh) * n + row] = dsum;
+  if (row < n && s0 == 0) delta[static_cast<long long>(bh) * n + row] = dsum;
   __syncthreads();
-  const int dr = threadIdx.x >> 2;  // d row of the transposed tiles
-  const long long toff = (static_cast<long long>(bh) * D + dr) * npad + t0 + c0;
-  uint8_t* cols[3] = {by.qt, by.dot, by.kt};
+  // the transposed tiles: d rows dr, the 16 sequence columns from s0
 #pragma unroll
-  for (int a = 0; a < 3; ++a)
-    *reinterpret_cast<uint4*>(cols[a] + toff) = *reinterpret_cast<const uint4*>(&tr[a][dr][c0]);
+  for (int hh = 0; hh < D_ / 64; ++hh) {
+    const int dr = (threadIdx.x >> 2) + hh * 64;
+    const long long toff = (static_cast<long long>(bh) * D_ + dr) * npad + t0 + s0;
+    uint8_t* cols[3] = {by.qt, by.dot, by.kt};
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      *reinterpret_cast<uint4*>(cols[a] + toff) = *reinterpret_cast<const uint4*>(&tr[a][dr][s0]);
+  }
 }
 
-// stage rows [row0, row0 + 64) of a (rows, 64) byte array, 16-byte chunks
-__device__ __forceinline__ void stage_rows8(uint8_t (*dst)[LD8], const uint8_t* src,
+// stage rows [row0, row0 + 64) of a (rows, D_) byte array, 16-byte chunks
+template <int D_>
+__device__ __forceinline__ void stage_rows8(uint8_t (*dst)[ld8(D_)], const uint8_t* src,
                                             long long rs, int row0) {
-  for (int i = threadIdx.x; i < TILE * 4; i += 32 * BW) {
-    const int j = i >> 2;
-    const int c = (i & 3) * 16;
+  for (int i = threadIdx.x; i < TILE * (D_ / 16); i += 32 * BW) {
+    const int j = i >> ilog2(D_ / 16);
+    const int c = (i & (D_ / 16 - 1)) * 16;
     cp_async16(&dst[j][c], src + static_cast<long long>(row0 + j) * rs + c, 16);
   }
 }
 
-// the 16 x 32 int32 product of a warp's A fragments (16 rows x 64) with
-// the 32 staged rows r0.. of `tile` (contraction over the row's 64 bytes)
-__device__ __forceinline__ void rows_dot8(int (&c)[4][4], const uint32_t (&a)[2][4],
-                                          const uint8_t (*tile)[LD8], int r0,
+// the 16 x 32 int32 product of a warp's A fragments (16 rows x 32 KS) with
+// the 32 staged rows r0.. of `tile` (contraction over the row's 32 KS
+// bytes)
+template <int KS>
+__device__ __forceinline__ void rows_dot8(int (&c)[4][4], const uint32_t (&a)[KS][4],
+                                          const uint8_t (*tile)[ld8(32 * KS)], int r0,
                                           int lr, int li) {
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) c[nt][e] = 0;
-    uint32_t f[4];
-    ldmatrix_x4(f, &tile[r0 + nt * 8 + lr][li * 16]);
-    mma_s8(c[nt], a[0], f[0], f[1]);
-    mma_s8(c[nt], a[1], f[2], f[3]);
+#pragma unroll
+    for (int half = 0; half < KS / 2; ++half) {
+      uint32_t f[4];
+      ldmatrix_x4(f, &tile[r0 + nt * 8 + lr][half * 64 + li * 16]);
+      mma_s8(c[nt], a[2 * half], f[0], f[1]);
+      mma_s8(c[nt], a[2 * half + 1], f[2], f[3]);
+    }
   }
 }
 
-// acc (16 x 64) += A (16 x 32, one k-step) . the transposed tile's sequence
-// columns r0..r0+31 (rows of the tile are d)
-__device__ __forceinline__ void acc_seq8(int (&acc)[8][4], const uint32_t (&a)[4],
+// acc (16 x 8 NDT) += A (16 x 32, one k-step) . the transposed tile's
+// sequence columns r0..r0+31 (rows of the tile are d)
+template <int NDT>
+__device__ __forceinline__ void acc_seq8(int (&acc)[NDT][4], const uint32_t (&a)[4],
                                          const uint8_t (*tile)[LD8], int r0,
                                          int lr, int li) {
 #pragma unroll
-  for (int dp = 0; dp < 4; ++dp) {
+  for (int dp = 0; dp < NDT / 2; ++dp) {
     uint32_t f[4];
     ldmatrix_x4(f, &tile[(2 * dp + (li >> 1)) * 8 + lr][r0 + (li & 1) * 16]);
     mma_s8(acc[2 * dp], a, f[0], f[1]);
@@ -309,20 +334,46 @@ __device__ __forceinline__ float dscore(float p, int dp_int, float c_dp,
   return __fmul_rn(__fmul_rn(p, __fsub_rn(dp, delta)), scale);
 }
 
+// dynamic shared memory of the product kernels past head_dim 64: the rows
+// kernel's K and V tiles (rows of ld8(d) bytes) and its K^T tiles (DQ: two
+// of d rows), or the dk/dv kernel's q and do tiles and its two pairs of
+// 64-row q^T and do^T tiles (a 64-column slice)
+__host__ __device__ constexpr int q8b_smem_bytes(int kernel, int d) {
+  return d <= 64 ? 0
+         : kernel == 2 ? 4 * TILE * ld8(d) + 4 * 64 * LD8  // dk/dv
+                       : 4 * TILE * ld8(d) + (kernel ? 2 : 1) * d * LD8;
+}
+
 // ----------------------------------------- 3. scale pass and 5. dq ---
 // a block owns 64 q rows of one head (one q-block) and streams the key
 // tiles below n_real; DQ = false: max p and max |ds| into st.pmax /
 // st.dsmax (dq unused; both entries run the <false, bf16> instance); DQ =
 // true: dq = (ds8 . k8) (dst ks (1/127)), stored as T
-template <bool DQ, typename T>
+template <bool DQ, typename T, int D_ = D>
 __global__ void __launch_bounds__(32 * BW)
 bwd_q8_rows_kernel(Bytes8 by, const float* __restrict__ lse,
                    const float* __restrict__ delta, Stats st,
                    T* __restrict__ dq, int n, int n_real, int heads, int bq,
                    int nqb, Strides dqs, float sl, float scale) {
-  __shared__ __align__(128) uint8_t k_sm[2][TILE][LD8];
-  __shared__ __align__(128) uint8_t v_sm[2][TILE][LD8];
-  __shared__ __align__(128) uint8_t kt_sm[DQ ? 2 : 1][D][LD8];
+  constexpr int LDK = ld8(D_);
+  constexpr bool DYN = q8b_smem_bytes(DQ, D_) > 0;
+  constexpr int S = DYN ? 1 : 2;  // static buffers, or one placeholder
+  __shared__ __align__(128) uint8_t k_st[S][DYN ? 1 : TILE][LDK];
+  __shared__ __align__(128) uint8_t v_st[S][DYN ? 1 : TILE][LDK];
+  __shared__ __align__(128) uint8_t kt_st[DQ ? S : 1][DYN ? 1 : D_][LD8];
+  extern __shared__ __align__(128) uint8_t rows_dyn[];
+  uint8_t(*k_sm)[TILE][LDK];
+  uint8_t(*v_sm)[TILE][LDK];
+  uint8_t(*kt_sm)[D_][LD8];
+  if constexpr (DYN) {
+    k_sm = reinterpret_cast<uint8_t(*)[TILE][LDK]>(rows_dyn);
+    v_sm = k_sm + 2;
+    kt_sm = reinterpret_cast<uint8_t(*)[D_][LD8]>(v_sm + 2);
+  } else {
+    k_sm = reinterpret_cast<uint8_t(*)[TILE][LDK]>(k_st);
+    v_sm = reinterpret_cast<uint8_t(*)[TILE][LDK]>(v_st);
+    kt_sm = reinterpret_cast<uint8_t(*)[D_][LD8]>(kt_st);
+  }
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -346,15 +397,15 @@ bwd_q8_rows_kernel(Bytes8 by, const float* __restrict__ lse,
     c_dq = __fmul_rn(__fmul_rn(dst, ksc), INV127);
   }
 
-  const long long head = static_cast<long long>(bh) * npad * D;
+  const long long head = static_cast<long long>(bh) * npad * D_;
   const uint8_t* kb = by.k + head;
   const uint8_t* vb = by.v + head;
-  const uint8_t* ktb = by.kt + head;  // (64, N_pad) of this head
+  const uint8_t* ktb = by.kt + head;  // (D_, N_pad) of this head
   auto stage = [&](int tile, int buf) {
-    stage_rows8(k_sm[buf], kb, D, tile * TILE);
-    stage_rows8(v_sm[buf], vb, D, tile * TILE);
+    stage_rows8<D_>(k_sm[buf], kb, D_, tile * TILE);
+    stage_rows8<D_>(v_sm[buf], vb, D_, tile * TILE);
     if constexpr (DQ) {
-      for (int i = threadIdx.x; i < D * 4; i += 32 * BW) {
+      for (int i = threadIdx.x; i < D_ * 4; i += 32 * BW) {
         const int j = i >> 2;
         const int c = (i & 3) * 16;
         cp_async16(&kt_sm[buf][j][c], ktb + static_cast<long long>(j) * npad + tile * TILE + c, 16);
@@ -364,9 +415,9 @@ bwd_q8_rows_kernel(Bytes8 by, const float* __restrict__ lse,
   };
   stage(0, 0);
 
-  uint32_t qf[2][4], dof[2][4];
-  load_row_frags8(qf, by.q + head, D, row0, npad, t);
-  load_row_frags8(dof, by.dout + head, D, row0, npad, t);
+  uint32_t qf[D_ / 32][4], dof[D_ / 32][4];
+  load_row_frags8(qf, by.q + head, D_, row0, npad, t);
+  load_row_frags8(dof, by.dout + head, D_, row0, npad, t);
   float lse_r[2], delta_r[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -378,9 +429,9 @@ bwd_q8_rows_kernel(Bytes8 by, const float* __restrict__ lse,
   }
 
   float pmax = 0.f, dsmax = 0.f;
-  int acc[8][4];
+  int acc[D_ / 8][4];
 #pragma unroll
-  for (int dt = 0; dt < 8; ++dt)
+  for (int dt = 0; dt < D_ / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dt][e] = 0;
 
@@ -434,7 +485,7 @@ bwd_q8_rows_kernel(Bytes8 by, const float* __restrict__ lse,
       if (row >= n) continue;
       T* p = base + static_cast<long long>(row) * dqs.n + 2 * t;
 #pragma unroll
-      for (int dt = 0; dt < 8; ++dt)
+      for (int dt = 0; dt < D_ / 8; ++dt)
         store2(p + dt * 8, __fmul_rn(__int2float_rn(acc[dt][2 * r]), c_dq),
                __fmul_rn(__int2float_rn(acc[dt][2 * r + 1]), c_dq));
     }
@@ -475,19 +526,39 @@ __device__ __forceinline__ void fold(float (&f)[8][4], int (&i)[8][4], float c) 
     }
 }
 
-template <typename T>
+template <typename T, int D_ = D>
 __global__ void __launch_bounds__(32 * BW)
 bwd_q8_dkdv_kernel(Bytes8 by, const float* __restrict__ lse,
                    const float* __restrict__ delta, Stats st,
                    T* __restrict__ dk, T* __restrict__ dv, int n,
                    int n_real, int heads, int bq, int nqb, Strides dks,
                    Strides dvs, float sl, float scale) {
-  __shared__ __align__(128) uint8_t q_sm[2][TILE][LD8];
-  __shared__ __align__(128) uint8_t do_sm[2][TILE][LD8];
-  __shared__ __align__(128) uint8_t qt_sm[2][D][LD8];
-  __shared__ __align__(128) uint8_t dot_sm[2][D][LD8];
+  constexpr int LDK = ld8(D_);
+  constexpr bool DYN = q8b_smem_bytes(2, D_) > 0;
+  constexpr int S = DYN ? 1 : 2;  // static buffers, or one placeholder
+  __shared__ __align__(128) uint8_t q_st[S][DYN ? 1 : TILE][LDK];
+  __shared__ __align__(128) uint8_t do_st[S][DYN ? 1 : TILE][LDK];
+  // the transposed q and do of this block's 64 d rows
+  __shared__ __align__(128) uint8_t qt_st[S][DYN ? 1 : 64][LD8];
+  __shared__ __align__(128) uint8_t dot_st[S][DYN ? 1 : 64][LD8];
   __shared__ float lse_sm[2][TILE];
   __shared__ float delta_sm[2][TILE];
+  extern __shared__ __align__(128) uint8_t dkdv_dyn[];
+  uint8_t(*q_sm)[TILE][LDK];
+  uint8_t(*do_sm)[TILE][LDK];
+  uint8_t(*qt_sm)[64][LD8];
+  uint8_t(*dot_sm)[64][LD8];
+  if constexpr (DYN) {
+    q_sm = reinterpret_cast<uint8_t(*)[TILE][LDK]>(dkdv_dyn);
+    do_sm = q_sm + 2;
+    qt_sm = reinterpret_cast<uint8_t(*)[64][LD8]>(do_sm + 2);
+    dot_sm = qt_sm + 2;
+  } else {
+    q_sm = reinterpret_cast<uint8_t(*)[TILE][LDK]>(q_st);
+    do_sm = reinterpret_cast<uint8_t(*)[TILE][LDK]>(do_st);
+    qt_sm = reinterpret_cast<uint8_t(*)[64][LD8]>(qt_st);
+    dot_sm = reinterpret_cast<uint8_t(*)[64][LD8]>(dot_st);
+  }
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -500,6 +571,8 @@ bwd_q8_dkdv_kernel(Bytes8 by, const float* __restrict__ lse,
   const int h = bh - b * heads;
   const int npad = (n + TILE - 1) / TILE * TILE;
   const int key0 = blockIdx.y * BR + warp * 16 + g;  // and key0 + 8
+  // this block's 64 gradient columns (D_ > 64: a slice of the head_dim)
+  const int c0 = D_ > 64 ? blockIdx.z * 64 : 0;
 
   float fk[8][4], fv[8][4];
   int ik[8][4], iv[8][4];
@@ -512,16 +585,16 @@ bwd_q8_dkdv_kernel(Bytes8 by, const float* __restrict__ lse,
     }
 
   if (blockIdx.y * BR < n_real) {  // else dk = dv = 0
-    const long long head = static_cast<long long>(bh) * npad * D;
+    const long long head = static_cast<long long>(bh) * npad * D_;
     const float* lse_bh = lse + static_cast<long long>(bh) * n;
     const float* delta_bh = delta + static_cast<long long>(bh) * n;
     auto stage = [&](int tile, int buf) {
-      stage_rows8(q_sm[buf], by.q + head, D, tile * TILE);
-      stage_rows8(do_sm[buf], by.dout + head, D, tile * TILE);
-      for (int i = threadIdx.x; i < D * 4; i += 32 * BW) {
+      stage_rows8<D_>(q_sm[buf], by.q + head, D_, tile * TILE);
+      stage_rows8<D_>(do_sm[buf], by.dout + head, D_, tile * TILE);
+      for (int i = threadIdx.x; i < 64 * 4; i += 32 * BW) {
         const int j = i >> 2;
         const int c = (i & 3) * 16;
-        const long long src = head + static_cast<long long>(j) * npad + tile * TILE + c;
+        const long long src = head + static_cast<long long>(c0 + j) * npad + tile * TILE + c;
         cp_async16(&qt_sm[buf][j][c], by.qt + src, 16);
         cp_async16(&dot_sm[buf][j][c], by.dot + src, 16);
       }
@@ -535,9 +608,10 @@ bwd_q8_dkdv_kernel(Bytes8 by, const float* __restrict__ lse,
     };
     stage(0, 0);
 
-    uint32_t kf[2][4], vf[2][4];  // this warp's 16 keys, A fragments
-    load_row_frags8(kf, by.k + head, D, key0, npad, t);
-    load_row_frags8(vf, by.v + head, D, key0, npad, t);
+    // this warp's 16 keys over the full head_dim, A fragments
+    uint32_t kf[D_ / 32][4], vf[D_ / 32][4];
+    load_row_frags8(kf, by.k + head, D_, key0, npad, t);
+    load_row_frags8(vf, by.v + head, D_, key0, npad, t);
     const bool live[2] = {key0 < n_real, key0 + 8 < n_real};
     const float ksc = q8_scale(st.kmax[bh]);
     const float vsc = q8_scale(st.vmax[bh]);
@@ -609,13 +683,23 @@ bwd_q8_dkdv_kernel(Bytes8 by, const float* __restrict__ lse,
     fold(fk, ik, c_dk);
     fold(fv, iv, c_dv);
   }
-  store_rows_f(dk + b * dks.b + h * dks.h, dks.n, fk, key0, n, t);
-  store_rows_f(dv + b * dvs.b + h * dvs.h, dvs.n, fv, key0, n, t);
+  store_rows_f(dk + b * dks.b + h * dks.h + c0, dks.n, fk, key0, n, t);
+  store_rows_f(dv + b * dvs.b + h * dvs.h + c0, dvs.n, fv, key0, n, t);
+}
+
+// dynamic shared-memory limit of a product kernel, once an instance,
+// before any launch a graph captures; the setting holds for the current
+// device only: the port drives one card a process
+template <auto kernel>
+cudaError_t smem_limit(int bytes) {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  return err;
 }
 
 // the five launches of K7 on `stream` for q, k, v, o, dout, dq, dk, dv of
-// element type T; the arguments as maest_attn_bwd_q8's
-template <typename T>
+// element type T and head_dim D_; the arguments as maest_attn_bwd_q8's
+template <typename T, int D_ = D>
 int launch_bwd_q8(const void* q, const void* k, const void* v, const void* o,
                   const void* dout, const float* lse, float* stats, void* bytes,
                   float* delta, void* dq, void* dk, void* dv, int batch, int n,
@@ -628,7 +712,7 @@ int launch_bwd_q8(const void* q, const void* k, const void* v, const void* o,
   const int bh = batch * heads;
   const int nqb = (n + bq - 1) / bq;
   const int npad = (n + TILE - 1) / TILE * TILE;
-  const long long plane = static_cast<long long>(bh) * npad * D;
+  const long long plane = static_cast<long long>(bh) * npad * D_;
   uint8_t* b8 = static_cast<uint8_t*>(bytes);
   const Bytes8 by{b8, b8 + plane, b8 + 2 * plane, b8 + 3 * plane,
                   b8 + 4 * plane, b8 + 5 * plane, b8 + 6 * plane};
@@ -640,22 +724,30 @@ int launch_bwd_q8(const void* q, const void* k, const void* v, const void* o,
           *tv = static_cast<const T*>(v), *to = static_cast<const T*>(o),
           *td = static_cast<const T*>(dout);
   int err;
-  bwd_q8_amax_kernel<T><<<dim3(bh, nqb), 256, 0, s>>>(
+  constexpr int smem_s = q8b_smem_bytes(0, D_), smem_kv = q8b_smem_bytes(2, D_),
+                smem_q = q8b_smem_bytes(1, D_);
+  if constexpr (D_ > 64) {
+    cudaError_t e = smem_limit<&bwd_q8_rows_kernel<false, bf16, D_>>(smem_s);
+    if (e == cudaSuccess) e = smem_limit<&bwd_q8_dkdv_kernel<T, D_>>(smem_kv);
+    if (e == cudaSuccess) e = smem_limit<&bwd_q8_rows_kernel<true, T, D_>>(smem_q);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  bwd_q8_amax_kernel<T, D_><<<dim3(bh, nqb), 256, 0, s>>>(
       tq, tk, tv, td, st, n, heads, bq, nqb, w[0], w[1], w[2], w[4]);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
   const dim3 tiles(bh, npad / TILE);
-  bwd_q8_quant_kernel<T><<<tiles, 256, 0, s>>>(tq, tk, tv, to, td, st, by,
-                                               delta, n, heads, bq, nqb, w[0],
-                                               w[1], w[2], w[3], w[4]);
+  bwd_q8_quant_kernel<T, D_><<<tiles, 256, 0, s>>>(tq, tk, tv, to, td, st, by,
+                                                   delta, n, heads, bq, nqb,
+                                                   w[0], w[1], w[2], w[3], w[4]);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
-  bwd_q8_rows_kernel<false, bf16><<<tiles, 32 * BW, 0, s>>>(
+  bwd_q8_rows_kernel<false, bf16, D_><<<tiles, 32 * BW, smem_s, s>>>(
       by, lse, delta, st, nullptr, n, n_real, heads, bq, nqb, w[5], sl, scale);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
-  bwd_q8_dkdv_kernel<T><<<tiles, 32 * BW, 0, s>>>(
+  bwd_q8_dkdv_kernel<T, D_><<<dim3(bh, npad / TILE, D_ / 64), 32 * BW, smem_kv, s>>>(
       by, lse, delta, st, static_cast<T*>(dk), static_cast<T*>(dv), n, n_real,
       heads, bq, nqb, w[6], w[7], sl, scale);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
-  bwd_q8_rows_kernel<true, T><<<tiles, 32 * BW, 0, s>>>(
+  bwd_q8_rows_kernel<true, T, D_><<<tiles, 32 * BW, smem_q, s>>>(
       by, lse, delta, st, static_cast<T*>(dq), n, n_real, heads, bq, nqb, w[5],
       sl, scale);
   return static_cast<int>(cudaGetLastError());
@@ -700,6 +792,31 @@ int maest_attn_bwd_q8_fp32(const void* q, const void* k, const void* v,
   return launch_bwd_q8<float>(q, k, v, o, dout, lse, stats, bytes, delta, dq,
                               dk, dv, batch, n, heads, n_real, bq, strides, sl,
                               scale, stream);
+}
+
+// The same two entries at head_dim 128: (batch, n, heads, 128) views and
+// 7 (batch heads round_up(n, 64) 128) bytes of scratch.
+int maest_attn_bwd_q8_d128(const void* q, const void* k, const void* v,
+                           const void* o, const void* dout, const float* lse,
+                           float* stats, void* bytes, float* delta, void* dq,
+                           void* dk, void* dv, int batch, int n, int heads,
+                           int n_real, int bq, const long long* strides,
+                           float sl, float scale, void* stream) {
+  return launch_bwd_q8<bf16, 128>(q, k, v, o, dout, lse, stats, bytes, delta,
+                                  dq, dk, dv, batch, n, heads, n_real, bq,
+                                  strides, sl, scale, stream);
+}
+
+int maest_attn_bwd_q8_fp32_d128(const void* q, const void* k, const void* v,
+                                const void* o, const void* dout,
+                                const float* lse, float* stats, void* bytes,
+                                float* delta, void* dq, void* dk, void* dv,
+                                int batch, int n, int heads, int n_real,
+                                int bq, const long long* strides, float sl,
+                                float scale, void* stream) {
+  return launch_bwd_q8<float, 128>(q, k, v, o, dout, lse, stats, bytes, delta,
+                                   dq, dk, dv, batch, n, heads, n_real, bq,
+                                   strides, sl, scale, stream);
 }
 
 }  // extern "C"

@@ -1,4 +1,6 @@
-// Attention forward for Hopper (sm_90a): online softmax, head_dim 64.
+// Attention forward for Hopper (sm_90a): online softmax, head_dim 64 and
+// 128 (a template parameter D_ of each kernel; a smaller head_dim is
+// zero-padded to the next instance by the caller, ops/attention.py).
 //
 // Replaces maest_tpu/ops/attention.py::_attn_kernel + _attn_body (called
 // from _flash_fwd_lse): the inference forward without the log-sum-exp
@@ -13,10 +15,10 @@
 // P.V product, as the TPU kernel feeds them to its bf16 matrix unit, while
 // the sum adds the fp32 values.
 //
-// Layout: q, k and v are (B, N, H, 64) views with any batch/token/head
+// Layout: q, k and v are (B, N, H, D) views with any batch/token/head
 // strides and a contiguous last dimension, so the kernels read the q/k/v
 // slices of the fused qkv projection in place; they write out
-// (B, N, H, 64) themselves. No transpose copies are made on either side.
+// (B, N, H, D) themselves. No transpose copies are made on either side.
 //
 // What bounds it on the H100: arithmetic. Per (batch, head) the forward
 // does 4 N^2 64 flops against 4 N 64 elements moved; at N = 1676 that is
@@ -41,7 +43,11 @@
 // its q row and output accumulator in registers; key/value tiles are
 // staged in shared memory as fp32 and read as broadcasts; each group of
 // SUB keys is scored, then the running max, correction and sum are
-// updated once for the group. The fp32 FMA rate bounds this kernel.
+// updated once for the group. The fp32 FMA rate bounds this kernel. At
+// D_ = 128 the key tile halves to 32 keys (two 16 KB fp32 tiles, inside
+// the 48 KB of static shared memory), and the q row and accumulator, 256
+// registers together, spill in part to local memory, which L1 caches:
+// the tier exists for parity, and a slower kernel is still exact.
 //
 // Both kernels: grid (B*H, ceil(N / rows per block)). Key tiles wholly at
 // or past n_real would contribute exactly zero (exp2(-1e30 - m) underflows
@@ -57,16 +63,18 @@ using namespace maest;
 
 // ---------------------------------------------------------------- fp32 ---
 constexpr int BQ = 128;  // query rows per block, one per thread
-constexpr int BK = 64;   // keys per shared-memory tile
+constexpr int BK = 64;   // keys per shared-memory tile (head_dim 64)
 constexpr int SUB = 16;  // keys per softmax update
 
+template <int D_ = D>
 __global__ void __launch_bounds__(BQ)
 attn_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, int n, int n_real, int heads,
                      Strides qs, Strides ks, Strides vs, Strides os, float sl) {
-  __shared__ float4 k_tile[BK][D / 4];
-  __shared__ float4 v_tile[BK][D / 4];
+  constexpr int BK_ = BK * D / D_;  // 32 KB of K/V tiles at every head_dim
+  __shared__ float4 k_tile[BK_][D_ / 4];
+  __shared__ float4 v_tile[BK_][D_ / 4];
 
   const int bh = blockIdx.x;
   const int b = bh / heads;
@@ -74,25 +82,25 @@ attn_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int row = blockIdx.y * BQ + threadIdx.x;
   const int row_c = row < n ? row : n - 1;
 
-  float qr[D];
+  float qr[D_];
   const float* qp = q + b * qs.b + static_cast<long long>(row_c) * qs.n + h * qs.h;
 #pragma unroll
-  for (int d = 0; d < D; ++d) qr[d] = qp[d];
+  for (int d = 0; d < D_; ++d) qr[d] = qp[d];
 
-  float acc[D];
+  float acc[D_];
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
+  for (int d = 0; d < D_; ++d) acc[d] = 0.f;
   float m = NEG_INF, l = 0.f;
 
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
-  for (int base = 0; base < n_real; base += BK) {
+  for (int base = 0; base < n_real; base += BK_) {
     __syncthreads();  // the previous tile is fully consumed
     float* kt = reinterpret_cast<float*>(k_tile);
     float* vt = reinterpret_cast<float*>(v_tile);
-    for (int i = threadIdx.x; i < BK * D; i += BQ) {
-      const int j = i / D;
-      const int d = i - j * D;
+    for (int i = threadIdx.x; i < BK_ * D_; i += BQ) {
+      const int j = i / D_;
+      const int d = i - j * D_;
       const int key = base + j;
       float kv = 0.f, vv = 0.f;
       if (key < n) {
@@ -104,7 +112,7 @@ attn_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    const int tile_keys = min(BK, n_real - base);
+    const int tile_keys = min(BK_, n_real - base);
     for (int j0 = 0; j0 < tile_keys; j0 += SUB) {
       float s[SUB];
       float m_new = m;
@@ -112,7 +120,7 @@ attn_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int jj = 0; jj < SUB; ++jj) {
         float dot = 0.f;
 #pragma unroll
-        for (int d4 = 0; d4 < D / 4; ++d4) {
+        for (int d4 = 0; d4 < D_ / 4; ++d4) {
           const float4 kk = k_tile[j0 + jj][d4];
           dot = fmaf(qr[4 * d4 + 0], kk.x, dot);
           dot = fmaf(qr[4 * d4 + 1], kk.y, dot);
@@ -126,13 +134,13 @@ attn_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float corr = exp2f(m - m_new);
       l *= corr;
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= corr;
+      for (int d = 0; d < D_; ++d) acc[d] *= corr;
 #pragma unroll
       for (int jj = 0; jj < SUB; ++jj) {
         const float p = exp2f(s[jj] - m_new);
         l += p;
 #pragma unroll
-        for (int d4 = 0; d4 < D / 4; ++d4) {
+        for (int d4 = 0; d4 < D_ / 4; ++d4) {
           const float4 vv = v_tile[j0 + jj][d4];
           acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0]);
           acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
@@ -147,7 +155,7 @@ attn_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (row < n) {
     float* op = out + b * os.b + static_cast<long long>(row) * os.n + h * os.h;
 #pragma unroll
-    for (int d = 0; d < D; ++d) op[d] = acc[d] / l;
+    for (int d = 0; d < D_; ++d) op[d] = acc[d] / l;
     if (lse != nullptr) lse[static_cast<long long>(bh) * n + row] = m + log2f(l);
   }
 }
@@ -170,8 +178,8 @@ const char* maest_cuda_error_string(int err) {
 int maest_attn_fwd_fp32(const void* q, const void* k, const void* v, void* out,
                         float* lse, int batch, int n, int heads, int n_real,
                         const long long* strides, float sl, void* stream) {
-  return launch<float>(attn_fwd_fp32_kernel, BQ, BQ, q, k, v, out, lse, batch,
-                       n, heads, n_real, strides, sl, stream);
+  return launch<float>(attn_fwd_fp32_kernel<>, BQ, BQ, q, k, v, out, lse,
+                       batch, n, heads, n_real, strides, sl, stream);
 }
 
 int maest_attn_fwd_bf16(const void* q, const void* k, const void* v, void* out,
@@ -179,6 +187,25 @@ int maest_attn_fwd_bf16(const void* q, const void* k, const void* v, void* out,
                         const long long* strides, float sl, void* stream) {
   return launch<bf16>(attn_fwd_bf16_kernel<FLASH>, MQ, 32 * WARPS, q, k, v,
                       out, lse, batch, n, heads, n_real, strides, sl, stream);
+}
+
+// The same two entries at head_dim 128: (batch, n, heads, 128) views,
+// sl = 128^-0.5 log2(e) or, on inputs zero-padded from a head_dim d, d^-0.5
+// log2(e).
+int maest_attn_fwd_fp32_d128(const void* q, const void* k, const void* v,
+                             void* out, float* lse, int batch, int n,
+                             int heads, int n_real, const long long* strides,
+                             float sl, void* stream) {
+  return launch<float>(attn_fwd_fp32_kernel<128>, BQ, BQ, q, k, v, out, lse,
+                       batch, n, heads, n_real, strides, sl, stream);
+}
+
+int maest_attn_fwd_bf16_d128(const void* q, const void* k, const void* v,
+                             void* out, float* lse, int batch, int n,
+                             int heads, int n_real, const long long* strides,
+                             float sl, void* stream) {
+  return launch_fwd<FLASH, 1, WARPS, MK, false, 128>(
+      q, k, v, out, lse, batch, n, heads, n_real, strides, sl, stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-// 8-bit attention forward for Hopper (sm_90a), head_dim 64: the int8 modes
-// qk8 / qk8pv8 (K5) and the e4m3 modes fp8 / fp8pv8 (K6).
+// 8-bit attention forward for Hopper (sm_90a), head_dim 64 and 128: the
+// int8 modes qk8 / qk8pv8 (K5) and the e4m3 modes fp8 / fp8pv8 (K6).
 //
 // Replaces maest_tpu/ops/attention.py::_attn_kernel_q8 + _attn_body_q8
 // (K5, called from _flash_fwd_lse with quant "qk8" / "qk8pv8") and
@@ -64,24 +64,34 @@ const char* maest_cuda_error_string(int err) {
 // strides[9..11]; lse: nullptr or contiguous fp32 (batch, heads, n).
 // sl = head_dim^-0.5 * log2(e). 1 <= n_real <= n. Launches on `stream`;
 // returns cudaGetLastError(). The *_fp32 entries take fp32 v (qk8, fp8;
-// rows on 16-byte boundaries) and write fp32 out.
-#define MAEST_FWD_Q8(NAME, MODE, T)                                            \
+// rows on 16-byte boundaries) and write fp32 out. The *_d128 entries take
+// head_dim 128 in place of 64 everywhere above (sv127 (batch, heads, 128),
+// the transposed copy (batch * heads, 128, round_up(n, 64))).
+#define MAEST_FWD_Q8(NAME, MODE, T, D_)                                        \
   int NAME(const void* q8, const void* k8, const float* qsl, const float* sk, \
            const void* v, const float* sv127, void* out, float* lse,          \
            int batch, int n, int heads, int n_real, const long long* strides, \
            float sl, void* stream) {                                          \
-    return maest::launch_q8<maest::MODE, T>(q8, k8, qsl, sk, v, sv127, out,   \
-                                            lse, batch, n, heads, n_real,     \
-                                            strides, sl, stream);             \
+    return maest::launch_q8<maest::MODE, T, D_>(q8, k8, qsl, sk, v, sv127,    \
+                                                out, lse, batch, n, heads,    \
+                                                n_real, strides, sl, stream); \
   }
 
-MAEST_FWD_Q8(maest_attn_fwd_qk8, QK8, maest::bf16)
-MAEST_FWD_Q8(maest_attn_fwd_qk8pv8, QK8PV8, maest::bf16)
-MAEST_FWD_Q8(maest_attn_fwd_fp8, FP8, maest::bf16)
-MAEST_FWD_Q8(maest_attn_fwd_fp8pv8, FP8PV8, maest::bf16)
-MAEST_FWD_Q8(maest_attn_fwd_qk8_fp32, QK8, float)
-MAEST_FWD_Q8(maest_attn_fwd_qk8pv8_fp32, QK8PV8, float)
-MAEST_FWD_Q8(maest_attn_fwd_fp8_fp32, FP8, float)
-MAEST_FWD_Q8(maest_attn_fwd_fp8pv8_fp32, FP8PV8, float)
+MAEST_FWD_Q8(maest_attn_fwd_qk8, QK8, maest::bf16, 64)
+MAEST_FWD_Q8(maest_attn_fwd_qk8pv8, QK8PV8, maest::bf16, 64)
+MAEST_FWD_Q8(maest_attn_fwd_fp8, FP8, maest::bf16, 64)
+MAEST_FWD_Q8(maest_attn_fwd_fp8pv8, FP8PV8, maest::bf16, 64)
+MAEST_FWD_Q8(maest_attn_fwd_qk8_fp32, QK8, float, 64)
+MAEST_FWD_Q8(maest_attn_fwd_qk8pv8_fp32, QK8PV8, float, 64)
+MAEST_FWD_Q8(maest_attn_fwd_fp8_fp32, FP8, float, 64)
+MAEST_FWD_Q8(maest_attn_fwd_fp8pv8_fp32, FP8PV8, float, 64)
+MAEST_FWD_Q8(maest_attn_fwd_qk8_d128, QK8, maest::bf16, 128)
+MAEST_FWD_Q8(maest_attn_fwd_qk8pv8_d128, QK8PV8, maest::bf16, 128)
+MAEST_FWD_Q8(maest_attn_fwd_fp8_d128, FP8, maest::bf16, 128)
+MAEST_FWD_Q8(maest_attn_fwd_fp8pv8_d128, FP8PV8, maest::bf16, 128)
+MAEST_FWD_Q8(maest_attn_fwd_qk8_fp32_d128, QK8, float, 128)
+MAEST_FWD_Q8(maest_attn_fwd_qk8pv8_fp32_d128, QK8PV8, float, 128)
+MAEST_FWD_Q8(maest_attn_fwd_fp8_fp32_d128, FP8, float, 128)
+MAEST_FWD_Q8(maest_attn_fwd_fp8pv8_fp32_d128, FP8PV8, float, 128)
 
 }  // extern "C"

@@ -1,6 +1,7 @@
-// The bf16 attention forward loop for Hopper (sm_90a), head_dim 64, as one
-// template over what the softmax section and the epilogue compute and over
-// how many (batch, head) pairs a block walks.
+// The bf16 attention forward loop for Hopper (sm_90a), as one template over
+// what the softmax section and the epilogue compute, over how many (batch,
+// head) pairs a block walks, over the tile and over the head_dim D_ (64,
+// or 128 for the production FLASH instances; the probes stay at 64).
 //
 // Variant FLASH is the production kernel (K2 without lse, K3a with it):
 // online softmax, instantiated by attention_fwd.cu; its design and bounds
@@ -49,6 +50,14 @@
 //
 // Every variant rounds p to bf16 for the P.V product and keeps l and acc
 // in fp32, as FLASH does. Only FLASH writes lse.
+//
+// D_ = 128 (head_dim 65-128, zero-padded to 128 by the caller): the same
+// loop with D_ / 16 k-steps in the scores product and D_ / 8 output
+// n-tiles. A warp's fp32 output sums double to 64 registers a thread and
+// its q fragments to 32, past the 128 that two 8-warp blocks an SM allow,
+// so the instance runs one block an SM (fwd_min_blocks) with up to 255
+// registers; its double-buffered K/V tiles (rows of 136 bf16) take 69.6
+// KB, past the 48 KB of static shared memory: dynamic (fwd_smem_bytes).
 
 #pragma once
 
@@ -61,8 +70,6 @@ enum FwdVariant { FLASH, MXU_ONLY, NOEXP_MAX, NOVMAX, BF16S, BF16SM };
 constexpr int WARPS = 8;
 constexpr int MQ = 16 * WARPS;  // query rows per block
 constexpr int MK = 64;          // keys per shared-memory tile
-constexpr int LD = D + 8;       // shared-memory row, bf16: 144 bytes, so the
-                                // 8 rows an ldmatrix phase reads hit 32 banks
 
 // 2^x of both halves of a bf16x2 on the special-function units (sm_90).
 // PTX gives its relative error as at most 2^-7, where rounding an exact
@@ -85,11 +92,11 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
 // registers); p = exp2(bf16(x - m)) on packed bf16x2 pairs of one row,
 // which are P's A fragments as they lie; corr = exp2(fp32(bf16(m_old -
 // m))) scales l and acc, both fp32, and l adds the bf16 p.
-template <bool MASK>
+template <bool MASK, int NDT>
 __device__ __forceinline__ void softmax_bf16(const float (&s)[8][4], float sl,
                                              int base, int n_real, int t,
                                              float (&m)[2], float (&l)[2],
-                                             float (&o)[8][4],
+                                             float (&o)[NDT][4],
                                              uint32_t (&pf)[4][4]) {
   __nv_bfloat162 x[8][2];
   __nv_bfloat162 mx[2] = {__float2bfloat162_rn(m[0]),
@@ -123,7 +130,7 @@ __device__ __forceinline__ void softmax_bf16(const float (&s)[8][4], float sl,
     l[r] *= corr[r];
   }
 #pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
+  for (int dt = 0; dt < NDT; ++dt) {
     o[dt][0] *= corr[0];
     o[dt][1] *= corr[0];
     o[dt][2] *= corr[1];
@@ -145,35 +152,41 @@ __device__ __forceinline__ void softmax_bf16(const float (&s)[8][4], float sl,
 // one block; measured 1.39 vs 1.64 ms). Every instance with tiles of 32 or
 // 64 keys keeps that cap; 128-key tiles, whose score tile alone takes 64
 // registers, get twice the registers (but a 16-warp block, 512 threads,
-// gets no more than 128).
-__host__ __device__ constexpr int fwd_min_blocks(int warps, int mk) {
-  const int blocks = (mk > 64 ? 256 : 512) / (32 * warps);
+// gets no more than 128). So does head_dim 128, whose output sums alone
+// take 64 registers.
+__host__ __device__ constexpr int fwd_min_blocks(int warps, int mk,
+                                                 int d = D) {
+  const int blocks = (mk > 64 || d > 64 ? 256 : 512) / (32 * warps);
   return blocks > 1 ? blocks : 1;
 }
 
-// dynamic shared memory of an instance: its K/V buffers past 64 keys
-__host__ __device__ constexpr int fwd_smem_bytes(int mk) {
-  return mk > 64 ? 2 * 2 * mk * LD * static_cast<int>(sizeof(bf16)) : 0;
+// dynamic shared memory of an instance: its K/V buffers past 64 keys or
+// past head_dim 64
+__host__ __device__ constexpr int fwd_smem_bytes(int mk, int d = D) {
+  return mk > 64 || d > 64
+             ? 2 * 2 * mk * ld_bf16(d) * static_cast<int>(sizeof(bf16))
+             : 0;
 }
 
 // Fragment layouts: see mma_bf16.cuh.
 template <int Variant, int G = 1, int WARPS_ = WARPS, int MK_ = MK,
-          bool QPAD = false>
-__global__ void __launch_bounds__(32 * WARPS_, fwd_min_blocks(WARPS_, MK_))
+          bool QPAD = false, int D_ = D>
+__global__ void __launch_bounds__(32 * WARPS_, fwd_min_blocks(WARPS_, MK_, D_))
 attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
                      float* __restrict__ lse, int n, int n_real, int heads,
                      Strides qs, Strides ks, Strides vs, Strides os, float sl) {
   constexpr int MQ_ = 16 * WARPS_;         // query rows per block
-  constexpr bool DYN = fwd_smem_bytes(MK_) > 0;
+  constexpr int LD_ = ld_bf16(D_);
+  constexpr bool DYN = fwd_smem_bytes(MK_, D_) > 0;
   constexpr int SMK = DYN ? 1 : MK_;
-  __shared__ __align__(128) bf16 k_st[2][SMK][LD];  // double-buffered tiles
-  __shared__ __align__(128) bf16 v_st[2][SMK][LD];
+  __shared__ __align__(128) bf16 k_st[2][SMK][LD_];  // double-buffered tiles
+  __shared__ __align__(128) bf16 v_st[2][SMK][LD_];
   extern __shared__ __align__(128) bf16 kv_dyn[];
-  bf16(*k_sm)[MK_][LD];
-  bf16(*v_sm)[MK_][LD];
+  bf16(*k_sm)[MK_][LD_];
+  bf16(*v_sm)[MK_][LD_];
   if constexpr (DYN) {
-    k_sm = reinterpret_cast<bf16(*)[MK_][LD]>(kv_dyn);
+    k_sm = reinterpret_cast<bf16(*)[MK_][LD_]>(kv_dyn);
     v_sm = k_sm + 2;
   } else {
     k_sm = k_st;
@@ -195,12 +208,12 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     const bf16* kb = k + b * ks.b + h * ks.h;
     const bf16* vb = v + b * vs.b + h * vs.h;
-    // stage key tile `tile` into buffer `buf`: MK_ keys x 8 chunks of 16
-    // bytes for each of K and V (K2: two chunks per thread per tensor)
+    // stage key tile `tile` into buffer `buf`: MK_ keys x D_ / 8 chunks of
+    // 16 bytes for each of K and V (K2: two chunks per thread per tensor)
     auto stage = [&](int tile, int buf) {
-      for (int i = threadIdx.x; i < MK_ * (D / 8); i += 32 * WARPS_) {
-        const int j = i >> 3;
-        const int c = (i & 7) * 8;
+      for (int i = threadIdx.x; i < MK_ * (D_ / 8); i += 32 * WARPS_) {
+        const int j = i >> ilog2(D_ / 8);
+        const int c = (i & (D_ / 8 - 1)) * 8;
         const int key = tile * MK_ + j;
         const long long src = static_cast<long long>(min(key, n - 1));
         const int bytes = key < n ? 16 : 0;
@@ -213,15 +226,15 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int n_tiles = (n_real + MK_ - 1) / MK_;
     stage(0, 0);
 
-    // q fragments of this warp's 16 rows, 4 k-steps over d
-    uint32_t qf[4][4];
+    // q fragments of this warp's 16 rows, D_ / 16 k-steps over d
+    uint32_t qf[D_ / 16][4];
     {
       const bf16* qb = q + b * qs.b + h * qs.h;
       const bf16* q0 = qb + static_cast<long long>(min(row0, n - 1)) * qs.n;
       const bf16* q1 =
           qb + static_cast<long long>(min(row0 + 8, n - 1)) * qs.n;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < D_ / 16; ++kk) {
         const int c = kk * 16 + 2 * t;
         qf[kk][0] = ld_u32(q0 + c);
         qf[kk][1] = ld_u32(q1 + c);
@@ -230,9 +243,9 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    float o[8][4];
+    float o[D_ / 8][4];
 #pragma unroll
-    for (int dt = 0; dt < 8; ++dt)
+    for (int dt = 0; dt < D_ / 8; ++dt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
     // rows g and g+8: the shift of exp2 (NOEXP_MAX: none, 0)
@@ -257,15 +270,15 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
       if (live) {
         // scores: 16 rows x MK_ keys = MK_ / 8 n-tiles of 8 keys; one
-        // ldmatrix.x4 brings K for one n-tile and two k-steps (d 0..31 or
-        // 32..63)
+        // ldmatrix.x4 brings K for one n-tile and two k-steps (d 0..31,
+        // 32..63, ...)
         float s[MK_ / 8][4];
 #pragma unroll
         for (int nt = 0; nt < MK_ / 8; ++nt) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
-          for (int half = 0; half < 2; ++half) {
+          for (int half = 0; half < D_ / 32; ++half) {
             uint32_t kf[4];
             ldmatrix_x4(kf, &k_sm[buf][nt * 8 + lr][half * 32 + li * 8]);
             mma_16816(s[nt], qf[2 * half], kf[0], kf[1]);
@@ -320,7 +333,7 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             }
             if constexpr (Variant != NOVMAX) {
 #pragma unroll
-              for (int dt = 0; dt < 8; ++dt) {
+              for (int dt = 0; dt < D_ / 8; ++dt) {
                 o[dt][0] *= corr[0];
                 o[dt][1] *= corr[0];
                 o[dt][2] *= corr[1];
@@ -342,13 +355,13 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           }
         }
 
-        // out += P (16 x MK_ keys) . V (MK_ keys x 64 d); one
+        // out += P (16 x MK_ keys) . V (MK_ keys x D_ d); one
         // ldmatrix.x4.trans brings V for one k-step (16 keys) and two d
         // n-tiles
 #pragma unroll
         for (int kj = 0; kj < MK_ / 16; ++kj) {
 #pragma unroll
-          for (int dp = 0; dp < 4; ++dp) {
+          for (int dp = 0; dp < D_ / 16; ++dp) {
             uint32_t vf[4];
             ldmatrix_x4_trans(vf, &v_sm[buf][kj * 16 + (li & 1) * 8 + lr]
                                            [dp * 16 + (li >> 1) * 8]);
@@ -377,7 +390,7 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (row >= n) continue;
       bf16* orow = ob + static_cast<long long>(row) * os.n + 2 * t;
 #pragma unroll
-      for (int dt = 0; dt < 8; ++dt)
+      for (int dt = 0; dt < D_ / 8; ++dt)
         *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) =
             __floats2bfloat162_rn(o[dt][2 * r] / l[r], o[dt][2 * r + 1] / l[r]);
       if (Variant == FLASH && lse != nullptr && t == 0)  // probes pass none
@@ -412,12 +425,12 @@ int launch(void (*kernel)(const T*, const T*, const T*, T*, float*, int, int,
 // an instance of attn_fwd_bf16_kernel with its rows, threads and dynamic
 // shared memory
 template <int Variant, int G = 1, int WARPS_ = WARPS, int MK_ = MK,
-          bool QPAD = false>
+          bool QPAD = false, int D_ = D>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
                float* lse, int batch, int n, int heads, int n_real,
                const long long* st, float sl, void* stream) {
-  const auto kernel = attn_fwd_bf16_kernel<Variant, G, WARPS_, MK_, QPAD>;
-  constexpr int smem = fwd_smem_bytes(MK_);
+  const auto kernel = attn_fwd_bf16_kernel<Variant, G, WARPS_, MK_, QPAD, D_>;
+  constexpr int smem = fwd_smem_bytes(MK_, D_);
   // once an instance, before any launch a graph captures; the setting holds
   // for the current device only: the port drives one card a process
   if (smem > 0) {

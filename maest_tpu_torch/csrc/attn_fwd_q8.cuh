@@ -1,6 +1,7 @@
-// The 8-bit attention forward loop for Hopper (sm_90a), head_dim 64, as one
-// template over the mode: how q.k and p.v are multiplied and what the
-// softmax section and the epilogue compute.
+// The 8-bit attention forward loop for Hopper (sm_90a), as one template over
+// the mode (how q.k and p.v are multiplied and what the softmax section and
+// the epilogue compute) and over the head_dim D_: 64, or 128 for the
+// production modes (the measurement variants stay at 64).
 //
 // The production modes (K5, K6), instantiated by attention_fwd_q8.cu, whose
 // design and bounds are described there:
@@ -38,10 +39,16 @@
 // unrounded times fp32 v, in scalar fp32 FMA (the fp32 K2's arithmetic):
 // the four threads of a quad hold a row's 64 p between them, and each
 // takes the other three's by shuffle. The pv8 modes multiply as in bf16.
+//
+// D_ = 128: D_ / 32 k-steps of 32 bytes in q.k, D_ / 8 output n-tiles, and
+// the transposed 8-bit V of the pv8 modes holds D_ d rows. As in K2 at
+// 128, the output sums take 64 registers a thread, so the instance runs
+// one block an SM (fwd_min_blocks), and its K/V buffers (53-83 KB) take
+// dynamic shared memory (q8_smem_bytes), whose limit the launch sets.
 
 #pragma once
 
-#include "attn_fwd_bf16.cuh"  // WARPS, MQ, MK, LD and softmax_bf16
+#include "attn_fwd_bf16.cuh"  // WARPS, MQ, MK, fwd_min_blocks, softmax_bf16
 #include "mma_8bit.cuh"
 
 namespace maest {
@@ -60,8 +67,20 @@ enum Q8Mode {
 constexpr float NOEXP_SHIFT = 32.f;  // FP8NOEXP's constant max
 constexpr float P127_SHIFT = 6.9886f;  // INT8_RIG: 2^6.9886 = 126.99
 
-template <int MODE, typename T = bf16>
-__global__ void __launch_bounds__(32 * WARPS, 2)
+// bytes of one buffer of V: 8-bit transposed (d, 64 keys) rows, or fp32 /
+// bf16 (key, d) rows
+__host__ __device__ constexpr int q8_vbytes(bool pv8, bool f32v, int d) {
+  return pv8 ? d * LD8 : (f32v ? MK * d * 4 : MK * ld_bf16(d) * 2);
+}
+
+// dynamic shared memory of an instance (head_dim past 64): two K buffers
+// of ld8(d)-byte rows and two V buffers; the key scales stay static
+__host__ __device__ constexpr int q8_smem_bytes(bool pv8, bool f32v, int d) {
+  return d > 64 ? 2 * MK * ld8(d) + 2 * q8_vbytes(pv8, f32v, d) : 0;
+}
+
+template <int MODE, typename T = bf16, int D_ = D>
+__global__ void __launch_bounds__(32 * WARPS, fwd_min_blocks(WARPS, MK, D_))
 attn_fwd_q8_kernel(const uint8_t* __restrict__ q8, const uint8_t* __restrict__ k8,
                    const float* __restrict__ qsl, const float* __restrict__ sk,
                    const void* __restrict__ v, const float* __restrict__ sv127,
@@ -72,11 +91,24 @@ attn_fwd_q8_kernel(const uint8_t* __restrict__ q8, const uint8_t* __restrict__ k
   constexpr bool PV8 = MODE == QK8PV8 || MODE == FP8PV8 || MODE == INT8_RIG;
   constexpr bool SM16 = MODE == FP8SM || MODE == FP8NOMASK;  // bf16 softmax
   constexpr bool F32V = !PV8 && sizeof(T) == 4;  // fp32 v, scalar P.V
+  constexpr int LDK = ld8(D_);     // K rows of D_ bytes
+  constexpr int LDV = ld_bf16(D_);  // bf16 V rows
   // V: bf16 or fp32 (key, d) rows, or 8-bit transposed (d, key) rows
-  constexpr int VBYTES = PV8 ? D * LD8 : (F32V ? MK * D * 4 : MK * LD * 2);
-  __shared__ __align__(128) uint8_t k_sm[2][MK][LD8];
-  __shared__ __align__(128) uint8_t v_sm[2][VBYTES];
+  constexpr int VBYTES = q8_vbytes(PV8, F32V, D_);
+  constexpr bool DYN = q8_smem_bytes(PV8, F32V, D_) > 0;
+  __shared__ __align__(128) uint8_t k_st[DYN ? 1 : 2][DYN ? 1 : MK][LDK];
+  __shared__ __align__(128) uint8_t v_st[DYN ? 1 : 2][DYN ? 1 : VBYTES];
   __shared__ float sk_sm[2][MK];
+  extern __shared__ __align__(128) uint8_t q8_dyn[];
+  uint8_t(*k_sm)[MK][LDK];
+  uint8_t(*v_sm)[VBYTES];
+  if constexpr (DYN) {
+    k_sm = reinterpret_cast<uint8_t(*)[MK][LDK]>(q8_dyn);
+    v_sm = reinterpret_cast<uint8_t(*)[VBYTES]>(q8_dyn + 2 * MK * LDK);
+  } else {
+    k_sm = reinterpret_cast<uint8_t(*)[MK][LDK]>(k_st);
+    v_sm = reinterpret_cast<uint8_t(*)[VBYTES]>(v_st);
+  }
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -92,37 +124,46 @@ attn_fwd_q8_kernel(const uint8_t* __restrict__ q8, const uint8_t* __restrict__ k
 
   const uint8_t* kb = k8 + b * ks.b + h * ks.h;
   const uint8_t* vt = static_cast<const uint8_t*>(v) +
-                      static_cast<long long>(bh) * D * npad;  // pv8
+                      static_cast<long long>(bh) * D_ * npad;  // pv8
   const T* vb = static_cast<const T*>(v) + b * vs.b + h * vs.h;
   const float* skb = INT8 ? sk + static_cast<long long>(bh) * n : nullptr;
+  // 16-byte chunks of a K row (and, pv8, of a V^T row's 64 keys: 4) a
+  // thread stages: D_ / 64 of each
+  constexpr int KC = D_ / 16;
   auto stage = [&](int tile, int buf) {
-    const int i = threadIdx.x;  // 64 rows x 4 chunks of 16 bytes: one each
-    {
-      const int j = i >> 2;
-      const int c = (i & 3) * 16;
+    // 64 rows x KC chunks of 16 bytes: D_ / 64 each
+#pragma unroll
+    for (int rep = 0; rep < D_ / 64; ++rep) {
+      const int i = threadIdx.x + rep * 32 * WARPS;
+      const int j = i >> ilog2(KC);
+      const int c = (i & (KC - 1)) * 16;
       const int key = tile * MK + j;
       const long long src = static_cast<long long>(min(key, n - 1));
       cp_async16(&k_sm[buf][j][c], kb + src * ks.n + c, key < n ? 16 : 0);
     }
+    const int i = threadIdx.x;
     if constexpr (PV8) {  // d row j, keys tile*64 + c.. (N_pad is in range)
-      const int j = i >> 2;
-      const int c = (i & 3) * 16;
-      cp_async16(&v_sm[buf][j * LD8 + c],
-                 vt + static_cast<long long>(j) * npad + tile * MK + c, 16);
-    } else if constexpr (F32V) {  // 64 keys x 16 chunks of 4 floats
-      float(*vsm)[D] = reinterpret_cast<float(*)[D]>(v_sm[buf]);
-      for (int e = i; e < MK * (D / 4); e += 32 * WARPS) {
-        const int j = e >> 4;
-        const int c = (e & 15) * 4;
+#pragma unroll
+      for (int rep = 0; rep < D_ / 64; ++rep) {
+        const int j = (i >> 2) + rep * 64;
+        const int c = (i & 3) * 16;
+        cp_async16(&v_sm[buf][j * LD8 + c],
+                   vt + static_cast<long long>(j) * npad + tile * MK + c, 16);
+      }
+    } else if constexpr (F32V) {  // 64 keys x D_ / 4 chunks of 4 floats
+      float(*vsm)[D_] = reinterpret_cast<float(*)[D_]>(v_sm[buf]);
+      for (int e = i; e < MK * (D_ / 4); e += 32 * WARPS) {
+        const int j = e >> ilog2(D_ / 4);
+        const int c = (e & (D_ / 4 - 1)) * 4;
         const int key = tile * MK + j;
         const long long src = static_cast<long long>(min(key, n - 1));
         cp_async16(&vsm[j][c], vb + src * vs.n + c, key < n ? 16 : 0);
       }
     } else {
-      bf16(*vsm)[LD] = reinterpret_cast<bf16(*)[LD]>(v_sm[buf]);
-      for (int e = i; e < MK * (D / 8); e += 32 * WARPS) {
-        const int j = e >> 3;
-        const int c = (e & 7) * 8;
+      bf16(*vsm)[LDV] = reinterpret_cast<bf16(*)[LDV]>(v_sm[buf]);
+      for (int e = i; e < MK * (D_ / 8); e += 32 * WARPS) {
+        const int j = e >> ilog2(D_ / 8);
+        const int c = (e & (D_ / 8 - 1)) * 8;
         const int key = tile * MK + j;
         const long long src = static_cast<long long>(min(key, n - 1));
         cp_async16(&vsm[j][c], vb + src * vs.n + c, key < n ? 16 : 0);
@@ -140,7 +181,7 @@ attn_fwd_q8_kernel(const uint8_t* __restrict__ q8, const uint8_t* __restrict__ k
   const int n_tiles = (n_real + MK - 1) / MK;
   stage(0, 0);
 
-  uint32_t qf[2][4];  // this warp's 16 rows, 2 k-steps of 32 over d
+  uint32_t qf[D_ / 32][4];  // this warp's 16 rows, k-steps of 32 over d
   load_row_frags8(qf, q8 + b * qs.b + h * qs.h, qs.n, row0, n, t);
   float rs[2] = {sl, sl};  // per-row score scale: sq * sl (int8) or sl
   if constexpr (INT8) {
@@ -149,9 +190,9 @@ attn_fwd_q8_kernel(const uint8_t* __restrict__ q8, const uint8_t* __restrict__ k
       rs[r] = qsl[static_cast<long long>(bh) * n + min(row0 + 8 * r, n - 1)];
   }
 
-  float o[8][4];
+  float o[D_ / 8][4];
 #pragma unroll
-  for (int dt = 0; dt < 8; ++dt)
+  for (int dt = 0; dt < D_ / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
   constexpr float M0 = MODE == FP8NOEXP ? NOEXP_SHIFT : NEG_INF;
@@ -170,23 +211,31 @@ attn_fwd_q8_kernel(const uint8_t* __restrict__ q8, const uint8_t* __restrict__ k
     const int base = it * MK;
 
     // scores: 16 rows x 64 keys = 8 n-tiles; one ldmatrix.x4 brings K for
-    // one n-tile and both k-steps
+    // one n-tile and two k-steps (64 of its D_ bytes)
     float s[8][4];
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
-      uint32_t kf[4];
-      ldmatrix_x4(kf, &k_sm[buf][nt * 8 + lr][li * 16]);
       if constexpr (INT8) {
         int c[4] = {0, 0, 0, 0};
-        mma_s8(c, qf[0], kf[0], kf[1]);
-        mma_s8(c, qf[1], kf[2], kf[3]);
+#pragma unroll
+        for (int half = 0; half < D_ / 64; ++half) {
+          uint32_t kf[4];
+          ldmatrix_x4(kf, &k_sm[buf][nt * 8 + lr][half * 64 + li * 16]);
+          mma_s8(c, qf[2 * half], kf[0], kf[1]);
+          mma_s8(c, qf[2 * half + 1], kf[2], kf[3]);
+        }
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[nt][e] = __int2float_rn(c[e]);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-        mma_e4m3(s[nt], qf[0], kf[0], kf[1]);
-        mma_e4m3(s[nt], qf[1], kf[2], kf[3]);
+#pragma unroll
+        for (int half = 0; half < D_ / 64; ++half) {
+          uint32_t kf[4];
+          ldmatrix_x4(kf, &k_sm[buf][nt * 8 + lr][half * 64 + li * 16]);
+          mma_e4m3(s[nt], qf[2 * half], kf[0], kf[1]);
+          mma_e4m3(s[nt], qf[2 * half + 1], kf[2], kf[3]);
+        }
       }
     }
 
@@ -222,7 +271,7 @@ attn_fwd_q8_kernel(const uint8_t* __restrict__ q8, const uint8_t* __restrict__ k
           l[r] = __fmul_rn(l[r], corr[r]);
         }
 #pragma unroll
-        for (int dt = 0; dt < 8; ++dt)
+        for (int dt = 0; dt < D_ / 8; ++dt)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             o[dt][e] = __fmul_rn(o[dt][e], corr[e >> 1]);
@@ -262,7 +311,7 @@ attn_fwd_q8_kernel(const uint8_t* __restrict__ q8, const uint8_t* __restrict__ k
       // acc += P . V over this tile, from zero; V^T rows are d, one
       // ldmatrix.x4 brings one d n-tile for both k-steps
 #pragma unroll
-      for (int dt = 0; dt < 8; ++dt) {
+      for (int dt = 0; dt < D_ / 8; ++dt) {
         uint32_t vf[4];
         ldmatrix_x4(vf, &v_sm[buf][(dt * 8 + lr) * LD8 + li * 16]);
         if constexpr (INT8) {
@@ -283,7 +332,7 @@ attn_fwd_q8_kernel(const uint8_t* __restrict__ q8, const uint8_t* __restrict__ k
       // acc += P . V in fp32, p unrounded: key 8 nt + 2 tt + c of this
       // row lies at thread tt of the quad, as p[nt][c] (row g) and
       // p[nt][2 + c] (row g + 8); V rows are broadcasts in shared memory
-      const float(*vsm)[D] = reinterpret_cast<const float(*)[D]>(v_sm[buf]);
+      const float(*vsm)[D_] = reinterpret_cast<const float(*)[D_]>(v_sm[buf]);
       const int quad = lane & ~3;
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
@@ -296,7 +345,7 @@ attn_fwd_q8_kernel(const uint8_t* __restrict__ q8, const uint8_t* __restrict__ k
                 __shfl_sync(0xffffffffu, p[nt][2 + c], quad | tt);
             const float* vr = &vsm[nt * 8 + 2 * tt + c][2 * t];
 #pragma unroll
-            for (int dt = 0; dt < 8; ++dt) {
+            for (int dt = 0; dt < D_ / 8; ++dt) {
               const float2 x = *reinterpret_cast<const float2*>(vr + dt * 8);
               o[dt][0] = fmaf(p0, x.x, o[dt][0]);
               o[dt][1] = fmaf(p0, x.y, o[dt][1]);
@@ -315,11 +364,11 @@ attn_fwd_q8_kernel(const uint8_t* __restrict__ q8, const uint8_t* __restrict__ k
           pf16[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p[nt][2], p[nt][3]);
         }
       }
-      bf16(*vsm)[LD] = reinterpret_cast<bf16(*)[LD]>(v_sm[buf]);
+      bf16(*vsm)[LDV] = reinterpret_cast<bf16(*)[LDV]>(v_sm[buf]);
 #pragma unroll
       for (int kj = 0; kj < 4; ++kj) {
 #pragma unroll
-        for (int dp = 0; dp < 4; ++dp) {
+        for (int dp = 0; dp < D_ / 16; ++dp) {
           uint32_t vf[4];
           ldmatrix_x4_trans(
               vf, &vsm[kj * 16 + (li & 1) * 8 + lr][dp * 16 + (li >> 1) * 8]);
@@ -337,9 +386,9 @@ attn_fwd_q8_kernel(const uint8_t* __restrict__ q8, const uint8_t* __restrict__ k
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
   if constexpr (MODE == QK8PV8 || MODE == INT8_RIG) {  // acc sv127, once
-    const float* svb = sv127 + static_cast<long long>(bh) * D;
+    const float* svb = sv127 + static_cast<long long>(bh) * D_;
 #pragma unroll
-    for (int dt = 0; dt < 8; ++dt)
+    for (int dt = 0; dt < D_ / 8; ++dt)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         o[dt][e] = __fmul_rn(o[dt][e], svb[dt * 8 + 2 * t + (e & 1)]);
@@ -351,7 +400,7 @@ attn_fwd_q8_kernel(const uint8_t* __restrict__ q8, const uint8_t* __restrict__ k
     if (row >= n) continue;
     T* orow = ob + static_cast<long long>(row) * os.n + 2 * t;
 #pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
+    for (int dt = 0; dt < D_ / 8; ++dt) {
       // stored in place, not through an overloaded helper: the helper
       // changes the bf16 instances' SASS
       if constexpr (sizeof(T) == 4)
@@ -369,7 +418,7 @@ attn_fwd_q8_kernel(const uint8_t* __restrict__ q8, const uint8_t* __restrict__ k
 // grid (B*H, ceil(N / 128)) on `stream`; returns cudaGetLastError(). The
 // arguments are those of the C entries of attention_fwd_q8.cu; out (and v
 // where it is not 8-bit) of element type T.
-template <int MODE, typename T = bf16>
+template <int MODE, typename T = bf16, int D_ = D>
 int launch_q8(const void* q8, const void* k8, const float* qsl, const float* sk,
               const void* v, const float* sv127, void* out, float* lse,
               int batch, int n, int heads, int n_real, const long long* st,
@@ -378,7 +427,17 @@ int launch_q8(const void* q8, const void* k8, const float* qsl, const float* sk,
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
   const dim3 grid(batch * heads, (n + MQ - 1) / MQ);
-  attn_fwd_q8_kernel<MODE, T><<<grid, 32 * WARPS, 0, static_cast<cudaStream_t>(stream)>>>(
+  constexpr bool PV8 = MODE == QK8PV8 || MODE == FP8PV8 || MODE == INT8_RIG;
+  constexpr int smem = q8_smem_bytes(PV8, !PV8 && sizeof(T) == 4, D_);
+  // once an instance, before any launch a graph captures; the setting holds
+  // for the current device only: the port drives one card a process
+  if (smem > 0) {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        attn_fwd_q8_kernel<MODE, T, D_>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+  }
+  attn_fwd_q8_kernel<MODE, T, D_><<<grid, 32 * WARPS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(q8), static_cast<const uint8_t*>(k8), qsl, sk,
       v, sv127, static_cast<T*>(out), lse, n, n_real, heads, qs, ks, vs, os,
       sl);

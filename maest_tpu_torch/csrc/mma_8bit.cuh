@@ -31,8 +31,12 @@
 
 namespace maest {
 
-constexpr int LD8 = D + 16;  // shared-memory row of 64 bytes, padded to 80:
-                             // the 8 rows an ldmatrix phase reads hit 32 banks
+constexpr int LD8 = 64 + 16;  // shared-memory row of 64 bytes (a 64-key or
+                              // head_dim-64 row), padded to 80: the 8 rows an
+                              // ldmatrix phase reads hit 32 banks
+// the padded row of d bytes (head_dim d, 8-bit): 80 at 64, 144 at 128, whose
+// 8 rows of an ldmatrix phase also hit 32 banks
+__host__ __device__ constexpr int ld8(int d) { return d + 16; }
 
 __device__ __forceinline__ uint32_t ld_u32(const uint8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -58,16 +62,18 @@ __device__ __forceinline__ void mma_e4m3(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// A fragments (2 k-steps of 32 over d) of the rows row0 / row0 + 8 of a
-// (row, 64) 8-bit view in global memory; rows are clamped to n - 1
-__device__ __forceinline__ void load_row_frags8(uint32_t (&f)[2][4],
+// A fragments (KS k-steps of 32 over d: 2 at head_dim 64) of the rows
+// row0 / row0 + 8 of a (row, 32 KS) 8-bit view in global memory; rows are
+// clamped to n - 1
+template <int KS>
+__device__ __forceinline__ void load_row_frags8(uint32_t (&f)[KS][4],
                                                 const uint8_t* base,
                                                 long long rs, int row0, int n,
                                                 int t) {
   const uint8_t* r0 = base + static_cast<long long>(min(row0, n - 1)) * rs;
   const uint8_t* r1 = base + static_cast<long long>(min(row0 + 8, n - 1)) * rs;
 #pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     const int c = kk * 32 + 4 * t;
     f[kk][0] = ld_u32(r0 + c);
     f[kk][1] = ld_u32(r1 + c);

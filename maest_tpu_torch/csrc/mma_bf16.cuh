@@ -19,7 +19,8 @@
 
 namespace maest {
 
-constexpr int D = 64;  // head_dim, fixed at compile time
+constexpr int D = 64;  // head_dim of the probe kernels, and the default D
+                       // of the production kernels (instances at 64, 128)
 constexpr float NEG_INF = -1e30f;
 
 struct Strides {  // element strides of a (B, N, H, D) view
@@ -27,6 +28,16 @@ struct Strides {  // element strides of a (B, N, H, D) view
 };
 
 using bf16 = __nv_bfloat16;
+
+// the padded bf16 shared-memory row of head_dim d: 72 (144 bytes) at 64,
+// 136 (272 bytes) at 128, so the 8 rows an ldmatrix phase reads hit 32
+// banks
+__host__ __device__ constexpr int ld_bf16(int d) { return d + 8; }
+
+// log2 of a power of two, for shifts that index rows of chunks
+__host__ __device__ constexpr int ilog2(int x) {
+  return x > 1 ? 1 + ilog2(x / 2) : 0;
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
@@ -84,15 +95,17 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// A fragments (4 k-steps of 16 over d) of the 16 rows row0 / row0 + 8 of a
-// (row, 64) bf16 view, read from global memory; rows are clamped to n - 1
-__device__ __forceinline__ void load_row_frags(uint32_t (&f)[4][4],
+// A fragments (KS k-steps of 16 over d: 4 at head_dim 64) of the 16 rows
+// row0 / row0 + 8 of a (row, 16 KS) bf16 view, read from global memory;
+// rows are clamped to n - 1
+template <int KS>
+__device__ __forceinline__ void load_row_frags(uint32_t (&f)[KS][4],
                                                const bf16* base, long long rs,
                                                int row0, int n, int t) {
   const bf16* r0 = base + static_cast<long long>(min(row0, n - 1)) * rs;
   const bf16* r1 = base + static_cast<long long>(min(row0 + 8, n - 1)) * rs;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     const int c = kk * 16 + 2 * t;
     f[kk][0] = ld_u32(r0 + c);
     f[kk][1] = ld_u32(r1 + c);

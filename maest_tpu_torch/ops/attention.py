@@ -14,9 +14,10 @@ On CUDA tensors each step launches its hand-written kernel
 (``csrc/attention_fwd.cu``, ``csrc/attention_bwd.cu``: bf16 on the tensor
 cores, fp32 in scalar fp32 FMA; ``csrc/attention_fwd_q8.cu`` and
 ``csrc/attention_bwd_q8.cu``: int8 / e4m3 products, bf16 or fp32 inputs;
-any N, strided views). The kernels are built for head_dim 64; a smaller
-head_dim runs them on inputs zero-padded to 64 with its own softmax scale
-(``pad_head_dim``), and a larger one is refused. On CPU tensors it runs
+any N, strided views). The kernels are built for head_dim 64 and 128; a
+head_dim below 64, or between 64 and 128, runs the next instance on inputs
+zero-padded to its width with its own softmax scale (``pad_head_dim``),
+and one above 128 is refused. On CPU tensors it runs
 the plain PyTorch version (``attention_reference``,
 ``attention_reference_lse``, ``attention_bwd_reference``,
 ``attention_q8_reference``, ``attention_bwd_int8_reference``). Production
@@ -46,7 +47,8 @@ from . import _build
 
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
-HEAD_DIM = 64
+HEAD_DIM = 64               # the probe kernels' head_dim
+HEAD_DIMS = (HEAD_DIM, 128)  # the production kernels' instances
 
 _QUANT_MODES = (None, "qk8", "qk8pv8", "fp8", "fp8pv8")
 
@@ -483,47 +485,58 @@ def _fwd_q8(wrapper, quant, q, k, v, n_real, with_lse):
     return out
 
 
-# --- head_dim below 64 on the card -----------------------------------------
-_WIDE_HEAD = ("the CUDA attention kernels are built for head_dim "
-              f"{HEAD_DIM} and run a smaller one zero-padded to it; got "
-              "head_dim {} (ROADMAP queue 3: a larger head_dim needs a D "
-              "template parameter in every kernel)")
+# --- head_dim other than 64 and 128 on the card ----------------------------
+_WIDE_HEAD = ("the CUDA attention kernels are built for head_dim 64 and 128 "
+              "and run a smaller one zero-padded to the next; got head_dim "
+              "{} (ROADMAP queue 3: above 128 a warp's fp32 output sums "
+              "alone take 128 registers a thread)")
+
+
+def padded_dim(d: int) -> int:
+    """The kernel instance that takes head_dim d: the smallest of
+    HEAD_DIMS at or above it; above 128 raises (ROADMAP queue 3)."""
+    for width in HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(_WIDE_HEAD.format(d))
 
 
 def pad_head_dim(*ts):
-    """(ts zero-padded along head_dim, their last axis, to HEAD_DIM; the
-    softmax scale of their own head_dim, d^-0.5). The kernels are built for
-    head_dim 64. Zero columns add nothing to q.k, to do.v or to rowsum(do
-    o), leave every |x| maximum and so every 8-bit scale as it was, and
-    give zero output and gradient columns, which the caller slices off; the
-    scale must be the unpadded head_dim's. head_dim > 64 raises."""
+    """(ts zero-padded along head_dim, their last axis, to the next kernel
+    instance, 64 or 128 (``padded_dim``); the softmax scale of their own
+    head_dim, d^-0.5). Zero columns add nothing to q.k, to do.v or to
+    rowsum(do o), leave every |x| maximum and so every 8-bit scale as it
+    was, and give zero output and gradient columns, which the caller
+    slices off; the scale must be the unpadded head_dim's. head_dim > 128
+    raises."""
     d = ts[0].shape[-1]
-    if d > HEAD_DIM:
-        raise ValueError(_WIDE_HEAD.format(d))
-    if d < HEAD_DIM:
-        ts = tuple(F.pad(t, (0, HEAD_DIM - d)) for t in ts)
+    width = padded_dim(d)
+    if d < width:
+        ts = tuple(F.pad(t, (0, width - d)) for t in ts)
     return ts, d**-0.5
 
 
 def padded_fwd(launch, q, k, v, n_real, with_lse, **kw):
     """``launch(q, k, v, n_real, with_lse, scale, **kw)``, a forward that
-    returns (o, lse or None), on q, k, v zero-padded to HEAD_DIM with their
-    own softmax scale; o sliced back to their head_dim."""
+    returns (o, lse or None), on q, k, v zero-padded to the next kernel
+    instance with their own softmax scale; o sliced back to their
+    head_dim."""
     d = q.shape[-1]
     (q, k, v), scale = pad_head_dim(q, k, v)
     o, lse = launch(q, k, v, n_real, with_lse, scale, **kw)
-    return (o if d == HEAD_DIM else o[..., :d]), lse
+    return (o if d == q.shape[-1] else o[..., :d]), lse
 
 
 def padded_bwd(launch, q, k, v, o, lse, do, n_real, **kw):
     """``launch(q, k, v, o, lse, do, n_real, scale, **kw)``, a backward that
-    returns the (B, N, 3, H, 64) gradients of q, k, v, on tensors
-    zero-padded to HEAD_DIM with their own softmax scale; the gradients of
-    their head_dim in the same layout (a copy of the slice)."""
+    returns the (B, N, 3, H, D) gradients of q, k, v, on tensors
+    zero-padded to the next kernel instance D with their own softmax
+    scale; the gradients of their head_dim in the same layout (a copy of
+    the slice)."""
     d = q.shape[-1]
     (q, k, v, o, do), scale = pad_head_dim(q, k, v, o, do)
     grads = launch(q, k, v, o, lse, do, n_real, scale, **kw)
-    return grads if d == HEAD_DIM else grads[..., :d].contiguous()
+    return grads if d == q.shape[-1] else grads[..., :d].contiguous()
 
 
 def _aligned(t):
@@ -535,8 +548,8 @@ def _aligned(t):
 
 def _check_views(tensors, dtype, what, aligned=None):
     """Views a kernel takes: one CUDA device, ``dtype`` (fp32 or bf16),
-    head_dim 64 with a contiguous last axis, and (bf16, or ``aligned``)
-    rows on 16-byte boundaries."""
+    a head_dim of HEAD_DIMS (the production instances) with a contiguous
+    last axis, and (bf16, or ``aligned``) rows on 16-byte boundaries."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -548,7 +561,7 @@ def _check_views(tensors, dtype, what, aligned=None):
                         f"{what} of one dtype, got "
                         f"{', '.join(str(t.dtype) for t in tensors)}")
     d = tensors[0].shape[-1]
-    if d != HEAD_DIM:
+    if d not in HEAD_DIMS:
         raise ValueError(_WIDE_HEAD.format(d))
     if aligned is None:
         aligned = dtype == torch.bfloat16
@@ -575,17 +588,23 @@ def _strides(*ts):
         *(s for t in ts for s in t.stride()[:3]))
 
 
+def _instance(name, d):
+    """The C entry ``name`` of head_dim d: ``name`` at 64, ``name_d128``."""
+    return name if d == HEAD_DIM else f"{name}_d{d}"
+
+
 def _launch_fwd(q, k, v, n_real, with_lse, scale):
-    """K2 (K3a with lse) on checked views of head_dim 64."""
-    return launch_fwd_entry("attention_fwd", (
-        "maest_attn_fwd_fp32" if q.dtype == torch.float32
-        else "maest_attn_fwd_bf16"), (), q, k, v, n_real, with_lse, scale)
+    """K2 (K3a with lse) on checked views of head_dim 64 or 128."""
+    name = _instance("maest_attn_fwd_fp32" if q.dtype == torch.float32
+                     else "maest_attn_fwd_bf16", q.shape[-1])
+    return launch_fwd_entry("attention_fwd", name, (), q, k, v, n_real,
+                            with_lse, scale)
 
 
 def launch_fwd_entry(lib_name, name, lead, q, k, v, n_real, with_lse, scale):
     """Launch the forward entry ``name`` of ``csrc/<lib_name>.cu`` with the
-    leading int arguments ``lead`` on checked CUDA views of head_dim 64 and
-    softmax scale ``scale``; (o, lse or None)."""
+    leading int arguments ``lead`` on checked CUDA views and softmax scale
+    ``scale``; (o, lse or None)."""
     _check_views((q, k, v), q.dtype, "q/k/v")
     b, n, h, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
@@ -604,7 +623,7 @@ def launch_fwd_entry(lib_name, name, lead, q, k, v, n_real, with_lse, scale):
 
 
 def _seq_major(x8: torch.Tensor) -> torch.Tensor:
-    """(B, H, N, 64) 8-bit -> (B, H, 64, N_pad) bytes, N_pad = round_up(N,
+    """(B, H, N, D) 8-bit -> (B, H, D, N_pad) bytes, N_pad = round_up(N,
     64), zero-filled. An 8-bit product that contracts over the sequence
     reads this copy: ldmatrix cannot transpose 8-bit elements. Within each
     16-row group, row 8a + 2t + c goes to column 4t + 2a + c: the order in
@@ -639,7 +658,7 @@ def _launch_fwd_q8(q, k, v, n_real, with_lse, scale, quant):
         vh = v.transpose(1, 2).float()
         sv = _div(torch.clamp_min(vh.abs().amax(dim=2), _EPS), 127.0)
         v_in = _seq_major(torch.round(vh / sv[:, :, None]).to(torch.int8))
-        sv127 = _div(sv, 127.0).contiguous()  # (B, H, 64)
+        sv127 = _div(sv, 127.0).contiguous()  # (B, H, D)
     elif quant == "fp8pv8":
         v_in = _seq_major(to_e4m3(v.transpose(1, 2)))
     else:
@@ -648,8 +667,8 @@ def _launch_fwd_q8(q, k, v, n_real, with_lse, scale, quant):
     lse = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
            if with_lse else None)
     lib = _build.load_library("attention_fwd_q8")
-    name = f"maest_attn_fwd_{quant}" + (
-        "_fp32" if q.dtype == torch.float32 else "")
+    name = _instance(f"maest_attn_fwd_{quant}" + (
+        "_fp32" if q.dtype == torch.float32 else ""), d)
     fn = _entry(lib, name, 8, 1)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     with torch.cuda.device(q.device):
@@ -692,6 +711,7 @@ def _bwd_qkv(q, k, v, o, lse, do, n_real, bwd_quant):
         return grads
     name = ("maest_attn_bwd_fp32" if q.dtype == torch.float32
             else "maest_attn_bwd_bf16")
+    name = _instance(name, padded_dim(q.shape[-1]))
     grads = padded_bwd(functools.partial(launch_bwd_entry, name, ()), q, k, v,
                        o, lse, do, n_real)
     attention_bwd.launches += 1
@@ -723,8 +743,8 @@ def _grads(q):
 def launch_bwd_entry(name, lead, q, k, v, o, lse, do, n_real, scale):
     """Launch the backward entry ``name`` of ``csrc/attention_bwd.cu`` (the
     delta, dk/dv and dq kernels) with the leading int arguments ``lead`` on
-    checked CUDA views of head_dim 64 and softmax scale ``scale``; return
-    the (B, N, 3, H, 64) gradients."""
+    checked CUDA views and softmax scale ``scale``; return the (B, N, 3, H,
+    D) gradients."""
     o, do = _bwd_views(q, k, v, o, lse, do)
     b, n, h, _ = q.shape
     grads, dq, dk, dv = _grads(q)
@@ -746,7 +766,7 @@ def launch_bwd_entry(name, lead, q, k, v, o, lse, do, n_real, scale):
 def _launch_bwd_q8(q, k, v, o, lse, do, n_real, scale):
     """K7: scratch for the maxima and the int8 copies, then the kernels of
     ``csrc/attention_bwd_q8.cu`` (pre-pass, scale pass, dk/dv, dq; the fp32
-    instance for fp32 tensors); the (B, N, 3, H, 64) gradients."""
+    instance for fp32 tensors); the (B, N, 3, H, D) gradients."""
     o, do = _bwd_views(q, k, v, o, lse, do, aligned=True)
     b, n, h, d = q.shape
     grads, dq, dk, dv = _grads(q)
@@ -758,11 +778,12 @@ def _launch_bwd_q8(q, k, v, o, lse, do, n_real, scale):
     # p, |ds| per (head, q-block): atomicMax targets, so zeroed
     stats = torch.zeros(4 * b * h * nqb + 2 * b * h, dtype=torch.float32,
                         device=q.device)
-    # q8, k8, v8, do8 (B*H, N_pad, 64) and q, do, k transposed (_seq_major)
+    # q8, k8, v8, do8 (B*H, N_pad, D) and q, do, k transposed (_seq_major)
     bytes8 = torch.empty(7 * b * h * npad * d, dtype=torch.int8,
                          device=q.device)
     lib = _build.load_library("attention_bwd_q8")
-    name = "maest_attn_bwd_q8" + ("_fp32" if q.dtype == torch.float32 else "")
+    name = _instance("maest_attn_bwd_q8" + (
+        "_fp32" if q.dtype == torch.float32 else ""), d)
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [

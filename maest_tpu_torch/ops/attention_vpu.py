@@ -161,6 +161,7 @@ def vpu_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the views; fp8sm, fp8noexp, fp8nomask: q and k cast to e4m3; fp8lean:
     q scaled by scale * log2(e) in fp32 and cast, k cast, v cast and laid
     out transposed in seq_pos order (``_seq_major``)."""
+    _check_qkv(q, k, v, None)
     _check_views((q, k, v), torch.bfloat16, "q/k/v")
     if kind == "bf16sm":
         return q, k, v

@@ -1,0 +1,182 @@
+"""The tensor-core rate rigs' products, port of ``scripts/mxu_probe.py``'s
+``_probe_kernel`` (P1) and ``scripts/fp8_mlp_probe.py``'s ``_mm_kernel``
+(P8).
+
+``mxu_probe(a, b, kind)`` computes one P1 kind on bf16 operands batched
+over programs, with fp32 sums and a bf16 output (shapes a program, rig
+defaults, N 1792):
+
+- ``k64`` (N, 64) . (64, N) folded over its 7 column blocks of 256 into
+  (N, 256); ``ctrl`` (N, 256) . (256, 7 256) and ``ctrlbig`` (N, 256) .
+  (256, 56 256) the same way; ``k64big`` (N, 64) . (64, 56 256): out =
+  sum over j of a . b[:, 256 j : 256 (j + 1)].
+- ``k64w`` (N, 64) . (64, N) and ``pvwide`` (N, N) . (N, 64): one product.
+- ``pv`` (N, N) . (N, 64) as 256-deep slices of the contraction, summed.
+- ``pvbig`` (4, N, N) . (4, N, 64): one full product a head.
+
+``mlp_probe(a, b)`` computes P8: a (programs, N, K) . b (K, M), bf16 or
+float8_e4m3fn operands (b shared by every program), fp32 sums, bf16 out.
+
+On CUDA tensors both launch ``csrc/mma_probe.cu`` (one product kernel; the
+e4m3 instance reads B column-major, so ``mlp_probe`` copies a row-major
+e4m3 b once into that layout, and a column-major b, ``b_t.t()``, goes in
+as it lies), counted in ``mxu_probe.launches`` and ``mlp_probe.launches``;
+a shape the kernel has no instance of raises. On CPU tensors they run the
+plain versions, ``mxu_probe_reference`` and ``mlp_probe_reference``: the
+rig's function in fp32 on the exact operand values (e4m3 upcast first),
+each kind's sums in the rig's order, rounded to bf16 once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+KINDS = ("k64", "k64w", "pv", "pvwide", "ctrl", "ctrlbig", "k64big", "pvbig")
+FOLD_KINDS = ("k64", "ctrl", "ctrlbig", "k64big")  # out = sum_j a . b_j
+BLOCK = 256          # the rig's column block (fold kinds) and pv's slice
+FOLDS = (1, 7, 56)   # the folds the kernel has instances of
+TILE_M = 128         # output rows a block
+DTYPES = (torch.bfloat16, torch.float8_e4m3fn)
+
+
+def _check_pair(a, b, dtypes=(torch.bfloat16,)):
+    if a.dtype not in dtypes or b.dtype != a.dtype:
+        raise TypeError(f"the product rigs take {' or '.join(map(str, dtypes))}"
+                        f" operands of one dtype, got {a.dtype}, {b.dtype}")
+    if a.device != b.device:
+        raise ValueError("a and b must lie on one device")
+
+
+def _check_kind(a, b, kind):
+    """Validate a P1 pair; return the fold (1 for the one-product kinds)."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown product kind {kind!r}; expected one of "
+                         f"{', '.join(KINDS)}")
+    _check_pair(a, b)
+    lead = 2 if kind == "pvbig" else 1  # programs (and pvbig's heads)
+    if (a.ndim != lead + 2 or b.ndim != lead + 2 or a.shape[:lead] !=
+            b.shape[:lead] or a.shape[-1] != b.shape[-2]):
+        raise ValueError(f"{kind} takes a (programs{', heads' * (lead - 1)}, "
+                         f"M, K) and b (..., K, cols) of one batch, got "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}")
+    if kind not in FOLD_KINDS:
+        return 1
+    if b.shape[-1] % BLOCK:
+        raise ValueError(f"{kind} folds b's columns in blocks of {BLOCK}, "
+                         f"got {b.shape[-1]}")
+    return b.shape[-1] // BLOCK
+
+
+def mxu_probe_reference(a: torch.Tensor, b: torch.Tensor,
+                        kind: str) -> torch.Tensor:
+    """Plain PyTorch P1: fp32 products of the bf16 values, summed as the
+    rig sums them (fold kinds: acc + a . b_j for j in order; pv: acc + the
+    product of each 256-deep slice in order), rounded to bf16."""
+    fold = _check_kind(a, b, kind)
+    af, bf = a.float(), b.float()
+    if kind in FOLD_KINDS:
+        acc = torch.zeros(a.shape[:-1] + (BLOCK,), device=a.device)
+        for j in range(fold):
+            acc = acc + af @ bf[..., j * BLOCK:(j + 1) * BLOCK]
+    elif kind == "pv":
+        acc = torch.zeros(a.shape[:-1] + (b.shape[-1],), device=a.device)
+        for j in range(0, a.shape[-1], BLOCK):
+            acc = acc + af[..., j:j + BLOCK] @ bf[..., j:j + BLOCK, :]
+    else:
+        acc = af @ bf
+    return acc.to(torch.bfloat16)
+
+
+def mlp_probe_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch P8: a (programs, N, K) . b (K, M) in fp32 on the exact
+    operand values, rounded to bf16."""
+    _check_mlp(a, b)
+    return (a.float() @ b.float()).to(torch.bfloat16)
+
+
+def _check_mlp(a, b):
+    _check_pair(a, b, DTYPES)
+    if a.ndim != 3 or b.ndim != 2 or a.shape[-1] != b.shape[0]:
+        raise ValueError("mlp_probe takes a (programs, N, K) and a shared b "
+                         f"(K, M), got {tuple(a.shape)}, {tuple(b.shape)}")
+
+
+def _launch(a, b, out, fold, bn, b_batch, fp8=False):
+    """``maest_mma_probe`` on contiguous CUDA a (batch, m, k), b and out
+    (batch, m, ncols)."""
+    batch, m, k = a.shape
+    lib = _build.load_library("mma_probe")
+    fn = lib.maest_mma_probe
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(int(fp8), bn, fold, a.data_ptr(), b.data_ptr(),
+                 out.data_ptr(), batch, m, k, out.shape[-1], b_batch, stream)
+    _build.check(lib, err, f"maest_mma_probe fp8={int(fp8)} bn={bn} "
+                 f"fold={fold}")
+    return out
+
+
+def _check_tiles(m, k, ncols, bn, ke, fold=1):
+    """Raise for a shape the kernel has no instance of."""
+    if m % TILE_M or ncols % bn or k % ke or fold not in FOLDS:
+        raise ValueError(
+            f"the product kernel takes M a multiple of {TILE_M}, output "
+            f"columns of {bn}, K of {ke} and a fold of "
+            f"{', '.join(map(str, FOLDS))}; got M {m}, columns {ncols}, K "
+            f"{k}, fold {fold}")
+
+
+def _cuda(t, what):
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device} for {what}")
+    return t.contiguous()
+
+
+def mxu_probe(a: torch.Tensor, b: torch.Tensor, kind: str) -> torch.Tensor:
+    """P1 ``kind`` on bf16 a and b (see the module docstring); the bf16
+    output. CUDA tensors: ``csrc/mma_probe.cu``; CPU tensors:
+    ``mxu_probe_reference``."""
+    fold = _check_kind(a, b, kind)
+    if a.device.type == "cpu":
+        return mxu_probe_reference(a, b, kind)
+    ncols = BLOCK if kind in FOLD_KINDS else b.shape[-1]
+    bn = 64 if ncols == 64 else 128
+    _check_tiles(a.shape[-2], a.shape[-1], ncols, bn, 64, fold)
+    a3 = _cuda(a, "mxu_probe").reshape((-1,) + a.shape[-2:])
+    b3 = _cuda(b, "mxu_probe").reshape((-1,) + b.shape[-2:])
+    out = torch.empty(a.shape[:-1] + (ncols,), dtype=torch.bfloat16,
+                      device=a.device)
+    _launch(a3, b3, out.view(a3.shape[0], a.shape[-2], ncols), fold, bn,
+            b3[0].numel())
+    mxu_probe.launches += 1
+    return out
+
+
+def mlp_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """P8 on a (programs, N, K) and b (K, M), bf16 or e4m3; the bf16
+    (programs, N, M). CUDA tensors: ``csrc/mma_probe.cu``; CPU tensors:
+    ``mlp_probe_reference``."""
+    _check_mlp(a, b)
+    if a.device.type == "cpu":
+        return mlp_probe_reference(a, b)
+    fp8 = a.dtype == torch.float8_e4m3fn
+    _check_tiles(a.shape[1], a.shape[2], b.shape[1], 128, 128 if fp8 else 64)
+    a = _cuda(a, "mlp_probe")
+    # e4m3: B^T rows (ldmatrix cannot transpose 8-bit values)
+    b = _cuda(b.t() if fp8 else b, "mlp_probe")
+    out = torch.empty(a.shape[:2] + (b.shape[0] if fp8 else b.shape[1],),
+                      dtype=torch.bfloat16, device=a.device)
+    _launch(a, b, out, 1, 128, 0, fp8)
+    mlp_probe.launches += 1
+    return out
+
+
+mxu_probe.launches = 0
+mlp_probe.launches = 0

@@ -1,14 +1,19 @@
 """The attention routes the port takes where the JAX package computes
 (ROADMAP queue 3), held on the CPU against the JAX package:
 
-- head_dim below 64: on the card the kernels run on q, k, v (and o, do)
-  zero-padded to 64 with the unpadded head_dim's softmax scale
-  (``ops/attention.py pad_head_dim``, ``padded_fwd``, ``padded_bwd``).
-  Here the same helpers run with the plain versions in the kernels' place:
-  pad, plain, slice equals plain within 1e-6 (fp32; zero columns change
-  only the order of the sums over head_dim), in every mode and in the
-  backward, and the tiny model at head_dim 16 through them gives the JAX
-  package's logits within 1e-5;
+- head_dim other than the kernels' 64 and 128: on the card the kernels
+  run on q, k, v (and o, do) zero-padded to the next instance with the
+  unpadded head_dim's softmax scale (``ops/attention.py pad_head_dim``,
+  ``padded_fwd``, ``padded_bwd``). Here the same helpers run with the
+  plain versions in the kernels' place: pad, plain, slice equals plain
+  within 1e-6 (fp32; zero columns change only the order of the sums over
+  head_dim), in every mode and in the backward, at head_dim 16 and 32
+  (to 64) and 80, 96 and 128 (to 128), and the tiny model at head_dim 16,
+  96 and 128 through them gives the JAX package's logits within 1e-5;
+- head_dim 128: the plain forward and backward against the JAX package's
+  Pallas kernels (``_flash_fwd_lse``, ``_flash_bwd``) in interpret mode,
+  as ``tests/test_torch_attention.py`` holds them at 64; above 128 the
+  helpers refuse;
 - ``attention_impl="xla"``: the materialised softmax, within 1e-5 of the
   JAX package's XLA path at head_dim 64 and 16;
 - ``attention_impl="flash"`` with attention dropout in train mode raises,
@@ -68,8 +73,8 @@ def _logits(embed, heads, **over):
 
 def _plain_fwd(q, k, v, n_real, with_lse, scale, quant=None):
     """The plain versions in a kernel's place: (o, lse or None) on inputs of
-    head_dim 64."""
-    assert q.shape[-1] == A.HEAD_DIM
+    a kernel instance's head_dim, 64 or 128."""
+    assert q.shape[-1] in A.HEAD_DIMS
     if quant is not None:
         o, lse = A.attention_q8_reference(q, k, v, n_real, quant, scale=scale)
         return o, (lse if with_lse else None)
@@ -79,7 +84,7 @@ def _plain_fwd(q, k, v, n_real, with_lse, scale, quant=None):
 
 
 def _plain_bwd(q, k, v, o, lse, do, n_real, scale, int8=False):
-    assert q.shape[-1] == A.HEAD_DIM
+    assert q.shape[-1] in A.HEAD_DIMS
     ref = A.attention_bwd_int8_reference if int8 else A.attention_bwd_reference
     return torch.stack(ref(q, k, v, o, lse, do, n_real, scale), dim=2)
 
@@ -94,6 +99,23 @@ def test_model_at_head_dim_16_matches_jax(route, monkeypatch):
             A, "_fwd", lambda q, k, v, n_real, quant, with_lse:
             A.padded_fwd(_plain_fwd, q, k, v, n_real, with_lse))
     ours, ref = _logits(64, 4)
+    assert np.abs(ours - ref).max() <= LOGIT_TOL, np.abs(ours - ref).max()
+
+
+@pytest.mark.parametrize("route", ["plain", "padded"])
+@pytest.mark.parametrize("embed,heads", [(256, 2), (192, 2)],
+                         ids=["d128", "d96"])
+def test_model_at_wide_head_dim_matches_jax(embed, heads, route,
+                                            monkeypatch):
+    """head_dim 128 (embed 256, 2 heads) and 96 (embed 192, 2 heads),
+    depth 2, fp32: the kernels' D = 128 instance on the card; here, with
+    "padded", the helpers of that route with the plain versions in the
+    kernels' place (head_dim 96 zero-padded to 128)."""
+    if route == "padded":
+        monkeypatch.setattr(
+            A, "_fwd", lambda q, k, v, n_real, quant, with_lse:
+            A.padded_fwd(_plain_fwd, q, k, v, n_real, with_lse))
+    ours, ref = _logits(embed, heads)
     assert np.abs(ours - ref).max() <= LOGIT_TOL, np.abs(ours - ref).max()
 
 
@@ -152,7 +174,10 @@ def _qkv(b, n, h, d, seed):
     return x.unbind(2)
 
 
-@pytest.mark.parametrize("d", [16, 32])
+WIDTHS = [16, 32, 80, 96, 128]  # padded to 64 (16, 32) or 128 (the rest)
+
+
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("quant", MODES, ids=[str(m) for m in MODES])
 def test_padded_forward_is_the_plain_version(d, quant):
     """pad -> plain -> slice within 1e-6 of plain at head_dim d, lse too;
@@ -167,11 +192,12 @@ def test_padded_forward_is_the_plain_version(d, quant):
         assert (o - ro).abs().max().item() <= PAD_TOL
         assert (lse - rlse).abs().max().item() <= PAD_TOL
     padded, scale = A.pad_head_dim(q)
-    assert padded[0].shape[-1] == 64 and scale == d**-0.5
+    assert padded[0].shape[-1] == (64 if d <= 64 else 128)
+    assert scale == d**-0.5
     assert torch.equal(padded[0][..., :d], q) and not padded[0][..., d:].any()
 
 
-@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16_path", "int8"])
 def test_padded_backward_is_the_plain_version(d, int8):
     """The (B, N, 3, H, d) gradients through pad -> plain -> slice within
@@ -187,6 +213,55 @@ def test_padded_backward_is_the_plain_version(d, int8):
 
 
 def test_wide_heads_are_refused():
-    x = torch.zeros(1, 4, 2, 128)
+    x = torch.zeros(1, 4, 2, 192)
     with pytest.raises(ValueError, match="ROADMAP queue 3"):
         A.pad_head_dim(x, x, x)
+
+
+# as tests/test_torch_attention.py: fp32 rtol 1e-3 / atol 1e-4; bf16 2e-2
+# (absolute and relative), compared in fp32, the JAX package's own
+GRAD_TOL = {torch.float32: dict(rtol=1e-3, atol=1e-4),
+            torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_head_dim_128_matches_jax_flash_interpret(dtype):
+    """The port's Function at head_dim 128 (forward with lse, backward; on
+    the CPU their plain versions) against the JAX custom VJP with its Pallas
+    kernels in interpret mode, which take the whole head_dim as a block's
+    last axis, at N 200 with n_real 190."""
+    from maest_tpu.ops.attention import _flash_fwd_lse
+    from maest_tpu.ops.attention import flash_attention as jax_flash
+
+    n, n_real = 200, 190
+    x = np.random.default_rng(21).standard_normal(
+        (2, n, 3, 2, 128)).astype(np.float32)
+    g = np.random.default_rng(22).standard_normal(
+        (2, n, 2, 128)).astype(np.float32)
+    xt = torch.from_numpy(x).to(dtype).requires_grad_(True)
+    out = A.flash_attention(xt[:, :, 0], xt[:, :, 1], xt[:, :, 2],
+                            n_real=n_real)
+    out.backward(torch.from_numpy(g).to(dtype))
+    _, lse = A.flash_attention_fwd_lse(
+        *(xt[:, :, i].detach() for i in range(3)), n_real=n_real)
+
+    xj = jnp.asarray(x).astype(JNP[dtype])
+    q, k, v = xj[:, :, 0], xj[:, :, 1], xj[:, :, 2]
+    ref, vjp = jax.vjp(
+        lambda q, k, v: jax_flash(q, k, v, n_real=n_real, interpret=True),
+        q, k, v)
+    grads = vjp(jnp.asarray(g).astype(JNP[dtype]))
+    _, ref_lse = _flash_fwd_lse(q, k, v, block_q=896, block_k=448,
+                                interpret=True, n_real=n_real)
+    ref_lse = np.asarray(ref_lse).reshape(2, 2, -1)[:, :, :n]
+    np.testing.assert_allclose(lse.numpy(), ref_lse, **GRAD_TOL[torch.float32])
+    np.testing.assert_allclose(out.detach().float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               **GRAD_TOL[dtype])
+    for i in range(3):
+        np.testing.assert_allclose(xt.grad[:, :, i].float().numpy(),
+                                   np.asarray(grads[i].astype(jnp.float32)),
+                                   **GRAD_TOL[dtype])
+    assert not xt.grad[:, n_real:, 1:].any()  # masked keys: zero dk, dv

@@ -102,16 +102,18 @@ def test_attention_kernel_matches_plain(cuda_device, b, n, n_real, dtype):
 
 
 def test_attention_kernel_rejects_what_it_does_not_take(cuda_device):
-    """head_dim 32 runs K2 on inputs zero-padded to 64 (the plain version's
-    result); head_dim 128 is refused, naming ROADMAP queue 3."""
-    x = _rand((1, 8, 3, 2, 32), 3).to(cuda_device)
-    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
-    before = flash_attention.launches
-    out = flash_attention(q, k, v)
-    assert flash_attention.launches == before + 1 and out.shape == q.shape
-    err = (out - attention_reference(q, k, v)).abs().max().item()
-    assert err <= ATTN_TOL[torch.float32], err
-    x = torch.zeros(1, 8, 3, 2, 128, device=cuda_device)
+    """head_dim 32 runs K2 on inputs zero-padded to 64 and head_dim 128 its
+    D = 128 instance (each the plain version's result); head_dim 192 is
+    refused, naming ROADMAP queue 3."""
+    for d in (32, 128):
+        x = _rand((1, 8, 3, 2, d), 3).to(cuda_device)
+        q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+        before = flash_attention.launches
+        out = flash_attention(q, k, v)
+        assert flash_attention.launches == before + 1 and out.shape == q.shape
+        err = (out - attention_reference(q, k, v)).abs().max().item()
+        assert err <= ATTN_TOL[torch.float32], (d, err)
+    x = torch.zeros(1, 8, 3, 2, 192, device=cuda_device)
     with pytest.raises(ValueError, match="ROADMAP queue 3"):
         flash_attention(x[:, :, 0], x[:, :, 1], x[:, :, 2])
     x = torch.zeros(1, 8, 3, 2, 64, device=cuda_device, dtype=torch.float16)
@@ -675,6 +677,141 @@ def test_padded_head_dim_matches_plain(cuda_device, d, dtype):
         assert ours.shape == q.shape and ours.dtype == dtype
         assert (ours.float() - want.float()).abs().max().item() <= tol
     assert (lse - rlse).abs().max().item() <= LSE_TOL
+
+
+# --- head_dim 65-128: the kernels' D = 128 instances -----------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("d", [96, 128])
+def test_wide_head_dim_matches_plain(cuda_device, d, dtype):
+    """K2, K3a, K3b, K5/K6 in every mode (with lse) and K7 at head_dim d
+    (96 zero-padded to 128), each launched once, against the plain
+    versions, within the bounds head_dim 64 is held to: K2-K3b as
+    test_padded_head_dim_matches_plain; the 8-bit forward 2e-2 in bf16
+    (test_q8_forward_kernels_match_plain) and, in fp32, relative L2 1e-5
+    (qk8, fp8) or 2 bf16 ulps of max|o| (pv8 modes); K7 2e-2 of each
+    gradient's max."""
+    from maest_tpu_torch.ops import attention as A
+
+    x = _rand((2, 300, 4, 4, d), 40 + d).to(cuda_device, dtype)
+    q, k, v, g = x[:, :, 0], x[:, :, 1], x[:, :, 2], x[:, :, 3]
+    counts = [f.launches for f in (flash_attention, flash_attention_fwd_lse,
+                                   attention_bwd)]
+    o2 = flash_attention(q, k, v, n_real=290)
+    o, lse = flash_attention_fwd_lse(q, k, v)
+    ro, rlse = attention_reference_lse(q, k, v)
+    grads = attention_bwd(q, k, v, ro, rlse, g)
+    ref = attention_bwd_reference(q, k, v, ro, rlse, g)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (flash_attention, flash_attention_fwd_lse,
+                                 attention_bwd)] == [c + 1 for c in counts]
+    for ours, want in [(o2, attention_reference(q, k, v, n_real=290)),
+                       (o, ro), *zip(grads, ref)]:
+        assert ours.shape == q.shape and ours.dtype == dtype
+        assert (ours.float() - want.float()).abs().max().item() <= (
+            ATTN_TOL[dtype])
+    assert (lse - rlse).abs().max().item() <= LSE_TOL
+    for mode in Q8_MODES:
+        wrap = (A.attention_fwd_int8 if mode.startswith("qk8")
+                else A.attention_fwd_fp8)
+        before = wrap.launches
+        o8, l8 = wrap(q, k, v, 290, mode.endswith("pv8"), with_lse=True)
+        r8, rl8 = A.attention_q8_reference(q, k, v, 290, mode)
+        torch.cuda.synchronize()
+        assert wrap.launches == before + 1 and o8.shape == q.shape
+        if dtype == torch.bfloat16:
+            assert (o8.float() - r8.float()).abs().max().item() <= 2e-2, mode
+        elif mode.endswith("pv8"):
+            top = r8.abs().max().item()
+            tol = 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+            assert (o8 - r8).abs().max().item() <= tol, mode
+        else:
+            assert ((o8 - r8).norm() / r8.norm()).item() <= 1e-5, mode
+        assert (l8 - rl8).abs().max().item() <= LSE_TOL
+    before = A.attention_bwd_int8.launches
+    got = A.attention_bwd_int8(q, k, v, ro, rlse, g, 290)
+    want8 = A.attention_bwd_int8_reference(q, k, v, ro, rlse, g, 290)
+    torch.cuda.synchronize()
+    assert A.attention_bwd_int8.launches == before + 1
+    for ours, want in zip(got, want8):
+        assert ours.shape == q.shape and ours.dtype == dtype
+        top = want.float().abs().max().item()
+        assert (ours.float() - want.float()).abs().max().item() <= 2e-2 * top
+    assert not got[1][:, 290:].any() and not got[2][:, 290:].any()
+
+
+# --- P1 and P8: the product kernel (ops/mma_probe.py) -----------------------
+# against the plain versions at the rigs' shapes, two programs: 2 bf16 ulps
+# of max|out| (both sum exact products in fp32, in other orders, and round
+# once to bf16) and a relative L2 of at most 1e-2.
+@pytest.mark.parametrize("kind", ["k64", "k64w", "pv", "pvwide", "ctrl",
+                                  "ctrlbig", "k64big", "pvbig"])
+def test_mxu_kernel_matches_plain(cuda_device, kind):
+    from maest_tpu_torch.ops.mma_probe import mxu_probe, mxu_probe_reference
+    from maest_tpu_torch.probes import mxu
+
+    a, b = mxu.operands(kind, 2, cuda_device)
+    before = mxu_probe.launches
+    out = mxu_probe(a, b, kind)
+    ref = mxu_probe_reference(a, b, kind).float()
+    torch.cuda.synchronize()
+    assert mxu_probe.launches == before + 1
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    top = ref.abs().max().item()
+    assert (out.float() - ref).abs().max().item() <= 2 * 2.0 ** (
+        math.floor(math.log2(top)) - 7)
+    assert ((out.float() - ref).norm() / ref.norm()).item() <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp8"])
+@pytest.mark.parametrize("shape", ["fc1", "fc2", "qkv"])
+def test_mlp_kernel_matches_plain(cuda_device, shape, dtype):
+    from maest_tpu_torch.ops.mma_probe import mlp_probe, mlp_probe_reference
+    from maest_tpu_torch.probes import fp8_mlp
+
+    a, b = fp8_mlp.operands(shape, dtype, 2, cuda_device)
+    before = mlp_probe.launches
+    out = mlp_probe(a, b)
+    ref = mlp_probe_reference(a, b).float()
+    torch.cuda.synchronize()
+    assert mlp_probe.launches == before + 1
+    top = ref.abs().max().item()
+    assert (out.float() - ref).abs().max().item() <= 2 * 2.0 ** (
+        math.floor(math.log2(top)) - 7)
+    assert ((out.float() - ref).norm() / ref.norm()).item() <= 1e-2
+    # a row-major e4m3 b is copied into the kernel's layout: the same result
+    if dtype == "fp8":
+        assert torch.equal(mlp_probe(a, b.contiguous()), out)
+
+
+def test_mma_kernel_refuses_what_it_has_no_instance_of(cuda_device):
+    from maest_tpu_torch.ops.mma_probe import mlp_probe, mxu_probe
+
+    a = torch.zeros(1, 100, 64, device=cuda_device, dtype=torch.bfloat16)
+    b = torch.zeros(1, 64, 256, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        mxu_probe(a, b, "k64w")
+    with pytest.raises(ValueError, match="fold of 1, 7, 56"):
+        mxu_probe(torch.zeros(1, 128, 64, device=cuda_device,
+                              dtype=torch.bfloat16),
+                  torch.zeros(1, 64, 3 * 256, device=cuda_device,
+                              dtype=torch.bfloat16), "k64")
+    with pytest.raises(ValueError, match="K of 128"):
+        mlp_probe(torch.zeros(2, 128, 96, device=cuda_device).to(
+            torch.float8_e4m3fn), torch.zeros(96, 128, device=cuda_device).to(
+            torch.float8_e4m3fn))
+
+
+def test_mma_rigs_on_the_card(cuda_device, capsys):
+    from maest_tpu_torch.probes import fp8_mlp, mxu
+
+    res = mxu.main(["--programs", "4", "--iters", "2", "--kinds",
+                    "k64,pv,k64big"])
+    assert all(r["ms"] > 0 and r["tflops"] > 0 for r in res.values())
+    res = fp8_mlp.main(["--programs", "2", "--iters", "2"])
+    assert {"library_fc1_bf16", "library_fc1_fp8"} <= set(res)
+    out = capsys.readouterr().out
+    assert "TFLOP/s" in out and "torch._scaled_mm" in out
 
 
 # --- P9 and P7: K2 and K3b at other tiles (ops/attention_probe.py) ----------
