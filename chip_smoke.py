@@ -36,22 +36,28 @@ launch counters reset (22). Then the routes that close ROADMAP queue 3 on
 the card: head_dim 16 and 32 through the kernels on zero-padded inputs,
 fp32 under every 8-bit mode (the fp32 instances of K5/K6 and K7), head_dim
 96 and 128 through the D = 128 instances of every production kernel in
-bf16 and fp32, and the refusal of head_dim 192 (23); K2 and K3b at other
+bf16 and fp32, 192 and 256 through the D = 256 instances, and the refusal
+of head_dim 320 (23); K2 and K3b at other
 tiles, the kernels of ``scripts/qpad_probe.py`` (P9) and
 ``scripts/attn_tune.py`` (P7), against their plain versions at every shape
 a phase launches them at and bit-equal to K2 / K3b where their arithmetic
 is K2's / K3b's (24); and both rigs,
 ``python -m maest_tpu_torch.probes.qpad`` and ``python -m
 maest_tpu_torch.probes.attn_tune [--bwd]``, called in process with the
-launch counters reset (25). Then this slice: the product kernel of
+launch counters reset (25). Then the product kernel of
 ``scripts/mxu_probe.py`` (P1) and ``scripts/fp8_mlp_probe.py`` (P8)
 against its plain versions in every kind, shape and type, with a planted
 fault refused (26); both rigs, ``python -m maest_tpu_torch.probes.mxu``
 and ``... probes.fp8_mlp``, in process with the counters reset, and
-head_dim 128 (and 96, zero-padded) at full width through the kernels' D =
-128 instances: ``get_maest(embed_dim=768, num_heads=6)`` tagging against
-the CPU and timed at batch 32, one 30 s recipe step, K2, K3a, K3b, K7
-and the 8-bit forwards against plain, timed beside SDPA (27). Every phase
+head_dim 128 (and 96, zero-padded) and 256 at full width through the
+kernels' D = 128 and D = 256 instances: ``get_maest(embed_dim=768,
+num_heads=6 | 3)`` tagging against the CPU and timed at batch 32, one 30 s
+recipe step each, K2, K3a, K3b (and at 128 K7 and the 8-bit forwards)
+against plain, timed beside SDPA (27). Then this slice: the int8 product
+rigs ``scripts/int8_probe.py`` (P2) and ``scripts/int8_probe2.py`` (P3),
+every kind's kernel against its plain version with a planted fault
+refused, and both rigs, ``python -m maest_tpu_torch.probes.int8`` and
+``... probes.int8_2``, in process with the counters reset (28). Every phase
 prints one line per check; any failure raises, so the exit code is not 0.
 The card's name and power limit, the JSON record of the kernels (with each
 one's bound: the least time the card could take for its work at the
@@ -1617,19 +1623,19 @@ def phase_queue3(dev, gpu):
     zero-padded inputs: the forward, lse and backward against their plain
     versions at (4, 281, 12, d) in bf16 and fp32, and K5/K6 and K7 at d 32
     in fp32; head_dim 96 (zero-padded) and 128 run the D = 128 instances of
-    K2, K3a, K3b, K5/K6 in every mode and K7, in bf16 and fp32, each against
-    its plain version within the bound head_dim 64 is held to, each launch
-    counted. fp32 under every 8-bit mode runs the fp32 instances of K5/K6
+    K2, K3a, K3b, K5/K6 in every mode and K7, in bf16 and fp32, and head_dim
+    192 (zero-padded) and 256 the D = 256 instances, each against its plain
+    version within the bound head_dim 64 is held to, each launch counted. fp32 under every 8-bit mode runs the fp32 instances of K5/K6
     (with lse, as the recipe step launches them) and K7: against
     attention_q8_reference and attention_bwd_int8_reference at the path's
     (2, 866, 12, 64), with the launch counters checked and the times; K7's
-    gradients rounded to bf16 fail its bound. head_dim 192 is refused.
+    gradients rounded to bf16 fail its bound. head_dim 320 is refused.
     Returns the errors, times and the path's launches."""
     from maest_tpu_torch.ops import attention as A
 
     launches = _queue3_routes(dev)
     gen = torch.Generator(device=dev).manual_seed(12)
-    for d in (16, 32, 96, 128):
+    for d in (16, 32, 96, 128, 192, 256):
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[1]
             x = torch.randn((4, 281, 5, 12, d), generator=gen, device=dev).to(
@@ -1716,14 +1722,15 @@ def phase_queue3(dev, gpu):
           " and the bf16-rounded gradients fail it; "
           f"time: kernel {out['k7_ms'][0]:.4f} ms, plain {out['k7_ms'][1]:.4f}"
           f" ms [{gpu}]", flush=True)
-    wide = torch.zeros((1, 8, 2, 192), device=dev, dtype=torch.bfloat16)
+    wide = torch.zeros((1, 8, 2, 320), device=dev, dtype=torch.bfloat16)
     try:
         A.flash_attention(wide, wide, wide)
-        check(False, "head_dim 192 ran")
+        check(False, "head_dim 320 ran")
     except ValueError as err:
-        check("ROADMAP queue 3" in str(err), f"head_dim 192: {err}")
-    print("phase 23 head_dim 192: refused (ValueError naming ROADMAP queue "
-          "3; 65-128 run the D = 128 instances, phase 27)", flush=True)
+        check("ROADMAP queue 3" in str(err), f"head_dim 320: {err}")
+    print("phase 23 head_dim 320: refused (ValueError naming ROADMAP queue "
+          "3; 65-128 run the D = 128 instances and 129-256 the D = 256 "
+          "ones, phase 27)", flush=True)
     del x, q, k, v, g, o, lse, got, ref
     torch.cuda.empty_cache()
     return out
@@ -2142,17 +2149,19 @@ def phase_wide_heads_and_mma_rigs(dev, gpu):
     before and read just after. Both rigs as a user runs them, here their
     ``main`` in process at their default programs (``python -m
     maest_tpu_torch.probes.mxu --kinds <every kind>``, ``python -m
-    maest_tpu_torch.probes.fp8_mlp``). Then head_dim 128 at full width:
-    ``get_maest(embed_dim=768, num_heads=6)`` tagging 2 clips of 30 s
-    through K2's D = 128 instance (``_tagging``), its batch-32 30 s bf16
-    step timed; ``num_heads=8`` (head_dim 96, zero-padded to 128) the same;
-    one bf16 step of the 30 s recipe at 6 heads (N 866), its heads drawn,
-    through K3a and K3b at D = 128, 12 of each. Then K2 at (32, 1676, 6,
-    128) and K3a and K3b at (32, 866, 6, 128) against their plain versions,
-    K2 and K3b timed beside them and SDPA (flash backend, never called by
-    the port), and K7 and the 8-bit forwards at D = 128 against their plain
-    versions and timed, K3a timed. Returns the rigs' results, the launches,
-    errors and times."""
+    maest_tpu_torch.probes.fp8_mlp``). Then head_dim 128 and 256 at full
+    width: ``get_maest(embed_dim=768, num_heads=6)`` tagging 2 clips of 30
+    s through K2's D = 128 instance (``_tagging``), its batch-32 30 s bf16
+    step timed; ``num_heads=8`` (head_dim 96, zero-padded to 128) the same,
+    and ``num_heads=3`` (head_dim 256) through the D = 256 instance; one
+    bf16 step of the 30 s recipe at 6 heads and one at 3 (N 866), heads
+    drawn, through K3a and K3b at D = 128 and 256, 12 of each. Then K2 at
+    (32, 1676, 6, 128) and (32, 1676, 3, 256), and K3a and K3b at (32, 866,
+    6, 128) and (32, 866, 3, 256), against their plain versions, K2 and K3b
+    timed beside them and SDPA (flash backend, never called by the port),
+    and K7 and the 8-bit forwards at D = 128 against their plain versions
+    and timed, K3a timed. Returns the rigs' results, the launches, errors
+    and times."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -2173,7 +2182,7 @@ def phase_wide_heads_and_mma_rigs(dev, gpu):
     out = {"err": {}, "ms": {}}
     waves = torch.from_numpy(np.random.default_rng(27).standard_normal(
         (BATCH, CLIP)).astype(np.float32) * 0.1).to(dev)
-    for heads in (6, 8):
+    for heads in (6, 8, 3):
         before = _q8_counts()[1]
         model, errs, spread = _tagging(dev, heads, 27 + heads)
         grew = [a - b for a, b in zip(_q8_counts()[1], before)]
@@ -2186,7 +2195,8 @@ def phase_wide_heads_and_mma_rigs(dev, gpu):
         launches[f"k2_d{768 // heads}"] = grew[0]
         print(f"phase 27 head_dim {768 // heads}: get_maest(embed_dim=768, "
               f"num_heads={heads}) tagging 2 clips of 30 s through K2's "
-              f"D = 128 instance{' on inputs zero-padded to 128' * (heads == 8)}"
+              f"D = {A.padded_dim(768 // heads)} instance"
+              f"{' on inputs zero-padded to 128' * (heads == 8)}"
               f": fp32 vs the CPU's plain attention max_abs_err {errs[0]:.3e}, "
               f"bf16 vs fp32 {errs[1]:.3e} <= {TIER_TOL} (activations spread "
               f"over {spread:.3f}); launches (K2, K3a, K3b, K5, K6, K7) "
@@ -2196,32 +2206,35 @@ def phase_wide_heads_and_mma_rigs(dev, gpu):
         torch.cuda.empty_cache()
     del waves
 
-    _, mcfg, net, state, step, data = _recipe(dev, RECIPE, BATCH, 27,
-                                              ["maest.num_heads=6"])
-    drawn = torch.Generator(device=dev).manual_seed(27)
-    with torch.no_grad():  # zero heads give loss ln 2 and do = 0
-        for lin in (net.head[1], net.head_dist):
-            lin.weight.normal_(0.0, 0.05, generator=drawn)
-    before = _q8_counts()[1]
-    _, metrics = step(state, data, torch.Generator().manual_seed(27))
-    torch.cuda.synchronize()
-    grew = [a - b for a, b in zip(_q8_counts()[1], before)]
-    check(grew == [0, mcfg.depth, mcfg.depth, 0, 0, 0]
-          and metrics["nonfinite_skipped"] == 0.0
-          and np.isfinite(metrics["train_loss"])
-          and abs(metrics["train_loss"] - np.log(2)) > 1e-3,
-          f"head_dim 128 recipe step: launches {grew}, {metrics}")
-    launches["k3a_d128"], launches["k3b_d128"] = grew[1], grew[2]
-    print(f"phase 27 {RECIPE} at num_heads 6 (head_dim 128), batch {BATCH}, "
-          f"bf16 over fp32 parameters, heads drawn N(0, 0.05^2): one step, "
-          f"loss {metrics['train_loss']:.6f} (not ln 2), launches (K2, K3a, "
-          f"K3b, K5, K6, K7) {grew}", flush=True)
-    del net, state, step, data
-    torch.cuda.empty_cache()
+    for heads in (6, 3):
+        d = 768 // heads
+        _, mcfg, net, state, step, data = _recipe(
+            dev, RECIPE, BATCH, 27, [f"maest.num_heads={heads}"])
+        drawn = torch.Generator(device=dev).manual_seed(27)
+        with torch.no_grad():  # zero heads give loss ln 2 and do = 0
+            for lin in (net.head[1], net.head_dist):
+                lin.weight.normal_(0.0, 0.05, generator=drawn)
+        before = _q8_counts()[1]
+        _, metrics = step(state, data, torch.Generator().manual_seed(27))
+        torch.cuda.synchronize()
+        grew = [a - b for a, b in zip(_q8_counts()[1], before)]
+        check(grew == [0, mcfg.depth, mcfg.depth, 0, 0, 0]
+              and metrics["nonfinite_skipped"] == 0.0
+              and np.isfinite(metrics["train_loss"])
+              and abs(metrics["train_loss"] - np.log(2)) > 1e-3,
+              f"head_dim {d} recipe step: launches {grew}, {metrics}")
+        launches[f"k3a_d{d}"], launches[f"k3b_d{d}"] = grew[1], grew[2]
+        print(f"phase 27 {RECIPE} at num_heads {heads} (head_dim {d}), batch "
+              f"{BATCH}, bf16 over fp32 parameters, heads drawn N(0, 0.05^2):"
+              f" one step, loss {metrics['train_loss']:.6f} (not ln 2), "
+              f"launches (K2, K3a, K3b, K5, K6, K7) {grew}", flush=True)
+        del net, state, step, data
+        torch.cuda.empty_cache()
 
     gen = torch.Generator(device=dev).manual_seed(28)
-    for b, n in ((BATCH, 1676), (BATCH, 866)):
-        x = (torch.randn((b, n, 4, 6, 128), generator=gen, device=dev)
+    for b, n, heads, d in ((BATCH, 1676, 6, 128), (BATCH, 866, 6, 128),
+                           (BATCH, 1676, 3, 256), (BATCH, 866, 3, 256)):
+        x = (torch.randn((b, n, 4, heads, d), generator=gen, device=dev)
              ).to(torch.bfloat16)
         q, k, v, g = x[:, :, 0], x[:, :, 1], x[:, :, 2], x[:, :, 3]
         qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
@@ -2234,17 +2247,20 @@ def phase_wide_heads_and_mma_rigs(dev, gpu):
                 with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
                     lib = cuda_ms_median(
                         lambda: F.scaled_dot_product_attention(qs, ks, vs), 10)
-            key = "fwd_d128"
+            key = f"fwd_d{d}"
         else:
             o, lse = A.flash_attention_fwd_lse(q, k, v)
             ro, rlse = A.attention_reference_lse(q, k, v)
             ea, el = max_err(o, ro), max_err(lse, rlse)
             check(ea <= ATTN_TOL["bfloat16"] and el <= LSE_TOL,
-                  f"K3a D = 128 vs plain {ea} lse {el}")
-            out["err"]["fwd_lse_d128"] = max(ea, el)
-            print(f"phase 27 K3a D = 128 at ({b}, {n}, 6, 128) bf16: "
+                  f"K3a D = {d} vs plain {ea} lse {el}")
+            out["err"][f"fwd_lse_d{d}"] = max(ea, el)
+            out["ms"][f"k3a_d{d}"] = cuda_ms_median(
+                lambda: A.flash_attention_fwd_lse(q, k, v), 10)
+            print(f"phase 27 K3a D = {d} at ({b}, {n}, {heads}, {d}) bf16: "
                   f"max_abs_err vs plain o {ea:.3e} <= {ATTN_TOL['bfloat16']},"
-                  f" lse {el:.3e} <= {LSE_TOL}", flush=True)
+                  f" lse {el:.3e} <= {LSE_TOL}; kernel "
+                  f"{out['ms'][f'k3a_d{d}']:.4f} ms [{gpu}]", flush=True)
             del ro, rlse
             got = A.attention_bwd(q, k, v, o, lse, g)
             ref = A.attention_bwd_reference(q, k, v, o, lse, g)
@@ -2259,19 +2275,19 @@ def phase_wide_heads_and_mma_rigs(dev, gpu):
                     lambda: F.scaled_dot_product_attention(qg, kg, vg), 10)
                 lib = cuda_ms_median(lambda: F.scaled_dot_product_attention(
                     qg, kg, vg).backward(gs), 10) - fwd
-            key = "bwd_d128"
+            key = f"bwd_d{d}"
             del o, lse, got, ref, qg, kg, vg
         check(e <= ATTN_TOL["bfloat16"], f"{key} vs plain {e}")
         out["err"][key], out["ms"][key], out["ms"][f"{key}_sdpa"] = e, ms, lib
-        print(f"phase 27 {'K2' if n == 1676 else 'K3b'} D = 128 at ({b}, {n}, "
-              f"6, 128) bf16: max_abs_err vs plain {e:.3e} <= "
+        print(f"phase 27 {'K2' if n == 1676 else 'K3b'} D = {d} at ({b}, {n}, "
+              f"{heads}, {d}) bf16: max_abs_err vs plain {e:.3e} <= "
               f"{ATTN_TOL['bfloat16']}; kernel {ms[0]:.4f} ms, plain "
               f"{ms[1]:.4f} ms, SDPA {lib:.4f} ms [{gpu}]", flush=True)
         del x, q, k, v, g, qs, ks, vs
         torch.cuda.empty_cache()
     # the other production kernels at D = 128, each against its plain
-    # version within phase 15's and phase 13's bounds, then timed: K3a
-    # (held to plain above) and K7 at (32, 866, 6, 128), the four 8-bit
+    # version within phase 15's and phase 13's bounds, then timed: K7 at
+    # (32, 866, 6, 128) (K3a is held to plain and timed above), the four 8-bit
     # forwards (the wrappers, their PyTorch pass included) at (32, 1676, 6,
     # 128)
     for n in (866, 1676):
@@ -2290,8 +2306,6 @@ def phase_wide_heads_and_mma_rigs(dev, gpu):
         with torch.inference_mode():
             if n == 866:
                 o, lse = A.flash_attention_fwd_lse(q, k, v)
-                out["ms"]["k3a_d128"] = cuda_ms_median(
-                    lambda: A.flash_attention_fwd_lse(q, k, v), 10)
                 out["ms"]["k7_d128"] = cuda_ms_median(
                     lambda: A.attention_bwd_int8(q, k, v, o, lse, g), 10)
                 del o, lse
@@ -2311,6 +2325,90 @@ def phase_wide_heads_and_mma_rigs(dev, gpu):
     print(f"phase 27 launches in the path's run: {launches}", flush=True)
     out["rigs"], out["launches"] = rigs, launches
     return out
+
+
+def phase_int8_rigs(dev, gpu):
+    """Phase 28: the kernels of the int8 product rigs P2
+    (``scripts/int8_probe.py``) and P3 (``scripts/int8_probe2.py``), ported
+    in ``ops/int8_probe.py``. Every kind's kernel against its plain version
+    at the rigs' N with the programs cut to 2 (``plain_gap``: exact for
+    int32 outputs, mix_i8 within one p8 a row one apart, k64_i8q within 1
+    bf16 ulp of max|out| with the maxima its codes came from equal to
+    plain's, the rest 2 bf16 ulps and relative L2 1e-2), each launch
+    counted, mix_i8's differing rows counted; one of k64big_i8's 56 column
+    blocks skipped is refused. Then the slice's path: both rigs as a user
+    runs them, their ``main`` in process at their default programs
+    (``python -m maest_tpu_torch.probes.int8`` and ``... probes.int8_2``),
+    the counters set to 0 just before and read just after. Then the plain
+    versions' times at the kernels line's kinds: k64_i8q (48 programs) and
+    k64big_i8 (8). Returns the errors, the rigs' results, the launches and
+    the plain times."""
+    from maest_tpu_torch.ops import int8_probe as I
+    from maest_tpu_torch.probes import int8, int8_2
+
+    err, parts = {}, []
+    for kinds, mod, wrap, ref_fn in (
+            (I.P2_KINDS, int8, I.int8_probe, I.int8_probe_reference),
+            (I.P3_KINDS, int8_2, I.int8_big_probe,
+             I.int8_big_probe_reference)):
+        for kind in kinds:
+            a, b = int8.operands(kind, 2, dev, mod.shapes)
+            before = wrap.launches
+            out, ref = wrap(a, b, kind), ref_fn(a, b, kind)
+            torch.cuda.synchronize()
+            e, tol, ok = I.plain_gap(kind, out, ref)
+            check(wrap.launches == before + 1 and out.shape == ref.shape
+                  and out.dtype == I.out_dtype(kind) and ok,
+                  f"{kind}: max_abs_err {e} (bound {tol})")
+            note = ""
+            if kind == "k64_i8q":
+                _, amax = I.launch_i8q(a, b)
+                want = torch.stack([a.float().abs().amax(dim=(1, 2)),
+                                    b.float().abs().amax(dim=(1, 2))], dim=1)
+                check(torch.equal(amax, want), f"k64_i8q maxima {amax} {want}")
+                note = ", maxima equal"
+            if kind == "mix_i8":
+                rows = (out[..., :I.MIX_COLS] != ref[..., :I.MIX_COLS]).any(
+                    dim=-1).sum().item()
+                note = f", rows apart {rows} of {2 * int8.N}"
+            err[kind] = e
+            parts.append(f"{kind} {e:.3g} (<= {tol:.3g}{note})")
+            del a, b, out, ref
+    a, b = int8.operands("k64big_i8", 2, dev, int8_2.shapes)
+    skipped = b.clone()
+    skipped[..., 13 * 256:14 * 256] = 0
+    e, tol, ok = I.plain_gap("k64big_i8", I.int8_big_probe(a, skipped,
+                                                           "k64big_i8"),
+                             I.int8_big_probe_reference(a, b, "k64big_i8"))
+    check(not ok, f"the planted fault passed: {e}")
+    print("phase 28 P2/P3 kernels (csrc/mma_probe.cu 8-bit instances and "
+          "i8q, csrc/attention_probe.cu MIX/MIX8, P1's bf16 instances) vs "
+          "plain at the rigs' N, 2 programs: max_abs_err " + ", ".join(parts)
+          + f"; planted fault (k64big_i8's column block 13 of 56 skipped): "
+          f"{e:.0f} > {tol:.0f}: refused", flush=True)
+    del a, b, skipped
+    torch.cuda.empty_cache()
+
+    print("phase 28 rigs: python -m maest_tpu_torch.probes.int8; python -m "
+          "maest_tpu_torch.probes.int8_2", flush=True)
+    _reset_counts()
+    I.int8_probe.launches = I.int8_big_probe.launches = 0
+    rigs = {"p2": int8.main([]), "p3": int8_2.main([])}
+    launches = {"p2": I.int8_probe.launches, "p3": I.int8_big_probe.launches}
+    check(all(launches.values()), f"rig launches {launches}")
+    plain = {}
+    a, b = int8.operands("k64_i8q", 48, dev)
+    plain["k64_i8q"] = cuda_ms(lambda: I.int8_probe_reference(a, b, "k64_i8q"),
+                               3)
+    a, b = int8.operands("k64big_i8", 8, dev, int8_2.shapes)
+    plain["k64big_i8"] = cuda_ms(
+        lambda: I.int8_big_probe_reference(a, b, "k64big_i8"), 3)
+    del a, b
+    torch.cuda.empty_cache()
+    print(f"phase 28 launches in the rigs' run: {launches}; plain versions "
+          f"(CUDA events): k64_i8q (48 programs) {plain['k64_i8q']:.4f} ms, "
+          f"k64big_i8 (8) {plain['k64big_i8']:.4f} ms [{gpu}]", flush=True)
+    return {"err": err, "rigs": rigs, "launches": launches, "plain": plain}
 
 
 def main() -> int:
@@ -2383,6 +2481,7 @@ def main() -> int:
     tune, alone, tune_launches = phase_tune_rigs()
     mma = phase_mma_kernels(dev, gpu)
     wide = phase_wide_heads_and_mma_rigs(dev, gpu)
+    i8 = phase_int8_rigs(dev, gpu)
 
     frames = BATCH * 1876  # frames of 32 clips of 30 s
     mel_ops = frames * (512 + 4 * 512 * 257 + 3 * 257 + 2 * 257 * 96 + 96)
@@ -2412,11 +2511,17 @@ def main() -> int:
         "k7_fp32": bwd_bound(2, 866, 12, kind="int8", elem=4),
         "fwd_d128": attn_bound(BATCH, 1676, 6, d=128),
         "bwd_d128": bwd_bound(BATCH, 866, 6, d=128),
+        "fwd_d256": attn_bound(BATCH, 1676, 3, d=256),
+        "bwd_d256": bwd_bound(BATCH, 866, 3, d=256),
     }
     # P1 k64big (48 programs) and P8 fc1 bf16 (32): the rigs' own bounds
     from maest_tpu_torch.probes import fp8_mlp, mxu
     bounds["mxu"] = mxu.bound("k64big", 48)
     bounds["mlp"] = fp8_mlp.bound("fc1", "bf16", 32)
+    # P2 k64_i8q (48 programs) and P3 k64big_i8 (8): the rigs' own bounds
+    from maest_tpu_torch.probes import int8, int8_2
+    bounds["int8_probe"] = int8.bound("k64_i8q", 48)
+    bounds["int8_big_probe"] = int8_2.bound("k64big_i8", 8)
     src = "maest_tpu_torch/csrc/"
     rows = [
         ("fused_logmel", "mel_kernel.cu", "maest_tpu/ops/mel_kernel.py:39",
@@ -2533,6 +2638,35 @@ def main() -> int:
          "maest_tpu/ops/attention.py:483", wide["launches"]["k3b_d128"],
          wide["err"]["bwd_d128"], wide["ms"]["bwd_d128"], "bwd_d128",
          wide["ms"]["bwd_d128_sdpa"]),
+        ("attention_fwd_d256", "attention_fwd.cu",
+         "maest_tpu/ops/attention.py:176", wide["launches"]["k2_d256"],
+         wide["err"]["fwd_d256"], wide["ms"]["fwd_d256"], "fwd_d256",
+         wide["ms"]["fwd_d256_sdpa"]),
+        ("attention_bwd_d256", "attention_bwd.cu",
+         "maest_tpu/ops/attention.py:483", wide["launches"]["k3b_d256"],
+         wide["err"]["bwd_d256"], wide["ms"]["bwd_d256"], "bwd_d256",
+         wide["ms"]["bwd_d256_sdpa"]),
+    ]
+    # P2 at k64_i8q (48 programs; no PyTorch call quantises inside a
+    # product) and P3 at k64big_i8 (8; torch._int_mm is 2-D, so no single
+    # PyTorch call computes the 8 programs' products: the rig's line gives
+    # one _int_mm a program beside it): the kernel's time from phase 28's
+    # rigs (CUDA-graph replays of the call, its copies included), the plain
+    # version's from phase 28
+    r = i8["rigs"]
+    print(f"kernels line: int8_probe at k64_i8q (48 programs), int8_big_probe"
+          f" at k64big_i8 (8 programs; library none as one call, one "
+          f"torch._int_mm a program {r['p3']['k64big_i8']['library_ms']:.4f}"
+          f" ms)", flush=True)
+    rows += [
+        ("int8_probe", "mma_probe.cu", "scripts/int8_probe.py:46",
+         i8["launches"]["p2"], i8["err"]["k64_i8q"],
+         (r["p2"]["k64_i8q"]["ms"], i8["plain"]["k64_i8q"]), "int8_probe",
+         None),
+        ("int8_big_probe", "mma_probe.cu", "scripts/int8_probe2.py:44",
+         i8["launches"]["p3"], i8["err"]["k64big_i8"],
+         (r["p3"]["k64big_i8"]["ms"], i8["plain"]["k64big_i8"]),
+         "int8_big_probe", None),
     ]
     kernels = [{"name": name, "route": "cuda", "source": src + file,
                 "replaces": rep, "launches": n, "max_abs_err": err,

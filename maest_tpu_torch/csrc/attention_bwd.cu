@@ -1,5 +1,6 @@
-// Attention backward for Hopper (sm_90a), head_dim 64 and 128 (a template
-// parameter D_ of each kernel; the caller zero-pads a smaller head_dim).
+// Attention backward for Hopper (sm_90a), head_dim 64, 128 and 256 (a
+// template parameter D_ of each kernel; the caller zero-pads a smaller
+// head_dim).
 //
 // Replaces maest_tpu/ops/attention.py::_attn_bwd_kernel + _bwd_body (the
 // combined full-K backward, K3b, called from _flash_bwd) and _bwd_dq_kernel +
@@ -79,6 +80,20 @@
 // 8-row tiles, so the owned rows (129 floats) and tiles stay within the 48
 // KB of static shared memory. The bf16 tiles (rows of 136) take dynamic
 // shared memory at 128 (bwd_smem_bytes).
+//
+// head_dim 256 (D_ = 256). A warp's K and V fragments (dk/dv) or q and do
+// fragments (dq) alone would take 128 registers a thread, so each block
+// stages its own 64 rows of both in shared memory (OWN: 2 x 64 rows of
+// 264, 67.6 KB beside the 135 KB of streamed tiles, one block an SM) and
+// the warps read their A fragments through ldmatrix, two k-steps at a time
+// for every n-tile of a pass (rows_dot_own: the products and their order
+// of summation are rows_dot's). That frees the registers for wider
+// slices: the dk/dv kernel sums 128-column slices (two a head, 1.5x the
+// products of one unsliced pass where 64-column slices would take 2.5x),
+// and the dq kernel keeps its 128 registers of fp32 sums whole. The fp32
+// kernels own 16 rows a block and stream 4-row tiles; the fp32 dq kernel
+// sums 64-column slices of dq as the dk/dv kernel does (a whole row's
+// sums would be 256 registers).
 
 #include "mma_bf16.cuh"
 
@@ -259,6 +274,12 @@ attn_bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ 
   }
 }
 
+// dq columns a block of the fp32 dq kernel sums: all, or past head_dim 128
+// a slice of SLICE (a third grid axis)
+__host__ __device__ constexpr int f_dq_cols(int d) {
+  return d > 128 ? SLICE : d;
+}
+
 template <int D_ = D>
 __global__ void __launch_bounds__(f_rows(D_))
 attn_bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -289,9 +310,11 @@ attn_bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k
   const long long stat = static_cast<long long>(bh) * n + min(row, n - 1);
   const float lse_r = lse[stat];
   const float delta_r = delta[stat];
-  float acc[D_];
+  constexpr int QC = f_dq_cols(D_);
+  const int c0 = D_ > 128 ? blockIdx.z * SLICE : 0;  // this block's columns
+  float acc[QC];
 #pragma unroll
-  for (int d = 0; d < D_; ++d) acc[d] = 0.f;
+  for (int d = 0; d < QC; ++d) acc[d] = 0.f;
 
   for (int base = 0; base < n_real; base += TL) {
     __syncthreads();
@@ -329,8 +352,8 @@ attn_bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k
       const float p = exp2f(s * sl - lse_r);
       const float dsv = p * (dp - delta_r) * scale;
 #pragma unroll
-      for (int d4 = 0; d4 < D_ / 4; ++d4) {
-        const float4 kk = k_t[j][d4];
+      for (int d4 = 0; d4 < QC / 4; ++d4) {
+        const float4 kk = k_t[j][c0 / 4 + d4];
         acc[4 * d4 + 0] = fmaf(dsv, kk.x, acc[4 * d4 + 0]);
         acc[4 * d4 + 1] = fmaf(dsv, kk.y, acc[4 * d4 + 1]);
         acc[4 * d4 + 2] = fmaf(dsv, kk.z, acc[4 * d4 + 2]);
@@ -339,9 +362,9 @@ attn_bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k
     }
   }
   if (row < n) {
-    float* op = dq + b * dqs.b + static_cast<long long>(row) * dqs.n + h * dqs.h;
+    float* op = dq + b * dqs.b + static_cast<long long>(row) * dqs.n + h * dqs.h + c0;
 #pragma unroll
-    for (int d = 0; d < D_; ++d) op[d] = acc[d];
+    for (int d = 0; d < QC; ++d) op[d] = acc[d];
   }
 }
 
@@ -350,12 +373,19 @@ constexpr int WARPS = 4;          // K3b: 4 warps own 64 rows (keys in dk/dv,
                                   // q rows in dq) per block
 constexpr int TILE = 64;          // streamed rows per shared-memory tile
 constexpr int SUB = 32;           // streamed rows per register pass
-// dynamic shared memory of a tile's two double-buffered bf16 tiles
-__host__ __device__ constexpr int bwd_smem_bytes(int tile, int d = D) {
-  return tile > 64 || d > 64
-             ? 2 * 2 * tile * ld_bf16(d) * static_cast<int>(sizeof(bf16))
-             : 0;
+// dynamic shared memory of a tile's two double-buffered bf16 tiles, and
+// past head_dim 128 the block's own two sets of rows (16 a warp)
+__host__ __device__ constexpr int bwd_smem_bytes(int tile, int d = D,
+                                                 int warps = WARPS) {
+  return (tile > 64 || d > 64
+              ? 2 * 2 * tile * ld_bf16(d) * static_cast<int>(sizeof(bf16))
+              : 0) +
+         (d > 128 ? 2 * 16 * warps * ld_bf16(d) * static_cast<int>(sizeof(bf16))
+                  : 0);
 }
+
+// gradient columns a dk/dv block sums: 64, or 128 past head_dim 128
+__host__ __device__ constexpr int kv_slice(int d) { return d > 128 ? 128 : 64; }
 
 // stage rows [row0, row0 + TILE_) of two (row, D_) bf16 views into a/b via
 // cp.async; rows past n are zero-filled
@@ -395,6 +425,36 @@ __device__ __forceinline__ void rows_dot(float (&c)[SUB / 8][4],
       ldmatrix_x4(f, &tile[r0 + nt * 8 + lr][half * 32 + li * 8]);
       mma_16816(c[nt], a[2 * half], f[0], f[1]);
       mma_16816(c[nt], a[2 * half + 1], f[2], f[3]);
+    }
+  }
+}
+
+// rows_dot with the A fragments read from shared memory: the warp's 16
+// rows from w0 of `own`, two k-steps at a time for every n-tile; the same
+// products in the same order
+template <int KS>
+__device__ __forceinline__ void rows_dot_own(float (&c)[SUB / 8][4],
+                                             const bf16 (*own)[ld_bf16(16 * KS)],
+                                             int w0,
+                                             const bf16 (*tile)[ld_bf16(16 * KS)],
+                                             int r0, int lr, int li) {
+#pragma unroll
+  for (int nt = 0; nt < SUB / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[nt][e] = 0.f;
+#pragma unroll
+  for (int half = 0; half < KS / 2; ++half) {
+    uint32_t a[2][4];
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+      ldmatrix_x4(a[x], &own[w0 + (li & 1) * 8 + lr]
+                            [(2 * half + x) * 16 + (li >> 1) * 8]);
+#pragma unroll
+    for (int nt = 0; nt < SUB / 8; ++nt) {
+      uint32_t f[4];
+      ldmatrix_x4(f, &tile[r0 + nt * 8 + lr][half * 32 + li * 8]);
+      mma_16816(c[nt], a[0], f[0], f[1]);
+      mma_16816(c[nt], a[1], f[2], f[3]);
     }
   }
 }
@@ -456,7 +516,9 @@ attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          Strides dks, Strides dvs, float sl, float scale) {
   constexpr int ROWS = 16 * WARPS_;  // keys per block
   constexpr int LD_ = ld_bf16(D_);
-  constexpr bool DYN = bwd_smem_bytes(TILE_, D_) > 0;
+  constexpr bool DYN = bwd_smem_bytes(TILE_, D_, WARPS_) > 0;
+  constexpr bool OWN = D_ > 128;  // K and V fragments from shared memory
+  constexpr int SL = kv_slice(D_);
   constexpr int ST = DYN ? 1 : TILE_;
   __shared__ __align__(128) bf16 q_st[2][ST][LD_];
   __shared__ __align__(128) bf16 do_st[2][ST][LD_];
@@ -483,12 +545,12 @@ attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int b = bh / heads;
   const int h = bh - b * heads;
   const int key0 = blockIdx.y * ROWS + warp * 16 + g;  // and key0 + 8
-  // this block's 64 gradient columns (D_ > 64: a slice of the head_dim)
-  const int c0 = D_ > 64 ? blockIdx.z * 64 : 0;
+  // this block's SL gradient columns (D_ > 64: a slice of the head_dim)
+  const int c0 = D_ > 64 ? blockIdx.z * SL : 0;
 
-  float acc_k[8][4], acc_v[8][4];
+  float acc_k[SL / 8][4], acc_v[SL / 8][4];
 #pragma unroll
-  for (int dt = 0; dt < 8; ++dt)
+  for (int dt = 0; dt < SL / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_k[dt][e] = acc_v[dt][e] = 0.f;
 
@@ -507,12 +569,22 @@ attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         delta_sm[buf][i] = row < n ? delta_bh[row] : 0.f;
       }
     };
+    // OWN: the block's keys, after the q and do buffers
+    bf16(*own_k)[LD_] = reinterpret_cast<bf16(*)[LD_]>(do_sm + 2);
+    bf16(*own_v)[LD_] = own_k + ROWS;
+    if constexpr (OWN)  // a copy group of their own, before tile 0's
+      stage_pair<WARPS_, ROWS, D_>(own_k, own_v, k + b * ks.b + h * ks.h,
+                                   ks.n, v + b * vs.b + h * vs.h, vs.n,
+                                   blockIdx.y * ROWS, n);
     stage(0, 0);
 
-    // this warp's 16 keys over the full head_dim, A fragments
-    uint32_t kf[D_ / 16][4], vf[D_ / 16][4];
-    load_row_frags(kf, k + b * ks.b + h * ks.h, ks.n, key0, n, t);
-    load_row_frags(vf, v + b * vs.b + h * vs.h, vs.n, key0, n, t);
+    // this warp's 16 keys over the full head_dim, A fragments (OWN: read
+    // from shared memory in the loop)
+    uint32_t kf[OWN ? 1 : D_ / 16][4], vf[OWN ? 1 : D_ / 16][4];
+    if constexpr (!OWN) {
+      load_row_frags(kf, k + b * ks.b + h * ks.h, ks.n, key0, n, t);
+      load_row_frags(vf, v + b * vs.b + h * vs.h, vs.n, key0, n, t);
+    }
     const bool live0 = key0 < n_real;
     const bool live1 = key0 + 8 < n_real;
 
@@ -530,7 +602,10 @@ attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int r0 = 0; r0 < TILE_; r0 += SUB) {
         // S^T = K.Q^T: rows are this warp's keys, columns q rows r0..
         float p[SUB / 8][4];
-        rows_dot(p, kf, q_sm[buf], r0, lr, li);
+        if constexpr (OWN)
+          rows_dot_own<D_ / 16>(p, own_k, warp * 16, q_sm[buf], r0, lr, li);
+        else
+          rows_dot(p, kf, q_sm[buf], r0, lr, li);
 #pragma unroll
         for (int nt = 0; nt < SUB / 8; ++nt)
 #pragma unroll
@@ -543,7 +618,10 @@ attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         acc_pv(acc_v, pf, do_sm[buf], r0, lr, li, c0);  // dv += p^T . do
 
         float ds[SUB / 8][4];
-        rows_dot(ds, vf, do_sm[buf], r0, lr, li);  // dp^T = V.dO^T
+        if constexpr (OWN)  // dp^T = V.dO^T
+          rows_dot_own<D_ / 16>(ds, own_v, warp * 16, do_sm[buf], r0, lr, li);
+        else
+          rows_dot(ds, vf, do_sm[buf], r0, lr, li);
 #pragma unroll
         for (int nt = 0; nt < SUB / 8; ++nt)
 #pragma unroll
@@ -573,7 +651,8 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         float scale) {
   constexpr int ROWS = 16 * WARPS_;  // q rows per block
   constexpr int LD_ = ld_bf16(D_);
-  constexpr bool DYN = bwd_smem_bytes(TILE_, D_) > 0;
+  constexpr bool DYN = bwd_smem_bytes(TILE_, D_, WARPS_) > 0;
+  constexpr bool OWN = D_ > 128;  // q and do fragments from shared memory
   constexpr int ST = DYN ? 1 : TILE_;
   __shared__ __align__(128) bf16 k_st[2][ST][LD_];
   __shared__ __align__(128) bf16 v_st[2][ST][LD_];
@@ -601,11 +680,20 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const bf16* kb = k + b * ks.b + h * ks.h;
   const bf16* vb = v + b * vs.b + h * vs.h;
+  // OWN: the block's q and do rows, after the K and V buffers
+  bf16(*own_q)[LD_] = reinterpret_cast<bf16(*)[LD_]>(v_sm + 2);
+  bf16(*own_do)[LD_] = own_q + ROWS;
+  if constexpr (OWN)  // a copy group of their own, before tile 0's
+    stage_pair<WARPS_, ROWS, D_>(own_q, own_do, q + b * qs.b + h * qs.h, qs.n,
+                                 dout + b * dos.b + h * dos.h, dos.n,
+                                 blockIdx.y * ROWS, n);
   stage_pair<WARPS_, TILE_, D_>(k_sm[0], v_sm[0], kb, ks.n, vb, vs.n, 0, n);
 
-  uint32_t qf[D_ / 16][4], dof[D_ / 16][4];
-  load_row_frags(qf, q + b * qs.b + h * qs.h, qs.n, row0, n, t);
-  load_row_frags(dof, dout + b * dos.b + h * dos.h, dos.n, row0, n, t);
+  uint32_t qf[OWN ? 1 : D_ / 16][4], dof[OWN ? 1 : D_ / 16][4];
+  if constexpr (!OWN) {
+    load_row_frags(qf, q + b * qs.b + h * qs.h, qs.n, row0, n, t);
+    load_row_frags(dof, dout + b * dos.b + h * dos.h, dos.n, row0, n, t);
+  }
   float lse_r[2], delta_r[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -635,7 +723,10 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int r0 = 0; r0 < TILE_; r0 += SUB) {
       float p[SUB / 8][4];
-      rows_dot(p, qf, k_sm[buf], r0, lr, li);  // S = Q.K^T
+      if constexpr (OWN)  // S = Q.K^T
+        rows_dot_own<D_ / 16>(p, own_q, warp * 16, k_sm[buf], r0, lr, li);
+      else
+        rows_dot(p, qf, k_sm[buf], r0, lr, li);
 #pragma unroll
       for (int nt = 0; nt < SUB / 8; ++nt)
 #pragma unroll
@@ -644,7 +735,10 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           p[nt][e] = key < n_real ? exp2f(p[nt][e] * sl - lse_r[e >> 1]) : 0.f;
         }
       float ds[SUB / 8][4];
-      rows_dot(ds, dof, v_sm[buf], r0, lr, li);  // dP = dO.V^T
+      if constexpr (OWN)  // dP = dO.V^T
+        rows_dot_own<D_ / 16>(ds, own_do, warp * 16, v_sm[buf], r0, lr, li);
+      else
+        rows_dot(ds, dof, v_sm[buf], r0, lr, li);
 #pragma unroll
       for (int nt = 0; nt < SUB / 8; ++nt)
 #pragma unroll
@@ -682,8 +776,8 @@ int launch_delta(const void* o, const void* dout, float* delta, int batch,
 }
 
 // the three launches of the bf16 backward at the tile (16 WARPS_ rows,
-// TILE_ streamed rows) and head_dim D_: delta, dk/dv (D_ / 64 column
-// slices), dq
+// TILE_ streamed rows) and head_dim D_: delta, dk/dv (D_ / kv_slice(D_)
+// column slices), dq
 template <int WARPS_, int TILE_, int D_ = D>
 int launch_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
                     const void* dout, const float* lse, float* delta, void* dq,
@@ -695,7 +789,7 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err = launch_delta<bf16, D_>(o, dout, delta, batch, n, heads, w, s);
   if (err) return err;
-  constexpr int smem = bwd_smem_bytes(TILE_, D_);
+  constexpr int smem = bwd_smem_bytes(TILE_, D_, WARPS_);
   // once an instance, before any launch a graph captures; the setting holds
   // for the current device only: the port drives one card a process
   if (smem > 0) {
@@ -711,7 +805,7 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
     if (attr != cudaSuccess) return static_cast<int>(attr);
   }
   const dim3 grid(batch * heads, (n + 16 * WARPS_ - 1) / (16 * WARPS_));
-  const dim3 grid_kv(grid.x, grid.y, D_ / 64);
+  const dim3 grid_kv(grid.x, grid.y, D_ / kv_slice(D_));
   attn_bwd_dkv_bf16_kernel<WARPS_, TILE_, D_><<<grid_kv, 32 * WARPS_, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
@@ -728,7 +822,7 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
 }
 
 // the three launches of the fp32 backward at head_dim D_: delta, dk/dv
-// (D_ / 64 column slices), dq
+// (D_ / 64 column slices), dq (past head_dim 128, D_ / 64 column slices)
 template <int D_ = D>
 int launch_bwd_fp32(const void* q, const void* k, const void* v, const void* o,
                     const void* dout, const float* lse, float* delta, void* dq,
@@ -749,7 +843,7 @@ int launch_bwd_fp32(const void* q, const void* k, const void* v, const void* o,
       w.k, w.v, w.dout, w.dk, w.dv, sl, scale);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  attn_bwd_dq_fp32_kernel<D_><<<grid, rows, 0, s>>>(
+  attn_bwd_dq_fp32_kernel<D_><<<dim3(grid.x, grid.y, D_ / f_dq_cols(D_)), rows, 0, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
       static_cast<float*>(dq), n, n_real, heads, w.q, w.k, w.v, w.dout, w.dq,
@@ -811,6 +905,29 @@ int maest_attn_bwd_bf16_d128(const void* q, const void* k, const void* v,
                              const long long* strides, float sl, float scale,
                              void* stream) {
   return launch_bwd_bf16<WARPS, TILE, 128>(q, k, v, o, dout, lse, delta, dq,
+                                           dk, dv, batch, n, heads, n_real,
+                                           strides, sl, scale, stream);
+}
+
+// The same two entries at head_dim 256: (batch, n, heads, 256) views, scale
+// = 256^-0.5 or, on inputs zero-padded from a head_dim d, d^-0.5.
+int maest_attn_bwd_fp32_d256(const void* q, const void* k, const void* v,
+                             const void* o, const void* dout, const float* lse,
+                             float* delta, void* dq, void* dk, void* dv,
+                             int batch, int n, int heads, int n_real,
+                             const long long* strides, float sl, float scale,
+                             void* stream) {
+  return launch_bwd_fp32<256>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch,
+                              n, heads, n_real, strides, sl, scale, stream);
+}
+
+int maest_attn_bwd_bf16_d256(const void* q, const void* k, const void* v,
+                             const void* o, const void* dout, const float* lse,
+                             float* delta, void* dq, void* dk, void* dv,
+                             int batch, int n, int heads, int n_real,
+                             const long long* strides, float sl, float scale,
+                             void* stream) {
+  return launch_bwd_bf16<WARPS, TILE, 256>(q, k, v, o, dout, lse, delta, dq,
                                            dk, dv, batch, n, heads, n_real,
                                            strides, sl, scale, stream);
 }

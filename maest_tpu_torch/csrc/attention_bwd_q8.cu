@@ -1,5 +1,5 @@
-// int8 attention backward for Hopper (sm_90a), head_dim 64 and 128 (K7;
-// a template parameter D_ of each kernel).
+// int8 attention backward for Hopper (sm_90a), head_dim 64, 128 and 256
+// (K7; a template parameter D_ of each kernel).
 //
 // Replaces maest_tpu/ops/attention.py::_attn_bwd_kernel_q8 + _q8_tensor
 // (called from _flash_bwd_q8 when bwd_quant="int8" and round_up(N, 128) <=
@@ -61,6 +61,16 @@
 // dq keep their rows whole (dq's int32 sums: 64 registers). The tiles of
 // the product kernels then pass the 48 KB of static shared memory and take
 // dynamic shared memory (q8b_smem_bytes).
+//
+// head_dim 256 (D_ = 256): the dk/dv kernel's K and V fragments (64
+// registers) no longer fit beside its four sets of sums, so the block
+// stages its 64 keys' int8 K and V rows in shared memory (OWN, 2 x 64 rows
+// of 272 bytes) and the warps read their A fragments through ldmatrix
+// (rows_dot8_own: the same int8 products); it keeps 64-column slices (four
+// a head). The dq kernel's int32 sums (128 registers whole) are summed in
+// 128-column slices over a third grid axis (dq_cols), each recomputing s
+// and dp over the full head_dim and staging only its rows of K^T. The
+// quant pass's transposed tiles (60 KB) take dynamic shared memory.
 
 #include "mma_8bit.cuh"
 
@@ -196,6 +206,12 @@ bwd_q8_amax_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ----------------------------------------------------------- 2. quant ---
+// dynamic shared memory of the quant pass: its transposed tiles past
+// head_dim 128 (static below)
+__host__ __device__ constexpr int quant_smem_bytes(int d) {
+  return d > 128 ? 3 * d * LD8 : 0;
+}
+
 // a block quantizes 64 rows of one head; rows >= n are written as zeros
 template <typename T, int D_ = D>
 __global__ void __launch_bounds__(256)
@@ -205,7 +221,12 @@ bwd_q8_quant_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     float* __restrict__ delta, int n, int heads, int bq,
                     int nqb, Strides qs, Strides ks, Strides vs, Strides os,
                     Strides ds) {
-  __shared__ __align__(16) uint8_t tr[3][D_][LD8];  // q, do, k transposed
+  constexpr bool DYN = quant_smem_bytes(D_) > 0;
+  // q, do, k transposed
+  __shared__ __align__(16) uint8_t tr_st[3][DYN ? 1 : D_][LD8];
+  extern __shared__ __align__(16) uint8_t tr_dyn[];
+  uint8_t(*tr)[D_][LD8] = DYN ? reinterpret_cast<uint8_t(*)[D_][LD8]>(tr_dyn)
+                              : reinterpret_cast<uint8_t(*)[D_][LD8]>(tr_st);
   const int bh = blockIdx.x;
   const int b = bh / heads;
   const int h = bh - b * heads;
@@ -308,6 +329,35 @@ __device__ __forceinline__ void rows_dot8(int (&c)[4][4], const uint32_t (&a)[KS
   }
 }
 
+// rows_dot8 with the A fragments read from shared memory: the warp's 16
+// rows from w0 of `own`, two k-steps at a time for every n-tile
+template <int KS>
+__device__ __forceinline__ void rows_dot8_own(int (&c)[4][4],
+                                              const uint8_t (*own)[ld8(32 * KS)],
+                                              int w0,
+                                              const uint8_t (*tile)[ld8(32 * KS)],
+                                              int r0, int lr, int li) {
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[nt][e] = 0;
+#pragma unroll
+  for (int half = 0; half < KS / 2; ++half) {
+    uint32_t a[2][4];
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+      ldmatrix_x4(a[x], &own[w0 + (li & 1) * 8 + lr]
+                            [(2 * half + x) * 32 + (li >> 1) * 16]);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      uint32_t f[4];
+      ldmatrix_x4(f, &tile[r0 + nt * 8 + lr][half * 64 + li * 16]);
+      mma_s8(c[nt], a[0], f[0], f[1]);
+      mma_s8(c[nt], a[1], f[2], f[3]);
+    }
+  }
+}
+
 // acc (16 x 8 NDT) += A (16 x 32, one k-step) . the transposed tile's
 // sequence columns r0..r0+31 (rows of the tile are d)
 template <int NDT>
@@ -334,14 +384,20 @@ __device__ __forceinline__ float dscore(float p, int dp_int, float c_dp,
   return __fmul_rn(__fmul_rn(p, __fsub_rn(dp, delta)), scale);
 }
 
+// dq columns a block of the dq kernel sums: all, or past head_dim 128 a
+// slice of 128 (a third grid axis)
+__host__ __device__ constexpr int dq_cols(int d) { return d > 128 ? 128 : d; }
+
 // dynamic shared memory of the product kernels past head_dim 64: the rows
 // kernel's K and V tiles (rows of ld8(d) bytes) and its K^T tiles (DQ: two
-// of d rows), or the dk/dv kernel's q and do tiles and its two pairs of
-// 64-row q^T and do^T tiles (a 64-column slice)
+// of dq_cols(d) rows), or the dk/dv kernel's q and do tiles and its two
+// pairs of 64-row q^T and do^T tiles (a 64-column slice), and past 128 its
+// own K and V rows
 __host__ __device__ constexpr int q8b_smem_bytes(int kernel, int d) {
   return d <= 64 ? 0
-         : kernel == 2 ? 4 * TILE * ld8(d) + 4 * 64 * LD8  // dk/dv
-                       : 4 * TILE * ld8(d) + (kernel ? 2 : 1) * d * LD8;
+         : kernel == 2 ? 4 * TILE * ld8(d) + 4 * 64 * LD8 +  // dk/dv
+                             (d > 128 ? 2 * BR * ld8(d) : 0)
+                       : 4 * TILE * ld8(d) + (kernel ? 2 * dq_cols(d) : d) * LD8;
 }
 
 // ----------------------------------------- 3. scale pass and 5. dq ---
@@ -360,19 +416,20 @@ bwd_q8_rows_kernel(Bytes8 by, const float* __restrict__ lse,
   constexpr int S = DYN ? 1 : 2;  // static buffers, or one placeholder
   __shared__ __align__(128) uint8_t k_st[S][DYN ? 1 : TILE][LDK];
   __shared__ __align__(128) uint8_t v_st[S][DYN ? 1 : TILE][LDK];
-  __shared__ __align__(128) uint8_t kt_st[DQ ? S : 1][DYN ? 1 : D_][LD8];
+  constexpr int DC = DQ ? dq_cols(D_) : D_;  // dq columns of this block
+  __shared__ __align__(128) uint8_t kt_st[DQ ? S : 1][DYN ? 1 : DC][LD8];
   extern __shared__ __align__(128) uint8_t rows_dyn[];
   uint8_t(*k_sm)[TILE][LDK];
   uint8_t(*v_sm)[TILE][LDK];
-  uint8_t(*kt_sm)[D_][LD8];
+  uint8_t(*kt_sm)[DC][LD8];
   if constexpr (DYN) {
     k_sm = reinterpret_cast<uint8_t(*)[TILE][LDK]>(rows_dyn);
     v_sm = k_sm + 2;
-    kt_sm = reinterpret_cast<uint8_t(*)[D_][LD8]>(v_sm + 2);
+    kt_sm = reinterpret_cast<uint8_t(*)[DC][LD8]>(v_sm + 2);
   } else {
     k_sm = reinterpret_cast<uint8_t(*)[TILE][LDK]>(k_st);
     v_sm = reinterpret_cast<uint8_t(*)[TILE][LDK]>(v_st);
-    kt_sm = reinterpret_cast<uint8_t(*)[D_][LD8]>(kt_st);
+    kt_sm = reinterpret_cast<uint8_t(*)[DC][LD8]>(kt_st);
   }
 
   const int warp = threadIdx.x >> 5;
@@ -385,6 +442,7 @@ bwd_q8_rows_kernel(Bytes8 by, const float* __restrict__ lse,
   const int npad = (n + TILE - 1) / TILE * TILE;
   const int qb = bh * nqb + blockIdx.y * BR / bq;
   const int row0 = blockIdx.y * BR + warp * 16 + g;  // and row0 + 8
+  const int c0 = DC < D_ ? blockIdx.z * DC : 0;  // DQ: this block's columns
 
   const float qsc = q8_scale(st.qmax[qb]);
   const float ksc = q8_scale(st.kmax[bh]);
@@ -405,10 +463,10 @@ bwd_q8_rows_kernel(Bytes8 by, const float* __restrict__ lse,
     stage_rows8<D_>(k_sm[buf], kb, D_, tile * TILE);
     stage_rows8<D_>(v_sm[buf], vb, D_, tile * TILE);
     if constexpr (DQ) {
-      for (int i = threadIdx.x; i < D_ * 4; i += 32 * BW) {
+      for (int i = threadIdx.x; i < DC * 4; i += 32 * BW) {
         const int j = i >> 2;
         const int c = (i & 3) * 16;
-        cp_async16(&kt_sm[buf][j][c], ktb + static_cast<long long>(j) * npad + tile * TILE + c, 16);
+        cp_async16(&kt_sm[buf][j][c], ktb + static_cast<long long>(c0 + j) * npad + tile * TILE + c, 16);
       }
     }
     cp_async_commit();
@@ -429,9 +487,9 @@ bwd_q8_rows_kernel(Bytes8 by, const float* __restrict__ lse,
   }
 
   float pmax = 0.f, dsmax = 0.f;
-  int acc[D_ / 8][4];
+  int acc[DC / 8][4];
 #pragma unroll
-  for (int dt = 0; dt < D_ / 8; ++dt)
+  for (int dt = 0; dt < DC / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dt][e] = 0;
 
@@ -478,14 +536,14 @@ bwd_q8_rows_kernel(Bytes8 by, const float* __restrict__ lse,
   if constexpr (DQ) {
     const int b = bh / heads;
     const int h = bh - b * heads;
-    T* base = dq + b * dqs.b + h * dqs.h;
+    T* base = dq + b * dqs.b + h * dqs.h + c0;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
       if (row >= n) continue;
       T* p = base + static_cast<long long>(row) * dqs.n + 2 * t;
 #pragma unroll
-      for (int dt = 0; dt < D_ / 8; ++dt)
+      for (int dt = 0; dt < DC / 8; ++dt)
         store2(p + dt * 8, __fmul_rn(__int2float_rn(acc[dt][2 * r]), c_dq),
                __fmul_rn(__int2float_rn(acc[dt][2 * r + 1]), c_dq));
     }
@@ -535,6 +593,7 @@ bwd_q8_dkdv_kernel(Bytes8 by, const float* __restrict__ lse,
                    Strides dvs, float sl, float scale) {
   constexpr int LDK = ld8(D_);
   constexpr bool DYN = q8b_smem_bytes(2, D_) > 0;
+  constexpr bool OWN = D_ > 128;  // K and V fragments from shared memory
   constexpr int S = DYN ? 1 : 2;  // static buffers, or one placeholder
   __shared__ __align__(128) uint8_t q_st[S][DYN ? 1 : TILE][LDK];
   __shared__ __align__(128) uint8_t do_st[S][DYN ? 1 : TILE][LDK];
@@ -606,12 +665,23 @@ bwd_q8_dkdv_kernel(Bytes8 by, const float* __restrict__ lse,
       }
       cp_async_commit();
     };
+    // OWN: the block's keys, after the transposed tiles, with tile 0's
+    // copy group
+    uint8_t(*own_k)[LDK] = reinterpret_cast<uint8_t(*)[LDK]>(dot_sm + 2);
+    uint8_t(*own_v)[LDK] = own_k + BR;
+    if constexpr (OWN) {
+      stage_rows8<D_>(own_k, by.k + head, D_, blockIdx.y * BR);
+      stage_rows8<D_>(own_v, by.v + head, D_, blockIdx.y * BR);
+    }
     stage(0, 0);
 
-    // this warp's 16 keys over the full head_dim, A fragments
-    uint32_t kf[D_ / 32][4], vf[D_ / 32][4];
-    load_row_frags8(kf, by.k + head, D_, key0, npad, t);
-    load_row_frags8(vf, by.v + head, D_, key0, npad, t);
+    // this warp's 16 keys over the full head_dim, A fragments (OWN: read
+    // from shared memory in the loop)
+    uint32_t kf[OWN ? 1 : D_ / 32][4], vf[OWN ? 1 : D_ / 32][4];
+    if constexpr (!OWN) {
+      load_row_frags8(kf, by.k + head, D_, key0, npad, t);
+      load_row_frags8(vf, by.v + head, D_, key0, npad, t);
+    }
     const bool live[2] = {key0 < n_real, key0 + 8 < n_real};
     const float ksc = q8_scale(st.kmax[bh]);
     const float vsc = q8_scale(st.vmax[bh]);
@@ -650,7 +720,10 @@ bwd_q8_dkdv_kernel(Bytes8 by, const float* __restrict__ lse,
       for (int r0 = 0; r0 < TILE; r0 += 32) {
         // S^T = K8.Q8^T: rows are this warp's keys, columns q rows r0..
         int si[4][4];
-        rows_dot8(si, kf, q_sm[buf], r0, lr, li);
+        if constexpr (OWN)
+          rows_dot8_own<D_ / 32>(si, own_k, warp * 16, q_sm[buf], r0, lr, li);
+        else
+          rows_dot8(si, kf, q_sm[buf], r0, lr, li);
         float p[4][4];
         uint32_t x[4][4];
 #pragma unroll
@@ -666,7 +739,10 @@ bwd_q8_dkdv_kernel(Bytes8 by, const float* __restrict__ lse,
         acc_seq8(iv, a, dot_sm[buf], r0, lr, li);  // dV += P8^T.dO8
 
         int dpi[4][4];
-        rows_dot8(dpi, vf, do_sm[buf], r0, lr, li);  // dP^T = V8.dO8^T
+        if constexpr (OWN)  // dP^T = V8.dO8^T
+          rows_dot8_own<D_ / 32>(dpi, own_v, warp * 16, do_sm[buf], r0, lr, li);
+        else
+          rows_dot8(dpi, vf, do_sm[buf], r0, lr, li);
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -725,7 +801,11 @@ int launch_bwd_q8(const void* q, const void* k, const void* v, const void* o,
           *td = static_cast<const T*>(dout);
   int err;
   constexpr int smem_s = q8b_smem_bytes(0, D_), smem_kv = q8b_smem_bytes(2, D_),
-                smem_q = q8b_smem_bytes(1, D_);
+                smem_q = q8b_smem_bytes(1, D_), smem_t = quant_smem_bytes(D_);
+  if constexpr (D_ > 128) {
+    const cudaError_t e = smem_limit<&bwd_q8_quant_kernel<T, D_>>(smem_t);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   if constexpr (D_ > 64) {
     cudaError_t e = smem_limit<&bwd_q8_rows_kernel<false, bf16, D_>>(smem_s);
     if (e == cudaSuccess) e = smem_limit<&bwd_q8_dkdv_kernel<T, D_>>(smem_kv);
@@ -736,7 +816,7 @@ int launch_bwd_q8(const void* q, const void* k, const void* v, const void* o,
       tq, tk, tv, td, st, n, heads, bq, nqb, w[0], w[1], w[2], w[4]);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
   const dim3 tiles(bh, npad / TILE);
-  bwd_q8_quant_kernel<T, D_><<<tiles, 256, 0, s>>>(tq, tk, tv, to, td, st, by,
+  bwd_q8_quant_kernel<T, D_><<<tiles, 256, smem_t, s>>>(tq, tk, tv, to, td, st, by,
                                                    delta, n, heads, bq, nqb,
                                                    w[0], w[1], w[2], w[3], w[4]);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
@@ -747,7 +827,7 @@ int launch_bwd_q8(const void* q, const void* k, const void* v, const void* o,
       by, lse, delta, st, static_cast<T*>(dk), static_cast<T*>(dv), n, n_real,
       heads, bq, nqb, w[6], w[7], sl, scale);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
-  bwd_q8_rows_kernel<true, T, D_><<<tiles, 32 * BW, smem_q, s>>>(
+  bwd_q8_rows_kernel<true, T, D_><<<dim3(bh, npad / TILE, D_ / dq_cols(D_)), 32 * BW, smem_q, s>>>(
       by, lse, delta, st, static_cast<T*>(dq), n, n_real, heads, bq, nqb, w[5],
       sl, scale);
   return static_cast<int>(cudaGetLastError());
@@ -815,6 +895,31 @@ int maest_attn_bwd_q8_fp32_d128(const void* q, const void* k, const void* v,
                                 int bq, const long long* strides, float sl,
                                 float scale, void* stream) {
   return launch_bwd_q8<float, 128>(q, k, v, o, dout, lse, stats, bytes, delta,
+                                   dq, dk, dv, batch, n, heads, n_real, bq,
+                                   strides, sl, scale, stream);
+}
+
+// The same two entries at head_dim 256: (batch, n, heads, 256) views and
+// 7 (batch heads round_up(n, 64) 256) bytes of scratch.
+int maest_attn_bwd_q8_d256(const void* q, const void* k, const void* v,
+                           const void* o, const void* dout, const float* lse,
+                           float* stats, void* bytes, float* delta, void* dq,
+                           void* dk, void* dv, int batch, int n, int heads,
+                           int n_real, int bq, const long long* strides,
+                           float sl, float scale, void* stream) {
+  return launch_bwd_q8<bf16, 256>(q, k, v, o, dout, lse, stats, bytes, delta,
+                                  dq, dk, dv, batch, n, heads, n_real, bq,
+                                  strides, sl, scale, stream);
+}
+
+int maest_attn_bwd_q8_fp32_d256(const void* q, const void* k, const void* v,
+                                const void* o, const void* dout,
+                                const float* lse, float* stats, void* bytes,
+                                float* delta, void* dq, void* dk, void* dv,
+                                int batch, int n, int heads, int n_real,
+                                int bq, const long long* strides, float sl,
+                                float scale, void* stream) {
+  return launch_bwd_q8<float, 256>(q, k, v, o, dout, lse, stats, bytes, delta,
                                    dq, dk, dv, batch, n, heads, n_real, bq,
                                    strides, sl, scale, stream);
 }

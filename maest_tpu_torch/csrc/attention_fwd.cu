@@ -1,5 +1,5 @@
-// Attention forward for Hopper (sm_90a): online softmax, head_dim 64 and
-// 128 (a template parameter D_ of each kernel; a smaller head_dim is
+// Attention forward for Hopper (sm_90a): online softmax, head_dim 64, 128
+// and 256 (a template parameter D_ of each kernel; a smaller head_dim is
 // zero-padded to the next instance by the caller, ops/attention.py).
 //
 // Replaces maest_tpu/ops/attention.py::_attn_kernel + _attn_body (called
@@ -48,6 +48,15 @@
 // the 48 KB of static shared memory), and the q row and accumulator, 256
 // registers together, spill in part to local memory, which L1 caches:
 // the tier exists for parity, and a slower kernel is still exact.
+// At D_ = 256 the q row and sums would take 512 registers, so four threads
+// share a row (attn_fwd_fp32_wide_kernel): each holds 64 of its columns
+// (every fourth float4 of the row, so the four read neighbouring 16-byte
+// chunks of a key row at once) and its 64 sums, as at D_ = 64, and the
+// row's dot is summed across the four with two shuffles; a block owns 32
+// rows and 16-key tiles (32 KB).
+//
+// D_ = 256 in bf16: the template's QSM path (attn_fwd_bf16.cuh), q rows in
+// shared memory.
 //
 // Both kernels: grid (B*H, ceil(N / rows per block)). Key tiles wholly at
 // or past n_real would contribute exactly zero (exp2(-1e30 - m) underflows
@@ -160,6 +169,124 @@ attn_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// D_ > 128: TPR threads a row, 32 rows a block (see the design note)
+template <int D_>
+__global__ void __launch_bounds__(BQ)
+attn_fwd_fp32_wide_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ out,
+                          float* __restrict__ lse, int n, int n_real,
+                          int heads, Strides qs, Strides ks, Strides vs,
+                          Strides os, float sl) {
+  constexpr int TPR = D_ / 64;      // threads a row
+  constexpr int C4 = D_ / 4 / TPR;  // float4 chunks a thread owns
+  constexpr int BK_ = BK * D / D_;  // 32 KB of K/V tiles
+  __shared__ float4 k_tile[BK_][D_ / 4];
+  __shared__ float4 v_tile[BK_][D_ / 4];
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int row = blockIdx.y * (BQ / TPR) + threadIdx.x / TPR;
+  const int part = threadIdx.x % TPR;  // chunks part, part + TPR, ...
+  const int row_c = row < n ? row : n - 1;
+
+  float4 qr[C4];
+  const float* qp = q + b * qs.b + static_cast<long long>(row_c) * qs.n + h * qs.h;
+#pragma unroll
+  for (int c = 0; c < C4; ++c) {
+    const float* x = qp + 4 * (c * TPR + part);
+    qr[c] = make_float4(x[0], x[1], x[2], x[3]);
+  }
+
+  float4 acc[C4];
+#pragma unroll
+  for (int c = 0; c < C4; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float m = NEG_INF, l = 0.f;
+
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+  for (int base = 0; base < n_real; base += BK_) {
+    __syncthreads();  // the previous tile is fully consumed
+    float* kt = reinterpret_cast<float*>(k_tile);
+    float* vt = reinterpret_cast<float*>(v_tile);
+    for (int i = threadIdx.x; i < BK_ * D_; i += BQ) {
+      const int j = i / D_;
+      const int d = i - j * D_;
+      const int key = base + j;
+      float kv = 0.f, vv = 0.f;
+      if (key < n) {
+        kv = kb[static_cast<long long>(key) * ks.n + d];
+        vv = vb[static_cast<long long>(key) * vs.n + d];
+      }
+      kt[i] = kv;
+      vt[i] = vv;
+    }
+    __syncthreads();
+
+    const int tile_keys = min(BK_, n_real - base);
+    for (int j0 = 0; j0 < tile_keys; j0 += SUB) {
+      float s[SUB];
+      float m_new = m;
+#pragma unroll
+      for (int jj = 0; jj < SUB; ++jj) {
+        float dot = 0.f;
+#pragma unroll
+        for (int c = 0; c < C4; ++c) {
+          const float4 kk = k_tile[j0 + jj][c * TPR + part];
+          dot = fmaf(qr[c].x, kk.x, dot);
+          dot = fmaf(qr[c].y, kk.y, dot);
+          dot = fmaf(qr[c].z, kk.z, dot);
+          dot = fmaf(qr[c].w, kk.w, dot);
+        }
+#pragma unroll
+        for (int o = 1; o < TPR; o <<= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        const float sc = (j0 + jj < tile_keys) ? dot * sl : NEG_INF;
+        s[jj] = sc;
+        m_new = fmaxf(m_new, sc);
+      }
+      const float corr = exp2f(m - m_new);
+      l *= corr;
+#pragma unroll
+      for (int c = 0; c < C4; ++c) {
+        acc[c].x *= corr;
+        acc[c].y *= corr;
+        acc[c].z *= corr;
+        acc[c].w *= corr;
+      }
+#pragma unroll
+      for (int jj = 0; jj < SUB; ++jj) {
+        const float p = exp2f(s[jj] - m_new);
+        l += p;
+#pragma unroll
+        for (int c = 0; c < C4; ++c) {
+          const float4 vv = v_tile[j0 + jj][c * TPR + part];
+          acc[c].x = fmaf(p, vv.x, acc[c].x);
+          acc[c].y = fmaf(p, vv.y, acc[c].y);
+          acc[c].z = fmaf(p, vv.z, acc[c].z);
+          acc[c].w = fmaf(p, vv.w, acc[c].w);
+        }
+      }
+      m = m_new;
+    }
+  }
+
+  if (row < n) {
+    float* op = out + b * os.b + static_cast<long long>(row) * os.n + h * os.h;
+#pragma unroll
+    for (int c = 0; c < C4; ++c) {
+      float* x = op + 4 * (c * TPR + part);
+      x[0] = acc[c].x / l;
+      x[1] = acc[c].y / l;
+      x[2] = acc[c].z / l;
+      x[3] = acc[c].w / l;
+    }
+    if (lse != nullptr && part == 0)
+      lse[static_cast<long long>(bh) * n + row] = m + log2f(l);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -205,6 +332,25 @@ int maest_attn_fwd_bf16_d128(const void* q, const void* k, const void* v,
                              int heads, int n_real, const long long* strides,
                              float sl, void* stream) {
   return launch_fwd<FLASH, 1, WARPS, MK, false, 128>(
+      q, k, v, out, lse, batch, n, heads, n_real, strides, sl, stream);
+}
+
+// The same two entries at head_dim 256: (batch, n, heads, 256) views, sl
+// = 256^-0.5 log2(e) or, on inputs zero-padded from a head_dim d, d^-0.5
+// log2(e).
+int maest_attn_fwd_fp32_d256(const void* q, const void* k, const void* v,
+                             void* out, float* lse, int batch, int n,
+                             int heads, int n_real, const long long* strides,
+                             float sl, void* stream) {
+  return launch<float>(attn_fwd_fp32_wide_kernel<256>, BQ / 4, BQ, q, k, v,
+                       out, lse, batch, n, heads, n_real, strides, sl, stream);
+}
+
+int maest_attn_fwd_bf16_d256(const void* q, const void* k, const void* v,
+                             void* out, float* lse, int batch, int n,
+                             int heads, int n_real, const long long* strides,
+                             float sl, void* stream) {
+  return launch_fwd<FLASH, 1, WARPS, MK, false, 256>(
       q, k, v, out, lse, batch, n, heads, n_real, strides, sl, stream);
 }
 

@@ -1,4 +1,4 @@
-// 8-bit attention forward for Hopper (sm_90a), head_dim 64 and 128: the
+// 8-bit attention forward for Hopper (sm_90a), head_dim 64, 128 and 256: the
 // int8 modes qk8 / qk8pv8 (K5) and the e4m3 modes fp8 / fp8pv8 (K6).
 //
 // Replaces maest_tpu/ops/attention.py::_attn_kernel_q8 + _attn_body_q8
@@ -66,7 +66,8 @@ const char* maest_cuda_error_string(int err) {
 // returns cudaGetLastError(). The *_fp32 entries take fp32 v (qk8, fp8;
 // rows on 16-byte boundaries) and write fp32 out. The *_d128 entries take
 // head_dim 128 in place of 64 everywhere above (sv127 (batch, heads, 128),
-// the transposed copy (batch * heads, 128, round_up(n, 64))).
+// the transposed copy (batch * heads, 128, round_up(n, 64))), the *_d256
+// entries head_dim 256 the same way.
 #define MAEST_FWD_Q8(NAME, MODE, T, D_)                                        \
   int NAME(const void* q8, const void* k8, const float* qsl, const float* sk, \
            const void* v, const float* sv127, void* out, float* lse,          \
@@ -93,5 +94,13 @@ MAEST_FWD_Q8(maest_attn_fwd_qk8_fp32_d128, QK8, float, 128)
 MAEST_FWD_Q8(maest_attn_fwd_qk8pv8_fp32_d128, QK8PV8, float, 128)
 MAEST_FWD_Q8(maest_attn_fwd_fp8_fp32_d128, FP8, float, 128)
 MAEST_FWD_Q8(maest_attn_fwd_fp8pv8_fp32_d128, FP8PV8, float, 128)
+MAEST_FWD_Q8(maest_attn_fwd_qk8_d256, QK8, maest::bf16, 256)
+MAEST_FWD_Q8(maest_attn_fwd_qk8pv8_d256, QK8PV8, maest::bf16, 256)
+MAEST_FWD_Q8(maest_attn_fwd_fp8_d256, FP8, maest::bf16, 256)
+MAEST_FWD_Q8(maest_attn_fwd_fp8pv8_d256, FP8PV8, maest::bf16, 256)
+MAEST_FWD_Q8(maest_attn_fwd_qk8_fp32_d256, QK8, float, 256)
+MAEST_FWD_Q8(maest_attn_fwd_qk8pv8_fp32_d256, QK8PV8, float, 256)
+MAEST_FWD_Q8(maest_attn_fwd_fp8_fp32_d256, FP8, float, 256)
+MAEST_FWD_Q8(maest_attn_fwd_fp8pv8_fp32_d256, FP8PV8, float, 256)
 
 }  // extern "C"

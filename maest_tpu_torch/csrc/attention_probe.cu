@@ -17,7 +17,11 @@
 // G heads a program, with and without lse); in scripts/attn_tune.py (the
 // TPU rig that swept the forward's blocks): time_config (:67). Its
 // backward sweep, time_bwd (:116), is attention_bwd.cu's
-// maest_attn_bwd_tile.
+// maest_attn_bwd_tile. In scripts/int8_probe.py (the TPU rig that asked
+// whether int8 products run faster at the attention's depth-64 shapes):
+// _probe_kernel (:46) kinds mix_bf16 and mix_i8, the scores, an exp2 and
+// the p.v product in one program (MIX, MIX8); its other kinds are single
+// products, mma_probe.cu's.
 //
 // What bounds them on the H100: as K2, arithmetic. The two products (4 N
 // n_real 64 flops per (batch, head)) at the tensor-core rate of their
@@ -46,8 +50,8 @@ const char* maest_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// variant: 1 mxu_only, 2 noexp_max, 3 novmax, 4 bf16s, 5 bf16sm
-// (maest::FwdVariant). q, k, v, out: (batch, n, heads, 64) bf16 with
+// variant: 1 mxu_only, 2 noexp_max, 3 novmax, 4 bf16s, 5 bf16sm, 6
+// mix_bf16 (maest::FwdVariant; mix_bf16 takes k = v and n_real = n). q, k, v, out: (batch, n, heads, 64) bf16 with
 // element strides strides[0..11] = (q_b, q_n, q_h, k_b, k_n, k_h, v_b, v_n,
 // v_h, o_b, o_n, o_h), a contiguous last dimension and rows on 16-byte
 // boundaries. sl: the factor of the scores: head_dim^-0.5 for mxu_only,
@@ -67,6 +71,7 @@ int maest_attn_probe_bf16(int variant, const void* q, const void* k,
     case NOVMAX: kernel = attn_fwd_bf16_kernel<NOVMAX>; break;
     case BF16S: kernel = attn_fwd_bf16_kernel<BF16S>; break;
     case BF16SM: kernel = attn_fwd_bf16_kernel<BF16SM>; break;
+    case MIX: kernel = attn_fwd_bf16_kernel<MIX>; break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch<bf16>(kernel, MQ, 32 * WARPS, q, k, v, out, nullptr, batch, n,
@@ -143,7 +148,9 @@ int maest_attn_probe_tile(int q_rows, int key_tile, const void* q,
 }
 
 // mode: 4 int8 (the rig's _int8_kernel), 5 fp8sm, 6 fp8noexp, 7 fp8nomask,
-// 3 fp8lean (maest::Q8Mode; fp8lean is FP8PV8 on a pre-scaled q, sl 1).
+// 3 fp8lean (maest::Q8Mode; fp8lean is FP8PV8 on a pre-scaled q, sl 1), 8
+// mix_i8 (int8 q8 and k8 and v the transposed int8 copy as for int8, no
+// scales, n_real = n, fp32 out; sl unused).
 // q8, k8: (batch, n, heads, 64) int8 (int8) or e4m3 with element strides
 // strides[0..5] and 16-byte rows. int8: qsl contiguous fp32 (batch, heads,
 // n) of qs / 127^2 * sl, sk of max|k| per key, the same shape; v the
@@ -180,6 +187,10 @@ int maest_attn_probe_q8(int mode, const void* q8, const void* k8,
     case FP8NOMASK:
       return launch_q8<FP8NOMASK>(q8, k8, qsl, sk, v, sv127, out, nullptr,
                                   batch, n, heads, n_real, strides, sl, stream);
+    case MIX8:
+      return launch_q8<MIX8, float>(q8, k8, qsl, sk, v, sv127, out, nullptr,
+                                    batch, n, heads, n_real, strides, sl,
+                                    stream);
     case FP8PV8:
       return launch_q8<FP8PV8>(q8, k8, qsl, sk, v, sv127, out, nullptr, batch,
                                n, heads, n_real, strides, sl, stream);

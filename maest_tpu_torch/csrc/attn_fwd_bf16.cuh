@@ -1,7 +1,7 @@
 // The bf16 attention forward loop for Hopper (sm_90a), as one template over
 // what the softmax section and the epilogue compute, over how many (batch,
 // head) pairs a block walks, over the tile and over the head_dim D_ (64,
-// or 128 for the production FLASH instances; the probes stay at 64).
+// 128 or 256 for the production FLASH instances; the probes stay at 64).
 //
 // Variant FLASH is the production kernel (K2 without lse, K3a with it):
 // online softmax, instantiated by attention_fwd.cu; its design and bounds
@@ -28,6 +28,10 @@
 //             correction run as FLASH's on fp32(s). sl is not used.
 //   BF16SM    (attn_vpu_probe.py _variant_kernel, kind "bf16sm", :112-132):
 //             the softmax in bf16, softmax_bf16 below.
+//   MIX       (scripts/int8_probe.py _probe_kernel, kind "mix_bf16", :76-81):
+//             p = exp2(s * 1e-4 - 1) of the unscaled fp32 s, each step
+//             rounded on its own, with no mask, no max and no sum; out =
+//             bf16(acc), not divided. The caller passes n_real = n.
 //
 // G (_gh_kernel, attn_profile_r2.py:148): a block walks G (batch, head)
 // pairs in turn, each through the whole loop with its own m, l and acc, so
@@ -58,6 +62,16 @@
 // so the instance runs one block an SM (fwd_min_blocks) with up to 255
 // registers; its double-buffered K/V tiles (rows of 136 bf16) take 69.6
 // KB, past the 48 KB of static shared memory: dynamic (fwd_smem_bytes).
+//
+// D_ = 256 (head_dim 129-256): the output sums alone take 128 registers a
+// thread, and q's fragments would take 64 more beside the 32 of the score
+// tile and 16 of P, past the 255 a thread can have. So the block stages
+// its q rows once in shared memory (QSM: 128 rows of 264 bf16, 67.6 KB)
+// and each warp reads its q fragments through ldmatrix for every key tile,
+// two k-steps at a time: 16 ldmatrix.x4 a tile beside the 64 of K and 64
+// of V. The products and their order of summation are the register
+// path's. K/V buffers (135 KB) and q take 203 KB of dynamic shared memory,
+// one block an SM.
 
 #pragma once
 
@@ -65,7 +79,7 @@
 
 namespace maest {
 
-enum FwdVariant { FLASH, MXU_ONLY, NOEXP_MAX, NOVMAX, BF16S, BF16SM };
+enum FwdVariant { FLASH, MXU_ONLY, NOEXP_MAX, NOVMAX, BF16S, BF16SM, MIX };
 
 constexpr int WARPS = 8;
 constexpr int MQ = 16 * WARPS;  // query rows per block
@@ -161,11 +175,14 @@ __host__ __device__ constexpr int fwd_min_blocks(int warps, int mk,
 }
 
 // dynamic shared memory of an instance: its K/V buffers past 64 keys or
-// past head_dim 64
-__host__ __device__ constexpr int fwd_smem_bytes(int mk, int d = D) {
-  return mk > 64 || d > 64
-             ? 2 * 2 * mk * ld_bf16(d) * static_cast<int>(sizeof(bf16))
-             : 0;
+// past head_dim 64, and past head_dim 128 its q rows (16 a warp)
+__host__ __device__ constexpr int fwd_smem_bytes(int mk, int d = D,
+                                                 int warps = WARPS) {
+  return (mk > 64 || d > 64
+              ? 2 * 2 * mk * ld_bf16(d) * static_cast<int>(sizeof(bf16))
+              : 0) +
+         (d > 128 ? 16 * warps * ld_bf16(d) * static_cast<int>(sizeof(bf16))
+                  : 0);
 }
 
 // Fragment layouts: see mma_bf16.cuh.
@@ -178,7 +195,8 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      Strides qs, Strides ks, Strides vs, Strides os, float sl) {
   constexpr int MQ_ = 16 * WARPS_;         // query rows per block
   constexpr int LD_ = ld_bf16(D_);
-  constexpr bool DYN = fwd_smem_bytes(MK_, D_) > 0;
+  constexpr bool DYN = fwd_smem_bytes(MK_, D_, WARPS_) > 0;
+  constexpr bool QSM = D_ > 128;  // q fragments from shared memory
   constexpr int SMK = DYN ? 1 : MK_;
   __shared__ __align__(128) bf16 k_st[2][SMK][LD_];  // double-buffered tiles
   __shared__ __align__(128) bf16 v_st[2][SMK][LD_];
@@ -192,6 +210,8 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     k_sm = k_st;
     v_sm = v_st;
   }
+  // QSM: the block's q rows, after the K/V buffers
+  bf16(*q_sm)[LD_] = reinterpret_cast<bf16(*)[LD_]>(v_sm + 2);
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -224,11 +244,23 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     };
 
     const int n_tiles = (n_real + MK_ - 1) / MK_;
+    if constexpr (QSM) {  // the q rows join tile 0's copy group
+      const bf16* qb = q + b * qs.b + h * qs.h;
+      for (int i = threadIdx.x; i < MQ_ * (D_ / 8); i += 32 * WARPS_) {
+        const int j = i >> ilog2(D_ / 8);
+        const int c = (i & (D_ / 8 - 1)) * 8;
+        const int row = blockIdx.y * MQ_ + j;
+        cp_async16(&q_sm[j][c],
+                   qb + static_cast<long long>(min(row, n - 1)) * qs.n + c,
+                   row < n ? 16 : 0);
+      }
+    }
     stage(0, 0);
 
-    // q fragments of this warp's 16 rows, D_ / 16 k-steps over d
-    uint32_t qf[D_ / 16][4];
-    {
+    // q fragments of this warp's 16 rows, D_ / 16 k-steps over d (QSM: read
+    // from shared memory in the loop)
+    uint32_t qf[QSM ? 1 : D_ / 16][4];
+    if constexpr (!QSM) {
       const bf16* qb = q + b * qs.b + h * qs.h;
       const bf16* q0 = qb + static_cast<long long>(min(row0, n - 1)) * qs.n;
       const bf16* q1 =
@@ -273,16 +305,40 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         // ldmatrix.x4 brings K for one n-tile and two k-steps (d 0..31,
         // 32..63, ...)
         float s[MK_ / 8][4];
+        if constexpr (QSM) {
+          // the same products in the same order, q's two k-steps of each
+          // 32 d read once for all n-tiles
 #pragma unroll
-        for (int nt = 0; nt < MK_ / 8; ++nt) {
+          for (int nt = 0; nt < MK_ / 8; ++nt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+            for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
           for (int half = 0; half < D_ / 32; ++half) {
-            uint32_t kf[4];
-            ldmatrix_x4(kf, &k_sm[buf][nt * 8 + lr][half * 32 + li * 8]);
-            mma_16816(s[nt], qf[2 * half], kf[0], kf[1]);
-            mma_16816(s[nt], qf[2 * half + 1], kf[2], kf[3]);
+            uint32_t qa[2][4];
+#pragma unroll
+            for (int x = 0; x < 2; ++x)
+              ldmatrix_x4(qa[x], &q_sm[warp * 16 + (li & 1) * 8 + lr]
+                                      [(2 * half + x) * 16 + (li >> 1) * 8]);
+#pragma unroll
+            for (int nt = 0; nt < MK_ / 8; ++nt) {
+              uint32_t kf[4];
+              ldmatrix_x4(kf, &k_sm[buf][nt * 8 + lr][half * 32 + li * 8]);
+              mma_16816(s[nt], qa[0], kf[0], kf[1]);
+              mma_16816(s[nt], qa[1], kf[2], kf[3]);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int nt = 0; nt < MK_ / 8; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+            for (int half = 0; half < D_ / 32; ++half) {
+              uint32_t kf[4];
+              ldmatrix_x4(kf, &k_sm[buf][nt * 8 + lr][half * 32 + li * 8]);
+              mma_16816(s[nt], qf[2 * half], kf[0], kf[1]);
+              mma_16816(s[nt], qf[2 * half + 1], kf[2], kf[3]);
+            }
           }
         }
 
@@ -299,6 +355,16 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           }
         } else if constexpr (Variant == BF16SM) {
           softmax_bf16<true>(s, sl, base, n_real, t, m, l, o, pf);
+        } else if constexpr (Variant == MIX) {
+#pragma unroll
+          for (int nt = 0; nt < MK_ / 8; ++nt) {
+            float p[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              p[e] = exp2f(__fsub_rn(__fmul_rn(s[nt][e], 1e-4f), 1.f));
+            pf[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
+            pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+          }
         } else {
           // NOVMAX: the max of this tile alone
           float mx[2] = {Variant == NOVMAX ? NEG_INF : m[0],
@@ -376,7 +442,7 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (!live) continue;  // its rows lie past N: nothing to store
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      if constexpr (Variant == MXU_ONLY) {
+      if constexpr (Variant == MXU_ONLY || Variant == MIX) {
         l[r] = 1.f;  // divides by nothing
       } else {
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -430,7 +496,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out,
                float* lse, int batch, int n, int heads, int n_real,
                const long long* st, float sl, void* stream) {
   const auto kernel = attn_fwd_bf16_kernel<Variant, G, WARPS_, MK_, QPAD, D_>;
-  constexpr int smem = fwd_smem_bytes(MK_, D_);
+  constexpr int smem = fwd_smem_bytes(MK_, D_, WARPS_);
   // once an instance, before any launch a graph captures; the setting holds
   // for the current device only: the port drives one card a process
   if (smem > 0) {

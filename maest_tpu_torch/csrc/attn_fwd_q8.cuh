@@ -1,6 +1,6 @@
 // The 8-bit attention forward loop for Hopper (sm_90a), as one template over
 // the mode (how q.k and p.v are multiplied and what the softmax section and
-// the epilogue compute) and over the head_dim D_: 64, or 128 for the
+// the epilogue compute) and over the head_dim D_: 64, 128 or 256 for the
 // production modes (the measurement variants stay at 64).
 //
 // The production modes (K5, K6), instantiated by attention_fwd_q8.cu, whose
@@ -28,6 +28,13 @@
 //             n_real = n_pad, a multiple of 64 at or past n: the loop walks
 //             every tile up to it, and the keys from n on, staged as zeros,
 //             each add exp2(bf16(0 - m)) to l and nothing to acc.
+//   MIX8      (scripts/int8_probe.py _probe_kernel, kind "mix_i8", :68-74):
+//             QK8PV8's int8 products without scales: p = exp2(float(s) *
+//             1e-4 - 1), each step rounded on its own, no mask, no max;
+//             p8 = round(p 127) saturated to [-128, 127] (to_s8_sat: the
+//             rig's p reaches 2^20 and more, where to_s8 would wrap); the
+//             int32 p8.v8 sums of every tile in one int32 total, converted
+//             to fp32 once at the end and not divided. T = float.
 //
 // Every mode walks 64-key tiles with fp32 l and acc; the plain versions
 // walk the same tiles.
@@ -45,6 +52,12 @@
 // 128, the output sums take 64 registers a thread, so the instance runs
 // one block an SM (fwd_min_blocks), and its K/V buffers (53-83 KB) take
 // dynamic shared memory (q8_smem_bytes), whose limit the launch sets.
+//
+// D_ = 256: the output sums take 128 registers a thread, and the score
+// tile, its probabilities and P's fragments 80 more, so, as K2 at 256
+// (attn_fwd_bf16.cuh), q's fragments (32 registers) are read from the
+// block's q rows staged once in shared memory (QSM, 128 rows of 272
+// bytes), two k-steps at a time for every n-tile.
 
 #pragma once
 
@@ -61,7 +74,8 @@ enum Q8Mode {
   INT8_RIG = 4,
   FP8SM = 5,
   FP8NOEXP = 6,
-  FP8NOMASK = 7
+  FP8NOMASK = 7,
+  MIX8 = 8
 };
 
 constexpr float NOEXP_SHIFT = 32.f;  // FP8NOEXP's constant max
@@ -74,9 +88,12 @@ __host__ __device__ constexpr int q8_vbytes(bool pv8, bool f32v, int d) {
 }
 
 // dynamic shared memory of an instance (head_dim past 64): two K buffers
-// of ld8(d)-byte rows and two V buffers; the key scales stay static
+// of ld8(d)-byte rows and two V buffers, and past 128 the block's q rows;
+// the key scales stay static
 __host__ __device__ constexpr int q8_smem_bytes(bool pv8, bool f32v, int d) {
-  return d > 64 ? 2 * MK * ld8(d) + 2 * q8_vbytes(pv8, f32v, d) : 0;
+  return d > 64 ? 2 * MK * ld8(d) + 2 * q8_vbytes(pv8, f32v, d) +
+                      (d > 128 ? MQ * ld8(d) : 0)
+                : 0;
 }
 
 template <int MODE, typename T = bf16, int D_ = D>
@@ -87,8 +104,11 @@ attn_fwd_q8_kernel(const uint8_t* __restrict__ q8, const uint8_t* __restrict__ k
                    T* __restrict__ out, float* __restrict__ lse, int n,
                    int n_real, int heads, Strides qs, Strides ks, Strides vs,
                    Strides os, float sl) {
-  constexpr bool INT8 = MODE == QK8 || MODE == QK8PV8 || MODE == INT8_RIG;
-  constexpr bool PV8 = MODE == QK8PV8 || MODE == FP8PV8 || MODE == INT8_RIG;
+  constexpr bool SCALES = MODE == QK8 || MODE == QK8PV8 || MODE == INT8_RIG;
+  constexpr bool INT8 = SCALES || MODE == MIX8;  // int8 products
+  constexpr bool PV8 = MODE == QK8PV8 || MODE == FP8PV8 || MODE == INT8_RIG ||
+                       MODE == MIX8;
+  constexpr bool QSM = D_ > 128;  // q fragments from shared memory
   constexpr bool SM16 = MODE == FP8SM || MODE == FP8NOMASK;  // bf16 softmax
   constexpr bool F32V = !PV8 && sizeof(T) == 4;  // fp32 v, scalar P.V
   constexpr int LDK = ld8(D_);     // K rows of D_ bytes
@@ -126,7 +146,7 @@ attn_fwd_q8_kernel(const uint8_t* __restrict__ q8, const uint8_t* __restrict__ k
   const uint8_t* vt = static_cast<const uint8_t*>(v) +
                       static_cast<long long>(bh) * D_ * npad;  // pv8
   const T* vb = static_cast<const T*>(v) + b * vs.b + h * vs.h;
-  const float* skb = INT8 ? sk + static_cast<long long>(bh) * n : nullptr;
+  const float* skb = SCALES ? sk + static_cast<long long>(bh) * n : nullptr;
   // 16-byte chunks of a K row (and, pv8, of a V^T row's 64 keys: 4) a
   // thread stages: D_ / 64 of each
   constexpr int KC = D_ / 16;
@@ -169,7 +189,7 @@ attn_fwd_q8_kernel(const uint8_t* __restrict__ q8, const uint8_t* __restrict__ k
         cp_async16(&vsm[j][c], vb + src * vs.n + c, key < n ? 16 : 0);
       }
     }
-    if constexpr (INT8) {
+    if constexpr (SCALES) {
       if (i < MK) {
         const int key = tile * MK + i;
         sk_sm[buf][i] = key < n ? skb[key] : 0.f;
@@ -179,22 +199,44 @@ attn_fwd_q8_kernel(const uint8_t* __restrict__ q8, const uint8_t* __restrict__ k
   };
 
   const int n_tiles = (n_real + MK - 1) / MK;
+  // QSM: the block's q rows, after the K and V buffers, with tile 0's
+  // copy group
+  uint8_t(*q_sm)[LDK] =
+      reinterpret_cast<uint8_t(*)[LDK]>(q8_dyn + 2 * MK * LDK + 2 * VBYTES);
+  if constexpr (QSM) {
+    const uint8_t* qb = q8 + b * qs.b + h * qs.h;
+    for (int i = threadIdx.x; i < MQ * KC; i += 32 * WARPS) {
+      const int j = i >> ilog2(KC);
+      const int c = (i & (KC - 1)) * 16;
+      const int row = blockIdx.y * MQ + j;
+      cp_async16(&q_sm[j][c],
+                 qb + static_cast<long long>(min(row, n - 1)) * qs.n + c,
+                 row < n ? 16 : 0);
+    }
+  }
   stage(0, 0);
 
-  uint32_t qf[D_ / 32][4];  // this warp's 16 rows, k-steps of 32 over d
-  load_row_frags8(qf, q8 + b * qs.b + h * qs.h, qs.n, row0, n, t);
+  // this warp's 16 rows, k-steps of 32 over d (QSM: read in the loop)
+  uint32_t qf[QSM ? 1 : D_ / 32][4];
+  if constexpr (!QSM)
+    load_row_frags8(qf, q8 + b * qs.b + h * qs.h, qs.n, row0, n, t);
   float rs[2] = {sl, sl};  // per-row score scale: sq * sl (int8) or sl
-  if constexpr (INT8) {
+  if constexpr (SCALES) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       rs[r] = qsl[static_cast<long long>(bh) * n + min(row0 + 8 * r, n - 1)];
   }
 
   float o[D_ / 8][4];
+  int oi[MODE == MIX8 ? D_ / 8 : 1][4];  // MIX8: the int32 p8.v8 totals
 #pragma unroll
   for (int dt = 0; dt < D_ / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+#pragma unroll
+  for (int dt = 0; dt < (MODE == MIX8 ? D_ / 8 : 1); ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oi[dt][e] = 0;
   constexpr float M0 = MODE == FP8NOEXP ? NOEXP_SHIFT : NEG_INF;
   float m[2] = {M0, M0};    // rows g and g+8
   float l[2] = {0.f, 0.f};  // this thread's share of the row sums
@@ -213,28 +255,67 @@ attn_fwd_q8_kernel(const uint8_t* __restrict__ q8, const uint8_t* __restrict__ k
     // scores: 16 rows x 64 keys = 8 n-tiles; one ldmatrix.x4 brings K for
     // one n-tile and two k-steps (64 of its D_ bytes)
     float s[8][4];
+    if constexpr (QSM) {
+      // the same products in the same order, q's two k-steps of each 64
+      // bytes read once for all n-tiles
+      int c[INT8 ? 8 : 1][4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      if constexpr (INT8) {
-        int c[4] = {0, 0, 0, 0};
+      for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-        for (int half = 0; half < D_ / 64; ++half) {
-          uint32_t kf[4];
-          ldmatrix_x4(kf, &k_sm[buf][nt * 8 + lr][half * 64 + li * 16]);
-          mma_s8(c, qf[2 * half], kf[0], kf[1]);
-          mma_s8(c, qf[2 * half + 1], kf[2], kf[3]);
+        for (int e = 0; e < 4; ++e) {
+          s[nt][e] = 0.f;
+          if constexpr (INT8) c[nt][e] = 0;
         }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = __int2float_rn(c[e]);
-      } else {
+      for (int half = 0; half < D_ / 64; ++half) {
+        uint32_t qa[2][4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+        for (int x = 0; x < 2; ++x)
+          ldmatrix_x4(qa[x], &q_sm[warp * 16 + (li & 1) * 8 + lr]
+                                  [(2 * half + x) * 32 + (li >> 1) * 16]);
 #pragma unroll
-        for (int half = 0; half < D_ / 64; ++half) {
+        for (int nt = 0; nt < 8; ++nt) {
           uint32_t kf[4];
           ldmatrix_x4(kf, &k_sm[buf][nt * 8 + lr][half * 64 + li * 16]);
-          mma_e4m3(s[nt], qf[2 * half], kf[0], kf[1]);
-          mma_e4m3(s[nt], qf[2 * half + 1], kf[2], kf[3]);
+          if constexpr (INT8) {
+            mma_s8(c[nt], qa[0], kf[0], kf[1]);
+            mma_s8(c[nt], qa[1], kf[2], kf[3]);
+          } else {
+            mma_e4m3(s[nt], qa[0], kf[0], kf[1]);
+            mma_e4m3(s[nt], qa[1], kf[2], kf[3]);
+          }
+        }
+      }
+      if constexpr (INT8) {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = __int2float_rn(c[nt][e]);
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        if constexpr (INT8) {
+          int c[4] = {0, 0, 0, 0};
+#pragma unroll
+          for (int half = 0; half < D_ / 64; ++half) {
+            uint32_t kf[4];
+            ldmatrix_x4(kf, &k_sm[buf][nt * 8 + lr][half * 64 + li * 16]);
+            mma_s8(c, qf[2 * half], kf[0], kf[1]);
+            mma_s8(c, qf[2 * half + 1], kf[2], kf[3]);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = __int2float_rn(c[e]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+          for (int half = 0; half < D_ / 64; ++half) {
+            uint32_t kf[4];
+            ldmatrix_x4(kf, &k_sm[buf][nt * 8 + lr][half * 64 + li * 16]);
+            mma_e4m3(s[nt], qf[2 * half], kf[0], kf[1]);
+            mma_e4m3(s[nt], qf[2 * half + 1], kf[2], kf[3]);
+          }
         }
       }
     }
@@ -245,6 +326,12 @@ attn_fwd_q8_kernel(const uint8_t* __restrict__ q8, const uint8_t* __restrict__ k
     uint32_t pf16[4][4];
     if constexpr (SM16) {
       softmax_bf16<MODE != FP8NOMASK>(s, sl, base, n_real, t, m, l, o, pf16);
+    } else if constexpr (MODE == MIX8) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[nt][e] = exp2f(__fsub_rn(__fmul_rn(s[nt][e], 1e-4f), 1.f));
     } else {
       float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -254,7 +341,7 @@ attn_fwd_q8_kernel(const uint8_t* __restrict__ q8, const uint8_t* __restrict__ k
           const int col = nt * 8 + 2 * t + (e & 1);
           // the rounded products of _attn_body(_q8), never fused into an fma
           float x = __fmul_rn(s[nt][e], rs[e >> 1]);
-          if constexpr (INT8) x = __fmul_rn(x, sk_sm[buf][col]);
+          if constexpr (SCALES) x = __fmul_rn(x, sk_sm[buf][col]);
           x = base + col < n_real ? x : NEG_INF;
           s[nt][e] = x;
           mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -303,6 +390,8 @@ attn_fwd_q8_kernel(const uint8_t* __restrict__ q8, const uint8_t* __restrict__ k
             const float pv = p[4 * j + nn][e];
             if constexpr (MODE == INT8_RIG)
               x[nn][e] = to_s8(pv);
+            else if constexpr (MODE == MIX8)
+              x[nn][e] = to_s8_sat(__fmul_rn(pv, 127.f));
             else
               x[nn][e] = INT8 ? to_s8(__fmul_rn(pv, 127.f)) : prob_to_e4m3(pv);
           }
@@ -314,7 +403,10 @@ attn_fwd_q8_kernel(const uint8_t* __restrict__ q8, const uint8_t* __restrict__ k
       for (int dt = 0; dt < D_ / 8; ++dt) {
         uint32_t vf[4];
         ldmatrix_x4(vf, &v_sm[buf][(dt * 8 + lr) * LD8 + li * 16]);
-        if constexpr (INT8) {
+        if constexpr (MODE == MIX8) {
+          mma_s8(oi[dt], pf[0], vf[0], vf[1]);
+          mma_s8(oi[dt], pf[1], vf[2], vf[3]);
+        } else if constexpr (INT8) {
           int c[4] = {0, 0, 0, 0};
           mma_s8(c, pf[0], vf[0], vf[1]);
           mma_s8(c, pf[1], vf[2], vf[3]);
@@ -385,6 +477,13 @@ attn_fwd_q8_kernel(const uint8_t* __restrict__ q8, const uint8_t* __restrict__ k
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
+  if constexpr (MODE == MIX8) {  // the int32 totals, converted once
+#pragma unroll
+    for (int dt = 0; dt < D_ / 8; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[dt][e] = __int2float_rn(oi[dt][e]);
+    l[0] = l[1] = 1.f;
+  }
   if constexpr (MODE == QK8PV8 || MODE == INT8_RIG) {  // acc sv127, once
     const float* svb = sv127 + static_cast<long long>(bh) * D_;
 #pragma unroll
@@ -427,7 +526,8 @@ int launch_q8(const void* q8, const void* k8, const float* qsl, const float* sk,
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
   const dim3 grid(batch * heads, (n + MQ - 1) / MQ);
-  constexpr bool PV8 = MODE == QK8PV8 || MODE == FP8PV8 || MODE == INT8_RIG;
+  constexpr bool PV8 = MODE == QK8PV8 || MODE == FP8PV8 || MODE == INT8_RIG ||
+                       MODE == MIX8;
   constexpr int smem = q8_smem_bytes(PV8, !PV8 && sizeof(T) == 4, D_);
   // once an instance, before any launch a graph captures; the setting holds
   // for the current device only: the port drives one card a process

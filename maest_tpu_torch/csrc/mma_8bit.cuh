@@ -109,6 +109,15 @@ __device__ __forceinline__ uint32_t to_s8(float x) {
   return static_cast<uint32_t>(static_cast<int>(rintf(x))) & 0xffu;
 }
 
+// round half to even into an int8 byte, saturated to [-128, 127], NaN to
+// 0: the conversion of jnp.round(x).astype(jnp.int8), for values that may
+// leave the int8 range
+__device__ __forceinline__ uint32_t to_s8_sat(float x) {
+  uint32_t r;
+  asm("cvt.rni.sat.s8.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r & 0xffu;
+}
+
 // e4m3 byte of a probability (x in [0, 1]), round to nearest even. The
 // hardware conversion saturates; no value in [0, 1] reaches e4m3's range
 // limit (448), so this is the JAX package's cast, which gives NaN there.

@@ -14,10 +14,10 @@ On CUDA tensors each step launches its hand-written kernel
 (``csrc/attention_fwd.cu``, ``csrc/attention_bwd.cu``: bf16 on the tensor
 cores, fp32 in scalar fp32 FMA; ``csrc/attention_fwd_q8.cu`` and
 ``csrc/attention_bwd_q8.cu``: int8 / e4m3 products, bf16 or fp32 inputs;
-any N, strided views). The kernels are built for head_dim 64 and 128; a
-head_dim below 64, or between 64 and 128, runs the next instance on inputs
+any N, strided views). The kernels are built for head_dim 64, 128 and
+256; any other head_dim up to 256 runs the next instance on inputs
 zero-padded to its width with its own softmax scale (``pad_head_dim``),
-and one above 128 is refused. On CPU tensors it runs
+and one above 256 is refused. On CPU tensors it runs
 the plain PyTorch version (``attention_reference``,
 ``attention_reference_lse``, ``attention_bwd_reference``,
 ``attention_q8_reference``, ``attention_bwd_int8_reference``). Production
@@ -48,7 +48,7 @@ from . import _build
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 HEAD_DIM = 64               # the probe kernels' head_dim
-HEAD_DIMS = (HEAD_DIM, 128)  # the production kernels' instances
+HEAD_DIMS = (HEAD_DIM, 128, 256)  # the production kernels' instances
 
 _QUANT_MODES = (None, "qk8", "qk8pv8", "fp8", "fp8pv8")
 
@@ -485,16 +485,17 @@ def _fwd_q8(wrapper, quant, q, k, v, n_real, with_lse):
     return out
 
 
-# --- head_dim other than 64 and 128 on the card ----------------------------
-_WIDE_HEAD = ("the CUDA attention kernels are built for head_dim 64 and 128 "
-              "and run a smaller one zero-padded to the next; got head_dim "
-              "{} (ROADMAP queue 3: above 128 a warp's fp32 output sums "
-              "alone take 128 registers a thread)")
+# --- head_dim other than 64, 128 and 256 on the card -----------------------
+_WIDE_HEAD = ("the CUDA attention kernels are built for head_dim 64, 128 and "
+              "256 and run a smaller one zero-padded to the next; got "
+              "head_dim {} (ROADMAP queue 3: each width is one more set of "
+              "instances of every production kernel, and 256 covers every "
+              "head of the public ViT families)")
 
 
 def padded_dim(d: int) -> int:
     """The kernel instance that takes head_dim d: the smallest of
-    HEAD_DIMS at or above it; above 128 raises (ROADMAP queue 3)."""
+    HEAD_DIMS at or above it; above 256 raises (ROADMAP queue 3)."""
     for width in HEAD_DIMS:
         if d <= width:
             return width
@@ -503,11 +504,11 @@ def padded_dim(d: int) -> int:
 
 def pad_head_dim(*ts):
     """(ts zero-padded along head_dim, their last axis, to the next kernel
-    instance, 64 or 128 (``padded_dim``); the softmax scale of their own
+    instance, 64, 128 or 256 (``padded_dim``); the softmax scale of their own
     head_dim, d^-0.5). Zero columns add nothing to q.k, to do.v or to
     rowsum(do o), leave every |x| maximum and so every 8-bit scale as it
     was, and give zero output and gradient columns, which the caller
-    slices off; the scale must be the unpadded head_dim's. head_dim > 128
+    slices off; the scale must be the unpadded head_dim's. head_dim > 256
     raises."""
     d = ts[0].shape[-1]
     width = padded_dim(d)
@@ -589,12 +590,13 @@ def _strides(*ts):
 
 
 def _instance(name, d):
-    """The C entry ``name`` of head_dim d: ``name`` at 64, ``name_d128``."""
+    """The C entry ``name`` of head_dim d: ``name`` at 64, else
+    ``name_d128`` or ``name_d256``."""
     return name if d == HEAD_DIM else f"{name}_d{d}"
 
 
 def _launch_fwd(q, k, v, n_real, with_lse, scale):
-    """K2 (K3a with lse) on checked views of head_dim 64 or 128."""
+    """K2 (K3a with lse) on checked views of head_dim 64, 128 or 256."""
     name = _instance("maest_attn_fwd_fp32" if q.dtype == torch.float32
                      else "maest_attn_fwd_bf16", q.shape[-1])
     return launch_fwd_entry("attention_fwd", name, (), q, k, v, n_real,

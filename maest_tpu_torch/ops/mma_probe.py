@@ -18,7 +18,7 @@ defaults, N 1792):
 float8_e4m3fn operands (b shared by every program), fp32 sums, bf16 out.
 
 On CUDA tensors both launch ``csrc/mma_probe.cu`` (one product kernel; the
-e4m3 instance reads B column-major, so ``mlp_probe`` copies a row-major
+8-bit instances read B column-major, so ``mlp_probe`` copies a row-major
 e4m3 b once into that layout, and a column-major b, ``b_t.t()``, goes in
 as it lies), counted in ``mxu_probe.launches`` and ``mlp_probe.launches``;
 a shape the kernel has no instance of raises. On CPU tensors they run the
@@ -105,9 +105,13 @@ def _check_mlp(a, b):
                          f"(K, M), got {tuple(a.shape)}, {tuple(b.shape)}")
 
 
-def _launch(a, b, out, fold, bn, b_batch, fp8=False):
-    """``maest_mma_probe`` on contiguous CUDA a (batch, m, k), b and out
-    (batch, m, ncols)."""
+# the kernel's operand types and epilogues (``maest_mma_probe``'s type)
+BF16, E4M3, S8_I32, S8_CVT = range(4)
+
+
+def _launch(a, b, out, fold, bn, b_batch, kind_type=BF16):
+    """``maest_mma_probe`` of type ``kind_type`` on contiguous CUDA a
+    (batch, m, k), b and out (batch, m, ncols)."""
     batch, m, k = a.shape
     lib = _build.load_library("mma_probe")
     fn = lib.maest_mma_probe
@@ -116,9 +120,9 @@ def _launch(a, b, out, fold, bn, b_batch, fp8=False):
         ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(int(fp8), bn, fold, a.data_ptr(), b.data_ptr(),
+        err = fn(kind_type, bn, fold, a.data_ptr(), b.data_ptr(),
                  out.data_ptr(), batch, m, k, out.shape[-1], b_batch, stream)
-    _build.check(lib, err, f"maest_mma_probe fp8={int(fp8)} bn={bn} "
+    _build.check(lib, err, f"maest_mma_probe type={kind_type} bn={bn} "
                  f"fold={fold}")
     return out
 
@@ -146,6 +150,15 @@ def mxu_probe(a: torch.Tensor, b: torch.Tensor, kind: str) -> torch.Tensor:
     fold = _check_kind(a, b, kind)
     if a.device.type == "cpu":
         return mxu_probe_reference(a, b, kind)
+    out = launch_mxu(a, b, kind, fold)
+    mxu_probe.launches += 1
+    return out
+
+
+def launch_mxu(a, b, kind, fold):
+    """The kernel of P1 ``kind`` on checked CUDA a and b, uncounted (the
+    int8 rigs' bf16 kinds are these instances, counted by their own
+    wrappers)."""
     ncols = BLOCK if kind in FOLD_KINDS else b.shape[-1]
     bn = 64 if ncols == 64 else 128
     _check_tiles(a.shape[-2], a.shape[-1], ncols, bn, 64, fold)
@@ -155,7 +168,6 @@ def mxu_probe(a: torch.Tensor, b: torch.Tensor, kind: str) -> torch.Tensor:
                       device=a.device)
     _launch(a3, b3, out.view(a3.shape[0], a.shape[-2], ncols), fold, bn,
             b3[0].numel())
-    mxu_probe.launches += 1
     return out
 
 
@@ -167,13 +179,13 @@ def mlp_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return mlp_probe_reference(a, b)
     fp8 = a.dtype == torch.float8_e4m3fn
-    _check_tiles(a.shape[1], a.shape[2], b.shape[1], 128, 128 if fp8 else 64)
+    _check_tiles(a.shape[1], a.shape[2], b.shape[1], 128, 64)
     a = _cuda(a, "mlp_probe")
     # e4m3: B^T rows (ldmatrix cannot transpose 8-bit values)
     b = _cuda(b.t() if fp8 else b, "mlp_probe")
     out = torch.empty(a.shape[:2] + (b.shape[0] if fp8 else b.shape[1],),
                       dtype=torch.bfloat16, device=a.device)
-    _launch(a, b, out, 1, 128, 0, fp8)
+    _launch(a, b, out, 1, 128, 0, E4M3 if fp8 else BF16)
     mlp_probe.launches += 1
     return out
 

@@ -1,19 +1,20 @@
 """The attention routes the port takes where the JAX package computes
 (ROADMAP queue 3), held on the CPU against the JAX package:
 
-- head_dim other than the kernels' 64 and 128: on the card the kernels
+- head_dim other than the kernels' 64, 128 and 256: on the card the kernels
   run on q, k, v (and o, do) zero-padded to the next instance with the
   unpadded head_dim's softmax scale (``ops/attention.py pad_head_dim``,
   ``padded_fwd``, ``padded_bwd``). Here the same helpers run with the
   plain versions in the kernels' place: pad, plain, slice equals plain
   within 1e-6 (fp32; zero columns change only the order of the sums over
   head_dim), in every mode and in the backward, at head_dim 16 and 32
-  (to 64) and 80, 96 and 128 (to 128), and the tiny model at head_dim 16,
-  96 and 128 through them gives the JAX package's logits within 1e-5;
-- head_dim 128: the plain forward and backward against the JAX package's
-  Pallas kernels (``_flash_fwd_lse``, ``_flash_bwd``) in interpret mode,
-  as ``tests/test_torch_attention.py`` holds them at 64; above 128 the
-  helpers refuse;
+  (to 64), 80, 96 and 128 (to 128) and 160, 192 and 256 (to 256), and the
+  tiny model at head_dim 16, 96, 128, 192 and 256 through them gives the
+  JAX package's logits within 1e-5;
+- head_dim 128 and 256: the plain forward and backward against the JAX
+  package's Pallas kernels (``_flash_fwd_lse``, ``_flash_bwd``) in
+  interpret mode, as ``tests/test_torch_attention.py`` holds them at 64;
+  above 256 the helpers refuse;
 - ``attention_impl="xla"``: the materialised softmax, within 1e-5 of the
   JAX package's XLA path at head_dim 64 and 16;
 - ``attention_impl="flash"`` with attention dropout in train mode raises,
@@ -48,21 +49,22 @@ def _geom(embed, heads):
                 num_classes=10, distilled=True)
 
 
-def _pair(embed, heads, **over):
-    """The JAX net, its params (random heads) and the port with them."""
+def _pair(embed, heads, head_std=0.3, **over):
+    """The JAX net, its params (random heads, N(0, head_std^2)) and the
+    port with them."""
     geom = _geom(embed, heads)
     jcfg = JaxConfig(**geom, **over)
     params = jax.tree.map(np.asarray, init_params(jcfg, jax.random.PRNGKey(0)))
     rng = np.random.default_rng(5)
     params["head_linear"]["kernel"] = rng.standard_normal(
-        (embed, 10)).astype("f4") * 0.3
+        (embed, 10)).astype("f4") * np.float32(head_std)
     tcfg = MAESTConfig(**geom, **over)
     net = load_into(MAESTNet(tcfg), state_from_jax_params(params, tcfg)).eval()
     return JaxNet(jcfg), params, net
 
 
-def _logits(embed, heads, **over):
-    jnet, params, net = _pair(embed, heads, **over)
+def _logits(embed, heads, head_std=0.3, **over):
+    jnet, params, net = _pair(embed, heads, head_std, **over)
     x = np.random.default_rng(6).standard_normal((2, 1, 26, 46)).astype("f4")
     ref = jnet.apply({"params": params}, jnp.asarray(x).transpose(0, 2, 3, 1),
                      train=False)[0]
@@ -73,7 +75,7 @@ def _logits(embed, heads, **over):
 
 def _plain_fwd(q, k, v, n_real, with_lse, scale, quant=None):
     """The plain versions in a kernel's place: (o, lse or None) on inputs of
-    a kernel instance's head_dim, 64 or 128."""
+    a kernel instance's head_dim, 64, 128 or 256."""
     assert q.shape[-1] in A.HEAD_DIMS
     if quant is not None:
         o, lse = A.attention_q8_reference(q, k, v, n_real, quant, scale=scale)
@@ -103,19 +105,26 @@ def test_model_at_head_dim_16_matches_jax(route, monkeypatch):
 
 
 @pytest.mark.parametrize("route", ["plain", "padded"])
-@pytest.mark.parametrize("embed,heads", [(256, 2), (192, 2)],
-                         ids=["d128", "d96"])
+@pytest.mark.parametrize("embed,heads",
+                         [(256, 2), (192, 2), (512, 2), (384, 2)],
+                         ids=["d128", "d96", "d256", "d192"])
 def test_model_at_wide_head_dim_matches_jax(embed, heads, route,
                                             monkeypatch):
     """head_dim 128 (embed 256, 2 heads) and 96 (embed 192, 2 heads),
-    depth 2, fp32: the kernels' D = 128 instance on the card; here, with
+    depth 2, fp32: the kernels' D = 128 instance on the card; head_dim 256
+    (embed 512) and 192 (embed 384): the D = 256 instance. Here, with
     "padded", the helpers of that route with the plain versions in the
-    kernels' place (head_dim 96 zero-padded to 128)."""
+    kernels' place (96 zero-padded to 128, 192 to 256). Past embed 256 the
+    head's weights are drawn with the standard deviation scaled by
+    sqrt(256 / embed), so the logits keep the scale of the embed-256 case
+    (|logit| up to ~10), where the 1e-5 bound is ~10 fp32 ulps of the
+    largest logit: both sides sum the same fp32 products in other orders,
+    and wider features give proportionally larger logits and roundoff."""
     if route == "padded":
         monkeypatch.setattr(
             A, "_fwd", lambda q, k, v, n_real, quant, with_lse:
             A.padded_fwd(_plain_fwd, q, k, v, n_real, with_lse))
-    ours, ref = _logits(embed, heads)
+    ours, ref = _logits(embed, heads, 0.3 * min(1.0, (256 / embed)**0.5))
     assert np.abs(ours - ref).max() <= LOGIT_TOL, np.abs(ours - ref).max()
 
 
@@ -174,7 +183,8 @@ def _qkv(b, n, h, d, seed):
     return x.unbind(2)
 
 
-WIDTHS = [16, 32, 80, 96, 128]  # padded to 64 (16, 32) or 128 (the rest)
+# padded to 64 (16, 32), 128 (80, 96) or 256 (160, 192)
+WIDTHS = [16, 32, 80, 96, 128, 160, 192, 256]
 
 
 @pytest.mark.parametrize("d", WIDTHS)
@@ -192,7 +202,8 @@ def test_padded_forward_is_the_plain_version(d, quant):
         assert (o - ro).abs().max().item() <= PAD_TOL
         assert (lse - rlse).abs().max().item() <= PAD_TOL
     padded, scale = A.pad_head_dim(q)
-    assert padded[0].shape[-1] == (64 if d <= 64 else 128)
+    assert padded[0].shape[-1] == (64 if d <= 64 else 128 if d <= 128
+                                   else 256)
     assert scale == d**-0.5
     assert torch.equal(padded[0][..., :d], q) and not padded[0][..., d:].any()
 
@@ -213,7 +224,7 @@ def test_padded_backward_is_the_plain_version(d, int8):
 
 
 def test_wide_heads_are_refused():
-    x = torch.zeros(1, 4, 2, 192)
+    x = torch.zeros(1, 4, 2, 320)
     with pytest.raises(ValueError, match="ROADMAP queue 3"):
         A.pad_head_dim(x, x, x)
 
@@ -232,14 +243,25 @@ def test_head_dim_128_matches_jax_flash_interpret(dtype):
     the CPU their plain versions) against the JAX custom VJP with its Pallas
     kernels in interpret mode, which take the whole head_dim as a block's
     last axis, at N 200 with n_real 190."""
+    _vs_jax_flash(128, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_head_dim_256_matches_jax_flash_interpret(dtype):
+    """As at 128, at head_dim 256 (the D = 256 instances' width)."""
+    _vs_jax_flash(256, dtype)
+
+
+def _vs_jax_flash(d, dtype):
     from maest_tpu.ops.attention import _flash_fwd_lse
     from maest_tpu.ops.attention import flash_attention as jax_flash
 
     n, n_real = 200, 190
     x = np.random.default_rng(21).standard_normal(
-        (2, n, 3, 2, 128)).astype(np.float32)
+        (2, n, 3, 2, d)).astype(np.float32)
     g = np.random.default_rng(22).standard_normal(
-        (2, n, 2, 128)).astype(np.float32)
+        (2, n, 2, d)).astype(np.float32)
     xt = torch.from_numpy(x).to(dtype).requires_grad_(True)
     out = A.flash_attention(xt[:, :, 0], xt[:, :, 1], xt[:, :, 2],
                             n_real=n_real)

@@ -102,10 +102,10 @@ def test_attention_kernel_matches_plain(cuda_device, b, n, n_real, dtype):
 
 
 def test_attention_kernel_rejects_what_it_does_not_take(cuda_device):
-    """head_dim 32 runs K2 on inputs zero-padded to 64 and head_dim 128 its
-    D = 128 instance (each the plain version's result); head_dim 192 is
-    refused, naming ROADMAP queue 3."""
-    for d in (32, 128):
+    """head_dim 32 runs K2 on inputs zero-padded to 64, head_dim 128 its
+    D = 128 instance and 256 its D = 256 instance (each the plain
+    version's result); head_dim 320 is refused, naming ROADMAP queue 3."""
+    for d in (32, 128, 256):
         x = _rand((1, 8, 3, 2, d), 3).to(cuda_device)
         q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
         before = flash_attention.launches
@@ -113,7 +113,7 @@ def test_attention_kernel_rejects_what_it_does_not_take(cuda_device):
         assert flash_attention.launches == before + 1 and out.shape == q.shape
         err = (out - attention_reference(q, k, v)).abs().max().item()
         assert err <= ATTN_TOL[torch.float32], (d, err)
-    x = torch.zeros(1, 8, 3, 2, 192, device=cuda_device)
+    x = torch.zeros(1, 8, 3, 2, 320, device=cuda_device)
     with pytest.raises(ValueError, match="ROADMAP queue 3"):
         flash_attention(x[:, :, 0], x[:, :, 1], x[:, :, 2])
     x = torch.zeros(1, 8, 3, 2, 64, device=cuda_device, dtype=torch.float16)
@@ -679,13 +679,13 @@ def test_padded_head_dim_matches_plain(cuda_device, d, dtype):
     assert (lse - rlse).abs().max().item() <= LSE_TOL
 
 
-# --- head_dim 65-128: the kernels' D = 128 instances -----------------------
+# --- head_dim 65-256: the kernels' D = 128 and D = 256 instances -----------
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("d", [96, 128])
+@pytest.mark.parametrize("d", [96, 128, 192, 256])
 def test_wide_head_dim_matches_plain(cuda_device, d, dtype):
     """K2, K3a, K3b, K5/K6 in every mode (with lse) and K7 at head_dim d
-    (96 zero-padded to 128), each launched once, against the plain
+    (96 zero-padded to 128, 192 to 256), each launched once, against the plain
     versions, within the bounds head_dim 64 is held to: K2-K3b as
     test_padded_head_dim_matches_plain; the 8-bit forward 2e-2 in bf16
     (test_q8_forward_kernels_match_plain) and, in fp32, relative L2 1e-5
@@ -796,7 +796,7 @@ def test_mma_kernel_refuses_what_it_has_no_instance_of(cuda_device):
                               dtype=torch.bfloat16),
                   torch.zeros(1, 64, 3 * 256, device=cuda_device,
                               dtype=torch.bfloat16), "k64")
-    with pytest.raises(ValueError, match="K of 128"):
+    with pytest.raises(ValueError, match="K of 64"):
         mlp_probe(torch.zeros(2, 128, 96, device=cuda_device).to(
             torch.float8_e4m3fn), torch.zeros(96, 128, device=cuda_device).to(
             torch.float8_e4m3fn))
@@ -812,6 +812,98 @@ def test_mma_rigs_on_the_card(cuda_device, capsys):
     assert {"library_fc1_bf16", "library_fc1_fp8"} <= set(res)
     out = capsys.readouterr().out
     assert "TFLOP/s" in out and "torch._scaled_mm" in out
+
+
+# --- P2 and P3: the int8 product rigs (ops/int8_probe.py) -------------------
+# every kind's kernel against its plain version at the rigs' N with two
+# programs, within ops/int8_probe.py plain_gap's bound: exact for int32
+# outputs, one p8 a row one apart for mix_i8, 1 (k64_i8q) or 2 bf16 ulps of
+# max|out| for the rest, and relative L2 1e-2 for the bf16 and e4m3 kinds.
+def _int8_kinds():
+    from maest_tpu_torch.ops.int8_probe import P2_KINDS, P3_KINDS
+    return [(k, "p2") for k in P2_KINDS] + [(k, "p3") for k in P3_KINDS]
+
+
+@pytest.mark.parametrize("kind,rig", _int8_kinds())
+def test_int8_rig_kernels_match_plain(cuda_device, kind, rig):
+    from maest_tpu_torch.ops import int8_probe as I
+    from maest_tpu_torch.probes import int8, int8_2
+
+    mod, wrap, ref_fn = ((int8, I.int8_probe, I.int8_probe_reference)
+                         if rig == "p2" else
+                         (int8_2, I.int8_big_probe,
+                          I.int8_big_probe_reference))
+    a, b = int8.operands(kind, 2, cuda_device, mod.shapes)
+    before = wrap.launches
+    out = wrap(a, b, kind)
+    ref = ref_fn(a, b, kind)
+    torch.cuda.synchronize()
+    assert wrap.launches == before + 1
+    assert out.shape == ref.shape and out.dtype == I.out_dtype(kind)
+    err, tol, ok = I.plain_gap(kind, out, ref)
+    assert ok, (kind, err, tol)
+    if kind == "k64_i8q":  # the maxima the codes were taken with
+        _, amax = I.launch_i8q(a, b)
+        want = torch.stack([a.float().abs().amax(dim=(1, 2)),
+                            b.float().abs().amax(dim=(1, 2))], dim=1)
+        assert torch.equal(amax, want)
+
+
+def test_int8_checks_refuse_planted_faults(cuda_device, tmp_path,
+                                           monkeypatch):
+    """plain_gap refuses k64big_i8 with one of its 56 column blocks
+    skipped (b's block 13 zeroed, as a kernel that skipped it) and mix_i8
+    built with the wrapping to_s8 in place of the saturating conversion
+    (a copy of csrc/ in a temporary directory). Run with -s to see the
+    gaps."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    from maest_tpu_torch.ops import _build
+    from maest_tpu_torch.ops import int8_probe as I
+    from maest_tpu_torch.probes import int8, int8_2
+
+    a, b = int8.operands("k64big_i8", 2, cuda_device, int8_2.shapes)
+    skipped = b.clone()
+    skipped[..., 13 * 256:14 * 256] = 0
+    err, tol, ok = I.plain_gap("k64big_i8", I.int8_big_probe(a, skipped,
+                                                             "k64big_i8"),
+                               I.int8_big_probe_reference(a, b, "k64big_i8"))
+    print(f"planted: k64big_i8 block 13 of 56 skipped: max|out - plain| "
+          f"{err:.0f} (bound {tol:.0f}): {'within' if ok else 'refused'}")
+    assert not ok
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, src)
+    header = src / "attn_fwd_q8.cuh"
+    text = header.read_text()
+    old = "x[nn][e] = to_s8_sat(__fmul_rn(pv, 127.f));"
+    assert text.count(old) == 1
+    header.write_text(text.replace(old, "x[nn][e] = to_s8(__fmul_rn(pv, "
+                                        "127.f));"))
+    lib = tmp_path / "attention_probe.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(src / "attention_probe.cu")], check=True,
+                   capture_output=True)
+    monkeypatch.setitem(_build._libs, "attention_probe", ctypes.CDLL(str(lib)))
+    a, b = int8.operands("mix_i8", 2, cuda_device)
+    err, tol, ok = I.plain_gap("mix_i8", I.int8_probe(a, b, "mix_i8"),
+                               I.int8_probe_reference(a, b, "mix_i8"))
+    print(f"planted: mix_i8 with to_s8 (wrapping) for p8: max|out - plain| "
+          f"{err:.0f} (bound {tol:.0f}): {'within' if ok else 'refused'}")
+    assert not ok
+
+
+def test_int8_rigs_on_the_card(cuda_device, capsys):
+    from maest_tpu_torch.probes import int8, int8_2
+
+    res = int8.main(["--programs", "2", "--iters", "2"])
+    assert all(r["ms"] > 0 and r["alone_ms"] > 0 for r in res.values())
+    assert 0 < res["mix_i8"]["saturated"] < 1
+    res = int8_2.main(["--programs", "2", "--iters", "2"])
+    assert res["k64big_i8cvt"]["library_ms"] is None
+    out = capsys.readouterr().out
+    assert "torch._int_mm" in out and "torch._scaled_mm" in out
 
 
 # --- P9 and P7: K2 and K3b at other tiles (ops/attention_probe.py) ----------

@@ -33,7 +33,8 @@ def test_import_pulls_in_no_jax():
             "maest_tpu_torch.probes.attn_vpu, "
             "maest_tpu_torch.probes.qpad, maest_tpu_torch.probes.attn_tune, "
             "maest_tpu_torch.ops.mma_probe, maest_tpu_torch.probes.mxu, "
-            "maest_tpu_torch.probes.fp8_mlp; "
+            "maest_tpu_torch.probes.fp8_mlp, maest_tpu_torch.ops.int8_probe, "
+            "maest_tpu_torch.probes.int8, maest_tpu_torch.probes.int8_2; "
             "print(sorted(m for m in ('jax', 'jaxlib', 'flax', 'optax') "
             "if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

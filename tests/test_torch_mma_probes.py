@@ -186,7 +186,7 @@ def test_shapes_without_an_instance_are_refused():
     with pytest.raises(ValueError, match="unsupported device"):
         M.mxu_probe(torch.empty(1, 128, 64, **meta),
                     torch.empty(1, 64, 7 * 256, **meta), "k64")
-    with pytest.raises(ValueError, match="K of 128"):
+    with pytest.raises(ValueError, match="K of 64"):
         M.mlp_probe(torch.empty(2, 128, 96, device="meta",
                                 dtype=torch.float8_e4m3fn),
                     torch.empty(96, 128, device="meta",
