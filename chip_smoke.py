@@ -36,8 +36,10 @@ launch counters reset (22). Then the routes that close ROADMAP queue 3 on
 the card: head_dim 16 and 32 through the kernels on zero-padded inputs,
 fp32 under every 8-bit mode (the fp32 instances of K5/K6 and K7), head_dim
 96 and 128 through the D = 128 instances of every production kernel in
-bf16 and fp32, 192 and 256 through the D = 256 instances, and the refusal
-of head_dim 320 (23); K2 and K3b at other
+bf16 and fp32, 192 and 256 through the D = 256 instances, 320 and 512
+through the runtime-width (_dn) instances of K2, K3a and K3b in bf16 and
+fp32 (and K4's shape at 320), and the refusal of head_dim 320 by every
+8-bit mode (23); K2 and K3b at other
 tiles, the kernels of ``scripts/qpad_probe.py`` (P9) and
 ``scripts/attn_tune.py`` (P7), against their plain versions at every shape
 a phase launches them at and bit-equal to K2 / K3b where their arithmetic
@@ -49,15 +51,23 @@ launch counters reset (25). Then the product kernel of
 against its plain versions in every kind, shape and type, with a planted
 fault refused (26); both rigs, ``python -m maest_tpu_torch.probes.mxu``
 and ``... probes.fp8_mlp``, in process with the counters reset, and
-head_dim 128 (and 96, zero-padded) and 256 at full width through the
-kernels' D = 128 and D = 256 instances: ``get_maest(embed_dim=768,
-num_heads=6 | 3)`` tagging against the CPU and timed at batch 32, one 30 s
-recipe step each, K2, K3a, K3b (and at 128 K7 and the 8-bit forwards)
-against plain, timed beside SDPA (27). Then this slice: the int8 product
-rigs ``scripts/int8_probe.py`` (P2) and ``scripts/int8_probe2.py`` (P3),
-every kind's kernel against its plain version with a planted fault
-refused, and both rigs, ``python -m maest_tpu_torch.probes.int8`` and
-``... probes.int8_2``, in process with the counters reset (28). Every phase
+head_dim 128 (and 96, zero-padded), 256 and 384 at full width through the
+kernels' D = 128, D = 256 and runtime-width instances:
+``get_maest(embed_dim=768, num_heads=6 | 3 | 2)`` tagging against the CPU
+and timed at batch 32, one 30 s recipe step each, K2, K3a, K3b (and at
+128 K7 and the 8-bit forwards) against plain, timed beside the d 64
+kernels at the same flops and SDPA (27). Then the int8 product rigs
+``scripts/int8_probe.py`` (P2) and ``scripts/int8_probe2.py`` (P3), every
+kind's kernel against its plain version with a planted fault refused, and
+both rigs, ``python -m maest_tpu_torch.probes.int8`` and ``...
+probes.int8_2``, in process with the counters reset (28). Then this
+slice: the backward rig ``scripts/bwd_int8_probe.py`` (P4), its int8 kind
+(K7's kernels with the rig's fixed scales), fp8 kind (K3b's on e4m3) and
+ctrl (K3b) against their plain versions at the rig's own shape, planted
+faults refused (the int8 kind built with the wrapping ``to_s8`` for ds8;
+ctrl's dq zeroed and its lse misplaced), and the rig, ``python -m
+maest_tpu_torch.probes.bwd_int8``, in process with the counters reset
+(29). Every phase
 prints one line per check; any failure raises, so the exit code is not 0.
 The card's name and power limit, the JSON record of the kernels (with each
 one's bound: the least time the card could take for its work at the
@@ -1624,18 +1634,23 @@ def phase_queue3(dev, gpu):
     versions at (4, 281, 12, d) in bf16 and fp32, and K5/K6 and K7 at d 32
     in fp32; head_dim 96 (zero-padded) and 128 run the D = 128 instances of
     K2, K3a, K3b, K5/K6 in every mode and K7, in bf16 and fp32, and head_dim
-    192 (zero-padded) and 256 the D = 256 instances, each against its plain
-    version within the bound head_dim 64 is held to, each launch counted. fp32 under every 8-bit mode runs the fp32 instances of K5/K6
+    192 (zero-padded) and 256 the D = 256 instances, and head_dim 320 and
+    512 the runtime-width (_dn) instances of K2, K3a and K3b (bf16 and
+    fp32; the 8-bit modes refuse them), each against its plain version
+    within the bound head_dim 64 is held to, each launch counted; K3b's _dn
+    instance also at K4's shape, (1, 4500, 2, 320) n_real 4400. fp32 under
+    every 8-bit mode runs the fp32 instances of K5/K6
     (with lse, as the recipe step launches them) and K7: against
     attention_q8_reference and attention_bwd_int8_reference at the path's
     (2, 866, 12, 64), with the launch counters checked and the times; K7's
-    gradients rounded to bf16 fail its bound. head_dim 320 is refused.
-    Returns the errors, times and the path's launches."""
+    gradients rounded to bf16 fail its bound. Every 8-bit mode and K7 refuse
+    head_dim 320, naming ROADMAP queue 3. Returns the errors, times and the
+    path's launches."""
     from maest_tpu_torch.ops import attention as A
 
     launches = _queue3_routes(dev)
     gen = torch.Generator(device=dev).manual_seed(12)
-    for d in (16, 32, 96, 128, 192, 256):
+    for d in (16, 32, 96, 128, 192, 256, 320, 512):
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[1]
             x = torch.randn((4, 281, 5, 12, d), generator=gen, device=dev).to(
@@ -1656,12 +1671,15 @@ def phase_queue3(dev, gpu):
             el = max_err(lse, rlse)
             check(e <= tol and el <= LSE_TOL and o.shape == q.shape
                   and grads[0].shape == q.shape, f"d{d} {name} err {e} {el}")
-            pad = ("" if d in A.HEAD_DIMS else
+            pad = ("" if A.padded_dim(d) == d else
                    f" on inputs zero-padded to {A.padded_dim(d)}")
+            if d > A.HEAD_DIMS[-1]:
+                pad += " (the _dn instances)"
             line = (f"phase 23 head_dim {d} {name}: (4, 281, 12, {d}) K2, K3a "
                     f"and K3b{pad} vs plain max_abs_err {e:.3e} <= {tol}, lse "
                     f"{el:.3e} <= {LSE_TOL}")
-            if d > 64 or (d == 32 and dtype == torch.float32):
+            if d <= A.HEAD_DIMS[-1] and (
+                    d > 64 or (d == 32 and dtype == torch.float32)):
                 line += ("; " + _q8_fwd_vs_plain(q, k, v) + "; "
                          + _k7_vs_plain(q, k, v, ro, rlse, g))
             print(line, flush=True)
@@ -1722,18 +1740,61 @@ def phase_queue3(dev, gpu):
           " and the bf16-rounded gradients fail it; "
           f"time: kernel {out['k7_ms'][0]:.4f} ms, plain {out['k7_ms'][1]:.4f}"
           f" ms [{gpu}]", flush=True)
-    wide = torch.zeros((1, 8, 2, 320), device=dev, dtype=torch.bfloat16)
-    try:
-        A.flash_attention(wide, wide, wide)
-        check(False, "head_dim 320 ran")
-    except ValueError as err:
-        check("ROADMAP queue 3" in str(err), f"head_dim 320: {err}")
-    print("phase 23 head_dim 320: refused (ValueError naming ROADMAP queue "
-          "3; 65-128 run the D = 128 instances and 129-256 the D = 256 "
-          "ones, phase 27)", flush=True)
     del x, q, k, v, g, o, lse, got, ref
+    out["k4_dn_err"] = _k4_dn(dev, gen)
+    wide = torch.zeros((1, 8, 2, 320), device=dev, dtype=torch.bfloat16)
+    refused = []
+    for mode in Q8_MODES + ("int8",):
+        try:
+            if mode == "int8":
+                A.attention_bwd_int8(wide, wide, wide, wide, torch.zeros(
+                    (1, 2, 8), device=dev), wide)
+            else:
+                A.flash_attention(wide, wide, wide, quant=mode)
+            check(False, f"{mode} at head_dim 320 ran")
+        except ValueError as err:
+            check("ROADMAP queue 3" in str(err), f"{mode} at 320: {err}")
+            refused.append(mode)
+    print(f"phase 23 head_dim 320 under the 8-bit modes {refused} (K7 as "
+          f"int8): refused (ValueError naming ROADMAP queue 3; bf16 and "
+          f"fp32 run the _dn instances above)", flush=True)
     torch.cuda.empty_cache()
     return out
+
+
+def _k4_dn(dev, gen):
+    """K3b's _dn instance at K4's shape, (1, 4500, 2, 320) n_real 4400,
+    bf16 and fp32: the forward with lse and the backward against their
+    plain versions within head_dim 64's bounds, each launch counted.
+    Returns the largest gradient error."""
+    from maest_tpu_torch.ops import attention as A
+
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        x = torch.randn((1, 4500, 4, 2, 320), generator=gen, device=dev).to(
+            dtype)
+        q, k, v, g = x[:, :, 0], x[:, :, 1], x[:, :, 2], x[:, :, 3]
+        before = _q8_counts()[1]
+        o, lse = A.flash_attention_fwd_lse(q, k, v, n_real=4400)
+        ro, rlse = A.attention_reference_lse(q, k, v, 4400)
+        grads = A.attention_bwd(q, k, v, ro, rlse, g, 4400)
+        ref = A.attention_bwd_reference(q, k, v, ro, rlse, g, 4400)
+        torch.cuda.synchronize()
+        grew = [a - b for a, b in zip(_q8_counts()[1], before)]
+        tol = ATTN_TOL[name]
+        e = max(max_err(a, r) for a, r in zip(grads, ref))
+        eo, el = max_err(o, ro), max_err(lse, rlse)
+        check(grew[1:3] == [1, 1] and max(e, eo) <= tol and el <= LSE_TOL
+              and not grads[1][:, 4400:].any(),
+              f"K4 shape d320 {name}: launches {grew}, err {e} {eo} {el}")
+        worst = max(worst, e)
+        print(f"phase 23 K4's shape (1, 4500, 2, 320) n_real 4400 {name}: "
+              f"K3a and K3b (_dn) vs plain max_abs_err o {eo:.3e}, dq/dk/dv "
+              f"{e:.3e} <= {tol}, lse {el:.3e} <= {LSE_TOL}; masked keys' dk, "
+              f"dv zero", flush=True)
+        del x, q, k, v, g, o, lse, ro, rlse, grads, ref
+    return worst
 
 
 def _q8_fwd_vs_plain(q, k, v):
@@ -2153,12 +2214,17 @@ def phase_wide_heads_and_mma_rigs(dev, gpu):
     width: ``get_maest(embed_dim=768, num_heads=6)`` tagging 2 clips of 30
     s through K2's D = 128 instance (``_tagging``), its batch-32 30 s bf16
     step timed; ``num_heads=8`` (head_dim 96, zero-padded to 128) the same,
-    and ``num_heads=3`` (head_dim 256) through the D = 256 instance; one
-    bf16 step of the 30 s recipe at 6 heads and one at 3 (N 866), heads
-    drawn, through K3a and K3b at D = 128 and 256, 12 of each. Then K2 at
-    (32, 1676, 6, 128) and (32, 1676, 3, 256), and K3a and K3b at (32, 866,
-    6, 128) and (32, 866, 3, 256), against their plain versions, K2 and K3b
-    timed beside them and SDPA (flash backend, never called by the port),
+    ``num_heads=3`` (head_dim 256) through the D = 256 instance, and
+    ``num_heads=2`` (head_dim 384) through the runtime-width (_dn)
+    instance; one bf16 step of the 30 s recipe at 6, 3 and 2 heads (N 866),
+    heads drawn so the loss is not ln 2, through K3a and K3b at D = 128,
+    256 and 384, 12 of each. Then K2 at (32, 1676, 6, 128), (32, 1676, 3,
+    256) and (32, 1676, 2, 384), and K3a and K3b at (32, 866, 6, 128), (32,
+    866, 3, 256) and (32, 866, 2, 384), the shapes their steps above ran
+    them at, against their plain versions, K2 and K3b timed beside them,
+    beside the d 64 kernels at the same flops ((32, 1676 | 866, 12, 64),
+    held to plain and timed here too), and beside SDPA (never called by the
+    port; flash backend up to head_dim 256, efficient attention at 384),
     and K7 and the 8-bit forwards at D = 128 against their plain versions
     and timed, K3a timed. Returns the rigs' results, the launches, errors
     and times."""
@@ -2182,7 +2248,7 @@ def phase_wide_heads_and_mma_rigs(dev, gpu):
     out = {"err": {}, "ms": {}}
     waves = torch.from_numpy(np.random.default_rng(27).standard_normal(
         (BATCH, CLIP)).astype(np.float32) * 0.1).to(dev)
-    for heads in (6, 8, 3):
+    for heads in (6, 8, 3, 2):
         before = _q8_counts()[1]
         model, errs, spread = _tagging(dev, heads, 27 + heads)
         grew = [a - b for a, b in zip(_q8_counts()[1], before)]
@@ -2193,10 +2259,12 @@ def phase_wide_heads_and_mma_rigs(dev, gpu):
             step = cuda_ms(lambda: prog._activations(waves), 5)
         out["ms"][f"tag_d{768 // heads}"] = step
         launches[f"k2_d{768 // heads}"] = grew[0]
+        width = A.padded_dim(768 // heads)
         print(f"phase 27 head_dim {768 // heads}: get_maest(embed_dim=768, "
               f"num_heads={heads}) tagging 2 clips of 30 s through K2's "
-              f"D = {A.padded_dim(768 // heads)} instance"
-              f"{' on inputs zero-padded to 128' * (heads == 8)}"
+              + (f"D = {width} instance" if width in A.HEAD_DIMS else
+                 f"runtime-width (_dn) instance at {width}")
+              + f"{' on inputs zero-padded to 128' * (heads == 8)}"
               f": fp32 vs the CPU's plain attention max_abs_err {errs[0]:.3e}, "
               f"bf16 vs fp32 {errs[1]:.3e} <= {TIER_TOL} (activations spread "
               f"over {spread:.3f}); launches (K2, K3a, K3b, K5, K6, K7) "
@@ -2206,7 +2274,7 @@ def phase_wide_heads_and_mma_rigs(dev, gpu):
         torch.cuda.empty_cache()
     del waves
 
-    for heads in (6, 3):
+    for heads in (6, 3, 2):
         d = 768 // heads
         _, mcfg, net, state, step, data = _recipe(
             dev, RECIPE, BATCH, 27, [f"maest.num_heads={heads}"])
@@ -2233,7 +2301,13 @@ def phase_wide_heads_and_mma_rigs(dev, gpu):
 
     gen = torch.Generator(device=dev).manual_seed(28)
     for b, n, heads, d in ((BATCH, 1676, 6, 128), (BATCH, 866, 6, 128),
-                           (BATCH, 1676, 3, 256), (BATCH, 866, 3, 256)):
+                           (BATCH, 1676, 3, 256), (BATCH, 866, 3, 256),
+                           (BATCH, 1676, 2, 384), (BATCH, 866, 2, 384),
+                           (BATCH, 1676, 12, 64), (BATCH, 866, 12, 64)):
+        # SDPA's flash backend takes head_dim up to 256; past it the
+        # efficient-attention backend
+        backend = (SDPBackend.FLASH_ATTENTION if d <= 256
+                   else SDPBackend.EFFICIENT_ATTENTION)
         x = (torch.randn((b, n, 4, heads, d), generator=gen, device=dev)
              ).to(torch.bfloat16)
         q, k, v, g = x[:, :, 0], x[:, :, 1], x[:, :, 2], x[:, :, 3]
@@ -2244,7 +2318,7 @@ def phase_wide_heads_and_mma_rigs(dev, gpu):
                             A.attention_reference(q, k, v))
                 ms = (cuda_ms_median(lambda: A.flash_attention(q, k, v), 10),
                       cuda_ms(lambda: A.attention_reference(q, k, v), 3))
-                with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                with sdpa_kernel(backend):
                     lib = cuda_ms_median(
                         lambda: F.scaled_dot_product_attention(qs, ks, vs), 10)
             key = f"fwd_d{d}"
@@ -2270,7 +2344,7 @@ def phase_wide_heads_and_mma_rigs(dev, gpu):
                 lambda: A.attention_bwd_reference(q, k, v, o, lse, g), 3))
             qg, kg, vg = (t.detach().requires_grad_(True) for t in (qs, ks, vs))
             gs = g.transpose(1, 2)
-            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            with sdpa_kernel(backend):
                 fwd = cuda_ms_median(
                     lambda: F.scaled_dot_product_attention(qg, kg, vg), 10)
                 lib = cuda_ms_median(lambda: F.scaled_dot_product_attention(
@@ -2282,7 +2356,8 @@ def phase_wide_heads_and_mma_rigs(dev, gpu):
         print(f"phase 27 {'K2' if n == 1676 else 'K3b'} D = {d} at ({b}, {n}, "
               f"{heads}, {d}) bf16: max_abs_err vs plain {e:.3e} <= "
               f"{ATTN_TOL['bfloat16']}; kernel {ms[0]:.4f} ms, plain "
-              f"{ms[1]:.4f} ms, SDPA {lib:.4f} ms [{gpu}]", flush=True)
+              f"{ms[1]:.4f} ms, SDPA ({backend.name.lower()} backend) "
+              f"{lib:.4f} ms [{gpu}]", flush=True)
         del x, q, k, v, g, qs, ks, vs
         torch.cuda.empty_cache()
     # the other production kernels at D = 128, each against its plain
@@ -2411,6 +2486,169 @@ def phase_int8_rigs(dev, gpu):
     return {"err": err, "rigs": rigs, "launches": launches, "plain": plain}
 
 
+# phase 29's planted fault: the int8 rig's ds8 through the wrapping to_s8
+PLANT_TO_S8 = ("    return to_s8_sat(x);", "    return to_s8(x);")
+
+
+def build_planted_to_s8() -> tuple[Path, float]:
+    """``csrc/attention_bwd_q8.cu`` with the wrapping ``to_s8`` in place of
+    the saturating conversion of the rig's ds8, built from a copy of
+    ``csrc/`` under ``build/maest_tpu_torch/planted/`` (phase 29 shows its
+    check refusing the kernels so built); the library's path and the
+    build's seconds."""
+    import shutil
+
+    from maest_tpu_torch.ops import _build
+
+    t = time.perf_counter()
+    root = _build.BUILD_DIR / "planted"
+    src = root / "csrc"
+    if src.exists():
+        shutil.rmtree(src)
+    shutil.copytree(_build.CSRC, src)
+    source = src / "attention_bwd_q8.cu"
+    text = source.read_text()
+    check(text.count(PLANT_TO_S8[0]) == 1, "the planted fault's line")
+    source.write_text(text.replace(*PLANT_TO_S8))
+    out = root / "attention_bwd_q8_to_s8.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                           str(out), str(source)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed to build the planted fault:\n"
+                           + proc.stdout + proc.stderr)
+    return out, time.perf_counter() - t
+
+
+def _events_call(fn):
+    """(fn(), its ms by CUDA events): one call, after what is queued."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _gap_text(gap) -> str:
+    return ", ".join(f"{w} {gap['err'][w]:.3e} (bound {gap['bound'][w]:.3e})"
+                     for w in ("dq", "dk", "dv"))
+
+
+def phase_bwd_rig(dev, gpu, planted_lib):
+    """Phase 29: the backward rig P4 (``scripts/bwd_int8_probe.py``), ported
+    in ``ops/bwd_probe.py``. Each kind's kernels against their plain
+    version at the rig's own shape (operands made as the rig's ``build``
+    makes them: bh 384, N_PAD 896; ctrl (32, 866, 12, 64)), each launch
+    counted, the plain version timed by CUDA events on the call whose
+    outputs are compared (after one warm-up call): int8 (K7's dk/dv and dq
+    kernels with the rig's fixed scalars, after the layout pass) by
+    ``int8_gap``: the plain version's p8 and ds8 codes against the codes it
+    takes on the kernel's own delta (the layout pass sums delta in another
+    order; exp2f on both sides), counted, the kernel's outputs equal to
+    those codes' outputs, and dq, dk, dv equal to plain wherever no code of
+    their row or column differs, within 1.27 per differing code otherwise;
+    the plain ds8 saturated where p (dp - delta) SCALE 127 leaves the int8
+    range, as jnp's cast gives it; fp8 (K3b's kernels on e4m3) by
+    ``fp8_gap`` and ctrl (K3b) by ``ctrl_gap``, each output within 2 bf16
+    ulps of its max. Planted faults, each refused: the int8 kernels built
+    with the wrapping ``to_s8`` for ds8 (``planted_lib``, built in phase
+    2), and for ctrl dq zeroed and K3b given lse with its second 64-entry
+    tile replaced by the third. Then the slice's path: the rig as a user
+    runs it, ``python -m maest_tpu_torch.probes.bwd_int8`` (``main`` in
+    process at its defaults: bh 384, 30 iterations, 3 rounds), the counters
+    set to 0 just before and read just after. Returns the errors (at bh
+    384), the rig's results, the launches and the plain times."""
+    import ctypes
+
+    from maest_tpu_torch.ops import _build
+    from maest_tpu_torch.ops import bwd_probe as P
+    from maest_tpu_torch.probes import bwd_int8 as R
+
+    err, plain, parts = {}, {}, []
+    for kind in P.KINDS:
+        ops = R.operands(kind, dev)  # the rig's defaults
+        before = P.bwd_probe.launches[kind]
+        out = P.bwd_probe(*ops, kind)
+        torch.cuda.synchronize()
+        check(P.bwd_probe.launches[kind] == before + 1, f"{kind} counter")
+        P.bwd_probe_reference(*ops, kind)  # warm-up
+        ref, plain[kind] = _events_call(
+            lambda: P.bwd_probe_reference(*ops, kind))
+        check([(t.shape, t.dtype) for t in out]
+              == [(t.shape, t.dtype) for t in ref], f"{kind} shapes")
+        if kind == "int8":
+            codes = P.int8_codes(*ops)
+            alt = P.int8_codes(*ops, delta=P.bwd_pass(*ops, kind)[-1])
+            gap = P.int8_gap(out, ref, codes, alt)
+            same = all(torch.equal(a, b) for a, b in zip(
+                out, P.int8_outputs(ops[0], ops[1], ops[3], *alt)))
+            _, _, y = P.int8_values(*ops)
+            hi, lo = y > 127.5, y < -128.5
+            sat = int(hi.sum() + lo.sum())
+            check(gap["ok"] and same and sat > 0 and bool(
+                (codes[1][hi] == 127).all() and (codes[1][lo] == -128).all()),
+                f"int8 vs plain {gap}, equal on its codes {same}")
+            del y, hi, lo
+            real = _build._libs["attention_bwd_q8"]
+            _build._libs["attention_bwd_q8"] = ctypes.CDLL(str(planted_lib))
+            try:
+                bad = P.launch_pass(P.bwd_pass(*ops, kind), kind)
+            finally:
+                _build._libs["attention_bwd_q8"] = real
+            planted = P.int8_gap(bad, ref, codes, alt)
+            check(not planted["ok"], f"the planted fault passed: {planted}")
+            err[kind] = max(gap["err"].values())
+            parts.append(
+                f"int8 codes apart from plain p8 {gap['p8']}, ds8 "
+                f"{gap['ds8']} of {codes[0].numel()} each (delta's sum order;"
+                f" outputs equal to those codes' outputs: {same}), "
+                f"max_abs_err {err[kind]:.4g} (bound 1.27 a differing code); "
+                f"ds8 saturated in {sat} places (127 / -128, as jnp's cast); "
+                f"planted fault (the kernels built with the wrapping to_s8 "
+                f"for ds8): max_abs_err {max(planted['err'].values()):.4g}: "
+                f"refused")
+            del codes, alt, bad
+        elif kind == "fp8":
+            gap = P.fp8_gap(out, ref)
+            check(gap["ok"], f"fp8 vs plain {gap}")
+            err[kind] = max(gap["err"].values())
+            parts.append("fp8 max_abs_err " + _gap_text(gap))
+        else:
+            gap = P.ctrl_gap(out, ref)
+            zeroed = P.ctrl_gap((torch.zeros_like(out[0]), *out[1:]), ref)
+            moved = ops[5].clone()
+            moved[..., 64:128] = ops[5][..., 128:192]
+            shifted = P.ctrl_gap(P.bwd_probe(*ops[:5], moved, kind), ref)
+            check(gap["ok"], f"ctrl vs plain {gap}")
+            check(not zeroed["ok"] and not shifted["ok"],
+                  f"a planted ctrl fault passed: {zeroed} {shifted}")
+            err[kind] = max(gap["err"].values())
+            parts.append(
+                f"ctrl (K3b) max_abs_err {_gap_text(gap)}; planted: dq "
+                f"zeroed {_gap_text(zeroed)}: refused; lse's second tile "
+                f"replaced by the third {_gap_text(shifted)}: refused")
+        del ops, out, ref
+        torch.cuda.empty_cache()
+    print("phase 29 P4 kernels vs plain at the rig's shape (bh 384, N_PAD "
+          "896; ctrl (32, 866, 12, 64)): " + "; ".join(parts), flush=True)
+
+    print("phase 29 rig: python -m maest_tpu_torch.probes.bwd_int8",
+          flush=True)
+    _reset_counts()
+    P.bwd_probe.launches = dict.fromkeys(P.KINDS, 0)
+    rig = R.main([])
+    launches = dict(P.bwd_probe.launches)
+    check(all(launches.values()), f"rig launches {launches}")
+    print(f"phase 29 launches in the rig's run: {launches}; plain versions "
+          f"at bh 384 (CUDA events, the compared call): " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in plain.items()) + f" [{gpu}]",
+          flush=True)
+    return {"err": err, "rig": rig, "launches": launches, "plain": plain}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on a GPU",
@@ -2440,15 +2678,18 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = ("mel_kernel", "attention_fwd", "attention_bwd", "attention_fwd_q8",
             "attention_bwd_q8", "attention_probe", "mma_probe")
-    with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source
+    with ThreadPoolExecutor(len(libs) + 1) as pool:  # one nvcc per source
+        planted = pool.submit(build_planted_to_s8)
         built = dict(zip(libs, pool.map(timed_build, libs)))
+        planted_lib, planted_s = planted.result()
     wall = time.perf_counter() - t0
     for lib in libs:
         _build.load_library(lib)
     print(f"phase 2 build: {wall:.1f} s with nvcc sm_90a into "
           f"build/maest_tpu_torch, one nvcc per source at once ("
           + ", ".join(f"{lib} {s:.1f} s" for lib, (_, s) in built.items())
-          + ")", flush=True)
+          + f"; phase 29's planted copy of attention_bwd_q8, to_s8 for ds8, "
+          f"{planted_s:.1f} s)", flush=True)
     for lib, (log, _) in built.items():  # empty where a build was reused
         print(f"phase 2 ptxas {lib}: " + "; ".join(ptxas_rows(log)),
               flush=True)
@@ -2482,6 +2723,7 @@ def main() -> int:
     mma = phase_mma_kernels(dev, gpu)
     wide = phase_wide_heads_and_mma_rigs(dev, gpu)
     i8 = phase_int8_rigs(dev, gpu)
+    p4 = phase_bwd_rig(dev, gpu, planted_lib)
 
     frames = BATCH * 1876  # frames of 32 clips of 30 s
     mel_ops = frames * (512 + 4 * 512 * 257 + 3 * 257 + 2 * 257 * 96 + 96)
@@ -2513,6 +2755,8 @@ def main() -> int:
         "bwd_d128": bwd_bound(BATCH, 866, 6, d=128),
         "fwd_d256": attn_bound(BATCH, 1676, 3, d=256),
         "bwd_d256": bwd_bound(BATCH, 866, 3, d=256),
+        "fwd_dn": attn_bound(BATCH, 1676, 2, d=384),
+        "bwd_dn": bwd_bound(BATCH, 866, 2, d=384),
     }
     # P1 k64big (48 programs) and P8 fc1 bf16 (32): the rigs' own bounds
     from maest_tpu_torch.probes import fp8_mlp, mxu
@@ -2522,6 +2766,10 @@ def main() -> int:
     from maest_tpu_torch.probes import int8, int8_2
     bounds["int8_probe"] = int8.bound("k64_i8q", 48)
     bounds["int8_big_probe"] = int8_2.bound("k64big_i8", 8)
+    # P4 at the rig's bh 384: its int8 kind and fp8 beside it
+    from maest_tpu_torch.probes import bwd_int8
+    bounds["bwd_rig"] = bwd_int8.bound("int8")
+    bounds["bwd_rig_fp8"] = bwd_int8.bound("fp8")
     src = "maest_tpu_torch/csrc/"
     rows = [
         ("fused_logmel", "mel_kernel.cu", "maest_tpu/ops/mel_kernel.py:39",
@@ -2667,6 +2915,32 @@ def main() -> int:
          i8["launches"]["p3"], i8["err"]["k64big_i8"],
          (r["p3"]["k64big_i8"]["ms"], i8["plain"]["k64big_i8"]),
          "int8_big_probe", None),
+    ]
+    # K2 and K3b's runtime-width instances at head_dim 384 (phase 27: K2 at
+    # (32, 1676, 2, 384), K3b at (32, 866, 2, 384); library SDPA's efficient
+    # attention, its flash backend takes head_dim up to 256); P4's int8 and
+    # fp8 kinds at bh 384 (phase 29's rig, CUDA-graph replays of the call,
+    # its layout pass included; no PyTorch call computes an 8-bit
+    # attention backward)
+    print("kernels line: attention_fwd_dn and attention_bwd_dn at head_dim "
+          "384, library SDPA's efficient-attention backend; bwd_rig at the "
+          "rig's int8 kind, bwd_rig_fp8 at its fp8 kind, both at bh 384",
+          flush=True)
+    rows += [
+        ("attention_fwd_dn", "attention_fwd.cu",
+         "maest_tpu/ops/attention.py:176", wide["launches"]["k2_d384"],
+         wide["err"]["fwd_d384"], wide["ms"]["fwd_d384"], "fwd_dn",
+         wide["ms"]["fwd_d384_sdpa"]),
+        ("attention_bwd_dn", "attention_bwd.cu",
+         "maest_tpu/ops/attention.py:483", wide["launches"]["k3b_d384"],
+         wide["err"]["bwd_d384"], wide["ms"]["bwd_d384"], "bwd_dn",
+         wide["ms"]["bwd_d384_sdpa"]),
+        ("bwd_rig", "attention_bwd_q8.cu", "scripts/bwd_int8_probe.py:52",
+         p4["launches"]["int8"], p4["err"]["int8"],
+         (p4["rig"]["int8"]["ms"], p4["plain"]["int8"]), "bwd_rig", None),
+        ("bwd_rig_fp8", "attention_bwd.cu", "scripts/bwd_int8_probe.py:52",
+         p4["launches"]["fp8"], p4["err"]["fp8"],
+         (p4["rig"]["fp8"]["ms"], p4["plain"]["fp8"]), "bwd_rig_fp8", None),
     ]
     kernels = [{"name": name, "route": "cuda", "source": src + file,
                 "replaces": rep, "launches": n, "max_abs_err": err,

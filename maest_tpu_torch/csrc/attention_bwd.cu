@@ -1,6 +1,6 @@
 // Attention backward for Hopper (sm_90a), head_dim 64, 128 and 256 (a
 // template parameter D_ of each kernel; the caller zero-pads a smaller
-// head_dim).
+// head_dim), and any multiple of 64 above 256 (the _dn entries).
 //
 // Replaces maest_tpu/ops/attention.py::_attn_bwd_kernel + _bwd_body (the
 // combined full-K backward, K3b, called from _flash_bwd) and _bwd_dq_kernel +
@@ -94,8 +94,21 @@
 // kernels own 16 rows a block and stream 4-row tiles; the fp32 dq kernel
 // sums 64-column slices of dq as the dk/dv kernel does (a whole row's
 // sums would be 256 registers).
+//
+// Any head_dim above 256 (the _dn entries): one template a tier,
+// attn_bwd_bf16_dn_kernel and attn_bwd_fp32_dn_kernel, whose width dp,
+// zero-padded by the caller to a multiple of 64, is a runtime argument, so
+// registers and shared memory do not grow with it. For each streamed tile
+// s and dp are summed over 64-column chunks staged from global memory for
+// that tile; each block then sums one column slice of its gradients (a
+// third grid axis), recomputing s and dp over the full dp: dk/dv in
+// 64-column slices, dq in 128-column slices in bf16 and 64 in fp32. At dp
+// 384 the bf16 backward computes the scores 6 + 3 = 9 times (K3b at 64: 2),
+// the fp32 one 12; at 512, 8 + 4 = 12 and 16. The delta pass takes dp too.
 
-#include "mma_bf16.cuh"
+#include <type_traits>
+
+#include "mma_8bit.cuh"
 
 namespace {
 
@@ -505,18 +518,114 @@ __device__ __forceinline__ void store_rows(bf16* base, long long rs,
   }
 }
 
-template <int WARPS_ = WARPS, int TILE_ = TILE, int D_ = D>
+template <int NDT>
+__device__ __forceinline__ void store_rows(float* base, long long rs,
+                                           const float (&acc)[NDT][4], int row0,
+                                           int n, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= n) continue;
+    float* p = base + static_cast<long long>(row) * rs + 2 * t;
+#pragma unroll
+    for (int dt = 0; dt < NDT; ++dt)
+      *reinterpret_cast<float2*>(p + dt * 8) =
+          make_float2(acc[dt][2 * r], acc[dt][2 * r + 1]);
+  }
+}
+
+// E4M3 (the backward rig's fp8 kind, scripts/bwd_int8_probe.py:91-107): q,
+// k, v and do arrive as e4m3 bytes (K as its rows), s and dp are e4m3
+// products (m16n8k32, fp32 sums: rows_dot_e4m3), the streamed tiles staged
+// as bytes and widened to bf16 in shared memory (exact) for the bf16
+// products p^T.do, ds^T.q and ds.k; dk and dv are stored in fp32. The
+// caller passes n_real = n: no key is masked. Only at head_dim 64.
+template <bool E4M3>
+using bwd_in_t = std::conditional_t<E4M3, uint8_t, bf16>;
+
+// dynamic shared memory of an E4M3 instance: the double-buffered bf16 tiles
+// and, after them, their double-buffered e4m3 bytes
+__host__ __device__ constexpr int bwd_e4m3_smem_bytes() {
+  return 2 * 2 * TILE * ld_bf16(D) * static_cast<int>(sizeof(bf16)) +
+         2 * 2 * TILE * LD8;
+}
+
+// rows_dot on e4m3: the warp's A fragments (16 rows x 64 bytes, two
+// k-steps of 32) times SUB staged byte rows from r0 (contraction over the
+// row's 64 bytes)
+__device__ __forceinline__ void rows_dot_e4m3(float (&c)[SUB / 8][4],
+                                              const uint32_t (&a)[2][4],
+                                              const uint8_t (*tile)[LD8],
+                                              int r0, int lr, int li) {
+#pragma unroll
+  for (int nt = 0; nt < SUB / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[nt][e] = 0.f;
+    uint32_t f[4];
+    ldmatrix_x4(f, &tile[r0 + nt * 8 + lr][li * 16]);
+    mma_e4m3(c[nt], a[0], f[0], f[1]);
+    mma_e4m3(c[nt], a[1], f[2], f[3]);
+  }
+}
+
+// stage rows [row0, row0 + TILE) of two (row, 64) byte views (row strides
+// as, bs in bytes); rows past n are zero-filled
+__device__ __forceinline__ void stage_pair8(uint8_t (*a)[LD8],
+                                            uint8_t (*bsm)[LD8],
+                                            const uint8_t* ga, long long as,
+                                            const uint8_t* gb, long long bs,
+                                            int row0, int n, int threads) {
+  for (int i = threadIdx.x; i < TILE * 4; i += threads) {
+    const int j = i >> 2;
+    const int c = (i & 3) * 16;
+    const int row = row0 + j;
+    const long long src = static_cast<long long>(min(row, n - 1));
+    const int bytes = row < n ? 16 : 0;
+    cp_async16(&a[j][c], ga + src * as + c, bytes);
+    cp_async16(&bsm[j][c], gb + src * bs + c, bytes);
+  }
+  cp_async_commit();
+}
+
+// widen a staged (TILE, 64) e4m3 byte tile to bf16 (exact)
+__device__ __forceinline__ void widen_e4m3(bf16 (*dst)[ld_bf16(D)],
+                                           const uint8_t (*src)[LD8],
+                                           int threads) {
+  for (int i = threadIdx.x; i < TILE * 8; i += threads) {
+    const int j = i >> 3;
+    const int c = (i & 7) * 8;
+    const uint2 w = *reinterpret_cast<const uint2*>(&src[j][c]);
+    const uint32_t b[2] = {w.x, w.y};
+    uint32_t out[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const __half2_raw x = __nv_cvt_fp8x2_to_halfraw2(
+          static_cast<__nv_fp8x2_storage_t>(b[h >> 1] >> (16 * (h & 1))),
+          __NV_E4M3);
+      const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&x));
+      out[h] = pack_bf16(f.x, f.y);
+    }
+    *reinterpret_cast<uint4*>(&dst[j][c]) = make_uint4(out[0], out[1], out[2], out[3]);
+  }
+}
+
+template <int WARPS_ = WARPS, int TILE_ = TILE, int D_ = D, bool E4M3 = false>
 __global__ void __launch_bounds__(32 * WARPS_)
-attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+attn_bwd_dkv_bf16_kernel(const bwd_in_t<E4M3>* __restrict__ q,
+                         const bwd_in_t<E4M3>* __restrict__ k,
+                         const bwd_in_t<E4M3>* __restrict__ v,
+                         const bwd_in_t<E4M3>* __restrict__ dout,
                          const float* __restrict__ lse,
-                         const float* __restrict__ delta, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, int n, int n_real, int heads,
+                         const float* __restrict__ delta,
+                         std::conditional_t<E4M3, float, bf16>* __restrict__ dk,
+                         std::conditional_t<E4M3, float, bf16>* __restrict__ dv,
+                         int n, int n_real, int heads,
                          Strides qs, Strides ks, Strides vs, Strides dos,
                          Strides dks, Strides dvs, float sl, float scale) {
+  static_assert(!E4M3 || (D_ == 64 && TILE_ == TILE), "E4M3: K3b's tile");
   constexpr int ROWS = 16 * WARPS_;  // keys per block
   constexpr int LD_ = ld_bf16(D_);
-  constexpr bool DYN = bwd_smem_bytes(TILE_, D_, WARPS_) > 0;
+  constexpr bool DYN = E4M3 || bwd_smem_bytes(TILE_, D_, WARPS_) > 0;
   constexpr bool OWN = D_ > 128;  // K and V fragments from shared memory
   constexpr int SL = kv_slice(D_);
   constexpr int ST = DYN ? 1 : TILE_;
@@ -555,13 +664,20 @@ attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = 0; e < 4; ++e) acc_k[dt][e] = acc_v[dt][e] = 0.f;
 
   if (blockIdx.y * ROWS < n_real) {  // else dk = dv = 0
-    const bf16* qb = q + b * qs.b + h * qs.h;
-    const bf16* dob = dout + b * dos.b + h * dos.h;
+    const auto* qb = q + b * qs.b + h * qs.h;
+    const auto* dob = dout + b * dos.b + h * dos.h;
     const float* lse_bh = lse + static_cast<long long>(bh) * n;
     const float* delta_bh = delta + static_cast<long long>(bh) * n;
+    // E4M3: the e4m3 bytes of the q and do tiles, after the bf16 ones
+    uint8_t(*q8_sm)[TILE_][LD8] = reinterpret_cast<uint8_t(*)[TILE_][LD8]>(do_sm + 2);
+    uint8_t(*do8_sm)[TILE_][LD8] = q8_sm + 2;
     auto stage = [&](int tile, int buf) {
-      stage_pair<WARPS_, TILE_, D_>(q_sm[buf], do_sm[buf], qb, qs.n, dob,
-                                    dos.n, tile * TILE_, n);
+      if constexpr (E4M3)
+        stage_pair8(q8_sm[buf], do8_sm[buf], qb, qs.n, dob, dos.n,
+                    tile * TILE_, n, 32 * WARPS_);
+      else
+        stage_pair<WARPS_, TILE_, D_>(q_sm[buf], do_sm[buf], qb, qs.n, dob,
+                                      dos.n, tile * TILE_, n);
       for (int i = threadIdx.x; i < TILE_; i += 32 * WARPS_) {
         const int row = tile * TILE_ + i;
         // rows past N: lse +inf gives p = 0, delta 0 gives ds = 0
@@ -581,7 +697,11 @@ attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // this warp's 16 keys over the full head_dim, A fragments (OWN: read
     // from shared memory in the loop)
     uint32_t kf[OWN ? 1 : D_ / 16][4], vf[OWN ? 1 : D_ / 16][4];
-    if constexpr (!OWN) {
+    uint32_t kf8[2][4], vf8[2][4];  // E4M3: two k-steps of 32
+    if constexpr (E4M3) {
+      load_row_frags8(kf8, k + b * ks.b + h * ks.h, ks.n, key0, n, t);
+      load_row_frags8(vf8, v + b * vs.b + h * vs.h, vs.n, key0, n, t);
+    } else if constexpr (!OWN) {
       load_row_frags(kf, k + b * ks.b + h * ks.h, ks.n, key0, n, t);
       load_row_frags(vf, v + b * vs.b + h * vs.h, vs.n, key0, n, t);
     }
@@ -598,11 +718,18 @@ attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         cp_async_wait<0>();
       }
       __syncthreads();
+      if constexpr (E4M3) {  // the bf16 q and do of the bf16 products
+        widen_e4m3(q_sm[buf], q8_sm[buf], 32 * WARPS_);
+        widen_e4m3(do_sm[buf], do8_sm[buf], 32 * WARPS_);
+        __syncthreads();
+      }
 #pragma unroll
       for (int r0 = 0; r0 < TILE_; r0 += SUB) {
         // S^T = K.Q^T: rows are this warp's keys, columns q rows r0..
         float p[SUB / 8][4];
-        if constexpr (OWN)
+        if constexpr (E4M3)
+          rows_dot_e4m3(p, kf8, q8_sm[buf], r0, lr, li);
+        else if constexpr (OWN)
           rows_dot_own<D_ / 16>(p, own_k, warp * 16, q_sm[buf], r0, lr, li);
         else
           rows_dot(p, kf, q_sm[buf], r0, lr, li);
@@ -618,7 +745,9 @@ attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         acc_pv(acc_v, pf, do_sm[buf], r0, lr, li, c0);  // dv += p^T . do
 
         float ds[SUB / 8][4];
-        if constexpr (OWN)  // dp^T = V.dO^T
+        if constexpr (E4M3)  // dp^T = V.dO^T
+          rows_dot_e4m3(ds, vf8, do8_sm[buf], r0, lr, li);
+        else if constexpr (OWN)
           rows_dot_own<D_ / 16>(ds, own_v, warp * 16, do_sm[buf], r0, lr, li);
         else
           rows_dot(ds, vf, do_sm[buf], r0, lr, li);
@@ -640,10 +769,12 @@ attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows(dv + b * dvs.b + h * dvs.h + c0, dvs.n, acc_v, key0, n, t);
 }
 
-template <int WARPS_ = WARPS, int TILE_ = TILE, int D_ = D>
+template <int WARPS_ = WARPS, int TILE_ = TILE, int D_ = D, bool E4M3 = false>
 __global__ void __launch_bounds__(32 * WARPS_)
-attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+attn_bwd_dq_bf16_kernel(const bwd_in_t<E4M3>* __restrict__ q,
+                        const bwd_in_t<E4M3>* __restrict__ k,
+                        const bwd_in_t<E4M3>* __restrict__ v,
+                        const bwd_in_t<E4M3>* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, bf16* __restrict__ dq,
                         int n, int n_real, int heads, Strides qs, Strides ks,
@@ -651,7 +782,8 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         float scale) {
   constexpr int ROWS = 16 * WARPS_;  // q rows per block
   constexpr int LD_ = ld_bf16(D_);
-  constexpr bool DYN = bwd_smem_bytes(TILE_, D_, WARPS_) > 0;
+  static_assert(!E4M3 || (D_ == 64 && TILE_ == TILE), "E4M3: K3b's tile");
+  constexpr bool DYN = E4M3 || bwd_smem_bytes(TILE_, D_, WARPS_) > 0;
   constexpr bool OWN = D_ > 128;  // q and do fragments from shared memory
   constexpr int ST = DYN ? 1 : TILE_;
   __shared__ __align__(128) bf16 k_st[2][ST][LD_];
@@ -678,8 +810,11 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int h = bh - b * heads;
   const int row0 = blockIdx.y * ROWS + warp * 16 + g;  // and row0 + 8
 
-  const bf16* kb = k + b * ks.b + h * ks.h;
-  const bf16* vb = v + b * vs.b + h * vs.h;
+  const auto* kb = k + b * ks.b + h * ks.h;
+  const auto* vb = v + b * vs.b + h * vs.h;
+  // E4M3: the e4m3 bytes of the K and V tiles, after the bf16 ones
+  uint8_t(*k8_sm)[TILE_][LD8] = reinterpret_cast<uint8_t(*)[TILE_][LD8]>(v_sm + 2);
+  uint8_t(*v8_sm)[TILE_][LD8] = k8_sm + 2;
   // OWN: the block's q and do rows, after the K and V buffers
   bf16(*own_q)[LD_] = reinterpret_cast<bf16(*)[LD_]>(v_sm + 2);
   bf16(*own_do)[LD_] = own_q + ROWS;
@@ -687,10 +822,17 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     stage_pair<WARPS_, ROWS, D_>(own_q, own_do, q + b * qs.b + h * qs.h, qs.n,
                                  dout + b * dos.b + h * dos.h, dos.n,
                                  blockIdx.y * ROWS, n);
-  stage_pair<WARPS_, TILE_, D_>(k_sm[0], v_sm[0], kb, ks.n, vb, vs.n, 0, n);
+  if constexpr (E4M3)
+    stage_pair8(k8_sm[0], v8_sm[0], kb, ks.n, vb, vs.n, 0, n, 32 * WARPS_);
+  else
+    stage_pair<WARPS_, TILE_, D_>(k_sm[0], v_sm[0], kb, ks.n, vb, vs.n, 0, n);
 
   uint32_t qf[OWN ? 1 : D_ / 16][4], dof[OWN ? 1 : D_ / 16][4];
-  if constexpr (!OWN) {
+  uint32_t qf8[2][4], dof8[2][4];  // E4M3: two k-steps of 32
+  if constexpr (E4M3) {
+    load_row_frags8(qf8, q + b * qs.b + h * qs.h, qs.n, row0, n, t);
+    load_row_frags8(dof8, dout + b * dos.b + h * dos.h, dos.n, row0, n, t);
+  } else if constexpr (!OWN) {
     load_row_frags(qf, q + b * qs.b + h * qs.h, qs.n, row0, n, t);
     load_row_frags(dof, dout + b * dos.b + h * dos.h, dos.n, row0, n, t);
   }
@@ -712,18 +854,28 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int it = 0; it < n_tiles; ++it) {
     const int buf = it & 1;
     if (it + 1 < n_tiles) {
-      stage_pair<WARPS_, TILE_, D_>(k_sm[buf ^ 1], v_sm[buf ^ 1], kb, ks.n,
-                                    vb, vs.n, (it + 1) * TILE_, n);
+      if constexpr (E4M3)
+        stage_pair8(k8_sm[buf ^ 1], v8_sm[buf ^ 1], kb, ks.n, vb, vs.n,
+                    (it + 1) * TILE_, n, 32 * WARPS_);
+      else
+        stage_pair<WARPS_, TILE_, D_>(k_sm[buf ^ 1], v_sm[buf ^ 1], kb, ks.n,
+                                      vb, vs.n, (it + 1) * TILE_, n);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
+    if constexpr (E4M3) {  // the bf16 K of ds.k
+      widen_e4m3(k_sm[buf], k8_sm[buf], 32 * WARPS_);
+      __syncthreads();
+    }
     const int base = it * TILE_;
 #pragma unroll
     for (int r0 = 0; r0 < TILE_; r0 += SUB) {
       float p[SUB / 8][4];
-      if constexpr (OWN)  // S = Q.K^T
+      if constexpr (E4M3)  // S = Q.K^T
+        rows_dot_e4m3(p, qf8, k8_sm[buf], r0, lr, li);
+      else if constexpr (OWN)
         rows_dot_own<D_ / 16>(p, own_q, warp * 16, k_sm[buf], r0, lr, li);
       else
         rows_dot(p, qf, k_sm[buf], r0, lr, li);
@@ -735,7 +887,9 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           p[nt][e] = key < n_real ? exp2f(p[nt][e] * sl - lse_r[e >> 1]) : 0.f;
         }
       float ds[SUB / 8][4];
-      if constexpr (OWN)  // dP = dO.V^T
+      if constexpr (E4M3)  // dP = dO.V^T
+        rows_dot_e4m3(ds, dof8, v8_sm[buf], r0, lr, li);
+      else if constexpr (OWN)
         rows_dot_own<D_ / 16>(ds, own_do, warp * 16, v_sm[buf], r0, lr, li);
       else
         rows_dot(ds, dof, v_sm[buf], r0, lr, li);
@@ -751,6 +905,335 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
   }
   store_rows(dq + b * dqs.b + h * dqs.h, dqs.n, acc, row0, n, t);
+}
+
+// ---------------------------------------------------------- any width ---
+// head_dim above 256 (see the note at the top): dp, a multiple of CH = 64,
+// is an argument. One template a tier: DQ = false is the dk/dv kernel (a
+// block owns 64 keys and streams the q and do rows), DQ = true the dq
+// kernel (a block owns 64 q rows and streams the key and value rows). A
+// block sums one column slice of its gradients (a third grid axis) and
+// recomputes s and dp over the full dp for it.
+constexpr int DN_DQ_SLICE = 128;  // dq columns a bf16 dq block sums (dk/dv:
+                                  // CH = 64 of each, fp32: 64 of each)
+
+// delta = rowsum(dout o) at any width: attn_bwd_delta_kernel with the
+// runtime dp as the bound of its column loop. It is a copy, not one
+// template with a width argument, so that the fixed instances at 64, 128
+// and 256 keep the machine code they had before the runtime width came;
+// the two may be merged (loop bound D_ ? D_ : dp) once that is not asked.
+template <typename T>
+__global__ void __launch_bounds__(256)
+attn_bwd_delta_dn_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                         float* __restrict__ delta, int batch, int n,
+                         int heads, int dp, Strides os, Strides ds) {
+  const long long r =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 3;
+  const int part = threadIdx.x & 7;
+  const bool live = r < static_cast<long long>(batch) * n * heads;
+  int b = 0, row = 0, h = 0;
+  float acc = 0.f;
+  if (live) {
+    h = static_cast<int>(r % heads);
+    const long long bn = r / heads;
+    row = static_cast<int>(bn % n);
+    b = static_cast<int>(bn / n);
+    for (int c = 0; c < dp; c += CH) {
+      float x[8], y[8];
+      load8(o + b * os.b + row * os.n + h * os.h + c + part * 8, x);
+      load8(dout + b * ds.b + row * ds.n + h * ds.h + c + part * 8, y);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc = fmaf(y[i], x[i], acc);
+    }
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+  if (live && part == 0)
+    delta[(static_cast<long long>(b) * heads + h) * n + row] = acc;
+}
+
+// bf16: 4 warps, 16 owned rows each. A step stages one 64 x 64 tile of each
+// streamed tensor (double-buffered, cp.async; a ring of four with one
+// barrier a step measured no faster at dp 384 on the H100): the streamed
+// rows' chunk c
+// of head_dim for c < dp / 64 (s and dp summed chunk after chunk, the owned
+// rows' A fragments of the chunk read from global memory), then the chunks
+// of the block's gradient columns, against which p and ds, rounded to bf16
+// as K3b rounds them, are multiplied. g0, g1: dk, dv (DQ = false) or dq
+// and unused.
+template <bool DQ>
+__global__ void __launch_bounds__(32 * WARPS)
+attn_bwd_bf16_dn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, bf16* __restrict__ g0,
+                        bf16* __restrict__ g1, int n, int n_real, int heads,
+                        int dp, Strides qs, Strides ks, Strides vs, Strides dos,
+                        Strides g0s, Strides g1s, float sl, float scale) {
+  constexpr int ROWS = 16 * WARPS;  // owned rows a block
+  __shared__ __align__(128) bf16 ta[2][TILE][ld_bf16(CH)];  // K, or q
+  __shared__ __align__(128) bf16 tb[2][TILE][ld_bf16(CH)];  // V, or do
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int lr = lane & 7;
+  const int li = lane >> 3;
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int own0 = blockIdx.y * ROWS + warp * 16 + g;  // and own0 + 8
+  const int c0 = blockIdx.z * (DQ ? DN_DQ_SLICE : CH);
+  const int nch = dp / CH;
+  const int nsc = DQ ? min(DN_DQ_SLICE, dp - c0) / CH : 1;  // slice chunks
+  const int steps = nch + nsc;
+  const int n_tiles = ((DQ ? n_real : n) + TILE - 1) / TILE;
+  // owned rows (A operands) and streamed rows (staged tiles)
+  const bf16* oa = DQ ? q + b * qs.b + h * qs.h : k + b * ks.b + h * ks.h;
+  const bf16* ob = DQ ? dout + b * dos.b + h * dos.h : v + b * vs.b + h * vs.h;
+  const long long oas = DQ ? qs.n : ks.n, obs = DQ ? dos.n : vs.n;
+  const bf16* sa = DQ ? k + b * ks.b + h * ks.h : q + b * qs.b + h * qs.h;
+  const bf16* sb = DQ ? v + b * vs.b + h * vs.h : dout + b * dos.b + h * dos.h;
+  const long long sas = DQ ? ks.n : qs.n, sbs = DQ ? vs.n : dos.n;
+  const float* lse_bh = lse + static_cast<long long>(bh) * n;
+  const float* delta_bh = delta + static_cast<long long>(bh) * n;
+
+  // DQ: dq columns c0.. and c0 + 64..; else dk and dv columns c0..
+  float acc0[8][4], acc1[8][4];
+#pragma unroll
+  for (int dt = 0; dt < 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc0[dt][e] = acc1[dt][e] = 0.f;
+
+  if (DQ || blockIdx.y * ROWS < n_real) {  // else dk = dv = 0
+    // step j: chunk c < nch of streamed tile j / steps, else a slice chunk
+    // (DQ: K's alone)
+    auto stage = [&](int j, int buf) {
+      const int it = j / steps;
+      const int c = j - it * steps;
+      const int col = c < nch ? c * CH : c0 + (c - nch) * CH;
+      const bool both = !DQ || c < nch;
+      for (int i = threadIdx.x; i < TILE * (CH / 8); i += 32 * WARPS) {
+        const int jj = i >> 3;
+        const int cc = col + (i & 7) * 8;
+        const int row = it * TILE + jj;
+        const long long src = static_cast<long long>(min(row, n - 1));
+        const int bytes = row < n ? 16 : 0;
+        cp_async16(&ta[buf][jj][cc - col], sa + src * sas + cc, bytes);
+        if (both) cp_async16(&tb[buf][jj][cc - col], sb + src * sbs + cc, bytes);
+      }
+      cp_async_commit();
+    };
+    float lse_r[2], delta_r[2];  // DQ: of the owned rows
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = min(own0 + 8 * r, n - 1);
+      lse_r[r] = DQ ? lse_bh[i] : 0.f;
+      delta_r[r] = DQ ? delta_bh[i] : 0.f;
+    }
+    const bool live[2] = {own0 < n_real, own0 + 8 < n_real};  // dk/dv keys
+
+    float s[8][4], dpv[8][4];  // S and dP (DQ), or S^T and dP^T
+    uint32_t pf[4][4], dsf[4][4];
+    const int total = n_tiles * steps;
+    stage(0, 0);
+    for (int j = 0; j < total; ++j) {
+      const int buf = j & 1;
+      if (j + 1 < total) {
+        stage(j + 1, buf ^ 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const int it = j / steps;
+      const int c = j - it * steps;
+      if (c < nch) {
+        if (c == 0) {
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[nt][e] = dpv[nt][e] = 0.f;
+        }
+        uint32_t f[4][4];
+        load_row_frags(f, oa + c * CH, oas, own0, n, t);
+        chunk_dot(s, f, ta[buf], lr, li);
+        load_row_frags(f, ob + c * CH, obs, own0, n, t);
+        chunk_dot(dpv, f, tb[buf], lr, li);
+        if (c == nch - 1) {  // p and ds of this tile, as K3b forms them
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = it * TILE + nt * 8 + 2 * t + (e & 1);
+              float p, dl;
+              if constexpr (DQ) {
+                p = col < n_real ? exp2f(s[nt][e] * sl - lse_r[e >> 1]) : 0.f;
+                dl = delta_r[e >> 1];
+              } else {
+                // rows past N: lse +inf gives p = 0, delta 0 gives ds = 0
+                const float x = exp2f(
+                    s[nt][e] * sl - (col < n ? lse_bh[col]
+                                             : __int_as_float(0x7f800000)));
+                p = live[e >> 1] ? x : 0.f;
+                dl = col < n ? delta_bh[col] : 0.f;
+              }
+              s[nt][e] = p;
+              dpv[nt][e] = p * (dpv[nt][e] - dl) * scale;
+            }
+          chunk_frags(pf, s);
+          chunk_frags(dsf, dpv);
+        }
+      } else if constexpr (DQ) {  // dq += ds . K's chunk
+        if (c == nch)
+          chunk_pv(acc0, dsf, ta[buf], lr, li);
+        else
+          chunk_pv(acc1, dsf, ta[buf], lr, li);
+      } else {  // dv += p^T . do, dk += ds^T . q
+        chunk_pv(acc1, pf, tb[buf], lr, li);
+        chunk_pv(acc0, dsf, ta[buf], lr, li);
+      }
+      __syncthreads();  // every warp is done with `buf` before it is refilled
+    }
+  }
+  if constexpr (DQ) {
+    bf16* base = g0 + b * g0s.b + h * g0s.h + c0;
+    store_rows(base, g0s.n, acc0, own0, n, t);
+    if (c0 + CH < dp) store_rows(base + CH, g0s.n, acc1, own0, n, t);
+  } else {
+    store_rows(g0 + b * g0s.b + h * g0s.h + c0, g0s.n, acc0, own0, n, t);
+    store_rows(g1 + b * g1s.b + h * g1s.h + c0, g1s.n, acc1, own0, n, t);
+  }
+}
+
+constexpr int FDN_TILE = 16;  // streamed rows a tile of the fp32 kernel
+
+// fp32: one thread an owned row, F_ROWS a block, 64 columns of its
+// gradients a block. For each tile of 16 streamed rows, s and dp are summed
+// over 64-column chunks staged in shared memory (owned rows padded to 65
+// floats, streamed rows read as broadcasts), then the tile's chunk at the
+// block's columns is staged for the gradient sums.
+template <bool DQ>
+__global__ void __launch_bounds__(F_ROWS)
+attn_bwd_fp32_dn_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, float* __restrict__ g0,
+                        float* __restrict__ g1, int n, int n_real, int heads,
+                        int dp, Strides qs, Strides ks, Strides vs, Strides dos,
+                        Strides g0s, Strides g1s, float sl, float scale) {
+  __shared__ float own_a[F_ROWS][CH + 1];  // k, or q
+  __shared__ float own_b[F_ROWS][CH + 1];  // v, or do
+  __shared__ float4 ta[FDN_TILE][CH / 4];  // q, or k
+  __shared__ float4 tb[FDN_TILE][CH / 4];  // do, or v
+  __shared__ float lse_t[FDN_TILE];
+  __shared__ float delta_t[FDN_TILE];
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int own0 = blockIdx.y * F_ROWS;
+  const int me = own0 + threadIdx.x;
+  const int c0 = blockIdx.z * CH;
+  const float* oa = DQ ? q + b * qs.b + h * qs.h : k + b * ks.b + h * ks.h;
+  const float* ob = DQ ? dout + b * dos.b + h * dos.h : v + b * vs.b + h * vs.h;
+  const long long oas = DQ ? qs.n : ks.n, obs = DQ ? dos.n : vs.n;
+  const float* sa = DQ ? k + b * ks.b + h * ks.h : q + b * qs.b + h * qs.h;
+  const float* sb = DQ ? v + b * vs.b + h * vs.h : dout + b * dos.b + h * dos.h;
+  const long long sas = DQ ? ks.n : qs.n, sbs = DQ ? vs.n : dos.n;
+  const float* lse_bh = lse + static_cast<long long>(bh) * n;
+  const float* delta_bh = delta + static_cast<long long>(bh) * n;
+  const float lse_r = DQ ? lse_bh[min(me, n - 1)] : 0.f;
+  const float delta_r = DQ ? delta_bh[min(me, n - 1)] : 0.f;
+  const int n_end = DQ ? n_real : n;  // streamed rows
+
+  // stage the streamed rows [base, base + 16) at columns c (b too: both)
+  auto stage_tile = [&](int base, int c, bool both) {
+    float* xa = reinterpret_cast<float*>(ta);
+    float* xb = reinterpret_cast<float*>(tb);
+    for (int i = threadIdx.x; i < FDN_TILE * CH; i += F_ROWS) {
+      const int j = i / CH;
+      const int d = i - j * CH;
+      const long long row = base + j;
+      xa[i] = row < n ? sa[row * sas + c + d] : 0.f;
+      if (both) xb[i] = row < n ? sb[row * sbs + c + d] : 0.f;
+    }
+  };
+  float acc0[CH], acc1[DQ ? 1 : CH];  // dq, or dk and dv
+#pragma unroll
+  for (int d = 0; d < CH; ++d) acc0[d] = 0.f;
+#pragma unroll
+  for (int d = 0; d < (DQ ? 1 : CH); ++d) acc1[d] = 0.f;
+
+  if (DQ || own0 < n_real) {  // else dk = dv = 0
+    const bool live = DQ || me < n_real;
+    for (int base = 0; base < n_end; base += FDN_TILE) {
+      float s[FDN_TILE], dpv[FDN_TILE];
+#pragma unroll
+      for (int j = 0; j < FDN_TILE; ++j) s[j] = dpv[j] = 0.f;
+      for (int c = 0; c < dp; c += CH) {
+        __syncthreads();  // the previous tiles are consumed
+        for (int i = threadIdx.x; i < F_ROWS * CH; i += F_ROWS) {
+          const int j = i / CH;
+          const int d = i - j * CH;
+          const long long r = min(own0 + j, n - 1);
+          own_a[j][d] = oa[r * oas + c + d];
+          own_b[j][d] = ob[r * obs + c + d];
+        }
+        stage_tile(base, c, true);
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < FDN_TILE; ++j)
+#pragma unroll
+          for (int d4 = 0; d4 < CH / 4; ++d4) {
+            const float4 xa = ta[j][d4];
+            const float4 xb = tb[j][d4];
+            s[j] = fmaf(own_a[threadIdx.x][4 * d4 + 0], xa.x, s[j]);
+            s[j] = fmaf(own_a[threadIdx.x][4 * d4 + 1], xa.y, s[j]);
+            s[j] = fmaf(own_a[threadIdx.x][4 * d4 + 2], xa.z, s[j]);
+            s[j] = fmaf(own_a[threadIdx.x][4 * d4 + 3], xa.w, s[j]);
+            dpv[j] = fmaf(own_b[threadIdx.x][4 * d4 + 0], xb.x, dpv[j]);
+            dpv[j] = fmaf(own_b[threadIdx.x][4 * d4 + 1], xb.y, dpv[j]);
+            dpv[j] = fmaf(own_b[threadIdx.x][4 * d4 + 2], xb.z, dpv[j]);
+            dpv[j] = fmaf(own_b[threadIdx.x][4 * d4 + 3], xb.w, dpv[j]);
+          }
+      }
+      __syncthreads();
+      stage_tile(base, c0, !DQ);  // this block's columns of q, do (or k)
+      if (!DQ && threadIdx.x < FDN_TILE) {
+        const int row = base + threadIdx.x;
+        // rows past N: lse +inf gives p = 0, delta 0 gives ds = 0
+        lse_t[threadIdx.x] = row < n ? lse_bh[row] : __int_as_float(0x7f800000);
+        delta_t[threadIdx.x] = row < n ? delta_bh[row] : 0.f;
+      }
+      __syncthreads();
+      if (!live) continue;
+      const int rows = min(FDN_TILE, n_end - base);
+#pragma unroll
+      for (int j = 0; j < FDN_TILE; ++j) {
+        if (j >= rows) break;
+        const float p = exp2f(s[j] * sl - (DQ ? lse_r : lse_t[j]));
+        const float dsv = p * (dpv[j] - (DQ ? delta_r : delta_t[j])) * scale;
+        const float* xa = reinterpret_cast<const float*>(ta[j]);
+        const float* xb = reinterpret_cast<const float*>(tb[j]);
+#pragma unroll
+        for (int d = 0; d < CH; ++d) {
+          acc0[d] = fmaf(dsv, xa[d], acc0[d]);
+          if constexpr (!DQ) acc1[d] = fmaf(p, xb[d], acc1[d]);
+        }
+      }
+    }
+  }
+  if (me < n) {
+    float* p0 = g0 + b * g0s.b + static_cast<long long>(me) * g0s.n + h * g0s.h + c0;
+#pragma unroll
+    for (int d = 0; d < CH; ++d) p0[d] = acc0[d];
+    if constexpr (!DQ) {
+      float* p1 = g1 + b * g1s.b + static_cast<long long>(me) * g1s.n + h * g1s.h + c0;
+#pragma unroll
+      for (int d = 0; d < CH; ++d) p1[d] = acc1[d];
+    }
+  }
 }
 
 // ---------------------------------------------------------------- entry ---
@@ -851,6 +1334,54 @@ int launch_bwd_fp32(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the three launches of the backward at a head_dim dp above 256 (a multiple
+// of CH): delta, dk/dv (dp / 64 column slices), dq (bf16: ceil(dp / 128)
+// slices, fp32: dp / 64)
+template <typename T>
+int launch_bwd_dn(int dp, const void* q, const void* k, const void* v,
+                  const void* o, const void* dout, const float* lse,
+                  float* delta, void* dq, void* dk, void* dv, int batch, int n,
+                  int heads, int n_real, const long long* strides, float sl,
+                  float scale, void* stream) {
+  if (batch <= 0 || n <= 0) return 0;
+  if (dp <= 0 || dp % CH) return static_cast<int>(cudaErrorInvalidValue);
+  const Views w = views(strides);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long threads = 8LL * batch * heads * n;  // eight per row
+  attn_bwd_delta_dn_kernel<T><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, s>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, batch, n,
+      heads, dp, w.o, w.dout);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  constexpr bool BF = std::is_same<T, bf16>::value;
+  constexpr int rows = BF ? 16 * WARPS : F_ROWS;
+  const dim3 grid(batch * heads, (n + rows - 1) / rows, dp / CH);
+  const dim3 grid_q(grid.x, grid.y,
+                    BF ? (dp + DN_DQ_SLICE - 1) / DN_DQ_SLICE : dp / CH);
+  const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k),
+          *tv = static_cast<const T*>(v), *td = static_cast<const T*>(dout);
+  T *tdq = static_cast<T*>(dq), *tdk = static_cast<T*>(dk),
+    *tdv = static_cast<T*>(dv);
+  if constexpr (BF) {
+    attn_bwd_bf16_dn_kernel<false><<<grid, 32 * WARPS, 0, s>>>(
+        tq, tk, tv, td, lse, delta, tdk, tdv, n, n_real, heads, dp, w.q, w.k,
+        w.v, w.dout, w.dk, w.dv, sl, scale);
+    if ((err = static_cast<int>(cudaGetLastError()))) return err;
+    attn_bwd_bf16_dn_kernel<true><<<grid_q, 32 * WARPS, 0, s>>>(
+        tq, tk, tv, td, lse, delta, tdq, nullptr, n, n_real, heads, dp, w.q,
+        w.k, w.v, w.dout, w.dq, w.dq, sl, scale);
+  } else {
+    attn_bwd_fp32_dn_kernel<false><<<grid, rows, 0, s>>>(
+        tq, tk, tv, td, lse, delta, tdk, tdv, n, n_real, heads, dp, w.q, w.k,
+        w.v, w.dout, w.dk, w.dv, sl, scale);
+    if ((err = static_cast<int>(cudaGetLastError()))) return err;
+    attn_bwd_fp32_dn_kernel<true><<<grid_q, rows, 0, s>>>(
+        tq, tk, tv, td, lse, delta, tdq, nullptr, n, n_real, heads, dp, w.q,
+        w.k, w.v, w.dout, w.dq, w.dq, sl, scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -930,6 +1461,73 @@ int maest_attn_bwd_bf16_d256(const void* q, const void* k, const void* v,
   return launch_bwd_bf16<WARPS, TILE, 256>(q, k, v, o, dout, lse, delta, dq,
                                            dk, dv, batch, n, heads, n_real,
                                            strides, sl, scale, stream);
+}
+
+// The same two entries at a head_dim dp above 256, a multiple of 64 (a
+// head_dim between is zero-padded by the caller): (batch, n, heads, dp)
+// views, scale = dp^-0.5 or the unpadded head_dim's. Returns
+// cudaErrorInvalidValue for another dp.
+int maest_attn_bwd_fp32_dn(int dp, const void* q, const void* k,
+                           const void* v, const void* o, const void* dout,
+                           const float* lse, float* delta, void* dq, void* dk,
+                           void* dv, int batch, int n, int heads, int n_real,
+                           const long long* strides, float sl, float scale,
+                           void* stream) {
+  return launch_bwd_dn<float>(dp, q, k, v, o, dout, lse, delta, dq, dk, dv,
+                              batch, n, heads, n_real, strides, sl, scale,
+                              stream);
+}
+
+int maest_attn_bwd_bf16_dn(int dp, const void* q, const void* k,
+                           const void* v, const void* o, const void* dout,
+                           const float* lse, float* delta, void* dq, void* dk,
+                           void* dv, int batch, int n, int heads, int n_real,
+                           const long long* strides, float sl, float scale,
+                           void* stream) {
+  return launch_bwd_dn<bf16>(dp, q, k, v, o, dout, lse, delta, dq, dk, dv,
+                             batch, n, heads, n_real, strides, sl, scale,
+                             stream);
+}
+
+// The backward rig's fp8 kind (scripts/bwd_int8_probe.py:91-107): K3b's
+// dk/dv and dq kernels with E4M3 = true on q, v, dout (bh, n, 64) e4m3 rows
+// and krows, K's rows made from the rig's kt (attention_bwd_q8.cu
+// maest_bwd_rig_layout, which also gives delta); lse, delta (bh, n) fp32.
+// Writes dq (bh, n, 64) bf16, dk and dv (bh, n, 64) fp32. sl = the rig's
+// SCALE log2(e), scale = its SCALE. No key is masked. Two launches.
+int maest_bwd_rig_fp8(const void* q, const void* krows, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dq, void* dk, void* dv, int bh, int n, float sl,
+                      float scale, void* stream) {
+  if (bh <= 0 || n <= 0) return 0;
+  constexpr int smem = bwd_e4m3_smem_bytes();
+  static const cudaError_t attr = [] {
+    const cudaFuncAttribute a = cudaFuncAttributeMaxDynamicSharedMemorySize;
+    const cudaError_t e = cudaFuncSetAttribute(
+        attn_bwd_dkv_bf16_kernel<WARPS, TILE, D, true>, a, smem);
+    return e != cudaSuccess
+               ? e
+               : cudaFuncSetAttribute(attn_bwd_dq_bf16_kernel<WARPS, TILE, D, true>,
+                                      a, smem);
+  }();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const Strides rows{static_cast<long long>(n) * D, D, 0};  // heads = 1
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(bh, (n + 16 * WARPS - 1) / (16 * WARPS));
+  const uint8_t *q8 = static_cast<const uint8_t*>(q),
+                *k8 = static_cast<const uint8_t*>(krows),
+                *v8 = static_cast<const uint8_t*>(v),
+                *d8 = static_cast<const uint8_t*>(dout);
+  attn_bwd_dkv_bf16_kernel<WARPS, TILE, D, true><<<grid, 32 * WARPS, smem, s>>>(
+      q8, k8, v8, d8, lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), n, n, 1, rows, rows, rows, rows, rows, rows, sl,
+      scale);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  attn_bwd_dq_bf16_kernel<WARPS, TILE, D, true><<<grid, 32 * WARPS, smem, s>>>(
+      q8, k8, v8, d8, lse, delta, static_cast<bf16*>(dq), n, n, 1, rows, rows,
+      rows, rows, rows, sl, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The bf16 backward at another tile: rows (16 a warp: 32, 64 or 128) and

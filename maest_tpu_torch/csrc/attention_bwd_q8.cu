@@ -71,6 +71,17 @@
 // 128-column slices over a third grid axis (dq_cols), each recomputing s
 // and dp over the full head_dim and staging only its rows of K^T. The
 // quant pass's transposed tiles (60 KB) take dynamic shared memory.
+//
+// The backward rig (scripts/bwd_int8_probe.py:52 _bwd_rig_kernel, its int8
+// kind) runs the dk/dv and dq kernels with RIG = true: the rig's fixed
+// scalars in place of Stats (no amax, quant or scale pass), p8 and ds8
+// saturated as jnp's astype(int8) (its fixed scales take ds8 past +-127),
+// one q-block over all rows, no key masked, dk and dv stored as fp32 (one
+// int32 sum times 1e-2), dq in bf16; a layout pass of its own
+// (bwd_rig_layout_kernel) first makes K's rows and the seq_pos copies from
+// the rig's operands. What bounds it at the rig's (384, 896, 64): its bytes
+// (354 MB, 0.106 ms) and five int8 products (0.100 ms), far below the two
+// kernels' recomputed s and dp and their exp2.
 
 #include "mma_8bit.cuh"
 
@@ -384,6 +395,16 @@ __device__ __forceinline__ float dscore(float p, int dp_int, float c_dp,
   return __fmul_rn(__fmul_rn(p, __fsub_rn(dp, delta)), scale);
 }
 
+// an int8 code: K7's (|x| <= 127.5 by its scales) or, SAT, the rig's
+// saturating jnp round(x).astype(int8) (its fixed scales leave the range)
+template <bool SAT>
+__device__ __forceinline__ uint32_t code8(float x) {
+  if constexpr (SAT)
+    return to_s8_sat(x);
+  else
+    return to_s8(x);
+}
+
 // dq columns a block of the dq kernel sums: all, or past head_dim 128 a
 // slice of 128 (a third grid axis)
 __host__ __device__ constexpr int dq_cols(int d) { return d > 128 ? 128 : d; }
@@ -405,7 +426,7 @@ __host__ __device__ constexpr int q8b_smem_bytes(int kernel, int d) {
 // tiles below n_real; DQ = false: max p and max |ds| into st.pmax /
 // st.dsmax (dq unused; both entries run the <false, bf16> instance); DQ =
 // true: dq = (ds8 . k8) (dst ks (1/127)), stored as T
-template <bool DQ, typename T, int D_ = D>
+template <bool DQ, typename T, int D_ = D, bool RIG = false>
 __global__ void __launch_bounds__(32 * BW)
 bwd_q8_rows_kernel(Bytes8 by, const float* __restrict__ lse,
                    const float* __restrict__ delta, Stats st,
@@ -444,12 +465,17 @@ bwd_q8_rows_kernel(Bytes8 by, const float* __restrict__ lse,
   const int row0 = blockIdx.y * BR + warp * 16 + g;  // and row0 + 8
   const int c0 = DC < D_ ? blockIdx.z * DC : 0;  // DQ: this block's columns
 
-  const float qsc = q8_scale(st.qmax[qb]);
-  const float ksc = q8_scale(st.kmax[bh]);
-  const float c_s = __fmul_rn(__fmul_rn(qsc, ksc), sl);
-  const float c_dp = __fmul_rn(q8_scale(st.domax[qb]), q8_scale(st.vmax[bh]));
+  // RIG: the rig's fixed scalars (sl is its sl 1e-4), no Stats
+  const float qsc = RIG ? 0.f : q8_scale(st.qmax[qb]);
+  const float ksc = RIG ? 0.f : q8_scale(st.kmax[bh]);
+  const float c_s = RIG ? sl : __fmul_rn(__fmul_rn(qsc, ksc), sl);
+  const float c_dp =
+      RIG ? 1e-4f : __fmul_rn(q8_scale(st.domax[qb]), q8_scale(st.vmax[bh]));
   float c_ds = 0.f, c_dq = 0.f;
-  if constexpr (DQ) {
+  if constexpr (DQ && RIG) {
+    c_ds = 1.f;
+    c_dq = 1e-2f;
+  } else if constexpr (DQ) {
     const float dst = fmaxf(st.dsmax[qb], EPS);
     c_ds = __fdiv_rn(127.f, dst);
     c_dq = __fmul_rn(__fmul_rn(dst, ksc), INV127);
@@ -518,7 +544,7 @@ bwd_q8_rows_kernel(Bytes8 by, const float* __restrict__ lse,
           const float p = prob(si[nt][e], c_s, key < n_real, lse_r[e >> 1]);
           const float dsv = dscore(p, dpi[nt][e], c_dp, delta_r[e >> 1], scale);
           if constexpr (DQ) {
-            x[nt][e] = to_s8(__fmul_rn(dsv, c_ds));
+            x[nt][e] = code8<RIG>(__fmul_rn(dsv, c_ds));
           } else {
             pmax = fmaxf(pmax, p);
             dsmax = fmaxf(dsmax, fabsf(dsv));
@@ -584,7 +610,7 @@ __device__ __forceinline__ void fold(float (&f)[8][4], int (&i)[8][4], float c) 
     }
 }
 
-template <typename T, int D_ = D>
+template <typename T, int D_ = D, bool RIG = false>
 __global__ void __launch_bounds__(32 * BW)
 bwd_q8_dkdv_kernel(Bytes8 by, const float* __restrict__ lse,
                    const float* __restrict__ delta, Stats st,
@@ -683,8 +709,8 @@ bwd_q8_dkdv_kernel(Bytes8 by, const float* __restrict__ lse,
       load_row_frags8(vf, by.v + head, D_, key0, npad, t);
     }
     const bool live[2] = {key0 < n_real, key0 + 8 < n_real};
-    const float ksc = q8_scale(st.kmax[bh]);
-    const float vsc = q8_scale(st.vmax[bh]);
+    const float ksc = RIG ? 0.f : q8_scale(st.kmax[bh]);
+    const float vsc = RIG ? 0.f : q8_scale(st.vmax[bh]);
 
     int jq = -1;  // the q-block of the tiles being summed
     float c_s = 0.f, c_p = 0.f, c_dp = 0.f, c_ds = 0.f, c_dv = 0.f, c_dk = 0.f;
@@ -697,16 +723,24 @@ bwd_q8_dkdv_kernel(Bytes8 by, const float* __restrict__ lse,
         }
         jq = it * TILE / bq;
         const int qb = bh * nqb + jq;
-        const float qsc = q8_scale(st.qmax[qb]);
-        const float dosc = q8_scale(st.domax[qb]);
-        const float pst = fmaxf(st.pmax[qb], EPS);
-        const float dst = fmaxf(st.dsmax[qb], EPS);
-        c_s = __fmul_rn(__fmul_rn(qsc, ksc), sl);
-        c_p = __fdiv_rn(127.f, pst);
-        c_dp = __fmul_rn(dosc, vsc);
-        c_ds = __fdiv_rn(127.f, dst);
-        c_dv = __fmul_rn(__fmul_rn(dosc, pst), INV127);
-        c_dk = __fmul_rn(__fmul_rn(dst, qsc), INV127);
+        if constexpr (RIG) {  // the rig's fixed scalars (sl: its sl 1e-4)
+          c_s = sl;
+          c_p = 127.f;
+          c_dp = 1e-4f;
+          c_ds = 1.f;
+          c_dv = c_dk = 1e-2f;
+        } else {
+          const float qsc = q8_scale(st.qmax[qb]);
+          const float dosc = q8_scale(st.domax[qb]);
+          const float pst = fmaxf(st.pmax[qb], EPS);
+          const float dst = fmaxf(st.dsmax[qb], EPS);
+          c_s = __fmul_rn(__fmul_rn(qsc, ksc), sl);
+          c_p = __fdiv_rn(127.f, pst);
+          c_dp = __fmul_rn(dosc, vsc);
+          c_ds = __fdiv_rn(127.f, dst);
+          c_dv = __fmul_rn(__fmul_rn(dosc, pst), INV127);
+          c_dk = __fmul_rn(__fmul_rn(dst, qsc), INV127);
+        }
       }
       const int buf = it & 1;
       if (it + 1 < n_tiles) {
@@ -732,7 +766,7 @@ bwd_q8_dkdv_kernel(Bytes8 by, const float* __restrict__ lse,
           for (int e = 0; e < 4; ++e) {
             const int col = r0 + nt * 8 + 2 * t + (e & 1);
             p[nt][e] = prob(si[nt][e], c_s, live[e >> 1], lse_sm[buf][col]);
-            x[nt][e] = to_s8(__fmul_rn(p[nt][e], c_p));
+            x[nt][e] = code8<RIG>(__fmul_rn(p[nt][e], c_p));
           }
         uint32_t a[4];
         pack_a(a, x);
@@ -748,7 +782,7 @@ bwd_q8_dkdv_kernel(Bytes8 by, const float* __restrict__ lse,
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int col = r0 + nt * 8 + 2 * t + (e & 1);
-            x[nt][e] = to_s8(__fmul_rn(
+            x[nt][e] = code8<RIG>(__fmul_rn(
                 dscore(p[nt][e], dpi[nt][e], c_dp, delta_sm[buf][col], scale), c_ds));
           }
         pack_a(a, x);
@@ -831,6 +865,77 @@ int launch_bwd_q8(const void* q, const void* k, const void* v, const void* o,
       by, lse, delta, st, static_cast<T*>(dq), n, n_real, heads, bq, nqb, w[5],
       sl, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------- the backward rig, P4 ---
+// scripts/bwd_int8_probe.py:52 _bwd_rig_kernel computes, per head, on 8-bit
+// q, v, do (bh, N, 64) rows, kt (bh, 64, N) and bf16 o, every row and key
+// (no mask) with fixed scalars. Its int8 kind runs K7's dk/dv and dq kernels
+// with RIG = true (c_s = its sl 1e-4, dp 1e-4, p8 and ds8 saturated, dq, dk
+// and dv 1e-2 of one int32 sum over all N rows: bq = N); its fp8 kind runs
+// K3b's kernels on e4m3 (attention_bwd.cu). This pass lays the rig's
+// operands out as those kernels read them: K's rows from kt (both kinds),
+// q, do and K transposed in the seq_pos order (I8), and delta =
+// rowsum(do o) in fp32 from the 8-bit do (int8 or e4m3) and the bf16 o.
+// A block takes 64 rows of one head (N a multiple of 64).
+__device__ __forceinline__ float e4m3_float(uint8_t b) {
+  __nv_fp8_e4m3 x;
+  x.__x = b;
+  return static_cast<float>(x);
+}
+
+template <bool I8>
+__global__ void __launch_bounds__(256)
+bwd_rig_layout_kernel(const uint8_t* __restrict__ q,
+                      const uint8_t* __restrict__ kt,
+                      const uint8_t* __restrict__ dout,
+                      const bf16* __restrict__ o, uint8_t* __restrict__ krows,
+                      uint8_t* __restrict__ qt, uint8_t* __restrict__ dot,
+                      uint8_t* __restrict__ kts, float* __restrict__ delta,
+                      int n) {
+  __shared__ __align__(16) uint8_t tr[3][64][LD8];  // q^T, do^T, K^T (seq_pos)
+  __shared__ __align__(16) uint8_t kr[64][LD8];     // K's rows
+  const long long bh = blockIdx.x;
+  const int t0 = blockIdx.y * 64;
+  const int r = threadIdx.x >> 2;         // row of the tile, and d row of kt
+  const int s0 = (threadIdx.x & 3) * 16;  // its 16 columns
+  const long long row = (bh * n + t0 + r) * 64 + s0;  // in (bh, N, 64)
+  const long long col = (bh * 64 + r) * n + t0 + s0;  // in (bh, 64, N)
+  uint4 w = *reinterpret_cast<const uint4*>(dout + row);
+  const uint8_t* db = reinterpret_cast<const uint8_t*>(&w);
+  float y[16];
+  load16(o + row, y);
+  float dsum = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    dsum = fmaf(I8 ? static_cast<float>(static_cast<int8_t>(db[i]))
+                   : e4m3_float(db[i]),
+                y[i], dsum);
+  dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
+  dsum += __shfl_xor_sync(0xffffffffu, dsum, 2);
+  if (s0 == 0) delta[bh * n + t0 + r] = dsum;
+  const uint4 kw = *reinterpret_cast<const uint4*>(kt + col);
+  const uint8_t* kb = reinterpret_cast<const uint8_t*>(&kw);
+  const uint4 qw = *reinterpret_cast<const uint4*>(q + row);
+  const uint8_t* qb = reinterpret_cast<const uint8_t*>(&qw);
+  const int pos = seq_pos(r);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    kr[s0 + i][r] = kb[i];  // key s0 + i, column r
+    if constexpr (I8) {
+      tr[0][s0 + i][pos] = qb[i];
+      tr[1][s0 + i][pos] = db[i];
+      tr[2][r][seq_pos(s0 + i)] = kb[i];
+    }
+  }
+  __syncthreads();
+  *reinterpret_cast<uint4*>(krows + row) = *reinterpret_cast<const uint4*>(&kr[r][s0]);
+  if constexpr (I8) {
+    uint8_t* cols[3] = {qt, dot, kts};
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      *reinterpret_cast<uint4*>(cols[a] + col) = *reinterpret_cast<const uint4*>(&tr[a][r][s0]);
+  }
 }
 
 }  // namespace
@@ -922,6 +1027,56 @@ int maest_attn_bwd_q8_fp32_d256(const void* q, const void* k, const void* v,
   return launch_bwd_q8<float, 256>(q, k, v, o, dout, lse, stats, bytes, delta,
                                    dq, dk, dv, batch, n, heads, n_real, bq,
                                    strides, sl, scale, stream);
+}
+
+// The backward rig's layout pass (i8 = 1: its int8 kind, 0: fp8): q, do
+// (bh, n, 64) 8-bit, kt (bh, 64, n) 8-bit, o (bh, n, 64) bf16, n a multiple
+// of 64, all contiguous; writes krows (bh, n, 64), and for i8 qt, dot, kts
+// (bh, 64, n) in the seq_pos order, and delta (bh, n) fp32. One launch.
+int maest_bwd_rig_layout(int i8, const void* q, const void* kt,
+                         const void* dout, const void* o, void* krows,
+                         void* qt, void* dot, void* kts, float* delta, int bh,
+                         int n, void* stream) {
+  if (bh <= 0 || n <= 0) return 0;
+  if (n % 64) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = i8 ? bwd_rig_layout_kernel<true> : bwd_rig_layout_kernel<false>;
+  kernel<<<dim3(bh, n / 64), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(kt),
+      static_cast<const uint8_t*>(dout), static_cast<const bf16*>(o),
+      static_cast<uint8_t*>(krows), static_cast<uint8_t*>(qt),
+      static_cast<uint8_t*>(dot), static_cast<uint8_t*>(kts), delta, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward rig's int8 kind on the layout pass's copies: K7's dk/dv and
+// dq kernels with RIG = true. q, v, dout (bh, n, 64) int8 rows, krows from
+// the pass, qt, dot, kts (bh, 64, n) seq_pos; lse and delta (bh, n) fp32;
+// writes dq (bh, n, 64) bf16 and dk, dv (bh, n, 64) fp32. sl: the rig's
+// SCALE log2(e) 1e-4 in fp32; scale: its SCALE 127 (15.875). Two launches.
+int maest_bwd_rig_i8(const void* q, const void* krows, const void* v,
+                     const void* dout, const void* qt, const void* dot,
+                     const void* kts, const float* lse, const float* delta,
+                     void* dq, void* dk, void* dv, int bh, int n, float sl,
+                     float scale, void* stream) {
+  if (bh <= 0 || n <= 0) return 0;
+  if (n % 64) return static_cast<int>(cudaErrorInvalidValue);
+  auto b8 = [](const void* p) {
+    return const_cast<uint8_t*>(static_cast<const uint8_t*>(p));
+  };
+  const Bytes8 by{b8(q), b8(krows), b8(v), b8(dout), b8(qt), b8(dot), b8(kts)};
+  const Stats st{};  // RIG reads no maxima
+  const Strides rows{static_cast<long long>(n) * 64, 64, 0};  // heads = 1
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(bh, n / 64);
+  bwd_q8_dkdv_kernel<float, 64, true><<<grid, 32 * BW, 0, s>>>(
+      by, lse, delta, st, static_cast<float*>(dk), static_cast<float*>(dv), n,
+      n, 1, n, 1, rows, rows, sl, scale);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  bwd_q8_rows_kernel<true, bf16, 64, true><<<grid, 32 * BW, 0, s>>>(
+      by, lse, delta, st, static_cast<bf16*>(dq), n, n, 1, n, 1, rows, sl,
+      scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

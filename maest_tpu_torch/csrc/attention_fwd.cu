@@ -1,6 +1,7 @@
 // Attention forward for Hopper (sm_90a): online softmax, head_dim 64, 128
 // and 256 (a template parameter D_ of each kernel; a smaller head_dim is
-// zero-padded to the next instance by the caller, ops/attention.py).
+// zero-padded to the next instance by the caller, ops/attention.py), and
+// any multiple of 64 above 256 (the _dn entries).
 //
 // Replaces maest_tpu/ops/attention.py::_attn_kernel + _attn_body (called
 // from _flash_fwd_lse): the inference forward without the log-sum-exp
@@ -57,6 +58,21 @@
 //
 // D_ = 256 in bf16: the template's QSM path (attn_fwd_bf16.cuh), q rows in
 // shared memory.
+//
+// Any head_dim above 256 (the _dn entries): one instance of each tier whose
+// width dp, zero-padded by the caller to a multiple of 64, is a runtime
+// argument, so registers and shared memory do not grow with it. The scores
+// of a key tile are summed over 64-column chunks of K, each staged from
+// global memory for that tile (q's fragments of the chunk read from global
+// memory too); the output is computed in column slices over a third grid
+// axis, each slice's block recomputing the scores and the softmax over the
+// full dp, so at dp 384 the scores are computed 3 times in bf16 (128-column
+// slices: 64 registers of sums beside the score tile, one block an SM) and
+// 6 times in fp32 (64-column slices, one thread a row); at 512, 4 and 8.
+// Only slice 0 writes lse. The bf16 kernel double-buffers its 64 x 64
+// tiles (the K chunks of a key tile, then V's chunks of the slice) with
+// cp.async (a ring of four with one barrier a tile measured no faster at
+// dp 384 on the H100); the fp32 kernel stages 32-key tiles synchronously.
 //
 // Both kernels: grid (B*H, ceil(N / rows per block)). Key tiles wholly at
 // or past n_real would contribute exactly zero (exp2(-1e30 - m) underflows
@@ -287,6 +303,272 @@ attn_fwd_fp32_wide_kernel(const float* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------- any width ---
+// head_dim above 256 (see the note at the top): dp, a multiple of CH = 64,
+// is an argument. Grid (B*H, ceil(N / rows a block), slices); a block
+// recomputes the scores over the full dp and sums one slice of the output
+// columns; only slice 0 writes lse.
+constexpr int DN_SLICE = 128;  // output columns a bf16 block sums
+
+__global__ void __launch_bounds__(32 * WARPS, 1)
+attn_fwd_bf16_dn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, bf16* __restrict__ out,
+                        float* __restrict__ lse, int n, int n_real, int heads,
+                        int dp, Strides qs, Strides ks, Strides vs, Strides os,
+                        float sl) {
+  // double-buffered 64-key x 64-column tiles: a chunk of K, or of V's slice
+  __shared__ __align__(128) bf16 tile[2][MK][ld_bf16(CH)];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int lr = lane & 7;
+  const int li = lane >> 3;
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int row0 = blockIdx.y * MQ + warp * 16 + g;  // and row0 + 8
+  const int c0 = blockIdx.z * DN_SLICE;              // this block's columns
+  const int nch = dp / CH;                           // K chunks a key tile
+  const int nvc = min(DN_SLICE, dp - c0) / CH;       // V chunks: 1 or 2
+  const int steps = nch + nvc;                       // tiles a key tile
+  const int total = (n_real + MK - 1) / MK * steps;
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + h * ks.h;
+  const bf16* vb = v + b * vs.b + h * vs.h;
+
+  // step j: chunk c < nch of key tile j / steps from K, else V's chunk
+  auto stage = [&](int j, int buf) {
+    const int it = j / steps;
+    const int c = j - it * steps;
+    const bf16* src = c < nch ? kb + c * CH : vb + c0 + (c - nch) * CH;
+    const long long rs = c < nch ? ks.n : vs.n;
+    for (int i = threadIdx.x; i < MK * (CH / 8); i += 32 * WARPS) {
+      const int jj = i >> 3;
+      const int cc = (i & 7) * 8;
+      const int key = it * MK + jj;
+      cp_async16(&tile[buf][jj][cc],
+                 src + static_cast<long long>(min(key, n - 1)) * rs + cc,
+                 key < n ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+
+  float o0[8][4], o1[8][4];  // the slice's two 64-column halves
+#pragma unroll
+  for (int dt = 0; dt < 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o0[dt][e] = o1[dt][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};
+  float s[8][4];
+  uint32_t pf[4][4];
+  stage(0, 0);
+  for (int j = 0; j < total; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < total) {
+      stage(j + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int it = j / steps;
+    const int c = j - it * steps;
+    if (c < nch) {  // s += q_c . K_c^T
+      if (c == 0) {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+      }
+      uint32_t qf[4][4];
+      load_row_frags(qf, qb + c * CH, qs.n, row0, n, t);
+      chunk_dot(s, qf, tile[buf], lr, li);
+      if (c == nch - 1) {  // FLASH's softmax step over this key tile
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = it * MK + nt * 8 + 2 * t + (e & 1);
+            const float x = key < n_real ? s[nt][e] * sl : NEG_INF;
+            s[nt][e] = x;
+            mx[e >> 1] = fmaxf(mx[e >> 1], x);
+          }
+        float corr[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          corr[r] = exp2f(m[r] - mx[r]);
+          l[r] *= corr[r];
+          m[r] = mx[r];
+        }
+#pragma unroll
+        for (int dt = 0; dt < 8; ++dt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            o0[dt][e] *= corr[e >> 1];
+            o1[dt][e] *= corr[e >> 1];
+          }
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const float p0 = exp2f(s[nt][0] - m[0]);
+          const float p1 = exp2f(s[nt][1] - m[0]);
+          const float p2 = exp2f(s[nt][2] - m[1]);
+          const float p3 = exp2f(s[nt][3] - m[1]);
+          l[0] += p0 + p1;
+          l[1] += p2 + p3;
+          pf[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p0, p1);
+          pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
+        }
+      }
+    } else if (c == nch) {  // o0 += P . V chunk (as FLASH's P.V)
+      chunk_pv(o0, pf, tile[buf], lr, li);
+    } else {
+      chunk_pv(o1, pf, tile[buf], lr, li);
+    }
+    __syncthreads();  // every warp is done with `buf` before it is refilled
+  }
+
+  bf16* ob = out + b * os.b + h * os.h + c0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = row0 + 8 * r;
+    if (row >= n) continue;
+    bf16* orow = ob + static_cast<long long>(row) * os.n + 2 * t;
+#pragma unroll
+    for (int dt = 0; dt < 8; ++dt) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) =
+          __floats2bfloat162_rn(o0[dt][2 * r] / l[r], o0[dt][2 * r + 1] / l[r]);
+      if (nvc == 2)
+        *reinterpret_cast<__nv_bfloat162*>(orow + CH + dt * 8) =
+            __floats2bfloat162_rn(o1[dt][2 * r] / l[r],
+                                  o1[dt][2 * r + 1] / l[r]);
+    }
+    if (lse != nullptr && blockIdx.z == 0 && t == 0)
+      lse[static_cast<long long>(bh) * n + row] = m[r] + log2f(l[r]);
+  }
+}
+
+constexpr int FDN_BK = 32;  // keys a tile of the fp32 kernel (two SUB groups)
+
+// fp32, one thread a query row: the scores of a 32-key tile are summed over
+// 64-column chunks of K staged in shared memory (q read from global memory,
+// a chunk at a time), then a 64-column slice of the output takes FLASH's
+// SUB-key updates
+__global__ void __launch_bounds__(BQ)
+attn_fwd_fp32_dn_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ out,
+                        float* __restrict__ lse, int n, int n_real, int heads,
+                        int dp, Strides qs, Strides ks, Strides vs, Strides os,
+                        float sl) {
+  __shared__ float k_tile[FDN_BK][CH];
+  __shared__ float v_tile[FDN_BK][CH];
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int row = blockIdx.y * BQ + threadIdx.x;
+  const int c0 = blockIdx.z * CH;  // this block's output columns
+  const float* qp =
+      q + b * qs.b + static_cast<long long>(row < n ? row : n - 1) * qs.n +
+      h * qs.h;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+
+  float acc[CH];
+#pragma unroll
+  for (int d = 0; d < CH; ++d) acc[d] = 0.f;
+  float m = NEG_INF, l = 0.f;
+  // stage columns c.. of the tile's keys from x (rows of stride rs)
+  auto stage = [&](float (*dst)[CH], const float* x, long long rs, int base,
+                   int c) {
+    __syncthreads();  // the previous tile is fully consumed
+    for (int i = threadIdx.x; i < FDN_BK * CH; i += BQ) {
+      const int j = i / CH;
+      const int d = i - j * CH;
+      const int key = base + j;
+      dst[j][d] = key < n ? x[static_cast<long long>(key) * rs + c + d] : 0.f;
+    }
+    __syncthreads();
+  };
+  for (int base = 0; base < n_real; base += FDN_BK) {
+    float s[FDN_BK];
+#pragma unroll
+    for (int j = 0; j < FDN_BK; ++j) s[j] = 0.f;
+    for (int c = 0; c < dp; c += CH) {
+      stage(k_tile, kb, ks.n, base, c);
+#pragma unroll 4
+      for (int d = 0; d < CH; ++d) {
+        const float qd = qp[c + d];
+#pragma unroll
+        for (int j = 0; j < FDN_BK; ++j) s[j] = fmaf(qd, k_tile[j][d], s[j]);
+      }
+    }
+    stage(v_tile, vb, vs.n, base, c0);
+    const int tile_keys = min(FDN_BK, n_real - base);
+#pragma unroll
+    for (int j0 = 0; j0 < FDN_BK; j0 += SUB) {
+      if (j0 >= tile_keys) break;
+      float m_new = m;
+#pragma unroll
+      for (int jj = 0; jj < SUB; ++jj) {
+        const float sc = j0 + jj < tile_keys ? s[j0 + jj] * sl : NEG_INF;
+        s[j0 + jj] = sc;
+        m_new = fmaxf(m_new, sc);
+      }
+      const float corr = exp2f(m - m_new);
+      l *= corr;
+#pragma unroll
+      for (int d = 0; d < CH; ++d) acc[d] *= corr;
+#pragma unroll
+      for (int jj = 0; jj < SUB; ++jj) {
+        const float p = exp2f(s[j0 + jj] - m_new);
+        l += p;
+#pragma unroll
+        for (int d = 0; d < CH; ++d)
+          acc[d] = fmaf(p, v_tile[j0 + jj][d], acc[d]);
+      }
+      m = m_new;
+    }
+  }
+
+  if (row < n) {
+    float* op = out + b * os.b + static_cast<long long>(row) * os.n + h * os.h +
+                c0;
+#pragma unroll
+    for (int d = 0; d < CH; ++d) op[d] = acc[d] / l;
+    if (lse != nullptr && blockIdx.z == 0)
+      lse[static_cast<long long>(bh) * n + row] = m + log2f(l);
+  }
+}
+
+// the runtime-width kernel on a grid with a third axis of `slices`
+template <typename T>
+int launch_dn(void (*kernel)(const T*, const T*, const T*, T*, float*, int,
+                             int, int, int, Strides, Strides, Strides, Strides,
+                             float),
+              int rows_per_block, int threads, int slices, int dp,
+              const void* q, const void* k, const void* v, void* out,
+              float* lse, int batch, int n, int heads, int n_real,
+              const long long* st, float sl, void* stream) {
+  if (batch <= 0 || n <= 0) return 0;
+  if (dp <= 0 || dp % CH) return static_cast<int>(cudaErrorInvalidValue);
+  const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
+      vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
+  const dim3 grid(batch * heads, (n + rows_per_block - 1) / rows_per_block,
+                  slices);
+  kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), lse, n, n_real, heads,
+      dp, qs, ks, vs, os, sl);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -352,6 +634,28 @@ int maest_attn_fwd_bf16_d256(const void* q, const void* k, const void* v,
                              float sl, void* stream) {
   return launch_fwd<FLASH, 1, WARPS, MK, false, 256>(
       q, k, v, out, lse, batch, n, heads, n_real, strides, sl, stream);
+}
+
+// The same two entries at a head_dim dp above 256, a multiple of 64 (a
+// head_dim between is zero-padded by the caller): (batch, n, heads, dp)
+// views; sl = dp^-0.5 log2(e), or the unpadded head_dim's. Returns
+// cudaErrorInvalidValue for another dp.
+int maest_attn_fwd_fp32_dn(int dp, const void* q, const void* k,
+                           const void* v, void* out, float* lse, int batch,
+                           int n, int heads, int n_real,
+                           const long long* strides, float sl, void* stream) {
+  return launch_dn<float>(attn_fwd_fp32_dn_kernel, BQ, BQ, dp / CH, dp, q, k,
+                          v, out, lse, batch, n, heads, n_real, strides, sl,
+                          stream);
+}
+
+int maest_attn_fwd_bf16_dn(int dp, const void* q, const void* k,
+                           const void* v, void* out, float* lse, int batch,
+                           int n, int heads, int n_real,
+                           const long long* strides, float sl, void* stream) {
+  return launch_dn<bf16>(attn_fwd_bf16_dn_kernel, MQ, 32 * WARPS,
+                         (dp + DN_SLICE - 1) / DN_SLICE, dp, q, k, v, out, lse,
+                         batch, n, heads, n_real, strides, sl, stream);
 }
 
 }  // extern "C"

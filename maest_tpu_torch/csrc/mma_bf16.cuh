@@ -114,4 +114,56 @@ __device__ __forceinline__ void load_row_frags(uint32_t (&f)[KS][4],
   }
 }
 
+// The runtime-width (``_dn``) kernels stage head_dim in chunks of CH columns
+// (rows of ld_bf16(CH) in shared memory).
+constexpr int CH = 64;
+
+// c (16 x 64) += a (a warp's 16 rows over one 64-column chunk, 4 k-steps)
+// . tile^T (64 staged rows of the same chunk): C layout, n-tile nt covers
+// tile rows 8 nt ..; per n-tile the k-steps run in order, so chunk after
+// chunk the sums over head_dim run as one pass over the whole row would
+__device__ __forceinline__ void chunk_dot(float (&c)[8][4],
+                                          const uint32_t (&a)[4][4],
+                                          const bf16 (*tile)[ld_bf16(CH)],
+                                          int lr, int li) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      uint32_t f[4];
+      ldmatrix_x4(f, &tile[nt * 8 + lr][half * 32 + li * 8]);
+      mma_16816(c[nt], a[2 * half], f[0], f[1]);
+      mma_16816(c[nt], a[2 * half + 1], f[2], f[3]);
+    }
+}
+
+// the C-layout tile x (16 x 64) as bf16 A fragments of 4 k-steps
+__device__ __forceinline__ void chunk_frags(uint32_t (&f)[4][4],
+                                            const float (&x)[8][4]) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    f[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(x[nt][0], x[nt][1]);
+    f[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(x[nt][2], x[nt][3]);
+  }
+}
+
+// acc (16 x 64) += p (16 x 64 staged rows, bf16 A fragments) . tile (the 64
+// staged rows of one 64-column chunk), through ldmatrix.trans; the k-steps
+// over the staged rows run in order
+__device__ __forceinline__ void chunk_pv(float (&acc)[8][4],
+                                         const uint32_t (&p)[4][4],
+                                         const bf16 (*tile)[ld_bf16(CH)],
+                                         int lr, int li) {
+#pragma unroll
+  for (int kj = 0; kj < 4; ++kj)
+#pragma unroll
+    for (int dc = 0; dc < 4; ++dc) {
+      uint32_t f[4];
+      ldmatrix_x4_trans(f, &tile[kj * 16 + (li & 1) * 8 + lr]
+                                [dc * 16 + (li >> 1) * 8]);
+      mma_16816(acc[2 * dc], p[kj], f[0], f[1]);
+      mma_16816(acc[2 * dc + 1], p[kj], f[2], f[3]);
+    }
+}
+
 }  // namespace maest

@@ -15,10 +15,12 @@ On CUDA tensors each step launches its hand-written kernel
 cores, fp32 in scalar fp32 FMA; ``csrc/attention_fwd_q8.cu`` and
 ``csrc/attention_bwd_q8.cu``: int8 / e4m3 products, bf16 or fp32 inputs;
 any N, strided views). The kernels are built for head_dim 64, 128 and
-256; any other head_dim up to 256 runs the next instance on inputs
-zero-padded to its width with its own softmax scale (``pad_head_dim``),
-and one above 256 is refused. On CPU tensors it runs
-the plain PyTorch version (``attention_reference``,
+256, and the bf16 and fp32 ones also as one instance whose width, a
+multiple of 64 above 256, is a runtime argument (the ``_dn`` entries);
+any other head_dim runs the next of these on inputs zero-padded to its
+width with its own softmax scale (``pad_head_dim``). The 8-bit modes
+refuse a head_dim above 256 on the card (ROADMAP queue 3). On CPU
+tensors it runs the plain PyTorch version (``attention_reference``,
 ``attention_reference_lse``, ``attention_bwd_reference``,
 ``attention_q8_reference``, ``attention_bwd_int8_reference``). Production
 keeps one tile per kernel and one backward design for every N (the TPU's
@@ -48,7 +50,7 @@ from . import _build
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 HEAD_DIM = 64               # the probe kernels' head_dim
-HEAD_DIMS = (HEAD_DIM, 128, 256)  # the production kernels' instances
+HEAD_DIMS = (HEAD_DIM, 128, 256)  # the production kernels' fixed widths
 
 _QUANT_MODES = (None, "qk8", "qk8pv8", "fp8", "fp8pv8")
 
@@ -480,36 +482,43 @@ def _fwd_q8(wrapper, quant, q, k, v, n_real, with_lse):
     if q.device.type == "cpu":
         o, lse = attention_q8_reference(q, k, v, n_real, quant)
         return o, (lse if with_lse else None)
+    _refuse_wide_8bit(q.shape[-1])
     out = padded_fwd(_launch_fwd_q8, q, k, v, n_real, with_lse, quant=quant)
     wrapper.launches += 1
     return out
 
 
 # --- head_dim other than 64, 128 and 256 on the card -----------------------
-_WIDE_HEAD = ("the CUDA attention kernels are built for head_dim 64, 128 and "
-              "256 and run a smaller one zero-padded to the next; got "
-              "head_dim {} (ROADMAP queue 3: each width is one more set of "
-              "instances of every production kernel, and 256 covers every "
-              "head of the public ViT families)")
+_WIDE_8BIT = ("the CUDA 8-bit attention kernels (K5/K6 in every quant mode, "
+              "K7 under bwd_quant='int8') are built for head_dim up to 256; "
+              "got head_dim {} (ROADMAP queue 3: their wide instances belong "
+              "to the 8-bit redesign; bf16 and fp32 take any head_dim)")
 
 
 def padded_dim(d: int) -> int:
-    """The kernel instance that takes head_dim d: the smallest of
-    HEAD_DIMS at or above it; above 256 raises (ROADMAP queue 3)."""
+    """The kernel width that takes head_dim d: the smallest of HEAD_DIMS
+    (64, 128, 256) at or above it, and above 256 the next multiple of 64
+    (the bf16 and fp32 kernels' runtime-width ``_dn`` instances)."""
     for width in HEAD_DIMS:
         if d <= width:
             return width
-    raise ValueError(_WIDE_HEAD.format(d))
+    return -(-d // 64) * 64
+
+
+def _refuse_wide_8bit(d: int) -> None:
+    """Raise for an 8-bit kernel on the card at head_dim d above 256."""
+    if d > HEAD_DIMS[-1]:
+        raise ValueError(_WIDE_8BIT.format(d))
 
 
 def pad_head_dim(*ts):
     """(ts zero-padded along head_dim, their last axis, to the next kernel
-    instance, 64, 128 or 256 (``padded_dim``); the softmax scale of their own
-    head_dim, d^-0.5). Zero columns add nothing to q.k, to do.v or to
-    rowsum(do o), leave every |x| maximum and so every 8-bit scale as it
-    was, and give zero output and gradient columns, which the caller
-    slices off; the scale must be the unpadded head_dim's. head_dim > 256
-    raises."""
+    width (``padded_dim``: 64, 128, 256 or a multiple of 64 above); the
+    softmax scale of their own head_dim, d^-0.5). Zero columns add nothing
+    to q.k, to do.v or to rowsum(do o), leave every |x| maximum and so
+    every 8-bit scale as it was, and give zero output and gradient
+    columns, which the caller slices off; the scale must be the unpadded
+    head_dim's."""
     d = ts[0].shape[-1]
     width = padded_dim(d)
     if d < width:
@@ -549,8 +558,8 @@ def _aligned(t):
 
 def _check_views(tensors, dtype, what, aligned=None):
     """Views a kernel takes: one CUDA device, ``dtype`` (fp32 or bf16),
-    a head_dim of HEAD_DIMS (the production instances) with a contiguous
-    last axis, and (bf16, or ``aligned``) rows on 16-byte boundaries."""
+    a head_dim a kernel width (``padded_dim``) with a contiguous last axis,
+    and (bf16, or ``aligned``) rows on 16-byte boundaries."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -562,8 +571,10 @@ def _check_views(tensors, dtype, what, aligned=None):
                         f"{what} of one dtype, got "
                         f"{', '.join(str(t.dtype) for t in tensors)}")
     d = tensors[0].shape[-1]
-    if d not in HEAD_DIMS:
-        raise ValueError(_WIDE_HEAD.format(d))
+    if d != padded_dim(d):
+        raise ValueError(f"the CUDA attention kernels take head_dim 64, 128, "
+                         f"256 or a multiple of 64 above (pad_head_dim pads "
+                         f"to one); got {d}")
     if aligned is None:
         aligned = dtype == torch.bfloat16
     for t in tensors:
@@ -590,16 +601,19 @@ def _strides(*ts):
 
 
 def _instance(name, d):
-    """The C entry ``name`` of head_dim d: ``name`` at 64, else
-    ``name_d128`` or ``name_d256``."""
-    return name if d == HEAD_DIM else f"{name}_d{d}"
+    """(the C entry of ``name`` at kernel width d, its leading int
+    arguments): ``name`` at 64, ``name_d128``, ``name_d256``, and above
+    256 ``name_dn``, which takes d."""
+    if d > HEAD_DIMS[-1]:
+        return f"{name}_dn", (d,)
+    return (name if d == HEAD_DIM else f"{name}_d{d}"), ()
 
 
 def _launch_fwd(q, k, v, n_real, with_lse, scale):
-    """K2 (K3a with lse) on checked views of head_dim 64, 128 or 256."""
-    name = _instance("maest_attn_fwd_fp32" if q.dtype == torch.float32
-                     else "maest_attn_fwd_bf16", q.shape[-1])
-    return launch_fwd_entry("attention_fwd", name, (), q, k, v, n_real,
+    """K2 (K3a with lse) on checked views of a kernel width."""
+    name, lead = _instance("maest_attn_fwd_fp32" if q.dtype == torch.float32
+                           else "maest_attn_fwd_bf16", q.shape[-1])
+    return launch_fwd_entry("attention_fwd", name, lead, q, k, v, n_real,
                             with_lse, scale)
 
 
@@ -669,7 +683,7 @@ def _launch_fwd_q8(q, k, v, n_real, with_lse, scale, quant):
     lse = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
            if with_lse else None)
     lib = _build.load_library("attention_fwd_q8")
-    name = _instance(f"maest_attn_fwd_{quant}" + (
+    name, _ = _instance(f"maest_attn_fwd_{quant}" + (
         "_fp32" if q.dtype == torch.float32 else ""), d)
     fn = _entry(lib, name, 8, 1)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
@@ -708,14 +722,15 @@ def _bwd_qkv(q, k, v, o, lse, do, n_real, bwd_quant):
         ref = attention_bwd_int8_reference if int8 else attention_bwd_reference
         return torch.stack(ref(q, k, v, o, lse, do, n_real), dim=2)
     if int8:
+        _refuse_wide_8bit(q.shape[-1])
         grads = padded_bwd(_launch_bwd_q8, q, k, v, o, lse, do, n_real)
         attention_bwd_int8.launches += 1
         return grads
-    name = ("maest_attn_bwd_fp32" if q.dtype == torch.float32
-            else "maest_attn_bwd_bf16")
-    name = _instance(name, padded_dim(q.shape[-1]))
-    grads = padded_bwd(functools.partial(launch_bwd_entry, name, ()), q, k, v,
-                       o, lse, do, n_real)
+    name, lead = _instance("maest_attn_bwd_fp32" if q.dtype == torch.float32
+                           else "maest_attn_bwd_bf16",
+                           padded_dim(q.shape[-1]))
+    grads = padded_bwd(functools.partial(launch_bwd_entry, name, lead), q, k,
+                       v, o, lse, do, n_real)
     attention_bwd.launches += 1
     return grads
 
@@ -784,7 +799,7 @@ def _launch_bwd_q8(q, k, v, o, lse, do, n_real, scale):
     bytes8 = torch.empty(7 * b * h * npad * d, dtype=torch.int8,
                          device=q.device)
     lib = _build.load_library("attention_bwd_q8")
-    name = _instance("maest_attn_bwd_q8" + (
+    name, _ = _instance("maest_attn_bwd_q8" + (
         "_fp32" if q.dtype == torch.float32 else ""), d)
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int

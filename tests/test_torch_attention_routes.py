@@ -2,19 +2,21 @@
 (ROADMAP queue 3), held on the CPU against the JAX package:
 
 - head_dim other than the kernels' 64, 128 and 256: on the card the kernels
-  run on q, k, v (and o, do) zero-padded to the next instance with the
+  run on q, k, v (and o, do) zero-padded to the next width with the
   unpadded head_dim's softmax scale (``ops/attention.py pad_head_dim``,
-  ``padded_fwd``, ``padded_bwd``). Here the same helpers run with the
-  plain versions in the kernels' place: pad, plain, slice equals plain
-  within 1e-6 (fp32; zero columns change only the order of the sums over
-  head_dim), in every mode and in the backward, at head_dim 16 and 32
-  (to 64), 80, 96 and 128 (to 128) and 160, 192 and 256 (to 256), and the
-  tiny model at head_dim 16, 96, 128, 192 and 256 through them gives the
-  JAX package's logits within 1e-5;
-- head_dim 128 and 256: the plain forward and backward against the JAX
-  package's Pallas kernels (``_flash_fwd_lse``, ``_flash_bwd``) in
+  ``padded_fwd``, ``padded_bwd``): 64, 128, 256, and above 256 the next
+  multiple of 64, which the bf16 and fp32 kernels take as a runtime
+  argument. Here the same helpers run with the plain versions in the
+  kernels' place: pad, plain, slice equals plain within 1e-6 (fp32; zero
+  columns change only the order of the sums over head_dim), in every mode
+  and in the backward, at head_dim 16 and 32 (to 64), 80, 96 and 128 (to
+  128) and 160, 192 and 256 (to 256), and without an 8-bit mode at 300 (to
+  320), 320 and 512; the tiny model at head_dim 16, 96, 128, 192, 256, 320
+  and 512 through them gives the JAX package's logits within 1e-5;
+- head_dim 128, 256, 320 and 512: the plain forward and backward against
+  the JAX package's Pallas kernels (``_flash_fwd_lse``, ``_flash_bwd``) in
   interpret mode, as ``tests/test_torch_attention.py`` holds them at 64;
-  above 256 the helpers refuse;
+  above 256 the 8-bit modes are refused on the card;
 - ``attention_impl="xla"``: the materialised softmax, within 1e-5 of the
   JAX package's XLA path at head_dim 64 and 16;
 - ``attention_impl="flash"`` with attention dropout in train mode raises,
@@ -75,8 +77,8 @@ def _logits(embed, heads, head_std=0.3, **over):
 
 def _plain_fwd(q, k, v, n_real, with_lse, scale, quant=None):
     """The plain versions in a kernel's place: (o, lse or None) on inputs of
-    a kernel instance's head_dim, 64, 128 or 256."""
-    assert q.shape[-1] in A.HEAD_DIMS
+    a kernel width, 64, 128, 256 or a multiple of 64 above."""
+    assert q.shape[-1] == A.padded_dim(q.shape[-1])
     if quant is not None:
         o, lse = A.attention_q8_reference(q, k, v, n_real, quant, scale=scale)
         return o, (lse if with_lse else None)
@@ -86,7 +88,7 @@ def _plain_fwd(q, k, v, n_real, with_lse, scale, quant=None):
 
 
 def _plain_bwd(q, k, v, o, lse, do, n_real, scale, int8=False):
-    assert q.shape[-1] in A.HEAD_DIMS
+    assert q.shape[-1] == A.padded_dim(q.shape[-1])
     ref = A.attention_bwd_int8_reference if int8 else A.attention_bwd_reference
     return torch.stack(ref(q, k, v, o, lse, do, n_real, scale), dim=2)
 
@@ -106,13 +108,16 @@ def test_model_at_head_dim_16_matches_jax(route, monkeypatch):
 
 @pytest.mark.parametrize("route", ["plain", "padded"])
 @pytest.mark.parametrize("embed,heads",
-                         [(256, 2), (192, 2), (512, 2), (384, 2)],
-                         ids=["d128", "d96", "d256", "d192"])
+                         [(256, 2), (192, 2), (512, 2), (384, 2), (640, 2),
+                          (512, 1)],
+                         ids=["d128", "d96", "d256", "d192", "d320", "d512"])
 def test_model_at_wide_head_dim_matches_jax(embed, heads, route,
                                             monkeypatch):
     """head_dim 128 (embed 256, 2 heads) and 96 (embed 192, 2 heads),
     depth 2, fp32: the kernels' D = 128 instance on the card; head_dim 256
-    (embed 512) and 192 (embed 384): the D = 256 instance. Here, with
+    (embed 512) and 192 (embed 384): the D = 256 instance; head_dim 320
+    (embed 640, 2 heads) and 512 (embed 512, 1 head): the runtime-width
+    instance at 320 and 512. Here, with
     "padded", the helpers of that route with the plain versions in the
     kernels' place (96 zero-padded to 128, 192 to 256). Past embed 256 the
     head's weights are drawn with the standard deviation scaled by
@@ -183,12 +188,17 @@ def _qkv(b, n, h, d, seed):
     return x.unbind(2)
 
 
-# padded to 64 (16, 32), 128 (80, 96) or 256 (160, 192)
+# padded to 64 (16, 32), 128 (80, 96) or 256 (160, 192); above 256, in
+# bf16 and fp32 only, to the next multiple of 64 (300 to 320)
 WIDTHS = [16, 32, 80, 96, 128, 160, 192, 256]
+WIDE = [300, 320, 512]
 
 
-@pytest.mark.parametrize("d", WIDTHS)
-@pytest.mark.parametrize("quant", MODES, ids=[str(m) for m in MODES])
+@pytest.mark.parametrize("d,quant",
+                         [(d, m) for m in MODES for d in WIDTHS]
+                         + [(d, None) for d in WIDE],
+                         ids=[f"{d}-{m}" for m in MODES for d in WIDTHS]
+                         + [f"{d}-None" for d in WIDE])
 def test_padded_forward_is_the_plain_version(d, quant):
     """pad -> plain -> slice within 1e-6 of plain at head_dim d, lse too;
     the 8-bit scales of zero-padded rows are the unpadded rows' (zeros
@@ -203,13 +213,17 @@ def test_padded_forward_is_the_plain_version(d, quant):
         assert (lse - rlse).abs().max().item() <= PAD_TOL
     padded, scale = A.pad_head_dim(q)
     assert padded[0].shape[-1] == (64 if d <= 64 else 128 if d <= 128
-                                   else 256)
+                                   else 256 if d <= 256 else -(-d // 64) * 64)
     assert scale == d**-0.5
     assert torch.equal(padded[0][..., :d], q) and not padded[0][..., d:].any()
 
 
-@pytest.mark.parametrize("d", WIDTHS)
-@pytest.mark.parametrize("int8", [False, True], ids=["bf16_path", "int8"])
+@pytest.mark.parametrize("d,int8",
+                         [(d, i8) for i8 in (False, True) for d in WIDTHS]
+                         + [(d, False) for d in WIDE],
+                         ids=[f"{d}-{n}" for n in ("bf16_path", "int8")
+                              for d in WIDTHS]
+                         + [f"{d}-bf16_path" for d in WIDE])
 def test_padded_backward_is_the_plain_version(d, int8):
     """The (B, N, 3, H, d) gradients through pad -> plain -> slice within
     1e-6 of plain, in K3b's arithmetic and in K7's."""
@@ -224,9 +238,23 @@ def test_padded_backward_is_the_plain_version(d, int8):
 
 
 def test_wide_heads_are_refused():
-    x = torch.zeros(1, 4, 2, 320)
+    """Above head_dim 256 every 8-bit mode is refused on the card, naming
+    ROADMAP queue 3, before any work: here on meta tensors, which take the
+    card's route. bf16 and fp32 take 320 as it is and pad 300 to it."""
+    x = torch.zeros(1, 4, 2, 320, device="meta")
+    for quant in MODES[1:]:
+        with pytest.raises(ValueError, match="ROADMAP queue 3"):
+            A.flash_attention(x, x, x, quant=quant)
+    lse = torch.zeros(1, 2, 4, device="meta")
     with pytest.raises(ValueError, match="ROADMAP queue 3"):
-        A.pad_head_dim(x, x, x)
+        A.attention_bwd_int8(x, x, x, x, lse, x)
+    assert A.padded_dim(320) == A.padded_dim(300) == 320
+    for dtype in (torch.float32, torch.bfloat16):
+        padded, scale = A.pad_head_dim(torch.ones(1, 4, 2, 300, dtype=dtype))
+        assert padded[0].shape[-1] == 320 and scale == 300**-0.5
+        for name in ("maest_attn_fwd", "maest_attn_bwd"):
+            tier = f"{name}_{'fp32' if dtype == torch.float32 else 'bf16'}"
+            assert A._instance(tier, 320) == (f"{tier}_dn", (320,))
 
 
 # as tests/test_torch_attention.py: fp32 rtol 1e-3 / atol 1e-4; bf16 2e-2
@@ -251,6 +279,15 @@ def test_head_dim_128_matches_jax_flash_interpret(dtype):
 def test_head_dim_256_matches_jax_flash_interpret(dtype):
     """As at 128, at head_dim 256 (the D = 256 instances' width)."""
     _vs_jax_flash(256, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("d", [320, 512])
+def test_wide_head_dim_matches_jax_flash_interpret(d, dtype):
+    """As at 128, at head_dim 320 and 512 (the runtime-width instances'
+    widths on the card)."""
+    _vs_jax_flash(d, dtype)
 
 
 def _vs_jax_flash(d, dtype):

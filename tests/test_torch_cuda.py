@@ -103,9 +103,10 @@ def test_attention_kernel_matches_plain(cuda_device, b, n, n_real, dtype):
 
 def test_attention_kernel_rejects_what_it_does_not_take(cuda_device):
     """head_dim 32 runs K2 on inputs zero-padded to 64, head_dim 128 its
-    D = 128 instance and 256 its D = 256 instance (each the plain
-    version's result); head_dim 320 is refused, naming ROADMAP queue 3."""
-    for d in (32, 128, 256):
+    D = 128 instance, 256 its D = 256 instance and 320 its runtime-width
+    (_dn) instance (each the plain version's result); under an 8-bit mode
+    head_dim 320 is refused, naming ROADMAP queue 3."""
+    for d in (32, 128, 256, 320):
         x = _rand((1, 8, 3, 2, d), 3).to(cuda_device)
         q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
         before = flash_attention.launches
@@ -114,8 +115,9 @@ def test_attention_kernel_rejects_what_it_does_not_take(cuda_device):
         err = (out - attention_reference(q, k, v)).abs().max().item()
         assert err <= ATTN_TOL[torch.float32], (d, err)
     x = torch.zeros(1, 8, 3, 2, 320, device=cuda_device)
-    with pytest.raises(ValueError, match="ROADMAP queue 3"):
-        flash_attention(x[:, :, 0], x[:, :, 1], x[:, :, 2])
+    for quant in ("qk8", "qk8pv8", "fp8", "fp8pv8"):
+        with pytest.raises(ValueError, match="ROADMAP queue 3"):
+            flash_attention(x[:, :, 0], x[:, :, 1], x[:, :, 2], quant=quant)
     x = torch.zeros(1, 8, 3, 2, 64, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attention(x[:, :, 0], x[:, :, 1], x[:, :, 2])
@@ -738,6 +740,126 @@ def test_wide_head_dim_matches_plain(cuda_device, d, dtype):
         top = want.float().abs().max().item()
         assert (ours.float() - want.float()).abs().max().item() <= 2e-2 * top
     assert not got[1][:, 290:].any() and not got[2][:, 290:].any()
+
+
+# --- head_dim above 256: the bf16 and fp32 kernels' _dn instances ----------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("d", [320, 512, 1024])
+def test_dn_head_dim_matches_plain(cuda_device, d, dtype):
+    """K2, K3a and K3b at head_dim d through the runtime-width (_dn)
+    instances, each launched once, against the plain versions within the
+    bounds head_dim 64 is held to; K7 under bwd_quant="int8" refuses d,
+    naming ROADMAP queue 3."""
+    from maest_tpu_torch.ops import attention as A
+
+    x = _rand((2, 200, 4, 2, d), 50 + d).to(cuda_device, dtype)
+    q, k, v, g = x[:, :, 0], x[:, :, 1], x[:, :, 2], x[:, :, 3]
+    counts = [f.launches for f in (flash_attention, flash_attention_fwd_lse,
+                                   attention_bwd)]
+    o2 = flash_attention(q, k, v, n_real=190)
+    o, lse = flash_attention_fwd_lse(q, k, v)
+    ro, rlse = attention_reference_lse(q, k, v)
+    grads = attention_bwd(q, k, v, ro, rlse, g, 190)
+    ref = attention_bwd_reference(q, k, v, ro, rlse, g, 190)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (flash_attention, flash_attention_fwd_lse,
+                                 attention_bwd)] == [c + 1 for c in counts]
+    for ours, want in [(o2, attention_reference(q, k, v, n_real=190)),
+                       (o, ro), *zip(grads, ref)]:
+        assert ours.shape == q.shape and ours.dtype == dtype
+        assert (ours.float() - want.float()).abs().max().item() <= (
+            ATTN_TOL[dtype])
+    assert (lse - rlse).abs().max().item() <= LSE_TOL
+    assert not grads[1][:, 190:].any() and not grads[2][:, 190:].any()
+    with pytest.raises(ValueError, match="ROADMAP queue 3"):
+        A.attention_bwd_int8(q, k, v, ro, rlse, g)
+
+
+# --- P4: the backward rig's kernels (ops/bwd_probe.py) ----------------------
+@pytest.mark.parametrize("kind", ["ctrl", "int8", "fp8"])
+def test_bwd_rig_kernels_match_plain(cuda_device, kind):
+    """Each kind at the rig's N_PAD 896 and 2 heads against its plain
+    version, launched once: int8 by int8_gap (the plain codes against the
+    codes on the kernel's own delta, counted; its outputs equal to those
+    codes'), fp8 by fp8_gap and ctrl by ctrl_gap (2 bf16 ulps of each
+    output's max)."""
+    from maest_tpu_torch.ops import bwd_probe as P
+    from maest_tpu_torch.probes import bwd_int8
+
+    ops = bwd_int8.operands(kind, cuda_device, 1, 2)
+    before = P.bwd_probe.launches[kind]
+    out = P.bwd_probe(*ops, kind)
+    ref = P.bwd_probe_reference(*ops, kind)
+    torch.cuda.synchronize()
+    assert P.bwd_probe.launches[kind] == before + 1
+    assert [(t.shape, t.dtype) for t in out] == [(t.shape, t.dtype)
+                                                 for t in ref]
+    if kind == "int8":
+        alt = P.int8_codes(*ops, delta=P.bwd_pass(*ops, kind)[-1])
+        gap = P.int8_gap(out, ref, P.int8_codes(*ops), alt)
+        assert gap["ok"], gap
+        for a, b in zip(out, P.int8_outputs(ops[0], ops[1], ops[3], *alt)):
+            assert torch.equal(a, b)
+    elif kind == "fp8":
+        gap = P.fp8_gap(out, ref)
+        assert gap["ok"], gap
+    else:
+        gap = P.ctrl_gap(out, ref)
+        assert gap["ok"], gap
+    q, kt, v, do, o, lse = ops
+    kt = kt[..., :32] if kind == "ctrl" else kt[:, :32]
+    with pytest.raises(ValueError, match="head_dim 64"):
+        P.bwd_probe(q[..., :32], kt, v[..., :32], do[..., :32], o[..., :32],
+                    lse, kind)
+
+
+def test_bwd_rig_check_refuses_planted_to_s8(cuda_device, tmp_path,
+                                            monkeypatch):
+    """int8_gap refuses the int8 kind built with the wrapping to_s8 in
+    place of the saturating conversion (a copy of csrc/ in a temporary
+    directory): ds8 leaves the int8 range at the rig's inputs. Run with -s
+    to see the gap."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    from maest_tpu_torch.ops import _build
+    from maest_tpu_torch.ops import bwd_probe as P
+    from maest_tpu_torch.probes import bwd_int8
+
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, src)
+    source = src / "attention_bwd_q8.cu"
+    text = source.read_text()
+    old = "    return to_s8_sat(x);"
+    assert text.count(old) == 1
+    source.write_text(text.replace(old, "    return to_s8(x);"))
+    lib = tmp_path / "attention_bwd_q8.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(source)], check=True, capture_output=True)
+    ops = bwd_int8.operands("int8", cuda_device, 1, 2)
+    ref = P.bwd_probe_reference(*ops, "int8")
+    codes = P.int8_codes(*ops)
+    monkeypatch.setitem(_build._libs, "attention_bwd_q8", ctypes.CDLL(str(lib)))
+    made = P.bwd_pass(*ops, "int8")
+    gap = P.int8_gap(P.launch_pass(made, "int8"), ref, codes,
+                     P.int8_codes(*ops, delta=made[-1]))
+    print(f"planted: int8 with to_s8 (wrapping) for ds8: max|out - plain| "
+          f"{max(gap['err'].values()):.4g}: "
+          f"{'within' if gap['ok'] else 'refused'}")
+    assert not gap["ok"]
+
+
+def test_bwd_rig_on_the_card(cuda_device, capsys):
+    from maest_tpu_torch.probes import bwd_int8
+
+    res = bwd_int8.main(["--iters", "2", "--rounds", "2"])
+    assert set(res) == {"ctrl", "int8", "fp8"}
+    assert all(r["ms"] > 0 and r["alone_ms"] > 0 for r in res.values())
+    assert res["ctrl"]["library_ms"] > 0 and res["int8"]["library_ms"] is None
+    out = capsys.readouterr().out
+    assert "not gradients" in out and "20 % gate" in out
 
 
 # --- P1 and P8: the product kernel (ops/mma_probe.py) -----------------------

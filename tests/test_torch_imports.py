@@ -34,7 +34,8 @@ def test_import_pulls_in_no_jax():
             "maest_tpu_torch.probes.qpad, maest_tpu_torch.probes.attn_tune, "
             "maest_tpu_torch.ops.mma_probe, maest_tpu_torch.probes.mxu, "
             "maest_tpu_torch.probes.fp8_mlp, maest_tpu_torch.ops.int8_probe, "
-            "maest_tpu_torch.probes.int8, maest_tpu_torch.probes.int8_2; "
+            "maest_tpu_torch.probes.int8, maest_tpu_torch.probes.int8_2, "
+            "maest_tpu_torch.ops.bwd_probe, maest_tpu_torch.probes.bwd_int8; "
             "print(sorted(m for m in ('jax', 'jaxlib', 'flax', 'optax') "
             "if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -168,8 +169,9 @@ def test_port_runs_without_the_jax_package(tmp_path):
     """The port and chip_smoke.py name no module of the JAX package or of
     scripts/, and run from a directory that holds neither: every module
     imports, a tiny model tags a waveform and takes one train step (with
-    the 8-bit modes on), and every rig runs (gh<G> and int8 too; the
-    product rigs' fp8_mlp at its full shapes only on the card)."""
+    the 8-bit modes on), and every rig runs (gh<G> and int8 too, the
+    backward rig's 8-bit kinds; the product rigs' fp8_mlp at its full
+    shapes only on the card)."""
     files = [*(ROOT / "maest_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
     for f in files:
         bad = [m for m in _imports(f)
@@ -232,6 +234,9 @@ from maest_tpu_torch.probes import fp8_mlp, mxu
 assert set(mxu.main(["--device", "cpu", "--programs", "1", "--iters", "1",
                      "--kinds", "k64w,pvwide"])) == {"k64w", "pvwide"}
 assert fp8_mlp.SHAPES["fc1"] == ((1792, 768), (768, 3072))
+from maest_tpu_torch.probes import bwd_int8
+assert set(bwd_int8.main(["--device", "cpu", "--iters", "1", "--rounds", "1",
+                          "--kinds", "int8,fp8"])) == {"int8", "fp8"}
 assert not any(n.startswith("maest_tpu.") or n == "maest_tpu"
                for n in sys.modules)
 print("ok")
