@@ -1,5 +1,6 @@
 // int8 attention backward for Hopper (sm_90a), head_dim 64, 128 and 256
-// (K7; a template parameter D_ of each kernel).
+// (K7; a template parameter D_ of each kernel), and any multiple of 64
+// above (the _dn kernels, head_dim a runtime argument).
 //
 // Replaces maest_tpu/ops/attention.py::_attn_bwd_kernel_q8 + _q8_tensor
 // (called from _flash_bwd_q8 when bwd_quant="int8" and round_up(N, 128) <=
@@ -867,6 +868,506 @@ int launch_bwd_q8(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------- any width ---
+// head_dim above 256 (the _dn entries): the width dp, zero-padded by the
+// caller to a multiple of 64, is an argument, so no register or
+// shared-memory size grows with it. The five launches keep their roles;
+// what changes is how head_dim is walked:
+//   1. amax runs over dp columns;
+//   2. quant walks the row in 64-column chunks, each through one 64 x 64
+//      transposed tile in shared memory (delta summed in the same order);
+//   3. and 5. the rows kernel streams 32-key tiles: per tile it stages K's
+//      and V's 64-byte chunks in turn and sums S and dP over them in int32
+//      (exact, so the order does not matter), then (dq) stages the 64 d
+//      rows of K^T of its slice and adds ds8 . k8; dq in 64-column slices
+//      over a third grid axis, each recomputing S and dP;
+//   4. dk/dv streams 32-row q tiles the same way (S^T, dP^T over chunks of
+//      Q and dO, then the slice's q^T and do^T), dk and dv in 64-column
+//      slices over a third grid axis; the q-blocks' int32 sums are folded
+//      as in the fixed-width kernel.
+// So S and dP are computed dp / 64 times for dq, dp / 64 times for dk/dv
+// and once in the scale pass. The amax and quant passes copy the
+// fixed-width ones with the width a runtime value rather than giving those
+// a runtime branch: the fixed instances keep their SASS.
+constexpr int DN_T = 32;  // streamed rows (keys or q rows) a tile
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+bwd_q8_amax_dn_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      Stats st, int n, int heads, int bq, int nqb, int dp,
+                      Strides qs, Strides ks, Strides vs, Strides ds) {
+  __shared__ float red[8][4];
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int j = blockIdx.y;
+  const int r0 = j * bq;
+  const int r1 = min(n, r0 + bq);
+  const int c8 = dp / 8;  // 8-column pieces a row
+  float mx[4] = {0.f, 0.f, 0.f, 0.f};  // q, do, k, v
+  for (int i = threadIdx.x; i < (r1 - r0) * c8; i += 256) {
+    const int rr = i / c8;
+    const long long row = r0 + rr;
+    const int c = (i - rr * c8) * 8;
+    mx[0] = fmaxf(mx[0], amax8(q + b * qs.b + row * qs.n + h * qs.h + c));
+    mx[1] = fmaxf(mx[1], amax8(dout + b * ds.b + row * ds.n + h * ds.h + c));
+    mx[2] = fmaxf(mx[2], amax8(k + b * ks.b + row * ks.n + h * ks.h + c));
+    mx[3] = fmaxf(mx[3], amax8(v + b * vs.b + row * vs.n + h * vs.h + c));
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    mx[e] = warp_max(mx[e]);
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5][e] = mx[e];
+  }
+  __syncthreads();
+  if (threadIdx.x < 4) {
+    float x = 0.f;
+    for (int w = 0; w < 8; ++w) x = fmaxf(x, red[w][threadIdx.x]);
+    const int qb = bh * nqb + j;
+    if (threadIdx.x == 0) st.qmax[qb] = x;
+    if (threadIdx.x == 1) st.domax[qb] = x;
+    if (threadIdx.x == 2) atomic_max_pos(st.kmax + bh, x);
+    if (threadIdx.x == 3) atomic_max_pos(st.vmax + bh, x);
+  }
+}
+
+// a block quantizes 64 rows of one head, 64 columns at a time; rows >= n
+// are written as zeros
+template <typename T>
+__global__ void __launch_bounds__(256)
+bwd_q8_quant_dn_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ o,
+                       const T* __restrict__ dout, Stats st, Bytes8 by,
+                       float* __restrict__ delta, int n, int heads, int bq,
+                       int nqb, int dp, Strides qs, Strides ks, Strides vs,
+                       Strides os, Strides ds) {
+  __shared__ __align__(16) uint8_t tr[3][64][LD8];  // q, do, k transposed
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int t0 = blockIdx.y * TILE;
+  const int npad = (n + TILE - 1) / TILE * TILE;
+  const int qb = bh * nqb + t0 / bq;  // a 64-row tile lies in one q-block
+  const int r = threadIdx.x >> 2;     // row of the tile
+  const int s0 = (threadIdx.x & 3) * 16;  // its 16 columns (of each 64)
+  const long long row = t0 + r;
+  const float inv[4] = {1.f / q8_scale(st.qmax[qb]), 1.f / q8_scale(st.domax[qb]),
+                        1.f / q8_scale(st.kmax[bh]), 1.f / q8_scale(st.vmax[bh])};
+  float dsum = 0.f;
+  for (int hh = 0; hh < dp / 64; ++hh) {  // each 64 columns of the row
+    const int c0 = hh * 64 + s0;
+    uint32_t w[4][4];  // q8, do8, k8, v8: 16 bytes each
+    if (row < n) {
+      float x[16], y[16];
+      const T* src[4] = {q + b * qs.b + row * qs.n + h * qs.h + c0,
+                         dout + b * ds.b + row * ds.n + h * ds.h + c0,
+                         k + b * ks.b + row * ks.n + h * ks.h + c0,
+                         v + b * vs.b + row * vs.n + h * vs.h + c0};
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        load16(src[a], x);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          w[a][i] = pack4(to_s8(__fmul_rn(x[4 * i], inv[a])),
+                          to_s8(__fmul_rn(x[4 * i + 1], inv[a])),
+                          to_s8(__fmul_rn(x[4 * i + 2], inv[a])),
+                          to_s8(__fmul_rn(x[4 * i + 3], inv[a])));
+        if (a == 1) {  // delta = rowsum(do * o), fp32
+          load16(o + b * os.b + row * os.n + h * os.h + c0, y);
+#pragma unroll
+          for (int i = 0; i < 16; ++i) dsum = fmaf(x[i], y[i], dsum);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) w[a][i] = 0u;
+    }
+    const long long off = (static_cast<long long>(bh) * npad + row) * dp + c0;
+    uint8_t* rows[4] = {by.q, by.dout, by.k, by.v};
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      *reinterpret_cast<uint4*>(rows[a] + off) = make_uint4(w[a][0], w[a][1], w[a][2], w[a][3]);
+    const int pos = seq_pos(r);
+    __syncthreads();  // the last chunk's tiles are written out
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) tr[a][s0 + i][pos] = (w[a][i >> 2] >> (8 * (i & 3))) & 0xffu;
+    __syncthreads();
+    // the transposed tiles: d rows hh * 64 + dr, the 16 sequence columns
+    // from s0
+    const int dr = threadIdx.x >> 2;
+    const long long toff = (static_cast<long long>(bh) * dp + hh * 64 + dr) * npad + t0 + s0;
+    uint8_t* cols[3] = {by.qt, by.dot, by.kt};
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      *reinterpret_cast<uint4*>(cols[a] + toff) = *reinterpret_cast<const uint4*>(&tr[a][dr][s0]);
+  }
+  dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
+  dsum += __shfl_xor_sync(0xffffffffu, dsum, 2);
+  if (row < n && s0 == 0) delta[static_cast<long long>(bh) * n + row] = dsum;
+}
+
+// c += the 16 x 32 int32 product of a warp's A fragments (16 rows x 64
+// bytes) with the 32 staged rows of `tile` (exact: int32)
+__device__ __forceinline__ void add_rows_dot8(int (&c)[4][4], const uint32_t (&a)[2][4],
+                                              const uint8_t (*tile)[LD8], int lr, int li) {
+  int x[4][4];
+  rows_dot8(x, a, tile, 0, lr, li);
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[nt][e] += x[nt][e];
+}
+
+// the scale pass (DQ = false: max p and max |ds| into st.pmax / st.dsmax;
+// both entries run the <false, bf16> instance) and dq (DQ = true: this
+// block's 64 columns of (ds8 . k8) (dst ks (1/127)), stored as T). A block
+// owns 64 q rows of one head and streams 32-key tiles below n_real.
+template <bool DQ, typename T>
+__global__ void __launch_bounds__(32 * BW)
+bwd_q8_rows_dn_kernel(Bytes8 by, const float* __restrict__ lse,
+                      const float* __restrict__ delta, Stats st,
+                      T* __restrict__ dq, int n, int n_real, int heads, int bq,
+                      int nqb, int dp, Strides dqs, float sl, float scale) {
+  // a step's tiles: K's and V's chunk (32 rows each), or K^T's 64 d rows of
+  // the slice (32 keys of each)
+  __shared__ __align__(128) uint8_t tile[2][2][DN_T][LD8];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int lr = lane & 7;
+  const int li = lane >> 3;
+  const int bh = blockIdx.x;
+  const int npad = (n + TILE - 1) / TILE * TILE;
+  const int qb = bh * nqb + blockIdx.y * BR / bq;
+  const int row0 = blockIdx.y * BR + warp * 16 + g;  // and row0 + 8
+  const int c0 = blockIdx.z * 64;  // DQ: this block's columns
+  const int nch = dp / 64;
+  const int steps = nch + (DQ ? 1 : 0);
+  const int total = (n_real + DN_T - 1) / DN_T * steps;
+
+  const float qsc = q8_scale(st.qmax[qb]);
+  const float ksc = q8_scale(st.kmax[bh]);
+  const float c_s = __fmul_rn(__fmul_rn(qsc, ksc), sl);
+  const float c_dp = __fmul_rn(q8_scale(st.domax[qb]), q8_scale(st.vmax[bh]));
+  float c_ds = 0.f, c_dq = 0.f;
+  if constexpr (DQ) {
+    const float dst = fmaxf(st.dsmax[qb], EPS);
+    c_ds = __fdiv_rn(127.f, dst);
+    c_dq = __fmul_rn(__fmul_rn(dst, ksc), INV127);
+  }
+
+  const long long head = static_cast<long long>(bh) * npad * dp;
+  const int i = threadIdx.x;
+  auto stage = [&](int j, int buf) {
+    const int it = j / steps;
+    const int c = j - it * steps;
+    const int key0 = it * DN_T;
+    if (c < nch) {  // 32 keys x 4 pieces of 16 bytes of K and of V
+      const long long src = head + static_cast<long long>(key0 + (i >> 2)) * dp +
+                            c * 64 + (i & 3) * 16;
+      cp_async16(&tile[buf][0][i >> 2][(i & 3) * 16], by.k + src, 16);
+      cp_async16(&tile[buf][1][i >> 2][(i & 3) * 16], by.v + src, 16);
+    } else {  // K^T: 64 d rows x 2 pieces of 16 keys
+      uint8_t(*kt)[LD8] = reinterpret_cast<uint8_t(*)[LD8]>(tile[buf]);
+      cp_async16(&kt[i >> 1][(i & 1) * 16],
+                 by.kt + head + static_cast<long long>(c0 + (i >> 1)) * npad + key0 +
+                     (i & 1) * 16,
+                 16);
+    }
+    cp_async_commit();
+  };
+
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const long long x = static_cast<long long>(bh) * n + row;
+    // rows past N: lse +inf gives p = 0, delta 0 gives ds = 0
+    lse_r[r] = row < n ? lse[x] : __int_as_float(0x7f800000);
+    delta_r[r] = row < n ? delta[x] : 0.f;
+  }
+  float pmax = 0.f, dsmax = 0.f;
+  int acc[DQ ? 8 : 1][4];
+#pragma unroll
+  for (int dt = 0; dt < (DQ ? 8 : 1); ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0;
+  int si[4][4], dpi[4][4];
+  uint32_t a[4];  // DQ: ds8 of the tile, the A fragment of dQ += dS8.K8
+
+  stage(0, 0);
+  for (int j = 0; j < total; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < total) {
+      stage(j + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int it = j / steps;
+    const int c = j - it * steps;
+    if (c < nch) {
+      if (c == 0) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) si[nt][e] = dpi[nt][e] = 0;
+      }
+      uint32_t qf[2][4], dof[2][4];
+      load_row_frags8(qf, by.q + head + c * 64, dp, row0, npad, t);
+      load_row_frags8(dof, by.dout + head + c * 64, dp, row0, npad, t);
+      add_rows_dot8(si, qf, tile[buf][0], lr, li);   // S = Q8.K8^T
+      add_rows_dot8(dpi, dof, tile[buf][1], lr, li);  // dP = dO8.V8^T
+      if (c == nch - 1) {
+        uint32_t x[4][4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = it * DN_T + nt * 8 + 2 * t + (e & 1);
+            const float p = prob(si[nt][e], c_s, key < n_real, lse_r[e >> 1]);
+            const float dsv = dscore(p, dpi[nt][e], c_dp, delta_r[e >> 1], scale);
+            if constexpr (DQ) {
+              x[nt][e] = code8<false>(__fmul_rn(dsv, c_ds));
+            } else {
+              pmax = fmaxf(pmax, p);
+              dsmax = fmaxf(dsmax, fabsf(dsv));
+            }
+          }
+        if constexpr (DQ) pack_a(a, x);
+      }
+    } else if constexpr (DQ) {
+      acc_seq8(acc, a, reinterpret_cast<const uint8_t(*)[LD8]>(tile[buf]), 0,
+               lr, li);  // dQ += dS8.K8
+    }
+    __syncthreads();  // every warp is done with `buf` before it is refilled
+  }
+
+  if constexpr (DQ) {
+    const int b = bh / heads;
+    const int h = bh - b * heads;
+    T* base = dq + b * dqs.b + h * dqs.h + c0;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= n) continue;
+      T* p = base + static_cast<long long>(row) * dqs.n + 2 * t;
+#pragma unroll
+      for (int dt = 0; dt < 8; ++dt)
+        store2(p + dt * 8, __fmul_rn(__int2float_rn(acc[dt][2 * r]), c_dq),
+               __fmul_rn(__int2float_rn(acc[dt][2 * r + 1]), c_dq));
+    }
+  } else {
+    pmax = warp_max(pmax);
+    dsmax = warp_max(dsmax);
+    if (lane == 0) {
+      atomic_max_pos(st.pmax + qb, pmax);
+      atomic_max_pos(st.dsmax + qb, dsmax);
+    }
+  }
+}
+
+// dk/dv: a block owns 64 keys of one head and this block's 64 columns, and
+// streams every 32-row q tile
+template <typename T>
+__global__ void __launch_bounds__(32 * BW)
+bwd_q8_dkdv_dn_kernel(Bytes8 by, const float* __restrict__ lse,
+                      const float* __restrict__ delta, Stats st,
+                      T* __restrict__ dk, T* __restrict__ dv, int n,
+                      int n_real, int heads, int bq, int nqb, int dp,
+                      Strides dks, Strides dvs, float sl, float scale) {
+  // a step's tiles: Q's and dO's chunk (32 rows each), or the slice's q^T
+  // and do^T (64 d rows of 32 q rows each)
+  __shared__ __align__(128) uint8_t tile[2][2][64][LD8];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int lr = lane & 7;
+  const int li = lane >> 3;
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int npad = (n + TILE - 1) / TILE * TILE;
+  const int key0 = blockIdx.y * BR + warp * 16 + g;  // and key0 + 8
+  const int c0 = blockIdx.z * 64;                    // this block's columns
+  const int nch = dp / 64;
+  const int steps = nch + 1;
+
+  float fk[8][4], fv[8][4];
+  int ik[8][4], iv[8][4];
+#pragma unroll
+  for (int dt = 0; dt < 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      fk[dt][e] = fv[dt][e] = 0.f;
+      ik[dt][e] = iv[dt][e] = 0;
+    }
+
+  if (blockIdx.y * BR < n_real) {  // else dk = dv = 0
+    const long long head = static_cast<long long>(bh) * npad * dp;
+    const float* lse_bh = lse + static_cast<long long>(bh) * n;
+    const float* delta_bh = delta + static_cast<long long>(bh) * n;
+    const int i = threadIdx.x;
+    auto stage = [&](int j, int buf) {
+      const int it = j / steps;
+      const int c = j - it * steps;
+      const int r0 = it * DN_T;
+      if (c < nch) {  // 32 q rows x 4 pieces of 16 bytes of Q and of dO
+        const long long src = head + static_cast<long long>(r0 + (i >> 2)) * dp +
+                              c * 64 + (i & 3) * 16;
+        cp_async16(&tile[buf][0][i >> 2][(i & 3) * 16], by.q + src, 16);
+        cp_async16(&tile[buf][1][i >> 2][(i & 3) * 16], by.dout + src, 16);
+      } else {  // q^T and do^T: 64 d rows x 2 pieces of 16 q rows
+        const long long src = head + static_cast<long long>(c0 + (i >> 1)) * npad + r0 +
+                              (i & 1) * 16;
+        cp_async16(&tile[buf][0][i >> 1][(i & 1) * 16], by.qt + src, 16);
+        cp_async16(&tile[buf][1][i >> 1][(i & 1) * 16], by.dot + src, 16);
+      }
+      cp_async_commit();
+    };
+
+    const bool live[2] = {key0 < n_real, key0 + 8 < n_real};
+    const float ksc = q8_scale(st.kmax[bh]);
+    const float vsc = q8_scale(st.vmax[bh]);
+    int jq = -1;  // the q-block of the tiles being summed
+    float c_s = 0.f, c_p = 0.f, c_dp = 0.f, c_ds = 0.f, c_dv = 0.f, c_dk = 0.f;
+    int si[4][4], dpi[4][4];
+    uint32_t ap[4], ads[4];  // p8 and ds8 of the tile: A fragments
+    const int total = npad / DN_T * steps;
+    stage(0, 0);
+    for (int j = 0; j < total; ++j) {
+      const int buf = j & 1;
+      if (j + 1 < total) {
+        stage(j + 1, buf ^ 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const int it = j / steps;
+      const int c = j - it * steps;
+      if (c < nch) {
+        if (c == 0) {
+          if (it * DN_T / bq != jq) {  // a new q-block: fold, then its scalars
+            if (jq >= 0) {
+              fold(fk, ik, c_dk);
+              fold(fv, iv, c_dv);
+            }
+            jq = it * DN_T / bq;
+            const int qb = bh * nqb + jq;
+            const float qsc = q8_scale(st.qmax[qb]);
+            const float dosc = q8_scale(st.domax[qb]);
+            const float pst = fmaxf(st.pmax[qb], EPS);
+            const float dst = fmaxf(st.dsmax[qb], EPS);
+            c_s = __fmul_rn(__fmul_rn(qsc, ksc), sl);
+            c_p = __fdiv_rn(127.f, pst);
+            c_dp = __fmul_rn(dosc, vsc);
+            c_ds = __fdiv_rn(127.f, dst);
+            c_dv = __fmul_rn(__fmul_rn(dosc, pst), INV127);
+            c_dk = __fmul_rn(__fmul_rn(dst, qsc), INV127);
+          }
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) si[nt][e] = dpi[nt][e] = 0;
+        }
+        // this warp's 16 keys over the chunk: A fragments
+        uint32_t kf[2][4], vf[2][4];
+        load_row_frags8(kf, by.k + head + c * 64, dp, key0, npad, t);
+        load_row_frags8(vf, by.v + head + c * 64, dp, key0, npad, t);
+        add_rows_dot8(si, kf, tile[buf][0], lr, li);   // S^T = K8.Q8^T
+        add_rows_dot8(dpi, vf, tile[buf][1], lr, li);  // dP^T = V8.dO8^T
+        if (c == nch - 1) {
+          uint32_t x[4][4], y[4][4];
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = it * DN_T + nt * 8 + 2 * t + (e & 1);
+              // rows past N: lse +inf gives p = 0, delta 0 gives ds = 0
+              const float lr_ = row < n ? lse_bh[row] : __int_as_float(0x7f800000);
+              const float dl = row < n ? delta_bh[row] : 0.f;
+              const float p = prob(si[nt][e], c_s, live[e >> 1], lr_);
+              x[nt][e] = code8<false>(__fmul_rn(p, c_p));
+              y[nt][e] = code8<false>(
+                  __fmul_rn(dscore(p, dpi[nt][e], c_dp, dl, scale), c_ds));
+            }
+          pack_a(ap, x);
+          pack_a(ads, y);
+        }
+      } else {
+        acc_seq8(iv, ap, tile[buf][1], 0, lr, li);  // dV += P8^T.dO8
+        acc_seq8(ik, ads, tile[buf][0], 0, lr, li);  // dK += dS8^T.Q8
+      }
+      __syncthreads();  // every warp is done with `buf` before it is refilled
+    }
+    fold(fk, ik, c_dk);
+    fold(fv, iv, c_dv);
+  }
+  store_rows_f(dk + b * dks.b + h * dks.h + c0, dks.n, fk, key0, n, t);
+  store_rows_f(dv + b * dvs.b + h * dvs.h + c0, dvs.n, fv, key0, n, t);
+}
+
+// the five launches of K7 at head_dim dp on `stream`; the arguments as
+// maest_attn_bwd_q8_dn's
+template <typename T>
+int launch_bwd_q8_dn(int dp, const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const float* lse,
+                     float* stats, void* bytes, float* delta, void* dq,
+                     void* dk, void* dv, int batch, int n, int heads,
+                     int n_real, int bq, const long long* strides, float sl,
+                     float scale, void* stream) {
+  if (batch <= 0 || n <= 0) return 0;
+  if (dp <= 0 || dp % 64) return static_cast<int>(cudaErrorInvalidValue);
+  Strides w[8];
+  for (int i = 0; i < 8; ++i)
+    w[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  const int bh = batch * heads;
+  const int nqb = (n + bq - 1) / bq;
+  const int npad = (n + TILE - 1) / TILE * TILE;
+  const long long plane = static_cast<long long>(bh) * npad * dp;
+  uint8_t* b8 = static_cast<uint8_t*>(bytes);
+  const Bytes8 by{b8, b8 + plane, b8 + 2 * plane, b8 + 3 * plane,
+                  b8 + 4 * plane, b8 + 5 * plane, b8 + 6 * plane};
+  const long long nb = static_cast<long long>(bh) * nqb;
+  const Stats st{stats, stats + nb, stats + 2 * nb, stats + 3 * nb,
+                 stats + 4 * nb, stats + 4 * nb + bh};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k),
+          *tv = static_cast<const T*>(v), *to = static_cast<const T*>(o),
+          *td = static_cast<const T*>(dout);
+  int err;
+  bwd_q8_amax_dn_kernel<T><<<dim3(bh, nqb), 256, 0, s>>>(
+      tq, tk, tv, td, st, n, heads, bq, nqb, dp, w[0], w[1], w[2], w[4]);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  const dim3 tiles(bh, npad / TILE);
+  bwd_q8_quant_dn_kernel<T><<<tiles, 256, 0, s>>>(tq, tk, tv, to, td, st, by,
+                                                  delta, n, heads, bq, nqb, dp,
+                                                  w[0], w[1], w[2], w[3], w[4]);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  bwd_q8_rows_dn_kernel<false, bf16><<<tiles, 32 * BW, 0, s>>>(
+      by, lse, delta, st, nullptr, n, n_real, heads, bq, nqb, dp, w[5], sl,
+      scale);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  const dim3 slices(bh, npad / TILE, dp / 64);
+  bwd_q8_dkdv_dn_kernel<T><<<slices, 32 * BW, 0, s>>>(
+      by, lse, delta, st, static_cast<T*>(dk), static_cast<T*>(dv), n, n_real,
+      heads, bq, nqb, dp, w[6], w[7], sl, scale);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  bwd_q8_rows_dn_kernel<true, T><<<slices, 32 * BW, 0, s>>>(
+      by, lse, delta, st, static_cast<T*>(dq), n, n_real, heads, bq, nqb, dp,
+      w[5], sl, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ------------------------------------------------- the backward rig, P4 ---
 // scripts/bwd_int8_probe.py:52 _bwd_rig_kernel computes, per head, on 8-bit
 // q, v, do (bh, N, 64) rows, kt (bh, 64, N) and bf16 o, every row and key
@@ -1027,6 +1528,33 @@ int maest_attn_bwd_q8_fp32_d256(const void* q, const void* k, const void* v,
   return launch_bwd_q8<float, 256>(q, k, v, o, dout, lse, stats, bytes, delta,
                                    dq, dk, dv, batch, n, heads, n_real, bq,
                                    strides, sl, scale, stream);
+}
+
+// The same two entries at a head_dim dp above 256, a multiple of 64 (a
+// head_dim between is zero-padded by the caller), its first argument:
+// (batch, n, heads, dp) views and 7 (batch heads round_up(n, 64) dp) bytes
+// of scratch. Returns cudaErrorInvalidValue for another dp.
+int maest_attn_bwd_q8_dn(int dp, const void* q, const void* k, const void* v,
+                         const void* o, const void* dout, const float* lse,
+                         float* stats, void* bytes, float* delta, void* dq,
+                         void* dk, void* dv, int batch, int n, int heads,
+                         int n_real, int bq, const long long* strides,
+                         float sl, float scale, void* stream) {
+  return launch_bwd_q8_dn<bf16>(dp, q, k, v, o, dout, lse, stats, bytes, delta,
+                                dq, dk, dv, batch, n, heads, n_real, bq,
+                                strides, sl, scale, stream);
+}
+
+int maest_attn_bwd_q8_fp32_dn(int dp, const void* q, const void* k,
+                              const void* v, const void* o, const void* dout,
+                              const float* lse, float* stats, void* bytes,
+                              float* delta, void* dq, void* dk, void* dv,
+                              int batch, int n, int heads, int n_real, int bq,
+                              const long long* strides, float sl, float scale,
+                              void* stream) {
+  return launch_bwd_q8_dn<float>(dp, q, k, v, o, dout, lse, stats, bytes,
+                                 delta, dq, dk, dv, batch, n, heads, n_real,
+                                 bq, strides, sl, scale, stream);
 }
 
 // The backward rig's layout pass (i8 = 1: its int8 kind, 0: fp8): q, do

@@ -80,7 +80,8 @@
 // >= n_real are masked with -1e30 as in the TPU kernel. Query rows past N
 // are computed on clamped inputs and never stored, so any N works.
 
-#include "attn_fwd_bf16.cuh"  // the bf16 kernel (variant FLASH) and launch
+#include "attn_fwd_bf16.cuh"   // the bf16 kernel (variant FLASH) and launch
+#include "attn_fwd_wgmma.cuh"  // the bf16 kernel at head_dim 64 on wgmma/TMA
 
 namespace {
 
@@ -591,11 +592,61 @@ int maest_attn_fwd_fp32(const void* q, const void* k, const void* v, void* out,
                        batch, n, heads, n_real, strides, sl, stream);
 }
 
+// The bf16 entry at head_dim 64 runs the wgmma kernel (attn_fwd_wgmma.cuh)
+// with three consumer warpgroups taking turns and the key tile, 96 or 112
+// keys, that pads n_real the least (96 on a tie): in the tile sweep
+// (chip_smoke.py phase 30) 112 was best at N 866 and 1676 (8 and 15 tiles,
+// 30 and 4 keys padded) and 96 at 281 (3 tiles, 7 padded, where 112 pads
+// 55). It reads q, k and v through TMA, so each view's base address and
+// strides must be multiples of 16 bytes.
 int maest_attn_fwd_bf16(const void* q, const void* k, const void* v, void* out,
                         float* lse, int batch, int n, int heads, int n_real,
                         const long long* strides, float sl, void* stream) {
+  if ((n_real + 111) / 112 * 112 < (n_real + 95) / 96 * 96)
+    return launch_fwd_wgmma<112, 3, true>(q, k, v, out, lse, batch, n, heads,
+                                          n_real, strides, sl, stream);
+  return launch_fwd_wgmma<96, 3, true>(q, k, v, out, lse, batch, n, heads,
+                                       n_real, strides, sl, stream);
+}
+
+// The mma.sync kernel that maest_attn_fwd_bf16 ran before the wgmma one
+// (variant FLASH of attn_fwd_bf16.cuh), kept as its control: the same
+// arguments.
+int maest_attn_fwd_bf16_mma(const void* q, const void* k, const void* v,
+                            void* out, float* lse, int batch, int n,
+                            int heads, int n_real, const long long* strides,
+                            float sl, void* stream) {
   return launch<bf16>(attn_fwd_bf16_kernel<FLASH>, MQ, 32 * WARPS, q, k, v,
                       out, lse, batch, n, heads, n_real, strides, sl, stream);
+}
+
+// The wgmma kernel's configurations of the tile sweep, chosen by `config`
+// (key tile BK, consumer warpgroups NC, turns PP): 0 (96, 3, on) and 4
+// (112, 3, on), the two that maest_attn_fwd_bf16 chooses between; 1 (96,
+// 3, off); 2 (64, 3, on), whose 64-key tiles give the control's numbers
+// bit for bit; 3 (64, 2, on); 5 (128, 3, on); 6 (128, 2, on); 7 (192, 2,
+// on). Otherwise the arguments of maest_attn_fwd_bf16; another config
+// returns cudaErrorInvalidValue.
+int maest_attn_fwd_bf16_wgmma(int config, const void* q, const void* k,
+                              const void* v, void* out, float* lse, int batch,
+                              int n, int heads, int n_real,
+                              const long long* strides, float sl,
+                              void* stream) {
+#define MAEST_WG(BK, NC, PP)                                                   \
+  launch_fwd_wgmma<BK, NC, PP>(q, k, v, out, lse, batch, n, heads, n_real,     \
+                               strides, sl, stream)
+  switch (config) {
+    case 0: return MAEST_WG(96, 3, true);
+    case 1: return MAEST_WG(96, 3, false);
+    case 2: return MAEST_WG(64, 3, true);
+    case 3: return MAEST_WG(64, 2, true);
+    case 4: return MAEST_WG(112, 3, true);
+    case 5: return MAEST_WG(128, 3, true);
+    case 6: return MAEST_WG(128, 2, true);
+    case 7: return MAEST_WG(192, 2, true);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef MAEST_WG
 }
 
 // The same two entries at head_dim 128: (batch, n, heads, 128) views,

@@ -138,10 +138,9 @@ class Attention(nn.Module):
     (train mode with ``attn_drop`` > 0), where "flash" raises as the JAX
     package does. The JAX package's "auto" also takes the XLA path off the
     TPU and below head_dim 64 (its ``use_flash``); the port's kernels run
-    on the card at every head_dim (instances at 64, 128 and 256 and, in
-    bf16 and fp32, one of runtime width for multiples of 64 above; a
-    head_dim between zero-padded to the next), but the 8-bit modes
-    refuse a head_dim above 256 (ROADMAP queue 3)."""
+    on the card at every head_dim, in bf16, fp32 and every 8-bit mode
+    (instances at 64, 128 and 256 and one of runtime width for multiples
+    of 64 above; a head_dim between zero-padded to the next)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  quant: str = "none", bwd_quant: str = "none",

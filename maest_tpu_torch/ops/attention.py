@@ -15,11 +15,12 @@ On CUDA tensors each step launches its hand-written kernel
 cores, fp32 in scalar fp32 FMA; ``csrc/attention_fwd_q8.cu`` and
 ``csrc/attention_bwd_q8.cu``: int8 / e4m3 products, bf16 or fp32 inputs;
 any N, strided views). The kernels are built for head_dim 64, 128 and
-256, and the bf16 and fp32 ones also as one instance whose width, a
-multiple of 64 above 256, is a runtime argument (the ``_dn`` entries);
-any other head_dim runs the next of these on inputs zero-padded to its
-width with its own softmax scale (``pad_head_dim``). The 8-bit modes
-refuse a head_dim above 256 on the card (ROADMAP queue 3). On CPU
+256, and each also as one instance whose width, a multiple of 64 above
+256, is a runtime argument (the ``_dn`` entries); any other head_dim runs
+the next of these on inputs zero-padded to its width with its own
+softmax scale (``pad_head_dim``). The bf16 forward at head_dim 64 runs
+the ``wgmma`` / TMA kernel (``csrc/attn_fwd_wgmma.cuh``); its
+``mma.sync`` control stays as ``attention_fwd_mma``. On CPU
 tensors it runs the plain PyTorch version (``attention_reference``,
 ``attention_reference_lse``, ``attention_bwd_reference``,
 ``attention_q8_reference``, ``attention_bwd_int8_reference``). Production
@@ -445,11 +446,41 @@ def _fwd(q, k, v, n_real, quant, with_lse):
         if with_lse:
             return attention_reference_lse(q, k, v, n_real)
         return attention_reference(q, k, v, n_real), None
+    if _K2_CONTROL and q.dtype == torch.bfloat16 and padded_dim(
+            q.shape[-1]) == HEAD_DIM:
+        out = padded_fwd(_launch_fwd_mma, q, k, v, n_real, with_lse)
+        attention_fwd_mma.launches += 1
+        return out
     out = padded_fwd(_launch_fwd, q, k, v, n_real, with_lse)
     if with_lse:
         flash_attention_fwd_lse.launches += 1
     else:
         flash_attention.launches += 1
+    return out
+
+
+# Private: True routes the bf16 forward at head_dim 64 through the control
+# (``attention_fwd_mma``) instead of the wgmma kernel, so that a measurement
+# can time the steps of the model with each. Nothing in the package sets it.
+_K2_CONTROL = False
+
+
+def attention_fwd_mma(q, k, v, n_real: int | None = None,
+                      with_lse: bool = False):
+    """The control of K2/K3a's wgmma kernel: the ``mma.sync`` kernel
+    (variant FLASH of ``csrc/attn_fwd_bf16.cuh``, entry
+    ``maest_attn_fwd_bf16_mma``) on bf16 CUDA (B, N, H, 64) views; (o, lse
+    or None). It computes what ``flash_attention`` computes, with its own
+    64-key tiles; counted in ``attention_fwd_mma.launches``."""
+    n_real, _, _ = _check_args(q, k, v, n_real, None)
+    if q.device.type == "cpu":
+        if with_lse:
+            return attention_reference_lse(q, k, v, n_real)
+        return attention_reference(q, k, v, n_real), None
+    if q.dtype != torch.bfloat16 or q.shape[-1] != HEAD_DIM:
+        raise ValueError("the control takes bf16 q, k, v at head_dim 64")
+    out = _launch_fwd_mma(q, k, v, n_real, with_lse, q.shape[-1]**-0.5)
+    attention_fwd_mma.launches += 1
     return out
 
 
@@ -482,33 +513,20 @@ def _fwd_q8(wrapper, quant, q, k, v, n_real, with_lse):
     if q.device.type == "cpu":
         o, lse = attention_q8_reference(q, k, v, n_real, quant)
         return o, (lse if with_lse else None)
-    _refuse_wide_8bit(q.shape[-1])
     out = padded_fwd(_launch_fwd_q8, q, k, v, n_real, with_lse, quant=quant)
     wrapper.launches += 1
     return out
 
 
 # --- head_dim other than 64, 128 and 256 on the card -----------------------
-_WIDE_8BIT = ("the CUDA 8-bit attention kernels (K5/K6 in every quant mode, "
-              "K7 under bwd_quant='int8') are built for head_dim up to 256; "
-              "got head_dim {} (ROADMAP queue 3: their wide instances belong "
-              "to the 8-bit redesign; bf16 and fp32 take any head_dim)")
-
-
 def padded_dim(d: int) -> int:
     """The kernel width that takes head_dim d: the smallest of HEAD_DIMS
     (64, 128, 256) at or above it, and above 256 the next multiple of 64
-    (the bf16 and fp32 kernels' runtime-width ``_dn`` instances)."""
+    (every kernel's runtime-width ``_dn`` instance)."""
     for width in HEAD_DIMS:
         if d <= width:
             return width
     return -(-d // 64) * 64
-
-
-def _refuse_wide_8bit(d: int) -> None:
-    """Raise for an 8-bit kernel on the card at head_dim d above 256."""
-    if d > HEAD_DIMS[-1]:
-        raise ValueError(_WIDE_8BIT.format(d))
 
 
 def pad_head_dim(*ts):
@@ -617,6 +635,12 @@ def _launch_fwd(q, k, v, n_real, with_lse, scale):
                             with_lse, scale)
 
 
+def _launch_fwd_mma(q, k, v, n_real, with_lse, scale):
+    """The control of K2/K3a on checked bf16 views at head_dim 64."""
+    return launch_fwd_entry("attention_fwd", "maest_attn_fwd_bf16_mma", (), q,
+                            k, v, n_real, with_lse, scale)
+
+
 def launch_fwd_entry(lib_name, name, lead, q, k, v, n_real, with_lse, scale):
     """Launch the forward entry ``name`` of ``csrc/<lib_name>.cu`` with the
     leading int arguments ``lead`` on checked CUDA views and softmax scale
@@ -683,17 +707,17 @@ def _launch_fwd_q8(q, k, v, n_real, with_lse, scale, quant):
     lse = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
            if with_lse else None)
     lib = _build.load_library("attention_fwd_q8")
-    name, _ = _instance(f"maest_attn_fwd_{quant}" + (
+    name, lead = _instance(f"maest_attn_fwd_{quant}" + (
         "_fp32" if q.dtype == torch.float32 else ""), d)
-    fn = _entry(lib, name, 8, 1)
+    fn = _entry(lib, name, 8, 1, len(lead))
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q8.data_ptr(), k8.data_ptr(), ptr(qs), ptr(sk),
+        err = fn(*lead, q8.data_ptr(), k8.data_ptr(), ptr(qs), ptr(sk),
                  v_in.data_ptr(), ptr(sv127), out.data_ptr(), ptr(lse),
                  b, n, h, n if n_real is None else n_real,
                  _strides(q8, k8, v, out), sl, stream)
-    _build.check(lib, err, name)
+    _build.check(lib, err, f"{name} {lead}" if lead else name)
     return out, lse
 
 
@@ -722,7 +746,6 @@ def _bwd_qkv(q, k, v, o, lse, do, n_real, bwd_quant):
         ref = attention_bwd_int8_reference if int8 else attention_bwd_reference
         return torch.stack(ref(q, k, v, o, lse, do, n_real), dim=2)
     if int8:
-        _refuse_wide_8bit(q.shape[-1])
         grads = padded_bwd(_launch_bwd_q8, q, k, v, o, lse, do, n_real)
         attention_bwd_int8.launches += 1
         return grads
@@ -799,28 +822,30 @@ def _launch_bwd_q8(q, k, v, o, lse, do, n_real, scale):
     bytes8 = torch.empty(7 * b * h * npad * d, dtype=torch.int8,
                          device=q.device)
     lib = _build.load_library("attention_bwd_q8")
-    name, _ = _instance("maest_attn_bwd_q8" + (
+    name, lead = _instance("maest_attn_bwd_q8" + (
         "_fp32" if q.dtype == torch.float32 else ""), d)
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_int] * len(lead) + [ctypes.c_void_p] * 12 + [
+        ctypes.c_int] * 5 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_float,
         ctypes.c_void_p]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(), stats.data_ptr(),
+        err = fn(*lead, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 o.data_ptr(), do.data_ptr(), lse.data_ptr(), stats.data_ptr(),
                  bytes8.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                  dk.data_ptr(), dv.data_ptr(), b, n, h,
                  n if n_real is None else n_real, bq,
                  _strides(q, k, v, o, do, dq, dk, dv), scale * _LOG2E, scale,
                  stream)
-    _build.check(lib, err, name)
+    _build.check(lib, err, f"{name} {lead}" if lead else name)
     return grads
 
 
 flash_attention.launches = 0
 flash_attention_fwd_lse.launches = 0
+attention_fwd_mma.launches = 0
 attention_bwd.launches = 0
 attention_fwd_int8.launches = 0
 attention_fwd_fp8.launches = 0

@@ -9,7 +9,10 @@ from ``--shapes`` (names of ``ARCH_N`` or token counts), on inputs drawn
 N(0, 0.1^2) from ``--seed``, to split K2's time between the products and
 pipeline, the softmax arithmetic and the running-max bookkeeping:
 
-  flash      K2, ``flash_attention`` under ``torch.inference_mode()``
+  flash      K2's mma.sync kernel, the template whose loop every probe
+             variant below changes (``attention_fwd_mma``, the control of
+             the wgmma kernel that ``flash_attention`` now runs), under
+             ``torch.inference_mode()``
   mxu_only   the same grid, copies and products, softmax replaced by a cast
   noexp_max  exp2 with no shift: no running max, no correction
   novmax     the max of each 64-key tile only, no correction
@@ -71,7 +74,7 @@ import time
 import numpy as np
 import torch
 
-from ..ops.attention import attention_reference, flash_attention
+from ..ops.attention import attention_fwd_mma, attention_reference
 from ..ops.attention_probe import GROUPS
 from ..ops.attention_probe import VARIANTS as PROBES
 from ..ops.attention_probe import (
@@ -140,7 +143,7 @@ def variant_fn(variant: str, q, k, v):
         qf, kf, vf = _fp32(q, k, v)
         return lambda: attention_probe_int8(qf, kf, vf)
     if variant == "flash":
-        return lambda: flash_attention(q, k, v)
+        return lambda: attention_fwd_mma(q, k, v)[0]
     if variant in PROBES:
         return lambda: attention_probe(q, k, v, variant)
     if variant == "plain":

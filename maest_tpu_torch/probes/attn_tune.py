@@ -12,7 +12,10 @@ tile (``attention_bwd_tile``: rows a block and streamed rows a tile, each
 the best tile per arch. Each forward line gives the share of the q rows
 that are real (N over N rounded up to the block's rows), the TFLOP/s of
 the two products over the real keys against the bf16 peak, 989, and K2
-(128, 64), timed in the same call; each backward line gives K3b (64, 64)
+(128, 64), the mma.sync kernel whose loop the tiles change
+(``attention_fwd_mma``, the control of the wgmma kernel that
+``flash_attention`` now runs), timed in the same call; each backward
+line gives K3b (64, 64)
 beside it and the TFLOP/s of its five products. Times are CUDA-graph
 replays (``probes.attn_profile``'s ``graph_ms``) at every N: K2, K3b and
 the probe entries differ in host cost, which CUDA events would add to the
@@ -39,7 +42,7 @@ import argparse
 import numpy as np
 import torch
 
-from ..ops.attention import flash_attention, flash_attention_fwd_lse
+from ..ops.attention import attention_fwd_mma, flash_attention_fwd_lse
 from ..ops.attention import attention_bwd as k3b
 from ..ops.attention_probe import (
     BWD_TILES,
@@ -93,7 +96,7 @@ def sweep_fwd(n, batch, heads, iters, device) -> dict:
     per tile."""
     q, k, v = _inputs(batch, n, heads, 0.1, 0, device)
     flop = 4 * batch * heads * n * n * 64
-    fns = {"K2": lambda: flash_attention(q, k, v)}
+    fns = {"K2": lambda: attention_fwd_mma(q, k, v)}
     for qr in Q_ROWS:
         for kt in KEY_TILES:
             fns[f"{qr}x{kt}"] = (lambda qr=qr, kt=kt: attention_probe_tile(

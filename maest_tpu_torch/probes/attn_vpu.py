@@ -8,7 +8,9 @@
 Asks which part of the softmax the cheaper 8-bit products would expose:
 times the attention forward at (batch, tokens, heads, 64) bf16, inputs
 drawn N(0, 0.3^2) from ``--seed`` (the rig's), in each kind of
-``ops/attention_vpu.py`` beside ``ctrl``, K2 (``flash_attention``):
+``ops/attention_vpu.py`` beside ``ctrl``, K2's mma.sync kernel, the
+template the kinds change (``attention_fwd_mma``, the control of the wgmma
+kernel that ``flash_attention`` now runs):
 
   bf16sm     bf16 products, the softmax in bf16 (packed bf16x2 pairs)
   fp8sm      e4m3 q.k, the same bf16 softmax, bf16 p.v
@@ -40,7 +42,7 @@ import argparse
 import numpy as np
 import torch
 
-from ..ops.attention import flash_attention
+from ..ops.attention import attention_fwd_mma
 from ..ops.attention_vpu import (
     KINDS,
     attention_vpu_probe,
@@ -69,7 +71,7 @@ _PEAK = {"bf16": PEAK_BF16, "fp8": PEAK_FP8}
 def kind_fn(kind: str, q, k, v):
     """The call that computes ``kind`` on (B, N, H, 64) bf16 q, k, v."""
     if kind == "ctrl":
-        return lambda: flash_attention(q, k, v)
+        return lambda: attention_fwd_mma(q, k, v)[0]
     if kind in KINDS:
         return lambda: attention_vpu_probe(q, k, v, kind)
     raise ValueError(f"unknown kind {kind!r}; expected one of "

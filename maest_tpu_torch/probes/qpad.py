@@ -16,11 +16,13 @@ all lie past N, so at most 15 padded rows a head are multiplied, with G 1
 For each ``--shapes`` entry BxN (default the rig's 100x281; heads 12,
 head_dim 64, bf16, inputs drawn N(0, 0.1^2) from ``--seed``), numerics
 first: every G against plain attention within the rig's 5e-2
-and, on the card, equal to K2 bit for bit. Then it times K2
-(``flash_attention`` under ``torch.inference_mode()``), qpad at each G, K3a
-(``flash_attention_fwd_lse``), qpad with lse at each G, and the vjp
-through ``flash_attention`` under autograd (K3a and K3b, with a dense
-random cotangent, as the rig's). Each time is ``probes.attn_profile``'s
+and, on the card, equal bit for bit to K2's mma.sync kernel, the template
+qpad changes (``attention_fwd_mma``, the control of the wgmma kernel that
+``flash_attention`` now runs). Then it times that K2 under
+``torch.inference_mode()``, qpad at each G, the same kernel with lse
+(K3a), qpad with lse at each G, and the vjp through ``flash_attention``
+under autograd (the production K3a and K3b, with a dense random
+cotangent, as the rig's). Each time is ``probes.attn_profile``'s
 ``rig_ms``: CUDA-graph replays below N 300, CUDA events above (median of
 three runs of ``--iters`` calls). It prints the card's name and power
 limit first, one line per call and each qpad's difference from K2; it
@@ -35,9 +37,9 @@ import argparse
 import torch
 
 from ..ops.attention import (
+    attention_fwd_mma,
     attention_reference,
     flash_attention,
-    flash_attention_fwd_lse,
 )
 from ..ops.attention_probe import QPAD_GROUPS, attention_probe_qpad
 from .attn_profile import GRAPH_BELOW_N, _inputs, card_line, rig_ms
@@ -65,7 +67,7 @@ def check(b, n, seed, device) -> float:
     q, k, v = _inputs(b, n, HEADS, 0.1, seed, device)
     with torch.inference_mode():
         ref = attention_reference(q, k, v).float()
-        k2 = flash_attention(q, k, v)
+        k2 = attention_fwd_mma(q, k, v)[0]
         worst = 0.0
         for g in groups(b):
             out = attention_probe_qpad(q, k, v, g)[0]
@@ -89,10 +91,10 @@ def profile(b, n, iters, seed, device) -> dict:
     ct = (torch.randn(q.shape, generator=gen, device=device) * 0.1).to(
         q.dtype)
     qg = q.detach().clone().requires_grad_(True)
-    calls = {"K2": lambda: flash_attention(q, k, v)}
+    calls = {"K2": lambda: attention_fwd_mma(q, k, v)}
     calls.update({f"qpad G{g}": lambda g=g: attention_probe_qpad(q, k, v, g)
                   for g in groups(b)})
-    calls["K3a"] = lambda: flash_attention_fwd_lse(q, k, v)
+    calls["K3a"] = lambda: attention_fwd_mma(q, k, v, with_lse=True)
     calls.update({f"qpad+lse G{g}":
                   lambda g=g: attention_probe_qpad(q, k, v, g, with_lse=True)
                   for g in groups(b)})

@@ -97,6 +97,48 @@ def test_cpu_takes_plain_version_and_counts_no_launch():
     assert torch.equal(out, attention_reference(q, k, v, n_real=33))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_control_takes_plain_version_and_matches_jax(dtype, monkeypatch):
+    """``attention_fwd_mma``, the mma.sync kernel kept as the control of
+    K2/K3a's wgmma kernel: on the CPU its plain versions, o and lse against
+    the JAX package's Pallas kernel in interpret mode (the tolerances
+    above; lse fp32 1e-5), no launch counted; the private hook that routes
+    the bf16 forward through it on the card leaves the CPU path as it is.
+    On the card it takes bf16 at head_dim 64 only (here on meta tensors,
+    which take the card's route)."""
+    from maest_tpu.ops.attention import _flash_fwd_lse
+    from maest_tpu_torch.ops import attention as A
+
+    x = _qkv(2, 256, 2, seed=7)
+    xt = torch.from_numpy(x).to(dtype)
+    q, k, v = xt[:, :, 0], xt[:, :, 1], xt[:, :, 2]
+    before = (A.attention_fwd_mma.launches, flash_attention.launches)
+    o, lse = A.attention_fwd_mma(q, k, v, 190, with_lse=True)
+    o2, none = A.attention_fwd_mma(q, k, v, 190)
+    assert (A.attention_fwd_mma.launches, flash_attention.launches) == before
+    assert none is None
+    assert torch.equal(o2, attention_reference(q, k, v, 190))
+    assert torch.equal(o, attention_reference_lse(q, k, v, 190)[0])
+    monkeypatch.setattr(A, "_K2_CONTROL", True)
+    assert torch.equal(flash_attention(q, k, v, n_real=190), o2)
+    xj = jnp.asarray(x).astype(JNP[dtype])
+    ref, ref_lse = _flash_fwd_lse(xj[:, :, 0], xj[:, :, 1], xj[:, :, 2],
+                                  block_q=896, block_k=448, interpret=True,
+                                  n_real=190)
+    np.testing.assert_allclose(o.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               atol=ATOL[dtype], rtol=0)
+    np.testing.assert_allclose(
+        lse.numpy(), np.asarray(ref_lse).reshape(2, 2, -1)[:, :, :256],
+        atol=1e-5, rtol=0)
+    for bad in (torch.zeros(1, 8, 2, 64, device="meta"),
+                torch.zeros(1, 8, 2, 128, device="meta",
+                            dtype=torch.bfloat16)):
+        with pytest.raises(ValueError, match="bf16 q, k, v at head_dim 64"):
+            A.attention_fwd_mma(bad, bad, bad)
+
+
 # --- training: forward with lse (K3a) and backward (K3b, K4) -------------
 # Tolerances, as the JAX package's own (tests/test_flash_attention.py):
 # fp32 rtol 1e-3 / atol 1e-4; bf16 2e-2 (absolute and relative), compared

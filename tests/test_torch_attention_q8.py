@@ -58,9 +58,9 @@ GRAD_TOL = {torch.float32: dict(rtol=1e-3, atol=1e-4),
             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 
 
-def _qkv(b, n, h, seed, scale=0.5):
+def _qkv(b, n, h, seed, scale=0.5, d=64):
     return (np.random.default_rng(seed).standard_normal(
-        (b, n, 3, h, 64)) * scale).astype(np.float32)
+        (b, n, 3, h, d)) * scale).astype(np.float32)
 
 
 def _split(x):
@@ -138,6 +138,29 @@ def test_forward_matches_jax_on_the_same_key_blocks(mode, shape, dtype):
                             quant=mode, n_real=n_real)
     assert o.dtype == dtype and o.shape == (b, n, h, 64)
     np.testing.assert_allclose(o.float().numpy(), _f32(ref), **FWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("d", [320, 512])
+@pytest.mark.parametrize("mode", MODES)
+def test_forward_at_wide_head_dim_matches_jax(mode, d):
+    """head_dim 320 and 512, widths of K5/K6's runtime-width (_dn)
+    instances on the card: the plain version (its 64-column chunks give the
+    card the same sums) against the JAX package's kernel in interpret mode
+    on the same 128-key blocks, fp32, N 300 with n_real 290, lse too."""
+    b, n, h, n_real = 1, 300, 2, 290
+    x = _qkv(b, n, h, seed=20 + d, d=d)
+    o, lse = attention_q8_reference(*_split(torch.from_numpy(x)), n_real, mode,
+                                    block_k=128)
+    xj = _split(jnp.asarray(x))
+    ref = A.flash_attention(*xj, block_q=128, block_k=128, interpret=True,
+                            quant=mode, n_real=n_real)
+    _, rj = A._flash_fwd_lse(*xj, block_q=128, block_k=128, interpret=True,
+                             quant=mode, n_real=n_real)
+    assert o.shape == (b, n, h, d)
+    np.testing.assert_allclose(o.numpy(), _f32(ref), **FWD_TOL[torch.float32])
+    np.testing.assert_allclose(
+        lse.numpy(), np.asarray(rj).reshape(b, h, -1)[:, :, :n], rtol=0,
+        atol=1e-5)
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -244,6 +267,30 @@ def test_int8_backward_matches_jax_kernel(shape):
         assert not ours[1][:, n_real:].any() and not ours[2][:, n_real:].any()
 
 
+def test_int8_backward_at_head_dim_320_matches_jax_kernel():
+    """head_dim 320, a width of K7's runtime-width (_dn) instance on the
+    card: identical (q, k, v, o, lse, do) into _flash_bwd_q8 in interpret
+    mode and the port's plain K7, held as at 64 (_assert_int8_grads)."""
+    b, n, h, n_real, d = 1, 300, 2, 290, 320
+    x = _qkv(b, n, h, seed=26, d=d)
+    g = np.random.default_rng(27).standard_normal((b, n, h, d)).astype("f4")
+    q, k, v = _split(jnp.asarray(x))
+    o, lse = A._flash_fwd_lse(q, k, v, block_q=896, block_k=448,
+                              interpret=True, n_real=n_real, bwd_quant="int8")
+    bq = A._pick_bwd_block(-(-n // 128) * 128)
+    ref = A._flash_bwd_q8(q, k, v, o, lse, jnp.asarray(g), block_q=bq,
+                          interpret=True, n_real=n_real)
+    ref16 = A._flash_bwd(q, k, v, o, lse, jnp.asarray(g), block_q=bq,
+                         block_k=1 << 30, interpret=True, n_real=n_real)
+    lse_t = torch.from_numpy(np.array(lse)).reshape(b, h, -1)[:, :, :n]
+    ours = attention_bwd_int8(*_split(torch.from_numpy(x)),
+                              torch.from_numpy(np.array(o)),
+                              lse_t.contiguous(), torch.from_numpy(g), n_real)
+    assert ours[0].shape == (b, n, h, d)
+    _assert_int8_grads(ours, ref, ref16)
+    assert not ours[1][:, n_real:].any() and not ours[2][:, n_real:].any()
+
+
 @pytest.mark.parametrize("quant", [None, "qk8"], ids=["bf16_fwd", "qk8_fwd"])
 @pytest.mark.parametrize("shape", [(1, 150, 2, None), (2, 300, 2, 290)],
                          ids=["n150", "n300_real290"])
@@ -319,7 +366,7 @@ def jax_flash(monkeypatch):
                         functools.partial(A.flash_attention, interpret=True))
 
 
-def _models(img, **over):
+def _models(img, head_std=0.3, **over):
     from maest_tpu.models.config import MAESTConfig as JaxConfig
     from maest_tpu.models.vit import MAESTNet as JaxNet
     from maest_tpu.models.vit import init_params
@@ -327,12 +374,13 @@ def _models(img, **over):
     from maest_tpu_torch.models.config import MAESTConfig
     from maest_tpu_torch.models.vit import MAESTNet
 
-    jcfg = JaxConfig(img_size=img, **GEOM, **over)
+    geom = {**GEOM, **over}
+    jcfg = JaxConfig(img_size=img, **geom)
     params = jax.tree.map(np.asarray, init_params(jcfg, jax.random.PRNGKey(0)))
     rng = np.random.default_rng(12)
     params["head_linear"]["kernel"] = rng.standard_normal(
-        (128, 10)).astype("f4") * 0.3
-    tcfg = MAESTConfig(img_size=img, **GEOM, **over)
+        (geom["embed_dim"], 10)).astype("f4") * np.float32(head_std)
+    tcfg = MAESTConfig(img_size=img, **geom)
     net = load_into(MAESTNet(tcfg), state_from_jax_params(params, tcfg))
     return JaxNet(jcfg), params, net
 
@@ -342,7 +390,30 @@ def test_model_logits_in_each_mode_match_jax(mode, jax_flash):
     """Tiny MAEST (embed 128, 2 heads of 64, depth 2, N 128) in fp32 with
     ``attention_quant``: logits against the JAX model's within the mode's
     band (the two packages tile the keys differently: 64 against 128)."""
-    jnet, params, net = _models((96, 146), attention_quant=mode)
+    _model_logits_match_jax(mode, 128)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_model_at_head_dim_320_in_each_mode_matches_jax(mode, jax_flash,
+                                                        monkeypatch):
+    """As at 64, at embed 640 with 2 heads of 320 (K5/K6's runtime-width
+    instances on the card), the head's weights drawn with the standard
+    deviation scaled by sqrt(128 / 640), so the logits keep the embed-128
+    scale the band is for. Both packages walk the same 128-key block here
+    (the port's plain version told to, as the kernel tests above do): at
+    head_dim 320 the pv8 modes' p, rounded against the running max of 64
+    keys on one side and of 128 on the other, move the logits past the
+    band (up to 7e-2 in fp8pv8), which is the tiling, not the route."""
+    from maest_tpu_torch.ops import attention as PA
+
+    monkeypatch.setattr(PA, "attention_q8_reference", functools.partial(
+        PA.attention_q8_reference, block_k=128))
+    _model_logits_match_jax(mode, 640)
+
+
+def _model_logits_match_jax(mode, width):
+    jnet, params, net = _models((96, 146), 0.3 * (128 / width)**0.5,
+                                attention_quant=mode, embed_dim=width)
     x = np.random.default_rng(13).standard_normal((2, 1, 96, 146)).astype("f4")
     with torch.inference_mode():
         ours = net.eval()(torch.from_numpy(x))[0]
@@ -359,10 +430,22 @@ def test_model_int8_backward_gradients_match_jax(jax_flash):
     JAX model. The loss is the forward's alone (rtol 1e-6); the gradient
     norms rtol 1e-3, each gradient within 1e-2 of its max (rounding flips
     of p8 / ds8, as in the kernel tests)."""
+    _model_int8_grads_match_jax(128)
+
+
+def test_model_int8_backward_at_head_dim_320_matches_jax(jax_flash):
+    """As at 64, at embed 640 with 2 heads of 320 (K7's runtime-width
+    instance on the card), the head's weights scaled as in the forward's
+    head_dim-320 test."""
+    _model_int8_grads_match_jax(640)
+
+
+def _model_int8_grads_match_jax(width):
     from maest_tpu_torch.checkpoints import state_from_jax_params
 
-    jnet, params, net = _models((96, 156), attention_bwd_quant="int8",
-                                s_patchout_t_indices=(1,))
+    jnet, params, net = _models((96, 156), 0.3 * (128 / width)**0.5,
+                                attention_bwd_quant="int8",
+                                s_patchout_t_indices=(1,), embed_dim=width)
     rng = np.random.default_rng(14)
     x = rng.standard_normal((2, 96, 156)).astype("f4")
     y = (rng.random((2, 10)) < 0.3).astype("f4")

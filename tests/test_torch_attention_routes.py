@@ -5,18 +5,20 @@
   run on q, k, v (and o, do) zero-padded to the next width with the
   unpadded head_dim's softmax scale (``ops/attention.py pad_head_dim``,
   ``padded_fwd``, ``padded_bwd``): 64, 128, 256, and above 256 the next
-  multiple of 64, which the bf16 and fp32 kernels take as a runtime
-  argument. Here the same helpers run with the plain versions in the
+  multiple of 64, which every kernel takes as a runtime argument (its
+  ``_dn`` entry). Here the same helpers run with the plain versions in the
   kernels' place: pad, plain, slice equals plain within 1e-6 (fp32; zero
   columns change only the order of the sums over head_dim), in every mode
-  and in the backward, at head_dim 16 and 32 (to 64), 80, 96 and 128 (to
-  128) and 160, 192 and 256 (to 256), and without an 8-bit mode at 300 (to
+  and in the backward (K3b's and K7's arithmetic), at head_dim 16 and 32
+  (to 64), 80, 96 and 128 (to 128), 160, 192 and 256 (to 256), 300 (to
   320), 320 and 512; the tiny model at head_dim 16, 96, 128, 192, 256, 320
-  and 512 through them gives the JAX package's logits within 1e-5;
+  and 512 through them gives the JAX package's logits within 1e-5; on meta
+  tensors, which take the card's route, every 8-bit mode and K7 pad 300 to
+  320 and name their ``_dn`` entries;
 - head_dim 128, 256, 320 and 512: the plain forward and backward against
   the JAX package's Pallas kernels (``_flash_fwd_lse``, ``_flash_bwd``) in
-  interpret mode, as ``tests/test_torch_attention.py`` holds them at 64;
-  above 256 the 8-bit modes are refused on the card;
+  interpret mode, as ``tests/test_torch_attention.py`` holds them at 64
+  (the 8-bit modes at 320 and 512: ``tests/test_torch_attention_q8.py``);
 - ``attention_impl="xla"``: the materialised softmax, within 1e-5 of the
   JAX package's XLA path at head_dim 64 and 16;
 - ``attention_impl="flash"`` with attention dropout in train mode raises,
@@ -188,17 +190,16 @@ def _qkv(b, n, h, d, seed):
     return x.unbind(2)
 
 
-# padded to 64 (16, 32), 128 (80, 96) or 256 (160, 192); above 256, in
-# bf16 and fp32 only, to the next multiple of 64 (300 to 320)
+# padded to 64 (16, 32), 128 (80, 96) or 256 (160, 192); above 256 to the
+# next multiple of 64 (300 to 320)
 WIDTHS = [16, 32, 80, 96, 128, 160, 192, 256]
 WIDE = [300, 320, 512]
 
 
 @pytest.mark.parametrize("d,quant",
-                         [(d, m) for m in MODES for d in WIDTHS]
-                         + [(d, None) for d in WIDE],
-                         ids=[f"{d}-{m}" for m in MODES for d in WIDTHS]
-                         + [f"{d}-None" for d in WIDE])
+                         [(d, m) for m in MODES for d in WIDTHS + WIDE],
+                         ids=[f"{d}-{m}" for m in MODES
+                              for d in WIDTHS + WIDE])
 def test_padded_forward_is_the_plain_version(d, quant):
     """pad -> plain -> slice within 1e-6 of plain at head_dim d, lse too;
     the 8-bit scales of zero-padded rows are the unpadded rows' (zeros
@@ -219,11 +220,10 @@ def test_padded_forward_is_the_plain_version(d, quant):
 
 
 @pytest.mark.parametrize("d,int8",
-                         [(d, i8) for i8 in (False, True) for d in WIDTHS]
-                         + [(d, False) for d in WIDE],
+                         [(d, i8) for i8 in (False, True)
+                          for d in WIDTHS + WIDE],
                          ids=[f"{d}-{n}" for n in ("bf16_path", "int8")
-                              for d in WIDTHS]
-                         + [f"{d}-bf16_path" for d in WIDE])
+                              for d in WIDTHS + WIDE])
 def test_padded_backward_is_the_plain_version(d, int8):
     """The (B, N, 3, H, d) gradients through pad -> plain -> slice within
     1e-6 of plain, in K3b's arithmetic and in K7's."""
@@ -237,24 +237,50 @@ def test_padded_backward_is_the_plain_version(d, int8):
         assert (got[:, :, i] - ref[i]).abs().max().item() <= PAD_TOL
 
 
-def test_wide_heads_are_refused():
-    """Above head_dim 256 every 8-bit mode is refused on the card, naming
-    ROADMAP queue 3, before any work: here on meta tensors, which take the
-    card's route. bf16 and fp32 take 320 as it is and pad 300 to it."""
-    x = torch.zeros(1, 4, 2, 320, device="meta")
+def test_wide_heads_are_refused(monkeypatch):
+    """Above head_dim 256 no mode is refused on the card any more: every
+    8-bit mode (K5/K6) and K7 run their runtime-width instances. Here on
+    meta tensors, which take the card's route up to the launch, with the
+    two 8-bit launchers replaced by recorders: head_dim 300 reaches them
+    zero-padded to 320 with 300's softmax scale, and each names its ``_dn``
+    C entry with 320 as its first argument, as bf16 and fp32 do."""
+    seen = []
+
+    def fwd(q, k, v, n_real, with_lse, scale, quant):
+        seen.append((quant, q.shape[-1], scale))
+        return torch.empty_like(q), None
+
+    def bwd(q, k, v, o, lse, do, n_real, scale):
+        seen.append(("int8", q.shape[-1], scale))
+        return torch.empty(q.shape[:2] + (3,) + q.shape[2:], device=q.device)
+
+    monkeypatch.setattr(A, "_launch_fwd_q8", fwd)
+    monkeypatch.setattr(A, "_launch_bwd_q8", bwd)
+    for wrap in (A.attention_fwd_int8, A.attention_fwd_fp8,
+                 A.attention_bwd_int8):
+        monkeypatch.setattr(wrap, "launches", 0)
+    x = torch.zeros(1, 4, 2, 300, device="meta")
     for quant in MODES[1:]:
-        with pytest.raises(ValueError, match="ROADMAP queue 3"):
-            A.flash_attention(x, x, x, quant=quant)
+        assert A.flash_attention(x, x, x, quant=quant).shape == x.shape
     lse = torch.zeros(1, 2, 4, device="meta")
-    with pytest.raises(ValueError, match="ROADMAP queue 3"):
-        A.attention_bwd_int8(x, x, x, x, lse, x)
+    assert all(g.shape == x.shape
+               for g in A.attention_bwd_int8(x, x, x, x, lse, x))
+    assert seen == [(m, 320, 300**-0.5) for m in MODES[1:] + ("int8",)]
+    assert (A.attention_fwd_int8.launches, A.attention_fwd_fp8.launches,
+            A.attention_bwd_int8.launches) == (2, 2, 1)
     assert A.padded_dim(320) == A.padded_dim(300) == 320
     for dtype in (torch.float32, torch.bfloat16):
         padded, scale = A.pad_head_dim(torch.ones(1, 4, 2, 300, dtype=dtype))
         assert padded[0].shape[-1] == 320 and scale == 300**-0.5
+        fp32 = dtype == torch.float32
         for name in ("maest_attn_fwd", "maest_attn_bwd"):
-            tier = f"{name}_{'fp32' if dtype == torch.float32 else 'bf16'}"
+            tier = f"{name}_{'fp32' if fp32 else 'bf16'}"
             assert A._instance(tier, 320) == (f"{tier}_dn", (320,))
+        for name in [f"maest_attn_fwd_{m}" for m in MODES[1:]] + [
+                "maest_attn_bwd_q8"]:
+            entry = name + ("_fp32" if fp32 else "")
+            assert A._instance(entry, 320) == (f"{entry}_dn", (320,))
+            assert A._instance(entry, 256) == (f"{entry}_d256", ())
 
 
 # as tests/test_torch_attention.py: fp32 rtol 1e-3 / atol 1e-4; bf16 2e-2

@@ -104,8 +104,12 @@ def test_attention_kernel_matches_plain(cuda_device, b, n, n_real, dtype):
 def test_attention_kernel_rejects_what_it_does_not_take(cuda_device):
     """head_dim 32 runs K2 on inputs zero-padded to 64, head_dim 128 its
     D = 128 instance, 256 its D = 256 instance and 320 its runtime-width
-    (_dn) instance (each the plain version's result); under an 8-bit mode
-    head_dim 320 is refused, naming ROADMAP queue 3."""
+    (_dn) instance (each the plain version's result), and under every 8-bit
+    mode head_dim 300 and 320 run K5/K6's _dn instance (within 2 bf16 ulps
+    of the plain version's max|o|, as at 64). What stays refused: float16,
+    rows off 16-byte boundaries, tensors on two devices."""
+    from maest_tpu_torch.ops import attention as A
+
     for d in (32, 128, 256, 320):
         x = _rand((1, 8, 3, 2, d), 3).to(cuda_device)
         q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
@@ -114,10 +118,20 @@ def test_attention_kernel_rejects_what_it_does_not_take(cuda_device):
         assert flash_attention.launches == before + 1 and out.shape == q.shape
         err = (out - attention_reference(q, k, v)).abs().max().item()
         assert err <= ATTN_TOL[torch.float32], (d, err)
-    x = torch.zeros(1, 8, 3, 2, 320, device=cuda_device)
-    for quant in ("qk8", "qk8pv8", "fp8", "fp8pv8"):
-        with pytest.raises(ValueError, match="ROADMAP queue 3"):
-            flash_attention(x[:, :, 0], x[:, :, 1], x[:, :, 2], quant=quant)
+    for d in (300, 320):
+        x = _rand((1, 8, 3, 2, d), 3).to(cuda_device, torch.bfloat16)
+        q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+        for quant in Q8_MODES:
+            wrap = (A.attention_fwd_int8 if quant.startswith("qk8")
+                    else A.attention_fwd_fp8)
+            before = wrap.launches
+            out = flash_attention(q, k, v, quant=quant)
+            ref = A.attention_q8_reference(q, k, v, None, quant)[0]
+            torch.cuda.synchronize()
+            assert wrap.launches == before + 1 and out.shape == q.shape
+            top = ref.float().abs().max().item()
+            tol = 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+            assert (out.float() - ref.float()).abs().max().item() <= tol
     x = torch.zeros(1, 8, 3, 2, 64, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attention(x[:, :, 0], x[:, :, 1], x[:, :, 2])
@@ -487,9 +501,13 @@ def test_launch_probe_is_the_kernel_alone(cuda_device):
 def test_gh_kernels_equal_k2(cuda_device, b, n, n_real):
     from maest_tpu_torch.ops.attention_probe import GROUPS, attention_probe_gh
 
+    from maest_tpu_torch.ops.attention import attention_fwd_mma
+
     x = _rand((b, n, 3, 12, 64), 18).to(cuda_device, torch.bfloat16)
     q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
-    k2 = flash_attention(q, k, v, n_real=n_real)
+    # K2's mma.sync kernel, the template gh changes (the wgmma kernel's
+    # control)
+    k2 = attention_fwd_mma(q, k, v, n_real)[0]
     for g in GROUPS:
         before = attention_probe_gh.launches[g]
         out = attention_probe_gh(q, k, v, g, n_real)
@@ -742,15 +760,19 @@ def test_wide_head_dim_matches_plain(cuda_device, d, dtype):
     assert not got[1][:, 290:].any() and not got[2][:, 290:].any()
 
 
-# --- head_dim above 256: the bf16 and fp32 kernels' _dn instances ----------
+# --- head_dim above 256: every kernel's _dn instance ------------------------
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("d", [320, 512, 1024])
 def test_dn_head_dim_matches_plain(cuda_device, d, dtype):
     """K2, K3a and K3b at head_dim d through the runtime-width (_dn)
     instances, each launched once, against the plain versions within the
-    bounds head_dim 64 is held to; K7 under bwd_quant="int8" refuses d,
-    naming ROADMAP queue 3."""
+    bounds head_dim 64 is held to; K7 under bwd_quant="int8" through its
+    _dn instance, launched once: bf16 within 2e-2 of each gradient's max,
+    fp32 within 1e-5 of it but for at most 4 rows (b, n, h), all within
+    2e-2: delta sums d products in another order than plain, so the
+    q-block's max |ds| may move by an ulp and flip one ds8 code, which
+    moves one row of dq and one of dk."""
     from maest_tpu_torch.ops import attention as A
 
     x = _rand((2, 200, 4, 2, d), 50 + d).to(cuda_device, dtype)
@@ -772,8 +794,215 @@ def test_dn_head_dim_matches_plain(cuda_device, d, dtype):
             ATTN_TOL[dtype])
     assert (lse - rlse).abs().max().item() <= LSE_TOL
     assert not grads[1][:, 190:].any() and not grads[2][:, 190:].any()
-    with pytest.raises(ValueError, match="ROADMAP queue 3"):
-        A.attention_bwd_int8(q, k, v, ro, rlse, g)
+    before = A.attention_bwd_int8.launches
+    got = A.attention_bwd_int8(q, k, v, ro, rlse, g, 190)
+    want = A.attention_bwd_int8_reference(q, k, v, ro, rlse, g, 190)
+    torch.cuda.synchronize()
+    assert A.attention_bwd_int8.launches == before + 1
+    for ours, r in zip(got, want):
+        assert ours.shape == q.shape and ours.dtype == dtype
+        top = r.float().abs().max().item()
+        err = (ours.float() - r.float()).abs()
+        assert err.max().item() <= 2e-2 * top
+        if dtype == torch.float32:
+            assert int((err.amax(dim=-1) > 1e-5 * top).sum()) <= 4
+    assert not got[1][:, 190:].any() and not got[2][:, 190:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("d", [320, 512, 1024])
+@pytest.mark.parametrize("mode", Q8_MODES)
+def test_q8_dn_forward_matches_plain(cuda_device, mode, d, dtype):
+    """K5/K6 at head_dim d through their runtime-width (_dn) instances,
+    with and without lse, against attention_q8_reference on the same
+    64-key tiles, each launch counted: bf16 within 2 bf16 ulps of max|o|
+    (as at 64: one fp32 output rounded on both sides, an exp2 ulp may flip
+    one 8-bit p); fp32 qk8 and fp8 within relative L2 1e-5, the pv8 modes
+    within 2 bf16 ulps; lse within LSE_TOL."""
+    from maest_tpu_torch.ops import attention as A
+
+    x = _rand((2, 200, 3, 2, d), 60 + d).to(cuda_device, dtype)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    wrap = A.attention_fwd_int8 if mode.startswith("qk8") else A.attention_fwd_fp8
+    pv8 = mode.endswith("pv8")
+    before = wrap.launches
+    o, none = wrap(q, k, v, 190, pv8)
+    o2, lse = wrap(q, k, v, 190, pv8, with_lse=True)
+    ro, rlse = A.attention_q8_reference(q, k, v, 190, mode)
+    torch.cuda.synchronize()
+    assert wrap.launches == before + 2 and none is None
+    top = ro.float().abs().max().item()
+    ulps = 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+    for out in (o, o2):
+        assert out.shape == q.shape and out.dtype == dtype
+        err = (out.float() - ro.float()).abs().max().item()
+        if dtype == torch.float32 and not pv8:
+            assert ((out - ro).norm() / ro.norm()).item() <= 1e-5
+        else:
+            assert err <= ulps, (err, ulps)
+    assert (lse - rlse).abs().max().item() <= LSE_TOL
+
+
+# --- K2/K3a on wgmma and TMA (csrc/attn_fwd_wgmma.cuh) ----------------------
+# Against plain as every bf16 forward (2e-2, lse 1e-4), and lse within 1e-5
+# of the mma.sync control's: the same running max, and l the same fp32 p
+# summed in another order (96-key tiles against 64), a few fp32 ulps of
+# log2(l) (measured at most 1.9e-6 on an H100).
+WG_LSE_TOL = 1e-5
+WG_SHAPES = [(32, 1676, None), (32, 1792, 1676), (32, 866, None),
+             (100, 281, None), (2, 1000, 997)]
+
+
+def _wgmma_cfg(cfg, q, k, v, n_real=None, with_lse=False):
+    from maest_tpu_torch.ops import attention as A
+
+    return A.launch_fwd_entry("attention_fwd", "maest_attn_fwd_bf16_wgmma",
+                              (cfg,), q, k, v, n_real, with_lse,
+                              q.shape[-1]**-0.5)
+
+
+@pytest.mark.parametrize("layout", ["strided", "contiguous"])
+@pytest.mark.parametrize("b,n,n_real", WG_SHAPES)
+def test_wgmma_forward_matches_plain_and_control(cuda_device, b, n, n_real,
+                                                 layout):
+    """K2 and K3a (the wgmma kernel, through flash_attention and
+    flash_attention_fwd_lse, each launched once) at the main path's
+    shapes, on strided views of a fused qkv and on contiguous q, k, v:
+    within the bf16 bound of plain, lse within LSE_TOL of plain and
+    WG_LSE_TOL of the control's, the two outputs equal."""
+    from maest_tpu_torch.ops.attention import attention_fwd_mma
+
+    x = _rand((b, n, 3, 12, 64), 70 + n).to(cuda_device, torch.bfloat16)
+    q, k, v = x.unbind(2)
+    if layout == "contiguous":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    before = (flash_attention.launches, flash_attention_fwd_lse.launches)
+    with torch.inference_mode():
+        o = flash_attention(q, k, v, n_real=n_real)
+    ol, lse = flash_attention_fwd_lse(q, k, v, n_real)
+    c, cl = attention_fwd_mma(q, k, v, n_real, with_lse=True)
+    r, rl = attention_reference_lse(q, k, v, n_real)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_fwd_lse.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(o, ol) and o.shape == q.shape
+    tol = ATTN_TOL[torch.bfloat16]
+    assert (o.float() - r.float()).abs().max().item() <= tol
+    assert (c.float() - r.float()).abs().max().item() <= tol
+    assert (lse - rl).abs().max().item() <= LSE_TOL
+    assert (lse - cl).abs().max().item() <= WG_LSE_TOL
+
+
+@pytest.mark.parametrize("cfg", range(8))
+def test_wgmma_sweep_configurations_match_plain(cuda_device, cfg):
+    """Every configuration of the tile sweep (maest_attn_fwd_bf16_wgmma)
+    within the bf16 bound of plain with and without lse, at a ragged N
+    and n_real; the production route takes 112-key tiles (4) where they
+    pad n_real less than 96-key ones (0): at 997 (1008 against 1056) and
+    at 281 not (336 against 288); 2 (64-key tiles) equals the control
+    bit for bit."""
+    from maest_tpu_torch.ops.attention import attention_fwd_mma
+
+    x = _rand((2, 1000, 3, 12, 64), 80).to(cuda_device, torch.bfloat16)
+    q, k, v = x.unbind(2)
+    o, lse = _wgmma_cfg(cfg, q, k, v, 997, True)
+    o2, none = _wgmma_cfg(cfg, q, k, v, 997, False)
+    r, rl = attention_reference_lse(q, k, v, 997)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(o, o2)
+    tol = ATTN_TOL[torch.bfloat16]
+    assert (o.float() - r.float()).abs().max().item() <= tol
+    assert (lse - rl).abs().max().item() <= LSE_TOL
+    if cfg == 4:
+        assert torch.equal(o, flash_attention(q, k, v, n_real=997))
+    if cfg == 0:
+        o281 = _wgmma_cfg(cfg, q, k, v, 281)[0]
+        assert torch.equal(o281, flash_attention(q, k, v, n_real=281))
+    if cfg == 2:
+        c, cl = attention_fwd_mma(q, k, v, 997, with_lse=True)
+        assert torch.equal(o, c) and torch.equal(lse, cl)
+
+
+def test_wgmma_check_refuses_the_mask_dropped(cuda_device, tmp_path):
+    """The wgmma kernel built with its key mask dropped (a copy of csrc/ in
+    a temporary directory): the keys at or past n_real in the last tile
+    take mass. With v = 8 past n_real 900 of 1000, the check that holds the
+    sound kernel to plain refuses it. The copy runs in a process of its
+    own: a second copy of a kernel this process has launched does not take
+    its dynamic shared-memory limit (its launch fails). Run with -s to see
+    the gap."""
+    import json
+    import shutil
+    import subprocess
+    import sys
+
+    from maest_tpu_torch.ops import _build
+
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, src)
+    header = src / "attn_fwd_wgmma.cuh"
+    text = header.read_text()
+    old = "            const float x = key < n_real ? s[nt][e] * sl : NEG_INF;"
+    assert text.count(old) == 1
+    header.write_text(text.replace(
+        old, "            const float x = s[nt][e] * sl;"))
+    lib = tmp_path / "attention_fwd.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(src / "attention_fwd.cu")], check=True,
+                   capture_output=True)
+    def inputs():
+        x = _rand((2, 1000, 3, 12, 64), 81).to(cuda_device, torch.bfloat16)
+        x[:, 900:, 2] = 8.0
+        return x.unbind(2)
+
+    q, k, v = inputs()
+    r = attention_reference(q, k, v, 900)
+    sound = (flash_attention(q, k, v, n_real=900).float()
+             - r.float()).abs().max().item()
+    code = (
+        "import ctypes, json, sys, torch\n"
+        f"sys.path.insert(0, {str(_build.CSRC.parents[1])!r})\n"
+        "import numpy as np\n"
+        "from maest_tpu_torch.ops import _build, attention as A\n"
+        f"_build._libs['attention_fwd'] = ctypes.CDLL({str(lib)!r})\n"
+        "x = torch.from_numpy(np.random.default_rng(81).standard_normal("
+        "(2, 1000, 3, 12, 64)).astype(np.float32)).cuda().bfloat16()\n"
+        "x[:, 900:, 2] = 8.0\n"
+        "q, k, v = x.unbind(2)\n"
+        "bad = A.launch_fwd_entry('attention_fwd', 'maest_attn_fwd_bf16', (),"
+        " q, k, v, 900, False, 0.125)[0]\n"
+        "r = A.attention_reference(q, k, v, 900)\n"
+        "print(json.dumps((bad.float() - r.float()).abs().max().item()))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    gap = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"planted: the wgmma kernel without its key mask: max|out - plain| "
+          f"{gap:.4g} against the bound {ATTN_TOL[torch.bfloat16]} (sound "
+          f"{sound:.4g})")
+    assert sound <= ATTN_TOL[torch.bfloat16] < gap
+
+
+def test_k2_control_hook_routes_the_model(cuda_device, monkeypatch):
+    """The private hook that lets a measurement time the model with the
+    control: with it set, the bf16 forward at head_dim 64 launches the
+    mma.sync kernel (counted in attention_fwd_mma) and not the wgmma one,
+    and the tagging activations stay within 1e-2 of the wgmma route's."""
+    from maest_tpu_torch.ops import attention as A
+
+    model = get_maest(device=cuda_device, dtype=torch.bfloat16, **TINY)
+    with torch.no_grad():  # zero heads would hide every difference
+        model.net.head[1].weight.copy_(_rand((16, 128), 1, 0.2))
+    wave = _rand(3 * 16000 + 77, 83, 0.3).numpy()
+    ours = model.predict_labels(wave)[0]
+    before = (A.flash_attention.launches, A.attention_fwd_mma.launches)
+    monkeypatch.setattr(A, "_K2_CONTROL", True)
+    ctrl = model.predict_labels(wave)[0]
+    grew = (A.flash_attention.launches - before[0],
+            A.attention_fwd_mma.launches - before[1])
+    assert grew[0] == 0 and grew[1] > 0, grew
+    assert np.abs(ours - ctrl).max() <= 1e-2
 
 
 # --- P4: the backward rig's kernels (ops/bwd_probe.py) ----------------------
@@ -1036,10 +1265,14 @@ def test_int8_rigs_on_the_card(cuda_device, capsys):
 def test_qpad_and_tiles_match_plain_and_k2(cuda_device, b, n):
     from maest_tpu_torch.ops import attention_probe as P
 
+    from maest_tpu_torch.ops.attention import attention_fwd_mma
+
     x = _rand((b, n, 3, 12, 64), 31).to(cuda_device, torch.bfloat16)
     q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
-    k2 = flash_attention(q, k, v)
-    k3a = flash_attention_fwd_lse(q, k, v)
+    # K2 and K3a's mma.sync kernel, the template qpad and the tiles change
+    # (the wgmma kernel's control)
+    k2 = attention_fwd_mma(q, k, v)[0]
+    k3a = attention_fwd_mma(q, k, v, with_lse=True)
     for g in P.QPAD_GROUPS:
         if b * 12 % g:
             continue
