@@ -43,8 +43,8 @@ through the runtime-width (_dn) instances of K2, K3a, K3b, K5/K6 in every
 mode and K7 in bf16 and fp32 (and K4's shape at 320) (23); K2 and K3b at
 other tiles, the kernels of ``scripts/qpad_probe.py`` (P9) and
 ``scripts/attn_tune.py`` (P7), against their plain versions at every shape
-a phase launches them at and bit-equal to K2's mma.sync kernel / K3b where
-their arithmetic is theirs (24); and both rigs,
+a phase launches them at and bit-equal to K2's / K3b's mma.sync kernels
+where their arithmetic is theirs (24); and both rigs,
 ``python -m maest_tpu_torch.probes.qpad`` and ``python -m
 maest_tpu_torch.probes.attn_tune [--bwd]``, called in process with the
 launch counters reset (25). Then the product kernel of
@@ -64,8 +64,9 @@ kind's kernel against its plain version with a planted fault refused, and
 both rigs, ``python -m maest_tpu_torch.probes.int8`` and ``...
 probes.int8_2``, in process with the counters reset (28). Then this
 slice: the backward rig ``scripts/bwd_int8_probe.py`` (P4), its int8 kind
-(K7's kernels with the rig's fixed scales), fp8 kind (K3b's on e4m3) and
-ctrl (K3b) against their plain versions at the rig's own shape, planted
+(K7's kernels with the rig's fixed scales), fp8 kind (K3b's mma.sync
+kernels on e4m3) and ctrl (K3b, the wgmma backward since phase 31's
+slice) against their plain versions at the rig's own shape, planted
 faults refused (the int8 kind built with the wrapping ``to_s8`` for ds8;
 ctrl's dq zeroed and its lse misplaced), and the rig, ``python -m
 maest_tpu_torch.probes.bwd_int8``, in process with the counters reset
@@ -76,8 +77,18 @@ path's shapes on strided and contiguous views, every tile configuration
 of its sweep against plain, the kernel built with its key mask dropped
 refused, then the kernel, the control, SDPA and the sweep timed by
 CUDA-graph replays in interleaved rounds, and the tagging and recipe
-steps with each kernel in turn (30). Phase 2 also counts the wgmma and
-TMA instructions in the SASS of the wgmma kernels. Every phase
+steps with each kernel in turn (30). Then K3b/K4's kernel on ``wgmma``
+and TMA (``csrc/attn_bwd_wgmma.cuh``, one score pass per key tile and q
+tile, the route of the bf16 backward at head_dim 64) against its tiled
+plain version, ``attention_bwd_reference`` and its mma.sync control at
+(32, 866), (32, 896) n_real 866, (100, 281) and (2, 4500) n_real 4400 on
+strided views, two launches bit-equal, masked dk/dv exactly zero, every
+configuration of its sweep against plain, the kernel built with its key
+mask dropped refused, then the kernel, the control, SDPA's backward and
+the sweep timed by CUDA-graph replays in interleaved rounds, and the 30 s
+and 10 s recipe steps with each backward in turn (31). Phase 2 also
+counts the wgmma and TMA instructions in the SASS of the wgmma kernels
+and checks that the production ones spill nothing. Every phase
 prints one line per check; any failure raises, so the exit code is not 0.
 The card's name and power limit, the JSON record of the kernels (with each
 one's bound: the least time the card could take for its work at the
@@ -215,6 +226,15 @@ WG_LSE_TOL = 1e-5
 WG_CONFIGS = ("96x3 turns", "96x3", "64x3 turns", "64x2 turns",
               "112x3 turns", "128x3 turns", "128x2 turns", "192x2 turns")
 WG_ROUNDS = 5
+# the configurations of maest_attn_bwd_bf16_wgmma (csrc/attention_bwd.cu):
+# q rows a tile x consumer warpgroups of 64 keys, with or without turns;
+# the production route takes WG_BWD_PRODUCTION
+WG_BWD_CONFIGS = ("64x2", "64x2 turns", "128x2", "128x2 turns")
+WG_BWD_PRODUCTION = 0
+# phase 31's shapes: the 30 s recipe's, padded with n_real, the 10 s
+# recipe's and K4's regime (as phase 9)
+BWD_WG_SHAPES = ((BATCH, 866, None), (BATCH, 896, 866), (100, 281, None),
+                 (2, 4500, 4400))
 
 
 def wg_production(n_real: int) -> int:
@@ -1946,8 +1966,10 @@ def phase_tile_kernels(dev):
     kernel, the control of the wgmma one: ``attention_fwd_mma``); the nine
     backward tiles
     at (32, 281) and (32, 866) within phase 9's bound of
-    attention_bwd_reference and equal to K3b bit for bit (a tile changes
-    which block holds a warp's rows, not the order of its sums: the rows
+    attention_bwd_reference and equal bit for bit to K3b's mma.sync
+    kernels (the control of the wgmma backward: ``attention_bwd_mma``; a
+    tile changes which block holds a warp's rows, not the order of its
+    sums: the rows
     past N that a longer last tile adds contribute exact zeros). A zero
     output and the
     last tile's zero keys left unmasked fail the forward check. Returns the
@@ -2039,7 +2061,7 @@ def phase_tile_kernels(dev):
             torch.bfloat16)
         q, k, v, do = x.unbind(2)
         o, lse = A.flash_attention_fwd_lse(q, k, v)
-        k3b = A.attention_bwd(q, k, v, o, lse, do)
+        k3b = A.attention_bwd_mma(q, k, v, o, lse, do)  # their own kernels
         ref = A.attention_bwd_reference(q, k, v, o, lse, do)
         worst = 0.0
         for rows in P.BWD_TILES:
@@ -2053,9 +2075,9 @@ def phase_tile_kernels(dev):
                 check(e <= ATTN_TOL["bfloat16"], f"bwd tile {rows}x{tile} "
                       f"({b}, {n}) err {e}")
                 check(all(torch.equal(a, r) for a, r in zip(got, k3b)),
-                      f"bwd tile {rows}x{tile} ({b}, {n}) differs from K3b "
-                      "by " + ", ".join(f"{max_err(a, r):.3e}"
-                                         for a, r in zip(got, k3b)))
+                      f"bwd tile {rows}x{tile} ({b}, {n}) differs from K3b's "
+                      "control by " + ", ".join(f"{max_err(a, r):.3e}"
+                                                for a, r in zip(got, k3b)))
                 worst = max(worst, e)
         out["bwd_err"] = max(out["bwd_err"], worst)
         if n == 866:
@@ -2063,8 +2085,8 @@ def phase_tile_kernels(dev):
                 lambda: A.attention_bwd_reference(q, k, v, o, lse, do), 3)
         print(f"phase 24 P7 backward tiles (32, 64, 128) x (32, 64, 128) "
               f"({b}, {n}, 12, 64) bf16: max_abs_err vs plain {worst:.3e} <= "
-              f"{ATTN_TOL['bfloat16']}; every tile torch.equal to K3b",
-              flush=True)
+              f"{ATTN_TOL['bfloat16']}; every tile torch.equal to K3b's "
+              "mma.sync control (attention_bwd_mma)", flush=True)
         del x, q, k, v, do, o, lse, k3b, ref
         torch.cuda.empty_cache()
     return out
@@ -2077,8 +2099,9 @@ def phase_tune_rigs():
     100x281,32x272,32x281,32x1676``, ``python -m
     maest_tpu_torch.probes.attn_tune --archs 30s,10s-train`` (N 1676 and
     281) and ``--bwd --archs 30s-train,10s-train`` (N 866 and 281), with the
-    launch counters of K2, K3a, K3b, the qpad groups and the tiles set to 0
-    just before and read just after: each must have run. Then the tile
+    launch counters of K2, K3a, K3b, their controls, the qpad groups and
+    the tiles set to 0 just before and read just after: each must have
+    run. Then the tile
     with the lowest median over the sweep's rounds, forward at (32, 281)
     and backward at (32, 866), is timed again on its own, so the kernels
     line does not take the fastest of nine noisy readings (CUDA-graph
@@ -2097,7 +2120,7 @@ def phase_tune_rigs():
           "attn_tune " + " ".join(args[1]) + "; ... attn_tune "
           + " ".join(args[2]), flush=True)
     _reset_counts()
-    A.attention_fwd_mma.launches = 0
+    A.attention_fwd_mma.launches = A.attention_bwd_mma.launches = 0
     for counts in (P.attention_probe_qpad.launches,
                    P.attention_probe_tile.launches,
                    P.attention_bwd_tile.launches):
@@ -2106,9 +2129,10 @@ def phase_tune_rigs():
     res = {"qpad": qpad.main(args[0]), "fwd": attn_tune.main(args[1]),
            "bwd": attn_tune.main(args[2])}
     fns, counts = _q8_counts()
-    # the rigs' K2 and K3a are the control; their vjp the production K3a
+    # the rigs' K2, K3a and K3b are the controls; qpad's vjp the production
+    # K3a and K3b
     launches = {"control": A.attention_fwd_mma.launches, "fwd_lse": counts[1],
-                "bwd": counts[2],
+                "bwd": counts[2], "bwd control": A.attention_bwd_mma.launches,
                 **{f"qpad G{g}": c
                    for g, c in P.attention_probe_qpad.launches.items()},
                 **{f"tile {r}x{t}": c
@@ -2643,6 +2667,13 @@ PLANT_NO_MASK = (
     "            const float x = s[nt][e] * sl;")
 
 
+# phase 31's planted fault: the wgmma backward's key mask dropped, so the
+# keys at or past n_real take mass (and get dk, dv)
+PLANT_BWD_NO_MASK = (
+    "    const bool live0 = key0 < n_real, live1 = key0 + 8 < n_real;",
+    "    const bool live0 = key0 < n, live1 = key0 + 8 < n;")
+
+
 def _build_planted(tag, lib, header, plant) -> tuple[Path, float]:
     """``csrc/<lib>.cu`` with the one line ``plant[0]`` of ``header`` (a
     file of ``csrc/``) replaced by ``plant[1]``, built from a copy of
@@ -2685,6 +2716,13 @@ def build_planted_no_mask() -> tuple[Path, float]:
     (phase 30 shows its check refusing the kernel so built)."""
     return _build_planted("no_mask", "attention_fwd", "attn_fwd_wgmma.cuh",
                           PLANT_NO_MASK)
+
+
+def build_planted_bwd_no_mask() -> tuple[Path, float]:
+    """``csrc/attention_bwd.cu`` with the wgmma backward's key mask dropped
+    (phase 31 shows its check refusing the kernel so built)."""
+    return _build_planted("bwd_no_mask", "attention_bwd",
+                          "attn_bwd_wgmma.cuh", PLANT_BWD_NO_MASK)
 
 
 def sass_counts(path: Path, pattern: str) -> dict:
@@ -3112,6 +3150,247 @@ def phase_wgmma(dev, gpu, planted_lib):
     return out
 
 
+def _bwd_cfg(cfg, q, k, v, o, lse, do, n_real=None):
+    """The wgmma backward in sweep configuration ``cfg`` (WG_BWD_CONFIGS),
+    (dq, dk, dv): the entry the production route does not take."""
+    from maest_tpu_torch.ops import attention as A
+
+    return A.launch_bwd_entry("maest_attn_bwd_bf16_wgmma", (cfg,), q, k, v, o,
+                              lse, do, n_real, q.shape[-1]**-0.5).unbind(2)
+
+
+def _bwd_wgmma_checks(dev, planted_lib):
+    """Phase 31's checks: K3b/K4 (the wgmma kernel, through
+    ``attention_bwd``, each launch counted) at (32, 866), (32, 896) n_real
+    866, (100, 281) and (2, 4500) n_real 4400 on strided views of one fused
+    q/k/v/do, against the tiled plain version and ``attention_bwd_reference``
+    within ATTN_TOL["bfloat16"]; masked dk and dv exactly zero; two launches
+    torch.equal; the control within the same bound of plain; every sweep
+    configuration against plain, the production one torch.equal to the
+    route; the kernel built with its key mask dropped refused. Returns the
+    worst errors."""
+    from maest_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    tol = ATTN_TOL["bfloat16"]
+    worst = dict.fromkeys(("plain", "tiled", "control", "sweep"), 0.0)
+    for b, n, n_real in BWD_WG_SHAPES:
+        x = torch.randn((b, n, 4, 12, 64), generator=gen, device=dev).to(
+            torch.bfloat16)
+        q, k, v, do = x.unbind(2)
+        o, lse = A.flash_attention_fwd_lse(q, k, v, n_real)
+        before = A.attention_bwd.launches
+        g = A.attention_bwd(q, k, v, o, lse, do, n_real)
+        again = A.attention_bwd(q, k, v, o, lse, do, n_real)
+        c = A.attention_bwd_mma(q, k, v, o, lse, do, n_real)
+        r = A.attention_bwd_reference(q, k, v, o, lse, do, n_real)
+        tr = A.attention_bwd_tiled_reference(q, k, v, o, lse, do, n_real)
+        torch.cuda.synchronize()
+        check(A.attention_bwd.launches == before + 2, "K3b counter")
+        e = max(max_err(a, z) for a, z in zip(g, r))
+        et = max(max_err(a, z) for a, z in zip(g, tr))
+        ec = max(max_err(a, z) for a, z in zip(c, r))
+        same = all(torch.equal(a, z) for a, z in zip(g, again))
+        zero = n_real is None or not (g[1][:, n_real:].any()
+                                      or g[2][:, n_real:].any())
+        check(e <= tol and et <= tol and ec <= tol and same and zero,
+              f"wgmma backward ({b}, {n}) n_real {n_real}: vs plain {e}, vs "
+              f"tiled {et}, control {ec}, deterministic {same}, masked zero "
+              f"{zero}")
+        sweep = 0.0
+        for cfg in range(len(WG_BWD_CONFIGS)):
+            gc = _bwd_cfg(cfg, q, k, v, o, lse, do, n_real)
+            torch.cuda.synchronize()
+            es = max(max_err(a, z) for a, z in zip(gc, r))
+            check(es <= tol, f"wgmma backward {WG_BWD_CONFIGS[cfg]} ({b}, "
+                  f"{n}) err {es}")
+            if cfg == WG_BWD_PRODUCTION:
+                check(all(torch.equal(a, z) for a, z in zip(gc, g)),
+                      f"config {cfg} is the production route")
+            sweep = max(sweep, es)
+        for key, val in (("plain", e), ("tiled", et), ("control", ec),
+                         ("sweep", sweep)):
+            worst[key] = max(worst[key], val)
+        print(f"phase 31 wgmma K3b/K4 ({b}, {n}, 12, 64) n_real {n_real} "
+              f"strided: max_abs_err vs plain {e:.3e}, vs the tiled plain "
+              f"version {et:.3e}, the control vs plain {ec:.3e} <= {tol}; "
+              f"two launches torch.equal: {same}; masked dk/dv exactly 0: "
+              f"{zero}; every sweep configuration vs plain <= {sweep:.3e}",
+              flush=True)
+        del x, q, k, v, do, o, lse, g, again, c, r, tr
+        torch.cuda.empty_cache()
+
+    # the planted fault: keys at or past n_real hold k = 4, so any mass they
+    # take moves dq far past the bound and gives them dk, dv
+    x = _bwd_planted_inputs(dev)
+    q, k, v, do = x.unbind(2)
+    o, lse = A.flash_attention_fwd_lse(q, k, v, 900)
+    sound = max(max_err(a, z) for a, z in zip(
+        A.attention_bwd(q, k, v, o, lse, do, 900),
+        A.attention_bwd_reference(q, k, v, o, lse, do, 900)))
+    eb, masked = _bwd_planted_err(planted_lib)
+    check(sound <= tol < eb and masked > 0,
+          f"planted no-mask {eb} (masked dk/dv {masked}), sound {sound}")
+    print(f"phase 31 planted fault, the wgmma backward built with its key "
+          f"mask dropped, at (2, 1000, 12, 64) n_real 900 with k = 4 past "
+          f"it: max_abs_err {eb:.3e} > {tol}, masked dk/dv up to "
+          f"{masked:.3e}: refused (the sound kernel {sound:.3e})", flush=True)
+    del x, q, k, v, do, o, lse
+    return worst
+
+
+def _bwd_planted_inputs(dev):
+    """Phase 31's planted fault's (2, 1000, 4, 12, 64) bf16 q/k/v/do, k = 4
+    at keys 900 on, drawn from seed 34."""
+    gen = torch.Generator(device=dev).manual_seed(34)
+    x = torch.randn((2, 1000, 4, 12, 64), generator=gen, device=dev).to(
+        torch.bfloat16)
+    x[:, 900:, 1] = 4.0
+    return x
+
+
+def _bwd_planted_err(lib: Path) -> tuple[float, float]:
+    """(max|grads - plain|, max|dk, dv past n_real|) of maest_attn_bwd_bf16
+    from the library ``lib`` on ``_bwd_planted_inputs`` with n_real 900, run
+    in a process of its own (as ``_planted_err``)."""
+    code = (
+        "import ctypes, json, sys, torch\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import chip_smoke as C\n"
+        "from maest_tpu_torch.ops import _build, attention as A\n"
+        f"_build._libs['attention_bwd'] = ctypes.CDLL({str(lib)!r})\n"
+        "q, k, v, do = C._bwd_planted_inputs(torch.device('cuda')).unbind(2)\n"
+        "o, lse = A.flash_attention_fwd_lse(q, k, v, 900)\n"
+        "bad = A.launch_bwd_entry('maest_attn_bwd_bf16', (), q, k, v, o, lse,"
+        " do, 900, 0.125).unbind(2)\n"
+        "ref = A.attention_bwd_reference(q, k, v, o, lse, do, 900)\n"
+        "print(json.dumps([max(C.max_err(a, r) for a, r in zip(bad, ref)), "
+        "max(g[:, 900:].float().abs().max().item() for g in bad[1:])]))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=ROOT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the planted fault's process failed:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return tuple(json.loads(proc.stdout.strip().splitlines()[-1]))
+
+
+def sdpa_bwd_call(q, k, v, do):
+    """One call of SDPA's backward (the flash backend's aten op, on its own
+    forward's saved tensors) on (B, N, H, D) bf16: the library call that
+    computes K3b's function, which the port never calls."""
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    saved = torch.ops.aten._scaled_dot_product_flash_attention(qt, kt, vt)
+    o, lse, cq, ck, mq, mk, seed, offset = saved[:8]
+    return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        dot, qt, kt, vt, o, lse, cq, ck, mq, mk, 0.0, False, seed, offset)
+
+
+def phase_bwd_wgmma(dev, gpu, planted_lib):
+    """Phase 31: K3b/K4's wgmma kernel (``csrc/attn_bwd_wgmma.cuh``, the
+    production route of ``maest_attn_bwd_bf16``) beside its mma.sync
+    control (``attention_bwd_mma``) and SDPA's backward. First
+    ``_bwd_wgmma_checks``. Then CUDA-graph replays of the kernel, the
+    control, SDPA's backward and every other sweep configuration in
+    WG_ROUNDS interleaved rounds (each once a round, the order reversed
+    every other round) at (32, 866, 12, 64), (100, 281, 12, 64) and (2,
+    4500, 12, 64) n_real 4400 (SDPA at (2, 4400): its flash backend takes no
+    key mask), every round printed; then the 30 s recipe step (B32, N 866)
+    and the 10 s recipe step (B100, N 281) with each kernel in turn, the
+    control reached through the private hook ``ops.attention._K3B_CONTROL``,
+    CUDA events over 3 steps a round after one, the launch counters checked
+    on each. Returns the errors, the medians and the launches."""
+    from maest_tpu_torch.ops import attention as A
+    from maest_tpu_torch.probes.attn_profile import graph_ms
+
+    out = {"err": _bwd_wgmma_checks(dev, planted_lib), "rounds": {}, "ms": {},
+           "launches": {}}
+    gen = torch.Generator(device=dev).manual_seed(32)
+    for b, n, n_real in ((BATCH, 866, None), (100, 281, None),
+                         (2, 4500, 4400)):
+        x = torch.randn((b, n, 4, 12, 64), generator=gen, device=dev).to(
+            torch.bfloat16)
+        q, k, v, do = x.unbind(2)
+        o, lse = A.flash_attention_fwd_lse(q, k, v, n_real)
+        real = slice(0, n_real or n)
+        fns = {"wgmma": lambda: A.attention_bwd(q, k, v, o, lse, do, n_real),
+               "control": lambda: A.attention_bwd_mma(q, k, v, o, lse, do,
+                                                      n_real),
+               "sdpa": sdpa_bwd_call(*(t[:, real] for t in (q, k, v, do)))}
+        for cfg in range(len(WG_BWD_CONFIGS)):
+            if cfg != WG_BWD_PRODUCTION:
+                fns[WG_BWD_CONFIGS[cfg]] = (lambda cfg=cfg: _bwd_cfg(
+                    cfg, q, k, v, o, lse, do, n_real))
+        rows = {key: [] for key in fns}
+        for rnd in range(WG_ROUNDS):
+            order = list(fns) if rnd % 2 == 0 else list(fns)[::-1]
+            for key in order:
+                rows[key].append(graph_ms(fns[key], 10, dev, reps=1))
+            print(f"phase 31 K3b/K4 ({b}, {n}, 12, 64) n_real {n_real} round "
+                  f"{rnd + 1} CUDA-graph ms: " + ", ".join(
+                      f"{key} {rows[key][-1]:.4f}" for key in fns)
+                  + f" [{gpu}]", flush=True)
+        med = {key: float(np.median(ms)) for key, ms in rows.items()}
+        every = all(w < c for w, c in zip(rows["wgmma"], rows["control"]))
+        print(f"phase 31 K3b/K4 ({b}, {n}, 12, 64) n_real {n_real} medians: "
+              f"wgmma {med['wgmma']:.4f} ms "
+              f"({WG_BWD_CONFIGS[WG_BWD_PRODUCTION]}), control "
+              f"{med['control']:.4f} ms ({med['control'] / med['wgmma']:.2f}"
+              f"x), SDPA's backward {med['sdpa']:.4f} ms; the wgmma kernel "
+              f"beat the control in every round: {every}; fastest of all: "
+              f"{min(med, key=med.get)} [{gpu}]", flush=True)
+        out["rounds"][(b, n)] = rows
+        out["ms"][(b, n)] = med
+        del x, q, k, v, do, o, lse, fns
+        torch.cuda.empty_cache()
+
+    # the recipe steps with each kernel, in turn
+    _, mcfg, net, state, step, data = _recipe(dev, RECIPE, BATCH, 31)
+    _, mcfg10, net10, state10, step10, data10 = _recipe(
+        dev, "maest_10s_from_passt_pretrain", 100, 31)
+    gen_step = torch.Generator().manual_seed(31)
+    steps = {"recipe": (lambda: step(state, data, gen_step), mcfg.depth),
+             "recipe 10 s B100": (lambda: step10(state10, data10, gen_step),
+                                  mcfg10.depth)}
+    counts = (A.attention_bwd, A.attention_bwd_mma)
+    step_ms = {(s_, r_): [] for s_ in steps for r_ in ("wgmma", "control")}
+    try:
+        for rnd in range(WG_ROUNDS):
+            for what, (fn, depth) in steps.items():
+                order = ("wgmma", "control") if rnd % 2 == 0 else (
+                    "control", "wgmma")
+                for route in order:
+                    A._K3B_CONTROL = route == "control"
+                    for f in counts:
+                        f.launches = 0
+                    step_ms[(what, route)].append(cuda_ms(fn, 3))
+                    got = tuple(f.launches for f in counts)
+                    want = (0, 4 * depth) if A._K3B_CONTROL else (4 * depth, 0)
+                    check(got == want, f"{what} with the {route}: launches "
+                          f"{got}")
+                    out["launches"][(what, route)] = got
+            print(f"phase 31 steps round {rnd + 1} (CUDA events, ms a step): "
+                  + ", ".join(f"{w} with the {r} {ms[-1]:.3f}"
+                              for (w, r), ms in step_ms.items())
+                  + f" [{gpu}]", flush=True)
+    finally:
+        A._K3B_CONTROL = False
+    for key, ms in step_ms.items():
+        out["ms"][key] = float(np.median(ms))
+    won = {w: sum(a < c for a, c in zip(step_ms[(w, "wgmma")],
+                                        step_ms[(w, "control")]))
+           for w in steps}
+    print(f"phase 31 steps, medians of {WG_ROUNDS} rounds: {RECIPE} B{BATCH} "
+          f"{out['ms'][('recipe', 'wgmma')]:.3f} ms with the wgmma backward "
+          f"against {out['ms'][('recipe', 'control')]:.3f} with the control; "
+          f"the 10 s recipe B100 {out['ms'][('recipe 10 s B100', 'wgmma')]:.3f}"
+          f" against {out['ms'][('recipe 10 s B100', 'control')]:.3f}; rounds "
+          f"won by the wgmma backward {won}; launches a round (K3b, control) "
+          f"{out['launches']} [{gpu}]", flush=True)
+    del net, state, step, data, net10, state10, step10, data10
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on a GPU",
@@ -3141,12 +3420,14 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = ("mel_kernel", "attention_fwd", "attention_bwd", "attention_fwd_q8",
             "attention_bwd_q8", "attention_probe", "mma_probe")
-    with ThreadPoolExecutor(len(libs) + 2) as pool:  # one nvcc per source
+    with ThreadPoolExecutor(len(libs) + 3) as pool:  # one nvcc per source
         planted = pool.submit(build_planted_to_s8)
         no_mask = pool.submit(build_planted_no_mask)
+        bwd_no_mask = pool.submit(build_planted_bwd_no_mask)
         built = dict(zip(libs, pool.map(timed_build, libs)))
         planted_lib, planted_s = planted.result()
         no_mask_lib, no_mask_s = no_mask.result()
+        bwd_no_mask_lib, bwd_no_mask_s = bwd_no_mask.result()
     wall = time.perf_counter() - t0
     for lib in libs:
         _build.load_library(lib)
@@ -3155,7 +3436,9 @@ def main() -> int:
           + ", ".join(f"{lib} {s:.1f} s" for lib, (_, s) in built.items())
           + f"; phase 29's planted copy of attention_bwd_q8, to_s8 for ds8, "
           f"{planted_s:.1f} s; phase 30's of attention_fwd, the wgmma "
-          f"kernel's key mask dropped, {no_mask_s:.1f} s)", flush=True)
+          f"kernel's key mask dropped, {no_mask_s:.1f} s; phase 31's of "
+          f"attention_bwd, the wgmma backward's key mask dropped, "
+          f"{bwd_no_mask_s:.1f} s)", flush=True)
     for lib, (log, _) in built.items():  # empty where a build was reused
         print(f"phase 2 ptxas {lib}: " + "; ".join(ptxas_rows(log)),
               flush=True)
@@ -3173,6 +3456,24 @@ def main() -> int:
               f"{k}: {h} HGMMA, {t} UTMALDG of {i} instructions"
               for k, (h, t, i) in sorted(sass.items()))
           + "; ptxas: " + "; ".join(wg_rows), flush=True)
+    # the wgmma backward: every sweep configuration forms its products on
+    # wgmma and loads on TMA; the production one spills nothing
+    bw_rows = [r for r in ptxas_rows(built["attention_bwd"][0])
+               if "attn_bwd_wgmma_kernel" in r or "attn_bwd_prep" in r]
+    bw_sass = sass_counts(_build.build("attention_bwd")[0],
+                          "attn_bwd_wgmma_kernel")
+    check(len(bw_sass) == len(WG_BWD_CONFIGS) and all(
+        h > 0 and t > 0 for h, t, _ in bw_sass.values()),
+        f"wgmma/TMA instructions of the wgmma backward kernels {bw_sass}")
+    production = "attn_bwd_wgmma_kernel<64, 2, 0>"
+    check(any(production in r for r in bw_rows) and all(
+        r.endswith("spills 0/0 bytes") for r in bw_rows
+        if production in r or "attn_bwd_prep" in r),
+        f"the production wgmma backward spills: {bw_rows}")
+    print("phase 2 SASS of the wgmma backward kernels: " + "; ".join(
+              f"{k}: {h} HGMMA, {t} UTMALDG of {i} instructions"
+              for k, (h, t, i) in sorted(bw_sass.items()))
+          + "; ptxas: " + "; ".join(bw_rows), flush=True)
 
     mel_err, attn_err = phase_kernels_vs_plain(dev)
     sd = phase_golden(dev)
@@ -3205,6 +3506,7 @@ def main() -> int:
     i8 = phase_int8_rigs(dev, gpu)
     p4 = phase_bwd_rig(dev, gpu, planted_lib)
     wg = phase_wgmma(dev, gpu, no_mask_lib)
+    bw = phase_bwd_wgmma(dev, gpu, bwd_no_mask_lib)
 
     frames = BATCH * 1876  # frames of 32 clips of 30 s
     mel_ops = frames * (512 + 4 * 512 * 257 + 3 * 257 + 2 * 257 * 96 + 96)
@@ -3265,9 +3567,10 @@ def main() -> int:
          "maest_tpu/ops/attention.py:404", train_launches["fwd_lse"],
          max(train_err["o"], train_err["lse"]), tt["fwd_lse"], "fwd_lse",
          lib["fwd_lse"]),
-        ("attention_bwd", "attention_bwd.cu", "maest_tpu/ops/attention.py:483",
-         train_launches["bwd"], max(train_err[w] for w in ("dq", "dk", "dv")),
-         tt["bwd"], "bwd", lib["bwd"]),
+        ("attention_bwd", "attn_bwd_wgmma.cuh",
+         "maest_tpu/ops/attention.py:483", train_launches["bwd"],
+         max(train_err[w] for w in ("dq", "dk", "dv")), tt["bwd"], "bwd",
+         lib["bwd"]),
         ("attention_fwd_int8", "attention_fwd_q8.cu",
          "maest_tpu/ops/attention.py:140", q8_launches["int8"], q8["err_int8"],
          q8["qk8"], "qk8", None),
@@ -3277,7 +3580,7 @@ def main() -> int:
         ("attention_bwd_int8", "attention_bwd_q8.cu",
          "maest_tpu/ops/attention.py:530", k7_launches, k7["err"], k7["ms"],
          "k7", None),
-        ("attention_bwd_split", "attention_bwd.cu",
+        ("attention_bwd_split", "attn_bwd_wgmma.cuh",
          "maest_tpu/ops/attention.py:739", 0,
          max(k4_err[w] for w in ("dq", "dk", "dv")), tt["bwd_k4"], "k4",
          lib["bwd_k4"]),
@@ -3457,6 +3760,19 @@ def main() -> int:
          "maest_tpu/ops/attention.py:530", q3["dn8_launches"]["k7"],
          wide["err"]["k7_d384"], wide["ms"]["k7_d384"], "k7_dn", None),
     ]
+    # K3b/K4's mma.sync kernels, the control of the wgmma backward (phase 31:
+    # its launches on the 30 s recipe steps with the control, CUDA-graph
+    # medians at (32, 866) beside SDPA's backward alone, the aten op)
+    k3b = bw["ms"][(BATCH, 866)]
+    print("kernels line: attention_bwd and attention_bwd_split are the wgmma "
+          "backward; attention_bwd_mma, its control, CUDA-graph medians of "
+          "phase 31 at (32, 866) beside SDPA's backward, launches on phase "
+          "31's control steps", flush=True)
+    rows.append(
+        ("attention_bwd_mma", "attention_bwd.cu",
+         "maest_tpu/ops/attention.py:483",
+         bw["launches"][("recipe", "control")][1], bw["err"]["control"],
+         (k3b["control"], tt["bwd"][1]), "bwd", k3b["sdpa"]))
     kernels = [{"name": name, "route": "cuda", "source": src + file,
                 "replaces": rep, "launches": n, "max_abs_err": err,
                 "ms": ms[0], "plain_ms": ms[1], "bound_ms": bounds[key][0],

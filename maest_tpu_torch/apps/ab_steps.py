@@ -1,20 +1,21 @@
-"""Time the bf16 tagging step and the 30 s pre-training recipe step of one
-or more checkouts of this repo on one CUDA card, each run in a process of
-its own, in the order given:
+"""Time the bf16 tagging step and the 30 s and 10 s pre-training recipe
+steps of one or more checkouts of this repo on one CUDA card, each run in
+a process of its own, in the order given:
 
     python3 maest_tpu_torch/apps/ab_steps.py PARENT . . PARENT
 
 Each argument is the root of a checkout (``git archive`` of a commit,
 unpacked into a git-ignored directory, or ``.``). Its process imports that
 checkout's ``maest_tpu_torch`` and ``chip_smoke.py``, builds its kernels,
-and times two steps with CUDA events, one step at a time after two warm-up
-steps; it reports the median and every reading:
+and times three steps with CUDA events, one step at a time after two
+warm-up steps; it reports the median and every reading:
 
 - tagging: ``BucketPrograms._activations`` on 32 clips of 30 s, bf16,
   random weights (wave -> mel -> ViT-B -> sigmoid, as ``chip_smoke.py``
   phase 8 times it);
 - training: ``chip_smoke._recipe`` of ``maest_30s_from_passt_pretrain``
-  (ViT-B, batch 32, N 866, bf16 over fp32 parameters), as phase 12.
+  (ViT-B, batch 32, N 866, bf16 over fp32 parameters), as phase 12, and
+  of ``maest_10s_from_passt_pretrain`` (batch 100, N 281).
 
 Compare readings only within one run: the card's host is shared, so single
 steps spread by several per cent between runs. Prints the card's name and
@@ -77,8 +78,14 @@ torch.cuda.empty_cache()
 cfg, mcfg, net, state, step, data = cs._recipe(dev, cs.RECIPE, cs.BATCH, 2)
 gen = torch.Generator().manual_seed(2)
 train = single_steps(lambda: step(state, data, gen))
+del net, state, step, data
+torch.cuda.empty_cache()
+cfg, mcfg, net, state, step, data = cs._recipe(
+    dev, "maest_10s_from_passt_pretrain", 100, 2)
+train10 = single_steps(lambda: step(state, data, gen))
 print(json.dumps({"tag_ms": tag[0], "tag_steps": tag[1],
-                  "train_ms": train[0], "train_steps": train[1]}))
+                  "train_ms": train[0], "train_steps": train[1],
+                  "train10_ms": train10[0], "train10_steps": train10[1]}))
 """
 
 
@@ -105,7 +112,8 @@ def main(roots: list[str]) -> int:
     for row in rows:
         print(f"run {row['run']} {row['root']}: tagging batch-32 30 s bf16 "
               f"median {row['tag_ms']:.3f} ms, 30 s recipe step B32 median "
-              f"{row['train_ms']:.3f} ms, of {STEPS} single steps each "
+              f"{row['train_ms']:.3f} ms, 10 s recipe step B100 median "
+              f"{row['train10_ms']:.3f} ms, of {STEPS} single steps each "
               f"[{gpu}]")
     return 0
 

@@ -2,6 +2,11 @@
 // template parameter D_ of each kernel; the caller zero-pads a smaller
 // head_dim), and any multiple of 64 above 256 (the _dn entries).
 //
+// The bf16 entry at head_dim 64, maest_attn_bwd_bf16, runs the wgmma/TMA
+// kernel of attn_bwd_wgmma.cuh (one score pass per key tile and q tile);
+// the mma.sync kernels below stay as its control, maest_attn_bwd_bf16_mma,
+// and serve every other instance.
+//
 // Replaces maest_tpu/ops/attention.py::_attn_bwd_kernel + _bwd_body (the
 // combined full-K backward, K3b, called from _flash_bwd) and _bwd_dq_kernel +
 // _bwd_dkv_kernel (the split backward for n_pad > 4096, K4, called from
@@ -53,11 +58,12 @@
 //
 // The bf16 kernels take the tile as template parameters: WARPS_ warps own
 // 16 rows each (keys in dk/dv, q rows in dq), and TILE_ streamed rows are
-// double-buffered (a multiple of SUB). K3b is 4 warps (64 rows) x 64. The
-// other tiles are the instances of scripts/attn_tune.py's backward sweep
-// (:116 time_bwd, which runs _flash_bwd at each block_q), entered through
-// maest_attn_bwd_tile; a tile changes which block sums a gradient, not the
-// order of its sums over the streamed rows' SUB passes. Tiles of 128 rows
+// double-buffered (a multiple of SUB). The control (maest_attn_bwd_bf16_mma)
+// is 4 warps (64 rows) x 64. The other tiles are the instances of
+// scripts/attn_tune.py's backward sweep (:116 time_bwd, which runs
+// _flash_bwd at each block_q), entered through maest_attn_bwd_tile; a
+// tile changes which block sums a gradient, not the order of its sums
+// over the streamed rows' SUB passes. Tiles of 128 rows
 // need 73.7 KB of buffers, past the 48 KB of static shared memory: they
 // take dynamic shared memory (bwd_smem_bytes).
 //
@@ -108,6 +114,7 @@
 
 #include <type_traits>
 
+#include "attn_bwd_wgmma.cuh"  // the bf16 backward at head_dim 64
 #include "mma_8bit.cuh"
 
 namespace {
@@ -1395,7 +1402,7 @@ const char* maest_cuda_error_string(int err) {
 // dk, dv in that order, and a contiguous last dimension. lse: contiguous
 // fp32 (batch, heads, n) from the forward; delta: fp32 scratch of the same
 // shape. sl = scale * log2(e), scale = head_dim^-0.5. 1 <= n_real <= n.
-// Every o and dout row (both entries) and every q/k/v row (bf16 entry)
+// Every o and dout row (both entries) and every q/k/v row (bf16 entries)
 // must start on a 16-byte boundary. Three launches on `stream` (delta, dk/dv, dq); returns the
 // first non-zero cudaGetLastError().
 int maest_attn_bwd_fp32(const void* q, const void* k, const void* v,
@@ -1407,14 +1414,63 @@ int maest_attn_bwd_fp32(const void* q, const void* k, const void* v,
                          heads, n_real, strides, sl, scale, stream);
 }
 
+// The bf16 entry at head_dim 64 runs the wgmma kernel (attn_bwd_wgmma.cuh)
+// with q tiles of 64 rows, two consumer warpgroups of 64 keys, no turns
+// (turns moved it by 1 % either way in the sweep at N 866 and 281,
+// 128-row q tiles lost 8-23 %). Its `delta` is fp32 scratch
+// of maest_attn_bwd_bf16_scratch(batch, n, heads) floats (dq's sums, lse
+// and delta of the padded rows, the hand-over counters); two launches
+// (the prep pass, the kernel).
 int maest_attn_bwd_bf16(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const float* lse,
                         float* delta, void* dq, void* dk, void* dv, int batch,
                         int n, int heads, int n_real, const long long* strides,
                         float sl, float scale, void* stream) {
+  return launch_bwd_wgmma<64, 2, false>(q, k, v, o, dout, lse, delta, dq, dk,
+                                        dv, batch, n, heads, n_real, strides,
+                                        sl, scale, stream);
+}
+
+long long maest_attn_bwd_bf16_scratch(int batch, int n, int heads) {
+  return bw_scratch_floats(batch, n, heads);
+}
+
+// The mma.sync kernels that maest_attn_bwd_bf16 ran before the wgmma one
+// (delta, dk/dv, dq), kept as its control; arguments as the fp32 entry's.
+int maest_attn_bwd_bf16_mma(const void* q, const void* k, const void* v,
+                            const void* o, const void* dout, const float* lse,
+                            float* delta, void* dq, void* dk, void* dv,
+                            int batch, int n, int heads, int n_real,
+                            const long long* strides, float sl, float scale,
+                            void* stream) {
   return launch_bwd_bf16<WARPS, TILE>(q, k, v, o, dout, lse, delta, dq, dk, dv,
                                       batch, n, heads, n_real, strides, sl,
                                       scale, stream);
+}
+
+// The wgmma kernel's configurations of the tile sweep, chosen by `config`
+// (chip_smoke.py WG_BWD_CONFIGS): q rows a tile x consumer warpgroups,
+// with or without turns: 0 (64, 2, off), the production route; 1 (64, 2,
+// on); 2 (128, 2, off); 3 (128, 2, on). Otherwise the arguments of
+// maest_attn_bwd_bf16; another config returns cudaErrorInvalidValue.
+int maest_attn_bwd_bf16_wgmma(int config, const void* q, const void* k,
+                              const void* v, const void* o, const void* dout,
+                              const float* lse, float* delta, void* dq,
+                              void* dk, void* dv, int batch, int n, int heads,
+                              int n_real, const long long* strides, float sl,
+                              float scale, void* stream) {
+#define MAEST_BW(BQ, NC, PP)                                                   \
+  launch_bwd_wgmma<BQ, NC, PP>(q, k, v, o, dout, lse, delta, dq, dk, dv,       \
+                               batch, n, heads, n_real, strides, sl, scale,    \
+                               stream)
+  switch (config) {
+    case 0: return MAEST_BW(64, 2, false);
+    case 1: return MAEST_BW(64, 2, true);
+    case 2: return MAEST_BW(128, 2, false);
+    case 3: return MAEST_BW(128, 2, true);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef MAEST_BW
 }
 
 // The same two entries at head_dim 128: (batch, n, heads, 128) views, scale
@@ -1531,8 +1587,8 @@ int maest_bwd_rig_fp8(const void* q, const void* krows, const void* v,
 }
 
 // The bf16 backward at another tile: rows (16 a warp: 32, 64 or 128) and
-// tile (streamed rows: 32, 64 or 128), the rest as maest_attn_bwd_bf16's.
-// (64, 64) is K3b. Returns cudaErrorInvalidValue for another tile.
+// tile (streamed rows: 32, 64 or 128), the rest as maest_attn_bwd_bf16_mma's.
+// (64, 64) is that control. Returns cudaErrorInvalidValue for another tile.
 int maest_attn_bwd_tile(int rows, int tile, const void* q, const void* k,
                         const void* v, const void* o, const void* dout,
                         const float* lse, float* delta, void* dq, void* dk,

@@ -19,8 +19,10 @@ any N, strided views). The kernels are built for head_dim 64, 128 and
 256, is a runtime argument (the ``_dn`` entries); any other head_dim runs
 the next of these on inputs zero-padded to its width with its own
 softmax scale (``pad_head_dim``). The bf16 forward at head_dim 64 runs
-the ``wgmma`` / TMA kernel (``csrc/attn_fwd_wgmma.cuh``); its
-``mma.sync`` control stays as ``attention_fwd_mma``. On CPU
+the ``wgmma`` / TMA kernel (``csrc/attn_fwd_wgmma.cuh``), the bf16
+backward at head_dim 64 the one of ``csrc/attn_bwd_wgmma.cuh`` (one score
+pass per key tile and q tile); their ``mma.sync`` controls stay as
+``attention_fwd_mma`` and ``attention_bwd_mma``. On CPU
 tensors it runs the plain PyTorch version (``attention_reference``,
 ``attention_reference_lse``, ``attention_bwd_reference``,
 ``attention_q8_reference``, ``attention_bwd_int8_reference``). Production
@@ -113,6 +115,55 @@ def attention_bwd_reference(q, k, v, o, lse, do, n_real: int | None = None,
     ds = (p * (dp - delta[..., None]) * scale).to(dt).float()
     dq = torch.einsum("bhnm,bmhd->bnhd", ds, k.float())
     dk = torch.einsum("bhnm,bnhd->bmhd", ds, q.float())
+    return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
+
+
+BWD_KEY_TILE = 128  # the wgmma backward's keys a block
+BWD_Q_TILE = 64     # and its q rows a streamed tile
+_BWD_WG_KEYS = 64   # keys a consumer warpgroup: its own partial of dq
+
+
+def attention_bwd_tiled_reference(q, k, v, o, lse, do,
+                                  n_real: int | None = None,
+                                  scale: float | None = None,
+                                  key_tile: int = BWD_KEY_TILE,
+                                  q_tile: int = BWD_Q_TILE):
+    """``attention_bwd_reference``'s function, walked over the tiles of the
+    ``wgmma`` backward (``csrc/attn_bwd_wgmma.cuh``) in its order: per key
+    tile of ``key_tile`` keys, every q tile of ``q_tile`` rows in turn
+    forms s and dp once, p = exp2(s scale log2(e) - lse) (keys >= n_real
+    at 0) and ds = p (dp - delta) scale, each rounded to the input dtype,
+    and adds p^T.do and ds^T.q to the tile's dv and dk; the tile's ds.k,
+    summed over its 64-key warpgroup slices in order, is added to dq, key
+    tile after key tile in increasing order. fp32 sums, results in the
+    inputs' dtypes; key tiles wholly at or past n_real leave zero dk and
+    dv."""
+    dt, scale = q.dtype, _scale(q, scale)
+    sl = scale * _LOG2E
+    n = q.shape[1]
+    nr = n if n_real is None else n_real
+    qh, kh, vh, oh, doh = (x.float() for x in _heads(q, k, v, o, do))
+    delta = (doh * oh).sum(-1)  # (B, H, N)
+    dq = None
+    dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
+    for k0 in range(0, nr, key_tile):
+        ks = slice(k0, min(k0 + key_tile, n))
+        live = torch.arange(k0, ks.stop, device=q.device) < nr
+        part = torch.empty_like(qh)
+        for q0 in range(0, n, q_tile):
+            qs = slice(q0, min(q0 + q_tile, n))
+            s = qh[:, :, qs] @ kh[:, :, ks].transpose(-1, -2) * sl
+            p = torch.where(live, torch.exp2(s - lse[:, :, qs, None]), 0.0)
+            dv[:, :, ks] += p.to(dt).float().transpose(-1, -2) @ doh[:, :, qs]
+            dp = doh[:, :, qs] @ vh[:, :, ks].transpose(-1, -2)
+            ds = (p * (dp - delta[:, :, qs, None]) * scale).to(dt).float()
+            part[:, :, qs] = sum(
+                ds[..., w0:w0 + _BWD_WG_KEYS]
+                @ kh[:, :, k0 + w0:min(k0 + w0 + _BWD_WG_KEYS, n)]
+                for w0 in range(0, ks.stop - k0, _BWD_WG_KEYS))
+            dk[:, :, ks] += ds.transpose(-1, -2) @ qh[:, :, qs]
+        dq = part if dq is None else dq + part
+    dq, dk, dv = _heads(dq, dk, dv)
     return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -412,7 +463,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in ``flash_attention.launches`` (K2), ``flash_attention_fwd_lse.
     launches`` (K3a), ``attention_bwd.launches`` (K3b/K4),
     ``attention_fwd_int8.launches`` (K5), ``attention_fwd_fp8.launches``
-    (K6) and ``attention_bwd_int8.launches`` (K7)."""
+    (K6) and ``attention_bwd_int8.launches`` (K7); the controls in
+    ``attention_fwd_mma.launches`` and ``attention_bwd_mma.launches``."""
     n_real, quant, bwd_quant = _check_args(q, k, v, n_real, quant, bwd_quant)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -724,10 +776,36 @@ def _launch_fwd_q8(q, k, v, n_real, with_lse, scale, quant):
 def attention_bwd(q, k, v, o, lse, do, n_real: int | None = None):
     """(dq, dk, dv) of attention from the saved (q, k, v, o, lse) and the
     output gradient ``do``; all (B, N, H, D) but lse (B, H, N) fp32. CUDA
-    tensors launch ``csrc/attention_bwd.cu`` (counted in
+    tensors launch ``csrc/attention_bwd.cu`` (in bf16 at head_dim 64 its
+    ``wgmma`` kernel, ``csrc/attn_bwd_wgmma.cuh``; counted in
     ``attention_bwd.launches``), CPU tensors run
     ``attention_bwd_reference``."""
     return _bwd_qkv(q, k, v, o, lse, do, n_real, None).unbind(2)
+
+
+# Private: True routes the bf16 backward at head_dim 64 through the control
+# (``attention_bwd_mma``) instead of the wgmma kernel, so that a measurement
+# can time the steps of the model with each. Nothing in the package sets it.
+_K3B_CONTROL = False
+
+
+def attention_bwd_mma(q, k, v, o, lse, do, n_real: int | None = None):
+    """The control of K3b/K4's wgmma kernel: the ``mma.sync`` kernels
+    (delta, dk/dv, dq; entry ``maest_attn_bwd_bf16_mma`` of
+    ``csrc/attention_bwd.cu``) on bf16 CUDA (B, N, H, 64) views; (dq, dk,
+    dv). They compute what ``attention_bwd`` computes, forming the scores
+    once for dk/dv and once for dq; counted in
+    ``attention_bwd_mma.launches``. CPU tensors run
+    ``attention_bwd_reference``."""
+    n_real, _, _ = _check_args(q, k, v, n_real, None)
+    if q.device.type == "cpu":
+        return attention_bwd_reference(q, k, v, o, lse, do, n_real)
+    if q.dtype != torch.bfloat16 or q.shape[-1] != HEAD_DIM:
+        raise ValueError("the control takes bf16 q, k, v at head_dim 64")
+    grads = launch_bwd_entry("maest_attn_bwd_bf16_mma", (), q, k, v, o, lse,
+                             do, n_real, q.shape[-1]**-0.5)
+    attention_bwd_mma.launches += 1
+    return grads.unbind(2)
 
 
 def attention_bwd_int8(q, k, v, o, lse, do, n_real: int | None = None):
@@ -748,6 +826,13 @@ def _bwd_qkv(q, k, v, o, lse, do, n_real, bwd_quant):
     if int8:
         grads = padded_bwd(_launch_bwd_q8, q, k, v, o, lse, do, n_real)
         attention_bwd_int8.launches += 1
+        return grads
+    if _K3B_CONTROL and q.dtype == torch.bfloat16 and padded_dim(
+            q.shape[-1]) == HEAD_DIM:
+        grads = padded_bwd(functools.partial(
+            launch_bwd_entry, "maest_attn_bwd_bf16_mma", ()), q, k, v, o, lse,
+            do, n_real)
+        attention_bwd_mma.launches += 1
         return grads
     name, lead = _instance("maest_attn_bwd_fp32" if q.dtype == torch.float32
                            else "maest_attn_bwd_bf16",
@@ -780,16 +865,33 @@ def _grads(q):
     return grads, grads[:, :, 0], grads[:, :, 1], grads[:, :, 2]
 
 
+# the entries that run the wgmma backward (csrc/attn_bwd_wgmma.cuh), whose
+# fp32 scratch (dq's sums, the padded lse and delta, the hand-over counters)
+# is maest_attn_bwd_bf16_scratch(batch, n, heads) floats
+_WGMMA_BWD = ("maest_attn_bwd_bf16", "maest_attn_bwd_bf16_wgmma")
+
+
+def _bwd_scratch(lib, name, b, n, h):
+    """The floats of the fp32 scratch the entry ``name`` takes: delta (B, H,
+    N), or the wgmma backward's."""
+    if name not in _WGMMA_BWD:
+        return b * h * n
+    fn = lib.maest_attn_bwd_bf16_scratch
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    return fn(b, n, h)
+
+
 def launch_bwd_entry(name, lead, q, k, v, o, lse, do, n_real, scale):
     """Launch the backward entry ``name`` of ``csrc/attention_bwd.cu`` (the
-    delta, dk/dv and dq kernels) with the leading int arguments ``lead`` on
-    checked CUDA views and softmax scale ``scale``; return the (B, N, 3, H,
-    D) gradients."""
+    delta, dk/dv and dq kernels, or the prep pass and the wgmma kernel) with
+    the leading int arguments ``lead`` on checked CUDA views and softmax
+    scale ``scale``; return the (B, N, 3, H, D) gradients."""
     o, do = _bwd_views(q, k, v, o, lse, do)
     b, n, h, _ = q.shape
     grads, dq, dk, dv = _grads(q)
-    delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     lib = _build.load_library("attention_bwd")
+    delta = torch.empty(_bwd_scratch(lib, name, b, n, h), dtype=torch.float32,
+                        device=q.device)
     fn = _entry(lib, name, 10, 2, len(lead))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -847,6 +949,7 @@ flash_attention.launches = 0
 flash_attention_fwd_lse.launches = 0
 attention_fwd_mma.launches = 0
 attention_bwd.launches = 0
+attention_bwd_mma.launches = 0
 attention_fwd_int8.launches = 0
 attention_fwd_fp8.launches = 0
 attention_bwd_int8.launches = 0

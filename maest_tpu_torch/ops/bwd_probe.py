@@ -17,7 +17,8 @@ rig's 64^-0.5) and sl = SCALE log2(e). q, v, do, o are (bh, N, 64), kt (bh,
 - ``fp8``: q, kt, v, do e4m3. s = (q.kt, fp32 sums) sl; p = exp2(s - lse);
   dv = bf16(p)^T.do; dp = do.v^T in e4m3; ds = bf16(p (dp - delta) SCALE);
   dq = ds.K; dk = ds^T.q; fp32 sums.
-- ``ctrl``: the production backward (K3b): q, k (in kt's place), v, do, o
+- ``ctrl``: the production backward (K3b, the wgmma kernel of
+  ``csrc/attn_bwd_wgmma.cuh``): q, k (in kt's place), v, do, o
   are (B, N, H, 64) bf16 and lse the rig's (B H, 1, N_pad) draw, of which
   the first N entries are the (B, H, N) lse.
 
@@ -30,7 +31,8 @@ On CUDA tensors the wrapper launches hand-written kernels, counted per
 kind in ``bwd_probe.launches``: the int8 kind K7's dk/dv and dq kernels
 with the rig's fixed scalars (``csrc/attention_bwd_q8.cu``, ``RIG``), the
 fp8 kind K3b's with e4m3 s and dp products (``csrc/attention_bwd.cu``,
-``E4M3``), ctrl K3b itself (``ops/attention.py launch_bwd_entry``). A
+``E4M3``), ctrl K3b itself (``ops/attention.py launch_bwd_entry``, entry
+``maest_attn_bwd_bf16``: the prep pass and the wgmma kernel). A
 layout pass (``bwd_pass``, one kernel: ``maest_bwd_rig_layout``) first
 makes what those kernels read and the rig does not hold: K's rows from
 kt (8-bit B operands are read column-major; ldmatrix cannot transpose

@@ -15,8 +15,10 @@ the two products over the real keys against the bf16 peak, 989, and K2
 (128, 64), the mma.sync kernel whose loop the tiles change
 (``attention_fwd_mma``, the control of the wgmma kernel that
 ``flash_attention`` now runs), timed in the same call; each backward
-line gives K3b (64, 64)
-beside it and the TFLOP/s of its five products. Times are CUDA-graph
+line gives K3b (64, 64), the mma.sync kernels whose tiles the others are
+(``attention_bwd_mma``, the control of the wgmma kernel that
+``attention_bwd`` now runs), beside it and the TFLOP/s of its five
+products. Times are CUDA-graph
 replays (``probes.attn_profile``'s ``graph_ms``) at every N: K2, K3b and
 the probe entries differ in host cost, which CUDA events would add to the
 slower wrapper wherever the host cannot stay ahead of the card. The
@@ -43,7 +45,7 @@ import numpy as np
 import torch
 
 from ..ops.attention import attention_fwd_mma, flash_attention_fwd_lse
-from ..ops.attention import attention_bwd as k3b
+from ..ops.attention import attention_bwd_mma as k3b
 from ..ops.attention_probe import (
     BWD_TILES,
     KEY_TILES,

@@ -1005,6 +1005,176 @@ def test_k2_control_hook_routes_the_model(cuda_device, monkeypatch):
     assert np.abs(ours - ctrl).max() <= 1e-2
 
 
+# --- K3b/K4 on wgmma and TMA (csrc/attn_bwd_wgmma.cuh) ----------------------
+# Against plain and the tiled plain version as every bf16 backward (2e-2,
+# compared in fp32), masked dk/dv exactly zero, two launches bit-equal.
+BWD_WG_SHAPES = [(32, 866, None), (32, 896, 866), (100, 281, None),
+                 (2, 4500, 4400)]
+
+
+def _bwd_wgmma_cfg(cfg, q, k, v, o, lse, do, n_real=None):
+    from maest_tpu_torch.ops import attention as A
+
+    return A.launch_bwd_entry("maest_attn_bwd_bf16_wgmma", (cfg,), q, k, v, o,
+                              lse, do, n_real, q.shape[-1]**-0.5).unbind(2)
+
+
+def _bwd_gap(got, want):
+    return max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("b,n,n_real", BWD_WG_SHAPES)
+def test_wgmma_backward_matches_plain_and_control(cuda_device, b, n, n_real):
+    """K3b/K4 (the wgmma kernel, through attention_bwd, each call counted)
+    at the main path's shapes and K4's on strided views of one fused
+    q/k/v/do: within the bf16 bound of attention_bwd_reference and of the
+    tiled plain version, masked dk/dv exactly zero, two launches
+    torch.equal; the mma.sync control within the same bound of plain."""
+    from maest_tpu_torch.ops.attention import (
+        attention_bwd_mma,
+        attention_bwd_tiled_reference,
+    )
+
+    x = _rand((b, n, 4, 12, 64), 90 + n).to(cuda_device, torch.bfloat16)
+    q, k, v, do = x.unbind(2)
+    o, lse = flash_attention_fwd_lse(q, k, v, n_real)
+    before = attention_bwd.launches
+    got = attention_bwd(q, k, v, o, lse, do, n_real)
+    again = attention_bwd(q, k, v, o, lse, do, n_real)
+    ctrl = attention_bwd_mma(q, k, v, o, lse, do, n_real)
+    ref = attention_bwd_reference(q, k, v, o, lse, do, n_real)
+    tiled = attention_bwd_tiled_reference(q, k, v, o, lse, do, n_real)
+    torch.cuda.synchronize()
+    assert attention_bwd.launches == before + 2
+    assert all(torch.equal(a, z) for a, z in zip(got, again))
+    tol = ATTN_TOL[torch.bfloat16]
+    assert _bwd_gap(got, ref) <= tol and _bwd_gap(got, tiled) <= tol
+    assert _bwd_gap(ctrl, ref) <= tol
+    if n_real is not None:
+        assert not got[1][:, n_real:].any() and not got[2][:, n_real:].any()
+
+
+@pytest.mark.parametrize("cfg", range(4))
+def test_wgmma_backward_sweep_configurations_match_plain(cuda_device, cfg):
+    """Every configuration of the backward's sweep
+    (maest_attn_bwd_bf16_wgmma: q rows 64 or 128 a tile, with or without
+    turns) within the bf16 bound of plain at a ragged N and n_real, masked
+    dk/dv exactly zero; 0 is the production route bit for bit."""
+    x = _rand((2, 1000, 4, 12, 64), 91).to(cuda_device, torch.bfloat16)
+    q, k, v, do = x.unbind(2)
+    o, lse = flash_attention_fwd_lse(q, k, v, 997)
+    got = _bwd_wgmma_cfg(cfg, q, k, v, o, lse, do, 997)
+    ref = attention_bwd_reference(q, k, v, o, lse, do, 997)
+    torch.cuda.synchronize()
+    assert _bwd_gap(got, ref) <= ATTN_TOL[torch.bfloat16]
+    assert not got[1][:, 997:].any() and not got[2][:, 997:].any()
+    if cfg == 0:
+        want = attention_bwd(q, k, v, o, lse, do, 997)
+        assert all(torch.equal(a, z) for a, z in zip(got, want))
+
+
+def test_wgmma_backward_check_refuses_the_mask_dropped(cuda_device, tmp_path):
+    """The wgmma backward built with its key mask dropped (a copy of csrc/
+    in a temporary directory): the keys at or past n_real take mass. With
+    k = 4 past n_real 900 of 1000, the check that holds the sound kernel
+    to plain refuses it, and the masked keys get dk and dv. The copy runs
+    in a process of its own (as the forward's planted fault). Run with -s
+    to see the gap."""
+    import json
+    import shutil
+    import subprocess
+    import sys
+
+    from maest_tpu_torch.ops import _build
+
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, src)
+    header = src / "attn_bwd_wgmma.cuh"
+    text = header.read_text()
+    old = "    const bool live0 = key0 < n_real, live1 = key0 + 8 < n_real;"
+    assert text.count(old) == 1
+    header.write_text(text.replace(
+        old, "    const bool live0 = key0 < n, live1 = key0 + 8 < n;"))
+    lib = tmp_path / "attention_bwd.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(src / "attention_bwd.cu")], check=True,
+                   capture_output=True)
+    make = ("x = torch.from_numpy(np.random.default_rng(92).standard_normal("
+            "(2, 1000, 4, 12, 64)).astype(np.float32)).cuda().bfloat16()\n"
+            "x[:, 900:, 1] = 4.0\n"
+            "q, k, v, do = x.unbind(2)\n"
+            "o, lse = A.flash_attention_fwd_lse(q, k, v, 900)\n")
+    scope = {}
+    exec("import numpy as np, torch\n"
+         "from maest_tpu_torch.ops import attention as A\n" + make, scope)
+    sound = _bwd_gap(attention_bwd(*(scope[n] for n in (
+        "q", "k", "v", "o", "lse", "do")), 900), attention_bwd_reference(
+        *(scope[n] for n in ("q", "k", "v", "o", "lse", "do")), 900))
+    code = (
+        "import ctypes, json, sys, torch\n"
+        f"sys.path.insert(0, {str(_build.CSRC.parents[1])!r})\n"
+        "import numpy as np\n"
+        "from maest_tpu_torch.ops import _build, attention as A\n"
+        f"_build._libs['attention_bwd'] = ctypes.CDLL({str(lib)!r})\n"
+        + make +
+        "bad = A.launch_bwd_entry('maest_attn_bwd_bf16', (), q, k, v, o, lse,"
+        " do, 900, 0.125).unbind(2)\n"
+        "ref = A.attention_bwd_reference(q, k, v, o, lse, do, 900)\n"
+        "print(json.dumps([max((a.float() - r.float()).abs().max().item() "
+        "for a, r in zip(bad, ref)), max(g[:, 900:].float().abs().max()"
+        ".item() for g in bad[1:])]))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    gap, masked = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"planted: the wgmma backward without its key mask: max|grads - "
+          f"plain| {gap:.4g} against the bound {ATTN_TOL[torch.bfloat16]}, "
+          f"masked dk/dv up to {masked:.4g} (sound {sound:.4g})")
+    assert sound <= ATTN_TOL[torch.bfloat16] < gap and masked > 0
+
+
+def test_k3b_control_hook_routes_a_training_step(cuda_device, monkeypatch):
+    """The private hook that lets a measurement time the model's training
+    steps with the control: with it set, the bf16 backward at head_dim 64
+    launches the mma.sync kernels (counted in attention_bwd_mma) and not
+    the wgmma one, and every parameter's gradient stays within 1e-2 of its
+    largest |g| (at least 1e-2 of the largest of all) of the wgmma
+    route's."""
+    from maest_tpu_torch.models.registry import build_config
+    from maest_tpu_torch.models.vit import MAESTNet
+    from maest_tpu_torch.ops import attention as A
+
+    cfg = build_config("discogs-maest-30s-pw-129e", embed_dim=128, depth=2,
+                       num_heads=2, input_t=206, n_classes=16)
+    net = MAESTNet(cfg, dtype=torch.bfloat16, param_dtype=torch.float32,
+                   device=cuda_device,
+                   generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():  # zero heads would hide every difference
+        net.head[1].weight.copy_(_rand((16, 128), 14, 0.2))
+    x = _rand((2, 1, 96, 206), 15).to(cuda_device)
+    grads = {}
+    for control in (False, True):
+        monkeypatch.setattr(A, "_K3B_CONTROL", control)
+        net.zero_grad()
+        before = (A.attention_bwd.launches, A.attention_bwd_mma.launches)
+        net(x, train=True, generator=torch.Generator().manual_seed(0))[
+            0].float().square().sum().backward()
+        torch.cuda.synchronize()
+        grew = (A.attention_bwd.launches - before[0],
+                A.attention_bwd_mma.launches - before[1])
+        assert grew == ((0, cfg.depth) if control else (cfg.depth, 0))
+        grads[control] = {k: p.grad.detach().clone()
+                          for k, p in net.named_parameters()
+                          if p.grad is not None}
+    # a gradient that is zero in exact arithmetic (the key bias's) is fp32
+    # noise on both routes: its floor is 1e-2 of the largest gradient's max
+    big = max(g.abs().max().item() for g in grads[False].values())
+    for k, g in grads[False].items():
+        top = max(g.abs().max().item(), 1e-2 * big)
+        assert (grads[True][k] - g).abs().max().item() <= 1e-2 * top, k
+
+
 # --- P4: the backward rig's kernels (ops/bwd_probe.py) ----------------------
 @pytest.mark.parametrize("kind", ["ctrl", "int8", "fp8"])
 def test_bwd_rig_kernels_match_plain(cuda_device, kind):
@@ -1300,12 +1470,15 @@ def test_qpad_and_tiles_match_plain_and_k2(cuda_device, b, n):
 
 @pytest.mark.parametrize("b,n", [(2, 281), (2, 866)])
 def test_bwd_tiles_match_plain_and_k3b(cuda_device, b, n):
+    from maest_tpu_torch.ops import attention as A
     from maest_tpu_torch.ops import attention_probe as P
 
     x = _rand((b, n, 4, 12, 64), 32).to(cuda_device, torch.bfloat16)
     q, k, v, g = x[:, :, 0], x[:, :, 1], x[:, :, 2], x[:, :, 3]
     o, lse = flash_attention_fwd_lse(q, k, v)
-    k3b = attention_bwd(q, k, v, o, lse, g)
+    # K3b's mma.sync kernels, whose tiles these are (the wgmma backward's
+    # control)
+    k3b = A.attention_bwd_mma(q, k, v, o, lse, g)
     ref = attention_bwd_reference(q, k, v, o, lse, g)
     for rows in P.BWD_TILES:
         for tile in P.BWD_TILES:
