@@ -86,9 +86,20 @@ strided views, two launches bit-equal, masked dk/dv exactly zero, every
 configuration of its sweep against plain, the kernel built with its key
 mask dropped refused, then the kernel, the control, SDPA's backward and
 the sweep timed by CUDA-graph replays in interleaved rounds, and the 30 s
-and 10 s recipe steps with each backward in turn (31). Phase 2 also
-counts the wgmma and TMA instructions in the SASS of the wgmma kernels
-and checks that the production ones spill nothing. Every phase
+and 10 s recipe steps with each backward in turn (31). Then K7 on
+``wgmma`` and TMA (``csrc/attn_bwd_q8_wgmma.cuh``, the route of the int8
+backward in bf16 at head_dim 64: a stats pass, then one score pass per key
+tile and q tile on s8 wgmma, dq summed in int32 by TMA bulk adds) against
+its plain version, its tiled plain version and its mma.sync control at
+phase 15's five draws, two launches bit-equal, masked dk/dv exactly zero,
+the kernel built with one key tile's dq adds dropped refused, then the
+kernel, the control and K3b timed by CUDA-graph replays in interleaved
+rounds, and the int8 recipe step with each K7 in turn (32); and the
+yardsticks the kernels table lacked: K2, K3a, K3b in fp32 beside SDPA's
+efficient attention, SDPA's forward with its log-sum-exp at head_dim 128,
+256 and 384, K4's runtime-width instance and K5/K6 at head_dim 256 timed
+(33). Phase 2 also counts the wgmma and TMA instructions in the SASS of
+the wgmma kernels and checks that the production ones spill nothing. Every phase
 prints one line per check; any failure raises, so the exit code is not 0.
 The card's name and power limit, the JSON record of the kernels (with each
 one's bound: the least time the card could take for its work at the
@@ -1185,7 +1196,7 @@ def phase_k7_kernel(dev, gpu):
                     q, k, v, o, lse, g), 3))
             k3b = cuda_ms(lambda: A.attention_bwd(q, k, v, o, lse, g), 10)
             parts = _kernel_ms(
-                lambda: A.attention_bwd_int8(q, k, v, o, lse, g), "bwd_q8_")
+                lambda: A.attention_bwd_int8(q, k, v, o, lse, g), "bwd_q8")
             line += ("; vs the bf16 backward (K3b): " + ", ".join(vs)
                      + " (cos > 0.999, relmax < 0.15); time: kernel "
                      f"{out['ms'][0]:.4f} ms, plain {out['ms'][1]:.4f} ms, "
@@ -1201,22 +1212,26 @@ def phase_k7_kernel(dev, gpu):
 
 def _kernel_ms(fn, prefix: str) -> dict:
     """Device ms of each kernel whose name holds ``prefix`` in one call of
-    ``fn``, from torch.profiler; empty where it records no device time."""
+    ``fn``, from torch.profiler; empty where it records no device time in
+    three traces (a trace may come back empty)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     rows = {}
-    for e in prof.key_averages():
-        name = re.search(prefix + r"\w*(<\w+>)?", e.key)
-        if name:
-            us = getattr(e, "device_time_total", None)
-            if us is None:
-                us = e.cuda_time_total
-            rows[name.group(0)] = rows.get(name.group(0), 0.0) + us / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            name = re.search(prefix + r"\w*(<\w+>)?", e.key)
+            if name:
+                us = getattr(e, "device_time_total", None)
+                if us is None:
+                    us = e.cuda_time_total
+                rows[name.group(0)] = rows.get(name.group(0), 0.0) + us / 1e3
+        if rows:
+            break
     return rows
 
 
@@ -2726,10 +2741,10 @@ def build_planted_bwd_no_mask() -> tuple[Path, float]:
 
 
 def sass_counts(path: Path, pattern: str) -> dict:
-    """{kernel: (HGMMA, UTMALDG, instructions)} of the kernels of a built
+    """{kernel: (wgmma, UTMALDG, instructions)} of the kernels of a built
     library whose mangled name contains ``pattern``, from ``cuobjdump
-    -sass``: the wgmma and TMA-load instructions in each, demangled by
-    cu++filt where it runs."""
+    -sass``: the wgmma (HGMMA on 16-bit types, IGMMA on 8-bit integers) and
+    TMA-load instructions in each, demangled by cu++filt where it runs."""
     sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
                            str(path)], capture_output=True, text=True,
                           timeout=600, check=True).stdout
@@ -2743,7 +2758,7 @@ def sass_counts(path: Path, pattern: str) -> dict:
             continue
         if name and re.search(r"/\*[0-9a-f]{4,}\*/", line):
             counts[name][2] += 1
-            counts[name][0] += "HGMMA" in line
+            counts[name][0] += "GMMA" in line  # HGMMA, IGMMA: wgmma
             counts[name][1] += "UTMALDG" in line
     names = list(counts)
     try:
@@ -3391,6 +3406,339 @@ def phase_bwd_wgmma(dev, gpu, planted_lib):
     return out
 
 
+# phase 32's planted fault: the wgmma K7 with key tile 1's dq adds dropped,
+# so dq misses the keys 128..255 of every head
+PLANT_K7_DQ = (
+    "          bulk_add_s32(dq_acc + (static_cast<long long>(bh) * n_pad + it * QW_BQ) * 64,",
+    "          if (kb != 1) bulk_add_s32(dq_acc + (static_cast<long long>(bh) * n_pad + it * QW_BQ) * 64,")
+# phase 32's draws: phase 15's five (the 30 s recipe's (32, 866), padded
+# with n_real, the 10 s recipe's, three 640-row q-blocks, normal x 0.5)
+K7_WG_SHAPES = ((BATCH, 866, None, 1.0), (BATCH, 896, 866, 1.0),
+                (100, 281, None, 1.0), (2, 1800, 1790, 1.0),
+                (BATCH, 866, None, 0.5))
+
+# and the shapes it times: the 30 s and 10 s recipes', three q-blocks
+K7_WG_TIMED = ((BATCH, 866, None), (100, 281, None), (2, 1800, 1790))
+
+
+def build_planted_k7_dq() -> tuple[Path, float]:
+    """``csrc/attention_bwd_q8.cu`` with the wgmma K7's bulk dq add of key
+    tile 1 dropped (phase 32 shows its check refusing the kernel so
+    built)."""
+    return _build_planted("k7_dq", "attention_bwd_q8", "attn_bwd_q8_wgmma.cuh",
+                          PLANT_K7_DQ)
+
+
+def _k7_inputs(rng, dev, b, n, scale):
+    """(q, k, v, do) bf16 (B, N, H, 64): q, k, v strided views of one fused
+    draw, normal x ``scale``, do normal, from the numpy generator."""
+    qkv = torch.from_numpy(rng.standard_normal((b, n, 3, 12, 64)).astype(
+        np.float32) * scale).to(dev, torch.bfloat16)
+    g = torch.from_numpy(rng.standard_normal((b, n, 12, 64)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], g
+
+
+def _k7_gap(got, ref) -> tuple[list, bool]:
+    """([(name, max_abs_err, of max, cos)], all within K7_TOL and K7_COS)."""
+    rows, ok = [], True
+    for w, a, r in zip(("dq", "dk", "dv"), got, ref):
+        e = max_err(a, r)
+        top = r.float().abs().max().item()
+        cos = cosine(a, r)
+        ok = ok and e <= K7_TOL * top and cos >= K7_COS
+        rows.append((w, e, e / top, cos))
+    return rows, ok
+
+
+def _k7_planted_err(lib: Path) -> list:
+    """[max|grad - plain| / max|plain| for dq, dk, dv] of the wgmma K7 from
+    the library ``lib`` at (2, 866, 12, 64) (phase 32's draw), run in a
+    process of its own (as ``_planted_err``)."""
+    code = (
+        "import ctypes, json, sys, numpy as np, torch\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import chip_smoke as C\n"
+        "from maest_tpu_torch.ops import _build, attention as A\n"
+        f"_build._libs['attention_bwd_q8'] = ctypes.CDLL({str(lib)!r})\n"
+        "q, k, v, g = C._k7_inputs(np.random.default_rng(33), "
+        "torch.device('cuda'), 2, 866, 0.5)\n"
+        "o, lse = A.flash_attention_fwd_lse(q, k, v)\n"
+        "bad = A.attention_bwd_int8(q, k, v, o, lse, g)\n"
+        "ref = A.attention_bwd_int8_reference(q, k, v, o, lse, g)\n"
+        "print(json.dumps([C.max_err(a, r) / r.float().abs().max().item() "
+        "for a, r in zip(bad, ref)]))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=ROOT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the planted fault's process failed:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_k7_wgmma(dev, gpu, planted_lib):
+    """Phase 32: K7 on wgmma and TMA (``csrc/attn_bwd_q8_wgmma.cuh``, the
+    route of ``attention_bwd_int8`` in bf16 at head_dim 64) at phase 15's
+    five draws against ``attention_bwd_int8_reference`` (K7_TOL of each
+    gradient's max, cosine K7_COS), its tiled plain version
+    (``attention_bwd_int8_tiled_reference``, the same bound) and its
+    mma.sync control (``attention_bwd_int8_mma``, the same bound); two
+    launches torch.equal (dq's int32 sums are order-free); masked dk/dv
+    exactly zero; the kernel built with key tile 1's dq adds dropped
+    refused (in a process of its own). Then CUDA-graph replays of the
+    kernel, the control and the bf16 backward (K3b) in WG_ROUNDS
+    interleaved rounds at (32, 866), (100, 281) and (2, 1800) n_real 1790,
+    every round printed; the kernel's launches by device time at (32, 866)
+    (amax, quant, stats, main, dq); and phase 16's recipe step (30 s, B32,
+    attention_bwd_quant="int8") with each kernel in turn through the
+    private hook ``ops.attention._K7_CONTROL``, CUDA events over 3 steps a
+    round after one, the launch counters checked on each. Returns the
+    errors, the medians and the launches."""
+    from maest_tpu_torch.ops import attention as A
+    from maest_tpu_torch.probes.attn_profile import graph_ms
+
+    rng = np.random.default_rng(32)
+    out = {"err": 0.0, "err_control": 0.0, "ms": {}, "launches": {}}
+    for b, n, n_real, scale in K7_WG_SHAPES:
+        q, k, v, g = _k7_inputs(rng, dev, b, n, scale)
+        o, lse = A.flash_attention_fwd_lse(q, k, v, n_real)
+        before = (A.attention_bwd_int8.launches,
+                  A.attention_bwd_int8_mma.launches)
+        got = A.attention_bwd_int8(q, k, v, o, lse, g, n_real)
+        again = A.attention_bwd_int8(q, k, v, o, lse, g, n_real)
+        ctl = A.attention_bwd_int8_mma(q, k, v, o, lse, g, n_real)
+        ref = A.attention_bwd_int8_reference(q, k, v, o, lse, g, n_real)
+        tiled = A.attention_bwd_int8_tiled_reference(q, k, v, o, lse, g,
+                                                     n_real)
+        torch.cuda.synchronize()
+        check((A.attention_bwd_int8.launches, A.attention_bwd_int8_mma.launches)
+              == (before[0] + 2, before[1] + 1), "K7 and control counters")
+        rows, ok = _k7_gap(got, ref)
+        _, ok_tiled = _k7_gap(got, tiled)
+        crows, ok_ctl = _k7_gap(ctl, ref)
+        same = all(torch.equal(a, z) for a, z in zip(got, again))
+        zero = n_real is None or not (got[1][:, n_real:].any()
+                                      or got[2][:, n_real:].any())
+        check(ok and ok_tiled and ok_ctl and same and zero,
+              f"wgmma K7 ({b}, {n}) n_real {n_real} x{scale}: {rows}, "
+              f"tiled {ok_tiled}, control {crows}, bitwise {same}, masked "
+              f"zero {zero}")
+        out["err"] = max(out["err"], max(r[1] for r in rows))
+        out["err_control"] = max(out["err_control"], max(r[1] for r in crows))
+        plain_eq = all(torch.equal(a, z) for a, z in zip(tiled, ref))
+        print(f"phase 32 wgmma K7 ({b}, {n}, 12, 64) n_real {n_real} q, k, v "
+              f"normal x {scale} q-block {A.bwd_q_block(n)}: vs plain "
+              + ", ".join(f"{w} {e:.3e} ({rel:.2e} of max, cos {c:.6f})"
+                          for w, e, rel, c in rows)
+              + f" <= {K7_TOL} of max, cos >= {K7_COS}; vs the tiled plain "
+              f"version within the same; the tiled plain version torch.equal "
+              f"to plain: {plain_eq}; the control vs plain "
+              + ", ".join(f"{w} {rel:.2e}" for w, _, rel, _ in crows)
+              + f"; two launches torch.equal: {same}; masked dk/dv exactly "
+              f"0: {zero}", flush=True)
+        del q, k, v, g, o, lse, got, again, ctl, ref, tiled
+        torch.cuda.empty_cache()
+
+    errs = _k7_planted_err(planted_lib)
+    check(errs[0] > K7_TOL, f"planted dq drop refused: {errs}")
+    print(f"phase 32 planted fault, the wgmma K7 built with key tile 1's dq "
+          f"adds dropped, at (2, 866, 12, 64): dq {errs[0]:.3e} of max > "
+          f"{K7_TOL}: refused (dk {errs[1]:.2e}, dv {errs[2]:.2e} of max)",
+          flush=True)
+
+    for b, n, n_real in K7_WG_TIMED:
+        q, k, v, g = _k7_inputs(rng, dev, b, n, 0.5)
+        o, lse = A.flash_attention_fwd_lse(q, k, v, n_real)
+        fns = {"wgmma": lambda: A.attention_bwd_int8(q, k, v, o, lse, g,
+                                                     n_real),
+               "control": lambda: A.attention_bwd_int8_mma(q, k, v, o, lse, g,
+                                                           n_real),
+               "K3b": lambda: A.attention_bwd(q, k, v, o, lse, g, n_real)}
+        rows = {key: [] for key in fns}
+        for rnd in range(WG_ROUNDS):
+            order = list(fns) if rnd % 2 == 0 else list(fns)[::-1]
+            for key in order:
+                rows[key].append(graph_ms(fns[key], 10, dev, reps=1))
+            print(f"phase 32 K7 ({b}, {n}, 12, 64) n_real {n_real} round "
+                  f"{rnd + 1} CUDA-graph ms: " + ", ".join(
+                      f"{key} {rows[key][-1]:.4f}" for key in fns)
+                  + f" [{gpu}]", flush=True)
+        med = {key: float(np.median(ms)) for key, ms in rows.items()}
+        every = all(w < c for w, c in zip(rows["wgmma"], rows["control"]))
+        line = (f"phase 32 K7 ({b}, {n}, 12, 64) n_real {n_real} medians: "
+                f"wgmma {med['wgmma']:.4f} ms, control {med['control']:.4f} "
+                f"ms ({med['control'] / med['wgmma']:.2f}x), the bf16 "
+                f"backward (K3b) {med['K3b']:.4f} ms; the wgmma K7 beat the "
+                f"control in every round: {every}")
+        if b == BATCH:
+            parts = _kernel_ms(fns["wgmma"], "q8")
+            out["split"] = parts
+            line += f"; its launches by device time: {_fmt_ms(parts)}"
+        print(line + f" [{gpu}]", flush=True)
+        if (b, n) == (BATCH, 866):
+            check(every, "the wgmma K7 beats its control in every round at "
+                  f"({b}, {n})")
+        out["ms"][(b, n)] = med
+        del q, k, v, g, o, lse, fns
+        torch.cuda.empty_cache()
+
+    _, mcfg, net, state, step, data = _recipe(
+        dev, RECIPE, BATCH, 32, ["maest.attention_bwd_quant=int8"])
+    gen = torch.Generator().manual_seed(32)
+    counts = (A.attention_bwd_int8, A.attention_bwd_int8_mma)
+    step_ms = {"wgmma": [], "control": []}
+    try:
+        for rnd in range(WG_ROUNDS):
+            order = ("wgmma", "control") if rnd % 2 == 0 else (
+                "control", "wgmma")
+            for route in order:
+                A._K7_CONTROL = route == "control"
+                for f in counts:
+                    f.launches = 0
+                step_ms[route].append(cuda_ms(lambda: step(state, data, gen),
+                                              3))
+                got = tuple(f.launches for f in counts)
+                want = ((0, 4 * mcfg.depth) if A._K7_CONTROL
+                        else (4 * mcfg.depth, 0))
+                check(got == want, f"int8 recipe with the {route}: launches "
+                      f"{got}")
+                out["launches"][route] = got
+            print(f"phase 32 int8 recipe step round {rnd + 1} (CUDA events, "
+                  f"ms a step): with the wgmma K7 {step_ms['wgmma'][-1]:.3f}, "
+                  f"with the control {step_ms['control'][-1]:.3f} [{gpu}]",
+                  flush=True)
+    finally:
+        A._K7_CONTROL = False
+    for route, ms in step_ms.items():
+        out["ms"][("recipe", route)] = float(np.median(ms))
+    won = sum(a < c for a, c in zip(step_ms["wgmma"], step_ms["control"]))
+    print(f"phase 32 int8 recipe step {RECIPE} B{BATCH} with "
+          f"attention_bwd_quant=int8, medians of {WG_ROUNDS} rounds: "
+          f"{out['ms'][('recipe', 'wgmma')]:.3f} ms with the wgmma K7 against "
+          f"{out['ms'][('recipe', 'control')]:.3f} with the control; rounds "
+          f"won by the wgmma K7 {won} of {WG_ROUNDS}; launches a round (K7, "
+          f"control) {out['launches']} [{gpu}]", flush=True)
+    del net, state, step, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_yardsticks(dev, gpu):
+    """Phase 33: the numbers the kernels table lacked. K2, K3a and K3b in
+    fp32 (K2 at (32, 1676, 12, 64), K3a and K3b at (32, 866)): kernel,
+    plain and SDPA's time (its efficient-attention backend, the one that
+    takes fp32: the forward, the forward with its log-sum-exp, the
+    backward through autograd with the forward subtracted); SDPA's forward
+    with its log-sum-exp beside K3a at head_dim 128, 256 (flash backend)
+    and 384 (efficient attention), on K3a's shapes of phase 27 (32, 866, 6
+    | 3 | 2, D); K4's runtime-width instance at (1, 4500, 2, 320) n_real
+    4400 against plain, timed; K5/K6 at head_dim 256 (32, 1676, 3, 256) in
+    every mode, timed (the wrappers, their PyTorch pass included). CUDA
+    events, medians of three runs. Returns the times."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from maest_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device=dev).manual_seed(33)
+    out = {}
+    for key, b, n, in (("K2", BATCH, 1676), ("K3a", BATCH, 866),
+                       ("K3b", BATCH, 866)):
+        x = torch.randn((b, n, 4, 12, 64), generator=gen, device=dev)
+        q, k, v, do = x.unbind(2)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            if key == "K2":
+                fns = (lambda: A.flash_attention(q, k, v),
+                       lambda: A.attention_reference(q, k, v),
+                       lambda: F.scaled_dot_product_attention(qt, kt, vt))
+            elif key == "K3a":
+                fns = (lambda: A.flash_attention_fwd_lse(q, k, v),
+                       lambda: A.attention_reference_lse(q, k, v),
+                       lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+                           qt, kt, vt, None, True))
+            else:
+                o, lse = A.flash_attention_fwd_lse(q, k, v)
+                qg, kg, vg = (t.detach().requires_grad_(True)
+                              for t in (qt, kt, vt))
+                gt = do.transpose(1, 2)
+                sdpa_fwd = cuda_ms_median(
+                    lambda: F.scaled_dot_product_attention(qg, kg, vg), 5)
+
+                def sdpa_bwd():
+                    F.scaled_dot_product_attention(qg, kg, vg).backward(gt)
+
+                fns = (lambda: A.attention_bwd(q, k, v, o, lse, do),
+                       lambda: A.attention_bwd_reference(q, k, v, o, lse, do),
+                       sdpa_bwd)
+            ms = [cuda_ms_median(fns[0], 5), cuda_ms_median(fns[1], 2),
+                  cuda_ms_median(fns[2], 5)]
+        if key == "K3b":
+            ms[2] -= sdpa_fwd
+        out[f"{key}_fp32"] = ms
+        del x, q, k, v, do, qt, kt, vt
+        torch.cuda.empty_cache()
+    print("phase 33 fp32 (32, N, 12, 64): " + "; ".join(
+        f"{key} kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, SDPA "
+        f"(efficient attention{', backward less forward' if key == 'K3b' else ''}"
+        f") {ms[2]:.4f} ms" for key, ms in (
+            (k_.split('_')[0], out[k_]) for k_ in ("K2_fp32", "K3a_fp32",
+                                                  "K3b_fp32")))
+          + f" [{gpu}]", flush=True)
+
+    for heads, d in ((6, 128), (3, 256), (2, 384)):
+        x = torch.randn((BATCH, 866, 3, heads, d), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        qt, kt, vt = (x[:, :, i].transpose(1, 2) for i in range(3))
+        if d <= 256:
+            fn = lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                qt, kt, vt)
+        else:
+            fn = lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+                qt, kt, vt, None, True)
+        out[f"K3a_sdpa_d{d}"] = cuda_ms_median(fn, 5)
+        del x, qt, kt, vt
+    print("phase 33 SDPA with its log-sum-exp beside K3a (bf16, (32, 866, H, "
+          "D)): " + ", ".join(f"D = {d} {out[f'K3a_sdpa_d{d}']:.4f} ms" for d in
+                             (128, 256, 384))
+          + f" (flash backend to 256, efficient attention at 384) [{gpu}]",
+          flush=True)
+
+    x = torch.randn((1, 4500, 4, 2, 320), generator=gen, device=dev).to(
+        torch.bfloat16)
+    q, k, v, do = x.unbind(2)
+    o, lse = A.flash_attention_fwd_lse(q, k, v, 4400)
+    got = A.attention_bwd(q, k, v, o, lse, do, 4400)
+    ref = A.attention_bwd_reference(q, k, v, o, lse, do, 4400)
+    err = max(max_err(a, r) for a, r in zip(got, ref))
+    check(err <= ATTN_TOL["bfloat16"], f"K4 _dn at (1, 4500, 2, 320): {err}")
+    out["K4_dn"] = (cuda_ms_median(
+        lambda: A.attention_bwd(q, k, v, o, lse, do, 4400), 5),
+        cuda_ms_median(lambda: A.attention_bwd_reference(
+            q, k, v, o, lse, do, 4400), 2))
+    print(f"phase 33 K4's _dn instance at (1, 4500, 2, 320) n_real 4400: "
+          f"max_abs_err vs plain {err:.3e} <= {ATTN_TOL['bfloat16']}, kernel "
+          f"{out['K4_dn'][0]:.4f} ms, plain {out['K4_dn'][1]:.4f} ms [{gpu}]",
+          flush=True)
+    del x, q, k, v, do, o, lse, got, ref
+
+    x = torch.randn((BATCH, 1676, 3, 3, 256), generator=gen, device=dev).to(
+        torch.bfloat16)
+    q, k, v = x.unbind(2)
+    for mode in ("qk8", "qk8pv8", "fp8", "fp8pv8"):
+        fwd = A.attention_fwd_int8 if mode.startswith("qk8") else \
+            A.attention_fwd_fp8
+        pv8 = mode.endswith("pv8")
+        out[f"{mode}_d256"] = cuda_ms_median(
+            lambda: fwd(q, k, v, None, pv8), 5)
+    print("phase 33 K5/K6 at (32, 1676, 3, 256) (the wrappers): " + ", ".join(
+        f"{mode} {out[f'{mode}_d256']:.4f} ms" for mode in
+        ("qk8", "qk8pv8", "fp8", "fp8pv8")) + f" [{gpu}]", flush=True)
+    del x, q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on a GPU",
@@ -3420,14 +3768,16 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = ("mel_kernel", "attention_fwd", "attention_bwd", "attention_fwd_q8",
             "attention_bwd_q8", "attention_probe", "mma_probe")
-    with ThreadPoolExecutor(len(libs) + 3) as pool:  # one nvcc per source
+    with ThreadPoolExecutor(len(libs) + 4) as pool:  # one nvcc per source
         planted = pool.submit(build_planted_to_s8)
         no_mask = pool.submit(build_planted_no_mask)
         bwd_no_mask = pool.submit(build_planted_bwd_no_mask)
+        k7_dq = pool.submit(build_planted_k7_dq)
         built = dict(zip(libs, pool.map(timed_build, libs)))
         planted_lib, planted_s = planted.result()
         no_mask_lib, no_mask_s = no_mask.result()
         bwd_no_mask_lib, bwd_no_mask_s = bwd_no_mask.result()
+        k7_dq_lib, k7_dq_s = k7_dq.result()
     wall = time.perf_counter() - t0
     for lib in libs:
         _build.load_library(lib)
@@ -3438,7 +3788,8 @@ def main() -> int:
           f"{planted_s:.1f} s; phase 30's of attention_fwd, the wgmma "
           f"kernel's key mask dropped, {no_mask_s:.1f} s; phase 31's of "
           f"attention_bwd, the wgmma backward's key mask dropped, "
-          f"{bwd_no_mask_s:.1f} s)", flush=True)
+          f"{bwd_no_mask_s:.1f} s; phase 32's of attention_bwd_q8, the wgmma "
+          f"K7's dq adds of key tile 1 dropped, {k7_dq_s:.1f} s)", flush=True)
     for lib, (log, _) in built.items():  # empty where a build was reused
         print(f"phase 2 ptxas {lib}: " + "; ".join(ptxas_rows(log)),
               flush=True)
@@ -3470,6 +3821,22 @@ def main() -> int:
         r.endswith("spills 0/0 bytes") for r in bw_rows
         if production in r or "attn_bwd_prep" in r),
         f"the production wgmma backward spills: {bw_rows}")
+    # the wgmma K7: its stats and main kernels form their products on s8
+    # wgmma (IGMMA) and load on TMA; none of its kernels spills
+    q8_rows = [r for r in ptxas_rows(built["attention_bwd_q8"][0])
+               if "q8w" in r]
+    q8_sass = sass_counts(_build.build("attention_bwd_q8")[0],
+                          "attn_bwd_q8w_kernel")
+    check(len(q8_sass) == 2 and all(h > 0 and t > 0
+                                    for h, t, _ in q8_sass.values()),
+          f"wgmma/TMA instructions of the wgmma K7 {q8_sass}")
+    check(not q8_rows or len(q8_rows) == 4 and all(
+        r.endswith("spills 0/0 bytes") for r in q8_rows),
+        f"the wgmma K7 spills: {q8_rows}")
+    print("phase 2 SASS of the wgmma K7 (IGMMA = s8 wgmma): " + "; ".join(
+              f"{k}: {h} IGMMA, {t} UTMALDG of {i} instructions"
+              for k, (h, t, i) in sorted(q8_sass.items()))
+          + "; ptxas: " + "; ".join(q8_rows), flush=True)
     print("phase 2 SASS of the wgmma backward kernels: " + "; ".join(
               f"{k}: {h} HGMMA, {t} UTMALDG of {i} instructions"
               for k, (h, t, i) in sorted(bw_sass.items()))
@@ -3507,6 +3874,8 @@ def main() -> int:
     p4 = phase_bwd_rig(dev, gpu, planted_lib)
     wg = phase_wgmma(dev, gpu, no_mask_lib)
     bw = phase_bwd_wgmma(dev, gpu, bwd_no_mask_lib)
+    k7w = phase_k7_wgmma(dev, gpu, k7_dq_lib)
+    phase_yardsticks(dev, gpu)
 
     frames = BATCH * 1876  # frames of 32 clips of 30 s
     mel_ops = frames * (512 + 4 * 512 * 257 + 3 * 257 + 2 * 257 * 96 + 96)
@@ -3577,7 +3946,7 @@ def main() -> int:
         ("attention_fwd_fp8", "attention_fwd_q8.cu",
          "maest_tpu/ops/attention.py:390", q8_launches["fp8"], q8["err_fp8"],
          q8["fp8"], "fp8", None),
-        ("attention_bwd_int8", "attention_bwd_q8.cu",
+        ("attention_bwd_int8", "attn_bwd_q8_wgmma.cuh",
          "maest_tpu/ops/attention.py:530", k7_launches, k7["err"], k7["ms"],
          "k7", None),
         ("attention_bwd_split", "attn_bwd_wgmma.cuh",
@@ -3773,6 +4142,18 @@ def main() -> int:
          "maest_tpu/ops/attention.py:483",
          bw["launches"][("recipe", "control")][1], bw["err"]["control"],
          (k3b["control"], tt["bwd"][1]), "bwd", k3b["sdpa"]))
+    # K7's mma.sync kernels, the control of the wgmma K7 (phase 32: its
+    # launches on the int8 recipe steps with the control, its error against
+    # plain, its CUDA-graph median at (32, 866); no PyTorch call computes an
+    # int8 attention backward)
+    print("kernels line: attention_bwd_int8 is the wgmma K7; "
+          "attention_bwd_int8_mma, its control, CUDA-graph median of phase 32 "
+          "at (32, 866), launches on phase 32's control steps", flush=True)
+    rows.append(
+        ("attention_bwd_int8_mma", "attention_bwd_q8.cu",
+         "maest_tpu/ops/attention.py:530", k7w["launches"]["control"][1],
+         k7w["err_control"], (k7w["ms"][(BATCH, 866)]["control"], k7["ms"][1]),
+         "k7", None))
     kernels = [{"name": name, "route": "cuda", "source": src + file,
                 "replaces": rep, "launches": n, "max_abs_err": err,
                 "ms": ms[0], "plain_ms": ms[1], "bound_ms": bounds[key][0],

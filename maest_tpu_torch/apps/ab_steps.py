@@ -1,6 +1,7 @@
-"""Time the bf16 tagging step and the 30 s and 10 s pre-training recipe
-steps of one or more checkouts of this repo on one CUDA card, each run in
-a process of its own, in the order given:
+"""Time the bf16 tagging step, the 30 s and 10 s pre-training recipe steps
+and the 30 s recipe step with the int8 attention backward of one or more
+checkouts of this repo on one CUDA card, each run in a process of its own,
+in the order given:
 
     python3 maest_tpu_torch/apps/ab_steps.py PARENT . . PARENT
 
@@ -15,7 +16,9 @@ warm-up steps; it reports the median and every reading:
   phase 8 times it);
 - training: ``chip_smoke._recipe`` of ``maest_30s_from_passt_pretrain``
   (ViT-B, batch 32, N 866, bf16 over fp32 parameters), as phase 12, and
-  of ``maest_10s_from_passt_pretrain`` (batch 100, N 281).
+  of ``maest_10s_from_passt_pretrain`` (batch 100, N 281), and the 30 s
+  step again with ``maest.attention_bwd_quant=int8`` (K7 in place of K3b,
+  as phase 16 runs it).
 
 Compare readings only within one run: the card's host is shared, so single
 steps spread by several per cent between runs. Prints the card's name and
@@ -83,9 +86,15 @@ torch.cuda.empty_cache()
 cfg, mcfg, net, state, step, data = cs._recipe(
     dev, "maest_10s_from_passt_pretrain", 100, 2)
 train10 = single_steps(lambda: step(state, data, gen))
+del net, state, step, data
+torch.cuda.empty_cache()
+cfg, mcfg, net, state, step, data = cs._recipe(
+    dev, cs.RECIPE, cs.BATCH, 2, ["maest.attention_bwd_quant=int8"])
+train8 = single_steps(lambda: step(state, data, gen))
 print(json.dumps({"tag_ms": tag[0], "tag_steps": tag[1],
                   "train_ms": train[0], "train_steps": train[1],
-                  "train10_ms": train10[0], "train10_steps": train10[1]}))
+                  "train10_ms": train10[0], "train10_steps": train10[1],
+                  "train_int8_ms": train8[0], "train_int8_steps": train8[1]}))
 """
 
 
@@ -113,8 +122,9 @@ def main(roots: list[str]) -> int:
         print(f"run {row['run']} {row['root']}: tagging batch-32 30 s bf16 "
               f"median {row['tag_ms']:.3f} ms, 30 s recipe step B32 median "
               f"{row['train_ms']:.3f} ms, 10 s recipe step B100 median "
-              f"{row['train10_ms']:.3f} ms, of {STEPS} single steps each "
-              f"[{gpu}]")
+              f"{row['train10_ms']:.3f} ms, 30 s recipe step B32 with the int8 "
+              f"backward median {row['train_int8_ms']:.3f} ms, of {STEPS} "
+              f"single steps each [{gpu}]")
     return 0
 
 

@@ -2,6 +2,12 @@
 // (K7; a template parameter D_ of each kernel), and any multiple of 64
 // above (the _dn kernels, head_dim a runtime argument).
 //
+// The bf16 entry at head_dim 64, maest_attn_bwd_q8, runs the s8 wgmma/TMA
+// kernels of attn_bwd_q8_wgmma.cuh after this file's amax pass (one score
+// pass per key tile and q tile, dq summed in int32); the mma.sync kernels
+// below stay as its control (maest_attn_bwd_q8_mma) and run every other
+// instance (fp32, head_dim 128, 256, _dn) and the backward rig's.
+//
 // Replaces maest_tpu/ops/attention.py::_attn_bwd_kernel_q8 + _q8_tensor
 // (called from _flash_bwd_q8 when bwd_quant="int8" and round_up(N, 128) <=
 // 4096). All five products run in int8 with int32 sums, and every scale is
@@ -84,6 +90,7 @@
 // (354 MB, 0.106 ms) and five int8 products (0.100 ms), far below the two
 // kernels' recomputed s and dp and their exp2.
 
+#include "attn_bwd_q8_wgmma.cuh"  // the bf16 route at head_dim 64
 #include "mma_8bit.cuh"
 
 namespace {
@@ -868,6 +875,38 @@ int launch_bwd_q8(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K7 in bf16 at head_dim 64 on wgmma (attn_bwd_q8_wgmma.cuh): this file's
+// amax pass, then the header's quant, stats, main and dq launches; the
+// arguments as maest_attn_bwd_q8's, delta the header's scratch
+int launch_bwd_q8_wgmma(const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const float* lse,
+                        float* stats, void* bytes, float* scratch, void* dq,
+                        void* dk, void* dv, int batch, int n, int heads,
+                        int n_real, int bq, const long long* strides, float sl,
+                        float scale, void* stream) {
+  if (batch <= 0 || n <= 0) return 0;
+  Strides w[8];
+  for (int i = 0; i < 8; ++i)
+    w[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  const int bh = batch * heads;
+  const int nqb = (n + bq - 1) / bq;
+  const long long nb = static_cast<long long>(bh) * nqb;
+  const Stats st{stats, stats + nb, stats + 2 * nb, stats + 3 * nb,
+                 stats + 4 * nb, stats + 4 * nb + bh};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16 *tq = static_cast<const bf16*>(q), *tk = static_cast<const bf16*>(k),
+             *tv = static_cast<const bf16*>(v), *td = static_cast<const bf16*>(dout);
+  bwd_q8_amax_kernel<bf16><<<dim3(bh, nqb), 256, 0, s>>>(
+      tq, tk, tv, td, st, n, heads, bq, nqb, w[0], w[1], w[2], w[4]);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  return launch_bwd_q8w(tq, tk, tv, static_cast<const bf16*>(o), td, lse,
+                        stats, static_cast<uint8_t*>(bytes), scratch,
+                        static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+                        static_cast<bf16*>(dv), batch, n, heads, n_real, bq, w,
+                        sl, scale, s);
+}
+
 // ---------------------------------------------------------- any width ---
 // head_dim above 256 (the _dn entries): the width dp, zero-padded by the
 // caller to a multiple of 64, is an argument, so no register or
@@ -1453,16 +1492,41 @@ const char* maest_cuda_error_string(int err) {
 // 16-byte boundaries. lse: contiguous fp32 (batch, heads, n) from the
 // forward. bq: the q-block of the scales, a multiple of 128. Scratch, from
 // the caller: stats, 4 (batch heads nqb) + 2 (batch heads) fp32 zeros
-// (nqb = ceil(n / bq)); bytes, 7 (batch heads round_up(n, 64) 64) bytes;
-// delta, fp32 (batch, heads, n). sl = scale * log2(e), scale =
-// head_dim^-0.5. 1 <= n_real <= n. Five launches on `stream`; returns the
-// first non-zero cudaGetLastError().
+// (nqb = ceil(n / bq)); bytes, maest_attn_bwd_q8_bytes(batch, n, heads)
+// bytes; delta, maest_attn_bwd_q8_scratch(batch, n, heads) floats (dq's
+// int32 sums, the padded lse and delta). sl = scale * log2(e), scale =
+// head_dim^-0.5. 1 <= n_real <= n. The wgmma route (attn_bwd_q8_wgmma.cuh):
+// five launches on `stream`; returns the first non-zero cudaGetLastError().
 int maest_attn_bwd_q8(const void* q, const void* k, const void* v,
                       const void* o, const void* dout, const float* lse,
                       float* stats, void* bytes, float* delta, void* dq,
                       void* dk, void* dv, int batch, int n, int heads,
                       int n_real, int bq, const long long* strides, float sl,
                       float scale, void* stream) {
+  return launch_bwd_q8_wgmma(q, k, v, o, dout, lse, stats, bytes, delta, dq,
+                             dk, dv, batch, n, heads, n_real, bq, strides, sl,
+                             scale, stream);
+}
+
+// floats of the scratch maest_attn_bwd_q8 takes in delta's place
+long long maest_attn_bwd_q8_scratch(int batch, int n, int heads) {
+  return qw_scratch_floats(batch, n, heads);
+}
+
+// bytes of the int8 copies maest_attn_bwd_q8 takes
+long long maest_attn_bwd_q8_bytes(int batch, int n, int heads) {
+  return qw_bytes(batch, n, heads);
+}
+
+// The control of the wgmma route: the mma.sync kernels (amax, quant, scale
+// pass, dk/dv, dq), arguments as maest_attn_bwd_q8's but bytes 7 (batch
+// heads round_up(n, 64) 64) bytes and delta fp32 (batch, heads, n).
+int maest_attn_bwd_q8_mma(const void* q, const void* k, const void* v,
+                          const void* o, const void* dout, const float* lse,
+                          float* stats, void* bytes, float* delta, void* dq,
+                          void* dk, void* dv, int batch, int n, int heads,
+                          int n_real, int bq, const long long* strides,
+                          float sl, float scale, void* stream) {
   return launch_bwd_q8<bf16>(q, k, v, o, dout, lse, stats, bytes, delta, dq,
                              dk, dv, batch, n, heads, n_real, bq, strides, sl,
                              scale, stream);

@@ -21,8 +21,10 @@ the next of these on inputs zero-padded to its width with its own
 softmax scale (``pad_head_dim``). The bf16 forward at head_dim 64 runs
 the ``wgmma`` / TMA kernel (``csrc/attn_fwd_wgmma.cuh``), the bf16
 backward at head_dim 64 the one of ``csrc/attn_bwd_wgmma.cuh`` (one score
-pass per key tile and q tile); their ``mma.sync`` controls stay as
-``attention_fwd_mma`` and ``attention_bwd_mma``. On CPU
+pass per key tile and q tile), the int8 backward in bf16 at head_dim 64
+the s8 ``wgmma`` kernels of ``csrc/attn_bwd_q8_wgmma.cuh``; their
+``mma.sync`` controls stay as ``attention_fwd_mma``,
+``attention_bwd_mma`` and ``attention_bwd_int8_mma``. On CPU
 tensors it runs the plain PyTorch version (``attention_reference``,
 ``attention_reference_lse``, ``attention_bwd_reference``,
 ``attention_q8_reference``, ``attention_bwd_int8_reference``). Production
@@ -357,6 +359,134 @@ def attention_bwd_int8_reference(q, k, v, o, lse, do,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+K7_KEY_TILE = 128  # the wgmma K7's keys a block
+K7_Q_TILE = 64     # and its q rows a streamed tile
+
+
+def seq_pos(r):
+    """The position of sequence row ``r`` (an int or an integer tensor) in
+    the transposed 8-bit copies of the int8 backward (``csrc/mma_8bit.cuh``
+    seq_pos): within each 16-row group, row 8a + 2t + c sits at 4t + 2a + c,
+    the order in which the s32 accumulator of an m16n8k32 or m64nNk32
+    product hands thread t its columns (8j + 2t + c), so the accumulator,
+    packed as it lies, is the next product's s8 register-A fragment (k
+    positions 4t + {0..3} and 16 + 4t + {0..3} of each 32-deep k-step)."""
+    i = r & 15
+    return (r & ~15) + ((i >> 1) & 3) * 4 + (i >> 3) * 2 + (i & 1)
+
+
+def _by_position(x, n_pad: int):
+    """x (..., N, D) -> (..., D, n_pad): position seq_pos(r) holds row r,
+    zeros past N (the kernels' transposed copies)."""
+    out = x.new_zeros(x.shape[:-2] + (x.shape[-1], n_pad))
+    out[..., seq_pos(torch.arange(x.shape[-2], device=x.device))] = (
+        x.transpose(-1, -2))
+    return out
+
+
+def attention_bwd_int8_tiled_reference(q, k, v, o, lse, do,
+                                       n_real: int | None = None,
+                                       scale: float | None = None,
+                                       key_tile: int = K7_KEY_TILE,
+                                       q_tile: int = K7_Q_TILE):
+    """``attention_bwd_int8_reference``'s function, walked over the tiles of
+    the ``wgmma`` K7 (``csrc/attn_bwd_q8_wgmma.cuh``) in its passes: the
+    int8 copies and their scales (per (head, q-block) for q and do, per
+    head for k and v), then a stats pass over (key tile, q tile) for max p
+    and max|ds| per (head, q-block), then the main pass: per key tile,
+    every q tile forms s and dp once, p8^T and ds8^T are taken in the order
+    the accumulator hands them out (their q columns at ``seq_pos``) and
+    contracted with the transposed copies (``_by_position``), dk and dv
+    summed per q-block and folded into fp32 at its end, and dq's integer
+    sums over the key tiles (in any order: integers) scaled once. Integer
+    sums exact in float64. It equals ``attention_bwd_int8_reference``
+    exactly. Beyond n_pad 4096: the bf16 backward."""
+    b, n, h, d = q.shape
+    if not int8_bwd_applies(n):
+        return attention_bwd_reference(q, k, v, o, lse, do, n_real, scale)
+    nr = n if n_real is None else n_real
+    scale = _scale(q, scale)
+    sl = scale * _LOG2E
+    qh, kh, vh, oh, doh = _heads(q, k, v, o, do)
+    k8, ks = quantize_tensor(kh, dim=(2, 3))
+    v8, vs = quantize_tensor(vh, dim=(2, 3))
+    k8, v8 = k8.double(), v8.double()
+    bq = bwd_q_block(n)
+    blocks = [slice(r0, min(r0 + bq, n)) for r0 in range(0, n, bq)]
+    q8, do8 = torch.empty_like(qh, dtype=torch.float64), torch.empty_like(
+        doh, dtype=torch.float64)
+    qs, dos = [], []
+    for r in blocks:
+        for x, x8, scales in ((qh, q8, qs), (doh, do8, dos)):
+            codes, xs = quantize_tensor(x[:, :, r], dim=(2, 3))
+            x8[:, :, r] = codes.double()
+            scales.append(xs)
+    delta = (doh.float() * oh.float()).sum(-1, keepdim=True)  # (B, H, N, 1)
+    n_pad = -(-n // key_tile) * key_tile
+    qt, dot, kt = (_by_position(x, n_pad) for x in (q8, do8, k8))
+    # the accumulator's q columns (or keys) at each position of a tile
+    order = torch.argsort(seq_pos(torch.arange(q_tile, device=q.device)))
+    korder = torch.argsort(seq_pos(torch.arange(key_tile, device=q.device)))
+    tiles = [(q0, slice(q0, min(q0 + q_tile, n)), q0 // bq)
+             for q0 in range(0, n, q_tile)]
+
+    def scores(ksl, qsl, j):
+        """p^T and ds^T (B, H, keys, q rows) of a key tile and a q tile."""
+        live = torch.arange(ksl.start, ksl.stop, device=q.device) < nr
+        s = (k8[:, :, ksl] @ q8[:, :, qsl].transpose(-1, -2)).float() * (
+            qs[j] * ks * sl)
+        s = torch.where(live[:, None], s, _NEG_INF)
+        p = torch.exp2(s - lse[:, :, None, qsl])
+        dp = (v8[:, :, ksl] @ do8[:, :, qsl].transpose(-1, -2)).float() * (
+            dos[j] * vs)
+        return p, p * (dp - delta[:, :, qsl].transpose(-1, -2)) * scale
+
+    key_tiles = [slice(k0, min(k0 + key_tile, n)) for k0 in range(0, nr,
+                                                                  key_tile)]
+    pst = [torch.full_like(ks, _EPS) for _ in blocks]
+    dst = [torch.full_like(ks, _EPS) for _ in blocks]
+    for ksl in key_tiles:  # stats
+        for q0, qsl, j in tiles:
+            p, ds = scores(ksl, qsl, j)
+            pst[j] = torch.maximum(pst[j], p.amax(dim=(2, 3), keepdim=True))
+            dst[j] = torch.maximum(dst[j], ds.abs().amax(dim=(2, 3),
+                                                         keepdim=True))
+    dq_int = torch.zeros((b, h, n, d), dtype=torch.float64, device=q.device)
+    dk = torch.zeros((b, h, n, d), device=q.device)
+    dv = torch.zeros((b, h, n, d), device=q.device)
+    for ksl in key_tiles:  # main
+        nk = ksl.stop - ksl.start
+        dk_int = dv_int = 0.0
+        for q0, qsl, j in tiles:
+            p, ds = scores(ksl, qsl, j)
+            p8 = torch.round(p * _rdiv(127.0, pst[j])).double()
+            ds8 = torch.round(ds * _rdiv(127.0, dst[j])).double()
+            m = qsl.stop - q0  # q rows of the tile; positions past them 0
+            pad = (0, q_tile - m)
+            a_p = F.pad(p8, pad)[..., order]   # as the accumulator lies
+            a_ds = F.pad(ds8, pad)[..., order]
+            pos = slice(q0, q0 + q_tile)
+            dv_int = dv_int + a_p @ dot[..., pos].transpose(-1, -2)
+            dk_int = dk_int + a_ds @ qt[..., pos].transpose(-1, -2)
+            # dQ: the ds8 tile keys at their K8^T positions
+            kpad = (0, 0, 0, key_tile - nk)
+            a_q = F.pad(ds8, kpad)[..., korder, :].transpose(-1, -2)
+            dq_int[:, :, qsl] += a_q @ kt[..., ksl.start:ksl.start
+                                         + key_tile].transpose(-1, -2)
+            last = q0 + q_tile >= n or (q0 + q_tile) // bq != j
+            if last:  # the q-block's sums into fp32, in order
+                dk[:, :, ksl] += dk_int.float() * (dst[j] * qs[j] * (
+                    1.0 / 127.0))
+                dv[:, :, ksl] += dv_int.float() * (dos[j] * pst[j] * (
+                    1.0 / 127.0))
+                dk_int = dv_int = 0.0
+    dq = torch.empty((b, h, n, d), device=q.device)
+    for j, r in enumerate(blocks):
+        dq[:, :, r] = dq_int[:, :, r].float() * (dst[j] * ks * (1.0 / 127.0))
+    dq, dk, dv = _heads(dq, dk, dv)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _check_args(q, k, v, n_real, quant, bwd_quant=None):
     """Validate; return (n_real or None when it is N, quant, bwd_quant) with
     the config-file spelling "none" of off turned into None."""
@@ -464,7 +594,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches`` (K3a), ``attention_bwd.launches`` (K3b/K4),
     ``attention_fwd_int8.launches`` (K5), ``attention_fwd_fp8.launches``
     (K6) and ``attention_bwd_int8.launches`` (K7); the controls in
-    ``attention_fwd_mma.launches`` and ``attention_bwd_mma.launches``."""
+    ``attention_fwd_mma.launches``, ``attention_bwd_mma.launches`` and
+    ``attention_bwd_int8_mma.launches``."""
     n_real, quant, bwd_quant = _check_args(q, k, v, n_real, quant, bwd_quant)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -811,10 +942,40 @@ def attention_bwd_mma(q, k, v, o, lse, do, n_real: int | None = None):
 def attention_bwd_int8(q, k, v, o, lse, do, n_real: int | None = None):
     """The int8 backward (K7): as ``attention_bwd``, with the arithmetic of
     ``attention_bwd_int8_reference``. CUDA tensors launch
-    ``csrc/attention_bwd_q8.cu`` (bf16, or its fp32 instance; counted in
-    ``attention_bwd_int8.launches``) while round_up(N, 128) <= 4096, and
-    the bf16 or fp32 backward beyond, as the TPU package does."""
+    ``csrc/attention_bwd_q8.cu`` (in bf16 at head_dim 64 its ``wgmma``
+    kernels, ``csrc/attn_bwd_q8_wgmma.cuh``; the fp32 and wider instances
+    otherwise; counted in ``attention_bwd_int8.launches``) while
+    round_up(N, 128) <= 4096, and the bf16 or fp32 backward beyond, as the
+    TPU package does."""
     return _bwd_qkv(q, k, v, o, lse, do, n_real, "int8").unbind(2)
+
+
+# Private: True routes the int8 backward in bf16 at head_dim 64 through the
+# control (``attention_bwd_int8_mma``) instead of the wgmma kernels, so that
+# a measurement can time the steps of the model with each. Nothing in the
+# package sets it.
+_K7_CONTROL = False
+
+
+def attention_bwd_int8_mma(q, k, v, o, lse, do, n_real: int | None = None):
+    """The control of K7's wgmma kernels: the ``mma.sync`` kernels (amax,
+    quant, scale pass, dk/dv, dq; entry ``maest_attn_bwd_q8_mma`` of
+    ``csrc/attention_bwd_q8.cu``) on bf16 CUDA (B, N, H, 64) views with
+    round_up(N, 128) <= 4096; (dq, dk, dv). They compute what
+    ``attention_bwd_int8`` computes, forming the scores three times;
+    counted in ``attention_bwd_int8_mma.launches``. CPU tensors run
+    ``attention_bwd_int8_reference``."""
+    n_real, _, _ = _check_args(q, k, v, n_real, None)
+    if q.device.type == "cpu":
+        return attention_bwd_int8_reference(q, k, v, o, lse, do, n_real)
+    if (q.dtype != torch.bfloat16 or q.shape[-1] != HEAD_DIM
+            or not int8_bwd_applies(q.shape[1])):
+        raise ValueError("the control takes bf16 q, k, v at head_dim 64 and "
+                         "round_up(N, 128) <= 4096")
+    grads = _launch_bwd_q8(q, k, v, o, lse, do, n_real, q.shape[-1]**-0.5,
+                           name="maest_attn_bwd_q8_mma")
+    attention_bwd_int8_mma.launches += 1
+    return grads.unbind(2)
 
 
 def _bwd_qkv(q, k, v, o, lse, do, n_real, bwd_quant):
@@ -823,6 +984,13 @@ def _bwd_qkv(q, k, v, o, lse, do, n_real, bwd_quant):
     if q.device.type == "cpu":
         ref = attention_bwd_int8_reference if int8 else attention_bwd_reference
         return torch.stack(ref(q, k, v, o, lse, do, n_real), dim=2)
+    if int8 and _K7_CONTROL and q.dtype == torch.bfloat16 and padded_dim(
+            q.shape[-1]) == HEAD_DIM:
+        grads = padded_bwd(functools.partial(
+            _launch_bwd_q8, name="maest_attn_bwd_q8_mma"), q, k, v, o, lse, do,
+            n_real)
+        attention_bwd_int8_mma.launches += 1
+        return grads
     if int8:
         grads = padded_bwd(_launch_bwd_q8, q, k, v, o, lse, do, n_real)
         attention_bwd_int8.launches += 1
@@ -905,27 +1073,47 @@ def launch_bwd_entry(name, lead, q, k, v, o, lse, do, n_real, scale):
     return grads
 
 
-def _launch_bwd_q8(q, k, v, o, lse, do, n_real, scale):
+# the entry that runs the wgmma K7 (csrc/attn_bwd_q8_wgmma.cuh): it takes
+# maest_attn_bwd_q8_bytes(batch, n, heads) bytes of int8 copies and, in
+# delta's place, a scratch of maest_attn_bwd_q8_scratch(batch, n, heads)
+# floats
+_WGMMA_BWD_Q8 = "maest_attn_bwd_q8"
+
+
+def _launch_bwd_q8(q, k, v, o, lse, do, n_real, scale, name=None):
     """K7: scratch for the maxima and the int8 copies, then the kernels of
-    ``csrc/attention_bwd_q8.cu`` (pre-pass, scale pass, dk/dv, dq; the fp32
-    instance for fp32 tensors); the (B, N, 3, H, D) gradients."""
+    ``csrc/attention_bwd_q8.cu`` (in bf16 at head_dim 64 the wgmma route:
+    amax, quant, stats, main, dq; else, and for the entry ``name``
+    ``maest_attn_bwd_q8_mma``, the mma.sync kernels: amax, quant, scale
+    pass, dk/dv, dq; the fp32 instance for fp32 tensors); the (B, N, 3, H,
+    D) gradients."""
     o, do = _bwd_views(q, k, v, o, lse, do, aligned=True)
     b, n, h, d = q.shape
     grads, dq, dk, dv = _grads(q)
-    delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    lib = _build.load_library("attention_bwd_q8")
+    lead = ()
+    if name is None:
+        name, lead = _instance("maest_attn_bwd_q8" + (
+            "_fp32" if q.dtype == torch.float32 else ""), d)
     bq = bwd_q_block(n)
     nqb = -(-n // bq)
-    npad = -(-n // 64) * 64
+    if name == _WGMMA_BWD_Q8:  # sizes from the library
+        sizes = []
+        for what in ("scratch", "bytes"):
+            fn = getattr(lib, f"maest_attn_bwd_q8_{what}")
+            fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+            sizes.append(fn(b, n, h))
+        n_floats, n_bytes = sizes
+    else:
+        n_floats, n_bytes = b * h * n, 7 * b * h * (-(-n // 64) * 64) * d
+    # delta (B, H, N), or the wgmma route's scratch
+    delta = torch.empty(n_floats, dtype=torch.float32, device=q.device)
     # maxima of |q|, |do| per (head, q-block), of |k|, |v| per head, and of
     # p, |ds| per (head, q-block): atomicMax targets, so zeroed
     stats = torch.zeros(4 * b * h * nqb + 2 * b * h, dtype=torch.float32,
                         device=q.device)
     # q8, k8, v8, do8 (B*H, N_pad, D) and q, do, k transposed (_seq_major)
-    bytes8 = torch.empty(7 * b * h * npad * d, dtype=torch.int8,
-                         device=q.device)
-    lib = _build.load_library("attention_bwd_q8")
-    name, lead = _instance("maest_attn_bwd_q8" + (
-        "_fp32" if q.dtype == torch.float32 else ""), d)
+    bytes8 = torch.empty(n_bytes, dtype=torch.int8, device=q.device)
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] * len(lead) + [ctypes.c_void_p] * 12 + [
@@ -953,3 +1141,4 @@ attention_bwd_mma.launches = 0
 attention_fwd_int8.launches = 0
 attention_fwd_fp8.launches = 0
 attention_bwd_int8.launches = 0
+attention_bwd_int8_mma.launches = 0

@@ -1175,6 +1175,154 @@ def test_k3b_control_hook_routes_a_training_step(cuda_device, monkeypatch):
         assert (grads[True][k] - g).abs().max().item() <= 1e-2 * top, k
 
 
+# --- K7 on wgmma (csrc/attn_bwd_q8_wgmma.cuh) --------------------------------
+# chip_smoke.py's phase 15 draws at smaller batches: the 30 s recipe's N,
+# padded with n_real, the 10 s recipe's, three 640-row q-blocks, normal x
+# 0.5; K7_TOL of each gradient's max and a cosine of K7_COS, as there
+K7_WG_CASES = [(2, 866, None, 1.0), (2, 896, 866, 1.0), (4, 281, None, 1.0),
+               (1, 1800, 1790, 1.0), (2, 866, None, 0.5)]
+K7_TOL, K7_COS = 2e-2, 0.9999
+
+
+def _k7_ok(got, want):
+    for a, r in zip(got, want):
+        a, r = a.double().flatten(), r.double().flatten()
+        top = r.abs().max().item()
+        cos = (a @ r / (a.norm() * r.norm())).item()
+        if (a - r).abs().max().item() > K7_TOL * top or cos < K7_COS:
+            return False
+    return True
+
+
+@pytest.mark.parametrize("b,n,n_real,scale", K7_WG_CASES)
+def test_k7_wgmma_matches_plain_and_control(cuda_device, b, n, n_real, scale):
+    """The int8 backward in bf16 at head_dim 64 (the wgmma kernels, through
+    attention_bwd_int8, each call counted) on strided views of one fused
+    q/k/v: within K7_TOL and K7_COS of attention_bwd_int8_reference and of
+    its tiled plain version, two launches torch.equal (dq's int32 sums are
+    order-free), masked dk/dv exactly zero; the mma.sync control
+    (attention_bwd_int8_mma) within the same bound of plain."""
+    from maest_tpu_torch.ops import attention as A
+
+    x = _rand((b, n, 3, 12, 64), 95 + n, scale).to(cuda_device,
+                                                   torch.bfloat16)
+    q, k, v = x.unbind(2)
+    do = _rand((b, n, 12, 64), 96 + n).to(cuda_device, torch.bfloat16)
+    o, lse = flash_attention_fwd_lse(q, k, v, n_real)
+    before = (A.attention_bwd_int8.launches, A.attention_bwd_int8_mma.launches)
+    got = A.attention_bwd_int8(q, k, v, o, lse, do, n_real)
+    again = A.attention_bwd_int8(q, k, v, o, lse, do, n_real)
+    ctrl = A.attention_bwd_int8_mma(q, k, v, o, lse, do, n_real)
+    ref = A.attention_bwd_int8_reference(q, k, v, o, lse, do, n_real)
+    tiled = A.attention_bwd_int8_tiled_reference(q, k, v, o, lse, do, n_real)
+    torch.cuda.synchronize()
+    assert (A.attention_bwd_int8.launches,
+            A.attention_bwd_int8_mma.launches) == (before[0] + 2,
+                                                   before[1] + 1)
+    assert all(torch.equal(a, z) for a, z in zip(got, again))
+    assert _k7_ok(got, ref) and _k7_ok(got, tiled) and _k7_ok(ctrl, ref)
+    if n_real is not None:
+        assert not got[1][:, n_real:].any() and not got[2][:, n_real:].any()
+
+
+def test_k7_wgmma_check_refuses_the_dq_drop(cuda_device, tmp_path):
+    """The wgmma K7 built with key tile 1's bulk dq adds dropped (a copy of
+    csrc/ in a temporary directory): dq misses keys 128..255 of every head,
+    and the check that holds the sound kernel to plain refuses it. The copy
+    runs in a process of its own (as the other planted faults). Run with
+    -s to see the gap."""
+    import json
+    import shutil
+    import subprocess
+    import sys
+
+    from maest_tpu_torch.ops import _build
+    from maest_tpu_torch.ops import attention as A
+
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, src)
+    header = src / "attn_bwd_q8_wgmma.cuh"
+    text = header.read_text()
+    old = ("          bulk_add_s32(dq_acc + (static_cast<long long>(bh) * n_pad"
+           " + it * QW_BQ) * 64,")
+    assert text.count(old) == 1
+    header.write_text(text.replace(old, "          if (kb != 1) " + old[10:]))
+    lib = tmp_path / "attention_bwd_q8.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(src / "attention_bwd_q8.cu")], check=True,
+                   capture_output=True)
+    make = ("x = torch.from_numpy(np.random.default_rng(97).standard_normal("
+            "(2, 866, 4, 12, 64)).astype(np.float32) * 0.5).cuda().bfloat16()\n"
+            "q, k, v, do = x.unbind(2)\n"
+            "o, lse = A.flash_attention_fwd_lse(q, k, v)\n")
+    scope = {}
+    exec("import numpy as np, torch\n"
+         "from maest_tpu_torch.ops import attention as A\n" + make, scope)
+    args = [scope[n] for n in ("q", "k", "v", "o", "lse", "do")]
+    sound = _k7_ok(A.attention_bwd_int8(*args),
+                   A.attention_bwd_int8_reference(*args))
+    code = (
+        "import ctypes, json, sys, torch\n"
+        f"sys.path.insert(0, {str(_build.CSRC.parents[1])!r})\n"
+        "import numpy as np\n"
+        "from maest_tpu_torch.ops import _build, attention as A\n"
+        f"_build._libs['attention_bwd_q8'] = ctypes.CDLL({str(lib)!r})\n"
+        + make +
+        "bad = A.attention_bwd_int8(q, k, v, o, lse, do)\n"
+        "ref = A.attention_bwd_int8_reference(q, k, v, o, lse, do)\n"
+        "print(json.dumps([((a.float() - r.float()).abs().max() / r.float()"
+        ".abs().max()).item() for a, r in zip(bad, ref)]))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    gap = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"planted: the wgmma K7 without key tile 1's dq adds: max|grad - "
+          f"plain| / max|plain| dq {gap[0]:.4g}, dk {gap[1]:.4g}, dv "
+          f"{gap[2]:.4g} against the bound {K7_TOL} (sound passes: {sound})")
+    assert sound and gap[0] > K7_TOL
+
+
+def test_k7_control_hook_routes_a_training_step(cuda_device, monkeypatch):
+    """The private hook that lets a measurement time the model's training
+    steps with K7's control: with it set, the int8 backward in bf16 at
+    head_dim 64 launches the mma.sync kernels (counted in
+    attention_bwd_int8_mma) and not the wgmma ones, and every parameter's
+    gradient stays within 1e-2 of its largest |g| (at least 1e-2 of the
+    largest of all) of the wgmma route's."""
+    from maest_tpu_torch.models.registry import build_config
+    from maest_tpu_torch.models.vit import MAESTNet
+    from maest_tpu_torch.ops import attention as A
+
+    cfg = build_config("discogs-maest-30s-pw-129e", embed_dim=128, depth=2,
+                       num_heads=2, input_t=206, n_classes=16,
+                       attention_bwd_quant="int8")
+    net = MAESTNet(cfg, dtype=torch.bfloat16, param_dtype=torch.float32,
+                   device=cuda_device,
+                   generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():  # zero heads would hide every difference
+        net.head[1].weight.copy_(_rand((16, 128), 16, 0.2))
+    x = _rand((2, 1, 96, 206), 17).to(cuda_device)
+    grads = {}
+    for control in (False, True):
+        monkeypatch.setattr(A, "_K7_CONTROL", control)
+        net.zero_grad()
+        before = (A.attention_bwd_int8.launches,
+                  A.attention_bwd_int8_mma.launches)
+        net(x, train=True, generator=torch.Generator().manual_seed(0))[
+            0].float().square().sum().backward()
+        torch.cuda.synchronize()
+        grew = (A.attention_bwd_int8.launches - before[0],
+                A.attention_bwd_int8_mma.launches - before[1])
+        assert grew == ((0, cfg.depth) if control else (cfg.depth, 0))
+        grads[control] = {k: p.grad.detach().clone()
+                          for k, p in net.named_parameters()
+                          if p.grad is not None}
+    big = max(g.abs().max().item() for g in grads[False].values())
+    for k, g in grads[False].items():
+        top = max(g.abs().max().item(), 1e-2 * big)
+        assert (grads[True][k] - g).abs().max().item() <= 1e-2 * top, k
+
+
 # --- P4: the backward rig's kernels (ops/bwd_probe.py) ----------------------
 @pytest.mark.parametrize("kind", ["ctrl", "int8", "fp8"])
 def test_bwd_rig_kernels_match_plain(cuda_device, kind):
