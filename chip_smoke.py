@@ -98,8 +98,19 @@ rounds, and the int8 recipe step with each K7 in turn (32); and the
 yardsticks the kernels table lacked: K2, K3a, K3b in fp32 beside SDPA's
 efficient attention, SDPA's forward with its log-sum-exp at head_dim 128,
 256 and 384, K4's runtime-width instance and K5/K6 at head_dim 256 timed
-(33). Phase 2 also counts the wgmma and TMA instructions in the SASS of
-the wgmma kernels and checks that the production ones spill nothing. Every phase
+(33). Then fp32 K2/K3a and K3b/K4 on tf32 ``wgmma`` and TMA with 3xTF32
+products (``csrc/attn_fwd_tf32.cuh``, ``csrc/attn_bwd_tf32.cuh``: the
+route of fp32 at head_dim 64, and so of phases 4, 5, 9 and 10 and of
+``get_maest``'s default dtype) against plain and their scalar FMA
+controls at (32, 1676), (32, 866), (100, 281) and (2, 4500) n_real 4400,
+two backward launches bit-equal, masked dk/dv exactly zero, every
+configuration of their sweeps against plain, the kernels built with one
+tf32 product refused (in a process of their own), then the kernels, the
+controls, plain and SDPA's efficient attention timed by CUDA-graph
+replays in interleaved rounds, and the fp32 tagging and 30 s recipe steps
+with each route in turn (34). Phase 2 also counts the wgmma and TMA
+instructions in the SASS of the wgmma kernels and checks that the
+production ones spill nothing. Every phase
 prints one line per check; any failure raises, so the exit code is not 0.
 The card's name and power limit, the JSON record of the kernels (with each
 one's bound: the least time the card could take for its work at the
@@ -176,7 +187,10 @@ K7F32_TOL = 1e-5
 # one ds8 (or p8) code, which moves one row of dq and one of dk (or dv) by
 # a code's weight: at most K7F32_FLIP_ROWS rows (b, n, h) beyond K7F32_TOL
 # of the gradient's max, all within K7_TOL (measured on the H100 at (4,
-# 281, 12, 320): one dq row at 4.3e-3 of its max)
+# 281, 12, 320): one dq row at 4.3e-3 of its max). At head_dim 64 it sums
+# 64 in another order too: on the fp32 forward's o and lse of the tf32
+# kernels (phase 23) one ds8 code flips, one dq row at 3.2e-3 and one dk row
+# at 1.7e-3 of their max, where the scalar FMA forward's o and lse flip none
 K7F32_FLIP_ROWS = 4
 # P6a-d vs plain on the same 64-key tiles: as Q8_ULPS, both round one fp32
 # output to bf16 and their fp32 values differ by sums in other orders
@@ -252,8 +266,10 @@ def wg_production(n_real: int) -> int:
     """The configuration maest_attn_fwd_bf16 takes at n_real keys: 112-key
     tiles (4) where they pad the keys less than 96-key ones (0)."""
     return 4 if -(-n_real // 112) * 112 < -(-n_real // 96) * 96 else 0
-# H100 SXM data-sheet peaks (dense), for the bounds of the kernels line
-PEAK = {"bf16": 989e12, "fp8": 1979e12, "int8": 1979e12, "fp32": 67e12}
+# H100 SXM data-sheet peaks (dense), for the bounds of the kernels line;
+# "tf32x3": an fp32-accurate product as three tf32 products (3xTF32)
+PEAK = {"bf16": 989e12, "fp8": 1979e12, "int8": 1979e12, "fp32": 67e12,
+        "tf32x3": 495e12 / 3}
 HBM = 3.35e12       # bytes/s
 
 
@@ -1723,7 +1739,8 @@ def phase_queue3(dev, gpu):
     (with lse, as the recipe step launches them) and K7: against
     attention_q8_reference and attention_bwd_int8_reference at the path's
     (2, 866, 12, 64), with the launch counters checked and the times; K7's
-    gradients rounded to bf16 fail its bound. Returns the errors, times,
+    gradients rounded to bf16 fail its bound (K7 on the scalar FMA
+    forward's o and lse; on the tf32 forward's within K7F32_FLIP_ROWS). Returns the errors, times,
     the path's launches and the launches of the 8-bit _dn instances."""
     from maest_tpu_torch.ops import attention as A
 
@@ -1802,7 +1819,10 @@ def phase_queue3(dev, gpu):
               f"{out['ms'][mode][1]:.4f} ms, kernel alone (torch.profiler) "
               f"{_fmt_ms(out['alone'][mode])} [{gpu}]", flush=True)
         del o, lse, ro, rlse
-    o, lse = A.flash_attention_fwd_lse(q, k, v)
+    # K7's saved tensors from the scalar FMA forward, the fp32 forward these
+    # checks were drawn with before the tf32 kernels (now its control): the
+    # same inputs, the same bound; the tf32 route's below
+    o, lse = A.attention_fwd_fp32_fma(q, k, v, None, with_lse=True)
     before = A.attention_bwd_int8.launches
     got = A.attention_bwd_int8(q, k, v, o, lse, g)
     ref = A.attention_bwd_int8_reference(q, k, v, o, lse, g)
@@ -1827,6 +1847,30 @@ def phase_queue3(dev, gpu):
           " and the bf16-rounded gradients fail it; "
           f"time: kernel {out['k7_ms'][0]:.4f} ms, plain {out['k7_ms'][1]:.4f}"
           f" ms [{gpu}]", flush=True)
+    # on the tf32 forward's o and lse: K7 sums delta = rowsum(do o) in
+    # another order than plain, and on these a ds8 code lands on the other
+    # side of its rounding (one dq row and one dk row at 3.2e-3 and 1.7e-3
+    # of their max on the H100): held to K7F32_FLIP_ROWS, as the fp32 _dn
+    # instances are
+    o, lse = A.flash_attention_fwd_lse(q, k, v)
+    got = A.attention_bwd_int8(q, k, v, o, lse, g)
+    ref = A.attention_bwd_int8_reference(q, k, v, o, lse, g)
+    torch.cuda.synchronize()
+    parts = []
+    for w, a, r in zip(("dq", "dk", "dv"), got, ref):
+        top, cos = r.abs().max().item(), cosine(a, r)
+        err = (a - r).abs()
+        rows = int((err.amax(dim=-1) > K7F32_TOL * top).sum())
+        e = err.max().item() / top
+        check(rows <= K7F32_FLIP_ROWS and e <= K7_TOL and cos >= K7_COS,
+              f"K7 fp32 on the tf32 forward's o, lse: {w} {e} of max, {rows} "
+              f"rows, cos {cos}")
+        parts.append(f"{w} {e:.2e} of max (cos {cos:.6f}, {rows} rows beyond "
+                     f"{K7F32_TOL})")
+    print(f"phase 23 K7 fp32 (2, 866, 12, 64) on the tf32 forward's o and lse: "
+          + ", ".join(parts) + f": <= {K7F32_TOL} but for at most "
+          f"{K7F32_FLIP_ROWS} rows, all <= {K7_TOL}, cos >= {K7_COS}",
+          flush=True)
     del x, q, k, v, g, o, lse, got, ref
     out["k4_dn_err"] = _k4_dn(dev, gen)
     check(all(dn8.values()), f"8-bit _dn launches {dn8}")
@@ -3623,6 +3667,380 @@ def phase_k7_wgmma(dev, gpu, planted_lib):
     return out
 
 
+# phase 34's planted fault: one tf32 product (hi.hi) where the kernels take
+# three, in the forward and the backward alike
+PLANT_TF32_1X = ("constexpr bool TF_3X = true;",
+                 "constexpr bool TF_3X = false;")
+# the configurations of maest_attn_fwd_fp32_tf32 (csrc/attention_fwd.cu):
+# a fresh P.V sum a tile, or one running sum, that with the next tile's S
+# issued beside P.V; 0 is the production route
+TF_CONFIGS = ("fresh", "one sum", "one sum overlap")
+# the configurations of maest_attn_bwd_fp32_tf32 (csrc/attention_bwd.cu): a
+# fresh sum a tile in both kernels (0, production), or one running sum
+TB_CONFIGS = ("fresh", "one sum")
+# phase 34's shapes: K2's, the 30 s and 10 s recipes' and K4's regime
+TF_FWD_SHAPES = ((BATCH, 1676, None), (BATCH, 866, None), (100, 281, None),
+                 (2, 4500, 4400))
+TF_BWD_SHAPES = ((BATCH, 866, None), (100, 281, None), (2, 4500, 4400))
+
+
+def build_planted_tf32_fwd() -> tuple[Path, float]:
+    """``csrc/attention_fwd.cu`` with one tf32 product in the tf32 kernel
+    (phase 34 shows its check refusing the kernel so built)."""
+    return _build_planted("tf32_1x_fwd", "attention_fwd", "attn_fwd_tf32.cuh",
+                          PLANT_TF32_1X)
+
+
+def build_planted_tf32_bwd() -> tuple[Path, float]:
+    """``csrc/attention_bwd.cu`` with one tf32 product in the tf32 kernels
+    (phase 34 shows its check refusing the kernels so built)."""
+    return _build_planted("tf32_1x_bwd", "attention_bwd", "attn_fwd_tf32.cuh",
+                          PLANT_TF32_1X)
+
+
+def _tf32_cfg(cfg, q, k, v, n_real=None, with_lse=False):
+    """The tf32 forward in sweep configuration ``cfg`` (TF_CONFIGS)."""
+    from maest_tpu_torch.ops import attention as A
+
+    return A.launch_fwd_entry("attention_fwd", "maest_attn_fwd_fp32_tf32",
+                              (cfg,), q, k, v, n_real, with_lse, 0.125)
+
+
+def _tb_cfg(cfg, q, k, v, o, lse, do, n_real=None):
+    """The tf32 backward in sweep configuration ``cfg`` (TB_CONFIGS)."""
+    from maest_tpu_torch.ops import attention as A
+
+    return A.launch_bwd_entry("maest_attn_bwd_fp32_tf32", (cfg,), q, k, v, o,
+                              lse, do, n_real, 0.125).unbind(2)
+
+
+def _tf32_planted_err(fwd_lib: Path, bwd_lib: Path) -> list:
+    """[max|o - plain|, max|grads - plain|] of fp32 K2 and K3b from the
+    libraries built with one tf32 product, at (2, 1000, 12, 64) n_real 997
+    drawn from seed 34, run in a process of its own (as ``_planted_err``)."""
+    code = (
+        "import ctypes, json, sys, torch\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import chip_smoke as C\n"
+        "from maest_tpu_torch.ops import _build, attention as A\n"
+        f"_build._libs['attention_fwd'] = ctypes.CDLL({str(fwd_lib)!r})\n"
+        f"_build._libs['attention_bwd'] = ctypes.CDLL({str(bwd_lib)!r})\n"
+        "gen = torch.Generator(device='cuda').manual_seed(34)\n"
+        "q, k, v, do = torch.randn((2, 1000, 4, 12, 64), generator=gen, "
+        "device='cuda').unbind(2)\n"
+        "ro, rl = A.attention_reference_lse(q, k, v, 997)\n"
+        "o = A.flash_attention(q, k, v, 997)\n"
+        "g = A.attention_bwd(q, k, v, ro, rl, do, 997)\n"
+        "r = A.attention_bwd_reference(q, k, v, ro, rl, do, 997)\n"
+        "print(json.dumps([C.max_err(o, ro), max(C.max_err(a, b) for a, b in "
+        "zip(g, r))]))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=ROOT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the planted fault's process failed:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _tf32_checks(dev, planted):
+    """Phase 34's checks: fp32 K2 and K3a (the tf32 kernel) and their scalar
+    FMA control against plain at TF_FWD_SHAPES (o within ATTN_TOL, lse
+    within LSE_TOL, K2's o torch.equal to K3a's); K3b/K4 (the tf32 kernels)
+    and their control against plain at TF_BWD_SHAPES (ATTN_TOL), masked
+    dk/dv exactly zero, two launches torch.equal; every sweep configuration
+    against plain at (2, 1000) n_real 997, config 0 the route bit for bit,
+    and printed against plain at K2's and K3b's shapes;
+    the kernels built with one tf32 product refused. Every launch counted.
+    Returns the largest errors."""
+    from maest_tpu_torch.ops import attention as A
+
+    tol = ATTN_TOL["float32"]
+    gen = torch.Generator(device=dev).manual_seed(34)
+    err = {"fwd": 0.0, "lse": 0.0, "bwd": 0.0, "fwd_control": 0.0,
+           "bwd_control": 0.0}
+    for b, n, n_real in TF_FWD_SHAPES:
+        q, k, v = torch.randn((b, n, 3, 12, 64), generator=gen,
+                              device=dev).unbind(2)
+        before = (A.flash_attention.launches, A.flash_attention_fwd_lse.launches,
+                  A.attention_fwd_fp32_fma.launches)
+        o2 = A.flash_attention(q, k, v, n_real)
+        o, lse = A.flash_attention_fwd_lse(q, k, v, n_real)
+        co, cl = A.attention_fwd_fp32_fma(q, k, v, n_real, with_lse=True)
+        ro, rl = A.attention_reference_lse(q, k, v, n_real)
+        torch.cuda.synchronize()
+        grew = tuple(f.launches - c for f, c in zip(
+            (A.flash_attention, A.flash_attention_fwd_lse,
+             A.attention_fwd_fp32_fma), before))
+        check(grew == (1, 1, 1), f"fp32 forward counters {grew}")
+        check(torch.equal(o2, o), f"fp32 K2 and K3a differ at ({b}, {n})")
+        e = (max_err(o, ro), max_err(lse, rl), max_err(co, ro),
+             max_err(cl, rl))
+        check(e[0] <= tol and e[2] <= tol, f"fp32 K2/K3a ({b}, {n}) {e}")
+        check(e[1] <= LSE_TOL and e[3] <= LSE_TOL, f"fp32 lse ({b}, {n}) {e}")
+        err["fwd"], err["lse"] = max(err["fwd"], e[0]), max(err["lse"], e[1])
+        err["fwd_control"] = max(err["fwd_control"], e[2])
+        sweep = ""
+        if (b, n) == (BATCH, 1676):  # every configuration at K2's shape
+            sweep = "; o of every sweep configuration " + ", ".join(
+                f"{name} {max_err(_tf32_cfg(c, q, k, v)[0], ro):.3e}"
+                for c, name in enumerate(TF_CONFIGS))
+        print(f"phase 34 fp32 K2/K3a tf32 ({b}, {n}, 12, 64) n_real {n_real}: "
+              f"max_abs_err o {e[0]:.3e} <= {tol}, lse {e[1]:.3e} <= "
+              f"{LSE_TOL}; K2 = K3a bit for bit; the FMA control o "
+              f"{e[2]:.3e}, lse {e[3]:.3e}{sweep}", flush=True)
+        del q, k, v, o2, o, lse, co, cl, ro, rl
+        torch.cuda.empty_cache()
+    for b, n, n_real in TF_BWD_SHAPES:
+        q, k, v, do = torch.randn((b, n, 4, 12, 64), generator=gen,
+                                  device=dev).unbind(2)
+        o, lse = A.attention_reference_lse(q, k, v, n_real)
+        before = (A.attention_bwd.launches, A.attention_bwd_fp32_fma.launches)
+        got = A.attention_bwd(q, k, v, o, lse, do, n_real)
+        again = A.attention_bwd(q, k, v, o, lse, do, n_real)
+        ctrl = A.attention_bwd_fp32_fma(q, k, v, o, lse, do, n_real)
+        ref = A.attention_bwd_reference(q, k, v, o, lse, do, n_real)
+        torch.cuda.synchronize()
+        grew = (A.attention_bwd.launches - before[0],
+                A.attention_bwd_fp32_fma.launches - before[1])
+        check(grew == (2, 1), f"fp32 backward counters {grew}")
+        e = [max_err(a, r) for a, r in zip(got, ref)]
+        ec = max(max_err(a, r) for a, r in zip(ctrl, ref))
+        same = all(torch.equal(a, z) for a, z in zip(got, again))
+        zero = n_real is None or not (got[1][:, n_real:].any()
+                                      or got[2][:, n_real:].any())
+        check(max(e) <= tol and ec <= tol, f"fp32 K3b ({b}, {n}) {e} {ec}")
+        check(same, f"fp32 K3b ({b}, {n}): two launches differ")
+        check(zero, f"fp32 K3b ({b}, {n}): masked dk/dv not zero")
+        err["bwd"] = max(err["bwd"], max(e))
+        err["bwd_control"] = max(err["bwd_control"], ec)
+        sweep = ""
+        if (b, n) == (BATCH, 866):  # every configuration at K3b's shape
+            sweep = "; dq, dk, dv of every sweep configuration " + ", ".join(
+                f"{name} " + "/".join(f"{max_err(a, r):.3e}" for a, r in zip(
+                    _tb_cfg(c, q, k, v, o, lse, do), ref))
+                for c, name in enumerate(TB_CONFIGS))
+        print(f"phase 34 fp32 K3b/K4 tf32 ({b}, {n}, 12, 64) n_real {n_real}: "
+              f"max_abs_err dq {e[0]:.3e}, dk {e[1]:.3e}, dv {e[2]:.3e} <= "
+              f"{tol}; two launches bit-equal {same}; masked dk/dv zero "
+              f"{zero}; the FMA control {ec:.3e}{sweep}", flush=True)
+        del q, k, v, do, o, lse, got, again, ctrl, ref
+        torch.cuda.empty_cache()
+
+    q, k, v, do = torch.randn((2, 1000, 4, 12, 64), generator=gen,
+                              device=dev).unbind(2)
+    ro, rl = A.attention_reference_lse(q, k, v, 997)
+    ref = A.attention_bwd_reference(q, k, v, ro, rl, do, 997)
+    sweep = {}
+    for cfg, name in enumerate(TF_CONFIGS):
+        o, lse = _tf32_cfg(cfg, q, k, v, 997, True)
+        sweep[name] = (max_err(o, ro), max_err(lse, rl))
+        check(sweep[name][0] <= tol and sweep[name][1] <= LSE_TOL,
+              f"tf32 forward {name}: {sweep[name]}")
+        if cfg == 0:
+            want = A.flash_attention_fwd_lse(q, k, v, 997)
+            check(torch.equal(o, want[0]) and torch.equal(lse, want[1]),
+                  "tf32 forward config 0 is not the route")
+    for cfg, name in enumerate(TB_CONFIGS):
+        got = _tb_cfg(cfg, q, k, v, ro, rl, do, 997)
+        sweep[f"bwd {name}"] = max(max_err(a, r) for a, r in zip(got, ref))
+        check(sweep[f"bwd {name}"] <= tol and not got[1][:, 997:].any()
+              and not got[2][:, 997:].any(), f"tf32 backward {name}")
+        if cfg == 0:
+            want = A.attention_bwd(q, k, v, ro, rl, do, 997)
+            check(all(torch.equal(a, z) for a, z in zip(got, want)),
+                  "tf32 backward config 0 is not the route")
+    print("phase 34 sweep configurations against plain at (2, 1000, 12, 64) "
+          "n_real 997 (max_abs_err o, lse; grads): " + "; ".join(
+              f"{k_} {v_[0]:.3e}, {v_[1]:.3e}" if isinstance(v_, tuple)
+              else f"{k_} {v_:.3e}" for k_, v_ in sweep.items())
+          + f"; config 0 ({TF_CONFIGS[0]}, {TB_CONFIGS[0]}) the route bit for "
+          "bit", flush=True)
+    del q, k, v, do, ro, rl, ref
+    torch.cuda.empty_cache()
+
+    bad = _tf32_planted_err(*planted)
+    check(bad[0] > tol and bad[1] > tol,
+          f"the check passes the kernels built with one tf32 product: {bad}")
+    print(f"phase 34 planted fault refused: the kernels built with one tf32 "
+          f"product (TF_3X false, a process of its own): forward max_abs_err "
+          f"{bad[0]:.3e}, backward {bad[1]:.3e} > {tol} at (2, 1000, 12, 64) "
+          f"n_real 997", flush=True)
+    err["planted"] = bad
+    return err
+
+
+def sdpa_efficient(q, k, v, do=None, lse=False):
+    """One call of SDPA's efficient-attention backend (the aten op, the one
+    that takes fp32) on (B, N, H, D): its forward, with its log-sum-exp when
+    ``lse``, or, given ``do``, its backward alone on its own forward's saved
+    tensors. The library call that computes K2's, K3a's or K3b's function
+    in fp32, which the port never calls."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    fwd = torch.ops.aten._scaled_dot_product_efficient_attention
+    if do is None:
+        return lambda: fwd(qt, kt, vt, None, lse)
+    o, lse_, seed, offset = fwd(qt, kt, vt, None, True)
+    dot = do.transpose(1, 2)
+    return lambda: torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+        dot, qt, kt, vt, None, o, lse_, seed, offset, 0.0,
+        [True, True, True, False])
+
+
+def phase_tf32(dev, gpu, planted):
+    """Phase 34: fp32 K2/K3a and K3b/K4 on tf32 ``wgmma`` and TMA with
+    3xTF32 products (``csrc/attn_fwd_tf32.cuh``, ``csrc/attn_bwd_tf32.cuh``,
+    the routes of fp32 at head_dim 64) beside their scalar FMA controls,
+    plain and SDPA's efficient attention. First ``_tf32_checks``. Then
+    CUDA-graph replays of the kernel, the control, plain, SDPA and every
+    other sweep configuration in WG_ROUNDS interleaved rounds (each once a
+    round, the order reversed every other round) at K2's (32, 1676, 12, 64),
+    K3a's and K3b's (32, 866, 12, 64) and K4's (2, 4500, 12, 64) n_real
+    4400 (SDPA at (2, 4400): it takes no key mask), every round printed;
+    then the default-dtype ``predict_labels`` on one batch of 32 clips of
+    30 s (one K2 a block), and the batch-32 30 s fp32 tagging step
+    (``get_maest``'s default dtype) and the 30 s recipe step in fp32 (B32,
+    N 866) with each route in turn, the controls reached through the
+    private hook ``ops.attention._F32_CONTROL``, CUDA events over 2 steps a
+    round after one, the launch counters checked on each; the launches of
+    the tf32 route (prep passes, kernels) by device time at K2's and K3b's
+    shapes. Returns the errors, the medians, the launches and the parts."""
+    from maest_tpu_torch import get_maest
+    from maest_tpu_torch.ops import attention as A
+    from maest_tpu_torch.probes.attn_profile import graph_ms
+    from maest_tpu_torch.serve import BucketPrograms
+
+    out = {"err": _tf32_checks(dev, planted), "ms": {}, "launches": {},
+           "parts": {}}
+    gen = torch.Generator(device=dev).manual_seed(35)
+    for name, b, n, nr in (("K2", BATCH, 1676, None), ("K3a", BATCH, 866, None),
+                           ("K3b", BATCH, 866, None), ("K4", 2, 4500, 4400)):
+        q, k, v, do = torch.randn((b, n, 4, 12, 64), generator=gen,
+                                  device=dev).unbind(2)
+        if name in ("K3b", "K4"):
+            o, lse = A.flash_attention_fwd_lse(q, k, v, nr)
+            real = slice(0, nr or n)  # SDPA's takes no key mask: N = n_real
+            fns = {"tf32": lambda: A.attention_bwd(q, k, v, o, lse, do, nr),
+                   "control": lambda: A.attention_bwd_fp32_fma(
+                       q, k, v, o, lse, do, nr),
+                   "plain": lambda: A.attention_bwd_reference(
+                       q, k, v, o, lse, do, nr),
+                   "sdpa": sdpa_efficient(*(t[:, real] for t in (q, k, v)),
+                                          do[:, real])}
+            fns.update({TB_CONFIGS[c]: (lambda c=c: _tb_cfg(
+                c, q, k, v, o, lse, do, nr)) for c in range(1, len(TB_CONFIGS))})
+        else:
+            lse_ = name == "K3a"
+            fns = {"tf32": (lambda: A.flash_attention_fwd_lse(q, k, v))
+                   if lse_ else (lambda: A.flash_attention(q, k, v)),
+                   "control": lambda: A.attention_fwd_fp32_fma(q, k, v, None,
+                                                               lse_),
+                   "plain": (lambda: A.attention_reference_lse(q, k, v))
+                   if lse_ else (lambda: A.attention_reference(q, k, v)),
+                   "sdpa": sdpa_efficient(q, k, v, lse=lse_)}
+            fns.update({TF_CONFIGS[c]: (lambda c=c: _tf32_cfg(
+                c, q, k, v, None, lse_)) for c in range(1, len(TF_CONFIGS))})
+        rows = {key: [] for key in fns}
+        for rnd in range(WG_ROUNDS):
+            order = list(fns) if rnd % 2 == 0 else list(fns)[::-1]
+            for key in order:
+                rows[key].append(graph_ms(fns[key], 3, dev, reps=1))
+            print(f"phase 34 fp32 {name} ({b}, {n}, 12, 64) n_real {nr} round "
+                  f"{rnd + 1} CUDA-graph ms: " + ", ".join(
+                      f"{key} {rows[key][-1]:.4f}" for key in fns)
+                  + f" [{gpu}]", flush=True)
+        med = {key: float(np.median(ms)) for key, ms in rows.items()}
+        every = all(t < c for t, c in zip(rows["tf32"], rows["control"]))
+        print(f"phase 34 fp32 {name} ({b}, {n}, 12, 64) n_real {nr} medians: "
+              f"tf32 "
+              f"{med['tf32']:.4f} ms, control {med['control']:.4f} ms "
+              f"({med['control'] / med['tf32']:.2f}x), plain "
+              f"{med['plain']:.4f} ms, SDPA (efficient attention"
+              f"{', its backward alone' if name in ('K3b', 'K4') else ''}"
+              f"{' at N 4400' if nr else ''}) "
+              f"{med['sdpa']:.4f} ms; the tf32 kernel beat the control in "
+              f"every round: {every}; fastest of all: "
+              f"{min(med, key=med.get)} [{gpu}]", flush=True)
+        check(every, f"fp32 {name}: the tf32 kernel lost a round to the "
+              f"control {rows}")
+        out["ms"][name] = med
+        if name in ("K2", "K3b"):
+            out["parts"][name] = _kernel_ms(
+                fns["tf32"], r"(?:attn_\w*tf32|tf_split)")
+            print(f"phase 34 fp32 {name} the tf32 route's launches by device "
+                  f"time (torch.profiler): {_fmt_ms(out['parts'][name])} "
+                  f"[{gpu}]", flush=True)
+        del q, k, v, do, fns
+        torch.cuda.empty_cache()
+
+    # the fp32 steps with each route, in turn
+    counts = (A.flash_attention, A.flash_attention_fwd_lse, A.attention_bwd,
+              A.attention_fwd_fp32_fma, A.attention_bwd_fp32_fma)
+    model = get_maest(arch=ARCH, pretrained=False, device=dev)
+    prog = BucketPrograms(model, buckets=(BATCH,), fused_wave=True)
+    waves = torch.from_numpy(np.random.default_rng(34).standard_normal(
+        (BATCH, CLIP)).astype(np.float32) * 0.1).to(dev)
+    _, mcfg, net, state, step, data = _recipe(dev, RECIPE, BATCH, 34,
+                                              dtype=torch.float32)
+    gen_step = torch.Generator().manual_seed(34)
+    depth = model.net.cfg.depth
+    # the default-dtype API: one batch of 30 s clips, K2 once a block
+    for f in counts:
+        f.launches = 0
+    acts, _ = model.predict_labels(waves)
+    got = tuple(f.launches for f in counts)
+    check(got == (depth, 0, 0, 0, 0) and bool(np.isfinite(acts).all()),
+          f"fp32 predict_labels: launches {got}")
+    print(f"phase 34 fp32 predict_labels (get_maest's default dtype) on "
+          f"{BATCH} clips of 30 s, one batch: launches (K2, K3a, K3b, fwd "
+          f"control, bwd control) {got}, activations {acts.shape} finite",
+          flush=True)
+    steps = {"tagging": lambda: prog._activations(waves),
+             "recipe": lambda: step(state, data, gen_step)}
+    want = {("tagging", False): (3 * depth, 0, 0, 0, 0),
+            ("tagging", True): (0, 0, 0, 3 * depth, 0),
+            ("recipe", False): (0, 3 * mcfg.depth, 3 * mcfg.depth, 0, 0),
+            ("recipe", True): (0, 0, 0, 3 * mcfg.depth, 3 * mcfg.depth)}
+    step_ms = {(s_, r_): [] for s_ in steps for r_ in ("tf32", "control")}
+    try:
+        for rnd in range(WG_ROUNDS):
+            for what, fn in steps.items():
+                order = ("tf32", "control") if rnd % 2 == 0 else (
+                    "control", "tf32")
+                for route in order:
+                    A._F32_CONTROL = route == "control"
+                    for f in counts:
+                        f.launches = 0
+                    with torch.inference_mode(what == "tagging"):
+                        step_ms[(what, route)].append(cuda_ms(fn, 2))
+                    got = tuple(f.launches for f in counts)
+                    check(got == want[(what, A._F32_CONTROL)],
+                          f"fp32 {what} with the {route}: launches {got}")
+                    out["launches"][(what, route)] = got
+            print(f"phase 34 fp32 steps round {rnd + 1} (CUDA events, ms a "
+                  f"step): " + ", ".join(f"{w} with the {r} {ms[-1]:.3f}"
+                                         for (w, r), ms in step_ms.items())
+                  + f" [{gpu}]", flush=True)
+    finally:
+        A._F32_CONTROL = False
+    for key, ms in step_ms.items():
+        out["ms"][key] = float(np.median(ms))
+    won = {w: sum(a < c for a, c in zip(step_ms[(w, "tf32")],
+                                        step_ms[(w, "control")]))
+           for w in steps}
+    tag = {r: out["ms"][("tagging", r)] for r in ("tf32", "control")}
+    rec = {r: out["ms"][("recipe", r)] for r in ("tf32", "control")}
+    print(f"phase 34 fp32 steps, medians of {WG_ROUNDS} rounds: batch-{BATCH} "
+          f"30 s fp32 tagging {tag['tf32']:.3f} ms with the tf32 kernels ("
+          f"{BATCH * 30 / (tag['tf32'] / 1e3):.1f} audio-s/s) against "
+          f"{tag['control']:.3f} with the controls; {RECIPE} B{BATCH} in fp32 "
+          f"{rec['tf32']:.3f} ms against {rec['control']:.3f}; rounds won by "
+          f"the tf32 kernels {won}; launches a round (K2, K3a, K3b, fwd "
+          f"control, bwd control) {out['launches']} [{gpu}]", flush=True)
+    del model, prog, waves, net, state, step, data
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_yardsticks(dev, gpu):
     """Phase 33: the numbers the kernels table lacked. K2, K3a and K3b in
     fp32 (K2 at (32, 1676, 12, 64), K3a and K3b at (32, 866)): kernel,
@@ -3768,16 +4186,19 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = ("mel_kernel", "attention_fwd", "attention_bwd", "attention_fwd_q8",
             "attention_bwd_q8", "attention_probe", "mma_probe")
-    with ThreadPoolExecutor(len(libs) + 4) as pool:  # one nvcc per source
+    with ThreadPoolExecutor(len(libs) + 6) as pool:  # one nvcc per source
         planted = pool.submit(build_planted_to_s8)
         no_mask = pool.submit(build_planted_no_mask)
         bwd_no_mask = pool.submit(build_planted_bwd_no_mask)
         k7_dq = pool.submit(build_planted_k7_dq)
+        tf32_fwd = pool.submit(build_planted_tf32_fwd)
+        tf32_bwd = pool.submit(build_planted_tf32_bwd)
         built = dict(zip(libs, pool.map(timed_build, libs)))
         planted_lib, planted_s = planted.result()
         no_mask_lib, no_mask_s = no_mask.result()
         bwd_no_mask_lib, bwd_no_mask_s = bwd_no_mask.result()
         k7_dq_lib, k7_dq_s = k7_dq.result()
+        tf32_libs = (tf32_fwd.result(), tf32_bwd.result())
     wall = time.perf_counter() - t0
     for lib in libs:
         _build.load_library(lib)
@@ -3789,7 +4210,10 @@ def main() -> int:
           f"kernel's key mask dropped, {no_mask_s:.1f} s; phase 31's of "
           f"attention_bwd, the wgmma backward's key mask dropped, "
           f"{bwd_no_mask_s:.1f} s; phase 32's of attention_bwd_q8, the wgmma "
-          f"K7's dq adds of key tile 1 dropped, {k7_dq_s:.1f} s)", flush=True)
+          f"K7's dq adds of key tile 1 dropped, {k7_dq_s:.1f} s; phase 34's "
+          f"of attention_fwd and attention_bwd, one tf32 product in the tf32 "
+          f"kernels, {tf32_libs[0][1]:.1f} and {tf32_libs[1][1]:.1f} s)",
+          flush=True)
     for lib, (log, _) in built.items():  # empty where a build was reused
         print(f"phase 2 ptxas {lib}: " + "; ".join(ptxas_rows(log)),
               flush=True)
@@ -3842,6 +4266,29 @@ def main() -> int:
               for k, (h, t, i) in sorted(bw_sass.items()))
           + "; ptxas: " + "; ".join(bw_rows), flush=True)
 
+    # the tf32 kernels (fp32 at head_dim 64): every forward configuration,
+    # the dk/dv and dq kernels form their products on tf32 wgmma (HGMMA)
+    # and load on TMA; the production ones spill nothing
+    tf_rows = [r for lib in ("attention_fwd", "attention_bwd")
+               for r in ptxas_rows(built[lib][0]) if "tf32" in r]
+    tf_sass = {**sass_counts(_build.build("attention_fwd")[0],
+                             "attn_fwd_tf32_kernel"),
+               **sass_counts(_build.build("attention_bwd")[0], "tf32_kernel")}
+    tf_sass = {k: c for k, c in tf_sass.items() if "stats" not in k}
+    check(len(tf_sass) == len(TF_CONFIGS) + 2 * len(TB_CONFIGS) and all(
+        h > 0 and t > 0 for h, t, _ in tf_sass.values()),
+        f"wgmma/TMA instructions of the tf32 kernels {tf_sass}")
+    production = ("attn_fwd_tf32_kernel<0, 1>", "attn_bwd_dkv_tf32_kernel<1>",
+                  "attn_bwd_dq_tf32_kernel<1>")
+    check(not tf_rows or all(any(p in r for r in tf_rows) for p in production)
+          and all(r.endswith("spills 0/0 bytes") for r in tf_rows
+                  if any(p in r for p in production)),
+          f"the production tf32 kernels spill: {tf_rows}")
+    print("phase 2 SASS of the tf32 kernels (HGMMA = tf32 wgmma): " + "; ".join(
+              f"{k}: {h} HGMMA, {t} UTMALDG of {i} instructions"
+              for k, (h, t, i) in sorted(tf_sass.items()))
+          + "; ptxas: " + "; ".join(tf_rows), flush=True)
+
     mel_err, attn_err = phase_kernels_vs_plain(dev)
     sd = phase_golden(dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3876,6 +4323,7 @@ def main() -> int:
     bw = phase_bwd_wgmma(dev, gpu, bwd_no_mask_lib)
     k7w = phase_k7_wgmma(dev, gpu, k7_dq_lib)
     phase_yardsticks(dev, gpu)
+    tf = phase_tf32(dev, gpu, [p for p, _ in tf32_libs])
 
     frames = BATCH * 1876  # frames of 32 clips of 30 s
     mel_ops = frames * (512 + 4 * 512 * 257 + 3 * 257 + 2 * 257 * 96 + 96)
@@ -3912,6 +4360,12 @@ def main() -> int:
         "qk8_dn": attn_bound(BATCH, 1676, 2, qk="int8", d=384),
         "fp8_dn": attn_bound(BATCH, 1676, 2, qk="fp8", d=384),
         "k7_dn": bwd_bound(BATCH, 866, 2, kind="int8", d=384),
+        # fp32 at head_dim 64: three tf32 products a product
+        "fwd_fp32": attn_bound(BATCH, 1676, 12, qk="tf32x3", pv="tf32x3",
+                               elem=4),
+        "fwd_lse_fp32": attn_bound(BATCH, 866, 12, qk="tf32x3",
+                                   pv="tf32x3", lse=True, elem=4),
+        "bwd_fp32": bwd_bound(BATCH, 866, 12, kind="tf32x3", elem=4),
     }
     # P1 k64big (48 programs) and P8 fc1 bf16 (32): the rigs' own bounds
     from maest_tpu_torch.probes import fp8_mlp, mxu
@@ -4154,6 +4608,45 @@ def main() -> int:
          "maest_tpu/ops/attention.py:530", k7w["launches"]["control"][1],
          k7w["err_control"], (k7w["ms"][(BATCH, 866)]["control"], k7["ms"][1]),
          "k7", None))
+    # fp32 at head_dim 64 on tf32 wgmma (phase 34: launches on its tf32
+    # tagging and recipe steps, the checks' largest errors, CUDA-graph
+    # medians beside plain's and SDPA's efficient attention, the backward's
+    # alone) and the scalar FMA controls (launches on phase 34's control
+    # steps); bounds: three tf32 products a product, the lower of the two
+    print("kernels line: attention_fwd_fp32, attention_fwd_lse_fp32 and "
+          "attention_bwd_fp32 are the tf32 kernels (fp32 at head_dim 64); "
+          "attention_fwd_fp32_fma and attention_bwd_fp32_fma their scalar FMA "
+          "controls; phase 34's CUDA-graph medians at (32, 1676) and (32, "
+          "866), launches on its fp32 tagging and recipe steps, SDPA's "
+          "efficient attention", flush=True)
+    m_ = tf["ms"]
+    rows += [
+        ("attention_fwd_fp32", "attn_fwd_tf32.cuh",
+         "maest_tpu/ops/attention.py:176",
+         tf["launches"][("tagging", "tf32")][0], tf["err"]["fwd"],
+         (m_["K2"]["tf32"], m_["K2"]["plain"]), "fwd_fp32", m_["K2"]["sdpa"]),
+        ("attention_fwd_lse_fp32", "attn_fwd_tf32.cuh",
+         "maest_tpu/ops/attention.py:404",
+         tf["launches"][("recipe", "tf32")][1],
+         max(tf["err"]["fwd"], tf["err"]["lse"]),
+         (m_["K3a"]["tf32"], m_["K3a"]["plain"]), "fwd_lse_fp32",
+         m_["K3a"]["sdpa"]),
+        ("attention_bwd_fp32", "attn_bwd_tf32.cuh",
+         "maest_tpu/ops/attention.py:483",
+         tf["launches"][("recipe", "tf32")][2], tf["err"]["bwd"],
+         (m_["K3b"]["tf32"], m_["K3b"]["plain"]), "bwd_fp32",
+         m_["K3b"]["sdpa"]),
+        ("attention_fwd_fp32_fma", "attention_fwd.cu",
+         "maest_tpu/ops/attention.py:176",
+         tf["launches"][("tagging", "control")][3], tf["err"]["fwd_control"],
+         (m_["K2"]["control"], m_["K2"]["plain"]), "fwd_fp32",
+         m_["K2"]["sdpa"]),
+        ("attention_bwd_fp32_fma", "attention_bwd.cu",
+         "maest_tpu/ops/attention.py:483",
+         tf["launches"][("recipe", "control")][4], tf["err"]["bwd_control"],
+         (m_["K3b"]["control"], m_["K3b"]["plain"]), "bwd_fp32",
+         m_["K3b"]["sdpa"]),
+    ]
     kernels = [{"name": name, "route": "cuda", "source": src + file,
                 "replaces": rep, "launches": n, "max_abs_err": err,
                 "ms": ms[0], "plain_ms": ms[1], "bound_ms": bounds[key][0],

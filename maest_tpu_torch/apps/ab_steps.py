@@ -1,5 +1,6 @@
-"""Time the bf16 tagging step, the 30 s and 10 s pre-training recipe steps
-and the 30 s recipe step with the int8 attention backward of one or more
+"""Time the bf16 and fp32 tagging steps, the 30 s and 10 s pre-training
+recipe steps and the 30 s recipe step with the int8 attention backward of
+one or more
 checkouts of this repo on one CUDA card, each run in a process of its own,
 in the order given:
 
@@ -13,7 +14,8 @@ warm-up steps; it reports the median and every reading:
 
 - tagging: ``BucketPrograms._activations`` on 32 clips of 30 s, bf16,
   random weights (wave -> mel -> ViT-B -> sigmoid, as ``chip_smoke.py``
-  phase 8 times it);
+  phase 8 times it), and the same in fp32, ``get_maest``'s default dtype
+  (as phase 34 times it);
 - training: ``chip_smoke._recipe`` of ``maest_30s_from_passt_pretrain``
   (ViT-B, batch 32, N 866, bf16 over fp32 parameters), as phase 12, and
   of ``maest_10s_from_passt_pretrain`` (batch 100, N 281), and the 30 s
@@ -75,6 +77,12 @@ waves = torch.from_numpy(np.random.default_rng(2).standard_normal(
     (cs.BATCH, cs.CLIP)).astype(np.float32) * 0.1).to(dev)
 with torch.inference_mode():
     tag = single_steps(lambda: prog._activations(waves))
+del model, prog
+torch.cuda.empty_cache()
+model = get_maest(cs.ARCH, pretrained=False, device=dev)  # fp32
+prog = BucketPrograms(model, buckets=(cs.BATCH,), fused_wave=True)
+with torch.inference_mode():
+    tag32 = single_steps(lambda: prog._activations(waves))
 del model, prog, waves
 torch.cuda.empty_cache()
 
@@ -92,6 +100,7 @@ cfg, mcfg, net, state, step, data = cs._recipe(
     dev, cs.RECIPE, cs.BATCH, 2, ["maest.attention_bwd_quant=int8"])
 train8 = single_steps(lambda: step(state, data, gen))
 print(json.dumps({"tag_ms": tag[0], "tag_steps": tag[1],
+                  "tag_fp32_ms": tag32[0], "tag_fp32_steps": tag32[1],
                   "train_ms": train[0], "train_steps": train[1],
                   "train10_ms": train10[0], "train10_steps": train10[1],
                   "train_int8_ms": train8[0], "train_int8_steps": train8[1]}))
@@ -120,7 +129,8 @@ def main(roots: list[str]) -> int:
         print(json.dumps(row), flush=True)
     for row in rows:
         print(f"run {row['run']} {row['root']}: tagging batch-32 30 s bf16 "
-              f"median {row['tag_ms']:.3f} ms, 30 s recipe step B32 median "
+              f"median {row['tag_ms']:.3f} ms, in fp32 {row['tag_fp32_ms']:.3f}"
+              f" ms, 30 s recipe step B32 median "
               f"{row['train_ms']:.3f} ms, 10 s recipe step B100 median "
               f"{row['train10_ms']:.3f} ms, 30 s recipe step B32 with the int8 "
               f"backward median {row['train_int8_ms']:.3f} ms, of {STEPS} "

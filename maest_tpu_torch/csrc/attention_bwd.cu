@@ -67,11 +67,16 @@
 // need 73.7 KB of buffers, past the 48 KB of static shared memory: they
 // take dynamic shared memory (bwd_smem_bytes).
 //
-// fp32 design (the parity tier, which must stay true fp32): scalar FMA. In
-// the dk/dv kernel a thread owns one key (its k and v rows in shared memory
-// rows padded to 65 floats, so 32 threads hit 32 banks; dk and dv in
-// registers) and q/do tiles are read as broadcasts; in the dq kernel a
-// thread owns one q row the same way and k/v tiles are the broadcasts.
+// fp32 design (the parity tier, which must hold 2e-5): at head_dim 64 the
+// products run on the tensor cores as 3xTF32 (attn_bwd_tf32.cuh, the route
+// of maest_attn_bwd_fp32: a prep pass of tf32 planes, a dk/dv kernel and a
+// dq kernel on tf32 wgmma); one tf32 product alone misses 2e-5 by ~20x.
+// The other widths and the control at 64 (maest_attn_bwd_fp32_fma) run
+// scalar FMA. In the dk/dv kernel a thread owns one key (its k and v rows
+// in shared memory rows padded to 65 floats, so 32 threads hit 32 banks;
+// dk and dv in registers) and q/do tiles are read as broadcasts; in the
+// dq kernel a thread owns one q row the same way and k/v tiles are the
+// broadcasts.
 //
 // head_dim 128 (D_ = 128). A warp's dk and dv sums, with its K and V rows
 // held as A fragments, would take ~2 x 64 + 2 x 32 registers a thread in
@@ -114,6 +119,7 @@
 
 #include <type_traits>
 
+#include "attn_bwd_tf32.cuh"   // the fp32 backward at head_dim 64, 3xTF32
 #include "attn_bwd_wgmma.cuh"  // the bf16 backward at head_dim 64
 #include "mma_8bit.cuh"
 
@@ -1405,11 +1411,58 @@ const char* maest_cuda_error_string(int err) {
 // Every o and dout row (both entries) and every q/k/v row (bf16 entries)
 // must start on a 16-byte boundary. Three launches on `stream` (delta, dk/dv, dq); returns the
 // first non-zero cudaGetLastError().
+//
+// The fp32 entry at head_dim 64 runs the 3xTF32 wgmma kernels
+// (attn_bwd_tf32.cuh): four split launches and the stats pass, then the
+// dk/dv and the dq kernel, each summing every tile's products freshly and
+// adding them to its gradients in registers (the sweep, phase 34: one
+// running sum lands several times farther from plain at (32, 866), in
+// about the same time). Its `delta` is fp32 scratch of
+// maest_attn_bwd_fp32_scratch(batch, n, heads) floats (the tf32 planes,
+// lse and delta of the padded rows).
 int maest_attn_bwd_fp32(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const float* lse,
                         float* delta, void* dq, void* dk, void* dv, int batch,
                         int n, int heads, int n_real, const long long* strides,
                         float sl, float scale, void* stream) {
+  return launch_bwd_tf32<true>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                               batch, n, heads, n_real, strides, sl, scale,
+                               stream);
+}
+
+long long maest_attn_bwd_fp32_scratch(int batch, int n, int heads) {
+  return tb_scratch_floats(batch, n, heads);
+}
+
+// The tf32 kernels' configurations, chosen by `config`: 0, a fresh sum a
+// tile in both kernels, the route of maest_attn_bwd_fp32; 1, one running
+// sum. Otherwise the arguments of maest_attn_bwd_fp32; another config
+// returns cudaErrorInvalidValue.
+int maest_attn_bwd_fp32_tf32(int config, const void* q, const void* k,
+                             const void* v, const void* o, const void* dout,
+                             const float* lse, float* delta, void* dq,
+                             void* dk, void* dv, int batch, int n, int heads,
+                             int n_real, const long long* strides, float sl,
+                             float scale, void* stream) {
+  if (config != 0 && config != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return config == 0
+             ? launch_bwd_tf32<true>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                     batch, n, heads, n_real, strides, sl,
+                                     scale, stream)
+             : launch_bwd_tf32<false>(q, k, v, o, dout, lse, delta, dq, dk,
+                                      dv, batch, n, heads, n_real, strides, sl,
+                                      scale, stream);
+}
+
+// The scalar FMA kernels that maest_attn_bwd_fp32 ran before the tf32 ones
+// (delta, dk/dv, dq), kept as their control; `delta` fp32 (batch, heads, n).
+int maest_attn_bwd_fp32_fma(const void* q, const void* k, const void* v,
+                            const void* o, const void* dout, const float* lse,
+                            float* delta, void* dq, void* dk, void* dv,
+                            int batch, int n, int heads, int n_real,
+                            const long long* strides, float sl, float scale,
+                            void* stream) {
   return launch_bwd_fp32(q, k, v, o, dout, lse, delta, dq, dk, dv, batch, n,
                          heads, n_real, strides, sl, scale, stream);
 }

@@ -39,12 +39,17 @@
 // Row max and row sum are reduced across the 4 threads that share a row
 // with two shuffles.
 //
-// Design, fp32 (the parity tier, which must hold 2e-5 and so cannot use
-// TF32 or bf16 products): scalar fp32 FMA. One thread per query row keeps
-// its q row and output accumulator in registers; key/value tiles are
-// staged in shared memory as fp32 and read as broadcasts; each group of
-// SUB keys is scored, then the running max, correction and sum are
-// updated once for the group. The fp32 FMA rate bounds this kernel. At
+// Design, fp32 at head_dim 64 (the parity tier, which must hold 2e-5): the
+// products on the tensor cores as 3xTF32, each operand split into a tf32
+// high part and a tf32 remainder and three tf32 wgmma products summed in
+// fp32 (attn_fwd_tf32.cuh, the route of maest_attn_fwd_fp32); one tf32
+// product alone misses 2e-5 by ~20x. Its control and every other fp32
+// width run scalar fp32 FMA (maest_attn_fwd_fp32_fma at 64): one thread
+// per query row keeps its q row and output accumulator in registers;
+// key/value tiles are staged in shared memory as fp32 and read as
+// broadcasts; each group of SUB keys is scored, then the running max,
+// correction and sum are updated once for the group. The fp32 FMA rate
+// bounds this kernel. At
 // D_ = 128 the key tile halves to 32 keys (two 16 KB fp32 tiles, inside
 // the 48 KB of static shared memory), and the q row and accumulator, 256
 // registers together, spill in part to local memory, which L1 caches:
@@ -82,6 +87,7 @@
 
 #include "attn_fwd_bf16.cuh"   // the bf16 kernel (variant FLASH) and launch
 #include "attn_fwd_wgmma.cuh"  // the bf16 kernel at head_dim 64 on wgmma/TMA
+#include "attn_fwd_tf32.cuh"   // the fp32 kernel at head_dim 64, 3xTF32
 
 namespace {
 
@@ -585,11 +591,57 @@ const char* maest_cuda_error_string(int err) {
 // sl = head_dim^-0.5 * log2(e). 1 <= n_real <= n. The bf16 entry also
 // needs every q/k/v row to start on a 16-byte boundary. Launches on
 // `stream`; returns cudaGetLastError().
+//
+// The fp32 entry at head_dim 64 runs the 3xTF32 wgmma kernel
+// (attn_fwd_tf32.cuh): its prep pass, then the kernel with two consumer
+// warpgroups (128 query rows a block) taking turns, one product in flight
+// at a time and each tile's P.V summed freshly (the sweep, phase 34: the
+// next tile's S issued with P.V into one running sum ran 8 % faster and
+// landed several times farther from plain at (32, 1676)). It takes
+// one more argument after lse, `scratch`: maest_attn_fwd_fp32_scratch(
+// batch, n, heads) floats for k's and v's tf32 planes.
 int maest_attn_fwd_fp32(const void* q, const void* k, const void* v, void* out,
-                        float* lse, int batch, int n, int heads, int n_real,
-                        const long long* strides, float sl, void* stream) {
+                        float* lse, float* scratch, int batch, int n,
+                        int heads, int n_real, const long long* strides,
+                        float sl, void* stream) {
+  return launch_fwd_tf32<false, true>(q, k, v, out, lse, scratch, batch, n,
+                                      heads, n_real, strides, sl, stream);
+}
+
+long long maest_attn_fwd_fp32_scratch(int batch, int n, int heads) {
+  return tf_fwd_scratch_floats(batch, n, heads);
+}
+
+// The scalar fp32 FMA kernel that maest_attn_fwd_fp32 ran before the tf32
+// one, kept as its control: the arguments of maest_attn_fwd_bf16.
+int maest_attn_fwd_fp32_fma(const void* q, const void* k, const void* v,
+                            void* out, float* lse, int batch, int n,
+                            int heads, int n_real, const long long* strides,
+                            float sl, void* stream) {
   return launch<float>(attn_fwd_fp32_kernel<>, BQ, BQ, q, k, v, out, lse,
                        batch, n, heads, n_real, strides, sl, stream);
+}
+
+// The tf32 kernel's configurations, chosen by `config` (the next tile's S
+// issued with this tile's P.V OV, a fresh P.V sum a tile FR): 0 (off, on),
+// the route of maest_attn_fwd_fp32; 1 (off, off); 2 (on, off), the fastest,
+// whose one running sum lands farther from plain. Otherwise the arguments
+// of maest_attn_fwd_fp32; another config returns cudaErrorInvalidValue.
+int maest_attn_fwd_fp32_tf32(int config, const void* q, const void* k,
+                             const void* v, void* out, float* lse,
+                             float* scratch, int batch, int n, int heads,
+                             int n_real, const long long* strides, float sl,
+                             void* stream) {
+#define MAEST_TF(OV, FR)                                                       \
+  launch_fwd_tf32<OV, FR>(q, k, v, out, lse, scratch, batch, n, heads, n_real, \
+                          strides, sl, stream)
+  switch (config) {
+    case 0: return MAEST_TF(false, true);
+    case 1: return MAEST_TF(false, false);
+    case 2: return MAEST_TF(true, false);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef MAEST_TF
 }
 
 // The bf16 entry at head_dim 64 runs the wgmma kernel (attn_fwd_wgmma.cuh)

@@ -74,19 +74,6 @@
 namespace maest {
 
 // ---------------------------------------------------------------- PTX ---
-// a 3-D box of `map` at coordinates (c0, c1, c2), innermost first, into
-// shared memory at dst; completion counted in bytes on `bar`
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
 // *dst += the `bytes` (a multiple of 16) of int32 at shared src, added by
 // the TMA unit in L2 (exact, in any order), one bulk group
 __device__ __forceinline__ void bulk_add_s32(int* dst, uint32_t src,
@@ -117,23 +104,6 @@ __device__ __forceinline__ void bulk_wait_all() {
 __device__ __forceinline__ uint64_t sw64_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
          (32ull << 32) | (2ull << 62);
-}
-
-// until the phase of the given parity has completed (attn_fwd_wgmma.cuh's
-// mbar_wait); a wait that outlasts 2^22 polls, far past any tile's work,
-// traps, so a fault fails the launch instead of holding the card
-__device__ __forceinline__ void qw_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done, polls = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (++polls == (1u << 22)) __trap();
-  } while (!done);
 }
 
 template <int R>

@@ -97,6 +97,40 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// until the phase of the given parity has completed (mbar_wait's); a wait that outlasts 2^22 polls, far past any tile's work,
+// traps, so a fault fails the launch instead of holding the card
+__device__ __forceinline__ void qw_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done, polls = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (++polls == (1u << 22)) __trap();
+  } while (!done);
+}
+
+// a 3-D box of `map` at coordinates (c0, c1, c2), innermost first, into
+// shared memory at dst; completion counted in bytes on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// this thread's writes to shared memory, visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // the shared-memory matrix descriptor of a tile of 128-byte rows written
 // by TMA with the 128-byte swizzle (8-row atoms of 1024 bytes, the tile
 // 1024-byte aligned): start address >> 4, both byte offsets 1024 (the one

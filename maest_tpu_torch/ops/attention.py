@@ -12,7 +12,8 @@ dtype.
 
 On CUDA tensors each step launches its hand-written kernel
 (``csrc/attention_fwd.cu``, ``csrc/attention_bwd.cu``: bf16 on the tensor
-cores, fp32 in scalar fp32 FMA; ``csrc/attention_fwd_q8.cu`` and
+cores; fp32 at head_dim 64 on them too, as 3xTF32 products, and at the
+other widths in scalar fp32 FMA; ``csrc/attention_fwd_q8.cu`` and
 ``csrc/attention_bwd_q8.cu``: int8 / e4m3 products, bf16 or fp32 inputs;
 any N, strided views). The kernels are built for head_dim 64, 128 and
 256, and each also as one instance whose width, a multiple of 64 above
@@ -24,7 +25,12 @@ backward at head_dim 64 the one of ``csrc/attn_bwd_wgmma.cuh`` (one score
 pass per key tile and q tile), the int8 backward in bf16 at head_dim 64
 the s8 ``wgmma`` kernels of ``csrc/attn_bwd_q8_wgmma.cuh``; their
 ``mma.sync`` controls stay as ``attention_fwd_mma``,
-``attention_bwd_mma`` and ``attention_bwd_int8_mma``. On CPU
+``attention_bwd_mma`` and ``attention_bwd_int8_mma``. The fp32 forward
+and backward at head_dim 64 run the tf32 ``wgmma`` kernels of
+``csrc/attn_fwd_tf32.cuh`` and ``csrc/attn_bwd_tf32.cuh`` (each product
+three tf32 products of split operands, ``tf32_split``); their scalar FMA
+controls stay as ``attention_fwd_fp32_fma`` and
+``attention_bwd_fp32_fma``. On CPU
 tensors it runs the plain PyTorch version (``attention_reference``,
 ``attention_reference_lse``, ``attention_bwd_reference``,
 ``attention_q8_reference``, ``attention_bwd_int8_reference``). Production
@@ -167,6 +173,136 @@ def attention_bwd_tiled_reference(q, k, v, o, lse, do,
         dq = part if dq is None else dq + part
     dq, dk, dv = _heads(dq, dk, dv)
     return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# --- fp32 at head_dim 64: 3xTF32 (csrc/attn_fwd_tf32.cuh, attn_bwd_tf32.cuh) -
+TF32_KEY_TILE = 64      # the tf32 forward's keys a tile
+TF32_BWD_Q_TILE = 32    # the tf32 dk/dv kernel's q rows a tile
+TF32_BWD_KEY_TILE = 32  # the tf32 dq kernel's keys a tile
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x rounded to tf32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds it, returned as fp32: the low 13
+    bits of the magnitude rounded off by integer arithmetic on the bits."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """(hi, lo) of fp32 x: hi = tf32_round(x), lo = tf32_round(x - hi), the
+    kernels' split (x - hi is exact in fp32)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def tf32_matmul(a, b, terms: int = 3):
+    """a @ b as the tf32 kernels form one tile's product: 3 ``terms``
+    (lo.hi and hi.lo, then hi.hi, added in that order; each product exact
+    in fp32, the sums fp32), or 1 (hi.hi alone, one tf32 product)."""
+    if terms not in (1, 3):
+        raise ValueError(f"terms must be 1 or 3, got {terms}")
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    if terms == 1:
+        return ah @ bh
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def tf32_pos(r):
+    """The position of sequence row ``r`` (an int or an integer tensor) in
+    the tf32 kernels' transposed copies (``csrc/attn_fwd_tf32.cuh``
+    tf_pos_of): within each 8-row group, row 2a + c sits at 4c + a, the
+    order in which the fp32 accumulator of an m64nN product hands thread t
+    its columns (2t, 2t + 1 of each 8), so that the accumulator, packed as
+    it lies, is the next product's tf32 register-A fragment (k positions t
+    and t + 4 of each 8-deep k-step)."""
+    i = r & 7
+    return (r & ~7) + (i & 1) * 4 + (i >> 1)
+
+
+def _tf32_by_position(x, n_pad: int):
+    """x (..., N, D) -> (..., D, n_pad): position tf32_pos(r) holds row r,
+    zeros past N (the tf32 kernels' transposed copies)."""
+    out = x.new_zeros(x.shape[:-2] + (x.shape[-1], n_pad))
+    out[..., tf32_pos(torch.arange(x.shape[-2], device=x.device))] = (
+        x.transpose(-1, -2))
+    return out
+
+
+def attention_tf32_reference(q, k, v, n_real: int | None = None,
+                             scale: float | None = None, terms: int = 3):
+    """The fp32 forward as the tf32 kernel computes it, on fp32 (B, N, H, D):
+    (o, lse). Per key tile of TF32_KEY_TILE in order: s = Q.K^T by
+    ``tf32_matmul`` with ``terms`` products, scaled by scale log2(e), keys
+    >= n_real at -1e30, the running max and sum, o = o corr + P.V with the
+    tile's P.V by ``tf32_matmul`` (a fresh sum, added in fp32); o / l at the
+    end, lse = m + log2(l). With terms=1 it is the one-product kernel a
+    planted fault builds."""
+    n = q.shape[1]
+    nr = n if n_real is None else n_real
+    sl = _scale(q, scale) * _LOG2E
+    qh, kh, vh = (x.float() for x in _heads(q, k, v))
+    m = torch.full(qh.shape[:-1] + (1,), _NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(qh)
+    for base in range(0, nr, TF32_KEY_TILE):
+        ks = slice(base, min(base + TF32_KEY_TILE, n))
+        s = tf32_matmul(qh, kh[:, :, ks].transpose(-1, -2), terms) * sl
+        if ks.stop > nr:
+            s[..., nr - base:] = _NEG_INF
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        o = o * corr + tf32_matmul(p, vh[:, :, ks], terms)
+        m = m_new
+    return (o / l).transpose(1, 2).to(q.dtype), (m + torch.log2(l))[..., 0]
+
+
+def attention_bwd_tf32_reference(q, k, v, o, lse, do,
+                                 n_real: int | None = None,
+                                 scale: float | None = None, terms: int = 3):
+    """The fp32 backward as the tf32 kernels compute it: delta =
+    rowsum(do o); the dq kernel's key tiles of TF32_BWD_KEY_TILE in order,
+    each forming s = Q.K^T and dp = dO.V^T, p = exp2(s scale log2(e) - lse)
+    (keys >= n_real at 0), ds = p (dp - delta) scale, dq += dS.K; the dk/dv
+    kernel's q tiles of TF32_BWD_Q_TILE, the even ones summed, then the odd
+    ones, then the two added, each adding P^T.dO to dv and dS^T.Q to dk;
+    each tile's product by ``tf32_matmul`` with ``terms`` products (a fresh
+    sum, added in fp32). Masked keys get exactly zero dk and dv."""
+    n = q.shape[1]
+    nr = n if n_real is None else n_real
+    scale = _scale(q, scale)
+    sl = scale * _LOG2E
+    qh, kh, vh, oh, doh = (x.float() for x in _heads(q, k, v, o, do))
+    delta = (doh * oh).sum(-1)  # (B, H, N)
+    live = torch.arange(n, device=q.device) < nr
+
+    def p_ds(qs, ks):
+        s = tf32_matmul(qh[:, :, qs], kh[:, :, ks].transpose(-1, -2),
+                        terms) * sl
+        p = torch.where(live[ks], torch.exp2(s - lse[:, :, qs, None]), 0.0)
+        dp = tf32_matmul(doh[:, :, qs], vh[:, :, ks].transpose(-1, -2), terms)
+        return p, p * (dp - delta[:, :, qs, None]) * scale
+
+    rows = slice(0, n)
+    dq = torch.zeros_like(qh)
+    for k0 in range(0, nr, TF32_BWD_KEY_TILE):
+        ks = slice(k0, min(k0 + TF32_BWD_KEY_TILE, n))
+        dq = dq + tf32_matmul(p_ds(rows, ks)[1], kh[:, :, ks], terms)
+    parts = []
+    for first in (0, TF32_BWD_Q_TILE):  # the two consumers' q tiles
+        dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
+        for q0 in range(first, n, 2 * TF32_BWD_Q_TILE):
+            qs = slice(q0, min(q0 + TF32_BWD_Q_TILE, n))
+            p, ds = p_ds(qs, rows)
+            dv = dv + tf32_matmul(p.transpose(-1, -2), doh[:, :, qs], terms)
+            dk = dk + tf32_matmul(ds.transpose(-1, -2), qh[:, :, qs], terms)
+        parts.append((dk, dv))
+    dq, dk, dv = _heads(dq, parts[0][0] + parts[1][0],
+                        parts[0][1] + parts[1][1])
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # --- 8-bit modes (K5, K6, K7) ---------------------------------------------
@@ -629,6 +765,11 @@ def _fwd(q, k, v, n_real, quant, with_lse):
         if with_lse:
             return attention_reference_lse(q, k, v, n_real)
         return attention_reference(q, k, v, n_real), None
+    if _F32_CONTROL and q.dtype == torch.float32 and padded_dim(
+            q.shape[-1]) == HEAD_DIM:
+        out = padded_fwd(_launch_fwd_fma, q, k, v, n_real, with_lse)
+        attention_fwd_fp32_fma.launches += 1
+        return out
     if _K2_CONTROL and q.dtype == torch.bfloat16 and padded_dim(
             q.shape[-1]) == HEAD_DIM:
         out = padded_fwd(_launch_fwd_mma, q, k, v, n_real, with_lse)
@@ -664,6 +805,32 @@ def attention_fwd_mma(q, k, v, n_real: int | None = None,
         raise ValueError("the control takes bf16 q, k, v at head_dim 64")
     out = _launch_fwd_mma(q, k, v, n_real, with_lse, q.shape[-1]**-0.5)
     attention_fwd_mma.launches += 1
+    return out
+
+
+# Private: True routes fp32 at head_dim 64, forward and backward, through
+# the scalar FMA controls (``attention_fwd_fp32_fma``,
+# ``attention_bwd_fp32_fma``) instead of the tf32 kernels, so that a
+# measurement can time the steps of the model with each. Nothing in the
+# package sets it.
+_F32_CONTROL = False
+
+
+def attention_fwd_fp32_fma(q, k, v, n_real: int | None = None,
+                           with_lse: bool = False):
+    """The control of the fp32 forward's tf32 kernel: the scalar fp32 FMA
+    kernel (entry ``maest_attn_fwd_fp32_fma``) on fp32 CUDA (B, N, H, 64)
+    views; (o, lse or None). It computes what ``flash_attention`` computes
+    in fp32; counted in ``attention_fwd_fp32_fma.launches``."""
+    n_real, _, _ = _check_args(q, k, v, n_real, None)
+    if q.device.type == "cpu":
+        if with_lse:
+            return attention_reference_lse(q, k, v, n_real)
+        return attention_reference(q, k, v, n_real), None
+    if q.dtype != torch.float32 or q.shape[-1] != HEAD_DIM:
+        raise ValueError("the control takes fp32 q, k, v at head_dim 64")
+    out = _launch_fwd_fma(q, k, v, n_real, with_lse, q.shape[-1]**-0.5)
+    attention_fwd_fp32_fma.launches += 1
     return out
 
 
@@ -824,6 +991,18 @@ def _launch_fwd_mma(q, k, v, n_real, with_lse, scale):
                             k, v, n_real, with_lse, scale)
 
 
+def _launch_fwd_fma(q, k, v, n_real, with_lse, scale):
+    """The control of the fp32 K2/K3a on checked fp32 views at head_dim 64."""
+    return launch_fwd_entry("attention_fwd", "maest_attn_fwd_fp32_fma", (), q,
+                            k, v, n_real, with_lse, scale)
+
+
+# the forward entries that run the tf32 kernel (csrc/attn_fwd_tf32.cuh):
+# after lse they take an fp32 scratch of maest_attn_fwd_fp32_scratch(batch,
+# n, heads) floats (k's and v's tf32 planes)
+_TF32_FWD = ("maest_attn_fwd_fp32", "maest_attn_fwd_fp32_tf32")
+
+
 def launch_fwd_entry(lib_name, name, lead, q, k, v, n_real, with_lse, scale):
     """Launch the forward entry ``name`` of ``csrc/<lib_name>.cu`` with the
     leading int arguments ``lead`` on checked CUDA views and softmax scale
@@ -834,12 +1013,18 @@ def launch_fwd_entry(lib_name, name, lead, q, k, v, n_real, with_lse, scale):
     lse = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
            if with_lse else None)
     lib = _build.load_library(lib_name)
-    fn = _entry(lib, name, 5, 1, len(lead))
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr()]
+    if lib_name == "attention_fwd" and name in _TF32_FWD:
+        fn = lib.maest_attn_fwd_fp32_scratch
+        fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+        scratch = torch.empty(fn(b, n, h), dtype=torch.float32,
+                              device=q.device)
+        ptrs.append(scratch.data_ptr())
+    fn = _entry(lib, name, len(ptrs), 1, len(lead))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*lead, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), None if lse is None else lse.data_ptr(),
-                 b, n, h, n if n_real is None else n_real,
+        err = fn(*lead, *ptrs, b, n, h, n if n_real is None else n_real,
                  _strides(q, k, v, out), scale * _LOG2E, stream)
     _build.check(lib, err, f"{name} {lead}" if lead else name)
     return out, lse
@@ -939,6 +1124,24 @@ def attention_bwd_mma(q, k, v, o, lse, do, n_real: int | None = None):
     return grads.unbind(2)
 
 
+def attention_bwd_fp32_fma(q, k, v, o, lse, do, n_real: int | None = None):
+    """The control of the fp32 backward's tf32 kernels: the scalar FMA
+    kernels (delta, dk/dv, dq; entry ``maest_attn_bwd_fp32_fma`` of
+    ``csrc/attention_bwd.cu``) on fp32 CUDA (B, N, H, 64) views; (dq, dk,
+    dv). They compute what ``attention_bwd`` computes in fp32; counted in
+    ``attention_bwd_fp32_fma.launches``. CPU tensors run
+    ``attention_bwd_reference``."""
+    n_real, _, _ = _check_args(q, k, v, n_real, None)
+    if q.device.type == "cpu":
+        return attention_bwd_reference(q, k, v, o, lse, do, n_real)
+    if q.dtype != torch.float32 or q.shape[-1] != HEAD_DIM:
+        raise ValueError("the control takes fp32 q, k, v at head_dim 64")
+    grads = launch_bwd_entry("maest_attn_bwd_fp32_fma", (), q, k, v, o, lse,
+                             do, n_real, q.shape[-1]**-0.5)
+    attention_bwd_fp32_fma.launches += 1
+    return grads.unbind(2)
+
+
 def attention_bwd_int8(q, k, v, o, lse, do, n_real: int | None = None):
     """The int8 backward (K7): as ``attention_bwd``, with the arithmetic of
     ``attention_bwd_int8_reference``. CUDA tensors launch
@@ -995,6 +1198,13 @@ def _bwd_qkv(q, k, v, o, lse, do, n_real, bwd_quant):
         grads = padded_bwd(_launch_bwd_q8, q, k, v, o, lse, do, n_real)
         attention_bwd_int8.launches += 1
         return grads
+    if _F32_CONTROL and q.dtype == torch.float32 and padded_dim(
+            q.shape[-1]) == HEAD_DIM:
+        grads = padded_bwd(functools.partial(
+            launch_bwd_entry, "maest_attn_bwd_fp32_fma", ()), q, k, v, o, lse,
+            do, n_real)
+        attention_bwd_fp32_fma.launches += 1
+        return grads
     if _K3B_CONTROL and q.dtype == torch.bfloat16 and padded_dim(
             q.shape[-1]) == HEAD_DIM:
         grads = padded_bwd(functools.partial(
@@ -1037,14 +1247,21 @@ def _grads(q):
 # fp32 scratch (dq's sums, the padded lse and delta, the hand-over counters)
 # is maest_attn_bwd_bf16_scratch(batch, n, heads) floats
 _WGMMA_BWD = ("maest_attn_bwd_bf16", "maest_attn_bwd_bf16_wgmma")
+# the entries that run the tf32 backward (csrc/attn_bwd_tf32.cuh), whose fp32
+# scratch (the tf32 planes, the padded lse and delta) is
+# maest_attn_bwd_fp32_scratch(batch, n, heads) floats
+_TF32_BWD = ("maest_attn_bwd_fp32", "maest_attn_bwd_fp32_tf32")
 
 
 def _bwd_scratch(lib, name, b, n, h):
     """The floats of the fp32 scratch the entry ``name`` takes: delta (B, H,
-    N), or the wgmma backward's."""
-    if name not in _WGMMA_BWD:
+    N), or the wgmma or tf32 backward's."""
+    if name in _TF32_BWD:
+        fn = lib.maest_attn_bwd_fp32_scratch
+    elif name in _WGMMA_BWD:
+        fn = lib.maest_attn_bwd_bf16_scratch
+    else:
         return b * h * n
-    fn = lib.maest_attn_bwd_bf16_scratch
     fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
     return fn(b, n, h)
 
@@ -1142,3 +1359,5 @@ attention_fwd_int8.launches = 0
 attention_fwd_fp8.launches = 0
 attention_bwd_int8.launches = 0
 attention_bwd_int8_mma.launches = 0
+attention_fwd_fp32_fma.launches = 0
+attention_bwd_fp32_fma.launches = 0

@@ -1657,3 +1657,218 @@ def test_tune_rigs_on_the_card(cuda_device, capsys):
     assert all(len(r) == attn_tune.ROUNDS and min(r) > 0 for r in runs)
     text = capsys.readouterr().out
     assert "each equal to K2" in text and "% of 989" in text
+
+
+# --- fp32 K2/K3a and K3b/K4 on tf32 wgmma (csrc/attn_*_tf32.cuh) -------------
+# Against plain at the fp32 tier's bounds (2e-5, lse 1e-4), masked dk/dv
+# exactly zero, two backward launches bit-equal; the scalar FMA controls
+# within the same bounds.
+TF32_FWD_SHAPES = [(2, 1676, None), (2, 1792, 1676), (4, 866, None),
+                   (8, 281, None), (1, 4500, 4400)]
+TF32_BWD_SHAPES = [(2, 866, None), (2, 896, 866), (8, 281, None),
+                   (1, 4500, 4400)]
+
+
+def _tf32_fwd_cfg(cfg, q, k, v, n_real=None, with_lse=False):
+    from maest_tpu_torch.ops import attention as A
+
+    return A.launch_fwd_entry("attention_fwd", "maest_attn_fwd_fp32_tf32",
+                              (cfg,), q, k, v, n_real, with_lse,
+                              q.shape[-1]**-0.5)
+
+
+def _tf32_bwd_cfg(cfg, q, k, v, o, lse, do, n_real=None):
+    from maest_tpu_torch.ops import attention as A
+
+    return A.launch_bwd_entry("maest_attn_bwd_fp32_tf32", (cfg,), q, k, v, o,
+                              lse, do, n_real, q.shape[-1]**-0.5).unbind(2)
+
+
+@pytest.mark.parametrize("b,n,n_real", TF32_FWD_SHAPES)
+def test_tf32_forward_matches_plain_and_control(cuda_device, b, n, n_real):
+    """fp32 K2 and K3a (the tf32 kernel, each call counted) on strided views
+    of one fused q/k/v: o within 2e-5 of attention_reference_lse, lse
+    within 1e-4, K2's o torch.equal to K3a's; the scalar FMA control
+    (attention_fwd_fp32_fma) within the same bounds."""
+    from maest_tpu_torch.ops.attention import attention_fwd_fp32_fma
+
+    x = _rand((b, n, 3, 12, 64), 120 + n).to(cuda_device)
+    q, k, v = x.unbind(2)
+    before = (flash_attention.launches, flash_attention_fwd_lse.launches)
+    o2 = flash_attention(q, k, v, n_real)
+    o, lse = flash_attention_fwd_lse(q, k, v, n_real)
+    co, cl = attention_fwd_fp32_fma(q, k, v, n_real, with_lse=True)
+    ro, rl = attention_reference_lse(q, k, v, n_real)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_fwd_lse.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(o2, o)
+    for out, out_lse in ((o, lse), (co, cl)):
+        assert (out - ro).abs().max().item() <= ATTN_TOL[torch.float32]
+        assert (out_lse - rl).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("b,n,n_real", TF32_BWD_SHAPES)
+def test_tf32_backward_matches_plain_and_control(cuda_device, b, n, n_real):
+    """fp32 K3b/K4 (the tf32 kernels, through attention_bwd, each call
+    counted) on strided views of one fused q/k/v/do: within 2e-5 of
+    attention_bwd_reference, masked dk/dv exactly zero, two launches
+    torch.equal; the scalar FMA control within the same bound."""
+    from maest_tpu_torch.ops.attention import attention_bwd_fp32_fma
+
+    x = _rand((b, n, 4, 12, 64), 130 + n).to(cuda_device)
+    q, k, v, do = x.unbind(2)
+    o, lse = attention_reference_lse(q, k, v, n_real)
+    before = attention_bwd.launches
+    got = attention_bwd(q, k, v, o, lse, do, n_real)
+    again = attention_bwd(q, k, v, o, lse, do, n_real)
+    ctrl = attention_bwd_fp32_fma(q, k, v, o, lse, do, n_real)
+    ref = attention_bwd_reference(q, k, v, o, lse, do, n_real)
+    torch.cuda.synchronize()
+    assert attention_bwd.launches == before + 2
+    assert all(torch.equal(a, z) for a, z in zip(got, again))
+    tol = ATTN_TOL[torch.float32]
+    assert _bwd_gap(got, ref) <= tol and _bwd_gap(ctrl, ref) <= tol
+    if n_real is not None:
+        assert not got[1][:, n_real:].any() and not got[2][:, n_real:].any()
+
+
+@pytest.mark.parametrize("cfg", range(3))
+def test_tf32_forward_sweep_configurations_match_plain(cuda_device, cfg):
+    """Every configuration of the tf32 forward's sweep
+    (maest_attn_fwd_fp32_tf32: a fresh P.V sum a tile, or one running sum
+    with and without the next tile's S beside P.V) within 2e-5 of plain at
+    a ragged N and n_real, lse within 1e-4; 0 is the production route bit
+    for bit."""
+    x = _rand((2, 1000, 3, 12, 64), 121).to(cuda_device)
+    q, k, v = x.unbind(2)
+    o, lse = _tf32_fwd_cfg(cfg, q, k, v, 997, True)
+    ro, rl = attention_reference_lse(q, k, v, 997)
+    torch.cuda.synchronize()
+    assert (o - ro).abs().max().item() <= ATTN_TOL[torch.float32]
+    assert (lse - rl).abs().max().item() <= 1e-4
+    if cfg == 0:
+        want, want_lse = flash_attention_fwd_lse(q, k, v, 997)
+        assert torch.equal(o, want) and torch.equal(lse, want_lse)
+
+
+@pytest.mark.parametrize("cfg", range(2))
+def test_tf32_backward_sweep_configurations_match_plain(cuda_device, cfg):
+    """Both configurations of the tf32 backward's sweep
+    (maest_attn_bwd_fp32_tf32: a fresh sum a tile, or one running sum)
+    within 2e-5 of plain at a ragged N and n_real, masked dk/dv exactly
+    zero; 0 is the production route bit for bit."""
+    x = _rand((2, 1000, 4, 12, 64), 131).to(cuda_device)
+    q, k, v, do = x.unbind(2)
+    o, lse = attention_reference_lse(q, k, v, 997)
+    got = _tf32_bwd_cfg(cfg, q, k, v, o, lse, do, 997)
+    ref = attention_bwd_reference(q, k, v, o, lse, do, 997)
+    torch.cuda.synchronize()
+    assert _bwd_gap(got, ref) <= ATTN_TOL[torch.float32]
+    assert not got[1][:, 997:].any() and not got[2][:, 997:].any()
+    if cfg == 0:
+        want = attention_bwd(q, k, v, o, lse, do, 997)
+        assert all(torch.equal(a, z) for a, z in zip(got, want))
+
+
+def test_tf32_checks_refuse_one_product(cuda_device, tmp_path):
+    """The tf32 kernels built with one tf32 product (TF_3X false, a copy of
+    csrc/ in a temporary directory): the checks that hold the sound kernels
+    to plain at 2e-5 refuse the forward and the backward so built. The
+    copies run in a process of their own (a second library of a launched
+    kernel misses its shared-memory setting). Run with -s to see the
+    gaps."""
+    import json
+    import shutil
+    import subprocess
+    import sys
+
+    from maest_tpu_torch.ops import _build
+
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, src)
+    header = src / "attn_fwd_tf32.cuh"
+    text = header.read_text()
+    old = "constexpr bool TF_3X = true;"
+    assert text.count(old) == 1
+    header.write_text(text.replace(old, "constexpr bool TF_3X = false;"))
+    libs = {}
+    for lib in ("attention_fwd", "attention_bwd"):
+        libs[lib] = tmp_path / f"{lib}.so"
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                        str(libs[lib]), str(src / f"{lib}.cu")], check=True,
+                       capture_output=True)
+    make = ("x = torch.from_numpy(np.random.default_rng(132).standard_normal("
+            "(2, 1000, 4, 12, 64)).astype(np.float32)).cuda()\n"
+            "q, k, v, do = x.unbind(2)\n"
+            "ro, rl = A.attention_reference_lse(q, k, v, 997)\n")
+    scope = {}
+    exec("import numpy as np, torch\n"
+         "from maest_tpu_torch.ops import attention as A\n" + make, scope)
+    q, k, v, do, ro, rl = (scope[n] for n in ("q", "k", "v", "do", "ro", "rl"))
+    sound = ((flash_attention(q, k, v, 997) - ro).abs().max().item(),
+             _bwd_gap(attention_bwd(q, k, v, ro, rl, do, 997),
+                      attention_bwd_reference(q, k, v, ro, rl, do, 997)))
+    code = (
+        "import ctypes, json, sys, torch\n"
+        f"sys.path.insert(0, {str(_build.CSRC.parents[1])!r})\n"
+        "import numpy as np\n"
+        "from maest_tpu_torch.ops import _build, attention as A\n"
+        + "".join(f"_build._libs[{lib!r}] = ctypes.CDLL({str(path)!r})\n"
+                  for lib, path in libs.items())
+        + make +
+        "o = A.flash_attention(q, k, v, 997)\n"
+        "g = A.attention_bwd(q, k, v, ro, rl, do, 997)\n"
+        "r = A.attention_bwd_reference(q, k, v, ro, rl, do, 997)\n"
+        "print(json.dumps([(o - ro).abs().max().item(), max((a - b).abs()"
+        ".max().item() for a, b in zip(g, r))]))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    fwd, bwd = json.loads(proc.stdout.strip().splitlines()[-1])
+    tol = ATTN_TOL[torch.float32]
+    print(f"planted: the tf32 kernels with one tf32 product: forward "
+          f"max|o - plain| {fwd:.4g}, backward max|grads - plain| {bwd:.4g} "
+          f"against the bound {tol} (sound {sound[0]:.4g}, {sound[1]:.4g})")
+    assert max(sound) <= tol < min(fwd, bwd)
+
+
+def test_f32_control_hook_routes_a_training_step(cuda_device, monkeypatch):
+    """The private hook that lets a measurement time the model's fp32 steps
+    with the controls: with it set, fp32 at head_dim 64 launches the scalar
+    FMA kernels (counted in attention_fwd_fp32_fma and
+    attention_bwd_fp32_fma) and not the tf32 ones, and every parameter's
+    gradient stays within 1e-4 of its largest |g| (at least 1e-4 of the
+    largest of all) of the tf32 route's."""
+    from maest_tpu_torch.models.registry import build_config
+    from maest_tpu_torch.models.vit import MAESTNet
+    from maest_tpu_torch.ops import attention as A
+
+    cfg = build_config("discogs-maest-30s-pw-129e", embed_dim=128, depth=2,
+                       num_heads=2, input_t=206, n_classes=16)
+    net = MAESTNet(cfg, dtype=torch.float32, param_dtype=torch.float32,
+                   device=cuda_device,
+                   generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():  # zero heads would hide every difference
+        net.head[1].weight.copy_(_rand((16, 128), 16, 0.2))
+    x = _rand((2, 1, 96, 206), 17).to(cuda_device)
+    counts = (A.flash_attention_fwd_lse, A.attention_bwd,
+              A.attention_fwd_fp32_fma, A.attention_bwd_fp32_fma)
+    grads = {}
+    for control in (False, True):
+        monkeypatch.setattr(A, "_F32_CONTROL", control)
+        net.zero_grad()
+        before = [f.launches for f in counts]
+        net(x, train=True, generator=torch.Generator().manual_seed(0))[
+            0].float().square().sum().backward()
+        torch.cuda.synchronize()
+        grew = tuple(f.launches - b for f, b in zip(counts, before))
+        d = cfg.depth
+        assert grew == ((0, 0, d, d) if control else (d, d, 0, 0))
+        grads[control] = {k: p.grad.detach().clone()
+                          for k, p in net.named_parameters()
+                          if p.grad is not None}
+    big = max(g.abs().max().item() for g in grads[False].values())
+    for k, g in grads[False].items():
+        top = max(g.abs().max().item(), 1e-4 * big)
+        assert (grads[True][k] - g).abs().max().item() <= 1e-4 * top, k
