@@ -1412,12 +1412,15 @@ const char* maest_cuda_error_string(int err) {
 // must start on a 16-byte boundary. Three launches on `stream` (delta, dk/dv, dq); returns the
 // first non-zero cudaGetLastError().
 //
+// An entry X that takes other scratch in delta's place exports
+// X_scratch(batch, n, heads), its floats; the port sizes the scratch by it.
+//
 // The fp32 entry at head_dim 64 runs the 3xTF32 wgmma kernels
 // (attn_bwd_tf32.cuh): four split launches and the stats pass, then the
 // dk/dv and the dq kernel, each summing every tile's products freshly and
-// adding them to its gradients in registers (the sweep, phase 34: one
-// running sum lands several times farther from plain at (32, 866), in
-// about the same time). Its `delta` is fp32 scratch of
+// adding them to its gradients in registers (on the H100 one running sum
+// landed several times farther from plain at (32, 866), in about the same
+// time; PERF.md). Its `delta` is fp32 scratch of
 // maest_attn_bwd_fp32_scratch(batch, n, heads) floats (the tf32 planes,
 // lse and delta of the padded rows).
 int maest_attn_bwd_fp32(const void* q, const void* k, const void* v,
@@ -1425,34 +1428,12 @@ int maest_attn_bwd_fp32(const void* q, const void* k, const void* v,
                         float* delta, void* dq, void* dk, void* dv, int batch,
                         int n, int heads, int n_real, const long long* strides,
                         float sl, float scale, void* stream) {
-  return launch_bwd_tf32<true>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                               batch, n, heads, n_real, strides, sl, scale,
-                               stream);
+  return launch_bwd_tf32(q, k, v, o, dout, lse, delta, dq, dk, dv, batch, n,
+                         heads, n_real, strides, sl, scale, stream);
 }
 
 long long maest_attn_bwd_fp32_scratch(int batch, int n, int heads) {
   return tb_scratch_floats(batch, n, heads);
-}
-
-// The tf32 kernels' configurations, chosen by `config`: 0, a fresh sum a
-// tile in both kernels, the route of maest_attn_bwd_fp32; 1, one running
-// sum. Otherwise the arguments of maest_attn_bwd_fp32; another config
-// returns cudaErrorInvalidValue.
-int maest_attn_bwd_fp32_tf32(int config, const void* q, const void* k,
-                             const void* v, const void* o, const void* dout,
-                             const float* lse, float* delta, void* dq,
-                             void* dk, void* dv, int batch, int n, int heads,
-                             int n_real, const long long* strides, float sl,
-                             float scale, void* stream) {
-  if (config != 0 && config != 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return config == 0
-             ? launch_bwd_tf32<true>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                     batch, n, heads, n_real, strides, sl,
-                                     scale, stream)
-             : launch_bwd_tf32<false>(q, k, v, o, dout, lse, delta, dq, dk,
-                                      dv, batch, n, heads, n_real, strides, sl,
-                                      scale, stream);
 }
 
 // The scalar FMA kernels that maest_attn_bwd_fp32 ran before the tf32 ones
@@ -1524,6 +1505,11 @@ int maest_attn_bwd_bf16_wgmma(int config, const void* q, const void* k,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef MAEST_BW
+}
+
+// Its scratch, as maest_attn_bwd_bf16's.
+long long maest_attn_bwd_bf16_wgmma_scratch(int batch, int n, int heads) {
+  return bw_scratch_floats(batch, n, heads);
 }
 
 // The same two entries at head_dim 128: (batch, n, heads, 128) views, scale

@@ -592,20 +592,23 @@ const char* maest_cuda_error_string(int err) {
 // needs every q/k/v row to start on a 16-byte boundary. Launches on
 // `stream`; returns cudaGetLastError().
 //
+// An entry X that takes scratch (after lse) exports X_scratch(batch, n,
+// heads), its floats; the port sizes the scratch by it.
+//
 // The fp32 entry at head_dim 64 runs the 3xTF32 wgmma kernel
 // (attn_fwd_tf32.cuh): its prep pass, then the kernel with two consumer
 // warpgroups (128 query rows a block) taking turns, one product in flight
-// at a time and each tile's P.V summed freshly (the sweep, phase 34: the
+// at a time and each tile's P.V summed in fresh chains (on the H100 the
 // next tile's S issued with P.V into one running sum ran 8 % faster and
-// landed several times farther from plain at (32, 1676)). It takes
+// landed several times farther from plain at (32, 1676); PERF.md). It takes
 // one more argument after lse, `scratch`: maest_attn_fwd_fp32_scratch(
 // batch, n, heads) floats for k's and v's tf32 planes.
 int maest_attn_fwd_fp32(const void* q, const void* k, const void* v, void* out,
                         float* lse, float* scratch, int batch, int n,
                         int heads, int n_real, const long long* strides,
                         float sl, void* stream) {
-  return launch_fwd_tf32<false, true>(q, k, v, out, lse, scratch, batch, n,
-                                      heads, n_real, strides, sl, stream);
+  return launch_fwd_tf32(q, k, v, out, lse, scratch, batch, n, heads, n_real,
+                         strides, sl, stream);
 }
 
 long long maest_attn_fwd_fp32_scratch(int batch, int n, int heads) {
@@ -620,28 +623,6 @@ int maest_attn_fwd_fp32_fma(const void* q, const void* k, const void* v,
                             float sl, void* stream) {
   return launch<float>(attn_fwd_fp32_kernel<>, BQ, BQ, q, k, v, out, lse,
                        batch, n, heads, n_real, strides, sl, stream);
-}
-
-// The tf32 kernel's configurations, chosen by `config` (the next tile's S
-// issued with this tile's P.V OV, a fresh P.V sum a tile FR): 0 (off, on),
-// the route of maest_attn_fwd_fp32; 1 (off, off); 2 (on, off), the fastest,
-// whose one running sum lands farther from plain. Otherwise the arguments
-// of maest_attn_fwd_fp32; another config returns cudaErrorInvalidValue.
-int maest_attn_fwd_fp32_tf32(int config, const void* q, const void* k,
-                             const void* v, void* out, float* lse,
-                             float* scratch, int batch, int n, int heads,
-                             int n_real, const long long* strides, float sl,
-                             void* stream) {
-#define MAEST_TF(OV, FR)                                                       \
-  launch_fwd_tf32<OV, FR>(q, k, v, out, lse, scratch, batch, n, heads, n_real, \
-                          strides, sl, stream)
-  switch (config) {
-    case 0: return MAEST_TF(false, true);
-    case 1: return MAEST_TF(false, false);
-    case 2: return MAEST_TF(true, false);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef MAEST_TF
 }
 
 // The bf16 entry at head_dim 64 runs the wgmma kernel (attn_fwd_wgmma.cuh)

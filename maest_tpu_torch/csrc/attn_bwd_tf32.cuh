@@ -1,6 +1,6 @@
 // The fp32 attention backward at head_dim 64 on Hopper's asynchronous
-// machinery (sm_90a) with 3xTF32 products (attn_fwd_tf32.cuh): K3b and K4,
-// the production instance behind maest_attn_bwd_fp32 (attention_bwd.cu),
+// machinery (sm_90a) with 3xTF32 products (tf32_wgmma.cuh): K3b and K4,
+// the kernels behind maest_attn_bwd_fp32 (attention_bwd.cu),
 // which keeps the scalar FMA kernels beside it as maest_attn_bwd_fp32_fma.
 //
 // It computes what maest_tpu/ops/attention.py::_attn_bwd_kernel +
@@ -47,18 +47,18 @@
 //      its own rows over the key tiles in order: dq is deterministic with
 //      no hand-over between blocks.
 // The scores are formed twice (dk/dv and dq), as in the scalar kernels and
-// the TPU's split path: 7 products where one pass would take 5. With FR a
+// the TPU's split path: 7 products where one pass would take 5. Each
 // kernel sums each tile's products into a fresh accumulator and adds it to
 // its gradients in registers (the dk/dv kernel its dV, then its dK, through
 // one tile accumulator): the tensor cores' additions round coarser than an
-// fp32 FMA, and against a running sum over every tile they leave the
-// gradients several times farther from plain (chip_smoke.py phase 34
-// prints both), in about the same time.
+// fp32 FMA, and against a running sum over every tile they left the
+// gradients several times farther from plain on the H100 (PERF.md), in
+// about the same time.
 
 #pragma once
 
 #include "attn_bwd_wgmma.cuh"  // bulk_load
-#include "attn_fwd_tf32.cuh"   // tf32 split, wgmma, planes, TMA, waits
+#include "tf32_wgmma.cuh"      // tf32 split, wgmma, planes, TMA, waits
 
 namespace maest {
 
@@ -123,7 +123,6 @@ attn_bwd_tf32_stats_kernel(const float* __restrict__ o,
 // grid (B H N_pad / 64), the key tiles of one (b, h) on neighbouring
 // blocks, 384 threads; the maps of the planes: k, v with boxes of 64 rows,
 // q, do of 32 rows, q^T, do^T of 32 positions x 64 d-rows
-template <bool FR>
 __global__ void __launch_bounds__(384, 1)
 attn_bwd_dkv_tf32_kernel(
     const __grid_constant__ CUtensorMap tkh,
@@ -262,22 +261,20 @@ attn_bwd_dkv_tf32_kernel(
                   TF_3X || kk > 0);
       wgmma_commit();
     };
-    // d (+)= A.Y over the tile's 32 rows, A (hi, lo) in registers, Y the
-    // transposed copy at yt (64 d-rows x 32 positions, hi then lo); fresh
-    // overwrites d
+    // d = A.Y over the tile's 32 rows, A (hi, lo) in registers, Y the
+    // transposed copy at yt (64 d-rows x 32 positions, hi then lo)
     auto issue_g = [&](float (&d)[8][4], const uint32_t (&ah)[4][4],
-                       const uint32_t (&al)[4][4], uint32_t yt, bool fresh) {
+                       const uint32_t (&al)[4][4], uint32_t yt) {
       if constexpr (TF_3X) {
 #pragma unroll
         for (int kj = 0; kj < 4; ++kj) {
-          tf_rs_n64(d, al[kj], sw128_desc(yt) + 2 * kj, !fresh || kj > 0);
+          tf_rs_n64(d, al[kj], sw128_desc(yt) + 2 * kj, kj > 0);
           tf_rs_n64(d, ah[kj], sw128_desc(yt + TF_HALF) + 2 * kj);
         }
       }
 #pragma unroll
       for (int kj = 0; kj < 4; ++kj)
-        tf_rs_n64(d, ah[kj], sw128_desc(yt) + 2 * kj,
-                  !fresh || TF_3X || kj > 0);
+        tf_rs_n64(d, ah[kj], sw128_desc(yt) + 2 * kj, TF_3X || kj > 0);
     };
     // d += t, the tile's fresh sum, in registers
     auto add_tile = [&](float (&d)[8][4], float (&t_)[8][4]) {
@@ -286,7 +283,7 @@ attn_bwd_dkv_tf32_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) d[dt][e] += t_[dt][e];
     };
-    float gt[8][4];  // FR: one tile's dV, then its dK
+    float gt[8][4];  // one tile's dV, then its dK
 
     qw_wait(full_kv, 0);
     for (int it = c; it < n_qt; it += 2) {
@@ -326,37 +323,29 @@ attn_bwd_dkv_tf32_kernel(
                             s[nt][3] * (dp[nt][3] - dl.y) * scale};
         tf_pack(x, dsh[nt], dsl[nt]);
       }
-      // dV += P^T.dO, dK += dS^T.Q (FR: each a fresh sum a tile, added in
+      // dV += P^T.dO, dK += dS^T.Q, each a fresh sum a tile added in
       // registers, so that the tensor cores' additions round against one
-      // tile's sum)
+      // tile's sum
       reg_fence(dka);
       reg_fence(dva);
       reg_fence(pfh);
       reg_fence(pfl);
       reg_fence(dsh);
       reg_fence(dsl);
-      if constexpr (FR) {
-        reg_fence(gt);
-        wgmma_fence();
-        issue_g(gt, pfh, pfl, tdot, true);
-        wgmma_commit();
-        wgmma_wait<0>();
-        reg_fence(gt);
-        add_tile(dva, gt);
-        reg_fence(gt);
-        wgmma_fence();
-        issue_g(gt, dsh, dsl, tqt, true);
-        wgmma_commit();
-        wgmma_wait<0>();
-        reg_fence(gt);
-        add_tile(dka, gt);
-      } else {
-        wgmma_fence();
-        issue_g(dva, pfh, pfl, tdot, false);
-        issue_g(dka, dsh, dsl, tqt, false);
-        wgmma_commit();
-        wgmma_wait<0>();
-      }
+      reg_fence(gt);
+      wgmma_fence();
+      issue_g(gt, pfh, pfl, tdot);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(gt);
+      add_tile(dva, gt);
+      reg_fence(gt);
+      wgmma_fence();
+      issue_g(gt, dsh, dsl, tqt);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(gt);
+      add_tile(dka, gt);
       reg_fence(dka);
       reg_fence(dva);
       reg_fence(pfh);
@@ -412,7 +401,6 @@ attn_bwd_dkv_tf32_kernel(
 // ------------------------------------------------------------------- dq ---
 // grid (B H ceil(N / 128)), 384 threads; the maps of the planes: q, do with
 // boxes of 64 rows, k, v of 32 rows, k^T of 32 positions x 64 d-rows
-template <bool FR>
 __global__ void __launch_bounds__(384, 1)
 attn_bwd_dq_tf32_kernel(
     const __grid_constant__ CUtensorMap tqh,
@@ -511,7 +499,7 @@ attn_bwd_dq_tf32_kernel(
       lr[r] = row < n_pad ? lse_p[at] : TB_LSE_PAD;
       dr[r] = row < n_pad ? delta_p[at] : 0.f;
     }
-    float dqa[8][4], dqt[8][4];  // dQ; FR: one key tile's, added to dQ
+    float dqa[8][4], dqt[8][4];  // dQ; one key tile's, added to dQ
 #pragma unroll
     for (int dt = 0; dt < 8; ++dt)
 #pragma unroll
@@ -570,38 +558,29 @@ attn_bwd_dq_tf32_kernel(
                             s[nt][3] * (dp[nt][3] - dr[1]) * scale};
         tf_pack(x, dsh[nt], dsl[nt]);
       }
-      // dQ += dS.K: B = K^T (64 d-rows x 32 positions, hi then lo); FR:
-      // a fresh sum a key tile, added to dQ in registers
-      auto issue_dq = [&](float (&d)[8][4], bool fresh) {
-        if constexpr (TF_3X) {
-#pragma unroll
-          for (int kj = 0; kj < 4; ++kj) {
-            tf_rs_n64(d, dsl[kj], sw128_desc(ktd) + 2 * kj, !fresh || kj > 0);
-            tf_rs_n64(d, dsh[kj], sw128_desc(ktd + TF_HALF) + 2 * kj);
-          }
-        }
-#pragma unroll
-        for (int kj = 0; kj < 4; ++kj)
-          tf_rs_n64(d, dsh[kj], sw128_desc(ktd) + 2 * kj,
-                    !fresh || TF_3X || kj > 0);
-        wgmma_commit();
-      };
+      // dQ += dS.K: B = K^T (64 d-rows x 32 positions, hi then lo), a
+      // fresh sum a key tile, added to dQ in registers
       reg_fence(dqa);
       reg_fence(dsh);
       reg_fence(dsl);
       wgmma_fence();
-      if constexpr (FR) {
-        issue_dq(dqt, true);
-        wgmma_wait<0>();
-        reg_fence(dqt);
+      if constexpr (TF_3X) {
 #pragma unroll
-        for (int dt = 0; dt < 8; ++dt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dqa[dt][e] += dqt[dt][e];
-      } else {
-        issue_dq(dqa, false);
-        wgmma_wait<0>();
+        for (int kj = 0; kj < 4; ++kj) {
+          tf_rs_n64(dqt, dsl[kj], sw128_desc(ktd) + 2 * kj, kj > 0);
+          tf_rs_n64(dqt, dsh[kj], sw128_desc(ktd + TF_HALF) + 2 * kj);
+        }
       }
+#pragma unroll
+      for (int kj = 0; kj < 4; ++kj)
+        tf_rs_n64(dqt, dsh[kj], sw128_desc(ktd) + 2 * kj, TF_3X || kj > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dqt);
+#pragma unroll
+      for (int dt = 0; dt < 8; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dqa[dt][e] += dqt[dt][e];
       reg_fence(dqa);
       reg_fence(dsh);
       reg_fence(dsl);
@@ -633,10 +612,8 @@ inline long long tb_scratch_floats(int batch, int n, int heads) {
 }
 
 // the prep pass and the two kernels on `stream`, arguments as
-// maest_attn_bwd_fp32's (scratch: tb_scratch_floats floats); FR: both
-// kernels sum each tile freshly
-template <bool FR>
-int launch_bwd_tf32(const void* q, const void* k, const void* v,
+// maest_attn_bwd_fp32's (scratch: tb_scratch_floats floats)
+inline int launch_bwd_tf32(const void* q, const void* k, const void* v,
                            const void* o, const void* dout, const float* lse,
                            float* scratch, void* dq, void* dk, void* dv,
                            int batch, int n, int heads, int n_real,
@@ -675,8 +652,8 @@ int launch_bwd_tf32(const void* q, const void* k, const void* v,
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
   // once each, before any launch a graph captures; the setting holds for
   // the current device only: the port drives one card a process
-  const auto dkv = attn_bwd_dkv_tf32_kernel<FR>;
-  const auto dqk = attn_bwd_dq_tf32_kernel<FR>;
+  const auto dkv = attn_bwd_dkv_tf32_kernel;
+  const auto dqk = attn_bwd_dq_tf32_kernel;
   static const cudaError_t attr =
       cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            TB_DKV_SMEM) != cudaSuccess

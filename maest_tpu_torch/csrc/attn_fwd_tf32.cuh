@@ -1,7 +1,7 @@
 // The fp32 attention forward at head_dim 64 on Hopper's asynchronous
-// machinery (sm_90a) with 3xTF32 products: K2 (no lse) and K3a (lse), the
-// production instance behind maest_attn_fwd_fp32 (attention_fwd.cu), which
-// keeps the scalar FMA kernel beside it as maest_attn_fwd_fp32_fma.
+// machinery (sm_90a) with 3xTF32 products (tf32_wgmma.cuh): K2 (no lse) and
+// K3a (lse), the kernel behind maest_attn_fwd_fp32 (attention_fwd.cu),
+// which keeps the scalar FMA kernel beside it as maest_attn_fwd_fp32_fma.
 //
 // It computes what maest_tpu/ops/attention.py::_attn_kernel + _attn_body
 // compute: scores q.k scaled by sl = scale log2(e), keys >= n_real at
@@ -9,229 +9,54 @@
 // l, P.V with fp32 sums, the output divided by l once at the end, lse = m +
 // log2(l) (B, H, N) in the log2 domain the backward reads.
 //
-// 3xTF32: the parity tier holds 2e-5, which one TF32 product (10 mantissa
-// bits) misses by ~20x. Each operand x is split into hi = tf32_rna(x) and
-// lo = tf32_rna(x - hi) (x - hi is exact in fp32), and a product is three
-// tf32 wgmma products into one fp32 accumulator: first the two small terms
-// lo.hi and hi.lo over every k-step, then hi.hi. The dropped lo.lo term is
-// ~2^-22 of the product. TF_3X false keeps hi.hi alone (1xTF32), the fault
-// a planted copy builds to show the checks see a dropped term.
-//
 // What bounds it: at (32, 1676, 12, 64) the two products are 3 x 0.276
 // TFLOP at the 495 TFLOP/s tf32 peak, 1.67 ms; the N^2 exp2 and the split
 // of p (two cvt.rna a score) run beside them on other units.
 //
 // Design, the bf16 wgmma kernel's (attn_fwd_wgmma.cuh) with tf32 operands:
-//   - tf32 wgmma has no transpose bit: both shared-memory operands are
-//     K-major. S = Q.K^T reads k as it lies; O = P.V contracts over keys,
-//     so it reads a transposed copy of v. A prep pass (tf_split_kernel)
-//     writes k's hi and lo planes (B H, N_pad, 64) and v's transposed hi
-//     and lo planes (B H, 64, N_pad), N_pad = round_up(N, 64), zeros past
-//     N; the kernel loads them by TMA (3-D maps, 128-byte swizzle: a
-//     64-column tile is two 32-column halves of 128-byte rows).
+//   - S = Q.K^T reads k as it lies; O = P.V contracts over keys, so it
+//     reads a transposed copy of v. A prep pass (tf_split_kernel) writes
+//     k's hi and lo planes (B H, N_pad, 64) and v's transposed hi and lo
+//     planes (B H, 64, N_pad), N_pad = round_up(N, 64), zeros past N; the
+//     kernel loads them by TMA (3-D maps, 128-byte swizzle: a 64-column
+//     tile is two 32-column halves of 128-byte rows).
 //   - Each consumer warpgroup owns 64 query rows. It splits its q rows into
 //     hi and lo tiles in shared memory once (swizzled stores), the A
-//     operand of S. P is the register A of P.V: the fp32 accumulator of an
-//     m64nN product hands thread (g, t) the columns 8j + 2t and 8j + 2t + 1,
-//     and the tf32 register-A fragment of a k8 step wants k = t and t + 4,
-//     so the thread packs its values as they lie (a0 = (g, 2t), a1 = (g +
-//     8, 2t), a2 = (g, 2t + 1), a3 = (g + 8, 2t + 1)) and v's transposed
-//     copy holds, inside each 8-key group, key tf_key_at(p) at position p
-//     (0, 2, 4, 6, 1, 3, 5, 7): positions p < 4 are keys 2p, the others
-//     2 (p - 4) + 1.
+//     operand of S. P, packed as it lies (tf_pack), is the register A of
+//     P.V against v's transposed copy in the tf_key_at order.
 //   - Warpgroup 0 is the producer: one thread keeps K and V^T tiles of 64
 //     keys (hi and lo: 32 KB each) in flight in a ring of TF_STAGES, with
-//     full and empty mbarriers for K and for V apart. With OV each
-//     iteration issues the next tile's S and this tile's P.V together and
-//     runs the next tile's softmax while P.V is in flight (wgmma.wait_group
-//     1); without, one product is in flight at a time. The two consumers
-//     take turns to issue through named barriers.
-//   - The tensor cores' additions into an accumulator round coarser than
-//     an fp32 FMA: summing every tile's P.V into o, whose size grows with
-//     the keys, leaves the output several times farther from plain than
-//     the scalar FMA kernel (chip_smoke.py phase 34 prints both). With FR
-//     each tile's P.V is a fresh sum (ot, 24 products of one tile) added to
-//     o in registers, o = o corr + ot, which lands as close as the FMA
-//     kernel; the 32 registers of ot leave no room for OV's overlap under
-//     the 168 a thread that three warpgroups allow.
+//     full and empty mbarriers for K and for V apart. One product is in
+//     flight at a time: S, its softmax, then P.V. The two consumers take
+//     turns to issue through named barriers.
+//   - The tensor cores' additions into an accumulator truncate, toward
+//     zero: every product they sum shrinks the sum a little. Summed into o
+//     over every tile, P.V left the output several times farther from
+//     plain than the scalar FMA kernel on the H100 (PERF.md). So P.V is
+//     summed in fresh chains of TF_PV_STEPS k-steps (ot; TF_PV_ROUNDS a
+//     tile, one at a time) and each chain added to o in registers, o = o
+//     corr + ot, then o + ot: within the FMA kernel's distance of plain,
+//     and o's systematic shrink (which the backward's delta = rowsum(do o)
+//     carries into the gradients) smaller than with one chain a tile
+//     (chip_smoke.py phase 34 prints the shrink). The 32 registers of ot
+//     leave no room to issue the next tile's S beside P.V under the 168 a
+//     thread that three warpgroups allow.
 // A wait on an mbarrier that never completes traps (qw_wait), so a fault
 // fails the launch instead of holding the card.
 
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums; no driver call is linked
-
-#include "attn_fwd_wgmma.cuh"  // mbarriers, 4-D TMA, descriptors, wgmma
-                                // fences, setmaxnreg, encode_tiled
+#include "tf32_wgmma.cuh"  // tf32 split, wgmma, planes, their maps, TMA
 
 namespace maest {
-
-// three products a tf32 product (lo.hi, hi.lo, hi.hi); false: hi.hi alone
-constexpr bool TF_3X = true;
-
-// ---------------------------------------------------------------- PTX ---
-// x rounded to tf32 (10 mantissa bits), to nearest with ties away from
-// zero, as fp32 bits with the low 13 bits zero
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo: hi = tf32_rna(x), lo = tf32_rna(x - hi)
-__device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-// the key (or sequence row) at position p of an 8-row group of the
-// transposed copies, and the position of row r
-__host__ __device__ constexpr int tf_key_at(int p) {
-  return ((p & 3) << 1) | (p >> 2);
-}
-__host__ __device__ constexpr int tf_pos_of(int r) {
-  return ((r & 1) << 2) | (r >> 1);
-}
-
-__device__ __forceinline__ void tf_st4(uint32_t addr, uint32_t a, uint32_t b,
-                                       uint32_t c, uint32_t d) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
-               "r"(a), "r"(b), "r"(c), "r"(d)
-               : "memory");
-}
-
-// d (64 x 32, fp32, C layout a warp) (+)= A (64 x 8 tf32, shared memory,
-// K-major) . B (8 x 32 tf32, shared memory, K-major); scale_d 0 overwrites d
-__device__ __forceinline__ void tf_ss_n32(float (&d)[4][4], uint64_t a,
-                                          uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// d (64 x 64, fp32, C layout a warp) (+)= A (64 x 8 tf32, shared memory,
-// K-major) . B (8 x 64 tf32, shared memory, K-major); scale_d 0 overwrites d
-__device__ __forceinline__ void tf_ss_n64(float (&d)[8][4], uint64_t a,
-                                          uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// d (64 x 64, fp32) (+)= A (64 x 8 tf32, registers: a warp's 16 rows, a0
-// (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)) . B (8 x 64
-// tf32, shared memory, K-major); scale_d 0 overwrites d
-__device__ __forceinline__ void tf_rs_n64(float (&d)[8][4],
-                                          const uint32_t (&a)[4], uint64_t b,
-                                          int scale_d = 1) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
-
-// ------------------------------------------------------------- layout ---
-constexpr uint32_t TF_HALF = 64 * 128;    // 64 rows x 32 tf32: one swizzle span
-constexpr uint32_t TF_TILE = 4 * TF_HALF; // 64 x 64: hi, lo, two halves each
-
-// the descriptor of k-step kk (8 columns) of plane `lo` (0 hi, 1 lo) of a
-// 64-column operand at `base` stored as [hi 0..31][hi 32..63][lo 0..31][lo
-// 32..63], each half `half` bytes of 128-byte rows (TMA's 128-byte swizzle,
-// base 1024-byte aligned): +32 bytes a k-step inside a half
-__device__ __forceinline__ uint64_t tf_desc(uint32_t base, uint32_t half,
-                                            int lo, int kk) {
-  return sw128_desc(base + (2 * lo + (kk >> 2)) * half) + 2 * (kk & 3);
-}
-
-// the tf32 register-A fragments (hi, lo) of accumulator chunk x (columns
-// 8j.. of a warp's rows): a0 = (g, 2t), a1 = (g + 8, 2t), a2 = (g, 2t + 1),
-// a3 = (g + 8, 2t + 1), so k position t holds column 2t and t + 4 column
-// 2t + 1 (tf_key_at)
-__device__ __forceinline__ void tf_pack(const float (&x)[4], uint32_t (&hi)[4],
-                                        uint32_t (&lo)[4]) {
-  tf32_split(x[0], hi[0], lo[0]);
-  tf32_split(x[2], hi[1], lo[1]);
-  tf32_split(x[1], hi[2], lo[2]);
-  tf32_split(x[3], hi[3], lo[3]);
-}
-
-// ---------------------------------------------------------- prep pass ---
-// One 64-row tile of a (B, N, H, 64) fp32 view split into tf32 planes:
-// hi_r / lo_r (B H, n_pad, 64) as it lies, and hi_t / lo_t (B H, 64,
-// n_pad) transposed, row r of each 8-row group at position tf_pos_of(r);
-// rows past N are zeros. Either pair may be null. Grid (n_pad / 64, B H),
-// 256 threads.
-__global__ void __launch_bounds__(256)
-tf_split_kernel(const float* __restrict__ x, Strides xs, int n, int n_pad,
-                int heads, float* __restrict__ hi_r, float* __restrict__ lo_r,
-                float* __restrict__ hi_t, float* __restrict__ lo_t) {
-  __shared__ float tile[64][65];  // [row][d], 65: conflict-free columns
-  const int bh = blockIdx.y;
-  const int b = bh / heads;
-  const int h = bh - b * heads;
-  const int r0 = blockIdx.x * 64;
-  const float* xb = x + b * xs.b + h * xs.h;
-  for (int i = threadIdx.x; i < 64 * 64; i += 256) {
-    const int r = i >> 6, d = i & 63;
-    const int row = r0 + r;
-    const float val = row < n ? xb[static_cast<long long>(row) * xs.n + d] : 0.f;
-    tile[r][d] = val;
-    if (hi_r != nullptr) {
-      uint32_t hi, lo;
-      tf32_split(val, hi, lo);
-      const long long at = (static_cast<long long>(bh) * n_pad + row) * 64 + d;
-      hi_r[at] = __uint_as_float(hi);
-      lo_r[at] = __uint_as_float(lo);
-    }
-  }
-  if (hi_t == nullptr) return;
-  __syncthreads();
-  for (int i = threadIdx.x; i < 64 * 64; i += 256) {
-    const int d = i >> 6, p = i & 63;  // position p of the tile
-    uint32_t hi, lo;
-    tf32_split(tile[(p & ~7) | tf_key_at(p & 7)][d], hi, lo);
-    const long long at = (static_cast<long long>(bh) * 64 + d) * n_pad + r0 + p;
-    hi_t[at] = __uint_as_float(hi);
-    lo_t[at] = __uint_as_float(lo);
-  }
-}
-
-// rows of the planes: round_up(n, 64)
-__host__ __device__ constexpr int tf_pad(int n) { return (n + 63) / 64 * 64; }
 
 // ------------------------------------------------------------- kernel ---
 constexpr int TF_BK = 64;      // keys a tile
 constexpr int TF_STAGES = 2;   // K and V^T tiles in flight
 constexpr int TF_NC = 2;       // consumer warpgroups of 64 query rows
+// P.V of a tile in TF_PV_ROUNDS fresh chains of k-steps, one at a time
+constexpr int TF_PV_ROUNDS = 4;
+constexpr int TF_PV_STEPS = 8 / TF_PV_ROUNDS;  // k-steps a chain
 
 // dynamic shared memory: 1024 bytes of alignment slack, the consumers' q
 // tiles (hi and lo), the K and V^T rings, the mbarriers
@@ -242,7 +67,6 @@ constexpr int TF_FWD_SMEM =
 // blocks, 128 (TF_NC + 1) threads; q the (B, N, H, 64) view; tkh, tkl the maps
 // of k's hi and lo planes (boxes of 32 columns x 64 rows), tvh, tvl of v's
 // transposed planes (the same boxes: 32 positions x 64 d-rows)
-template <bool OV, bool FR>
 __global__ void __launch_bounds__(128 * (TF_NC + 1), 1)
 attn_fwd_tf32_kernel(const float* __restrict__ q,
                      const __grid_constant__ CUtensorMap tkh,
@@ -251,7 +75,6 @@ attn_fwd_tf32_kernel(const float* __restrict__ q,
                      const __grid_constant__ CUtensorMap tvl,
                      float* __restrict__ out, float* __restrict__ lse, int n,
                      int n_real, int heads, Strides qs, Strides os, float sl) {
-  static_assert(!(OV && FR), "a fresh P.V sum a tile takes the serial order");
   constexpr int NC = TF_NC;
   constexpr int BQ = 64 * NC;
   extern __shared__ uint8_t tf_smem[];
@@ -317,7 +140,7 @@ attn_fwd_tf32_kernel(const float* __restrict__ q,
     const int t = lane & 3;
     // consumer c issues after named barrier 1 + c, then lets the next one
     // go; the last consumer lets consumer 0 take the first turn
-    const int turns = OV ? n_tiles + 1 : 2 * n_tiles;
+    const int turns = (1 + TF_PV_ROUNDS) * n_tiles;
     int turn = 0;
     auto take_turn = [&] {
       asm volatile("bar.sync %0, %1;\n" ::"r"(1 + c), "n"(128 * NC)
@@ -370,7 +193,7 @@ attn_fwd_tf32_kernel(const float* __restrict__ q,
     float s[8][4];            // scores, then p in fp32
     uint32_t ph[8][4], pl[8][4];  // p's hi and lo: the A fragments of P.V
     float corr[2];
-    float ot[8][4];  // FR: this tile's P.V, added to o in registers
+    float ot[8][4];  // a chain of this tile's P.V, added to o in registers
 
     // s = Q.K^T of the key tile in stage st: the small terms over every
     // k-step, then hi.hi
@@ -391,29 +214,22 @@ attn_fwd_tf32_kernel(const float* __restrict__ q,
                   TF_3X || kk > 0);
       wgmma_commit();
     };
-    // o += P.V of the key tile in stage st (8 k-steps of 8 keys); FR:
-    // ot = P.V, a fresh sum a tile, so that the tensor cores' additions
-    // round against one tile's sum and not o's
-    auto issue_pv_into = [&](int st, float (&acc)[8][4], bool fresh) {
+    // d = the part of P.V of the key tile in stage st over k-steps k0 ..
+    // k0 + TF_PV_STEPS - 1 (8 keys each), a fresh chain: its small terms,
+    // then hi.hi
+    auto issue_pv = [&](float (&d)[8][4], int st, int k0) {
       const uint32_t vt = sv + st * TF_TILE;
       if constexpr (TF_3X) {
 #pragma unroll
-        for (int kj = 0; kj < 8; ++kj) {
-          tf_rs_n64(acc, pl[kj], tf_desc(vt, TF_HALF, 0, kj), !fresh || kj > 0);
-          tf_rs_n64(acc, ph[kj], tf_desc(vt, TF_HALF, 1, kj));
+        for (int j = 0; j < TF_PV_STEPS; ++j) {
+          tf_rs_n64(d, pl[k0 + j], tf_desc(vt, TF_HALF, 0, k0 + j), j > 0);
+          tf_rs_n64(d, ph[k0 + j], tf_desc(vt, TF_HALF, 1, k0 + j));
         }
       }
 #pragma unroll
-      for (int kj = 0; kj < 8; ++kj)
-        tf_rs_n64(acc, ph[kj], tf_desc(vt, TF_HALF, 0, kj),
-                  !fresh || TF_3X || kj > 0);
-      wgmma_commit();
-    };
-    auto issue_pv = [&](int st) {
-      if constexpr (FR)
-        issue_pv_into(st, ot, true);
-      else
-        issue_pv_into(st, o, false);
+      for (int j = 0; j < TF_PV_STEPS; ++j)
+        tf_rs_n64(d, ph[k0 + j], tf_desc(vt, TF_HALF, 0, k0 + j),
+                  TF_3X || j > 0);
     };
     // the softmax of key tile `it` on s (as attn_fwd_wgmma.cuh's): masked
     // scores, the new running max, corr, p in fp32 (into s) and its sums
@@ -462,105 +278,51 @@ attn_fwd_tf32_kernel(const float* __restrict__ q,
         s[nt][3] = p3;
       }
     };
-    // o *= corr (FR: later, with the tile's sum), then p into P's hi and
-    // lo A fragments (chunk j of the scores is k-step j)
-    auto rescale_pack = [&] {
-      if constexpr (!FR) {
-#pragma unroll
-        for (int dt = 0; dt < 8; ++dt) {
-          o[dt][0] *= corr[0];
-          o[dt][1] *= corr[0];
-          o[dt][2] *= corr[1];
-          o[dt][3] *= corr[1];
-        }
-      }
+    // p into P's hi and lo A fragments (chunk j of the scores is k-step j)
+    auto pack = [&] {
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) tf_pack(s[nt], ph[nt], pl[nt]);
     };
 
-    if constexpr (OV) {
-      // the next tile's S and this tile's P.V in flight together
-      qw_wait(full_k(0), 0);
+    // one product in flight at a time: S, its softmax, then P.V's chains
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % TF_STAGES;
+      const uint32_t par = (it / TF_STAGES) & 1;
+      qw_wait(full_k(st), par);
       take_turn();
       wgmma_fence();
-      issue_s(0);
+      issue_s(st);
       pass_turn();
       wgmma_wait<0>();
       reg_fence(s);
-      mbar_arrive(empty_k(0));
-      softmax(0);
-      rescale_pack();
-      for (int it = 1; it < n_tiles; ++it) {
-        const int st = it % TF_STAGES, prev = (it - 1) % TF_STAGES;
-        qw_wait(full_k(st), (it / TF_STAGES) & 1);
-        qw_wait(full_v(prev), ((it - 1) / TF_STAGES) & 1);
+      mbar_arrive(empty_k(st));
+      softmax(it);
+      pack();
+      qw_wait(full_v(st), par);
+      // P.V: a fresh chain a round, added to o in registers (o corr
+      // first)
+#pragma unroll
+      for (int r = 0; r < TF_PV_ROUNDS; ++r) {
         take_turn();
         reg_fence(o);
+        reg_fence(ot);
         reg_fence(ph);
         reg_fence(pl);
         wgmma_fence();
-        issue_s(st);      // S of this tile
-        issue_pv(prev);   // and P.V of the last one, under its softmax
-        pass_turn();
-        wgmma_wait<1>();  // S is done
-        reg_fence(s);
-        mbar_arrive(empty_k(st));
-        softmax(it);
-        wgmma_wait<0>();  // P.V is done
-        reg_fence(o);
-        reg_fence(ph);
-        reg_fence(pl);
-        mbar_arrive(empty_v(prev));
-        rescale_pack();
-      }
-      const int last = (n_tiles - 1) % TF_STAGES;
-      qw_wait(full_v(last), ((n_tiles - 1) / TF_STAGES) & 1);
-      take_turn();
-      reg_fence(o);
-      reg_fence(ph);
-      reg_fence(pl);
-      wgmma_fence();
-      issue_pv(last);
-      pass_turn();
-      wgmma_wait<0>();
-      reg_fence(o);
-      mbar_arrive(empty_v(last));
-    } else {
-      // one product in flight at a time: S, its softmax, then P.V
-      for (int it = 0; it < n_tiles; ++it) {
-        const int st = it % TF_STAGES;
-        const uint32_t par = (it / TF_STAGES) & 1;
-        qw_wait(full_k(st), par);
-        take_turn();
-        wgmma_fence();
-        issue_s(st);
-        pass_turn();
-        wgmma_wait<0>();
-        reg_fence(s);
-        mbar_arrive(empty_k(st));
-        softmax(it);
-        rescale_pack();
-        qw_wait(full_v(st), par);
-        take_turn();
-        reg_fence(o);
-        if constexpr (FR) reg_fence(ot);
-        reg_fence(ph);
-        reg_fence(pl);
-        wgmma_fence();
-        issue_pv(st);
+        issue_pv(ot, st, r * TF_PV_STEPS);
+        wgmma_commit();
         pass_turn();
         wgmma_wait<0>();
         reg_fence(o);
-        if constexpr (FR) {
-          reg_fence(ot);
+        reg_fence(ot);
 #pragma unroll
-          for (int dt = 0; dt < 8; ++dt)
+        for (int dt = 0; dt < 8; ++dt)
 #pragma unroll
-            for (int e = 0; e < 4; ++e)
-              o[dt][e] = fmaf(o[dt][e], corr[e >> 1], ot[dt][e]);
-        }
-        mbar_arrive(empty_v(st));
+          for (int e = 0; e < 4; ++e)
+            o[dt][e] = r == 0 ? fmaf(o[dt][e], corr[e >> 1], ot[dt][e])
+                              : o[dt][e] + ot[dt][e];
       }
+      mbar_arrive(empty_v(st));
     }
 
     // epilogue: o / l in fp32, rows past N never stored
@@ -586,50 +348,18 @@ attn_fwd_tf32_kernel(const float* __restrict__ q,
   }
 }
 
-// --------------------------------------------------------------- host ---
-// the map of an fp32 plane set (planes, rows, cols) at `ptr`, contiguous:
-// dims (cols, rows, planes), boxes of 32 columns x `box_rows` rows, the
-// 128-byte swizzle, zeros past the edges
-inline bool tf_encode_plane(CUtensorMap* map, const float* ptr, int planes,
-                            int rows, int cols, int box_rows) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(planes)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 4,
-                                 static_cast<cuuint64_t>(rows) * cols * 4};
-  const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// one split launch (tf_split_kernel) of the view x into planes of n_pad
-// rows (a multiple of 64) on `stream`
-inline int tf_split(const float* x, const Strides& xs, int batch, int n,
-                    int n_pad, int heads, float* hi_r, float* lo_r,
-                    float* hi_t, float* lo_t, cudaStream_t stream) {
-  const dim3 grid(n_pad / 64, batch * heads);
-  tf_split_kernel<<<grid, 256, 0, stream>>>(x, xs, n, n_pad, heads, hi_r,
-                                             lo_r, hi_t, lo_t);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // floats of the scratch the forward takes (the port's wrapper allocates
 // it): k's hi and lo planes, v's transposed hi and lo planes
 inline long long tf_fwd_scratch_floats(int batch, int n, int heads) {
   return 4LL * batch * heads * tf_pad(n) * 64;
 }
 
-// the prep pass and one launch of an instance on `stream`, arguments as
+// the prep pass and the kernel on `stream`, arguments as
 // maest_attn_fwd_fp32's (scratch: tf_fwd_scratch_floats floats)
-template <bool OV, bool FR>
-int launch_fwd_tf32(const void* q, const void* k, const void* v, void* out,
-                    float* lse, float* scratch, int batch, int n, int heads,
-                    int n_real, const long long* st, float sl, void* stream) {
+inline int launch_fwd_tf32(const void* q, const void* k, const void* v,
+                           void* out, float* lse, float* scratch, int batch,
+                           int n, int heads, int n_real, const long long* st,
+                           float sl, void* stream) {
   if (batch <= 0 || n <= 0) return 0;
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
@@ -646,9 +376,9 @@ int launch_fwd_tf32(const void* q, const void* k, const void* v, void* out,
   err = tf_split(static_cast<const float*>(v), vs, batch, n, n_pad, heads,
                  nullptr, nullptr, vth, vtl, cs);
   if (err) return err;
-  const auto kernel = attn_fwd_tf32_kernel<OV, FR>;
+  const auto kernel = attn_fwd_tf32_kernel;
   constexpr int smem = TF_FWD_SMEM;
-  // once an instance, before any launch a graph captures; the setting holds
+  // once, before any launch a graph captures; the setting holds
   // for the current device only: the port drives one card a process
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -177,6 +177,7 @@ def attention_bwd_tiled_reference(q, k, v, o, lse, do,
 
 # --- fp32 at head_dim 64: 3xTF32 (csrc/attn_fwd_tf32.cuh, attn_bwd_tf32.cuh) -
 TF32_KEY_TILE = 64      # the tf32 forward's keys a tile
+TF32_PV_CHAIN = 16      # and the keys of each fresh chain of its P.V
 TF32_BWD_Q_TILE = 32    # the tf32 dk/dv kernel's q rows a tile
 TF32_BWD_KEY_TILE = 32  # the tf32 dq kernel's keys a tile
 
@@ -236,9 +237,10 @@ def attention_tf32_reference(q, k, v, n_real: int | None = None,
     (o, lse). Per key tile of TF32_KEY_TILE in order: s = Q.K^T by
     ``tf32_matmul`` with ``terms`` products, scaled by scale log2(e), keys
     >= n_real at -1e30, the running max and sum, o = o corr + P.V with the
-    tile's P.V by ``tf32_matmul`` (a fresh sum, added in fp32); o / l at the
-    end, lse = m + log2(l). With terms=1 it is the one-product kernel a
-    planted fault builds."""
+    tile's P.V in chains of TF32_PV_CHAIN keys, each by ``tf32_matmul`` (a
+    fresh sum) added to o in fp32 in turn; o / l at the end, lse = m +
+    log2(l). With terms=1 it is the one-product kernel a planted fault
+    builds."""
     n = q.shape[1]
     nr = n if n_real is None else n_real
     sl = _scale(q, scale) * _LOG2E
@@ -255,7 +257,11 @@ def attention_tf32_reference(q, k, v, n_real: int | None = None,
         corr = torch.exp2(m - m_new)
         p = torch.exp2(s - m_new)
         l = l * corr + p.sum(dim=-1, keepdim=True)
-        o = o * corr + tf32_matmul(p, vh[:, :, ks], terms)
+        vt = vh[:, :, ks]
+        o = o * corr
+        for c in range(0, ks.stop - base, TF32_PV_CHAIN):
+            o = o + tf32_matmul(p[..., c:c + TF32_PV_CHAIN],
+                                vt[:, :, c:c + TF32_PV_CHAIN], terms)
         m = m_new
     return (o / l).transpose(1, 2).to(q.dtype), (m + torch.log2(l))[..., 0]
 
@@ -451,14 +457,16 @@ def int8_bwd_applies(n: int) -> bool:
 
 def attention_bwd_int8_reference(q, k, v, o, lse, do,
                                  n_real: int | None = None,
-                                 scale: float | None = None):
+                                 scale: float | None = None, delta=None):
     """Plain PyTorch int8 backward (``_attn_bwd_kernel_q8``): per (head,
     q-block) scalar scales for q and do, per head for k and v; p and ds
     requantized with their block maxima; all five products int8, summed
     exactly in float64 (an integer sum below 2^53, which fp32 then rounds
     as the TPU's int32 -> fp32 cast does). Every scale product keeps the
     TPU's association order. dq in q's dtype; dk and dv summed over the q
-    blocks in fp32, then cast. Beyond n_pad 4096: the bf16 backward."""
+    blocks in fp32, then cast. Beyond n_pad 4096: the bf16 backward.
+    ``delta`` (B, H, N) fp32, where given, stands for rowsum(do o), as
+    ``k7_delta`` sums it in a kernel's order."""
     b, n, h, d = q.shape
     if not int8_bwd_applies(n):
         return attention_bwd_reference(q, k, v, o, lse, do, n_real, scale)
@@ -469,7 +477,9 @@ def attention_bwd_int8_reference(q, k, v, o, lse, do,
     k8, ks = quantize_tensor(kh, dim=(2, 3))
     v8, vs = quantize_tensor(vh, dim=(2, 3))
     k8, v8 = k8.double(), v8.double()
-    delta = (doh.float() * oh.float()).sum(-1, keepdim=True)  # (B, H, N, 1)
+    if delta is None:
+        delta = (doh.float() * oh.float()).sum(-1)
+    delta = delta[..., None]  # (B, H, N, 1)
     dq = torch.empty((b, h, n, d), device=q.device)
     dk = torch.zeros((b, h, n, d), device=q.device)
     dv = torch.zeros((b, h, n, d), device=q.device)
@@ -493,6 +503,25 @@ def attention_bwd_int8_reference(q, k, v, o, lse, do,
         dk += (ds8.transpose(-1, -2) @ q8).float() * (dst * qs * (1.0 / 127.0))
     dq, dk, dv = _heads(dq, dk, dv)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def k7_delta(o, do):
+    """delta = rowsum(do o) (B, H, N) fp32 of (B, N, H, D) views, D a
+    multiple of 64, in the order of the fp32 K7's quant pass
+    (``csrc/attention_bwd_q8.cu`` bwd_q8_quant_kernel): lane j of a row's
+    four chains the columns 16 j .. 16 j + 15 of each 64 in turn by fp32
+    FMA, then (lane 0 + lane 1) + (lane 2 + lane 3). An FMA is the exact
+    product plus the sum in float64, rounded to fp32 (exact but where the
+    float64 sum rounds onto an fp32 midpoint)."""
+    oh, doh = (t.float() for t in _heads(o, do))
+    b, h, n, d = oh.shape
+    x = doh.reshape(b, h, n, d // 64, 4, 16).double()
+    y = oh.reshape(b, h, n, d // 64, 4, 16).double()
+    acc = torch.zeros((b, h, n, 4), dtype=torch.float32, device=o.device)
+    for hh in range(d // 64):
+        for i in range(16):
+            acc = (x[..., hh, :, i] * y[..., hh, :, i] + acc.double()).float()
+    return (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
 
 
 K7_KEY_TILE = 128  # the wgmma K7's keys a block
@@ -997,10 +1026,17 @@ def _launch_fwd_fma(q, k, v, n_real, with_lse, scale):
                             k, v, n_real, with_lse, scale)
 
 
-# the forward entries that run the tf32 kernel (csrc/attn_fwd_tf32.cuh):
-# after lse they take an fp32 scratch of maest_attn_fwd_fp32_scratch(batch,
-# n, heads) floats (k's and v's tf32 planes)
-_TF32_FWD = ("maest_attn_fwd_fp32", "maest_attn_fwd_fp32_tf32")
+def _scratch_floats(lib, name, b, n, h):
+    """The floats of the fp32 scratch that the entry ``name`` of ``lib``
+    takes, by the libraries' rule: an entry X that takes scratch exports
+    ``X_scratch(batch, n, heads)``. None where ``lib`` exports no such
+    function."""
+    try:
+        fn = getattr(lib, f"{name}_scratch")
+    except AttributeError:
+        return None
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    return fn(b, n, h)
 
 
 def launch_fwd_entry(lib_name, name, lead, q, k, v, n_real, with_lse, scale):
@@ -1015,11 +1051,9 @@ def launch_fwd_entry(lib_name, name, lead, q, k, v, n_real, with_lse, scale):
     lib = _build.load_library(lib_name)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr()]
-    if lib_name == "attention_fwd" and name in _TF32_FWD:
-        fn = lib.maest_attn_fwd_fp32_scratch
-        fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
-        scratch = torch.empty(fn(b, n, h), dtype=torch.float32,
-                              device=q.device)
+    floats = _scratch_floats(lib, name, b, n, h)
+    if floats is not None:  # the tf32 forward's planes, after lse
+        scratch = torch.empty(floats, dtype=torch.float32, device=q.device)
         ptrs.append(scratch.data_ptr())
     fn = _entry(lib, name, len(ptrs), 1, len(lead))
     with torch.cuda.device(q.device):
@@ -1243,27 +1277,13 @@ def _grads(q):
     return grads, grads[:, :, 0], grads[:, :, 1], grads[:, :, 2]
 
 
-# the entries that run the wgmma backward (csrc/attn_bwd_wgmma.cuh), whose
-# fp32 scratch (dq's sums, the padded lse and delta, the hand-over counters)
-# is maest_attn_bwd_bf16_scratch(batch, n, heads) floats
-_WGMMA_BWD = ("maest_attn_bwd_bf16", "maest_attn_bwd_bf16_wgmma")
-# the entries that run the tf32 backward (csrc/attn_bwd_tf32.cuh), whose fp32
-# scratch (the tf32 planes, the padded lse and delta) is
-# maest_attn_bwd_fp32_scratch(batch, n, heads) floats
-_TF32_BWD = ("maest_attn_bwd_fp32", "maest_attn_bwd_fp32_tf32")
-
-
 def _bwd_scratch(lib, name, b, n, h):
-    """The floats of the fp32 scratch the entry ``name`` takes: delta (B, H,
-    N), or the wgmma or tf32 backward's."""
-    if name in _TF32_BWD:
-        fn = lib.maest_attn_bwd_fp32_scratch
-    elif name in _WGMMA_BWD:
-        fn = lib.maest_attn_bwd_bf16_scratch
-    else:
-        return b * h * n
-    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
-    return fn(b, n, h)
+    """The floats of the fp32 scratch the entry ``name`` takes in delta's
+    place: ``_scratch_floats`` (the wgmma backward's: dq's sums, the padded
+    lse and delta, the hand-over counters; the tf32 backward's: the tf32
+    planes, the padded lse and delta), else delta (B, H, N)."""
+    floats = _scratch_floats(lib, name, b, n, h)
+    return b * h * n if floats is None else floats
 
 
 def launch_bwd_entry(name, lead, q, k, v, o, lse, do, n_real, scale):
@@ -1290,13 +1310,6 @@ def launch_bwd_entry(name, lead, q, k, v, o, lse, do, n_real, scale):
     return grads
 
 
-# the entry that runs the wgmma K7 (csrc/attn_bwd_q8_wgmma.cuh): it takes
-# maest_attn_bwd_q8_bytes(batch, n, heads) bytes of int8 copies and, in
-# delta's place, a scratch of maest_attn_bwd_q8_scratch(batch, n, heads)
-# floats
-_WGMMA_BWD_Q8 = "maest_attn_bwd_q8"
-
-
 def _launch_bwd_q8(q, k, v, o, lse, do, n_real, scale, name=None):
     """K7: scratch for the maxima and the int8 copies, then the kernels of
     ``csrc/attention_bwd_q8.cu`` (in bf16 at head_dim 64 the wgmma route:
@@ -1314,13 +1327,13 @@ def _launch_bwd_q8(q, k, v, o, lse, do, n_real, scale, name=None):
             "_fp32" if q.dtype == torch.float32 else ""), d)
     bq = bwd_q_block(n)
     nqb = -(-n // bq)
-    if name == _WGMMA_BWD_Q8:  # sizes from the library
-        sizes = []
-        for what in ("scratch", "bytes"):
-            fn = getattr(lib, f"maest_attn_bwd_q8_{what}")
-            fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
-            sizes.append(fn(b, n, h))
-        n_floats, n_bytes = sizes
+    # the wgmma K7 (csrc/attn_bwd_q8_wgmma.cuh) exports its scratch's
+    # floats, in delta's place, and the bytes of its int8 copies
+    n_floats = _scratch_floats(lib, name, b, n, h)
+    if n_floats is not None:
+        fn = getattr(lib, f"{name}_bytes")
+        fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+        n_bytes = fn(b, n, h)
     else:
         n_floats, n_bytes = b * h * n, 7 * b * h * (-(-n // 64) * 64) * d
     # delta (B, H, N), or the wgmma route's scratch

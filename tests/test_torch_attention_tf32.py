@@ -16,6 +16,8 @@ tests/test_torch_attention.py), lse 1e-4 (chip_smoke.py's LSE_TOL); the
 integer products of the permutation test exact. tests/test_torch_cuda.py
 holds the kernels to the plain versions on the card."""
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -267,5 +269,12 @@ def test_controls_take_the_plain_version_on_the_cpu():
     assert (A.attention_fwd_fp32_fma.launches,
             A.attention_bwd_fp32_fma.launches) == before
     assert A._bwd_scratch(None, "maest_attn_bwd_fp32_fma", 2, 50, 3) == 300
-    assert A._TF32_FWD == ("maest_attn_fwd_fp32", "maest_attn_fwd_fp32_tf32")
-    assert A._TF32_BWD == ("maest_attn_bwd_fp32", "maest_attn_bwd_fp32_tf32")
+    # the tf32 entries export X_scratch (a stand-in library); the controls
+    # do not
+    lib = types.SimpleNamespace(
+        maest_attn_fwd_fp32_scratch=lambda b, n, h: 11,
+        maest_attn_bwd_fp32_scratch=lambda b, n, h: 13)
+    assert A._scratch_floats(lib, "maest_attn_fwd_fp32", 2, 50, 3) == 11
+    assert A._scratch_floats(lib, "maest_attn_fwd_fp32_fma", 2, 50, 3) is None
+    assert A._bwd_scratch(lib, "maest_attn_bwd_fp32", 2, 50, 3) == 13
+    assert A._bwd_scratch(lib, "maest_attn_bwd_fp32_fma", 2, 50, 3) == 300

@@ -18,6 +18,8 @@ all within 1e-2, and closer to JAX's int8 gradients than JAX's int8
 gradients are to its bf16 ones. tests/test_torch_cuda.py holds the kernel
 to this plain version on the card."""
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -195,7 +197,12 @@ def test_int8_backward_route_names_the_wgmma_entry(control, monkeypatch):
             A.attention_bwd_int8_mma.launches) == ((2, 2) if control
                                                   else (4, 0))
     assert A._K3B_CONTROL is False
-    assert A._WGMMA_BWD_Q8 == "maest_attn_bwd_q8"
+    # the route's entry at head_dim 64 is the one whose scratch the library
+    # sizes (X_scratch; a stand-in library), the fp32 instance's is delta
+    assert A._instance("maest_attn_bwd_q8", 64) == ("maest_attn_bwd_q8", ())
+    lib = types.SimpleNamespace(maest_attn_bwd_q8_scratch=lambda b, n, h: 9)
+    assert A._scratch_floats(lib, "maest_attn_bwd_q8", 1, 4, 2) == 9
+    assert A._scratch_floats(lib, "maest_attn_bwd_q8_fp32", 1, 4, 2) is None
 
 
 def test_control_takes_plain_version_on_the_cpu():
@@ -211,3 +218,47 @@ def test_control_takes_plain_version_on_the_cpu():
     want = A.attention_bwd_int8_reference(q, k, v, o, lse, do, 80)
     assert all(torch.equal(a, w) for a, w in zip(got, want))
     assert A.attention_bwd_int8_mma.launches == before
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k7_delta_sums_in_the_kernels_order(d):
+    """``k7_delta``, the fp32 K7's delta, equals a scalar loop in the quant
+    pass's order (four lanes of 16 columns of each 64, FMA as the product
+    and sum in float64 rounded to fp32, then (0 + 1) + (2 + 3)) and lies
+    within fp32's summation bound (d eps sum |do o|) of plain's delta; the
+    int8 backward's plain version
+    given plain's delta is the one that sums its own, bit for bit."""
+    rng = np.random.default_rng(21 + d)
+    o = rng.standard_normal((1, 6, 2, d)).astype(np.float32)
+    do = rng.standard_normal((1, 6, 2, d)).astype(np.float32)
+    got = A.k7_delta(torch.from_numpy(o), torch.from_numpy(do))
+    assert got.shape == (1, 2, 6) and got.dtype == torch.float32
+    want = np.empty((1, 2, 6), np.float32)
+    for h in range(2):
+        for n in range(6):
+            lanes = []
+            for j in range(4):
+                acc = np.float32(0)
+                for hh in range(d // 64):
+                    for i in range(16):
+                        c = hh * 64 + 16 * j + i
+                        acc = np.float32(np.float64(do[0, n, h, c])
+                                         * np.float64(o[0, n, h, c])
+                                         + np.float64(acc))
+                lanes.append(acc)
+            want[0, h, n] = (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+    assert np.array_equal(got.numpy(), want)
+    prod = (torch.from_numpy(do) * torch.from_numpy(o)).transpose(1, 2)
+    bound = d * torch.finfo(torch.float32).eps * prod.abs().sum(-1)
+    assert ((got - prod.sum(-1)).abs() <= bound).all()
+
+    x, g = _inputs(1, 90, 2, seed=14)
+    xt = torch.from_numpy(x)
+    q, k, v = xt[:, :, 0], xt[:, :, 1], xt[:, :, 2]
+    gt = torch.from_numpy(g)
+    o, lse = A.attention_reference_lse(q, k, v, 80)
+    own = A.attention_bwd_int8_reference(q, k, v, o, lse, gt, 80)
+    given = A.attention_bwd_int8_reference(
+        q, k, v, o, lse, gt, 80,
+        delta=(gt * o).sum(-1).transpose(1, 2))
+    assert all(torch.equal(a, b) for a, b in zip(own, given))

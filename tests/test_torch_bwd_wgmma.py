@@ -16,6 +16,8 @@ the neighbouring bf16 value, 2^-8 relative). Masked keys get
 exactly zero dk and dv. tests/test_torch_cuda.py holds the kernel to this
 plain version on the card."""
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -199,5 +201,10 @@ def test_control_takes_plain_version_on_the_cpu():
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert A.attention_bwd_mma.launches == before
     assert A._bwd_scratch(None, "maest_attn_bwd_bf16_mma", 2, 50, 3) == 300
-    assert set(A._WGMMA_BWD) == {"maest_attn_bwd_bf16",
-                                 "maest_attn_bwd_bf16_wgmma"}
+    # an entry X that takes scratch exports X_scratch (a stand-in library)
+    lib = types.SimpleNamespace(**{
+        f"{e}_scratch": lambda b, n, h: 7 * b * n * h
+        for e in ("maest_attn_bwd_bf16", "maest_attn_bwd_bf16_wgmma")})
+    for e in ("maest_attn_bwd_bf16", "maest_attn_bwd_bf16_wgmma"):
+        assert A._bwd_scratch(lib, e, 2, 50, 3) == 2100
+    assert A._bwd_scratch(lib, "maest_attn_bwd_bf16_mma", 2, 50, 3) == 300

@@ -286,6 +286,9 @@ def test_train_step_on_card_matches_cpu(cuda_device):
             a, b = np.delete(a, np.s_[128:256]), np.delete(b, np.s_[128:256])
         far += int((np.abs(a - b) > 2e-6 + 1e-4 * np.abs(b)).sum())
         total += a.size
+    print(f"train step on the card against the CPU: {far} of {total} "
+          f"coordinates beyond rtol 1e-4 / atol 2e-6 (at most "
+          f"{1e-4 * total:.1f})")
     assert far <= 1e-4 * total, (far, total)
 
 
@@ -1669,21 +1672,6 @@ TF32_BWD_SHAPES = [(2, 866, None), (2, 896, 866), (8, 281, None),
                    (1, 4500, 4400)]
 
 
-def _tf32_fwd_cfg(cfg, q, k, v, n_real=None, with_lse=False):
-    from maest_tpu_torch.ops import attention as A
-
-    return A.launch_fwd_entry("attention_fwd", "maest_attn_fwd_fp32_tf32",
-                              (cfg,), q, k, v, n_real, with_lse,
-                              q.shape[-1]**-0.5)
-
-
-def _tf32_bwd_cfg(cfg, q, k, v, o, lse, do, n_real=None):
-    from maest_tpu_torch.ops import attention as A
-
-    return A.launch_bwd_entry("maest_attn_bwd_fp32_tf32", (cfg,), q, k, v, o,
-                              lse, do, n_real, q.shape[-1]**-0.5).unbind(2)
-
-
 @pytest.mark.parametrize("b,n,n_real", TF32_FWD_SHAPES)
 def test_tf32_forward_matches_plain_and_control(cuda_device, b, n, n_real):
     """fp32 K2 and K3a (the tf32 kernel, each call counted) on strided views
@@ -1733,44 +1721,6 @@ def test_tf32_backward_matches_plain_and_control(cuda_device, b, n, n_real):
         assert not got[1][:, n_real:].any() and not got[2][:, n_real:].any()
 
 
-@pytest.mark.parametrize("cfg", range(3))
-def test_tf32_forward_sweep_configurations_match_plain(cuda_device, cfg):
-    """Every configuration of the tf32 forward's sweep
-    (maest_attn_fwd_fp32_tf32: a fresh P.V sum a tile, or one running sum
-    with and without the next tile's S beside P.V) within 2e-5 of plain at
-    a ragged N and n_real, lse within 1e-4; 0 is the production route bit
-    for bit."""
-    x = _rand((2, 1000, 3, 12, 64), 121).to(cuda_device)
-    q, k, v = x.unbind(2)
-    o, lse = _tf32_fwd_cfg(cfg, q, k, v, 997, True)
-    ro, rl = attention_reference_lse(q, k, v, 997)
-    torch.cuda.synchronize()
-    assert (o - ro).abs().max().item() <= ATTN_TOL[torch.float32]
-    assert (lse - rl).abs().max().item() <= 1e-4
-    if cfg == 0:
-        want, want_lse = flash_attention_fwd_lse(q, k, v, 997)
-        assert torch.equal(o, want) and torch.equal(lse, want_lse)
-
-
-@pytest.mark.parametrize("cfg", range(2))
-def test_tf32_backward_sweep_configurations_match_plain(cuda_device, cfg):
-    """Both configurations of the tf32 backward's sweep
-    (maest_attn_bwd_fp32_tf32: a fresh sum a tile, or one running sum)
-    within 2e-5 of plain at a ragged N and n_real, masked dk/dv exactly
-    zero; 0 is the production route bit for bit."""
-    x = _rand((2, 1000, 4, 12, 64), 131).to(cuda_device)
-    q, k, v, do = x.unbind(2)
-    o, lse = attention_reference_lse(q, k, v, 997)
-    got = _tf32_bwd_cfg(cfg, q, k, v, o, lse, do, 997)
-    ref = attention_bwd_reference(q, k, v, o, lse, do, 997)
-    torch.cuda.synchronize()
-    assert _bwd_gap(got, ref) <= ATTN_TOL[torch.float32]
-    assert not got[1][:, 997:].any() and not got[2][:, 997:].any()
-    if cfg == 0:
-        want = attention_bwd(q, k, v, o, lse, do, 997)
-        assert all(torch.equal(a, z) for a, z in zip(got, want))
-
-
 def test_tf32_checks_refuse_one_product(cuda_device, tmp_path):
     """The tf32 kernels built with one tf32 product (TF_3X false, a copy of
     csrc/ in a temporary directory): the checks that hold the sound kernels
@@ -1787,7 +1737,7 @@ def test_tf32_checks_refuse_one_product(cuda_device, tmp_path):
 
     src = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, src)
-    header = src / "attn_fwd_tf32.cuh"
+    header = src / "tf32_wgmma.cuh"
     text = header.read_text()
     old = "constexpr bool TF_3X = true;"
     assert text.count(old) == 1
