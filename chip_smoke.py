@@ -16,7 +16,8 @@ versions, one full-width fp32 train step against the JAX package's golden,
 the 30 s pre-training recipe step (ViT-B, batch 32, bf16 over fp32
 parameters) with its launch counters reset, and the kernels' and both
 recipe shapes' times (phases 9-12). Then the 8-bit attention modes: the
-int8 / e4m3 forward (K5, K6) against its plain version in every mode
+int8 / e4m3 forward (K5, K6; in bf16 at head_dim 64 the wgmma route of
+phase 35) against its plain version at the route's key tile in every mode
 (phase 13), the tagging path in each mode with the counters reset (14),
 the int8 backward (K7) against its plain version and against the bf16
 backward (15), the 30 s recipe step with ``attention_bwd_quant="int8"``,
@@ -107,9 +108,20 @@ two backward launches bit-equal, masked dk/dv exactly zero, the kernels
 built with one tf32 product refused (in a process of their own), then the kernels, the
 controls, plain and SDPA's efficient attention timed by CUDA-graph
 replays in interleaved rounds, and the fp32 tagging and 30 s recipe steps
-with each route in turn (34). Phase 2 also counts the wgmma and TMA
-instructions in the SASS of the wgmma kernels and checks that the
-production ones spill nothing. Every phase
+with each route in turn (34). Then K5/K6 on s8 and e4m3 ``wgmma`` and
+TMA behind one CUDA quantisation pass (``csrc/attn_fwd_q8_wgmma.cuh``,
+the route of the 8-bit modes in bf16 at head_dim 64, and so of phases 13,
+14 and 16): the pass equal to its plain version, the route against plain
+at its 128-key tile and its mma.sync control against plain at 64 keys in
+every mode with and without lse at (32, 1676), (32, 866) and (2, 300)
+n_real 290, the e4m3 overflow, the kernel built with its key mask dropped
+and the pass built rounding half away refused (each in a process of its
+own), then the route, the control and K2 timed by CUDA-graph replays in
+interleaved rounds, the pass and the kernel alone by torch.profiler, and
+the tagging step in each mode with the route and the control in turn
+(35). Phase 2 also counts the wgmma and TMA instructions in the SASS of
+the wgmma kernels and checks that the production ones spill nothing.
+Every phase
 prints one line per check; any failure raises, so the exit code is not 0.
 The card's name and power limit, the JSON record of the kernels (with each
 one's bound: the least time the card could take for its work at the
@@ -165,7 +177,7 @@ STEP_GRAD_RTOL = 1e-4          # small gradients, relative to their max
 STEP_LOGIT_TOL = 1e-4          # logits after the AdamW step (lr 1e-4)
 RECIPE = "maest_30s_from_passt_pretrain"
 Q8_MODES = ("qk8", "qk8pv8", "fp8", "fp8pv8")
-# K5/K6 vs plain on the same 64-key tiles, compared in fp32: both round
+# K5/K6 vs plain on the same key tiles, compared in fp32: both round
 # one fp32 output to bf16, and their fp32 values differ by far less than a
 # bf16 ulp (sums in another order; an exp2 ulp that flips one 8-bit p moves
 # o by ~|v| / (127 l)), so an element may round one ulp apart: the bound is
@@ -1000,19 +1012,21 @@ def _reset_counts():
 
 
 def phase_q8_kernels(dev, gpu):
-    """Phase 13: K5 (qk8, qk8pv8) and K6 (fp8, fp8pv8) against their plain
-    versions on the same 64-key tiles, with and without lse, at the tagging
-    shape, the 30 s recipe's (32, 866) (K5 with lse on the qk8 training
-    path) and (2, 300) with n_real 290. The bound is Q8_ULPS bf16 ulps of
-    the largest |o|, and each mode's kernel must miss every other mode's
-    plain version by more than it: the check tells the modes' arithmetic
-    apart. An e4m3 overflow case; times at the tagging shape: the wrapper
-    (PyTorch quantization + kernel) and the plain version with CUDA events,
-    the kernel alone from torch.profiler."""
+    """Phase 13: K5 (qk8, qk8pv8) and K6 (fp8, fp8pv8), the wgmma route in
+    bf16 at head_dim 64 (``csrc/attn_fwd_q8_wgmma.cuh``, phase 35), against
+    their plain versions on the same 128-key tiles (the route's,
+    ``q8_block_k``), with and without lse, at the tagging shape, the 30 s
+    recipe's (32, 866) (K5 with lse on the qk8 training path) and (2, 300)
+    with n_real 290. The bound is Q8_ULPS bf16 ulps of the largest |o|, and
+    each mode's kernel must miss every other mode's plain version by more
+    than it: the check tells the modes' arithmetic apart. An e4m3 overflow
+    case; times at the tagging shape: the wrapper (the CUDA quantisation
+    pass + kernel) and the plain version with CUDA events, the pass and the
+    kernel alone from torch.profiler."""
     from maest_tpu_torch.ops import attention as A
 
     rng = np.random.default_rng(5)
-    err = {"int8": 0.0, "fp8": 0.0}
+    err = dict.fromkeys(Q8_MODES, 0.0)
     times = {}
     for b, n, n_real in ((BATCH, 1676, None), (BATCH, 866, None),
                          (2, 300, 290)):
@@ -1043,7 +1057,7 @@ def phase_q8_kernels(dev, gpu):
             check(apart > tol, f"{mode} ({b}, {n}) kernel within {apart} of "
                   f"{other}'s plain version: the bound {tol} cannot tell them "
                   "apart")
-            err[kind] = max(err[kind], e, el)
+            err[mode] = max(err[mode], e, el)
             line = (f"phase 13 {'K5' if kind == 'int8' else 'K6'} {mode}: "
                     f"({b}, {n}, 12, 64) n_real {n_real} bf16 max_abs_err o "
                     f"{e:.3e} <= {tol:.3e} ({Q8_ULPS} bf16 ulps of max|o|), "
@@ -1055,10 +1069,10 @@ def phase_q8_kernels(dev, gpu):
                     cuda_ms(lambda: A.attention_q8_reference(
                         q, k, v, n_real, mode), 3))
                 alone = _kernel_ms(lambda: wrap(q, k, v, n_real, pv8),
-                                   "attn_fwd_q8_kernel")
-                line += (f"; time: kernel with its quantization "
+                                   "fwd_q8w")
+                line += (f"; time: kernel with its quantisation pass "
                          f"{times[mode][0]:.4f} ms, plain {times[mode][1]:.4f}"
-                         f" ms, kernel alone (torch.profiler) "
+                         f" ms, pass and kernel alone (torch.profiler) "
                          f"{_fmt_ms(alone)} [{gpu}]")
             print(line, flush=True)
             del o, o2, lse
@@ -1083,23 +1097,24 @@ def phase_q8_kernels(dev, gpu):
     print("phase 13 K6 e4m3 overflow: q 470 and k -600 give NaN in the rows "
           "they reach, as the plain version (and the JAX package's cast) "
           f"does, and values within {Q8_ULPS} bf16 ulps elsewhere", flush=True)
-    return {"err_int8": err["int8"], "err_fp8": err["fp8"],
-            "qk8": times["qk8"], "fp8": times["fp8"]}
+    return {"err": err, "qk8": times["qk8"], "fp8": times["fp8"]}
 
 
 def phase_q8_tagging(dev, sd, gpu):
     """Phase 14: the tagging path in each 8-bit mode: get_maest with
     attention_quant on phase 5's weights, bf16, predict_labels on 32 clips
-    of 30 s with the counters reset; 12 launches of the mode's kernel and
-    none of K2; activations within TIER_TOL of the unquantized bf16
-    model's; the batch-32 step time."""
+    of 30 s with the counters reset; 12 launches of the mode's kernel (the
+    wgmma route) and none of K2 or of the route's control; activations
+    within TIER_TOL of the unquantized bf16 model's; the batch-32 step
+    time. Returns the launches of each mode's entry."""
     from maest_tpu_torch import get_maest
+    from maest_tpu_torch.ops.attention import attention_fwd_q8_mma
     from maest_tpu_torch.serve import BucketPrograms
 
     rng = np.random.default_rng(6)
     waves = rng.standard_normal((BATCH, CLIP)).astype(np.float32) * 0.1
     waves_dev = torch.from_numpy(waves).to(dev)
-    launches = {"int8": 0, "fp8": 0}
+    launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = str(Path(tmp) / "random-vitb.pt")
         torch.save(sd, ckpt)
@@ -1113,14 +1128,17 @@ def phase_q8_tagging(dev, sd, gpu):
         for mode in Q8_MODES:
             model = get_maest(ARCH, attention_quant=mode, **kw)
             _reset_counts()
+            attention_fwd_q8_mma.launches = 0
             acts = model.predict_labels(waves)[0]
             torch.cuda.synchronize()
             fns, counts = _q8_counts()
             kind = "int8" if mode.startswith("qk8") else "fp8"
             want = [0, 0, 0, 12 if kind == "int8" else 0,
                     12 if kind == "fp8" else 0, 0]
-            check(counts == want, f"{mode} tagging launches {counts}")
-            launches[kind] += counts[3] + counts[4]
+            check(counts == want and attention_fwd_q8_mma.launches == 0,
+                  f"{mode} tagging launches {counts}, control "
+                  f"{attention_fwd_q8_mma.launches}")
+            launches[mode] = counts[3] + counts[4]
             clips = per_clip(model)
             err = float(np.abs(clips - ref).max())
             check(acts.shape == (400,) and bool(np.isfinite(clips).all())
@@ -1132,7 +1150,8 @@ def phase_q8_tagging(dev, sd, gpu):
             print(f"phase 14 tagging {mode}: get_maest(attention_quant="
                   f"{mode!r}) bf16 predict_labels on {BATCH} clips of 30 s: "
                   f"launches {'K5' if kind == 'int8' else 'K6'} "
-                  f"{counts[3] + counts[4]}, K2 {counts[0]}; per-clip "
+                  f"{counts[3] + counts[4]}, K2 {counts[0]}, the control "
+                  f"{attention_fwd_q8_mma.launches}; per-clip "
                   f"activations vs the unquantized bf16 model max_abs_err "
                   f"{err:.3e} <= "
                   f"{TIER_TOL}; batch-{BATCH} step {step:.3f} ms = "
@@ -4121,6 +4140,389 @@ def phase_yardsticks(dev, gpu):
     return out
 
 
+# phase 35's planted faults, each in a process of its own: the wgmma
+# 8-bit forward's key mask dropped (the keys from n_real on, and the zero
+# codes of the padded keys past N, take softmax mass), and the pass's int8
+# codes rounded half away from zero in place of half to even
+PLANT_Q8W_NO_MASK = (
+    "            if (base + nt * 8 + 2 * t + (e & 1) >= n_real) s[nt][e] = NEG_INF;",
+    "            (void)e;")
+PLANT_Q8W_HALF_AWAY = (
+    "  return static_cast<uint32_t>(__float2int_rn(__fdiv_rn(x, s))) & 0xffu;",
+    "  return static_cast<uint32_t>(static_cast<int>(roundf(__fdiv_rn(x, s)))) "
+    "& 0xffu;")
+# phase 35's checked shapes: the tagging step's, the 30 s recipe's with
+# lse (the qk8 training forward), and a short one with n_real < N
+Q8W_SHAPES = ((BATCH, 1676, None, False), (BATCH, 866, None, True),
+              (2, 300, 290, True))
+
+
+def build_planted_q8w_no_mask() -> tuple[Path, float]:
+    """``csrc/attention_fwd_q8.cu`` with the wgmma 8-bit forward's key mask
+    dropped (phase 35 shows its check refusing the kernel so built)."""
+    return _build_planted("q8w_no_mask", "attention_fwd_q8",
+                          "attn_fwd_q8_wgmma.cuh", PLANT_Q8W_NO_MASK)
+
+
+def build_planted_q8w_half_away() -> tuple[Path, float]:
+    """``csrc/attention_fwd_q8.cu`` with the pass's int8 codes rounded half
+    away from zero (phase 35 shows its check refusing the pass so built)."""
+    return _build_planted("q8w_half_away", "attention_fwd_q8",
+                          "attn_fwd_q8_wgmma.cuh", PLANT_Q8W_HALF_AWAY)
+
+
+def sass_kinds(path: Path, pattern: str) -> dict:
+    """{kernel: {IGMMA, QGMMA, HGMMA, UTMALDG, instructions}} of the kernels
+    of a built library whose mangled name holds ``pattern``, from
+    ``cuobjdump -sass``: wgmma on s8 (IGMMA), e4m3 (QGMMA) and 16-bit
+    (HGMMA) operands, TMA loads, all instructions; the names demangled by
+    cu++filt where it runs."""
+    sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
+                           str(path)], capture_output=True, text=True,
+                          timeout=600, check=True).stdout
+    keys = ("IGMMA", "QGMMA", "HGMMA", "UTMALDG")
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if pattern in m.group(1) else None
+            if name:
+                counts[name] = dict.fromkeys(keys + ("instructions",), 0)
+            continue
+        if name and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            counts[name]["instructions"] += 1
+            for key in keys:
+                counts[name][key] += key in line
+    names = list(counts)
+    try:
+        plain = subprocess.run(
+            ["/usr/local/cuda/bin/cu++filt"], input="\n".join(names),
+            capture_output=True, text=True, check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        plain = names
+    return {re.sub(r"\([\w: ]+\)(?=[-\w])", "", p).split("(")[0]
+            .removeprefix("void "): counts[n] for n, p in zip(names, plain)}
+
+
+def _q8_wrap(mode):
+    from maest_tpu_torch.ops import attention as A
+
+    return A.attention_fwd_int8 if mode.startswith("qk8") else \
+        A.attention_fwd_fp8
+
+
+def _q8_same(got: dict, ref: dict) -> dict:
+    """{output of the pass: its elements that differ from the plain
+    version's} (NaN equal to NaN; None where neither has the output)."""
+    out = {}
+    for key, r in ref.items():
+        g = got[key]
+        if r is None or g is None:
+            out[key] = None if r is None and g is None else -1
+            continue
+        if r.dtype == torch.uint8 and key in ("q8", "k8", "v8t"):
+            out[key] = int((g != r).sum())
+        else:
+            diff = (g != r) & ~(torch.isnan(g) & torch.isnan(r))
+            out[key] = int(diff.sum())
+    return out
+
+
+def _q8w_tie_inputs(dev):
+    """(2, 300, 3, 12, 64) bf16 q/k/v of multiples of 0.5 in [-63.5, 63.5]
+    with 127 in column 0 of every q and k row and in row 0 of v: every
+    int8 scale is 127 / 127 = 1 exactly, so x / s = x and every odd
+    multiple of 0.5 is a tie of the int8 rounding."""
+    gen = torch.Generator(device=dev).manual_seed(35)
+    x = (torch.randint(-127, 128, (2, 300, 3, 12, 64), generator=gen,
+                       device=dev) * 0.5).to(torch.bfloat16)
+    x[:, :, :2, :, 0] = 127.0
+    x[:, 0, 2] = 127.0
+    return x
+
+
+def _q8w_planted(lib: Path, what: str) -> dict:
+    """Run a planted copy of the 8-bit forward library ``lib`` in a process
+    of its own (as ``_planted_err``). ``what`` "mask": max|o - plain| /
+    the Q8_ULPS bound of each mode at (2, 300, 12, 64) n_real 290 (normal
+    draws); "ties": each int8 mode's codes that differ from the pass's
+    plain version on ``_q8w_tie_inputs``, and max|o - plain| / bound."""
+    code = (
+        "import ctypes, json, sys, numpy as np, torch\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import chip_smoke as C\n"
+        "from maest_tpu_torch.ops import _build, attention as A\n"
+        f"_build._libs['attention_fwd_q8'] = ctypes.CDLL({str(lib)!r})\n"
+        f"print(json.dumps(C._q8w_gaps({what!r})))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=ROOT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the planted fault's process failed:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _q8w_gaps(what: str) -> dict:
+    """``_q8w_planted``'s measurement in this process, on whatever library
+    ``attention_fwd_q8`` it has loaded: {mode: [differing codes, max|o -
+    plain| / bound]}."""
+    from maest_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    if what == "ties":
+        x, n_real, modes = _q8w_tie_inputs(dev), None, ("qk8", "qk8pv8")
+    else:
+        gen = torch.Generator(device=dev).manual_seed(36)
+        x = torch.randn((2, 300, 3, 12, 64), generator=gen, device=dev).to(
+            torch.bfloat16)
+        n_real, modes = 290, Q8_MODES
+    q, k, v = x.unbind(2)
+    out = {}
+    for mode in modes:
+        b8, sc = A.launch_q8_pass(q, k, v, mode)
+        diff = _q8_same(A.q8_pass_views(b8, sc, 2, 300, 12, mode),
+                        A.q8_pass_reference(q, k, v, mode))
+        o, _ = _q8_wrap(mode)(q, k, v, n_real, mode.endswith("pv8"))
+        ro, _ = A.attention_q8_reference(q, k, v, n_real, mode)
+        tol = Q8_ULPS * bf16_ulp(ro.float().abs().max().item())
+        out[mode] = [sum(n for n in diff.values() if n), max_err(o, ro) / tol]
+    return out
+
+
+def _q8_shrink(o, ref) -> float:
+    """The route's systematic scale against its plain version: sum(o r) /
+    sum(r r) - 1 in float64 (negative where the sums shrink o)."""
+    o, ref = o.double().flatten(), ref.double().flatten()
+    return (o @ ref / (ref @ ref) - 1.0).item()
+
+
+def phase_q8_wgmma(dev, gpu, sd, planted):
+    """Phase 35: K5/K6 on wgmma and TMA (``csrc/attn_fwd_q8_wgmma.cuh``,
+    the route of the 8-bit modes in bf16 at head_dim 64, behind its CUDA
+    quantisation pass). At Q8W_SHAPES, in every mode: the pass (entry
+    ``maest_attn_fwd_q8w_pass``) equal to its plain version
+    (``q8_pass_reference``: codes, scales, the transposed v8 in seq_pos
+    order), the route with and without lse within Q8_ULPS bf16 ulps of
+    max|o| of its plain version at the route's 128-key tile (lse within
+    LSE_TOL) and farther than that from every other mode's, its mma.sync
+    control (``attention_fwd_q8_mma``) within the same bound of the plain
+    version at its 64-key tile, each counter checked, and o's systematic
+    scale against plain; the e4m3 overflow (450 and 464 -> 448, 466 and
+    past -> NaN) in the pass and the output. The kernel built with its key
+    mask dropped, and the pass built rounding half away from zero, refused
+    (each in a process of its own). Then at (32, 1676) CUDA-graph replays
+    of the route, the control and K2 in WG_ROUNDS interleaved rounds,
+    every round printed, the pass and the kernel alone by torch.profiler
+    and the plain version's time; and phase 14's tagging step (B32, 30 s,
+    bf16) in every mode with the route and with the control in turn
+    (private hook ``ops.attention._Q8_CONTROL``), CUDA events over 3 steps
+    a round after one, the counters checked on each. Returns the errors,
+    the medians and the launches."""
+    from maest_tpu_torch import get_maest
+    from maest_tpu_torch.ops import attention as A
+    from maest_tpu_torch.probes.attn_profile import graph_ms
+    from maest_tpu_torch.serve import BucketPrograms
+
+    rng = np.random.default_rng(35)
+    out = {"err": dict.fromkeys(Q8_MODES, 0.0),
+           "err_control": dict.fromkeys(Q8_MODES, 0.0), "ms": {},
+           "launches": {}}
+    for b, n, n_real, lse in Q8W_SHAPES:
+        qkv = torch.from_numpy(rng.standard_normal(
+            (b, n, 3, 12, 64)).astype(np.float32)).to(dev, torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+        plain = {m: A.attention_q8_reference(q, k, v, n_real, m)
+                 for m in Q8_MODES}
+        for mode in Q8_MODES:
+            wrap, pv8 = _q8_wrap(mode), mode.endswith("pv8")
+            b8, sc = A.launch_q8_pass(q, k, v, mode)
+            diff = _q8_same(A.q8_pass_views(b8, sc, b, n, 12, mode),
+                            A.q8_pass_reference(q, k, v, mode))
+            del b8, sc
+            before = (wrap.launches, A.attention_fwd_q8_mma.launches)
+            o, none = wrap(q, k, v, n_real, pv8)
+            o2, lse_o = wrap(q, k, v, n_real, pv8, with_lse=True)
+            co, clse = A.attention_fwd_q8_mma(q, k, v, n_real, mode,
+                                              with_lse=True)
+            ro, rlse = plain[mode]
+            r64, rl64 = A.attention_q8_reference(q, k, v, n_real, mode,
+                                                 A.Q8_BLOCK_K)
+            torch.cuda.synchronize()
+            check((wrap.launches, A.attention_fwd_q8_mma.launches) == (
+                before[0] + 2, before[1] + 1) and none is None,
+                f"{mode} route and control counters")
+            check(not any(diff.values()), f"{mode} ({b}, {n}) pass vs plain "
+                  f"{diff}")
+            tol = Q8_ULPS * bf16_ulp(ro.float().abs().max().item())
+            e = max(max_err(o, ro), max_err(o2, ro))
+            el = max_err(lse_o, rlse)
+            tol64 = Q8_ULPS * bf16_ulp(r64.float().abs().max().item())
+            ec, ecl = max_err(co, r64), max_err(clse, rl64)
+            other, apart = min(((m, max_err(o, plain[m][0]))
+                                for m in Q8_MODES if m != mode),
+                               key=lambda x: x[1])
+            check(e <= tol and el <= LSE_TOL, f"wgmma {mode} ({b}, {n}) err "
+                  f"o {e} (bound {tol}) lse {el}")
+            check(apart > tol, f"wgmma {mode} ({b}, {n}) within {apart} of "
+                  f"{other}'s plain version: the bound {tol} cannot tell "
+                  "them apart")
+            check(ec <= tol64 and ecl <= LSE_TOL, f"control {mode} ({b}, {n}) "
+                  f"err o {ec} (bound {tol64}) lse {ecl}")
+            out["err"][mode] = max(out["err"][mode], e, el)
+            out["err_control"][mode] = max(out["err_control"][mode], ec, ecl)
+            print(f"phase 35 wgmma {mode} ({b}, {n}, 12, 64) n_real {n_real}"
+                  f"{' (the training forward with lse)' if lse else ''}: "
+                  f"the pass equal to its plain version (codes, scales, "
+                  f"v8^T in seq_pos order); o vs plain at the 128-key tile "
+                  f"{e:.3e} <= {tol:.3e} ({Q8_ULPS} bf16 ulps of max|o|), "
+                  f"lse {el:.3e} <= {LSE_TOL}; vs the nearest other mode's "
+                  f"plain version ({other}) {apart:.3e}; o's scale vs plain "
+                  f"{_q8_shrink(o, ro):+.2e}; the control vs plain at the "
+                  f"64-key tile o {ec:.3e} <= {tol64:.3e}, lse {ecl:.3e}",
+                  flush=True)
+            del o, o2, lse_o, co, clse, r64, rl64
+        del qkv, q, k, v, plain
+        torch.cuda.empty_cache()
+
+    # e4m3 overflow: past 464 NaN, (448, 464] to 448, as the JAX cast
+    qkv = torch.from_numpy(rng.standard_normal((1, 130, 3, 2, 64)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    qkv[0, 5, 0, 0, 3] = 470.0    # q: row 5 of head 0
+    qkv[0, 9, 1, 1, 7] = -600.0   # k: key 9 of head 1, every row of it
+    qkv[0, 20, 0, 1, 2] = 450.0   # 448 in q, k and v
+    qkv[0, 21, 1, 0, 2] = 464.0
+    qkv[0, 22, 2, 0, 2] = -464.0
+    qkv[0, 23, 2, 1, 4] = 466.0   # v: NaN in column 4 of head 1
+    q, k, v = qkv.unbind(2)
+    for mode in ("fp8", "fp8pv8"):
+        b8, sc = A.launch_q8_pass(q, k, v, mode)
+        got = A.q8_pass_views(b8, sc, 1, 130, 2, mode)
+        diff = _q8_same(got, A.q8_pass_reference(q, k, v, mode))
+        q8, k8 = got["q8"].float(), got["k8"].float()  # e4m3 values
+        check(not any(diff.values()) and q8[1, 20, 2].item() == 448.0
+              and k8[0, 21, 2].item() == 448.0 and bool(torch.isnan(
+                  q8[0, 5, 3])) and bool(torch.isnan(k8[1, 9, 7])),
+              f"{mode} overflow pass {diff}")
+        o, _ = A.attention_fwd_fp8(q, k, v, None, mode == "fp8pv8")
+        ro, _ = A.attention_q8_reference(q, k, v, None, mode)
+        nan = torch.isnan(o)
+        check(torch.equal(nan, torch.isnan(ro)) and bool(nan[0, 5, 0].all())
+              and bool(nan[:, :, 1].all()) and not bool(nan[0, 6, 0].any()),
+              f"wgmma {mode} overflow NaN pattern")
+        tol = Q8_ULPS * bf16_ulp(ro[~nan].float().abs().max().item())
+        check(max_err(o[~nan], ro[~nan]) <= tol, f"wgmma {mode} overflow err")
+    print("phase 35 wgmma K6 e4m3 overflow: the pass writes 448 for 450 and "
+          "464 and NaN past 464 (470, -600, 466), as the plain version (the "
+          "JAX package's cast) does; q 470 and k -600 give NaN in the rows "
+          f"they reach, and values within {Q8_ULPS} bf16 ulps elsewhere",
+          flush=True)
+    del qkv, q, k, v
+
+    mask = _q8w_planted(planted["no_mask"], "mask")
+    check(all(r > 1 for _, r in mask.values()), f"planted no mask {mask}")
+    ties = _q8w_planted(planted["half_away"], "ties")
+    good = _q8w_gaps("ties")
+    check(all(c > 0 for c, _ in ties.values()) and not any(
+        c for c, _ in good.values()), f"planted half-away {ties}, good {good}")
+    print("phase 35 planted faults, each in a process of its own: the kernel "
+          "built with its key mask dropped, at (2, 300, 12, 64) n_real 290, "
+          "max|o - plain| in units of the bound " + ", ".join(
+              f"{m} {r:.1f}" for m, (_, r) in mask.items())
+          + " > 1: refused; the pass built rounding half away from zero, on "
+          "inputs whose int8 scales are 1 (ties at every odd multiple of "
+          "0.5), codes unequal to the plain version's " + ", ".join(
+              f"{m} {c} (o {r:.2f} of the bound)" for m, (c, r) in ties.items())
+          + " > 0: refused (the route's own pass: " + ", ".join(
+              f"{m} {c}" for m, (c, _) in good.items()) + ")", flush=True)
+
+    qkv = torch.from_numpy(rng.standard_normal(
+        (BATCH, 1676, 3, 12, 64)).astype(np.float32)).to(dev, torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    for mode in Q8_MODES:
+        wrap, pv8 = _q8_wrap(mode), mode.endswith("pv8")
+        fns = {"wgmma": lambda: wrap(q, k, v, None, pv8),
+               "control": lambda: A.attention_fwd_q8_mma(q, k, v, None, mode),
+               "K2": lambda: A.flash_attention(q, k, v)}
+        rows = {key: [] for key in fns}
+        for rnd in range(WG_ROUNDS):
+            order = list(fns) if rnd % 2 == 0 else list(fns)[::-1]
+            for key in order:
+                rows[key].append(graph_ms(fns[key], 10, dev, reps=1))
+            print(f"phase 35 {mode} ({BATCH}, 1676, 12, 64) round {rnd + 1} "
+                  "CUDA-graph ms: " + ", ".join(
+                      f"{key} {rows[key][-1]:.4f}" for key in fns)
+                  + f" [{gpu}]", flush=True)
+        med = {key: float(np.median(ms)) for key, ms in rows.items()}
+        every = all(w < c for w, c in zip(rows["wgmma"], rows["control"]))
+        split = _kernel_ms(fns["wgmma"], "fwd_q8w")
+        med["plain"] = cuda_ms(lambda: A.attention_q8_reference(
+            q, k, v, None, mode), 2)
+        out["ms"][mode] = med
+        out["split"] = {**out.get("split", {}), mode: split}
+        print(f"phase 35 {mode} ({BATCH}, 1676, 12, 64) medians: wgmma "
+              f"{med['wgmma']:.4f} ms, control {med['control']:.4f} ms "
+              f"({med['control'] / med['wgmma']:.2f}x), K2 (bf16) "
+              f"{med['K2']:.4f} ms, plain (CUDA events) {med['plain']:.4f} "
+              f"ms; the route beat the control in every round: {every}; the "
+              f"route's launches by device time (torch.profiler): "
+              f"{_fmt_ms(split)} [{gpu}]", flush=True)
+        check(every, f"the wgmma {mode} beats its control in every round")
+    del qkv, q, k, v, fns
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(6)
+    waves = torch.from_numpy(rng.standard_normal((BATCH, CLIP)).astype(
+        np.float32) * 0.1).to(dev)
+    counts = (A.attention_fwd_int8, A.attention_fwd_fp8,
+              A.attention_fwd_q8_mma, A.flash_attention)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "random-vitb.pt")
+        torch.save(sd, ckpt)
+        for mode in Q8_MODES:
+            model = get_maest(ARCH, pretrained=False, checkpoint=ckpt,
+                              device=dev, dtype=torch.bfloat16,
+                              attention_quant=mode)
+            prog = BucketPrograms(model, buckets=(BATCH,), fused_wave=True)
+            steps = {"wgmma": [], "control": []}
+            try:
+                for rnd in range(WG_ROUNDS):
+                    order = ("wgmma", "control") if rnd % 2 == 0 else (
+                        "control", "wgmma")
+                    for route in order:
+                        A._Q8_CONTROL = route == "control"
+                        for f in counts:
+                            f.launches = 0
+                        with torch.inference_mode():
+                            steps[route].append(cuda_ms(
+                                lambda: prog._activations(waves), 3))
+                        got = tuple(f.launches for f in counts)
+                        per = 4 * 12  # 4 steps of 12 layers
+                        want = (0, 0, per, 0) if A._Q8_CONTROL else (
+                            (per, 0, 0, 0) if mode.startswith("qk8")
+                            else (0, per, 0, 0))
+                        check(got == want, f"{mode} tagging with the {route}:"
+                              f" launches {got}")
+                        out["launches"][(mode, route)] = per // 4
+            finally:
+                A._Q8_CONTROL = False
+            med = {r: float(np.median(ms)) for r, ms in steps.items()}
+            out["ms"][("tagging", mode)] = med
+            won = sum(a < c for a, c in zip(steps["wgmma"], steps["control"]))
+            print(f"phase 35 tagging {mode}: get_maest(attention_quant="
+                  f"{mode!r}) bf16, batch-{BATCH} step (CUDA events, 3 steps "
+                  f"a round) medians of {WG_ROUNDS} rounds: "
+                  f"{med['wgmma']:.3f} ms with the wgmma route, "
+                  f"{med['control']:.3f} with the control; rounds won by the "
+                  f"route {won} of {WG_ROUNDS}; rounds "
+                  + ", ".join(f"{a:.3f}/{c:.3f}" for a, c in zip(
+                      steps["wgmma"], steps["control"]))
+                  + f"; launches a step 12 of the mode's entry [{gpu}]",
+                  flush=True)
+            del model, prog
+            torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on a GPU",
@@ -4150,8 +4552,10 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = ("mel_kernel", "attention_fwd", "attention_bwd", "attention_fwd_q8",
             "attention_bwd_q8", "attention_probe", "mma_probe")
-    with ThreadPoolExecutor(len(libs) + 6) as pool:  # one nvcc per source
+    with ThreadPoolExecutor(len(libs) + 8) as pool:  # one nvcc per source
         planted = pool.submit(build_planted_to_s8)
+        q8w_no_mask = pool.submit(build_planted_q8w_no_mask)
+        q8w_half_away = pool.submit(build_planted_q8w_half_away)
         no_mask = pool.submit(build_planted_no_mask)
         bwd_no_mask = pool.submit(build_planted_bwd_no_mask)
         k7_dq = pool.submit(build_planted_k7_dq)
@@ -4163,6 +4567,7 @@ def main() -> int:
         bwd_no_mask_lib, bwd_no_mask_s = bwd_no_mask.result()
         k7_dq_lib, k7_dq_s = k7_dq.result()
         tf32_libs = (tf32_fwd.result(), tf32_bwd.result())
+        q8w_libs = (q8w_no_mask.result(), q8w_half_away.result())
     wall = time.perf_counter() - t0
     for lib in libs:
         _build.load_library(lib)
@@ -4176,8 +4581,10 @@ def main() -> int:
           f"{bwd_no_mask_s:.1f} s; phase 32's of attention_bwd_q8, the wgmma "
           f"K7's dq adds of key tile 1 dropped, {k7_dq_s:.1f} s; phase 34's "
           f"of attention_fwd and attention_bwd, one tf32 product in the tf32 "
-          f"kernels, {tf32_libs[0][1]:.1f} and {tf32_libs[1][1]:.1f} s)",
-          flush=True)
+          f"kernels, {tf32_libs[0][1]:.1f} and {tf32_libs[1][1]:.1f} s; phase "
+          f"35's of attention_fwd_q8, the wgmma 8-bit forward's key mask "
+          f"dropped and its pass rounding half away from zero, "
+          f"{q8w_libs[0][1]:.1f} and {q8w_libs[1][1]:.1f} s)", flush=True)
     for lib, (log, _) in built.items():  # empty where a build was reused
         print(f"phase 2 ptxas {lib}: " + "; ".join(ptxas_rows(log)),
               flush=True)
@@ -4252,6 +4659,33 @@ def main() -> int:
               for k, (h, t, i) in sorted(tf_sass.items()))
           + "; ptxas: " + "; ".join(tf_rows), flush=True)
 
+    # the wgmma 8-bit forwards: S on s8 (IGMMA) wgmma in the int8 modes and
+    # on bf16 (HGMMA) of the e4m3 values in the e4m3 ones, P.V on bf16 in
+    # qk8 / fp8 and on s8 or e4m3 (QGMMA) in the pv8 modes, loads on TMA;
+    # the kernels and the passes spill nothing
+    q8w_rows = [r for r in ptxas_rows(built["attention_fwd_q8"][0])
+                if "fwd_q8w" in r]
+    q8w_sass = sass_kinds(_build.build("attention_fwd_q8")[0],
+                          "attn_fwd_q8w_kernel")
+    by_mode = dict(zip(("<0>", "<1>", "<2>", "<3>"), Q8_MODES))
+    kinds = {m: next((c for k, c in q8w_sass.items() if k.endswith(t)), None)
+             for t, m in by_mode.items()}
+    want_kinds = {"qk8": ("IGMMA", "HGMMA"), "qk8pv8": ("IGMMA",),
+                  "fp8": ("HGMMA",), "fp8pv8": ("HGMMA", "QGMMA")}
+    check(all(kinds[m] is not None and kinds[m]["UTMALDG"] > 0 and all(
+        (kinds[m][g] > 0) == (g in want_kinds[m])
+        for g in ("IGMMA", "QGMMA", "HGMMA")) for m in Q8_MODES),
+        f"wgmma/TMA instructions of the wgmma 8-bit forwards {q8w_sass}")
+    check(not q8w_rows or len(q8w_rows) == 9 and all(
+        r.endswith("spills 0/0 bytes") for r in q8w_rows),
+        f"the wgmma 8-bit forwards spill: {q8w_rows}")
+    print("phase 2 SASS of the wgmma 8-bit forwards (IGMMA = s8 wgmma, "
+          "QGMMA = e4m3 wgmma, HGMMA = bf16 wgmma, UTMALDG = TMA load): "
+          + "; ".join(f"{m}: " + ", ".join(f"{c[g]} {g}" for g in (
+              "IGMMA", "QGMMA", "HGMMA", "UTMALDG")) + f" of "
+              f"{c['instructions']} instructions" for m, c in kinds.items())
+          + "; ptxas: " + "; ".join(q8w_rows), flush=True)
+
     mel_err, attn_err = phase_kernels_vs_plain(dev)
     sd = phase_golden(dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -4287,6 +4721,8 @@ def main() -> int:
     k7w = phase_k7_wgmma(dev, gpu, k7_dq_lib)
     phase_yardsticks(dev, gpu)
     tf = phase_tf32(dev, gpu, [p for p, _ in tf32_libs])
+    q8w = phase_q8_wgmma(dev, gpu, sd, {"no_mask": q8w_libs[0][0],
+                                        "half_away": q8w_libs[1][0]})
 
     frames = BATCH * 1876  # frames of 32 clips of 30 s
     mel_ops = frames * (512 + 4 * 512 * 257 + 3 * 257 + 2 * 257 * 96 + 96)
@@ -4297,6 +4733,8 @@ def main() -> int:
         "bwd": bwd_bound(BATCH, 866, 12),
         "qk8": attn_bound(BATCH, 1676, 12, qk="int8"),
         "fp8": attn_bound(BATCH, 1676, 12, qk="fp8"),
+        "qk8pv8": attn_bound(BATCH, 1676, 12, qk="int8", pv="int8"),
+        "fp8pv8": attn_bound(BATCH, 1676, 12, qk="fp8", pv="fp8"),
         "k7": bwd_bound(BATCH, 866, 12, kind="int8"),
         "k4": bwd_bound(2, 4500, 12, 4400),
         "int8_rig": attn_bound(BATCH, 1676, 12, qk="int8", pv="int8", elem=4),
@@ -4357,12 +4795,6 @@ def main() -> int:
          "maest_tpu/ops/attention.py:483", train_launches["bwd"],
          max(train_err[w] for w in ("dq", "dk", "dv")), tt["bwd"], "bwd",
          lib["bwd"]),
-        ("attention_fwd_int8", "attention_fwd_q8.cu",
-         "maest_tpu/ops/attention.py:140", q8_launches["int8"], q8["err_int8"],
-         q8["qk8"], "qk8", None),
-        ("attention_fwd_fp8", "attention_fwd_q8.cu",
-         "maest_tpu/ops/attention.py:390", q8_launches["fp8"], q8["err_fp8"],
-         q8["fp8"], "fp8", None),
         ("attention_bwd_int8", "attn_bwd_q8_wgmma.cuh",
          "maest_tpu/ops/attention.py:530", k7_launches, k7["err"], k7["ms"],
          "k7", None),
@@ -4610,6 +5042,30 @@ def main() -> int:
          (m_["K3b"]["control"], m_["K3b"]["plain"]), "bwd_fp32",
          m_["K3b"]["sdpa"]),
     ]
+    # K5/K6 on wgmma (phase 35: launches on phase 14's tagging steps, each
+    # mode's largest error of phases 13 and 35, CUDA-graph medians at (32,
+    # 1676) with the pass, plain's by CUDA events) and their mma.sync
+    # control (launches on phase 35's control tagging steps); no PyTorch
+    # call multiplies 8-bit operands
+    print("kernels line: attention_fwd_int8 (qk8), attention_fwd_int8_pv8 "
+          "(qk8pv8), attention_fwd_fp8 (fp8) and attention_fwd_fp8_pv8 "
+          "(fp8pv8) are the wgmma route with its CUDA pass; the *_mma rows "
+          "their mma.sync control with the PyTorch quantisation; phase 35's "
+          "CUDA-graph medians at (32, 1676), launches on phase 14's and "
+          "phase 35's tagging steps", flush=True)
+    q8_rows = {"qk8": "attention_fwd_int8", "qk8pv8": "attention_fwd_int8_pv8",
+               "fp8": "attention_fwd_fp8", "fp8pv8": "attention_fwd_fp8_pv8"}
+    for mode, row in q8_rows.items():
+        rep_line = ("maest_tpu/ops/attention.py:140" if mode.startswith("qk8")
+                    else "maest_tpu/ops/attention.py:390")
+        ms = q8w["ms"][mode]
+        rows += [
+            (row, "attn_fwd_q8_wgmma.cuh", rep_line, q8_launches[mode],
+             max(q8w["err"][mode], q8["err"][mode]),
+             (ms["wgmma"], ms["plain"]), mode, None),
+            (row + "_mma", "attn_fwd_q8.cuh", rep_line,
+             q8w["launches"][(mode, "control")], q8w["err_control"][mode],
+             (ms["control"], ms["plain"]), mode, None)]
     kernels = [{"name": name, "route": "cuda", "source": src + file,
                 "replaces": rep, "launches": n, "max_abs_err": err,
                 "ms": ms[0], "plain_ms": ms[1], "bound_ms": bounds[key][0],

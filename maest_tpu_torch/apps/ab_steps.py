@@ -1,6 +1,6 @@
-"""Time the bf16 and fp32 tagging steps, the 30 s and 10 s pre-training
-recipe steps and the 30 s recipe step with the int8 attention backward of
-one or more
+"""Time the bf16 and fp32 tagging steps, the bf16 tagging step under each
+8-bit attention mode, the 30 s and 10 s pre-training recipe steps and the
+30 s recipe step with the int8 attention backward of one or more
 checkouts of this repo on one CUDA card, each run in a process of its own,
 in the order given:
 
@@ -14,8 +14,10 @@ warm-up steps; it reports the median and every reading:
 
 - tagging: ``BucketPrograms._activations`` on 32 clips of 30 s, bf16,
   random weights (wave -> mel -> ViT-B -> sigmoid, as ``chip_smoke.py``
-  phase 8 times it), and the same in fp32, ``get_maest``'s default dtype
-  (as phase 34 times it);
+  phase 8 times it), the same in fp32, ``get_maest``'s default dtype
+  (as phase 34 times it), and in bf16 with ``attention_quant`` "qk8",
+  "qk8pv8", "fp8" and "fp8pv8" (K5 / K6 in place of K2, as phase 14 times
+  them);
 - training: ``chip_smoke._recipe`` of ``maest_30s_from_passt_pretrain``
   (ViT-B, batch 32, N 866, bf16 over fp32 parameters), as phase 12, and
   of ``maest_10s_from_passt_pretrain`` (batch 100, N 281), and the 30 s
@@ -83,8 +85,18 @@ model = get_maest(cs.ARCH, pretrained=False, device=dev)  # fp32
 prog = BucketPrograms(model, buckets=(cs.BATCH,), fused_wave=True)
 with torch.inference_mode():
     tag32 = single_steps(lambda: prog._activations(waves))
-del model, prog, waves
+del model, prog
 torch.cuda.empty_cache()
+tag8 = {}
+for mode in ("qk8", "qk8pv8", "fp8", "fp8pv8"):
+    model = get_maest(cs.ARCH, pretrained=False, dtype=torch.bfloat16,
+                      device=dev, attention_quant=mode)
+    prog = BucketPrograms(model, buckets=(cs.BATCH,), fused_wave=True)
+    with torch.inference_mode():
+        tag8[mode] = single_steps(lambda: prog._activations(waves))
+    del model, prog
+    torch.cuda.empty_cache()
+del waves
 
 cfg, mcfg, net, state, step, data = cs._recipe(dev, cs.RECIPE, cs.BATCH, 2)
 gen = torch.Generator().manual_seed(2)
@@ -101,6 +113,8 @@ cfg, mcfg, net, state, step, data = cs._recipe(
 train8 = single_steps(lambda: step(state, data, gen))
 print(json.dumps({"tag_ms": tag[0], "tag_steps": tag[1],
                   "tag_fp32_ms": tag32[0], "tag_fp32_steps": tag32[1],
+                  **{f"tag_{m}_ms": t[0] for m, t in tag8.items()},
+                  **{f"tag_{m}_steps": t[1] for m, t in tag8.items()},
                   "train_ms": train[0], "train_steps": train[1],
                   "train10_ms": train10[0], "train10_steps": train10[1],
                   "train_int8_ms": train8[0], "train_int8_steps": train8[1]}))
@@ -130,7 +144,9 @@ def main(roots: list[str]) -> int:
     for row in rows:
         print(f"run {row['run']} {row['root']}: tagging batch-32 30 s bf16 "
               f"median {row['tag_ms']:.3f} ms, in fp32 {row['tag_fp32_ms']:.3f}"
-              f" ms, 30 s recipe step B32 median "
+              f" ms, in bf16 under qk8 {row['tag_qk8_ms']:.3f}, qk8pv8 "
+              f"{row['tag_qk8pv8_ms']:.3f}, fp8 {row['tag_fp8_ms']:.3f}, "
+              f"fp8pv8 {row['tag_fp8pv8_ms']:.3f} ms, 30 s recipe step B32 median "
               f"{row['train_ms']:.3f} ms, 10 s recipe step B100 median "
               f"{row['train10_ms']:.3f} ms, 30 s recipe step B32 with the int8 "
               f"backward median {row['train_int8_ms']:.3f} ms, of {STEPS} "

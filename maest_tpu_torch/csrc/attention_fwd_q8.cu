@@ -2,13 +2,20 @@
 // any multiple of 64 above (the _dn entries): the int8 modes qk8 / qk8pv8
 // (K5) and the e4m3 modes fp8 / fp8pv8 (K6).
 //
+// The bf16 entries at head_dim 64 (maest_attn_fwd_qk8, _qk8pv8, _fp8,
+// _fp8pv8: the route of the port's tagging and training paths) run the
+// wgmma / TMA kernel of attn_fwd_q8_wgmma.cuh behind its own CUDA
+// quantisation pass, over 128-key tiles; the mma.sync kernel below stays
+// beside them as their control (the *_mma entries) and runs every other
+// instance (fp32, head_dim 128, 256 and the _dn widths).
+//
 // Replaces maest_tpu/ops/attention.py::_attn_kernel_q8 + _attn_body_q8
 // (K5, called from _flash_fwd_lse with quant "qk8" / "qk8pv8") and
 // _attn_kernel + _attn_body run on e4m3 operands (K6, quant "fp8" /
-// "fp8pv8"). As there, the quantization runs before the kernel, in
-// PyTorch (ops/attention.py, quantize_fwd_q8): per-row int8 q and k with
-// fp32 scales, the per-column int8 v scale sv, the e4m3 casts. The kernel
-// computes, per query row, over 64-key tiles:
+// "fp8pv8"). For the mma.sync instances, as there, the quantization runs
+// before the kernel, in PyTorch (ops/attention.py _launch_fwd_q8):
+// per-row int8 q and k with fp32 scales, the per-column int8 v scale sv,
+// the e4m3 casts. The kernel computes, per query row, over 64-key tiles:
 //
 //   s = (s_int * (sq * sl)) * sk       int8: exact int32 q8.k8, per-row /
 //                                      per-key scales (sl = scale log2 e)
@@ -22,7 +29,9 @@
 // with the output divided by l at the end and lse = m + log2(l) when asked
 // for (the training forward). p is rounded relative to the running max of
 // the tiles seen so far, so the result depends on the key tiling; the
-// plain version (attention_q8_reference) walks the same 64-key tiles.
+// plain version (attention_q8_reference) walks the same 64-key tiles
+// (block_k Q8_BLOCK_K) for these instances, and 128-key tiles for the
+// wgmma route's.
 //
 // What bounds it on the H100: at the tagging shape (32, 1676, 12, 64) the
 // two products take 0.209 ms at the data-sheet rates in qk8 / fp8 (8-bit
@@ -37,17 +46,19 @@
 // which bounds them as it bounds the fp32 K2 (67 TFLOP/s); qk8pv8 and
 // fp8pv8 run the bf16 instances' 8-bit products and write fp32.
 //
-// Design: the bf16 kernel's (8 warps x 16 query rows a block, key / value
-// tiles of 64 double-buffered with cp.async, the score accumulator reused
-// as the A operand of P.V in registers), with mma.sync m16n8k32 for every
-// 8-bit product. K tiles are (key, 64-byte) rows read by ldmatrix; in the
-// pv8 modes V arrives transposed, (64, N_pad) bytes with the sequence in
-// the seq_pos order of mma_8bit.cuh, so the score accumulator packs into
-// P's A fragment without a shuffle. int8 P.V sums each tile in int32 from
-// zero and adds it to the fp32 accumulator, as the TPU kernel does per key
-// block; e4m3 P.V does the same in fp32.
+// Design of the mma.sync kernel: the bf16 kernel's (8 warps x 16 query
+// rows a block, key / value tiles of 64 double-buffered with cp.async, the
+// score accumulator reused as the A operand of P.V in registers), with
+// mma.sync m16n8k32 for every 8-bit product. K tiles are (key, 64-byte)
+// rows read by ldmatrix; in the pv8 modes V arrives transposed, (64,
+// N_pad) bytes with the sequence in the seq_pos order of mma_8bit.cuh, so
+// the score accumulator packs into P's A fragment without a shuffle. int8
+// P.V sums each tile in int32 from zero and adds it to the fp32
+// accumulator, as the TPU kernel does per key block; e4m3 P.V does the
+// same in fp32.
 
 #include "attn_fwd_q8.cuh"  // the kernel template (modes QK8..FP8PV8)
+#include "attn_fwd_q8_wgmma.cuh"  // the bf16 route at head_dim 64
 
 namespace {
 
@@ -379,6 +390,74 @@ const char* maest_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// The route (bf16 at head_dim 64): q, k, v bf16 (batch, n, heads, 64) views
+// with element strides strides[0..8] and rows on 16-byte boundaries; out
+// bf16 (batch, n, heads, 64) with strides[9..11]; lse nullptr or contiguous
+// fp32 (batch, heads, n); bytes: NAME_bytes(batch, n, heads) bytes and
+// scratch: NAME_scratch(batch, n, heads) floats, both uninitialised, for
+// the pass's 8-bit copies and scales (attn_fwd_q8_wgmma.cuh). sl =
+// head_dim^-0.5 * log2(e), 1 <= n_real <= n. Launches on `stream` (qk8pv8:
+// a memset, the vmax pass, the pass, the kernel; else the pass, the
+// kernel); returns the first cudaGetLastError() that is not 0.
+#define MAEST_FWD_Q8W(NAME, MODE)                                              \
+  int NAME(const void* q, const void* k, const void* v, void* out,            \
+           float* lse, void* bytes, float* scratch, int batch, int n,         \
+           int heads, int n_real, const long long* strides, float sl,         \
+           void* stream) {                                                    \
+    return maest::launch_fwd_q8w<maest::MODE>(q, k, v, out, lse, bytes,       \
+                                              scratch, batch, n, heads,       \
+                                              n_real, strides, sl, stream);   \
+  }                                                                           \
+  long long NAME##_scratch(int batch, int n, int heads) {                     \
+    return maest::qf_scratch_floats(batch, n, heads);                         \
+  }                                                                           \
+  long long NAME##_bytes(int batch, int n, int heads) {                       \
+    return maest::qf_bytes(maest::MODE, batch, n, heads);                     \
+  }
+
+MAEST_FWD_Q8W(maest_attn_fwd_qk8, QK8)
+MAEST_FWD_Q8W(maest_attn_fwd_qk8pv8, QK8PV8)
+MAEST_FWD_Q8W(maest_attn_fwd_fp8, FP8)
+MAEST_FWD_Q8W(maest_attn_fwd_fp8pv8, FP8PV8)
+
+// The route's passes alone (mode 0 qk8, 1 qk8pv8, 2 fp8, 3 fp8pv8), with
+// the route's arguments but strides[0..8] (q, k, v): its 8-bit copies and
+// scales into bytes and scratch, as the route's kernel reads them. For
+// the checks that hold the pass to its plain version
+// (ops/attention.py q8_pass_reference) and for its timing.
+int maest_attn_fwd_q8w_pass(int mode, const void* q, const void* k,
+                            const void* v, void* bytes, float* scratch,
+                            int batch, int n, int heads,
+                            const long long* strides, float sl, void* stream) {
+  if (batch <= 0 || n <= 0) return 0;
+  const maest::Strides s[3] = {{strides[0], strides[1], strides[2]},
+                               {strides[3], strides[4], strides[5]},
+                               {strides[6], strides[7], strides[8]}};
+  const auto* q16 = static_cast<const maest::bf16*>(q);
+  const auto* k16 = static_cast<const maest::bf16*>(k);
+  const auto* v16 = static_cast<const maest::bf16*>(v);
+  auto* b8 = static_cast<uint8_t*>(bytes);
+  const cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case maest::QK8:
+      return maest::launch_fwd_q8w_pass<maest::QK8>(q16, k16, v16, b8, scratch,
+                                                    batch, n, heads, s, sl, cs);
+    case maest::QK8PV8:
+      return maest::launch_fwd_q8w_pass<maest::QK8PV8>(
+          q16, k16, v16, b8, scratch, batch, n, heads, s, sl, cs);
+    case maest::FP8:
+      return maest::launch_fwd_q8w_pass<maest::FP8>(q16, k16, v16, b8, scratch,
+                                                    batch, n, heads, s, sl, cs);
+    case maest::FP8PV8:
+      return maest::launch_fwd_q8w_pass<maest::FP8PV8>(
+          q16, k16, v16, b8, scratch, batch, n, heads, s, sl, cs);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The mma.sync kernel (the route's control at bf16 head_dim 64, the *_mma
+// entries, and every other instance):
 // q8, k8: (batch, n, heads, 64) int8 (qk8*) or e4m3 (fp8*) with element
 // strides strides[0..5] and 16-byte rows; qsl, sk: contiguous fp32
 // (batch, heads, n) of sq * sl and sk (int8 modes, else nullptr); v: the
@@ -403,10 +482,10 @@ const char* maest_cuda_error_string(int err) {
                                                 n_real, strides, sl, stream); \
   }
 
-MAEST_FWD_Q8(maest_attn_fwd_qk8, QK8, maest::bf16, 64)
-MAEST_FWD_Q8(maest_attn_fwd_qk8pv8, QK8PV8, maest::bf16, 64)
-MAEST_FWD_Q8(maest_attn_fwd_fp8, FP8, maest::bf16, 64)
-MAEST_FWD_Q8(maest_attn_fwd_fp8pv8, FP8PV8, maest::bf16, 64)
+MAEST_FWD_Q8(maest_attn_fwd_qk8_mma, QK8, maest::bf16, 64)
+MAEST_FWD_Q8(maest_attn_fwd_qk8pv8_mma, QK8PV8, maest::bf16, 64)
+MAEST_FWD_Q8(maest_attn_fwd_fp8_mma, FP8, maest::bf16, 64)
+MAEST_FWD_Q8(maest_attn_fwd_fp8pv8_mma, FP8PV8, maest::bf16, 64)
 MAEST_FWD_Q8(maest_attn_fwd_qk8_fp32, QK8, float, 64)
 MAEST_FWD_Q8(maest_attn_fwd_qk8pv8_fp32, QK8PV8, float, 64)
 MAEST_FWD_Q8(maest_attn_fwd_fp8_fp32, FP8, float, 64)

@@ -23,9 +23,12 @@ softmax scale (``pad_head_dim``). The bf16 forward at head_dim 64 runs
 the ``wgmma`` / TMA kernel (``csrc/attn_fwd_wgmma.cuh``), the bf16
 backward at head_dim 64 the one of ``csrc/attn_bwd_wgmma.cuh`` (one score
 pass per key tile and q tile), the int8 backward in bf16 at head_dim 64
-the s8 ``wgmma`` kernels of ``csrc/attn_bwd_q8_wgmma.cuh``; their
+the s8 ``wgmma`` kernels of ``csrc/attn_bwd_q8_wgmma.cuh``, and the 8-bit
+forwards in bf16 at head_dim 64 the s8 / e4m3 ``wgmma`` kernel of
+``csrc/attn_fwd_q8_wgmma.cuh`` behind its CUDA quantisation pass; their
 ``mma.sync`` controls stay as ``attention_fwd_mma``,
-``attention_bwd_mma`` and ``attention_bwd_int8_mma``. The fp32 forward
+``attention_bwd_mma``, ``attention_bwd_int8_mma`` and
+``attention_fwd_q8_mma``. The fp32 forward
 and backward at head_dim 64 run the tf32 ``wgmma`` kernels of
 ``csrc/attn_fwd_tf32.cuh`` and ``csrc/attn_bwd_tf32.cuh`` (each product
 three tf32 products of split operands, ``tf32_split``); their scalar FMA
@@ -42,8 +45,10 @@ templates in ``ops/attention_probe.py`` (``attention_probe_tile``,
 which the measurement rigs run. Two TPU blockings are semantics, not
 tuning, and are kept: the
 8-bit forward rounds p against the running max of its key blocks (the
-kernel's 64-key tile, ``Q8_BLOCK_K``), and the int8 backward's scales are
-taken over the TPU's q blocks (``bwd_q_block``).
+kernel's key tile: 128 keys, ``Q8_WG_BLOCK_K``, on the wgmma route, bf16
+at head_dim 64; 64, ``Q8_BLOCK_K``, on the mma.sync kernel, its control
+and every other instance: ``q8_block_k``), and the int8 backward's scales
+are taken over the TPU's q blocks (``bwd_q_block``).
 """
 
 from __future__ import annotations
@@ -312,7 +317,8 @@ def attention_bwd_tf32_reference(q, k, v, o, lse, do,
 
 
 # --- 8-bit modes (K5, K6, K7) ---------------------------------------------
-Q8_BLOCK_K = 64  # the 8-bit forward kernel's key tile
+Q8_BLOCK_K = 64      # the mma.sync 8-bit forward's key tile (the control's)
+Q8_WG_BLOCK_K = 128  # the wgmma 8-bit forward's (bf16 at head_dim 64)
 _EPS = 1e-30     # scale floor: all-zero rows and heads stay finite
 # |x| above 464 rounds past e4m3's largest finite value (448, ties to even)
 _E4M3_OVERFLOW = 464.0
@@ -364,16 +370,29 @@ def _heads(*ts):
     return [t.transpose(1, 2) for t in ts]  # (B, N, H, D) -> (B, H, N, D)
 
 
+def q8_block_k(q: torch.Tensor) -> int:
+    """The key tile of the 8-bit forward kernel that q's route runs, and so
+    the ``block_k`` of its plain version: ``Q8_WG_BLOCK_K`` (128, the JAX
+    kernel's own floor, ``_pick_block``) for bf16 at head_dim 64 (or less,
+    zero-padded to 64), the wgmma route; ``Q8_BLOCK_K`` (64) for every other
+    instance, the mma.sync kernel's. The route's control
+    (``attention_fwd_q8_mma``) keeps 64 at bf16 head_dim 64 too."""
+    wg = q.dtype == torch.bfloat16 and padded_dim(q.shape[-1]) == HEAD_DIM
+    return Q8_WG_BLOCK_K if wg else Q8_BLOCK_K
+
+
 def attention_q8_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            n_real: int | None = None, quant: str = "qk8",
-                           block_k: int = Q8_BLOCK_K,
+                           block_k: int | None = None,
                            scale: float | None = None):
     """Plain PyTorch forward of an 8-bit mode on (B, N, H, D): (o, lse).
 
     The arithmetic of ``_attn_body_q8`` ("qk8", "qk8pv8") and of
     ``_attn_body`` on e4m3 operands ("fp8", "fp8pv8"), walked over key
-    blocks of ``block_k``: p is taken against the running max of the blocks
-    seen so far, so its 8-bit (or bf16) rounding depends on the blocks.
+    blocks of ``block_k`` (by default ``q8_block_k(q)``, the tile of the
+    kernel q's route runs): p is taken against the running max of the
+    blocks seen so far, so its 8-bit (or bf16) rounding depends on the
+    blocks.
     int8 products are integers, summed exactly in float64 (|sum| < 2^24,
     so the fp32 value is the TPU's int32 one); e4m3 products are exact in
     fp32 (4-bit mantissas), so those run in fp32 and round only in the
@@ -382,6 +401,8 @@ def attention_q8_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"unknown attention quant mode {quant!r}")
     b, n, h, d = q.shape
     nr = n if n_real is None else n_real
+    if block_k is None:
+        block_k = q8_block_k(q)
     sl = _scale(q, scale) * _LOG2E
     qh, kh, vh = _heads(q, k, v)
     int8 = quant in ("qk8", "qk8pv8")
@@ -424,6 +445,79 @@ def attention_q8_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * _div(sv, 127.0)[:, :, None]
     o = (acc / l).transpose(1, 2).to(q.dtype)
     return o, (m + torch.log2(l))[..., 0]
+
+
+def q8_n_pad(n: int) -> int:
+    """N_pad of the wgmma 8-bit forward's copies: whole 128-key tiles."""
+    return -(-n // Q8_WG_BLOCK_K) * Q8_WG_BLOCK_K
+
+
+def q8_pass_reference(q, k, v, quant: str, scale: float | None = None):
+    """Plain version of the wgmma 8-bit forward's quantisation pass
+    (``csrc/attn_fwd_q8_wgmma.cuh``) on (B, N, H, 64) q, k, v: what it
+    writes, as a dict of (B H, ...) tensors, N_pad = ``q8_n_pad(N)``:
+
+    * ``q8``, ``k8`` (B H, N_pad, 64): the int8 codes of ``quantize_rows``
+      as uint8 ("qk8", "qk8pv8"), or the values of ``to_e4m3`` as bf16
+      ("fp8", "fp8pv8": the kernel multiplies them on bf16 tensor cores,
+      whose fp32 sums hold the plain version's bounds where e4m3 ones do
+      not), zeros past N;
+    * ``qsl``, ``sk`` (B H, N_pad) fp32, int8 modes: the rows' scales, q's
+      times scale log2(e), zeros past N (``None`` in the e4m3 modes);
+    * ``vmax`` (B H, 64) fp32, "qk8pv8": max|v| per (head, column);
+    * ``v8t`` (B H, 64, N_pad) uint8, pv8 modes: v's int8 codes (scale
+      max(vmax, 1e-30) / 127 a column) or e4m3 bytes, transposed, row r of
+      the sequence at ``seq_pos(r)``, zeros past N.
+
+    The e4m3 NaN of an overflow is 0x7f; compare NaN as NaN."""
+    b, n, h, d = q.shape
+    n_pad = q8_n_pad(n)
+    sl = _scale(q, scale) * _LOG2E
+    qh, kh, vh = (t.reshape(b * h, n, d) for t in _heads(q, k, v))
+    pad = (0, 0, 0, n_pad - n)
+    out = {"qsl": None, "sk": None, "vmax": None, "v8t": None}
+    if quant in ("qk8", "qk8pv8"):
+        (q8, sq), (k8, sk) = quantize_rows(qh), quantize_rows(kh)
+        out["qsl"] = F.pad(sq * sl, (0, n_pad - n))
+        out["sk"] = F.pad(sk, (0, n_pad - n))
+        q8, k8 = q8.view(torch.uint8), k8.view(torch.uint8)
+    else:
+        q8, k8 = (to_e4m3(t).to(torch.bfloat16) for t in (qh, kh))
+    out["q8"], out["k8"] = F.pad(q8, pad), F.pad(k8, pad)
+    if quant == "qk8pv8":
+        vmax = vh.float().abs().amax(dim=1)
+        sv = _div(torch.clamp_min(vmax, _EPS), 127.0)
+        v8 = torch.round(vh.float() / sv[:, None]).to(torch.int8)
+        out["vmax"] = vmax
+    elif quant == "fp8pv8":
+        v8 = to_e4m3(vh)
+    if quant.endswith("pv8"):
+        out["v8t"] = _by_position(v8.view(torch.uint8), n_pad)
+    return out
+
+
+def q8_pass_views(bytes8, scratch, b: int, n: int, h: int, quant: str):
+    """The wgmma 8-bit forward's pass outputs, its byte and float scratch
+    as the route allocates them (``maest_attn_fwd_<quant>_bytes`` /
+    ``_scratch``), viewed as ``q8_pass_reference`` returns them."""
+    bh, n_pad = b * h, q8_n_pad(n)
+    int8 = quant in ("qk8", "qk8pv8")
+    plane = bh * n_pad * 64 * (1 if int8 else 2)  # bytes of q8, k8
+    u8 = bytes8.view(torch.uint8)
+    qk = (lambda x: x) if int8 else (lambda x: x.view(torch.bfloat16))
+    out = {"q8": qk(u8[:plane]).view(bh, n_pad, 64),
+           "k8": qk(u8[plane:2 * plane]).view(bh, n_pad, 64),
+           "qsl": None, "sk": None, "vmax": None, "v8t": None}
+    if int8:
+        out["qsl"] = scratch[:bh * n_pad].view(bh, n_pad)
+        out["sk"] = scratch[bh * n_pad:2 * bh * n_pad].view(bh, n_pad)
+    if quant == "qk8pv8":
+        out["vmax"] = scratch[2 * bh * n_pad:2 * bh * n_pad + bh * 64].view(
+            bh, 64)
+    if quant.endswith("pv8"):
+        out["v8t"] = u8[2 * plane:2 * plane + bh * 64 * n_pad].view(
+            bh, 64, n_pad)
+    return out
 
 
 # The TPU's int8 backward is full-K only; past this n_pad its caller runs
@@ -759,8 +853,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches`` (K3a), ``attention_bwd.launches`` (K3b/K4),
     ``attention_fwd_int8.launches`` (K5), ``attention_fwd_fp8.launches``
     (K6) and ``attention_bwd_int8.launches`` (K7); the controls in
-    ``attention_fwd_mma.launches``, ``attention_bwd_mma.launches`` and
-    ``attention_bwd_int8_mma.launches``."""
+    ``attention_fwd_mma.launches``, ``attention_bwd_mma.launches``,
+    ``attention_bwd_int8_mma.launches`` and
+    ``attention_fwd_q8_mma.launches``."""
     n_real, quant, bwd_quant = _check_args(q, k, v, n_real, quant, bwd_quant)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -873,8 +968,11 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
 def attention_fwd_int8(q, k, v, n_real: int | None = None, pv8: bool = False,
                        with_lse: bool = False):
     """The int8 forward (K5): "qk8", or "qk8pv8" with ``pv8``; (o, lse or
-    None). CUDA tensors launch ``csrc/attention_fwd_q8.cu`` (bf16, or its
-    fp32 instances), CPU tensors run ``attention_q8_reference``."""
+    None). CUDA tensors launch ``csrc/attention_fwd_q8.cu`` (in bf16 at
+    head_dim 64 its wgmma route, ``csrc/attn_fwd_q8_wgmma.cuh``: the CUDA
+    quantisation pass, then the kernel over 128-key tiles; the mma.sync
+    instances otherwise), CPU tensors run ``attention_q8_reference`` at the
+    route's tile (``q8_block_k``)."""
     return _fwd_q8(attention_fwd_int8, "qk8pv8" if pv8 else "qk8", q, k, v,
                    n_real, with_lse)
 
@@ -882,8 +980,10 @@ def attention_fwd_int8(q, k, v, n_real: int | None = None, pv8: bool = False,
 def attention_fwd_fp8(q, k, v, n_real: int | None = None, pv8: bool = False,
                       with_lse: bool = False):
     """The e4m3 forward (K6): "fp8", or "fp8pv8" with ``pv8``; (o, lse or
-    None). CUDA tensors launch ``csrc/attention_fwd_q8.cu`` (bf16, or its
-    fp32 instances), CPU tensors run ``attention_q8_reference``."""
+    None). CUDA tensors launch ``csrc/attention_fwd_q8.cu`` (in bf16 at
+    head_dim 64 its wgmma route, as ``attention_fwd_int8``; the mma.sync
+    instances otherwise), CPU tensors run ``attention_q8_reference`` at the
+    route's tile (``q8_block_k``)."""
     return _fwd_q8(attention_fwd_fp8, "fp8pv8" if pv8 else "fp8", q, k, v,
                    n_real, with_lse)
 
@@ -892,8 +992,45 @@ def _fwd_q8(wrapper, quant, q, k, v, n_real, with_lse):
     if q.device.type == "cpu":
         o, lse = attention_q8_reference(q, k, v, n_real, quant)
         return o, (lse if with_lse else None)
+    if _Q8_CONTROL and q.dtype == torch.bfloat16 and padded_dim(
+            q.shape[-1]) == HEAD_DIM:
+        out = padded_fwd(functools.partial(_launch_fwd_q8, control=True), q, k,
+                         v, n_real, with_lse, quant=quant)
+        attention_fwd_q8_mma.launches += 1
+        return out
     out = padded_fwd(_launch_fwd_q8, q, k, v, n_real, with_lse, quant=quant)
     wrapper.launches += 1
+    return out
+
+
+# Private: True routes the 8-bit forwards in bf16 at head_dim 64 through the
+# control (``attention_fwd_q8_mma``) instead of the wgmma route, so that a
+# measurement can time the steps of the model with each. Nothing in the
+# package sets it.
+_Q8_CONTROL = False
+
+
+def attention_fwd_q8_mma(q, k, v, n_real: int | None = None,
+                         quant: str = "qk8", with_lse: bool = False):
+    """The control of the wgmma 8-bit forwards (K5/K6): the ``mma.sync``
+    kernel (``csrc/attn_fwd_q8.cuh``, entries ``maest_attn_fwd_<quant>_mma``)
+    after the PyTorch quantisation, on bf16 CUDA (B, N, H, 64) views; (o,
+    lse or None). It computes what ``flash_attention`` computes under
+    ``quant`` with its own 64-key tiles (``Q8_BLOCK_K``); counted in
+    ``attention_fwd_q8_mma.launches``. CPU tensors run
+    ``attention_q8_reference`` with block_k 64."""
+    n_real, quant, _ = _check_args(q, k, v, n_real, quant)
+    if quant is None:
+        raise ValueError("the control runs an 8-bit mode: qk8, qk8pv8, fp8 "
+                         "or fp8pv8")
+    if q.device.type == "cpu":
+        o, lse = attention_q8_reference(q, k, v, n_real, quant, Q8_BLOCK_K)
+        return o, (lse if with_lse else None)
+    if q.dtype != torch.bfloat16 or q.shape[-1] != HEAD_DIM:
+        raise ValueError("the control takes bf16 q, k, v at head_dim 64")
+    out = _launch_fwd_q8(q, k, v, n_real, with_lse, q.shape[-1]**-0.5, quant,
+                         control=True)
+    attention_fwd_q8_mma.launches += 1
     return out
 
 
@@ -1080,12 +1217,81 @@ def _seq_major(x8: torch.Tensor) -> torch.Tensor:
     return xp.reshape(b, h, d, npad)
 
 
-def _launch_fwd_q8(q, k, v, n_real, with_lse, scale, quant):
-    """K5/K6: the 8-bit inputs, made in PyTorch as the TPU package makes
-    them in XLA outside its kernel, then ``csrc/attention_fwd_q8.cu`` (its
-    fp32 instance for fp32 q, k, v); (o, lse or None)."""
+def q8_entry(quant: str, dtype, d: int, control: bool = False):
+    """(the C entry of ``csrc/attention_fwd_q8.cu`` that runs ``quant`` on
+    ``dtype`` views of kernel width d, its leading int arguments): the
+    wgmma route ``maest_attn_fwd_<quant>`` at bf16 d 64, its control
+    ``..._mma`` there with ``control``; the mma.sync instances otherwise
+    (``_fp32``, ``_d128``, ``_d256``, ``_dn``)."""
+    if dtype == torch.bfloat16 and d == HEAD_DIM:
+        return f"maest_attn_fwd_{quant}" + ("_mma" if control else ""), ()
+    return _instance(f"maest_attn_fwd_{quant}" + (
+        "_fp32" if dtype == torch.float32 else ""), d)
+
+
+def _q8_scratch(lib, name, b, n, h):
+    """(the uint8 and fp32 scratch of the wgmma route's entry ``name``,
+    sized by its ``_bytes`` and ``_scratch`` exports); uninitialised."""
+    fn = getattr(lib, f"{name}_bytes")
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    return fn(b, n, h), _scratch_floats(lib, name, b, n, h)
+
+
+def launch_q8_pass(q, k, v, quant, scale=None):
+    """The wgmma route's quantisation pass alone (entry
+    ``maest_attn_fwd_q8w_pass``) on bf16 CUDA (B, N, H, 64) views: (its
+    uint8 bytes, its fp32 scratch), as the route's kernel reads them
+    (``q8_pass_views``); for the checks and timings of the pass."""
     _check_views((q, k, v), q.dtype, "q/k/v", aligned=True)
     b, n, h, d = q.shape
+    if q.dtype != torch.bfloat16 or d != HEAD_DIM:
+        raise ValueError("the pass takes bf16 q, k, v at head_dim 64")
+    lib = _build.load_library("attention_fwd_q8")
+    name = f"maest_attn_fwd_{quant}"
+    n_bytes, n_floats = _q8_scratch(lib, name, b, n, h)
+    bytes8 = torch.empty(n_bytes, dtype=torch.uint8, device=q.device)
+    scratch = torch.empty(n_floats, dtype=torch.float32, device=q.device)
+    fn = lib.maest_attn_fwd_q8w_pass
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
+    sl = _scale(q, scale) * _LOG2E
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(_QUANT_MODES.index(quant) - 1, q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), bytes8.data_ptr(), scratch.data_ptr(), b, n, h,
+                 _strides(q, k, v), sl, stream)
+    _build.check(lib, err, "maest_attn_fwd_q8w_pass")
+    return bytes8, scratch
+
+
+def _launch_fwd_q8(q, k, v, n_real, with_lse, scale, quant, control=False):
+    """K5/K6 on checked views of a kernel width; (o, lse or None). In bf16
+    at head_dim 64 the wgmma route (its CUDA pass makes the 8-bit inputs;
+    ``q8_entry``), unless ``control``; else the 8-bit inputs made in
+    PyTorch as the TPU package makes them in XLA outside its kernel, then
+    the mma.sync kernel (its fp32 instance for fp32 q, k, v)."""
+    _check_views((q, k, v), q.dtype, "q/k/v", aligned=True)
+    b, n, h, d = q.shape
+    name, lead = q8_entry(quant, q.dtype, d, control)
+    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    lib = _build.load_library("attention_fwd_q8")
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    if q.dtype == torch.bfloat16 and d == HEAD_DIM and not control:
+        n_bytes, n_floats = _q8_scratch(lib, name, b, n, h)
+        bytes8 = torch.empty(n_bytes, dtype=torch.uint8, device=q.device)
+        scratch = torch.empty(n_floats, dtype=torch.float32, device=q.device)
+        fn = _entry(lib, name, 7, 1)
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     ptr(lse), bytes8.data_ptr(), scratch.data_ptr(), b, n, h,
+                     n if n_real is None else n_real, _strides(q, k, v, out),
+                     scale * _LOG2E, stream)
+        _build.check(lib, err, name)
+        return out, lse
     sl = scale * _LOG2E
     qs = sk = sv127 = None
     if quant in ("qk8", "qk8pv8"):
@@ -1105,14 +1311,7 @@ def _launch_fwd_q8(q, k, v, n_real, with_lse, scale, quant):
         v_in = _seq_major(to_e4m3(v.transpose(1, 2)))
     else:
         v_in = v
-    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
-    lse = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-           if with_lse else None)
-    lib = _build.load_library("attention_fwd_q8")
-    name, lead = _instance(f"maest_attn_fwd_{quant}" + (
-        "_fp32" if q.dtype == torch.float32 else ""), d)
     fn = _entry(lib, name, 8, 1, len(lead))
-    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*lead, q8.data_ptr(), k8.data_ptr(), ptr(qs), ptr(sk),
@@ -1370,6 +1569,7 @@ attention_bwd.launches = 0
 attention_bwd_mma.launches = 0
 attention_fwd_int8.launches = 0
 attention_fwd_fp8.launches = 0
+attention_fwd_q8_mma.launches = 0
 attention_bwd_int8.launches = 0
 attention_bwd_int8_mma.launches = 0
 attention_fwd_fp32_fma.launches = 0

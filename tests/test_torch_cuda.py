@@ -320,7 +320,8 @@ def test_remat_launch_counts_on_card(cuda_device, policy, fwd):
 
 
 # --- the 8-bit modes: K5 / K6 (forward), K7 (int8 backward) ---------------
-# K5/K6 against attention_q8_reference on the same 64-key tiles and K7
+# K5/K6 against attention_q8_reference on the same key tiles (the route's:
+# 128 keys in bf16 at head_dim 64, the wgmma kernel; 64 elsewhere) and K7
 # against attention_bwd_int8_reference: 2e-2 compared in fp32 (bf16
 # outputs; an exp2 ulp may flip the rounding of one 8-bit p or ds), K7
 # relative to each gradient's max.
@@ -418,6 +419,68 @@ def test_q8_modes_refuse_fp32_on_card(cuda_device):
             assert ours.dtype == torch.float32 and ours.shape == q.shape
             top = want.abs().max().item()
             assert (ours - want).abs().max().item() <= 2e-2 * top
+
+
+@pytest.mark.parametrize("mode", Q8_MODES)
+def test_q8_wgmma_route_matches_plain_and_control(cuda_device, mode):
+    """The wgmma 8-bit forward (bf16, head_dim 64) at (2, 300) n_real 290:
+    its pass equal to ``q8_pass_reference`` (NaN as NaN), o within 2 bf16
+    ulps of max|o| of plain at the route's 128-key tile and lse within
+    LSE_TOL, with and without lse; the control (``attention_fwd_q8_mma``)
+    within the same bound of plain at its 64-key tile; each counted."""
+    from maest_tpu_torch.ops import attention as A
+
+    x = _rand((2, 300, 3, 12, 64), 40).to(cuda_device, torch.bfloat16)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    got = A.q8_pass_views(*A.launch_q8_pass(q, k, v, mode), 2, 300, 12, mode)
+    for key, want in A.q8_pass_reference(q, k, v, mode).items():
+        assert (got[key] is None) == (want is None), key
+        if want is not None:
+            a, w = got[key].float(), want.float()
+            assert torch.equal(torch.isnan(a), torch.isnan(w)), key
+            assert torch.equal(a[~torch.isnan(a)], w[~torch.isnan(w)]), key
+    wrap = A.attention_fwd_int8 if mode.startswith("qk8") else A.attention_fwd_fp8
+    before = (wrap.launches, A.attention_fwd_q8_mma.launches)
+    o, none = wrap(q, k, v, 290, mode.endswith("pv8"))
+    o2, lse = wrap(q, k, v, 290, mode.endswith("pv8"), with_lse=True)
+    co, clse = A.attention_fwd_q8_mma(q, k, v, 290, mode, with_lse=True)
+    torch.cuda.synchronize()
+    assert (wrap.launches, A.attention_fwd_q8_mma.launches) == (
+        before[0] + 2, before[1] + 1) and none is None
+    for out, out_lse, block_k in ((o, None, 128), (o2, lse, 128),
+                                  (co, clse, 64)):
+        ro, rlse = A.attention_q8_reference(q, k, v, 290, mode, block_k)
+        top = ro.float().abs().max().item()
+        tol = 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+        assert (out.float() - ro.float()).abs().max().item() <= tol
+        if out_lse is not None:
+            assert (out_lse - rlse).abs().max().item() <= LSE_TOL
+
+
+def test_q8_control_hook_routes_the_model(cuda_device, monkeypatch):
+    """With the private hook ``_Q8_CONTROL`` set, every 8-bit forward in
+    bf16 at head_dim 64 launches the mma.sync control (counted in
+    attention_fwd_q8_mma) and not the wgmma route, and the tagging
+    activations stay within 1e-2 of the route's."""
+    from maest_tpu_torch.ops import attention as A
+
+    wave = _rand(3 * 16000 + 77, 84, 0.3).numpy()
+    for mode in Q8_MODES:
+        monkeypatch.setattr(A, "_Q8_CONTROL", False)
+        model = get_maest(device=cuda_device, dtype=torch.bfloat16,
+                          attention_quant=mode, **TINY)
+        with torch.no_grad():  # zero heads would hide every difference
+            model.net.head[1].weight.copy_(_rand((16, 128), 2, 0.2))
+        ours = model.predict_labels(wave)[0]
+        wrap = (A.attention_fwd_int8 if mode.startswith("qk8")
+                else A.attention_fwd_fp8)
+        before = (wrap.launches, A.attention_fwd_q8_mma.launches)
+        monkeypatch.setattr(A, "_Q8_CONTROL", True)
+        ctrl = model.predict_labels(wave)[0]
+        grew = (wrap.launches - before[0],
+                A.attention_fwd_q8_mma.launches - before[1])
+        assert grew[0] == 0 and grew[1] > 0, (mode, grew)
+        assert np.abs(ours - ctrl).max() <= 1e-2, mode
 
 
 # --- the decomposition probes P6a-d (ops/attention_probe.py) --------------
