@@ -2802,26 +2802,28 @@ def build_planted_bwd_no_mask() -> tuple[Path, float]:
                           "attn_bwd_wgmma.cuh", PLANT_BWD_NO_MASK)
 
 
-def sass_counts(path: Path, pattern: str) -> dict:
-    """{kernel: (wgmma, UTMALDG, instructions)} of the kernels of a built
-    library whose mangled name contains ``pattern``, from ``cuobjdump
-    -sass``: the wgmma (HGMMA on 16-bit types, IGMMA on 8-bit integers) and
-    TMA-load instructions in each, demangled by cu++filt where it runs."""
+def sass_kinds(path: Path, pattern: str) -> dict:
+    """{kernel: {IGMMA, QGMMA, HGMMA, UTMALDG, instructions}} of the kernels
+    of a built library whose mangled name holds ``pattern``, from
+    ``cuobjdump -sass``: wgmma on s8 (IGMMA), e4m3 (QGMMA) and 16-bit
+    (HGMMA) operands, TMA loads, all instructions; the names demangled by
+    cu++filt where it runs."""
     sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
                            str(path)], capture_output=True, text=True,
                           timeout=600, check=True).stdout
+    keys = ("IGMMA", "QGMMA", "HGMMA", "UTMALDG")
     counts, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1) if pattern in m.group(1) else None
             if name:
-                counts[name] = [0, 0, 0]
+                counts[name] = dict.fromkeys(keys + ("instructions",), 0)
             continue
         if name and re.search(r"/\*[0-9a-f]{4,}\*/", line):
-            counts[name][2] += 1
-            counts[name][0] += "GMMA" in line  # HGMMA, IGMMA: wgmma
-            counts[name][1] += "UTMALDG" in line
+            counts[name]["instructions"] += 1
+            for key in keys:
+                counts[name][key] += key in line
     names = list(counts)
     try:
         plain = subprocess.run(
@@ -2830,8 +2832,16 @@ def sass_counts(path: Path, pattern: str) -> dict:
     except (OSError, subprocess.CalledProcessError):
         plain = names
     return {re.sub(r"\([\w: ]+\)(?=[-\w])", "", p).split("(")[0]
-            .removeprefix("void "): tuple(counts[n])
-            for n, p in zip(names, plain)}
+            .removeprefix("void "): counts[n] for n, p in zip(names, plain)}
+
+
+def sass_counts(path: Path, pattern: str) -> dict:
+    """{kernel: (wgmma, UTMALDG, instructions)} of the kernels of a built
+    library whose mangled name contains ``pattern`` (``sass_kinds``, the
+    wgmma kinds summed: HGMMA on 16-bit types, IGMMA on 8-bit integers,
+    QGMMA on e4m3)."""
+    return {k: (c["IGMMA"] + c["QGMMA"] + c["HGMMA"], c["UTMALDG"],
+                c["instructions"]) for k, c in sass_kinds(path, pattern).items()}
 
 
 def _events_call(fn):
@@ -4169,39 +4179,6 @@ def build_planted_q8w_half_away() -> tuple[Path, float]:
     away from zero (phase 35 shows its check refusing the pass so built)."""
     return _build_planted("q8w_half_away", "attention_fwd_q8",
                           "attn_fwd_q8_wgmma.cuh", PLANT_Q8W_HALF_AWAY)
-
-
-def sass_kinds(path: Path, pattern: str) -> dict:
-    """{kernel: {IGMMA, QGMMA, HGMMA, UTMALDG, instructions}} of the kernels
-    of a built library whose mangled name holds ``pattern``, from
-    ``cuobjdump -sass``: wgmma on s8 (IGMMA), e4m3 (QGMMA) and 16-bit
-    (HGMMA) operands, TMA loads, all instructions; the names demangled by
-    cu++filt where it runs."""
-    sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
-                           str(path)], capture_output=True, text=True,
-                          timeout=600, check=True).stdout
-    keys = ("IGMMA", "QGMMA", "HGMMA", "UTMALDG")
-    counts, name = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            name = m.group(1) if pattern in m.group(1) else None
-            if name:
-                counts[name] = dict.fromkeys(keys + ("instructions",), 0)
-            continue
-        if name and re.search(r"/\*[0-9a-f]{4,}\*/", line):
-            counts[name]["instructions"] += 1
-            for key in keys:
-                counts[name][key] += key in line
-    names = list(counts)
-    try:
-        plain = subprocess.run(
-            ["/usr/local/cuda/bin/cu++filt"], input="\n".join(names),
-            capture_output=True, text=True, check=True).stdout.splitlines()
-    except (OSError, subprocess.CalledProcessError):
-        plain = names
-    return {re.sub(r"\([\w: ]+\)(?=[-\w])", "", p).split("(")[0]
-            .removeprefix("void "): counts[n] for n, p in zip(names, plain)}
 
 
 def _q8_wrap(mode):

@@ -134,12 +134,12 @@ __device__ __forceinline__ void wgmma_ss_s8_n64(int (&d)[8][4], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// d (64 x 64, s32) += A (64 x 32 s8, registers: the four b32 of a warp's
+// d (64 x 64, s32) (+)= A (64 x 32 s8, registers: the four b32 of a warp's
 // 16 rows, as mma.sync's m16n8k32 A fragment) . B (32 x 64, s8, shared
-// memory, K-major)
+// memory, K-major); scale_d 0 overwrites
 __device__ __forceinline__ void wgmma_rs_s8_n64(int (&d)[8][4],
                                                const uint32_t (&a)[4],
-                                               uint64_t b) {
+                                               uint64_t b, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
@@ -153,7 +153,7 @@ __device__ __forceinline__ void wgmma_rs_s8_n64(int (&d)[8][4],
         "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
         "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
         "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 // ------------------------------------------------------------- shared ---

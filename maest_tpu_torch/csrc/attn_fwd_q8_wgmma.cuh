@@ -35,19 +35,18 @@
 // full-rate fp32 pipe here (qf_i2f), not on the quarter-rate I2F. p and
 // corr are ex2.approx.ftz (qw_ex2, K7's; exp2f adds a rescale for
 // arguments below -126): a p below 2^-126 flushes to 0, which changes no
-// 8-bit code and no sum that holds the tile's largest p, 1. The
-// pass is bound by bytes: bf16 q, k (and v in the pv8 modes) read once,
-// the copies written once, ~0.07-0.11 ms at that shape.
+// 8-bit code and no sum that holds the tile's largest p, 1. The pass is
+// bound by bytes: bf16 q, k (and v in the pv8 modes) read once, the
+// copies written once, 0.075-0.135 ms at that shape.
 //
 // e4m3 q.k on the tensor cores: e4m3 wgmma sums its products in fewer
 // bits than fp32 (a k-step's sum is truncated, ~2^-13 of its largest
 // term), which moved lse by up to 6e-4 from plain at (32, 866) on an
-// H100, past the 1e-4 bound.
-// The e4m3 values are bf16 values, so the pass writes q8 and k8 of the
-// e4m3 modes as bf16 and S runs on bf16 wgmma (K2's product), whose sums
-// hold the plain version's to its bounds; p8.v8 of fp8pv8 stays on e4m3
-// wgmma, a fresh sum a tile: its truncation is ~2^-13 of |o|, far below a
-// bf16 ulp of the output.
+// H100, past the 1e-4 bound. The e4m3 values are bf16 values, so the
+// pass writes q8 and k8 of the e4m3 modes as bf16 and S runs on bf16
+// wgmma (K2's product), whose sums hold the plain version's to its
+// bounds; p8.v8 of fp8pv8 stays on e4m3 wgmma, a fresh sum a tile: it
+// shrinks o by ~3e-5 relative, far below a bf16 ulp of the output.
 //
 // Design:
 //   1. (qk8pv8) vmax: max|v| per (head, column) over the sequence, by
@@ -56,19 +55,20 @@
 //   2. pass (attn_fwd_q8w_pass_kernel): a block takes 64 rows of one
 //      head, four threads a row. It writes q8 and k8 head-major (B H,
 //      N_pad, 64), N_pad = round_up(N, 128), zeros past N (int8 codes, or
-//      the e4m3 values as bf16); in the int8
-//      modes the rows qs sl and sk (B H, N_pad) fp32, zeros past N; in
-//      the pv8 modes v8 transposed (B H, 64, N_pad), the keys in the
+//      the e4m3 values as bf16); in the int8 modes the rows qs sl and sk
+//      (B H, N_pad) fp32, zeros past N; in the pv8 modes v8 transposed
+//      (B H, 64, N_pad), the keys in the
 //      seq_pos order of mma_8bit.cuh, so the score accumulator is the
 //      register A of the next 8-bit product as it lies (K7's order).
 //   3. the kernel, K2's schedule (attn_fwd_wgmma.cuh): warpgroup 0 is the
 //      producer, one thread loading the block's q8 once and keeping key
 //      tiles of k8 (with their sk row, a bulk copy on the same barrier)
-//      and v in flight in a two-stage ring; QF_NC consumer warpgroups of
-//      64 q rows take turns to issue through named barriers. S = Q8.K8^T
-//      on s8 wgmma (int32 sums, exact; 64-byte swizzle) or, e4m3 values,
-//      bf16 wgmma (fp32 sums; 128-byte swizzle), both operands K-major as
-//      the planes lie. P.V: in qk8 /
+//      and v in flight in a two-stage ring; QF_NC = 2 consumer
+//      warpgroups of 64 q rows take turns to issue through named
+//      barriers (three, K2's, leave 128 registers a thread, where the
+//      128-key tile spills). S = Q8.K8^T on s8 wgmma (int32 sums, exact;
+//      64-byte swizzle) or, e4m3 values, bf16 wgmma (fp32 sums; 128-byte
+//      swizzle), both operands K-major as the planes lie. P.V: in qk8 /
 //      fp8 bf16 wgmma with p packed as register A and the bf16 v view
 //      through the transpose bit, accumulating into o, as K2; in the pv8
 //      modes 8-bit wgmma (no transpose bit) with p8 packed as it lies
@@ -116,31 +116,10 @@ __device__ __forceinline__ void wgmma_ss_s8_n128(int (&d)[16][4], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// d (64 x 64, s32) (+)= A (64 x 32 s8, registers: a warp's 16 rows as
-// mma.sync's m16n8k32 A fragment) . B (32 x 64, s8, shared memory,
-// K-major); scale_d 0 overwrites
-__device__ __forceinline__ void wgmma_rs_s8_n64_d(int (&d)[8][4],
-                                                 const uint32_t (&a)[4],
-                                                 uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p;\n}\n"
-      : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
-        "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
-        "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
-        "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
-        "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
-        "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
-        "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
-        "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
-
-// d (64 x 64, fp32) (+)= A (64 x 32 e4m3, registers, as above) . B (32 x
-// 64, e4m3, shared memory, K-major); scale_d 0 overwrites
-__device__ __forceinline__ void wgmma_rs_e4m3_n64_d(float (&d)[8][4],
+// d (64 x 64, fp32) (+)= A (64 x 32 e4m3, registers: a warp's 16 rows as
+// mma.sync's m16n8k32 A fragment, as wgmma_rs_s8_n64's) . B (32 x 64,
+// e4m3, shared memory, K-major); scale_d 0 overwrites
+__device__ __forceinline__ void wgmma_rs_e4m3_n64(float (&d)[8][4],
                                                    const uint32_t (&a)[4],
                                                    uint64_t b, int scale_d) {
   asm volatile(
@@ -229,11 +208,10 @@ __device__ __forceinline__ float qf_i2f(int i) {
 }
 
 // the e4m3 byte of x as the JAX package casts it (ops/attention.py
-// to_e4m3): NaN (0x7f) where |x| > 464, else round to nearest even. The
-// conversion saturates, so |x| in (448, 464] gives 448, the value those
-// round to; a NaN x stays NaN. __NV_NOSAT is not used: past 448 it leaves
-// the result to the software path, and the overflow's NaN is the one
-// written here.
+// to_e4m3): NaN (0x7f) where |x| > 464, written here, else round to
+// nearest even by the saturating conversion, which gives |x| in (448,
+// 464] the 448 they round to; a NaN x stays NaN (chip_smoke.py phase 35
+// holds 450 and 464 -> 448 and 466 -> NaN to the plain cast)
 __device__ __forceinline__ uint32_t qf_e4m3(float x) {
   return fabsf(x) > QF_E4M3_OVERFLOW
              ? 0x7fu
@@ -584,9 +562,9 @@ attn_fwd_q8w_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int kk = 0; kk < BK / 32; ++kk) {
           if constexpr (INT8)
-            wgmma_rs_s8_n64_d(pvi, pf[kk], dv + 2 * kk, kk);
+            wgmma_rs_s8_n64(pvi, pf[kk], dv + 2 * kk, kk);
           else
-            wgmma_rs_e4m3_n64_d(pvf, pf[kk], dv + 2 * kk, kk);
+            wgmma_rs_e4m3_n64(pvf, pf[kk], dv + 2 * kk, kk);
         }
       } else {
         const uint64_t dv = sw128_desc(sv + st * V_BYTES);

@@ -24,7 +24,7 @@ the ``wgmma`` / TMA kernel (``csrc/attn_fwd_wgmma.cuh``), the bf16
 backward at head_dim 64 the one of ``csrc/attn_bwd_wgmma.cuh`` (one score
 pass per key tile and q tile), the int8 backward in bf16 at head_dim 64
 the s8 ``wgmma`` kernels of ``csrc/attn_bwd_q8_wgmma.cuh``, and the 8-bit
-forwards in bf16 at head_dim 64 the s8 / e4m3 ``wgmma`` kernel of
+forwards in bf16 at head_dim 64 the s8 / bf16 / e4m3 ``wgmma`` kernel of
 ``csrc/attn_fwd_q8_wgmma.cuh`` behind its CUDA quantisation pass; their
 ``mma.sync`` controls stay as ``attention_fwd_mma``,
 ``attention_bwd_mma``, ``attention_bwd_int8_mma`` and
@@ -1229,12 +1229,16 @@ def q8_entry(quant: str, dtype, d: int, control: bool = False):
         "_fp32" if dtype == torch.float32 else ""), d)
 
 
-def _q8_scratch(lib, name, b, n, h):
-    """(the uint8 and fp32 scratch of the wgmma route's entry ``name``,
-    sized by its ``_bytes`` and ``_scratch`` exports); uninitialised."""
+def _q8_scratch(lib, name, q):
+    """(the uint8 bytes, the fp32 scratch) that the wgmma route's entry
+    ``name`` takes for q's (B, N, H, 64), sized by its ``_bytes`` and
+    ``_scratch`` exports; uninitialised."""
+    b, n, h, _ = q.shape
     fn = getattr(lib, f"{name}_bytes")
     fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
-    return fn(b, n, h), _scratch_floats(lib, name, b, n, h)
+    return (torch.empty(fn(b, n, h), dtype=torch.uint8, device=q.device),
+            torch.empty(_scratch_floats(lib, name, b, n, h),
+                        dtype=torch.float32, device=q.device))
 
 
 def launch_q8_pass(q, k, v, quant, scale=None):
@@ -1247,10 +1251,7 @@ def launch_q8_pass(q, k, v, quant, scale=None):
     if q.dtype != torch.bfloat16 or d != HEAD_DIM:
         raise ValueError("the pass takes bf16 q, k, v at head_dim 64")
     lib = _build.load_library("attention_fwd_q8")
-    name = f"maest_attn_fwd_{quant}"
-    n_bytes, n_floats = _q8_scratch(lib, name, b, n, h)
-    bytes8 = torch.empty(n_bytes, dtype=torch.uint8, device=q.device)
-    scratch = torch.empty(n_floats, dtype=torch.float32, device=q.device)
+    bytes8, scratch = _q8_scratch(lib, f"maest_attn_fwd_{quant}", q)
     fn = lib.maest_attn_fwd_q8w_pass
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
@@ -1280,9 +1281,7 @@ def _launch_fwd_q8(q, k, v, n_real, with_lse, scale, quant, control=False):
     lib = _build.load_library("attention_fwd_q8")
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     if q.dtype == torch.bfloat16 and d == HEAD_DIM and not control:
-        n_bytes, n_floats = _q8_scratch(lib, name, b, n, h)
-        bytes8 = torch.empty(n_bytes, dtype=torch.uint8, device=q.device)
-        scratch = torch.empty(n_floats, dtype=torch.float32, device=q.device)
+        bytes8, scratch = _q8_scratch(lib, name, q)
         fn = _entry(lib, name, 7, 1)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream().cuda_stream

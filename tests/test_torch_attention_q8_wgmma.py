@@ -287,7 +287,10 @@ def test_route_names_the_wgmma_entry(control, monkeypatch):
     # the route's scratch, by the libraries' rule (a stand-in library)
     lib = types.SimpleNamespace(maest_attn_fwd_qk8_bytes=lambda b, n, h: 7,
                                 maest_attn_fwd_qk8_scratch=lambda b, n, h: 9)
-    assert A._q8_scratch(lib, "maest_attn_fwd_qk8", 1, 4, 2) == (7, 9)
+    bytes8, scratch = A._q8_scratch(lib, "maest_attn_fwd_qk8",
+                                    torch.zeros(1, 4, 2, 64))
+    assert (bytes8.shape, bytes8.dtype) == ((7,), torch.uint8)
+    assert (scratch.shape, scratch.dtype) == ((9,), torch.float32)
 
 
 def test_control_takes_plain_version_on_the_cpu():
