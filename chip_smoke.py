@@ -119,8 +119,22 @@ and the pass built rounding half away refused (each in a process of its
 own), then the route, the control and K2 timed by CUDA-graph replays in
 interleaved rounds, the pass and the kernel alone by torch.profiler, and
 the tagging step in each mode with the route and the control in turn
-(35). Phase 2 also counts the wgmma and TMA instructions in the SASS of
-the wgmma kernels and checks that the production ones spill nothing.
+(35). Then K1 as a 512-point real FFT in shared memory behind TMA bulk
+loads (``csrc/mel_kernel.cu logmel_fft_kernel``, the route of the
+front-end on the card, and so of phases 3, 6-8 and every tagging step)
+against plain, its route's plain version and a float64 oracle at (60032,
+512), ragged counts, silence and tones, the inputs it refuses, the kernel
+built with one twiddle's sign flipped refused (in a process of its own);
+the kernel, its FMA control (``fused_logmel_from_frames_fma``), plain and
+the stock PyTorch front-end timed by CUDA-graph replays in interleaved
+rounds, split by torch.profiler with the framing pass and the bf16
+tagging step; and the bf16 and fp32 tagging steps with the kernel and
+with the control in turn (36). A split by torch.profiler is printed only
+from a trace that holds every launch its route makes, by name and count,
+and a device total within SPLIT_SHARE of the call's time; else "not
+measured" and why. Phase 2 also counts the wgmma and TMA instructions in
+the SASS of the wgmma kernels, prints the FFT kernel's launch shape and
+checks that the production kernels spill nothing.
 Every phase
 prints one line per check; any failure raises, so the exit code is not 0.
 The card's name and power limit, the JSON record of the kernels (with each
@@ -134,6 +148,7 @@ Weights are random, drawn from the golden files' seeds; no file is fetched.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -402,6 +417,7 @@ def phase_kernels_vs_plain(dev):
     from maest_tpu_torch.ops.attention import attention_reference, flash_attention
     from maest_tpu_torch.ops.mel_kernel import (
         fused_logmel_from_frames,
+        fused_logmel_from_frames_fma,
         fused_logmel_from_frames_reference,
     )
 
@@ -409,14 +425,19 @@ def phase_kernels_vs_plain(dev):
     waves = torch.from_numpy(
         rng.standard_normal((BATCH, CLIP)).astype(np.float32) * 0.1).to(dev)
     frames = frame_waveforms(waves).reshape(-1, 512).contiguous()
-    before = fused_logmel_from_frames.launches
+    before = (fused_logmel_from_frames.launches,
+              fused_logmel_from_frames_fma.launches)
     mel_err = max_err(fused_logmel_from_frames(frames),
                       fused_logmel_from_frames_reference(frames))
     torch.cuda.synchronize()
-    check(fused_logmel_from_frames.launches == before + 1, "mel counter")
+    check((fused_logmel_from_frames.launches,
+           fused_logmel_from_frames_fma.launches) == (before[0] + 1,
+                                                      before[1]),
+          "mel counters")
     check(mel_err <= MEL_TOL, f"K1 err {mel_err} > {MEL_TOL}")
-    print(f"phase 3 K1 mel: frames {tuple(frames.shape)} max_abs_err "
-          f"{mel_err:.3e} <= {MEL_TOL}", flush=True)
+    print(f"phase 3 K1 mel (the FFT kernel, logmel_fft_kernel): frames "
+          f"{tuple(frames.shape)} max_abs_err {mel_err:.3e} <= {MEL_TOL}; "
+          "its counter +1, the FMA control's +0", flush=True)
 
     attn_err = {}
     for n, n_real in ((1676, None), (1792, 1676)):
@@ -603,8 +624,8 @@ def phase_times(dev, model, gpu):
     t = {"mel": (cuda_ms(lambda: fused_logmel_from_frames(frames), 20),
                  cuda_ms(lambda: fused_logmel_from_frames_reference(frames),
                          20))}
-    print(f"phase 8 time K1 mel frames {tuple(frames.shape)}: kernel "
-          f"{t['mel'][0]:.4f} ms, plain {t['mel'][1]:.4f} ms [{gpu}]",
+    print(f"phase 8 time K1 mel (the FFT kernel) frames "
+          f"{tuple(frames.shape)}: kernel {t['mel'][0]:.4f} ms, plain {t['mel'][1]:.4f} ms [{gpu}]",
           flush=True)
     for dtype in (torch.bfloat16, torch.float32):
         qkv = torch.from_numpy(rng.standard_normal(
@@ -1069,7 +1090,7 @@ def phase_q8_kernels(dev, gpu):
                     cuda_ms(lambda: A.attention_q8_reference(
                         q, k, v, n_real, mode), 3))
                 alone = _kernel_ms(lambda: wrap(q, k, v, n_real, pv8),
-                                   "fwd_q8w")
+                                   _q8w_expect(mode))
                 line += (f"; time: kernel with its quantisation pass "
                          f"{times[mode][0]:.4f} ms, plain {times[mode][1]:.4f}"
                          f" ms, pass and kernel alone (torch.profiler) "
@@ -1227,7 +1248,7 @@ def phase_k7_kernel(dev, gpu):
                     q, k, v, o, lse, g), 3))
             k3b = cuda_ms(lambda: A.attention_bwd(q, k, v, o, lse, g), 10)
             parts = _kernel_ms(
-                lambda: A.attention_bwd_int8(q, k, v, o, lse, g), "bwd_q8")
+                lambda: A.attention_bwd_int8(q, k, v, o, lse, g), K7W_EXPECT)
             line += ("; vs the bf16 backward (K3b): " + ", ".join(vs)
                      + " (cos > 0.999, relmax < 0.15); time: kernel "
                      f"{out['ms'][0]:.4f} ms, plain {out['ms'][1]:.4f} ms, "
@@ -1241,34 +1262,86 @@ def phase_k7_kernel(dev, gpu):
     return out
 
 
-def _kernel_ms(fn, prefix: str) -> dict:
-    """Device ms of each kernel whose name holds ``prefix`` in one call of
-    ``fn``, from torch.profiler; empty where it records no device time in
-    three traces (a trace may come back empty)."""
-    from torch.profiler import ProfilerActivity, profile
+# a split of a call's device time by kernel is printed only from a trace
+# whose device total is within SPLIT_SHARE of the call's time (its graph
+# median, or a step's event time): a trace that lost launches, or caught
+# stray ones, reads otherwise
+SPLIT_SHARE = 0.2
 
+
+def _kernel_ms(fn, expect: dict, ref_ms: float | None = None
+               ) -> tuple[dict, str]:
+    """Device ms of the launches of one call of ``fn`` by torch.profiler
+    (the second call of a window whose first warms the tracer): ({label:
+    ms} for each ``label: (regex, launches)`` of ``expect``, with "all" the
+    trace's device total, ""), from the first of three traces that records
+    every expected launch by name and count and whose total is within
+    SPLIT_SHARE of ``ref_ms`` (None: the graph median of ``fn``,
+    ``probes.attn_profile.graph_ms``); else ({}, why none was taken)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from maest_tpu_torch.probes.attn_profile import graph_ms
+
+    if ref_ms is None:
+        ref_ms = graph_ms(fn, 3, torch.device(DEVICE))
     fn()
     torch.cuda.synchronize()
-    rows = {}
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
+    why = ""
+    for trace in range(1, 4):
+        # a trace loses the first launches of its window: one call runs
+        # with the tracer on and is dropped, the next one is kept
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        rows = []
         for e in prof.key_averages():
-            name = re.search(prefix + r"\w*(<\w+>)?", e.key)
-            if name:
-                us = getattr(e, "device_time_total", None)
-                if us is None:
-                    us = e.cuda_time_total
-                rows[name.group(0)] = rows.get(name.group(0), 0.0) + us / 1e3
-        if rows:
-            break
-    return rows
+            us = getattr(e, "device_time_total", None)
+            rows.append((e.key, e.count,
+                         (e.cuda_time_total if us is None else us) / 1e3))
+        split = {"all": sum(ms for _, _, ms in rows)}
+        missing = []
+        for label, (pattern, launches) in expect.items():
+            hit = [(n, ms) for key, n, ms in rows if re.search(pattern, key)]
+            if sum(n for n, _ in hit) != launches:
+                missing.append(f"{label} {sum(n for n, _ in hit)} of "
+                               f"{launches} launches")
+            split[label] = sum(ms for _, ms in hit)
+        if missing:
+            why = f"trace {trace} recorded " + ", ".join(missing)
+        elif abs(split["all"] - ref_ms) > SPLIT_SHARE * ref_ms:
+            why = (f"trace {trace}'s device total {split['all']:.4f} ms is not"
+                   f" within {SPLIT_SHARE:.0%} of the call's {ref_ms:.4f} ms")
+        else:
+            return split, ""
+    return {}, why
 
 
-def _fmt_ms(rows: dict) -> str:
-    return (", ".join(f"{k} {v:.4f} ms" for k, v in rows.items())
-            or "not measured (no device events)")
+def _fmt_ms(split: tuple[dict, str]) -> str:
+    rows, why = split
+    if why:
+        return f"not measured ({why})"
+    return ", ".join(f"{k} {v:.4f} ms" for k, v in rows.items() if k != "all") \
+        + f" (device total {rows['all']:.4f} ms)"
+
+
+def _q8w_expect(mode: str) -> dict:
+    """The launches of the wgmma 8-bit forward's route in ``mode``: the
+    vmax pass (qk8pv8 only), the quantisation pass and the kernel."""
+    out = {"vmax": (r"fwd_q8w_vmax_kernel", 1)} if mode == "qk8pv8" else {}
+    return {**out, "pass": (r"fwd_q8w_pass_kernel", 1),
+            "kernel": (r"fwd_q8w_kernel", 1)}
+
+
+# the launches of the wgmma K7's route (bf16, head_dim 64)
+K7W_EXPECT = {"amax": (r"bwd_q8_amax_kernel", 1),
+              "quant": (r"bwd_q8w_quant_kernel", 1),
+              "stats": (r"bwd_q8w_kernel<true>", 1),
+              "main": (r"bwd_q8w_kernel<false>", 1),
+              "dq": (r"bwd_q8w_dq_kernel", 1)}
 
 
 def phase_int8_recipe(dev, gpu):
@@ -1826,7 +1899,8 @@ def phase_queue3(dev, gpu):
 
         out["ms"][mode] = (cuda_ms_median(run, 10), cuda_ms(
             lambda: A.attention_q8_reference(q, k, v, None, mode), 3))
-        out["alone"][mode] = _kernel_ms(run, "attn_fwd_q8_kernel")
+        out["alone"][mode] = _kernel_ms(
+            run, {"kernel": (r"attn_fwd_q8_kernel", 1)})
         print(f"phase 23 fp32 {mode} (the fp32 instance of "
               f"{'K5' if kind == 'int8' else 'K6'}) with lse: (2, 866, 12, 64) "
               f"max_abs_err {e:.3e}, relative L2 {rel:.3e}, lse {el:.3e} <= "
@@ -3643,7 +3717,7 @@ def phase_k7_wgmma(dev, gpu, planted_lib):
                 f"backward (K3b) {med['K3b']:.4f} ms; the wgmma K7 beat the "
                 f"control in every round: {every}")
         if b == BATCH:
-            parts = _kernel_ms(fns["wgmma"], "q8")
+            parts = _kernel_ms(fns["wgmma"], K7W_EXPECT)
             out["split"] = parts
             line += f"; its launches by device time: {_fmt_ms(parts)}"
         print(line + f" [{gpu}]", flush=True)
@@ -3883,6 +3957,16 @@ def sdpa_efficient(q, k, v, do=None, lse=False):
         [True, True, True, False])
 
 
+# the launches of the tf32 routes: K2 splits k and v into tf32 planes, K3b
+# q, do, k and v
+TF32_EXPECT = {"K2": {"split": (r"tf_split_kernel", 2),
+                      "kernel": (r"attn_fwd_tf32_kernel", 1)},
+               "K3b": {"split": (r"tf_split_kernel", 4),
+                       "stats": (r"attn_bwd_tf32_stats_kernel", 1),
+                       "dkv": (r"attn_bwd_dkv_tf32_kernel", 1),
+                       "dq": (r"attn_bwd_dq_tf32_kernel", 1)}}
+
+
 def phase_tf32(dev, gpu, planted):
     """Phase 34: fp32 K2/K3a and K3b/K4 on tf32 ``wgmma`` and TMA with
     3xTF32 products (``csrc/attn_fwd_tf32.cuh``, ``csrc/attn_bwd_tf32.cuh``,
@@ -3957,8 +4041,7 @@ def phase_tf32(dev, gpu, planted):
               f"control {rows}")
         out["ms"][name] = med
         if name in ("K2", "K3b"):
-            out["parts"][name] = _kernel_ms(
-                fns["tf32"], r"(?:attn_\w*tf32|tf_split)")
+            out["parts"][name] = _kernel_ms(fns["tf32"], TF32_EXPECT[name])
             print(f"phase 34 fp32 {name} the tf32 route's launches by device "
                   f"time (torch.profiler): {_fmt_ms(out['parts'][name])} "
                   f"[{gpu}]", flush=True)
@@ -4431,7 +4514,7 @@ def phase_q8_wgmma(dev, gpu, sd, planted):
                   + f" [{gpu}]", flush=True)
         med = {key: float(np.median(ms)) for key, ms in rows.items()}
         every = all(w < c for w, c in zip(rows["wgmma"], rows["control"]))
-        split = _kernel_ms(fns["wgmma"], "fwd_q8w")
+        split = _kernel_ms(fns["wgmma"], _q8w_expect(mode))
         med["plain"] = cuda_ms(lambda: A.attention_q8_reference(
             q, k, v, None, mode), 2)
         out["ms"][mode] = med
@@ -4500,6 +4583,321 @@ def phase_q8_wgmma(dev, gpu, sd, planted):
     return out
 
 
+# phase 36's planted fault: one twiddle of the FFT kernel's first pass,
+# W_256^(7 n2), with the sign of its imaginary part flipped
+PLANT_MEL_TWIDDLE = (
+    "    t1[k1 - 1] = tw[(2 * lane * k1) & 511];  // W_256^(n2 k1), n2 = lane",
+    "    t1[k1 - 1] = make_float2(tw[(2 * lane * k1) & 511].x, (k1 == 7 ? "
+    "-1.f : 1.f) * tw[(2 * lane * k1) & 511].y);")
+# K1's frames: 32 clips of 30 s
+MEL_FRAMES = BATCH * (1 + CLIP // 256)
+
+
+def mel_fft_ops(frames: int, nnz: int = 502, n_mels: int = 96) -> int:
+    """fp32 operations of the FFT kernel's route a batch: the window (512
+    a frame); three passes of the 256-point FFT, 32 8-point DFTs (56
+    each: 16 for the radix-2 step, 8 for W_8 and W_8^3, two 4-point DFTs
+    of 16) and 7 x 32 twiddle products (6 each) twice, and 64 4-point DFTs;
+    the split step (128 pairs of bins, 24 each: E, O, W O, the two bins
+    and their powers); the band sums (2 a weight); log10, scale and the
+    z-norm (5 a band)."""
+    fft = 2 * (32 * 56 + 7 * 32 * 6) + 64 * 16
+    return frames * (512 + fft + 128 * 24 + 2 * nnz + 5 * n_mels)
+
+
+def mel_dft_ops(frames: int, n_mels: int = 96) -> int:
+    """The operations of the DFT taken as a product, K1's route before the
+    FFT (and the TPU kernel's): the window (512 a frame), two 512 x 257
+    products (2 each a multiply-add), the power, the dense 257 x 96 mel
+    product, the log."""
+    return frames * (512 + 4 * 512 * 257 + 3 * 257 + 2 * 257 * n_mels
+                     + n_mels)
+
+
+def build_planted_mel_twiddle() -> tuple[Path, float]:
+    """``csrc/mel_kernel.cu`` with one twiddle's sign flipped (phase 36
+    shows its check refusing the kernel so built)."""
+    return _build_planted("mel_twiddle", "mel_kernel", "mel_kernel.cu",
+                          PLANT_MEL_TWIDDLE)
+
+
+def _mel_frames(dev, seed: int = 36) -> torch.Tensor:
+    """(MEL_FRAMES, 512) frames of 32 clips of 30 s of N(0, 0.1^2) noise."""
+    from maest_tpu_torch.dsp.mel import frame_waveforms
+
+    waves = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (BATCH, CLIP)).astype(np.float32) * 0.1).to(dev)
+    return frame_waveforms(waves).reshape(-1, 512).contiguous()
+
+
+def _mel_gap() -> float:
+    """max|K1 - plain| on ``_mel_frames``, with whatever ``mel_kernel``
+    library this process has loaded."""
+    from maest_tpu_torch.ops import mel_kernel as M
+
+    frames = _mel_frames(torch.device("cuda"))
+    return max_err(M.fused_logmel_from_frames(frames),
+                   M.fused_logmel_from_frames_reference(frames))
+
+
+def _mel_planted_err(lib: Path) -> float:
+    """``_mel_gap`` of the library ``lib`` in a process of its own (as
+    ``_planted_err``)."""
+    code = (
+        "import ctypes, json, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import chip_smoke as C\n"
+        "from maest_tpu_torch.ops import _build\n"
+        f"_build._libs['mel_kernel'] = ctypes.CDLL({str(lib)!r})\n"
+        "print(json.dumps(C._mel_gap()))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=ROOT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the planted fault's process failed:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return float(json.loads(proc.stdout.strip().splitlines()[-1]))
+
+
+def _mel_oracle(frames: torch.Tensor) -> np.ndarray:
+    """The front-end in float64 numpy on the host: the Hann window, rfft,
+    power, the filterbank, log10 and the z-norm."""
+    from maest_tpu_torch.dsp.filterbank import hann_window, mel_filterbank
+    from maest_tpu_torch.dsp.mel import NORM_MEAN, NORM_STD
+
+    x = frames.double().cpu().numpy() * hann_window(512).astype(np.float64)
+    power = np.abs(np.fft.rfft(x, axis=1)) ** 2
+    mel = power @ mel_filterbank(257, 96, SR).astype(np.float64)
+    return (np.log10(1.0 + 1e4 * mel) - NORM_MEAN) / (2.0 * NORM_STD)
+
+
+def stock_frontend(frames: torch.Tensor) -> torch.Tensor:
+    """The stock PyTorch front-end on the same frames, a yardstick that the
+    port never calls: rfft of the windowed frames, power, the filterbank
+    product, log10 and the z-norm."""
+    from maest_tpu_torch.dsp.filterbank import hann_window, mel_filterbank
+    from maest_tpu_torch.dsp.mel import NORM_MEAN, NORM_STD
+
+    key = ("stock", frames.device)
+    if key not in _STOCK:
+        _STOCK[key] = (torch.from_numpy(hann_window(512)).to(frames.device),
+                       torch.from_numpy(mel_filterbank(257, 96, SR)).to(
+                           frames.device))
+    window, fb = _STOCK[key]
+    spec = torch.fft.rfft(frames * window, dim=1)
+    mel = (spec.real.square() + spec.imag.square()) @ fb
+    return (torch.log10(1.0 + mel * 1e4) - NORM_MEAN) * (0.5 / NORM_STD)
+
+
+_STOCK: dict = {}
+
+
+def phase_mel_fft(dev, gpu, sd, planted_lib):
+    """Phase 36: K1 as a 512-point real FFT in shared memory behind TMA
+    bulk loads (``csrc/mel_kernel.cu logmel_fft_kernel``, the route of
+    ``fused_logmel_from_frames`` on the card). At (60032, 512), 32 clips of
+    30 s: the kernel against the plain version (MEL_TOL), the route's plain
+    version ``fused_logmel_fft_reference`` and a float64 numpy oracle
+    (reported), its counter moving and the FMA control's not; the control
+    against plain; ragged 60025 and 1 frames; silence; the inputs the
+    kernel refuses; the kernel built with one twiddle's sign flipped
+    refused (in a process of its own). Then CUDA-graph replays of the
+    kernel, the control, the plain version and the stock PyTorch front-end
+    (``stock_frontend``, a yardstick) in WG_ROUNDS interleaved rounds,
+    every round printed, medians and spread; torch.profiler's split of the
+    kernel and of the framing pass, and of the bf16 tagging step naming K1
+    and the framing's reflect pad (``_kernel_ms``); and the bf16 and fp32
+    tagging steps (B32, 30 s) with the kernel and with the control (the
+    private hook ``ops.mel_kernel._K1_CONTROL``) in interleaved rounds,
+    CUDA events over 3 steps a round after one, the counters checked on
+    each. Returns the errors, the medians and the launches."""
+    from maest_tpu_torch import get_maest
+    from maest_tpu_torch.dsp.mel import frame_waveforms
+    from maest_tpu_torch.ops import _build
+    from maest_tpu_torch.ops import mel_kernel as M
+    from maest_tpu_torch.probes.attn_profile import graph_ms
+    from maest_tpu_torch.serve import BucketPrograms
+
+    out = {"ms": {}, "launches": {}}
+    frames = _mel_frames(dev)
+    check(frames.shape == (MEL_FRAMES, 512), f"K1 frames {frames.shape}")
+    before = (M.fused_logmel_from_frames.launches,
+              M.fused_logmel_from_frames_fma.launches)
+    got = M.fused_logmel_from_frames(frames)
+    torch.cuda.synchronize()
+    check((M.fused_logmel_from_frames.launches,
+           M.fused_logmel_from_frames_fma.launches) == (before[0] + 1,
+                                                        before[1]),
+          "K1's counter moves and the control's does not")
+    ctrl = M.fused_logmel_from_frames_fma(frames)
+    torch.cuda.synchronize()
+    check(M.fused_logmel_from_frames_fma.launches == before[1] + 1,
+          "the control's counter")
+    plain = M.fused_logmel_from_frames_reference(frames)
+    route = M.fused_logmel_fft_reference(frames)
+    oracle = _mel_oracle(frames)
+    err = {"plain": max_err(got, plain), "route": max_err(got, route),
+           "control": max_err(ctrl, plain)}
+    to_oracle = {k: float(np.abs(v.double().cpu().numpy() - oracle).max())
+                 for k, v in (("kernel", got), ("control", ctrl),
+                              ("plain", plain), ("route", route))}
+    check(bool(torch.isfinite(got).all()) and got.shape == (MEL_FRAMES, 96),
+          "K1 output")
+    check(max(err.values()) <= MEL_TOL, f"K1 errors {err} > {MEL_TOL}")
+    check(to_oracle["kernel"] <= MEL_TOL, f"K1 vs fp64 {to_oracle}")
+    out["err"], out["err_control"] = max(err["plain"], err["route"]), \
+        err["control"]
+    print(f"phase 36 K1 FFT kernel at ({MEL_FRAMES}, 512): max_abs_err vs "
+          f"plain {err['plain']:.3e}, vs the route's plain version "
+          f"{err['route']:.3e} <= {MEL_TOL}; the FMA control vs plain "
+          f"{err['control']:.3e}; vs the float64 numpy oracle: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in to_oracle.items())
+          + "; K1's counter +1, the control's +0 (and +1 for its own call)",
+          flush=True)
+    del ctrl, route, plain, got
+    rag = {}
+    for m in (60025, 1):
+        f = frames[:m]
+        rag[m] = max_err(M.fused_logmel_from_frames(f),
+                         M.fused_logmel_from_frames_reference(f))
+        check(rag[m] <= MEL_TOL, f"K1 at {m} frames: {rag[m]}")
+    t = np.arange(CLIP)
+    tones = torch.from_numpy(np.stack([
+        np.zeros(CLIP), 0.5 * np.sin(2 * np.pi * 40 * t / 512),
+        np.full(CLIP, 0.5), 0.5 * (-1.0) ** t]).astype(np.float32)).to(dev)
+    tf = frame_waveforms(tones).reshape(-1, 512).contiguous()
+    tone_got = M.fused_logmel_from_frames(tf)
+    tone_err = max(max_err(tone_got, M.fused_logmel_from_frames_reference(tf)),
+                   float(np.abs(tone_got.double().cpu().numpy()
+                                - _mel_oracle(tf)).max()))
+    silent = tone_got[:tf.shape[0] // 4]
+    check(tone_err <= MEL_TOL and bool((silent == silent[0, 0]).all()),
+          f"K1 on silence and tones: {tone_err}")
+    refused = []
+    for what, bad, kw in (
+            ("misaligned", torch.zeros(4 * 512 + 1, device=dev)[1:].view(
+                4, 512), {}),
+            ("float64", torch.zeros(4, 512, device=dev, dtype=torch.float64),
+             {}),
+            ("200 bands", torch.zeros(4, 512, device=dev), {"n_mels": 200})):
+        try:
+            M.fused_logmel_from_frames(bad, **kw)
+        except (ValueError, TypeError):
+            refused.append(what)
+    check(len(refused) == 3, f"K1 refused only {refused}")
+    planted = _mel_planted_err(planted_lib)
+    check(planted > MEL_TOL, f"the planted twiddle fault passed: {planted}")
+    print(f"phase 36 K1 ragged: 60025 frames (a last group of 1) "
+          f"{rag[60025]:.3e}, 1 frame {rag[1]:.3e}; silence, a tone on bin "
+          f"40, DC and Nyquist (4 clips of 30 s) vs plain and fp64 "
+          f"{tone_err:.3e}; refused: {', '.join(refused)}; the kernel built "
+          f"with one twiddle's sign flipped (W_256^(7 n2), a process of its "
+          f"own) {planted:.3e} > {MEL_TOL}: refused", flush=True)
+
+    cfg = (ctypes.c_int * 4)()
+    _build.check(_build.load_library("mel_kernel"),
+                 _build.load_library("mel_kernel").maest_logmel_fft_config(
+                     cfg), "maest_logmel_fft_config")
+    fns = {"fft": lambda: M.fused_logmel_from_frames(frames),
+           "control": lambda: M.fused_logmel_from_frames_fma(frames),
+           "plain": lambda: M.fused_logmel_from_frames_reference(frames),
+           "stock": lambda: stock_frontend(frames)}
+    stock_err = max_err(fns["stock"](), fns["plain"]())
+    check(stock_err <= MEL_TOL, f"the stock front-end vs plain {stock_err}")
+    rows = {key: [] for key in fns}
+    for rnd in range(WG_ROUNDS):
+        order = list(fns) if rnd % 2 == 0 else list(fns)[::-1]
+        for key in order:
+            rows[key].append(graph_ms(fns[key], 10, dev, reps=1))
+        print(f"phase 36 K1 ({MEL_FRAMES}, 512) round {rnd + 1} CUDA-graph "
+              "ms: " + ", ".join(f"{key} {rows[key][-1]:.4f}" for key in fns)
+              + f" [{gpu}]", flush=True)
+    med = {key: float(np.median(ms)) for key, ms in rows.items()}
+    out["ms"]["K1"] = med
+    every = all(a < c for a, c in zip(rows["fft"], rows["control"]))
+    b_ms, b_by = bound(MEL_FRAMES * (512 + 96) * 4,
+                       {"fp32": mel_fft_ops(MEL_FRAMES)})
+    # the DFT as a product, the yardstick of the control and of the TPU
+    # kernel: in fp32 FMA, and in 3xTF32 on the tensor cores
+    dft = {k: bound(MEL_FRAMES * (512 + 96) * 4,
+                    {k: mel_dft_ops(MEL_FRAMES)})[0] for k in ("fp32", "tf32x3")}
+    kernel_split = _kernel_ms(fns["fft"], {"K1": (r"logmel_fft_kernel", 1)},
+                              med["fft"])
+    waves = torch.from_numpy(np.random.default_rng(37).standard_normal(
+        (BATCH, CLIP)).astype(np.float32) * 0.1).to(dev)
+    framing = _kernel_ms(lambda: frame_waveforms(waves),
+                         {"reflect pad": (r"reflection_pad1d", 1)})
+    print(f"phase 36 K1 ({MEL_FRAMES}, 512) medians of {WG_ROUNDS} rounds "
+          "(spread min-max): " + ", ".join(
+              f"{key} {med[key]:.4f} ({min(rows[key]):.4f}-"
+              f"{max(rows[key]):.4f})" for key in fns)
+          + f" ms; the FFT kernel beat the control in every round: {every}; "
+          f"bound {b_ms:.4f} ms ({b_by}: {MEL_FRAMES * 608 * 4 / 1e6:.1f} MB "
+          f"at 3.35 TB/s; {mel_fft_ops(MEL_FRAMES) / 1e9:.2f} GFLOP fp32), "
+          f"{b_ms / med['fft']:.0%} of it (the DFT as a product, "
+          f"{mel_dft_ops(MEL_FRAMES) / 1e9:.1f} GFLOP, would be bound at "
+          f"{dft['fp32']:.4f} ms in fp32 FMA, {dft['tf32x3']:.4f} in 3xTF32); "
+          f"launch: {cfg[1]} threads, "
+          f"{cfg[0]} B shared memory ({cfg[3]} B of frame ring), {cfg[2]} "
+          f"blocks an SM; by torch.profiler: {_fmt_ms(kernel_split)}; the "
+          f"framing pass (reflect pad, cat) alone {_fmt_ms(framing)}; the "
+          f"stock front-end vs plain {stock_err:.3e} [{gpu}]", flush=True)
+    check(every, f"the FFT kernel lost a round to its control {rows}")
+    del fns, frames
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "random-vitb.pt")
+        torch.save(sd, ckpt)
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            model = get_maest(ARCH, pretrained=False, checkpoint=ckpt,
+                              device=dev, dtype=dtype)
+            prog = BucketPrograms(model, buckets=(BATCH,), fused_wave=True)
+            steps = {"fft": [], "control": []}
+            try:
+                for rnd in range(WG_ROUNDS):
+                    order = ("fft", "control") if rnd % 2 == 0 else (
+                        "control", "fft")
+                    for r in order:
+                        M._K1_CONTROL = r == "control"
+                        M.fused_logmel_from_frames.launches = 0
+                        M.fused_logmel_from_frames_fma.launches = 0
+                        with torch.inference_mode():
+                            steps[r].append(cuda_ms(
+                                lambda: prog._activations(waves), 3))
+                        got = (M.fused_logmel_from_frames.launches,
+                               M.fused_logmel_from_frames_fma.launches)
+                        check(got == ((0, 4) if M._K1_CONTROL else (4, 0)),
+                              f"{name} tagging with the {r}: launches {got}")
+                        out["launches"][(name, r)] = sum(got)
+            finally:
+                M._K1_CONTROL = False
+            med = {r: float(np.median(ms)) for r, ms in steps.items()}
+            out["ms"][("tagging", name)] = med
+            won = sum(a < c for a, c in zip(steps["fft"], steps["control"]))
+            line = (f"phase 36 tagging {name}: batch-{BATCH} 30 s step (CUDA "
+                    f"events, 3 steps a round) medians of {WG_ROUNDS} rounds:"
+                    f" {med['fft']:.3f} ms with the FFT kernel, "
+                    f"{med['control']:.3f} with the FMA control "
+                    f"({med['control'] - med['fft']:+.3f}); rounds won by the "
+                    f"FFT kernel {won} of {WG_ROUNDS}; rounds " + ", ".join(
+                        f"{a:.3f}/{c:.3f}" for a, c in zip(
+                            steps["fft"], steps["control"]))
+                    + "; one K1 launch a step")
+            if dtype == torch.bfloat16:
+                with torch.inference_mode():
+                    split = _kernel_ms(
+                        lambda: prog._activations(waves),
+                        {"K1": (r"logmel_fft_kernel", 1),
+                         "reflect pad": (r"reflection_pad1d", 1)},
+                        med["fft"])
+                out["split"] = split
+                line += f"; the step by torch.profiler: {_fmt_ms(split)}"
+            print(line + f" [{gpu}]", flush=True)
+            del model, prog
+            torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on a GPU",
@@ -4538,6 +4936,7 @@ def main() -> int:
         k7_dq = pool.submit(build_planted_k7_dq)
         tf32_fwd = pool.submit(build_planted_tf32_fwd)
         tf32_bwd = pool.submit(build_planted_tf32_bwd)
+        mel_twiddle = pool.submit(build_planted_mel_twiddle)
         built = dict(zip(libs, pool.map(timed_build, libs)))
         planted_lib, planted_s = planted.result()
         no_mask_lib, no_mask_s = no_mask.result()
@@ -4545,6 +4944,7 @@ def main() -> int:
         k7_dq_lib, k7_dq_s = k7_dq.result()
         tf32_libs = (tf32_fwd.result(), tf32_bwd.result())
         q8w_libs = (q8w_no_mask.result(), q8w_half_away.result())
+        mel_lib, mel_s = mel_twiddle.result()
     wall = time.perf_counter() - t0
     for lib in libs:
         _build.load_library(lib)
@@ -4561,7 +4961,9 @@ def main() -> int:
           f"kernels, {tf32_libs[0][1]:.1f} and {tf32_libs[1][1]:.1f} s; phase "
           f"35's of attention_fwd_q8, the wgmma 8-bit forward's key mask "
           f"dropped and its pass rounding half away from zero, "
-          f"{q8w_libs[0][1]:.1f} and {q8w_libs[1][1]:.1f} s)", flush=True)
+          f"{q8w_libs[0][1]:.1f} and {q8w_libs[1][1]:.1f} s; phase 36's of "
+          f"mel_kernel, one twiddle's sign flipped, {mel_s:.1f} s)",
+          flush=True)
     for lib, (log, _) in built.items():  # empty where a build was reused
         print(f"phase 2 ptxas {lib}: " + "; ".join(ptxas_rows(log)),
               flush=True)
@@ -4663,6 +5065,23 @@ def main() -> int:
               f"{c['instructions']} instructions" for m, c in kinds.items())
           + "; ptxas: " + "; ".join(q8w_rows), flush=True)
 
+    # K1, the FFT kernel: no spill; its launch shape
+    mel_rows = [r for r in ptxas_rows(built["mel_kernel"][0])
+                if "logmel" in r]
+    fft_rows = [r for r in mel_rows if "logmel_fft_kernel" in r]
+    check(not mel_rows or len(fft_rows) == 1 and all(
+        r.endswith("spills 0/0 bytes") for r in fft_rows),
+        f"the FFT mel kernel spills: {mel_rows}")
+    cfg = (ctypes.c_int * 4)()
+    mel_so = _build.load_library("mel_kernel")
+    _build.check(mel_so, mel_so.maest_logmel_fft_config(cfg),
+                 "maest_logmel_fft_config")
+    check(cfg[2] >= 1, f"the FFT mel kernel fits no block on an SM {list(cfg)}")
+    print(f"phase 2 K1, the FFT kernel (mel_kernel.cu logmel_fft_kernel): "
+          f"{cfg[1]} threads, {cfg[0]} bytes of dynamic shared memory a block "
+          f"({cfg[3]} of them the ring of frame groups), {cfg[2]} blocks an "
+          f"SM; ptxas: " + "; ".join(mel_rows), flush=True)
+
     mel_err, attn_err = phase_kernels_vs_plain(dev)
     sd = phase_golden(dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -4700,11 +5119,13 @@ def main() -> int:
     tf = phase_tf32(dev, gpu, [p for p, _ in tf32_libs])
     q8w = phase_q8_wgmma(dev, gpu, sd, {"no_mask": q8w_libs[0][0],
                                         "half_away": q8w_libs[1][0]})
+    k1 = phase_mel_fft(dev, gpu, sd, mel_lib)
 
-    frames = BATCH * 1876  # frames of 32 clips of 30 s
-    mel_ops = frames * (512 + 4 * 512 * 257 + 3 * 257 + 2 * 257 * 96 + 96)
+    # K1: the bytes of the frames in and the log-mels out, and the FFT
+    # route's fp32 operations (the DFT as a product does ~40x more)
     bounds = {
-        "mel": bound(frames * (512 + 96) * 4, {"fp32": mel_ops}),
+        "mel": bound(MEL_FRAMES * (512 + 96) * 4,
+                     {"fp32": mel_fft_ops(MEL_FRAMES)}),
         "fwd": attn_bound(BATCH, 1676, 12),
         "fwd_lse": attn_bound(BATCH, 866, 12, lse=True),
         "bwd": bwd_bound(BATCH, 866, 12),
@@ -4758,9 +5179,22 @@ def main() -> int:
     bounds["bwd_rig"] = bwd_int8.bound("int8")
     bounds["bwd_rig_fp8"] = bwd_int8.bound("fp8")
     src = "maest_tpu_torch/csrc/"
+    # K1: the FFT kernel (launches on phase 6's main path, its largest error
+    # of phases 3 and 36, phase 36's CUDA-graph medians) and its FMA control
+    # (launches on phase 36's control steps); no one PyTorch call computes
+    # the front-end (phase 36 times the stock one as a yardstick)
+    m1 = k1["ms"]["K1"]
+    print(f"kernels line: fused_logmel is the FFT kernel, fused_logmel_fma "
+          f"its FMA control; phase 36's CUDA-graph medians at ({MEL_FRAMES}, "
+          f"512), the stock PyTorch front-end {m1['stock']:.4f} ms beside "
+          "them", flush=True)
     rows = [
         ("fused_logmel", "mel_kernel.cu", "maest_tpu/ops/mel_kernel.py:39",
-         launches["mel"], mel_err, t["mel"], "mel", None),
+         launches["mel"], max(mel_err, k1["err"]), (m1["fft"], m1["plain"]),
+         "mel", None),
+        ("fused_logmel_fma", "mel_kernel.cu", "maest_tpu/ops/mel_kernel.py:39",
+         k1["launches"][("bfloat16", "control")], k1["err_control"],
+         (m1["control"], m1["plain"]), "mel", None),
         ("attention_fwd", "attn_fwd_wgmma.cuh",
          "maest_tpu/ops/attention.py:176", launches["attention"], attn_err,
          t["bfloat16"], "fwd", lib["fwd"]),

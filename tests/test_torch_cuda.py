@@ -33,8 +33,11 @@ from maest_tpu_torch.ops.attention_probe import (
     attention_probe,
     attention_probe_reference,
 )
+from maest_tpu_torch.ops import mel_kernel
 from maest_tpu_torch.ops.mel_kernel import (
+    fused_logmel_fft_reference,
     fused_logmel_from_frames,
+    fused_logmel_from_frames_fma,
     fused_logmel_from_frames_reference,
 )
 from maest_tpu_torch.serve import TagService
@@ -81,6 +84,77 @@ def test_mel_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="n_fft"):
         fused_logmel_from_frames(torch.zeros(4, 256, device=cuda_device),
                                  n_fft=256)
+    with pytest.raises(ValueError, match="at most 128 bands"):
+        fused_logmel_from_frames(torch.zeros(4, 512, device=cuda_device),
+                                 n_mels=200)
+    for bad in (frames[1:].view(4, 512),
+                torch.zeros(4, 512, device=cuda_device, dtype=torch.float64)):
+        with pytest.raises((ValueError, TypeError)):
+            fused_logmel_from_frames_fma(bad)
+
+
+# the batch's frames of 32 clips of 30 s, and two ragged counts: the FFT
+# kernel's groups are 8 frames, so 60025 ends in a group of 1
+@pytest.mark.parametrize("m", [60032, 60025, 1])
+def test_mel_fft_kernel_matches_both_plain_versions(cuda_device, m):
+    frames = _rand((m, 512), 5, 0.1).to(cuda_device)
+    before = (fused_logmel_from_frames.launches,
+              fused_logmel_from_frames_fma.launches)
+    out = fused_logmel_from_frames(frames)
+    plain = fused_logmel_from_frames_reference(frames)
+    route = fused_logmel_fft_reference(frames)
+    torch.cuda.synchronize()
+    assert (fused_logmel_from_frames.launches,
+            fused_logmel_from_frames_fma.launches) == (before[0] + 1,
+                                                       before[1])
+    assert out.shape == (m, 96) and bool(torch.isfinite(out).all())
+    assert (out - plain).abs().max().item() <= 1e-4
+    assert (out - route).abs().max().item() <= 1e-4
+    raw = fused_logmel_from_frames(frames, normalize=False)
+    assert (raw - fused_logmel_from_frames_reference(
+        frames, normalize=False)).abs().max().item() <= 1e-4
+
+
+def test_mel_fft_kernel_on_silence_and_tones(cuda_device):
+    t = np.arange(16000)
+    waves = np.stack([np.zeros(16000), 0.5 * np.sin(2 * np.pi * 40 * t / 512),
+                      np.full(16000, 0.5), 0.5 * (-1.0) ** t]).astype(
+                          np.float32)
+    frames = frame_waveforms(torch.from_numpy(waves).to(cuda_device)).reshape(
+        -1, 512).contiguous()
+    out = fused_logmel_from_frames(frames)
+    ref = fused_logmel_from_frames_reference(frames)
+    assert (out - ref).abs().max().item() <= 1e-4
+    silent = out[:frames.shape[0] // 4]
+    assert bool((silent == silent[0, 0]).all())  # log10(1) everywhere
+
+
+def test_mel_fma_control_still_runs_and_agrees(cuda_device):
+    frames = _rand((60032, 512), 6, 0.1).to(cuda_device)
+    before = (fused_logmel_from_frames.launches,
+              fused_logmel_from_frames_fma.launches)
+    out = fused_logmel_from_frames_fma(frames)
+    torch.cuda.synchronize()
+    assert (fused_logmel_from_frames.launches,
+            fused_logmel_from_frames_fma.launches) == (before[0],
+                                                       before[1] + 1)
+    ref = fused_logmel_from_frames_reference(frames)
+    assert (out - ref).abs().max().item() <= 1e-4
+    assert (out - fused_logmel_from_frames(frames)).abs().max().item() <= 1e-4
+
+
+def test_mel_control_hook_routes_the_front_end(cuda_device, monkeypatch):
+    wave = _rand((2, 16000), 7, 0.2).to(cuda_device)
+    monkeypatch.setattr(mel_kernel, "_K1_CONTROL", True)
+    before = (fused_logmel_from_frames.launches,
+              fused_logmel_from_frames_fma.launches)
+    frames = frame_waveforms(wave).reshape(-1, 512).contiguous()
+    out = fused_logmel_from_frames(frames)
+    assert (fused_logmel_from_frames.launches,
+            fused_logmel_from_frames_fma.launches) == (before[0],
+                                                       before[1] + 1)
+    assert (out - fused_logmel_from_frames_reference(frames)).abs().max(
+    ).item() <= 1e-4
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
