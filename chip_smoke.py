@@ -4670,25 +4670,16 @@ def _mel_oracle(frames: torch.Tensor) -> np.ndarray:
     return (np.log10(1.0 + 1e4 * mel) - NORM_MEAN) / (2.0 * NORM_STD)
 
 
-def stock_frontend(frames: torch.Tensor) -> torch.Tensor:
+def stock_frontend(frames: torch.Tensor, window: torch.Tensor,
+                   fb: torch.Tensor) -> torch.Tensor:
     """The stock PyTorch front-end on the same frames, a yardstick that the
     port never calls: rfft of the windowed frames, power, the filterbank
     product, log10 and the z-norm."""
-    from maest_tpu_torch.dsp.filterbank import hann_window, mel_filterbank
     from maest_tpu_torch.dsp.mel import NORM_MEAN, NORM_STD
 
-    key = ("stock", frames.device)
-    if key not in _STOCK:
-        _STOCK[key] = (torch.from_numpy(hann_window(512)).to(frames.device),
-                       torch.from_numpy(mel_filterbank(257, 96, SR)).to(
-                           frames.device))
-    window, fb = _STOCK[key]
     spec = torch.fft.rfft(frames * window, dim=1)
     mel = (spec.real.square() + spec.imag.square()) @ fb
     return (torch.log10(1.0 + mel * 1e4) - NORM_MEAN) * (0.5 / NORM_STD)
-
-
-_STOCK: dict = {}
 
 
 def phase_mel_fft(dev, gpu, sd, planted_lib):
@@ -4711,8 +4702,8 @@ def phase_mel_fft(dev, gpu, sd, planted_lib):
     CUDA events over 3 steps a round after one, the counters checked on
     each. Returns the errors, the medians and the launches."""
     from maest_tpu_torch import get_maest
+    from maest_tpu_torch.dsp.filterbank import hann_window, mel_filterbank
     from maest_tpu_torch.dsp.mel import frame_waveforms
-    from maest_tpu_torch.ops import _build
     from maest_tpu_torch.ops import mel_kernel as M
     from maest_tpu_torch.probes.attn_profile import graph_ms
     from maest_tpu_torch.serve import BucketPrograms
@@ -4793,14 +4784,12 @@ def phase_mel_fft(dev, gpu, sd, planted_lib):
           f"with one twiddle's sign flipped (W_256^(7 n2), a process of its "
           f"own) {planted:.3e} > {MEL_TOL}: refused", flush=True)
 
-    cfg = (ctypes.c_int * 4)()
-    _build.check(_build.load_library("mel_kernel"),
-                 _build.load_library("mel_kernel").maest_logmel_fft_config(
-                     cfg), "maest_logmel_fft_config")
+    window = torch.from_numpy(hann_window(512)).to(dev)
+    fb = torch.from_numpy(mel_filterbank(257, 96, SR)).to(dev)
     fns = {"fft": lambda: M.fused_logmel_from_frames(frames),
            "control": lambda: M.fused_logmel_from_frames_fma(frames),
            "plain": lambda: M.fused_logmel_from_frames_reference(frames),
-           "stock": lambda: stock_frontend(frames)}
+           "stock": lambda: stock_frontend(frames, window, fb)}
     stock_err = max_err(fns["stock"](), fns["plain"]())
     check(stock_err <= MEL_TOL, f"the stock front-end vs plain {stock_err}")
     rows = {key: [] for key in fns}
@@ -4836,9 +4825,7 @@ def phase_mel_fft(dev, gpu, sd, planted_lib):
           f"{b_ms / med['fft']:.0%} of it (the DFT as a product, "
           f"{mel_dft_ops(MEL_FRAMES) / 1e9:.1f} GFLOP, would be bound at "
           f"{dft['fp32']:.4f} ms in fp32 FMA, {dft['tf32x3']:.4f} in 3xTF32); "
-          f"launch: {cfg[1]} threads, "
-          f"{cfg[0]} B shared memory ({cfg[3]} B of frame ring), {cfg[2]} "
-          f"blocks an SM; by torch.profiler: {_fmt_ms(kernel_split)}; the "
+          f"by torch.profiler: {_fmt_ms(kernel_split)}; the "
           f"framing pass (reflect pad, cat) alone {_fmt_ms(framing)}; the "
           f"stock front-end vs plain {stock_err:.3e} [{gpu}]", flush=True)
     check(every, f"the FFT kernel lost a round to its control {rows}")
