@@ -129,10 +129,18 @@ the kernel, its FMA control (``fused_logmel_from_frames_fma``), plain and
 the stock PyTorch front-end timed by CUDA-graph replays in interleaved
 rounds, split by torch.profiler with the framing pass and the bf16
 tagging step; and the bf16 and fp32 tagging steps with the kernel and
-with the control in turn (36). A split by torch.profiler is printed only
-from a trace that holds every launch its route makes, by name and count,
-and a device total within SPLIT_SHARE of the call's time; else "not
-measured" and why. Phase 2 also counts the wgmma and TMA instructions in
+with the control in turn (36). Last the training CLI,
+``maest_tpu_torch.apps.ex_maest.run(["main", "with",
+"maest_10s_random_weights_pretrain", ...])`` in process on a synthetic
+corpus: the native reader, the batch loader, the prefetch onto the card
+and the Trainer for 2 epochs at full width with the launch counters
+reset (K3a and K3b 12 a step, K2 12 an eval batch, the controls never),
+its checkpoints, a run resumed from epoch-0 held to the uninterrupted
+one, ``test`` and ``extract_embeddings`` on ``best``, and the Trainer's
+step timed beside the bare recipe step (37). A split by torch.profiler
+is printed only from a trace that holds every launch its route makes, by
+name and count, and a device total within SPLIT_SHARE of the call's
+time; else "not measured" and why. Phase 2 also counts the wgmma and TMA instructions in
 the SASS of the wgmma kernels, prints the FFT kernel's launch shape and
 checks that the production kernels spill nothing.
 Every phase
@@ -4885,6 +4893,278 @@ def phase_mel_fft(dev, gpu, sd, planted_lib):
     return out
 
 
+# phase 37: the training CLI, ``ex_maest main`` with the 10 s pre-training
+# preset at full width on a synthetic corpus
+CLI_PRESET = "maest_10s_random_weights_pretrain"
+CLI_FILES = 48        # 48 files a batch of 12: 4 train steps an epoch
+CLI_RESUME_FILES = 24
+# the largest parameter difference between a run resumed from epoch-0 and
+# the uninterrupted run, after epoch 1: the same draws (seeded by step),
+# the same kernels (K3b sums dq in a fixed order) and the state restored
+# bit for bit give 0; the bound leaves room for a reduction of another
+# order, far below what epoch 1 moves a parameter (printed beside it; the
+# resume runs raise the learning rate so that it moves them by ~1e-4)
+CLI_RESUME_TOL = 1e-6
+CLI_RESUME_LR = ("module.optimizer.lr=0.001", "module.optimizer.warm_up_len=1")
+
+
+def _cli_corpus(root: Path, n: int, frames, seed: int) -> None:
+    """``n`` float16 .mmap files of 96 bands, ``frames(rng)`` frames each,
+    and one 400-class multi-hot groundtruth pickle for every split."""
+    import pickle
+
+    root.mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    gt = {}
+    for i in range(n):
+        name = f"track{i:03d}.mmap"
+        (rng.standard_normal((frames(rng), 96)) * 1.3 + 2.0).astype(
+            np.float16).tofile(root / name)
+        y = (rng.random(400) < 0.02).astype(np.float16)
+        y[rng.integers(0, 400, 2)] = 1.0
+        gt[name] = y
+    for split in ("train", "val", "test", "predict"):
+        with open(root / f"gt_{split}.pk", "wb") as f:
+            pickle.dump(gt, f)
+
+
+def _cli_overrides(corpus: Path, out: Path, epoch_len: int, extra=()):
+    return [f"datamodule.base_dir='{corpus}'",
+            *(f"datamodule.groundtruth_{s}='{corpus}/gt_{s}.pk'"
+              for s in ("train", "val", "test", "predict")),
+            f"datamodule.sampler.epoch_len={epoch_len}",
+            "trainer.max_epochs=2", "module.swa_epoch_start=1",
+            "trainer.limit_val_batches=2", "trainer.log_every_n_steps=1",
+            f"trainer.default_root_dir='{out}/runs'",
+            f"predict.out_dir='{out}/predict'", *extra]
+
+
+def _cli_run_dir(out: Path) -> Path:
+    (run,) = (out / "runs").iterdir()
+    return run
+
+
+def _cli_record(run: Path) -> tuple[dict, list]:
+    record = json.loads((run / "run.json").read_text())
+    metrics = [json.loads(s) for s in
+               (run / "metrics.jsonl").read_text().splitlines()]
+    return record, metrics
+
+
+def _cli_counters():
+    from maest_tpu_torch.ops import attention as A
+    return {"K2": A.flash_attention, "K3a": A.flash_attention_fwd_lse,
+            "K3b": A.attention_bwd, "attention_fwd_mma": A.attention_fwd_mma,
+            "attention_bwd_mma": A.attention_bwd_mma,
+            "attention_fwd_fp32_fma": A.attention_fwd_fp32_fma,
+            "attention_bwd_fp32_fma": A.attention_bwd_fp32_fma}
+
+
+def _cli_params(run: Path, tag: str) -> dict:
+    from maest_tpu_torch.train.loop import read_checkpoint
+    return read_checkpoint(run / "checkpoints" / tag)["params"]
+
+
+def phase_trainer_cli(dev, gpu):
+    """Phase 37: the training CLI. ``maest_tpu_torch.apps.ex_maest.run``
+    in process: ``main with maest_10s_random_weights_pretrain`` (ViT-B,
+    12 blocks, bf16 over fp32 parameters, batch 12, N 281 with s patchout
+    t 30, SpecAugment and mixup on, random weights) for 2 epochs of 4
+    steps on 48 synthetic files of 640-1900 frames, through the native
+    reader, ``BatchLoader``, ``device_prefetch`` and the ``Trainer``, with
+    the launch counters reset: K3a and K3b 12 a step, K2 12 an eval batch
+    for the live and the SWA weights, the control kernels never; a run
+    resumed from epoch-0 against the uninterrupted one on files of exactly
+    one clip; ``test`` and ``extract_embeddings`` on ``best``. Times the
+    Trainer's step by CUDA events beside the bare recipe step at the same
+    shape, and the loop's time between steps."""
+    import gc
+
+    from maest_tpu_torch import native
+    from maest_tpu_torch.apps import ex_maest
+    from maest_tpu_torch.train import loop
+    from maest_tpu_torch.utils.profiling import StepTimer
+
+    t_phase = time.perf_counter()
+    check(native.available(), "the native mel reader did not build (g++)")
+    counters = _cli_counters()
+    timer = StepTimer(warmup=1, device=dev)  # leaves out epoch 0's first step
+    spans = []  # host (start, end) of every train step
+    real = loop.make_train_step
+
+    def timed_make(*args, **kw):
+        step = real(*args, **kw)
+
+        def timed(state, batch, generator=None, draws=None):
+            t0 = time.perf_counter()
+            timer.start()
+            out = step(state, batch, generator, draws)
+            timer.stop()
+            spans.append((t0, time.perf_counter()))
+            return out
+
+        return timed
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _cli_corpus(tmp / "corpus", CLI_FILES,
+                    lambda r: int(r.integers(640, 1901)), 37)
+        main_out = tmp / "main"
+        argv = ["main", "with", CLI_PRESET,
+                *_cli_overrides(tmp / "corpus", main_out, CLI_FILES)]
+        for c in counters.values():
+            c.launches = 0
+        loop.make_train_step = timed_make
+        try:
+            t0 = time.perf_counter()
+            res = ex_maest.run(argv)
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t0
+        finally:
+            loop.make_train_step = real
+        launches = {k: c.launches for k, c in counters.items()}
+        run = _cli_run_dir(main_out)
+        record, metrics = _cli_record(run)
+        steps = 2 * CLI_FILES // 12
+        losses = [m["value"] for m in metrics if m["name"] == "train_loss"]
+        skipped = [m["value"] for m in metrics
+                   if m["name"] == "nonfinite_skipped"]
+        val = {(m["name"], m["step"]): m["value"] for m in metrics
+               if m["name"].startswith("val_")}
+        check(res == {"done": True} and record["status"] == "COMPLETED",
+              f"ex_maest main: {res}, run.json {record['status']}")
+        check(len(losses) == steps and all(np.isfinite(losses))
+              and skipped == [0.0] * steps,
+              f"train losses {losses}, nonfinite_skipped {skipped}")
+        ckpts = run / "checkpoints"
+        check(all((ckpts / t).is_dir() and (ckpts / f"{t}.meta.json").exists()
+                  for t in ("epoch-0", "epoch-1", "best")),
+              f"checkpoints {sorted(p.name for p in ckpts.iterdir())}")
+        check(all(np.isfinite(v) for (n, _), v in val.items()
+                  if "loss" in n) and len(val) == 12,
+              f"val metrics {val}")
+        # eval: 2 val batches an epoch, the live and the SWA weights
+        want = {"K2": 12 * 2 * 2 * 2, "K3a": 12 * steps, "K3b": 12 * steps}
+        check(all(launches[k] == n for k, n in want.items())
+              and not any(n for k, n in launches.items() if k not in want),
+              f"launches on the CLI's run {launches}, wanted {want} and no "
+              "control")
+        # the loop's time between steps within an epoch (the loader's
+        # wait, the step's generator and the metrics log): epoch starts
+        # follow the eval and the checkpoint, so they are left out
+        per_epoch = steps // 2
+        gaps = [spans[i][0] - spans[i - 1][1] for i in range(len(spans))
+                if i % per_epoch]
+        busy = [spans[i][1] - spans[i][0] for i in range(len(spans))
+                if i % per_epoch]
+        wait_share = sum(gaps) / (sum(gaps) + sum(busy))
+        trainer_ms = [t * 1e3 for t in timer.times]
+        print(f"phase 37 training CLI: ex_maest main with {CLI_PRESET} "
+              f"(ViT-B, bf16 over fp32 parameters, batch 12, N 281) on "
+              f"{CLI_FILES} synthetic files of 640-1900 frames, 2 epochs of "
+              f"{per_epoch} steps, native reader {native.available()}: "
+              f"run.json {record['status']}, losses "
+              f"{[round(v, 6) for v in losses]}, nonfinite_skipped 0, "
+              f"val_loss {val[('val_loss', 0)]:.6f} / "
+              f"{val[('val_loss', 1)]:.6f}, val_ap {val[('val_ap', 1)]:.6f}, "
+              f"val_loss_swa {val[('val_loss_swa', 1)]:.6f}; checkpoints "
+              f"epoch-0, epoch-1, best with markers; launches {launches}; "
+              f"{main_s:.1f} s", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the bare recipe step at the Trainer's shape, on the card's data
+        cfg, mcfg, net, state, step, data = _recipe(dev, CLI_PRESET, 12, 37)
+        bare = StepTimer(warmup=2, device=dev)
+        for i in range(7):
+            gen = torch.Generator().manual_seed(i)
+            bare.start()
+            state, m = step(state, data, gen)
+            bare.stop()
+        check(np.isfinite(m["train_loss"]), "bare step loss")
+        bare_ms = [t * 1e3 for t in bare.times]
+        del cfg, mcfg, net, state, step, data
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase 37 time: the Trainer's step (CUDA events, epoch 0's "
+              f"first step left out, {len(trainer_ms)} steps) median "
+              f"{np.median(trainer_ms):.3f} ms (steps "
+              f"{', '.join(f'{t:.3f}' for t in trainer_ms)}); the bare recipe "
+              f"step at the same shape (_recipe, {CLI_PRESET}, batch 12) "
+              f"median {np.median(bare_ms):.3f} ms (steps "
+              f"{', '.join(f'{t:.3f}' for t in bare_ms)}); the loop's time "
+              f"between steps within an epoch {sum(gaps) * 1e3:.3f} ms over "
+              f"{len(gaps)} gaps = {100 * wait_share:.2f} % of their steps' "
+              f"wall time [{gpu}]", flush=True)
+
+        # resume: files of exactly one clip (625 frames), so every train
+        # crop starts at 0; two epochs, then epoch 1 again from epoch-0
+        _cli_corpus(tmp / "clips", CLI_RESUME_FILES, lambda r: 625, 38)
+        resume = {}
+        for name, extra in (("full", CLI_RESUME_LR), ("resumed", None)):
+            out = tmp / name
+            if extra is None:
+                start = _cli_run_dir(tmp / "full") / "checkpoints" / "epoch-0"
+                extra = (*CLI_RESUME_LR, f"ckpt_path='{start}'")
+            argv = ["main", "with", CLI_PRESET, *_cli_overrides(
+                tmp / "clips", out, CLI_RESUME_FILES, extra)]
+            check(ex_maest.run(argv) == {"done": True}, f"resume run {name}")
+            resume[name] = _cli_run_dir(out)
+        full = _cli_params(resume["full"], "epoch-1")
+        again = _cli_params(resume["resumed"], "epoch-1")
+        before = _cli_params(resume["full"], "epoch-0")
+        diff = max((full[k] - again[k]).abs().max().item() for k in full)
+        moved = max((full[k] - before[k]).abs().max().item() for k in full)
+        meta = json.loads((resume["resumed"] / "checkpoints" /
+                           "epoch-1.meta.json").read_text())
+        check(diff <= CLI_RESUME_TOL and moved > 10 * CLI_RESUME_TOL
+              and meta["epoch"] == 1
+              and not (resume["resumed"] / "checkpoints" / "epoch-0").exists(),
+              f"resume from epoch-0: largest parameter difference {diff} "
+              f"(bound {CLI_RESUME_TOL}), epoch 1 moved {moved}, meta {meta}")
+        print(f"phase 37 resume: {CLI_RESUME_FILES} files of 625 frames, 2 "
+              f"epochs of 2 steps, then epoch 1 again from epoch-0: largest "
+              f"parameter difference after epoch 1 {diff:.3e} (bound "
+              f"{CLI_RESUME_TOL:.0e}); epoch 1 moved a parameter by up to "
+              f"{moved:.3e}", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # test and extract_embeddings on the main run's best checkpoint
+        best = f"ckpt_path='{ckpts / 'best'}'"
+        for c in counters.values():
+            c.launches = 0
+        test = ex_maest.run(["test", "with", CLI_PRESET, *_cli_overrides(
+            tmp / "corpus", tmp / "test", CLI_FILES, (best,))])
+        test_k2 = counters["K2"].launches
+        check(sorted(test) == ["test_ap", "test_loss", "test_roc"]
+              and all(np.isfinite(v) for v in test.values()),
+              f"ex_maest test: {test}")
+        ext = ex_maest.run(["extract_embeddings", "with", CLI_PRESET,
+                            *_cli_overrides(tmp / "corpus", tmp / "ext",
+                                            CLI_FILES, (best,))])
+        files = sorted(Path(ext["out_dir"]).glob("*.embeddings.npy"))
+        shapes = {}
+        for f in files:
+            frames = (tmp / "corpus" / f.name.split(".")[0]).with_suffix(
+                ".mmap").stat().st_size // (2 * 96)
+            windows = min(int(frames * 1.1 // 625), -(-frames // 625))
+            e = np.load(f)
+            shapes[e.shape] = shapes.get(e.shape, 0) + 1
+            check(e.shape == (windows, 3 * 768) and np.isfinite(e).all(),
+                  f"{f.name}: {e.shape}, wanted ({windows}, 2304)")
+        check(ext["n_files"] == len(files) == CLI_FILES,
+              f"extract_embeddings: {ext['n_files']} files, {len(files)} .npy")
+        print(f"phase 37 test on best (live weights only): "
+              + ", ".join(f"{k} {v:.6f}" for k, v in sorted(test.items()))
+              + f", K2 launches {test_k2}; extract_embeddings: "
+              f"{len(files)} files, shapes {shapes}; phase "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {k: launches[k] for k in ("K2", "K3a", "K3b")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on a GPU",
@@ -5107,6 +5387,7 @@ def main() -> int:
     q8w = phase_q8_wgmma(dev, gpu, sd, {"no_mask": q8w_libs[0][0],
                                         "half_away": q8w_libs[1][0]})
     k1 = phase_mel_fft(dev, gpu, sd, mel_lib)
+    cli = phase_trainer_cli(dev, gpu)
 
     # K1: the bytes of the frames in and the log-mels out, and the FFT
     # route's fp32 operations (the DFT as a product does ~40x more)
@@ -5171,6 +5452,11 @@ def main() -> int:
     # (launches on phase 36's control steps); no one PyTorch call computes
     # the front-end (phase 36 times the stock one as a yardstick)
     m1 = k1["ms"]["K1"]
+    print(f"kernels line: the launches of attention_fwd (K2), "
+          f"attention_fwd_lse (K3a) and attention_bwd (K3b) are the tagging "
+          f"path's (phase 6) and the 30 s recipe steps' (phase 11) with the "
+          f"training CLI's (phase 37: {cli['K2']}, {cli['K3a']}, "
+          f"{cli['K3b']})", flush=True)
     print(f"kernels line: fused_logmel is the FFT kernel, fused_logmel_fma "
           f"its FMA control; phase 36's CUDA-graph medians at ({MEL_FRAMES}, "
           f"512), the stock PyTorch front-end {m1['stock']:.4f} ms beside "
@@ -5183,14 +5469,15 @@ def main() -> int:
          k1["launches"][("bfloat16", "control")], k1["err_control"],
          (m1["control"], m1["plain"]), "mel", None),
         ("attention_fwd", "attn_fwd_wgmma.cuh",
-         "maest_tpu/ops/attention.py:176", launches["attention"], attn_err,
-         t["bfloat16"], "fwd", lib["fwd"]),
+         "maest_tpu/ops/attention.py:176", launches["attention"] + cli["K2"],
+         attn_err, t["bfloat16"], "fwd", lib["fwd"]),
         ("attention_fwd_lse", "attn_fwd_wgmma.cuh",
-         "maest_tpu/ops/attention.py:404", train_launches["fwd_lse"],
+         "maest_tpu/ops/attention.py:404",
+         train_launches["fwd_lse"] + cli["K3a"],
          max(train_err["o"], train_err["lse"]), tt["fwd_lse"], "fwd_lse",
          lib["fwd_lse"]),
         ("attention_bwd", "attn_bwd_wgmma.cuh",
-         "maest_tpu/ops/attention.py:483", train_launches["bwd"],
+         "maest_tpu/ops/attention.py:483", train_launches["bwd"] + cli["K3b"],
          max(train_err[w] for w in ("dq", "dk", "dv")), tt["bwd"], "bwd",
          lib["bwd"]),
         ("attention_bwd_int8", "attn_bwd_q8_wgmma.cuh",

@@ -1,0 +1,758 @@
+"""Training/eval/predict loops, port of ``maest_tpu/train/loop.py``.
+
+The reference's Lightning plumbing (reference: ex_maest.py:72-233,
+models/module.py:44-349) on one card: an eager train step (the
+attention kernels K3a and K3b), host-side epoch orchestration,
+``torch.save`` checkpoints (best-on-val-loss + every-epoch, reference:
+models/module.py:256-264) committed on a background thread, SWA
+averaging, numpy macro AP/ROC, TensorBoard scalars when ``tensorboardX``
+is installed. Data parallelism, FSDP, tensor, sequence and pipeline
+parallelism are not ported yet and are refused (ROADMAP queue 1 item 4).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import shutil
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..api import get_maest
+from ..data import (
+    BatchLoader,
+    DatasetConfig,
+    ExhaustiveMelDataset,
+    ExhaustiveMelDatasetTS,
+    MelChunkDataset,
+    MelChunkDatasetTS,
+    class_balanced_weights_streaming,
+    device_prefetch,
+    weighted_epoch_indices,
+)
+from ..models.vit import MAESTNet
+from .metrics import macro_ap_roc
+from .schedules import make_schedule
+from .state import TrainState, make_optimizer, swa_update
+from .steps import augment_config, make_eval_step, make_predict_step, make_train_step
+
+_logger = logging.getLogger("maest_tpu_torch.train")
+
+_PARALLEL = "is not ported yet (ROADMAP queue 1 item 4, parallelism)"
+
+
+def _build_model(cfg: dict, dtype, device="cpu"):
+    """``get_maest`` with the experiment's model keys: float32 parameters
+    (released or ``checkpoint`` weights loaded) on ``device``."""
+    m = cfg["maest"]
+    return get_maest(
+        arch=m["arch"],
+        pretrained=m["pretrained"],
+        n_classes=m["n_classes"],
+        in_channels=m["in_channels"],
+        stride_f=m["stride_f"],
+        stride_t=m["stride_t"],
+        input_f=m["input_f"],
+        input_t=m["input_t"],
+        u_patchout=m["u_patchout"],
+        s_patchout_t=m["s_patchout_t"],
+        s_patchout_f=m["s_patchout_f"],
+        s_patchout_f_indices=tuple(m["s_patchout_f_indices"]),
+        s_patchout_f_interleaved=m["s_patchout_f_interleaved"],
+        s_patchout_t_indices=tuple(m["s_patchout_t_indices"]),
+        s_patchout_t_interleaved=m["s_patchout_t_interleaved"],
+        distilled_type=m["distilled_type"],
+        checkpoint=m["checkpoint"],
+        checkpoint_swa_weights=m["checkpoint_swa_weights"],
+        checkpoint_discard_head=m["checkpoint_discard_head"],
+        dtype=dtype,
+        device=device,
+        seed=cfg.get("seed", 0),
+        embed_dim=m.get("embed_dim", 768),
+        depth=m.get("depth", 12),
+        num_heads=m.get("num_heads", 12),
+        remat=m.get("remat", False),
+        remat_policy=m.get("remat_policy", "full"),
+        attention_quant=m.get("attention_quant", "none"),
+        attention_bwd_quant=m.get("attention_bwd_quant", "none"),
+    )
+
+
+def _training_net(cfg: dict, dtype, device) -> MAESTNet:
+    """The net the step trains: ``dtype`` compute over float32 parameters
+    on ``device``, holding ``get_maest``'s weights."""
+    wrapper = _build_model(cfg, torch.float32)
+    net = MAESTNet(wrapper.cfg, dtype=dtype, param_dtype=torch.float32)
+    net.load_state_dict(wrapper.net.state_dict())
+    return net.to(device)
+
+
+def _dataset_cfg(cfg: dict) -> DatasetConfig:
+    ds = cfg["dataset"]
+    return DatasetConfig(
+        sample_rate=ds["sample_rate"],
+        hop_size=ds["hop_size"],
+        n_bands=ds["n_bands"],
+        clip_length=cfg["datamodule"]["clip_length"],
+    )
+
+
+def swa_epoch_window(swa_epoch_start: int, max_epochs: int,
+                     epoch: int) -> bool:
+    """Does this END-of-(0-based)-``epoch`` moment fall in Lightning's SWA
+    averaging window? (``maest_tpu/train/loop.py::swa_epoch_window``:
+    Lightning averages after epochs swa_epoch_start-2..max_epochs-2.)"""
+    return swa_epoch_start - 2 <= epoch <= max_epochs - 2
+
+
+def _precision_dtype(precision: str):
+    return {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+            "fp32": torch.float32, "32": torch.float32,
+            "16-mixed": torch.bfloat16}[str(precision)]
+
+
+def _refuse_parallel(tr: dict) -> None:
+    """The launch modes of the JAX Trainer the port has not ported yet."""
+    if int(tr.get("devices") or 1) > 1:
+        raise NotImplementedError(f"trainer.devices={tr['devices']}: data "
+                                  f"parallelism {_PARALLEL}")
+    if int(tr.get("model_parallel") or 1) > 1:
+        raise NotImplementedError(
+            f"trainer.model_parallel={tr['model_parallel']}: tensor "
+            f"parallelism {_PARALLEL}")
+    if tr.get("fsdp"):
+        raise NotImplementedError(f"trainer.fsdp: FSDP {_PARALLEL}")
+    if int(tr.get("pipeline_parallel") or 0) > 1:
+        raise NotImplementedError(
+            f"trainer.pipeline_parallel={tr['pipeline_parallel']}: pipeline "
+            f"parallelism {_PARALLEL}")
+    if tr.get("sequence_parallel"):
+        raise NotImplementedError(
+            f"trainer.sequence_parallel: sequence parallelism {_PARALLEL}")
+    world = int(os.environ.get("WORLD_SIZE", "1") or 1)
+    dist = torch.distributed
+    if world > 1 or (dist.is_available() and dist.is_initialized()
+                     and dist.get_world_size() > 1):
+        raise NotImplementedError(f"a multi-process launch {_PARALLEL}")
+
+
+def _step_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of train step ``step``'s draws: seeded from (seed,
+    step), so the draws are fixed per step and survive a resume."""
+    key = np.random.SeedSequence((int(seed), int(step))).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(key))
+
+
+# -- checkpoints ----------------------------------------------------------
+
+_STATE_FILE = "state.pt"
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu", copy=True)
+
+
+def state_snapshot(state: TrainState) -> dict:
+    """A host copy of ``state``: ``params``, ``opt_state`` (Adam's ``mu``,
+    ``nu`` and ``count``, the accumulator and its ``mini_step``),
+    ``swa_params``, ``swa_n`` and ``step``. Parameters are keyed by their
+    ``named_parameters`` names; ``mu``/``nu`` hold the parameters the
+    optimizer has state for."""
+    named = dict(state.model.named_parameters())
+    mu, nu = {}, {}
+    for name, p in named.items():
+        s = state.optimizer.state.get(p)
+        if s:
+            mu[name] = _host_copy(s["exp_avg"])
+            nu[name] = _host_copy(s["exp_avg_sq"])
+    return {
+        "params": {k: _host_copy(p) for k, p in named.items()},
+        "opt_state": {
+            "mu": mu, "nu": nu, "count": int(state.count),
+            "accum": {k: _host_copy(v) for k, v in state.accum.items()},
+            "mini_step": int(state.mini_step),
+        },
+        "swa_params": {k: _host_copy(v) for k, v in state.swa_params.items()},
+        "swa_n": int(state.swa_n),
+        "step": int(state.step),
+    }
+
+
+def write_checkpoint(path, snapshot: dict) -> Path:
+    """Write ``snapshot`` as the checkpoint directory ``path``: into a
+    private temporary directory first, then renamed into place, so a
+    reader never sees half a checkpoint (an older one at ``path`` is
+    replaced)."""
+    path = Path(path).absolute()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir()
+    torch.save(snapshot, tmp / _STATE_FILE)
+    if path.exists():
+        old = path.with_name(f"{path.name}.old{os.getpid()}")
+        shutil.rmtree(old, ignore_errors=True)
+        os.replace(path, old)
+        os.replace(tmp, path)
+        shutil.rmtree(old, ignore_errors=True)
+    else:
+        os.replace(tmp, path)
+    return path
+
+
+def read_checkpoint(path) -> dict:
+    """The snapshot of the checkpoint directory ``path``, on the host."""
+    return torch.load(Path(path) / _STATE_FILE, map_location="cpu",
+                      weights_only=True)
+
+
+def load_snapshot(state: TrainState, snap: dict) -> TrainState:
+    """Copy a snapshot into ``state`` (its module, optimizer, SWA buffer
+    and counters) in place."""
+    named = dict(state.model.named_parameters())
+    if set(snap["params"]) != set(named):
+        raise ValueError(
+            "checkpoint parameters do not match the model: missing "
+            f"{sorted(set(named) - set(snap['params']))}, unexpected "
+            f"{sorted(set(snap['params']) - set(named))}")
+    opt = snap["opt_state"]
+    with torch.no_grad():
+        for k, p in named.items():
+            v = snap["params"][k]
+            if v.shape != p.shape:
+                raise ValueError(f"shape mismatch for {k}: {tuple(v.shape)} "
+                                 f"vs {tuple(p.shape)}")
+            p.copy_(v)
+        for k, v in snap["swa_params"].items():
+            state.swa_params[k].copy_(v)
+        for k, v in opt["accum"].items():
+            state.accum[k].copy_(v)
+    state.optimizer.state.clear()
+    for k, m in opt["mu"].items():
+        p = named[k]
+        state.optimizer.state[p] = {
+            "step": torch.tensor(float(opt["count"])),
+            "exp_avg": m.to(p.device),
+            "exp_avg_sq": opt["nu"][k].to(p.device),
+        }
+    state.count = int(opt["count"])
+    state.mini_step = int(opt["mini_step"])
+    state.swa_n = int(snap["swa_n"])
+    state.step = int(snap["step"])
+    return state
+
+
+class Trainer:
+    """End-to-end pre-training run (reference `main`, ex_maest.py:72-91)
+    on one card: ``device`` is where the net trains ("cuda" unless the
+    caller asks for the CPU)."""
+
+    def __init__(self, cfg: dict, run_dir: Optional[str] = None,
+                 run_info: Optional[dict] = None, device="cuda"):
+        self.cfg = cfg
+        self._run_info = run_info
+        tr = cfg["trainer"]
+        _refuse_parallel(tr)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' requested but torch finds no "
+                               "CUDA device")
+        self.dtype = _precision_dtype(tr["precision"])
+        self.teacher_student = cfg["datamodule"]["teacher_student"]["do"]
+        self.aug = augment_config(cfg)
+
+        self.net = _training_net(cfg, self.dtype, self.device)
+
+        opt = cfg["module"]["optimizer"]
+        epoch_len = cfg["datamodule"]["sampler"]["epoch_len"]
+        self.global_batch = cfg["datamodule"]["batch_size_train"]
+        self.steps_per_epoch = max(1, epoch_len // self.global_batch)
+        if tr["limit_train_batches"]:
+            self.steps_per_epoch = min(self.steps_per_epoch, tr["limit_train_batches"])
+        accum = int(tr.get("accumulate_grad_batches") or 1)
+        # the LR schedule advances per OPTIMIZER step, so steps-per-epoch
+        # scales down by the accumulation factor (fractional on purpose)
+        schedule = make_schedule(
+            opt["schedule_mode"], opt["lr"],
+            self.steps_per_epoch / accum if accum > 1 else self.steps_per_epoch,
+            warm_up_len=opt["warm_up_len"],
+            ramp_down_start=opt["ramp_down_start"],
+            ramp_down_len=opt["ramp_down_len"],
+            last_lr_value=opt["last_lr_value"],
+            # Lightning SWA replaces the scheduler with SWALR from the SWA
+            # swap epoch (reference: models/module.py:268-273)
+            do_swa=cfg["module"]["do_swa"],
+            swa_epoch_start=cfg["module"]["swa_epoch_start"],
+            swa_lr=cfg["module"]["swa_lrs"],
+        )
+        self.tx = make_optimizer(
+            lr_schedule=schedule, adamw=opt["adamw"],
+            weight_decay=opt["weight_decay"],
+            accumulate_steps=accum,
+        )
+        self.state = TrainState.create(self.net, self.tx,
+                                       with_swa=cfg["module"]["do_swa"])
+        self.train_step = make_train_step(
+            self.net, self.tx, self.aug,
+            teacher_student=self.teacher_student,
+        )
+        self.eval_step = make_eval_step(self.net, self.aug,
+                                        with_swa=cfg["module"]["do_swa"])
+
+        stamp = time.strftime("%y%m%d-%H%M%S")  # fixed 13 chars
+        self.run_dir = Path(run_dir or tr["default_root_dir"]) / stamp
+        self.run_dir.mkdir(parents=True, exist_ok=True)
+        from ..utils.run_record import MetricsLog, write_run_json
+
+        (self.run_dir / "config.json").write_text(
+            json.dumps(cfg, indent=2, default=str)
+        )
+        write_run_json(self.run_dir, cfg, self._run_info)
+        self.metrics_log = MetricsLog(self.run_dir / "metrics.jsonl")
+        self._tb = None
+        self._save_thread: Optional[threading.Thread] = None
+        self._save_error: list = []
+        self.epoch = 0
+        self.best_val = float("inf")  # persisted in ckpt meta (resume-safe)
+
+    # -- logging -----------------------------------------------------------
+    @property
+    def tb(self):
+        if self._tb is None:
+            try:
+                from tensorboardX import SummaryWriter
+
+                self._tb = SummaryWriter(str(self.run_dir / "tb"))
+            except Exception:  # tensorboard optional
+                self._tb = _NullWriter()
+        return self._tb
+
+    # -- data ---------------------------------------------------------------
+    def _train_dataset(self):
+        dm = self.cfg["datamodule"]
+        ds_cfg = _dataset_cfg(self.cfg)
+        if self.teacher_student:
+            return MelChunkDatasetTS(
+                dm["groundtruth_train"], dm["base_dir"], ds_cfg,
+                teacher_target_base_dir=dm["teacher_student"]["teacher_target_base_dir"],
+                teacher_target_threshold=dm["teacher_student"]["teacher_target_threshold"],
+            )
+        return MelChunkDataset(dm["groundtruth_train"], dm["base_dir"], ds_cfg)
+
+    def _val_dataset(self):
+        # cached: the dataset (and its groundtruth unpickle) is identical
+        # every epoch
+        if getattr(self, "_val_ds", None) is None:
+            self._val_ds = self._build_val_dataset()
+        return self._val_ds
+
+    def _build_val_dataset(self):
+        dm = self.cfg["datamodule"]
+        base = dm["base_dir_val"] or dm["base_dir"]
+        # crop_seed pins the val crops: val metrics compare across epochs
+        # on fixed crops
+        crop_seed = self.cfg.get("seed", 0)
+        if self.teacher_student:
+            # TS eval logs standard/teacher/combined losses, so the val
+            # loader also carries teacher targets (reference:
+            # models/module.py:318-349)
+            return MelChunkDatasetTS(
+                dm["groundtruth_val"], base, _dataset_cfg(self.cfg),
+                teacher_target_base_dir=dm["teacher_student"]["teacher_target_base_dir"],
+                teacher_target_threshold=dm["teacher_student"]["teacher_target_threshold"],
+                crop_seed=crop_seed,
+            )
+        return MelChunkDataset(dm["groundtruth_val"], base,
+                               _dataset_cfg(self.cfg), crop_seed=crop_seed)
+
+    def _epoch_indices(self, dataset, epoch: int) -> np.ndarray:
+        dm = self.cfg["datamodule"]
+        s = dm["sampler"]
+        # the class weights are epoch-invariant: streamed once, never the
+        # dense (N, 400) matrix
+        if getattr(self, "_weights_for", None) is not dataset:
+            self._sample_weights = class_balanced_weights_streaming(
+                dataset.groundtruth, dataset.filenames,
+                s["sample_weight_offset"], s["sample_weight_sum"]
+            )
+            self._weights_for = dataset
+        return weighted_epoch_indices(
+            self._sample_weights,
+            min(s["epoch_len"], self.steps_per_epoch * self.global_batch),
+            seed=self.cfg.get("seed", 0),
+            epoch=epoch,
+            replacement=s["sampler_replace"],
+        )
+
+    # -- checkpointing -------------------------------------------------------
+    def finalize_checkpoints(self):
+        """Block until the save in flight has committed; raise its error."""
+        if self._save_thread is not None:
+            self._save_thread.join()
+            self._save_thread = None
+        if self._save_error:
+            raise self._save_error.pop()
+
+    def save_checkpoint(self, tag: str):
+        path = (self.run_dir / "checkpoints" / tag).absolute()
+        path.parent.mkdir(parents=True, exist_ok=True)
+        # one save in flight at a time: commit the previous one first
+        self.finalize_checkpoints()
+        # the optimizer and swa_update change tensors in place: copy the
+        # state to the host before returning, then write it on a thread
+        snap = state_snapshot(self.state)
+
+        def commit():
+            try:
+                write_checkpoint(path, snap)
+            except BaseException as e:  # noqa: BLE001 — raised on join
+                self._save_error.append(e)
+
+        self._save_thread = threading.Thread(target=commit, daemon=False)
+        self._save_thread.start()
+        # the marker may land before the commit: the checkpoint directory
+        # appears under its name only by the final rename, and
+        # latest_checkpoint needs both. Written atomically (tmp + rename):
+        # a kill between truncate and write must not leave a corrupt
+        # marker
+        meta = self.run_dir / "checkpoints" / f"{tag}.meta.json"
+        tmp = meta.with_suffix(".json.tmp")
+        tmp.write_text(json.dumps({
+            "epoch": self.epoch,
+            # json has no inf: None = "no best yet"
+            "best_val": (self.best_val
+                         if self.best_val != float("inf") else None),
+        }))
+        tmp.replace(meta)
+
+    def restore_checkpoint(self, path: str):
+        self.finalize_checkpoints()
+        snap = read_checkpoint(path)
+        # SWA-structure mismatch between this run and the checkpoint:
+        # `test` forces do_swa=False (reference ex_maest.py:99) on
+        # checkpoints saved by SWA runs, and an SWA run may resume a no-SWA
+        # checkpoint. Coerce to this run's setting: a fresh window (the
+        # parameters) when this run wants SWA and the checkpoint has none
+        # (swa_n is restored, so a restored window stays intact); no SWA
+        # at all, swa_n 0, the other way round.
+        want_swa = bool(self.state.swa_params)
+        if bool(snap["swa_params"]) != want_swa:
+            if want_swa:
+                snap["swa_params"] = dict(snap["params"])
+            else:
+                snap["swa_params"] = {}
+                snap["swa_n"] = 0
+        load_snapshot(self.state, snap)
+        meta = Path(path).parent / (Path(path).name + ".meta.json")
+        if meta.exists():
+            # checkpoints are written AFTER an epoch completes, so resume
+            # at the next one (Lightning resume semantics)
+            m = json.loads(meta.read_text())
+            self.epoch = m.get("epoch", -1) + 1
+            # restore the best-so-far val loss: without it every resumed
+            # run's first epoch would clobber the 'best' checkpoint
+            bv = m.get("best_val")
+            self.best_val = float(bv) if bv is not None else float("inf")
+
+    # -- loops ---------------------------------------------------------------
+    def fit(self):
+        from ..utils.run_record import finalize_run_json
+
+        try:
+            result = self._fit()
+        except BaseException as e:
+            # SystemExit from a SIGTERM preemption handler and Ctrl-C are
+            # stops, not crashes; a sys.exit(1)-style failure exit or any
+            # Exception is FAILED (see classify_exit)
+            from ..utils.run_record import classify_exit
+            finalize_run_json(self.run_dir, classify_exit(e))
+            raise
+        finally:
+            self.metrics_log.close()  # log() reopens lazily if fit is re-run
+        finalize_run_json(self.run_dir, "COMPLETED", result)
+        return result
+
+    def _fit(self):
+        cfg = self.cfg
+        tr = cfg["trainer"]
+        mod = cfg["module"]
+        if cfg.get("ckpt_path"):
+            self.restore_checkpoint(cfg["ckpt_path"])
+            _logger.info("resumed from %s at epoch %d", cfg["ckpt_path"], self.epoch)
+
+        train_ds = self._train_dataset()
+        loader = BatchLoader(
+            train_ds, self.global_batch,
+            num_workers=cfg["datamodule"]["num_workers"], drop_last=True,
+        )
+        seed = cfg.get("seed", 0)
+
+        while self.epoch < tr["max_epochs"]:
+            t0 = time.time()
+            idx = self._epoch_indices(train_ds, self.epoch)
+            n_steps = 0
+            last = {}
+            for batch in device_prefetch(loader.iter_indices(idx), self.device):
+                # per-step randomness from (seed, state.step)
+                self.state, metrics = self.train_step(
+                    self.state, _step_batch(batch),
+                    _step_generator(seed, self.state.step)
+                )
+                n_steps += 1
+                if n_steps % tr["log_every_n_steps"] == 0:
+                    last = {k: float(v) for k, v in metrics.items()}
+                    step = int(self.state.step)
+                    for k, v in last.items():
+                        self.tb.add_scalar(k, v, step)
+                        self.metrics_log.log(k, v, step)
+                if tr["limit_train_batches"] and n_steps >= tr["limit_train_batches"]:
+                    break
+            # SWA (reference: helpers/swa_callback.py:9-15; start epoch
+            # models/module.py:25)
+            if mod["do_swa"] and swa_epoch_window(
+                    mod["swa_epoch_start"], tr["max_epochs"], self.epoch):
+                self.state = swa_update(self.state)
+
+            val = self.validate()
+            dt = time.time() - t0
+            _logger.info(
+                "epoch %d: %d steps in %.1fs train=%s val=%s",
+                self.epoch, n_steps, dt, last, val,
+            )
+            for k, v in val.items():
+                self.tb.add_scalar(k, v, self.epoch)
+                self.metrics_log.log(k, v, self.epoch)
+
+            # update best_val BEFORE the epoch save so its meta marker
+            # carries the current best
+            improved = val.get("val_loss", float("inf")) < self.best_val
+            if improved:
+                self.best_val = float(val["val_loss"])
+            self.save_checkpoint(f"epoch-{self.epoch}")
+            if improved:
+                self.save_checkpoint("best")
+            self.epoch += 1
+        self.finalize_checkpoints()
+        return {"done": True}
+
+    def _run_eval(self, dataset, stage: str) -> dict:
+        cfg = self.cfg
+        tr = cfg["trainer"]
+        dm = cfg["datamodule"]
+        loader = BatchLoader(
+            dataset, dm["batch_size_test"],
+            num_workers=dm["num_workers"],
+        )
+        batches = _pad_batches(iter(loader), dm["batch_size_test"])
+        ys, yts, outs, n = [], [], {}, 0
+        # only x goes to the card: the losses and metrics are taken from
+        # the logits on the host
+        for batch in device_prefetch(batches, self.device, keys=("x",)):
+            n_true = batch["_n"]
+            res = self.eval_step(self.state, batch["x"])
+            ys.append(np.asarray(batch["y"], np.float32)[:n_true])
+            if "y_teacher" in batch:
+                yts.append(np.asarray(batch["y_teacher"], np.float32)[:n_true])
+            for name, logits in res.items():
+                outs.setdefault(name, []).append(
+                    logits.float().cpu().numpy()[:n_true]
+                )
+            n += 1
+            # limit_val_batches must NOT truncate the final test metrics
+            # (Lightning keeps a separate limit_test_batches)
+            limit = (tr["limit_val_batches"] if stage == "val"
+                     else tr.get("limit_test_batches"))
+            if limit and n >= limit:
+                break
+        if not ys:
+            return {}
+
+        def bce(z, t):
+            # BCE with logits, numerically stable (reference:
+            # models/module.py:90)
+            return float(np.mean(
+                np.maximum(z, 0) - z * t + np.log1p(np.exp(-np.abs(z)))
+            ))
+
+        y = np.concatenate(ys)
+        y_teacher = np.concatenate(yts) if yts else None
+        metrics = {}
+        for name, chunks in outs.items():
+            suffix = f"_{name}" if name else ""
+            z = np.concatenate(chunks)
+            loss = bce(z, y)
+            if y_teacher is not None:
+                # teacher-student eval: standard/teacher/combined losses,
+                # both from the first-head logits (reference:
+                # models/module.py:326-331)
+                loss_teacher = bce(z, y_teacher)
+                metrics[f"{stage}_loss_standard{suffix}"] = loss
+                metrics[f"{stage}_loss_teacher{suffix}"] = loss_teacher
+                loss = (loss + loss_teacher) / 2
+            y_hat = 1.0 / (1.0 + np.exp(-z))
+            ap, roc = macro_ap_roc(y, y_hat)
+            metrics[f"{stage}_loss{suffix}"] = loss
+            metrics[f"{stage}_ap{suffix}"] = ap
+            metrics[f"{stage}_roc{suffix}"] = roc
+        return metrics
+
+    def validate(self) -> dict:
+        return self._run_eval(self._val_dataset(), "val")
+
+    def test(self) -> dict:
+        dm = self.cfg["datamodule"]
+        if self.teacher_student:
+            ds = ExhaustiveMelDatasetTS(
+                dm["groundtruth_test"], dm["base_dir"], _dataset_cfg(self.cfg),
+                teacher_target_base_dir=dm["teacher_student"]["teacher_target_base_dir"],
+                teacher_target_threshold=dm["teacher_student"]["teacher_target_threshold"],
+                half_overlapped_inference=self.cfg["dataset"]["half_overlapped_inference"],
+            )
+        else:
+            ds = ExhaustiveMelDataset(
+                dm["groundtruth_test"], dm["base_dir"], _dataset_cfg(self.cfg),
+                half_overlapped_inference=self.cfg["dataset"]["half_overlapped_inference"],
+            )
+        return self._run_eval(ds, "test")
+
+    # -- prediction / embedding extraction ------------------------------------
+    def predict(self, output_name: str = "embeddings") -> dict:
+        """Exhaustive-window prediction, aggregated per file and written as
+        .npy (reference: ex_maest.py:162-207)."""
+        cfg = self.cfg
+        dm = cfg["datamodule"]
+        ds = ExhaustiveMelDataset(
+            dm["groundtruth_predict"], dm["base_dir"], _dataset_cfg(cfg),
+            half_overlapped_inference=cfg["dataset"]["half_overlapped_inference"],
+        )
+        loader = BatchLoader(ds, dm["batch_size_test"],
+                             num_workers=dm["num_workers"])
+        predict_step = make_predict_step(self.net, self.aug)
+        block = cfg["predict"]["transformer_block"]
+        params = self.state.params
+
+        agg: dict[str, list] = {}
+        batches = _pad_batches(iter(loader), dm["batch_size_test"])
+        for batch in device_prefetch(batches, self.device):
+            out = predict_step(params, _step_batch(batch), block)
+            n_true = batch["_n"]
+            vals = out[output_name].float().cpu().numpy()[:n_true]
+            for fname, v in zip(batch["filename"][:n_true], vals):
+                agg.setdefault(fname, []).append(v)
+
+        out_dir = self._predict_out_dir()
+        for fname, vs in agg.items():
+            path = out_dir / (fname + f".{output_name}.npy")
+            path.parent.mkdir(parents=True, exist_ok=True)
+            np.save(path, np.array(vs))
+        return {"n_files": len(agg), "out_dir": str(out_dir)}
+
+    def _predict_out_dir(self) -> Path:
+        """Output dir naming incl. deterministic-patchout tags
+        (reference: ex_maest.py:186-201)."""
+        cfg = self.cfg
+        subdir1 = f"{cfg['datamodule']['clip_length']}sec"
+        subdir2 = ""
+        for po_dim in ("f", "t"):
+            for po_type in ("indices", "interleaved"):
+                val = cfg["maest"][f"s_patchout_{po_dim}_{po_type}"]
+                if val:
+                    tag = "_".join(np.array(val).astype("str")) if np.iterable(val) \
+                        else str(val)
+                    subdir2 += f"_patchout_{po_dim}_{po_type}" + tag
+        subdir3 = str(cfg["predict"]["transformer_block"])
+        return Path(cfg["predict"]["out_dir"]) / subdir1 / subdir2 / subdir3
+
+
+def _step_batch(batch: dict) -> dict:
+    return {k: v for k, v in batch.items() if k not in ("filename", "_n")}
+
+
+def _pad_batches(batches, full_size: int = 0):
+    """Pad batches to one static size (padded rows repeat the last sample
+    and are sliced off on host via ``_n``), as the JAX package does."""
+    for batch in batches:
+        b = batch["x"].shape[0]
+        pad = max(full_size, b) - b
+        if pad:
+            batch = dict(batch)
+            for k, v in list(batch.items()):
+                if k == "filename":
+                    batch[k] = list(v) + [v[-1]] * pad
+                else:
+                    batch[k] = np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
+        batch["_n"] = b
+        yield batch
+
+
+class _NullWriter:
+    def add_scalar(self, *a, **k):
+        pass
+
+    def close(self):
+        pass
+
+
+def compute_norm_stats(cfg: dict) -> tuple[float, float]:
+    """Dataset mean/std over raw log-mel values (fixes the reference's broken
+    ``compute_norm_stats``, ex_maest.py:220-233)."""
+    dm = cfg["datamodule"]
+    ds = MelChunkDataset(dm["groundtruth_train"], dm["base_dir"], _dataset_cfg(cfg))
+    loader = BatchLoader(ds, dm["batch_size_test"], num_workers=dm["num_workers"])
+    # streaming global moments: averaging per-batch stds would ignore the
+    # between-batch variance of the means
+    total, total_sq, count = 0.0, 0.0, 0
+    for batch in loader:
+        x = batch["x"].astype(np.float64)
+        total += float(x.sum())
+        total_sq += float((x * x).sum())
+        count += x.size
+    mean = total / count
+    var = max(total_sq / count - mean * mean, 0.0)
+    return float(mean), float(np.sqrt(var))
+
+
+def model_speed_test(cfg: dict, batch_size: int = 100, test_length: int = 100,
+                     device="cuda") -> float:
+    """Train-step throughput in specs/second on a synthetic batch
+    (reference: ex_maest.py:108-159), on ``device``. Input geometry
+    follows the model config rather than the reference's hardcoded
+    [100, 1, 128, 998]."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' requested but torch finds no CUDA "
+                           "device")
+    net = _training_net(cfg, _precision_dtype(cfg["trainer"]["precision"]),
+                        device)
+    tx = make_optimizer(lr_schedule=1e-3, adamw=False)
+    step = make_train_step(net, tx, augment_config(cfg))
+    # no SWA buffer: the reference speed test carries none either
+    state = TrainState.create(net, tx, with_swa=False)
+
+    f, t = net.cfg.img_size
+    nc = net.cfg.num_classes
+    rng = np.random.default_rng(0)
+    batch = {
+        "x": torch.from_numpy(rng.standard_normal((batch_size, f, t),
+                                                  dtype=np.float32)).to(device),
+        "y": torch.from_numpy((rng.random((batch_size, nc)) > 0.9).astype(
+            np.float32)).to(device),
+    }
+    seed = cfg.get("seed", 0)
+    for _ in range(10):  # warmup
+        state, m = step(state, batch, _step_generator(seed, state.step))
+    t0 = time.time()
+    for _ in range(test_length):
+        # each step reads its loss on the host, so it has finished
+        state, m = step(state, batch, _step_generator(seed, state.step))
+    dt = time.time() - t0
+    specs_per_s = test_length * batch_size / dt
+    print(f"average speed: {specs_per_s:.1f} specs/second")
+    return specs_per_s

@@ -1959,3 +1959,83 @@ def test_f32_control_hook_routes_a_training_step(cuda_device, monkeypatch):
     for k, g in grads[False].items():
         top = max(g.abs().max().item(), 1e-4 * big)
         assert (grads[True][k] - g).abs().max().item() <= 1e-4 * top, k
+
+
+def test_device_prefetch_pins_and_copies_on_a_side_stream(cuda_device,
+                                                          monkeypatch):
+    """Every array under ``keys`` is pinned and copied to the card; what
+    the consumer reads on its own stream, with no explicit synchronize,
+    equals the input; host entries pass through."""
+    from maest_tpu_torch.data import device_prefetch
+
+    pinned = []
+    pin = torch.Tensor.pin_memory
+
+    def spy(self, *a, **k):
+        out = pin(self, *a, **k)
+        pinned.append(out.is_pinned())
+        return out
+
+    monkeypatch.setattr(torch.Tensor, "pin_memory", spy)
+    rng = np.random.default_rng(0)
+    batches = [{"x": rng.standard_normal((12, 96, 625)).astype("float16"),
+                "y": (rng.random((12, 400)) < 0.1).astype("float16"),
+                "filename": [f"f{i}_{j}" for j in range(12)], "_n": 12}
+               for i in range(5)]
+    out = list(device_prefetch(iter(batches), cuda_device))
+    assert pinned == [True] * 10
+    for a, b in zip(out, batches):
+        assert a["filename"] == b["filename"] and a["_n"] == 12
+        for k in ("x", "y"):
+            assert a[k].device.type == "cuda" and a[k].dtype == torch.float16
+            np.testing.assert_array_equal(a[k].cpu().numpy(), b[k])
+
+
+def test_tiny_trainer_epoch_on_the_card(cuda_device, tmp_path):
+    """One epoch of a tiny model in bf16 through ``Trainer(device="cuda")``
+    on a synthetic corpus: the run completes, its metrics are finite, the
+    train step launched K3a and K3b once a block and the eval K2."""
+    import json
+    import pickle
+
+    from maest_tpu_torch import configs
+    from maest_tpu_torch.ops import attention as A
+    from maest_tpu_torch.train import Trainer
+
+    rng = np.random.default_rng(0)
+    gt = {}
+    for i in range(8):
+        (rng.standard_normal((62 + 20 * i, 96)) + 2.0).astype(
+            "float16").tofile(tmp_path / f"c{i}.mmap")
+        gt[f"c{i}.mmap"] = (np.arange(8) % 8 == i).astype("float16")
+    for split in ("train", "val"):
+        with open(tmp_path / f"gt_{split}.pk", "wb") as f:
+            pickle.dump(gt, f)
+    cfg = configs.build_experiment_config([], [
+        f"datamodule.base_dir='{tmp_path}'",
+        f"datamodule.groundtruth_train='{tmp_path}/gt_train.pk'",
+        f"datamodule.groundtruth_val='{tmp_path}/gt_val.pk'",
+        "datamodule.clip_length=1", "datamodule.batch_size_train=2",
+        "datamodule.batch_size_test=4", "datamodule.sampler.epoch_len=8",
+        "maest.input_t=62", "maest.embed_dim=128", "maest.depth=2",
+        "maest.num_heads=2", "maest.n_classes=8", "maest.s_patchout_t=1",
+        "trainer.max_epochs=1", "trainer.log_every_n_steps=1",
+        "module.swa_epoch_start=0",
+        f"trainer.default_root_dir='{tmp_path}/runs'"])
+    trainer = Trainer(cfg)
+    assert trainer.device.type == "cuda" and trainer.dtype == torch.bfloat16
+    counts = (A.flash_attention, A.flash_attention_fwd_lse, A.attention_bwd)
+    before = [f.launches for f in counts]
+    assert trainer.fit() == {"done": True}
+    grew = [f.launches - b for f, b in zip(counts, before)]
+    assert grew == [2 * 2 * 2, 2 * 4, 2 * 4]  # 2 val batches x live + SWA
+    lines = [json.loads(s) for s in
+             (trainer.run_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [m["value"] for m in lines if m["name"] == "train_loss"]
+    assert len(losses) == 4 and np.isfinite(losses).all()
+    assert {m["name"] for m in lines} >= {"val_loss", "val_ap", "val_roc",
+                                          "val_loss_swa"}
+    assert all(np.isfinite(m["value"]) for m in lines
+               if m["name"].startswith("val_loss"))
+    record = json.loads((trainer.run_dir / "run.json").read_text())
+    assert record["status"] == "COMPLETED"

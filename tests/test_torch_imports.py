@@ -35,9 +35,13 @@ def test_import_pulls_in_no_jax():
             "maest_tpu_torch.ops.mma_probe, maest_tpu_torch.probes.mxu, "
             "maest_tpu_torch.probes.fp8_mlp, maest_tpu_torch.ops.int8_probe, "
             "maest_tpu_torch.probes.int8, maest_tpu_torch.probes.int8_2, "
-            "maest_tpu_torch.ops.bwd_probe, maest_tpu_torch.probes.bwd_int8; "
-            "print(sorted(m for m in ('jax', 'jaxlib', 'flax', 'optax') "
-            "if m in sys.modules))")
+            "maest_tpu_torch.ops.bwd_probe, maest_tpu_torch.probes.bwd_int8, "
+            "maest_tpu_torch.data, maest_tpu_torch.native, "
+            "maest_tpu_torch.utils, maest_tpu_torch.utils.run_record, "
+            "maest_tpu_torch.train.loop, maest_tpu_torch.train.resilience, "
+            "maest_tpu_torch.apps.ex_maest; "
+            "print(sorted(m for m in ('jax', 'jaxlib', 'flax', 'optax', "
+            "'orbax', 'sklearn', 'tensorboardX') if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -145,6 +149,85 @@ def test_checkpoint_helpers_match(tmp_path):
     np.testing.assert_array_equal(ours["net.w"], ref["net.w"])
 
 
+# the lines of native/__init__.py that differ from the JAX package's: the
+# library builds into the checkout's build/ directory
+NATIVE_BUILD_DIR_LINES = (
+    {"Builds ``libmel_loader.so`` on first use (g++, cached next to the source or",
+     "under ``$MAEST_TPU_CACHE``) and exposes a threaded batch loader. Falls back",
+     '    d = os.environ.get("MAEST_TPU_CACHE")',
+     '    base = Path(d) if d else Path.home() / ".cache" / "maest_tpu"',
+     '    out = base / "native"'},
+    {"Builds ``libmel_loader.so`` on first use (g++, cached in the checkout's",
+     "``build/maest_tpu_torch/native/``) and exposes a threaded loader. Falls back",
+     "    root = Path(__file__).resolve().parents[2]",
+     '    out = root / "build" / "maest_tpu_torch" / "native"'},
+)
+
+
+def _changed_lines(ref: Path, ours: Path) -> tuple[set, set]:
+    import difflib
+
+    diff = list(difflib.ndiff(ref.read_text().splitlines(),
+                              ours.read_text().splitlines()))
+    return ({d[2:] for d in diff if d.startswith("- ")},
+            {d[2:] for d in diff if d.startswith("+ ")})
+
+
+def test_copied_data_pipeline_matches_the_originals():
+    """The framework-free files of the data pipeline and the run records
+    are copies: byte for byte, apart from the native library's build
+    directory; ``BatchLoader`` and its collate are the JAX package's."""
+    for ref, ours in (("data/dataset.py", "data/dataset.py"),
+                      ("data/sampler.py", "data/sampler.py"),
+                      ("native/mel_loader.cpp", "native/mel_loader.cpp"),
+                      ("utils/run_record.py", "utils/run_record.py")):
+        assert (ROOT / "maest_tpu_torch" / ours).read_bytes() == (
+            ROOT / "maest_tpu" / ref).read_bytes(), ours
+    assert _changed_lines(ROOT / "maest_tpu/native/__init__.py",
+                          ROOT / "maest_tpu_torch/native/__init__.py"
+                          ) == NATIVE_BUILD_DIR_LINES
+
+    def defs(path):
+        text = path.read_text()
+        return {n.name: ast.get_source_segment(text, n)
+                for n in ast.parse(text).body
+                if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+
+    ref = defs(ROOT / "maest_tpu/data/loader.py")
+    ours = defs(ROOT / "maest_tpu_torch/data/loader.py")
+    assert set(ours) == set(ref)
+    for name in ("_collate", "BatchLoader"):
+        assert ours[name] == ref[name], name
+
+
+def _top_level_imports(tree):
+    """Modules imported when a module is imported: its body's imports,
+    those inside top-level ``try``/``if`` blocks included."""
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif isinstance(node, (ast.Try, ast.If)):
+            stack += node.body + node.orelse + getattr(node, "finalbody", [])
+            stack += [s for h in getattr(node, "handlers", []) for s in h.body]
+
+
+def test_no_optional_trainer_dependency_at_top_level():
+    """sklearn, orbax and tensorboardX are absent where the port runs: no
+    module imports them when it is imported (tensorboardX is tried inside
+    ``Trainer.tb`` only; metrics are numpy; checkpoints ``torch.save``)."""
+    for f in (ROOT / "maest_tpu_torch").rglob("*.py"):
+        bad = [m for m in _top_level_imports(ast.parse(f.read_text()))
+               if m.split(".")[0] in ("sklearn", "orbax", "tensorboardX")]
+        assert not bad, (f, bad)
+    for f in (ROOT / "maest_tpu_torch").rglob("*.py"):
+        bad = [m for m in _imports(f) if m.split(".")[0] in ("sklearn", "orbax")]
+        assert not bad, (f, bad)
+
+
 def test_tune_rig_lengths_match():
     """probes/attn_tune.py's copy of the rig's ARCH_N, read from
     scripts/attn_tune.py without importing it (the rig imports jax)."""
@@ -171,7 +254,8 @@ def test_port_runs_without_the_jax_package(tmp_path):
     imports, a tiny model tags a waveform and takes one train step (with
     the 8-bit modes on), and every rig runs (gh<G> and int8 too, the
     backward rig's 8-bit kinds; the product rigs' fp8_mlp at its full
-    shapes only on the card)."""
+    shapes only on the card); ``ex_maest main`` trains a tiny model for
+    two epochs with sklearn, orbax and tensorboardX made unimportable."""
     files = [*(ROOT / "maest_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
     for f in files:
         bad = [m for m in _imports(f)
@@ -185,6 +269,8 @@ def test_port_runs_without_the_jax_package(tmp_path):
     code = """
 import importlib, importlib.util, pkgutil, sys
 assert importlib.util.find_spec("maest_tpu") is None
+for absent in ("sklearn", "orbax", "tensorboardX"):  # as where the port runs
+    sys.modules[absent] = None
 import maest_tpu_torch
 for m in pkgutil.walk_packages(maest_tpu_torch.__path__, "maest_tpu_torch."):
     importlib.import_module(m.name)
@@ -237,6 +323,32 @@ assert fp8_mlp.SHAPES["fc1"] == ((1792, 768), (768, 3072))
 from maest_tpu_torch.probes import bwd_int8
 assert set(bwd_int8.main(["--device", "cpu", "--iters", "1", "--rounds", "1",
                           "--kinds", "int8,fp8"])) == {"int8", "fp8"}
+import json, pathlib, pickle
+from maest_tpu_torch import native
+from maest_tpu_torch.apps import ex_maest
+root = pathlib.Path("corpus")
+root.mkdir()
+gt = {}
+for i in range(6):
+    (rng.standard_normal((50 + 10 * i, 96)) + 2.0).astype("float16").tofile(
+        root / f"c{i}.mmap")
+    gt[f"c{i}.mmap"] = (np.arange(8) % 6 == i).astype("float16")
+for split in ("train", "val"):
+    pickle.dump(gt, open(root / f"gt_{split}.pk", "wb"))
+ov = [f"datamodule.base_dir='{root}'",
+      f"datamodule.groundtruth_train='{root}/gt_train.pk'",
+      f"datamodule.groundtruth_val='{root}/gt_val.pk'",
+      "datamodule.clip_length=1", "datamodule.batch_size_train=2",
+      "datamodule.batch_size_test=3", "datamodule.sampler.epoch_len=4",
+      "maest.input_t=62", "maest.embed_dim=64", "maest.depth=2",
+      "maest.num_heads=4", "maest.n_classes=8", "maest.s_patchout_t=1",
+      "trainer.max_epochs=2", "trainer.precision='fp32'",
+      "module.swa_epoch_start=1", "trainer.default_root_dir='runs'"]
+assert ex_maest.run(["main", "with", *ov], device="cpu") == {"done": True}
+assert native.available()
+(run,) = pathlib.Path("runs").iterdir()
+assert json.loads((run / "run.json").read_text())["status"] == "COMPLETED"
+assert not (run / "tb").exists()  # no tensorboardX: the null writer ran
 assert not any(n.startswith("maest_tpu.") or n == "maest_tpu"
                for n in sys.modules)
 print("ok")
