@@ -4906,6 +4906,11 @@ CLI_RESUME_FILES = 24
 # resume runs raise the learning rate so that it moves them by ~1e-4)
 CLI_RESUME_TOL = 1e-6
 CLI_RESUME_LR = ("module.optimizer.lr=0.001", "module.optimizer.warm_up_len=1")
+# the eval's tokens at 10 s: 9 x 61 patches of 625 frames and 2 tokens
+CLI_EVAL_N = 551
+# the Trainer's step and the bare step timed in alternating rounds
+CLI_ROUNDS = 6
+CLI_ROUND_STEPS = 3
 
 
 def _cli_corpus(root: Path, n: int, frames, seed: int) -> None:
@@ -4975,13 +4980,21 @@ def phase_trainer_cli(dev, gpu):
     the launch counters reset: K3a and K3b 12 a step, K2 12 an eval batch
     for the live and the SWA weights, the control kernels never; a run
     resumed from epoch-0 against the uninterrupted one on files of exactly
-    one clip; ``test`` and ``extract_embeddings`` on ``best``. Times the
-    Trainer's step by CUDA events beside the bare recipe step at the same
-    shape, and the loop's time between steps."""
+    one clip; ``test`` and ``extract_embeddings`` on ``best``. K2 is held
+    to its plain version on the first qkv the eval hands it, (20, 551)
+    bf16, and on a draw of that shape. Times the Trainer's step by CUDA
+    events, and the loop's time between steps; then the Trainer's step and
+    the bare recipe step at the same shape in alternating rounds of one
+    process. Returns the main run's K2, K3a and K3b launches and K2's
+    largest error at the eval's shape."""
     import gc
 
     from maest_tpu_torch import native
     from maest_tpu_torch.apps import ex_maest
+    from maest_tpu_torch.configs import build_experiment_config
+    from maest_tpu_torch.data import BatchLoader, device_prefetch
+    from maest_tpu_torch.models import vit
+    from maest_tpu_torch.ops import attention as A
     from maest_tpu_torch.train import loop
     from maest_tpu_torch.utils.profiling import StepTimer
 
@@ -5005,6 +5018,18 @@ def phase_trainer_cli(dev, gpu):
 
         return timed
 
+    evals = {}  # the first qkv the eval hands K2, and every eval shape
+    real_qkv = vit.flash_attention_qkv
+
+    def spy_qkv(qkv, *args, **kw):
+        if not qkv.requires_grad:
+            evals.setdefault("shapes", set()).add(
+                (tuple(qkv.shape), str(qkv.dtype).split(".")[1]))
+            if "qkv" not in evals:
+                evals["qkv"] = (qkv.clone(), dict(zip(
+                    ("n_real", "quant", "bwd_quant"), args), **kw))
+        return real_qkv(qkv, *args, **kw)
+
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         _cli_corpus(tmp / "corpus", CLI_FILES,
@@ -5015,6 +5040,7 @@ def phase_trainer_cli(dev, gpu):
         for c in counters.values():
             c.launches = 0
         loop.make_train_step = timed_make
+        vit.flash_attention_qkv = spy_qkv
         try:
             t0 = time.perf_counter()
             res = ex_maest.run(argv)
@@ -5022,6 +5048,7 @@ def phase_trainer_cli(dev, gpu):
             main_s = time.perf_counter() - t0
         finally:
             loop.make_train_step = real
+            vit.flash_attention_qkv = real_qkv
         launches = {k: c.launches for k, c in counters.items()}
         run = _cli_run_dir(main_out)
         record, metrics = _cli_record(run)
@@ -5049,6 +5076,28 @@ def phase_trainer_cli(dev, gpu):
               and not any(n for k, n in launches.items() if k not in want),
               f"launches on the CLI's run {launches}, wanted {want} and no "
               "control")
+        # K2 at the eval's shape against its plain version: the qkv the
+        # eval handed it (random weights, the first block of the first val
+        # batch) and a draw of the same shape, as strided views of qkv
+        qkv, call = evals["qkv"]
+        b_test = build_experiment_config([CLI_PRESET], [])["datamodule"][
+            "batch_size_test"]
+        check(tuple(qkv.shape) == (b_test, CLI_EVAL_N, 3, 12, 64)
+              and qkv.dtype == torch.bfloat16
+              and call.get("quant") in (None, "none"),
+              f"the eval's qkv {tuple(qkv.shape)} {qkv.dtype} {call}")
+        n_real = call.get("n_real")
+        gen = torch.Generator(device=dev).manual_seed(37)
+        draw = torch.randn(qkv.shape, device=dev, generator=gen)
+        eval_err = {}
+        with torch.inference_mode():
+            for name, t in (("eval", qkv), ("draw", draw.to(torch.bfloat16))):
+                eval_err[name] = max_err(A.flash_attention_qkv(t, **call),
+                                         A.attention_reference(*t.unbind(2),
+                                                               n_real))
+        check(max(eval_err.values()) <= ATTN_TOL["bfloat16"],
+              f"K2 at the eval's {tuple(qkv.shape)}: {eval_err}")
+        del qkv, draw
         # the loop's time between steps within an epoch (the loader's
         # wait, the step's generator and the metrics log): epoch starts
         # follow the eval and the checkpoint, so they are left out
@@ -5069,33 +5118,78 @@ def phase_trainer_cli(dev, gpu):
               f"{val[('val_loss', 1)]:.6f}, val_ap {val[('val_ap', 1)]:.6f}, "
               f"val_loss_swa {val[('val_loss_swa', 1)]:.6f}; checkpoints "
               f"epoch-0, epoch-1, best with markers; launches {launches}; "
+              f"K2 at the eval's shapes {sorted(evals['shapes'])} against "
+              f"plain: the eval's qkv {eval_err['eval']:.3e}, a draw "
+              f"{eval_err['draw']:.3e} <= {ATTN_TOL['bfloat16']}; "
               f"{main_s:.1f} s", flush=True)
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        # the bare recipe step at the Trainer's shape, on the card's data
-        cfg, mcfg, net, state, step, data = _recipe(dev, CLI_PRESET, 12, 37)
-        bare = StepTimer(warmup=2, device=dev)
-        for i in range(7):
-            gen = torch.Generator().manual_seed(i)
-            bare.start()
-            state, m = step(state, data, gen)
-            bare.stop()
-        check(np.isfinite(m["train_loss"]), "bare step loss")
-        bare_ms = [t * 1e3 for t in bare.times]
-        del cfg, mcfg, net, state, step, data
-        gc.collect()
-        torch.cuda.empty_cache()
-        print(f"phase 37 time: the Trainer's step (CUDA events, epoch 0's "
-              f"first step left out, {len(trainer_ms)} steps) median "
-              f"{np.median(trainer_ms):.3f} ms (steps "
-              f"{', '.join(f'{t:.3f}' for t in trainer_ms)}); the bare recipe "
-              f"step at the same shape (_recipe, {CLI_PRESET}, batch 12) "
-              f"median {np.median(bare_ms):.3f} ms (steps "
-              f"{', '.join(f'{t:.3f}' for t in bare_ms)}); the loop's time "
+        print(f"phase 37 time: the Trainer's step in ex_maest main (CUDA "
+              f"events, epoch 0's first step left out, {len(trainer_ms)} "
+              f"steps) median {np.median(trainer_ms):.3f} ms (steps "
+              f"{', '.join(f'{t:.3f}' for t in trainer_ms)}); the loop's time "
               f"between steps within an epoch {sum(gaps) * 1e3:.3f} ms over "
               f"{len(gaps)} gaps = {100 * wait_share:.2f} % of their steps' "
               f"wall time [{gpu}]", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the Trainer's step (a Trainer of the same config, its batches from
+        # its loader through device_prefetch), the same step of the
+        # Trainer's state on the bare step's batch, and the bare recipe
+        # step at the same shape (_recipe: fixed data on the card) in
+        # alternating rounds, each step timed the same way; the loader's
+        # and the prefetch's threads stay alive through all three
+        cfg = build_experiment_config([CLI_PRESET], _cli_overrides(
+            tmp / "corpus", tmp / "rounds", CLI_FILES))
+        trainer = loop.Trainer(cfg, run_dir=str(tmp / "rounds"), device=dev)
+        ds = trainer._train_dataset()
+        idx = np.concatenate([trainer._epoch_indices(ds, e) for e in range(
+            -(-CLI_ROUNDS * CLI_ROUND_STEPS // trainer.steps_per_epoch))])
+        batches = device_prefetch(BatchLoader(
+            ds, trainer.global_batch, num_workers=cfg["datamodule"][
+                "num_workers"], drop_last=True).iter_indices(idx), dev)
+        *_, state, step, data = _recipe(dev, CLI_PRESET, 12, 37)
+        timers = {k: StepTimer(warmup=1, device=dev)
+                  for k in ("trainer", "trainer_fixed", "bare")}
+        seed = cfg.get("seed", 0)
+        try:
+            for r in range(CLI_ROUNDS):
+                for kind in ("trainer", "trainer_fixed"):
+                    for _ in range(CLI_ROUND_STEPS):
+                        batch = (loop._step_batch(next(batches))
+                                 if kind == "trainer" else data)
+                        gen = loop._step_generator(seed, trainer.state.step)
+                        timers[kind].start()
+                        trainer.state, m = trainer.train_step(trainer.state,
+                                                              batch, gen)
+                        timers[kind].stop()
+                    check(np.isfinite(float(m["train_loss"])),
+                          f"the {kind} step loss")
+                for i in range(CLI_ROUND_STEPS):
+                    gen = torch.Generator().manual_seed(r * CLI_ROUND_STEPS + i)
+                    timers["bare"].start()
+                    state, m = step(state, data, gen)
+                    timers["bare"].stop()
+                check(np.isfinite(float(m["train_loss"])), "the bare step loss")
+        finally:
+            batches.close()
+        rounds = {k: [t * 1e3 for t in v.times] for k, v in timers.items()}
+        med = {k: float(np.median(v)) for k, v in rounds.items()}
+        del trainer, ds, state, step, data, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        steps_of = {k: ", ".join(f"{t:.3f}" for t in v)
+                    for k, v in rounds.items()}
+        print(f"phase 37 rounds: {CLI_ROUNDS} alternating rounds of "
+              f"{CLI_ROUND_STEPS} steps of each kind in one process (CUDA "
+              f"events, each kind's first step left out): the Trainer's step "
+              f"median {med['trainer']:.3f} ms (steps {steps_of['trainer']}); "
+              f"the Trainer's state on the bare step's batch median "
+              f"{med['trainer_fixed']:.3f} ms (steps "
+              f"{steps_of['trainer_fixed']}); the bare recipe step at the "
+              f"same shape (_recipe, {CLI_PRESET}, batch 12) median "
+              f"{med['bare']:.3f} ms (steps {steps_of['bare']}); the "
+              f"Trainer's step {med['trainer'] - med['bare']:+.3f} ms over "
+              f"the bare step [{gpu}]", flush=True)
 
         # resume: files of exactly one clip (625 frames), so every train
         # crop starts at 0; two epochs, then epoch 1 again from epoch-0
@@ -5162,7 +5256,8 @@ def phase_trainer_cli(dev, gpu):
               f"{time.perf_counter() - t_phase:.1f} s", flush=True)
         gc.collect()
         torch.cuda.empty_cache()
-    return {k: launches[k] for k in ("K2", "K3a", "K3b")}
+    return {**{k: launches[k] for k in ("K2", "K3a", "K3b")},
+            "K2_err": max(eval_err.values())}
 
 
 def main() -> int:
@@ -5452,11 +5547,11 @@ def main() -> int:
     # (launches on phase 36's control steps); no one PyTorch call computes
     # the front-end (phase 36 times the stock one as a yardstick)
     m1 = k1["ms"]["K1"]
-    print(f"kernels line: the launches of attention_fwd (K2), "
-          f"attention_fwd_lse (K3a) and attention_bwd (K3b) are the tagging "
-          f"path's (phase 6) and the 30 s recipe steps' (phase 11) with the "
-          f"training CLI's (phase 37: {cli['K2']}, {cli['K3a']}, "
-          f"{cli['K3b']})", flush=True)
+    print("kernels line: the launches of attention_fwd (K2), "
+          "attention_fwd_lse (K3a) and attention_bwd (K3b) are the tagging "
+          "path's (phase 6) and the 30 s recipe steps' (phase 11); "
+          "launches_cli the training CLI's (phase 37); attention_fwd's "
+          "max_abs_err includes phase 37's at the eval's shape", flush=True)
     print(f"kernels line: fused_logmel is the FFT kernel, fused_logmel_fma "
           f"its FMA control; phase 36's CUDA-graph medians at ({MEL_FRAMES}, "
           f"512), the stock PyTorch front-end {m1['stock']:.4f} ms beside "
@@ -5469,15 +5564,14 @@ def main() -> int:
          k1["launches"][("bfloat16", "control")], k1["err_control"],
          (m1["control"], m1["plain"]), "mel", None),
         ("attention_fwd", "attn_fwd_wgmma.cuh",
-         "maest_tpu/ops/attention.py:176", launches["attention"] + cli["K2"],
-         attn_err, t["bfloat16"], "fwd", lib["fwd"]),
+         "maest_tpu/ops/attention.py:176", launches["attention"],
+         max(attn_err, cli["K2_err"]), t["bfloat16"], "fwd", lib["fwd"]),
         ("attention_fwd_lse", "attn_fwd_wgmma.cuh",
-         "maest_tpu/ops/attention.py:404",
-         train_launches["fwd_lse"] + cli["K3a"],
+         "maest_tpu/ops/attention.py:404", train_launches["fwd_lse"],
          max(train_err["o"], train_err["lse"]), tt["fwd_lse"], "fwd_lse",
          lib["fwd_lse"]),
         ("attention_bwd", "attn_bwd_wgmma.cuh",
-         "maest_tpu/ops/attention.py:483", train_launches["bwd"] + cli["K3b"],
+         "maest_tpu/ops/attention.py:483", train_launches["bwd"],
          max(train_err[w] for w in ("dq", "dk", "dv")), tt["bwd"], "bwd",
          lib["bwd"]),
         ("attention_bwd_int8", "attn_bwd_q8_wgmma.cuh",
@@ -5756,6 +5850,11 @@ def main() -> int:
                 "ms": ms[0], "plain_ms": ms[1], "bound_ms": bounds[key][0],
                 "bound_by": bounds[key][1], "library_ms": library}
                for name, file, rep, n, err, ms, key, library in rows]
+    for k in kernels:  # the training CLI's own launches (phase 37)
+        cli_key = {"attention_fwd": "K2", "attention_fwd_lse": "K3a",
+                   "attention_bwd": "K3b"}.get(k["name"])
+        if cli_key:
+            k["launches_cli"] = cli[cli_key]
     print(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
