@@ -137,7 +137,16 @@ and the Trainer for 2 epochs at full width with the launch counters
 reset (K3a and K3b 12 a step, K2 12 an eval batch, the controls never),
 its checkpoints, a run resumed from epoch-0 held to the uninterrupted
 one, ``test`` and ``extract_embeddings`` on ``best``, and the Trainer's
-step timed beside the bare recipe step (37). A split by torch.profiler
+step timed beside the bare recipe step (37). Then the Trainer's parallel
+modes (38): ``ex_maest main`` at the same preset in ranks spawned with
+torchrun's variables, 2 on the one card over gloo on CUDA tensors (data
+parallelism, tensor parallelism, FSDP2, tensor with sequence
+parallelism), 4 (data x tensor x sequence parallelism), and 1 over NCCL
+(FSDP2), each mode's losses held to one process's at the same global
+batch, the whole parameters equal on every rank after every step, the
+eval metrics equal on every rank, the launch counters of each rank, and
+K3a/K3b and K2 held to plain at tensor parallelism's local shapes. A
+split by torch.profiler
 is printed only from a trace that holds every launch its route makes, by
 name and count, and a device total within SPLIT_SHARE of the call's
 time; else "not measured" and why. Phase 2 also counts the wgmma and TMA instructions in
@@ -5260,6 +5269,360 @@ def phase_trainer_cli(dev, gpu):
             "K2_err": max(eval_err.values())}
 
 
+# phase 38: the Trainer's parallel modes, each launched as torchrun
+# launches a user's ranks (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+# MASTER_PORT set in each process), at the 10 s preset's full width with
+# a global batch of 12: (name, ranks, overrides)
+P38_MODES = (
+    ("dp", 2, ("trainer.devices=2", "datamodule.batch_size_train=6")),
+    ("tp", 2, ("trainer.devices=2", "trainer.model_parallel=2")),
+    ("fsdp", 2, ("trainer.devices=2", "trainer.fsdp=True",
+                 "datamodule.batch_size_train=6")),
+    ("tp+sp", 2, ("trainer.devices=2", "trainer.model_parallel=2",
+                  "trainer.sequence_parallel=True")),
+    ("dp+tp+sp", 4, ("trainer.devices=4", "trainer.model_parallel=2",
+                     "trainer.sequence_parallel=True",
+                     "datamodule.batch_size_train=6")),
+    ("fsdp-nccl", 1, ("trainer.devices=1", "trainer.fsdp=True")),
+)
+P38_FILES = 48         # one epoch of 4 steps of 12; one eval batch
+P38_EXTRA = ("trainer.max_epochs=1", "trainer.limit_val_batches=1",
+             *CLI_RESUME_LR)
+# each step's train_loss against the one-process run's at the same global
+# batch and draws: bf16 products over other row and head splits round
+# apart (stated in PERF.md before the first run)
+P38_LOSS_RTOL = 1e-3
+P38_TIMEOUT = 300.0    # every rank of a launch is killed after it
+
+
+def _p38_instrument(records: dict):
+    """Wrap the Trainer's step and validation in this process: each step
+    timed by CUDA events, and after it the largest difference of the
+    whole parameters between the ranks (elementwise max - min over the
+    world, the whole tensors gathered from their shards); each rank's val
+    metrics; the first train and eval qkv the attention kernels get."""
+    import torch.distributed as dist
+
+    from maest_tpu_torch.models import vit
+    from maest_tpu_torch.parallel import mesh as pmesh
+    from maest_tpu_torch.train import loop
+
+    real_make, real_validate = loop.make_train_step, loop.Trainer.validate
+    real_qkv = vit.flash_attention_qkv
+
+    def make(*args, parallel=None, **kw):
+        step = real_make(*args, parallel=parallel, **kw)
+
+        def timed(state, batch, generator=None, draws=None):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(state, batch, generator, draws)
+            end.record()
+            end.synchronize()
+            records["step_ms"].append(start.elapsed_time(end))
+            if parallel is not None:
+                heads = state.model.cfg.num_heads
+                with torch.no_grad():
+                    flat = torch.cat([
+                        pmesh.full_tensor(k, p, parallel, heads).reshape(-1)
+                        for k, p in state.model.named_parameters()])
+                    hi, lo = flat.clone(), flat
+                    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+                    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+                    records["replica_gap"].append(
+                        float((hi - lo).abs().max()))
+                del flat, hi, lo
+            return out
+
+        return timed
+
+    def validate(self):
+        out = real_validate(self)
+        records["val"].append(out)
+        return out
+
+    def spy_qkv(qkv, *args, **kw):
+        kind = "train" if qkv.requires_grad else "eval"
+        if kind not in records["qkv"]:
+            records["qkv"][kind] = qkv.detach().clone()
+        return real_qkv(qkv, *args, **kw)
+
+    loop.make_train_step = make
+    loop.Trainer.validate = validate
+    vit.flash_attention_qkv = spy_qkv
+
+    def undo():
+        loop.make_train_step = real_make
+        loop.Trainer.validate = real_validate
+        vit.flash_attention_qkv = real_qkv
+
+    return undo
+
+
+def _p38_run(argv: list, name: str) -> dict:
+    """``ex_maest.run(argv)`` in this process with the launch counters
+    reset and read just after; the record of its steps, evals and
+    launches."""
+    import torch.distributed as dist
+
+    from maest_tpu_torch.apps import ex_maest
+
+    records = {"step_ms": [], "replica_gap": [], "val": [], "qkv": {}}
+    counters = _cli_counters()
+    undo = _p38_instrument(records)
+    for c in counters.values():
+        c.launches = 0
+    try:
+        t0 = time.perf_counter()
+        res = ex_maest.run(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        undo()
+    launches = {k: c.launches for k, c in counters.items()}
+    return {"name": name, "result": res, "launches": launches,
+            "step_ms": records["step_ms"],
+            "replica_gap": records["replica_gap"],
+            "val": records["val"], "qkv": records["qkv"], "wall_s": wall,
+            "backend": dist.get_backend() if dist.is_initialized() else None}
+
+
+def _p38_kernel_gaps(qkv: dict) -> dict:
+    """K3a and K3b on the first train qkv a rank handed them (strided
+    views, a drawn output gradient), K2 on the first eval qkv, against
+    their plain versions; called after the counters were read."""
+    from maest_tpu_torch.ops import attention as A
+
+    out = {}
+    with torch.no_grad():
+        t = qkv["train"]
+        q, k, v = t.unbind(2)
+        g = torch.randn(q.shape, device=t.device, dtype=t.dtype,
+                        generator=torch.Generator(device=t.device
+                                                  ).manual_seed(38))
+        o, lse = A.flash_attention_fwd_lse(q, k, v)
+        ro, rlse = A.attention_reference_lse(q, k, v)
+        grads = A.attention_bwd(q, k, v, ro, rlse, g)
+        ref = A.attention_bwd_reference(q, k, v, ro, rlse, g)
+        out["train_shape"] = tuple(t.shape)
+        out["K3a"] = max(max_err(o, ro), max_err(lse, rlse))
+        out["K3a_lse"] = max_err(lse, rlse)
+        out["K3b"] = max(max_err(a, r) for a, r in zip(grads, ref))
+        e = qkv["eval"]
+        out["eval_shape"] = tuple(e.shape)
+        out["K2"] = max_err(A.flash_attention_qkv(e),
+                            A.attention_reference(*e.unbind(2)))
+    return out
+
+
+def _p38_rank(rank: int, world: int, port: int, argvs: list, out_dir: str):
+    """One rank of a phase 38 launch: torchrun's variables, then each
+    mode's ``ex_maest.run`` in turn; its records to ``out_dir``."""
+    import faulthandler
+    import os
+    import pickle
+
+    import torch.distributed as dist
+
+    faulthandler.enable()  # a rank that dies on a signal shows where
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    sys.path.insert(0, str(ROOT))
+    torch.cuda.set_device(0)
+    try:
+        for name, argv in argvs:
+            rec = _p38_run(argv, name)
+            if rec["qkv"].get("train") is not None \
+                    and rec["qkv"]["train"].shape[3] < 12:
+                rec["gaps"] = _p38_kernel_gaps(rec["qkv"])
+            rec["qkv"] = {k: tuple(v.shape) for k, v in rec["qkv"].items()}
+            with open(Path(out_dir) / f"{name}.{rank}.pkl", "wb") as f:
+                pickle.dump(rec, f)
+            torch.cuda.empty_cache()
+    except BaseException:
+        import traceback
+
+        (Path(out_dir) / f"error.{rank}.txt").write_text(
+            traceback.format_exc())
+        raise SystemExit(1)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _p38_launch(world: int, argvs: list, out_dir: Path) -> float:
+    """Spawn ``world`` ranks of ``_p38_rank`` and wait; kill every one at
+    P38_TIMEOUT or when one fails. Returns the launch's wall seconds."""
+    import torch.multiprocessing as mp
+
+    from maest_tpu_torch.apps.ex_maest import free_port
+
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=_p38_rank,
+                         args=(r, world, port, argvs, str(out_dir)))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        while any(p.is_alive() for p in procs):
+            if time.perf_counter() - t0 > P38_TIMEOUT or any(
+                    p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    errors = sorted(out_dir.glob("error.*.txt"))
+    check(not errors and all(p.exitcode == 0 for p in procs),
+          f"phase 38 launch of {world} ranks: exit codes "
+          f"{[p.exitcode for p in procs]}; "
+          + "; ".join(f"{e.name}: {e.read_text()[-2000:]}" for e in errors))
+    return time.perf_counter() - t0
+
+
+def phase_parallel(dev, gpu):
+    """Phase 38: the Trainer's parallel modes at full width. ``ex_maest
+    main with maest_10s_random_weights_pretrain`` (ViT-B, 12 blocks, 12
+    heads of 64, N 281, bf16 over fp32 parameters, global batch 12; one
+    epoch of 4 steps and one eval batch) on 48 synthetic files of one
+    clip, first in
+    this process (the reference), then in ranks launched with torchrun's
+    variables: 2 on the one card over gloo on CUDA tensors (NCCL refuses
+    two ranks of one card) in dp, tp, fsdp and tp+sp, 4 in dp+tp+sp, and
+    1 over NCCL in fsdp. Each mode: every step's train_loss within
+    P38_LOSS_RTOL of the reference's, the whole parameters equal on every
+    rank after every step, the val metrics equal on every rank, each
+    rank's launches (K3a and K3b 12 a step, K2 12 an eval batch for the
+    live and again for the SWA weights, the controls 0); under tensor
+    parallelism K3a/K3b at (12, 281, 6, 64) and K2 at (20, 551, 6, 64)
+    held to plain (a data rank's rows of them under dp+tp+sp). Returns
+    rank 0's launches summed over the modes and the largest kernel
+    error."""
+    import gc
+    import pickle
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # files of exactly one clip: every train crop starts at 0, so
+        # every layout reads the same rows (longer files are cropped at a
+        # random offset each run)
+        _cli_corpus(tmp / "corpus", P38_FILES, lambda r: 625, 38)
+
+        def argv(name, extra):
+            return ["main", "with", CLI_PRESET, *_cli_overrides(
+                tmp / "corpus", tmp / name.replace("+", "_"), P38_FILES,
+                (*P38_EXTRA, *extra))]
+
+        ref = _p38_run(argv("one", ("trainer.devices=1",)), "one")
+        steps = P38_FILES // 12
+        check(ref["result"] == {"done": True} and len(ref["step_ms"]) == steps,
+              f"phase 38 reference run: {ref['result']}, "
+              f"{len(ref['step_ms'])} steps")
+        _, metrics = _cli_record(_cli_run_dir(tmp / "one"))
+        ref_loss = [m["value"] for m in metrics if m["name"] == "train_loss"]
+        print(f"phase 38 reference: ex_maest main with {CLI_PRESET}, one "
+              f"process, batch 12, {steps} steps and one eval batch: losses "
+              f"{[round(v, 6) for v in ref_loss]}, median step "
+              f"{np.median(ref['step_ms'][1:]):.3f} ms, launches "
+              f"{ref['launches']}; {ref['wall_s']:.1f} s [{gpu}]", flush=True)
+        check(len(ref_loss) == steps
+              and abs(ref_loss[-1] - math.log(2)) > 1e-4,
+              f"reference losses {ref_loss} (the head must have moved)")
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        recs, walls = {}, {}
+        for world in (2, 4, 1):
+            modes = [(n, argv(n, extra)) for n, w, extra in P38_MODES
+                     if w == world]
+            out = tmp / f"ranks{world}"
+            out.mkdir()
+            walls[world] = _p38_launch(world, modes, out)
+            for n, _ in modes:
+                recs[n] = [pickle.loads((out / f"{n}.{r}.pkl").read_bytes())
+                           for r in range(world)]
+
+        total = {"K2": 0, "K3a": 0, "K3b": 0}
+        err = 0.0
+        for name, world, _ in P38_MODES:
+            ranks = recs[name]
+            r0 = ranks[0]
+            run = _cli_run_dir(tmp / name.replace("+", "_"))
+            _, metrics = _cli_record(run)
+            loss = [m["value"] for m in metrics if m["name"] == "train_loss"]
+            rel = [abs(a - b) / abs(b) for a, b in zip(loss, ref_loss)]
+            check(r0["result"] == {"done": True} and len(loss) == steps
+                  and max(rel) <= P38_LOSS_RTOL,
+                  f"phase 38 {name}: losses {loss} against {ref_loss}, "
+                  f"relative {rel} (bound {P38_LOSS_RTOL})")
+            gaps = [g for r in ranks for g in r["replica_gap"]]
+            check(len(gaps) == world * steps and max(gaps) == 0.0,
+                  f"phase 38 {name}: the ranks' parameters after each step "
+                  f"differ by up to {gaps}")
+            vals = [r["val"] for r in ranks]
+            check(all(v == vals[0] for v in vals) and len(vals[0]) == 1
+                  and all(np.isfinite(x) for x in vals[0][0].values()),
+                  f"phase 38 {name}: the ranks' val metrics {vals}")
+            want = {"K2": 12 * 2, "K3a": 12 * steps, "K3b": 12 * steps}
+            for r, rec in enumerate(ranks):
+                got = rec["launches"]
+                check(all(got[k] == n for k, n in want.items())
+                      and not any(n for k, n in got.items() if k not in want),
+                      f"phase 38 {name} rank {r}: launches {got}, wanted "
+                      f"{want} and no control")
+            for k in total:
+                total[k] += r0["launches"][k]
+            backend = r0["backend"]
+            check(backend == ("nccl" if world == 1 else "gloo"),
+                  f"phase 38 {name}: backend {backend}")
+            line = (f"phase 38 {name}: {world} rank(s) on the one card over "
+                    f"{backend}"
+                    f"{' (CUDA tensors)' if backend == 'gloo' else ''}"
+                    f", global batch 12: losses "
+                    f"{[round(v, 6) for v in loss]} (largest relative gap to "
+                    f"one process {max(rel):.2e} <= {P38_LOSS_RTOL}); the "
+                    f"ranks' parameters after each of {steps} steps differ by "
+                    f"{max(gaps)}; val metrics equal on every rank (val_loss "
+                    f"{vals[0][0]['val_loss']:.6f}, val_loss_swa "
+                    f"{vals[0][0]['val_loss_swa']:.6f}); launches a rank "
+                    f"{r0['launches']}; median step (rank 0, CUDA events, the "
+                    f"first left out) {np.median(r0['step_ms'][1:]):.3f} ms "
+                    f"(steps {', '.join(f'{t:.3f}' for t in r0['step_ms'])}); "
+                    f"ex_maest.run {r0['wall_s']:.1f} s")
+            if "gaps" in r0:
+                g = r0["gaps"]
+                data = world // 2  # the model ranks are 2
+                check(g["train_shape"] == (12 // data, 281, 3, 6, 64)
+                      and g["eval_shape"] == (20 // data, CLI_EVAL_N, 3, 6,
+                                              64),
+                      f"phase 38 {name}: local shapes {g}")
+                tol = ATTN_TOL["bfloat16"]
+                check(g["K3a"] <= tol and g["K3a_lse"] <= LSE_TOL
+                      and g["K3b"] <= tol and g["K2"] <= tol,
+                      f"phase 38 {name}: kernels against plain {g}")
+                err = max(err, g["K3a"], g["K3b"], g["K2"])
+                line += (f"; K3a/K3b at the rank's {g['train_shape']} "
+                         f"against plain {g['K3a']:.3e} (lse "
+                         f"{g['K3a_lse']:.3e}) / {g['K3b']:.3e}, K2 at "
+                         f"{g['eval_shape']} {g['K2']:.3e} <= {tol}")
+            print(line + f" [{gpu}]", flush=True)
+        print(f"phase 38 time: launches of 2, 4 and 1 rank(s) "
+              f"{walls[2]:.1f}, {walls[4]:.1f} and {walls[1]:.1f} s "
+              f"(each rank's start included); phase "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {**total, "err": err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on a GPU",
@@ -5483,6 +5846,7 @@ def main() -> int:
                                         "half_away": q8w_libs[1][0]})
     k1 = phase_mel_fft(dev, gpu, sd, mel_lib)
     cli = phase_trainer_cli(dev, gpu)
+    par = phase_parallel(dev, gpu)
 
     # K1: the bytes of the frames in and the log-mels out, and the FFT
     # route's fp32 operations (the DFT as a product does ~40x more)
@@ -5550,8 +5914,10 @@ def main() -> int:
     print("kernels line: the launches of attention_fwd (K2), "
           "attention_fwd_lse (K3a) and attention_bwd (K3b) are the tagging "
           "path's (phase 6) and the 30 s recipe steps' (phase 11); "
-          "launches_cli the training CLI's (phase 37); attention_fwd's "
-          "max_abs_err includes phase 37's at the eval's shape", flush=True)
+          "launches_cli the training CLI's (phase 37); launches_parallel "
+          "rank 0's over phase 38's parallel modes; attention_fwd's "
+          "max_abs_err includes phase 37's at the eval's shape and phase "
+          "38's at tensor parallelism's local shapes", flush=True)
     print(f"kernels line: fused_logmel is the FFT kernel, fused_logmel_fma "
           f"its FMA control; phase 36's CUDA-graph medians at ({MEL_FRAMES}, "
           f"512), the stock PyTorch front-end {m1['stock']:.4f} ms beside "
@@ -5565,7 +5931,8 @@ def main() -> int:
          (m1["control"], m1["plain"]), "mel", None),
         ("attention_fwd", "attn_fwd_wgmma.cuh",
          "maest_tpu/ops/attention.py:176", launches["attention"],
-         max(attn_err, cli["K2_err"]), t["bfloat16"], "fwd", lib["fwd"]),
+         max(attn_err, cli["K2_err"], par["err"]), t["bfloat16"], "fwd",
+         lib["fwd"]),
         ("attention_fwd_lse", "attn_fwd_wgmma.cuh",
          "maest_tpu/ops/attention.py:404", train_launches["fwd_lse"],
          max(train_err["o"], train_err["lse"]), tt["fwd_lse"], "fwd_lse",
@@ -5850,11 +6217,12 @@ def main() -> int:
                 "ms": ms[0], "plain_ms": ms[1], "bound_ms": bounds[key][0],
                 "bound_by": bounds[key][1], "library_ms": library}
                for name, file, rep, n, err, ms, key, library in rows]
-    for k in kernels:  # the training CLI's own launches (phase 37)
+    for k in kernels:  # the training CLI's own launches (phases 37, 38)
         cli_key = {"attention_fwd": "K2", "attention_fwd_lse": "K3a",
                    "attention_bwd": "K3b"}.get(k["name"])
         if cli_key:
             k["launches_cli"] = cli[cli_key]
+            k["launches_parallel"] = par[cli_key]
     print(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

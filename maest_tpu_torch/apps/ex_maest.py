@@ -10,18 +10,36 @@ Commands (reference: ex_maest.py:72-238): main (train), test,
 extract_embeddings, extract_logits, model_speed_test, compute_norm_stats,
 print_config. Everything runs on the card; ``run(argv, device="cpu")``
 runs on the CPU.
+
+Several ranks: ``trainer.devices=N`` (None: every visible card) spawns N
+processes, one a card, and joins them; ``main``, ``test``,
+``extract_embeddings`` and ``extract_logits`` then run across them
+(``trainer.model_parallel``, ``trainer.fsdp``,
+``trainer.sequence_parallel``). A torchrun launch (``torchrun
+--nproc_per_node N -m maest_tpu_torch.apps.ex_maest ...``) runs one rank
+in each process it starts. The ranks join over NCCL when each has a card
+of its own, over gloo on CUDA tensors when they share one.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
+import queue
+import socket
 import sys
+import time
+import traceback
 
 from ..configs import build_experiment_config
 from ..train.loop import Trainer, compute_norm_stats, model_speed_test
 
 _logger = logging.getLogger("ex_maest")
+
+# the commands that run across ranks
+RANKED = ("main", "test", "extract_embeddings", "extract_logits")
+_TORCHRUN = ("WORLD_SIZE", "RANK")
 
 COMMANDS = (
     "main",
@@ -49,9 +67,112 @@ def parse_argv(argv: list[str]) -> tuple[str, list[str], list[str]]:
     return command, presets, overrides
 
 
+def free_port() -> int:
+    """A TCP port on localhost that was free a moment ago."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _ranks_wanted(cfg: dict, device) -> int:
+    """``trainer.devices`` as a rank count (None: every visible card, one
+    on the CPU)."""
+    import torch
+
+    n = cfg["trainer"].get("devices")
+    if n is not None:
+        return int(n)
+    if str(device).startswith("cuda") and torch.cuda.is_available():
+        return torch.cuda.device_count()
+    return 1
+
+
+def _rank_main(rank: int, world: int, port: int, argv, device, results):
+    """One spawned rank: torchrun's variables, then ``run``."""
+    import torch.distributed as dist
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    try:
+        res = run(argv, device=device)
+        results.put((rank, "ok", res if rank == 0 else None))
+    except BaseException:  # noqa: BLE001 — reported to the launcher
+        results.put((rank, "error", traceback.format_exc()))
+        raise SystemExit(1)
+    finally:
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def launch(argv: list[str], n: int, device="cuda",
+           timeout: float | None = None) -> dict:
+    """Spawn ``n`` ranks of ``run(argv)`` on this host, one a visible card
+    (on the CPU: ``n`` processes over gloo), and join them. Returns rank
+    0's result. A rank's failure fails the launch with that rank's
+    traceback, and the other ranks are killed, as they are after
+    ``timeout`` seconds."""
+    import torch
+    import torch.multiprocessing as mp
+
+    if str(device).startswith("cuda"):
+        cards = torch.cuda.device_count()
+        if cards == 0:
+            raise RuntimeError("device='cuda' requested but torch finds no "
+                               "CUDA device")
+        if n > cards:
+            raise ValueError(
+                f"trainer.devices={n} but {cards} cards are visible: one rank "
+                "a card (ranks that share a card: launch them with torchrun)")
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, n, port, argv, str(device), results))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = None if timeout is None else time.monotonic() + timeout
+    done, out, failure = 0, None, None
+    try:
+        while done < n and failure is None:
+            if deadline is not None and time.monotonic() > deadline:
+                failure = f"the ranks did not finish in {timeout} s"
+                break
+            try:
+                rank, status, value = results.get(timeout=0.5)
+            except queue.Empty:
+                dead = [p for p in procs if p.exitcode not in (None, 0)]
+                if dead and results.empty():
+                    failure = (f"rank {procs.index(dead[0])} exited with "
+                               f"code {dead[0].exitcode}")
+                continue
+            if status == "error":
+                failure = f"rank {rank} failed:\n{value}"
+            else:
+                done += 1
+                if rank == 0:
+                    out = value
+    finally:
+        if failure is not None:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+        for p in procs:
+            p.join()
+    if failure is not None:
+        raise RuntimeError(f"ex_maest launch of {n} ranks: {failure}")
+    return out
+
+
 def run(argv: list[str], device="cuda") -> dict:
     command, presets, overrides = parse_argv(argv)
     cfg = build_experiment_config(presets, overrides)
+
+    if command in RANKED and not any(os.environ.get(k) for k in _TORCHRUN):
+        n = _ranks_wanted(cfg, device)
+        if n > 1:
+            return launch(argv, n, device)
 
     if command == "print_config":
         print(json.dumps(cfg, indent=2, default=str))
@@ -99,6 +220,7 @@ def run(argv: list[str], device="cuda") -> dict:
     trainer = Trainer(cfg, run_info=run_info, device=device)
     if command == "main":
         return trainer.fit()  # fit finalizes its own run.json
+    record = trainer.proc0  # run.json is rank 0's record
     # non-fit commands also own a run dir whose run.json says RUNNING
     # until finalized — a completed `test` must not read as a live run
     from ..utils.run_record import finalize_run_json
@@ -120,16 +242,24 @@ def run(argv: list[str], device="cuda") -> dict:
         # preemption-shaped SystemExit are INTERRUPTED; sys.exit(1)-style
         # failure exits from library code and Exceptions are FAILED
         from ..utils.run_record import classify_exit
-        finalize_run_json(trainer.run_dir, classify_exit(e))
+        if record:
+            finalize_run_json(trainer.run_dir, classify_exit(e))
         raise
-    finalize_run_json(trainer.run_dir, "COMPLETED", res)
-    print(json.dumps(res, indent=2))
+    if record:
+        finalize_run_json(trainer.run_dir, "COMPLETED", res)
+        print(json.dumps(res, indent=2))
     return res
 
 
 def main():
+    import torch.distributed as dist
+
     logging.basicConfig(level=logging.INFO)
-    run(sys.argv[1:])
+    try:
+        run(sys.argv[1:])
+    finally:
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -113,7 +113,8 @@ class BatchLoader:
 
 
 def device_prefetch(batches: Iterator[dict], device="cuda", size: int = 2,
-                    keys: Sequence[str] = ("x", "y", "y_teacher")
+                    keys: Sequence[str] = ("x", "y", "y_teacher"),
+                    process_local: bool = False, shard=None
                     ) -> Iterator[dict]:
     """Move batches to ``device`` ahead of their use (double buffering).
 
@@ -125,15 +126,36 @@ def device_prefetch(batches: Iterator[dict], device="cuda", size: int = 2,
     handed out, and ``record_stream`` keeps the allocator from reusing a
     buffer while the consumer's stream may still read it. On the CPU the
     arrays are only converted to tensors.
+
+    Across ranks (as ``maest_tpu/data/loader.py::device_prefetch``):
+    ``process_local=True`` says each batch already holds only this rank's
+    rows of the global batch (global batch / data ranks, in rank order),
+    and they go to the card as they are; with ``process_local=False`` and
+    ``shard=(rank, ranks)`` each batch is the whole global batch and only
+    the rank's block of rows under ``keys`` goes to the card.
     """
     device = torch.device(device)
+    if process_local:
+        shard = None
+
+    def _rows(arr, shard):
+        """Rank ``shard[0]`` of ``shard[1]``'s block of rows of ``arr``."""
+        arr = np.asarray(arr)
+        if shard is None:
+            return arr
+        rank, ranks = shard
+        if len(arr) % ranks:
+            raise ValueError(f"a batch of {len(arr)} rows does not split "
+                             f"over {ranks} ranks")
+        per = len(arr) // ranks
+        return arr[rank * per:(rank + 1) * per]
     if device.type != "cuda":
         try:
             for batch in batches:
                 out = dict(batch)
                 for k in keys:
                     if k in out:
-                        out[k] = torch.from_numpy(np.asarray(out[k]))
+                        out[k] = torch.from_numpy(_rows(out[k], shard))
                 yield out
         finally:
             if hasattr(batches, "close"):
@@ -147,8 +169,8 @@ def device_prefetch(batches: Iterator[dict], device="cuda", size: int = 2,
         with torch.cuda.stream(copy_stream):
             for k in keys:
                 if k in out:
-                    host = torch.from_numpy(
-                        np.ascontiguousarray(out[k])).pin_memory()
+                    host = torch.from_numpy(np.ascontiguousarray(
+                        _rows(out[k], shard))).pin_memory()
                     out[k] = host.to(device, non_blocking=True)
         done = torch.cuda.Event()
         done.record(copy_stream)

@@ -26,10 +26,20 @@ from an explicit CPU ``torch.Generator`` (``draw_train``), or are handed
 in as ``TrainDraws``; dropout masks are drawn on the tensors' device from
 per-block seeds, so a rematerialized block redraws the same masks.
 
+Tensor and sequence parallelism (``set_layout``, by
+``parallel.mesh.shard_params``): ``Attention`` and ``Mlp`` run on this
+rank's heads and hidden columns, with the region seams of
+``parallel.tensor_parallel`` around them (all-reduces, or under sequence
+parallelism an all-gather before qkv / fc1 and a reduce-scatter after
+proj / fc2, the residual stream token-sharded between); the attention
+kernels see plain local tensors. Dropout and drop_path masks are drawn at
+the global shape and cut to the rank's slice, so every layout draws a
+single process's masks.
+
 Not ported yet, and refused with ``NotImplementedError``:
-``forward_mode`` front/tail (pipeline seams, ROADMAP queue 1 item 7),
-mesh and sequence parallelism (item 7), the per-frequency patch
-embedding and non-distilled configs (items 1-4).
+``forward_mode`` front/tail (pipeline seams, ROADMAP queue 1 item 4,
+GPipe), the per-frequency patch embedding and non-distilled configs
+(item 2).
 """
 
 from __future__ import annotations
@@ -48,6 +58,7 @@ from torch.utils.checkpoint import (
 )
 
 from ..ops.attention import flash_attention_qkv, record_outputs, replay_outputs
+from ..parallel.tensor_parallel import Layout, masked_keep
 from .config import MAESTConfig
 
 # timm trunc_normal_(std=0.02) for dense kernels; the pos embeds / tokens
@@ -88,25 +99,33 @@ class LayerNorm(nn.LayerNorm):
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            shard: tuple = ()) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate, scale by
-    1 / (1 - rate); off when ``generator`` is None (eval) or rate is 0."""
+    1 / (1 - rate); off when ``generator`` is None (eval) or rate is 0.
+    ``shard``: (dim, start, full) triples placing ``x`` in the global
+    tensor, whose mask is drawn and cut (``masked_keep``)."""
     if generator is None or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
+    if not shard:
+        mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
+    else:
+        mask = masked_keep(x.shape, shard, keep, x.device, x.dtype, generator)
     return x * mask / keep
 
 
 def drop_path(x: torch.Tensor, rate: float,
-              generator: Optional[torch.Generator]) -> torch.Tensor:
+              generator: Optional[torch.Generator],
+              shard: tuple = ()) -> torch.Tensor:
     """Per-sample stochastic depth (reference:
-    models/helpers/vit_helpers.py:74-104): one keep draw per sample."""
+    models/helpers/vit_helpers.py:74-104): one keep draw per sample
+    (``shard``: as ``dropout``'s, its batch rows only)."""
     if generator is None or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.empty((x.shape[0],) + (1,) * (x.ndim - 1), device=x.device,
-                       dtype=x.dtype).bernoulli_(keep, generator=generator)
+    mask = masked_keep((x.shape[0],) + (1,) * (x.ndim - 1), shard, keep,
+                       x.device, x.dtype, generator)
     return x * mask / keep
 
 
@@ -119,11 +138,25 @@ class Mlp(nn.Module):
         self.fc2 = Linear(hidden, dim)
         self.gelu = gelu  # "none" = exact erf, "tanh" = approximation
         self.drop = drop
+        self.layout: Optional[Layout] = None
 
-    def forward(self, x, generator=None):
-        x = dropout(F.gelu(self.fc1(x), approximate=self.gelu), self.drop,
-                    generator)
-        return dropout(self.fc2(x), self.drop, generator)
+    def forward(self, x, generator=None, n_tokens: Optional[int] = None):
+        lay = self.layout
+        if lay is None or not lay.tensor_parallel:
+            rows = () if lay is None else lay.rows(x.shape[0])
+            x = dropout(F.gelu(self.fc1(x), approximate=self.gelu), self.drop,
+                        generator, rows)
+            return dropout(self.fc2(x), self.drop, generator, rows)
+        # tensor parallel: this rank's hidden columns, one sum after fc2
+        n = n_tokens or x.shape[1]
+        rows = lay.rows(x.shape[0])
+        h = F.gelu(self.fc1(lay.enter(x, n)), approximate=self.gelu)
+        h = dropout(h, self.drop, generator,
+                    rows + lay.columns(2, h.shape[-1]))
+        out = lay.leave(F.linear(h, _cast(self.fc2.weight, h.dtype)))
+        out = out + _cast(self.fc2.bias, out.dtype)
+        return dropout(out, self.drop, generator,
+                       rows + lay.token_shard(out.shape[1], n))
 
 
 class Attention(nn.Module):
@@ -156,12 +189,22 @@ class Attention(nn.Module):
         self.attn_drop = attn_drop
         self.proj_drop = proj_drop
         self.impl = impl
+        self.head_dim = dim // num_heads
         self.qkv = Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = Linear(dim, dim)
+        self.layout: Optional[Layout] = None
 
-    def forward(self, x, generator=None):
-        b, n, c = x.shape
-        qkv = self.qkv(x).view(b, n, 3, self.num_heads, c // self.num_heads)
+    def forward(self, x, generator=None, n_tokens: Optional[int] = None):
+        lay = self.layout
+        tp = lay is not None and lay.tensor_parallel
+        rows = () if lay is None else lay.rows(x.shape[0])
+        if tp:  # this rank's heads: the full stream in, local heads out
+            x = lay.enter(x, n_tokens or x.shape[1])
+        b, n, _ = x.shape
+        d = self.head_dim
+        heads = self.qkv.weight.shape[0] // (3 * d)
+        c = heads * d
+        qkv = self.qkv(x).view(b, n, 3, heads, d)
         needs_drop = generator is not None and self.attn_drop > 0.0
         if needs_drop and self.impl == "flash":
             # the kernels have no attention-matrix dropout; skipping it
@@ -175,13 +218,20 @@ class Attention(nn.Module):
             q, k, v = qkv.unbind(2)
             s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float())
             p = torch.softmax(s * q.shape[-1] ** -0.5, dim=-1)
-            p = dropout(p, self.attn_drop, generator).to(x.dtype)
-            out = torch.einsum("bhnm,bmhd->bnhd", p, v)
+            p = dropout(p, self.attn_drop, generator,
+                        rows + (lay.columns(1, heads) if tp else ()))
+            out = torch.einsum("bhnm,bmhd->bnhd", p.to(x.dtype), v)
         else:
             out = flash_attention_qkv(qkv, quant=self.quant,
                                       bwd_quant=self.bwd_quant)
-        return dropout(self.proj(out.reshape(b, n, c)), self.proj_drop,
-                       generator)
+        out = out.reshape(b, n, c)
+        if not tp:
+            return dropout(self.proj(out), self.proj_drop, generator, rows)
+        # proj's partial products summed over the heads' ranks, then bias
+        out = lay.leave(F.linear(out, _cast(self.proj.weight, out.dtype)))
+        out = out + _cast(self.proj.bias, out.dtype)
+        return dropout(out, self.proj_drop, generator,
+                       rows + lay.token_shard(out.shape[1], n))
 
 
 class Block(nn.Module):
@@ -200,19 +250,24 @@ class Block(nn.Module):
         self.drop_path_rate = drop_path_rate
 
     def forward(self, x, seed: Optional[int] = None,
-                return_self_attention: bool = False):
+                return_self_attention: bool = False,
+                n_tokens: Optional[int] = None):
         """``seed``: train mode with dropout; the block's masks are drawn
-        from a generator on ``x``'s device seeded with it."""
+        from a generator on ``x``'s device seeded with it. ``n_tokens``:
+        the stream's token count where ``x`` is a token shard (sequence
+        parallelism)."""
         gen = None
         if seed is not None:
             gen = torch.Generator(device=x.device)
             gen.manual_seed(seed)
         if return_self_attention:
-            return self.attn(self.norm1(x), gen)
-        x = x + drop_path(self.attn(self.norm1(x), gen), self.drop_path_rate,
-                          gen)
-        return x + drop_path(self.mlp(self.norm2(x), gen),
-                             self.drop_path_rate, gen)
+            return self.attn(self.norm1(x), gen, n_tokens)
+        lay = self.attn.layout
+        rows = () if lay is None else lay.rows(x.shape[0])
+        x = x + drop_path(self.attn(self.norm1(x), gen, n_tokens),
+                          self.drop_path_rate, gen, rows)
+        return x + drop_path(self.mlp(self.norm2(x), gen, n_tokens),
+                             self.drop_path_rate, gen, rows)
 
 
 class PatchEmbed(nn.Module):
@@ -315,10 +370,6 @@ class MAESTNet(nn.Module):
         if cfg.per_freq_patch_embed:
             raise NotImplementedError(
                 "per_freq_patch_embed is not ported yet (ROADMAP queue 1)")
-        if cfg.sequence_parallel:
-            raise NotImplementedError(
-                "sequence_parallel is not ported yet (ROADMAP queue 1, "
-                "parallelism)")
         if cfg.attention_impl not in ("auto", "flash", "xla"):
             raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}"
                              "; expected 'auto', 'flash' or 'xla'")
@@ -359,6 +410,7 @@ class MAESTNet(nn.Module):
         # models/maest.py:570-571 vs :499)
         self.head = nn.Sequential(LayerNorm(e), Linear(e, cfg.num_classes))
         self.head_dist = Linear(e, cfg.num_classes)
+        self.layout: Optional[Layout] = None
         self.reset_parameters(generator)
         self.to(device=device, dtype=param_dtype or dtype)
 
@@ -450,7 +502,7 @@ class MAESTNet(nn.Module):
         if forward_mode != "full":
             raise NotImplementedError(
                 "forward_mode front/tail (pipeline seams) is not ported yet "
-                "(ROADMAP queue 1, item 7)")
+                "(ROADMAP queue 1 item 4, GPipe)")
         if tap_block is not None and (transformer_block != -1
                                       or return_layer_tokens):
             raise ValueError(
@@ -511,23 +563,35 @@ class MAESTNet(nn.Module):
         dist = _cast(self.dist_token + pos[:, 1:2], dt).expand(b, -1, -1)
         x = torch.cat([cls, dist, x], dim=1)
 
+        lay = self.layout
         seeds = [None] * cfg.depth
         if train and draws.seed is not None:
             gen = torch.Generator(device=x.device)
             gen.manual_seed(draws.seed)
-            x = dropout(x, cfg.drop_rate, gen)
+            x = dropout(x, cfg.drop_rate, gen,
+                        () if lay is None else lay.rows(b))
             seeds = [draws.seed + 1 + i for i in range(cfg.depth)]
 
         remat = train and cfg.remat and not return_self_attention
+        # sequence parallelism: the stream between the blocks' regions is
+        # this rank's token shard; full() gathers it where all is read
+        n_tokens = x.shape[1]
+        sp = lay is not None and lay.sp
+        if sp:
+            x = lay.split_tokens(x)
+
+        def full(x):
+            return lay.gather_tokens(x, n_tokens) if sp else x
 
         def run(i, x):
             blk = self.blocks[i]
             if not remat:
-                return blk(x, seeds[i])
+                return blk(x, seeds[i], False, n_tokens)
             ctx = {"full": None, "dots": _dots_contexts,
                    "attn_out": _attn_out_contexts}[cfg.remat_policy]
             kw = {} if ctx is None else {"context_fn": ctx}
-            return checkpoint(blk, x, seeds[i], use_reentrant=False, **kw)
+            return checkpoint(blk, x, seeds[i], False, n_tokens,
+                              use_reentrant=False, **kw)
 
         if transformer_block == -1:
             layer_tokens = []
@@ -535,10 +599,10 @@ class MAESTNet(nn.Module):
             for i in range(cfg.depth):
                 x = run(i, x)
                 if return_layer_tokens:
-                    layer_tokens.append(x)
+                    layer_tokens.append(full(x))
                 if tap_block is not None and i == tap_block:
-                    tap = self._block_embedding(x)
-            out = self._heads(self.norm(x))
+                    tap = self._block_embedding(full(x))
+            out = self._heads(self.norm(full(x)))
             if tap_block is not None:
                 return out + (tap,)
             if return_layer_tokens:
@@ -550,10 +614,19 @@ class MAESTNet(nn.Module):
         for i in range(transformer_block):
             x = run(i, x)
         if return_self_attention:
-            x = self.blocks[transformer_block](x, seeds[transformer_block], True)
+            x = self.blocks[transformer_block](x, seeds[transformer_block],
+                                               True, n_tokens)
         else:
             x = run(transformer_block, x)
-        return None, self._block_embedding(x)
+        return None, self._block_embedding(full(x))
+
+    def set_layout(self, layout: Optional[Layout]) -> None:
+        """Run under ``layout`` (None: one process). The parameters must
+        already be the layout's (``parallel.mesh.shard_params``)."""
+        self.layout = layout
+        for blk in self.blocks:
+            blk.attn.layout = layout
+            blk.mlp.layout = layout
 
     @staticmethod
     def _block_embedding(x: torch.Tensor) -> torch.Tensor:

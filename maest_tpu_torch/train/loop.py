@@ -6,8 +6,18 @@ attention kernels K3a and K3b), host-side epoch orchestration,
 ``torch.save`` checkpoints (best-on-val-loss + every-epoch, reference:
 models/module.py:256-264) committed on a background thread, SWA
 averaging, numpy macro AP/ROC, TensorBoard scalars when ``tensorboardX``
-is installed. Data parallelism, FSDP, tensor, sequence and pipeline
-parallelism are not ported yet and are refused (ROADMAP queue 1 item 4).
+is installed.
+
+Across processes (a torchrun launch, or ``ex_maest`` with
+``trainer.devices=N``) the Trainer runs the JAX Trainer's parallel modes
+without a pipeline: data parallelism, FSDP2, tensor parallelism and
+sequence parallelism over a ``(data, model)`` mesh. Each data rank loads
+its rows of every global batch, in rank order; evals are rank-sharded and
+their logits gathered, so every rank computes the one-process metrics;
+``predict`` partitions the files over the ranks; rank 0 writes the same
+checkpoint directory one process writes, gathered whole. Pipeline
+parallelism is not ported yet and is refused (ROADMAP queue 1 item 4,
+GPipe).
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..api import get_maest
 from ..data import (
@@ -37,14 +48,15 @@ from ..data import (
     weighted_epoch_indices,
 )
 from ..models.vit import MAESTNet
-from .metrics import macro_ap_roc
+from ..parallel import mesh as pmesh
+from ..parallel.tensor_parallel import all_gather_dim
+from .metrics import gather_across_hosts, macro_ap_roc
 from .schedules import make_schedule
 from .state import TrainState, make_optimizer, swa_update
 from .steps import augment_config, make_eval_step, make_predict_step, make_train_step
 
 _logger = logging.getLogger("maest_tpu_torch.train")
 
-_PARALLEL = "is not ported yet (ROADMAP queue 1 item 4, parallelism)"
 
 
 def _build_model(cfg: dict, dtype, device="cpu"):
@@ -117,29 +129,31 @@ def _precision_dtype(precision: str):
             "16-mixed": torch.bfloat16}[str(precision)]
 
 
-def _refuse_parallel(tr: dict) -> None:
-    """The launch modes of the JAX Trainer the port has not ported yet."""
-    if int(tr.get("devices") or 1) > 1:
-        raise NotImplementedError(f"trainer.devices={tr['devices']}: data "
-                                  f"parallelism {_PARALLEL}")
-    if int(tr.get("model_parallel") or 1) > 1:
-        raise NotImplementedError(
-            f"trainer.model_parallel={tr['model_parallel']}: tensor "
-            f"parallelism {_PARALLEL}")
-    if tr.get("fsdp"):
-        raise NotImplementedError(f"trainer.fsdp: FSDP {_PARALLEL}")
+def _parallel(tr: dict, device: torch.device):
+    """The rank's ``Parallel`` for the trainer config, or None for one
+    process. Joins the process group of a torchrun launch. Pipeline
+    parallelism is refused; more devices than launched ranks raise."""
     if int(tr.get("pipeline_parallel") or 0) > 1:
         raise NotImplementedError(
             f"trainer.pipeline_parallel={tr['pipeline_parallel']}: pipeline "
-            f"parallelism {_PARALLEL}")
-    if tr.get("sequence_parallel"):
-        raise NotImplementedError(
-            f"trainer.sequence_parallel: sequence parallelism {_PARALLEL}")
-    world = int(os.environ.get("WORLD_SIZE", "1") or 1)
-    dist = torch.distributed
-    if world > 1 or (dist.is_available() and dist.is_initialized()
-                     and dist.get_world_size() > 1):
-        raise NotImplementedError(f"a multi-process launch {_PARALLEL}")
+            "parallelism (GPipe) is not ported yet (ROADMAP queue 1 item 4, "
+            "GPipe)")
+    pmesh.init_distributed(device)
+    devices = tr.get("devices")
+    model_parallel = int(tr.get("model_parallel") or 1)
+    if not (dist.is_available() and dist.is_initialized()):
+        n = 1 if devices is None else int(devices)
+        if n > 1:
+            raise ValueError(
+                f"trainer.devices={n} in one process: {pmesh._LAUNCH}")
+        if model_parallel > 1:
+            raise ValueError(f"1 devices not divisible by model_parallel="
+                             f"{model_parallel}")
+        return None
+    mesh = pmesh.make_mesh(None if devices is None else int(devices),
+                           model_parallel, device_type=device.type)
+    return pmesh.Parallel(mesh, fsdp=bool(tr.get("fsdp")),
+                          sequence_parallel=bool(tr.get("sequence_parallel")))
 
 
 def _step_generator(seed: int, step: int) -> torch.Generator:
@@ -159,27 +173,36 @@ def _host_copy(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True)
 
 
-def state_snapshot(state: TrainState) -> dict:
+def state_snapshot(state: TrainState, parallel=None) -> dict:
     """A host copy of ``state``: ``params``, ``opt_state`` (Adam's ``mu``,
     ``nu`` and ``count``, the accumulator and its ``mini_step``),
     ``swa_params``, ``swa_n`` and ``step``. Parameters are keyed by their
     ``named_parameters`` names; ``mu``/``nu`` hold the parameters the
-    optimizer has state for."""
+    optimizer has state for. Across ranks (``parallel``) every tensor is
+    gathered whole (FSDP shards, TP slices), so the snapshot is the one a
+    single process takes; every rank must call it."""
     named = dict(state.model.named_parameters())
+    heads = state.model.cfg.num_heads if parallel is not None else 0
+
+    def host(name, t):
+        if parallel is None:
+            return _host_copy(t)
+        return _host_copy(pmesh.full_tensor(name, t, parallel, heads))
+
     mu, nu = {}, {}
     for name, p in named.items():
         s = state.optimizer.state.get(p)
         if s:
-            mu[name] = _host_copy(s["exp_avg"])
-            nu[name] = _host_copy(s["exp_avg_sq"])
+            mu[name] = host(name, s["exp_avg"])
+            nu[name] = host(name, s["exp_avg_sq"])
     return {
-        "params": {k: _host_copy(p) for k, p in named.items()},
+        "params": {k: host(k, p) for k, p in named.items()},
         "opt_state": {
             "mu": mu, "nu": nu, "count": int(state.count),
-            "accum": {k: _host_copy(v) for k, v in state.accum.items()},
+            "accum": {k: host(k, v) for k, v in state.accum.items()},
             "mini_step": int(state.mini_step),
         },
-        "swa_params": {k: _host_copy(v) for k, v in state.swa_params.items()},
+        "swa_params": {k: host(k, v) for k, v in state.swa_params.items()},
         "swa_n": int(state.swa_n),
         "step": int(state.step),
     }
@@ -213,35 +236,39 @@ def read_checkpoint(path) -> dict:
                       weights_only=True)
 
 
-def load_snapshot(state: TrainState, snap: dict) -> TrainState:
+@torch.no_grad()
+def load_snapshot(state: TrainState, snap: dict, parallel=None) -> TrainState:
     """Copy a snapshot into ``state`` (its module, optimizer, SWA buffer
-    and counters) in place."""
+    and counters) in place. Across ranks (``parallel``) each rank takes
+    its part of every whole tensor, so a checkpoint of any layout
+    restores in any other."""
     named = dict(state.model.named_parameters())
     if set(snap["params"]) != set(named):
         raise ValueError(
             "checkpoint parameters do not match the model: missing "
             f"{sorted(set(named) - set(snap['params']))}, unexpected "
             f"{sorted(set(snap['params']) - set(named))}")
+    heads = state.model.cfg.num_heads if parallel is not None else 0
+
+    def load(name, dst, whole):
+        pmesh.load_local(name, dst, whole, parallel, heads)
+
     opt = snap["opt_state"]
-    with torch.no_grad():
-        for k, p in named.items():
-            v = snap["params"][k]
-            if v.shape != p.shape:
-                raise ValueError(f"shape mismatch for {k}: {tuple(v.shape)} "
-                                 f"vs {tuple(p.shape)}")
-            p.copy_(v)
-        for k, v in snap["swa_params"].items():
-            state.swa_params[k].copy_(v)
-        for k, v in opt["accum"].items():
-            state.accum[k].copy_(v)
+    for k, p in named.items():
+        load(k, p, snap["params"][k])
+    for k, v in snap["swa_params"].items():
+        load(k, state.swa_params[k], v)
+    for k, v in opt["accum"].items():
+        load(k, state.accum[k], v)
     state.optimizer.state.clear()
     for k, m in opt["mu"].items():
         p = named[k]
+        mu, nu = torch.zeros_like(p), torch.zeros_like(p)
+        load(k, mu, m)
+        load(k, nu, opt["nu"][k])
         state.optimizer.state[p] = {
             "step": torch.tensor(float(opt["count"])),
-            "exp_avg": m.to(p.device),
-            "exp_avg_sq": opt["nu"][k].to(p.device),
-        }
+            "exp_avg": mu, "exp_avg_sq": nu}
     state.count = int(opt["count"])
     state.mini_step = int(opt["mini_step"])
     state.swa_n = int(snap["swa_n"])
@@ -250,20 +277,27 @@ def load_snapshot(state: TrainState, snap: dict) -> TrainState:
 
 
 class Trainer:
-    """End-to-end pre-training run (reference `main`, ex_maest.py:72-91)
-    on one card: ``device`` is where the net trains ("cuda" unless the
-    caller asks for the CPU)."""
+    """End-to-end pre-training run (reference `main`, ex_maest.py:72-91):
+    ``device`` is where the net trains ("cuda" unless the caller asks for
+    the CPU). Under a launch of several ranks each process builds one,
+    the mesh from ``trainer.devices`` (None: every launched rank) and
+    ``trainer.model_parallel``."""
 
     def __init__(self, cfg: dict, run_dir: Optional[str] = None,
                  run_info: Optional[dict] = None, device="cuda"):
         self.cfg = cfg
         self._run_info = run_info
         tr = cfg["trainer"]
-        _refuse_parallel(tr)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' requested but torch finds no "
                                "CUDA device")
+        self.parallel = _parallel(tr, self.device)
+        if self.parallel is not None and self.device.type == "cuda":
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.n_data = 1 if self.parallel is None else self.parallel.data
+        self.rank = 0 if self.parallel is None else self.parallel.rank
+        self.proc0 = self.rank == 0
         self.dtype = _precision_dtype(tr["precision"])
         self.teacher_student = cfg["datamodule"]["teacher_student"]["do"]
         self.aug = augment_config(cfg)
@@ -272,7 +306,9 @@ class Trainer:
 
         opt = cfg["module"]["optimizer"]
         epoch_len = cfg["datamodule"]["sampler"]["epoch_len"]
-        self.global_batch = cfg["datamodule"]["batch_size_train"]
+        # batch_size_train rows a data rank, as the JAX Trainer's per-shard
+        # batch
+        self.global_batch = cfg["datamodule"]["batch_size_train"] * self.n_data
         self.steps_per_epoch = max(1, epoch_len // self.global_batch)
         if tr["limit_train_batches"]:
             self.steps_per_epoch = min(self.steps_per_epoch, tr["limit_train_batches"])
@@ -298,24 +334,38 @@ class Trainer:
             accumulate_steps=accum,
         )
         self.state = TrainState.create(self.net, self.tx,
-                                       with_swa=cfg["module"]["do_swa"])
+                                       with_swa=cfg["module"]["do_swa"],
+                                       parallel=self.parallel)
         self.train_step = make_train_step(
             self.net, self.tx, self.aug,
-            teacher_student=self.teacher_student,
+            teacher_student=self.teacher_student, parallel=self.parallel,
         )
         self.eval_step = make_eval_step(self.net, self.aug,
                                         with_swa=cfg["module"]["do_swa"])
+        if self.parallel is not None:
+            _logger.info("rank %d: %s", self.rank, self.parallel.describe())
 
         stamp = time.strftime("%y%m%d-%H%M%S")  # fixed 13 chars
+        if self.parallel is not None:
+            # every rank must derive the same run dir (checkpoints are
+            # gathered collectively, their path taken from it): rank 0's
+            # formatted stamp, not each clock's
+            box = [stamp]
+            dist.broadcast_object_list(box, src=0)
+            stamp = box[0]
         self.run_dir = Path(run_dir or tr["default_root_dir"]) / stamp
         self.run_dir.mkdir(parents=True, exist_ok=True)
         from ..utils.run_record import MetricsLog, write_run_json
 
-        (self.run_dir / "config.json").write_text(
-            json.dumps(cfg, indent=2, default=str)
-        )
-        write_run_json(self.run_dir, cfg, self._run_info)
-        self.metrics_log = MetricsLog(self.run_dir / "metrics.jsonl")
+        # host-side run records are rank 0's (the reference's Sacred
+        # observer and TensorBoard logger live on rank 0 the same way)
+        if self.proc0:
+            (self.run_dir / "config.json").write_text(
+                json.dumps(cfg, indent=2, default=str)
+            )
+            write_run_json(self.run_dir, cfg, self._run_info)
+        self.metrics_log = MetricsLog(self.run_dir / "metrics.jsonl",
+                                      enabled=self.proc0)
         self._tb = None
         self._save_thread: Optional[threading.Thread] = None
         self._save_error: list = []
@@ -326,6 +376,9 @@ class Trainer:
     @property
     def tb(self):
         if self._tb is None:
+            if not self.proc0:
+                self._tb = _NullWriter()
+                return self._tb
             try:
                 from tensorboardX import SummaryWriter
 
@@ -383,20 +436,36 @@ class Trainer:
                 s["sample_weight_offset"], s["sample_weight_sum"]
             )
             self._weights_for = dataset
-        return weighted_epoch_indices(
+        idx = weighted_epoch_indices(
             self._sample_weights,
             min(s["epoch_len"], self.steps_per_epoch * self.global_batch),
             seed=self.cfg.get("seed", 0),
             epoch=epoch,
             replacement=s["sampler_replace"],
         )
+        return self._rank_rows(idx)
+
+    def _rank_rows(self, idx: np.ndarray) -> np.ndarray:
+        """This data rank's rows of each global batch of ``idx``: the
+        rank-th block of ``batch_size_train`` rows, so the ranks' batches
+        in rank order are the one-process global batch, row for row (the
+        sampler's strided ``rank::num_replicas`` slice would hold the same
+        rows in another order, and mixup pairs rows by position)."""
+        if self.n_data == 1:
+            return idx
+        b, n = self.global_batch // self.n_data, self.parallel.data_rank
+        full = len(idx) // self.global_batch * self.global_batch
+        return idx[:full].reshape(-1, self.n_data, b)[:, n].reshape(-1)
 
     # -- checkpointing -------------------------------------------------------
     def finalize_checkpoints(self):
-        """Block until the save in flight has committed; raise its error."""
+        """Block until the save in flight has committed; raise its error.
+        Across ranks every rank waits here for rank 0's commit."""
         if self._save_thread is not None:
             self._save_thread.join()
             self._save_thread = None
+        if self.parallel is not None:
+            dist.barrier()
         if self._save_error:
             raise self._save_error.pop()
 
@@ -406,8 +475,11 @@ class Trainer:
         # one save in flight at a time: commit the previous one first
         self.finalize_checkpoints()
         # the optimizer and swa_update change tensors in place: copy the
-        # state to the host before returning, then write it on a thread
-        snap = state_snapshot(self.state)
+        # state to the host before returning, then write it on a thread.
+        # Across ranks the copy is gathered whole; rank 0 writes it
+        snap = state_snapshot(self.state, self.parallel)
+        if not self.proc0:
+            return
 
         def commit():
             try:
@@ -449,7 +521,7 @@ class Trainer:
             else:
                 snap["swa_params"] = {}
                 snap["swa_n"] = 0
-        load_snapshot(self.state, snap)
+        load_snapshot(self.state, snap, self.parallel)
         meta = Path(path).parent / (Path(path).name + ".meta.json")
         if meta.exists():
             # checkpoints are written AFTER an epoch completes, so resume
@@ -465,6 +537,10 @@ class Trainer:
     def fit(self):
         from ..utils.run_record import finalize_run_json
 
+        def _finalize(status, result=None):
+            if self.proc0:  # run.json is rank 0's record
+                finalize_run_json(self.run_dir, status, result)
+
         try:
             result = self._fit()
         except BaseException as e:
@@ -472,11 +548,14 @@ class Trainer:
             # stops, not crashes; a sys.exit(1)-style failure exit or any
             # Exception is FAILED (see classify_exit)
             from ..utils.run_record import classify_exit
-            finalize_run_json(self.run_dir, classify_exit(e))
+            _finalize(classify_exit(e))
             raise
         finally:
             self.metrics_log.close()  # log() reopens lazily if fit is re-run
-        finalize_run_json(self.run_dir, "COMPLETED", result)
+            if self._tb is not None:  # its writer thread ends with the run
+                self._tb.close()
+                self._tb = None
+        _finalize("COMPLETED", result)
         return result
 
     def _fit(self):
@@ -488,8 +567,9 @@ class Trainer:
             _logger.info("resumed from %s at epoch %d", cfg["ckpt_path"], self.epoch)
 
         train_ds = self._train_dataset()
+        # each data rank loads only its rows of the global batch
         loader = BatchLoader(
-            train_ds, self.global_batch,
+            train_ds, self.global_batch // self.n_data,
             num_workers=cfg["datamodule"]["num_workers"], drop_last=True,
         )
         seed = cfg.get("seed", 0)
@@ -499,7 +579,8 @@ class Trainer:
             idx = self._epoch_indices(train_ds, self.epoch)
             n_steps = 0
             last = {}
-            for batch in device_prefetch(loader.iter_indices(idx), self.device):
+            for batch in device_prefetch(loader.iter_indices(idx), self.device,
+                                         process_local=True):
                 # per-step randomness from (seed, state.step)
                 self.state, metrics = self.train_step(
                     self.state, _step_batch(batch),
@@ -546,21 +627,46 @@ class Trainer:
         cfg = self.cfg
         tr = cfg["trainer"]
         dm = cfg["datamodule"]
-        loader = BatchLoader(
-            dataset, dm["batch_size_test"],
-            num_workers=dm["num_workers"],
-        )
-        batches = _pad_batches(iter(loader), dm["batch_size_test"])
+        par = self.parallel
+        prefetch_kw = {}
+        if par is None:
+            loader = BatchLoader(
+                dataset, dm["batch_size_test"],
+                num_workers=dm["num_workers"],
+            )
+            batches = _pad_batches(iter(loader), dm["batch_size_test"])
+        elif par.model == 1 and hasattr(dataset, "targets_for"):
+            # rank-sharded eval loading (reference:
+            # discogs/datamodule.py:79-97): each data rank reads its rows
+            # of every global batch, the targets of the whole batch come
+            # from the groundtruth
+            batches = self._rank_sharded_eval_batches(dataset)
+            prefetch_kw = {"process_local": True}
+        else:
+            # the JAX package's replicated fallback where the data ranks do
+            # not divide the processes (model ranks > 1): every rank loads
+            # the whole batch, padded to a multiple of the data ranks, and
+            # keeps its data rank's rows on the card
+            loader = BatchLoader(dataset, dm["batch_size_test"],
+                                 num_workers=dm["num_workers"])
+            batches = _pad_batches(iter(loader), dm["batch_size_test"],
+                                   par.data)
+            prefetch_kw = {"shard": (par.data_rank, par.data)}
         ys, yts, outs, n = [], [], {}, 0
         # only x goes to the card: the losses and metrics are taken from
         # the logits on the host
-        for batch in device_prefetch(batches, self.device, keys=("x",)):
+        for batch in device_prefetch(batches, self.device, keys=("x",),
+                                     **prefetch_kw):
             n_true = batch["_n"]
             res = self.eval_step(self.state, batch["x"])
             ys.append(np.asarray(batch["y"], np.float32)[:n_true])
             if "y_teacher" in batch:
                 yts.append(np.asarray(batch["y_teacher"], np.float32)[:n_true])
             for name, logits in res.items():
+                if par is not None and par.data > 1:
+                    # every rank gets the whole batch's logits, so every
+                    # rank computes the one-process metrics
+                    logits = all_gather_dim(logits, 0, par.data_group)
                 outs.setdefault(name, []).append(
                     logits.float().cpu().numpy()[:n_true]
                 )
@@ -603,6 +709,35 @@ class Trainer:
             metrics[f"{stage}_roc{suffix}"] = roc
         return metrics
 
+    def _rank_sharded_eval_batches(self, dataset):
+        """Eval batches of which this data rank loads only its rows (as
+        ``maest_tpu/train/loop.py::_rank_sharded_eval_batches``): each
+        global batch holds ``batch_size_test`` real rows, padded to a
+        multiple of the data ranks by repeating its last row, the same
+        rows and ``_n`` as one process's batches; ``y`` (and
+        ``y_teacher``) are the whole batch's, from the groundtruth."""
+        dm = self.cfg["datamodule"]
+        n_data, rank = self.parallel.data, self.parallel.data_rank
+        N = len(dataset)
+        B = dm["batch_size_test"]
+        T = B + (-B) % n_data
+        per = T // n_data
+        windows = []
+        for k in range(-(-N // B)):
+            real = np.arange(k * B, min((k + 1) * B, N))
+            pad = np.full(T - len(real), real[-1])
+            windows.append((np.concatenate([real, pad]), len(real)))
+        if not windows:
+            return
+        local = np.concatenate([w[rank * per:(rank + 1) * per]
+                                for w, _ in windows])
+        loader = BatchLoader(dataset, per, num_workers=dm["num_workers"])
+        for (w, n_true), batch in zip(windows, loader.iter_indices(local)):
+            out = {"x": batch["x"]}
+            out.update(dataset.targets_for(w))
+            out["_n"] = n_true
+            yield out
+
     def validate(self) -> dict:
         return self._run_eval(self._val_dataset(), "val")
 
@@ -634,12 +769,26 @@ class Trainer:
         )
         loader = BatchLoader(ds, dm["batch_size_test"],
                              num_workers=dm["num_workers"])
-        predict_step = make_predict_step(self.net, self.aug)
+        net, params = self.net, self.state.params
+        batch_iter = iter(loader)
+        if self.parallel is not None:
+            # every rank runs a whole model of its own over its files (a
+            # file's windows stay on one rank: aggregation and the .npy
+            # write are per file), with no collective in the loop, so the
+            # ranks may take different batch counts; one gather of the
+            # weights first
+            par = self.parallel
+            net = _whole_net(self.state, par, self.net.cfg, self.dtype,
+                             self.device)
+            params = dict(net.named_parameters())
+            keep = set(ds.filenames[par.rank::par.world])
+            batch_iter = loader.iter_indices(
+                [i for i in range(len(ds)) if ds._target_filename(i) in keep])
+        predict_step = make_predict_step(net, self.aug)
         block = cfg["predict"]["transformer_block"]
-        params = self.state.params
 
         agg: dict[str, list] = {}
-        batches = _pad_batches(iter(loader), dm["batch_size_test"])
+        batches = _pad_batches(batch_iter, dm["batch_size_test"])
         for batch in device_prefetch(batches, self.device):
             out = predict_step(params, _step_batch(batch), block)
             n_true = batch["_n"]
@@ -652,7 +801,9 @@ class Trainer:
             path = out_dir / (fname + f".{output_name}.npy")
             path.parent.mkdir(parents=True, exist_ok=True)
             np.save(path, np.array(vs))
-        return {"n_files": len(agg), "out_dir": str(out_dir)}
+        # the global file count: one gather after every rank's loop
+        n_files = int(gather_across_hosts(np.array([len(agg)], np.int64)).sum())
+        return {"n_files": n_files, "out_dir": str(out_dir)}
 
     def _predict_out_dir(self) -> Path:
         """Output dir naming incl. deterministic-patchout tags
@@ -671,16 +822,29 @@ class Trainer:
         return Path(cfg["predict"]["out_dir"]) / subdir1 / subdir2 / subdir3
 
 
+def _whole_net(state: TrainState, par, cfg, dtype, device) -> MAESTNet:
+    """A one-process model holding the whole weights of a sharded state
+    (every rank must call it)."""
+    net = MAESTNet(cfg, dtype=dtype, param_dtype=torch.float32)
+    heads = cfg.num_heads
+    whole = {k: pmesh.full_tensor(k, p, par, heads)
+             for k, p in state.model.named_parameters()}
+    net.load_state_dict(whole)
+    return net.to(device)
+
+
 def _step_batch(batch: dict) -> dict:
     return {k: v for k, v in batch.items() if k not in ("filename", "_n")}
 
 
-def _pad_batches(batches, full_size: int = 0):
-    """Pad batches to one static size (padded rows repeat the last sample
-    and are sliced off on host via ``_n``), as the JAX package does."""
+def _pad_batches(batches, full_size: int = 0, multiple: int = 1):
+    """Pad batches to one static size, a multiple of ``multiple`` (padded
+    rows repeat the last sample and are sliced off on host via ``_n``), as
+    the JAX package does."""
     for batch in batches:
         b = batch["x"].shape[0]
-        pad = max(full_size, b) - b
+        target = max(full_size, b)
+        pad = target + (-target) % multiple - b
         if pad:
             batch = dict(batch)
             for k, v in list(batch.items()):

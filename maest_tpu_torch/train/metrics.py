@@ -66,12 +66,14 @@ def macro_ap_roc(y_true: np.ndarray, y_score: np.ndarray) -> tuple[float, float]
 
 
 def gather_across_hosts(arr: np.ndarray) -> np.ndarray:
-    """Concatenate a per-host array across processes: the identity for
-    the one process the port runs in."""
+    """Concatenate a per-rank array across the process group, in rank
+    order (the identity for one process). Ranks may hold different row
+    counts; the trailing shape must agree."""
     import torch.distributed as dist
 
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "gathering across processes is not ported yet (ROADMAP queue 1 "
-            "item 4, parallelism)")
-    return arr
+    if not (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        return arr
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, np.asarray(arr))
+    return np.concatenate(parts, axis=0)

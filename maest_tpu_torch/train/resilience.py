@@ -98,9 +98,30 @@ def latest_checkpoint(run_dir) -> Optional[str]:
     return str(best_path) if best_path else None
 
 
-def _reinit_distributed() -> None:
-    """Re-form the process group after a failure: a no-op for the one
-    process the port runs in."""
+def _reinit_distributed(device="cuda") -> None:
+    """Tear down and re-form the process group so a restarted attempt can
+    build its mesh again (a no-op for one process); ``device``: the
+    ranks' device type. The new group meets on the old group's store,
+    kept alive across the teardown, under a prefix of its own: a new store
+    on the same port would race the old one's closing (a rank joining
+    early reaches the old store and waits there, or finds it closed)."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import init_distributed
+
+    if not (dist.is_available() and dist.is_initialized()) \
+            or dist.get_world_size() <= 1:
+        return
+    store = dist.distributed_c10d._get_default_store()
+    rank = dist.get_rank()
+    try:
+        dist.destroy_process_group()
+    except Exception:  # noqa: BLE001 — already torn down by the failure
+        pass
+    # every rank re-forms the group as often, so its own count names it
+    n = store.add(f"maest_rejoin/{rank}", 1)
+    init_distributed(device, store=dist.PrefixStore(f"maest_rejoin{n}",
+                                                    store))
 
 
 def fit_with_recovery(
@@ -125,6 +146,7 @@ def fit_with_recovery(
 
     cfg = dict(cfg)
     restarts = 0
+    device = "cuda"
     while True:
         trainer = None
         try:
@@ -132,6 +154,8 @@ def fit_with_recovery(
             # card) and must be retryable — right after a preemption the
             # device may still be down when the next attempt starts
             trainer = trainer_factory(cfg)
+            if hasattr(trainer, "device"):
+                device = trainer.device.type
             result = trainer.fit()
             if restarts:
                 result = dict(result, restarts=restarts)
@@ -159,4 +183,4 @@ def fit_with_recovery(
             if ckpt:
                 cfg["ckpt_path"] = ckpt
             time.sleep(backoff_s)
-            _reinit_distributed()
+            _reinit_distributed(device)

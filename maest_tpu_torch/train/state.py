@@ -75,9 +75,17 @@ class TrainState:
 
     @classmethod
     def create(cls, model: nn.Module, tx: Optimizer,
-               with_swa: bool = True) -> "TrainState":
+               with_swa: bool = True, parallel=None) -> "TrainState":
         """``with_swa=False`` keeps no SWA buffer (a full extra copy of the
-        parameters otherwise)."""
+        parameters otherwise). ``parallel`` (a ``parallel.mesh.Parallel``):
+        ``model`` holds the full weights, as on every rank, and is cut to
+        this rank's part first (``shard_params``); the optimizer's moments,
+        the SWA copies and the accumulator then live on the same shards,
+        and ``swa_update`` stays in place on them."""
+        if parallel is not None:
+            from ..parallel.mesh import shard_params
+
+            shard_params(model, parallel)
         named = dict(model.named_parameters())
         swa = ({k: p.detach().clone() for k, p in named.items()}
                if with_swa else {})

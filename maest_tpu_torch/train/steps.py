@@ -5,6 +5,16 @@ and backward pass (the attention kernels K3a and K3b on the card), the
 NaN-guarded optimizer update. Random draws come from an explicit CPU
 ``torch.Generator`` (reference: models/module.py:73-102,
 discogs/datamodule.py:126-152).
+
+Across ranks (``parallel``, a ``parallel.mesh.Parallel``) a step runs on
+this rank's rows of the global batch: every draw is made for the global
+batch, exactly as one process makes it, and the rank keeps its rows;
+mixup pairs rows across ranks, so the prepared batch and targets are
+gathered over the data ranks before mixing. Each rank's loss is the mean
+over its rows and the gradients are averaged over the data ranks (FSDP2
+reduce-scatters them), so the update is the global batch's; the reported
+loss is the global mean and the NaN guard's verdict is the worst over
+every rank.
 """
 
 from __future__ import annotations
@@ -21,7 +31,15 @@ from ..dsp import NORM_MEAN, NORM_STD
 from ..models.config import MAESTConfig
 from ..models.registry import build_config
 from ..models.vit import TrainDraws
-from ..ops.augment import mixup, roll_augment, spec_augment
+from ..ops.augment import (
+    apply_mixup,
+    apply_spec_augment,
+    mixup_draws,
+    roll_augment,
+    spec_augment_draws,
+)
+from ..parallel import mesh as pmesh
+from ..parallel.tensor_parallel import all_gather_dim
 from .state import TrainState
 
 
@@ -103,21 +121,51 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor
 
 
 def _prepare(x: torch.Tensor, aug: AugmentConfig,
-             generator: Optional[torch.Generator], train: bool) -> torch.Tensor:
+             generator: Optional[torch.Generator], train: bool,
+             rows: Optional[tuple] = None) -> torch.Tensor:
     """Normalize (+ roll / SpecAugment when training) a (B, F, T) mel batch
-    and return (B, 1, F, T)."""
+    and return (B, 1, F, T). ``rows`` (start, full): the batch is rows
+    [start, start + B) of a global batch of ``full``, whose masks are
+    drawn (default: the whole batch)."""
     x = x.float()
     if aug.normalize:
         x = (x - aug.norm_mean) / (aug.norm_std * 2.0)
-    if train and aug.roll:
+    if train and aug.roll:  # one shift for the batch
         x = roll_augment(x, aug.roll_shift_range, axis=aug.roll_axis,
                          shift=aug.roll_shift, generator=generator)
     if train and aug.masking:
-        x = spec_augment(x, time_mask_param=aug.time_mask_param,
-                         freq_mask_param=aug.freq_mask_param, p=aug.mask_p,
-                         time_masks=aug.time_masks, freq_masks=aug.freq_masks,
-                         iid_masks=aug.iid_masks, generator=generator)
+        b = x.shape[0]
+        start, full = rows or (0, b)
+        draws = spec_augment_draws(full, time_masks=aug.time_masks,
+                                   freq_masks=aug.freq_masks,
+                                   iid_masks=aug.iid_masks,
+                                   generator=generator)
+        if aug.iid_masks:
+            draws = tuple(tuple(u[:, start:start + b] for u in pair)
+                          for pair in draws)
+        x = apply_spec_augment(x, draws, time_mask_param=aug.time_mask_param,
+                               freq_mask_param=aug.freq_mask_param,
+                               p=aug.mask_p)
     return x[:, None]
+
+
+def _mixup_rows(x: torch.Tensor, targets: tuple, alpha: float,
+                generator: Optional[torch.Generator], rows: tuple,
+                group=None):
+    """Mixup of rows [start, start + B) of a global batch of ``full``
+    (``rows``): the pairing and weights are drawn for the global batch;
+    with ``group`` (the data ranks) the rows paired with are gathered from
+    the other ranks first."""
+    if alpha <= 0:
+        return x, targets
+    start, full = rows
+    b = x.shape[0]
+    perm, lam = mixup_draws(full, alpha, generator)
+    if group is not None:
+        x = all_gather_dim(x, 0, group)
+        targets = tuple(all_gather_dim(t, 0, group) for t in targets)
+    x, targets = apply_mixup(x, targets, perm, lam)
+    return x[start:start + b], tuple(t[start:start + b] for t in targets)
 
 
 def _device(module: nn.Module) -> torch.device:
@@ -125,12 +173,14 @@ def _device(module: nn.Module) -> torch.device:
 
 
 def make_train_step(net: nn.Module, tx, aug: AugmentConfig = AugmentConfig(),
-                    *, teacher_student: bool = False):
+                    *, teacher_student: bool = False, parallel=None):
     """Build the train step ``step(state, batch, generator=None,
     draws=None) -> (state, metrics)``.
 
     ``batch``: ``x`` (B, F, T) raw log-mel, ``y`` (B, C) [and ``y_teacher``
-    (B, C) for teacher-student]. Loss is BCE, or the mean of the student
+    (B, C) for teacher-student]; with ``parallel`` (the rank's
+    ``Parallel``; None: one process) this rank's rows of the global
+    batch. Loss is BCE, or the mean of the student
     and teacher BCE for the teacher-student variant (reference:
     models/module.py:73-102, 280-316). The step runs ``state.model`` (the
     module the state was created from, ``net``), updates it in place and
@@ -145,11 +195,17 @@ def make_train_step(net: nn.Module, tx, aug: AugmentConfig = AugmentConfig(),
              draws: Optional[TrainDraws] = None):
         model = state.model
         dev = _device(model)
-        x = _prepare(torch.as_tensor(batch["x"], device=dev), aug, generator,
-                     train=True)
+        x = torch.as_tensor(batch["x"], device=dev)
         targets = tuple(torch.as_tensor(batch[k], device=dev) for k in
                         (("y", "y_teacher") if teacher_student else ("y",)))
-        x, targets = mixup(x, targets, aug.mixup_alpha, generator)
+        b, group = x.shape[0], None
+        rows = (0, b)
+        if parallel is not None:
+            rows = (parallel.data_rank * b, parallel.data * b)
+            group = parallel.data_group if parallel.data > 1 else None
+        x = _prepare(x, aug, generator, train=True, rows=rows)
+        x, targets = _mixup_rows(x, targets, aug.mixup_alpha, generator, rows,
+                                 group)
 
         state.optimizer.zero_grad(set_to_none=True)
         out = model(x, train=True, generator=generator, draws=draws)
@@ -163,23 +219,66 @@ def make_train_step(net: nn.Module, tx, aug: AugmentConfig = AugmentConfig(),
             loss = bce_with_logits(out[0], targets[0])
             parts, names = [loss], ["train_loss"]
         loss.backward()
-        return apply_guarded_update(state, parts, names)
+        if parallel is not None:
+            sync_grads(model, parallel)
+        return apply_guarded_update(state, parts, names, parallel)
 
     return step
 
 
+def _all_reduce_flat(tensors, group) -> None:
+    """Sum ``tensors`` over ``group`` in place, as one flat buffer."""
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+    if not tensors:
+        return
+    flat = _flatten_dense_tensors(tensors)
+    torch.distributed.all_reduce(flat, group=group)
+    for t, f in zip(tensors, _unflatten_dense_tensors(flat, tensors)):
+        t.copy_(f)
+
+
 @torch.no_grad()
-def apply_guarded_update(state: TrainState, parts, names):
+def sync_grads(model: nn.Module, par) -> None:
+    """Make this rank's gradients the global batch's: averaged over the
+    data ranks (FSDP2 has reduce-scattered them already); under sequence
+    parallelism the parameters that act on token shards (the blocks'
+    LayerNorms and the biases after proj and fc2) summed over the model
+    ranks as well."""
+    named = [(k, p) for k, p in model.named_parameters() if p.grad is not None]
+    if par.data > 1 and not par.fsdp:
+        grads = [p.grad for _, p in named]
+        _all_reduce_flat(grads, par.data_group)
+        for g in grads:
+            g.div_(par.data)
+    if par.sequence_parallel:
+        _all_reduce_flat([pmesh.local(p.grad) for k, p in named
+                          if pmesh.acts_on_token_shards(k)], par.model_group)
+
+
+@torch.no_grad()
+def apply_guarded_update(state: TrainState, parts, names, parallel=None):
     """Optimizer update with the NaN guard (beyond the reference, which has
     no failure detection): a non-finite loss or gradient leaves the
     parameters, the optimizer state and the accumulator as they were; the
     step counter still advances and ``nonfinite_skipped`` is 1. One host
-    sync a step reads the loss and the guard together."""
+    sync a step reads the loss and the guard together. Across ranks
+    (``parallel``) the losses are averaged over the data ranks and the
+    guard reads the worst value of every rank's gradient shards, so every
+    rank reaches the same verdict."""
     params = [p for p in state.model.parameters() if p.grad is not None]
-    grads = [p.grad for p in params]
+    grads = [g for g in (pmesh.local(p.grad) for p in params) if g.numel()]
     worst = torch.stack([*torch._foreach_norm(grads, float("inf")),
                          parts[0].detach().abs()]).max()
-    values = torch.stack([p.detach() for p in parts] + [worst]).tolist()
+    if parallel is None:
+        values = torch.stack([p.detach() for p in parts] + [worst]).tolist()
+    else:
+        dist = torch.distributed
+        losses = torch.stack([p.detach().float() for p in parts])
+        dist.all_reduce(losses, group=parallel.data_group)
+        worst = worst.float().reshape(1)
+        dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+        values = (losses / parallel.data).tolist() + worst.tolist()
     ok = math.isfinite(values[-1])
     if ok:
         k = state.tx.accumulate_steps
@@ -217,7 +316,10 @@ def make_eval_step(net: nn.Module, aug: AugmentConfig = AugmentConfig(), *,
                    with_swa: bool = True):
     """``step(state, x) -> {"": logits, "swa": logits}``: logits (fp32) of
     the live and the SWA weights in one call (reference:
-    models/module.py:121-146); losses are taken from them on the host."""
+    models/module.py:121-146); losses are taken from them on the host.
+    FSDP2 gathers a module's own parameters in its forward, so under FSDP
+    the SWA shards are copied into the parameters for that forward and
+    back."""
 
     @torch.no_grad()
     def step(state: TrainState, x):
@@ -226,7 +328,12 @@ def make_eval_step(net: nn.Module, aug: AugmentConfig = AugmentConfig(), *,
                      train=False)
         out = {"": model(x)[0].float()}
         if with_swa:
-            out["swa"] = functional_call(model, state.swa_params, (x,))[0].float()
+            if pmesh.is_fsdp(model):
+                with pmesh.swapped_params(model, state.swa_params):
+                    out["swa"] = model(x)[0].float()
+            else:
+                out["swa"] = functional_call(model, state.swa_params,
+                                             (x,))[0].float()
         return out
 
     return step

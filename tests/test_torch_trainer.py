@@ -305,17 +305,33 @@ def test_run_record_after_an_injected_exception(corpus, tmp_path, exc, status):
     ("devices", 2), ("model_parallel", 2), ("fsdp", True),
     ("pipeline_parallel", 2), ("sequence_parallel", True)])
 def test_parallel_modes_are_refused(corpus, tmp_path, key, value):
-    cfg = configs.build_experiment_config([], overrides(
-        corpus, tmp_path, [f"trainer.{key}={value}"]))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        Trainer(cfg, device="cpu")
+    """In one process, without a launch of several ranks, every parallel
+    mode over 2 devices is refused, naming the launchers; pipeline
+    parallelism is refused in any launch, naming the GPipe item (the
+    parallel modes across ranks: tests/test_torch_parallel*.py)."""
+    extra = [f"trainer.{key}={value}"]
+    if key != "devices":
+        extra.append("trainer.devices=2")
+    cfg = configs.build_experiment_config([], overrides(corpus, tmp_path,
+                                                        extra))
+    if key == "pipeline_parallel":
+        with pytest.raises(NotImplementedError,
+                           match="queue 1 item 4, GPipe"):
+            Trainer(cfg, device="cpu")
+    else:
+        with pytest.raises(ValueError, match="torchrun"):
+            Trainer(cfg, device="cpu")
     assert not (tmp_path / "exp_logs").exists()
 
 
 def test_multi_process_launch_is_refused(corpus, tmp_path, monkeypatch):
+    """torchrun's WORLD_SIZE without the coordinator's MASTER_ADDR: the
+    ranks would train as independent single runs, so the launch fails
+    fast (maest_tpu/parallel/mesh.py:20-65)."""
     monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
     cfg = configs.build_experiment_config([], overrides(corpus, tmp_path))
-    with pytest.raises(NotImplementedError, match="multi-process"):
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
         Trainer(cfg, device="cpu")
 
 
