@@ -310,8 +310,8 @@ def _gather_shards(t) -> torch.Tensor:
     """An FSDP2 DTensor's whole tensor from its dim-0 shards (torch.chunk's
     split, the last shards short or empty), by one all-gather over its
     mesh. ``DTensor.full_tensor``'s functional collectives crash over gloo
-    on CUDA tensors (a segmentation fault on torch 2.11, the H100
-    machine), which is the transport of ranks that share a card."""
+    on CUDA tensors (a segmentation fault with torch 2.11 and CUDA 12.8 on
+    an H100), which is the transport of ranks that share a card."""
     from torch.distributed.tensor import Shard
 
     if tuple(t.placements) != (Shard(0),):
