@@ -142,10 +142,11 @@ modes (38): ``ex_maest main`` at the same preset in ranks spawned with
 torchrun's variables, 2 on the one card over gloo on CUDA tensors (data
 parallelism, tensor parallelism, FSDP2, tensor with sequence
 parallelism), 4 (data x tensor x sequence parallelism), and 1 over NCCL
-(FSDP2), each mode's losses held to one process's at the same global
-batch, the whole parameters equal on every rank after every step, the
-eval metrics equal on every rank, the launch counters of each rank, and
-K3a/K3b and K2 held to plain at tensor parallelism's local shapes. A
+(FSDP2), each mode held to one process at the same global batch (its
+losses, the eval's input rows, probabilities and val losses, rank 0's
+final checkpoint), the replicas of each parameter element equal after
+every step, the launch counters of each rank, and K3a/K3b and K2 held
+to plain at tensor parallelism's local shapes. A
 split by torch.profiler
 is printed only from a trace that holds every launch its route makes, by
 name and count, and a device total within SPLIT_SHARE of the call's
@@ -5288,32 +5289,75 @@ P38_MODES = (
 P38_FILES = 48         # one epoch of 4 steps of 12; one eval batch
 P38_EXTRA = ("trainer.max_epochs=1", "trainer.limit_val_batches=1",
              *CLI_RESUME_LR)
-# each step's train_loss against the one-process run's at the same global
-# batch and draws: bf16 products over other row and head splits round
-# apart (stated in PERF.md before the first run)
+# Each mode against the one-process run of the same global batches and
+# draws (stated in PERF.md before the runs that check them): bf16
+# products over other row and head splits round apart.
+# every step's train_loss and the val losses, relative
 P38_LOSS_RTOL = 1e-3
+# the eval's probabilities (sigmoid of the logits), absolute
+P38_PROB_ATOL = 1e-2
+# macro AP and ROC over the eval batch's 20 rows: equal to one process's
+# where every probability is; elsewhere not bounded, since they rank rows
+# whose probabilities lie closer together than the probabilities' rounding
+# (the reference's line prints how close), and rounding reorders them
+# the final parameters: |theta - theta_one| / |theta_one - theta_0| over
+# every parameter but the key bias (whose gradient is zero in exact
+# arithmetic, so Adam normalises rounding noise into whole steps)
+P38_UPDATE_RTOL = 0.2
 P38_TIMEOUT = 300.0    # every rank of a launch is killed after it
 
 
-def _p38_instrument(records: dict):
-    """Wrap the Trainer's step and validation in this process: each step
-    timed by CUDA events, and after it the largest difference of the
-    whole parameters between the ranks (elementwise max - min over the
-    world, the whole tensors gathered from their shards); each rank's val
-    metrics; the first train and eval qkv the attention kernels get."""
+def _p38_replica_gap(model, par) -> tuple[float, int]:
+    """The largest difference between ranks that hold a replica of the
+    same parameter elements, and the number of elements compared: each
+    parameter tensor parallelism does not split over the model ranks,
+    every unsharded parameter over the data ranks of one model rank. An
+    FSDP shard has no replica and is not compared."""
     import torch.distributed as dist
 
-    from maest_tpu_torch.models import vit
     from maest_tpu_torch.parallel import mesh as pmesh
+
+    named = [(k, p.detach().reshape(-1)) for k, p in model.named_parameters()
+             if not pmesh.is_sharded(p)]
+    gap, n = 0.0, 0
+    for size, group, keep in (
+            (par.data, par.data_group, lambda k: True),
+            (par.model, par.model_group,
+             lambda k: pmesh._tp_rule(k) is None)):
+        parts = [t for k, t in named if keep(k)]
+        if size == 1 or not parts:
+            continue
+        flat = torch.cat(parts)
+        hi, lo = flat.clone(), flat.clone()
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+        gap, n = max(gap, float((hi - lo).max())), n + flat.numel()
+    return gap, n
+
+
+def _p38_instrument(records: dict):
+    """Wrap the Trainer's step, eval step and metrics in this process:
+    each step timed by CUDA events and followed by ``_p38_replica_gap``;
+    in one process, the whole parameters before the first step; a digest
+    of each eval row's input; the targets and probabilities each macro
+    AP/ROC is taken from; each validation's metrics; the first train and
+    eval qkv the attention kernels get."""
+    import hashlib
+
+    from maest_tpu_torch.models import vit
     from maest_tpu_torch.train import loop
 
-    real_make, real_validate = loop.make_train_step, loop.Trainer.validate
-    real_qkv = vit.flash_attention_qkv
+    real_make, real_make_eval = loop.make_train_step, loop.make_eval_step
+    real_ap_roc, real_qkv = loop.macro_ap_roc, vit.flash_attention_qkv
+    real_validate = loop.Trainer.validate
 
     def make(*args, parallel=None, **kw):
         step = real_make(*args, parallel=parallel, **kw)
 
         def timed(state, batch, generator=None, draws=None):
+            if parallel is None and "init" not in records:
+                records["init"] = {k: p.detach().cpu().clone() for k, p
+                                   in state.model.named_parameters()}
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -5322,25 +5366,32 @@ def _p38_instrument(records: dict):
             end.synchronize()
             records["step_ms"].append(start.elapsed_time(end))
             if parallel is not None:
-                heads = state.model.cfg.num_heads
                 with torch.no_grad():
-                    flat = torch.cat([
-                        pmesh.full_tensor(k, p, parallel, heads).reshape(-1)
-                        for k, p in state.model.named_parameters()])
-                    hi, lo = flat.clone(), flat
-                    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
-                    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
                     records["replica_gap"].append(
-                        float((hi - lo).abs().max()))
-                del flat, hi, lo
+                        _p38_replica_gap(state.model, parallel))
             return out
 
         return timed
+
+    def make_eval(*args, **kw):
+        step = real_make_eval(*args, **kw)
+
+        def spy(state, x):
+            rows = torch.as_tensor(x).float().cpu().numpy()
+            records["eval_rows"].append(
+                [hashlib.sha1(r.tobytes()).hexdigest() for r in rows])
+            return step(state, x)
+
+        return spy
 
     def validate(self):
         out = real_validate(self)
         records["val"].append(out)
         return out
+
+    def ap_roc(y, y_hat):
+        records["scores"].append((np.array(y), np.array(y_hat)))
+        return real_ap_roc(y, y_hat)
 
     def spy_qkv(qkv, *args, **kw):
         kind = "train" if qkv.requires_grad else "eval"
@@ -5348,14 +5399,14 @@ def _p38_instrument(records: dict):
             records["qkv"][kind] = qkv.detach().clone()
         return real_qkv(qkv, *args, **kw)
 
-    loop.make_train_step = make
+    loop.make_train_step, loop.make_eval_step = make, make_eval
+    loop.macro_ap_roc, vit.flash_attention_qkv = ap_roc, spy_qkv
     loop.Trainer.validate = validate
-    vit.flash_attention_qkv = spy_qkv
 
     def undo():
-        loop.make_train_step = real_make
+        loop.make_train_step, loop.make_eval_step = real_make, real_make_eval
+        loop.macro_ap_roc, vit.flash_attention_qkv = real_ap_roc, real_qkv
         loop.Trainer.validate = real_validate
-        vit.flash_attention_qkv = real_qkv
 
     return undo
 
@@ -5368,7 +5419,8 @@ def _p38_run(argv: list, name: str) -> dict:
 
     from maest_tpu_torch.apps import ex_maest
 
-    records = {"step_ms": [], "replica_gap": [], "val": [], "qkv": {}}
+    records = {"step_ms": [], "replica_gap": [], "eval_rows": [],
+               "scores": [], "val": [], "qkv": {}}
     counters = _cli_counters()
     undo = _p38_instrument(records)
     for c in counters.values():
@@ -5381,10 +5433,8 @@ def _p38_run(argv: list, name: str) -> dict:
     finally:
         undo()
     launches = {k: c.launches for k, c in counters.items()}
-    return {"name": name, "result": res, "launches": launches,
-            "step_ms": records["step_ms"],
-            "replica_gap": records["replica_gap"],
-            "val": records["val"], "qkv": records["qkv"], "wall_s": wall,
+    return {"name": name, "result": res, "launches": launches, **records,
+            "wall_s": wall,
             "backend": dist.get_backend() if dist.is_initialized() else None}
 
 
@@ -5416,96 +5466,66 @@ def _p38_kernel_gaps(qkv: dict) -> dict:
     return out
 
 
-def _p38_rank(rank: int, world: int, port: int, argvs: list, out_dir: str):
-    """One rank of a phase 38 launch: torchrun's variables, then each
-    mode's ``ex_maest.run`` in turn; its records to ``out_dir``."""
-    import faulthandler
-    import os
-    import pickle
-
-    import torch.distributed as dist
-
-    faulthandler.enable()  # a rank that dies on a signal shows where
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
-                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+def _p38_rank(rank: int, world: int, argvs: list) -> dict:
+    """One rank of a phase 38 launch (``parallel.launch.spawn`` sets
+    torchrun's variables): each mode's ``ex_maest.run`` in turn; returns
+    its records by mode."""
     sys.path.insert(0, str(ROOT))
     torch.cuda.set_device(0)
-    try:
-        for name, argv in argvs:
-            rec = _p38_run(argv, name)
-            if rec["qkv"].get("train") is not None \
-                    and rec["qkv"]["train"].shape[3] < 12:
-                rec["gaps"] = _p38_kernel_gaps(rec["qkv"])
-            rec["qkv"] = {k: tuple(v.shape) for k, v in rec["qkv"].items()}
-            with open(Path(out_dir) / f"{name}.{rank}.pkl", "wb") as f:
-                pickle.dump(rec, f)
-            torch.cuda.empty_cache()
-    except BaseException:
-        import traceback
-
-        (Path(out_dir) / f"error.{rank}.txt").write_text(
-            traceback.format_exc())
-        raise SystemExit(1)
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+    out = {}
+    for name, argv in argvs:
+        rec = _p38_run(argv, name)
+        if rec["qkv"].get("train") is not None \
+                and rec["qkv"]["train"].shape[3] < 12:
+            rec["gaps"] = _p38_kernel_gaps(rec["qkv"])
+        rec["qkv"] = {k: tuple(v.shape) for k, v in rec["qkv"].items()}
+        out[name] = rec
+        torch.cuda.empty_cache()
+    return out
 
 
-def _p38_launch(world: int, argvs: list, out_dir: Path) -> float:
-    """Spawn ``world`` ranks of ``_p38_rank`` and wait; kill every one at
-    P38_TIMEOUT or when one fails. Returns the launch's wall seconds."""
-    import torch.multiprocessing as mp
-
-    from maest_tpu_torch.apps.ex_maest import free_port
-
-    ctx = mp.get_context("spawn")
-    port = free_port()
-    procs = [ctx.Process(target=_p38_rank,
-                         args=(r, world, port, argvs, str(out_dir)))
-             for r in range(world)]
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    try:
-        while any(p.is_alive() for p in procs):
-            if time.perf_counter() - t0 > P38_TIMEOUT or any(
-                    p.exitcode not in (None, 0) for p in procs):
-                break
-            time.sleep(0.2)
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-            p.join()
-    errors = sorted(out_dir.glob("error.*.txt"))
-    check(not errors and all(p.exitcode == 0 for p in procs),
-          f"phase 38 launch of {world} ranks: exit codes "
-          f"{[p.exitcode for p in procs]}; "
-          + "; ".join(f"{e.name}: {e.read_text()[-2000:]}" for e in errors))
-    return time.perf_counter() - t0
+def _p38_update_gap(params: dict, ref: dict, init: dict) -> tuple:
+    """|params - ref| / |ref - init| over every parameter but the key
+    bias, and the tensor with the largest such ratio of its own."""
+    num = den = 0.0
+    worst = (0.0, "")
+    for k, b in ref.items():
+        a, b, z = (t.double().reshape(-1) for t in (params[k], b, init[k]))
+        if k.endswith("attn.qkv.bias"):
+            e = a.numel() // 3
+            a, b, z = (torch.cat([t[:e], t[2 * e:]]) for t in (a, b, z))
+        d, u = float((a - b).square().sum()), float((b - z).square().sum())
+        num, den = num + d, den + u
+        if u > 0:
+            worst = max(worst, (math.sqrt(d / u), k))
+    return math.sqrt(num / den), worst
 
 
 def phase_parallel(dev, gpu):
     """Phase 38: the Trainer's parallel modes at full width. ``ex_maest
     main with maest_10s_random_weights_pretrain`` (ViT-B, 12 blocks, 12
     heads of 64, N 281, bf16 over fp32 parameters, global batch 12; one
-    epoch of 4 steps and one eval batch) on 48 synthetic files of one
-    clip, first in
-    this process (the reference), then in ranks launched with torchrun's
-    variables: 2 on the one card over gloo on CUDA tensors (NCCL refuses
-    two ranks of one card) in dp, tp, fsdp and tp+sp, 4 in dp+tp+sp, and
-    1 over NCCL in fsdp. Each mode: every step's train_loss within
-    P38_LOSS_RTOL of the reference's, the whole parameters equal on every
-    rank after every step, the val metrics equal on every rank, each
-    rank's launches (K3a and K3b 12 a step, K2 12 an eval batch for the
-    live and again for the SWA weights, the controls 0); under tensor
-    parallelism K3a/K3b at (12, 281, 6, 64) and K2 at (20, 551, 6, 64)
-    held to plain (a data rank's rows of them under dp+tp+sp). Returns
-    rank 0's launches summed over the modes and the largest kernel
-    error."""
+    epoch of 4 steps and one eval batch of 20) on 48 synthetic files of
+    one clip, first in this process (the reference), then in ranks
+    launched with torchrun's variables: 2 on the one card over gloo on
+    CUDA tensors (NCCL refuses two ranks of one card) in dp, tp, fsdp and
+    tp+sp, 4 in dp+tp+sp, and 1 over NCCL in fsdp. Each mode against the
+    reference: every step's train_loss (P38_LOSS_RTOL); the eval rows'
+    inputs bit-equal, in the reference's order across the data ranks, and
+    their targets equal; every rank's eval probabilities (P38_PROB_ATOL),
+    val losses (P38_LOSS_RTOL), macro AP and ROC (equal where the
+    probabilities are), live and SWA; rank 0's final checkpoint
+    (P38_UPDATE_RTOL). Within the mode: the
+    replicas of each parameter element equal after every step (FSDP
+    shards every parameter, so it has none); each rank's launches (K3a
+    and K3b 12 a step, K2 12 an eval batch for the live and again for the
+    SWA weights, the controls 0); under tensor parallelism K3a/K3b at (12,
+    281, 6, 64) and K2 at (20, 551, 6, 64) held to plain (a data rank's
+    rows of them under dp+tp+sp). Returns rank 0's launches summed over
+    the modes and the largest kernel error."""
     import gc
-    import pickle
+
+    from maest_tpu_torch.parallel.launch import spawn
 
     t_phase = time.perf_counter()
     gc.collect()
@@ -5524,19 +5544,37 @@ def phase_parallel(dev, gpu):
 
         ref = _p38_run(argv("one", ("trainer.devices=1",)), "one")
         steps = P38_FILES // 12
-        check(ref["result"] == {"done": True} and len(ref["step_ms"]) == steps,
+        check(ref["result"] == {"done": True} and len(ref["step_ms"]) == steps
+              and len(ref["eval_rows"]) == 1 and len(ref["scores"]) == 2,
               f"phase 38 reference run: {ref['result']}, "
-              f"{len(ref['step_ms'])} steps")
-        _, metrics = _cli_record(_cli_run_dir(tmp / "one"))
+              f"{len(ref['step_ms'])} steps, {len(ref['eval_rows'])} eval "
+              f"batches, {len(ref['scores'])} metric calls")
+        ref_run = _cli_run_dir(tmp / "one")
+        _, metrics = _cli_record(ref_run)
         ref_loss = [m["value"] for m in metrics if m["name"] == "train_loss"]
+        ref_val = {m["name"]: m["value"] for m in metrics
+                   if m["name"].startswith("val_")}
+        ref_params = _cli_params(ref_run, "epoch-0")
+        init, rows_one, scores_one = (ref["init"], ref["eval_rows"][0],
+                                      ref["scores"])
+        # what a row taken from the wrong place would change: the largest
+        # difference between two rows of the reference's probabilities
+        y_hat = scores_one[0][1]
+        row_spread = float(np.abs(y_hat[:, None] - y_hat[None]).max())
         print(f"phase 38 reference: ex_maest main with {CLI_PRESET}, one "
-              f"process, batch 12, {steps} steps and one eval batch: losses "
-              f"{[round(v, 6) for v in ref_loss]}, median step "
+              f"process, batch 12, {steps} steps and one eval batch of "
+              f"{len(rows_one)}: losses {[round(v, 6) for v in ref_loss]}, "
+              + ", ".join(f"{k} {v:.6f}" for k, v in sorted(ref_val.items()))
+              + f"; the eval probabilities of two rows differ by up to "
+              f"{row_spread:.4f}; median step "
               f"{np.median(ref['step_ms'][1:]):.3f} ms, launches "
               f"{ref['launches']}; {ref['wall_s']:.1f} s [{gpu}]", flush=True)
         check(len(ref_loss) == steps
-              and abs(ref_loss[-1] - math.log(2)) > 1e-4,
-              f"reference losses {ref_loss} (the head must have moved)")
+              and abs(ref_loss[-1] - math.log(2)) > 1e-4
+              and {"val_loss", "val_ap", "val_roc", "val_loss_swa"}
+              <= set(ref_val),
+              f"reference losses {ref_loss} (the head must have moved), val "
+              f"{ref_val}")
         del ref
         gc.collect()
         torch.cuda.empty_cache()
@@ -5545,18 +5583,18 @@ def phase_parallel(dev, gpu):
         for world in (2, 4, 1):
             modes = [(n, argv(n, extra)) for n, w, extra in P38_MODES
                      if w == world]
-            out = tmp / f"ranks{world}"
-            out.mkdir()
-            walls[world] = _p38_launch(world, modes, out)
+            t0 = time.perf_counter()
+            ranks = spawn(_p38_rank, world, modes, timeout=P38_TIMEOUT)
+            walls[world] = time.perf_counter() - t0
             for n, _ in modes:
-                recs[n] = [pickle.loads((out / f"{n}.{r}.pkl").read_bytes())
-                           for r in range(world)]
+                recs[n] = [r[n] for r in ranks]
 
         total = {"K2": 0, "K3a": 0, "K3b": 0}
         err = 0.0
-        for name, world, _ in P38_MODES:
+        for name, world, extra in P38_MODES:
             ranks = recs[name]
             r0 = ranks[0]
+            model = 2 if "trainer.model_parallel=2" in extra else 1
             run = _cli_run_dir(tmp / name.replace("+", "_"))
             _, metrics = _cli_record(run)
             loss = [m["value"] for m in metrics if m["name"] == "train_loss"]
@@ -5565,14 +5603,54 @@ def phase_parallel(dev, gpu):
                   and max(rel) <= P38_LOSS_RTOL,
                   f"phase 38 {name}: losses {loss} against {ref_loss}, "
                   f"relative {rel} (bound {P38_LOSS_RTOL})")
-            gaps = [g for r in ranks for g in r["replica_gap"]]
+            gaps = [g for r in ranks for g, _ in r["replica_gap"]]
+            compared = max(n for r in ranks for _, n in r["replica_gap"])
             check(len(gaps) == world * steps and max(gaps) == 0.0,
-                  f"phase 38 {name}: the ranks' parameters after each step "
-                  f"differ by up to {gaps}")
-            vals = [r["val"] for r in ranks]
-            check(all(v == vals[0] for v in vals) and len(vals[0]) == 1
-                  and all(np.isfinite(x) for x in vals[0][0].values()),
-                  f"phase 38 {name}: the ranks' val metrics {vals}")
+                  f"phase 38 {name}: the replicas' parameters after each "
+                  f"step differ by up to {gaps}")
+            # the eval: each data rank's rows, in the reference's order
+            # (rank = data rank x model ranks + model rank); every model
+            # rank of a data rank takes the same rows
+            check(all(len(r["eval_rows"]) == 1 for r in ranks)
+                  and [h for r in ranks[::model] for h in r["eval_rows"][0]]
+                  == rows_one and all(
+                      r["eval_rows"] == ranks[i - i % model]["eval_rows"]
+                      for i, r in enumerate(ranks)),
+                  f"phase 38 {name}: the eval's input rows are not one "
+                  "process's")
+            val_gap = {"prob": 0.0, "loss": 0.0, "rank": 0.0}
+            for r, rec in enumerate(ranks):
+                check(len(rec["scores"]) == 2 and len(rec["val"]) == 1
+                      and set(rec["val"][0]) == set(ref_val) and all(
+                          np.array_equal(y, y1) for (y, _), (y1, _)
+                          in zip(rec["scores"], scores_one)),
+                      f"phase 38 {name} rank {r}: the eval's targets or "
+                      f"metrics {rec['val']}")
+                val_gap["prob"] = max(val_gap["prob"], *(
+                    float(np.abs(p - p1).max()) for (_, p), (_, p1)
+                    in zip(rec["scores"], scores_one)))
+                for k, x in rec["val"][0].items():
+                    if "_loss" in k:
+                        d = abs(x - ref_val[k]) / abs(ref_val[k])
+                        val_gap["loss"] = max(val_gap["loss"], d)
+                    else:
+                        d = abs(x - ref_val[k])
+                        val_gap["rank"] = max(val_gap["rank"], d)
+            same = all(np.array_equal(p, p1) for rec in ranks
+                       for (_, p), (_, p1) in zip(rec["scores"], scores_one))
+            check(val_gap["prob"] <= P38_PROB_ATOL
+                  and val_gap["loss"] <= P38_LOSS_RTOL
+                  and (val_gap["rank"] == 0.0 or not same),
+                  f"phase 38 {name}: the eval against one process's "
+                  f"{val_gap} (bounds {P38_PROB_ATOL}, {P38_LOSS_RTOL}, and "
+                  f"0 for AP/ROC where the probabilities are equal: {same})"
+                  f"; rank 0 {r0['val']}, one {ref_val}")
+            upd, (t_worst, k_worst) = _p38_update_gap(
+                _cli_params(run, "epoch-0"), ref_params, init)
+            check(upd <= P38_UPDATE_RTOL,
+                  f"phase 38 {name}: final parameters {upd} of the update "
+                  f"from one process's (bound {P38_UPDATE_RTOL}; worst "
+                  f"{k_worst} {t_worst})")
             want = {"K2": 12 * 2, "K3a": 12 * steps, "K3b": 12 * steps}
             for r, rec in enumerate(ranks):
                 got = rec["launches"]
@@ -5585,23 +5663,39 @@ def phase_parallel(dev, gpu):
             backend = r0["backend"]
             check(backend == ("nccl" if world == 1 else "gloo"),
                   f"phase 38 {name}: backend {backend}")
+            replicas = (f"the replicas of {compared} parameter elements "
+                        f"after each of {steps} steps differ by {max(gaps)}"
+                        if compared else
+                        "no parameter element has a replica to compare "
+                        "(FSDP shards every one)" if world > 1 else
+                        "one rank: no replica")
             line = (f"phase 38 {name}: {world} rank(s) on the one card over "
                     f"{backend}"
                     f"{' (CUDA tensors)' if backend == 'gloo' else ''}"
                     f", global batch 12: losses "
                     f"{[round(v, 6) for v in loss]} (largest relative gap to "
-                    f"one process {max(rel):.2e} <= {P38_LOSS_RTOL}); the "
-                    f"ranks' parameters after each of {steps} steps differ by "
-                    f"{max(gaps)}; val metrics equal on every rank (val_loss "
-                    f"{vals[0][0]['val_loss']:.6f}, val_loss_swa "
-                    f"{vals[0][0]['val_loss_swa']:.6f}); launches a rank "
+                    f"one process {max(rel):.2e} <= {P38_LOSS_RTOL}); "
+                    f"{replicas}; final parameters (rank 0's checkpoint) "
+                    f"{upd:.3e} of one process's update from it <= "
+                    f"{P38_UPDATE_RTOL} (worst tensor {k_worst} {t_worst:.3e}"
+                    f"); the eval's {len(rows_one)} input rows bit-equal to "
+                    f"one process's and every rank's targets equal; against "
+                    f"one process's, every rank's probabilities "
+                    f"{val_gap['prob']:.2e} <= {P38_PROB_ATOL}, val losses "
+                    f"{val_gap['loss']:.2e} <= {P38_LOSS_RTOL} (relative), "
+                    f"AP and ROC {val_gap['rank']:.2e} ("
+                    + ("the probabilities bit-equal, so 0" if same else
+                       "not bounded: the probabilities round apart") +
+                    f"; val_loss {r0['val'][0]['val_loss']:.6f}, val_ap "
+                    f"{r0['val'][0]['val_ap']:.6f}, val_roc "
+                    f"{r0['val'][0]['val_roc']:.6f}); launches a rank "
                     f"{r0['launches']}; median step (rank 0, CUDA events, the "
                     f"first left out) {np.median(r0['step_ms'][1:]):.3f} ms "
                     f"(steps {', '.join(f'{t:.3f}' for t in r0['step_ms'])}); "
                     f"ex_maest.run {r0['wall_s']:.1f} s")
             if "gaps" in r0:
                 g = r0["gaps"]
-                data = world // 2  # the model ranks are 2
+                data = world // model
                 check(g["train_shape"] == (12 // data, 281, 3, 6, 64)
                       and g["eval_shape"] == (20 // data, CLI_EVAL_N, 3, 6,
                                               64),

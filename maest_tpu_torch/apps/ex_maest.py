@@ -26,11 +26,7 @@ from __future__ import annotations
 import json
 import logging
 import os
-import queue
-import socket
 import sys
-import time
-import traceback
 
 from ..configs import build_experiment_config
 from ..train.loop import Trainer, compute_norm_stats, model_speed_test
@@ -67,13 +63,6 @@ def parse_argv(argv: list[str]) -> tuple[str, list[str], list[str]]:
     return command, presets, overrides
 
 
-def free_port() -> int:
-    """A TCP port on localhost that was free a moment ago."""
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _ranks_wanted(cfg: dict, device) -> int:
     """``trainer.devices`` as a rank count (None: every visible card, one
     on the CPU)."""
@@ -87,22 +76,10 @@ def _ranks_wanted(cfg: dict, device) -> int:
     return 1
 
 
-def _rank_main(rank: int, world: int, port: int, argv, device, results):
-    """One spawned rank: torchrun's variables, then ``run``."""
-    import torch.distributed as dist
-
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
-                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
-    try:
-        res = run(argv, device=device)
-        results.put((rank, "ok", res if rank == 0 else None))
-    except BaseException:  # noqa: BLE001 — reported to the launcher
-        results.put((rank, "error", traceback.format_exc()))
-        raise SystemExit(1)
-    finally:
-        if dist.is_available() and dist.is_initialized():
-            dist.destroy_process_group()
+def _rank_main(rank: int, world: int, argv, device):
+    """One spawned rank: ``run``; rank 0's result goes back."""
+    res = run(argv, device=device)
+    return res if rank == 0 else None
 
 
 def launch(argv: list[str], n: int, device="cuda",
@@ -113,7 +90,8 @@ def launch(argv: list[str], n: int, device="cuda",
     traceback, and the other ranks are killed, as they are after
     ``timeout`` seconds."""
     import torch
-    import torch.multiprocessing as mp
+
+    from ..parallel.launch import spawn
 
     if str(device).startswith("cuda"):
         cards = torch.cuda.device_count()
@@ -124,45 +102,7 @@ def launch(argv: list[str], n: int, device="cuda",
             raise ValueError(
                 f"trainer.devices={n} but {cards} cards are visible: one rank "
                 "a card (ranks that share a card: launch them with torchrun)")
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    port = free_port()
-    procs = [ctx.Process(target=_rank_main,
-                         args=(r, n, port, argv, str(device), results))
-             for r in range(n)]
-    for p in procs:
-        p.start()
-    deadline = None if timeout is None else time.monotonic() + timeout
-    done, out, failure = 0, None, None
-    try:
-        while done < n and failure is None:
-            if deadline is not None and time.monotonic() > deadline:
-                failure = f"the ranks did not finish in {timeout} s"
-                break
-            try:
-                rank, status, value = results.get(timeout=0.5)
-            except queue.Empty:
-                dead = [p for p in procs if p.exitcode not in (None, 0)]
-                if dead and results.empty():
-                    failure = (f"rank {procs.index(dead[0])} exited with "
-                               f"code {dead[0].exitcode}")
-                continue
-            if status == "error":
-                failure = f"rank {rank} failed:\n{value}"
-            else:
-                done += 1
-                if rank == 0:
-                    out = value
-    finally:
-        if failure is not None:
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-        for p in procs:
-            p.join()
-    if failure is not None:
-        raise RuntimeError(f"ex_maest launch of {n} ranks: {failure}")
-    return out
+    return spawn(_rank_main, n, argv, str(device), timeout=timeout)[0]
 
 
 def run(argv: list[str], device="cuda") -> dict:
@@ -203,7 +143,8 @@ def run(argv: list[str], device="cuda") -> dict:
 
         return fit_with_recovery(
             cfg, trainer_factory=lambda c: Trainer(c, run_info=run_info,
-                                                   device=device))
+                                                   device=device),
+            device=device)
 
     # defensive dispatch guard BEFORE the Trainer exists: a bad command must
     # never create a run dir whose run.json is stuck at RUNNING forever

@@ -114,8 +114,7 @@ class BatchLoader:
 
 def device_prefetch(batches: Iterator[dict], device="cuda", size: int = 2,
                     keys: Sequence[str] = ("x", "y", "y_teacher"),
-                    process_local: bool = False, shard=None
-                    ) -> Iterator[dict]:
+                    shard=None) -> Iterator[dict]:
     """Move batches to ``device`` ahead of their use (double buffering).
 
     Array values under ``keys`` become tensors on ``device``; other
@@ -127,16 +126,12 @@ def device_prefetch(batches: Iterator[dict], device="cuda", size: int = 2,
     buffer while the consumer's stream may still read it. On the CPU the
     arrays are only converted to tensors.
 
-    Across ranks (as ``maest_tpu/data/loader.py::device_prefetch``):
-    ``process_local=True`` says each batch already holds only this rank's
-    rows of the global batch (global batch / data ranks, in rank order),
-    and they go to the card as they are; with ``process_local=False`` and
-    ``shard=(rank, ranks)`` each batch is the whole global batch and only
-    the rank's block of rows under ``keys`` goes to the card.
+    ``shard=(rank, ranks)``: each batch is the whole global batch, and
+    only rank ``rank`` of ``ranks``' block of rows under ``keys`` goes to
+    the card. A batch that already holds only this rank's rows goes with
+    ``shard=None``, as it is.
     """
     device = torch.device(device)
-    if process_local:
-        shard = None
 
     def _rows(arr, shard):
         """Rank ``shard[0]`` of ``shard[1]``'s block of rows of ``arr``."""

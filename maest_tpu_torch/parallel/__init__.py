@@ -8,7 +8,6 @@ from .mesh import (
     Parallel,
     init_distributed,
     make_mesh,
-    param_spec,
     shard_params,
 )
 from .tensor_parallel import Layout
@@ -18,6 +17,5 @@ __all__ = [
     "Parallel",
     "init_distributed",
     "make_mesh",
-    "param_spec",
     "shard_params",
 ]

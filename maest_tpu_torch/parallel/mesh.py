@@ -143,7 +143,7 @@ class Parallel:
         return f"{' x '.join(modes)} over {dist.get_backend()}"
 
 
-# -- parameter specs ----------------------------------------------------------
+# -- tensor-parallel slices ---------------------------------------------------
 
 def _tp_rule(name: str):
     """How tensor parallelism splits parameter ``name`` (the torch layout,
@@ -161,24 +161,6 @@ def _tp_rule(name: str):
     if name.endswith(".attn.proj.weight") or name.endswith(".mlp.fc2.weight"):
         return "cols"
     return None
-
-
-def param_spec(name: str, shape: tuple, *, fsdp_shards: int = 1,
-               tensor_parallel: bool = True) -> tuple:
-    """The mesh axes each dim of parameter ``name`` is split over (None:
-    whole), as the JAX ``PartitionSpec``. ``model`` on qkv / fc1's output
-    dim (0) and proj / fc2's input dim (1); under FSDP ``data`` on dim 0
-    (FSDP2 shards the rank's tensor along dim 0, padding the last shard),
-    after ``model`` where that dim is model-split too."""
-    spec: list = [None] * len(shape)
-    rule = _tp_rule(name) if tensor_parallel else None
-    if rule in ("qkv", "rows"):
-        spec[0] = "model"
-    elif rule == "cols":
-        spec[1] = "model"
-    if fsdp_shards > 1 and shape:
-        spec[0] = "data" if spec[0] is None else (spec[0], "data")
-    return tuple(spec)
 
 
 def _qkv_view(t: torch.Tensor, heads: int) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Megatron tensor and sequence parallelism for the ViT's blocks.
 
 The port of what GSPMD inserts in the JAX package from its partition
-specs (``maest_tpu/parallel/mesh.py::param_spec``) and its sequence
+specs (``maest_tpu/parallel/mesh.py::param_spec``; here
+``mesh._tp_rule`` and ``tp_slice``) and its sequence
 constraint (``maest_tpu/models/vit.py::Block._seq_shard``), written out as
 autograd functions over a process group:
 

@@ -579,8 +579,7 @@ class Trainer:
             idx = self._epoch_indices(train_ds, self.epoch)
             n_steps = 0
             last = {}
-            for batch in device_prefetch(loader.iter_indices(idx), self.device,
-                                         process_local=True):
+            for batch in device_prefetch(loader.iter_indices(idx), self.device):
                 # per-step randomness from (seed, state.step)
                 self.state, metrics = self.train_step(
                     self.state, _step_batch(batch),
@@ -641,7 +640,6 @@ class Trainer:
             # of every global batch, the targets of the whole batch come
             # from the groundtruth
             batches = self._rank_sharded_eval_batches(dataset)
-            prefetch_kw = {"process_local": True}
         else:
             # the JAX package's replicated fallback where the data ranks do
             # not divide the processes (model ranks > 1): every rank loads

@@ -130,23 +130,31 @@ def fit_with_recovery(
     trainer_factory: Optional[Callable[[dict], object]] = None,
     max_restarts: Optional[int] = None,
     backoff_s: float = 10.0,
+    device="cuda",
 ) -> dict:
-    """``Trainer(cfg).fit()`` with automatic restart-from-checkpoint.
+    """``Trainer(cfg, device=device).fit()`` with automatic
+    restart-from-checkpoint.
 
     Each attempt builds a fresh Trainer (new run dir); on a recoverable
     failure the next attempt resumes from the failed run's newest epoch
-    checkpoint via ``ckpt_path``. Non-recoverable exceptions and restart
-    exhaustion propagate.
+    checkpoint via ``ckpt_path``, after the process group (if any) is
+    formed again on ``device``'s type. Non-recoverable exceptions and
+    restart exhaustion propagate.
     """
+    import torch
+
     if trainer_factory is None:
-        from .loop import Trainer as trainer_factory  # noqa: N813
+        from .loop import Trainer
+
+        def trainer_factory(c):
+            return Trainer(c, device=device)
 
     if max_restarts is None:
         max_restarts = int(cfg["trainer"].get("max_restarts", 3))
 
     cfg = dict(cfg)
     restarts = 0
-    device = "cuda"
+    device_type = torch.device(device).type
     while True:
         trainer = None
         try:
@@ -154,8 +162,6 @@ def fit_with_recovery(
             # card) and must be retryable — right after a preemption the
             # device may still be down when the next attempt starts
             trainer = trainer_factory(cfg)
-            if hasattr(trainer, "device"):
-                device = trainer.device.type
             result = trainer.fit()
             if restarts:
                 result = dict(result, restarts=restarts)
@@ -183,4 +189,4 @@ def fit_with_recovery(
             if ckpt:
                 cfg["ckpt_path"] = ckpt
             time.sleep(backoff_s)
-            _reinit_distributed(device)
+            _reinit_distributed(device_type)

@@ -249,8 +249,8 @@ def test_resilient_main_runs_through_fit_with_recovery(corpus, tmp_path,
                                                        monkeypatch):
     seen = {}
 
-    def fake(cfg, *, trainer_factory):
-        seen["cfg"] = cfg
+    def fake(cfg, *, trainer_factory, device):
+        seen["cfg"], seen["device"] = cfg, device
         seen["trainer"] = trainer_factory(cfg)
         return {"done": True}
 
@@ -267,4 +267,4 @@ def test_resilient_main_runs_through_fit_with_recovery(corpus, tmp_path,
             ("trainer.default_root_dir", f"{tmp_path}/exp_logs"))]]
     assert cli.run(argv, device="cpu") == {"done": True}
     assert seen["cfg"]["trainer"]["resilient"] is True
-    assert seen["trainer"].device.type == "cpu"
+    assert seen["trainer"].device.type == "cpu" and seen["device"] == "cpu"

@@ -41,6 +41,7 @@ def test_import_pulls_in_no_jax():
             "maest_tpu_torch.train.loop, maest_tpu_torch.train.resilience, "
             "maest_tpu_torch.apps.ex_maest, maest_tpu_torch.parallel, "
             "maest_tpu_torch.parallel.mesh, "
+            "maest_tpu_torch.parallel.launch, "
             "maest_tpu_torch.parallel.tensor_parallel; "
             "print(sorted(m for m in ('jax', 'jaxlib', 'flax', 'optax', "
             "'orbax', 'sklearn', 'tensorboardX') if m in sys.modules))")

@@ -25,6 +25,8 @@ every draw is the global batch's, cut to the rank's rows, so losses and
 parameters match at the same tolerances.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -42,6 +44,7 @@ from maest_tpu.train.steps import make_train_step as jax_train_step
 from maest_tpu_torch.checkpoints import state_from_jax_params
 from maest_tpu_torch.models.config import MAESTConfig
 from maest_tpu_torch.parallel import mesh as pmesh
+from maest_tpu_torch.parallel.launch import spawn
 from maest_tpu_torch.train import schedules as tsched
 
 import torch_parallel_worker as W
@@ -106,8 +109,8 @@ def runs(spec):
     of each rank's (losses, whole parameters)."""
     out = {}
     for world, modes in RUNS.items():
-        W.spawn(W.run_modes, world, str(spec["path"]), str(spec["out"]),
-                modes, timeout=TIMEOUT)
+        spawn(W.run_modes, world, str(spec["path"]), str(spec["out"]),
+              modes, timeout=TIMEOUT)
         for mode in modes:
             out[mode] = [torch.load(spec["out"] / f"{mode}.{r}.pt")
                          for r in range(world)]
@@ -175,7 +178,7 @@ def test_accumulation_matches_one_process(runs, spec, mode):
 
 
 def test_gather_across_hosts_in_rank_order(tmp_path):
-    W.spawn(W.gather_rows, 2, str(tmp_path), timeout=TIMEOUT)
+    spawn(W.gather_rows, 2, str(tmp_path), timeout=TIMEOUT)
     want = np.concatenate([np.full((r + 1, 3), r) for r in range(2)])
     for r in range(2):
         for name in ("gather", "regather"):  # re-formed group, same answer
@@ -231,10 +234,32 @@ def test_tensor_parallel_slices_are_head_aligned(size):
         ps = [pmesh.tp_slice(name, t, heads, r, size) for r in range(size)]
         assert torch.equal(pmesh.tp_unslice(name, ps, heads), t), name
         split = any(p.shape != t.shape for p in ps)
-        assert split == (pmesh.param_spec(name, shape) != (None,) * len(shape))
-    assert pmesh.param_spec("blocks.0.attn.qkv.weight", (3 * e, e)) == (
-        "model", None)
-    assert pmesh.param_spec("blocks.0.mlp.fc2.weight", (e, 4 * e),
-                            fsdp_shards=2) == ("data", "model")
-    assert pmesh.param_spec("blocks.0.mlp.fc1.weight", (4 * e, e),
-                            fsdp_shards=2) == (("model", "data"), None)
+        assert split == (name in TP_SPLIT), name
+
+
+# the parameters tensor parallelism splits (maest_tpu/parallel/mesh.py's
+# param_spec "model" axes): qkv and fc1 their outputs, proj and fc2 their
+# inputs
+TP_SPLIT = {"blocks.0.attn.qkv.weight", "blocks.0.attn.qkv.bias",
+            "blocks.0.attn.proj.weight", "blocks.0.mlp.fc1.weight",
+            "blocks.0.mlp.fc1.bias", "blocks.0.mlp.fc2.weight"}
+
+
+def test_spawn_fails_with_the_failing_ranks_traceback():
+    """A rank that raises fails the launch with its traceback, and the
+    ranks still running are killed; at the timeout every rank is."""
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="(?s)rank 1 failed.*on purpose"):
+        spawn(W.fail_or_wait, 3, 1, 600.0, timeout=TIMEOUT)
+    with pytest.raises(RuntimeError, match="did not finish in 5.0 s"):
+        spawn(W.fail_or_wait, 2, -1, 600.0, timeout=5.0)
+    assert time.monotonic() - t0 < TIMEOUT
+    assert spawn(W.fail_or_wait, 2, -1, 0.0, timeout=TIMEOUT) == [0, 1]
+
+
+def test_recovery_reforms_the_group_when_the_trainer_fails_to_build():
+    """``fit_with_recovery`` across 2 CPU ranks whose first Trainer fails
+    before it exists: the group is formed again over gloo on the
+    device the caller named, and the second attempt reduces over it."""
+    got = spawn(W.recover_before_the_trainer, 2, timeout=TIMEOUT)
+    assert got == [({"done": True, "sum": 2.0, "restarts": 1}, 2)] * 2

@@ -1,93 +1,17 @@
 """The ranks of ``tests/test_torch_parallel.py``: processes spawned over
-gloo on the CPU, each running the port's train step in every parallel mode
-of one world size on its rows of the same global batches. Imports torch and
-the port only (no jax): the test holds the results to the JAX package.
-
-``spawn(target, world, *args, timeout=...)`` starts ``world`` processes of
-``target(rank, world, port, *args)`` and kills them all if one fails or
-the timeout passes.
+gloo on the CPU by ``maest_tpu_torch.parallel.launch.spawn``, each running
+the port's train step in every parallel mode of one world size on its
+rows of the same global batches. Imports torch and the port only (no
+jax): the test holds the results to the JAX package.
 """
 
 from __future__ import annotations
 
-import os
-import socket
-import traceback
+import time
 from pathlib import Path
 
 import numpy as np
 import torch
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _entry(target, rank, world, port, args, errors):
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
-                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
-    torch.set_num_threads(1)
-    try:
-        target(rank, world, port, *args)
-    except BaseException:  # noqa: BLE001 — reported to the test
-        errors.put((rank, traceback.format_exc()))
-        raise SystemExit(1)
-    finally:
-        import torch.distributed as dist
-
-        if dist.is_initialized():
-            dist.destroy_process_group()
-
-
-def spawn(target, world: int, *args, timeout: float = 120.0) -> None:
-    """Run ``target(rank, world, port, *args)`` in ``world`` spawned
-    processes with torchrun's variables set; raise with the first failing
-    rank's traceback. Every child is killed on a failure or at
-    ``timeout``."""
-    import queue
-    import time
-
-    import torch.multiprocessing as mp
-
-    ctx = mp.get_context("spawn")
-    errors = ctx.Queue()
-    port = free_port()
-    procs = [ctx.Process(target=_entry,
-                         args=(target, r, world, port, args, errors))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + timeout
-    failure = None
-    try:
-        while any(p.is_alive() for p in procs):
-            if time.monotonic() > deadline:
-                failure = f"timed out after {timeout} s"
-                break
-            try:
-                rank, tb = errors.get(timeout=0.2)
-                failure = f"rank {rank} failed:\n{tb}"
-                break
-            except queue.Empty:
-                pass
-        if failure is None:
-            try:
-                rank, tb = errors.get_nowait()
-                failure = f"rank {rank} failed:\n{tb}"
-            except queue.Empty:
-                bad = [p.exitcode for p in procs if p.exitcode]
-                if bad:
-                    failure = f"ranks exited with codes {bad}"
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-            p.join()
-    if failure:
-        raise RuntimeError(failure)
 
 
 # -- the modes --------------------------------------------------------------
@@ -100,7 +24,7 @@ MODES = {
 }
 
 
-def run_modes(rank, world, port, spec_path, out_dir, modes):
+def run_modes(rank, world, spec_path, out_dir, modes):
     """Each mode of ``modes`` (names of ``MODES[world]``, or
     "<name>:random" with the spec's randomness on, or "<name>:accum" with
     2 micro-batches an optimizer step): build the full model from the
@@ -122,6 +46,7 @@ def run_modes(rank, world, port, spec_path, out_dir, modes):
     from maest_tpu_torch.train import schedules
     from maest_tpu_torch.train.loop import state_snapshot
 
+    torch.set_num_threads(1)
     spec = torch.load(spec_path, weights_only=False)
     pmesh.init_distributed("cpu")
     for mode in modes:
@@ -186,7 +111,7 @@ def one_process(spec, random: bool, accumulate: int = 1):
                     for k, p in net.named_parameters()}
 
 
-def gather_rows(rank, world, port, out_dir):
+def gather_rows(rank, world, out_dir):
     """``gather_across_hosts`` of rank r's r + 1 rows, before and after
     the process group is torn down and formed again
     (``resilience._reinit_distributed``)."""
@@ -194,8 +119,49 @@ def gather_rows(rank, world, port, out_dir):
     from maest_tpu_torch.train.metrics import gather_across_hosts
     from maest_tpu_torch.train.resilience import _reinit_distributed
 
+    torch.set_num_threads(1)
     pmesh.init_distributed("cpu")
     arr = np.full((rank + 1, 3), rank, np.int64)
     np.save(Path(out_dir) / f"gather.{rank}.npy", gather_across_hosts(arr))
     _reinit_distributed("cpu")
     np.save(Path(out_dir) / f"regather.{rank}.npy", gather_across_hosts(arr))
+
+
+def fail_or_wait(rank, world, failing_rank, wait_s):
+    """Rank ``failing_rank`` raises at once; the others wait ``wait_s``
+    seconds and return their rank."""
+    if rank == failing_rank:
+        raise ValueError(f"rank {rank} fails on purpose")
+    time.sleep(wait_s)
+    return rank
+
+
+def recover_before_the_trainer(rank, world):
+    """``fit_with_recovery`` on the CPU whose first Trainer fails to build
+    with a recoverable error: the group is formed again over gloo and the
+    second attempt's ``fit`` sums a tensor over it. Returns the result
+    and the number of attempts."""
+    import torch.distributed as dist
+
+    from maest_tpu_torch.parallel import mesh as pmesh
+    from maest_tpu_torch.train.resilience import fit_with_recovery
+
+    torch.set_num_threads(1)
+    pmesh.init_distributed("cpu")
+    made = []
+
+    class Joined:
+        def fit(self):
+            t = torch.ones(1)
+            dist.all_reduce(t)
+            return {"done": True, "sum": float(t)}
+
+    def factory(cfg):
+        made.append(cfg)
+        if len(made) == 1:
+            raise RuntimeError("connection reset by peer")
+        return Joined()
+
+    res = fit_with_recovery({"trainer": {}}, trainer_factory=factory,
+                            max_restarts=1, backoff_s=0.0, device="cpu")
+    return res, len(made)
