@@ -133,12 +133,13 @@ with the control in turn (36). Last the training CLI,
 ``maest_tpu_torch.apps.ex_maest.run(["main", "with",
 "maest_10s_random_weights_pretrain", ...])`` in process on a synthetic
 corpus: the native reader, the batch loader, the prefetch onto the card
-and the Trainer for 2 epochs at full width with the launch counters
-reset (K3a and K3b 12 a step, K2 12 an eval batch, the controls never),
-its checkpoints, a run resumed from epoch-0 held to the uninterrupted
-one, ``test`` and ``extract_embeddings`` on ``best``, and the Trainer's
-step timed beside the bare recipe step (37). Then the Trainer's parallel
-modes (38): ``ex_maest main`` at the same preset in ranks spawned with
+and the Trainer for 2 epochs at full width and 4 of the preset's 12
+blocks with the launch counters reset (K3a and K3b one a block a step,
+K2 one a block an eval batch, the controls never), its checkpoints, a
+run resumed from epoch-0 held to the uninterrupted one, ``test`` and
+``extract_embeddings`` on ``best``, and the Trainer's step timed beside
+the bare recipe step (37). Then the Trainer's parallel modes (38):
+``ex_maest main`` at the same preset and depth in ranks spawned with
 torchrun's variables, 2 on the one card over gloo on CUDA tensors (data
 parallelism, tensor parallelism, FSDP2, tensor with sequence
 parallelism), 4 (data x tensor x sequence parallelism), and 1 over NCCL
@@ -146,7 +147,13 @@ parallelism), 4 (data x tensor x sequence parallelism), and 1 over NCCL
 losses, the eval's input rows, probabilities and val losses, rank 0's
 final checkpoint), the replicas of each parameter element equal after
 every step, the launch counters of each rank, and K3a/K3b and K2 held
-to plain at tensor parallelism's local shapes. A
+to plain at tensor parallelism's local shapes. Last GPipe through the
+Trainer (39) at the preset's full depth, 2 stages of 6 blocks: pp (2
+ranks), dp+pp, pp+tp and dp+pp+fsdp (4 ranks) over gloo on the one card,
+each held to a full-depth one-process run with phase 38's bounds, each
+rank's launches (K3a and K3b 6 x M microbatches a step, K2 6 an eval
+forward) and K3a/K3b/K2 held to plain at each rank's microbatch and
+eval shapes. Each phase's seconds print as it ends. A
 split by torch.profiler
 is printed only from a trace that holds every launch its route makes, by
 name and count, and a device total within SPLIT_SHARE of the call's
@@ -4921,6 +4928,10 @@ CLI_EVAL_N = 551
 # the Trainer's step and the bare step timed in alternating rounds
 CLI_ROUNDS = 6
 CLI_ROUND_STEPS = 3
+# phases 37 and 38 run the preset's width at 4 of its 12 blocks (their
+# full-depth readings stay in PERF.md), which keeps the script in its time
+# with phase 39 at full depth
+CLI_DEPTH = 4
 
 
 def _cli_corpus(root: Path, n: int, frames, seed: int) -> None:
@@ -4944,7 +4955,9 @@ def _cli_corpus(root: Path, n: int, frames, seed: int) -> None:
 
 
 def _cli_overrides(corpus: Path, out: Path, epoch_len: int, extra=()):
-    return [f"datamodule.base_dir='{corpus}'",
+    """The overrides of a phase 37-39 run, at ``CLI_DEPTH`` blocks unless
+    ``extra`` sets ``maest.depth``."""
+    return [f"maest.depth={CLI_DEPTH}", f"datamodule.base_dir='{corpus}'",
             *(f"datamodule.groundtruth_{s}='{corpus}/gt_{s}.pk'"
               for s in ("train", "val", "test", "predict")),
             f"datamodule.sampler.epoch_len={epoch_len}",
@@ -4982,13 +4995,14 @@ def _cli_params(run: Path, tag: str) -> dict:
 
 def phase_trainer_cli(dev, gpu):
     """Phase 37: the training CLI. ``maest_tpu_torch.apps.ex_maest.run``
-    in process: ``main with maest_10s_random_weights_pretrain`` (ViT-B,
-    12 blocks, bf16 over fp32 parameters, batch 12, N 281 with s patchout
-    t 30, SpecAugment and mixup on, random weights) for 2 epochs of 4
-    steps on 48 synthetic files of 640-1900 frames, through the native
-    reader, ``BatchLoader``, ``device_prefetch`` and the ``Trainer``, with
-    the launch counters reset: K3a and K3b 12 a step, K2 12 an eval batch
-    for the live and the SWA weights, the control kernels never; a run
+    in process: ``main with maest_10s_random_weights_pretrain`` (ViT-B's
+    width at ``CLI_DEPTH`` blocks, bf16 over fp32 parameters, batch 12, N
+    281 with s patchout t 30, SpecAugment and mixup on, random weights)
+    for 2 epochs of 4 steps on 48 synthetic files of 640-1900 frames,
+    through the native reader, ``BatchLoader``, ``device_prefetch`` and
+    the ``Trainer``, with the launch counters reset: K3a and K3b one a
+    block a step, K2 one a block an eval batch for the live and the SWA
+    weights, the control kernels never; a run
     resumed from epoch-0 against the uninterrupted one on files of exactly
     one clip; ``test`` and ``extract_embeddings`` on ``best``. K2 is held
     to its plain version on the first qkv the eval hands it, (20, 551)
@@ -5081,7 +5095,8 @@ def phase_trainer_cli(dev, gpu):
                   if "loss" in n) and len(val) == 12,
               f"val metrics {val}")
         # eval: 2 val batches an epoch, the live and the SWA weights
-        want = {"K2": 12 * 2 * 2 * 2, "K3a": 12 * steps, "K3b": 12 * steps}
+        want = {"K2": CLI_DEPTH * 2 * 2 * 2, "K3a": CLI_DEPTH * steps,
+                "K3b": CLI_DEPTH * steps}
         check(all(launches[k] == n for k, n in want.items())
               and not any(n for k, n in launches.items() if k not in want),
               f"launches on the CLI's run {launches}, wanted {want} and no "
@@ -5119,7 +5134,8 @@ def phase_trainer_cli(dev, gpu):
         wait_share = sum(gaps) / (sum(gaps) + sum(busy))
         trainer_ms = [t * 1e3 for t in timer.times]
         print(f"phase 37 training CLI: ex_maest main with {CLI_PRESET} "
-              f"(ViT-B, bf16 over fp32 parameters, batch 12, N 281) on "
+              f"(ViT-B's width at depth {CLI_DEPTH}, bf16 over fp32 "
+              f"parameters, batch 12, N 281) on "
               f"{CLI_FILES} synthetic files of 640-1900 frames, 2 epochs of "
               f"{per_epoch} steps, native reader {native.available()}: "
               f"run.json {record['status']}, losses "
@@ -5157,7 +5173,8 @@ def phase_trainer_cli(dev, gpu):
         batches = device_prefetch(BatchLoader(
             ds, trainer.global_batch, num_workers=cfg["datamodule"][
                 "num_workers"], drop_last=True).iter_indices(idx), dev)
-        *_, state, step, data = _recipe(dev, CLI_PRESET, 12, 37)
+        *_, state, step, data = _recipe(dev, CLI_PRESET, 12, 37,
+                                        (f"maest.depth={CLI_DEPTH}",))
         timers = {k: StepTimer(warmup=1, device=dev)
                   for k in ("trainer", "trainer_fixed", "bare")}
         seed = cfg.get("seed", 0)
@@ -5196,7 +5213,8 @@ def phase_trainer_cli(dev, gpu):
               f"the Trainer's state on the bare step's batch median "
               f"{med['trainer_fixed']:.3f} ms (steps "
               f"{steps_of['trainer_fixed']}); the bare recipe step at the "
-              f"same shape (_recipe, {CLI_PRESET}, batch 12) median "
+              f"same shape (_recipe, {CLI_PRESET} at depth {CLI_DEPTH}, "
+              f"batch 12) median "
               f"{med['bare']:.3f} ms (steps {steps_of['bare']}); the "
               f"Trainer's step {med['trainer'] - med['bare']:+.3f} ms over "
               f"the bare step [{gpu}]", flush=True)
@@ -5244,9 +5262,12 @@ def phase_trainer_cli(dev, gpu):
         check(sorted(test) == ["test_ap", "test_loss", "test_roc"]
               and all(np.isfinite(v) for v in test.values()),
               f"ex_maest test: {test}")
+        # the preset taps block 11; the last of CLI_DEPTH here
         ext = ex_maest.run(["extract_embeddings", "with", CLI_PRESET,
                             *_cli_overrides(tmp / "corpus", tmp / "ext",
-                                            CLI_FILES, (best,))])
+                                            CLI_FILES, (
+                                                best, "predict.transformer_"
+                                                f"block={CLI_DEPTH - 1}"))])
         files = sorted(Path(ext["out_dir"]).glob("*.embeddings.npy"))
         shapes = {}
         for f in files:
@@ -5311,8 +5332,9 @@ def _p38_replica_gap(model, par) -> tuple[float, int]:
     """The largest difference between ranks that hold a replica of the
     same parameter elements, and the number of elements compared: each
     parameter tensor parallelism does not split over the model ranks,
-    every unsharded parameter over the data ranks of one model rank. An
-    FSDP shard has no replica and is not compared."""
+    every unsharded parameter over the data ranks of one model rank, the
+    embeddings and heads over the pipeline's stages. An FSDP shard has no
+    replica and is not compared."""
     import torch.distributed as dist
 
     from maest_tpu_torch.parallel import mesh as pmesh
@@ -5323,7 +5345,9 @@ def _p38_replica_gap(model, par) -> tuple[float, int]:
     for size, group, keep in (
             (par.data, par.data_group, lambda k: True),
             (par.model, par.model_group,
-             lambda k: pmesh._tp_rule(k) is None)):
+             lambda k: pmesh._tp_rule(k) is None),
+            (par.pipe, par.pipe_group,
+             lambda k: not k.startswith("blocks."))):
         parts = [t for k, t in named if keep(k)]
         if size == 1 or not parts:
             continue
@@ -5345,14 +5369,16 @@ def _p38_instrument(records: dict):
     import hashlib
 
     from maest_tpu_torch.models import vit
+    from maest_tpu_torch.parallel import pipeline
     from maest_tpu_torch.train import loop
 
     real_make, real_make_eval = loop.make_train_step, loop.make_eval_step
+    real_make_pp = pipeline.make_pipeline_train_step
     real_ap_roc, real_qkv = loop.macro_ap_roc, vit.flash_attention_qkv
     real_validate = loop.Trainer.validate
 
-    def make(*args, parallel=None, **kw):
-        step = real_make(*args, parallel=parallel, **kw)
+    def make(*args, parallel=None, _real=real_make, **kw):
+        step = _real(*args, parallel=parallel, **kw)
 
         def timed(state, batch, generator=None, draws=None):
             if parallel is None and "init" not in records:
@@ -5399,12 +5425,17 @@ def _p38_instrument(records: dict):
             records["qkv"][kind] = qkv.detach().clone()
         return real_qkv(qkv, *args, **kw)
 
+    def make_pp(*args, **kw):
+        return make(*args, _real=real_make_pp, **kw)
+
     loop.make_train_step, loop.make_eval_step = make, make_eval
+    pipeline.make_pipeline_train_step = make_pp
     loop.macro_ap_roc, vit.flash_attention_qkv = ap_roc, spy_qkv
     loop.Trainer.validate = validate
 
     def undo():
         loop.make_train_step, loop.make_eval_step = real_make, real_make_eval
+        pipeline.make_pipeline_train_step = real_make_pp
         loop.macro_ap_roc, vit.flash_attention_qkv = real_ap_roc, real_qkv
         loop.Trainer.validate = real_validate
 
@@ -5466,17 +5497,19 @@ def _p38_kernel_gaps(qkv: dict) -> dict:
     return out
 
 
-def _p38_rank(rank: int, world: int, argvs: list) -> dict:
-    """One rank of a phase 38 launch (``parallel.launch.spawn`` sets
+def _p38_rank(rank: int, world: int, argvs: list,
+              all_gaps: bool = False) -> dict:
+    """One rank of a phase 38 or 39 launch (``parallel.launch.spawn`` sets
     torchrun's variables): each mode's ``ex_maest.run`` in turn; returns
-    its records by mode."""
+    its records by mode, with the kernels held to plain at the rank's
+    shapes under tensor parallelism, or in every mode (``all_gaps``)."""
     sys.path.insert(0, str(ROOT))
     torch.cuda.set_device(0)
     out = {}
     for name, argv in argvs:
         rec = _p38_run(argv, name)
-        if rec["qkv"].get("train") is not None \
-                and rec["qkv"]["train"].shape[3] < 12:
+        if rec["qkv"].get("train") is not None and (
+                all_gaps or rec["qkv"]["train"].shape[3] < 12):
             rec["gaps"] = _p38_kernel_gaps(rec["qkv"])
         rec["qkv"] = {k: tuple(v.shape) for k, v in rec["qkv"].items()}
         out[name] = rec
@@ -5501,28 +5534,186 @@ def _p38_update_gap(params: dict, ref: dict, init: dict) -> tuple:
     return math.sqrt(num / den), worst
 
 
+def _p38_reference(argv, name: str, out: Path, phase: int, gpu) -> dict:
+    """The one-process reference of phases 38 and 39: ``ex_maest main``
+    in this process, and what every mode is held to (its losses, val
+    metrics, the eval's rows and scores, its final checkpoint and the
+    initial parameters)."""
+    ref = _p38_run(argv, name)
+    steps = P38_FILES // 12
+    check(ref["result"] == {"done": True} and len(ref["step_ms"]) == steps
+          and len(ref["eval_rows"]) == 1 and len(ref["scores"]) == 2,
+          f"phase {phase} reference run: {ref['result']}, "
+          f"{len(ref['step_ms'])} steps, {len(ref['eval_rows'])} eval "
+          f"batches, {len(ref['scores'])} metric calls")
+    run = _cli_run_dir(out)
+    _, metrics = _cli_record(run)
+    loss = [m["value"] for m in metrics if m["name"] == "train_loss"]
+    val = {m["name"]: m["value"] for m in metrics
+           if m["name"].startswith("val_")}
+    # what a row taken from the wrong place would change: the largest
+    # difference between two rows of the reference's probabilities
+    y_hat = ref["scores"][0][1]
+    row_spread = float(np.abs(y_hat[:, None] - y_hat[None]).max())
+    depth = next(int(a.split("=")[1]) for a in reversed(argv)
+                 if a.startswith("maest.depth="))
+    print(f"phase {phase} reference: ex_maest main with {CLI_PRESET} at "
+          f"depth {depth}, one process, batch 12, {steps} steps and one eval "
+          f"batch of {len(ref['eval_rows'][0])}: losses "
+          f"{[round(v, 6) for v in loss]}, "
+          + ", ".join(f"{k} {v:.6f}" for k, v in sorted(val.items()))
+          + f"; the eval probabilities of two rows differ by up to "
+          f"{row_spread:.4f}; median step "
+          f"{np.median(ref['step_ms'][1:]):.3f} ms, launches "
+          f"{ref['launches']}; {ref['wall_s']:.1f} s [{gpu}]", flush=True)
+    check(len(loss) == steps and abs(loss[-1] - math.log(2)) > 1e-4
+          and {"val_loss", "val_ap", "val_roc", "val_loss_swa"} <= set(val),
+          f"reference losses {loss} (the head must have moved), val {val}")
+    return {"loss": loss, "val": val, "params": _cli_params(run, "epoch-0"),
+            "init": ref["init"], "rows": ref["eval_rows"][0],
+            "scores": ref["scores"], "steps": steps, "depth": depth}
+
+
+def _p38_check_mode(phase: int, name: str, ranks: list, run: Path,
+                    R: dict, data: int, want: dict,
+                    backend_want: str) -> tuple[str, dict]:
+    """One mode's ranks against the reference ``R``: every step's loss;
+    the replicas after each step; the eval's input rows (each data rank's,
+    in the reference's order; every rank of a data rank the same), targets,
+    probabilities, val losses and AP/ROC; rank 0's final checkpoint; each
+    rank's launches (``want``, the controls 0); the backend. Returns the
+    mode's line and rank 0's record."""
+    world = len(ranks)
+    per_data = world // data
+    r0 = ranks[0]
+    steps = R["steps"]
+    _, metrics = _cli_record(run)
+    loss = [m["value"] for m in metrics if m["name"] == "train_loss"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(loss, R["loss"])]
+    check(r0["result"] == {"done": True} and len(loss) == steps
+          and max(rel) <= P38_LOSS_RTOL,
+          f"phase {phase} {name}: losses {loss} against {R['loss']}, "
+          f"relative {rel} (bound {P38_LOSS_RTOL})")
+    gaps = [g for r in ranks for g, _ in r["replica_gap"]]
+    compared = max(n for r in ranks for _, n in r["replica_gap"])
+    check(len(gaps) == world * steps and max(gaps) == 0.0,
+          f"phase {phase} {name}: the replicas' parameters after each "
+          f"step differ by up to {gaps}")
+    check(all(len(r["eval_rows"]) == 1 for r in ranks)
+          and [h for r in ranks[::per_data] for h in r["eval_rows"][0]]
+          == R["rows"] and all(
+              r["eval_rows"] == ranks[i - i % per_data]["eval_rows"]
+              for i, r in enumerate(ranks)),
+          f"phase {phase} {name}: the eval's input rows are not one "
+          "process's")
+    val_gap = {"prob": 0.0, "loss": 0.0, "rank": 0.0}
+    for r, rec in enumerate(ranks):
+        check(len(rec["scores"]) == 2 and len(rec["val"]) == 1
+              and set(rec["val"][0]) == set(R["val"]) and all(
+                  np.array_equal(y, y1) for (y, _), (y1, _)
+                  in zip(rec["scores"], R["scores"])),
+              f"phase {phase} {name} rank {r}: the eval's targets or "
+              f"metrics {rec['val']}")
+        val_gap["prob"] = max(val_gap["prob"], *(
+            float(np.abs(p - p1).max()) for (_, p), (_, p1)
+            in zip(rec["scores"], R["scores"])))
+        for k, x in rec["val"][0].items():
+            if "_loss" in k:
+                d = abs(x - R["val"][k]) / abs(R["val"][k])
+                val_gap["loss"] = max(val_gap["loss"], d)
+            else:
+                val_gap["rank"] = max(val_gap["rank"], abs(x - R["val"][k]))
+    same = all(np.array_equal(p, p1) for rec in ranks
+               for (_, p), (_, p1) in zip(rec["scores"], R["scores"]))
+    check(val_gap["prob"] <= P38_PROB_ATOL
+          and val_gap["loss"] <= P38_LOSS_RTOL
+          and (val_gap["rank"] == 0.0 or not same),
+          f"phase {phase} {name}: the eval against one process's "
+          f"{val_gap} (bounds {P38_PROB_ATOL}, {P38_LOSS_RTOL}, and 0 for "
+          f"AP/ROC where the probabilities are equal: {same}); rank 0 "
+          f"{r0['val']}, one {R['val']}")
+    upd, (t_worst, k_worst) = _p38_update_gap(
+        _cli_params(run, "epoch-0"), R["params"], R["init"])
+    check(upd <= P38_UPDATE_RTOL,
+          f"phase {phase} {name}: final parameters {upd} of the update from "
+          f"one process's (bound {P38_UPDATE_RTOL}; worst {k_worst} "
+          f"{t_worst})")
+    for r, rec in enumerate(ranks):
+        got = rec["launches"]
+        check(all(got[k] == n for k, n in want.items())
+              and not any(n for k, n in got.items() if k not in want),
+              f"phase {phase} {name} rank {r}: launches {got}, wanted "
+              f"{want} and no control")
+    backend = r0["backend"]
+    check(backend == backend_want, f"phase {phase} {name}: backend {backend}")
+    counts = [r["launches"] for r in ranks]
+    counts = counts[0] if all(c == counts[0] for c in counts) else counts
+    replicas = (f"the replicas of {compared} parameter elements after each "
+                f"of {steps} steps differ by {max(gaps)}" if compared else
+                "no parameter element has a replica to compare (FSDP "
+                "shards every one)" if world > 1 else "one rank: no replica")
+    line = (f"phase {phase} {name}: {world} rank(s) on the one card over "
+            f"{backend}{' (CUDA tensors)' if backend == 'gloo' else ''}, "
+            f"depth {R['depth']}, global batch 12: losses "
+            f"{[round(v, 6) for v in loss]} (largest relative gap to one "
+            f"process {max(rel):.2e} <= {P38_LOSS_RTOL}); {replicas}; final "
+            f"parameters (rank 0's checkpoint) {upd:.3e} of one process's "
+            f"update from it <= {P38_UPDATE_RTOL} (worst tensor {k_worst} "
+            f"{t_worst:.3e}); the eval's {len(R['rows'])} input rows "
+            f"bit-equal to one process's and every rank's targets equal; "
+            f"against one process's, every rank's probabilities "
+            f"{val_gap['prob']:.2e} <= {P38_PROB_ATOL}, val losses "
+            f"{val_gap['loss']:.2e} <= {P38_LOSS_RTOL} (relative), AP and ROC "
+            f"{val_gap['rank']:.2e} ("
+            + ("the probabilities bit-equal, so 0" if same else
+               "not bounded: the probabilities round apart") +
+            f"; val_loss {r0['val'][0]['val_loss']:.6f}, val_ap "
+            f"{r0['val'][0]['val_ap']:.6f}, val_roc "
+            f"{r0['val'][0]['val_roc']:.6f}); launches a rank {counts}"
+            f"; median step (rank 0, CUDA events, the first left out) "
+            f"{np.median(r0['step_ms'][1:]):.3f} ms (steps "
+            f"{', '.join(f'{t:.3f}' for t in r0['step_ms'])}); ex_maest.run "
+            f"{r0['wall_s']:.1f} s")
+    return line, r0
+
+
+def _p38_gap_line(phase: int, name: str, g: dict, train_shape: tuple,
+                  eval_shape: tuple) -> str:
+    """K3a/K3b and K2 held to plain at the shapes a rank handed them."""
+    check(g["train_shape"] == train_shape and g["eval_shape"] == eval_shape,
+          f"phase {phase} {name}: local shapes {g}")
+    tol = ATTN_TOL["bfloat16"]
+    check(g["K3a"] <= tol and g["K3a_lse"] <= LSE_TOL and g["K3b"] <= tol
+          and g["K2"] <= tol, f"phase {phase} {name}: kernels against plain "
+          f"{g}")
+    return (f"; K3a/K3b at the rank's {g['train_shape']} against plain "
+            f"{g['K3a']:.3e} (lse {g['K3a_lse']:.3e}) / {g['K3b']:.3e}, K2 at "
+            f"{g['eval_shape']} {g['K2']:.3e} <= {tol}")
+
+
 def phase_parallel(dev, gpu):
     """Phase 38: the Trainer's parallel modes at full width. ``ex_maest
-    main with maest_10s_random_weights_pretrain`` (ViT-B, 12 blocks, 12
-    heads of 64, N 281, bf16 over fp32 parameters, global batch 12; one
-    epoch of 4 steps and one eval batch of 20) on 48 synthetic files of
-    one clip, first in this process (the reference), then in ranks
-    launched with torchrun's variables: 2 on the one card over gloo on
-    CUDA tensors (NCCL refuses two ranks of one card) in dp, tp, fsdp and
-    tp+sp, 4 in dp+tp+sp, and 1 over NCCL in fsdp. Each mode against the
-    reference: every step's train_loss (P38_LOSS_RTOL); the eval rows'
-    inputs bit-equal, in the reference's order across the data ranks, and
-    their targets equal; every rank's eval probabilities (P38_PROB_ATOL),
-    val losses (P38_LOSS_RTOL), macro AP and ROC (equal where the
-    probabilities are), live and SWA; rank 0's final checkpoint
-    (P38_UPDATE_RTOL). Within the mode: the
-    replicas of each parameter element equal after every step (FSDP
-    shards every parameter, so it has none); each rank's launches (K3a
-    and K3b 12 a step, K2 12 an eval batch for the live and again for the
-    SWA weights, the controls 0); under tensor parallelism K3a/K3b at (12,
-    281, 6, 64) and K2 at (20, 551, 6, 64) held to plain (a data rank's
-    rows of them under dp+tp+sp). Returns rank 0's launches summed over
-    the modes and the largest kernel error."""
+    main with maest_10s_random_weights_pretrain`` (ViT-B's width, 12 heads
+    of 64, N 281, bf16 over fp32 parameters, global batch 12; one epoch of
+    4 steps and one eval batch of 20) on 48 synthetic files of one clip,
+    cut to ``CLI_DEPTH`` blocks: first in this process (the reference),
+    then in ranks launched with torchrun's variables: 2 on the one card
+    over gloo on CUDA tensors (NCCL refuses two ranks of one card) in dp,
+    tp, fsdp and tp+sp, 4 in dp+tp+sp, and 1 over NCCL in fsdp. Each mode
+    against the reference (``_p38_check_mode``): every step's train_loss
+    (P38_LOSS_RTOL); the eval rows' inputs bit-equal, in the reference's
+    order across the data ranks, and their targets equal; every rank's
+    eval probabilities (P38_PROB_ATOL), val losses (P38_LOSS_RTOL), macro
+    AP and ROC (equal where the probabilities are), live and SWA; rank 0's
+    final checkpoint (P38_UPDATE_RTOL); the replicas of each parameter
+    element equal after every step (FSDP shards every parameter, so it
+    has none); each rank's launches (K3a and K3b one a block a step, K2
+    one a block an eval batch for the live and again for the SWA weights,
+    the controls 0); under tensor parallelism K3a/K3b at (12, 281, 6, 64)
+    and K2 at (20, 551, 6, 64) held to plain (a data rank's rows of them
+    under dp+tp+sp). Also runs the full-depth one-process reference that
+    phase 39 holds its modes to. Returns rank 0's launches summed over the
+    modes, the largest kernel error and that reference."""
     import gc
 
     from maest_tpu_torch.parallel.launch import spawn
@@ -5542,40 +5733,14 @@ def phase_parallel(dev, gpu):
                 tmp / "corpus", tmp / name.replace("+", "_"), P38_FILES,
                 (*P38_EXTRA, *extra))]
 
-        ref = _p38_run(argv("one", ("trainer.devices=1",)), "one")
-        steps = P38_FILES // 12
-        check(ref["result"] == {"done": True} and len(ref["step_ms"]) == steps
-              and len(ref["eval_rows"]) == 1 and len(ref["scores"]) == 2,
-              f"phase 38 reference run: {ref['result']}, "
-              f"{len(ref['step_ms'])} steps, {len(ref['eval_rows'])} eval "
-              f"batches, {len(ref['scores'])} metric calls")
-        ref_run = _cli_run_dir(tmp / "one")
-        _, metrics = _cli_record(ref_run)
-        ref_loss = [m["value"] for m in metrics if m["name"] == "train_loss"]
-        ref_val = {m["name"]: m["value"] for m in metrics
-                   if m["name"].startswith("val_")}
-        ref_params = _cli_params(ref_run, "epoch-0")
-        init, rows_one, scores_one = (ref["init"], ref["eval_rows"][0],
-                                      ref["scores"])
-        # what a row taken from the wrong place would change: the largest
-        # difference between two rows of the reference's probabilities
-        y_hat = scores_one[0][1]
-        row_spread = float(np.abs(y_hat[:, None] - y_hat[None]).max())
-        print(f"phase 38 reference: ex_maest main with {CLI_PRESET}, one "
-              f"process, batch 12, {steps} steps and one eval batch of "
-              f"{len(rows_one)}: losses {[round(v, 6) for v in ref_loss]}, "
-              + ", ".join(f"{k} {v:.6f}" for k, v in sorted(ref_val.items()))
-              + f"; the eval probabilities of two rows differ by up to "
-              f"{row_spread:.4f}; median step "
-              f"{np.median(ref['step_ms'][1:]):.3f} ms, launches "
-              f"{ref['launches']}; {ref['wall_s']:.1f} s [{gpu}]", flush=True)
-        check(len(ref_loss) == steps
-              and abs(ref_loss[-1] - math.log(2)) > 1e-4
-              and {"val_loss", "val_ap", "val_roc", "val_loss_swa"}
-              <= set(ref_val),
-              f"reference losses {ref_loss} (the head must have moved), val "
-              f"{ref_val}")
-        del ref
+        # phase 39's reference: the preset's 12 blocks
+        full = _p38_reference(argv("full", ("trainer.devices=1",
+                                            f"maest.depth={P39_DEPTH}")),
+                              "full", tmp / "full", 39, gpu)
+        gc.collect()
+        torch.cuda.empty_cache()
+        R = _p38_reference(argv("one", ("trainer.devices=1",)), "one",
+                           tmp / "one", 38, gpu)
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -5591,130 +5756,119 @@ def phase_parallel(dev, gpu):
 
         total = {"K2": 0, "K3a": 0, "K3b": 0}
         err = 0.0
+        depth, steps = R["depth"], R["steps"]
+        want = {"K2": depth * 2, "K3a": depth * steps, "K3b": depth * steps}
         for name, world, extra in P38_MODES:
-            ranks = recs[name]
-            r0 = ranks[0]
             model = 2 if "trainer.model_parallel=2" in extra else 1
-            run = _cli_run_dir(tmp / name.replace("+", "_"))
-            _, metrics = _cli_record(run)
-            loss = [m["value"] for m in metrics if m["name"] == "train_loss"]
-            rel = [abs(a - b) / abs(b) for a, b in zip(loss, ref_loss)]
-            check(r0["result"] == {"done": True} and len(loss) == steps
-                  and max(rel) <= P38_LOSS_RTOL,
-                  f"phase 38 {name}: losses {loss} against {ref_loss}, "
-                  f"relative {rel} (bound {P38_LOSS_RTOL})")
-            gaps = [g for r in ranks for g, _ in r["replica_gap"]]
-            compared = max(n for r in ranks for _, n in r["replica_gap"])
-            check(len(gaps) == world * steps and max(gaps) == 0.0,
-                  f"phase 38 {name}: the replicas' parameters after each "
-                  f"step differ by up to {gaps}")
-            # the eval: each data rank's rows, in the reference's order
-            # (rank = data rank x model ranks + model rank); every model
-            # rank of a data rank takes the same rows
-            check(all(len(r["eval_rows"]) == 1 for r in ranks)
-                  and [h for r in ranks[::model] for h in r["eval_rows"][0]]
-                  == rows_one and all(
-                      r["eval_rows"] == ranks[i - i % model]["eval_rows"]
-                      for i, r in enumerate(ranks)),
-                  f"phase 38 {name}: the eval's input rows are not one "
-                  "process's")
-            val_gap = {"prob": 0.0, "loss": 0.0, "rank": 0.0}
-            for r, rec in enumerate(ranks):
-                check(len(rec["scores"]) == 2 and len(rec["val"]) == 1
-                      and set(rec["val"][0]) == set(ref_val) and all(
-                          np.array_equal(y, y1) for (y, _), (y1, _)
-                          in zip(rec["scores"], scores_one)),
-                      f"phase 38 {name} rank {r}: the eval's targets or "
-                      f"metrics {rec['val']}")
-                val_gap["prob"] = max(val_gap["prob"], *(
-                    float(np.abs(p - p1).max()) for (_, p), (_, p1)
-                    in zip(rec["scores"], scores_one)))
-                for k, x in rec["val"][0].items():
-                    if "_loss" in k:
-                        d = abs(x - ref_val[k]) / abs(ref_val[k])
-                        val_gap["loss"] = max(val_gap["loss"], d)
-                    else:
-                        d = abs(x - ref_val[k])
-                        val_gap["rank"] = max(val_gap["rank"], d)
-            same = all(np.array_equal(p, p1) for rec in ranks
-                       for (_, p), (_, p1) in zip(rec["scores"], scores_one))
-            check(val_gap["prob"] <= P38_PROB_ATOL
-                  and val_gap["loss"] <= P38_LOSS_RTOL
-                  and (val_gap["rank"] == 0.0 or not same),
-                  f"phase 38 {name}: the eval against one process's "
-                  f"{val_gap} (bounds {P38_PROB_ATOL}, {P38_LOSS_RTOL}, and "
-                  f"0 for AP/ROC where the probabilities are equal: {same})"
-                  f"; rank 0 {r0['val']}, one {ref_val}")
-            upd, (t_worst, k_worst) = _p38_update_gap(
-                _cli_params(run, "epoch-0"), ref_params, init)
-            check(upd <= P38_UPDATE_RTOL,
-                  f"phase 38 {name}: final parameters {upd} of the update "
-                  f"from one process's (bound {P38_UPDATE_RTOL}; worst "
-                  f"{k_worst} {t_worst})")
-            want = {"K2": 12 * 2, "K3a": 12 * steps, "K3b": 12 * steps}
-            for r, rec in enumerate(ranks):
-                got = rec["launches"]
-                check(all(got[k] == n for k, n in want.items())
-                      and not any(n for k, n in got.items() if k not in want),
-                      f"phase 38 {name} rank {r}: launches {got}, wanted "
-                      f"{want} and no control")
+            line, r0 = _p38_check_mode(
+                38, name, recs[name], _cli_run_dir(tmp / name.replace(
+                    "+", "_")), R, world // model, want,
+                "nccl" if world == 1 else "gloo")
             for k in total:
                 total[k] += r0["launches"][k]
-            backend = r0["backend"]
-            check(backend == ("nccl" if world == 1 else "gloo"),
-                  f"phase 38 {name}: backend {backend}")
-            replicas = (f"the replicas of {compared} parameter elements "
-                        f"after each of {steps} steps differ by {max(gaps)}"
-                        if compared else
-                        "no parameter element has a replica to compare "
-                        "(FSDP shards every one)" if world > 1 else
-                        "one rank: no replica")
-            line = (f"phase 38 {name}: {world} rank(s) on the one card over "
-                    f"{backend}"
-                    f"{' (CUDA tensors)' if backend == 'gloo' else ''}"
-                    f", global batch 12: losses "
-                    f"{[round(v, 6) for v in loss]} (largest relative gap to "
-                    f"one process {max(rel):.2e} <= {P38_LOSS_RTOL}); "
-                    f"{replicas}; final parameters (rank 0's checkpoint) "
-                    f"{upd:.3e} of one process's update from it <= "
-                    f"{P38_UPDATE_RTOL} (worst tensor {k_worst} {t_worst:.3e}"
-                    f"); the eval's {len(rows_one)} input rows bit-equal to "
-                    f"one process's and every rank's targets equal; against "
-                    f"one process's, every rank's probabilities "
-                    f"{val_gap['prob']:.2e} <= {P38_PROB_ATOL}, val losses "
-                    f"{val_gap['loss']:.2e} <= {P38_LOSS_RTOL} (relative), "
-                    f"AP and ROC {val_gap['rank']:.2e} ("
-                    + ("the probabilities bit-equal, so 0" if same else
-                       "not bounded: the probabilities round apart") +
-                    f"; val_loss {r0['val'][0]['val_loss']:.6f}, val_ap "
-                    f"{r0['val'][0]['val_ap']:.6f}, val_roc "
-                    f"{r0['val'][0]['val_roc']:.6f}); launches a rank "
-                    f"{r0['launches']}; median step (rank 0, CUDA events, the "
-                    f"first left out) {np.median(r0['step_ms'][1:]):.3f} ms "
-                    f"(steps {', '.join(f'{t:.3f}' for t in r0['step_ms'])}); "
-                    f"ex_maest.run {r0['wall_s']:.1f} s")
             if "gaps" in r0:
-                g = r0["gaps"]
                 data = world // model
-                check(g["train_shape"] == (12 // data, 281, 3, 6, 64)
-                      and g["eval_shape"] == (20 // data, CLI_EVAL_N, 3, 6,
-                                              64),
-                      f"phase 38 {name}: local shapes {g}")
-                tol = ATTN_TOL["bfloat16"]
-                check(g["K3a"] <= tol and g["K3a_lse"] <= LSE_TOL
-                      and g["K3b"] <= tol and g["K2"] <= tol,
-                      f"phase 38 {name}: kernels against plain {g}")
-                err = max(err, g["K3a"], g["K3b"], g["K2"])
-                line += (f"; K3a/K3b at the rank's {g['train_shape']} "
-                         f"against plain {g['K3a']:.3e} (lse "
-                         f"{g['K3a_lse']:.3e}) / {g['K3b']:.3e}, K2 at "
-                         f"{g['eval_shape']} {g['K2']:.3e} <= {tol}")
+                line += _p38_gap_line(38, name, r0["gaps"],
+                                      (12 // data, 281, 3, 6, 64),
+                                      (20 // data, CLI_EVAL_N, 3, 6, 64))
+                err = max(err, *(r0["gaps"][k] for k in ("K3a", "K3b", "K2")))
             print(line + f" [{gpu}]", flush=True)
         print(f"phase 38 time: launches of 2, 4 and 1 rank(s) "
               f"{walls[2]:.1f}, {walls[4]:.1f} and {walls[1]:.1f} s "
               f"(each rank's start included); phase "
               f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {**total, "err": err}
+    return {**total, "err": err, "reference": full}
+
+
+# phase 39: GPipe through the Trainer, each mode launched as phase 38's,
+# at the preset's full depth (12 blocks, 6 a stage) and global batch 12:
+# (name, ranks, overrides); the microbatches divide each data rank's rows
+P39_MODES = (
+    ("pp", 2, ("trainer.devices=2", "trainer.pipeline_parallel=2",
+               "trainer.num_microbatches=4")),
+    ("dp+pp", 4, ("trainer.devices=4", "trainer.pipeline_parallel=2",
+                  "trainer.num_microbatches=3",
+                  "datamodule.batch_size_train=6")),
+    ("pp+tp", 4, ("trainer.devices=4", "trainer.pipeline_parallel=2",
+                  "trainer.model_parallel=2", "trainer.num_microbatches=4")),
+    ("dp+pp+fsdp", 4, ("trainer.devices=4", "trainer.pipeline_parallel=2",
+                       "trainer.fsdp=True", "trainer.num_microbatches=3",
+                       "datamodule.batch_size_train=6")),
+)
+P39_TIMEOUT = 400.0    # every rank of a launch is killed after it
+P39_DEPTH = 12         # the preset's blocks
+
+
+def phase_pipeline(dev, gpu, R: dict):
+    """Phase 39: GPipe through the Trainer at full width and depth.
+    ``ex_maest main with maest_10s_random_weights_pretrain`` (ViT-B, 12
+    blocks, 2 stages of 6, bf16 over fp32 parameters, global batch 12,
+    one epoch of 4 steps, one eval batch of 20 at one microbatch) on
+    phase 38's corpus, in ranks launched as phase 38's, sharing the one
+    card over gloo on CUDA tensors: pp (2 ranks, 4 microbatches), dp+pp
+    (data 2 x pipe 2, 3), pp+tp (pipe 2 x model 2, 4) and dp+pp+fsdp (3).
+    Each mode held to phase 38's full-depth one-process run ``R`` with
+    phase 38's bounds (``_p38_check_mode``), the replicas compared over
+    the data, model and pipe ranks (the embeddings and heads every stage
+    holds); each rank's launches: K3a and K3b 6 blocks x M microbatches a
+    step, K2 6 an eval forward, live and SWA; K3a/K3b at each rank's
+    microbatch shape and K2 at its eval shape held to plain. Returns each
+    mode's launches on every rank and the largest kernel error."""
+    import gc
+
+    from maest_tpu_torch.parallel.launch import spawn
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    stages, depth, steps = 2, R["depth"], R["steps"]
+    per_stage = depth // stages
+    launches, err, walls = {}, 0.0, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _cli_corpus(tmp / "corpus", P38_FILES, lambda r: 625, 38)
+
+        def argv(name, extra):
+            return ["main", "with", CLI_PRESET, *_cli_overrides(
+                tmp / "corpus", tmp / name.replace("+", "_"), P38_FILES,
+                (*P38_EXTRA, f"maest.depth={depth}", *extra))]
+
+        recs = {}
+        for world in (2, 4):
+            modes = [(n, argv(n, extra)) for n, w, extra in P39_MODES
+                     if w == world]
+            t0 = time.perf_counter()
+            ranks = spawn(_p38_rank, world, modes, True, timeout=P39_TIMEOUT)
+            walls[world] = time.perf_counter() - t0
+            for n, _ in modes:
+                recs[n] = [r[n] for r in ranks]
+
+        for name, world, extra in P39_MODES:
+            model = 2 if "trainer.model_parallel=2" in extra else 1
+            data = world // (stages * model)
+            m = next(int(a.split("=")[1]) for a in extra
+                     if a.startswith("trainer.num_microbatches="))
+            want = {"K2": per_stage * 2, "K3a": per_stage * m * steps,
+                    "K3b": per_stage * m * steps}
+            line, r0 = _p38_check_mode(
+                39, name, recs[name], _cli_run_dir(tmp / name.replace(
+                    "+", "_")), R, data, want, "gloo")
+            launches[name] = [r["launches"] for r in recs[name]]
+            heads = 12 // model
+            for r, rec in enumerate(recs[name]):
+                line += _p38_gap_line(
+                    39, f"{name} rank {r}", rec["gaps"],
+                    (12 // data // m, 281, 3, heads, 64),
+                    (20 // data, CLI_EVAL_N, 3, heads, 64)) if r in (
+                        0, world - 1) else ""
+                err = max(err, *(rec["gaps"][k] for k in ("K3a", "K3b",
+                                                          "K2")))
+            print(line + f"; launches wanted a rank {want} [{gpu}]",
+                  flush=True)
+        print(f"phase 39 time: launches of 2 and 4 ranks {walls[2]:.1f} "
+              f"and {walls[4]:.1f} s (each rank's start included); phase "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"launches": launches, "err": err}
 
 
 def main() -> int:
@@ -5729,6 +5883,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "tests"))  # torch_oracle.make_state
     from maest_tpu_torch.ops import _build
 
+    t_main = time.perf_counter()
     dev = torch.device(DEVICE)
     torch.cuda.set_device(dev)
     gpu = sh(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5901,46 +6056,56 @@ def main() -> int:
           f"({cfg[3]} of them the ring of frame groups), {cfg[2]} blocks an "
           f"SM; ptxas: " + "; ".join(mel_rows), flush=True)
 
-    mel_err, attn_err = phase_kernels_vs_plain(dev)
-    sd = phase_golden(dev)
+    seconds = {}  # each phase's wall time, printed as it ends
+
+    def timed(phase, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[phase] = time.perf_counter() - t
+        print(f"phase {phase} seconds: {seconds[phase]:.1f}", flush=True)
+        return out
+
+    mel_err, attn_err = timed(3, phase_kernels_vs_plain, dev)
+    sd = timed(4, phase_golden, dev)
     with tempfile.TemporaryDirectory() as tmp:
-        model, launches, inputs = phase_main_path(dev, sd, tmp)
-    phase_server(model, inputs)
-    t = phase_times(dev, model, gpu)
+        model, launches, inputs = timed(6, phase_main_path, dev, sd, tmp)
+    timed(7, phase_server, model, inputs)
+    t = timed(8, phase_times, dev, model, gpu)
     del model
     torch.cuda.empty_cache()
-    train_err, k4_err = phase_train_kernels(dev)
-    phase_golden_step(dev)
-    train_launches = phase_recipe(dev)
-    tt = phase_train_times(dev, gpu)
+    train_err, k4_err = timed(9, phase_train_kernels, dev)
+    timed(10, phase_golden_step, dev)
+    train_launches = timed(11, phase_recipe, dev)
+    tt = timed(12, phase_train_times, dev, gpu)
 
-    q8 = phase_q8_kernels(dev, gpu)
-    q8_launches = phase_q8_tagging(dev, sd, gpu)
-    k7 = phase_k7_kernel(dev, gpu)
-    k7_launches = phase_int8_recipe(dev, gpu)
-    lib = phase_library(dev, gpu)
-    probe_err, probe_plain = phase_probe_kernels(dev)
-    rig, rig_launches = phase_probe_rig()
-    p6ef = phase_gh_int8(dev)
-    vpu_err, vpu_plain = phase_vpu_kernels(dev)
-    rig2, vpu, rig2_launches = phase_rigs()
-    q3 = phase_queue3(dev, gpu)
-    tiles = phase_tile_kernels(dev)
-    tune, alone, tune_launches = phase_tune_rigs()
-    mma = phase_mma_kernels(dev, gpu)
-    wide = phase_wide_heads_and_mma_rigs(dev, gpu)
-    i8 = phase_int8_rigs(dev, gpu)
-    p4 = phase_bwd_rig(dev, gpu, planted_lib)
-    wg = phase_wgmma(dev, gpu, no_mask_lib)
-    bw = phase_bwd_wgmma(dev, gpu, bwd_no_mask_lib)
-    k7w = phase_k7_wgmma(dev, gpu, k7_dq_lib)
-    phase_yardsticks(dev, gpu)
-    tf = phase_tf32(dev, gpu, [p for p, _ in tf32_libs])
-    q8w = phase_q8_wgmma(dev, gpu, sd, {"no_mask": q8w_libs[0][0],
-                                        "half_away": q8w_libs[1][0]})
-    k1 = phase_mel_fft(dev, gpu, sd, mel_lib)
-    cli = phase_trainer_cli(dev, gpu)
-    par = phase_parallel(dev, gpu)
+    q8 = timed(13, phase_q8_kernels, dev, gpu)
+    q8_launches = timed(14, phase_q8_tagging, dev, sd, gpu)
+    k7 = timed(15, phase_k7_kernel, dev, gpu)
+    k7_launches = timed(16, phase_int8_recipe, dev, gpu)
+    lib = timed(17, phase_library, dev, gpu)
+    probe_err, probe_plain = timed(18, phase_probe_kernels, dev)
+    rig, rig_launches = timed(19, phase_probe_rig)
+    p6ef = timed(20, phase_gh_int8, dev)
+    vpu_err, vpu_plain = timed(21, phase_vpu_kernels, dev)
+    rig2, vpu, rig2_launches = timed(22, phase_rigs)
+    q3 = timed(23, phase_queue3, dev, gpu)
+    tiles = timed(24, phase_tile_kernels, dev)
+    tune, alone, tune_launches = timed(25, phase_tune_rigs)
+    mma = timed(26, phase_mma_kernels, dev, gpu)
+    wide = timed(27, phase_wide_heads_and_mma_rigs, dev, gpu)
+    i8 = timed(28, phase_int8_rigs, dev, gpu)
+    p4 = timed(29, phase_bwd_rig, dev, gpu, planted_lib)
+    wg = timed(30, phase_wgmma, dev, gpu, no_mask_lib)
+    bw = timed(31, phase_bwd_wgmma, dev, gpu, bwd_no_mask_lib)
+    k7w = timed(32, phase_k7_wgmma, dev, gpu, k7_dq_lib)
+    timed(33, phase_yardsticks, dev, gpu)
+    tf = timed(34, phase_tf32, dev, gpu, [p for p, _ in tf32_libs])
+    q8w = timed(35, phase_q8_wgmma, dev, gpu, sd,
+                {"no_mask": q8w_libs[0][0], "half_away": q8w_libs[1][0]})
+    k1 = timed(36, phase_mel_fft, dev, gpu, sd, mel_lib)
+    cli = timed(37, phase_trainer_cli, dev, gpu)
+    par = timed(38, phase_parallel, dev, gpu)
+    pp = timed(39, phase_pipeline, dev, gpu, par["reference"])
 
     # K1: the bytes of the frames in and the log-mels out, and the FFT
     # route's fp32 operations (the DFT as a product does ~40x more)
@@ -6009,9 +6174,12 @@ def main() -> int:
           "attention_fwd_lse (K3a) and attention_bwd (K3b) are the tagging "
           "path's (phase 6) and the 30 s recipe steps' (phase 11); "
           "launches_cli the training CLI's (phase 37); launches_parallel "
-          "rank 0's over phase 38's parallel modes; attention_fwd's "
-          "max_abs_err includes phase 37's at the eval's shape and phase "
-          "38's at tensor parallelism's local shapes", flush=True)
+          "rank 0's over phase 38's parallel modes; launches_pipeline each "
+          "rank's in each of phase 39's GPipe modes; attention_fwd's "
+          "max_abs_err includes phase 37's at the eval's shape, phase 38's "
+          "at tensor parallelism's local shapes and phase 39's at each "
+          "rank's microbatch and eval shapes (K3a and K3b there too)",
+          flush=True)
     print(f"kernels line: fused_logmel is the FFT kernel, fused_logmel_fma "
           f"its FMA control; phase 36's CUDA-graph medians at ({MEL_FRAMES}, "
           f"512), the stock PyTorch front-end {m1['stock']:.4f} ms beside "
@@ -6025,7 +6193,8 @@ def main() -> int:
          (m1["control"], m1["plain"]), "mel", None),
         ("attention_fwd", "attn_fwd_wgmma.cuh",
          "maest_tpu/ops/attention.py:176", launches["attention"],
-         max(attn_err, cli["K2_err"], par["err"]), t["bfloat16"], "fwd",
+         max(attn_err, cli["K2_err"], par["err"], pp["err"]), t["bfloat16"],
+         "fwd",
          lib["fwd"]),
         ("attention_fwd_lse", "attn_fwd_wgmma.cuh",
          "maest_tpu/ops/attention.py:404", train_launches["fwd_lse"],
@@ -6311,12 +6480,19 @@ def main() -> int:
                 "ms": ms[0], "plain_ms": ms[1], "bound_ms": bounds[key][0],
                 "bound_by": bounds[key][1], "library_ms": library}
                for name, file, rep, n, err, ms, key, library in rows]
-    for k in kernels:  # the training CLI's own launches (phases 37, 38)
+    for k in kernels:  # the training CLI's own launches (phases 37-39)
         cli_key = {"attention_fwd": "K2", "attention_fwd_lse": "K3a",
                    "attention_bwd": "K3b"}.get(k["name"])
         if cli_key:
             k["launches_cli"] = cli[cli_key]
             k["launches_parallel"] = par[cli_key]
+            k["launches_pipeline"] = {
+                mode: [r[cli_key] for r in ranks]
+                for mode, ranks in pp["launches"].items()}
+    print("phase seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(seconds.items(),
+                                          key=lambda kv: -kv[1]))
+          + f"; the script {time.perf_counter() - t_main:.1f} s", flush=True)
     print(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

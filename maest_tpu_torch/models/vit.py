@@ -36,10 +36,19 @@ kernels see plain local tensors. Dropout and drop_path masks are drawn at
 the global shape and cut to the rank's slice, so every layout draws a
 single process's masks.
 
-Not ported yet, and refused with ``NotImplementedError``:
-``forward_mode`` front/tail (pipeline seams, ROADMAP queue 1 item 4,
-GPipe), the per-frequency patch embedding and non-distilled configs
-(item 2).
+The pipeline seams (``forward_mode``, for ``parallel.pipeline``): "front"
+runs the patch embedding, the positional embeddings, patchout, the token
+assembly and its dropout, and returns ``(tokens, n_tokens)``; "tail"
+runs the final norm and the heads on the blocks' output. The port pads
+no stream once for the attention kernels (they take any length), so
+``n_tokens`` is the stream's length. A train front takes the same draws
+as the full forward (``block_seeds`` gives the blocks' mask seeds of
+those draws, ``run_block`` runs one block), so front, blocks and tail
+give the full forward bit for bit.
+
+Not ported yet, and refused with ``NotImplementedError``: the
+per-frequency patch embedding and non-distilled configs (ROADMAP queue
+1 item 2).
 """
 
 from __future__ import annotations
@@ -351,6 +360,18 @@ def _attn_out_contexts():
     return record_outputs(store), replay_outputs(store)
 
 
+class _LaidOut:
+    """A block called under ``layout``: set on its attention and MLP at
+    every call, so a recomputed block cuts its masks as its forward did."""
+
+    def __init__(self, blk: Block, layout: Layout):
+        self.blk, self.layout = blk, layout
+
+    def __call__(self, *args):
+        self.blk.attn.layout = self.blk.mlp.layout = self.layout
+        return self.blk(*args)
+
+
 class MAESTNet(nn.Module):
     """The MAEST transformer body + heads.
 
@@ -361,6 +382,10 @@ class MAESTNet(nn.Module):
         tuple of per-block token tensors;
       * >= 0: (None, [cls | dist | mean(tokens)] embedding of that block)
         (reference: models/maest.py:811-829).
+
+    ``forward_mode`` "front" returns ``(tokens, n_tokens)``, the stream
+    before the first block; "tail" takes the stream after the last block
+    and returns the ``transformer_block == -1`` tuple.
     """
 
     def __init__(self, cfg: MAESTConfig, dtype: torch.dtype = torch.float32,
@@ -411,6 +436,9 @@ class MAESTNet(nn.Module):
         self.head = nn.Sequential(LayerNorm(e), Linear(e, cfg.num_classes))
         self.head_dist = Linear(e, cfg.num_classes)
         self.layout: Optional[Layout] = None
+        # (lo, hi): the blocks of a pipeline stage this net holds
+        # (``parallel.pipeline.cut_to_stage``); None: every block
+        self.stage: Optional[tuple] = None
         self.reset_parameters(generator)
         self.to(device=device, dtype=param_dtype or dtype)
 
@@ -497,12 +525,6 @@ class MAESTNet(nn.Module):
         """``train``: the train forward, with its draws taken from
         ``generator`` or handed in as ``draws``."""
         cfg = self.cfg
-        if forward_mode not in ("full", "front", "tail"):
-            raise ValueError(f"unknown forward_mode {forward_mode!r}")
-        if forward_mode != "full":
-            raise NotImplementedError(
-                "forward_mode front/tail (pipeline seams) is not ported yet "
-                "(ROADMAP queue 1 item 4, GPipe)")
         if tap_block is not None and (transformer_block != -1
                                       or return_layer_tokens):
             raise ValueError(
@@ -515,7 +537,18 @@ class MAESTNet(nn.Module):
         if tap_block is not None and not 0 <= tap_block < cfg.depth:
             raise ValueError(
                 f"tap_block {tap_block} out of range for depth {cfg.depth}")
+        if forward_mode not in ("full", "front", "tail"):
+            raise ValueError(f"unknown forward_mode {forward_mode!r}")
+        if forward_mode != "full" and (
+                transformer_block != -1 or return_self_attention
+                or return_layer_tokens or tap_block is not None):
+            raise ValueError(
+                "front/tail forward modes only support the plain "
+                "transformer_block == -1 forward")
         dt = self.dtype
+        if forward_mode == "tail":
+            # x: the (B, N, E) stream after the blocks
+            return self._heads(self.norm(x.to(dt)))
 
         # --- patch embedding: (B, C, F, T) -> (B, E, F', T') ---
         x = self.patch_embed(x.to(dt))
@@ -564,13 +597,14 @@ class MAESTNet(nn.Module):
         x = torch.cat([cls, dist, x], dim=1)
 
         lay = self.layout
-        seeds = [None] * cfg.depth
+        seeds = self.block_seeds(draws if train else None)
         if train and draws.seed is not None:
             gen = torch.Generator(device=x.device)
             gen.manual_seed(draws.seed)
             x = dropout(x, cfg.drop_rate, gen,
                         () if lay is None else lay.rows(b))
-            seeds = [draws.seed + 1 + i for i in range(cfg.depth)]
+        if forward_mode == "front":
+            return x, x.shape[1]
 
         remat = train and cfg.remat and not return_self_attention
         # sequence parallelism: the stream between the blocks' regions is
@@ -584,14 +618,7 @@ class MAESTNet(nn.Module):
             return lay.gather_tokens(x, n_tokens) if sp else x
 
         def run(i, x):
-            blk = self.blocks[i]
-            if not remat:
-                return blk(x, seeds[i], False, n_tokens)
-            ctx = {"full": None, "dots": _dots_contexts,
-                   "attn_out": _attn_out_contexts}[cfg.remat_policy]
-            kw = {} if ctx is None else {"context_fn": ctx}
-            return checkpoint(blk, x, seeds[i], False, n_tokens,
-                              use_reentrant=False, **kw)
+            return self.run_block(i, x, seeds[i], n_tokens, remat)
 
         if transformer_block == -1:
             layer_tokens = []
@@ -620,13 +647,61 @@ class MAESTNet(nn.Module):
             x = run(transformer_block, x)
         return None, self._block_embedding(full(x))
 
+    def block_seeds(self, draws: Optional[TrainDraws]) -> list:
+        """Each block's dropout / drop_path seed of a train forward's
+        ``draws`` (None: no masks)."""
+        if draws is None or draws.seed is None:
+            return [None] * self.cfg.depth
+        return [draws.seed + 1 + i for i in range(self.cfg.depth)]
+
+    def patch_grid(self, shape) -> tuple:
+        """(F', T'): the patch grid of an input of ``shape`` (B, C, F, T)."""
+        p, (sf, st) = self.cfg.patch_size, self.cfg.stride
+        return (shape[2] - p) // sf + 1, (shape[3] - p) // st + 1
+
+    def stream_length(self, shape, draws: Optional[TrainDraws] = None) -> int:
+        """The length of the stream the front hands the blocks for an input
+        of ``shape`` (B, C, F, T) and, in train mode, ``draws``."""
+        cfg = self.cfg
+        f_dim, t_dim = self.patch_grid(shape)
+        if draws is not None and draws.keep_t is not None:
+            t_dim = len(draws.keep_t)
+        if draws is not None and draws.keep_f is not None:
+            f_dim = len(draws.keep_f)
+        n = (self._kept_len(f_dim, 0, cfg.s_patchout_f_indices,
+                            cfg.s_patchout_f_interleaved)
+             * self._kept_len(t_dim, 0, cfg.s_patchout_t_indices,
+                              cfg.s_patchout_t_interleaved))
+        if draws is not None and draws.keep_u is not None:
+            n = len(draws.keep_u)
+        return n + 2
+
+    def run_block(self, i: int, x, seed: Optional[int] = None,
+                  n_tokens: Optional[int] = None, remat: bool = False,
+                  layout: Optional[Layout] = None):
+        """Block ``i`` on ``x``; ``remat``: recomputed in the backward
+        under the config's policy. ``layout``: the block runs under it
+        (a pipeline microbatch's rows, which its masks are cut to), also
+        when it is recomputed."""
+        blk = self.blocks[i]
+        fn = blk if layout is None else _LaidOut(blk, layout)
+        if not remat:
+            return fn(x, seed, False, n_tokens)
+        ctx = {"full": None, "dots": _dots_contexts,
+               "attn_out": _attn_out_contexts}[self.cfg.remat_policy]
+        kw = {} if ctx is None else {"context_fn": ctx}
+        return checkpoint(fn, x, seed, False, n_tokens, use_reentrant=False,
+                          **kw)
+
     def set_layout(self, layout: Optional[Layout]) -> None:
         """Run under ``layout`` (None: one process). The parameters must
-        already be the layout's (``parallel.mesh.shard_params``)."""
+        already be the layout's (``parallel.mesh.shard_params``); the
+        blocks another pipeline stage holds are skipped."""
         self.layout = layout
         for blk in self.blocks:
-            blk.attn.layout = layout
-            blk.mlp.layout = layout
+            if isinstance(blk, Block):
+                blk.attn.layout = layout
+                blk.mlp.layout = layout
 
     @staticmethod
     def _block_embedding(x: torch.Tensor) -> torch.Tensor:

@@ -109,21 +109,29 @@ def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1,
 
 @dataclass
 class Parallel:
-    """A rank's place in the mesh and the modes it trains in."""
+    """A rank's place in the mesh and the modes it trains in. The mesh is
+    ``(data, model)`` (``make_mesh``) or, for a pipeline,
+    ``(data, pipe, model)`` (``pipeline.make_pipeline_mesh``); ``pipe``
+    is 1 without one."""
 
-    mesh: object  # DeviceMesh ("data", "model")
+    mesh: object  # DeviceMesh ("data", ["pipe",] "model")
     fsdp: bool = False
     sequence_parallel: bool = False
 
     def __post_init__(self):
         self.rank = dist.get_rank()
         self.world = dist.get_world_size()
-        self.data = self.mesh.size(0)
-        self.model = self.mesh.size(1)
-        self.data_rank = self.mesh.get_local_rank("data")
-        self.model_rank = self.mesh.get_local_rank("model")
-        self.data_group = self.mesh.get_group("data")
-        self.model_group = self.mesh.get_group("model")
+        names = self.mesh.mesh_dim_names
+        for dim in ("data", "pipe", "model"):
+            if dim in names:
+                size = self.mesh.size(names.index(dim))
+                rank = self.mesh.get_local_rank(dim)
+                group = self.mesh.get_group(dim)
+            else:
+                size, rank, group = 1, 0, None
+            setattr(self, dim, size)
+            setattr(self, f"{dim}_rank", rank)
+            setattr(self, f"{dim}_group", group)
         # JAX: SP is active only over a model axis of more than one device
         self.sequence_parallel = bool(self.sequence_parallel
                                       and self.model > 1)
@@ -136,6 +144,8 @@ class Parallel:
 
     def describe(self) -> str:
         modes = [f"data {self.data}", f"model {self.model}"]
+        if self.pipe > 1:
+            modes.insert(1, f"pipe {self.pipe}")
         if self.fsdp:
             modes.append("fsdp")
         if self.sequence_parallel:
@@ -202,16 +212,26 @@ def tp_unslice(name: str, parts: list, heads: int) -> torch.Tensor:
 # -- sharding a model -------------------------------------------------------
 
 def _fsdp_units(net):
-    return list(net.blocks) + [net]
+    """FSDP2's units: every block a rank holds, and the root with the
+    rest, unless the net is cut to a pipeline stage (whose embeddings and
+    heads stay replicated over the data ranks)."""
+    blocks = [b for b in net.blocks if any(True for _ in b.parameters())]
+    return blocks if getattr(net, "stage", None) else blocks + [net]
 
 
 def shard_params(net, par: Parallel):
     """Cut the full model ``net`` (every rank holds the same weights) into
-    this rank's part, in place: its model rank's heads and hidden columns
+    this rank's part, in place: under a pipeline its stage's blocks
+    (``pipeline.cut_to_stage``); its model rank's heads and hidden columns
     (``Attention``/``Mlp`` then run on local heads and columns, with the
-    region seams of ``parallel.tensor_parallel``), and under FSDP a
-    ``fully_shard`` unit per block plus the root over the data ranks."""
+    region seams of ``parallel.tensor_parallel``); and under FSDP a
+    ``fully_shard`` unit per block (plus the root without a pipeline)
+    over the data ranks."""
     heads = net.cfg.num_heads
+    if par.pipe > 1:
+        from .pipeline import cut_to_stage
+
+        cut_to_stage(net, par)
     layout = par.layout()
     net.set_layout(layout)
     if par.model > 1:

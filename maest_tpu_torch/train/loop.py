@@ -9,15 +9,18 @@ averaging, numpy macro AP/ROC, TensorBoard scalars when ``tensorboardX``
 is installed.
 
 Across processes (a torchrun launch, or ``ex_maest`` with
-``trainer.devices=N``) the Trainer runs the JAX Trainer's parallel modes
-without a pipeline: data parallelism, FSDP2, tensor parallelism and
-sequence parallelism over a ``(data, model)`` mesh. Each data rank loads
-its rows of every global batch, in rank order; evals are rank-sharded and
-their logits gathered, so every rank computes the one-process metrics;
-``predict`` partitions the files over the ranks; rank 0 writes the same
-checkpoint directory one process writes, gathered whole. Pipeline
-parallelism is not ported yet and is refused (ROADMAP queue 1 item 4,
-GPipe).
+``trainer.devices=N``) the Trainer runs the JAX Trainer's parallel modes:
+data parallelism, FSDP2, tensor parallelism and sequence parallelism
+over a ``(data, model)`` mesh, and with ``trainer.pipeline_parallel=S``
+GPipe over a ``(data, pipe, model)`` mesh (``trainer.num_microbatches``
+M a step; evals at M = 1), alone or with data parallelism, FSDP2 and
+tensor parallelism inside each stage (``parallel.pipeline``). Each data
+rank loads its rows of every global batch, in rank order; evals are
+rank-sharded and their logits gathered, so every rank computes the
+one-process metrics; ``predict`` partitions the files over the ranks
+(under a pipeline, on the sequential path with the whole weights); rank
+0 writes the same checkpoint directory one process writes, gathered
+whole from every stage.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from ..data import (
 )
 from ..models.vit import MAESTNet
 from ..parallel import mesh as pmesh
+from ..parallel import pipeline
 from ..parallel.tensor_parallel import all_gather_dim
 from .metrics import gather_across_hosts, macro_ap_roc
 from .schedules import make_schedule
@@ -129,15 +133,23 @@ def _precision_dtype(precision: str):
             "16-mixed": torch.bfloat16}[str(precision)]
 
 
+def _pipeline_stages(tr: dict) -> int:
+    """``trainer.pipeline_parallel`` as a stage count; 0 without a
+    pipeline (0 and 1 alike)."""
+    pp = int(tr.get("pipeline_parallel") or 0)
+    return pp if pp > 1 else 0
+
+
 def _parallel(tr: dict, device: torch.device):
     """The rank's ``Parallel`` for the trainer config, or None for one
-    process. Joins the process group of a torchrun launch. Pipeline
-    parallelism is refused; more devices than launched ranks raise."""
-    if int(tr.get("pipeline_parallel") or 0) > 1:
-        raise NotImplementedError(
-            f"trainer.pipeline_parallel={tr['pipeline_parallel']}: pipeline "
-            "parallelism (GPipe) is not ported yet (ROADMAP queue 1 item 4, "
-            "GPipe)")
+    process. Joins the process group of a torchrun launch; more devices
+    than launched ranks raise."""
+    pp = _pipeline_stages(tr)
+    if pp and tr.get("sequence_parallel"):
+        raise ValueError(
+            "pipeline_parallel does not compose with sequence_parallel (SP "
+            "token-shards the residual stream between blocks; the pipeline "
+            "owns that seam)")
     pmesh.init_distributed(device)
     devices = tr.get("devices")
     model_parallel = int(tr.get("model_parallel") or 1)
@@ -146,12 +158,20 @@ def _parallel(tr: dict, device: torch.device):
         if n > 1:
             raise ValueError(
                 f"trainer.devices={n} in one process: {pmesh._LAUNCH}")
+        if pp:
+            raise ValueError(
+                f"1 devices not divisible by num_stages x model_parallel = "
+                f"{pp} x {model_parallel}")
         if model_parallel > 1:
             raise ValueError(f"1 devices not divisible by model_parallel="
                              f"{model_parallel}")
         return None
-    mesh = pmesh.make_mesh(None if devices is None else int(devices),
-                           model_parallel, device_type=device.type)
+    n = None if devices is None else int(devices)
+    if pp:
+        mesh = pipeline.make_pipeline_mesh(n, pp, model_parallel,
+                                           device_type=device.type)
+    else:
+        mesh = pmesh.make_mesh(n, model_parallel, device_type=device.type)
     return pmesh.Parallel(mesh, fsdp=bool(tr.get("fsdp")),
                           sequence_parallel=bool(tr.get("sequence_parallel")))
 
@@ -179,33 +199,42 @@ def state_snapshot(state: TrainState, parallel=None) -> dict:
     ``swa_params``, ``swa_n`` and ``step``. Parameters are keyed by their
     ``named_parameters`` names; ``mu``/``nu`` hold the parameters the
     optimizer has state for. Across ranks (``parallel``) every tensor is
-    gathered whole (FSDP shards, TP slices), so the snapshot is the one a
-    single process takes; every rank must call it."""
+    gathered whole (FSDP shards, TP slices, every stage's blocks), so the
+    snapshot is the one a single process takes; every rank must call
+    it."""
     named = dict(state.model.named_parameters())
-    heads = state.model.cfg.num_heads if parallel is not None else 0
-
-    def host(name, t):
-        if parallel is None:
-            return _host_copy(t)
-        return _host_copy(pmesh.full_tensor(name, t, parallel, heads))
-
     mu, nu = {}, {}
     for name, p in named.items():
         s = state.optimizer.state.get(p)
         if s:
-            mu[name] = host(name, s["exp_avg"])
-            nu[name] = host(name, s["exp_avg_sq"])
+            mu[name] = s["exp_avg"]
+            nu[name] = s["exp_avg_sq"]
+
+    def host(tensors):
+        return _whole(tensors, parallel, state.model.cfg)
+
     return {
-        "params": {k: host(k, p) for k, p in named.items()},
+        "params": host(named),
         "opt_state": {
-            "mu": mu, "nu": nu, "count": int(state.count),
-            "accum": {k: host(k, v) for k, v in state.accum.items()},
+            "mu": host(mu), "nu": host(nu), "count": int(state.count),
+            "accum": host(state.accum),
             "mini_step": int(state.mini_step),
         },
-        "swa_params": {k: host(k, v) for k, v in state.swa_params.items()},
+        "swa_params": host(state.swa_params),
         "swa_n": int(state.swa_n),
         "step": int(state.step),
     }
+
+
+def _whole(tensors: dict, parallel, cfg) -> dict:
+    """Host copies of ``tensors`` (this rank's parts, by parameter name),
+    gathered whole across ranks (``parallel``): every rank must call it."""
+    if parallel is None:
+        return {k: _host_copy(t) for k, t in tensors.items()}
+    if parallel.pipe > 1:
+        return pipeline.whole_tensors(tensors, parallel, cfg)
+    return {k: _host_copy(pmesh.full_tensor(k, t, parallel, cfg.num_heads))
+            for k, t in tensors.items()}
 
 
 def write_checkpoint(path, snapshot: dict) -> Path:
@@ -240,28 +269,33 @@ def read_checkpoint(path) -> dict:
 def load_snapshot(state: TrainState, snap: dict, parallel=None) -> TrainState:
     """Copy a snapshot into ``state`` (its module, optimizer, SWA buffer
     and counters) in place. Across ranks (``parallel``) each rank takes
-    its part of every whole tensor, so a checkpoint of any layout
-    restores in any other."""
+    its part of every whole tensor (under a pipeline, of its stage's
+    blocks), so a checkpoint of any layout restores in any other."""
     named = dict(state.model.named_parameters())
-    if set(snap["params"]) != set(named):
+    whole = (set(pipeline.whole_shapes(state.model.cfg))
+             if state.model.stage else set(named))
+    if set(snap["params"]) != whole:
         raise ValueError(
             "checkpoint parameters do not match the model: missing "
-            f"{sorted(set(named) - set(snap['params']))}, unexpected "
-            f"{sorted(set(snap['params']) - set(named))}")
+            f"{sorted(whole - set(snap['params']))}, unexpected "
+            f"{sorted(set(snap['params']) - whole)}")
     heads = state.model.cfg.num_heads if parallel is not None else 0
 
     def load(name, dst, whole):
         pmesh.load_local(name, dst, whole, parallel, heads)
 
+    def held(tensors: dict) -> dict:
+        return {k: v for k, v in tensors.items() if k in named}
+
     opt = snap["opt_state"]
     for k, p in named.items():
         load(k, p, snap["params"][k])
-    for k, v in snap["swa_params"].items():
+    for k, v in held(snap["swa_params"]).items():
         load(k, state.swa_params[k], v)
-    for k, v in opt["accum"].items():
+    for k, v in held(opt["accum"]).items():
         load(k, state.accum[k], v)
     state.optimizer.state.clear()
-    for k, m in opt["mu"].items():
+    for k, m in held(opt["mu"]).items():
         p = named[k]
         mu, nu = torch.zeros_like(p), torch.zeros_like(p)
         load(k, mu, m)
@@ -280,8 +314,8 @@ class Trainer:
     """End-to-end pre-training run (reference `main`, ex_maest.py:72-91):
     ``device`` is where the net trains ("cuda" unless the caller asks for
     the CPU). Under a launch of several ranks each process builds one,
-    the mesh from ``trainer.devices`` (None: every launched rank) and
-    ``trainer.model_parallel``."""
+    the mesh from ``trainer.devices`` (None: every launched rank),
+    ``trainer.pipeline_parallel`` and ``trainer.model_parallel``."""
 
     def __init__(self, cfg: dict, run_dir: Optional[str] = None,
                  run_info: Optional[dict] = None, device="cuda"):
@@ -336,12 +370,32 @@ class Trainer:
         self.state = TrainState.create(self.net, self.tx,
                                        with_swa=cfg["module"]["do_swa"],
                                        parallel=self.parallel)
-        self.train_step = make_train_step(
-            self.net, self.tx, self.aug,
-            teacher_student=self.teacher_student, parallel=self.parallel,
-        )
+        self.pipeline_parallel = _pipeline_stages(tr)
+        self.num_microbatches = int(tr.get("num_microbatches") or 4)
+        eval_apply = None
+        if self.pipeline_parallel:
+            m = self.num_microbatches
+            if self.global_batch % (self.n_data * m):
+                raise ValueError(
+                    f"global train batch {self.global_batch} must divide by "
+                    f"data shards x num_microbatches = {self.n_data} x {m}")
+            self.train_step = pipeline.make_pipeline_train_step(
+                self.net, self.tx, self.aug, parallel=self.parallel,
+                num_microbatches=m, teacher_student=self.teacher_student)
+
+            # eval streams one microbatch through the stages: the eval
+            # batches divide only by the data ranks
+            def eval_apply(model, x):
+                return pipeline.pipeline_apply(model, x, self.parallel,
+                                               num_microbatches=1)
+        else:
+            self.train_step = make_train_step(
+                self.net, self.tx, self.aug,
+                teacher_student=self.teacher_student, parallel=self.parallel,
+            )
         self.eval_step = make_eval_step(self.net, self.aug,
-                                        with_swa=cfg["module"]["do_swa"])
+                                        with_swa=cfg["module"]["do_swa"],
+                                        apply_fn=eval_apply)
         if self.parallel is not None:
             _logger.info("rank %d: %s", self.rank, self.parallel.describe())
 
@@ -774,8 +828,13 @@ class Trainer:
             # file's windows stay on one rank: aggregation and the .npy
             # write are per file), with no collective in the loop, so the
             # ranks may take different batch counts; one gather of the
-            # weights first
+            # weights first. Under a pipeline too: the embedding tap reads
+            # a block's output, which the stages do not expose
             par = self.parallel
+            if self.pipeline_parallel:
+                _logger.info("predict under pipeline_parallel=%d: the "
+                             "sequential tap path on each of %d ranks",
+                             self.pipeline_parallel, par.world)
             net = _whole_net(self.state, par, self.net.cfg, self.dtype,
                              self.device)
             params = dict(net.named_parameters())
@@ -824,10 +883,8 @@ def _whole_net(state: TrainState, par, cfg, dtype, device) -> MAESTNet:
     """A one-process model holding the whole weights of a sharded state
     (every rank must call it)."""
     net = MAESTNet(cfg, dtype=dtype, param_dtype=torch.float32)
-    heads = cfg.num_heads
-    whole = {k: pmesh.full_tensor(k, p, par, heads)
-             for k, p in state.model.named_parameters()}
-    net.load_state_dict(whole)
+    net.load_state_dict(_whole(dict(state.model.named_parameters()), par,
+                               cfg))
     return net.to(device)
 
 

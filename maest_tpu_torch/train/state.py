@@ -39,9 +39,18 @@ class Optimizer:
         return float(s(count)) if callable(s) else float(s)
 
     def init(self, params) -> torch.optim.Optimizer:
-        """The torch optimizer over ``params``."""
+        """The torch optimizer over ``params``. FSDP2's shards (DTensors)
+        and plain tensors, which a pipeline stage holds side by side, go
+        into two groups of the same settings: the optimizer's multi-tensor
+        kernels take one kind a call."""
+        from torch.distributed.tensor import DTensor
+
         cls = torch.optim.AdamW if self.adamw else torch.optim.Adam
-        return cls(list(params), lr=self.lr(0), betas=(0.9, 0.999), eps=1e-8,
+        params = list(params)
+        kinds = [[p for p in params if isinstance(p, DTensor) == sharded]
+                 for sharded in (True, False)]
+        return cls([{"params": g} for g in kinds if g], lr=self.lr(0),
+                   betas=(0.9, 0.999), eps=1e-8,
                    weight_decay=self.weight_decay if self.adamw else 0.0)
 
 

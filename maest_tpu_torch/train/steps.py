@@ -7,7 +7,8 @@ NaN-guarded optimizer update. Random draws come from an explicit CPU
 discogs/datamodule.py:126-152).
 
 Across ranks (``parallel``, a ``parallel.mesh.Parallel``) a step runs on
-this rank's rows of the global batch: every draw is made for the global
+this rank's rows of the global batch (under a pipeline every stage of a
+data rank runs on the same rows): every draw is made for the global
 batch, exactly as one process makes it, and the rank keeps its rows;
 mixup pairs rows across ranks, so the prepared batch and targets are
 gathered over the data ranks before mixing. Each rank's loss is the mean
@@ -173,7 +174,8 @@ def _device(module: nn.Module) -> torch.device:
 
 
 def make_train_step(net: nn.Module, tx, aug: AugmentConfig = AugmentConfig(),
-                    *, teacher_student: bool = False, parallel=None):
+                    *, teacher_student: bool = False, parallel=None,
+                    apply_fn=None):
     """Build the train step ``step(state, batch, generator=None,
     draws=None) -> (state, metrics)``.
 
@@ -186,10 +188,18 @@ def make_train_step(net: nn.Module, tx, aug: AugmentConfig = AugmentConfig(),
     module the state was created from, ``net``), updates it in place and
     returns the state. ``generator``: the CPU generator of the step's
     draws; ``draws``: the model's train draws, handed in instead of drawn.
-    ``metrics`` holds Python floats."""
+    ``metrics`` holds Python floats.
+
+    ``apply_fn(model, x, generator, draws) -> the net's output`` takes the
+    place of the model's train forward: the pipelined step
+    (``parallel.pipeline.make_pipeline_train_step``) passes its schedule
+    here and shares the rest of the step."""
     if teacher_student and net.cfg.distilled_type != "separated":
         raise ValueError("teacher-student training needs distilled_type "
                          "'separated' (two heads)")
+    if apply_fn is None:
+        def apply_fn(model, x, generator, draws):
+            return model(x, train=True, generator=generator, draws=draws)
 
     def step(state: TrainState, batch, generator=None,
              draws: Optional[TrainDraws] = None):
@@ -208,7 +218,7 @@ def make_train_step(net: nn.Module, tx, aug: AugmentConfig = AugmentConfig(),
                                  group)
 
         state.optimizer.zero_grad(set_to_none=True)
-        out = model(x, train=True, generator=generator, draws=draws)
+        out = apply_fn(model, x, generator, draws)
         if teacher_student:
             loss_standard = bce_with_logits(out[0], targets[0])
             loss_teacher = bce_with_logits(out[1], targets[1])
@@ -240,14 +250,20 @@ def _all_reduce_flat(tensors, group) -> None:
 
 @torch.no_grad()
 def sync_grads(model: nn.Module, par) -> None:
-    """Make this rank's gradients the global batch's: averaged over the
-    data ranks (FSDP2 has reduce-scattered them already); under sequence
-    parallelism the parameters that act on token shards (the blocks'
-    LayerNorms and the biases after proj and fc2) summed over the model
-    ranks as well."""
+    """Make this rank's gradients the global batch's: under a pipeline,
+    the embeddings' and heads' from the stages that computed them
+    (``pipeline.sync_stage_grads``); averaged over the data ranks (FSDP2
+    has reduce-scattered its shards' already); under sequence parallelism
+    the parameters that act on token shards (the blocks' LayerNorms and
+    the biases after proj and fc2) summed over the model ranks as
+    well."""
+    if par.pipe > 1:
+        from ..parallel.pipeline import sync_stage_grads
+
+        sync_stage_grads(model, par)
     named = [(k, p) for k, p in model.named_parameters() if p.grad is not None]
-    if par.data > 1 and not par.fsdp:
-        grads = [p.grad for _, p in named]
+    grads = [p.grad for _, p in named if not pmesh.is_sharded(p)]
+    if par.data > 1 and grads:
         _all_reduce_flat(grads, par.data_group)
         for g in grads:
             g.div_(par.data)
@@ -313,19 +329,27 @@ def _optimizer_update(state: TrainState):
 
 
 def make_eval_step(net: nn.Module, aug: AugmentConfig = AugmentConfig(), *,
-                   with_swa: bool = True):
+                   with_swa: bool = True, apply_fn=None):
     """``step(state, x) -> {"": logits, "swa": logits}``: logits (fp32) of
     the live and the SWA weights in one call (reference:
     models/module.py:121-146); losses are taken from them on the host.
     FSDP2 gathers a module's own parameters in its forward, so under FSDP
     the SWA shards are copied into the parameters for that forward and
-    back."""
+    back. ``apply_fn(model, x) -> the net's output`` takes the place of
+    the model's forward (the pipelined eval; the SWA weights are then
+    copied in for it too)."""
 
     @torch.no_grad()
     def step(state: TrainState, x):
         model = state.model
         x = _prepare(torch.as_tensor(x, device=_device(model)), aug, None,
                      train=False)
+        if apply_fn is not None:
+            out = {"": apply_fn(model, x)[0].float()}
+            if with_swa:
+                with pmesh.swapped_params(model, state.swa_params):
+                    out["swa"] = apply_fn(model, x)[0].float()
+            return out
         out = {"": model(x)[0].float()}
         if with_swa:
             if pmesh.is_fsdp(model):

@@ -46,9 +46,12 @@ MODES = {
 
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
+    return make_corpus(tmp_path_factory.mktemp("corpus"))
+
+
+def make_corpus(root: Path) -> Path:
     """``tests/test_torch_trainer.py``'s corpus: 12 .mmap files of 120-187
     frames, 8 classes; 8 give one exhaustive window."""
-    root = tmp_path_factory.mktemp("corpus")
     rng = np.random.default_rng(0)
     gt = {}
     for i in range(12):

@@ -306,21 +306,16 @@ def test_run_record_after_an_injected_exception(corpus, tmp_path, exc, status):
     ("pipeline_parallel", 2), ("sequence_parallel", True)])
 def test_parallel_modes_are_refused(corpus, tmp_path, key, value):
     """In one process, without a launch of several ranks, every parallel
-    mode over 2 devices is refused, naming the launchers; pipeline
-    parallelism is refused in any launch, naming the GPipe item (the
-    parallel modes across ranks: tests/test_torch_parallel*.py)."""
+    mode over 2 devices is refused, naming the launchers (the parallel
+    modes across ranks: tests/test_torch_parallel*.py and
+    tests/test_torch_pipeline*.py)."""
     extra = [f"trainer.{key}={value}"]
     if key != "devices":
         extra.append("trainer.devices=2")
     cfg = configs.build_experiment_config([], overrides(corpus, tmp_path,
                                                         extra))
-    if key == "pipeline_parallel":
-        with pytest.raises(NotImplementedError,
-                           match="queue 1 item 4, GPipe"):
-            Trainer(cfg, device="cpu")
-    else:
-        with pytest.raises(ValueError, match="torchrun"):
-            Trainer(cfg, device="cpu")
+    with pytest.raises(ValueError, match="torchrun"):
+        Trainer(cfg, device="cpu")
     assert not (tmp_path / "exp_logs").exists()
 
 

@@ -160,8 +160,21 @@ def test_range_checks_and_unported_modes(setup):
         MAESTNet(MAESTConfig(**GEOM, attention_quant="int4"))
     with pytest.raises(ValueError, match="remat_policy"):
         MAESTNet(MAESTConfig(**GEOM, remat_policy="everything"))
-    with pytest.raises(NotImplementedError):
-        tnet(xt, forward_mode="front")
+    # the pipeline seams: front -> blocks -> tail is the forward, bit
+    # for bit, and the seams take no tap
+    with torch.inference_mode():
+        tokens, n = tnet(xt, forward_mode="front")
+        assert tokens.shape == (2, n, 64) and n == tnet.stream_length(xt.shape)
+        for i in range(GEOM["depth"]):
+            tokens = tnet.run_block(i, tokens)
+        for a, b in zip(tnet(tokens, forward_mode="tail"), tnet(xt)):
+            assert torch.equal(a, b)
+    for kw in ({"tap_block": 0}, {"return_layer_tokens": True},
+               {"transformer_block": 1}, {"return_self_attention": True}):
+        with pytest.raises(ValueError, match="front/tail"):
+            tnet(xt, forward_mode="front", **kw)
+    with pytest.raises(ValueError, match="forward_mode"):
+        tnet(xt, forward_mode="middle")
     with pytest.raises(NotImplementedError):
         MAESTNet(MAESTConfig(**GEOM, per_freq_patch_embed=True))
     with pytest.raises(ValueError, match="distilled_type"):
