@@ -147,13 +147,27 @@ parallelism), 4 (data x tensor x sequence parallelism), and 1 over NCCL
 losses, the eval's input rows, probabilities and val losses, rank 0's
 final checkpoint), the replicas of each parameter element equal after
 every step, the launch counters of each rank, and K3a/K3b and K2 held
-to plain at tensor parallelism's local shapes. Last GPipe through the
+to plain at tensor parallelism's local shapes. Then GPipe through the
 Trainer (39) at the preset's full depth, 2 stages of 6 blocks: pp (2
 ranks), dp+pp, pp+tp and dp+pp+fsdp (4 ranks) over gloo on the one card,
 each held to a full-depth one-process run with phase 38's bounds, each
 rank's launches (K3a and K3b 6 x M microbatches a step, K2 6 an eval
 forward) and K3a/K3b/K2 held to plain at each rank's microbatch and
-eval shapes. Each phase's seconds print as it ends. A
+eval shapes. Last the tagging entry points (40): the bf16 TagService on
+CUDA graphs (one a bucket and family, captured at warmup), every
+bucket's replay against its eager run and an fp32 model's wave buckets
+1 and 32, phase 7's four requests through graphs against
+``predict_labels``, the launches a replayed batch (host counters at
+capture; torch.profiler's kernel names over a replay: K1 1, K2 12, no
+control), a wave batch's time by bucket and latency under load
+(``scripts/serve_bench.py``'s shape) with and without graphs in
+alternating rounds; ``python -m maest_tpu_torch.apps.tag`` in processes
+of its own on an HF AST layout checkpoint against ``predict_labels`` and
+the block-7 embeddings; and the inference mesh in 2 ranks over gloo on
+the one card (``MAEST`` at dp 2 and tp 2, ``tag --devices 2``, a mesh
+TagService) held to one process. The kernels line gives K1 and K2 (and
+fp32 K2) the served path's launches under graph replay, as
+``launches_serve``. Each phase's seconds print as it ends. A
 split by torch.profiler
 is printed only from a trace that holds every launch its route makes, by
 name and count, and a device total within SPLIT_SHARE of the call's
@@ -5871,6 +5885,472 @@ def phase_pipeline(dev, gpu, R: dict):
     return {"launches": launches, "err": err}
 
 
+# phase 40: the tagging entry points on the card. The graph-backed
+# TagService at full width (bf16, the 6 default buckets x 3 families, each
+# replay held to the eager run with SERVE_TOL; fp32 wave buckets 1 and 32
+# with P40_F32_TOL: the same kernels on the same buffers, 0 expected), the
+# served answers, launches a replayed batch, latency under load with and
+# without graphs; apps/tag.py in a process of its own on an HF AST layout
+# checkpoint; and the inference mesh in 2 ranks over gloo on the one card,
+# at P40_MESH_DEPTH blocks, held to one process (GOLDEN_TOL, fp32)
+P40_F32_TOL = 2e-5
+P40_MESH_DEPTH = 4
+P40_SEQUENTIAL = 16    # scripts/serve_bench.py's shape: 16 requests in turn,
+P40_CLIENTS = 32       # then 32 client threads x 4 native requests
+P40_PER_CLIENT = 4
+P40_JSON_TOL = 1e-4    # tag --json rounds activations to 4 decimals
+P40_BLOCK = 7          # tag --embeddings-dir's block (its default)
+P40_BUCKET_ROUNDS = 5  # a bucket's replay and eager run timed in turn
+P40_TIMEOUT = 300.0
+# the kernels a served batch may run, by the profiler's names
+P40_KERNELS = {"K1": r"logmel_fft_kernel", "K1_control": r"logmel_kernel",
+               "K2": r"attn_fwd_wgmma_kernel",
+               "K2_control": r"attn_fwd_bf16_kernel",
+               "K2_fp32": r"attn_fwd_tf32_kernel",
+               "K2_fp32_control": r"attn_fwd_fp32_kernel"}
+
+
+def _p40_elements(progs, n: int, seed: int) -> np.ndarray:
+    x = np.random.default_rng(seed).standard_normal(
+        (n, *progs.elem_shape)).astype(np.float32) * 0.1
+    if progs.pcm16:
+        return (np.clip(x, -1, 1) * 32767).astype(np.int16)
+    return x
+
+
+def _p40_graphs_vs_eager(progs, seed: int) -> float:
+    """Every bucket of ``progs`` replayed and run eagerly on the same
+    elements; the largest difference."""
+    worst = 0.0
+    for b in progs.buckets:
+        batch = _p40_elements(progs, b, seed + b)
+        got, want = progs.run(batch), progs.eager(batch)
+        check(got.shape == want.shape and bool(np.isfinite(got).all()),
+              f"{progs.kind} bucket {b} replay")
+        worst = max(worst, float(np.abs(got - want).max()))
+    return worst
+
+
+def _p40_load(svc, waves: list, pcm: list) -> dict:
+    """scripts/serve_bench.py's shape on ``svc``: P40_SEQUENTIAL native
+    float32 requests in turn, then P40_CLIENTS threads x P40_PER_CLIENT in
+    float32 and in pcm16; audio-s/s, p50/p99 ms and mean batch fill of
+    each, the latency window cleared between them."""
+    out = {}
+
+    def window():
+        svc.stats_reset_window()
+        svc.batcher.stats.batches = svc.batcher.stats.batched_chunks = 0
+
+    window()
+    t0 = time.perf_counter()
+    for i in range(P40_SEQUENTIAL):
+        svc.tag(waves[i % len(waves)])
+    dt = time.perf_counter() - t0
+    st = svc.stats()
+    out["sequential"] = {"audio_s_per_s": P40_SEQUENTIAL * 30 / dt,
+                         "p50": st["latency_ms_p50"],
+                         "p99": st["latency_ms_p99"],
+                         "fill": st["mean_batch_fill"]}
+    for kind, clips in (("float32", waves), ("pcm16", pcm)):
+        window()
+        errors: list = []
+        barrier = threading.Barrier(P40_CLIENTS + 1)
+
+        def client(ci):
+            barrier.wait()
+            for r in range(P40_PER_CLIENT):
+                try:
+                    svc.tag(clips[(ci + r) % len(clips)], timeout=600)
+                except Exception as e:  # reported below, fails the phase
+                    errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(P40_CLIENTS)]
+        for t in threads:
+            t.start()
+        barrier.wait()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join(timeout=600)
+        dt = time.perf_counter() - t0
+        check(not errors and not any(t.is_alive() for t in threads),
+              f"load {kind}: {errors[:3]}")
+        st = svc.stats()
+        out[kind] = {"audio_s_per_s": P40_CLIENTS * P40_PER_CLIENT * 30 / dt,
+                     "p50": st["latency_ms_p50"], "p99": st["latency_ms_p99"],
+                     "fill": st["mean_batch_fill"]}
+    return out
+
+
+def _p40_tag_lines(argv: list) -> list:
+    """``apps.tag.main(argv)``'s printed lines, in this process."""
+    import contextlib
+    import io
+
+    from maest_tpu_torch.apps import tag
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(tag.main(argv) == 0, f"tag {argv}")
+    return buf.getvalue().splitlines()
+
+
+def _p40_json(lines: list) -> dict:
+    return {d["file"]: d["tags"] for d in map(json.loads, lines)}
+
+
+def _p40_json_gap(a: dict, b: dict) -> float:
+    check(list(a) == list(b) and all(set(a[f]) == set(b[f]) for f in a),
+          "tag --json files or labels differ")
+    return max(abs(a[f][k] - b[f][k]) for f in a for k in a[f])
+
+
+def _p40_rank(rank: int, world: int, ckpt: str, wave: np.ndarray,
+              requests: list, tag_argv: list, device: str = "cuda") -> dict:
+    """One rank of phase 40's mesh (``parallel.launch.spawn`` sets
+    torchrun's variables; 2 ranks share the card over gloo): ``MAEST`` at
+    dp 2 and at tp 2 on ``wave``; ``tag --devices 2``; a mesh TagService
+    at dp 2, rank 0 answering ``requests`` from as many threads, rank 1
+    following."""
+    sys.path.insert(0, str(ROOT))
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    from maest_tpu_torch import get_maest
+    from maest_tpu_torch.parallel import mesh as pmesh
+    from maest_tpu_torch.serve import TagService
+
+    pmesh.init_distributed(device)
+    out = {"backend": torch.distributed.get_backend()}
+    kw = dict(pretrained=False, checkpoint=ckpt, device=device,
+              depth=P40_MESH_DEPTH)
+    for mp in (1, 2):
+        model = get_maest(ARCH, mesh=pmesh.make_mesh(world, mp, device), **kw)
+        out[mp] = [t.cpu().numpy() for t in model(wave)]
+        del model
+    out["tag"] = _p40_tag_lines(tag_argv + ["--devices", str(world)])
+    model = get_maest(ARCH, mesh=pmesh.make_mesh(world, 1, device), **kw)
+    svc = TagService(model, buckets=(1, 2, 4), max_wait_ms=5.0)
+    if svc.follower:
+        out["followed"] = svc.follow()
+        return out
+    got: list = [None] * len(requests)
+
+    def worker(i):
+        got[i] = svc.tag(requests[i], timeout=300)[0]
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(len(requests))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    svc.close()
+    out["served"] = got
+    return out
+
+
+def phase_tagging(dev, gpu, sd):
+    """Phase 40: the tagging entry points on the card at full width
+    (``discogs-maest-30s-pw-129e``, ViT-B/16, 12 blocks, phase 5's random
+    weights). A bf16 TagService whose programs are CUDA graphs, captured at
+    warmup (6 buckets x the mel-chunk, wave and pcm16 families): each
+    bucket's replay against the eager run (SERVE_TOL), an fp32 model's wave
+    buckets 1 and 32 (P40_F32_TOL); phase 7's four requests served through
+    graphs against ``predict_labels``; the counted launches of every
+    captured graph (K1 1 a wave or pcm16 batch, K2 12, the controls 0) and
+    torch.profiler's kernel names over one replay of each family; latency
+    under load (scripts/serve_bench.py's shape) with graphs and eagerly in
+    alternating rounds. ``python -m maest_tpu_torch.apps.tag`` in processes
+    of their own on 3 wavs (30 s at 16 kHz, 95 s and 10 s at 44.1 kHz)
+    from an HF AST layout checkpoint (``to_hf_ast_state``): ``--json``
+    against ``predict_labels`` on the loaded waves (P40_JSON_TOL),
+    ``--embeddings-dir`` against ``model(wave, transformer_block=7)[1]``
+    (GOLDEN_TOL). The mesh, 2 ranks over gloo on the card at
+    P40_MESH_DEPTH blocks, fp32: ``MAEST`` at dp 2 and tp 2 on a wave of 3
+    chunks (padded to 4 rows), ``tag --devices 2`` and a mesh TagService
+    answering 4 requests, each held to one process. Returns the launches
+    and times for the kernels line."""
+    from maest_tpu_torch import get_maest, serve
+    from maest_tpu_torch.apps.extract_mel import load_audio
+    from maest_tpu_torch.ops.attention import flash_attention
+    from maest_tpu_torch.packaging import to_hf_ast_state
+    from maest_tpu_torch.parallel.launch import spawn
+    from maest_tpu_torch.utils.profiling import kernel_launches
+    from scipy.io import wavfile
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(40)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ckpt = str(tmp / "random-vitb.pt")
+        torch.save(sd, ckpt)
+        kw = dict(pretrained=False, checkpoint=ckpt, device=dev)
+
+        # --- graphs against eager, every bucket and family --------------
+        model = get_maest(ARCH, dtype=torch.bfloat16, **kw)
+        t0 = time.perf_counter()
+        svc = serve.TagService(model, max_wait_ms=5.0, warmup=True,
+                               warmup_pcm16=True)
+        capture_s = time.perf_counter() - t0
+        families = (svc.wave_programs, svc.pcm16_programs, svc.programs)
+        gaps = {p.kind: _p40_graphs_vs_eager(p, 400) for p in families}
+        check(max(gaps.values()) <= SERVE_TOL, f"graphs vs eager {gaps}")
+        for p in families:
+            k1 = int(p.fused_wave)
+            for b, c in p.captured.items():
+                check(c["flash_attention"] == 12
+                      and c["fused_logmel_from_frames"] == k1
+                      and all(c[k] == 0 for k in (
+                          "attention_fwd_mma", "attention_fwd_fp32_fma",
+                          "fused_logmel_from_frames_fma", "attention_fwd_int8",
+                          "attention_fwd_fp8", "attention_fwd_q8_mma")),
+                      f"{p.kind} bucket {b} captured launches {c}")
+        traced = {}
+        for p in families:
+            batch = _p40_elements(p, 32, 401)
+            traced[p.kind] = kernel_launches(lambda: p.run(batch),
+                                             P40_KERNELS)
+            want = {k: 0 for k in P40_KERNELS}
+            want.update(K1=int(p.fused_wave), K2=12)
+            check({k: traced[p.kind][k] for k in P40_KERNELS} == want,
+                  f"{p.kind} replay's kernels {traced[p.kind]}")
+        print(f"phase 40 graphs: {sum(len(p._graphs) for p in families)} "
+              f"captured at warmup in {capture_s:.1f} s (buckets "
+              f"{svc.wave_programs.buckets} x chunk, wave, pcm16); replay vs "
+              f"eager max abs diff " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in gaps.items())
+              + f" <= {SERVE_TOL}; launches a replayed batch by the host "
+              "counters at capture: K1 1 (wave, pcm16) / 0 (chunk), K2 12, "
+              "controls 0 in every bucket; by torch.profiler over one "
+              "bucket-32 replay: " + "; ".join(
+                  f"{k} " + ", ".join(f"{n} {c}" for n, c in v.items() if c)
+                  for k, v in traced.items()) + f" [{gpu}]", flush=True)
+
+        # --- a wave batch's latency by bucket, replay against eager -----
+        bucket_ms = {}
+        p = svc.wave_programs
+        for b in p.buckets:
+            batch = _p40_elements(p, b, 404)
+            runs = {"graph": [], "eager": []}
+            for _ in range(P40_BUCKET_ROUNDS):
+                for name, fn in (("graph", p.run), ("eager", p.eager)):
+                    t0 = time.perf_counter()
+                    fn(batch)
+                    runs[name].append((time.perf_counter() - t0) * 1e3)
+            bucket_ms[b] = {k: float(np.median(v)) for k, v in runs.items()}
+        out["bucket_ms"] = bucket_ms
+        print("phase 40 wave batch, host ms (copy in, forward, copy out; "
+              f"median of {P40_BUCKET_ROUNDS} alternating rounds) by bucket, "
+              "graph / eager: " + ", ".join(
+                  f"{b} {v['graph']:.3f} / {v['eager']:.3f}"
+                  for b, v in bucket_ms.items()) + f" [{gpu}]", flush=True)
+
+        # --- phase 7's four requests, served through graphs -------------
+        wave_30 = rng.standard_normal(CLIP).astype(np.float32) * 0.1
+        wave_95 = rng.standard_normal(95 * SR).astype(np.float32) * 0.1
+        reqs = {"native float32": wave_30,
+                "native pcm16": (np.clip(wave_30, -1, 1) * 32767).astype(
+                    np.int16),
+                "95 s float32": wave_95, "10 s": wave_95[:10 * SR]}
+        answers: dict = {}
+
+        def ask(name):
+            answers[name] = svc.tag(reqs[name], timeout=300)[0]
+
+        threads = [threading.Thread(target=ask, args=(n,)) for n in reqs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        check(len(answers) == len(reqs), "served requests")
+        served = max(float(np.abs(answers[n] - model.predict_labels(x)[0])
+                           .max()) for n, x in reqs.items())
+        check(served <= SERVE_TOL, f"served vs predict_labels {served}")
+        print(f"phase 40 served through graphs: {', '.join(reqs)} at once, "
+              f"max abs diff from predict_labels {served:.3e} <= "
+              f"{SERVE_TOL}", flush=True)
+
+        # --- latency under load: graphs and eager in alternating rounds --
+        waves = [rng.standard_normal(CLIP).astype(np.float32) * 0.1
+                 for _ in range(8)]
+        pcm = [(np.clip(w, -1, 1) * 32767).astype(np.int16) for w in waves]
+        serve._GRAPHS = False
+        try:
+            eager = serve.TagService(model, max_wait_ms=5.0, warmup=True,
+                                     warmup_pcm16=True)
+        finally:
+            serve._GRAPHS = True
+        check(not any(p.graphs for p in (eager.programs, eager.wave_programs,
+                                         eager.pcm16_programs)),
+              "the eager service captured")
+        load = {"graphs": [], "eager": []}
+        for order in (("graphs", "eager"), ("eager", "graphs")):
+            for name in order:
+                load[name].append(_p40_load(
+                    svc if name == "graphs" else eager, waves, pcm))
+        eager.close()
+        for name, rounds in load.items():
+            for i, r in enumerate(rounds):
+                print(f"phase 40 load {name} round {i + 1}: " + "; ".join(
+                    f"{k} {v['audio_s_per_s']:.1f} audio-s/s, p50 "
+                    f"{v['p50']:.2f} ms, p99 {v['p99']:.2f} ms, fill "
+                    f"{v['fill']:.2f}" for k, v in r.items())
+                    + f" [{gpu}]", flush=True)
+        out["load"] = load
+        replays = {p.kind: sum(p.replays.values()) for p in families}
+        per = {p.kind: p.launches() for p in families}
+        out["serve"] = {
+            "K1": {"per_batch": 1, "replays": replays["wave"]
+                   + replays["pcm16"], "total": per["wave"][
+                       "fused_logmel_from_frames"] + per["pcm16"][
+                       "fused_logmel_from_frames"],
+                   "profiler": traced["wave"]["K1"]},
+            "K2": {"per_batch": 12, "replays": sum(replays.values()),
+                   "total": sum(v["flash_attention"] for v in per.values()),
+                   "profiler": traced["wave"]["K2"]}}
+        svc.close()
+        del svc, eager, model
+        torch.cuda.empty_cache()
+
+        # --- fp32: the wave family's buckets 1 and 32 -------------------
+        model = get_maest(ARCH, **kw)
+        progs = serve.BucketPrograms(model, (1, 32), fused_wave=True)
+        progs.warmup()
+        f32 = _p40_graphs_vs_eager(progs, 402)
+        check(f32 <= P40_F32_TOL, f"fp32 graphs vs eager {f32}")
+        batch = _p40_elements(progs, 32, 403)
+        seen = kernel_launches(lambda: progs.run(batch), P40_KERNELS)
+        check(seen["K2_fp32"] == 12 and seen["K1"] == 1 and not any(
+            seen[k] for k in ("K2", "K2_control", "K2_fp32_control",
+                              "K1_control")), f"fp32 replay's kernels {seen}")
+        out["serve_fp32"] = {"per_batch": 12,
+                             "replays": sum(progs.replays.values()),
+                             "total": progs.launches()["flash_attention"],
+                             "profiler": seen["K2_fp32"]}
+        print(f"phase 40 fp32 graphs: wave buckets 1 and 32 replay vs eager "
+              f"max abs diff {f32:.3e} <= {P40_F32_TOL}; one bucket-32 "
+              f"replay runs K1 {seen['K1']}, the tf32 K2 {seen['K2_fp32']}, "
+              "no control", flush=True)
+        del progs
+
+        # --- apps/tag.py on an HF AST layout checkpoint -----------------
+        files = [(tmp / "a16k.wav", 16000, 30.0), (tmp / "b44k.wav", 44100,
+                                                    95.0),
+                 (tmp / "c44k.wav", 44100, 10.0)]
+        for path, sr, sec in files:
+            wavfile.write(path, sr, (rng.standard_normal(int(sr * sec))
+                                     * 0.1).astype(np.float32))
+        paths = [str(p) for p, _, _ in files]
+        ast_ckpt = str(tmp / "ast.pt")
+        torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                    for k, v in to_hf_ast_state(
+                        {k: t.numpy() for k, t in sd.items()}).items()},
+                   ast_ckpt)
+        t0 = time.perf_counter()
+        cmd = [sys.executable, "-m", "maest_tpu_torch.apps.tag", *paths,
+               "--checkpoint", ast_ckpt, "--device", dev.type]
+        procs = [subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in (cmd + ["--json", "--top-k", "400"],
+                           cmd + ["--embeddings-dir", str(tmp / "emb"),
+                                  "--block", str(P40_BLOCK)])]
+        try:
+            res = [p.communicate(timeout=P40_TIMEOUT) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        tag_s = time.perf_counter() - t0
+        for p, (so, se) in zip(procs, res):
+            check(p.returncode == 0, f"apps.tag exited {p.returncode}: "
+                  f"{se[-2000:]}")
+        tags = _p40_json(res[0][0].splitlines())
+        loaded = {p: load_audio(Path(p)) for p in paths}
+        json_gap = max(
+            float(np.abs(np.array([tags[p][label] for label in model.labels])
+                         - model.predict_labels(w)[0]).max())
+            for p, w in loaded.items())
+        check(json_gap <= P40_JSON_TOL, f"tag --json vs predict_labels "
+              f"{json_gap}")
+        emb_gap = 0.0
+        with torch.inference_mode():
+            for p, w in loaded.items():
+                got = np.load(tmp / "emb" / (Path(p).stem + ".embeddings.npy"))
+                want = model(w, transformer_block=P40_BLOCK)[1].cpu().numpy()
+                check(got.shape == want.shape, f"embeddings {got.shape}")
+                emb_gap = max(emb_gap, float(np.abs(got - want).max()))
+        check(emb_gap <= GOLDEN_TOL, f"tag --embeddings-dir {emb_gap}")
+        import importlib.util
+
+        if importlib.util.find_spec("safetensors") is None:
+            st = "the .safetensors case skipped: no safetensors here"
+        else:
+            from safetensors.torch import save_file
+
+            st_path = str(tmp / "ast.safetensors")
+            save_file(torch.load(ast_ckpt), st_path)
+            m2 = get_maest(ARCH, pretrained=False, checkpoint=st_path,
+                           device=dev)
+            g = float(np.abs(m2.predict_labels(wave_30)[0] - model
+                             .predict_labels(wave_30)[0]).max())
+            check(g <= GOLDEN_TOL, f"AST .safetensors {g}")
+            st = f"the .safetensors AST file {g:.3e} from the .pt"
+            del m2
+        print(f"phase 40 apps.tag: 2 processes ({tag_s:.1f} s) on 30 s at 16 "
+              f"kHz, 95 s and 10 s at 44.1 kHz from an HF AST layout .pt: "
+              f"--json vs predict_labels on the loaded waves {json_gap:.3e} "
+              f"<= {P40_JSON_TOL}; --embeddings-dir vs model(wave, "
+              f"transformer_block=7)[1] {emb_gap:.3e} <= {GOLDEN_TOL}; {st}",
+              flush=True)
+        del model
+        torch.cuda.empty_cache()
+
+        # --- the mesh: 2 ranks over gloo on the card ---------------------
+        one = get_maest(ARCH, depth=P40_MESH_DEPTH, **kw)
+        wave = rng.standard_normal(3 * CLIP + SR).astype(np.float32) * 0.1
+        ref = [t.cpu().numpy() for t in one(wave)]
+        requests = list(reqs.values())
+        want = [one.predict_labels(r)[0] for r in requests]
+        tag_argv = [*paths, "--checkpoint", ckpt, "--json", "--top-k", "400",
+                    "--depth", str(P40_MESH_DEPTH), "--device", dev.type]
+        tag_one = _p40_json(_p40_tag_lines(tag_argv))
+        del one
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn(_p40_rank, 2, ckpt, wave, requests, tag_argv,
+                      dev.type, timeout=P40_TIMEOUT)
+        mesh_s = time.perf_counter() - t0
+        lead, follower = ranks
+        check(all(r["backend"] == "gloo" for r in ranks), "mesh backend")
+        mesh_gap = {}
+        for mp, name in ((1, "dp 2"), (2, "tp 2")):
+            for r in ranks:
+                check(all(a.shape == b.shape for a, b in zip(r[mp], ref)),
+                      f"{name} shapes")
+            mesh_gap[name] = max(float(np.abs(a - b).max())
+                                 for r in ranks for a, b in zip(r[mp], ref))
+        check(max(mesh_gap.values()) <= GOLDEN_TOL, f"mesh {mesh_gap}")
+        tag_gap = _p40_json_gap(_p40_json(lead["tag"]), tag_one)
+        check(tag_gap <= P40_JSON_TOL and follower["tag"] == [],
+              f"tag --devices 2 {tag_gap}")
+        svc_gap = max(float(np.abs(g - w).max())
+                      for g, w in zip(lead["served"], want))
+        check(svc_gap <= GOLDEN_TOL and follower["followed"] >= 3,
+              f"mesh service {svc_gap}, {follower.get('followed')}")
+        print(f"phase 40 mesh: 2 ranks over gloo on the card ({mesh_s:.1f} "
+              f"s, each rank's start included), fp32 at {P40_MESH_DEPTH} "
+              f"blocks: MAEST on a wave of 3 chunks (4 rows padded) vs one "
+              f"process, logits and features max abs diff " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in mesh_gap.items())
+              + f" <= {GOLDEN_TOL}; tag --devices 2 vs --devices 1 "
+              f"{tag_gap:.3e} <= {P40_JSON_TOL}; the mesh TagService's 4 "
+              f"answers vs predict_labels {svc_gap:.3e} <= {GOLDEN_TOL} "
+              f"(rank 1 ran {follower['followed']} batches)", flush=True)
+    print(f"phase 40 time: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on a GPU",
@@ -6106,6 +6586,7 @@ def main() -> int:
     cli = timed(37, phase_trainer_cli, dev, gpu)
     par = timed(38, phase_parallel, dev, gpu)
     pp = timed(39, phase_pipeline, dev, gpu, par["reference"])
+    tg = timed(40, phase_tagging, dev, gpu, sd)
 
     # K1: the bytes of the frames in and the log-mels out, and the FFT
     # route's fp32 operations (the DFT as a product does ~40x more)
@@ -6489,6 +6970,22 @@ def main() -> int:
             k["launches_pipeline"] = {
                 mode: [r[cli_key] for r in ranks]
                 for mode, ranks in pp["launches"].items()}
+    # the served path's launches under CUDA-graph replay (phase 40): the
+    # captured graph's launches (host counters at capture) a replayed batch,
+    # the batches replayed in the phase, their product, and torch.profiler's
+    # count of the kernel by name over one bucket-32 replay
+    print("kernels line: launches_serve of fused_logmel (K1), attention_fwd "
+          "(K2) and attention_fwd_fp32 are phase 40's graph-backed serving: "
+          "per_batch = the captured graph's launches by the host counters at "
+          "capture, replays = the batches it replayed, total = their product, "
+          "profiler = torch.profiler's count by kernel name over one bucket-32 "
+          "replay", flush=True)
+    for k in kernels:
+        key = {"fused_logmel": "K1", "attention_fwd": "K2"}.get(k["name"])
+        if key:
+            k["launches_serve"] = tg["serve"][key]
+        if k["name"] == "attention_fwd_fp32":
+            k["launches_serve"] = tg["serve_fp32"]
     print("phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in sorted(seconds.items(),
                                           key=lambda kv: -kv[1]))

@@ -11,6 +11,16 @@ package's input dispatch:
 
 Everything runs eagerly on ``device`` under ``torch.inference_mode()``.
 Outputs are tensors on that device; ``predict_labels`` returns numpy.
+
+``mesh``: a ``(data, model)`` ``DeviceMesh`` of a launched process group
+(``parallel.mesh.make_mesh``) spreads a call over its ranks, as the JAX
+package's mesh spreads it over chips: every rank builds the same net and
+keeps its heads and hidden columns over ``model`` (``shard_params``, no
+FSDP at inference); a call's rows (chunks or clips) are padded up to a
+multiple of ``data`` by repeating the last row, each data rank runs its
+contiguous block, and every output whose leading dimension is the batch
+is gathered over the data ranks and cut back. Every rank makes the same
+call and returns the whole result.
 """
 
 from __future__ import annotations
@@ -29,10 +39,24 @@ from .models.vit import MAESTNet
 
 
 class MAEST:
-    """Inference wrapper holding a config and a ``MAESTNet`` on one device."""
+    """Inference wrapper holding a config and a ``MAESTNet`` on one device,
+    or this rank's part of it under a ``mesh`` (size 1: no mesh)."""
 
-    def __init__(self, cfg: MAESTConfig, net: MAESTNet):
+    def __init__(self, cfg: MAESTConfig, net: MAESTNet, mesh=None):
         self.cfg = cfg
+        self.mesh = mesh if (mesh is not None and mesh.size() > 1) else None
+        self.parallel = None
+        if self.mesh is not None:
+            from .parallel.mesh import Parallel, shard_params
+
+            missing = {"data", "model"} - set(self.mesh.mesh_dim_names or ())
+            if missing:
+                raise ValueError(
+                    f"mesh must have ('data', 'model') axes (missing "
+                    f"{sorted(missing)}); build it with "
+                    "maest_tpu_torch.parallel.mesh.make_mesh()")
+            self.parallel = Parallel(self.mesh)
+            shard_params(net, self.parallel)
         self.net = net.eval()
         self.labels = labels_for(cfg.num_classes)
 
@@ -106,8 +130,27 @@ class MAEST:
         ``transformer_block`` (reference: models/maest.py:831-933)."""
         with torch.inference_mode():
             x = self._prepare(x, melspectrogram_input)
-            return self.net(x, transformer_block=transformer_block,
-                            return_self_attention=return_self_attention)
+            return self.sharded(x, lambda rows: self.net(
+                rows, transformer_block=transformer_block,
+                return_self_attention=return_self_attention))
+
+    def sharded(self, x: torch.Tensor, fn):
+        """``fn`` on the rows of ``x``: the whole batch without a mesh;
+        under one, this data rank's block of the batch padded to a multiple
+        of ``data`` (the last row repeated), every output tensor whose
+        leading dimension is the block gathered over the data ranks and cut
+        back to ``x``'s rows. Every rank of the mesh must call it, with the
+        same ``x``."""
+        par = self.parallel
+        if par is None or par.data == 1:
+            return fn(x)
+        b = x.shape[0]
+        pad = (-b) % par.data
+        if pad:
+            x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+        rows = x.shape[0] // par.data
+        out = fn(x[par.data_rank * rows:(par.data_rank + 1) * rows])
+        return _gather_rows(out, rows, b, par.data_group)
 
     def forward(self, *args, **kwargs):
         """Alias of ``__call__`` (reference user code calls
@@ -121,6 +164,21 @@ class MAEST:
         with torch.inference_mode():
             acts = torch.sigmoid(logits.float()).mean(dim=0)
         return acts.cpu().numpy(), self.labels
+
+
+def _gather_rows(out, rows: int, b: int, group):
+    """Every tensor of ``out`` (a tensor or nested tuples of them) whose
+    leading dimension is ``rows``: all-gathered over ``group`` in rank
+    order and cut to ``b`` rows; anything else as it is."""
+    import torch.distributed as dist
+
+    if isinstance(out, (tuple, list)):
+        return type(out)(_gather_rows(o, rows, b, group) for o in out)
+    if not torch.is_tensor(out) or out.ndim == 0 or out.shape[0] != rows:
+        return out
+    parts = [torch.empty_like(out) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, out.contiguous(), group=group)
+    return torch.cat(parts)[:b]
 
 
 def get_maest(
@@ -153,15 +211,20 @@ def get_maest(
     remat_policy: str = "full",
     attention_quant: str = "none",
     attention_bwd_quant: str = "none",
+    mesh=None,
 ) -> MAEST:
     """Build a MAEST model on ``device``, optionally loading weights.
 
     Weights are initialized from ``torch.Generator().manual_seed(seed)``.
     ``pretrained=True`` reads the released checkpoint from the local cache
-    directory (``$MAEST_TPU_CACHE``, default ``~/.cache/maest_tpu``) and
-    raises ``FileNotFoundError`` when it is absent; ``checkpoint=`` loads an
-    explicit ``.ckpt``/``.pt``/``.safetensors`` file. ``device="cuda"`` on
-    a machine without a card raises; nothing moves to the CPU silently.
+    directory (``$MAEST_TPU_CACHE``, default ``~/.cache/maest_tpu``),
+    downloading it on first use like the reference (timm load_pretrained,
+    vit_helpers.py:261; ``MAEST_TPU_OFFLINE=1`` skips the attempt), and
+    raises ``FileNotFoundError`` when it cannot be had; ``checkpoint=``
+    loads an explicit ``.ckpt``/``.pt``/``.safetensors`` file, in the
+    Lightning, plain or HF AST layout. ``device="cuda"`` on a machine
+    without a card raises; nothing moves to the CPU silently. ``mesh``:
+    see the module's docstring.
     """
     cfg = build_config(
         arch, n_classes=n_classes, in_channels=in_channels,
@@ -186,14 +249,20 @@ def get_maest(
     if pretrained:
         path = cached_checkpoint_path(ARCHS[arch])
         if not path.exists():
-            raise FileNotFoundError(
-                f"pretrained weights for {arch} not found at {path}. Download "
-                f"{ARCHS[arch].url} into the cache dir (or set "
-                "MAEST_TPU_CACHE); the port does not fetch them yet.")
-        load_into(net, normalize_state(load_checkpoint_file(str(path)),
+            from .checkpoints.fetch import FetchError, fetch_checkpoint
+
+            try:
+                fetch_checkpoint(ARCHS[arch])
+            except FetchError as err:
+                raise FileNotFoundError(
+                    f"pretrained weights for {arch} not found at {path} and "
+                    f"auto-download did not succeed ({err}). Download "
+                    f"{ARCHS[arch].url} into the cache dir (or set "
+                    f"MAEST_TPU_CACHE).") from err
+        load_into(net, normalize_state(load_checkpoint_file(str(path)), cfg,
                                        swa_weights=True))
     if checkpoint:
-        load_into(net, normalize_state(load_checkpoint_file(checkpoint),
+        load_into(net, normalize_state(load_checkpoint_file(checkpoint), cfg,
                                        swa_weights=checkpoint_swa_weights),
                   discard_head=checkpoint_discard_head)
-    return MAEST(cfg, net.to(device))
+    return MAEST(cfg, net.to(device), mesh=mesh)

@@ -25,17 +25,16 @@ from __future__ import annotations
 
 import json
 import logging
-import os
 import sys
 
 from ..configs import build_experiment_config
+from ..parallel.launch import launched
 from ..train.loop import Trainer, compute_norm_stats, model_speed_test
 
 _logger = logging.getLogger("ex_maest")
 
 # the commands that run across ranks
 RANKED = ("main", "test", "extract_embeddings", "extract_logits")
-_TORCHRUN = ("WORLD_SIZE", "RANK")
 
 COMMANDS = (
     "main",
@@ -89,27 +88,17 @@ def launch(argv: list[str], n: int, device="cuda",
     0's result. A rank's failure fails the launch with that rank's
     traceback, and the other ranks are killed, as they are after
     ``timeout`` seconds."""
-    import torch
+    from ..parallel.launch import spawn_ranks
 
-    from ..parallel.launch import spawn
-
-    if str(device).startswith("cuda"):
-        cards = torch.cuda.device_count()
-        if cards == 0:
-            raise RuntimeError("device='cuda' requested but torch finds no "
-                               "CUDA device")
-        if n > cards:
-            raise ValueError(
-                f"trainer.devices={n} but {cards} cards are visible: one rank "
-                "a card (ranks that share a card: launch them with torchrun)")
-    return spawn(_rank_main, n, argv, str(device), timeout=timeout)[0]
+    return spawn_ranks(_rank_main, n, str(device), argv, str(device),
+                       what="trainer.devices", timeout=timeout)[0]
 
 
 def run(argv: list[str], device="cuda") -> dict:
     command, presets, overrides = parse_argv(argv)
     cfg = build_experiment_config(presets, overrides)
 
-    if command in RANKED and not any(os.environ.get(k) for k in _TORCHRUN):
+    if command in RANKED and not launched():
         n = _ranks_wanted(cfg, device)
         if n > 1:
             return launch(argv, n, device)

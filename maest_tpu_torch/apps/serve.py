@@ -16,17 +16,26 @@ Run:
     python -m maest_tpu_torch.apps.serve [--arch ...] [--port 8321]
         [--no-pretrained] [--checkpoint FILE] [--device cuda]
         [--dtype bfloat16|float32] [--max-wait-ms 5] [--top-k 10]
-        [--buckets 1,2,4,8,16,32]
+        [--buckets 1,2,4,8,16,32] [--host-mel] [--devices N]
+
+On a card every bucket is a CUDA graph, captured at start (``--no-warmup``:
+at its first batch). ``--devices N`` serves over N ranks (chunk data
+parallelism, ``serve.py``'s mesh): spawned here, one a card, or joined
+from a torchrun launch (ranks that share a card); rank 0 listens, the
+others follow it.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
+
+from ..parallel.launch import launched, spawn_ranks
 
 _DTYPES = ("bfloat16", "float32")
 
@@ -46,6 +55,11 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="comma-separated batch buckets")
     ap.add_argument("--no-pretrained", dest="pretrained",
                     action="store_false", default=True)
+    ap.add_argument("--devices", type=int, default=None,
+                    help="serve over an N-rank mesh (chunk-DP)")
+    ap.add_argument("--host-mel", action="store_true",
+                    help="host-side numpy mel for non-native-length clips "
+                         "(~1e-6 mel deltas from the device front-end)")
     ap.add_argument("--device", default="cuda",
                     help="torch device the model runs on")
     ap.add_argument("--no-warmup", dest="warmup", action="store_false",
@@ -61,6 +75,19 @@ def build_argparser() -> argparse.ArgumentParser:
     return ap
 
 
+def make_mesh_for(devices, device):
+    """The ``(data, model)`` mesh of ``devices`` ranks (data parallel)
+    inside a launched process group, joined here; None for one."""
+    if not devices or devices <= 1:
+        return None
+    import torch
+
+    from ..parallel.mesh import init_distributed, make_mesh
+
+    init_distributed(device)
+    return make_mesh(devices, 1, torch.device(device).type)
+
+
 def make_service(args):
     import torch
 
@@ -73,10 +100,12 @@ def make_service(args):
         device=args.device, embed_dim=args.embed_dim, depth=args.depth,
         num_heads=args.num_heads, input_t=args.input_t,
         n_classes=args.n_classes,
+        mesh=make_mesh_for(args.devices, args.device),
     )
     buckets = tuple(int(b) for b in args.buckets.split(","))
     return TagService(model, buckets=buckets, max_wait_ms=args.max_wait_ms,
-                      warmup=args.warmup, warmup_pcm16=args.warmup)
+                      warmup=args.warmup, warmup_pcm16=args.warmup,
+                      host_mel=args.host_mel)
 
 
 def make_handler(service, top_k: int):
@@ -143,9 +172,21 @@ def serve_forever(service, host: str, port: int, top_k: int):
     return server, thread
 
 
+def _rank_main(rank: int, world: int, argv) -> int:
+    return main(argv)
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_argparser().parse_args(argv)
+    if args.devices and args.devices > 1 and not launched():
+        spawn_ranks(_rank_main, args.devices, args.device, argv,
+                    what="--devices")
+        return 0
     service = make_service(args)
+    if service.follower:
+        service.follow()
+        return 0
     server, thread = serve_forever(service, args.host, args.port, args.top_k)
     print(f"maest-serve-torch: listening on http://{args.host}:"
           f"{server.server_port} (arch={args.arch}, device={args.device}, "

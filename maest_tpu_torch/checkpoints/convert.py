@@ -6,8 +6,8 @@
 * ``train_state_from_jax`` — a JAX ``TrainState`` (parameters, Adam
   moments and count, SWA, accumulator) -> the port's ``TrainState``.
 * ``load_checkpoint_file`` / ``normalize_state`` / ``load_into`` — a
-  ``.ckpt``/``.pt``/``.safetensors`` file -> SWA or live weights -> the
-  module, with the JAX package's ``strict=False`` semantics: missing keys
+  ``.ckpt``/``.pt``/``.safetensors`` file (Lightning, plain or HF AST
+  layout) -> SWA or live weights -> the module, with the JAX package's ``strict=False`` semantics: missing keys
   keep their initialization, a head whose class count differs is skipped.
 
 The numpy helpers ``strip_prefix``, ``load_torch_checkpoint`` and
@@ -252,14 +252,18 @@ def load_checkpoint_file(path: str) -> dict[str, np.ndarray]:
     return load_torch_checkpoint(str(path))
 
 
-def normalize_state(state: Mapping[str, object], *, swa_weights: bool
-                    ) -> dict[str, np.ndarray]:
-    """Lightning/plain MAEST state dict -> MAEST key layout (SWA weights
-    shadow the live ones when ``swa_weights``)."""
+def normalize_state(state: Mapping[str, object], cfg: MAESTConfig, *,
+                    swa_weights: bool) -> dict[str, np.ndarray]:
+    """A raw state dict -> MAEST key layout: Lightning checkpoints
+    (``net.``/``net_swa.`` prefixes; SWA weights shadow the live ones when
+    ``swa_weights``), plain MAEST state dicts, and HF AST exports (the
+    ``mtg-upf/discogs-maest-*`` hub layout, told by their key prefix and
+    inverted by ``packaging.hf_ast.from_hf_ast_state`` at ``cfg``'s
+    frequency grid)."""
     if any(str(k).startswith("audio_spectrogram_transformer.") for k in state):
-        raise NotImplementedError(
-            "HF AST-layout checkpoints are not ported yet (ROADMAP queue 1, "
-            "checkpoints: from_hf_ast_state)")
+        from ..packaging.hf_ast import from_hf_ast_state
+
+        return from_hf_ast_state(state, cfg)
     return strip_prefix(state, swa_weights=swa_weights)
 
 

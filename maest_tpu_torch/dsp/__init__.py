@@ -10,6 +10,7 @@ from .mel import (
     WIN_LENGTH,
     frame_waveforms,
     log_mel_spectrogram,
+    log_mel_spectrogram_np,
     num_frames,
 )
 
@@ -26,6 +27,7 @@ __all__ = [
     "frame_waveforms",
     "hann_window",
     "log_mel_spectrogram",
+    "log_mel_spectrogram_np",
     "mel_filterbank",
     "num_frames",
 ]

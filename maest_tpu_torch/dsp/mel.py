@@ -16,10 +16,12 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..ops.mel_kernel import fused_logmel_from_frames
+from .filterbank import hann_window, mel_filterbank
 
 SAMPLE_RATE = 16000
 N_FFT = 512
@@ -86,3 +88,28 @@ def log_mel_spectrogram(waveform: torch.Tensor, cfg: MelConfig = MelConfig(),
         norm_std=cfg.norm_std, normalize=normalize)
     logmel = logmel.reshape(b, t, cfg.n_mels).transpose(1, 2)
     return logmel[0] if waveform.ndim == 1 else logmel
+
+
+def log_mel_spectrogram_np(waveform: np.ndarray, cfg: MelConfig = MelConfig(),
+                           *, normalize: bool = True) -> np.ndarray:
+    """Pure-numpy log-mel, ``(n,)`` -> ``(n_mels, T)`` or ``(B, n)`` ->
+    ``(B, n_mels, T)`` float32 (port of ``maest_tpu/dsp/mel.py``'s)."""
+    waveform = np.asarray(waveform, dtype=np.float64)
+    if waveform.ndim == 2:
+        return np.stack([log_mel_spectrogram_np(w, cfg, normalize=normalize)
+                         for w in waveform])
+    pad = cfg.n_fft // 2
+    padded = np.pad(waveform, (pad, pad), mode="reflect")
+    frames_total = 1 + waveform.shape[0] // cfg.hop_length
+    window = hann_window(cfg.win_length).astype(np.float64)
+    spec = np.empty((frames_total, cfg.n_fft // 2 + 1))
+    for t in range(frames_total):
+        seg = padded[t * cfg.hop_length: t * cfg.hop_length + cfg.n_fft]
+        spec[t] = np.abs(np.fft.rfft(seg * window)) ** 2
+    fb = mel_filterbank(cfg.n_fft // 2 + 1, cfg.n_mels,
+                        cfg.sample_rate).astype(np.float64)
+    mel = spec @ fb
+    logmel = np.log10(1.0 + mel * cfg.compression_scale)
+    if normalize:
+        logmel = (logmel - cfg.norm_mean) / (cfg.norm_std * 2.0)
+    return logmel.T.astype(np.float32)

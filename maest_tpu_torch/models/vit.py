@@ -439,6 +439,7 @@ class MAESTNet(nn.Module):
         # (lo, hi): the blocks of a pipeline stage this net holds
         # (``parallel.pipeline.cut_to_stage``); None: every block
         self.stage: Optional[tuple] = None
+        self._static_indices: dict = {}
         self.reset_parameters(generator)
         self.to(device=device, dtype=param_dtype or dtype)
 
@@ -574,6 +575,9 @@ class MAESTNet(nn.Module):
         def keep(x, dim, idx):
             return x.index_select(dim, torch.as_tensor(idx, device=x.device))
 
+        def keep_static(x, dim, idx):
+            return x.index_select(dim, self._static_index(idx, x.device))
+
         if train and draws.keep_t is not None:
             x = keep(x, 3, draws.keep_t)
         if train and draws.keep_f is not None:
@@ -581,11 +585,11 @@ class MAESTNet(nn.Module):
         kept = _static_keep_indices(
             x.shape[2], cfg.s_patchout_f_indices, cfg.s_patchout_f_interleaved)
         if kept is not None:
-            x = keep(x, 2, kept)
+            x = keep_static(x, 2, kept)
         kept = _static_keep_indices(
             x.shape[3], cfg.s_patchout_t_indices, cfg.s_patchout_t_interleaved)
         if kept is not None:
-            x = keep(x, 3, kept)
+            x = keep_static(x, 3, kept)
 
         # tokens flatten frequency-major, as the reference does
         x = x.flatten(2).transpose(1, 2)  # (B, N, E)
@@ -646,6 +650,16 @@ class MAESTNet(nn.Module):
         else:
             x = run(transformer_block, x)
         return None, self._block_embedding(full(x))
+
+    def _static_index(self, idx: list, device) -> torch.Tensor:
+        """A static patchout index set as a tensor resident on ``device``,
+        made at its first use there: a forward captured in a CUDA graph
+        copies nothing from the host."""
+        key = (tuple(idx), torch.device(device))
+        t = self._static_indices.get(key)
+        if t is None:
+            t = self._static_indices[key] = torch.tensor(idx, device=device)
+        return t
 
     def block_seeds(self, draws: Optional[TrainDraws]) -> list:
         """Each block's dropout / drop_path seed of a train forward's

@@ -7,6 +7,8 @@ torchrun's variables (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 order. A rank that raises, or dies on a signal, fails the launch with its
 traceback; the other ranks are then killed, as they all are at
 ``timeout``. ``init_distributed`` in the target joins the group.
+``spawn_ranks`` does so for an entry point's ``N`` ranks, one a card;
+``launched`` tells a rank of a launch (torchrun's or this one's).
 """
 
 from __future__ import annotations
@@ -17,6 +19,14 @@ import socket
 import time
 import traceback
 from typing import Callable, Optional
+
+
+_TORCHRUN = ("WORLD_SIZE", "RANK")
+
+
+def launched() -> bool:
+    """Whether this process is a rank of a launch (torchrun's variables)."""
+    return any(os.environ.get(k) for k in _TORCHRUN)
 
 
 def free_port() -> int:
@@ -101,3 +111,24 @@ def spawn(target: Callable, world: int, *args,
     if failure is not None:
         raise RuntimeError(f"launch of {world} ranks: {failure}")
     return [out[r] for r in range(world)]
+
+
+def spawn_ranks(target: Callable, n: int, device, *args,
+                what: str = "devices", timeout: Optional[float] = None
+                ) -> list:
+    """``spawn`` of ``n`` ranks of ``target`` on this host, one a visible
+    card on CUDA (on the CPU ``n`` processes over gloo). ``what`` names
+    the option that asked for ``n`` in the refusal of more ranks than
+    cards (ranks that share a card are launched with torchrun)."""
+    if str(device).startswith("cuda"):
+        import torch
+
+        cards = torch.cuda.device_count()
+        if cards == 0:
+            raise RuntimeError("device='cuda' requested but torch finds no "
+                               "CUDA device")
+        if n > cards:
+            raise ValueError(
+                f"{what}={n} but {cards} cards are visible: one rank a card "
+                "(ranks that share a card: launch them with torchrun)")
+    return spawn(target, n, *args, timeout=timeout)

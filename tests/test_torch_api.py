@@ -115,7 +115,9 @@ def test_errors(models):
 
 
 def test_pretrained_needs_cached_file(tmp_path, monkeypatch):
+    # offline: a missing release is fetched on first use otherwise
     monkeypatch.setenv("MAEST_TPU_CACHE", str(tmp_path))
+    monkeypatch.setenv("MAEST_TPU_OFFLINE", "1")
     with pytest.raises(FileNotFoundError, match="discogs-maest-30s-pw-129e"):
         get_maest(ARCH, pretrained=True, device="cpu", **TINY)
 

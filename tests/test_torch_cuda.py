@@ -2039,3 +2039,141 @@ def test_tiny_trainer_epoch_on_the_card(cuda_device, tmp_path):
                if m["name"].startswith("val_loss"))
     record = json.loads((trainer.run_dir / "run.json").read_text())
     assert record["status"] == "COMPLETED"
+
+
+# --- serving on CUDA graphs: one graph per bucket and family ---------------
+# A replay runs the kernels the eager call runs, on the same buffers: held
+# to the eager run within the tier's bound (bf16 1e-2, fp32 2e-5; zero is
+# expected). The host counters tick once at capture, never on a replay; the
+# profiler counts the kernels a replay runs by name.
+
+SERVE_KERNELS = {"K1": r"logmel_fft_kernel", "K1_control": r"logmel_kernel",
+                 "K2": r"attn_fwd_wgmma_kernel",
+                 "K2_control": r"attn_fwd_bf16_kernel",
+                 "K2_fp32": r"attn_fwd_tf32_kernel",
+                 "K2_fp32_control": r"attn_fwd_fp32_kernel"}
+SERVE_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
+
+
+def _served_model(dtype):
+    model = get_maest(device="cuda", dtype=dtype, **TINY)
+    with torch.no_grad():
+        model.net.head[1].weight.copy_(_rand((16, 128), 1, 0.2))
+    return model
+
+
+def _elements(progs, n, seed):
+    x = _rand((n, *progs.elem_shape), seed, 0.3).numpy()
+    if progs.pcm16:
+        return (np.clip(x, -1, 1) * 32767).astype(np.int16)
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("family", ["chunk", "wave", "pcm16"])
+def test_graph_replay_matches_eager(cuda_device, family, dtype):
+    from maest_tpu_torch.serve import BucketPrograms, pick_bucket
+
+    model = _served_model(dtype)
+    progs = BucketPrograms(model, (1, 2, 4), fused_wave=family != "chunk",
+                           pcm16=family == "pcm16")
+    assert progs.graphs
+    progs.warmup()
+    assert sorted(progs._graphs) == [1, 2, 4]
+    for b, counts in progs.captured.items():
+        assert counts["flash_attention"] == 2, (b, counts)
+        assert counts["fused_logmel_from_frames"] == (family != "chunk")
+        assert counts["attention_fwd_mma"] == 0
+        assert counts["attention_fwd_fp32_fma"] == 0
+        assert counts["fused_logmel_from_frames_fma"] == 0
+    before = flash_attention.launches
+    for n in (1, 2, 3, 4):
+        batch = _elements(progs, n, 10 + n)
+        got = progs.run(batch)
+        bucket = pick_bucket(n, progs.buckets)
+        padded = np.concatenate([batch, np.zeros(
+            (bucket - n, *progs.elem_shape), batch.dtype)])
+        want = progs.eager(padded)[:n]
+        assert got.shape == (n, 16) and np.isfinite(got).all()
+        assert np.abs(got - want).max() <= SERVE_TOL[dtype]
+    assert progs.replays == {1: 1, 2: 1, 4: 2}
+    # the eager calls tick the counter; the replays did not
+    assert flash_attention.launches == before + 2 * 4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_graph_replay_runs_k1_and_k2(cuda_device, dtype):
+    """A replayed wave batch runs K1 once and K2 once a block (the tf32
+    kernel in fp32), and no control, by the profiler's kernel names."""
+    from maest_tpu_torch.serve import BucketPrograms
+    from maest_tpu_torch.utils.profiling import kernel_launches
+
+    progs = BucketPrograms(_served_model(dtype), (2,), fused_wave=True)
+    progs.warmup()
+    batch = _elements(progs, 2, 20)
+    seen = kernel_launches(lambda: progs.run(batch), SERVE_KERNELS)
+    k2 = "K2" if dtype == torch.bfloat16 else "K2_fp32"
+    want = {k: 0 for k in SERVE_KERNELS}
+    want.update(K1=1, **{k2: 2})
+    assert {k: seen[k] for k in SERVE_KERNELS} == want, seen
+    assert progs.launches()["flash_attention"] == 2 * progs.replays[2]
+
+
+def test_service_captures_on_its_dispatchers(cuda_device):
+    """No warmup: each family captures a bucket at its first batch, on its
+    own dispatcher thread, while the others run; every answer against
+    ``predict_labels``."""
+    import threading
+
+    model = _served_model(torch.bfloat16)
+    svc = TagService(model, buckets=(1, 2, 4), max_wait_ms=2.0)
+    try:
+        native = svc.wave_programs.native_len
+        reqs = [_rand(native, s, 0.3).numpy() for s in (30, 31, 32)]
+        reqs += [(np.clip(r, -1, 1) * 32767).astype(np.int16)
+                 for r in reqs[:2]]
+        reqs += [_rand(int(2.6 * 16000), 33, 0.3).numpy(),
+                 _rand(8000, 34, 0.3).numpy()]
+        outs = [None] * len(reqs)
+
+        def worker(i):
+            outs[i] = svc.tag(reqs[i], timeout=300)[0]
+
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        assert not any(t.is_alive() for t in threads)
+        for got, x in zip(outs, reqs):
+            np.testing.assert_allclose(got, model.predict_labels(x)[0],
+                                       atol=1e-2)
+        for progs in (svc.wave_programs, svc.pcm16_programs, svc.programs):
+            assert progs._graphs and sum(progs.replays.values()) >= 1
+    finally:
+        svc.close()
+
+
+def test_failed_capture_raises(cuda_device, monkeypatch):
+    """A forward that cannot be captured (a device synchronise inside)
+    raises; nothing falls back to an eager run, nothing is kept."""
+    from maest_tpu_torch.serve import BucketPrograms
+
+    progs = BucketPrograms(_served_model(torch.bfloat16), (1,))
+    run = progs._activations
+
+    def unsafe(x):
+        if torch.cuda.is_current_stream_capturing():
+            torch.cuda.synchronize()
+        return run(x)
+
+    monkeypatch.setattr(progs, "_activations", unsafe)
+    with pytest.raises(RuntimeError):
+        progs.run(_elements(progs, 1, 40))
+    assert progs._graphs == {} and progs.replays == {}
+    torch.cuda.synchronize()  # the card goes on
+    monkeypatch.setattr(progs, "_activations", run)
+    assert progs.run(_elements(progs, 1, 41)).shape == (1, 16)

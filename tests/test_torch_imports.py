@@ -43,7 +43,10 @@ def test_import_pulls_in_no_jax():
             "maest_tpu_torch.parallel.mesh, "
             "maest_tpu_torch.parallel.launch, "
             "maest_tpu_torch.parallel.pipeline, "
-            "maest_tpu_torch.parallel.tensor_parallel; "
+            "maest_tpu_torch.parallel.tensor_parallel, "
+            "maest_tpu_torch.apps.tag, maest_tpu_torch.apps.extract_mel, "
+            "maest_tpu_torch.checkpoints.fetch, "
+            "maest_tpu_torch.packaging.hf_ast; "
             "print(sorted(m for m in ('jax', 'jaxlib', 'flax', 'optax', "
             "'orbax', 'sklearn', 'tensorboardX') if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -256,7 +259,8 @@ def test_port_runs_without_the_jax_package(tmp_path):
     """The port and chip_smoke.py name no module of the JAX package or of
     scripts/, and run from a directory that holds neither: every module
     imports, a tiny model tags a waveform and takes one train step (with
-    the 8-bit modes on), and every rig runs (gh<G> and int8 too, the
+    the 8-bit modes on), the tagging CLI tags a wav from an HF AST layout
+    checkpoint, and every rig runs (gh<G> and int8 too, the
     backward rig's 8-bit kinds; the product rigs' fp8_mlp at its full
     shapes only on the card); ``ex_maest main`` trains a tiny model for
     two epochs with sklearn, orbax and tensorboardX made unimportable."""
@@ -353,6 +357,16 @@ assert native.available()
 (run,) = pathlib.Path("runs").iterdir()
 assert json.loads((run / "run.json").read_text())["status"] == "COMPLETED"
 assert not (run / "tb").exists()  # no tensorboardX: the null writer ran
+from scipy.io import wavfile
+from maest_tpu_torch.apps import tag
+from maest_tpu_torch.packaging import to_hf_ast_state
+wavfile.write("clip.wav", 44100, (rng.standard_normal(88200) * 0.2).astype("f4"))
+sd = {k: v.numpy() for k, v in m.net.state_dict().items()}
+torch.save({k: torch.from_numpy(v) for k, v in to_hf_ast_state(sd).items()},
+           "ast.pt")
+assert tag.main(["clip.wav", "--checkpoint", "ast.pt", "--device", "cpu",
+                 "--json", "--embed-dim", "128", "--depth", "2",
+                 "--num-heads", "2", "--input-t", "62"]) == 0
 assert not any(n.startswith("maest_tpu.") or n == "maest_tpu"
                for n in sys.modules)
 print("ok")

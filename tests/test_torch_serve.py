@@ -1,7 +1,15 @@
 """Serving stack of the PyTorch port on the CPU: bucket programs, dynamic
 cross-request batching, the pcm16 and fused-wave programs and the HTTP
 front. Served activations must equal the port's own ``predict_labels``
-(rtol 1e-5, atol 1e-6: the same fp32 math, batched differently)."""
+(rtol 1e-5, atol 1e-6: the same fp32 math, batched differently).
+
+The mesh: ``MAEST`` over gloo ranks on the CPU (dp 2, tp 2 in one spawn of
+2 processes, dp 2 x tp 2 in one of 4) against the JAX package's
+single-device ``MAEST`` on the same checkpoint within 1e-4 (a wave of 3
+chunks, padded to 4 rows over 2 data ranks; a rank-3 mel batch; a block
+tap), and a mesh ``TagService`` at dp 2 against one process's
+``predict_labels``. ``host_mel`` against the JAX package's
+``TagService(host_mel=True)`` within 1e-5."""
 
 import json
 import threading
@@ -12,6 +20,9 @@ import numpy as np
 import pytest
 import torch
 
+from maest_tpu.api import get_maest as jax_get_maest
+from maest_tpu.models.registry import build_config
+from maest_tpu.serve import TagService as JaxTagService
 from maest_tpu_torch.api import get_maest
 from maest_tpu_torch.apps.serve import build_argparser, make_service, serve_forever
 from maest_tpu_torch.serve import (
@@ -21,8 +32,15 @@ from maest_tpu_torch.serve import (
     pick_bucket,
 )
 
+from torch_oracle import make_state
+
+import torch_parallel_worker as W
+
 SR = 16000
 TOL = dict(rtol=1e-5, atol=1e-6)
+GEOM = dict(embed_dim=64, depth=2, num_heads=4, input_t=62, n_classes=16)
+ARCH = "discogs-maest-30s-pw-129e"
+JAX_ATOL = 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -226,4 +244,145 @@ def test_http_front(model):
     finally:
         server.shutdown()
         server.server_close()
+        svc.close()
+
+
+@pytest.fixture(scope="module")
+def ckpt(tmp_path_factory):
+    cfg = build_config(ARCH, **GEOM)
+    state = make_state(np.random.default_rng(21), cfg, scale=0.1)
+    path = tmp_path_factory.mktemp("mesh") / "tiny.pt"
+    torch.save(state, path)
+    return str(path)
+
+
+def _mesh_inputs():
+    native = 62 * 256
+    reqs = [_wave(native / SR, seed=30), _pcm(native, seed=31),
+            _wave(3.3, seed=32), _wave(0.5, seed=33)]
+    return {"wave": _wave(3 * native / SR + 0.1, seed=34),
+            "mel3": np.random.default_rng(35).standard_normal(
+                (3, 96, 62)).astype(np.float32),
+            "requests": reqs}
+
+
+@pytest.fixture(scope="module")
+def jax_ref(ckpt):
+    m = jax_get_maest(ARCH, pretrained=False, checkpoint=ckpt, **GEOM)
+    x = _mesh_inputs()
+    return {"wave": [np.asarray(t) for t in m(x["wave"])],
+            "mel3": [np.asarray(t) for t in m(x["mel3"])],
+            "tap": np.asarray(m(x["wave"], transformer_block=1)[1]),
+            "acts": m.predict_labels(x["wave"])[0]}
+
+
+@pytest.fixture(scope="module")
+def mesh2(ckpt):
+    """One spawn of 2 gloo ranks: dp 2 and tp 2, the mesh service, the
+    server's command line."""
+    from maest_tpu_torch.parallel.launch import spawn
+
+    return spawn(W.mesh_inference, 2, ckpt, GEOM, _mesh_inputs(), (1, 2),
+                 True, timeout=300)
+
+
+def _held_to_jax(got, ref):
+    assert got["wave"][0].shape == (3, 16)  # 3 chunks, the 4th row cut
+    for k in ("wave", "mel3"):
+        for a, b in zip(got[k], ref[k]):
+            assert a.shape == b.shape
+            np.testing.assert_allclose(a, b, atol=JAX_ATOL)
+    np.testing.assert_allclose(got["tap"], ref["tap"], atol=JAX_ATOL)
+    np.testing.assert_allclose(got["acts"], ref["acts"], atol=JAX_ATOL)
+
+
+@pytest.mark.parametrize("model_parallel", [1, 2], ids=["dp2", "tp2"])
+def test_mesh_maest_matches_jax(mesh2, jax_ref, model_parallel):
+    for rank in mesh2:  # every rank returns the whole result
+        _held_to_jax(rank[model_parallel], jax_ref)
+    # tp 2: each rank holds 2 of the 4 heads' qkv rows
+    assert mesh2[0][model_parallel]["heads"] == 3 * 64 // model_parallel
+
+
+def test_mesh_dp_tp_4_matches_jax(ckpt, jax_ref):
+    from maest_tpu_torch.parallel.launch import spawn
+
+    ranks = spawn(W.mesh_inference, 4, ckpt, GEOM, _mesh_inputs(), (2,),
+                  False, timeout=300)
+    for rank in ranks:
+        _held_to_jax(rank[2], jax_ref)
+
+
+def test_mesh_service_matches_predict_labels(mesh2, ckpt):
+    """Rank 0 serves 4 concurrent requests (native float, native pcm16, 3
+    chunks, a short clip) at dp 2; rank 1 follows every batch."""
+    one = get_maest(ARCH, pretrained=False, checkpoint=ckpt, device="cpu",
+                    **GEOM)
+    reqs = _mesh_inputs()["requests"]
+    lead, follower = mesh2
+    assert lead["buckets"] == (2, 4)  # rounded up to the data ranks
+    assert follower["followed"] >= 3 and "served" not in follower
+    assert lead["stats"]["requests"] == len(reqs)
+    for got, r in zip(lead["served"], reqs):
+        np.testing.assert_allclose(got, one.predict_labels(r)[0], **TOL)
+    # the command line: --host-mel --devices 2, the short clip
+    assert follower["cli_followed"] >= 1
+    np.testing.assert_allclose(lead["cli"], one.predict_labels(reqs[-1])[0],
+                               atol=1e-5)
+
+
+def test_host_mel_matches_jax(ckpt):
+    """host_mel: the numpy front-end (the JAX package's arithmetic) for
+    clips of other than native length, a long one and a short one."""
+    ours = get_maest(ARCH, pretrained=False, checkpoint=ckpt, device="cpu",
+                     **GEOM)
+    ref = jax_get_maest(ARCH, pretrained=False, checkpoint=ckpt, **GEOM)
+    svc = TagService(ours, buckets=(1, 2, 4), host_mel=True)
+    jsvc = JaxTagService(ref, buckets=(1, 2, 4), host_mel=True)
+    try:
+        for w in (_wave(3.3, seed=40), _wave(0.5, seed=41)):
+            got = svc.tag(w)[0]
+            np.testing.assert_allclose(got, jsvc.tag(w)[0], atol=1e-5)
+            np.testing.assert_allclose(got, ours.predict_labels(w)[0],
+                                       atol=1e-5)
+    finally:
+        svc.close()
+        jsvc.close()
+
+
+def test_stats_reset_window_clears_only_latency(model):
+    svc = TagService(model, buckets=(1, 2), max_wait_ms=0.0)
+    try:
+        svc.tag(_wave(62 * 256 / SR, seed=42))
+        svc.tag(_wave(2.3, seed=43))
+        before = svc.stats()
+        assert before["latency_ms_p50"] > 0
+        svc.stats_reset_window()
+        after = svc.stats()
+        assert after["latency_ms_p50"] == after["latency_ms_p99"] == 0.0
+        assert {k: v for k, v in after.items() if "latency" not in k} == {
+            k: v for k, v in before.items() if "latency" not in k}
+        assert after["requests"] == 2
+    finally:
+        svc.close()
+
+
+def test_cli_host_mel_and_devices_parse():
+    args = build_argparser().parse_args(["--host-mel", "--devices", "2"])
+    assert args.host_mel and args.devices == 2
+    args = build_argparser().parse_args([])
+    assert not args.host_mel and args.devices is None
+    args = build_argparser().parse_args([
+        "--no-pretrained", "--device", "cpu", "--dtype", "float32",
+        "--embed-dim", "64", "--depth", "1", "--num-heads", "4",
+        "--input-t", "62", "--n-classes", "16", "--buckets", "1,2",
+        "--host-mel", "--devices", "1", "--no-warmup"])
+    svc = make_service(args)
+    try:
+        assert svc.host_mel and svc.model.mesh is None and not svc.follower
+        wave = _wave(2.1, seed=44)
+        np.testing.assert_allclose(svc.tag(wave)[0],
+                                   svc.model.predict_labels(wave)[0],
+                                   atol=1e-5)
+    finally:
         svc.close()

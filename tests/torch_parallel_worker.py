@@ -262,3 +262,75 @@ def recover_before_the_trainer(rank, world):
     res = fit_with_recovery({"trainer": {}}, trainer_factory=factory,
                             max_restarts=1, backoff_s=0.0, device="cpu")
     return res, len(made)
+
+
+# -- inference and serving over a mesh ----------------------------------------
+
+def mesh_inference(rank, world, ckpt, geom, inputs, layouts, serve):
+    """``get_maest`` on the checkpoint ``ckpt`` at the tiny ``geom`` with a
+    ``(data, model)`` mesh of each model-parallel size of ``layouts``, the
+    ``inputs`` through it: the forward of a wave and of a rank-3 mel batch,
+    a block tap and ``predict_labels``. With ``serve``, a ``TagService`` on
+    the first layout's model (rank 0 tags ``inputs["requests"]`` from 4
+    threads at once, the other ranks follow), then the server's command
+    line with ``--host-mel --devices`` (rank 0 tags the short request).
+    Every rank returns what it got."""
+    import threading
+
+    from maest_tpu_torch.api import get_maest
+    from maest_tpu_torch.apps.serve import build_argparser, make_service
+    from maest_tpu_torch.parallel import mesh as pmesh
+    from maest_tpu_torch.serve import TagService
+
+    torch.set_num_threads(1)
+    pmesh.init_distributed("cpu")
+    arch = "discogs-maest-30s-pw-129e"
+    out = {}
+    for mp in layouts:
+        mesh = pmesh.make_mesh(world, mp, "cpu")
+        model = get_maest(arch, pretrained=False, checkpoint=ckpt,
+                          device="cpu", mesh=mesh, **geom)
+        out[mp] = {
+            "wave": [t.numpy() for t in model(inputs["wave"])],
+            "mel3": [t.numpy() for t in model(inputs["mel3"])],
+            "tap": model(inputs["wave"], transformer_block=1)[1].numpy(),
+            "acts": model.predict_labels(inputs["wave"])[0],
+            "heads": model.net.blocks[0].attn.qkv.weight.shape[0],
+        }
+        if serve and mp == layouts[0]:
+            svc = TagService(model, buckets=(1, 2, 4), max_wait_ms=20.0)
+            if svc.follower:
+                out["followed"] = svc.follow()
+            else:
+                reqs = inputs["requests"]
+                got = [None] * len(reqs)
+
+                def worker(i):
+                    got[i] = svc.tag(reqs[i])[0]
+
+                threads = [threading.Thread(target=worker, args=(i,))
+                           for i in range(len(reqs))]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=120)
+                svc.close()
+                out["served"] = got
+                out["buckets"] = svc.wave_programs.buckets
+                out["stats"] = svc.stats()
+    if serve:
+        args = build_argparser().parse_args([
+            "--no-pretrained", "--checkpoint", ckpt, "--device", "cpu",
+            "--dtype", "float32", "--embed-dim", str(geom["embed_dim"]),
+            "--depth", str(geom["depth"]), "--num-heads",
+            str(geom["num_heads"]), "--input-t", str(geom["input_t"]),
+            "--n-classes", str(geom["n_classes"]), "--buckets", "1,2",
+            "--host-mel", "--devices", str(world)])
+        svc = make_service(args)
+        assert svc.host_mel and svc.model.mesh is not None
+        if svc.follower:
+            out["cli_followed"] = svc.follow()
+        else:
+            out["cli"] = svc.tag(inputs["requests"][-1])[0]
+            svc.close()
+    return out
