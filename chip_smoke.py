@@ -157,9 +157,10 @@ eval shapes. Last the tagging entry points (40): the bf16 TagService on
 CUDA graphs (one a bucket and family, captured at warmup), every
 bucket's replay against its eager run and an fp32 model's wave buckets
 1 and 32, phase 7's four requests through graphs against
-``predict_labels``, the launches a replayed batch (host counters at
-capture; torch.profiler's kernel names over a replay: K1 1, K2 12, no
-control), a wave batch's time by bucket and latency under load
+``predict_labels``, the launches a replayed batch (torch.profiler's
+kernel names over one replay of each bucket: K1 1, K2 12, no control), a
+wave batch's time by bucket, a bucket-32 wave batch's copy in, replay
+and copy out by CUDA events, and latency under load
 (``scripts/serve_bench.py``'s shape) with and without graphs in
 alternating rounds; ``python -m maest_tpu_torch.apps.tag`` in processes
 of its own on an HF AST layout checkpoint against ``predict_labels`` and
@@ -5931,6 +5932,73 @@ def _p40_graphs_vs_eager(progs, seed: int) -> float:
     return worst
 
 
+def _p40_replay_kernels(progs, seed: int, **want) -> dict:
+    """{bucket: {label: launches}} of one replay of each bucket of
+    ``progs`` by torch.profiler's kernel names (P40_KERNELS; the host
+    counters tick at capture only), the largest count of its traces; each must be ``want``, the other labels 0. ``"short"``: the
+    traces that lost a record."""
+    from maest_tpu_torch.utils.profiling import kernel_launches
+
+    out = {}
+    for b in progs.buckets:
+        batch = _p40_elements(progs, b, seed + b)
+        seen = kernel_launches(lambda: progs.run(batch), P40_KERNELS)
+        out[b] = {k: seen[k] for k in P40_KERNELS}
+        out[b]["short"] = seen["short"]
+        check({k: seen[k] for k in P40_KERNELS}
+              == {k: want.get(k, 0) for k in P40_KERNELS},
+              f"{progs.kind} bucket {b} replay's kernels {seen}")
+    return out
+
+
+def _p40_serve_launches(families, traced: dict, label: str) -> dict:
+    """A kernel's launches under graph replay in ``families``: per_batch,
+    the profiler's count over one replay (the same in every bucket, as
+    ``_p40_replay_kernels`` checked), the batches replayed, and their
+    total, each bucket's count times its replays."""
+    per = {traced[p.kind][b][label] for p in families for b in p.buckets}
+    check(len(per) == 1, f"{label} launches differ between buckets {per}")
+    return {"per_batch": per.pop(),
+            "replays": sum(sum(p.replays.values()) for p in families),
+            "total": sum(traced[p.kind][b][label] * n for p in families
+                         for b, n in p.replays.items())}
+
+
+def _p40_split(progs, batch: np.ndarray) -> dict:
+    """A full bucket's batch through its graph as ``run`` takes it, step
+    by step: ms of the copy in (pageable, as ``run`` copies it, and from
+    pinned memory), the replay and the copy out, by CUDA events on the
+    current stream, and the host's clock over the three; medians of
+    P40_BUCKET_ROUNDS rounds."""
+    dev = progs.model.device
+    g = progs._graphs[batch.shape[0]]
+    src = torch.from_numpy(batch)
+    pinned = src.pin_memory()
+    names = ("h2d", "replay", "d2h", "h2d_pinned", "host")
+    runs = {k: [] for k in names}
+    with progs._lock, torch.inference_mode():
+        for _ in range(P40_BUCKET_ROUNDS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            ev[0].record()
+            g.static_in.copy_(src)
+            ev[1].record()
+            g.graph.replay()
+            ev[2].record()
+            g.static_out.cpu()
+            ev[3].record()
+            runs["host"].append((time.perf_counter() - t0) * 1e3)
+            g.static_in.copy_(pinned, non_blocking=True)
+            ev[4].record()
+            ev[4].synchronize()
+            for k, (a, z) in zip(names, ((0, 1), (1, 2), (2, 3), (3, 4))):
+                runs[k].append(ev[a].elapsed_time(ev[z]))
+    out = {k: float(np.median(v)) for k, v in runs.items()}
+    out["mb"] = src.numel() * src.element_size() / 1e6
+    return out
+
+
 def _p40_load(svc, waves: list, pcm: list) -> dict:
     """scripts/serve_bench.py's shape on ``svc``: P40_SEQUENTIAL native
     float32 requests in turn, then P40_CLIENTS threads x P40_PER_CLIENT in
@@ -6057,10 +6125,11 @@ def phase_tagging(dev, gpu, sd):
     warmup (6 buckets x the mel-chunk, wave and pcm16 families): each
     bucket's replay against the eager run (SERVE_TOL), an fp32 model's wave
     buckets 1 and 32 (P40_F32_TOL); phase 7's four requests served through
-    graphs against ``predict_labels``; the counted launches of every
-    captured graph (K1 1 a wave or pcm16 batch, K2 12, the controls 0) and
-    torch.profiler's kernel names over one replay of each family; latency
-    under load (scripts/serve_bench.py's shape) with graphs and eagerly in
+    graphs against ``predict_labels``; the launches of one replay of every
+    bucket by torch.profiler's kernel names (K1 1 a wave or pcm16 batch, K2
+    12, the controls 0); a bucket-32 wave batch's copy in (pageable, and
+    from pinned memory for comparison), replay and copy out by CUDA events;
+    latency under load (scripts/serve_bench.py's shape) with graphs and eagerly in
     alternating rounds. ``python -m maest_tpu_torch.apps.tag`` in processes
     of their own on 3 wavs (30 s at 16 kHz, 95 s and 10 s at 44.1 kHz)
     from an HF AST layout checkpoint (``to_hf_ast_state``): ``--json``
@@ -6076,7 +6145,7 @@ def phase_tagging(dev, gpu, sd):
     from maest_tpu_torch.ops.attention import flash_attention
     from maest_tpu_torch.packaging import to_hf_ast_state
     from maest_tpu_torch.parallel.launch import spawn
-    from maest_tpu_torch.utils.profiling import kernel_launches
+    from maest_tpu_torch.utils.profiling import KERNEL_TRACES
     from scipy.io import wavfile
 
     t_phase = time.perf_counter()
@@ -6097,36 +6166,35 @@ def phase_tagging(dev, gpu, sd):
         families = (svc.wave_programs, svc.pcm16_programs, svc.programs)
         gaps = {p.kind: _p40_graphs_vs_eager(p, 400) for p in families}
         check(max(gaps.values()) <= SERVE_TOL, f"graphs vs eager {gaps}")
-        for p in families:
-            k1 = int(p.fused_wave)
-            for b, c in p.captured.items():
-                check(c["flash_attention"] == 12
-                      and c["fused_logmel_from_frames"] == k1
-                      and all(c[k] == 0 for k in (
-                          "attention_fwd_mma", "attention_fwd_fp32_fma",
-                          "fused_logmel_from_frames_fma", "attention_fwd_int8",
-                          "attention_fwd_fp8", "attention_fwd_q8_mma")),
-                      f"{p.kind} bucket {b} captured launches {c}")
-        traced = {}
-        for p in families:
-            batch = _p40_elements(p, 32, 401)
-            traced[p.kind] = kernel_launches(lambda: p.run(batch),
-                                             P40_KERNELS)
-            want = {k: 0 for k in P40_KERNELS}
-            want.update(K1=int(p.fused_wave), K2=12)
-            check({k: traced[p.kind][k] for k in P40_KERNELS} == want,
-                  f"{p.kind} replay's kernels {traced[p.kind]}")
+        traced = {p.kind: _p40_replay_kernels(p, 401, K1=int(p.fused_wave),
+                                              K2=12) for p in families}
         print(f"phase 40 graphs: {sum(len(p._graphs) for p in families)} "
               f"captured at warmup in {capture_s:.1f} s (buckets "
               f"{svc.wave_programs.buckets} x chunk, wave, pcm16); replay vs "
               f"eager max abs diff " + ", ".join(
                   f"{k} {v:.3e}" for k, v in gaps.items())
-              + f" <= {SERVE_TOL}; launches a replayed batch by the host "
-              "counters at capture: K1 1 (wave, pcm16) / 0 (chunk), K2 12, "
-              "controls 0 in every bucket; by torch.profiler over one "
-              "bucket-32 replay: " + "; ".join(
-                  f"{k} " + ", ".join(f"{n} {c}" for n, c in v.items() if c)
-                  for k, v in traced.items()) + f" [{gpu}]", flush=True)
+              + f" <= {SERVE_TOL}; launches a replayed batch by "
+              "torch.profiler's kernel names, one replay of each bucket: "
+              + "; ".join(f"{k} " + ", ".join(
+                  f"{n} {c}" for n, c in v[max(v)].items()
+                  if c and n in P40_KERNELS)
+                  + f" (the same in {len(v)} buckets)"
+                  for k, v in traced.items())
+              + f"; the largest of {KERNEL_TRACES} traces each, "
+              f"{sum(c['short'] for v in traced.values() for c in v.values())}"
+              f" of {KERNEL_TRACES * sum(map(len, traced.values()))} traces "
+              f"lost a record [{gpu}]", flush=True)
+
+        # --- a bucket-32 wave batch step by step -------------------------
+        split = _p40_split(svc.wave_programs, _p40_elements(
+            svc.wave_programs, 32, 405))
+        out["split_ms"] = split
+        print(f"phase 40 wave bucket 32 ({split['mb']:.1f} MB a batch) step "
+              f"by step, median of {P40_BUCKET_ROUNDS} rounds, CUDA events: "
+              f"copy in (pageable, as run) {split['h2d']:.3f} ms, from pinned "
+              f"memory {split['h2d_pinned']:.3f}; replay {split['replay']:.3f}"
+              f"; copy out {split['d2h']:.3f}; the host's clock over the "
+              f"three {split['host']:.3f} ms [{gpu}]", flush=True)
 
         # --- a wave batch's latency by bucket, replay against eager -----
         bucket_ms = {}
@@ -6176,14 +6244,12 @@ def phase_tagging(dev, gpu, sd):
         waves = [rng.standard_normal(CLIP).astype(np.float32) * 0.1
                  for _ in range(8)]
         pcm = [(np.clip(w, -1, 1) * 32767).astype(np.int16) for w in waves]
-        serve._GRAPHS = False
-        try:
-            eager = serve.TagService(model, max_wait_ms=5.0, warmup=True,
-                                     warmup_pcm16=True)
-        finally:
-            serve._GRAPHS = True
-        check(not any(p.graphs for p in (eager.programs, eager.wave_programs,
-                                         eager.pcm16_programs)),
+        eager = serve.TagService(model, max_wait_ms=5.0)
+        for p in (eager.wave_programs, eager.pcm16_programs, eager.programs):
+            p.graphs = False
+            p.warmup()
+        check(not any(p._graphs for p in (
+            eager.programs, eager.wave_programs, eager.pcm16_programs)),
               "the eager service captured")
         load = {"graphs": [], "eager": []}
         for order in (("graphs", "eager"), ("eager", "graphs")):
@@ -6199,17 +6265,10 @@ def phase_tagging(dev, gpu, sd):
                     f"{v['fill']:.2f}" for k, v in r.items())
                     + f" [{gpu}]", flush=True)
         out["load"] = load
-        replays = {p.kind: sum(p.replays.values()) for p in families}
-        per = {p.kind: p.launches() for p in families}
         out["serve"] = {
-            "K1": {"per_batch": 1, "replays": replays["wave"]
-                   + replays["pcm16"], "total": per["wave"][
-                       "fused_logmel_from_frames"] + per["pcm16"][
-                       "fused_logmel_from_frames"],
-                   "profiler": traced["wave"]["K1"]},
-            "K2": {"per_batch": 12, "replays": sum(replays.values()),
-                   "total": sum(v["flash_attention"] for v in per.values()),
-                   "profiler": traced["wave"]["K2"]}}
+            "K1": _p40_serve_launches(
+                [p for p in families if p.fused_wave], traced, "K1"),
+            "K2": _p40_serve_launches(families, traced, "K2")}
         svc.close()
         del svc, eager, model
         torch.cuda.empty_cache()
@@ -6220,19 +6279,16 @@ def phase_tagging(dev, gpu, sd):
         progs.warmup()
         f32 = _p40_graphs_vs_eager(progs, 402)
         check(f32 <= P40_F32_TOL, f"fp32 graphs vs eager {f32}")
-        batch = _p40_elements(progs, 32, 403)
-        seen = kernel_launches(lambda: progs.run(batch), P40_KERNELS)
-        check(seen["K2_fp32"] == 12 and seen["K1"] == 1 and not any(
-            seen[k] for k in ("K2", "K2_control", "K2_fp32_control",
-                              "K1_control")), f"fp32 replay's kernels {seen}")
-        out["serve_fp32"] = {"per_batch": 12,
-                             "replays": sum(progs.replays.values()),
-                             "total": progs.launches()["flash_attention"],
-                             "profiler": seen["K2_fp32"]}
+        f32_traced = {"wave": _p40_replay_kernels(progs, 403, K1=1,
+                                                  K2_fp32=12)}
+        out["serve_fp32"] = _p40_serve_launches([progs], f32_traced,
+                                                "K2_fp32")
+        seen = f32_traced["wave"][32]
         print(f"phase 40 fp32 graphs: wave buckets 1 and 32 replay vs eager "
-              f"max abs diff {f32:.3e} <= {P40_F32_TOL}; one bucket-32 "
-              f"replay runs K1 {seen['K1']}, the tf32 K2 {seen['K2_fp32']}, "
-              "no control", flush=True)
+              f"max abs diff {f32:.3e} <= {P40_F32_TOL}; a replay of each "
+              f"runs K1 {seen['K1']}, the tf32 K2 {seen['K2_fp32']}, no "
+              f"control ({sum(c['short'] for c in f32_traced['wave'].values())}"
+              f" of {2 * KERNEL_TRACES} traces lost a record)", flush=True)
         del progs
 
         # --- apps/tag.py on an HF AST layout checkpoint -----------------
@@ -6970,16 +7026,13 @@ def main() -> int:
             k["launches_pipeline"] = {
                 mode: [r[cli_key] for r in ranks]
                 for mode, ranks in pp["launches"].items()}
-    # the served path's launches under CUDA-graph replay (phase 40): the
-    # captured graph's launches (host counters at capture) a replayed batch,
-    # the batches replayed in the phase, their product, and torch.profiler's
-    # count of the kernel by name over one bucket-32 replay
+    # the served path's launches under CUDA-graph replay (phase 40), by
+    # torch.profiler's kernel names over one replay of each bucket
     print("kernels line: launches_serve of fused_logmel (K1), attention_fwd "
           "(K2) and attention_fwd_fp32 are phase 40's graph-backed serving: "
-          "per_batch = the captured graph's launches by the host counters at "
-          "capture, replays = the batches it replayed, total = their product, "
-          "profiler = torch.profiler's count by kernel name over one bucket-32 "
-          "replay", flush=True)
+          "per_batch = torch.profiler's count by kernel name over one replay "
+          "(the same in every bucket), replays = the batches replayed in the "
+          "phase, total = each bucket's count times its replays", flush=True)
     for k in kernels:
         key = {"fused_logmel": "K1", "attention_fwd": "K2"}.get(k["name"])
         if key:

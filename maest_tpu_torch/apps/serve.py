@@ -75,23 +75,11 @@ def build_argparser() -> argparse.ArgumentParser:
     return ap
 
 
-def make_mesh_for(devices, device):
-    """The ``(data, model)`` mesh of ``devices`` ranks (data parallel)
-    inside a launched process group, joined here; None for one."""
-    if not devices or devices <= 1:
-        return None
-    import torch
-
-    from ..parallel.mesh import init_distributed, make_mesh
-
-    init_distributed(device)
-    return make_mesh(devices, 1, torch.device(device).type)
-
-
 def make_service(args):
     import torch
 
     from ..api import get_maest
+    from ..parallel.mesh import make_mesh_for
     from ..serve import TagService
 
     model = get_maest(

@@ -70,8 +70,8 @@ def tag(args) -> list[str]:
     """Tag (or embed) ``args.audio``; returns rank 0's output lines (other
     ranks of a mesh: none). Rank 0 alone writes the embeddings."""
     from ..api import get_maest
+    from ..parallel.mesh import make_mesh_for
     from .extract_mel import load_audio
-    from .serve import make_mesh_for
 
     extra = {k: v for k, v in (
         ("embed_dim", args.embed_dim), ("depth", args.depth),

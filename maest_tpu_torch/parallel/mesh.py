@@ -107,6 +107,16 @@ def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1,
     return DeviceMesh(device_type, grid, mesh_dim_names=("data", "model"))
 
 
+def make_mesh_for(devices: Optional[int], device="cuda"):
+    """The ``(data, model)`` mesh of ``devices`` ranks (data parallel)
+    inside a launched process group, joined here; None for one (the
+    ``--devices`` of the tagging and serving CLIs)."""
+    if not devices or devices <= 1:
+        return None
+    init_distributed(device)
+    return make_mesh(devices, 1, torch.device(device).type)
+
+
 @dataclass
 class Parallel:
     """A rank's place in the mesh and the modes it trains in. The mesh is

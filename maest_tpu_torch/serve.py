@@ -47,33 +47,9 @@ from .dsp import HOP_LENGTH, log_mel_spectrogram, log_mel_spectrogram_np
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32)
 
-# Private: False builds the programs of a CUDA device eager, as on the CPU,
-# so that a measurement can time the served path with and without graphs.
-# Nothing in the package sets it.
-_GRAPHS = True
-
 # one capture at a time in the process: the three families' dispatchers may
 # each capture a bucket at its first batch
 _CAPTURE_LOCK = threading.Lock()
-
-# the counted wrappers a served batch can launch: K1 and its control, K2
-# (bf16, and fp32 on tf32) and its controls, K5/K6 and their control
-_COUNTED = (("ops.mel_kernel", "fused_logmel_from_frames"),
-            ("ops.mel_kernel", "fused_logmel_from_frames_fma"),
-            ("ops.attention", "flash_attention"),
-            ("ops.attention", "attention_fwd_mma"),
-            ("ops.attention", "attention_fwd_fp32_fma"),
-            ("ops.attention", "attention_fwd_int8"),
-            ("ops.attention", "attention_fwd_fp8"),
-            ("ops.attention", "attention_fwd_q8_mma"))
-
-
-def _launch_counts() -> dict:
-    """The host launch counters of ``_COUNTED``, by wrapper name."""
-    import importlib
-
-    return {name: getattr(importlib.import_module(f"{__package__}.{mod}"),
-                          name).launches for mod, name in _COUNTED}
 
 
 def pick_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -111,10 +87,12 @@ class BucketPrograms:
         device (half the copy bytes).
 
     On a CUDA device each bucket is one CUDA graph (the module's
-    docstring). ``captured[b]``: the counted wrappers' launches in bucket
-    b's graph, read off the host counters during its capture (they tick
-    once there and never on a replay); ``replays[b]``: its replays. Under
-    a mesh every bucket is a multiple of the data ranks.
+    docstring); ``graphs`` says so, and set False before the first batch
+    it makes the programs eager there too. ``replays[b]``: bucket b's
+    replays. The kernels' host launch counters tick once at a capture and
+    never on a replay: ``utils.profiling.kernel_launches`` counts the
+    kernels a replay runs by name. Under a mesh every bucket is a
+    multiple of the data ranks.
     """
 
     def __init__(self, model, buckets: Sequence[int] = DEFAULT_BUCKETS,
@@ -143,13 +121,11 @@ class BucketPrograms:
             self.native_len = None
             self.elem_shape = (img_f, img_t)
             self.elem_dtype = np.float32
-        self.graphs = (model.device.type == "cuda" and par is None
-                       and _GRAPHS)
+        self.graphs = model.device.type == "cuda" and par is None
         self._graphs: dict[int, _Graph] = {}
         self._pool = None  # the family's graph memory pool
         self._stream = None  # the family's capture stream
         self._lock = threading.Lock()
-        self.captured: dict[int, dict] = {}
         self.replays: dict[int, int] = {}
         # under a mesh, rank 0's one device thread (set by TagService)
         self.mesh_run = None
@@ -188,27 +164,15 @@ class BucketPrograms:
             with torch.cuda.stream(self._stream):
                 self._activations(static_in)
             torch.cuda.current_stream(device).wait_stream(self._stream)
-            before = _launch_counts()
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
                                   capture_error_mode="thread_local"):
                 static_out = self._activations(static_in)
-            after = _launch_counts()
-        self.captured[bucket] = {k: after[k] - before[k] for k in after}
         self.replays[bucket] = 0
         if self._pool is None:
             self._pool = graph.pool()
         g = self._graphs[bucket] = _Graph(graph, static_in, static_out)
         return g
-
-    def launches(self) -> dict:
-        """Each counted wrapper's launches over every replay so far: the
-        captured launches of a bucket times its replays."""
-        out = dict.fromkeys((name for _, name in _COUNTED), 0)
-        for b, counts in self.captured.items():
-            for k, c in counts.items():
-                out[k] += c * self.replays[b]
-        return out
 
     def warmup(self) -> None:
         """Capture every bucket's graph up front (or, without graphs, run

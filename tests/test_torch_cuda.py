@@ -2044,7 +2044,7 @@ def test_tiny_trainer_epoch_on_the_card(cuda_device, tmp_path):
 # --- serving on CUDA graphs: one graph per bucket and family ---------------
 # A replay runs the kernels the eager call runs, on the same buffers: held
 # to the eager run within the tier's bound (bf16 1e-2, fp32 2e-5; zero is
-# expected). The host counters tick once at capture, never on a replay; the
+# expected). The host counters tick once at capture, never on a replay: the
 # profiler counts the kernels a replay runs by name.
 
 SERVE_KERNELS = {"K1": r"logmel_fft_kernel", "K1_control": r"logmel_kernel",
@@ -2074,6 +2074,7 @@ def _elements(progs, n, seed):
 @pytest.mark.parametrize("family", ["chunk", "wave", "pcm16"])
 def test_graph_replay_matches_eager(cuda_device, family, dtype):
     from maest_tpu_torch.serve import BucketPrograms, pick_bucket
+    from maest_tpu_torch.utils.profiling import KERNEL_TRACES, kernel_launches
 
     model = _served_model(dtype)
     progs = BucketPrograms(model, (1, 2, 4), fused_wave=family != "chunk",
@@ -2081,12 +2082,15 @@ def test_graph_replay_matches_eager(cuda_device, family, dtype):
     assert progs.graphs
     progs.warmup()
     assert sorted(progs._graphs) == [1, 2, 4]
-    for b, counts in progs.captured.items():
-        assert counts["flash_attention"] == 2, (b, counts)
-        assert counts["fused_logmel_from_frames"] == (family != "chunk")
-        assert counts["attention_fwd_mma"] == 0
-        assert counts["attention_fwd_fp32_fma"] == 0
-        assert counts["fused_logmel_from_frames_fma"] == 0
+    k2 = "K2" if dtype == torch.bfloat16 else "K2_fp32"
+    want = {k: 0 for k in SERVE_KERNELS}
+    want.update(K1=int(family != "chunk"), **{k2: 2})
+    for b in progs.buckets:  # each bucket's graph, by the profiler
+        batch = _elements(progs, b, 30 + b)
+        seen = kernel_launches(lambda: progs.run(batch), SERVE_KERNELS)
+        assert {k: seen[k] for k in SERVE_KERNELS} == want, (b, seen)
+    traced = 2 * KERNEL_TRACES  # two calls a trace
+    assert progs.replays == {1: traced, 2: traced, 4: traced}
     before = flash_attention.launches
     for n in (1, 2, 3, 4):
         batch = _elements(progs, n, 10 + n)
@@ -2097,7 +2101,7 @@ def test_graph_replay_matches_eager(cuda_device, family, dtype):
         want = progs.eager(padded)[:n]
         assert got.shape == (n, 16) and np.isfinite(got).all()
         assert np.abs(got - want).max() <= SERVE_TOL[dtype]
-    assert progs.replays == {1: 1, 2: 1, 4: 2}
+    assert progs.replays == {1: traced + 1, 2: traced + 1, 4: traced + 2}
     # the eager calls tick the counter; the replays did not
     assert flash_attention.launches == before + 2 * 4
 
@@ -2108,7 +2112,7 @@ def test_graph_replay_runs_k1_and_k2(cuda_device, dtype):
     """A replayed wave batch runs K1 once and K2 once a block (the tf32
     kernel in fp32), and no control, by the profiler's kernel names."""
     from maest_tpu_torch.serve import BucketPrograms
-    from maest_tpu_torch.utils.profiling import kernel_launches
+    from maest_tpu_torch.utils.profiling import KERNEL_TRACES, kernel_launches
 
     progs = BucketPrograms(_served_model(dtype), (2,), fused_wave=True)
     progs.warmup()
@@ -2118,14 +2122,16 @@ def test_graph_replay_runs_k1_and_k2(cuda_device, dtype):
     want = {k: 0 for k in SERVE_KERNELS}
     want.update(K1=1, **{k2: 2})
     assert {k: seen[k] for k in SERVE_KERNELS} == want, seen
-    assert progs.launches()["flash_attention"] == 2 * progs.replays[2]
+    assert progs.replays == {2: 2 * KERNEL_TRACES}  # two calls a trace
 
 
 def test_service_captures_on_its_dispatchers(cuda_device):
     """No warmup: each family captures a bucket at its first batch, on its
     own dispatcher thread, while the others run; every answer against
-    ``predict_labels``."""
+    ``predict_labels``, and each graph holds its own kernels only."""
     import threading
+
+    from maest_tpu_torch.utils.profiling import kernel_launches
 
     model = _served_model(torch.bfloat16)
     svc = TagService(model, buckets=(1, 2, 4), max_wait_ms=2.0)
@@ -2153,6 +2159,59 @@ def test_service_captures_on_its_dispatchers(cuda_device):
                                        atol=1e-2)
         for progs in (svc.wave_programs, svc.pcm16_programs, svc.programs):
             assert progs._graphs and sum(progs.replays.values()) >= 1
+            for b in progs._graphs:
+                batch = _elements(progs, b, 35 + b)
+                seen = kernel_launches(lambda: progs.run(batch),
+                                       SERVE_KERNELS)
+                want = {k: 0 for k in SERVE_KERNELS}
+                want.update(K1=int(progs.fused_wave), K2=2)
+                assert {k: seen[k] for k in SERVE_KERNELS} == want, (
+                    progs.kind, b, seen)
+    finally:
+        svc.close()
+
+
+def test_short_clip_during_a_lazy_capture(cuda_device, monkeypatch):
+    """A clip shorter than one window runs eagerly on another thread while
+    the wave family captures its bucket at its first batch (no warmup):
+    both answers against ``predict_labels``, and the graph holds its own
+    kernels only, none of the other thread's."""
+    import threading
+
+    from maest_tpu_torch.utils.profiling import kernel_launches
+
+    model = _served_model(torch.bfloat16)
+    svc = TagService(model, buckets=(1,), max_wait_ms=0.0)
+    progs = svc.wave_programs
+    short = _rand(8000, 50, 0.3).numpy()
+    native = _rand(progs.native_len, 51, 0.3).numpy()
+    got = {}
+    run = progs._activations
+
+    def ask_short():
+        got["short"] = svc.tag(short, timeout=300)[0]
+
+    def capturing(x):
+        if torch.cuda.is_current_stream_capturing() and not got:
+            got["during"] = True
+            t = threading.Thread(target=ask_short)
+            t.start()
+            t.join(timeout=300)
+        return run(x)
+
+    monkeypatch.setattr(progs, "_activations", capturing)
+    try:
+        got["native"] = svc.tag(native, timeout=300)[0]
+        assert got.get("during") and "short" in got
+        assert sorted(progs._graphs) == [1]
+        for name, x in (("short", short), ("native", native)):
+            np.testing.assert_allclose(got[name], model.predict_labels(x)[0],
+                                       atol=1e-2)
+        seen = kernel_launches(lambda: progs.run(native[None]),
+                               SERVE_KERNELS)
+        want = {k: 0 for k in SERVE_KERNELS}
+        want.update(K1=1, K2=2)
+        assert {k: seen[k] for k in SERVE_KERNELS} == want, seen
     finally:
         svc.close()
 
