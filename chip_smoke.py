@@ -148,10 +148,10 @@ losses, the eval's input rows, probabilities and val losses, rank 0's
 final checkpoint), the replicas of each parameter element equal after
 every step, the launch counters of each rank, and K3a/K3b and K2 held
 to plain at tensor parallelism's local shapes. Then GPipe through the
-Trainer (39) at the preset's full depth, 2 stages of 6 blocks: pp (2
+Trainer (39) at phase 38's 4 blocks, 2 stages of 2: pp (2
 ranks), dp+pp, pp+tp and dp+pp+fsdp (4 ranks) over gloo on the one card,
-each held to a full-depth one-process run with phase 38's bounds, each
-rank's launches (K3a and K3b 6 x M microbatches a step, K2 6 an eval
+each held to phase 38's one-process run with its bounds, each
+rank's launches (K3a and K3b 2 x M microbatches a step, K2 2 an eval
 forward) and K3a/K3b/K2 held to plain at each rank's microbatch and
 eval shapes. Last the tagging entry points (40): the bf16 TagService on
 CUDA graphs (one a bucket and family, captured at warmup), every
@@ -168,7 +168,16 @@ the block-7 embeddings; and the inference mesh in 2 ranks over gloo on
 the one card (``MAEST`` at dp 2 and tp 2, ``tag --devices 2``, a mesh
 TagService) held to one process. The kernels line gives K1 and K2 (and
 fp32 K2) the served path's launches under graph replay, as
-``launches_serve``. Each phase's seconds print as it ends. A
+``launches_serve``. Phase 41 runs the modules of the last slice at full
+width: the per-frequency and non-distilled 30 s models (random weights
+from their goldens' seeds) through ``predict_labels`` in bf16 and fp32
+and one bf16 train step each against the card's plain attention route,
+``export_release --format torch`` of phase 37's checkpoint reloaded by
+``get_maest`` against the Trainer's eval, and ``ex_tl.tl_pipeline`` on
+the card against its CPU run; ``launches_surgery`` in the kernels line.
+Phase 5 also holds the port to the goldens of ``tests/torch_goldens.py``
+(5 s, 10 s, 20 s, the 519-label head, per-frequency, non-distilled).
+Each phase's seconds print as it ends. A
 split by torch.profiler
 is printed only from a trace that holds every launch its route makes, by
 name and count, and a device total within SPLIT_SHARE of the call's
@@ -193,6 +202,7 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -502,11 +512,16 @@ def phase_kernels_vs_plain(dev):
 
 def phase_golden(dev):
     """Phase 5: full-width fp32 forward against the JAX package's golden
-    logits; returns the state dict it drew."""
+    logits, then against each golden of ``tests/torch_goldens.py`` (the
+    5 s, 10 s and 20 s geometries, the 519-label head, the 30 s
+    per-frequency and non-distilled models), K2's launches counted on
+    each; returns the state dict it drew and the (config, state) of the
+    per-frequency and the non-distilled golden."""
     from maest_tpu_torch.checkpoints import load_into
     from maest_tpu_torch.models.registry import build_config
     from maest_tpu_torch.models.vit import MAESTNet
     from maest_tpu_torch.ops.attention import flash_attention
+    from torch_goldens import GOLDENS, golden_case, golden_path
     from torch_oracle import make_state
 
     golden = np.load(ROOT / "tests" / "golden" / "vitb_30s_logits.npz")
@@ -529,7 +544,29 @@ def phase_golden(dev):
           f"tests/golden/vitb_30s_logits.npz; attention launches +{grew}",
           flush=True)
     del net
-    return sd
+    cases = {}
+    for name in sorted(GOLDENS):
+        golden = np.load(golden_path(name))
+        cfg, state, x = golden_case(name)
+        if GOLDENS[name][1] != "shared":  # phase 41's models
+            cases[name] = cfg, state
+        net = load_into(MAESTNet(cfg, device=dev), state).eval()
+        before = flash_attention.launches
+        with torch.inference_mode():
+            logits = net(torch.from_numpy(x).to(dev))[0].cpu().numpy()
+        grew = flash_attention.launches - before
+        del net
+        err = float(np.abs(logits - golden["logits"]).max())
+        check(logits.shape == golden["logits"].shape
+              and bool(np.isfinite(logits).all()), f"golden {name} logits")
+        check(grew == cfg.depth, f"golden {name}: attention launches {grew}")
+        check(err <= GOLDEN_TOL, f"golden {name} err {err} > {GOLDEN_TOL}")
+        print(f"phase 5 golden {name} ({GOLDENS[name][0]}, "
+              f"{GOLDENS[name][1]}, input {tuple(x.shape)}): fp32 logits "
+              f"{logits.shape} max_abs_err {err:.3e} <= {GOLDEN_TOL} vs "
+              f"tests/golden/{name}.npz; attention launches +{grew}",
+              flush=True)
+    return sd, cases
 
 
 def phase_main_path(dev, sd, tmp):
@@ -4943,9 +4980,8 @@ CLI_EVAL_N = 551
 # the Trainer's step and the bare step timed in alternating rounds
 CLI_ROUNDS = 6
 CLI_ROUND_STEPS = 3
-# phases 37 and 38 run the preset's width at 4 of its 12 blocks (their
+# phases 37-39 run the preset's width at 4 of its 12 blocks (their
 # full-depth readings stay in PERF.md), which keeps the script in its time
-# with phase 39 at full depth
 CLI_DEPTH = 4
 
 
@@ -5008,7 +5044,7 @@ def _cli_params(run: Path, tag: str) -> dict:
     return read_checkpoint(run / "checkpoints" / tag)["params"]
 
 
-def phase_trainer_cli(dev, gpu):
+def phase_trainer_cli(dev, gpu, keep: Path):
     """Phase 37: the training CLI. ``maest_tpu_torch.apps.ex_maest.run``
     in process: ``main with maest_10s_random_weights_pretrain`` (ViT-B's
     width at ``CLI_DEPTH`` blocks, bf16 over fp32 parameters, batch 12, N
@@ -5025,7 +5061,8 @@ def phase_trainer_cli(dev, gpu):
     events, and the loop's time between steps; then the Trainer's step and
     the bare recipe step at the same shape in alternating rounds of one
     process. Returns the main run's K2, K3a and K3b launches and K2's
-    largest error at the eval's shape."""
+    largest error at the eval's shape; leaves a copy of the main run's
+    config.json and its epoch-1 checkpoint under ``keep`` (phase 41)."""
     import gc
 
     from maest_tpu_torch import native
@@ -5109,6 +5146,9 @@ def phase_trainer_cli(dev, gpu):
         check(all(np.isfinite(v) for (n, _), v in val.items()
                   if "loss" in n) and len(val) == 12,
               f"val metrics {val}")
+        (keep / "checkpoints").mkdir(parents=True)
+        shutil.copy(run / "config.json", keep)
+        shutil.copytree(ckpts / "epoch-1", keep / "checkpoints" / "epoch-1")
         # eval: 2 val batches an epoch, the live and the SWA weights
         want = {"K2": CLI_DEPTH * 2 * 2 * 2, "K3a": CLI_DEPTH * steps,
                 "K3b": CLI_DEPTH * steps}
@@ -5726,9 +5766,9 @@ def phase_parallel(dev, gpu):
     one a block an eval batch for the live and again for the SWA weights,
     the controls 0); under tensor parallelism K3a/K3b at (12, 281, 6, 64)
     and K2 at (20, 551, 6, 64) held to plain (a data rank's rows of them
-    under dp+tp+sp). Also runs the full-depth one-process reference that
-    phase 39 holds its modes to. Returns rank 0's launches summed over the
-    modes, the largest kernel error and that reference."""
+    under dp+tp+sp). Returns rank 0's launches summed over the modes, the
+    largest kernel error and the one-process reference, which phase 39
+    holds its modes to."""
     import gc
 
     from maest_tpu_torch.parallel.launch import spawn
@@ -5748,12 +5788,6 @@ def phase_parallel(dev, gpu):
                 tmp / "corpus", tmp / name.replace("+", "_"), P38_FILES,
                 (*P38_EXTRA, *extra))]
 
-        # phase 39's reference: the preset's 12 blocks
-        full = _p38_reference(argv("full", ("trainer.devices=1",
-                                            f"maest.depth={P39_DEPTH}")),
-                              "full", tmp / "full", 39, gpu)
-        gc.collect()
-        torch.cuda.empty_cache()
         R = _p38_reference(argv("one", ("trainer.devices=1",)), "one",
                            tmp / "one", 38, gpu)
         gc.collect()
@@ -5792,11 +5826,11 @@ def phase_parallel(dev, gpu):
               f"{walls[2]:.1f}, {walls[4]:.1f} and {walls[1]:.1f} s "
               f"(each rank's start included); phase "
               f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {**total, "err": err, "reference": full}
+    return {**total, "err": err, "reference": R}
 
 
 # phase 39: GPipe through the Trainer, each mode launched as phase 38's,
-# at the preset's full depth (12 blocks, 6 a stage) and global batch 12:
+# at phase 38's CLI_DEPTH blocks (2 a stage) and global batch 12:
 # (name, ranks, overrides); the microbatches divide each data rank's rows
 P39_MODES = (
     ("pp", 2, ("trainer.devices=2", "trainer.pipeline_parallel=2",
@@ -5811,22 +5845,22 @@ P39_MODES = (
                        "datamodule.batch_size_train=6")),
 )
 P39_TIMEOUT = 400.0    # every rank of a launch is killed after it
-P39_DEPTH = 12         # the preset's blocks
 
 
 def phase_pipeline(dev, gpu, R: dict):
-    """Phase 39: GPipe through the Trainer at full width and depth.
-    ``ex_maest main with maest_10s_random_weights_pretrain`` (ViT-B, 12
-    blocks, 2 stages of 6, bf16 over fp32 parameters, global batch 12,
+    """Phase 39: GPipe through the Trainer at full width.
+    ``ex_maest main with maest_10s_random_weights_pretrain`` (ViT-B's
+    width at CLI_DEPTH blocks, 2 stages of 2, bf16 over fp32 parameters,
+    global batch 12,
     one epoch of 4 steps, one eval batch of 20 at one microbatch) on
     phase 38's corpus, in ranks launched as phase 38's, sharing the one
     card over gloo on CUDA tensors: pp (2 ranks, 4 microbatches), dp+pp
     (data 2 x pipe 2, 3), pp+tp (pipe 2 x model 2, 4) and dp+pp+fsdp (3).
-    Each mode held to phase 38's full-depth one-process run ``R`` with
+    Each mode held to phase 38's one-process run ``R`` with
     phase 38's bounds (``_p38_check_mode``), the replicas compared over
     the data, model and pipe ranks (the embeddings and heads every stage
-    holds); each rank's launches: K3a and K3b 6 blocks x M microbatches a
-    step, K2 6 an eval forward, live and SWA; K3a/K3b at each rank's
+    holds); each rank's launches: K3a and K3b 2 blocks x M microbatches a
+    step, K2 2 an eval forward, live and SWA; K3a/K3b at each rank's
     microbatch shape and K2 at its eval shape held to plain. Returns each
     mode's launches on every rank and the largest kernel error."""
     import gc
@@ -6407,6 +6441,249 @@ def phase_tagging(dev, gpu, sd):
     return out
 
 
+# phase 41: the last slice's modules at full width
+SURGERY_GOLDENS = {"per_freq": "vitb_30s_per_freq_logits",
+                   "non_distilled": "vitb_30s_non_distilled_logits"}
+SURGERY_WAVE_S = 120   # 4 chunks of 30 s: one mel call, one forward
+SURGERY_BATCH = 8      # the train step's batch (N 866 / 865)
+SURGERY_STEP_RTOL = 1e-2  # bf16 loss, kernels vs the plain attention route
+RELEASE_TOL = 1e-5     # exported weights' probabilities vs the Trainer's eval
+TL_TOL = 1e-4          # tl_pipeline's metrics on the card vs the CPU
+
+
+def _surgery_counters():
+    from maest_tpu_torch.ops import attention as A
+    from maest_tpu_torch.ops import mel_kernel as M
+    return {"K1": M.fused_logmel_from_frames, "K2": A.flash_attention,
+            "K3a": A.flash_attention_fwd_lse, "K3b": A.attention_bwd,
+            "fused_logmel_fma": M.fused_logmel_from_frames_fma,
+            "attention_fwd_mma": A.attention_fwd_mma,
+            "attention_bwd_mma": A.attention_bwd_mma,
+            "attention_fwd_fp32_fma": A.attention_fwd_fp32_fma,
+            "attention_bwd_fp32_fma": A.attention_bwd_fp32_fma}
+
+
+def _tl_fixture(root: Path) -> dict:
+    """tests/test_torch_release_apps.py's embeddings fixture (two latent
+    clusters, 6 classes, token 16) and the probe's config for it."""
+    import pickle
+
+    from maest_tpu_torch.apps import ex_tl
+
+    emb_dir = root / "emb"
+    emb_dir.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    protos = rng.standard_normal((2, 48)).astype("float32") * 2
+    for split, n in (("train", 40), ("validation", 16), ("test", 16)):
+        gt = {}
+        for i in range(n):
+            name = f"{split}{i}.mp3"
+            np.save(emb_dir / (name + ".embeddings.npy"), protos[i % 2]
+                    + rng.standard_normal((3, 48)).astype("float32") * 0.3)
+            y = np.zeros(6, dtype="float32")
+            y[i % 2::2] = 1.0
+            gt[name] = y
+        with open(root / f"groundtruth-{split}.pk", "wb") as f:
+            pickle.dump(gt, f)
+    cfg = ex_tl.default_config()
+    cfg["trainer"]["max_epochs"] = 8
+    cfg["optimizer"].update(max_epochs=8, warmup_epochs=1, max_lr=1e-2,
+                            max_lr_epochs=2)
+    cfg["model"]["hidden_units"] = 32
+    cfg["data"].update(base_dir=str(emb_dir), metadata_dir=str(root),
+                       batch_size=8, token_size=16, n_classes=6)
+    return cfg
+
+
+def phase_surgery(dev, gpu, cases: dict, cli_run: Path):
+    """Phase 41: the modules of the last slice at full width (the 30 s
+    ViT-B, random weights from the goldens' seeds). The per-frequency and
+    the non-distilled model: ``predict_labels`` of a 120 s wave (4 chunks)
+    in fp32 and bf16, the launch counters reset before each call (K1 1 and
+    K2 12 a call, the controls 0), bf16 within TIER_TOL of fp32; one bf16
+    train step each (fp32 parameters, batch SURGERY_BATCH, 90 of the 186
+    time columns dropped by the same draws) through the kernels (K3a and
+    K3b 12, the controls 0) and on the plain attention route
+    (``attention_impl="xla"``, no kernel), the losses within
+    SURGERY_STEP_RTOL; K2 (bf16, fp32) at (4, 1675) and K3a, K3b at
+    (SURGERY_BATCH, 865) against their plain versions (ATTN_TOL, LSE_TOL).
+    ``export_release --format torch`` (on the card, its
+    default) of phase 37's epoch-1 checkpoint, reloaded by ``get_maest``,
+    against the fp32 Trainer's eval of the same weights within
+    RELEASE_TOL; ``ex_tl.tl_pipeline`` on the card against its CPU run
+    within TL_TOL. Returns the launches of every call and the phase's
+    seconds."""
+    from maest_tpu_torch.api import MAEST, get_maest
+    from maest_tpu_torch.apps import ex_tl, export_release
+    from maest_tpu_torch.checkpoints import load_into
+    from maest_tpu_torch.models.vit import MAESTNet
+    from maest_tpu_torch.ops import attention as A
+    from maest_tpu_torch.train import (
+        AugmentConfig,
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+    from maest_tpu_torch.train import loop
+
+    t_phase = time.perf_counter()
+    counters = _surgery_counters()
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+
+    def read():
+        return {k: c.launches for k, c in counters.items()}
+
+    def exact(got, want, what):
+        check(all(n == want.get(k, 0) for k, n in got.items()),
+              f"{what}: launches {got}, wanted {want} and no other")
+
+    launches = {}
+    rng = np.random.default_rng(41)
+    wave = rng.standard_normal(SURGERY_WAVE_S * SR).astype(np.float32) * 0.1
+    tier = {}
+    for kind, name in SURGERY_GOLDENS.items():
+        cfg, state = cases[name]
+        acts = {}
+        for dt in ("float32", "bfloat16"):
+            net = load_into(MAESTNet(cfg, dtype=getattr(torch, dt),
+                                     device=dev), state)
+            model = MAEST(cfg, net)
+            reset()
+            acts[dt] = model.predict_labels(wave)[0]
+            torch.cuda.synchronize()
+            launches[f"{kind} {dt} predict_labels"] = got = read()
+            exact(got, {"K1": 1, "K2": cfg.depth}, f"{kind} {dt} tagging")
+            check(acts[dt].shape == (cfg.num_classes,)
+                  and bool(np.isfinite(acts[dt]).all()), f"{kind} {dt} acts")
+            del model, net
+        tier[kind] = float(np.abs(acts["bfloat16"] - acts["float32"]).max())
+        check(tier[kind] <= TIER_TOL, f"{kind}: bf16 vs fp32 {tier[kind]}")
+
+    x = torch.from_numpy(rng.standard_normal(
+        (SURGERY_BATCH, 96, 1875)).astype(np.float32) * 1.3 + 2.0).to(dev)
+    y = torch.from_numpy((rng.random((SURGERY_BATCH, 400)) < 0.05).astype(
+        np.float32)).to(dev)
+    steps = {}
+    for kind, name in SURGERY_GOLDENS.items():
+        cfg, state = cases[name]
+        for route, impl in (("kernels", "auto"), ("plain", "xla")):
+            net = load_into(MAESTNet(
+                cfg.replace(s_patchout_t=90, attention_impl=impl),
+                dtype=torch.bfloat16, param_dtype=torch.float32, device=dev),
+                state)
+            tx = make_optimizer(lr_schedule=1e-4)
+            step = make_train_step(net, tx, AugmentConfig(masking=False,
+                                                          mixup_alpha=0.0))
+            st = TrainState.create(net, tx, with_swa=False)
+            reset()
+            st, m = step(st, {"x": x, "y": y}, torch.Generator().manual_seed(41))
+            torch.cuda.synchronize()
+            launches[f"{kind} train step {route}"] = got = read()
+            exact(got, {"K3a": cfg.depth, "K3b": cfg.depth}
+                  if route == "kernels" else {}, f"{kind} {route} step")
+            steps[(kind, route)] = float(m["train_loss"])
+            check(np.isfinite(steps[(kind, route)])
+                  and m["nonfinite_skipped"] == 0.0, f"{kind} {route} step")
+            del net, st, step, tx
+        rel = abs(steps[(kind, "kernels")] - steps[(kind, "plain")]) / abs(
+            steps[(kind, "plain")])
+        check(rel <= SURGERY_STEP_RTOL, f"{kind} step loss rel err {rel}")
+        steps[kind] = rel
+    torch.cuda.empty_cache()
+
+    # the kernels against their plain versions at the non-distilled
+    # shapes: K2 at (4, 1675) in bf16 and fp32 (the tagging forward), K3a
+    # and K3b at (SURGERY_BATCH, 865) in bf16 (the train step)
+    kerr = {}
+    for n, dtypes, train in ((1675, ("bfloat16", "float32"), False),
+                             (865, ("bfloat16",), True)):
+        b_ = SURGERY_BATCH if train else 4
+        for dt in dtypes:
+            q, k, v, g = torch.from_numpy(rng.standard_normal(
+                (b_, n, 4, 12, 64)).astype(np.float32)).to(
+                    dev, getattr(torch, dt)).unbind(2)
+            tol = ATTN_TOL[dt]
+            if not train:
+                e = {"o": max_err(A.flash_attention(q, k, v),
+                                  A.attention_reference(q, k, v))}
+            else:
+                o, lse = A.flash_attention_fwd_lse(q, k, v)
+                ro, rlse = A.attention_reference_lse(q, k, v)
+                e = {"o": max_err(o, ro), "lse": max_err(lse, rlse)}
+                e.update(zip(("dq", "dk", "dv"), map(max_err, A.attention_bwd(
+                    q, k, v, ro, rlse, g), A.attention_bwd_reference(
+                        q, k, v, ro, rlse, g))))
+                check(e["lse"] <= LSE_TOL, f"K3a lse N{n} {e['lse']}")
+            check(all(x <= tol for w, x in e.items() if w != "lse"),
+                  f"the kernels at ({b_}, {n}) {dt}: {e}")
+            kerr[(n, dt)] = e
+    torch.cuda.synchronize()
+
+    # export_release of phase 37's checkpoint, back through get_maest
+    ckpt = cli_run / "checkpoints" / "epoch-1"
+    out = cli_run / "release.pt"
+    check(export_release.main([str(ckpt), "--format", "torch", "--out",
+                               str(out)]) == 0, "export_release")
+    _, which = export_release.select_params(
+        export_release.load_training_checkpoint(str(ckpt)), swa=True)
+    run_cfg = export_release.run_config_for(str(ckpt))
+    mc = run_cfg["maest"]
+    m = get_maest(arch=mc["arch"], pretrained=False, checkpoint=str(out),
+                  device=dev, n_classes=mc["n_classes"],
+                  input_t=mc["input_t"], embed_dim=mc["embed_dim"],
+                  depth=mc["depth"], num_heads=mc["num_heads"])
+    run_cfg["trainer"]["precision"] = "fp32"
+    trainer = loop.Trainer(run_cfg, run_dir=str(cli_run / "eval"), device=dev)
+    trainer.restore_checkpoint(str(ckpt))
+    xm = torch.from_numpy(rng.standard_normal((4, 96, mc["input_t"])).astype(
+        np.float32) * 1.3 + 2.0).to(dev)
+    ref = torch.sigmoid(trainer.eval_step(trainer.state, xm)[
+        "swa" if which == "swa" else ""])
+    aug = trainer.aug
+    reset()
+    got = torch.sigmoid(m((xm - aug.norm_mean) / (aug.norm_std * 2.0))[0])
+    torch.cuda.synchronize()
+    launches["export_release get_maest"] = n = read()
+    exact(n, {"K2": mc["depth"]}, "the exported model's forward")
+    release_gap = max_err(got, ref)
+    check(release_gap <= RELEASE_TOL, f"export_release {release_gap}")
+    del trainer, m
+
+    # the transfer-learning probe on the card against its CPU run
+    tl_cfg = _tl_fixture(cli_run / "tl")
+    tl = {d: ex_tl.tl_pipeline(tl_cfg, device=d) for d in (dev, "cpu")}
+    tl_gap = max(abs(tl[dev][k] - tl["cpu"][k]) for k in tl["cpu"])
+    check(tl[dev]["test_roc"] > 0.9 and tl_gap <= TL_TOL,
+          f"tl_pipeline on the card {tl[dev]}, on the CPU {tl['cpu']}")
+    secs = time.perf_counter() - t_phase
+    print(f"phase 41 surgery: 30 s ViT-B per-frequency and non-distilled, "
+          f"predict_labels of {SURGERY_WAVE_S} s (4 chunks) in fp32 and bf16:"
+          f" bf16 vs fp32 {', '.join(f'{k} {v:.3e}' for k, v in tier.items())}"
+          f" <= {TIER_TOL}; one bf16 train step (B{SURGERY_BATCH}, N 866 / "
+          f"865) kernels vs plain attention: losses "
+          + ", ".join(f"{k} {steps[(k, 'kernels')]:.6f} / "
+                      f"{steps[(k, 'plain')]:.6f} (rel {steps[k]:.2e})"
+                      for k in SURGERY_GOLDENS)
+          + f" <= {SURGERY_STEP_RTOL}; the kernels against plain at the "
+          "non-distilled shapes: " + "; ".join(
+              f"N {n} {dt} " + ", ".join(f"{w} {x:.3e}" for w, x in e.items())
+              for (n, dt), e in kerr.items())
+          + f" (bounds {ATTN_TOL}, lse {LSE_TOL}); export_release --format torch of "
+          f"phase 37's epoch-1 ({which}) through get_maest vs the Trainer's "
+          f"fp32 eval {release_gap:.3e} <= {RELEASE_TOL}; tl_pipeline on the "
+          f"card {tl[dev]} vs the CPU within {tl_gap:.3e} <= {TL_TOL}; "
+          f"launches {launches}; {secs:.1f} s [{gpu}]", flush=True)
+    return {"launches": launches, "seconds": secs,
+            "err": {"K2": max(kerr[(1675, "bfloat16")].values()),
+                    "K2_fp32": max(kerr[(1675, "float32")].values()),
+                    "K3a": max(kerr[(865, "bfloat16")][w] for w in ("o", "lse")),
+                    "K3b": max(kerr[(865, "bfloat16")][w]
+                               for w in ("dq", "dk", "dv"))}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on a GPU",
@@ -6602,7 +6879,7 @@ def main() -> int:
         return out
 
     mel_err, attn_err = timed(3, phase_kernels_vs_plain, dev)
-    sd = timed(4, phase_golden, dev)
+    sd, golden_cases = timed(4, phase_golden, dev)
     with tempfile.TemporaryDirectory() as tmp:
         model, launches, inputs = timed(6, phase_main_path, dev, sd, tmp)
     timed(7, phase_server, model, inputs)
@@ -6639,10 +6916,14 @@ def main() -> int:
     q8w = timed(35, phase_q8_wgmma, dev, gpu, sd,
                 {"no_mask": q8w_libs[0][0], "half_away": q8w_libs[1][0]})
     k1 = timed(36, phase_mel_fft, dev, gpu, sd, mel_lib)
-    cli = timed(37, phase_trainer_cli, dev, gpu)
+    keep = tempfile.TemporaryDirectory()  # phase 37's run, for phase 41
+    cli = timed(37, phase_trainer_cli, dev, gpu, Path(keep.name) / "cli_run")
     par = timed(38, phase_parallel, dev, gpu)
     pp = timed(39, phase_pipeline, dev, gpu, par["reference"])
     tg = timed(40, phase_tagging, dev, gpu, sd)
+    sg = timed(41, phase_surgery, dev, gpu, golden_cases,
+               Path(keep.name) / "cli_run")
+    keep.cleanup()
 
     # K1: the bytes of the frames in and the log-mels out, and the FFT
     # route's fp32 operations (the DFT as a product does ~40x more)
@@ -7039,6 +7320,35 @@ def main() -> int:
             k["launches_serve"] = tg["serve"][key]
         if k["name"] == "attention_fwd_fp32":
             k["launches_serve"] = tg["serve_fp32"]
+    # phase 41's launches: K1 and K2 (bf16 and fp32) a predict_labels call,
+    # K3a and K3b a train step, the controls over every call of the phase
+    print("kernels line: launches_surgery of fused_logmel (K1), "
+          "attention_fwd (K2), attention_fwd_fp32, attention_fwd_lse (K3a), "
+          "attention_bwd (K3b) and the controls are phase 41's: each "
+          "predict_labels call of the per-frequency and non-distilled "
+          "models, each one's bf16 train step through the kernels, and the "
+          "exported model's forward (the controls summed over the phase); "
+          "the max_abs_err of K2, fp32 K2, K3a and K3b include phase 41's at "
+          "the non-distilled shapes", flush=True)
+    sl = sg["launches"]
+    per_call = {
+        "fused_logmel": ("K1", "predict_labels"),
+        "attention_fwd": ("K2", "bfloat16 predict_labels"),
+        "attention_fwd_fp32": ("K2", "float32 predict_labels"),
+        "attention_fwd_lse": ("K3a", "train step kernels"),
+        "attention_bwd": ("K3b", "train step kernels")}
+    surgery_err = {"attention_fwd": "K2", "attention_fwd_fp32": "K2_fp32",
+                   "attention_fwd_lse": "K3a", "attention_bwd": "K3b"}
+    for k in kernels:
+        if k["name"] in per_call:
+            key, what = per_call[k["name"]]
+            k["launches_surgery"] = {call: n[key] for call, n in sl.items()
+                                     if what in call}
+        elif k["name"] in _surgery_counters():
+            k["launches_surgery"] = sum(n[k["name"]] for n in sl.values())
+        if k["name"] in surgery_err:  # phase 41's shapes too
+            k["max_abs_err"] = max(k["max_abs_err"],
+                                   sg["err"][surgery_err[k["name"]]])
     print("phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in sorted(seconds.items(),
                                           key=lambda kv: -kv[1]))

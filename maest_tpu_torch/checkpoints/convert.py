@@ -190,13 +190,11 @@ def state_from_jax_params(params: Mapping[str, object], cfg
                           ) -> dict[str, torch.Tensor]:
     """JAX param tree -> the port's state dict (float32 CPU tensors).
 
-    Dense kernels go (in, out) -> (out, in); the patch conv HWIO -> OIHW;
-    pos-embed tables regain their broadcast singleton dims. Keys follow
-    the tree: ``dist_token``, the head and ``head_dist`` appear only where
-    the tree has them."""
-    if "patch_embed_freq_kernel" in params:
-        raise NotImplementedError(
-            "per-freq patch embedding is not ported yet (ROADMAP queue 1)")
+    Dense kernels go (in, out) -> (out, in); the patch conv HWIO -> OIHW,
+    the per-frequency rows (``patch_embed_freq_kernel`` / ``_bias``) as
+    they are; pos-embed tables regain their broadcast singleton dims. Keys
+    follow the tree: ``dist_token``, the head and ``head_dist`` appear
+    only where the tree has them."""
     p = params
     out: dict[str, np.ndarray] = {}
     e = cfg.embed_dim
@@ -218,9 +216,13 @@ def state_from_jax_params(params: Mapping[str, object], cfg
         None, :, :, None]  # (1, E, F, 1)
     out["time_new_pos_embed"] = np.asarray(p["time_new_pos_embed"]).T[
         None, :, None, :]  # (1, E, 1, T)
-    out["patch_embed.proj.weight"] = np.asarray(
-        p["patch_embed_proj"]["kernel"]).transpose(3, 2, 0, 1)
-    out["patch_embed.proj.bias"] = np.asarray(p["patch_embed_proj"]["bias"])
+    if "patch_embed_freq_kernel" in p:
+        out["patch_embed.freq_kernel"] = np.asarray(p["patch_embed_freq_kernel"])
+        out["patch_embed.freq_bias"] = np.asarray(p["patch_embed_freq_bias"])
+    else:
+        out["patch_embed.proj.weight"] = np.asarray(
+            p["patch_embed_proj"]["kernel"]).transpose(3, 2, 0, 1)
+        out["patch_embed.proj.bias"] = np.asarray(p["patch_embed_proj"]["bias"])
     for i in range(cfg.depth):
         blk = p[f"blocks_{i}"]
         layernorm(f"blocks.{i}.norm1", blk["norm1"])
@@ -271,10 +273,13 @@ def load_into(net: torch.nn.Module, state: Mapping[str, object], *,
               discard_head: bool = False) -> torch.nn.Module:
     """Copy a MAEST-layout state dict into ``net`` in place.
 
-    Pos-embed tables are retargeted to the model's grid first. Keys the
-    state lacks keep the module's initialization; the heads load only when
-    their class count matches and ``discard_head`` is off. Any other shape
-    mismatch raises."""
+    Pos-embed tables are retargeted to the model's grid first. A
+    per-frequency model given a shared conv gets it in every row, as the
+    JAX loader does (``maest_tpu/checkpoints/convert.py``): left out, the
+    rows would keep their random initialization while every other weight
+    loads. Keys the state lacks keep the module's initialization; the
+    heads load only when their class count matches and ``discard_head`` is
+    off. Any other shape mismatch raises."""
     cfg = net.cfg
     state = adapt_pos_embeds(
         {k: v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
@@ -283,6 +288,11 @@ def load_into(net: torch.nn.Module, state: Mapping[str, object], *,
     if w is not None and w.ndim < 4:  # legacy linear patchify
         state["patch_embed.proj.weight"] = w.reshape(
             cfg.embed_dim, -1, cfg.patch_size, cfg.patch_size)
+    if (cfg.per_freq_patch_embed and w is not None
+            and "patch_embed.freq_kernel" not in state):
+        from ..models.surgery import per_freq_params_from_conv
+
+        state, _ = per_freq_params_from_conv(state, cfg)
     head = state.get("head.1.weight")
     head_ok = (not discard_head and head is not None
                and head.shape[0] == cfg.num_classes)

@@ -46,9 +46,12 @@ as the full forward (``block_seeds`` gives the blocks' mask seeds of
 those draws, ``run_block`` runs one block), so front, blocks and tail
 give the full forward bit for bit.
 
-Not ported yet, and refused with ``NotImplementedError``: the
-per-frequency patch embedding and non-distilled configs (ROADMAP queue
-1 item 2).
+The per-frequency patch embedding (``per_freq_patch_embed``) gives each
+row of patches its own projection, ``patch_embed.freq_kernel`` (grid_f,
+C*P*P, E) and ``patch_embed.freq_bias`` (grid_f, E), the JAX tree's
+``patch_embed_freq_kernel`` / ``_bias``. A non-distilled config has one
+extra token: no ``dist_token`` and no ``head_dist``, its features are the
+cls token's, its block embedding ``[cls | mean(tokens 1:)]``.
 """
 
 from __future__ import annotations
@@ -285,21 +288,45 @@ class PatchEmbed(nn.Module):
     matmul stays full fp32, which the parity tier needs, and the global
     backend flags stay untouched. The patches are strided views of the
     input gathered by one copy (``F.unfold`` launches one kernel per
-    sample, and its backward as many)."""
+    sample, and its backward as many).
+
+    ``cfg.per_freq_patch_embed``: each row of patches has its own
+    projection (``maest_tpu/models/vit.py _per_freq_patch_embed``), one
+    batched product over the rows; the output has the shared conv's
+    layout."""
 
     def __init__(self, cfg: MAESTConfig):
         super().__init__()
-        self.proj = nn.Conv2d(cfg.in_chans, cfg.embed_dim, cfg.patch_size,
-                              stride=cfg.stride)
+        self.patch_size, self.stride = cfg.patch_size, tuple(cfg.stride)
+        k = cfg.in_chans * cfg.patch_size ** 2
+        if cfg.per_freq_patch_embed:
+            grid_f = (cfg.img_size[0] - cfg.patch_size) // cfg.stride[0] + 1
+            self.freq_kernel = nn.Parameter(torch.empty(grid_f, k,
+                                                        cfg.embed_dim))
+            self.freq_bias = nn.Parameter(torch.empty(grid_f, cfg.embed_dim))
+        else:
+            self.proj = nn.Conv2d(cfg.in_chans, cfg.embed_dim, cfg.patch_size,
+                                  stride=cfg.stride)
 
     def forward(self, x):
-        w, stride = self.proj.weight, self.proj.stride
-        p = w.shape[-1]
+        p, stride = self.patch_size, self.stride
+        if torch.onnx.is_in_onnx_export() and hasattr(self, "proj"):
+            # the same product, exported as the convolution it is
+            return F.conv2d(x, _cast(self.proj.weight, x.dtype),
+                            _cast(self.proj.bias, x.dtype), stride=stride)
         b, c = x.shape[:2]
-        # (B, C, F', T', p, p) -> (B, C*p*p, F'*T'), features (c, kh, kw)
-        # as in w.flatten(1)
+        # (B, C, F', T', p, p), features (c, kh, kw) as in w.flatten(1)
+        # and conv_general_dilated_patches
         patches = x.unfold(2, p, stride[0]).unfold(3, p, stride[1])
         f_out, t_out = patches.shape[2:4]
+        if not hasattr(self, "proj"):
+            # (F', B*T', C*p*p) @ (F', C*p*p, E): each row its own matrix
+            rows = patches.permute(2, 0, 3, 1, 4, 5).reshape(
+                f_out, b * t_out, c * p * p)
+            out = torch.baddbmm(_cast(self.freq_bias, x.dtype)[:, None],
+                                rows, _cast(self.freq_kernel, x.dtype))
+            return out.view(f_out, b, t_out, -1).permute(1, 3, 0, 2)
+        w = self.proj.weight
         cols = patches.permute(0, 1, 4, 5, 2, 3).reshape(
             b, c * p * p, f_out * t_out)
         out = (_cast(w, x.dtype).flatten(1) @ cols
@@ -377,10 +404,12 @@ class MAESTNet(nn.Module):
 
     ``forward`` returns, depending on ``transformer_block``:
       * -1: per ``distilled_type`` — "mean": (logits, features),
-        "separated": (logits_cls, logits_dist, features); with ``tap_block``
+        "separated": (logits_cls, logits_dist, features); non-distilled:
+        (logits, cls features); with ``tap_block``
         the block embedding is appended, with ``return_layer_tokens`` the
         tuple of per-block token tensors;
-      * >= 0: (None, [cls | dist | mean(tokens)] embedding of that block)
+      * >= 0: (None, [cls | dist | mean(tokens)] embedding of that block,
+        [cls | mean(tokens)] without a dist token)
         (reference: models/maest.py:811-829).
 
     ``forward_mode`` "front" returns ``(tokens, n_tokens)``, the stream
@@ -392,15 +421,10 @@ class MAESTNet(nn.Module):
                  device=None, generator: Optional[torch.Generator] = None,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if cfg.per_freq_patch_embed:
-            raise NotImplementedError(
-                "per_freq_patch_embed is not ported yet (ROADMAP queue 1)")
         if cfg.attention_impl not in ("auto", "flash", "xla"):
             raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}"
                              "; expected 'auto', 'flash' or 'xla'")
-        if not cfg.distilled:
-            raise NotImplementedError("non-distilled configs are not ported yet")
-        if cfg.distilled_type not in ("mean", "separated"):
+        if cfg.distilled and cfg.distilled_type not in ("mean", "separated"):
             raise ValueError(f"unknown distilled_type {cfg.distilled_type!r}; "
                              "expected 'mean' or 'separated'")
         if cfg.attention_quant not in ("none", None, "qk8", "qk8pv8", "fp8",
@@ -423,7 +447,8 @@ class MAESTNet(nn.Module):
 
         self.patch_embed = PatchEmbed(cfg)
         self.cls_token = nn.Parameter(torch.empty(1, 1, e))
-        self.dist_token = nn.Parameter(torch.empty(1, 1, e))
+        if cfg.distilled:
+            self.dist_token = nn.Parameter(torch.empty(1, 1, e))
         self.new_pos_embed = nn.Parameter(torch.empty(1, cfg.num_tokens, e))
         self.freq_new_pos_embed = nn.Parameter(torch.empty(1, e, gf, 1))
         self.time_new_pos_embed = nn.Parameter(torch.empty(1, e, 1, gt))
@@ -434,7 +459,8 @@ class MAESTNet(nn.Module):
         # head norm keeps torch's default eps 1e-5 (reference:
         # models/maest.py:570-571 vs :499)
         self.head = nn.Sequential(LayerNorm(e), Linear(e, cfg.num_classes))
-        self.head_dist = Linear(e, cfg.num_classes)
+        if cfg.distilled:
+            self.head_dist = Linear(e, cfg.num_classes)
         self.layout: Optional[Layout] = None
         # (lo, hi): the blocks of a pipeline stage this net holds
         # (``parallel.pipeline.cut_to_stage``); None: every block
@@ -446,10 +472,12 @@ class MAESTNet(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """The JAX package's initializers, drawn from ``generator``."""
-        for p in (self.cls_token, self.dist_token, self.new_pos_embed,
-                  self.freq_new_pos_embed, self.time_new_pos_embed):
-            nn.init.trunc_normal_(p, std=_POS_STD, a=-2 * _POS_STD,
-                                  b=2 * _POS_STD, generator=generator)
+        for name in ("cls_token", "dist_token", "new_pos_embed",
+                     "freq_new_pos_embed", "time_new_pos_embed"):
+            p = getattr(self, name, None)
+            if p is not None:
+                nn.init.trunc_normal_(p, std=_POS_STD, a=-2 * _POS_STD,
+                                      b=2 * _POS_STD, generator=generator)
         for m in self.modules():
             if isinstance(m, nn.Linear):
                 nn.init.trunc_normal_(m.weight, std=_DENSE_STD,
@@ -460,16 +488,21 @@ class MAESTNet(nn.Module):
             elif isinstance(m, nn.LayerNorm):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
-        # the JAX package's conv default: lecun_normal kernel, zero bias
-        w = self.patch_embed.proj.weight
-        std = (1.0 / w[0].numel()) ** 0.5 / 0.87962566103423978
+        # the JAX package's conv and per-row defaults: lecun_normal
+        # kernels (fan in C*p*p), zero biases
+        pe = self.patch_embed
+        w, bias = ((pe.proj.weight, pe.proj.bias) if hasattr(pe, "proj")
+                   else (pe.freq_kernel, pe.freq_bias))
+        std = (1.0 / (self.cfg.in_chans * pe.patch_size ** 2)) ** 0.5 \
+            / 0.87962566103423978
         nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
                               generator=generator)
-        nn.init.zeros_(self.patch_embed.proj.bias)
+        nn.init.zeros_(bias)
         # heads start at zero (reference: models/maest.py:951-953)
-        for lin in (self.head[1], self.head_dist):
-            nn.init.zeros_(lin.weight)
-            nn.init.zeros_(lin.bias)
+        for lin in (self.head[1], getattr(self, "head_dist", None)):
+            if lin is not None:
+                nn.init.zeros_(lin.weight)
+                nn.init.zeros_(lin.bias)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -596,9 +629,11 @@ class MAESTNet(nn.Module):
         if train and draws.keep_u is not None:
             x = keep(x, 1, draws.keep_u)
         pos = self.new_pos_embed  # tokens + pos in the storage dtype, cast
-        cls = _cast(self.cls_token + pos[:, :1], dt).expand(b, -1, -1)
-        dist = _cast(self.dist_token + pos[:, 1:2], dt).expand(b, -1, -1)
-        x = torch.cat([cls, dist, x], dim=1)
+        tokens = [_cast(self.cls_token + pos[:, :1], dt).expand(b, -1, -1)]
+        if cfg.distilled:
+            tokens.append(_cast(self.dist_token + pos[:, 1:2], dt).expand(
+                b, -1, -1))
+        x = torch.cat([*tokens, x], dim=1)
 
         lay = self.layout
         seeds = self.block_seeds(draws if train else None)
@@ -688,7 +723,7 @@ class MAESTNet(nn.Module):
                               cfg.s_patchout_t_interleaved))
         if draws is not None and draws.keep_u is not None:
             n = len(draws.keep_u)
-        return n + 2
+        return n + cfg.num_tokens
 
     def run_block(self, i: int, x, seed: Optional[int] = None,
                   n_tokens: Optional[int] = None, remat: bool = False,
@@ -717,13 +752,17 @@ class MAESTNet(nn.Module):
                 blk.attn.layout = layout
                 blk.mlp.layout = layout
 
-    @staticmethod
-    def _block_embedding(x: torch.Tensor) -> torch.Tensor:
-        """[cls | dist | mean(patch tokens)] (2304-d for ViT-B)."""
-        return torch.cat([x[:, 0], x[:, 1], x[:, 2:].mean(dim=1)], dim=1)
+    def _block_embedding(self, x: torch.Tensor) -> torch.Tensor:
+        """[cls | dist | mean(patch tokens)] (2304-d for ViT-B); without a
+        dist token [cls | mean(tokens 1:)] (1536-d)."""
+        n = self.cfg.num_tokens
+        return torch.cat([x[:, i] for i in range(n)]
+                         + [x[:, n:].mean(dim=1)], dim=1)
 
     def _heads(self, x: torch.Tensor):
         """Classifier heads (reference: models/maest.py:570-582, 905-933)."""
+        if not self.cfg.distilled:
+            return self.head(x[:, 0]), x[:, 0]
         cls, dist = x[:, 0], x[:, 1]
         features = (cls + dist) / 2
         if self.cfg.distilled_type == "mean":

@@ -15,14 +15,28 @@ The reference ships MAEST weights to the HF hub in AST layout
     as freq = row mean, time = column mean of the de-meaned rest, which is
     exact for tables ``to_hf_ast_state`` made.
 
-The rest of the JAX module (the AST config and feature-extractor files,
-``save_pretrained``, ``push_to_hub``, the ONNX and TF exports) is not
-ported yet (ROADMAP queue 1).
+The export half writes a release from the port's model (an ``nn.Module``
+— ``MAESTNet`` or the ``MAEST`` wrapper — or its state dict with its
+config):
+
+  * ``ast_config_dict`` / ``feature_extractor_config`` — the HF
+    ``ASTConfig`` and the ``MAESTFeatureExtractor`` preprocessor dicts;
+  * ``save_pretrained`` — config.json, model.safetensors (AST layout),
+    preprocessor_config.json and the port's copy of
+    ``feature_extraction_maest.py``; ``push_to_hub`` uploads that directory;
+  * ``save_torch_checkpoint`` — a MAEST-layout ``.pt`` state dict.
+
+As in the JAX package, a per-frequency model is not exported (export the
+weights from before ``fix_embedding_layer``), and the AST layout refuses a
+non-distilled model or one without qkv biases. The TF SavedModel export
+(jax2tf) has no counterpart.
 """
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Dict, Mapping
+import json
+import os
+from typing import TYPE_CHECKING, Dict, Mapping, Optional
 
 import numpy as np
 
@@ -195,3 +209,171 @@ def from_hf_ast_state(state: Mapping[str, np.ndarray], cfg: MAESTConfig) -> Stat
         out["head.1.weight"] = state["classifier.dense.weight"]
         out["head.1.bias"] = state["classifier.dense.bias"]
     return out
+
+
+# ---------------------------------------------------------------------------
+# the port's model -> MAEST torch layout, config and feature-extractor
+# metadata, save / push
+# ---------------------------------------------------------------------------
+
+def export_state(model, cfg: Optional[MAESTConfig] = None
+                 ) -> tuple[State, MAESTConfig]:
+    """(MAEST-layout float32 numpy state, config) of ``model``: a
+    ``MAESTNet``, a ``MAEST`` wrapper (``cfg`` taken from it) or a state
+    dict with its ``cfg``. The keys are those the JAX package's
+    ``jax_to_torch_state`` writes for the same model: ``head_dist`` only
+    under ``distilled_type="separated"``."""
+    net = getattr(model, "net", model)
+    if hasattr(net, "state_dict"):
+        cfg = cfg or net.cfg
+        model = net.state_dict()
+    if cfg is None:
+        raise ValueError("a state dict needs its config (cfg=)")
+    if "patch_embed.freq_kernel" in model:
+        raise NotImplementedError(
+            "per-freq patch embedding has no torch/AST export mapping — the "
+            "reference's fix_embedding_layer surgery is load-time only "
+            "(models/maest.py:295-298); export the pre-surgery params")
+    drop_dist = cfg.distilled_type != "separated"
+    state = {k: np.asarray(v.detach().float().cpu().numpy()
+                           if hasattr(v, "detach") else v, np.float32)
+             for k, v in model.items()
+             if not (drop_dist and k.startswith("head_dist."))}
+    return state, cfg
+
+
+def _ast_max_length(cfg: MAESTConfig) -> int:
+    """Smallest frame count whose VALID conv emits exactly ``grid_t`` time
+    patches: ``patch + stride_t*(grid_t-1)`` (reference per-duration table
+    316/626/1256/1876, push_to_hub.py:100-108), for config.json and
+    preprocessor_config.json alike."""
+    return cfg.patch_size + cfg.stride[1] * (cfg.grid_size[1] - 1)
+
+
+def ast_config_dict(cfg: MAESTConfig, labels=None) -> dict:
+    """HF ``ASTConfig`` dict (reference: push_to_hub.py:100-144): 96 mel
+    bins, stride 10, eps 1e-6, ``max_length`` from ``_ast_max_length`` so
+    AST's position-embedding count matches the exported (grid_f*grid_t +
+    2) table."""
+    d = {
+        "architectures": ["ASTForAudioClassification"],
+        "model_type": "audio-spectrogram-transformer",
+        "hidden_size": cfg.embed_dim,
+        "num_hidden_layers": cfg.depth,
+        "num_attention_heads": cfg.num_heads,
+        "intermediate_size": int(cfg.embed_dim * cfg.mlp_ratio),
+        "hidden_act": "gelu",
+        "hidden_dropout_prob": 0.0,
+        "attention_probs_dropout_prob": 0.0,
+        "initializer_range": 0.02,
+        "layer_norm_eps": 1e-6,
+        "patch_size": cfg.patch_size,
+        "qkv_bias": True,
+        "frequency_stride": cfg.stride[0],
+        "time_stride": cfg.stride[1],
+        "max_length": _ast_max_length(cfg),
+        "num_mel_bins": cfg.img_size[0],
+        "num_labels": cfg.num_classes,
+    }
+    if labels is not None:
+        d["id2label"] = {str(i): l for i, l in enumerate(labels)}
+        d["label2id"] = {l: i for i, l in enumerate(labels)}
+    return d
+
+
+def feature_extractor_config(cfg: MAESTConfig) -> dict:
+    """Mel front-end constants in HF feature-extractor form (the hub-side
+    ``MAESTFeatureExtractor`` the reference points at — push_to_hub.py:7).
+    ``auto_map`` names the ``feature_extraction_maest.py`` shipped beside
+    the weights, which ``AutoFeatureExtractor`` loads with
+    ``trust_remote_code=True``."""
+    from ..dsp.mel import MelConfig
+
+    mel = MelConfig()
+    return {
+        "feature_extractor_type": "MAESTFeatureExtractor",
+        "auto_map": {
+            "AutoFeatureExtractor":
+                "feature_extraction_maest.MAESTFeatureExtractor",
+        },
+        "sampling_rate": mel.sample_rate,
+        "n_fft": mel.n_fft,
+        "hop_length": mel.hop_length,
+        "num_mel_bins": mel.n_mels,
+        "mel_scale": "slaney",
+        "mel_norm": "slaney",
+        "log_compression_scale": mel.compression_scale,
+        "mean": mel.norm_mean,
+        "std": mel.norm_std,
+        "max_length": _ast_max_length(cfg),
+        "padding_value": 0.0,
+        "return_attention_mask": False,
+    }
+
+
+def save_pretrained(model, cfg: Optional[MAESTConfig], out_dir: str,
+                    labels=None) -> str:
+    """Write an HF-layout model directory: config.json, model.safetensors
+    (AST layout), preprocessor_config.json and feature_extraction_maest.py.
+    Needs the ``safetensors`` package."""
+    try:
+        from safetensors.numpy import save_file
+    except ImportError as err:
+        raise ImportError(
+            "writing model.safetensors needs the 'safetensors' package"
+        ) from err
+    import shutil
+
+    state, cfg = export_state(model, cfg)
+    ast_state = to_hf_ast_state(state)
+    os.makedirs(out_dir, exist_ok=True)
+    save_file(
+        {k: np.ascontiguousarray(v, dtype=np.float32)
+         for k, v in ast_state.items()},
+        os.path.join(out_dir, "model.safetensors"),
+        # "pt" is a metadata tag only (the byte format is identical);
+        # transformers refuses to load files tagged "np"
+        metadata={"format": "pt"},
+    )
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(ast_config_dict(cfg, labels), f, indent=2)
+    with open(os.path.join(out_dir, "preprocessor_config.json"), "w") as f:
+        json.dump(feature_extractor_config(cfg), f, indent=2)
+    shutil.copyfile(
+        os.path.join(os.path.dirname(__file__), "feature_extraction_maest.py"),
+        os.path.join(out_dir, "feature_extraction_maest.py"))
+    return out_dir
+
+
+def save_torch_checkpoint(model, cfg: Optional[MAESTConfig], path: str,
+                          swa_prefix: bool = False) -> str:
+    """Write a torch ``.pt`` state dict in MAEST layout (the reference's
+    safetensors->pytorch direction, packaging/safetensors_to_pytorch.py:7-17),
+    loadable by the upstream repo and by ``get_maest(checkpoint=...)``.
+    ``swa_prefix`` stores keys as ``net_swa.*``, as released files do."""
+    import torch
+
+    state, _ = export_state(model, cfg)
+    prefix = "net_swa." if swa_prefix else ""
+    torch.save({prefix + k: torch.from_numpy(v) for k, v in state.items()},
+               path)
+    return path
+
+
+def push_to_hub(model, cfg: Optional[MAESTConfig], repo_id: str, labels=None,
+                private: bool = True) -> str:
+    """Upload ``save_pretrained``'s directory to the HF hub (needs the
+    network, ``huggingface_hub`` and a login)."""
+    import tempfile
+
+    try:
+        from huggingface_hub import HfApi
+    except ImportError as e:
+        raise RuntimeError("huggingface_hub is not available") from e
+
+    with tempfile.TemporaryDirectory() as tmp:
+        save_pretrained(model, cfg, tmp, labels)
+        api = HfApi()
+        api.create_repo(repo_id, private=private, exist_ok=True)
+        api.upload_folder(folder_path=tmp, repo_id=repo_id)
+    return repo_id

@@ -273,7 +273,7 @@ class _Join(torch.autograd.Function):
 
 def _out_shapes(cfg, rows: int) -> list:
     """The shapes of the ``transformer_block == -1`` outputs of ``rows``."""
-    heads = 1 if cfg.distilled_type == "mean" else 2
+    heads = 2 if cfg.distilled and cfg.distilled_type == "separated" else 1
     return [(rows, cfg.num_classes)] * heads + [(rows, cfg.embed_dim)]
 
 

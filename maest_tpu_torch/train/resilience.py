@@ -98,13 +98,25 @@ def latest_checkpoint(run_dir) -> Optional[str]:
     return str(best_path) if best_path else None
 
 
+def _store_barrier(store, key: str, rank: int, world: int) -> None:
+    """Wait on ``store`` until every rank has reached ``key``: a barrier
+    that needs no process group (the old one may be broken)."""
+    store.set(f"{key}/{rank}", "1")
+    store.wait([f"{key}/{r}" for r in range(world)])
+
+
 def _reinit_distributed(device="cuda") -> None:
     """Tear down and re-form the process group so a restarted attempt can
     build its mesh again (a no-op for one process); ``device``: the
     ranks' device type. The new group meets on the old group's store,
     kept alive across the teardown, under a prefix of its own: a new store
     on the same port would race the old one's closing (a rank joining
-    early reaches the old store and waits there, or finds it closed)."""
+    early reaches the old store and waits there, or finds it closed).
+
+    Every rank tears its old group down before any rank connects the new
+    one (two barriers on the store): gloo's new mesh would otherwise meet
+    a peer still closing the old group's pairs, and its connect fails
+    with "Connection closed by peer"."""
     import torch.distributed as dist
 
     from ..parallel.mesh import init_distributed
@@ -113,13 +125,15 @@ def _reinit_distributed(device="cuda") -> None:
             or dist.get_world_size() <= 1:
         return
     store = dist.distributed_c10d._get_default_store()
-    rank = dist.get_rank()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    # every rank re-forms the group as often, so its own count names it
+    n = store.add(f"maest_rejoin/{rank}", 1)
+    _store_barrier(store, f"maest_rejoin{n}/leave", rank, world)
     try:
         dist.destroy_process_group()
     except Exception:  # noqa: BLE001 — already torn down by the failure
         pass
-    # every rank re-forms the group as often, so its own count names it
-    n = store.add(f"maest_rejoin/{rank}", 1)
+    _store_barrier(store, f"maest_rejoin{n}/left", rank, world)
     init_distributed(device, store=dist.PrefixStore(f"maest_rejoin{n}",
                                                     store))
 

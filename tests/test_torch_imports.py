@@ -46,7 +46,11 @@ def test_import_pulls_in_no_jax():
             "maest_tpu_torch.parallel.tensor_parallel, "
             "maest_tpu_torch.apps.tag, maest_tpu_torch.apps.extract_mel, "
             "maest_tpu_torch.checkpoints.fetch, "
-            "maest_tpu_torch.packaging.hf_ast; "
+            "maest_tpu_torch.packaging.hf_ast, "
+            "maest_tpu_torch.packaging.onnx_export, "
+            "maest_tpu_torch.models.surgery, "
+            "maest_tpu_torch.apps.export_release, maest_tpu_torch.apps.ex_tl, "
+            "maest_tpu_torch.apps.mtt_prepare; "
             "print(sorted(m for m in ('jax', 'jaxlib', 'flax', 'optax', "
             "'orbax', 'sklearn', 'tensorboardX') if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -222,14 +226,26 @@ def _top_level_imports(tree):
             stack += [s for h in getattr(node, "handlers", []) for s in h.body]
 
 
+# the module save_pretrained ships beside exported weights; the package
+# never imports it (it needs transformers)
+SHIPPED = ROOT / "maest_tpu_torch" / "packaging" / "feature_extraction_maest.py"
+
+
 def test_no_optional_trainer_dependency_at_top_level():
-    """sklearn, orbax and tensorboardX are absent where the port runs: no
-    module imports them when it is imported (tensorboardX is tried inside
-    ``Trainer.tb`` only; metrics are numpy; checkpoints ``torch.save``)."""
+    """sklearn, orbax and tensorboardX are absent where the port runs, and
+    transformers, onnx and safetensors may be: no module imports them
+    when it is imported (tensorboardX is tried inside ``Trainer.tb`` only;
+    metrics are numpy; checkpoints ``torch.save``; safetensors inside the
+    loaders and ``save_pretrained``; the ONNX export needs no onnx), save
+    the shipped ``feature_extraction_maest.py``."""
+    optional = ("sklearn", "orbax", "tensorboardX", "transformers", "onnx",
+                "safetensors")
     for f in (ROOT / "maest_tpu_torch").rglob("*.py"):
         bad = [m for m in _top_level_imports(ast.parse(f.read_text()))
-               if m.split(".")[0] in ("sklearn", "orbax", "tensorboardX")]
-        assert not bad, (f, bad)
+               if m.split(".")[0] in optional]
+        assert not bad or f == SHIPPED, (f, bad)
+    assert "transformers" in {m.split(".")[0] for m in _top_level_imports(
+        ast.parse(SHIPPED.read_text()))}
     for f in (ROOT / "maest_tpu_torch").rglob("*.py"):
         bad = [m for m in _imports(f) if m.split(".")[0] in ("sklearn", "orbax")]
         assert not bad, (f, bad)
@@ -277,11 +293,13 @@ def test_port_runs_without_the_jax_package(tmp_path):
     code = """
 import importlib, importlib.util, pkgutil, sys
 assert importlib.util.find_spec("maest_tpu") is None
-for absent in ("sklearn", "orbax", "tensorboardX"):  # as where the port runs
+for absent in ("sklearn", "orbax", "tensorboardX", "transformers", "onnx",
+               "safetensors"):  # as where the port runs
     sys.modules[absent] = None
 import maest_tpu_torch
 for m in pkgutil.walk_packages(maest_tpu_torch.__path__, "maest_tpu_torch."):
-    importlib.import_module(m.name)
+    if not m.name.endswith(".feature_extraction_maest"):  # shipped, not used
+        importlib.import_module(m.name)
 import chip_smoke
 sys.path.insert(0, "tests")
 import torch_oracle
@@ -376,3 +394,29 @@ print("ok")
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+# modules of the JAX package with no counterpart in the port, by design
+NO_COUNTERPART = {
+    # the XLA persistent compilation cache
+    "utils/cache.py",
+    # Mosaic tile arithmetic (round_up to TPU tiles)
+    "utils/shapes.py",
+    # a TF SavedModel through jax2tf, which needs JAX
+    "packaging/export.py",
+}
+
+
+def test_every_module_of_the_jax_package_has_a_counterpart():
+    """The port has a module for every module of the JAX package, save
+    the three that have none by design; the feature extractor it ships
+    is the JAX package's, byte for byte."""
+    def modules(pkg):
+        root = ROOT / pkg
+        return {str(p.relative_to(root)) for p in root.rglob("*.py")
+                if "__pycache__" not in p.parts}
+
+    missing = modules("maest_tpu") - modules("maest_tpu_torch")
+    assert missing == NO_COUNTERPART
+    assert SHIPPED.read_bytes() == (
+        ROOT / "maest_tpu/packaging/feature_extraction_maest.py").read_bytes()

@@ -15,9 +15,11 @@ import jax.numpy as jnp
 from maest_tpu.models.config import MAESTConfig as JaxConfig
 from maest_tpu.models.vit import MAESTNet as JaxNet
 from maest_tpu.models.vit import init_params
+from maest_tpu.models.surgery import per_freq_params_from_conv as per_freq_params_jax
 from maest_tpu.packaging.hf_ast import jax_to_torch_state
 from maest_tpu_torch.checkpoints import load_into, state_from_jax_params
 from maest_tpu_torch.models.config import MAESTConfig
+from maest_tpu_torch.models.surgery import per_freq_params_from_conv
 from maest_tpu_torch.models.vit import MAESTNet
 
 TOL = dict(rtol=2e-4, atol=2e-5)
@@ -175,7 +177,12 @@ def test_range_checks_and_unported_modes(setup):
             tnet(xt, forward_mode="front", **kw)
     with pytest.raises(ValueError, match="forward_mode"):
         tnet(xt, forward_mode="middle")
-    with pytest.raises(NotImplementedError):
-        MAESTNet(MAESTConfig(**GEOM, per_freq_patch_embed=True))
+    # the per-frequency patch embedding is ported: the port's surgery on
+    # the port's state gives the JAX surgery's model
+    jp, jcfg = per_freq_params_jax(params, JaxConfig(**GEOM))
+    state, pcfg = per_freq_params_from_conv(
+        state_from_jax_params(params, MAESTConfig(**GEOM)), MAESTConfig(**GEOM))
+    pnet = load_into(MAESTNet(pcfg), state).eval()
+    _close(_torch(pnet, x)[0], _jax(JaxNet(jcfg), jp, x)[0])
     with pytest.raises(ValueError, match="distilled_type"):
         MAESTNet(MAESTConfig(**GEOM, distilled_type="max"))
