@@ -49,10 +49,13 @@ where their arithmetic is theirs (24); and both rigs,
 ``python -m maest_tpu_torch.probes.qpad`` and ``python -m
 maest_tpu_torch.probes.attn_tune [--bwd]``, called in process with the
 launch counters reset (25). Then the product kernel of
-``scripts/mxu_probe.py`` (P1) and ``scripts/fp8_mlp_probe.py`` (P8)
-against its plain versions in every kind, shape and type, with a planted
-fault refused (26); both rigs, ``python -m maest_tpu_torch.probes.mxu``
-and ``... probes.fp8_mlp``, in process with the counters reset, and
+``scripts/mxu_probe.py`` (P1) and ``scripts/fp8_mlp_probe.py`` (P8), on
+``wgmma`` fed by TMA, and its mma.sync control, against the plain
+versions in every kind, shape and type, with planted faults in the
+wgmma kernel's bf16 and e4m3 paths refused (26); both rigs, ``python -m maest_tpu_torch.probes.mxu``
+and ``... probes.fp8_mlp``, in process with the counters reset (the wgmma
+kernel, the control and the library's product timed by CUDA-graph
+replays in interleaved rounds), and
 head_dim 128 (and 96, zero-padded), 256 and 384 at full width through the
 kernels' D = 128, D = 256 and runtime-width instances:
 ``get_maest(embed_dim=768, num_heads=6 | 3 | 2)`` tagging against the CPU
@@ -307,11 +310,17 @@ Q8F32_REL_L2 = 1e-5
 TILE_REL_L2 = 1e-2
 # P1/P8 vs plain (phase 26): both sum exact products of bf16 (or e4m3)
 # values in fp32, in other orders, and round once to bf16, so an element
-# may round one ulp apart: MMA_ULPS bf16 ulps of max|out|, and a relative
-# L2 of at most MMA_REL_L2, which one of k64big's 56 column blocks left out
-# (~sqrt(1/56) = 0.13) exceeds
+# may round one ulp apart (the wgmma kernel's e4m3 sums keep fewer bits
+# within each 128 values of K, then add into fp32): MMA_ULPS bf16 ulps of
+# max|out|, and a relative L2 of at most MMA_REL_L2, which one of k64big's
+# 56 column blocks left out (~sqrt(1/56) = 0.13) exceeds
 MMA_ULPS = 2
 MMA_REL_L2 = 1e-2
+# e4m3 P8 shapes, tighter: on the H100 the wgmma kernel's two-level sums
+# measured a relative L2 of 4.6e-4 to 4.7e-4 (the control 0), and its e4m3
+# sums kept on the tensor core across every stage 1.1e-3 (fc1, qkv) to
+# 2.0e-3 (fc2), both within MMA_ULPS; the bound refuses the latter
+MMA_E4M3_REL_L2 = 7.5e-4
 # K2/K3a's wgmma kernel vs its mma.sync control (phase 30), lse: the same
 # running max, and l the same fp32 p summed in another order (96-key
 # tiles against 64), so lse moves by a few fp32 ulps of log2(l); measured
@@ -2404,79 +2413,118 @@ def _mma_gap(out, ref):
             (diff.norm() / ref.norm()).item())
 
 
-def phase_mma_kernels(dev, gpu):
-    """Phase 26: the product kernel of P1 and P8 (``csrc/mma_probe.cu``)
-    against its plain versions at the rigs' shapes with the programs cut to
-    2: every P1 kind, and every P8 shape in bf16 and e4m3, within MMA_ULPS
-    bf16 ulps of max|out| and a relative L2 of MMA_REL_L2, each launch
-    counted; a planted fault (one of k64big's 56 column blocks zeroed in b,
-    as a kernel that skipped it) fails the check. Then the plain versions
-    and the library's product (torch.matmul, never called by the port) at
-    the rigs' programs for the kernels line: k64big (48 programs; the
-    library's call is one product of a repeated 56 times along K and b's
-    column blocks stacked along K, the same flops) and fc1 bf16 (32).
-    Returns the errors and times."""
+def _mma_rel_bound(key: str) -> float:
+    """The relative L2 bound of a phase 26 key: MMA_E4M3_REL_L2 for an e4m3
+    P8 shape ("<shape>_fp8"), else MMA_REL_L2."""
+    return MMA_E4M3_REL_L2 if key.endswith("_fp8") else MMA_REL_L2
+
+
+MMA_COUNTS = ("mxu", "mxu_mma", "mlp_bf16", "mlp_e4m3", "mlp_mma_bf16",
+              "mlp_mma_e4m3")
+
+
+def _mma_counts():
+    """The launch counts of the product kernel's wrappers, named as in
+    MMA_COUNTS: mxu_probe, mxu_probe_mma, and mlp_probe and mlp_probe_mma
+    by operand type."""
+    from maest_tpu_torch.ops import mma_probe as M
+
+    return (M.mxu_probe.launches, M.mxu_probe_mma.launches,
+            M.mlp_probe.launches_bf16, M.mlp_probe.launches_e4m3,
+            M.mlp_probe_mma.launches_bf16, M.mlp_probe_mma.launches_e4m3)
+
+
+def phase_mma_kernels(dev, gpu, planted_libs):
+    """Phase 26: the product kernel of P1 and P8 on its route, ``wgmma`` fed
+    by TMA (``csrc/mma_probe_wgmma.cuh``), and its mma.sync control
+    (``csrc/mma_probe.cu``), each against the plain versions at the rigs'
+    shapes with the programs cut to 2: every P1 kind, and every P8 shape in
+    bf16 and e4m3, within MMA_ULPS bf16 ulps of max|out| and a relative L2
+    of MMA_REL_L2 (e4m3 MMA_E4M3_REL_L2), each launch counted in its own
+    wrapper's counter and operand type. Three faults are refused: one of
+    k64big's 56 column blocks zeroed in b (as a kernel that skipped it), and
+    the wgmma kernel built with the last of each bf16 stage's four products
+    dropped, and with the e4m3 sums kept on the tensor core across stages
+    (``planted_libs``, phase 2's builds of PLANT_MMA_BF16 and
+    PLANT_MMA_E4M3, each run here by ``_mma_planted_errs``). Then the plain
+    versions' times at the rigs' programs for the kernels line: k64big (48
+    programs), fc1 in bf16 and e4m3 (32); the folded library product of
+    ``probes.mxu.library_fn`` is held to k64big's plain version. Returns
+    the errors and times."""
     from maest_tpu_torch.ops import mma_probe as M
     from maest_tpu_torch.probes import fp8_mlp, mxu
-    from maest_tpu_torch.probes.attn_profile import graph_ms
 
-    err, parts = {}, []
+    err, parts = {"wgmma": {}, "control": {}}, []
     runs = [(kind, "bf16") for kind in M.KINDS] + [
         (shape, dt) for shape in fp8_mlp.SHAPES for dt in fp8_mlp.DTYPES]
+    wraps = {"wgmma": (M.mxu_probe, M.mlp_probe),
+             "control": (M.mxu_probe_mma, M.mlp_probe_mma)}
     for name, dt in runs:
         p1 = name in M.KINDS
         a, b = (mxu.operands(name, 2, dev) if p1
                 else fp8_mlp.operands(name, dt, 2, dev))
-        wrap = M.mxu_probe if p1 else M.mlp_probe
-        before = wrap.launches
-        if p1:
-            out, ref = M.mxu_probe(a, b, name), M.mxu_probe_reference(a, b, name)
-        else:
-            out, ref = M.mlp_probe(a, b), M.mlp_probe_reference(a, b)
-        torch.cuda.synchronize()
-        e, tol, rel = _mma_gap(out, ref)
+        ref = (M.mxu_probe_reference(a, b, name) if p1
+               else M.mlp_probe_reference(a, b))
         key = name if p1 else f"{name}_{dt}"
-        check(wrap.launches == before + 1 and out.shape == ref.shape
-              and e <= tol and rel <= MMA_REL_L2,
-              f"{key}: max_abs_err {e} (bound {tol}), relative L2 {rel}")
-        err[key] = e
-        parts.append(f"{key} {e:.2e} (<= {tol:.2e}; rel L2 {rel:.1e})")
-        del a, b, out, ref
+        for which, (w1, w8) in wraps.items():
+            before = _mma_counts()
+            out = w1(a, b, name) if p1 else w8(a, b)
+            torch.cuda.synchronize()
+            grew = [x - y for x, y in zip(_mma_counts(), before)]
+            want = [0] * len(MMA_COUNTS)
+            want[MMA_COUNTS.index(
+                ("mxu" if p1 else "mlp") + ("_mma" if which == "control"
+                                            else "")
+                + ("" if p1 else "_e4m3" if dt == "fp8" else "_bf16"))] = 1
+            e, tol, rel = _mma_gap(out, ref)
+            check(grew == want and out.shape == ref.shape and e <= tol
+                  and rel <= _mma_rel_bound(key),
+                  f"{key} {which}: max_abs_err {e} (bound {tol}), relative "
+                  f"L2 {rel}, launches {grew}")
+            err[which][key] = e
+            parts.append(f"{key} {which} {e:.2e} (<= {tol:.2e}; rel L2 "
+                         f"{rel:.2e} <= {_mma_rel_bound(key):.1e})")
+            del out
+        del a, b, ref
     a, b = mxu.operands("k64big", 2, dev)
     skipped = b.clone()
     skipped[..., 13 * M.BLOCK:14 * M.BLOCK] = 0
     e, tol, rel = _mma_gap(M.mxu_probe(a, skipped, "k64big"),
                            M.mxu_probe_reference(a, b, "k64big"))
-    check(e > tol and rel > MMA_REL_L2, f"the planted fault passed: {e} {rel}")
-    print("phase 26 P1/P8 product kernel (csrc/mma_probe.cu) vs plain at the "
+    check(e > tol and rel > MMA_REL_L2, f"the zeroed block passed: {e} {rel}")
+    e_lib = max_err(mxu.library_fn("k64big", a, b)(),
+                    M.mxu_probe_reference(a, b, "k64big"))
+    check(e_lib <= MMA_ULPS * bf16_ulp(M.mxu_probe_reference(
+        a, b, "k64big").float().abs().max().item()),
+          f"the folded library product is not k64big's: {e_lib}")
+    del a, b, skipped
+    bad = _mma_planted_errs(dict(zip(planted_libs, MMA_PLANTED_KEYS)))
+    check(all(g[0] > g[1] or g[2] > _mma_rel_bound(k)
+              for k, g in bad.items()), f"a planted fault passed: {bad}")
+    print("phase 26 P1/P8 product kernel, wgmma (csrc/mma_probe_wgmma.cuh) "
+          "and its mma.sync control (csrc/mma_probe.cu), vs plain at the "
           "rigs' shapes, 2 programs: max_abs_err " + ", ".join(parts)
-          + f"; planted fault (k64big's column block 13 of 56 skipped): "
-          f"{e:.3e} > {tol:.3e}, relative L2 {rel:.4f} > {MMA_REL_L2}: "
-          "refused", flush=True)
+          + f"; k64big's column block 13 of 56 zeroed: {e:.3e} > {tol:.3e}, "
+          f"relative L2 {rel:.4f} > {MMA_REL_L2}: refused; the wgmma kernel "
+          f"built with the last of each bf16 stage's four products dropped,"
+          f" and with its e4m3 sums kept on the tensor core across stages: "
+          + ", ".join(f"{k} {g[0]:.3e} (bound {g[1]:.3e}), relative L2 "
+                      f"{g[2]:.3e} (bound {_mma_rel_bound(k):.1e})"
+                      for k, g in bad.items())
+          + f": refused; the folded library product (torch.matmul) "
+          f"{e_lib:.3e} from k64big's plain version", flush=True)
     t = {}
     a, b = mxu.operands("k64big", 48, dev)
-    a_rep = a.repeat(1, 1, 56)  # (48, N, 56 * 64): a once a column block
-    b_stack = b.reshape(48, 64, 56, M.BLOCK).transpose(1, 2).reshape(
-        48, 56 * 64, M.BLOCK)
-    e = max_err(torch.matmul(a_rep[:2], b_stack[:2]),
-                M.mxu_probe_reference(a[:2], b[:2], "k64big"))
-    check(e <= MMA_ULPS * bf16_ulp(M.mxu_probe_reference(
-        a[:2], b[:2], "k64big").float().abs().max().item()),
-          f"the folded library product is not k64big's: {e}")
-    t["k64big"] = (cuda_ms(lambda: M.mxu_probe_reference(a, b, "k64big"), 3),
-                   graph_ms(lambda: torch.matmul(a_rep, b_stack), 20, dev))
-    del a, b, a_rep, b_stack
-    a, b = fp8_mlp.operands("fc1", "bf16", 32, dev)
-    t["fc1_bf16"] = (cuda_ms(lambda: M.mlp_probe_reference(a, b), 3),
-                     graph_ms(lambda: torch.matmul(a, b), 20, dev))
+    t["k64big"] = cuda_ms(lambda: M.mxu_probe_reference(a, b, "k64big"), 3)
+    for dt in fp8_mlp.DTYPES:
+        a, b = fp8_mlp.operands("fc1", dt, 32, dev)
+        t[f"fc1_{dt}"] = cuda_ms(lambda: M.mlp_probe_reference(a, b), 3)
     del a, b
     torch.cuda.empty_cache()
-    print(f"phase 26 plain / library (torch.matmul, CUDA-graph replays) ms: "
-          f"k64big (48 programs) {t['k64big'][0]:.4f} / {t['k64big'][1]:.4f} "
-          f"(one product over K 56 x 64), fc1 bf16 (32 programs) "
-          f"{t['fc1_bf16'][0]:.4f} / {t['fc1_bf16'][1]:.4f} [{gpu}]",
-          flush=True)
-    return {"err": err, "ms": t}
+    print(f"phase 26 plain versions (CUDA events) ms: k64big (48 programs) "
+          f"{t['k64big']:.4f}, fc1 (32 programs) bf16 {t['fc1_bf16']:.4f}, "
+          f"e4m3 {t['fc1_fp8']:.4f} [{gpu}]", flush=True)
+    return {"err": err, "plain": t}
 
 
 def _tagging(dev, heads, seed):
@@ -2623,12 +2671,20 @@ def phase_wide_heads_and_mma_rigs(dev, gpu):
 
     kinds = ",".join(M.KINDS)
     print(f"phase 27 rigs: python -m maest_tpu_torch.probes.mxu --kinds "
-          f"{kinds}; python -m maest_tpu_torch.probes.fp8_mlp", flush=True)
+          f"{kinds}; python -m maest_tpu_torch.probes.fp8_mlp (the wgmma "
+          f"kernel, its mma.sync control and the library's product in "
+          f"CUDA-graph replays, interleaved rounds)", flush=True)
     _reset_counts()
-    M.mxu_probe.launches = M.mlp_probe.launches = 0
+    M.reset_launches()
     rigs = {"mxu": mxu.main(["--kinds", kinds]), "mlp": fp8_mlp.main([])}
-    launches = {"mxu": M.mxu_probe.launches, "mlp": M.mlp_probe.launches}
-    check(all(launches.values()), f"rig launches {launches}")
+    launches = dict(zip(MMA_COUNTS, _mma_counts()))
+    # each kernel once in each kind's or shape's graph (31 calls: a warm-up
+    # and 30 captured), the control as often, only because the rigs time
+    # it; P8's three shapes in each operand type
+    check(launches["mxu"] == launches["mxu_mma"] == 31 * len(M.KINDS)
+          and all(launches[k] == 31 * len(fp8_mlp.SHAPES) for k in (
+              "mlp_bf16", "mlp_e4m3", "mlp_mma_bf16", "mlp_mma_e4m3")),
+          f"rig launches {launches}")
 
     out = {"err": {}, "ms": {}}
     waves = torch.from_numpy(np.random.default_rng(27).standard_normal(
@@ -2853,9 +2909,11 @@ def phase_int8_rigs(dev, gpu):
                                                            "k64big_i8"),
                              I.int8_big_probe_reference(a, b, "k64big_i8"))
     check(not ok, f"the planted fault passed: {e}")
-    print("phase 28 P2/P3 kernels (csrc/mma_probe.cu 8-bit instances and "
-          "i8q, csrc/attention_probe.cu MIX/MIX8, P1's bf16 instances) vs "
-          "plain at the rigs' N, 2 programs: max_abs_err " + ", ".join(parts)
+    print("phase 28 P2/P3 kernels (csrc/mma_probe.cu's int8 instances and "
+          "i8q, csrc/attention_probe.cu MIX/MIX8; the bf16 kinds and "
+          "k64big_fp8 on the wgmma product kernel, csrc/mma_probe_wgmma.cuh)"
+          " vs plain at the rigs' N, 2 programs: max_abs_err "
+          + ", ".join(parts)
           + f"; planted fault (k64big_i8's column block 13 of 56 skipped): "
           f"{e:.0f} > {tol:.0f}: refused", flush=True)
     del a, b, skipped
@@ -2883,6 +2941,74 @@ def phase_int8_rigs(dev, gpu):
     return {"err": err, "rigs": rigs, "launches": launches, "plain": plain}
 
 
+# phase 26's planted faults in the wgmma product kernel: the bf16
+# consumers skip the last of each stage's four products (a quarter of K);
+# the e4m3 consumers sum every product on the tensor core (scale_d carried
+# across stages into the totals, no fresh stage sums added in fp32)
+PLANT_MMA_BF16 = ((
+    "          mp_bf16<BN>(acc, da + 2 * j, db + 128 * j);",
+    "          if (j < NK - 1) mp_bf16<BN>(acc, da + 2 * j, db + 128 * j);"),)
+PLANT_MMA_E4M3 = (
+    ("          mp_e4m3_n128(part, da + 2 * j, db + 2 * j, j);",
+     "          mp_e4m3_n128(acc, da + 2 * j, db + 2 * j, 1);"),
+    ("            acc[nt][e] = __fadd_rn(acc[nt][e], part[nt][e]);",
+     "            (void)part[nt][e];"))
+# what each planted copy is run on (kinds of P1, shapes of P8 and a type)
+MMA_PLANTED_KEYS = (("k64big", "fc1_bf16"), ("fc1_fp8", "fc2_fp8",
+                                             "qkv_fp8"))
+
+
+def build_planted_mma() -> tuple[tuple[Path, Path], float]:
+    """``csrc/mma_probe.cu`` twice with a planted fault in the wgmma
+    product kernel, PLANT_MMA_BF16 and PLANT_MMA_E4M3 (phase 26 shows its
+    check refusing each); the libraries and the builds' seconds."""
+    bf16, s1 = _build_planted("mma_bf16", "mma_probe", "mma_probe_wgmma.cuh",
+                              *PLANT_MMA_BF16)
+    e4m3, s2 = _build_planted("mma_e4m3", "mma_probe", "mma_probe_wgmma.cuh",
+                              *PLANT_MMA_E4M3)
+    return (bf16, e4m3), s1 + s2
+
+
+def _mma_planted_errs(plants: dict) -> dict:
+    """{key: (max_abs_err, bound, relative L2)} against plain at 2 programs
+    of each planted copy of ``mma_probe`` in ``plants`` ({library: keys, a
+    P1 kind or "<P8 shape>_<type>"}), through ``mxu_probe`` and
+    ``mlp_probe``. Each copy runs in a process of its own (a second copy of
+    a kernel that a process has launched fails there, see
+    ``_planted_err``); the processes run at once and are waited for."""
+    procs = []
+    for lib, keys in plants.items():
+        code = (
+            "import ctypes, json, sys, torch\n"
+            f"sys.path.insert(0, {str(ROOT)!r})\n"
+            "import chip_smoke as C\n"
+            "from maest_tpu_torch.ops import _build, mma_probe as M\n"
+            "from maest_tpu_torch.probes import fp8_mlp, mxu\n"
+            f"_build._libs['mma_probe'] = ctypes.CDLL({str(lib)!r})\n"
+            "dev, bad = torch.device('cuda'), {}\n"
+            f"for key in {list(keys)!r}:\n"
+            "    if key in M.KINDS:\n"
+            "        a, b = mxu.operands(key, 2, dev)\n"
+            "        bad[key] = C._mma_gap(M.mxu_probe(a, b, key),\n"
+            "                              M.mxu_probe_reference(a, b, key))\n"
+            "    else:\n"
+            "        a, b = fp8_mlp.operands(*key.split('_'), 2, dev)\n"
+            "        bad[key] = C._mma_gap(M.mlp_probe(a, b),\n"
+            "                              M.mlp_probe_reference(a, b))\n"
+            "print(json.dumps(bad))\n")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    bad = {}
+    for proc in procs:
+        out, fault = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"a planted fault's process failed:\n{out}"
+                               f"{fault}")
+        bad.update(json.loads(out.strip().splitlines()[-1]))
+    return bad
+
+
 # phase 29's planted fault: the int8 rig's ds8 through the wrapping to_s8
 PLANT_TO_S8 = ("    return to_s8_sat(x);", "    return to_s8(x);")
 
@@ -2902,11 +3028,12 @@ PLANT_BWD_NO_MASK = (
     "    const bool live0 = key0 < n, live1 = key0 + 8 < n;")
 
 
-def _build_planted(tag, lib, header, plant) -> tuple[Path, float]:
-    """``csrc/<lib>.cu`` with the one line ``plant[0]`` of ``header`` (a
-    file of ``csrc/``) replaced by ``plant[1]``, built from a copy of
-    ``csrc/`` under ``build/maest_tpu_torch/planted_<tag>/``; the library's
-    path and the build's seconds."""
+def _build_planted(tag, lib, header, *plants) -> tuple[Path, float]:
+    """``csrc/<lib>.cu`` with, for each plant of ``plants``, the one line
+    ``plant[0]`` of ``header`` (a file of ``csrc/``) replaced by
+    ``plant[1]``, built from a copy of ``csrc/`` under
+    ``build/maest_tpu_torch/planted_<tag>/``; the library's path and the
+    build's seconds."""
     import shutil
 
     from maest_tpu_torch.ops import _build
@@ -2919,8 +3046,10 @@ def _build_planted(tag, lib, header, plant) -> tuple[Path, float]:
     shutil.copytree(_build.CSRC, src)
     source = src / header
     text = source.read_text()
-    check(text.count(plant[0]) == 1, f"the planted fault's line ({tag})")
-    source.write_text(text.replace(*plant))
+    for plant in plants:
+        check(text.count(plant[0]) == 1, f"the planted fault's line ({tag})")
+        text = text.replace(*plant)
+    source.write_text(text)
     out = root / f"{lib}_{tag}.so"
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
                            str(out), str(src / f"{lib}.cu")],
@@ -2954,15 +3083,16 @@ def build_planted_bwd_no_mask() -> tuple[Path, float]:
 
 
 def sass_kinds(path: Path, pattern: str) -> dict:
-    """{kernel: {IGMMA, QGMMA, HGMMA, UTMALDG, instructions}} of the kernels
-    of a built library whose mangled name holds ``pattern``, from
-    ``cuobjdump -sass``: wgmma on s8 (IGMMA), e4m3 (QGMMA) and 16-bit
-    (HGMMA) operands, TMA loads, all instructions; the names demangled by
-    cu++filt where it runs."""
+    """{kernel: {IGMMA, QGMMA, HGMMA, UTMALDG, HMMA, QMMA, instructions}} of
+    the kernels of a built library whose mangled name holds ``pattern``,
+    from ``cuobjdump -sass``: wgmma on s8 (IGMMA), e4m3 (QGMMA) and 16-bit
+    (HGMMA) operands, TMA loads, mma.sync on 16-bit (HMMA) and 8-bit float
+    (QMMA) operands, all instructions; the names demangled by cu++filt
+    where it runs."""
     sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
                            str(path)], capture_output=True, text=True,
                           timeout=600, check=True).stdout
-    keys = ("IGMMA", "QGMMA", "HGMMA", "UTMALDG")
+    keys = ("IGMMA", "QGMMA", "HGMMA", "UTMALDG", "HMMA", "QMMA")
     counts, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -6724,6 +6854,7 @@ def main() -> int:
         tf32_fwd = pool.submit(build_planted_tf32_fwd)
         tf32_bwd = pool.submit(build_planted_tf32_bwd)
         mel_twiddle = pool.submit(build_planted_mel_twiddle)
+        mma_wgmma = pool.submit(build_planted_mma)
         built = dict(zip(libs, pool.map(timed_build, libs)))
         planted_lib, planted_s = planted.result()
         no_mask_lib, no_mask_s = no_mask.result()
@@ -6732,6 +6863,7 @@ def main() -> int:
         tf32_libs = (tf32_fwd.result(), tf32_bwd.result())
         q8w_libs = (q8w_no_mask.result(), q8w_half_away.result())
         mel_lib, mel_s = mel_twiddle.result()
+        mma_libs, mma_s = mma_wgmma.result()
     wall = time.perf_counter() - t0
     for lib in libs:
         _build.load_library(lib)
@@ -6749,8 +6881,10 @@ def main() -> int:
           f"35's of attention_fwd_q8, the wgmma 8-bit forward's key mask "
           f"dropped and its pass rounding half away from zero, "
           f"{q8w_libs[0][1]:.1f} and {q8w_libs[1][1]:.1f} s; phase 36's of "
-          f"mel_kernel, one twiddle's sign flipped, {mel_s:.1f} s)",
-          flush=True)
+          f"mel_kernel, one twiddle's sign flipped, {mel_s:.1f} s; phase "
+          f"26's of mma_probe, the wgmma product kernel's last bf16 product "
+          f"of each stage dropped and its e4m3 sums kept on the tensor core "
+          f"across stages, {mma_s:.1f} s for both)", flush=True)
     for lib, (log, _) in built.items():  # empty where a build was reused
         print(f"phase 2 ptxas {lib}: " + "; ".join(ptxas_rows(log)),
               flush=True)
@@ -6852,6 +6986,29 @@ def main() -> int:
               f"{c['instructions']} instructions" for m, c in kinds.items())
           + "; ptxas: " + "; ".join(q8w_rows), flush=True)
 
+    # the product kernel of P1/P8 on wgmma: bf16 instances on HGMMA, the
+    # e4m3 one on QGMMA, loads on TMA, no mma.sync (HMMA, QMMA), no spill
+    mp_rows = [r for r in ptxas_rows(built["mma_probe"][0])
+               if "mma_probe_wgmma_kernel" in r]
+    mp_sass = sass_kinds(_build.build("mma_probe")[0],
+                         "mma_probe_wgmma_kernel")
+    # the instances <E4M3, BN>, the bool demangled as 1 or true
+    check(len(mp_sass) == 3 and all(
+        c["UTMALDG"] > 0 and c["HMMA"] == c["QMMA"] == c["IGMMA"] == 0
+        and c["QGMMA" if re.search(r"<(1|true),", k) else "HGMMA"] > 0
+        for k, c in mp_sass.items()),
+        f"wgmma/TMA instructions of the wgmma product kernel {mp_sass}")
+    check(not mp_rows or len(mp_rows) == 3 and all(
+        r.endswith("spills 0/0 bytes") for r in mp_rows),
+        f"the wgmma product kernel spills: {mp_rows}")
+    print("phase 2 SASS of the wgmma product kernel of P1/P8 (HGMMA = bf16 "
+          "wgmma, QGMMA = e4m3 wgmma, UTMALDG = TMA load, HMMA / QMMA = "
+          "mma.sync): " + "; ".join(f"{k}: " + ", ".join(
+              f"{c[g]} {g}" for g in ("HGMMA", "QGMMA", "UTMALDG", "HMMA",
+                                      "QMMA")) + f" of {c['instructions']} "
+              "instructions" for k, c in sorted(mp_sass.items()))
+          + "; ptxas: " + "; ".join(mp_rows), flush=True)
+
     # K1, the FFT kernel: no spill; its launch shape
     mel_rows = [r for r in ptxas_rows(built["mel_kernel"][0])
                 if "logmel" in r]
@@ -6904,7 +7061,7 @@ def main() -> int:
     q3 = timed(23, phase_queue3, dev, gpu)
     tiles = timed(24, phase_tile_kernels, dev)
     tune, alone, tune_launches = timed(25, phase_tune_rigs)
-    mma = timed(26, phase_mma_kernels, dev, gpu)
+    mma = timed(26, phase_mma_kernels, dev, gpu, mma_libs)
     wide = timed(27, phase_wide_heads_and_mma_rigs, dev, gpu)
     i8 = timed(28, phase_int8_rigs, dev, gpu)
     p4 = timed(29, phase_bwd_rig, dev, gpu, planted_lib)
@@ -6970,10 +7127,12 @@ def main() -> int:
                                    pv="tf32x3", lse=True, elem=4),
         "bwd_fp32": bwd_bound(BATCH, 866, 12, kind="tf32x3", elem=4),
     }
-    # P1 k64big (48 programs) and P8 fc1 bf16 (32): the rigs' own bounds
+    # P1 k64big (48 programs) and P8 fc1 bf16 and e4m3 (32): the rigs' own
+    # bounds
     from maest_tpu_torch.probes import fp8_mlp, mxu
     bounds["mxu"] = mxu.bound("k64big", 48)
     bounds["mlp"] = fp8_mlp.bound("fc1", "bf16", 32)
+    bounds["mlp_fp8"] = fp8_mlp.bound("fc1", "fp8", 32)
     # P2 k64_i8q (48 programs) and P3 k64big_i8 (8): the rigs' own bounds
     from maest_tpu_torch.probes import int8, int8_2
     bounds["int8_probe"] = int8.bound("k64_i8q", 48)
@@ -7097,20 +7256,38 @@ def main() -> int:
          "maest_tpu/ops/attention.py:530", q3["launches"]["k7_fp32"],
          q3["k7_err"], q3["k7_ms"], "k7_fp32", None),
     ]
-    # P1 k64big and P8 fc1 bf16 at the rigs' programs: the kernel's time
-    # from phase 27's rigs (CUDA-graph replays), plain and library (the
-    # folded torch.matmul, graphs) from phase 26; K2 and K3b at D = 128 from
-    # phase 27, library SDPA
+    # P1 k64big and P8 fc1 bf16 and e4m3 at the rigs' programs, on the
+    # wgmma kernel and (the *_mma rows) its mma.sync control: the times of
+    # phase 27's rigs (CUDA-graph replays in interleaved rounds with the
+    # library's product: k64big's folded torch.matmul, fc1's torch.matmul
+    # and torch._scaled_mm), errors and plain versions from phase 26,
+    # launches of each wrapper over the rigs' run (the mlp rows: of their
+    # operand type); K2 and K3b at D = 128 from phase 27, library SDPA
     r = wide["rigs"]
+    print("kernels line: mma_probe_mxu (P1 k64big, 48 programs), "
+          "mma_probe_mlp (P8 fc1 bf16, 32) and mma_probe_mlp_fp8 (fc1 e4m3) "
+          "are the wgmma kernel; the *_mma rows its mma.sync control; phase "
+          "27's rigs, CUDA-graph replays in interleaved rounds with the "
+          "library's product; each mlp row's launches are of its operand "
+          "type", flush=True)
+    mw = wide["launches"]
+    for which, file, sfx in (("wgmma", "mma_probe_wgmma.cuh", ""),
+                             ("control", "mma_probe.cu", "_mma")):
+        ms = "ms" if which == "wgmma" else "control_ms"
+        rows += [
+            ("mma_probe_mxu" + sfx, file, "scripts/mxu_probe.py:38",
+             mw["mxu" + sfx], mma["err"][which]["k64big"],
+             (r["mxu"]["k64big"][ms], mma["plain"]["k64big"]), "mxu",
+             r["mxu"]["library_k64big"]["ms"]),
+            ("mma_probe_mlp" + sfx, file, "scripts/fp8_mlp_probe.py:47",
+             mw["mlp" + sfx + "_bf16"], mma["err"][which]["fc1_bf16"],
+             (r["mlp"]["fc1_bf16"][ms], mma["plain"]["fc1_bf16"]), "mlp",
+             r["mlp"]["library_fc1_bf16"]["ms"]),
+            ("mma_probe_mlp_fp8" + sfx, file, "scripts/fp8_mlp_probe.py:47",
+             mw["mlp" + sfx + "_e4m3"], mma["err"][which]["fc1_fp8"],
+             (r["mlp"]["fc1_fp8"][ms], mma["plain"]["fc1_fp8"]), "mlp_fp8",
+             r["mlp"]["library_fc1_fp8"]["ms"])]
     rows += [
-        ("mma_probe_mxu", "mma_probe.cu", "scripts/mxu_probe.py:38",
-         wide["launches"]["mxu"], mma["err"]["k64big"],
-         (r["mxu"]["k64big"]["ms"], mma["ms"]["k64big"][0]), "mxu",
-         mma["ms"]["k64big"][1]),
-        ("mma_probe_mlp", "mma_probe.cu", "scripts/fp8_mlp_probe.py:47",
-         wide["launches"]["mlp"], mma["err"]["fc1_bf16"],
-         (r["mlp"]["fc1_bf16"]["ms"], mma["ms"]["fc1_bf16"][0]), "mlp",
-         mma["ms"]["fc1_bf16"][1]),
         ("attention_fwd_d128", "attention_fwd.cu",
          "maest_tpu/ops/attention.py:176", wide["launches"]["k2_d128"]
          + wide["launches"]["k2_d96"], wide["err"]["fwd_d128"],

@@ -20,11 +20,15 @@
 // 256-deep slices and pvbig's heads are one product each here: the kernel
 // walks the whole contraction.
 //
-// It uses K2's instruction path (mma.sync m16n8k16 bf16 and m16n8k32 e4m3
-// and s8 from mma_bf16.cuh / mma_8bit.cuh, ldmatrix fragments, cp.async
-// staging), so its rate is K2's product ceiling in like terms; wgmma and
-// TMA, the only way to the card's full tensor-core rate, are not used
-// (ROADMAP's redesign queue).
+// Two kernels compute it. The bf16 and e4m3 products run on wgmma fed by
+// TMA (mma_probe_wgmma.cuh, entry maest_mma_probe_wgmma): the route of
+// P1, P8 and the bf16 and e4m3 kinds of P2 and P3. The kernel below
+// (entry maest_mma_probe) uses K2's instruction path (mma.sync m16n8k16
+// bf16 and m16n8k32 e4m3 and s8 from mma_bf16.cuh / mma_8bit.cuh,
+// ldmatrix fragments, cp.async staging): it is the route of the int8
+// instances (S8_I32, S8_CVT) and of k64_i8q, and in bf16 and e4m3 the
+// control that ops/mma_probe.py reaches only through its *_mma wrappers,
+// to time the two in one run.
 //
 // What bounds it on the H100: arithmetic at the P1 shapes whose output is
 // narrow or folded (k64, ctrl, ctrlbig, k64big: 0.02-0.64 ms at 989
@@ -87,7 +91,8 @@
 
 #include <type_traits>
 
-#include "mma_8bit.cuh"  // and mma_bf16.cuh
+#include "mma_8bit.cuh"         // and mma_bf16.cuh
+#include "mma_probe_wgmma.cuh"  // the bf16 and e4m3 route on wgmma and TMA
 
 namespace {
 
@@ -546,6 +551,32 @@ int maest_mma_probe(int type, int bn, int fold, const void* a, const void* b,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return fn(a, b, out, batch, m, k, ncols, b_batch, stream);
+}
+
+// The bf16 and e4m3 route: maest_mma_probe's arguments for types 0 and 1,
+// on the wgmma kernel of mma_probe_wgmma.cuh. Its instances: bf16 at bn
+// 256 (fold 1, 7 or 56) and at bn 64 (fold 1); e4m3 at bn 128 (fold 1, 7
+// or 56). m a multiple of 128, ncols of bn, k a positive multiple of 64,
+// and at most 512 bytes a row where fold > 1 (A stays in shared memory
+// for every column block). Launches on `stream`; returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a shape or instance the
+// kernel does not have (or a tensor map cuTensorMapEncodeTiled refuses).
+int maest_mma_probe_wgmma(int type, int bn, int fold, const void* a,
+                          const void* b, void* out, int batch, int m, int k,
+                          int ncols, long long b_batch, void* stream) {
+  switch (type * 1000 + bn) {
+    case 256:
+      return launch_probe_wgmma<false, 256>(a, b, out, batch, m, k, ncols,
+                                            fold, b_batch, stream);
+    case 64:
+      return launch_probe_wgmma<false, 64>(a, b, out, batch, m, k, ncols,
+                                           fold, b_batch, stream);
+    case 1128:
+      return launch_probe_wgmma<true, 128>(a, b, out, batch, m, k, ncols,
+                                           fold, b_batch, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // k64_i8q: out (batch, m, n) bf16 from bf16 a (batch, m, 64) and b (batch,

@@ -30,11 +30,12 @@ saturated to [-128, 127], NaN to 0 (``to_int8``).
 
 On CUDA tensors the wrappers launch hand-written kernels, counted in
 ``int8_probe.launches`` and ``int8_big_probe.launches``: the bf16 kinds are
-the P1 product kernel's bf16 instances (``k64_bf16`` is ``mxu_probe``'s
-k64w, ``pv_bf16`` its pvwide, ``k64big_bf16`` and ``pvbig_bf16`` its own),
-the int8 and e4m3 products its 8-bit instances (``csrc/mma_probe.cu``;
-``k64_i8q`` its amax pass and quantising product), and the mix kinds K2's
-and K5's loops (``csrc/attention_probe.cu``, variants MIX and MIX8). The
+P1's products (``k64_bf16`` is ``mxu_probe``'s k64w, ``pv_bf16`` its
+pvwide, ``k64big_bf16`` and ``pvbig_bf16`` its own) and ``k64big_fp8`` an
+e4m3 one, all on the product kernel's route, ``wgmma`` fed by TMA
+(``csrc/mma_probe_wgmma.cuh``); the int8 products the mma.sync kernel's
+8-bit instances (``csrc/mma_probe.cu``; ``k64_i8q`` its amax pass and
+quantising product), and the mix kinds K2's and K5's loops (``csrc/attention_probe.cu``, variants MIX and MIX8). The
 8-bit products read B column-major and the 8-bit p.v reads b in the
 seq_pos order of ``csrc/mma_8bit.cuh``, so the wrappers copy b into those
 layouts (``int8_pass``); the rigs time the copies inside the call and
@@ -66,6 +67,8 @@ _MIX_BF16, _MIX8 = 6, 8  # attention_probe.cu's variant and mode ids
 # the bf16 kinds are P1's kinds
 _P1 = {"k64_bf16": "k64w", "pv_bf16": "pvwide", "k64big_bf16": "k64big",
        "pvbig_bf16": "pvbig"}
+# the product kernel's type of the 8-bit products but S8_I32's
+_TYPE = {"k64big_fp8": M.E4M3, "k64big_i8cvt": M.S8_CVT}
 
 
 def operand_dtype(kind: str) -> torch.dtype:
@@ -216,17 +219,23 @@ def int8_pass(a: torch.Tensor, b: torch.Tensor, kind: str) -> tuple:
 
 def _check_instance(a, b, kind):
     """Raise for a shape the kernels have no instance of (before any
-    copy): the product kernel takes M a multiple of 128, output columns of
-    its tile and K of 64; k64_i8q K = 64 and M, N multiples of 128; the
-    mix kinds any N."""
+    copy): the bf16 and e4m3 products the tiles of their route
+    (``mma_probe.tile``); the int8 products M a multiple of 128, output
+    columns of the control's tile and K of 64; k64_i8q K = 64 and M, N
+    multiples of 128; the mix kinds any N."""
     if kind.startswith("mix"):
         return
     m, k = a.shape[-2:]
+    big = kind.startswith("k64big")
+    if kind in _P1 or kind == "k64big_fp8":  # the product kernel's route
+        M.tile(m, k, b.shape[-1] // (FOLD if big else 1), FOLD if big else 1,
+               _TYPE.get(kind, M.BF16), M.route(_TYPE.get(kind, M.BF16)))
+        return
     if kind == "k64_i8q":
         ncols, bn = b.shape[-1], M.TILE_M
         ok = k == 64 and not m % M.TILE_M and not ncols % bn
     else:
-        ncols = b.shape[-1] // (FOLD if kind.startswith("k64big") else 1)
+        ncols = b.shape[-1] // (FOLD if big else 1)
         bn = 64 if ncols == 64 else 128
         ok = not (m % M.TILE_M or ncols % bn or k % 64)
     if not ok:
@@ -252,14 +261,11 @@ def launch_pass(a, b, extra, kind: str) -> torch.Tensor:
     fold = FOLD if big else 1
     m, k = a.shape[-2:]
     ncols = b.shape[-2] // fold
-    bn = 64 if ncols == 64 else 128
     a3 = a.reshape((-1, m, k))
     b3 = b.reshape((-1,) + b.shape[-2:])
     out = torch.empty(a.shape[:-1] + (ncols,), dtype=od, device=a.device)
-    kind_type = {"k64big_fp8": M.E4M3, "k64big_i8cvt": M.S8_CVT}.get(
-        kind, M.S8_I32)
-    M._launch(a3, b3, out.view(a3.shape[0], m, ncols), fold, bn,
-              b3[0].numel(), kind_type)
+    M._launch(a3, b3, out.view(a3.shape[0], m, ncols), fold, b3[0].numel(),
+              _TYPE.get(kind, M.S8_I32))
     return out
 
 

@@ -17,14 +17,32 @@ defaults, N 1792):
 ``mlp_probe(a, b)`` computes P8: a (programs, N, K) . b (K, M), bf16 or
 float8_e4m3fn operands (b shared by every program), fp32 sums, bf16 out.
 
-On CUDA tensors both launch ``csrc/mma_probe.cu`` (one product kernel; the
-8-bit instances read B column-major, so ``mlp_probe`` copies a row-major
-e4m3 b once into that layout, and a column-major b, ``b_t.t()``, goes in
-as it lies), counted in ``mxu_probe.launches`` and ``mlp_probe.launches``;
-a shape the kernel has no instance of raises. On CPU tensors they run the
-plain versions, ``mxu_probe_reference`` and ``mlp_probe_reference``: the
-rig's function in fp32 on the exact operand values (e4m3 upcast first),
-each kind's sums in the rig's order, rounded to bf16 once.
+Two hand-written kernels of ``csrc/mma_probe.cu`` compute them on CUDA
+tensors:
+
+- the route: ``wgmma`` fed by TMA (``csrc/mma_probe_wgmma.cuh``, entry
+  ``maest_mma_probe_wgmma``), 128 output rows by 256 columns a block in
+  bf16 (64 for the p.v kinds, whose output is 64 wide) and by 128 in
+  e4m3. ``mxu_probe``, ``mlp_probe`` and ``launch_mxu`` (the bf16 kinds
+  of the int8 rigs) launch it;
+- the control: the ``mma.sync`` kernel (entry ``maest_mma_probe``, 128 by
+  128 or 64), reached only through ``mxu_probe_mma`` and
+  ``mlp_probe_mma``, so that a measurement can time both in one run.
+
+Each wrapper counts its launches in its ``launches``; ``mlp_probe`` and
+``mlp_probe_mma`` also count them by operand type, in ``launches_bf16``
+and ``launches_e4m3``.
+
+8-bit ``wgmma`` has no transpose bit and the control's ``ldmatrix`` cannot
+transpose 8-bit values, so both read e4m3 B column-major: ``mlp_probe``
+copies a row-major e4m3 b once into that layout, and a column-major b,
+``b_t.t()``, goes in as it lies (the rig hands it so: no copy in its timed
+call). A shape a kernel has no instance of raises; a CUDA tensor never
+falls back to the other kernel or to the plain version. On CPU tensors
+the wrappers run the plain versions, ``mxu_probe_reference`` and
+``mlp_probe_reference``: the rig's function in fp32 on the exact operand
+values (e4m3 upcast first), each kind's sums in the rig's order, rounded
+to bf16 once.
 """
 
 from __future__ import annotations
@@ -107,14 +125,70 @@ def _check_mlp(a, b):
 
 # the kernel's operand types and epilogues (``maest_mma_probe``'s type)
 BF16, E4M3, S8_I32, S8_CVT = range(4)
+# the wgmma route's output columns a block: bf16 (256, or 64 for an output
+# 64 wide), e4m3 128 (two fp32 sets a thread: a stage's and the totals)
+WG_BN = {BF16: 256, E4M3: 128}
+RESIDENT_BYTES = 512  # K a row (bytes) that a fold keeps in shared memory
+ENTRIES = {"wgmma": "maest_mma_probe_wgmma", "control": "maest_mma_probe"}
 
 
-def _launch(a, b, out, fold, bn, b_batch, kind_type=BF16):
-    """``maest_mma_probe`` of type ``kind_type`` on contiguous CUDA a
-    (batch, m, k), b and out (batch, m, ncols)."""
+def route(kind_type: int) -> str:
+    """The kernel that takes products of ``kind_type``: "wgmma" for bf16
+    and e4m3, "control" for int8."""
+    return "wgmma" if kind_type in WG_BN else "control"
+
+
+def tile(m: int, k: int, ncols: int, fold: int, kind_type: int = BF16,
+         which: str = "wgmma") -> int:
+    """The output columns a block of ``which`` kernel takes for this
+    shape; raise for a shape it has no instance of."""
+    if which == "wgmma":
+        bn = 64 if kind_type == BF16 and ncols == 64 else WG_BN[kind_type]
+        elem = 2 if kind_type == BF16 else 1
+        ok = (not (m % TILE_M or ncols % bn or k % 64) and k > 0
+              and fold in FOLDS and (fold == 1 or bn != 64
+                                     and k * elem <= RESIDENT_BYTES))
+        if not ok:
+            raise ValueError(
+                f"the wgmma product kernel takes M a multiple of {TILE_M}, "
+                f"output columns of {bn}, K of 64 (at most "
+                f"{RESIDENT_BYTES // elem} over a fold of 7 or 56 column "
+                f"blocks, which a 64-wide output does not take) and a fold "
+                f"of {', '.join(map(str, FOLDS))}; got M {m}, columns "
+                f"{ncols}, K {k}, fold {fold}")
+        return bn
+    bn = 64 if ncols == 64 else 128
+    if m % TILE_M or ncols % bn or k % 64 or fold not in FOLDS:
+        raise ValueError(
+            f"the product kernel takes M a multiple of {TILE_M}, output "
+            f"columns of {bn}, K of 64 and a fold of "
+            f"{', '.join(map(str, FOLDS))}; got M {m}, columns {ncols}, K "
+            f"{k}, fold {fold}")
+    return bn
+
+
+def _launch(a, b, out, fold, b_batch, kind_type=BF16, which=None):
+    """One product of type ``kind_type``: a (batch, m, k), b as the kernel
+    reads it and out (batch, m, ncols), on ``which`` kernel (``route``'s
+    by default), its tile checked first."""
+    batch, m, k = a.shape
+    which = which or route(kind_type)
+    bn = tile(m, k, out.shape[-1], fold, kind_type, which)
+    _run_entry(ENTRIES[which], kind_type, bn, fold, a, b, out, b_batch)
+    return out
+
+
+def _run_entry(entry, kind_type, bn, fold, a, b, out, b_batch):
+    """Load the library and launch ``entry`` on CUDA a, b (made contiguous)
+    and a contiguous out, on the current stream; raise on another device
+    or a failed launch."""
+    for t in (a, b, out):
+        if t.device.type != "cuda":
+            raise ValueError(f"unsupported device {t.device} for {entry}")
+    a, b = a.contiguous(), b.contiguous()
     batch, m, k = a.shape
     lib = _build.load_library("mma_probe")
-    fn = lib.maest_mma_probe
+    fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [
         ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
@@ -122,30 +196,12 @@ def _launch(a, b, out, fold, bn, b_batch, kind_type=BF16):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(kind_type, bn, fold, a.data_ptr(), b.data_ptr(),
                  out.data_ptr(), batch, m, k, out.shape[-1], b_batch, stream)
-    _build.check(lib, err, f"maest_mma_probe type={kind_type} bn={bn} "
-                 f"fold={fold}")
-    return out
-
-
-def _check_tiles(m, k, ncols, bn, ke, fold=1):
-    """Raise for a shape the kernel has no instance of."""
-    if m % TILE_M or ncols % bn or k % ke or fold not in FOLDS:
-        raise ValueError(
-            f"the product kernel takes M a multiple of {TILE_M}, output "
-            f"columns of {bn}, K of {ke} and a fold of "
-            f"{', '.join(map(str, FOLDS))}; got M {m}, columns {ncols}, K "
-            f"{k}, fold {fold}")
-
-
-def _cuda(t, what):
-    if t.device.type != "cuda":
-        raise ValueError(f"unsupported device {t.device} for {what}")
-    return t.contiguous()
+    _build.check(lib, err, f"{entry} type={kind_type} bn={bn} fold={fold}")
 
 
 def mxu_probe(a: torch.Tensor, b: torch.Tensor, kind: str) -> torch.Tensor:
     """P1 ``kind`` on bf16 a and b (see the module docstring); the bf16
-    output. CUDA tensors: ``csrc/mma_probe.cu``; CPU tensors:
+    output. CUDA tensors: the wgmma kernel; CPU tensors:
     ``mxu_probe_reference``."""
     fold = _check_kind(a, b, kind)
     if a.device.type == "cpu":
@@ -155,40 +211,74 @@ def mxu_probe(a: torch.Tensor, b: torch.Tensor, kind: str) -> torch.Tensor:
     return out
 
 
-def launch_mxu(a, b, kind, fold):
-    """The kernel of P1 ``kind`` on checked CUDA a and b, uncounted (the
-    int8 rigs' bf16 kinds are these instances, counted by their own
-    wrappers)."""
+def mxu_probe_mma(a: torch.Tensor, b: torch.Tensor,
+                  kind: str) -> torch.Tensor:
+    """The control of ``mxu_probe``: the mma.sync kernel on CUDA tensors,
+    counted in ``mxu_probe_mma.launches``; CPU tensors run
+    ``mxu_probe_reference``."""
+    fold = _check_kind(a, b, kind)
+    if a.device.type == "cpu":
+        return mxu_probe_reference(a, b, kind)
+    out = launch_mxu(a, b, kind, fold, "control")
+    mxu_probe_mma.launches += 1
+    return out
+
+
+def launch_mxu(a, b, kind, fold, which=None):
+    """The kernel of P1 ``kind`` on checked CUDA a and b (``route``'s, or
+    ``which``), uncounted (the int8 rigs' bf16 kinds are these products,
+    counted by their own wrappers)."""
     ncols = BLOCK if kind in FOLD_KINDS else b.shape[-1]
-    bn = 64 if ncols == 64 else 128
-    _check_tiles(a.shape[-2], a.shape[-1], ncols, bn, 64, fold)
-    a3 = _cuda(a, "mxu_probe").reshape((-1,) + a.shape[-2:])
-    b3 = _cuda(b, "mxu_probe").reshape((-1,) + b.shape[-2:])
+    a3 = a.reshape((-1,) + a.shape[-2:])
+    b3 = b.reshape((-1,) + b.shape[-2:])
     out = torch.empty(a.shape[:-1] + (ncols,), dtype=torch.bfloat16,
                       device=a.device)
-    _launch(a3, b3, out.view(a3.shape[0], a.shape[-2], ncols), fold, bn,
-            b3[0].numel())
+    _launch(a3, b3, out.view(a3.shape[0], a.shape[-2], ncols), fold,
+            b3[0].numel(), BF16, which)
     return out
 
 
 def mlp_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """P8 on a (programs, N, K) and b (K, M), bf16 or e4m3; the bf16
-    (programs, N, M). CUDA tensors: ``csrc/mma_probe.cu``; CPU tensors:
+    (programs, N, M). CUDA tensors: the wgmma kernel; CPU tensors:
     ``mlp_probe_reference``."""
     _check_mlp(a, b)
     if a.device.type == "cpu":
         return mlp_probe_reference(a, b)
+    return _launch_mlp(a, b, "wgmma", mlp_probe)
+
+
+def mlp_probe_mma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The control of ``mlp_probe``: the mma.sync kernel on CUDA tensors;
+    CPU tensors run ``mlp_probe_reference``."""
+    _check_mlp(a, b)
+    if a.device.type == "cpu":
+        return mlp_probe_reference(a, b)
+    return _launch_mlp(a, b, "control", mlp_probe_mma)
+
+
+def _launch_mlp(a, b, which, wrapper):
+    """P8 on ``which`` kernel, counted in ``wrapper``'s launches: all, and
+    those of the operand type."""
     fp8 = a.dtype == torch.float8_e4m3fn
-    _check_tiles(a.shape[1], a.shape[2], b.shape[1], 128, 64)
-    a = _cuda(a, "mlp_probe")
-    # e4m3: B^T rows (ldmatrix cannot transpose 8-bit values)
-    b = _cuda(b.t() if fp8 else b, "mlp_probe")
-    out = torch.empty(a.shape[:2] + (b.shape[0] if fp8 else b.shape[1],),
-                      dtype=torch.bfloat16, device=a.device)
-    _launch(a, b, out, 1, 128, 0, E4M3 if fp8 else BF16)
-    mlp_probe.launches += 1
+    out = torch.empty(a.shape[:2] + (b.shape[1],), dtype=torch.bfloat16,
+                      device=a.device)
+    # e4m3: B^T rows (neither kernel transposes 8-bit values)
+    _launch(a, b.t() if fp8 else b, out, 1, 0, E4M3 if fp8 else BF16, which)
+    wrapper.launches += 1
+    if fp8:
+        wrapper.launches_e4m3 += 1
+    else:
+        wrapper.launches_bf16 += 1
     return out
 
 
-mxu_probe.launches = 0
-mlp_probe.launches = 0
+def reset_launches():
+    """Set every launch count of the product wrappers to 0."""
+    for f in (mxu_probe, mxu_probe_mma, mlp_probe, mlp_probe_mma):
+        f.launches = 0
+    for f in (mlp_probe, mlp_probe_mma):
+        f.launches_bf16 = f.launches_e4m3 = 0
+
+
+reset_launches()

@@ -192,9 +192,9 @@ def time_ms(fn, iters: int, device: torch.device, reps: int = 3) -> float:
     return float(np.median(runs))
 
 
-def graph_ms(fn, iters: int, device: torch.device, reps: int = 3) -> float:
-    """Median over ``reps`` replays of a CUDA graph of ``iters`` calls of
-    ``fn``, ms a call: the device's time with no host issue between calls."""
+def capture(fn, iters: int, device: torch.device):
+    """A CUDA graph of ``iters`` calls of ``fn`` (after one warm-up call off
+    the capture), replayed once."""
     side = torch.cuda.Stream(device)  # warm-up off the capture, as torch asks
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
@@ -205,6 +205,12 @@ def graph_ms(fn, iters: int, device: torch.device, reps: int = 3) -> float:
         for _ in range(iters):
             fn()
     graph.replay()
+    return graph
+
+
+def replay_ms(graph, iters: int, device: torch.device, reps: int) -> float:
+    """Median over ``reps`` replays of ``graph`` (of ``iters`` calls), ms a
+    call, by CUDA events."""
     runs = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -215,8 +221,31 @@ def graph_ms(fn, iters: int, device: torch.device, reps: int = 3) -> float:
         end.record()
         torch.cuda.synchronize(device)
         runs.append(start.elapsed_time(end) / iters)
-    del graph
     return float(np.median(runs))
+
+
+def graph_ms(fn, iters: int, device: torch.device, reps: int = 3) -> float:
+    """Median over ``reps`` replays of a CUDA graph of ``iters`` calls of
+    ``fn``, ms a call: the device's time with no host issue between calls."""
+    graph = capture(fn, iters, device)
+    ms = replay_ms(graph, iters, device, reps)
+    del graph
+    return ms
+
+
+def graph_rounds(fns: dict, iters: int, device: torch.device, rounds: int,
+                 reps: int = 3) -> dict:
+    """{name: [ms a call, one a round]}: a CUDA graph of ``iters`` calls of
+    each of ``fns`` captured once, then ``rounds`` interleaved rounds, each
+    graph's median over ``reps`` replays a round, the order reversed every
+    other round (a, b, b, a), so a drift of the card falls on all alike."""
+    graphs = {name: capture(fn, iters, device) for name, fn in fns.items()}
+    runs = {name: [] for name in fns}
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            runs[name].append(replay_ms(graphs[name], iters, device, reps))
+    del graphs
+    return runs
 
 
 GRAPH_BELOW_N = 300  # below it the host's issue rate sets event times

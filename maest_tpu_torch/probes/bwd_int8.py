@@ -50,8 +50,10 @@ from ..ops import bwd_probe as P
 from .attn_profile import (
     PEAK_BF16,
     PEAK_INT8,
+    capture,
     card_line,
     exp2_floor_ms,
+    replay_ms,
     time_ms,
 )
 
@@ -114,34 +116,6 @@ def bound(kind: str, b: int = B, h: int = H) -> tuple[float, str]:
                                  else "bytes")
 
 
-def _capture(fn, iters: int, device):
-    """A CUDA graph of ``iters`` calls of ``fn`` (after one warm-up call
-    off the capture, as torch asks) and a function that replays it once
-    and returns the ms a call."""
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream(device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-
-    def replay_ms() -> float:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize(device)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize(device)
-        return start.elapsed_time(end) / iters
-
-    return graph, replay_ms
-
-
 def sdpa_bwd_ms(q, k, v, do, iters: int, device) -> float:
     """SDPA (flash backend) forward + backward less forward on (B, N, H, D)
     bf16, by CUDA events: the library's backward, which the port never
@@ -186,13 +160,12 @@ def run(kinds, iters: int, rounds: int, device) -> dict:
     for kind in kinds:
         ops = operands(kind, device)
         made = P.bwd_pass(*ops, kind)
-        call = _capture(lambda ops=ops, kind=kind: P.bwd_probe(*ops, kind),
-                        iters, device)
-        alone = _capture(lambda made=made, kind=kind: P.launch_pass(made,
-                                                                   kind),
-                         iters, device)
-        graphs[kind] = (call[1], alone[1])
-        keep += [ops, made, call[0], alone[0]]
+        graphs[kind] = (
+            capture(lambda ops=ops, kind=kind: P.bwd_probe(*ops, kind),
+                    iters, device),
+            capture(lambda made=made, kind=kind: P.launch_pass(made, kind),
+                    iters, device))
+        keep += [ops, made]
         print(f"# captured {kind}", flush=True)
     if "int8" in kinds:
         print("# int8: fixed scales, as the rig's: its dq, dk, dv are not "
@@ -200,8 +173,8 @@ def run(kinds, iters: int, rounds: int, device) -> dict:
     times = {kind: [] for kind in kinds}
     for r in range(rounds):
         for kind in kinds:
-            call, alone = graphs[kind]
-            times[kind].append((call(), alone()))
+            times[kind].append(tuple(replay_ms(g, iters, device, 1)
+                                     for g in graphs[kind]))
             print(f"round {r} {kind:5s} {times[kind][-1][0]:8.4f} ms/call "
                   f"(kernels alone {times[kind][-1][1]:.4f})", flush=True)
     ctrl = float(np.median([t[0] for t in times["ctrl"]])) if (

@@ -1550,65 +1550,132 @@ def test_bwd_rig_on_the_card(cuda_device, capsys):
 
 
 # --- P1 and P8: the product kernel (ops/mma_probe.py) -----------------------
-# against the plain versions at the rigs' shapes, two programs: 2 bf16 ulps
-# of max|out| (both sum exact products in fp32, in other orders, and round
-# once to bf16) and a relative L2 of at most 1e-2.
+# the wgmma kernel (the route) and its mma.sync control against the plain
+# versions at the rigs' shapes, two programs: 2 bf16 ulps of max|out| (both
+# sum exact products in fp32, in other orders, and round once to bf16; the
+# wgmma kernel's e4m3 sums keep fewer bits within 128 values of K, then add
+# into fp32) and a relative L2 of at most 1e-2, in e4m3 at most 7.5e-4
+# (chip_smoke.py's MMA_E4M3_REL_L2: e4m3 sums kept on the tensor core
+# across the stages exceed it).
+MMA_ULPS, MMA_REL_L2, MMA_E4M3_REL_L2 = 2, 1e-2, 7.5e-4
+
+
+def _mma_close(out, ref, rel=MMA_REL_L2):
+    ref = ref.float()
+    top = ref.abs().max().item()
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    assert (out.float() - ref).abs().max().item() <= MMA_ULPS * 2.0 ** (
+        math.floor(math.log2(top)) - 7)
+    assert ((out.float() - ref).norm() / ref.norm()).item() <= rel
+
+
+@pytest.mark.parametrize("route", ["wgmma", "control"])
 @pytest.mark.parametrize("kind", ["k64", "k64w", "pv", "pvwide", "ctrl",
                                   "ctrlbig", "k64big", "pvbig"])
-def test_mxu_kernel_matches_plain(cuda_device, kind):
-    from maest_tpu_torch.ops.mma_probe import mxu_probe, mxu_probe_reference
+def test_mxu_kernel_matches_plain(cuda_device, kind, route):
+    from maest_tpu_torch.ops import mma_probe as M
     from maest_tpu_torch.probes import mxu
 
     a, b = mxu.operands(kind, 2, cuda_device)
-    before = mxu_probe.launches
-    out = mxu_probe(a, b, kind)
-    ref = mxu_probe_reference(a, b, kind).float()
+    wrap = M.mxu_probe if route == "wgmma" else M.mxu_probe_mma
+    before = (M.mxu_probe.launches, M.mxu_probe_mma.launches)
+    out = wrap(a, b, kind)
     torch.cuda.synchronize()
-    assert mxu_probe.launches == before + 1
-    assert out.shape == ref.shape and out.dtype == torch.bfloat16
-    top = ref.abs().max().item()
-    assert (out.float() - ref).abs().max().item() <= 2 * 2.0 ** (
-        math.floor(math.log2(top)) - 7)
-    assert ((out.float() - ref).norm() / ref.norm()).item() <= 1e-2
+    assert (M.mxu_probe.launches - before[0],
+            M.mxu_probe_mma.launches - before[1]) == (
+        (1, 0) if route == "wgmma" else (0, 1))
+    _mma_close(out, M.mxu_probe_reference(a, b, kind))
 
 
+@pytest.mark.parametrize("route", ["wgmma", "control"])
 @pytest.mark.parametrize("dtype", ["bf16", "fp8"])
 @pytest.mark.parametrize("shape", ["fc1", "fc2", "qkv"])
-def test_mlp_kernel_matches_plain(cuda_device, shape, dtype):
-    from maest_tpu_torch.ops.mma_probe import mlp_probe, mlp_probe_reference
+def test_mlp_kernel_matches_plain(cuda_device, shape, dtype, route):
+    from maest_tpu_torch.ops import mma_probe as M
     from maest_tpu_torch.probes import fp8_mlp
 
     a, b = fp8_mlp.operands(shape, dtype, 2, cuda_device)
-    before = mlp_probe.launches
-    out = mlp_probe(a, b)
-    ref = mlp_probe_reference(a, b).float()
+    wrap = M.mlp_probe if route == "wgmma" else M.mlp_probe_mma
+    before = (M.mlp_probe.launches, M.mlp_probe_mma.launches)
+    typed = (wrap.launches_bf16, wrap.launches_e4m3)
+    out = wrap(a, b)
     torch.cuda.synchronize()
-    assert mlp_probe.launches == before + 1
-    top = ref.abs().max().item()
-    assert (out.float() - ref).abs().max().item() <= 2 * 2.0 ** (
-        math.floor(math.log2(top)) - 7)
-    assert ((out.float() - ref).norm() / ref.norm()).item() <= 1e-2
-    # a row-major e4m3 b is copied into the kernel's layout: the same result
+    assert (M.mlp_probe.launches - before[0],
+            M.mlp_probe_mma.launches - before[1]) == (
+        (1, 0) if route == "wgmma" else (0, 1))
+    assert (wrap.launches_bf16 - typed[0], wrap.launches_e4m3 - typed[1]) == (
+        (1, 0) if dtype == "bf16" else (0, 1))
+    _mma_close(out, M.mlp_probe_reference(a, b),
+               MMA_E4M3_REL_L2 if dtype == "fp8" else MMA_REL_L2)
+    # a row-major e4m3 b is copied into the kernels' layout: the same result
     if dtype == "fp8":
-        assert torch.equal(mlp_probe(a, b.contiguous()), out)
+        assert torch.equal(wrap(a, b.contiguous()), out)
+
+
+def test_mma_wrappers_count_by_route_and_type(cuda_device):
+    """Each product wrapper counts only its own launches: ``mxu_probe`` and
+    ``mlp_probe`` the wgmma kernel's, ``mxu_probe_mma`` and
+    ``mlp_probe_mma`` the control's, and the P8 wrappers each operand type
+    apart (the kernels line prints the e4m3 row's own count)."""
+    from maest_tpu_torch.ops import mma_probe as M
+    from maest_tpu_torch.probes import fp8_mlp, mxu
+
+    def counts():
+        return [M.mxu_probe.launches, M.mxu_probe_mma.launches] + [
+            getattr(f, c) for f in (M.mlp_probe, M.mlp_probe_mma)
+            for c in ("launches", "launches_bf16", "launches_e4m3")]
+
+    a, b = mxu.operands("k64", 2, cuda_device)
+    a8, b8 = fp8_mlp.operands("qkv", "fp8", 2, cuda_device)
+    a16, b16 = fp8_mlp.operands("qkv", "bf16", 2, cuda_device)
+    before = counts()
+    M.mxu_probe(a, b, "k64")
+    M.mlp_probe(a8, b8)
+    M.mlp_probe(a8, b8)
+    M.mlp_probe_mma(a16, b16)
+    torch.cuda.synchronize()
+    assert [x - y for x, y in zip(counts(), before)] == [
+        1, 0, 2, 0, 2, 1, 1, 0]
 
 
 def test_mma_kernel_refuses_what_it_has_no_instance_of(cuda_device):
+    from maest_tpu_torch.ops import mma_probe as M
     from maest_tpu_torch.ops.mma_probe import mlp_probe, mxu_probe
 
-    a = torch.zeros(1, 100, 64, device=cuda_device, dtype=torch.bfloat16)
-    b = torch.zeros(1, 64, 256, device=cuda_device, dtype=torch.bfloat16)
+    bf = dict(device=cuda_device, dtype=torch.bfloat16)
+    a = torch.zeros(1, 100, 64, **bf)
+    b = torch.zeros(1, 64, 256, **bf)
     with pytest.raises(ValueError, match="multiple of 128"):
         mxu_probe(a, b, "k64w")
     with pytest.raises(ValueError, match="fold of 1, 7, 56"):
-        mxu_probe(torch.zeros(1, 128, 64, device=cuda_device,
-                              dtype=torch.bfloat16),
-                  torch.zeros(1, 64, 3 * 256, device=cuda_device,
-                              dtype=torch.bfloat16), "k64")
+        mxu_probe(torch.zeros(1, 128, 64, **bf),
+                  torch.zeros(1, 64, 3 * 256, **bf), "k64")
     with pytest.raises(ValueError, match="K of 64"):
         mlp_probe(torch.zeros(2, 128, 96, device=cuda_device).to(
             torch.float8_e4m3fn), torch.zeros(96, 128, device=cuda_device).to(
             torch.float8_e4m3fn))
+    # the wgmma kernel's own tiles: 256 bf16 columns, K of at most 256
+    # over a fold, 128 e4m3 columns; the control takes the first two
+    with pytest.raises(ValueError, match="output columns of 256"):
+        mxu_probe(torch.zeros(1, 128, 64, **bf),
+                  torch.zeros(1, 64, 384, **bf), "k64w")
+    with pytest.raises(ValueError, match="at most 256"):
+        mxu_probe(torch.zeros(1, 128, 320, **bf),
+                  torch.zeros(1, 320, 7 * 256, **bf), "ctrl")
+    with pytest.raises(ValueError, match="output columns of 128"):
+        mlp_probe(torch.zeros(2, 128, 128, device=cuda_device).to(
+            torch.float8_e4m3fn), torch.zeros(128, 192, device=cuda_device).to(
+            torch.float8_e4m3fn))
+    assert M.mxu_probe_mma(torch.zeros(1, 128, 64, **bf),
+                           torch.zeros(1, 64, 384, **bf), "k64w").shape == (
+        1, 128, 384)
+    # the library refuses what the wrappers would have: a shape or an
+    # instance it has no kernel of (cudaErrorInvalidValue, raised)
+    out = torch.empty(1, 128, 384, **bf)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        M._run_entry("maest_mma_probe_wgmma", M.BF16, 128, 1,
+                     torch.zeros(1, 128, 64, **bf),
+                     torch.zeros(1, 64, 384, **bf), out, 64 * 384)
 
 
 def test_mma_rigs_on_the_card(cuda_device, capsys):
@@ -1617,8 +1684,13 @@ def test_mma_rigs_on_the_card(cuda_device, capsys):
     res = mxu.main(["--programs", "4", "--iters", "2", "--kinds",
                     "k64,pv,k64big"])
     assert all(r["ms"] > 0 and r["tflops"] > 0 for r in res.values())
+    assert set(res) == {"k64", "pv", "k64big", "library_k64big"}
+    assert all(res[k]["control_ms"] > 0 and len(res[k]["rounds"]["wgmma"])
+               == 2 for k in ("k64", "pv", "k64big"))
     res = fp8_mlp.main(["--programs", "2", "--iters", "2"])
     assert {"library_fc1_bf16", "library_fc1_fp8"} <= set(res)
+    assert all(res[f"{s}_{d}"]["control_ms"] > 0 for s in fp8_mlp.SHAPES
+               for d in fp8_mlp.DTYPES)
     out = capsys.readouterr().out
     assert "TFLOP/s" in out and "torch._scaled_mm" in out
 
