@@ -62,7 +62,14 @@ kernels' D = 128, D = 256 and runtime-width instances:
 and timed at batch 32 (at 2 heads also under ``attention_quant="qk8"``
 against bf16), one 30 s recipe step each, K2, K3a, K3b (and at 128 and 384
 K7 and the 8-bit forwards) against plain, timed beside the d 64 kernels at
-the same flops and SDPA (27). Then the int8 product rigs
+the same flops and SDPA; at head_dim 384 (and 320, 512, 1024 at a small
+shape) the bf16 forward's runtime-width kernel on ``wgmma`` and TMA
+(``csrc/attn_fwd_dn_wgmma.cuh``) and its mma.sync control against plain
+with and without lse, the kernel built with the last K chunk of each key
+tile left out of S refused, both timed beside SDPA's efficient attention
+by CUDA-graph replays in interleaved rounds, the tagging step with each in
+alternating rounds and one recipe step with the control (27). Then the int8
+product rigs
 ``scripts/int8_probe.py`` (P2) and ``scripts/int8_probe2.py`` (P3), every
 kind's kernel against its plain version with a planted fault refused, and
 both rigs, ``python -m maest_tpu_torch.probes.int8`` and ``...
@@ -202,6 +209,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -2638,7 +2646,164 @@ def _tagging_q8(dev, model, seed):
     return q8m, e, grew
 
 
-def phase_wide_heads_and_mma_rigs(dev, gpu):
+DN_ROUNDS = 3  # interleaved rounds of phase 27's runtime-width timings
+
+
+def _dn_planted_inputs(dev):
+    """Phase 27's planted fault's (2, 200, 3, 2, 384) bf16 q/k/v, drawn
+    from seed 27."""
+    gen = torch.Generator(device=dev).manual_seed(27)
+    return torch.randn((2, 200, 3, 2, 384), generator=gen, device=dev).to(
+        torch.bfloat16)
+
+
+def _dn_wgmma(dev, gen, gpu, planted_lib) -> dict:
+    """Phase 27's runtime-width bf16 forward on ``wgmma`` and TMA
+    (``csrc/attn_fwd_dn_wgmma.cuh``, the route of maest_attn_fwd_bf16_dn)
+    and its mma.sync control (``attention_fwd_mma``, entry
+    maest_attn_fwd_bf16_dn_mma), each against plain within
+    ATTN_TOL["bfloat16"] and LSE_TOL, each launch counted: K2 at (32, 1676,
+    2, 384), K3a at (32, 866, 2, 384), both at 320, 512 and 1024 at (2,
+    200) n_real 190; the kernel built with the last K chunk of each key
+    tile left out of S refused (``_planted_err``); then CUDA-graph
+    replays of the kernel, the control and SDPA's efficient attention
+    (``sdpa_efficient``) in DN_ROUNDS interleaved rounds at K2's and K3a's
+    shapes and (in 2 rounds) K2's at head_dim 320 and 512, plain timed by
+    CUDA events.
+    Returns the errors and times."""
+    from maest_tpu_torch.ops import attention as A
+    from maest_tpu_torch.probes.attn_profile import graph_rounds
+
+    tol = ATTN_TOL["bfloat16"]
+    err = dict.fromkeys(("wgmma", "wgmma_lse", "control", "control_lse"), 0.0)
+    counted = (A.flash_attention, A.flash_attention_fwd_lse,
+               A.attention_fwd_mma)
+    for b, n, n_real, d in ((BATCH, 1676, None, 384), (BATCH, 866, None, 384),
+                            (2, 200, 190, 320), (2, 200, 190, 512),
+                            (2, 200, 190, 1024)):
+        x = torch.randn((b, n, 3, 2, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        q, k, v = x.unbind(2)
+        lse_runs = (False, True) if b == 2 else ((True,) if n == 866
+                                                  else (False,))
+        before = [f.launches for f in counted]
+        got = {}
+        with torch.inference_mode():
+            for lse in lse_runs:
+                got[("wgmma", lse)] = (
+                    A.flash_attention_fwd_lse(q, k, v, n_real) if lse else
+                    (A.flash_attention(q, k, v, n_real=n_real), None))
+                got[("control", lse)] = A.attention_fwd_mma(q, k, v, n_real,
+                                                            lse)
+            r, rl = A.attention_reference_lse(q, k, v, n_real)
+        torch.cuda.synchronize()
+        grew = [f.launches - c for f, c in zip(counted, before)]
+        want = [int(False in lse_runs), int(True in lse_runs), len(lse_runs)]
+        check(grew == want, f"_dn ({b}, {n}, 2, {d}) launches {grew}")
+        text = []
+        for (route, lse), (o, ol) in got.items():
+            e = max_err(o, r)
+            el = max_err(ol, rl) if lse else 0.0
+            check(o.shape == q.shape and e <= tol and el <= LSE_TOL,
+                  f"_dn {route} ({b}, {n}, 2, {d}) lse {lse}: o {e} lse {el}")
+            key = route + ("_lse" if lse else "")
+            err[key] = max(err[key], e, el)
+            text.append(f"{route}{' with lse' * lse} o {e:.3e}"
+                        + (f" lse {el:.3e}" if lse else ""))
+        print(f"phase 27 the bf16 _dn forward at ({b}, {n}, 2, {d}) n_real "
+              f"{n_real}: the wgmma kernel and the control vs plain: "
+              + ", ".join(text) + f" (bounds {tol}, lse {LSE_TOL}); "
+              f"launches (K2, K3a, control) {grew}", flush=True)
+        del x, q, k, v, got, r, rl
+        torch.cuda.empty_cache()
+
+    x = _dn_planted_inputs(dev)
+    q, k, v = x.unbind(2)
+    sound = max_err(A.flash_attention(q, k, v, n_real=190),
+                    A.attention_reference(q, k, v, 190))
+    bad = _planted_err(planted_lib, "_dn_planted_inputs",
+                       "maest_attn_fwd_bf16_dn", 190, 384)
+    check(sound <= tol < bad, f"planted _dn last chunk {bad}, sound {sound}")
+    print(f"phase 27 planted fault, the _dn wgmma kernel built with the last K "
+          f"chunk of each key tile left out of S, at (2, 200, 2, 384) n_real "
+          f"190: max_abs_err {bad:.3e} > {tol}, refused (the sound kernel "
+          f"{sound:.3e})", flush=True)
+    del x, q, k, v
+
+    ms = {}
+    for name, n, lse, d in (("K2", 1676, False, 384), ("K3a", 866, True, 384),
+                            ("K2_d320", 1676, False, 320),
+                            ("K2_d512", 1676, False, 512)):
+        x = torch.randn((BATCH, n, 3, 2, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        q, k, v = x.unbind(2)
+        fns = {"wgmma": (lambda: A.flash_attention_fwd_lse(q, k, v)) if lse
+               else (lambda: A.flash_attention(q, k, v)),
+               "control": lambda: A.attention_fwd_mma(q, k, v, None, lse),
+               "sdpa": sdpa_efficient(q, k, v, lse=lse)}
+        with torch.inference_mode():  # 2 rounds at 320 and 512
+            rows = graph_rounds(fns, 10, dev, DN_ROUNDS if d == 384 else 2)
+            plain = cuda_ms(lambda: A.attention_reference_lse(q, k, v) if lse
+                            else A.attention_reference(q, k, v), 1)
+        med = {key: float(np.median(v_)) for key, v_ in rows.items()}
+        ms[name] = {**med, "plain": plain, "rounds": rows}
+        print(f"phase 27 the bf16 _dn {'K3a' if lse else 'K2'} at ({BATCH}, "
+              f"{n}, 2, {d}), CUDA-graph ms in {len(rows['wgmma'])} interleaved "
+              "rounds: "
+              + "; ".join(f"{key} " + ", ".join(f"{x_:.4f}" for x_ in v_)
+                          for key, v_ in rows.items())
+              + f"; medians: wgmma {med['wgmma']:.4f}, control "
+              f"{med['control']:.4f} ({med['control'] / med['wgmma']:.2f}x),"
+              f" SDPA (efficient attention) {med['sdpa']:.4f} "
+              f"({med['sdpa'] / med['wgmma']:.2f}x); plain {plain:.4f} "
+              f"(CUDA events) [{gpu}]", flush=True)
+        del x, q, k, v, fns
+        torch.cuda.empty_cache()
+    return {"err": err, "ms": ms}
+
+
+def _tag_dn_rounds(prog, waves, depth, launches, gpu) -> dict:
+    """Phase 27's batch-32 30 s bf16 tagging step at head_dim 384 (``prog``,
+    a BucketPrograms of the num_heads=2 model, run eagerly) with the _dn
+    wgmma kernel and with its mma.sync control (``_K2_CONTROL``) in DN_ROUNDS
+    alternating rounds, CUDA events over 3 steps after one, the launches
+    checked on each; the control's launches into ``launches``. Returns the
+    medians and every round."""
+    from maest_tpu_torch.ops import attention as A
+
+    counted = (A.flash_attention, A.attention_fwd_mma)
+    rows = {"wgmma": [], "control": []}
+    launches["k2_d384_control"] = 0
+    try:
+        for rnd in range(DN_ROUNDS):
+            for route in (("wgmma", "control") if rnd % 2 == 0
+                          else ("control", "wgmma")):
+                A._K2_CONTROL = route == "control"
+                before = [f.launches for f in counted]
+                with torch.inference_mode():
+                    rows[route].append(cuda_ms(lambda: prog._activations(
+                        waves), 3))
+                grew = [f.launches - c for f, c in zip(counted, before)]
+                want = [4 * depth, 0] if route == "wgmma" else [0, 4 * depth]
+                check(grew == want, f"head_dim 384 tagging with the {route}: "
+                      f"launches (K2, control) {grew}")
+                launches["k2_d384_control"] += grew[1]
+    finally:
+        A._K2_CONTROL = False
+    med = {r: float(np.median(ms)) for r, ms in rows.items()}
+    won = sum(a < b for a, b in zip(rows["wgmma"], rows["control"]))
+    print(f"phase 27 head_dim 384 batch-{BATCH} 30 s bf16 tagging step, "
+          f"CUDA events over 3 steps, {DN_ROUNDS} alternating rounds: "
+          f"wgmma {', '.join(f'{x:.3f}' for x in rows['wgmma'])}; control "
+          f"{', '.join(f'{x:.3f}' for x in rows['control'])}; medians "
+          f"{med['wgmma']:.3f} ms ({BATCH * 30 / (med['wgmma'] / 1e3):.1f} "
+          f"audio-s/s) against {med['control']:.3f} (gap "
+          f"{med['control'] - med['wgmma']:.3f} ms), rounds won by the "
+          f"wgmma kernel {won} of {DN_ROUNDS} [{gpu}]", flush=True)
+    return {**med, "rounds": rows}
+
+
+def phase_wide_heads_and_mma_rigs(dev, gpu, dn_planted_lib):
     """Phase 27: the slice's path, with the launch counters set to 0 just
     before and read just after. Both rigs as a user runs them, here their
     ``main`` in process at their default programs (``python -m
@@ -2659,8 +2824,13 @@ def phase_wide_heads_and_mma_rigs(dev, gpu):
     held to plain and timed here too), and beside SDPA (never called by the
     port; flash backend up to head_dim 256, efficient attention at 384),
     and K7 and the 8-bit forwards at D = 128 against their plain versions
-    and timed, K3a timed. Returns the rigs' results, the launches, errors
-    and times."""
+    and timed, K3a timed. At head_dim 384 the bf16 forward runs the
+    runtime-width wgmma kernel: the tagging step is timed with it and with
+    its mma.sync control (``ops.attention._K2_CONTROL``) in DN_ROUNDS
+    alternating rounds, one more recipe step runs K3a's control, and
+    ``_dn_wgmma`` holds both to plain, refuses a planted fault and times
+    them beside SDPA. Returns the rigs' results, the launches, errors and
+    times."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -2699,6 +2869,9 @@ def phase_wide_heads_and_mma_rigs(dev, gpu):
         with torch.inference_mode():
             step = cuda_ms(lambda: prog._activations(waves), 5)
         out["ms"][f"tag_d{768 // heads}"] = step
+        if heads == 2:  # the _dn kernel and its control in turn
+            out["tag_dn"] = _tag_dn_rounds(prog, waves, model.net.cfg.depth,
+                                           launches, gpu)
         launches[f"k2_d{768 // heads}"] = grew[0]
         if heads == 2:  # head_dim 384 under qk8: K5's _dn instance
             q8m, e8, grew8 = _tagging_q8(dev, model, 27 + heads)
@@ -2744,6 +2917,25 @@ def phase_wide_heads_and_mma_rigs(dev, gpu):
               and abs(metrics["train_loss"] - np.log(2)) > 1e-3,
               f"head_dim {d} recipe step: launches {grew}, {metrics}")
         launches[f"k3a_d{d}"], launches[f"k3b_d{d}"] = grew[1], grew[2]
+        if heads == 2:  # one more step with K3a's control
+            before = A.attention_fwd_mma.launches
+            A._K2_CONTROL = True
+            try:
+                _, m2 = step(state, data, torch.Generator().manual_seed(28))
+                torch.cuda.synchronize()
+            finally:
+                A._K2_CONTROL = False
+            launches["k3a_d384_control"] = A.attention_fwd_mma.launches - before
+            check(launches["k3a_d384_control"] == mcfg.depth
+                  and m2["nonfinite_skipped"] == 0.0
+                  and np.isfinite(m2["train_loss"])
+                  and abs(m2["train_loss"] - np.log(2)) > 1e-3,
+                  f"head_dim 384 recipe step with the control: launches "
+                  f"{launches['k3a_d384_control']}, {m2}")
+            print(f"phase 27 {RECIPE} at num_heads 2, one more step with K3a's "
+                  f"control (_K2_CONTROL): loss {m2['train_loss']:.6f}, "
+                  f"control launches {launches['k3a_d384_control']}",
+                  flush=True)
         print(f"phase 27 {RECIPE} at num_heads {heads} (head_dim {d}), batch "
               f"{BATCH}, bf16 over fp32 parameters, heads drawn N(0, 0.05^2):"
               f" one step, loss {metrics['train_loss']:.6f} (not ln 2), "
@@ -2850,6 +3042,7 @@ def phase_wide_heads_and_mma_rigs(dev, gpu):
           + f" [{gpu}]", flush=True)
     torch.cuda.empty_cache()
     _dn8_times(dev, gen, out, gpu)
+    out["dn"] = _dn_wgmma(dev, gen, gpu, dn_planted_lib)
     print(f"phase 27 launches in the path's run: {launches}", flush=True)
     out["rigs"], out["launches"] = rigs, launches
     return out
@@ -3028,10 +3221,21 @@ PLANT_BWD_NO_MASK = (
     "    const bool live0 = key0 < n, live1 = key0 + 8 < n;")
 
 
+# phase 27's planted fault: the runtime-width wgmma kernel's last K chunk of
+# each key tile left out of S (its ring items still taken and released), so
+# the scores miss 64 of dp's columns
+PLANT_DN_LAST_CHUNK = (
+    ("        wgmma_ss<DN_BK>(s, da, db, acc);",
+     "        if (kc + 1 < nch) wgmma_ss<DN_BK>(s, da, db, acc);"),
+    ("        for (int kk = 1; kk < 4; ++kk)  // +32 bytes a k-step",
+     "        for (int kk = 1; kk < 4 * (kc + 1 < nch); ++kk)"))
+
+
 def _build_planted(tag, lib, header, *plants) -> tuple[Path, float]:
     """``csrc/<lib>.cu`` with, for each plant of ``plants``, the one line
     ``plant[0]`` of ``header`` (a file of ``csrc/``) replaced by
-    ``plant[1]``, built from a copy of ``csrc/`` under
+    ``plant[1]`` (a plant of three, (file, line, replacement), names its
+    own file), built from a copy of ``csrc/`` under
     ``build/maest_tpu_torch/planted_<tag>/``; the library's path and the
     build's seconds."""
     import shutil
@@ -3044,12 +3248,12 @@ def _build_planted(tag, lib, header, *plants) -> tuple[Path, float]:
     if src.exists():
         shutil.rmtree(src)
     shutil.copytree(_build.CSRC, src)
-    source = src / header
-    text = source.read_text()
     for plant in plants:
-        check(text.count(plant[0]) == 1, f"the planted fault's line ({tag})")
-        text = text.replace(*plant)
-    source.write_text(text)
+        name, line, repl = plant if len(plant) == 3 else (header, *plant)
+        source = src / name
+        text = source.read_text()
+        check(text.count(line) == 1, f"the planted fault's line ({tag})")
+        source.write_text(text.replace(line, repl))
     out = root / f"{lib}_{tag}.so"
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
                            str(out), str(src / f"{lib}.cu")],
@@ -3069,10 +3273,15 @@ def build_planted_to_s8() -> tuple[Path, float]:
 
 
 def build_planted_no_mask() -> tuple[Path, float]:
-    """``csrc/attention_fwd.cu`` with the wgmma kernel's key mask dropped
-    (phase 30 shows its check refusing the kernel so built)."""
+    """``csrc/attention_fwd.cu`` with the head_dim-64 wgmma kernel's key
+    mask dropped and the runtime-width wgmma kernel's last K chunk of each
+    key tile left out of S, two kernels of one library, so one build
+    serves phase 30 (maest_attn_fwd_bf16) and phase 27
+    (maest_attn_fwd_bf16_dn), each showing its check refusing its kernel
+    so built."""
     return _build_planted("no_mask", "attention_fwd", "attn_fwd_wgmma.cuh",
-                          PLANT_NO_MASK)
+                          PLANT_NO_MASK, *(("attn_fwd_dn_wgmma.cuh", *plant)
+                                           for plant in PLANT_DN_LAST_CHUNK))
 
 
 def build_planted_bwd_no_mask() -> tuple[Path, float]:
@@ -3082,6 +3291,15 @@ def build_planted_bwd_no_mask() -> tuple[Path, float]:
                           "attn_bwd_wgmma.cuh", PLANT_BWD_NO_MASK)
 
 
+@functools.lru_cache(maxsize=None)
+def _sass_text(path: Path) -> str:
+    """``cuobjdump -sass`` of a built library, once a library: phase 2
+    reads several kernels of attention_fwd and attention_bwd."""
+    return subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
+                           str(path)], capture_output=True, text=True,
+                          timeout=600, check=True).stdout
+
+
 def sass_kinds(path: Path, pattern: str) -> dict:
     """{kernel: {IGMMA, QGMMA, HGMMA, UTMALDG, HMMA, QMMA, instructions}} of
     the kernels of a built library whose mangled name holds ``pattern``,
@@ -3089,9 +3307,7 @@ def sass_kinds(path: Path, pattern: str) -> dict:
     (HGMMA) operands, TMA loads, mma.sync on 16-bit (HMMA) and 8-bit float
     (QMMA) operands, all instructions; the names demangled by cu++filt
     where it runs."""
-    sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
-                           str(path)], capture_output=True, text=True,
-                          timeout=600, check=True).stdout
+    sass = _sass_text(path)
     keys = ("IGMMA", "QGMMA", "HGMMA", "UTMALDG", "HMMA", "QMMA")
     counts, name = {}, None
     for line in sass.splitlines():
@@ -3358,23 +3574,27 @@ def _planted_inputs(dev):
     return x
 
 
-def _planted_err(lib: Path) -> float:
-    """max|o - plain| of maest_attn_fwd_bf16 from the library ``lib`` on
-    ``_planted_inputs`` with n_real 900, run in a process of its own: a
-    second copy of a kernel that this process has launched does not take
-    its dynamic shared-memory limit here (its launch fails), so the copy
-    is the only ``attention_fwd`` of that process."""
+def _planted_err(lib: Path, inputs: str = "_planted_inputs",
+                 entry: str = "maest_attn_fwd_bf16", n_real: int = 900,
+                 width: int = 64) -> float:
+    """max|o - plain| of ``entry`` (its width as its leading argument
+    above 256) from the library ``lib`` on the q/k/v that this module's
+    function ``inputs`` draws, with ``n_real``, run in a process of its
+    own: a second copy of a kernel that this process has launched does not
+    take its dynamic shared-memory limit here (its launch fails), so the
+    copy is the only ``attention_fwd`` of that process."""
+    lead = (width,) if width > 256 else ()
     code = (
         "import ctypes, json, sys, torch\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
         "import chip_smoke as C\n"
         "from maest_tpu_torch.ops import _build, attention as A\n"
         f"_build._libs['attention_fwd'] = ctypes.CDLL({str(lib)!r})\n"
-        "q, k, v = C._planted_inputs(torch.device('cuda')).unbind(2)\n"
-        "bad = A.launch_fwd_entry('attention_fwd', 'maest_attn_fwd_bf16', (),"
-        " q, k, v, 900, False, 0.125)[0]\n"
-        "print(json.dumps(C.max_err(bad, A.attention_reference(q, k, v, 900)"
-        ")))\n")
+        f"q, k, v = C.{inputs}(torch.device('cuda')).unbind(2)\n"
+        f"bad = A.launch_fwd_entry('attention_fwd', {entry!r}, {lead!r}, q, "
+        f"k, v, {n_real}, False, {width ** -0.5})[0]\n"
+        "print(json.dumps(C.max_err(bad, A.attention_reference(q, k, v, "
+        f"{n_real}))))\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300, cwd=ROOT)
     if proc.returncode != 0:
@@ -6871,8 +7091,9 @@ def main() -> int:
           f"build/maest_tpu_torch, one nvcc per source at once ("
           + ", ".join(f"{lib} {s:.1f} s" for lib, (_, s) in built.items())
           + f"; phase 29's planted copy of attention_bwd_q8, to_s8 for ds8, "
-          f"{planted_s:.1f} s; phase 30's of attention_fwd, the wgmma "
-          f"kernel's key mask dropped, {no_mask_s:.1f} s; phase 31's of "
+          f"{planted_s:.1f} s; phase 30's and 27's of attention_fwd, the "
+          f"wgmma kernel's key mask dropped and the _dn wgmma kernel's last "
+          f"K chunk left out of S, {no_mask_s:.1f} s; phase 31's of "
           f"attention_bwd, the wgmma backward's key mask dropped, "
           f"{bwd_no_mask_s:.1f} s; phase 32's of attention_bwd_q8, the wgmma "
           f"K7's dq adds of key tile 1 dropped, {k7_dq_s:.1f} s; phase 34's "
@@ -6902,6 +7123,25 @@ def main() -> int:
               f"{k}: {h} HGMMA, {t} UTMALDG of {i} instructions"
               for k, (h, t, i) in sorted(sass.items()))
           + "; ptxas: " + "; ".join(wg_rows), flush=True)
+    # the runtime-width wgmma kernel (head_dim above 256): products on bf16
+    # wgmma, loads on TMA, no mma.sync, no spill
+    dn_rows = [r for r in ptxas_rows(built["attention_fwd"][0])
+               if "attn_fwd_dn_wgmma_kernel" in r]
+    dn_sass = sass_kinds(_build.build("attention_fwd")[0],
+                         "attn_fwd_dn_wgmma_kernel")
+    check(len(dn_sass) == 1 and all(
+        c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0
+        for c in dn_sass.values()),
+        f"wgmma/TMA instructions of the _dn wgmma kernel {dn_sass}")
+    check(not dn_rows or len(dn_rows) == 1
+          and dn_rows[0].endswith("spills 0/0 bytes"),
+          f"the _dn wgmma kernel spills: {dn_rows}")
+    print("phase 2 SASS of the _dn wgmma kernel (HGMMA = bf16 wgmma, UTMALDG "
+          "= TMA load, HMMA = mma.sync): " + "; ".join(
+              f"{k}: " + ", ".join(f"{c[g]} {g}" for g in (
+                  "HGMMA", "UTMALDG", "HMMA")) + f" of {c['instructions']} "
+              "instructions" for k, c in sorted(dn_sass.items()))
+          + "; ptxas: " + "; ".join(dn_rows), flush=True)
     # the wgmma backward: every sweep configuration forms its products on
     # wgmma and loads on TMA; the production one spills nothing
     bw_rows = [r for r in ptxas_rows(built["attention_bwd"][0])
@@ -7062,7 +7302,7 @@ def main() -> int:
     tiles = timed(24, phase_tile_kernels, dev)
     tune, alone, tune_launches = timed(25, phase_tune_rigs)
     mma = timed(26, phase_mma_kernels, dev, gpu, mma_libs)
-    wide = timed(27, phase_wide_heads_and_mma_rigs, dev, gpu)
+    wide = timed(27, phase_wide_heads_and_mma_rigs, dev, gpu, no_mask_lib)
     i8 = timed(28, phase_int8_rigs, dev, gpu)
     p4 = timed(29, phase_bwd_rig, dev, gpu, planted_lib)
     wg = timed(30, phase_wgmma, dev, gpu, no_mask_lib)
@@ -7116,6 +7356,7 @@ def main() -> int:
         "fwd_d256": attn_bound(BATCH, 1676, 3, d=256),
         "bwd_d256": bwd_bound(BATCH, 866, 3, d=256),
         "fwd_dn": attn_bound(BATCH, 1676, 2, d=384),
+        "fwd_lse_dn": attn_bound(BATCH, 866, 2, d=384, lse=True),
         "bwd_dn": bwd_bound(BATCH, 866, 2, d=384),
         "qk8_dn": attn_bound(BATCH, 1676, 2, qk="int8", d=384),
         "fp8_dn": attn_bound(BATCH, 1676, 2, qk="fp8", d=384),
@@ -7332,15 +7573,33 @@ def main() -> int:
     # fp8 kinds at bh 384 (phase 29's rig, CUDA-graph replays of the call,
     # its layout pass included; no PyTorch call computes an 8-bit
     # attention backward)
-    print("kernels line: attention_fwd_dn and attention_bwd_dn at head_dim "
-          "384, library SDPA's efficient-attention backend; bwd_rig at the "
-          "rig's int8 kind, bwd_rig_fp8 at its fp8 kind, both at bh 384",
-          flush=True)
+    print("kernels line: attention_fwd_dn (K2 at (32, 1676, 2, 384)) and "
+          "attention_fwd_lse_dn (K3a at (32, 866, 2, 384)) are the _dn wgmma "
+          "kernel, the *_dn_mma rows its mma.sync control, phase 27's "
+          "CUDA-graph medians beside SDPA's efficient attention, launches on "
+          "phase 27's tagging and recipe steps (the controls' with "
+          "_K2_CONTROL); attention_bwd_dn at head_dim 384, library SDPA's "
+          "efficient-attention backend; bwd_rig at the rig's int8 kind, "
+          "bwd_rig_fp8 at its fp8 kind, both at bh 384", flush=True)
+    dn, wl = wide["dn"], wide["launches"]
+    dk2, dk3 = dn["ms"]["K2"], dn["ms"]["K3a"]
     rows += [
-        ("attention_fwd_dn", "attention_fwd.cu",
-         "maest_tpu/ops/attention.py:176", wide["launches"]["k2_d384"],
-         wide["err"]["fwd_d384"], wide["ms"]["fwd_d384"], "fwd_dn",
-         wide["ms"]["fwd_d384_sdpa"]),
+        ("attention_fwd_dn", "attn_fwd_dn_wgmma.cuh",
+         "maest_tpu/ops/attention.py:176", wl["k2_d384"],
+         max(wide["err"]["fwd_d384"], dn["err"]["wgmma"]),
+         (dk2["wgmma"], dk2["plain"]), "fwd_dn", dk2["sdpa"]),
+        ("attention_fwd_lse_dn", "attn_fwd_dn_wgmma.cuh",
+         "maest_tpu/ops/attention.py:404", wl["k3a_d384"],
+         max(wide["err"]["fwd_lse_d384"], dn["err"]["wgmma_lse"]),
+         (dk3["wgmma"], dk3["plain"]), "fwd_lse_dn", dk3["sdpa"]),
+        ("attention_fwd_dn_mma", "attention_fwd.cu",
+         "maest_tpu/ops/attention.py:176", wl["k2_d384_control"],
+         dn["err"]["control"], (dk2["control"], dk2["plain"]), "fwd_dn",
+         dk2["sdpa"]),
+        ("attention_fwd_lse_dn_mma", "attention_fwd.cu",
+         "maest_tpu/ops/attention.py:404", wl["k3a_d384_control"],
+         dn["err"]["control_lse"], (dk3["control"], dk3["plain"]),
+         "fwd_lse_dn", dk3["sdpa"]),
         ("attention_bwd_dn", "attention_bwd.cu",
          "maest_tpu/ops/attention.py:483", wide["launches"]["k3b_d384"],
          wide["err"]["bwd_d384"], wide["ms"]["bwd_d384"], "bwd_dn",

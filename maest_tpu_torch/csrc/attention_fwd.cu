@@ -64,29 +64,35 @@
 // D_ = 256 in bf16: the template's QSM path (attn_fwd_bf16.cuh), q rows in
 // shared memory.
 //
-// Any head_dim above 256 (the _dn entries): one instance of each tier whose
-// width dp, zero-padded by the caller to a multiple of 64, is a runtime
-// argument, so registers and shared memory do not grow with it. The scores
-// of a key tile are summed over 64-column chunks of K, each staged from
-// global memory for that tile (q's fragments of the chunk read from global
-// memory too); the output is computed in column slices over a third grid
-// axis, each slice's block recomputing the scores and the softmax over the
-// full dp, so at dp 384 the scores are computed 3 times in bf16 (128-column
-// slices: 64 registers of sums beside the score tile, one block an SM) and
-// 6 times in fp32 (64-column slices, one thread a row); at 512, 4 and 8.
-// Only slice 0 writes lse. The bf16 kernel double-buffers its 64 x 64
-// tiles (the K chunks of a key tile, then V's chunks of the slice) with
-// cp.async (a ring of four with one barrier a tile measured no faster at
-// dp 384 on the H100); the fp32 kernel stages 32-key tiles synchronously.
+// Any head_dim above 256 (the _dn entries): the width dp, zero-padded by
+// the caller to a multiple of 64, is a runtime argument, so registers and
+// shared memory do not grow with it. In bf16, maest_attn_fwd_bf16_dn runs
+// the wgmma/TMA kernel of attn_fwd_dn_wgmma.cuh: 128 query rows a block
+// with q resident in shared memory (streamed beside K above dp 768), the
+// key tile's 64-column K chunks and the slice's V chunks through a TMA ring,
+// 192-column output slices over the grid, so at dp 384 the scores are made
+// twice. Its control, maest_attn_fwd_bf16_dn_mma, is the mma.sync kernel
+// below: the scores of a key tile summed over 64-column chunks of K, each
+// staged from global memory for that tile (q's fragments of the chunk read
+// from global memory too), the output in 128-column slices over a third
+// grid axis, each slice's block recomputing the scores and the softmax
+// over the full dp (3 times at dp 384; 64 registers of sums beside the
+// score tile, one block an SM), its 64 x 64 tiles (the K chunks of a key
+// tile, then V's chunks of the slice) double-buffered with cp.async (a ring
+// of four with one barrier a tile measured no faster at dp 384 on the
+// H100). The fp32 kernel computes 64-column slices, one thread a row, so
+// its scores are made 6 times at dp 384 and 8 at 512, and stages 32-key
+// tiles synchronously. Only slice 0 writes lse.
 //
-// Both kernels: grid (B*H, ceil(N / rows per block)). Key tiles wholly at
-// or past n_real would contribute exactly zero (exp2(-1e30 - m) underflows
-// to 0), so the key loop stops at n_real; inside the last tile the keys
-// >= n_real are masked with -1e30 as in the TPU kernel. Query rows past N
-// are computed on clamped inputs and never stored, so any N works.
+// Every kernel: key tiles wholly at or past n_real would contribute
+// exactly zero (exp2(-1e30 - m) underflows to 0), so the key loop stops at
+// n_real; inside the last tile the keys >= n_real are masked with -1e30 as
+// in the TPU kernel. Query rows past N are computed on clamped (or, through
+// TMA, zero) inputs and never stored, so any N works.
 
 #include "attn_fwd_bf16.cuh"   // the bf16 kernel (variant FLASH) and launch
 #include "attn_fwd_wgmma.cuh"  // the bf16 kernel at head_dim 64 on wgmma/TMA
+#include "attn_fwd_dn_wgmma.cuh"  // the bf16 kernel above 256 on wgmma/TMA
 #include "attn_fwd_tf32.cuh"   // the fp32 kernel at head_dim 64, 3xTF32
 
 namespace {
@@ -723,7 +729,11 @@ int maest_attn_fwd_bf16_d256(const void* q, const void* k, const void* v,
 // The same two entries at a head_dim dp above 256, a multiple of 64 (a
 // head_dim between is zero-padded by the caller): (batch, n, heads, dp)
 // views; sl = dp^-0.5 log2(e), or the unpadded head_dim's. Returns
-// cudaErrorInvalidValue for another dp.
+// cudaErrorInvalidValue for another dp. The bf16 entry runs the wgmma/TMA
+// kernel (attn_fwd_dn_wgmma.cuh), so each view's base address and strides
+// must be multiples of 16 bytes; maest_attn_fwd_bf16_dn_mma, the mma.sync
+// kernel it ran before, stays as its control with the same arguments. The
+// fp32 entry runs the scalar FMA kernel.
 int maest_attn_fwd_fp32_dn(int dp, const void* q, const void* k,
                            const void* v, void* out, float* lse, int batch,
                            int n, int heads, int n_real,
@@ -737,6 +747,15 @@ int maest_attn_fwd_bf16_dn(int dp, const void* q, const void* k,
                            const void* v, void* out, float* lse, int batch,
                            int n, int heads, int n_real,
                            const long long* strides, float sl, void* stream) {
+  return launch_fwd_dn_wgmma(dp, q, k, v, out, lse, batch, n, heads, n_real,
+                             strides, sl, stream);
+}
+
+int maest_attn_fwd_bf16_dn_mma(int dp, const void* q, const void* k,
+                               const void* v, void* out, float* lse,
+                               int batch, int n, int heads, int n_real,
+                               const long long* strides, float sl,
+                               void* stream) {
   return launch_dn<bf16>(attn_fwd_bf16_dn_kernel, MQ, 32 * WARPS,
                          (dp + DN_SLICE - 1) / DN_SLICE, dp, q, k, v, out, lse,
                          batch, n, heads, n_real, strides, sl, stream);

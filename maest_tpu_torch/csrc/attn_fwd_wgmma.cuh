@@ -649,14 +649,16 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// the map of a bf16 (B, N, H, 64) view at `ptr` with element strides s
-// (b, n, h): dims (64, H, N, B), boxes of `rows` rows of one head, the
-// 128-byte swizzle, zeros past the edges
+// the map of a bf16 (B, N, H, width) view at `ptr` with element strides s
+// (b, n, h): dims (width, H, N, B), boxes of 64 columns x `rows` rows of
+// one head, the 128-byte swizzle, zeros past the edges
 inline bool encode_bnh64(CUtensorMap* map, const void* ptr, int batch, int n,
-                         int heads, const Strides& s, int rows) {
+                         int heads, const Strides& s, int rows,
+                         int width = 64) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(heads),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(width),
+                              static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(n),
                               static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s.h) * 2,

@@ -20,13 +20,15 @@ any N, strided views). The kernels are built for head_dim 64, 128 and
 256, is a runtime argument (the ``_dn`` entries); any other head_dim runs
 the next of these on inputs zero-padded to its width with its own
 softmax scale (``pad_head_dim``). The bf16 forward at head_dim 64 runs
-the ``wgmma`` / TMA kernel (``csrc/attn_fwd_wgmma.cuh``), the bf16
+the ``wgmma`` / TMA kernel (``csrc/attn_fwd_wgmma.cuh``), and at every
+width above 256 the one of ``csrc/attn_fwd_dn_wgmma.cuh`` (q resident in
+shared memory, 192-column output slices); the bf16
 backward at head_dim 64 the one of ``csrc/attn_bwd_wgmma.cuh`` (one score
 pass per key tile and q tile), the int8 backward in bf16 at head_dim 64
 the s8 ``wgmma`` kernels of ``csrc/attn_bwd_q8_wgmma.cuh``, and the 8-bit
 forwards in bf16 at head_dim 64 the s8 / bf16 / e4m3 ``wgmma`` kernel of
 ``csrc/attn_fwd_q8_wgmma.cuh`` behind its CUDA quantisation pass; their
-``mma.sync`` controls stay as ``attention_fwd_mma``,
+``mma.sync`` controls stay as ``attention_fwd_mma`` (both bf16 forwards),
 ``attention_bwd_mma``, ``attention_bwd_int8_mma`` and
 ``attention_fwd_q8_mma``. The fp32 forward
 and backward at head_dim 64 run the tf32 ``wgmma`` kernels of
@@ -894,8 +896,8 @@ def _fwd(q, k, v, n_real, quant, with_lse):
         out = padded_fwd(_launch_fwd_fma, q, k, v, n_real, with_lse)
         attention_fwd_fp32_fma.launches += 1
         return out
-    if _K2_CONTROL and q.dtype == torch.bfloat16 and padded_dim(
-            q.shape[-1]) == HEAD_DIM:
+    if _K2_CONTROL and q.dtype == torch.bfloat16 and _has_fwd_control(
+            padded_dim(q.shape[-1])):
         out = padded_fwd(_launch_fwd_mma, q, k, v, n_real, with_lse)
         attention_fwd_mma.launches += 1
         return out
@@ -907,26 +909,36 @@ def _fwd(q, k, v, n_real, quant, with_lse):
     return out
 
 
-# Private: True routes the bf16 forward at head_dim 64 through the control
-# (``attention_fwd_mma``) instead of the wgmma kernel, so that a measurement
-# can time the steps of the model with each. Nothing in the package sets it.
+# Private: True routes the bf16 forward at head_dim 64 and at the widths
+# above 256 through the control (``attention_fwd_mma``) instead of the wgmma
+# kernels, so that a measurement can time the steps of the model with each.
+# Nothing in the package sets it.
 _K2_CONTROL = False
+
+
+def _has_fwd_control(d: int) -> bool:
+    """A bf16 kernel width whose forward kept its ``mma.sync`` kernel as the
+    control of a ``wgmma`` one: 64, and every multiple of 64 above 256."""
+    return d == HEAD_DIM or (d > HEAD_DIMS[-1] and d % 64 == 0)
 
 
 def attention_fwd_mma(q, k, v, n_real: int | None = None,
                       with_lse: bool = False):
-    """The control of K2/K3a's wgmma kernel: the ``mma.sync`` kernel
-    (variant FLASH of ``csrc/attn_fwd_bf16.cuh``, entry
-    ``maest_attn_fwd_bf16_mma``) on bf16 CUDA (B, N, H, 64) views; (o, lse
-    or None). It computes what ``flash_attention`` computes, with its own
-    64-key tiles; counted in ``attention_fwd_mma.launches``."""
+    """The control of K2/K3a's wgmma kernels: the ``mma.sync`` kernels, at
+    head_dim 64 variant FLASH of ``csrc/attn_fwd_bf16.cuh`` (entry
+    ``maest_attn_fwd_bf16_mma``) and at a multiple of 64 above 256 the
+    runtime-width kernel of ``csrc/attention_fwd.cu`` (entry
+    ``maest_attn_fwd_bf16_dn_mma``), on bf16 CUDA (B, N, H, D) views; (o,
+    lse or None). It computes what ``flash_attention`` computes, with its
+    own 64-key tiles; counted in ``attention_fwd_mma.launches``."""
     n_real, _, _ = _check_args(q, k, v, n_real, None)
     if q.device.type == "cpu":
         if with_lse:
             return attention_reference_lse(q, k, v, n_real)
         return attention_reference(q, k, v, n_real), None
-    if q.dtype != torch.bfloat16 or q.shape[-1] != HEAD_DIM:
-        raise ValueError("the control takes bf16 q, k, v at head_dim 64")
+    if q.dtype != torch.bfloat16 or not _has_fwd_control(q.shape[-1]):
+        raise ValueError("the control takes bf16 q, k, v at head_dim 64 or a "
+                         "multiple of 64 above 256")
     out = _launch_fwd_mma(q, k, v, n_real, with_lse, q.shape[-1]**-0.5)
     attention_fwd_mma.launches += 1
     return out
@@ -1152,9 +1164,14 @@ def _launch_fwd(q, k, v, n_real, with_lse, scale):
 
 
 def _launch_fwd_mma(q, k, v, n_real, with_lse, scale):
-    """The control of K2/K3a on checked bf16 views at head_dim 64."""
-    return launch_fwd_entry("attention_fwd", "maest_attn_fwd_bf16_mma", (), q,
-                            k, v, n_real, with_lse, scale)
+    """The control of K2/K3a on checked bf16 views at head_dim 64 or a
+    multiple of 64 above 256 (``maest_attn_fwd_bf16_dn_mma``, which takes
+    the width)."""
+    d = q.shape[-1]
+    name, lead = (("maest_attn_fwd_bf16_mma", ()) if d == HEAD_DIM else
+                  ("maest_attn_fwd_bf16_dn_mma", (d,)))
+    return launch_fwd_entry("attention_fwd", name, lead, q, k, v, n_real,
+                            with_lse, scale)
 
 
 def _launch_fwd_fma(q, k, v, n_real, with_lse, scale):

@@ -139,6 +139,73 @@ def test_control_takes_plain_version_and_matches_jax(dtype, monkeypatch):
             A.attention_fwd_mma(bad, bad, bad)
 
 
+def _fwd_recorder(seen):
+    def launch(lib_name, name, lead, q, k, v, n_real, with_lse, scale):
+        seen.append((name, lead, q.dtype, q.shape[-1]))
+        b, n, h, _ = q.shape
+        lse = (torch.empty((b, h, n), device=q.device) if with_lse else None)
+        return torch.empty_like(q), lse
+    return launch
+
+
+@pytest.mark.parametrize("control", [False, True], ids=["wgmma", "control"])
+def test_forward_route_names_the_dn_wgmma_entry(control, monkeypatch):
+    """On meta tensors, which take the card's route up to the launch, with
+    the launcher replaced by a recorder: bf16 at head_dim 320, 384 and
+    1024 (and 300, zero-padded to 320) names ``maest_attn_fwd_bf16_dn``,
+    the wgmma kernel, with its width, counted in ``flash_attention`` and
+    ``flash_attention_fwd_lse``; with ``_K2_CONTROL`` it names
+    ``maest_attn_fwd_bf16_dn_mma``, counted in ``attention_fwd_mma``, as
+    head_dim 64 names ``maest_attn_fwd_bf16_mma``. fp32 and head_dim 128
+    and 256 keep their entries either way. ``attention_fwd_mma`` takes the
+    widths above 256 and refuses fp32 and head_dim 128 and 256."""
+    from maest_tpu_torch.ops import attention as A
+
+    seen = []
+    monkeypatch.setattr(A, "launch_fwd_entry", _fwd_recorder(seen))
+    monkeypatch.setattr(A, "_K2_CONTROL", control)
+    counted = (A.flash_attention, A.flash_attention_fwd_lse,
+               A.attention_fwd_mma)
+    for f in counted:
+        monkeypatch.setattr(f, "launches", 0)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases = ((bf16, 320), (bf16, 384), (bf16, 1024), (bf16, 300), (bf16, 64),
+             (fp32, 384), (bf16, 128), (bf16, 256))
+    for dtype, d in cases:
+        x = torch.zeros(1, 4, 2, d, dtype=dtype, device="meta")
+        o = A.flash_attention(x, x, x)
+        o2, lse = A.flash_attention_fwd_lse(x, x, x)
+        assert o.shape == o2.shape == x.shape and lse.shape == (1, 2, 4)
+    sfx = "_mma" if control else ""
+    want = {
+        (bf16, 320): ("maest_attn_fwd_bf16_dn" + sfx, (320,), 320),
+        (bf16, 384): ("maest_attn_fwd_bf16_dn" + sfx, (384,), 384),
+        (bf16, 1024): ("maest_attn_fwd_bf16_dn" + sfx, (1024,), 1024),
+        (bf16, 300): ("maest_attn_fwd_bf16_dn" + sfx, (320,), 320),
+        (bf16, 64): ("maest_attn_fwd_bf16" + sfx, (), 64),
+        (fp32, 384): ("maest_attn_fwd_fp32_dn", (384,), 384),
+        (bf16, 128): ("maest_attn_fwd_bf16_d128", (), 128),
+        (bf16, 256): ("maest_attn_fwd_bf16_d256", (), 256)}
+    assert seen == [(want[c][0], want[c][1], c[0], want[c][2])
+                    for c in cases for _ in range(2)]
+    assert [f.launches for f in counted] == ([3, 3, 10] if control
+                                             else [8, 8, 0])
+    seen.clear()
+    for d in (384, 1024):
+        x = torch.zeros(1, 4, 2, d, dtype=bf16, device="meta")
+        assert A.attention_fwd_mma(x, x, x, with_lse=True)[1].shape == (1, 2,
+                                                                         4)
+    assert seen == [("maest_attn_fwd_bf16_dn_mma", (d,), bf16, d)
+                    for d in (384, 1024)]
+    assert A.attention_fwd_mma.launches == (12 if control else 2)
+    for bad in (torch.zeros(1, 8, 2, 384, device="meta"),
+                torch.zeros(1, 8, 2, 128, device="meta", dtype=bf16),
+                torch.zeros(1, 8, 2, 256, device="meta", dtype=bf16)):
+        with pytest.raises(ValueError, match="bf16 q, k, v at head_dim 64 or "
+                           "a multiple of 64 above 256"):
+            A.attention_fwd_mma(bad, bad, bad)
+
+
 # --- training: forward with lse (K3a) and backward (K3b, K4) -------------
 # Tolerances, as the JAX package's own (tests/test_flash_attention.py):
 # fp32 rtol 1e-3 / atol 1e-4; bf16 2e-2 (absolute and relative), compared

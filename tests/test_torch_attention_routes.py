@@ -309,10 +309,10 @@ def test_head_dim_256_matches_jax_flash_interpret(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("d", [320, 512])
+@pytest.mark.parametrize("d", [320, 384, 512])
 def test_wide_head_dim_matches_jax_flash_interpret(d, dtype):
-    """As at 128, at head_dim 320 and 512 (the runtime-width instances'
-    widths on the card)."""
+    """As at 128, at head_dim 320, 384 and 512 (the runtime-width instances'
+    widths on the card; 384 is ``get_maest(embed_dim=768, num_heads=2)``'s)."""
     _vs_jax_flash(d, dtype)
 
 

@@ -903,10 +903,12 @@ def test_wide_head_dim_matches_plain(cuda_device, d, dtype):
 # --- head_dim above 256: every kernel's _dn instance ------------------------
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("d", [320, 512, 1024])
+@pytest.mark.parametrize("d", [320, 384, 512, 1024])
 def test_dn_head_dim_matches_plain(cuda_device, d, dtype):
     """K2, K3a and K3b at head_dim d through the runtime-width (_dn)
-    instances, each launched once, against the plain versions within the
+    instances (in bf16 K2/K3a's wgmma kernel, csrc/attn_fwd_dn_wgmma.cuh,
+    q resident up to 768 and streamed at 1024), each launched once,
+    against the plain versions within the
     bounds head_dim 64 is held to; K7 under bwd_quant="int8" through its
     _dn instance, launched once: bf16 within 2e-2 of each gradient's max,
     fp32 within 1e-5 of it but for at most 4 rows (b, n, h), all within
@@ -947,6 +949,38 @@ def test_dn_head_dim_matches_plain(cuda_device, d, dtype):
         if dtype == torch.float32:
             assert int((err.amax(dim=-1) > 1e-5 * top).sum()) <= 4
     assert not got[1][:, 190:].any() and not got[2][:, 190:].any()
+
+
+@pytest.mark.parametrize("d", [384, 1024])
+def test_dn_forward_control_matches_plain(cuda_device, d):
+    """The control of the bf16 _dn forward (attention_fwd_mma, the mma.sync
+    kernel, entry maest_attn_fwd_bf16_dn_mma) at head_dim d with and
+    without lse, on strided views of a fused qkv, against plain within the
+    bf16 bound and LSE_TOL, each launch counted in attention_fwd_mma and
+    none in the route's counters; with _K2_CONTROL a forward at that width
+    launches the control, not the wgmma kernel."""
+    from maest_tpu_torch.ops import attention as A
+
+    x = _rand((2, 200, 3, 2, d), 90 + d).to(cuda_device, torch.bfloat16)
+    q, k, v = x.unbind(2)
+    counted = (A.attention_fwd_mma, flash_attention, flash_attention_fwd_lse)
+    before = [f.launches for f in counted]
+    o, none = A.attention_fwd_mma(q, k, v, 190)
+    ol, lse = A.attention_fwd_mma(q, k, v, 190, with_lse=True)
+    r, rl = attention_reference_lse(q, k, v, 190)
+    torch.cuda.synchronize()
+    assert [f.launches - c for f, c in zip(counted, before)] == [2, 0, 0]
+    assert none is None and torch.equal(o, ol) and o.shape == q.shape
+    assert (o.float() - r.float()).abs().max().item() <= ATTN_TOL[
+        torch.bfloat16]
+    assert (lse - rl).abs().max().item() <= LSE_TOL
+    A._K2_CONTROL = True
+    try:
+        hooked = flash_attention(q, k, v, n_real=190)
+    finally:
+        A._K2_CONTROL = False
+    assert torch.equal(hooked, o)
+    assert [f.launches - c for f, c in zip(counted, before)] == [3, 0, 0]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
