@@ -23,11 +23,16 @@ the int8 backward (K7) against its plain version and against the bf16
 backward (15), the 30 s recipe step with ``attention_bwd_quant="int8"``,
 then with ``attention_quant="qk8"`` and with both (16), and the PyTorch
 library calls timed as yardsticks beside K2, K3a, K3b and K4 (17). Then
-the decomposition rig: its four probe kernels (P6a-d, the variants of K2's
-mma.sync loop in ``csrc/attention_probe.cu``) against their plain versions
-and K2 (18), and ``python -m maest_tpu_torch.probes.attn_profile`` at both
-tagging and training shapes, called in process with the launch counters
-reset (19). Then the last rigs' kernels: K2 with G heads a block (P6e)
+the decomposition rig: its four probe kernels (P6a-c, the variants of K2's
+mma.sync loop in ``csrc/attention_probe.cu``; P6d, bf16 scores, on K2's
+wgmma kernel, with its mma.sync variant behind the PyTorch pre-scaling
+pass as its control) against their plain versions and K2, the wgmma P6d
+built with the bf16 rounding of its scores left out refused (18), and
+``python -m
+maest_tpu_torch.probes.attn_profile`` at both tagging and training shapes,
+called in process with the launch counters reset, then P6d, its control,
+K2's two kernels and SDPA timed by CUDA-graph replays in interleaved
+rounds (19). Then the last rigs' kernels: K2 with G heads a block (P6e)
 bit-equal to K2's mma.sync kernel (now the control of the wgmma kernel
 that K2 runs) and the int8 rig's kernel (P6f) against its plain
 version
@@ -187,6 +192,15 @@ and one bf16 train step each against the card's plain attention route,
 the card against its CPU run; ``launches_surgery`` in the kernels line.
 Phase 5 also holds the port to the goldens of ``tests/torch_goldens.py``
 (5 s, 10 s, 20 s, the 519-label head, per-frequency, non-distilled).
+Phase 42 holds K3b at head_dim 256 on wgmma (``csrc/attn_bwd_d256_wgmma.cuh``,
+a dk/dv and a dq kernel; the route of head_dim 129-256 in bf16, and so of
+phase 27's ``num_heads=3`` recipe step) to its tiled plain version, plain
+and its mma.sync control at (2, 200) n_real 190, (32, 866) and head_dim
+192, two launches bit-equal, masked dk/dv exactly zero, the kernels
+built with dV's last q tile left out refused; then
+times it beside the control and SDPA by CUDA-graph replays in interleaved
+rounds, and the 30 s recipe step at ``num_heads=3`` with each backward in
+turn.
 Each phase's seconds print as it ends. A
 split by torch.profiler
 is printed only from a trace that holds every launch its route makes, by
@@ -284,6 +298,13 @@ PROBE_ULPS = 2
 # is 1e-2 of max(1, the largest |o|): at N 100 |o| reaches 1.5, where one
 # bf16 ulp is 7.8e-3
 PROBE_VS_K2 = 1e-2
+# bf16s and its control are nearer their own plain version than K2's output:
+# max|o - K2| above max|o - plain| (the CPU test's check, whose 4x margin
+# does not hold at (3, 100), where a few outputs of the largest |o| set both
+# maxima), and mean|o - K2| above PROBE_NEAR times mean|o - plain| (the two
+# round at the same points, so most outputs agree to the bit; K2 rounds
+# neither q's pre-scale nor the scores, which moves most of them)
+PROBE_NEAR = 4
 # P6e: gh<G> vs K2 is torch.equal (each head runs K2's arithmetic).
 # P6f int8 vs plain (fp32 outputs), each row (b, n, h): one exp2 ulp may
 # flip the rounding of one p8, which moves the row by at most
@@ -352,10 +373,25 @@ BWD_WG_SHAPES = ((BATCH, 866, None), (BATCH, 896, 866), (100, 281, None),
                  (2, 4500, 4400))
 
 
+# phase 42's shapes (b, n, n_real, heads, head_dim): K3b at head_dim 256 past
+# n_real at a small N, at the 30 s recipe's (32, 866) with num_heads 3, and
+# at head_dim 192, zero-padded to 256 by the route
+D256_BWD_SHAPES = ((2, 200, 190, 3, 256), (BATCH, 866, None, 3, 256),
+                   (2, 300, 281, 2, 192))
+# its bound: each gradient within 1e-2 of max(1, its max |x|) of the tiled
+# plain version and of plain (tests/test_torch_bwd_wgmma.py's bf16
+# PLAIN_TOL: an fp32 sum in another order may round p, ds or an output to
+# the neighbouring bf16 value)
+D256_REL_TOL = 1e-2
+D256_ROUNDS = 5  # interleaved rounds of phase 19's and 42's timings
+
+
 def wg_production(n_real: int) -> int:
     """The configuration maest_attn_fwd_bf16 takes at n_real keys: 112-key
-    tiles (4) where they pad the keys less than 96-key ones (0)."""
-    return 4 if -(-n_real // 112) * 112 < -(-n_real // 96) * 96 else 0
+    tiles (4) or 96-key ones (0), as ``wg_key_tile`` chooses."""
+    from maest_tpu_torch.ops.attention import wg_key_tile
+
+    return 4 if wg_key_tile(n_real) == 112 else 0
 # H100 SXM data-sheet peaks (dense), for the bounds of the kernels line;
 # "tf32x3": an fp32-accurate product as three tf32 products (3xTF32)
 PEAK = {"bf16": 989e12, "fp8": 1979e12, "int8": 1979e12, "fp32": 67e12,
@@ -1556,20 +1592,76 @@ def phase_library(dev, gpu):
     return out
 
 
-def phase_probe_kernels(dev):
-    """Phase 18: the four probe kernels (P6a-d) against their plain
-    versions on the same 64-key tiles, N(0, 1) inputs, at (2, 1676),
-    (2, 866), (3, 100) and the rig's (32, 1676) and (32, 866): within
-    PROBE_ULPS bf16
-    ulps of the largest |o| (mxu_only: of its own, ~250). noexp_max and
-    bf16s compute softmax attention: within PROBE_VS_K2 of K2's output at
-    the first three shapes; novmax is another function, farther than that
-    at (2, 1676). Returns each variant's max_abs_err and its plain
-    version's ms at (32, 1676)."""
+def _bf16s_planted_inputs(dev, n: int = 866):
+    """Phase 18's planted fault's (2, n, 3, 12, 64) bf16 q/k/v, N(0, 1),
+    drawn from seed 40 + n."""
+    gen = torch.Generator(device=dev).manual_seed(40 + n)
+    return torch.randn((2, n, 3, 12, 64), generator=gen, device=dev).to(
+        torch.bfloat16)
+
+
+def _near_plain(o, r, k2) -> dict:
+    """o's distances to its plain version r and to K2's output k2: max and
+    mean |difference|."""
+    def mean(a, b):
+        return (a.float() - b.float()).abs().mean().item()
+    return {"err": max_err(o, r), "k2": max_err(o, k2), "mean": mean(o, r),
+            "mean_k2": mean(o, k2)}
+
+
+def _near_holds(d: dict, tol: float) -> bool:
+    """Phase 18's checks of bf16s (and its control) on ``_near_plain``'s
+    distances: within ``tol`` of plain, and nearer plain than K2 (PROBE_NEAR
+    on the means)."""
+    return (d["err"] <= tol and d["k2"] > d["err"]
+            and d["mean_k2"] > PROBE_NEAR * d["mean"])
+
+
+def _bf16s_gap(n: int) -> dict:
+    """``_near_plain`` of bf16s on ``_bf16s_planted_inputs(n)`` at n_real
+    n - 16, and the PROBE_ULPS bound of its plain version ("tol")."""
     from maest_tpu_torch.ops.attention import flash_attention
+    from maest_tpu_torch.ops.attention_probe import (
+        attention_probe,
+        attention_probe_reference,
+    )
+
+    q, k, v = _bf16s_planted_inputs(torch.device(DEVICE), n).unbind(2)
+    o = attention_probe(q, k, v, "bf16s", n - 16)
+    r = attention_probe_reference(q, k, v, "bf16s", n - 16)
+    d = _near_plain(o, r, flash_attention(q, k, v, n_real=n - 16))
+    d["tol"] = PROBE_ULPS * bf16_ulp(r.float().abs().max().item())
+    return d
+
+
+# the shapes of phase 18's planted fault: (2, n, 12, 64) at n_real n - 16
+BF16S_PLANT_NS = (866, 1676)
+
+
+def phase_probe_kernels(dev, planted_lib):
+    """Phase 18: the four probe kernels (P6a-d) against their plain
+    versions on the same key tiles (64 keys; bf16s, on K2's wgmma kernel,
+    96 or 112 as that kernel takes them), N(0, 1) inputs, at (2, 1676),
+    (2, 866), (3, 100) and the rig's (32, 1676) and (32, 866): within
+    PROBE_ULPS bf16 ulps of the largest |o| (mxu_only: of its own, ~250);
+    bf16s's mma.sync control (``attention_probe_mma``, its PyTorch
+    pre-scaling pass and 64-key tiles) the same against its own plain
+    version. noexp_max and bf16s compute softmax attention: within
+    PROBE_VS_K2 of K2's output at the first three shapes; novmax is another
+    function, farther than that at (2, 1676). bf16s and its control are
+    nearer their plain version than K2's output at every shape
+    (``_near_holds``: the max and, by PROBE_NEAR, the mean |difference|).
+    Then the wgmma bf16s kernel built with the bf16 rounding of its scores
+    left out (the one step that tells bf16s from K2), run in a process of
+    its own at (2, 866) n_real 850 and (2, 1676) n_real 1660: the same
+    checks refuse it. Returns each variant's (and the control's,
+    "bf16s_mma") max_abs_err and its plain version's ms at (32, 1676)."""
+    from maest_tpu_torch.ops.attention import flash_attention, wg_key_tile
     from maest_tpu_torch.ops.attention_probe import (
         VARIANTS,
         attention_probe,
+        attention_probe_mma,
+        attention_probe_mma_reference,
         attention_probe_reference,
     )
 
@@ -1583,19 +1675,36 @@ def phase_probe_kernels(dev):
         k2 = flash_attention(q, k, v)
         top_k2 = k2.float().abs().max().item()
         parts = []
-        for var in VARIANTS:
-            before = attention_probe.launches[var]
-            o = attention_probe(q, k, v, var)
-            r = attention_probe_reference(q, k, v, var)
+        for var in (*VARIANTS, "bf16s_mma"):
+            control = var == "bf16s_mma"
+            counter = attention_probe_mma if control else attention_probe
+            before = (counter.launches if control
+                      else counter.launches[var])
+            if control:
+                o = attention_probe_mma(q, k, v, "bf16s")
+                ref_fn = lambda: attention_probe_mma_reference(  # noqa: E731
+                    q, k, v, "bf16s")
+            else:
+                o = attention_probe(q, k, v, var)
+                ref_fn = lambda: attention_probe_reference(  # noqa: E731
+                    q, k, v, var)
+            r = ref_fn()
             torch.cuda.synchronize()
-            check(attention_probe.launches[var] == before + 1,
-                  f"{var} counter")
+            check((counter.launches if control else counter.launches[var])
+                  == before + 1, f"{var} counter")
             tol = PROBE_ULPS * bf16_ulp(r.float().abs().max().item())
             e = max_err(o, r)
             check(e <= tol, f"{var} ({b}, {n}) err {e} > {tol}")
             d = max_err(o, k2)
             part = f"{var} {e:.3e} <= {tol:.3e}, vs K2 {d:.3e}"
-            if b != BATCH and var in ("noexp_max", "bf16s"):
+            if var in ("bf16s", "bf16s_mma"):
+                near = _near_plain(o, r, k2)
+                check(_near_holds(near, tol), f"{var} ({b}, {n}) not nearer "
+                      f"its plain version than K2: {near}")
+                part += (f" > {e:.3e} (mean |diff| vs K2 "
+                         f"{near['mean_k2']:.3e} > {PROBE_NEAR} x "
+                         f"{near['mean']:.3e} vs plain)")
+            if b != BATCH and var in ("noexp_max", "bf16s", "bf16s_mma"):
                 bound = PROBE_VS_K2 * max(1.0, top_k2)
                 check(d <= bound, f"{var} ({b}, {n}) vs K2 {d} > {bound}")
                 part += f" <= {bound:.3e}"
@@ -1604,53 +1713,156 @@ def phase_probe_kernels(dev):
                 part += f" > {PROBE_VS_K2}"
             if (b, n) == (BATCH, 1676):
                 err[var] = e
-                plain[var] = cuda_ms(
-                    lambda: attention_probe_reference(q, k, v, var), 3)
+                plain[var] = cuda_ms(ref_fn, 3)
             parts.append(part)
             del o, r
         print(f"phase 18 P6a-d probe kernels ({b}, {n}, 12, 64) bf16 "
-              f"max_abs_err vs plain ({PROBE_ULPS} bf16 ulps of max|o|): "
-              + "; ".join(parts), flush=True)
+              f"max_abs_err vs plain ({PROBE_ULPS} bf16 ulps of max|o|; "
+              f"bf16s on the wgmma kernel's {wg_key_tile(n)}-key tiles, "
+              f"bf16s_mma its control): " + "; ".join(parts), flush=True)
         del qkv, q, k, v, k2
         torch.cuda.empty_cache()
+
+    # the planted fault: the scores not rounded to bf16, so the kernel
+    # computes K2's function on the pre-scaled q
+    sound = {n: _bf16s_gap(n) for n in BF16S_PLANT_NS}
+    bad = _own_process(
+        "import ctypes, json, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import chip_smoke as C\n"
+        "from maest_tpu_torch.ops import _build\n"
+        f"_build._libs['attention_probe'] = ctypes.CDLL({str(planted_lib)!r})\n"
+        f"print(json.dumps([C._bf16s_gap(n) for n in {BF16S_PLANT_NS!r}]))\n")
+    bad = dict(zip(BF16S_PLANT_NS, bad))
+    check(all(_near_holds(d, d["tol"]) for d in sound.values())
+          and not any(_near_holds(d, d["tol"]) for d in bad.values()),
+          f"planted bf16s without its score rounding {bad}, sound {sound}")
+
+    def text(d):
+        return (f"max_abs_err vs plain {d['err']:.3e} (<= {d['tol']:.3e}), "
+                f"vs K2 {d['k2']:.3e}; mean |diff| vs plain {d['mean']:.3e}, "
+                f"vs K2 {d['mean_k2']:.3e}")
+    print("phase 18 planted fault, the wgmma bf16s kernel built with the "
+          "bf16 rounding of its scores left out: " + "; ".join(
+              f"at (2, {n}, 12, 64) n_real {n - 16} {text(bad[n])}: "
+              f"refused by " + ", ".join(
+                  name for name, fails in (
+                      ("the bound", bad[n]["err"] > bad[n]["tol"]),
+                      ("max nearer K2", bad[n]["k2"] <= bad[n]["err"]),
+                      ("mean nearer K2", bad[n]["mean_k2"]
+                       <= PROBE_NEAR * bad[n]["mean"])) if fails)
+              + f" (the sound kernel {text(sound[n])})"
+              for n in BF16S_PLANT_NS), flush=True)
     return err, plain
 
 
-def phase_probe_rig():
+def phase_probe_rig(dev, gpu):
     """Phase 19: the slice's path, the decomposition rig as a user runs it
     (``python -m maest_tpu_torch.probes.attn_profile --shapes
     30s,30s-train --batch 32``, here its ``main`` in process; it prints
     the card's name and power limit first), with the launch counters of
-    K2 and the probes set to 0 just before and read just after: each
-    kernel must have run (a CUDA graph's replays are launches the counters
-    do not see: they count the captured calls), every variant but plain
-    must have a graph time, and bf16s's kernel alone and its pre-scaling
-    pass must each take less than the two together.
-    Returns {shape: {variant: times}} and the launches."""
-    from maest_tpu_torch.ops.attention import attention_fwd_mma
-    from maest_tpu_torch.ops.attention_probe import attention_probe
+    K2 (its mma.sync kernel, "flash", and its wgmma kernel, "wgmma"), the
+    probes and bf16s's control set to 0 just before and read just after:
+    each kernel must have run (a CUDA graph's replays are launches the
+    counters do not see: they count the captured calls), every variant but
+    plain must have a graph time, and the control's kernel alone and its
+    pre-scaling pass must each take less than the two together. bf16s on
+    the wgmma kernel has no pass to split off: it is held to its plain
+    version within PROBE_ULPS (here at (2, 1676) n_real 1600; phase 18 at
+    every shape) and must have a graph time. Then bf16s, its control, K2's
+    two kernels and SDPA (flash backend) at (32, 1676, 12, 64) by
+    CUDA-graph replays in D256_ROUNDS interleaved rounds, every round
+    printed; the route must beat the control in each. Returns {shape:
+    {variant: times}}, the launches and the rounds' medians."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from maest_tpu_torch.ops.attention import (
+        attention_fwd_mma,
+        flash_attention,
+    )
+    from maest_tpu_torch.ops.attention_probe import (
+        attention_probe,
+        attention_probe_mma,
+        attention_probe_reference,
+    )
     from maest_tpu_torch.probes import attn_profile
 
     print("phase 19 decomposition rig: python -m "
           "maest_tpu_torch.probes.attn_profile --shapes 30s,30s-train "
           f"--batch {BATCH}", flush=True)
     attention_fwd_mma.launches = 0
+    flash_attention.launches = 0
+    attention_probe_mma.launches = 0
     for var in attention_probe.launches:
         attention_probe.launches[var] = 0
     times = attn_profile.main(["--shapes", "30s,30s-train", "--batch",
                                str(BATCH)])
-    # the rig's "flash" is K2's mma.sync kernel, the control
+    # the rig's "flash" is K2's mma.sync kernel, the control; "wgmma" K2's
+    # wgmma kernel, the template of bf16s
     launches = {"flash": attention_fwd_mma.launches,
+                "wgmma": flash_attention.launches,
+                "bf16s_mma": attention_probe_mma.launches,
                 **attention_probe.launches}
     check(all(launches.values()), f"rig launches {launches}")
     for rows in times.values():
         check(all(r["graph_ms"] > 0 for v, r in rows.items() if v != "plain"),
               f"rig graph times {rows}")
-        bf = rows["bf16s"]
+        bf = rows["bf16s_mma"]
         check(0 < bf["kernel_ms"] < bf["ms"] and 0 < bf["pass_ms"] < bf["ms"],
-              f"bf16s split {bf}")
+              f"bf16s control split {bf}")
     print(f"phase 19 launches in the rig's run: {launches}", flush=True)
-    return times, launches
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    x = torch.randn((2, 1676, 3, 12, 64), generator=gen, device=dev).to(
+        torch.bfloat16)
+    q, k, v = x.unbind(2)
+    o = attention_probe(q, k, v, "bf16s", 1600)
+    r = attention_probe_reference(q, k, v, "bf16s", 1600)
+    e = max_err(o, r)
+    tol = PROBE_ULPS * bf16_ulp(r.float().abs().max().item())
+    check(e <= tol, f"bf16s (2, 1676) n_real 1600 vs plain {e} > {tol}")
+    print(f"phase 19 bf16s on the wgmma kernel (no pass to split off) at "
+          f"(2, 1676, 12, 64) n_real 1600: max_abs_err vs plain {e:.3e} <= "
+          f"{tol:.3e}; graph ms " + ", ".join(
+              f"{s} {rows['bf16s']['graph_ms']:.4f}"
+              for s, rows in times.items()), flush=True)
+    del x, q, k, v, o, r
+
+    x = torch.randn((BATCH, 1676, 3, 12, 64), generator=gen, device=dev).to(
+        torch.bfloat16)
+    q, k, v = x.unbind(2)
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return F.scaled_dot_product_attention(qs, ks, vs)
+
+    fns = {"bf16s": lambda: attention_probe(q, k, v, "bf16s"),
+           "bf16s_mma": lambda: attention_probe_mma(q, k, v, "bf16s"),
+           "wgmma": lambda: flash_attention(q, k, v),
+           "flash": lambda: attention_fwd_mma(q, k, v)[0], "sdpa": sdpa}
+    with torch.inference_mode():
+        runs = attn_profile.graph_rounds(fns, 10, dev, D256_ROUNDS)
+    for rnd in range(D256_ROUNDS):
+        print(f"phase 19 P6d ({BATCH}, 1676, 12, 64) round {rnd + 1} "
+              f"CUDA-graph ms: " + ", ".join(
+                  f"{key} {ms[rnd]:.4f}" for key, ms in runs.items())
+              + f" [{gpu}]", flush=True)
+    med = {key: float(np.median(ms)) for key, ms in runs.items()}
+    every = all(a < c for a, c in zip(runs["bf16s"], runs["bf16s_mma"]))
+    check(every, f"bf16s on wgmma not faster than its control in every "
+          f"round: {runs}")
+    print(f"phase 19 P6d medians of {D256_ROUNDS} rounds: bf16s on wgmma "
+          f"{med['bf16s']:.4f} ms, its control (pass and mma.sync kernel) "
+          f"{med['bf16s_mma']:.4f} ({med['bf16s_mma'] / med['bf16s']:.2f}x), "
+          f"K2 on wgmma {med['wgmma']:.4f} (bf16s - K2 "
+          f"{med['bf16s'] - med['wgmma']:+.4f}), K2 mma.sync {med['flash']:.4f},"
+          f" SDPA {med['sdpa']:.4f}; the route beat the control in every "
+          f"round [{gpu}]", flush=True)
+    del x, q, k, v, qs, ks, vs, fns
+    torch.cuda.empty_cache()
+    return times, launches, med
 
 
 def phase_gh_int8(dev):
@@ -2846,7 +3058,9 @@ def phase_wide_heads_and_mma_rigs(dev, gpu, dn_planted_lib):
           f"CUDA-graph replays, interleaved rounds)", flush=True)
     _reset_counts()
     M.reset_launches()
+    laps = [("start", time.perf_counter())]  # the parts' seconds, printed
     rigs = {"mxu": mxu.main(["--kinds", kinds]), "mlp": fp8_mlp.main([])}
+    laps.append(("rigs", time.perf_counter()))
     launches = dict(zip(MMA_COUNTS, _mma_counts()))
     # each kernel once in each kind's or shape's graph (31 calls: a warm-up
     # and 30 captured), the control as often, only because the rigs time
@@ -2898,6 +3112,7 @@ def phase_wide_heads_and_mma_rigs(dev, gpu, dn_planted_lib):
         del model, prog
         torch.cuda.empty_cache()
     del waves
+    laps.append(("tagging at 4 widths", time.perf_counter()))
 
     for heads in (6, 3, 2):
         d = 768 // heads
@@ -2942,6 +3157,7 @@ def phase_wide_heads_and_mma_rigs(dev, gpu, dn_planted_lib):
               f"launches (K2, K3a, K3b, K5, K6, K7) {grew}", flush=True)
         del net, state, step, data
         torch.cuda.empty_cache()
+    laps.append(("recipe steps", time.perf_counter()))
 
     gen = torch.Generator(device=dev).manual_seed(28)
     for b, n, heads, d in ((BATCH, 1676, 6, 128), (BATCH, 866, 6, 128),
@@ -3041,8 +3257,14 @@ def phase_wide_heads_and_mma_rigs(dev, gpu, dn_planted_lib):
               f"{m} {out['ms'][m + '_d128']:.4f}" for m in Q8_MODES)
           + f" [{gpu}]", flush=True)
     torch.cuda.empty_cache()
+    laps.append(("kernels at the steps' shapes", time.perf_counter()))
     _dn8_times(dev, gen, out, gpu)
+    laps.append(("8-bit _dn", time.perf_counter()))
     out["dn"] = _dn_wgmma(dev, gen, gpu, dn_planted_lib)
+    laps.append(("bf16 _dn on wgmma", time.perf_counter()))
+    print("phase 27 time: " + ", ".join(
+        f"{name} {t - laps[i][1]:.1f} s"
+        for i, (name, t) in enumerate(laps[1:])), flush=True)
     print(f"phase 27 launches in the path's run: {launches}", flush=True)
     out["rigs"], out["launches"] = rigs, launches
     return out
@@ -3231,6 +3453,21 @@ PLANT_DN_LAST_CHUNK = (
      "        for (int kk = 1; kk < 4 * (kc + 1 < nch); ++kk)"))
 
 
+# phase 18's planted fault: the wgmma bf16s kernel's bf16 rounding of the
+# scores (and of its running maxima) left out, bf16_round2 returning at once,
+# so it computes K2's softmax on the pre-scaled q
+PLANT_BF16S_NO_ROUND = (
+    "  const uint32_t u = pack_bf16(a, b);  // a in the low half",
+    "  const uint32_t u = 0u; return;")
+
+
+# phase 42's planted fault: the head_dim-256 wgmma backward's dV products of
+# the last q tile left out, so dV misses those query rows' share
+PLANT_D256_DV_LAST = (
+    "        wgmma_rs_n64_t(acc[c], af[kj], sw128_desc(rows + c * CHUNK) + kj * 128);",
+    "        if (wg != 0 || it + 1 < n_qt) wgmma_rs_n64_t(acc[c], af[kj], sw128_desc(rows + c * CHUNK) + kj * 128);")
+
+
 def _build_planted(tag, lib, header, *plants) -> tuple[Path, float]:
     """``csrc/<lib>.cu`` with, for each plant of ``plants``, the one line
     ``plant[0]`` of ``header`` (a file of ``csrc/``) replaced by
@@ -3285,10 +3522,35 @@ def build_planted_no_mask() -> tuple[Path, float]:
 
 
 def build_planted_bwd_no_mask() -> tuple[Path, float]:
-    """``csrc/attention_bwd.cu`` with the wgmma backward's key mask dropped
-    (phase 31 shows its check refusing the kernel so built)."""
+    """``csrc/attention_bwd.cu`` with the head_dim-64 wgmma backward's key
+    mask dropped and the head_dim-256 wgmma backward's dV of the last q tile
+    left out, two kernels of one library, so one build serves phase 31
+    (maest_attn_bwd_bf16) and phase 42 (maest_attn_bwd_bf16_d256), each
+    showing its check refusing its kernel so built."""
     return _build_planted("bwd_no_mask", "attention_bwd",
-                          "attn_bwd_wgmma.cuh", PLANT_BWD_NO_MASK)
+                          "attn_bwd_wgmma.cuh", PLANT_BWD_NO_MASK,
+                          ("attn_bwd_d256_wgmma.cuh", *PLANT_D256_DV_LAST))
+
+
+def build_planted_bf16s() -> tuple[Path, float]:
+    """``csrc/attention_probe.cu`` with the wgmma bf16s kernel's bf16
+    rounding of the scores left out (phase 18 shows its checks refusing
+    the kernel so built)."""
+    return _build_planted("bf16s_no_round", "attention_probe",
+                          "attn_fwd_wgmma.cuh", PLANT_BF16S_NO_ROUND)
+
+
+def _own_process(code: str):
+    """The JSON that ``code`` prints last, run by this interpreter in a
+    process of its own from the checkout's root: a second copy of a kernel
+    that this process has launched does not take its dynamic
+    shared-memory limit here (its launch fails)."""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=ROOT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the planted fault's process failed:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 @functools.lru_cache(maxsize=None)
@@ -3756,7 +4018,8 @@ def _bwd_wgmma_checks(dev, planted_lib):
     torch.equal; the control within the same bound of plain; every sweep
     configuration against plain, the production one torch.equal to the
     route; the kernel built with its key mask dropped refused. Returns the
-    worst errors."""
+    worst errors, and phase 42's planted gap ("planted_d256"), taken in the
+    same planted process."""
     from maest_tpu_torch.ops import attention as A
 
     gen = torch.Generator(device=dev).manual_seed(31)
@@ -3816,7 +4079,7 @@ def _bwd_wgmma_checks(dev, planted_lib):
     sound = max(max_err(a, z) for a, z in zip(
         A.attention_bwd(q, k, v, o, lse, do, 900),
         A.attention_bwd_reference(q, k, v, o, lse, do, 900)))
-    eb, masked = _bwd_planted_err(planted_lib)
+    eb, masked, worst["planted_d256"] = _bwd_planted_err(planted_lib)
     check(sound <= tol < eb and masked > 0,
           f"planted no-mask {eb} (masked dk/dv {masked}), sound {sound}")
     print(f"phase 31 planted fault, the wgmma backward built with its key "
@@ -3837,10 +4100,12 @@ def _bwd_planted_inputs(dev):
     return x
 
 
-def _bwd_planted_err(lib: Path) -> tuple[float, float]:
+def _bwd_planted_err(lib: Path) -> tuple[float, float, float]:
     """(max|grads - plain|, max|dk, dv past n_real|) of maest_attn_bwd_bf16
-    from the library ``lib`` on ``_bwd_planted_inputs`` with n_real 900, run
-    in a process of its own (as ``_planted_err``)."""
+    from the library ``lib`` on ``_bwd_planted_inputs`` with n_real 900,
+    and phase 42's ``_d256_gap`` of maest_attn_bwd_bf16_d256 from it (its
+    planted fault is in the same build), run in a process of its own (as
+    ``_planted_err``)."""
     code = (
         "import ctypes, json, sys, torch\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
@@ -3853,7 +4118,8 @@ def _bwd_planted_err(lib: Path) -> tuple[float, float]:
         " do, 900, 0.125).unbind(2)\n"
         "ref = A.attention_bwd_reference(q, k, v, o, lse, do, 900)\n"
         "print(json.dumps([max(C.max_err(a, r) for a, r in zip(bad, ref)), "
-        "max(g[:, 900:].float().abs().max().item() for g in bad[1:])]))\n")
+        "max(g[:, 900:].float().abs().max().item() for g in bad[1:]), "
+        "C._d256_gap(C._d256_planted_inputs(torch.device('cuda')))]))\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300, cwd=ROOT)
     if proc.returncode != 0:
@@ -3886,12 +4152,14 @@ def phase_bwd_wgmma(dev, gpu, planted_lib):
     and the 10 s recipe step (B100, N 281) with each kernel in turn, the
     control reached through the private hook ``ops.attention._K3B_CONTROL``,
     CUDA events over 3 steps a round after one, the launch counters checked
-    on each. Returns the errors, the medians and the launches."""
+    on each. Returns the errors, the medians, the launches and phase 42's
+    planted fault's gap ("planted_d256", from the same planted process)."""
     from maest_tpu_torch.ops import attention as A
     from maest_tpu_torch.probes.attn_profile import graph_ms
 
-    out = {"err": _bwd_wgmma_checks(dev, planted_lib), "rounds": {}, "ms": {},
-           "launches": {}}
+    err = _bwd_wgmma_checks(dev, planted_lib)
+    out = {"err": err, "planted_d256": err.pop("planted_d256"), "rounds": {},
+           "ms": {}, "launches": {}}
     gen = torch.Generator(device=dev).manual_seed(32)
     for b, n, n_real in ((BATCH, 866, None), (100, 281, None),
                          (2, 4500, 4400)):
@@ -4553,7 +4821,8 @@ def phase_yardsticks(dev, gpu):
     with its log-sum-exp beside K3a at head_dim 128, 256 (flash backend)
     and 384 (efficient attention), on K3a's shapes of phase 27 (32, 866, 6
     | 3 | 2, D); K4's runtime-width instance at (1, 4500, 2, 320) n_real
-    4400 against plain, timed; K5/K6 at head_dim 256 (32, 1676, 3, 256) in
+    4400 against plain, timed beside SDPA's efficient-attention backward on
+    the 4400 real keys; K5/K6 at head_dim 256 (32, 1676, 3, 256) in
     every mode, timed (the wrappers, their PyTorch pass included). CUDA
     events, medians of three runs. Returns the times."""
     import torch.nn.functional as F
@@ -4637,10 +4906,17 @@ def phase_yardsticks(dev, gpu):
         lambda: A.attention_bwd(q, k, v, o, lse, do, 4400), 5),
         cuda_ms_median(lambda: A.attention_bwd_reference(
             q, k, v, o, lse, do, 4400), 2))
+    # its library yardstick, timed only: SDPA's efficient-attention backward
+    # alone (the aten op, on its own forward's saved tensors) on the first
+    # 4400 rows, the real keys (SDPA takes no key mask)
+    real = slice(0, 4400)
+    out["K4_dn_sdpa"] = cuda_ms_median(sdpa_efficient(
+        *(t[:, real] for t in (q, k, v)), do=do[:, real]), 5)
     print(f"phase 33 K4's _dn instance at (1, 4500, 2, 320) n_real 4400: "
           f"max_abs_err vs plain {err:.3e} <= {ATTN_TOL['bfloat16']}, kernel "
-          f"{out['K4_dn'][0]:.4f} ms, plain {out['K4_dn'][1]:.4f} ms [{gpu}]",
-          flush=True)
+          f"{out['K4_dn'][0]:.4f} ms, plain {out['K4_dn'][1]:.4f} ms, SDPA's "
+          f"efficient-attention backward alone at (1, 4400, 2, 320) "
+          f"{out['K4_dn_sdpa']:.4f} ms (events) [{gpu}]", flush=True)
     del x, q, k, v, do, o, lse, got, ref
 
     x = torch.randn((BATCH, 1676, 3, 3, 256), generator=gen, device=dev).to(
@@ -7034,6 +7310,221 @@ def phase_surgery(dev, gpu, cases: dict, cli_run: Path):
                                for w in ("dq", "dk", "dv"))}}
 
 
+def _d256_rel(got, want) -> float:
+    """The largest of each gradient's max|got - want| over max(1, its max
+    |want|)."""
+    return max(max_err(a, z) / max(1.0, z.float().abs().max().item())
+               for a, z in zip(got, want))
+
+
+def _d256_schedule(q, k, v, o, lse, do, n_real):
+    """The head_dim-256 kernels' plain version on the route's inputs:
+    ``attention_bwd_tiled_reference`` at their tiles on the inputs
+    zero-padded to 256 with the unpadded head_dim's scale, sliced back."""
+    from maest_tpu_torch.ops import attention as A
+
+    d = q.shape[-1]
+    (qp, kp, vp, op, dop), scale = A.pad_head_dim(q, k, v, o, do)
+    grads = A.attention_bwd_tiled_reference(
+        qp, kp, vp, op, lse, dop, n_real, scale,
+        key_tile=A.BWD_D256_KEY_TILE, q_tile=A.BWD_D256_Q_TILE)
+    return tuple(g[..., :d] for g in grads)
+
+
+def _d256_planted_inputs(dev):
+    """Phase 42's planted fault's (2, 256, 4, 3, 256) bf16 q/k/v/do, drawn
+    from seed 42: the last 64-row q tile is a quarter of every key's
+    rows."""
+    gen = torch.Generator(device=dev).manual_seed(42)
+    return torch.randn((2, 256, 4, 3, 256), generator=gen, device=dev).to(
+        torch.bfloat16)
+
+
+def _d256_gap(x) -> float:
+    """``_d256_rel`` of the route (``attention_bwd``) against its plain
+    version on ``_d256_planted_inputs`` at n_real 250."""
+    from maest_tpu_torch.ops import attention as A
+
+    q, k, v, do = x.unbind(2)
+    o, lse = A.flash_attention_fwd_lse(q, k, v, 250)
+    return _d256_rel(A.attention_bwd(q, k, v, o, lse, do, 250),
+                     _d256_schedule(q, k, v, o, lse, do, 250))
+
+
+def phase_bwd_d256(dev, gpu, planted_gap):
+    """Phase 42: K3b at head_dim 256 on wgmma (``csrc/attn_bwd_d256_wgmma.cuh``,
+    the route of ``maest_attn_bwd_bf16_d256``: the prep pass, the dk/dv and
+    the dq kernel) beside its mma.sync control (``attention_bwd_mma`` at
+    256, entry ``maest_attn_bwd_bf16_d256_mma``) and SDPA. At
+    D256_BWD_SHAPES, on strided views of one fused q/k/v/do: the route
+    (``attention_bwd``, each launch counted) within D256_REL_TOL of its
+    plain version (the tiled schedule) and of plain, two launches
+    torch.equal, masked dk and dv exactly zero; the control (reached
+    through ``_K3B_CONTROL``, zero-padded at 192 as the route) within the
+    same bound of plain. Then the kernels built with dV's last q tile left
+    out (``planted_gap``, their ``_d256_gap`` from phase 31's planted
+    process, whose library holds this fault too): refused. Then CUDA-graph replays
+    of the route, the control and SDPA's backward (the aten flash op
+    alone) in D256_ROUNDS interleaved rounds at (32, 866, 3, 256), every
+    round printed, SDPA's fwd+bwd - fwd and plain by events; then the 30 s
+    recipe step at num_heads 3 (heads drawn so the loss is not ln 2) with
+    each backward in turn, the control through ``_K3B_CONTROL``, CUDA events
+    over 3 steps a round after one, the launch counters checked on each,
+    the first loss off ln 2 and the last below the first. Returns the errors, the
+    medians and the launches."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from maest_tpu_torch.ops import attention as A
+    from maest_tpu_torch.probes.attn_profile import graph_rounds
+
+    out = {"err": dict.fromkeys(("route", "control"), 0.0),
+           "abs": dict.fromkeys(("route", "control"), 0.0), "ms": {},
+           "launches": {}}
+    gen = torch.Generator(device=dev).manual_seed(42)
+    tol = D256_REL_TOL
+    for b, n, n_real, heads, d in D256_BWD_SHAPES:
+        x = torch.randn((b, n, 4, heads, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        q, k, v, do = x.unbind(2)
+        o, lse = A.flash_attention_fwd_lse(q, k, v, n_real)
+        before = (A.attention_bwd.launches, A.attention_bwd_mma.launches)
+        g = A.attention_bwd(q, k, v, o, lse, do, n_real)
+        again = A.attention_bwd(q, k, v, o, lse, do, n_real)
+        A._K3B_CONTROL = True
+        try:
+            c = A.attention_bwd(q, k, v, o, lse, do, n_real)
+        finally:
+            A._K3B_CONTROL = False
+        r = A.attention_bwd_reference(q, k, v, o, lse, do, n_real)
+        tr = _d256_schedule(q, k, v, o, lse, do, n_real)
+        torch.cuda.synchronize()
+        check((A.attention_bwd.launches - before[0],
+               A.attention_bwd_mma.launches - before[1]) == (2, 1),
+              "K3b D = 256 counters")
+        e, et, ec = _d256_rel(g, r), _d256_rel(g, tr), _d256_rel(c, r)
+        same = all(torch.equal(a, z) for a, z in zip(g, again))
+        zero = n_real is None or not (g[1][:, n_real:].any()
+                                      or g[2][:, n_real:].any())
+        check(e <= tol and et <= tol and ec <= tol and same and zero,
+              f"K3b D = 256 ({b}, {n}, {heads}, {d}) n_real {n_real}: vs "
+              f"plain {e}, vs tiled {et}, control {ec}, deterministic {same}, "
+              f"masked zero {zero}")
+        for key, val in (("route", max(e, et)), ("control", ec)):
+            out["err"][key] = max(out["err"][key], val)
+        for key, grads in (("route", g), ("control", c)):
+            out["abs"][key] = max(out["abs"][key], max(
+                max_err(a, z) for a, z in zip(grads, r)))
+        print(f"phase 42 K3b at head_dim {d} ({b}, {n}, {heads}, {d}) n_real "
+              f"{n_real}{' zero-padded to 256' * (d < 256)} strided: "
+              f"relative err vs plain {e:.3e}, vs the tiled plain version "
+              f"{et:.3e}, the control vs plain {ec:.3e} <= {tol}; two "
+              f"launches torch.equal: {same}; masked dk/dv exactly 0: {zero}",
+              flush=True)
+        del x, q, k, v, do, o, lse, g, again, c, r, tr
+        torch.cuda.empty_cache()
+
+    # the planted fault: dV misses the last q tile's 64 rows of 256
+    sound, bad = _d256_gap(_d256_planted_inputs(dev)), planted_gap
+    check(sound <= tol < bad, f"planted dV last tile {bad}, sound {sound}")
+    print(f"phase 42 planted fault, the head_dim-256 wgmma backward built "
+          f"with dV's last q tile left out, at (2, 256, 3, 256) n_real 250: "
+          f"relative err vs the tiled plain version {bad:.3e} > {tol}: "
+          f"refused (the sound kernels {sound:.3e})", flush=True)
+
+    x = torch.randn((BATCH, 866, 4, 3, 256), generator=gen, device=dev).to(
+        torch.bfloat16)
+    q, k, v, do = x.unbind(2)
+    o, lse = A.flash_attention_fwd_lse(q, k, v)
+    fns = {"wgmma": lambda: A.attention_bwd(q, k, v, o, lse, do),
+           "control": lambda: A.attention_bwd_mma(q, k, v, o, lse, do),
+           "sdpa": sdpa_bwd_call(q, k, v, do)}
+    runs = graph_rounds(fns, 10, dev, D256_ROUNDS)
+    for rnd in range(D256_ROUNDS):
+        print(f"phase 42 K3b ({BATCH}, 866, 3, 256) round {rnd + 1} "
+              f"CUDA-graph ms: " + ", ".join(
+                  f"{key} {ms[rnd]:.4f}" for key, ms in runs.items())
+              + f" [{gpu}]", flush=True)
+    med = {key: float(np.median(ms)) for key, ms in runs.items()}
+    every = all(w < c for w, c in zip(runs["wgmma"], runs["control"]))
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    gs = do.transpose(1, 2)
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        fwd = cuda_ms_median(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs), 10)
+        med["sdpa_fwd_bwd"] = cuda_ms_median(
+            lambda: F.scaled_dot_product_attention(qs, ks, vs).backward(gs),
+            10) - fwd
+    med["plain"] = cuda_ms(
+        lambda: A.attention_bwd_reference(q, k, v, o, lse, do), 1)
+    out["ms"][(BATCH, 866)] = med
+    print(f"phase 42 K3b ({BATCH}, 866, 3, 256) medians: wgmma "
+          f"{med['wgmma']:.4f} ms, control {med['control']:.4f} "
+          f"({med['control'] / med['wgmma']:.2f}x), SDPA's backward alone "
+          f"{med['sdpa']:.4f}, SDPA fwd+bwd - fwd {med['sdpa_fwd_bwd']:.4f} "
+          f"(events), plain {med['plain']:.4f} (events); the wgmma kernels "
+          f"beat the control in every round: {every} [{gpu}]", flush=True)
+    del x, q, k, v, do, o, lse, qs, ks, vs, gs, fns
+    torch.cuda.empty_cache()
+
+    # the 30 s recipe step at num_heads 3 with each backward, in turn
+    _, mcfg, net, state, step, data = _recipe(
+        dev, RECIPE, BATCH, 42, ["maest.num_heads=3"])
+    drawn = torch.Generator(device=dev).manual_seed(42)
+    with torch.no_grad():  # zero heads give loss ln 2 and do = 0
+        for lin in (net.head[1], net.head_dist):
+            lin.weight.normal_(0.0, 0.05, generator=drawn)
+    gen_step = torch.Generator().manual_seed(42)
+    losses = []
+
+    def one():
+        _, metrics = step(state, data, gen_step)
+        losses.append(metrics["train_loss"])
+
+    counts = (A.attention_bwd, A.attention_bwd_mma)
+    step_ms = {"wgmma": [], "control": []}
+    try:
+        for rnd in range(D256_ROUNDS):
+            for route in (("wgmma", "control") if rnd % 2 == 0
+                          else ("control", "wgmma")):
+                A._K3B_CONTROL = route == "control"
+                for f in counts:
+                    f.launches = 0
+                step_ms[route].append(cuda_ms(one, 3))
+                got = tuple(f.launches for f in counts)
+                want = ((0, 4 * mcfg.depth) if A._K3B_CONTROL
+                        else (4 * mcfg.depth, 0))
+                check(got == want, f"recipe step at num_heads 3 with the "
+                      f"{route}: launches {got}")
+                out["launches"][route] = got
+            print(f"phase 42 {RECIPE} B{BATCH} at num_heads 3 round {rnd + 1} "
+                  f"(CUDA events, ms a step): " + ", ".join(
+                      f"with the {r} {ms[-1]:.3f}" for r, ms in
+                      step_ms.items()) + f" [{gpu}]", flush=True)
+    finally:
+        A._K3B_CONTROL = False
+    # the drawn heads keep the first loss off ln 2; the steps repeat one
+    # batch, so the loss falls (through ln 2 on the way)
+    check(all(np.isfinite(losses)) and abs(losses[0] - np.log(2)) > 1e-3
+          and losses[-1] < losses[0], f"recipe losses {losses}")
+    for route, ms in step_ms.items():
+        out["ms"][("recipe", route)] = float(np.median(ms))
+    gap = out["ms"][("recipe", "control")] - out["ms"][("recipe", "wgmma")]
+    print(f"phase 42 {RECIPE} B{BATCH} at num_heads 3 (head_dim 256), "
+          f"medians of {D256_ROUNDS} rounds: "
+          f"{out['ms'][('recipe', 'wgmma')]:.3f} ms a step with the wgmma "
+          f"backward against {out['ms'][('recipe', 'control')]:.3f} with the "
+          f"control, a gap of {gap:.3f} ms against 12 x the kernel gap "
+          f"{12 * (med['control'] - med['wgmma']):.3f}; the loss fell from "
+          f"{losses[0]:.6f} (not ln 2) to {losses[-1]:.6f} over "
+          f"{len(losses)} steps on one batch; launches a round (K3b, "
+          f"control) {out['launches']} [{gpu}]", flush=True)
+    del net, state, step, data
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on a GPU",
@@ -7064,7 +7555,8 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = ("mel_kernel", "attention_fwd", "attention_bwd", "attention_fwd_q8",
             "attention_bwd_q8", "attention_probe", "mma_probe")
-    with ThreadPoolExecutor(len(libs) + 8) as pool:  # one nvcc per source
+    with ThreadPoolExecutor(len(libs) + 11) as pool:  # one nvcc per source
+        bf16s_plant = pool.submit(build_planted_bf16s)
         planted = pool.submit(build_planted_to_s8)
         q8w_no_mask = pool.submit(build_planted_q8w_no_mask)
         q8w_half_away = pool.submit(build_planted_q8w_half_away)
@@ -7084,6 +7576,7 @@ def main() -> int:
         q8w_libs = (q8w_no_mask.result(), q8w_half_away.result())
         mel_lib, mel_s = mel_twiddle.result()
         mma_libs, mma_s = mma_wgmma.result()
+        bf16s_lib, bf16s_s = bf16s_plant.result()
     wall = time.perf_counter() - t0
     for lib in libs:
         _build.load_library(lib)
@@ -7093,8 +7586,9 @@ def main() -> int:
           + f"; phase 29's planted copy of attention_bwd_q8, to_s8 for ds8, "
           f"{planted_s:.1f} s; phase 30's and 27's of attention_fwd, the "
           f"wgmma kernel's key mask dropped and the _dn wgmma kernel's last "
-          f"K chunk left out of S, {no_mask_s:.1f} s; phase 31's of "
-          f"attention_bwd, the wgmma backward's key mask dropped, "
+          f"K chunk left out of S, {no_mask_s:.1f} s; phase 31's and 42's of "
+          f"attention_bwd, the wgmma backward's key mask dropped and the "
+          f"head_dim-256 wgmma backward's dV of the last q tile left out, "
           f"{bwd_no_mask_s:.1f} s; phase 32's of attention_bwd_q8, the wgmma "
           f"K7's dq adds of key tile 1 dropped, {k7_dq_s:.1f} s; phase 34's "
           f"of attention_fwd and attention_bwd, one tf32 product in the tf32 "
@@ -7105,7 +7599,9 @@ def main() -> int:
           f"mel_kernel, one twiddle's sign flipped, {mel_s:.1f} s; phase "
           f"26's of mma_probe, the wgmma product kernel's last bf16 product "
           f"of each stage dropped and its e4m3 sums kept on the tensor core "
-          f"across stages, {mma_s:.1f} s for both)", flush=True)
+          f"across stages, {mma_s:.1f} s for both; phase 18's of "
+          f"attention_probe, the wgmma bf16s kernel's bf16 rounding of the "
+          f"scores left out, {bf16s_s:.1f} s)", flush=True)
     for lib, (log, _) in built.items():  # empty where a build was reused
         print(f"phase 2 ptxas {lib}: " + "; ".join(ptxas_rows(log)),
               flush=True)
@@ -7176,6 +7672,32 @@ def main() -> int:
               f"{k}: {h} HGMMA, {t} UTMALDG of {i} instructions"
               for k, (h, t, i) in sorted(bw_sass.items()))
           + "; ptxas: " + "; ".join(bw_rows), flush=True)
+
+    # P6d on K2's wgmma kernel (its BF16S instances in attention_probe) and
+    # K3b at head_dim 256 (the dk/dv and the dq kernel): bf16 wgmma, TMA
+    # loads, no mma.sync, no spill
+    new_rows, new_sass = [], {}
+    for lib, pattern in (("attention_probe", "attn_fwd_wgmma_kernel"),
+                         ("attention_bwd", "d256_kernel")):
+        new_rows += [r for r in ptxas_rows(built[lib][0]) if (
+            "d256_kernel" in r if lib == "attention_bwd" else
+            "attn_fwd_wgmma_kernel" in r)]
+        new_sass.update(sass_kinds(_build.build(lib)[0], pattern))
+    check(len(new_sass) == 4 and all(
+        c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0
+        for c in new_sass.values()),
+        f"wgmma/TMA instructions of the bf16s and head_dim-256 kernels "
+        f"{new_sass}")
+    check(not new_rows or len(new_rows) == 4 and all(
+        r.endswith("spills 0/0 bytes") for r in new_rows),
+        f"the bf16s or head_dim-256 wgmma kernels spill: {new_rows}")
+    print("phase 2 SASS of P6d's wgmma kernel (attention_probe, BF16S) and "
+          "K3b's at head_dim 256 (HGMMA = bf16 wgmma, UTMALDG = TMA load, "
+          "HMMA = mma.sync): " + "; ".join(
+              f"{k}: " + ", ".join(f"{c[g]} {g}" for g in (
+                  "HGMMA", "UTMALDG", "HMMA")) + f" of {c['instructions']} "
+              "instructions" for k, c in sorted(new_sass.items()))
+          + "; ptxas: " + "; ".join(new_rows), flush=True)
 
     # the tf32 kernels (fp32 at head_dim 64): the forward, the dk/dv and dq
     # kernels form their products on tf32 wgmma (HGMMA) and load on TMA;
@@ -7293,8 +7815,8 @@ def main() -> int:
     k7 = timed(15, phase_k7_kernel, dev, gpu)
     k7_launches = timed(16, phase_int8_recipe, dev, gpu)
     lib = timed(17, phase_library, dev, gpu)
-    probe_err, probe_plain = timed(18, phase_probe_kernels, dev)
-    rig, rig_launches = timed(19, phase_probe_rig)
+    probe_err, probe_plain = timed(18, phase_probe_kernels, dev, bf16s_lib)
+    rig, rig_launches, p6d = timed(19, phase_probe_rig, dev, gpu)
     p6ef = timed(20, phase_gh_int8, dev)
     vpu_err, vpu_plain = timed(21, phase_vpu_kernels, dev)
     rig2, vpu, rig2_launches = timed(22, phase_rigs)
@@ -7321,6 +7843,7 @@ def main() -> int:
     sg = timed(41, phase_surgery, dev, gpu, golden_cases,
                Path(keep.name) / "cli_run")
     keep.cleanup()
+    bd = timed(42, phase_bwd_d256, dev, gpu, bw["planted_d256"])
 
     # K1: the bytes of the frames in and the log-mels out, and the FFT
     # route's fp32 operations (the DFT as a product does ~40x more)
@@ -7430,15 +7953,26 @@ def main() -> int:
          max(k4_err[w] for w in ("dq", "dk", "dv")), tt["bwd_k4"], "k4",
          lib["bwd_k4"]),
     ]
-    # P6a-d: times from phase 19's rig at (32, 1676); SDPA computes what
-    # the two softmax variants compute, no PyTorch call the other two
-    for var, line in (("mxu_only", 47), ("noexp_max", 63), ("novmax", 88),
-                      ("bf16s", 113)):
+    # P6a-c: times from phase 19's rig at (32, 1676); SDPA computes what
+    # noexp_max computes, no PyTorch call the other two. P6d: the wgmma
+    # route and its mma.sync control (the pass included), phase 19's
+    # CUDA-graph medians of interleaved rounds at (32, 1676) beside SDPA's
+    for var, line in (("mxu_only", 47), ("noexp_max", 63), ("novmax", 88)):
         rows.append((f"attention_probe_{var}", "attention_probe.cu",
                      f"scripts/attn_profile_r2.py:{line}", rig_launches[var],
                      probe_err[var], (rig["30s"][var]["ms"], probe_plain[var]),
                      "fwd", rig["30s"]["sdpa"]["ms"]
-                     if var in ("noexp_max", "bf16s") else None))
+                     if var == "noexp_max" else None))
+    print("kernels line: attention_probe_bf16s is P6d on K2's wgmma kernel "
+          "(BF16S), attention_probe_bf16s_mma its mma.sync control with the "
+          "PyTorch pre-scaling pass; phase 19's CUDA-graph medians at (32, "
+          "1676) beside SDPA's, launches in phase 19's rig", flush=True)
+    for var, file in (("bf16s", "attn_fwd_wgmma.cuh"),
+                      ("bf16s_mma", "attention_probe.cu")):
+        rows.append((f"attention_probe_{var}", file,
+                     "scripts/attn_profile_r2.py:113", rig_launches[var],
+                     probe_err[var], (p6d[var], probe_plain[var]), "fwd",
+                     p6d["sdpa"]))
     # P6e (gh8, the TPU rig's group) and P6f: times from phase 22's rig at
     # (32, 1676); gh computes K2's function, whose library call is SDPA
     r30 = rig2["30s"]
@@ -7541,10 +8075,28 @@ def main() -> int:
          "maest_tpu/ops/attention.py:176", wide["launches"]["k2_d256"],
          wide["err"]["fwd_d256"], wide["ms"]["fwd_d256"], "fwd_d256",
          wide["ms"]["fwd_d256_sdpa"]),
-        ("attention_bwd_d256", "attention_bwd.cu",
+    ]
+    # K3b at head_dim 256 on wgmma (launches on phase 27's recipe step, its
+    # errors of phases 27 and 42, phase 42's CUDA-graph medians at (32, 866,
+    # 3, 256) beside SDPA's fwd+bwd - fwd) and its mma.sync control
+    # (launches on phase 42's control steps)
+    m42 = bd["ms"][(BATCH, 866)]
+    print("kernels line: attention_bwd_d256 is K3b at head_dim 256 on wgmma "
+          "(csrc/attn_bwd_d256_wgmma.cuh), attention_bwd_d256_mma its mma.sync "
+          "control; phase 42's CUDA-graph medians at (32, 866, 3, 256), plain "
+          "by events, SDPA fwd+bwd - fwd by events; max_abs_err against "
+          "plain over phases 27 and 42 (phase 42 holds each gradient within "
+          f"{D256_REL_TOL} of max(1, its max) of plain and the tiled plain "
+          "version)", flush=True)
+    rows += [
+        ("attention_bwd_d256", "attn_bwd_d256_wgmma.cuh",
          "maest_tpu/ops/attention.py:483", wide["launches"]["k3b_d256"],
-         wide["err"]["bwd_d256"], wide["ms"]["bwd_d256"], "bwd_d256",
-         wide["ms"]["bwd_d256_sdpa"]),
+         max(wide["err"]["bwd_d256"], bd["abs"]["route"]),
+         (m42["wgmma"], m42["plain"]), "bwd_d256", m42["sdpa_fwd_bwd"]),
+        ("attention_bwd_d256_mma", "attention_bwd.cu",
+         "maest_tpu/ops/attention.py:483", bd["launches"]["control"][1],
+         bd["abs"]["control"], (m42["control"], m42["plain"]), "bwd_d256",
+         m42["sdpa_fwd_bwd"]),
     ]
     # P2 at k64_i8q (48 programs; no PyTorch call quantises inside a
     # product) and P3 at k64big_i8 (8; torch._int_mm is 2-D, so no single

@@ -4,8 +4,12 @@
 //
 // The bf16 entry at head_dim 64, maest_attn_bwd_bf16, runs the wgmma/TMA
 // kernel of attn_bwd_wgmma.cuh (one score pass per key tile and q tile);
-// the mma.sync kernels below stay as its control, maest_attn_bwd_bf16_mma,
-// and serve every other instance.
+// the mma.sync kernels below stay as its control, maest_attn_bwd_bf16_mma.
+// The bf16 entry at head_dim 256, maest_attn_bwd_bf16_d256, runs the
+// wgmma/TMA kernels of attn_bwd_d256_wgmma.cuh (a dk/dv and a dq kernel,
+// each tile's work split between two consumer warpgroups); the mma.sync
+// kernels at 256 stay as its control, maest_attn_bwd_bf16_d256_mma. The
+// mma.sync kernels serve every other instance.
 //
 // Replaces maest_tpu/ops/attention.py::_attn_bwd_kernel + _bwd_body (the
 // combined full-K backward, K3b, called from _flash_bwd) and _bwd_dq_kernel +
@@ -121,6 +125,7 @@
 
 #include "attn_bwd_tf32.cuh"   // the fp32 backward at head_dim 64, 3xTF32
 #include "attn_bwd_wgmma.cuh"  // the bf16 backward at head_dim 64
+#include "attn_bwd_d256_wgmma.cuh"  // the bf16 backward at head_dim 256
 #include "mma_8bit.cuh"
 
 namespace {
@@ -1547,12 +1552,37 @@ int maest_attn_bwd_fp32_d256(const void* q, const void* k, const void* v,
                               n, heads, n_real, strides, sl, scale, stream);
 }
 
+// The bf16 entry at head_dim 256 runs the wgmma kernels
+// (attn_bwd_d256_wgmma.cuh): the prep pass, the dk/dv kernel, the dq
+// kernel. Its `delta` is fp32 scratch of
+// maest_attn_bwd_bf16_d256_scratch(batch, n, heads) floats (lse and delta
+// of the padded rows), and each view's base address and strides must be
+// multiples of 16 bytes (TMA).
 int maest_attn_bwd_bf16_d256(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const float* lse,
                              float* delta, void* dq, void* dk, void* dv,
                              int batch, int n, int heads, int n_real,
                              const long long* strides, float sl, float scale,
                              void* stream) {
+  return launch_bwd_d256_wgmma(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                               batch, n, heads, n_real, strides, sl, scale,
+                               stream);
+}
+
+long long maest_attn_bwd_bf16_d256_scratch(int batch, int n, int heads) {
+  return b2_scratch_floats(batch, n, heads);
+}
+
+// The mma.sync kernels that maest_attn_bwd_bf16_d256 ran before the wgmma
+// ones (delta, dk/dv in 128-column slices, dq), kept as its control;
+// arguments as the fp32 entry's.
+int maest_attn_bwd_bf16_d256_mma(const void* q, const void* k, const void* v,
+                                 const void* o, const void* dout,
+                                 const float* lse, float* delta, void* dq,
+                                 void* dk, void* dv, int batch, int n,
+                                 int heads, int n_real,
+                                 const long long* strides, float sl,
+                                 float scale, void* stream) {
   return launch_bwd_bf16<WARPS, TILE, 256>(q, k, v, o, dout, lse, delta, dq,
                                            dk, dv, batch, n, heads, n_real,
                                            strides, sl, scale, stream);

@@ -633,15 +633,15 @@ int maest_attn_fwd_fp32_fma(const void* q, const void* k, const void* v,
 
 // The bf16 entry at head_dim 64 runs the wgmma kernel (attn_fwd_wgmma.cuh)
 // with three consumer warpgroups taking turns and the key tile, 96 or 112
-// keys, that pads n_real the least (96 on a tie): in the tile sweep
-// (chip_smoke.py phase 30) 112 was best at N 866 and 1676 (8 and 15 tiles,
-// 30 and 4 keys padded) and 96 at 281 (3 tiles, 7 padded, where 112 pads
-// 55). It reads q, k and v through TMA, so each view's base address and
+// keys, that pads n_real the least (96 on a tie; wg_key_tile): in the tile
+// sweep (chip_smoke.py phase 30) 112 was best at N 866 and 1676 (8 and 15
+// tiles, 30 and 4 keys padded) and 96 at 281 (3 tiles, 7 padded, where 112
+// pads 55). It reads q, k and v through TMA, so each view's base address and
 // strides must be multiples of 16 bytes.
 int maest_attn_fwd_bf16(const void* q, const void* k, const void* v, void* out,
                         float* lse, int batch, int n, int heads, int n_real,
                         const long long* strides, float sl, void* stream) {
-  if ((n_real + 111) / 112 * 112 < (n_real + 95) / 96 * 96)
+  if (wg_key_tile(n_real) == 112)
     return launch_fwd_wgmma<112, 3, true>(q, k, v, out, lse, batch, n, heads,
                                           n_real, strides, sl, stream);
   return launch_fwd_wgmma<96, 3, true>(q, k, v, out, lse, batch, n, heads,

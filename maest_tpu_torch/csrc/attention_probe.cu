@@ -42,7 +42,15 @@
 // double the loop's trips and syncs, 128-key tiles halve them and need 74
 // KB of dynamic shared memory and twice the score registers.
 
-#include "attn_fwd_q8.cuh"  // and attn_fwd_bf16.cuh
+// P6d (bf16s) runs, since it was redesigned for Hopper, on K2's wgmma/TMA
+// kernel (attn_fwd_wgmma.cuh, its BF16S form: q pre-scaled in shared
+// memory, the scores rounded to bf16 in registers), through
+// maest_attn_probe_bf16s_wgmma; its mma.sync variant BF16S behind the
+// PyTorch pre-scaling pass stays as the control (maest_attn_probe_bf16,
+// variant 4). The same products as K2's wgmma kernel bound it.
+
+#include "attn_fwd_q8.cuh"     // and attn_fwd_bf16.cuh
+#include "attn_fwd_wgmma.cuh"  // K2's wgmma kernel, its BF16S form
 
 extern "C" {
 
@@ -76,6 +84,29 @@ int maest_attn_probe_bf16(int variant, const void* q, const void* k,
   }
   return launch<bf16>(kernel, MQ, 32 * WARPS, q, k, v, out, nullptr, batch, n,
                       heads, n_real, strides, sl, stream);
+}
+
+// P6d on wgmma: the bf16-score forward of K2's wgmma kernel on the
+// unscaled q, three consumer warpgroups taking turns and K2's key tile, 96
+// or 112 keys, whichever pads n_real the least (96 on a tie; wg_key_tile,
+// as maest_attn_fwd_bf16 chooses it). q, k, v, out, strides as
+// maest_attn_probe_bf16's, each view's base address and strides in
+// multiples of 16 bytes (TMA); sl = head_dim^-0.5 * log2(e), the factor q
+// is pre-scaled by in the kernel. 1 <= n_real <= n. Returns
+// cudaGetLastError(), or the first error of the launch's set-up.
+int maest_attn_probe_bf16s_wgmma(const void* q, const void* k, const void* v,
+                                 void* out, int batch, int n, int heads,
+                                 int n_real, const long long* strides,
+                                 float sl, void* stream) {
+  using namespace maest;
+  if (n_real < 1 || n_real > n) return static_cast<int>(cudaErrorInvalidValue);
+  if (wg_key_tile(n_real) == 112)
+    return launch_fwd_wgmma<112, 3, true, true>(q, k, v, out, nullptr, batch,
+                                                n, heads, n_real, strides, sl,
+                                                stream);
+  return launch_fwd_wgmma<96, 3, true, true>(q, k, v, out, nullptr, batch, n,
+                                             heads, n_real, strides, sl,
+                                             stream);
 }
 
 // K2 (FLASH) with `group` (batch, head) pairs a block, group 1, 2, 4 or 8

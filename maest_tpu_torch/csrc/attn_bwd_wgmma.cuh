@@ -142,10 +142,12 @@ __device__ __forceinline__ void bw_load8(const bf16* p, float (&x)[8]) {
   }
 }
 
-// eight lanes a row of the (B H, N_pad) grid: delta = rowsum(do * o) as
-// attention_bwd.cu's delta kernel sums it (eight products a lane, then
-// lanes 1, 2, 4 apart), lse copied, rows past N at delta 0 and lse
-// BW_LSE_PAD; the first n_handed threads zero the hand-over counters
+// eight lanes a row of the (B H, N_pad) grid at head_dim D_: delta =
+// rowsum(do * o) as attention_bwd.cu's delta kernel sums it (eight products
+// a lane in each 64 columns, then lanes 1, 2, 4 apart), lse copied, rows
+// past N at delta 0 and lse BW_LSE_PAD; the first n_handed threads zero the
+// hand-over counters
+template <int D_ = 64>
 __global__ void __launch_bounds__(256)
 attn_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
                      const float* __restrict__ lse, float* __restrict__ lse_p,
@@ -164,11 +166,14 @@ attn_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
   if (live && row < n) {
     const int b = static_cast<int>(bh / heads);
     const int h = static_cast<int>(bh - static_cast<long long>(b) * heads);
-    float x[8], y[8];
-    bw_load8(o + b * os.b + row * os.n + h * os.h + part * 8, x);
-    bw_load8(dout + b * ds.b + row * ds.n + h * ds.h + part * 8, y);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc = fmaf(y[i], x[i], acc);
+    for (int c = 0; c < D_; c += 64) {
+      float x[8], y[8];
+      bw_load8(o + b * os.b + row * os.n + h * os.h + c + part * 8, x);
+      bw_load8(dout + b * ds.b + row * ds.n + h * ds.h + c + part * 8, y);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc = fmaf(y[i], x[i], acc);
+    }
   }
   acc += __shfl_xor_sync(0xffffffffu, acc, 1);
   acc += __shfl_xor_sync(0xffffffffu, acc, 2);
@@ -607,7 +612,7 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
   float* lse_p = scratch + rows * 64;
   float* delta_p = lse_p + rows;
   unsigned* handed = reinterpret_cast<unsigned*>(delta_p + rows);
-  attn_bwd_prep_kernel<<<static_cast<unsigned>((8 * rows + 255) / 256), 256, 0,
+  attn_bwd_prep_kernel<64><<<static_cast<unsigned>((8 * rows + 255) / 256), 256, 0,
                          cs>>>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, lse_p,
       delta_p, handed, rows / 64, batch, n, n_pad, heads, s[3], s[4]);

@@ -43,6 +43,17 @@
 // phase 30, maest_attn_fwd_bf16_wgmma's configurations): three consumer
 // warpgroups taking turns, and 96 or 112 keys a tile, whichever pads the
 // real keys least (attention_fwd.cu, maest_attn_fwd_bf16).
+//
+// BF16S: the decomposition rig's bf16-score forward (P6d,
+// scripts/attn_profile_r2.py:113 _bf16_scores_kernel, the route of
+// attention_probe.cu's maest_attn_probe_bf16s_wgmma). Each consumer
+// pre-scales its TMA-loaded q rows in shared memory once, bf16(fp32(q) sl)
+// as the rig's caller does (ops/attention_probe.py prescale_q), and makes
+// them visible to wgmma (fence.proxy.async, a barrier over the
+// warpgroup); S comes from the same wgmma chain, is rounded to bf16 in
+// registers after the mask (bf16_round2, a pair at a time; masked keys at
+// bf16(-1e30)), and the max, exp2, sums and correction run as K2's on the
+// rounded values. No lse.
 
 #pragma once
 
@@ -361,6 +372,23 @@ __host__ __device__ constexpr int wg_consumer_regs(int nc) {
   return nc == 2 ? 240 : 160;
 }
 
+// the key tile that maest_attn_fwd_bf16 (K2, K3a) and the bf16s probe take
+// at n_real real keys: 112 where it pads them less than 96 does, else 96
+// (ops/attention.py wg_key_tile is the same rule)
+__host__ __device__ constexpr int wg_key_tile(int n_real) {
+  return (n_real + 111) / 112 * 112 < (n_real + 95) / 96 * 96 ? 112 : 96;
+}
+
+// a and b rounded to the nearest bf16, ties to even, in place, as fp32:
+// one conversion of the pair (the unit that also runs the softmax's exp2;
+// a conversion each, or the rounding in integer instructions, measured
+// slower on the H100) and two integer instructions to widen it back
+__device__ __forceinline__ void bf16_round2(float& a, float& b) {
+  const uint32_t u = pack_bf16(a, b);  // a in the low half
+  a = __uint_as_float(u << 16);
+  b = __uint_as_float(u & 0xFFFF0000u);
+}
+
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
@@ -374,13 +402,13 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // blocks (they share K and V in L2), 128 (NC + 1) threads; tq, tk, tv: the
 // maps of the (B, N, H, 64) views with boxes of 64 NC (q) and BK (k, v)
 // rows
-template <int BK, int NC, bool PP>
+template <int BK, int NC, bool PP, bool BF16S = false>
 __global__ void __launch_bounds__(128 * (NC + 1), 1)
 attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
                       bf16* __restrict__ out, float* __restrict__ lse, int n,
-                      int n_real, int heads, Strides os, float sl) {
+                      int n_real, int heads, Strides os, float sl_arg) {
   constexpr int BQ = 64 * NC;
   constexpr uint32_t KV_BYTES = BK * 128;
   extern __shared__ uint8_t wg_smem[];
@@ -433,6 +461,9 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
   } else {  // ----------------------------------------------- consumers
     setmaxnreg_inc<wg_consumer_regs(NC)>();
+    // the factor of the scores in the softmax: scale log2(e), or 1 where
+    // (BF16S) q is pre-scaled by it
+    const float sl = BF16S ? 1.f : sl_arg;
     const int c = wg - 1;  // this consumer's 64 rows: q0 + 64 c ..
     const int tid = threadIdx.x & 127;
     const int warp = tid >> 5;
@@ -515,6 +546,17 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             mx[e >> 1] = fmaxf(mx[e >> 1], x);
           }
       }
+      if constexpr (BF16S) {
+        // the scores (masked keys' -1e30 too) and this thread's maxima
+        // rounded to bf16: rounding is monotone, so the max of the rounded
+        // scores is the rounded max
+#pragma unroll
+        for (int nt = 0; nt < BK / 8; ++nt) {
+          bf16_round2(s[nt][0], s[nt][1]);
+          bf16_round2(s[nt][2], s[nt][3]);
+        }
+        bf16_round2(mx[0], mx[1]);
+      }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
@@ -555,6 +597,27 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     };
 
     mbar_wait(full_q, 0);
+    if constexpr (BF16S) {
+      // this consumer's 64 q rows (8 KB) pre-scaled in place, 16 bytes a
+      // thread at a time: the swizzle moves whole 16-byte chunks, so every
+      // element is scaled where it lies; then visible to wgmma's reads
+      uint4* rows = reinterpret_cast<uint4*>(
+          wg_smem + (sq + c * 64 * 128 - smem_addr(wg_smem)));
+#pragma unroll 4
+      for (int i = tid; i < 64 * 128 / 16; i += 128) {
+        uint4 w = rows[i];
+        uint32_t* x = reinterpret_cast<uint32_t*>(&w);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 f = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&x[j]));
+          x[j] = pack_bf16(f.x * sl_arg, f.y * sl_arg);
+        }
+        rows[i] = w;
+      }
+      fence_proxy_async();
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + NC + c) : "memory");
+    }
     mbar_wait(full_k(0), 0);
     take_turn();
     wgmma_fence();
@@ -673,14 +736,15 @@ inline bool encode_bnh64(CUtensorMap* map, const void* ptr, int batch, int n,
 }
 
 // one launch of an instance on `stream`, arguments as maest_attn_fwd_bf16's
-template <int BK, int NC, bool PP>
+// (BF16S: sl is q's pre-scale, lse nullptr)
+template <int BK, int NC, bool PP, bool BF16S = false>
 int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
                      float* lse, int batch, int n, int heads, int n_real,
                      const long long* st, float sl, void* stream) {
   if (batch <= 0 || n <= 0) return 0;
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
-  const auto kernel = attn_fwd_wgmma_kernel<BK, NC, PP>;
+  const auto kernel = attn_fwd_wgmma_kernel<BK, NC, PP, BF16S>;
   constexpr int smem = wg_smem_bytes(BK, NC);
   // once an instance, before any launch a graph captures; the setting holds
   // for the current device only: the port drives one card a process

@@ -24,12 +24,14 @@ the ``wgmma`` / TMA kernel (``csrc/attn_fwd_wgmma.cuh``), and at every
 width above 256 the one of ``csrc/attn_fwd_dn_wgmma.cuh`` (q resident in
 shared memory, 192-column output slices); the bf16
 backward at head_dim 64 the one of ``csrc/attn_bwd_wgmma.cuh`` (one score
-pass per key tile and q tile), the int8 backward in bf16 at head_dim 64
+pass per key tile and q tile), at head_dim 256 (and 129-255, zero-padded)
+the two of ``csrc/attn_bwd_d256_wgmma.cuh`` (a dk/dv and a dq kernel, each
+tile's work split between two consumer warpgroups), the int8 backward in bf16 at head_dim 64
 the s8 ``wgmma`` kernels of ``csrc/attn_bwd_q8_wgmma.cuh``, and the 8-bit
 forwards in bf16 at head_dim 64 the s8 / bf16 / e4m3 ``wgmma`` kernel of
 ``csrc/attn_fwd_q8_wgmma.cuh`` behind its CUDA quantisation pass; their
 ``mma.sync`` controls stay as ``attention_fwd_mma`` (both bf16 forwards),
-``attention_bwd_mma``, ``attention_bwd_int8_mma`` and
+``attention_bwd_mma`` (both bf16 backwards), ``attention_bwd_int8_mma`` and
 ``attention_fwd_q8_mma``. The fp32 forward
 and backward at head_dim 64 run the tf32 ``wgmma`` kernels of
 ``csrc/attn_fwd_tf32.cuh`` and ``csrc/attn_bwd_tf32.cuh`` (each product
@@ -69,6 +71,9 @@ _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 HEAD_DIM = 64               # the probe kernels' head_dim
 HEAD_DIMS = (HEAD_DIM, 128, 256)  # the production kernels' fixed widths
+# the key tiles of the head_dim-64 wgmma forward (K2, K3a and the bf16s
+# probe), one of them chosen by wg_key_tile
+WG_KEY_TILES = (96, 112)
 
 _QUANT_MODES = (None, "qk8", "qk8pv8", "fp8", "fp8pv8")
 
@@ -76,6 +81,15 @@ _QUANT_MODES = (None, "qk8", "qk8pv8", "fp8", "fp8pv8")
 def _scale(x, scale):
     """The softmax scale: ``scale``, or head_dim^-0.5 of x (B, N, H, D)."""
     return x.shape[-1]**-0.5 if scale is None else scale
+
+
+def wg_key_tile(n_real: int) -> int:
+    """The key tile the head_dim-64 ``wgmma`` forward takes at ``n_real``
+    real keys, as ``csrc/attn_fwd_wgmma.cuh wg_key_tile`` chooses it: 112
+    where it pads them less than 96 does, else 96."""
+    small, big = WG_KEY_TILES
+    return big if -(-n_real // big) * big < -(-n_real // small) * small \
+        else small
 
 
 def _scores(q, k, n_real, scale=None):
@@ -136,6 +150,10 @@ def attention_bwd_reference(q, k, v, o, lse, do, n_real: int | None = None,
 BWD_KEY_TILE = 128  # the wgmma backward's keys a block
 BWD_Q_TILE = 64     # and its q rows a streamed tile
 _BWD_WG_KEYS = 64   # keys a consumer warpgroup: its own partial of dq
+# the wgmma backward at head_dim 256: its dk/dv kernel's keys a block and q
+# rows a streamed tile; its dq kernel sums dq over key tiles of 64 in order
+BWD_D256_KEY_TILE = 64
+BWD_D256_Q_TILE = 64
 
 
 def attention_bwd_tiled_reference(q, k, v, o, lse, do,
@@ -144,7 +162,10 @@ def attention_bwd_tiled_reference(q, k, v, o, lse, do,
                                   key_tile: int = BWD_KEY_TILE,
                                   q_tile: int = BWD_Q_TILE):
     """``attention_bwd_reference``'s function, walked over the tiles of the
-    ``wgmma`` backward (``csrc/attn_bwd_wgmma.cuh``) in its order: per key
+    ``wgmma`` backward (``csrc/attn_bwd_wgmma.cuh``; at head_dim 256, with
+    ``BWD_D256_KEY_TILE`` and ``BWD_D256_Q_TILE``, those of
+    ``csrc/attn_bwd_d256_wgmma.cuh``, whose dq kernel sums its one
+    64-key slice a tile in the same order) in its order: per key
     tile of ``key_tile`` keys, every q tile of ``q_tile`` rows in turn
     forms s and dp once, p = exp2(s scale log2(e) - lse) (keys >= n_real
     at 0) and ds = p (dp - delta) scale, each rounded to the input dtype,
@@ -1342,32 +1363,41 @@ def attention_bwd(q, k, v, o, lse, do, n_real: int | None = None):
     """(dq, dk, dv) of attention from the saved (q, k, v, o, lse) and the
     output gradient ``do``; all (B, N, H, D) but lse (B, H, N) fp32. CUDA
     tensors launch ``csrc/attention_bwd.cu`` (in bf16 at head_dim 64 its
-    ``wgmma`` kernel, ``csrc/attn_bwd_wgmma.cuh``; counted in
+    ``wgmma`` kernel, ``csrc/attn_bwd_wgmma.cuh``, at 129-256 those of
+    ``csrc/attn_bwd_d256_wgmma.cuh``; counted in
     ``attention_bwd.launches``), CPU tensors run
     ``attention_bwd_reference``."""
     return _bwd_qkv(q, k, v, o, lse, do, n_real, None).unbind(2)
 
 
-# Private: True routes the bf16 backward at head_dim 64 through the control
-# (``attention_bwd_mma``) instead of the wgmma kernel, so that a measurement
-# can time the steps of the model with each. Nothing in the package sets it.
+# Private: True routes the bf16 backward at head_dim 64 and 256 (129-256
+# zero-padded) through the control (``attention_bwd_mma``) instead of the
+# wgmma kernels, so that a measurement can time the steps of the model with
+# each. Nothing in the package sets it.
 _K3B_CONTROL = False
+
+# the bf16 backward's control entries by kernel width: the mma.sync kernels
+# that the wgmma kernels replaced
+_BWD_CONTROL = {HEAD_DIM: "maest_attn_bwd_bf16_mma",
+                256: "maest_attn_bwd_bf16_d256_mma"}
 
 
 def attention_bwd_mma(q, k, v, o, lse, do, n_real: int | None = None):
-    """The control of K3b/K4's wgmma kernel: the ``mma.sync`` kernels
-    (delta, dk/dv, dq; entry ``maest_attn_bwd_bf16_mma`` of
-    ``csrc/attention_bwd.cu``) on bf16 CUDA (B, N, H, 64) views; (dq, dk,
-    dv). They compute what ``attention_bwd`` computes, forming the scores
-    once for dk/dv and once for dq; counted in
+    """The control of K3b/K4's wgmma kernels: the ``mma.sync`` kernels
+    (delta, dk/dv, dq; entry ``maest_attn_bwd_bf16_mma`` at head_dim 64,
+    ``maest_attn_bwd_bf16_d256_mma`` at 256, of ``csrc/attention_bwd.cu``)
+    on bf16 CUDA (B, N, H, 64 or 256) views; (dq, dk, dv). They compute
+    what ``attention_bwd`` computes, forming the scores once for dk/dv and
+    once for dq (at 256 in 128-column slices of dk/dv); counted in
     ``attention_bwd_mma.launches``. CPU tensors run
     ``attention_bwd_reference``."""
     n_real, _, _ = _check_args(q, k, v, n_real, None)
     if q.device.type == "cpu":
         return attention_bwd_reference(q, k, v, o, lse, do, n_real)
-    if q.dtype != torch.bfloat16 or q.shape[-1] != HEAD_DIM:
-        raise ValueError("the control takes bf16 q, k, v at head_dim 64")
-    grads = launch_bwd_entry("maest_attn_bwd_bf16_mma", (), q, k, v, o, lse,
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in _BWD_CONTROL:
+        raise ValueError("the control takes bf16 q, k, v at head_dim 64 or "
+                         "256")
+    grads = launch_bwd_entry(_BWD_CONTROL[q.shape[-1]], (), q, k, v, o, lse,
                              do, n_real, q.shape[-1]**-0.5)
     attention_bwd_mma.launches += 1
     return grads.unbind(2)
@@ -1455,10 +1485,10 @@ def _bwd_qkv(q, k, v, o, lse, do, n_real, bwd_quant):
         attention_bwd_fp32_fma.launches += 1
         return grads
     if _K3B_CONTROL and q.dtype == torch.bfloat16 and padded_dim(
-            q.shape[-1]) == HEAD_DIM:
+            q.shape[-1]) in _BWD_CONTROL:
         grads = padded_bwd(functools.partial(
-            launch_bwd_entry, "maest_attn_bwd_bf16_mma", ()), q, k, v, o, lse,
-            do, n_real)
+            launch_bwd_entry, _BWD_CONTROL[padded_dim(q.shape[-1])], ()), q,
+            k, v, o, lse, do, n_real)
         attention_bwd_mma.launches += 1
         return grads
     name, lead = _instance("maest_attn_bwd_fp32" if q.dtype == torch.float32

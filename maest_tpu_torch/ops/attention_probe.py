@@ -21,7 +21,20 @@ of that piece (``maest_tpu_torch.probes.attn_profile`` times them):
 Every variant rounds p to bf16 for the P.V product and sums in fp32. On
 CUDA tensors the wrapper launches ``csrc/attention_probe.cu`` (counted per
 variant in ``attention_probe.launches``); on CPU tensors it runs the plain
-version, ``attention_probe_reference``, which walks the same 64-key tiles.
+version, ``attention_probe_reference``, which walks the kernel's key tiles:
+64 keys (``BLOCK_K``), and for ``bf16s`` the 96 or 112 of K2's ``wgmma``
+kernel (``wg_key_tile``). ``bf16s`` runs on K2's ``wgmma``/TMA kernel in
+its bf16-score form (``csrc/attn_fwd_wgmma.cuh``, entry
+``maest_attn_probe_bf16s_wgmma``: q pre-scaled in shared memory, no
+PyTorch pass); the other three, and ``bf16s``'s control, on the
+``mma.sync`` variants of K2's template ``csrc/attn_fwd_bf16.cuh``.
+
+``attention_probe_mma(q, k, v, "bf16s")`` is that control: the
+``mma.sync`` kernel behind the PyTorch pre-scaling pass ``prescale_q``,
+counted in ``attention_probe_mma.launches``, its plain version
+``attention_probe_mma_reference`` on 64-key tiles. ``launch_probe`` runs a
+``mma.sync`` variant's kernel alone (for ``bf16s`` the control's, on a
+pre-scaled q).
 
 Two more wrappers, each with its plain version and launch count:
 
@@ -67,10 +80,11 @@ from .attention import (
     attention_bwd_reference,
     launch_bwd_entry,
     launch_fwd_entry,
+    wg_key_tile,
 )
 
 VARIANTS = ("mxu_only", "noexp_max", "novmax", "bf16s")
-BLOCK_K = 64  # the kernel's key tile: novmax's max is taken over it
+BLOCK_K = 64  # the mma.sync kernels' key tile: novmax's max is taken over it
 _ID = {name: i + 1 for i, name in enumerate(VARIANTS)}  # maest::FwdVariant
 GROUPS = (1, 2, 4, 8)  # the head groups attention_probe_gh's kernel takes
 P127_SHIFT = 6.9886    # the int8 rig's log2(127): p = exp2(s - m + it) <= 127
@@ -162,25 +176,65 @@ def _walk(q, k, v, variant, nr, block_k=BLOCK_K, with_lse=False):
 def attention_probe_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, variant: str,
                               n_real: int | None = None) -> torch.Tensor:
-    """Plain PyTorch version of ``attention_probe``: 64-key tiles in fp32,
-    rounding where the kernel rounds (p to bf16 before P.V; for ``bf16s``
-    the pre-scaled q, the scores and the mask value to bf16)."""
-    return _walk(q, k, v, variant, _check(q, k, v, variant, n_real))
+    """Plain PyTorch version of ``attention_probe``: the kernel's key
+    tiles in fp32 (64 keys; ``wg_key_tile`` for ``bf16s``), rounding
+    where the kernel rounds (p to bf16 before P.V; for ``bf16s`` the
+    pre-scaled q, the scores and the mask value to bf16)."""
+    nr = _check(q, k, v, variant, n_real)
+    return _walk(q, k, v, variant, nr,
+                 wg_key_tile(nr) if variant == "bf16s" else BLOCK_K)
 
 
 def attention_probe(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     variant: str, n_real: int | None = None) -> torch.Tensor:
     """The ``variant`` forward on (B, N, H, 64) bf16: the kernel on CUDA
-    tensors, ``attention_probe_reference`` on CPU tensors."""
-    _check(q, k, v, variant, n_real)
+    tensors (``bf16s``: the ``wgmma`` kernel on the unscaled q),
+    ``attention_probe_reference`` on CPU tensors."""
+    nr = _check(q, k, v, variant, n_real)
     if q.device.type == "cpu":
         return attention_probe_reference(q, k, v, variant, n_real)
-    return launch_probe(prescale_q(q) if variant == "bf16s" else q, k, v,
-                        variant, n_real)
+    if variant != "bf16s":
+        return launch_probe(q, k, v, variant, n_real)
+    out = launch_bf16("maest_attn_probe_bf16s_wgmma", None, q, k, v, nr,
+                      q.shape[-1]**-0.5 * _LOG2E)
+    attention_probe.launches["bf16s"] += 1
+    return out
+
+
+def _check_mma(q, k, v, variant, n_real):
+    if variant != "bf16s":
+        raise ValueError(f"attention_probe_mma is the control of bf16s only "
+                         f"(the variant whose route moved to wgmma); got "
+                         f"{variant!r}")
+    return _check(q, k, v, variant, n_real)
+
+
+def attention_probe_mma_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, variant: str = "bf16s",
+                                  n_real: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of ``attention_probe_mma``: ``bf16s`` over
+    the control's 64-key tiles."""
+    return _walk(q, k, v, variant, _check_mma(q, k, v, variant, n_real))
+
+
+def attention_probe_mma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        variant: str = "bf16s",
+                        n_real: int | None = None) -> torch.Tensor:
+    """The control of the ``wgmma`` bf16s kernel: the PyTorch pre-scaling
+    pass ``prescale_q``, then the ``mma.sync`` variant BF16S of K2's
+    template (``launch_probe``), on (B, N, H, 64) bf16 CUDA tensors;
+    ``attention_probe_mma_reference`` on CPU tensors. Takes ``bf16s``
+    only. Launches counted in ``attention_probe_mma.launches``."""
+    _check_mma(q, k, v, variant, n_real)
+    if q.device.type == "cpu":
+        return attention_probe_mma_reference(q, k, v, variant, n_real)
+    return launch_probe(prescale_q(q), k, v, variant, n_real)
 
 
 def _on_card(t, fn):
-    if t.device.type != "cuda":
+    """Refuse CPU tensors, where the wrappers run the plain version (other
+    devices are refused by ``_check_views`` at the launch)."""
+    if t.device.type == "cpu":
         raise ValueError(f"{fn} launches the CUDA kernel; got {t.device} "
                          "tensors (the wrappers run the plain version there)")
 
@@ -200,21 +254,22 @@ _Q8_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                ctypes.c_void_p])
 
 
-def launch_bf16(name: str, select: int, q, k, v, n_real: int,
+def launch_bf16(name: str, select: int | None, q, k, v, n_real: int,
                 sl: float) -> torch.Tensor:
     """Launch the bf16 entry ``name`` of ``csrc/attention_probe.cu`` (its
-    variant or group ``select``) on checked CUDA views; return the bf16
-    output."""
+    variant or group ``select`` first, where it takes one: None for the
+    bf16s wgmma entry) on checked CUDA views; return the bf16 output."""
     _check_views((q, k, v), torch.bfloat16, "q/k/v")
     b, n, h, _ = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lib = _build.load_library("attention_probe")
+    lead = () if select is None else (select,)
     with torch.cuda.device(q.device):
-        err = _call(lib, name, _BF16_ARGS, select, q.data_ptr(), k.data_ptr(),
-                    v.data_ptr(), out.data_ptr(), b, n, h, n_real,
-                    _strides(q, k, v, out), sl,
+        err = _call(lib, name, _BF16_ARGS[1 - len(lead):], *lead,
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    b, n, h, n_real, _strides(q, k, v, out), sl,
                     torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, f"{name} ({select})")
+    _build.check(lib, err, f"{name} ({select})" if lead else name)
     return out
 
 
@@ -238,14 +293,19 @@ def launch_q8(mode: int, q8, k8, qsl, sk, v, sv127, out, n_real: int,
 
 def launch_probe(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  variant: str, n_real: int | None = None) -> torch.Tensor:
-    """The ``variant`` kernel alone on CUDA tensors, as ``attention_probe``
-    launches it: for ``bf16s`` q must come through ``prescale_q`` (the rig
-    times the kernel so, apart from that pass)."""
+    """The ``mma.sync`` kernel of ``variant`` alone on CUDA tensors, as
+    ``attention_probe`` launches it (mxu_only, noexp_max, novmax; counted
+    there) or, for ``bf16s``, as its control ``attention_probe_mma`` does
+    (counted there): q must then come through ``prescale_q`` (the rig times
+    the kernel so, apart from that pass)."""
     nr = _check(q, k, v, variant, n_real)
     _on_card(q, "launch_probe")
     sl = q.shape[-1]**-0.5 * (1.0 if variant == "mxu_only" else _LOG2E)
     out = launch_bf16("maest_attn_probe_bf16", _ID[variant], q, k, v, nr, sl)
-    attention_probe.launches[variant] += 1
+    if variant == "bf16s":
+        attention_probe_mma.launches += 1
+    else:
+        attention_probe.launches[variant] += 1
     return out
 
 
@@ -506,6 +566,7 @@ def attention_bwd_tile(q, k, v, o, lse, do, rows: int, tile: int):
 
 
 attention_probe.launches = dict.fromkeys(VARIANTS, 0)
+attention_probe_mma.launches = 0
 attention_probe_gh.launches = dict.fromkeys(GROUPS, 0)
 attention_probe_int8.launches = 0
 attention_probe_qpad.launches = dict.fromkeys(QPAD_GROUPS, 0)

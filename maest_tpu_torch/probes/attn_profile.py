@@ -9,15 +9,19 @@ from ``--shapes`` (names of ``ARCH_N`` or token counts), on inputs drawn
 N(0, 0.1^2) from ``--seed``, to split K2's time between the products and
 pipeline, the softmax arithmetic and the running-max bookkeeping:
 
-  flash      K2's mma.sync kernel, the template whose loop every probe
-             variant below changes (``attention_fwd_mma``, the control of
-             the wgmma kernel that ``flash_attention`` now runs), under
-             ``torch.inference_mode()``
+  flash      K2's mma.sync kernel, the template whose loop the mma.sync
+             probe variants below change (``attention_fwd_mma``, the
+             control of the wgmma kernel that ``flash_attention`` now
+             runs), under ``torch.inference_mode()``
   mxu_only   the same grid, copies and products, softmax replaced by a cast
   noexp_max  exp2 with no shift: no running max, no correction
   novmax     the max of each 64-key tile only, no correction
-  bf16s      the online softmax on bf16 scores, q pre-scaled in bf16 (the
-             pre-scaling pass is part of its time, as in the TPU rig)
+  bf16s_mma  the online softmax on bf16 scores, q pre-scaled in bf16 by a
+             PyTorch pass (part of its time, as in the TPU rig), on the
+             mma.sync template: bf16s's control (``attention_probe_mma``)
+  wgmma      K2's wgmma kernel (``flash_attention``), the template of bf16s
+  bf16s      the same function on the wgmma template, q pre-scaled inside
+             the kernel (``attention_probe``'s route)
   gh<G>      K2 with G (batch, head) pairs a block, G 1, 2, 4 or 8: the
              same function, G times fewer blocks (not in the default list)
   int8       the TPU rig's int8 kernel (int8 q.k and p.v, p's fixed scale
@@ -44,21 +48,22 @@ the same ``--iters`` calls (median of three replays; not for plain, which
 materialises its N^2 scores and is no yardstick of speed): the
 device's time with no host issue between the calls, and the idle share of
 the event-timed calls, 1 - graph time / event time. A large idle share says
-the host's launch rate set that reading, not the kernels. bf16s and int8
-add their kernel alone, on inputs made once outside the timing
+the host's launch rate set that reading, not the kernels. bf16s_mma and
+int8 add their kernel alone, on inputs made once outside the timing
 (``launch_probe`` on a pre-scaled q, ``launch_int8`` on the quantized
 inputs), and their pass alone (``prescale_q``, ``int8_rig_pass``), both
-from events.
+from events; bf16s has no pass to split off.
 
 After each shape it prints the differences the rig exists for (flash -
-mxu_only, flash - noexp_max, flash - novmax, bf16s - flash, gh<G> -
-flash), from the event times and, on the card, from the graph times; for
-a variant with a pass also its kernel alone and its pass.
+mxu_only, flash - noexp_max, flash - novmax, bf16s_mma - flash and bf16s
+- wgmma: each difference within one template, gh<G> - flash), from the
+event times and, on the card, from the graph times; for a variant with a
+pass also its kernel alone and its pass.
 
 ``--check`` instead prints each variant's max|diff| against fp32 attention
 (``attention_reference`` on fp32 copies) at (2, N, heads, 64) on N(0, 1)
-inputs, N the first shape's. Only flash, noexp_max, bf16s, gh<G>, plain
-and sdpa compute softmax attention; mxu_only and novmax are printed beside
+inputs, N the first shape's. Only flash, wgmma, noexp_max, bf16s,
+bf16s_mma, gh<G>, plain and sdpa compute softmax attention; mxu_only and novmax are printed beside
 them, and int8 also with its output times 127.
 
 The rig runs on the card; ``--device cpu`` runs the plain versions with the
@@ -74,13 +79,18 @@ import time
 import numpy as np
 import torch
 
-from ..ops.attention import attention_fwd_mma, attention_reference
+from ..ops.attention import (
+    attention_fwd_mma,
+    attention_reference,
+    flash_attention,
+)
 from ..ops.attention_probe import GROUPS
 from ..ops.attention_probe import VARIANTS as PROBES
 from ..ops.attention_probe import (
     attention_probe,
     attention_probe_gh,
     attention_probe_int8,
+    attention_probe_mma,
     int8_rig_pass,
     launch_int8,
     launch_probe,
@@ -89,16 +99,19 @@ from ..ops.attention_probe import (
 
 ARCH_N = {"5s": 272, "10s": 551, "20s": 1118, "30s": 1676,
           "30s-train": 866, "10s-train": 281, "20s-train": 578}
-DEFAULT_VARIANTS = "flash,mxu_only,noexp_max,novmax,bf16s,plain,sdpa"
+DEFAULT_VARIANTS = ("flash,mxu_only,noexp_max,novmax,bf16s_mma,wgmma,bf16s,"
+                    "plain,sdpa")
 PEAK_BF16 = 989e12          # H100 SXM data sheet, dense bf16 flop/s
 PEAK_INT8 = 1979e12         # and dense int8 op/s
 EXP2_PER_CLOCK_PER_SM = 16  # special-function unit ex2 rate, assumed
 DIFFS = (("flash", "mxu_only", "softmax time K2 does not hide"),
          ("flash", "noexp_max", "running-max bookkeeping"),
          ("flash", "novmax", "correction multiplies"),
-         ("bf16s", "flash", "bf16 scores against fp32 ones"))
-_SOFTMAX = {"flash", "noexp_max", "bf16s", "plain", "sdpa"}
-_PASS = {"bf16s": "pre-scaling pass", "int8": "quantization pass"}
+         ("bf16s_mma", "flash", "bf16 scores against fp32 ones, mma.sync"),
+         ("bf16s", "wgmma", "bf16 scores against fp32 ones, wgmma"))
+_SOFTMAX = {"flash", "wgmma", "noexp_max", "bf16s", "bf16s_mma", "plain",
+            "sdpa"}
+_PASS = {"bf16s_mma": "pre-scaling pass", "int8": "quantization pass"}
 
 
 def tokens(shape: str) -> int:
@@ -144,6 +157,10 @@ def variant_fn(variant: str, q, k, v):
         return lambda: attention_probe_int8(qf, kf, vf)
     if variant == "flash":
         return lambda: attention_fwd_mma(q, k, v)[0]
+    if variant == "wgmma":
+        return lambda: flash_attention(q, k, v)
+    if variant == "bf16s_mma":
+        return lambda: attention_probe_mma(q, k, v, "bf16s")
     if variant in PROBES:
         return lambda: attention_probe(q, k, v, variant)
     if variant == "plain":
@@ -156,8 +173,8 @@ def variant_fn(variant: str, q, k, v):
 
 def split_fns(variant: str, q, k, v):
     """(kernel alone, pass alone) of a variant with a pass before its
-    kernel (bf16s, int8), on inputs made once here; None for another."""
-    if variant == "bf16s":
+    kernel (bf16s_mma, int8), on inputs made once here; None for another."""
+    if variant == "bf16s_mma":
         qs = prescale_q(q)
         return (lambda: launch_probe(qs, k, v, "bf16s"),
                 lambda: prescale_q(q))

@@ -598,36 +598,286 @@ def test_probe_kernels_reject_what_they_do_not_take(cuda_device):
 
 
 def test_rig_times_graphs_and_splits_bf16s_on_the_card(cuda_device, capsys):
-    """The rig's graph times, and bf16s's kernel alone and its pass."""
+    """The rig's graph times, and bf16s's control (bf16s_mma) split into its
+    kernel alone and its pass; bf16s on the wgmma kernel has no pass."""
     from maest_tpu_torch.probes import attn_profile
 
     out = attn_profile.main(["--batch", "2", "--heads", "2", "--shapes",
                              "200", "--iters", "4", "--variants",
-                             "flash,mxu_only,bf16s,plain"])
+                             "flash,mxu_only,bf16s_mma,wgmma,bf16s,plain"])
     rows = out["200"]
-    for variant in ("flash", "mxu_only", "bf16s"):
+    for variant in ("flash", "mxu_only", "bf16s_mma", "wgmma", "bf16s"):
         assert rows[variant]["graph_ms"] > 0
         assert rows[variant]["idle"] == pytest.approx(
             1 - rows[variant]["graph_ms"] / rows[variant]["ms"])
     assert rows["plain"]["graph_ms"] is None
-    assert 0 < rows["bf16s"]["kernel_ms"] < rows["bf16s"]["ms"]
-    assert 0 < rows["bf16s"]["pass_ms"] < rows["bf16s"]["ms"]
-    assert "ms (graphs); its kernel alone" in capsys.readouterr().out
+    assert 0 < rows["bf16s_mma"]["kernel_ms"] < rows["bf16s_mma"]["ms"]
+    assert 0 < rows["bf16s_mma"]["pass_ms"] < rows["bf16s_mma"]["ms"]
+    assert "kernel_ms" not in rows["bf16s"]
+    text = capsys.readouterr().out
+    assert "ms (graphs); its kernel alone" in text
+    assert "bf16s - wgmma = " in text and "bf16s_mma - flash = " in text
 
 
 def test_launch_probe_is_the_kernel_alone(cuda_device):
-    """launch_probe on a pre-scaled q is attention_probe's bf16s; it
+    """launch_probe on a pre-scaled q is bf16s's control
+    (attention_probe_mma, the mma.sync kernel behind the PyTorch pass); it
     launches on CUDA tensors only."""
-    from maest_tpu_torch.ops.attention_probe import launch_probe, prescale_q
+    from maest_tpu_torch.ops.attention_probe import (
+        attention_probe_mma,
+        launch_probe,
+        prescale_q,
+    )
 
     x = _rand((2, 130, 3, 2, 64), 17).to(cuda_device, torch.bfloat16)
     q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
     assert torch.equal(launch_probe(prescale_q(q), k, v, "bf16s"),
-                       attention_probe(q, k, v, "bf16s"))
+                       attention_probe_mma(q, k, v, "bf16s"))
     assert torch.equal(launch_probe(q, k, v, "novmax"),
                        attention_probe(q, k, v, "novmax"))
     with pytest.raises(ValueError, match="launches the CUDA kernel"):
         launch_probe(q.cpu(), k.cpu(), v.cpu(), "novmax")
+
+
+# --- P6d on K2's wgmma kernel and its mma.sync control ----------------------
+# the route against its plain version at the wgmma kernel's key tiles (96 or
+# 112), the control against its own on 64-key tiles: 2 bf16 ulps of the
+# largest |o|, as above; each launch counted on its own wrapper
+@pytest.mark.parametrize("b,n,n_real", [(2, 100, None), (3, 100, 90),
+                                        (2, 866, None), (2, 1676, 1600),
+                                        (1, 200, 185)])
+def test_bf16s_wgmma_route_and_control_match_plain(cuda_device, b, n,
+                                                   n_real):
+    from maest_tpu_torch.ops.attention_probe import (
+        attention_probe_mma,
+        attention_probe_mma_reference,
+    )
+
+    x = _rand((b, n, 3, 12, 64), 18 + n).to(cuda_device, torch.bfloat16)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    before = (attention_probe.launches["bf16s"], attention_probe_mma.launches)
+    pairs = ((attention_probe(q, k, v, "bf16s", n_real),
+              attention_probe_reference(q, k, v, "bf16s", n_real)),
+             (attention_probe_mma(q, k, v, "bf16s", n_real),
+              attention_probe_mma_reference(q, k, v, "bf16s", n_real)))
+    torch.cuda.synchronize()
+    assert (attention_probe.launches["bf16s"],
+            attention_probe_mma.launches) == (before[0] + 1, before[1] + 1)
+    for out, ref in pairs:
+        top = ref.float().abs().max().item()
+        tol = 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def _planted_gap(tmp_path, lib_name, header, old, new, code):
+    """Build ``csrc/<lib_name>.cu`` from a copy of csrc/ whose ``header`` has
+    the line ``old`` replaced by ``new``, then run ``code`` (which prints a
+    JSON value last) in a process of its own with that library as
+    ``lib_name``: a second copy of a kernel launched here would not take its
+    dynamic shared-memory limit."""
+    import json
+    import shutil
+    import subprocess
+    import sys
+
+    from maest_tpu_torch.ops import _build
+
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, src)
+    text = (src / header).read_text()
+    assert text.count(old) == 1
+    (src / header).write_text(text.replace(old, new))
+    lib = tmp_path / f"{lib_name}.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(src / f"{lib_name}.cu")], check=True,
+                   capture_output=True)
+    proc = subprocess.run([sys.executable, "-c", (
+        "import ctypes, sys, torch\n"
+        f"sys.path.insert(0, {str(_build.CSRC.parents[1])!r})\n"
+        "from maest_tpu_torch.ops import _build\n"
+        f"_build._libs[{lib_name!r}] = ctypes.CDLL({str(lib)!r})\n" + code)],
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+_BF16S_GAP = (
+    "import json, numpy as np\n"
+    "from maest_tpu_torch.ops.attention import flash_attention\n"
+    "from maest_tpu_torch.ops.attention_probe import attention_probe, "
+    "attention_probe_reference\n"
+    "x = torch.from_numpy(np.random.default_rng(19).standard_normal("
+    "(2, 866, 3, 12, 64)).astype(np.float32)).cuda().bfloat16()\n"
+    "q, k, v = x.unbind(2)\n"
+    "o = attention_probe(q, k, v, 'bf16s', 850).float()\n"
+    "r = attention_probe_reference(q, k, v, 'bf16s', 850).float()\n"
+    "k2 = flash_attention(q, k, v, n_real=850).float()\n"
+    "print(json.dumps([(o - r).abs().max().item(), r.abs().max().item(), "
+    "(o - k2).abs().max().item(), (o - r).abs().mean().item(), "
+    "(o - k2).abs().mean().item()]))\n")
+
+
+def _bf16s_holds(err, top, k2, mean, mean_k2):
+    """Within 2 bf16 ulps of the largest |o| of plain, and nearer plain than
+    K2's output: in max, and 4 times in mean |difference| (chip_smoke.py
+    PROBE_NEAR)."""
+    tol = 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+    return err <= tol and k2 > err and mean_k2 > 4 * mean
+
+
+def test_bf16s_check_refuses_the_score_rounding_dropped(cuda_device,
+                                                         tmp_path):
+    """The wgmma bf16s kernel built with the bf16 rounding of its scores
+    left out (bf16_round2 returning at once: K2's softmax on the pre-scaled
+    q): the checks that hold the sound kernel to plain refuse it. Run with
+    -s to see the gaps."""
+    import json
+    import subprocess
+    import sys
+
+    from maest_tpu_torch.ops import _build
+
+    sound = subprocess.run([sys.executable, "-c", (
+        "import sys, torch\n"
+        f"sys.path.insert(0, {str(_build.CSRC.parents[1])!r})\n"
+        + _BF16S_GAP)], capture_output=True, text=True, timeout=300)
+    assert sound.returncode == 0, sound.stderr
+    good = json.loads(sound.stdout.strip().splitlines()[-1])
+    bad = _planted_gap(
+        tmp_path, "attention_probe", "attn_fwd_wgmma.cuh",
+        "  const uint32_t u = pack_bf16(a, b);  // a in the low half",
+        "  const uint32_t u = 0u; return;", _BF16S_GAP)
+    print(f"planted: bf16s without its score rounding: (max|o - plain|, "
+          f"max|plain|, max|o - K2|, mean|o - plain|, mean|o - K2|) {bad} "
+          f"(sound {good})")
+    assert _bf16s_holds(*good) and not _bf16s_holds(*bad)
+
+
+# --- K3b at head_dim 256 on wgmma (csrc/attn_bwd_d256_wgmma.cuh) ------------
+# each gradient within 1e-2 of max(1, its max |x|) of the tiled plain version
+# and of plain (tests/test_torch_bwd_wgmma.py's bf16 bound)
+D256_REL = 1e-2
+
+
+def _d256_rel(got, want):
+    return max(((a.float() - z.float()).abs().max() / max(
+        1.0, z.float().abs().max().item())).item() for a, z in zip(got, want))
+
+
+def _d256_schedule(q, k, v, o, lse, do, n_real):
+    from maest_tpu_torch.ops import attention as A
+
+    d = q.shape[-1]
+    (qp, kp, vp, op, dop), scale = A.pad_head_dim(q, k, v, o, do)
+    return tuple(g[..., :d] for g in A.attention_bwd_tiled_reference(
+        qp, kp, vp, op, lse, dop, n_real, scale,
+        key_tile=A.BWD_D256_KEY_TILE, q_tile=A.BWD_D256_Q_TILE))
+
+
+@pytest.mark.parametrize("b,n,n_real,h,d", [
+    (2, 200, 190, 3, 256), (32, 866, None, 3, 256), (2, 300, 281, 2, 192),
+    (2, 130, 1, 2, 256), (1, 70, None, 1, 256), (2, 1000, 997, 1, 256)])
+def test_d256_wgmma_backward_matches_plain_and_control(cuda_device, b, n,
+                                                       n_real, h, d):
+    """K3b at head_dim 256 (and 192, zero-padded) through attention_bwd,
+    each call counted, on strided views of one fused q/k/v/do: within the
+    bound of its plain version and of plain, two launches torch.equal,
+    masked dk/dv exactly zero; the mma.sync control (through
+    _K3B_CONTROL) within the same bound of plain."""
+    from maest_tpu_torch.ops import attention as A
+
+    x = _rand((b, n, 4, h, d), 40 + n + d).to(cuda_device, torch.bfloat16)
+    q, k, v, do = x.unbind(2)
+    o, lse = flash_attention_fwd_lse(q, k, v, n_real)
+    before = (A.attention_bwd.launches, A.attention_bwd_mma.launches)
+    got = attention_bwd(q, k, v, o, lse, do, n_real)
+    again = attention_bwd(q, k, v, o, lse, do, n_real)
+    A._K3B_CONTROL = True
+    try:
+        ctrl = attention_bwd(q, k, v, o, lse, do, n_real)
+    finally:
+        A._K3B_CONTROL = False
+    ref = attention_bwd_reference(q, k, v, o, lse, do, n_real)
+    tiled = _d256_schedule(q, k, v, o, lse, do, n_real)
+    torch.cuda.synchronize()
+    assert (A.attention_bwd.launches - before[0],
+            A.attention_bwd_mma.launches - before[1]) == (2, 1)
+    assert all(torch.equal(a, z) for a, z in zip(got, again))
+    assert _d256_rel(got, ref) <= D256_REL and _d256_rel(got, tiled) <= D256_REL
+    assert _d256_rel(ctrl, ref) <= D256_REL
+    if n_real is not None:
+        assert not got[1][:, n_real:].any() and not got[2][:, n_real:].any()
+
+
+def test_d256_check_refuses_dv_last_tile_dropped(cuda_device, tmp_path):
+    """The head_dim-256 wgmma backward built with dV's products of the last
+    q tile left out: at N 256 that tile is a quarter of every key's rows,
+    and the check that holds the sound kernels to their plain version
+    refuses it. Run with -s to see the gap."""
+    code = (
+        "import json, numpy as np\n"
+        "from maest_tpu_torch.ops import attention as A\n"
+        "x = torch.from_numpy(np.random.default_rng(41).standard_normal("
+        "(2, 256, 4, 3, 256)).astype(np.float32)).cuda().bfloat16()\n"
+        "q, k, v, do = x.unbind(2)\n"
+        "o, lse = A.flash_attention_fwd_lse(q, k, v, 250)\n"
+        "g = A.attention_bwd(q, k, v, o, lse, do, 250)\n"
+        "r = A.attention_bwd_tiled_reference(q, k, v, o, lse, do, 250, "
+        "key_tile=A.BWD_D256_KEY_TILE, q_tile=A.BWD_D256_Q_TILE)\n"
+        "print(json.dumps(max(((a.float() - z.float()).abs().max() / max("
+        "1.0, z.float().abs().max().item())).item() for a, z in zip(g, r))))\n")
+    line = ("        wgmma_rs_n64_t(acc[c], af[kj], sw128_desc(rows + c * CHUNK) "
+            "+ kj * 128);")
+    bad = _planted_gap(tmp_path, "attention_bwd", "attn_bwd_d256_wgmma.cuh",
+                       line, line.replace("        wgmma_rs", (
+                           "        if (wg != 0 || it + 1 < n_qt) wgmma_rs")),
+                       code)
+    x = _rand((2, 256, 4, 3, 256), 41).to(cuda_device, torch.bfloat16)
+    q, k, v, do = x.unbind(2)
+    o, lse = flash_attention_fwd_lse(q, k, v, 250)
+    good = _d256_rel(attention_bwd(q, k, v, o, lse, do, 250),
+                     _d256_schedule(q, k, v, o, lse, do, 250))
+    print(f"planted: dV without the last q tile: relative gap {bad:.4g} "
+          f"against {D256_REL} (sound {good:.4g})")
+    assert good <= D256_REL < bad
+
+
+def test_k3b_control_hook_routes_head_dim_256(cuda_device, monkeypatch):
+    """With the private hook set, the bf16 backward at head_dim 256 (one
+    head of a 256-wide model) launches the mma.sync kernels, counted in
+    attention_bwd_mma, and not the wgmma ones; every parameter's gradient
+    stays within 1e-2 of its largest |g| (at least 1e-2 of the largest of
+    all) of the wgmma route's."""
+    from maest_tpu_torch.models.registry import build_config
+    from maest_tpu_torch.models.vit import MAESTNet
+    from maest_tpu_torch.ops import attention as A
+
+    cfg = build_config("discogs-maest-30s-pw-129e", embed_dim=256, depth=2,
+                       num_heads=1, input_t=206, n_classes=16)
+    net = MAESTNet(cfg, dtype=torch.bfloat16, param_dtype=torch.float32,
+                   device=cuda_device,
+                   generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():  # zero heads would hide every difference
+        net.head[1].weight.copy_(_rand((16, 256), 14, 0.2))
+    x = _rand((2, 1, 96, 206), 15).to(cuda_device)
+    grads = {}
+    for control in (False, True):
+        monkeypatch.setattr(A, "_K3B_CONTROL", control)
+        net.zero_grad()
+        before = (A.attention_bwd.launches, A.attention_bwd_mma.launches)
+        net(x, train=True, generator=torch.Generator().manual_seed(0))[
+            0].float().square().sum().backward()
+        torch.cuda.synchronize()
+        grew = (A.attention_bwd.launches - before[0],
+                A.attention_bwd_mma.launches - before[1])
+        assert grew == ((0, cfg.depth) if control else (cfg.depth, 0))
+        grads[control] = {k: p.grad.detach().clone()
+                          for k, p in net.named_parameters()
+                          if p.grad is not None}
+    big = max(g.abs().max().item() for g in grads[False].values())
+    for k, g in grads[False].items():
+        top = max(g.abs().max().item(), 1e-2 * big)
+        assert (grads[True][k] - g).abs().max().item() <= 1e-2 * top, k
 
 
 # --- P6e (gh), P6f (int8) and the P5 kinds --------------------------------

@@ -3,8 +3,10 @@
 ``scripts/attn_profile_r2.py``, whose Pallas kernels run here in interpret
 mode on the CPU, built as its ``time_variant``, ``time_gh`` and
 ``time_int8`` build them (q pre-scaled for bf16s, G heads a program for
-gh, the rig's quantization for int8), with the port's 64-key tile as
-``block_k``.
+gh, the rig's quantization for int8), with the port kernel's key tile as
+``block_k``: 64, and for bf16s, whose route is K2's ``wgmma`` kernel, its
+96 or 112 (``wg_key_tile``); bf16s's ``mma.sync`` control
+(``attention_probe_mma``) keeps 64.
 
 Tolerances: two bf16 ulps of the largest |o| for the bf16 variants and gh.
 Both sides round one fp32 output to bf16, and their fp32 values differ
@@ -32,7 +34,12 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from maest_tpu_torch.ops.attention import attention_reference, flash_attention
+from maest_tpu_torch.ops.attention import (
+    WG_KEY_TILES,
+    attention_reference,
+    flash_attention,
+    wg_key_tile,
+)
 from maest_tpu_torch.ops.attention_probe import (
     BLOCK_K,
     GROUPS,
@@ -42,6 +49,8 @@ from maest_tpu_torch.ops.attention_probe import (
     attention_probe_gh_reference,
     attention_probe_int8,
     attention_probe_int8_reference,
+    attention_probe_mma,
+    attention_probe_mma_reference,
     attention_probe_reference,
 )
 from maest_tpu_torch.probes import attn_profile
@@ -73,22 +82,30 @@ def _qkv(b, n, h, seed):
         (b, n, 3, h, 64)).astype(np.float32)
 
 
-def _tpu_variant(rig, variant, x):
+def _port_block_k(variant, n_real):
+    """The key tile of the port's route for ``variant``."""
+    return wg_key_tile(n_real) if variant == "bf16s" else BLOCK_K
+
+
+def _tpu_variant(rig, variant, x, block_k=BLOCK_K, n_real=None):
     """The rig's Pallas kernel for ``variant`` on bf16 x (B, N, 3, H, 64),
-    n_real = N, keys padded to a multiple of 128, one q block per head."""
+    keys >= n_real (default N) masked, padded to a multiple of 128 (of
+    ``block_k`` where that does not divide 128), one q block per head."""
     from jax.experimental import pallas as pl
 
     A = rig.A
     b, n, _, h, d = x.shape
-    n_pad = -(-n // 128) * 128
+    step = 128 if 128 % block_k == 0 else block_k
+    n_pad = -(-n // step) * step
     xj = jnp.asarray(x).astype(jnp.bfloat16)
     qf, kf, vf = A._flatten_pad(n_pad, xj[:, :, 0], xj[:, :, 1], xj[:, :, 2])
     if variant in rig.PREFOLD_SCALE:
         qf = (qf.astype(jnp.float32) * (d**-0.5 * A._LOG2E)).astype(qf.dtype)
     kt = jnp.swapaxes(kf, 1, 2)
     (out,) = pl.pallas_call(
-        functools.partial(rig.KERNELS[variant], scale=d**-0.5, n_real=n,
-                          block_k=BLOCK_K),
+        functools.partial(rig.KERNELS[variant], scale=d**-0.5,
+                          n_real=n if n_real is None else n_real,
+                          block_k=block_k),
         out_shape=[jax.ShapeDtypeStruct((b * h, n_pad, d), jnp.bfloat16)],
         grid=(b * h, 1),
         in_specs=[
@@ -122,7 +139,7 @@ def test_rig_kernels_are_the_ported_ones(rig):
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_probe_matches_tpu_rig_interpret(rig, variant, b, n):
     x = _qkv(b, n, 2, seed=n + b)
-    want = _tpu_variant(rig, variant, x)
+    want = _tpu_variant(rig, variant, x, _port_block_k(variant, n))
     xt = torch.from_numpy(x).to(torch.bfloat16)
     got = attention_probe(xt[:, :, 0], xt[:, :, 1], xt[:, :, 2], variant)
     assert got.shape == (b, n, 2, 64) and got.dtype == torch.bfloat16
@@ -136,6 +153,127 @@ def test_probe_matches_tpu_rig_interpret(rig, variant, b, n):
         if other != variant:
             far = attention_probe(xt[:, :, 0], xt[:, :, 1], xt[:, :, 2], other)
             assert float(np.abs(far.float().numpy() - want).max()) > 4 * err
+
+
+# bf16s's route is K2's wgmma kernel: its plain version walks that kernel's
+# key tile, 96 or 112 keys (wg_key_tile), each taken here, with and
+# without keys masked past n_real
+BF16S_CASES = [(1, 90, None), (2, 180, None), (1, 100, None), (2, 200, None),
+               (2, 200, 185), (2, 300, 281), (1, 220, 215)]
+
+
+def test_bf16s_cases_take_both_wgmma_key_tiles():
+    """wg_key_tile takes 112 keys where they pad n_real less than 96 do,
+    as the kernels' entries choose (K2's: 112 at the 30 s recipe's 866 and
+    tagging's 1676, 96 at the 10 s recipe's 281; the header's
+    ``wg_key_tile``, which both entries call), and the cases above take
+    each tile."""
+    assert {wg_key_tile(n if r is None else r)
+            for _, n, r in BF16S_CASES} == set(WG_KEY_TILES)
+    assert [wg_key_tile(n) for n in (866, 1676, 281, 96, 112, 1)] == [
+        112, 112, 96, 96, 112, 96]
+    # one rule, in the header that both C entries call
+    csrc = ROOT / "maest_tpu_torch" / "csrc"
+    assert "constexpr int wg_key_tile(int n_real)" in (
+        csrc / "attn_fwd_wgmma.cuh").read_text()
+    for entry in ("attention_fwd.cu", "attention_probe.cu"):
+        assert "if (wg_key_tile(n_real) == 112)" in (csrc / entry).read_text()
+
+
+@pytest.mark.parametrize("b,n,n_real", BF16S_CASES)
+def test_bf16s_route_matches_tpu_rig_at_its_key_tile(rig, b, n, n_real):
+    """The route's plain version (``attention_probe`` on CPU tensors)
+    against the rig's ``_bf16_scores_kernel`` in interpret mode at the
+    same ``block_k``, keys >= n_real masked on both sides: within two bf16
+    ulps of the largest |o|."""
+    nr = n if n_real is None else n_real
+    x = _qkv(b, n, 2, seed=3 * n + b)
+    want = _tpu_variant(rig, "bf16s", x, wg_key_tile(nr), nr)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    got = attention_probe(xt[:, :, 0], xt[:, :, 1], xt[:, :, 2], "bf16s",
+                          n_real)
+    assert got.shape == (b, n, 2, 64) and got.dtype == torch.bfloat16
+    assert np.isfinite(want).all()
+    top = float(np.abs(want).max())
+    err = float(np.abs(got.float().numpy() - want).max())
+    assert err <= 2 * _bf16_ulp(top), (err, top)
+
+
+@pytest.mark.parametrize("b,n,n_real", [(1, 100, None), (2, 200, 185)])
+def test_bf16s_control_matches_tpu_rig_at_64(rig, b, n, n_real):
+    """bf16s's control (``attention_probe_mma``, the mma.sync kernel behind
+    the PyTorch pre-scaling pass) keeps its 64-key tiles: on CPU tensors
+    its plain version, within two bf16 ulps of the rig at block_k 64."""
+    nr = n if n_real is None else n_real
+    x = _qkv(b, n, 2, seed=5 * n + b)
+    want = _tpu_variant(rig, "bf16s", x, BLOCK_K, nr)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    got = attention_probe_mma(xt[:, :, 0], xt[:, :, 1], xt[:, :, 2], "bf16s",
+                              n_real)
+    top = float(np.abs(want).max())
+    assert float(np.abs(got.float().numpy() - want).max()) <= 2 * _bf16_ulp(
+        top)
+
+
+def test_bf16s_control_on_the_cpu_is_plain_and_takes_bf16s_only():
+    """On CPU tensors the control is ``attention_probe_mma_reference`` (64-key
+    tiles) and counts no launch; it refuses every other variant, on the
+    CPU as on the card."""
+    x = torch.from_numpy(_qkv(2, 150, 3, seed=6)).to(torch.bfloat16)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    before = (dict(attention_probe.launches), attention_probe_mma.launches)
+    got = attention_probe_mma(q, k, v, "bf16s", 140)
+    assert torch.equal(got, attention_probe_mma_reference(q, k, v, "bf16s",
+                                                          140))
+    # the route's plain version walks 96-key tiles at 140 keys, the
+    # control's 64: the same function, rounded against other running maxima
+    route = attention_probe(q, k, v, "bf16s", 140)
+    top = route.float().abs().max().item()
+    assert (got.float() - route.float()).abs().max().item() <= 2 * _bf16_ulp(
+        top)
+    assert (dict(attention_probe.launches), attention_probe_mma.launches) == \
+        before
+    for variant in ("mxu_only", "noexp_max", "novmax", "flash"):
+        with pytest.raises(ValueError, match="control of bf16s only"):
+            attention_probe_mma(q, k, v, variant)
+        with pytest.raises(ValueError, match="control of bf16s only"):
+            attention_probe_mma_reference(q, k, v, variant)
+
+
+def test_bf16s_route_names_the_wgmma_entry(monkeypatch):
+    """On meta tensors, which take the card's route up to the launch, with
+    the launcher replaced by a recorder: ``attention_probe(..., "bf16s")``
+    names ``maest_attn_probe_bf16s_wgmma`` (no variant argument) on the
+    unscaled q, counted in ``attention_probe.launches``; its control names
+    ``maest_attn_probe_bf16``'s variant 4 on the pre-scaled q, counted in
+    ``attention_probe_mma.launches``; the other variants keep their
+    mma.sync entry."""
+    from maest_tpu_torch.ops import attention_probe as P
+
+    seen = []
+
+    def record(name, select, q, k, v, n_real, sl):
+        seen.append((name, select, n_real, round(sl, 6)))
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+    monkeypatch.setattr(P, "launch_bf16", record)
+    monkeypatch.setattr(P, "prescale_q", lambda q: q)  # no meta arithmetic
+    monkeypatch.setattr(P.attention_probe, "launches",
+                        dict.fromkeys(VARIANTS, 0))
+    monkeypatch.setattr(P.attention_probe_mma, "launches", 0)
+    x = torch.zeros(2, 300, 2, 64, dtype=torch.bfloat16, device="meta")
+    sl = round(64**-0.5 * 1.4426950408889634, 6)
+    assert P.attention_probe(x, x, x, "bf16s", 281).shape == x.shape
+    P.attention_probe_mma(x, x, x, "bf16s")
+    P.attention_probe(x, x, x, "novmax")
+    assert seen == [("maest_attn_probe_bf16s_wgmma", None, 281, sl),
+                    ("maest_attn_probe_bf16", 4, 300, sl),
+                    ("maest_attn_probe_bf16", 3, 300, sl)]
+    assert P.attention_probe.launches == {"mxu_only": 0, "noexp_max": 0,
+                                          "novmax": 1, "bf16s": 1}
+    assert P.attention_probe_mma.launches == 1
+    with pytest.raises(ValueError, match="control of bf16s only"):
+        P.attention_probe_mma(x, x, x, "novmax")
 
 
 def test_probe_on_the_cpu_is_the_plain_version_and_counts_no_launch():
