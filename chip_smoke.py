@@ -32,15 +32,21 @@ built with the bf16 rounding of its scores left out refused (18), and
 maest_tpu_torch.probes.attn_profile`` at both tagging and training shapes,
 called in process with the launch counters reset, then P6d, its control,
 K2's two kernels and SDPA timed by CUDA-graph replays in interleaved
-rounds (19). Then the last rigs' kernels: K2 with G heads a block (P6e)
-bit-equal to K2's mma.sync kernel (now the control of the wgmma kernel
-that K2 runs) and the int8 rig's kernel (P6f) against its plain
-version
-and, times 127, against attention (20), the five softmax-arithmetic kinds
-of ``scripts/attn_vpu_probe.py`` (P5) against their plain versions and K2
-(21), and both rigs, ``attn_profile`` with ``gh<G>`` and ``int8`` and
-``python -m maest_tpu_torch.probes.attn_vpu``, called in process with the
-launch counters reset (22). Then the routes that close ROADMAP queue 3 on
+rounds (19). Then the last rigs' kernels: K2's wgmma kernel with G heads a
+block (P6e) bit-equal to K2's wgmma route, its mma.sync control (K2's
+mma.sync template with G heads a block) bit-equal to K2's mma.sync
+kernel, both within 2 bf16 ulps of their plain versions, the gh kernel
+built with each head after a block's first loading the q of the head
+before refused, and the int8 rig's kernel (P6f) against its plain
+version and, times 127, against attention (20), the five
+softmax-arithmetic kinds of ``scripts/attn_vpu_probe.py`` (P5) against
+their plain versions and K2 (21), and both rigs, ``attn_profile`` with
+``gh<G>``, ``gh<G>_mma``, ``int8`` and three interleaved rounds of
+CUDA-graph replays (each gh<G> beside K2's wgmma kernel, each control
+beside K2's mma.sync kernel, SDPA beside both; gh8 must beat SDPA and its
+control, every G printed beside its wave-count prediction) and ``python
+-m maest_tpu_torch.probes.attn_vpu``, called in process with the launch
+counters reset (22). Then the routes that close ROADMAP queue 3 on
 the card: head_dim 16 and 32 through the kernels on zero-padded inputs,
 fp32 under every 8-bit mode (the fp32 instances of K5/K6 and K7), head_dim
 96 and 128 through the D = 128 instances of every production kernel in
@@ -201,6 +207,17 @@ built with dV's last q tile left out refused; then
 times it beside the control and SDPA by CUDA-graph replays in interleaved
 rounds, and the 30 s recipe step at ``num_heads=3`` with each backward in
 turn.
+Phase 43 holds K2/K3a at head_dim 128 on wgmma (``csrc/attn_fwd_wgmma.cuh``
+at D = 128, the route of head_dim 65-128 in bf16) to plain at (2, 1676),
+(32, 1676), (32, 866), (2, 1000) n_real 997 and head_dim 96 zero-padded,
+with its mma.sync control and every configuration of its tile sweep
+(the 64-key ones bit-equal to the control), counts its registers, spills
+and HGMMA/UTMALDG/HMMA instructions, refuses the kernel built with S over
+64 of its 128 dimensions in a process of its own, times the route, the
+control, SDPA and the sweep by CUDA-graph replays in interleaved rounds
+at (32, 1676, 6, 128) and (32, 866, 6, 128), then the ``num_heads=6``
+tagging and recipe steps with each kernel in alternating rounds, each
+gap beside 12 x the kernel gap.
 Each phase's seconds print as it ends. A
 split by torch.profiler
 is printed only from a trace that holds every launch its route makes, by
@@ -362,6 +379,23 @@ WG_LSE_TOL = 1e-5
 WG_CONFIGS = ("96x3 turns", "96x3", "64x3 turns", "64x2 turns",
               "112x3 turns", "128x3 turns", "128x2 turns", "192x2 turns")
 WG_ROUNDS = 5
+# the configurations of maest_attn_fwd_bf16_d128_wgmma (csrc/attention_fwd.cu,
+# head_dim 128): key tile x ring stages, two consumer warpgroups taking
+# turns; the production route takes 2 or 4 (``wg128_production``), the
+# 64-key ones (0, 1, 6) give the control's numbers bit for bit
+WG128_CONFIGS = ("64x2", "64x3", "80x2", "80x3", "96x2", "96x3", "64x4",
+                 "80x4", "96x4")
+D128_ROUNDS = 3  # interleaved rounds of phase 43's timings
+# phase 43's shapes (b, n, n_real, head_dim): the model's at 6 heads
+# (tagging's N 1676, the 30 s recipe's 866), a small N, an odd n_real past
+# which TMA's zero rows and the key mask meet, head_dim 96 zero-padded
+D128_SHAPES = ((2, 1676, None, 128), (BATCH, 1676, None, 128),
+               (BATCH, 866, None, 128), (2, 1000, 997, 128),
+               (2, 300, 281, 96))
+# P6e's wave count at (32, 1676, 12, 64) on 132 SMs, one block an SM: the
+# head-tiles the busiest SM runs at G heads a block (9 q tiles x 384 / G
+# blocks, ceil(blocks / 132) waves of G heads each)
+GH_SMS = 132
 # the configurations of maest_attn_bwd_bf16_wgmma (csrc/attention_bwd.cu):
 # q rows a tile x consumer warpgroups of 64 keys, with or without turns;
 # the production route takes WG_BWD_PRODUCTION
@@ -384,6 +418,23 @@ D256_BWD_SHAPES = ((2, 200, 190, 3, 256), (BATCH, 866, None, 3, 256),
 # the neighbouring bf16 value)
 D256_REL_TOL = 1e-2
 D256_ROUNDS = 5  # interleaved rounds of phase 19's and 42's timings
+
+
+def wg128_production(n_real: int) -> int:
+    """The configuration maest_attn_fwd_bf16_d128 takes at n_real keys:
+    80-key tiles (2) or 96-key ones (4), two stages, as ``wg128_key_tile``
+    chooses."""
+    from maest_tpu_torch.ops.attention import wg128_key_tile
+
+    return 4 if wg128_key_tile(n_real) == 96 else 2
+
+
+def gh_head_tiles(g: int, b: int = BATCH, n: int = 1676,
+                  heads: int = 12) -> int:
+    """Head-tiles of the busiest SM at G heads a block: ceil(blocks / 132)
+    waves of G (K2's 192-row q tiles)."""
+    blocks = -(-n // 192) * b * heads // g
+    return -(-blocks // GH_SMS) * g
 
 
 def wg_production(n_real: int) -> int:
@@ -1865,52 +1916,127 @@ def phase_probe_rig(dev, gpu):
     return times, launches, med
 
 
-def phase_gh_int8(dev):
-    """Phase 20: P6e and P6f against K2's mma.sync kernel (the template
-    they change: ``attention_fwd_mma``, the control of the wgmma kernel) and
-    their plain versions, at the shapes phase 22's rig runs them and
-    smaller ones. gh<G>, G 1, 2, 4 and 8, must equal that kernel bit for
-    bit at (2, 1676), (32, 1676), (32, 272) and (32, 281) on N(0, 1) bf16
-    inputs. int8 on the rig's N(0, 0.5^2) fp32
+def _gh_planted_inputs(dev):
+    """Phase 20's planted fault's (2, 300, 3, 12, 64) bf16 q/k/v, N(0, 1),
+    drawn from seed 20."""
+    gen = torch.Generator(device=dev).manual_seed(20)
+    return torch.randn((2, 300, 3, 12, 64), generator=gen, device=dev).to(
+        torch.bfloat16)
+
+
+def _gh_planted(lib: Path) -> dict:
+    """{G: (torch.equal to K2's wgmma route, max|o - K2|)} of the gh kernel
+    from the library ``lib`` on ``_gh_planted_inputs`` at n_real 290, run
+    in a process of its own (the copy is that process's only
+    attention_probe)."""
+    code = (
+        "import ctypes, json, sys, torch\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import chip_smoke as C\n"
+        "from maest_tpu_torch.ops import _build, attention as A\n"
+        "from maest_tpu_torch.ops import attention_probe as P\n"
+        f"_build._libs['attention_probe'] = ctypes.CDLL({str(lib)!r})\n"
+        "q, k, v = C._gh_planted_inputs(torch.device('cuda')).unbind(2)\n"
+        "k2 = A.flash_attention(q, k, v, n_real=290)\n"
+        "out = {}\n"
+        "for g in P.GROUPS:\n"
+        "    o = P.attention_probe_gh(q, k, v, g, 290)\n"
+        "    out[g] = (torch.equal(o, k2), C.max_err(o, k2))\n"
+        "print(json.dumps(out))\n")
+    return {int(g): tuple(r) for g, r in _own_process(code).items()}
+
+
+def phase_gh_int8(dev, planted_lib):
+    """Phase 20: P6e and P6f against the kernels whose function they
+    compute and against their plain versions, at the shapes phase 22's rig
+    runs them and smaller ones. gh<G>, G 1, 2, 4 and 8 (K2's wgmma kernel
+    with G heads a block), must equal K2's wgmma route (``flash_attention``)
+    bit for bit, and its control (``attention_probe_gh_mma``, K2's mma.sync
+    template with G heads a block) K2's mma.sync kernel
+    (``attention_fwd_mma``), at (2, 1676), (32, 1676), (32, 272), (32, 281)
+    and (2, 300) n_real 290 on N(0, 1) bf16 inputs, each within PROBE_ULPS
+    of its plain version (the route's on 96- or 112-key tiles, the
+    control's on 64) at (2, 1676), (32, 272) and (2, 300); the gh kernel
+    built with each head after a block's first taking the q of the head
+    before (``planted_lib``), in a process of its own, must differ from K2
+    at G 2, 4 and 8. int8 on the rig's N(0, 0.5^2) fp32
     inputs at (3, 100), (2, 1676), (32, 1676), (32, 272) and (32, 281):
     each row within INT8_FLIPS p flips of its plain version (plus
     INT8_SUMS of max|o|), and its output times 127 within INT8_X127 of
-    fp32 attention. Returns each one's max_abs_err and plain ms at
-    (32, 1676)."""
+    fp32 attention. Returns each one's max_abs_err against its plain
+    version and plain ms at (32, 1676)."""
     from maest_tpu_torch.ops.attention import (
         attention_fwd_mma,
         attention_reference,
+        flash_attention,
     )
     from maest_tpu_torch.ops.attention_probe import (
         GROUPS,
         attention_probe_gh,
+        attention_probe_gh_mma,
+        attention_probe_gh_mma_reference,
         attention_probe_gh_reference,
         attention_probe_int8,
         attention_probe_int8_reference,
     )
 
     gen = torch.Generator(device=dev).manual_seed(10)
-    out = {"gh_err": 0.0, "int8_err": 0.0}
-    for b, n in ((2, 1676), (BATCH, 1676), (BATCH, 272), (BATCH, 281)):
+    out = {"gh_err": 0.0, "gh_mma_err": 0.0, "int8_err": 0.0}
+    for b, n, n_real in ((2, 1676, None), (BATCH, 1676, None),
+                         (BATCH, 272, None), (BATCH, 281, None),
+                         (2, 300, 290)):
         qkv = torch.randn((b, n, 3, 12, 64), generator=gen, device=dev).to(
             torch.bfloat16)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        k2 = attention_fwd_mma(q, k, v)[0]  # K2's mma.sync kernel
+        k2 = flash_attention(q, k, v, n_real=n_real)  # K2's wgmma route
+        k2_mma = attention_fwd_mma(q, k, v, n_real)[0]  # and its control
         for g in GROUPS:
-            before = attention_probe_gh.launches[g]
-            o = attention_probe_gh(q, k, v, g)
+            before = (attention_probe_gh.launches[g],
+                      attention_probe_gh_mma.launches[g])
+            o = attention_probe_gh(q, k, v, g, n_real)
+            c = attention_probe_gh_mma(q, k, v, g, n_real)
             torch.cuda.synchronize()
-            check(attention_probe_gh.launches[g] == before + 1, f"gh{g} counter")
-            check(torch.equal(o, k2), f"gh{g} ({b}, {n}) differs from the "
-                  f"control by "
-                  f"{max_err(o, k2)}")
-            out["gh_err"] = max(out["gh_err"], max_err(o, k2))
+            check((attention_probe_gh.launches[g],
+                   attention_probe_gh_mma.launches[g])
+                  == (before[0] + 1, before[1] + 1), f"gh{g} counters")
+            check(torch.equal(o, k2), f"gh{g} ({b}, {n}) differs from K2's "
+                  f"wgmma route by {max_err(o, k2)}")
+            check(torch.equal(c, k2_mma), f"gh{g}_mma ({b}, {n}) differs "
+                  f"from K2's mma.sync kernel by {max_err(c, k2_mma)}")
+        text = ""
+        if b == 2 or n == 272:
+            r = attention_probe_gh_reference(q, k, v, 8, n_real)
+            rc = attention_probe_gh_mma_reference(q, k, v, 8, n_real)
+            e, ec = max_err(o, r), max_err(c, rc)
+            tol = PROBE_ULPS * bf16_ulp(r.float().abs().max().item())
+            check(e <= tol and ec <= tol, f"gh ({b}, {n}) vs plain {e}, "
+                  f"control {ec}, bound {tol}")
+            out["gh_err"] = max(out["gh_err"], e)
+            out["gh_mma_err"] = max(out["gh_mma_err"], ec)
+            text = (f"; gh8 vs its plain version (96- or 112-key tiles) "
+                    f"{e:.3e}, its control vs its own (64-key tiles) {ec:.3e}"
+                    f" <= {tol:.3e}")
+            del r, rc
         if (b, n) == (BATCH, 1676):
             out["gh_plain"] = cuda_ms(
                 lambda: attention_probe_gh_reference(q, k, v, 8), 3)
-        print(f"phase 20 P6e gh1/gh2/gh4/gh8 ({b}, {n}, 12, 64) bf16: "
-              "torch.equal to K2's mma.sync kernel (the control)", flush=True)
-        del qkv, q, k, v, k2, o
+            out["gh_mma_plain"] = cuda_ms(
+                lambda: attention_probe_gh_mma_reference(q, k, v, 8), 3)
+        print(f"phase 20 P6e ({b}, {n}, 12, 64) n_real {n_real} bf16: "
+              "gh1/gh2/gh4/gh8 torch.equal to K2's wgmma route, "
+              "gh1_mma/gh2_mma/gh4_mma/gh8_mma to K2's mma.sync kernel"
+              + text, flush=True)
+        del qkv, q, k, v, k2, k2_mma, o, c
+    bad = _gh_planted(planted_lib)
+    check(bad[1][0] and not any(bad[g][0] for g in (2, 4, 8)),
+          f"planted gh previous q {bad}")
+    print("phase 20 planted fault, the gh kernel built with each head after "
+          "a block's first loading the q of the head before, at (2, 300, 12, "
+          "64) n_real 290: " + ", ".join(
+              f"gh{g} {'torch.equal to K2' if eq else 'differs from K2'} "
+              f"(max {e:.3e})" for g, (eq, e) in bad.items())
+          + ": refused at G 2, 4 and 8 (G 1 has no head after its first)",
+          flush=True)
     for b, n in ((3, 100), (2, 1676), (BATCH, 1676), (BATCH, 272),
                  (BATCH, 281)):
         qkv = torch.randn((b, n, 3, 12, 64), generator=gen, device=dev) * 0.5
@@ -2000,48 +2126,85 @@ def phase_vpu_kernels(dev):
     return err, plain
 
 
-def phase_rigs():
+GH_VARIANTS = ("flash", "wgmma", "gh1", "gh2", "gh4", "gh8", "gh1_mma",
+               "gh2_mma", "gh4_mma", "gh8_mma", "int8", "sdpa")
+GH_ROUNDS = 3  # interleaved rounds of phase 22's rig
+
+
+def phase_rigs(gpu):
     """Phase 22: the slice's path, both rigs as a user runs them, here
     their ``main`` in process (each prints the card's name and power limit
     first): ``python -m maest_tpu_torch.probes.attn_profile --variants
-    flash,gh1,gh2,gh4,gh8,int8,sdpa --shapes 30s,5s,10s-train`` and
-    ``python -m maest_tpu_torch.probes.attn_vpu``, with the launch counters
-    of K2, gh, int8 and the P5 kinds set to 0 just before and read just
-    after: each kernel must have run and every variant and kind must have a
-    graph time. Returns both rigs' results and the launches."""
-    from maest_tpu_torch.ops.attention import attention_fwd_mma
+    flash,wgmma,gh1,...,gh8_mma,int8,sdpa --shapes 30s,5s,10s-train
+    --rounds 3`` (each gh<G> beside K2's wgmma kernel, each gh<G>_mma beside
+    the mma.sync control, SDPA beside both, by CUDA-graph replays in
+    interleaved rounds) and ``python -m maest_tpu_torch.probes.attn_vpu``,
+    with the launch counters of K2 (both kernels), gh, its control, int8 and
+    the P5 kinds set to 0 just before and read just after: each kernel must
+    have run and every variant and kind must have a graph time. At 30s,
+    gh8 must beat SDPA and its control (medians of the rounds), and each
+    G's median is printed beside the wave-count prediction (K2's median
+    times the busiest SM's head-tiles at G over G 1's). Returns both rigs'
+    results and the launches."""
+    from maest_tpu_torch.ops.attention import attention_fwd_mma, flash_attention
     from maest_tpu_torch.ops.attention_probe import (
+        GROUPS,
         attention_probe_gh,
+        attention_probe_gh_mma,
         attention_probe_int8,
     )
     from maest_tpu_torch.ops.attention_vpu import attention_vpu_probe
     from maest_tpu_torch.probes import attn_profile, attn_vpu
 
-    args = ["--variants", "flash,gh1,gh2,gh4,gh8,int8,sdpa", "--shapes",
-            "30s,5s,10s-train", "--batch", str(BATCH)]
+    args = ["--variants", ",".join(GH_VARIANTS), "--shapes",
+            "30s,5s,10s-train", "--batch", str(BATCH), "--rounds",
+            str(GH_ROUNDS)]
     print("phase 22 rigs: python -m maest_tpu_torch.probes.attn_profile "
           + " ".join(args) + "; python -m maest_tpu_torch.probes.attn_vpu",
           flush=True)
     attention_fwd_mma.launches = 0
+    flash_attention.launches = 0
     attention_probe_int8.launches = 0
-    for counts in (attention_probe_gh.launches, attention_vpu_probe.launches):
+    for counts in (attention_probe_gh.launches,
+                   attention_probe_gh_mma.launches,
+                   attention_vpu_probe.launches):
         for key in counts:
             counts[key] = 0
     times = attn_profile.main(args)
     vpu = attn_vpu.main([])
-    # the rigs' "flash" and "ctrl" are K2's mma.sync kernel, the control
+    # the rigs' "flash" and "ctrl" are K2's mma.sync kernel, the control;
+    # "wgmma" K2's wgmma route
     launches = {"flash": attention_fwd_mma.launches,
+                "wgmma": flash_attention.launches,
                 **{f"gh{g}": c for g, c in attention_probe_gh.launches.items()},
+                **{f"gh{g}_mma": c
+                   for g, c in attention_probe_gh_mma.launches.items()},
                 "int8": attention_probe_int8.launches,
                 **attention_vpu_probe.launches}
     check(all(launches.values()), f"rig launches {launches}")
     for rows in times.values():
         check(all(r["graph_ms"] > 0 for r in rows.values()),
               f"rig graph times {rows}")
+        check(all(r["round_median"] > 0 for r in rows.values()),
+              f"rig rounds {rows}")
         check(0 < rows["int8"]["kernel_ms"] < rows["int8"]["ms"],
               f"int8 split {rows['int8']}")
     check(all(r["graph_ms"] > 0 for r in vpu.values()),
           f"vpu graph times {vpu}")
+    med = {k: r["round_median"] for k, r in times["30s"].items()}
+    check(med["gh8"] < med["sdpa"] and med["gh8"] < med["gh8_mma"],
+          f"gh8 at 30s against SDPA and its control {med}")
+    tiles1 = gh_head_tiles(1)
+    print(f"phase 22 P6e at ({BATCH}, 1676, 12, 64), medians of {GH_ROUNDS} "
+          "interleaved rounds of CUDA-graph replays, against the wave-count "
+          "prediction (K2 wgmma x the busiest SM's head-tiles / G 1's): "
+          + ", ".join(
+              f"gh{g} {med[f'gh{g}']:.4f} ms (predicted "
+              f"{med['wgmma'] * gh_head_tiles(g) / tiles1:.4f}: "
+              f"{gh_head_tiles(g)} head-tiles; control {med[f'gh{g}_mma']:.4f})"
+              for g in GROUPS)
+          + f"; K2 wgmma {med['wgmma']:.4f}, K2 mma.sync {med['flash']:.4f}, "
+          f"SDPA {med['sdpa']:.4f} [{gpu}]", flush=True)
     print(f"phase 22 launches in the rigs' run: {launches}", flush=True)
     return times, vpu, launches
 
@@ -3468,6 +3631,24 @@ PLANT_D256_DV_LAST = (
     "        if (wg != 0 || it + 1 < n_qt) wgmma_rs_n64_t(acc[c], af[kj], sw128_desc(rows + c * CHUNK) + kj * 128);")
 
 
+# phase 20's planted fault: the gh kernel's producer loads the q of the head
+# before (from the second head of a block on), so every head but a block's
+# first takes its neighbour's queries
+PLANT_GH_PREV_Q = (
+    """          tma_load_4d(sq + qb * Q_BYTES + ch * Q_CHUNK, &tq, full_q(qb),
+                      64 * ch, h, q0, b);""",
+    """          tma_load_4d(sq + qb * Q_BYTES + ch * Q_CHUNK, &tq, full_q(qb),
+                      64 * ch, (bh - (hg > 0)) % heads, q0,
+                      (bh - (hg > 0)) / heads);""")
+
+
+# phase 43's planted fault: the head_dim-128 wgmma kernel's S taken over the
+# first 64 of its 128 dimensions only
+PLANT_D128_HALF_S = (
+    "      for (int ch = 0; ch < NCH; ++ch)  // S sums every chunk of d",
+    "      for (int ch = 0; ch < 1; ++ch)  // S sums every chunk of d")
+
+
 def _build_planted(tag, lib, header, *plants) -> tuple[Path, float]:
     """``csrc/<lib>.cu`` with, for each plant of ``plants``, the one line
     ``plant[0]`` of ``header`` (a file of ``csrc/``) replaced by
@@ -3538,6 +3719,20 @@ def build_planted_bf16s() -> tuple[Path, float]:
     the kernel so built)."""
     return _build_planted("bf16s_no_round", "attention_probe",
                           "attn_fwd_wgmma.cuh", PLANT_BF16S_NO_ROUND)
+
+
+def build_planted_gh_prev_q() -> tuple[Path, float]:
+    """``csrc/attention_probe.cu`` with the gh kernel's producer loading the
+    q of the head before (phase 20 shows its check refusing it)."""
+    return _build_planted("gh_prev_q", "attention_probe",
+                          "attn_fwd_wgmma.cuh", PLANT_GH_PREV_Q)
+
+
+def build_planted_d128_half_s() -> tuple[Path, float]:
+    """``csrc/attention_fwd.cu`` with the head_dim-128 wgmma kernel's S over
+    the first 64 dimensions only (phase 43 shows its check refusing it)."""
+    return _build_planted("d128_half_s", "attention_fwd",
+                          "attn_fwd_wgmma.cuh", PLANT_D128_HALF_S)
 
 
 def _own_process(code: str):
@@ -7525,6 +7720,272 @@ def phase_bwd_d256(dev, gpu, planted_gap):
     return out
 
 
+def _d128_cfg(cfg, q, k, v, n_real=None, with_lse=False):
+    """The head_dim-128 wgmma kernel in sweep configuration ``cfg``
+    (WG128_CONFIGS), (o, lse or None)."""
+    from maest_tpu_torch.ops import attention as A
+
+    return A.launch_fwd_entry("attention_fwd",
+                              "maest_attn_fwd_bf16_d128_wgmma", (cfg,), q, k,
+                              v, n_real, with_lse, q.shape[-1]**-0.5)
+
+
+def _d128_planted_inputs(dev):
+    """Phase 43's planted fault's (2, 500, 3, 6, 128) bf16 q/k/v, N(0, 1),
+    drawn from seed 43."""
+    gen = torch.Generator(device=dev).manual_seed(43)
+    return torch.randn((2, 500, 3, 6, 128), generator=gen, device=dev).to(
+        torch.bfloat16)
+
+
+def _d128_checks(dev, out):
+    """Phase 43's checks at D128_SHAPES on strided views of a fused qkv: K2
+    and K3a (the route, each launch counted) within ATTN_TOL and LSE_TOL of
+    plain, the two outputs equal; at head_dim 128 the control
+    (``attention_fwd_mma``) within the same bounds, every sweep
+    configuration too, the production one equal to the route and the
+    64-key ones equal to the control. Worst errors into ``out["err"]``."""
+    from maest_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device=dev).manual_seed(43)
+    tol = ATTN_TOL["bfloat16"]
+    counted = (A.flash_attention, A.flash_attention_fwd_lse,
+               A.attention_fwd_mma)
+    for b, n, n_real, d in D128_SHAPES:
+        x = torch.randn((b, n, 3, 6, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        q, k, v = x.unbind(2)
+        before = [f.launches for f in counted]
+        with torch.inference_mode():
+            o = A.flash_attention(q, k, v, n_real=n_real)
+        ol, lse = A.flash_attention_fwd_lse(q, k, v, n_real)
+        r, rl = A.attention_reference_lse(q, k, v, n_real)
+        e, el = max_err(o, r), max_err(lse, rl)
+        check(e <= tol and el <= LSE_TOL and torch.equal(o, ol),
+              f"D = 128 route ({b}, {n}, 6, {d}) n_real {n_real}: o {e}, "
+              f"lse {el}")
+        out["err"]["K2"] = max(out["err"]["K2"], e)
+        out["err"]["K3a"] = max(out["err"]["K3a"], e, el)
+        text = ""
+        if d == 128:
+            c, cl = A.attention_fwd_mma(q, k, v, n_real, with_lse=True)
+            ec, ecl = max_err(c, r), max_err(cl, rl)
+            check(ec <= tol and ecl <= LSE_TOL,
+                  f"D = 128 control ({b}, {n}): o {ec}, lse {ecl}")
+            out["err"]["control"] = max(out["err"]["control"], ec)
+            out["err"]["control_lse"] = max(out["err"]["control_lse"], ec,
+                                            ecl)
+            sweep = 0.0
+            for cfg, name in enumerate(WG128_CONFIGS):
+                oc, lc = _d128_cfg(cfg, q, k, v, n_real, True)
+                torch.cuda.synchronize()
+                es, esl = max_err(oc, r), max_err(lc, rl)
+                check(es <= tol and esl <= LSE_TOL,
+                      f"D = 128 {name} ({b}, {n}): o {es}, lse {esl}")
+                if cfg == wg128_production(n_real or n):
+                    check(torch.equal(oc, ol) and torch.equal(lc, lse),
+                          f"D = 128 config {name} is the route at {n}")
+                if name.startswith("64x"):
+                    check(torch.equal(oc, c) and torch.equal(lc, cl),
+                          f"D = 128 {name} ({b}, {n}) differs from the "
+                          "control")
+                sweep = max(sweep, es)
+            text = (f"; the control vs plain o {ec:.3e}, lse {ecl:.3e}; every "
+                    f"sweep configuration vs plain <= {sweep:.3e}, the route "
+                    f"torch.equal to {WG128_CONFIGS[wg128_production(n_real or n)]}"
+                    ", the 64-key ones to the control")
+            del c, cl
+        torch.cuda.synchronize()
+        grew = [f.launches - c0 for f, c0 in zip(counted, before)]
+        check(grew == [1, 1, int(d == 128)], f"D = 128 counters {grew}")
+        print(f"phase 43 K2/K3a ({b}, {n}, 6, {d}) n_real {n_real}"
+              f"{' zero-padded to 128' * (d < 128)} strided: route vs plain "
+              f"o {e:.3e} <= {tol}, lse {el:.3e} <= {LSE_TOL}, K2 torch.equal "
+              f"to K3a's o" + text, flush=True)
+        del x, q, k, v, o, ol, lse, r, rl
+        torch.cuda.empty_cache()
+
+
+def phase_d128_wgmma(dev, gpu, planted_lib, fwd_log):
+    """Phase 43: K2/K3a at head_dim 128 on wgmma (``csrc/attn_fwd_wgmma.cuh``
+    at D = 128, the route of ``maest_attn_fwd_bf16_d128``: two consumer
+    warpgroups taking turns, 80- or 96-key tiles by ``wg128_key_tile``, a
+    ring of two stages) beside its mma.sync control (``attention_fwd_mma``
+    at 128, entry ``maest_attn_fwd_bf16_d128_mma``) and SDPA. The D = 128
+    instances' registers and spills (``fwd_log``, ptxas) and SASS (HGMMA,
+    UTMALDG, no HMMA); ``_d128_checks``; the kernel built with S over the
+    first 64 dimensions only (``planted_lib``), in a process of its own,
+    refused by the bound against plain. Then CUDA-graph replays of the
+    route, the control, SDPA and every sweep configuration in D128_ROUNDS
+    interleaved rounds at K2's (32, 1676, 6, 128) and K3a's (32, 866, 6,
+    128), every round printed, plain by events; then the batch-32 30 s bf16
+    tagging step of ``get_maest(embed_dim=768, num_heads=6)`` and the 30 s
+    recipe step at num_heads 6 (heads drawn so the loss is not ln 2) with
+    the route and the control (``_K2_CONTROL``) in D128_ROUNDS alternating
+    rounds, CUDA events over 3 steps a round after one, the launch
+    counters checked on each, each gap set beside 12 x the kernel gap.
+    Returns the errors, the medians and the launches."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from maest_tpu_torch import get_maest
+    from maest_tpu_torch.ops import _build
+    from maest_tpu_torch.ops import attention as A
+    from maest_tpu_torch.probes.attn_profile import graph_rounds
+    from maest_tpu_torch.serve import BucketPrograms
+
+    out = {"err": dict.fromkeys(("K2", "K3a", "control", "control_lse"), 0.0),
+           "ms": {}, "launches": {}}
+    rows = [r for r in ptxas_rows(fwd_log) if re.search(
+        r"attn_fwd_wgmma_kernel<\d+, \d+, \w+, \w+, \d+, 128,", r)]
+    sass = {k: c for k, c in sass_kinds(_build.build("attention_fwd")[0],
+                                        "attn_fwd_wgmma_kernel").items()
+            if re.search(r", 128, \d+>$", k)}
+    check(len(sass) == len(WG128_CONFIGS) and all(
+        c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0
+        for c in sass.values()),
+        f"wgmma/TMA instructions of the head_dim-128 kernels {sass}")
+    check(not rows or len(rows) == len(WG128_CONFIGS) and all(
+        r.endswith("spills 0/0 bytes") for r in rows),
+        f"the head_dim-128 wgmma kernels spill: {rows}")
+    print("phase 43 the head_dim-128 wgmma instances (HGMMA = bf16 wgmma, "
+          "UTMALDG = TMA load, HMMA = mma.sync): " + "; ".join(
+              f"{k}: " + ", ".join(f"{c[g]} {g}" for g in (
+                  "HGMMA", "UTMALDG", "HMMA")) + f" of {c['instructions']} "
+              "instructions" for k, c in sorted(sass.items()))
+          + "; ptxas: " + "; ".join(rows), flush=True)
+    _d128_checks(dev, out)
+
+    # the planted fault: S misses half of every score's 128 products
+    tol = ATTN_TOL["bfloat16"]
+    q, k, v = _d128_planted_inputs(dev).unbind(2)
+    sound = max_err(A.flash_attention(q, k, v, n_real=490),
+                    A.attention_reference(q, k, v, 490))
+    bad = _planted_err(planted_lib, "_d128_planted_inputs",
+                       "maest_attn_fwd_bf16_d128", 490, 128)
+    check(sound <= tol < bad, f"planted D = 128 half S {bad}, sound {sound}")
+    print(f"phase 43 planted fault, the head_dim-128 wgmma kernel built with "
+          f"S over the first 64 dimensions only, at (2, 500, 6, 128) n_real "
+          f"490: max_abs_err vs plain {bad:.3e} > {tol}: refused (the sound "
+          f"kernel {sound:.3e})", flush=True)
+    del q, k, v
+
+    gen = torch.Generator(device=dev).manual_seed(44)
+    for name, n, lse in (("K2", 1676, False), ("K3a", 866, True)):
+        x = torch.randn((BATCH, n, 3, 6, 128), generator=gen, device=dev).to(
+            torch.bfloat16)
+        q, k, v = x.unbind(2)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa():
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                return F.scaled_dot_product_attention(qt, kt, vt)
+        fns = {"wgmma": (lambda: A.flash_attention_fwd_lse(q, k, v)) if lse
+               else (lambda: A.flash_attention(q, k, v)),
+               "control": lambda: A.attention_fwd_mma(q, k, v, None, lse),
+               "sdpa": sdpa}
+        for cfg, key in enumerate(WG128_CONFIGS):
+            fns[key] = (lambda cfg=cfg: _d128_cfg(cfg, q, k, v, None, lse))
+        with torch.inference_mode():
+            runs = graph_rounds(fns, 10, dev, D128_ROUNDS)
+        for rnd in range(D128_ROUNDS):
+            print(f"phase 43 {name} ({BATCH}, {n}, 6, 128) round {rnd + 1} "
+                  "CUDA-graph ms: " + ", ".join(
+                      f"{key} {ms[rnd]:.4f}" for key, ms in runs.items())
+                  + f" [{gpu}]", flush=True)
+        med = {key: float(np.median(ms)) for key, ms in runs.items()}
+        med["plain"] = cuda_ms(
+            (lambda: A.attention_reference_lse(q, k, v)) if lse
+            else (lambda: A.attention_reference(q, k, v)), 1)
+        every = all(w < c for w, c in zip(runs["wgmma"], runs["control"]))
+        best = min(WG128_CONFIGS, key=med.get)
+        print(f"phase 43 {name} ({BATCH}, {n}, 6, 128) medians: wgmma "
+              f"{med['wgmma']:.4f} ms (its tile "
+              f"{WG128_CONFIGS[wg128_production(n)]}), control "
+              f"{med['control']:.4f} ({med['control'] / med['wgmma']:.2f}x), "
+              f"SDPA {med['sdpa']:.4f}, plain {med['plain']:.4f} (events); "
+              f"the wgmma kernel beat the control in every round: {every}; "
+              f"fastest configuration {best} [{gpu}]", flush=True)
+        check(med["wgmma"] < med["control"] and med["wgmma"] < med["sdpa"],
+              f"D = 128 {name} against the control and SDPA {med}")
+        out["ms"][name] = med
+        del x, q, k, v, qt, kt, vt, fns
+        torch.cuda.empty_cache()
+
+    # the num_heads=6 tagging and recipe steps with each kernel, in turn
+    model = get_maest(pretrained=False, embed_dim=768, num_heads=6,
+                      device=dev, dtype=torch.bfloat16)
+    prog = BucketPrograms(model, buckets=(BATCH,), fused_wave=True)
+    waves = torch.from_numpy(np.random.default_rng(43).standard_normal(
+        (BATCH, CLIP)).astype(np.float32) * 0.1).to(dev)
+    _, mcfg, net, state, step, data = _recipe(
+        dev, RECIPE, BATCH, 43, ["maest.num_heads=6"])
+    drawn = torch.Generator(device=dev).manual_seed(43)
+    with torch.no_grad():  # zero heads give loss ln 2 and do = 0
+        for lin in (net.head[1], net.head_dist):
+            lin.weight.normal_(0.0, 0.05, generator=drawn)
+    gen_step = torch.Generator().manual_seed(43)
+    losses = []
+
+    def one():
+        _, metrics = step(state, data, gen_step)
+        losses.append(metrics["train_loss"])
+
+    counts = (A.flash_attention, A.flash_attention_fwd_lse,
+              A.attention_fwd_mma)
+    steps = {"tagging": (lambda: prog._activations(waves),
+                         model.net.cfg.depth, 0),
+             "recipe": (one, mcfg.depth, 1)}
+    step_ms = {(s_, r_): [] for s_ in steps for r_ in ("wgmma", "control")}
+    try:
+        for rnd in range(D128_ROUNDS):
+            for what, (fn, depth, slot) in steps.items():
+                for route in (("wgmma", "control") if rnd % 2 == 0
+                              else ("control", "wgmma")):
+                    A._K2_CONTROL = route == "control"
+                    for f in counts:
+                        f.launches = 0
+                    with torch.inference_mode(what == "tagging"):
+                        step_ms[(what, route)].append(cuda_ms(fn, 3))
+                    got = tuple(f.launches for f in counts)
+                    want = [0, 0, 0]
+                    want[2 if A._K2_CONTROL else slot] = 4 * depth
+                    check(got == tuple(want), f"num_heads=6 {what} with the "
+                          f"{route}: launches {got}")
+                    out["launches"][(what, route)] = got
+            print(f"phase 43 num_heads=6 steps round {rnd + 1} (CUDA events, "
+                  "ms a step): " + ", ".join(
+                      f"{w} with the {r} {ms[-1]:.3f}"
+                      for (w, r), ms in step_ms.items()) + f" [{gpu}]",
+                  flush=True)
+    finally:
+        A._K2_CONTROL = False
+    check(all(np.isfinite(losses)) and abs(losses[0] - np.log(2)) > 1e-3,
+          f"num_heads=6 recipe losses {losses}")
+    for key, ms in step_ms.items():
+        out["ms"][key] = float(np.median(ms))
+    for what, name, depth in (("tagging", "K2", model.net.cfg.depth),
+                              ("recipe", "K3a", mcfg.depth)):
+        gap = out["ms"][(what, "control")] - out["ms"][(what, "wgmma")]
+        kgap = out["ms"][name]["control"] - out["ms"][name]["wgmma"]
+        won = sum(a < b for a, b in zip(step_ms[(what, "wgmma")],
+                                        step_ms[(what, "control")]))
+        out["ms"][(what, "gap")] = (gap, depth * kgap)
+        print(f"phase 43 num_heads=6 {what} step (batch {BATCH}, "
+              f"{'30 s bf16' if what == 'tagging' else RECIPE + ' N 866'}), "
+              f"medians of {D128_ROUNDS} alternating rounds: "
+              f"{out['ms'][(what, 'wgmma')]:.3f} ms with the wgmma kernel "
+              f"against {out['ms'][(what, 'control')]:.3f} with the control: "
+              f"a gap of {gap:.3f} ms against {depth} x the {name} gap "
+              f"{depth * kgap:.3f} ({gap / (depth * kgap) * 100:.1f} %); "
+              f"rounds won by the wgmma kernel {won} of {D128_ROUNDS}"
+              + (f"; the loss {losses[0]:.6f} (not ln 2) to {losses[-1]:.6f}"
+                 if what == "recipe" else "") + f" [{gpu}]", flush=True)
+    del model, prog, waves, net, state, step, data
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on a GPU",
@@ -7555,7 +8016,9 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = ("mel_kernel", "attention_fwd", "attention_bwd", "attention_fwd_q8",
             "attention_bwd_q8", "attention_probe", "mma_probe")
-    with ThreadPoolExecutor(len(libs) + 11) as pool:  # one nvcc per source
+    with ThreadPoolExecutor(len(libs) + 13) as pool:  # one nvcc per source
+        gh_plant = pool.submit(build_planted_gh_prev_q)
+        d128_plant = pool.submit(build_planted_d128_half_s)
         bf16s_plant = pool.submit(build_planted_bf16s)
         planted = pool.submit(build_planted_to_s8)
         q8w_no_mask = pool.submit(build_planted_q8w_no_mask)
@@ -7577,6 +8040,8 @@ def main() -> int:
         mel_lib, mel_s = mel_twiddle.result()
         mma_libs, mma_s = mma_wgmma.result()
         bf16s_lib, bf16s_s = bf16s_plant.result()
+        gh_lib, gh_s = gh_plant.result()
+        d128_lib, d128_s = d128_plant.result()
     wall = time.perf_counter() - t0
     for lib in libs:
         _build.load_library(lib)
@@ -7601,7 +8066,10 @@ def main() -> int:
           f"of each stage dropped and its e4m3 sums kept on the tensor core "
           f"across stages, {mma_s:.1f} s for both; phase 18's of "
           f"attention_probe, the wgmma bf16s kernel's bf16 rounding of the "
-          f"scores left out, {bf16s_s:.1f} s)", flush=True)
+          f"scores left out, {bf16s_s:.1f} s; phase 20's of attention_probe, "
+          f"the gh kernel loading the q of the head before, {gh_s:.1f} s; "
+          f"phase 43's of attention_fwd, the head_dim-128 kernel's S over 64 "
+          f"of its 128 dimensions, {d128_s:.1f} s)", flush=True)
     for lib, (log, _) in built.items():  # empty where a build was reused
         print(f"phase 2 ptxas {lib}: " + "; ".join(ptxas_rows(log)),
               flush=True)
@@ -7609,7 +8077,9 @@ def main() -> int:
                if "attn_fwd_wgmma_kernel" in r]
     sass = sass_counts(_build.build("attention_fwd")[0],
                        "attn_fwd_wgmma_kernel")
-    check(len(sass) == len(WG_CONFIGS) and all(
+    # head_dim 64's sweep configurations and head_dim 128's (the
+    # production instances among them)
+    check(len(sass) == len(WG_CONFIGS) + len(WG128_CONFIGS) and all(
         h > 0 and t > 0 for h, t, _ in sass.values()),
         f"wgmma/TMA instructions of the wgmma kernels {sass}")
     check(all(r.endswith("spills 0/0 bytes") for r in wg_rows),
@@ -7673,9 +8143,10 @@ def main() -> int:
               for k, (h, t, i) in sorted(bw_sass.items()))
           + "; ptxas: " + "; ".join(bw_rows), flush=True)
 
-    # P6d on K2's wgmma kernel (its BF16S instances in attention_probe) and
-    # K3b at head_dim 256 (the dk/dv and the dq kernel): bf16 wgmma, TMA
-    # loads, no mma.sync, no spill
+    # P6d and P6e on K2's wgmma kernel (its BF16S instances and its G 1, 2,
+    # 4 and 8 instances in attention_probe, each at 96 and 112 keys) and K3b
+    # at head_dim 256 (the dk/dv and the dq kernel): bf16 wgmma, TMA loads,
+    # no mma.sync, no spill
     new_rows, new_sass = [], {}
     for lib, pattern in (("attention_probe", "attn_fwd_wgmma_kernel"),
                          ("attention_bwd", "d256_kernel")):
@@ -7683,16 +8154,17 @@ def main() -> int:
             "d256_kernel" in r if lib == "attention_bwd" else
             "attn_fwd_wgmma_kernel" in r)]
         new_sass.update(sass_kinds(_build.build(lib)[0], pattern))
-    check(len(new_sass) == 4 and all(
+    check(len(new_sass) == 12 and all(
         c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0
         for c in new_sass.values()),
-        f"wgmma/TMA instructions of the bf16s and head_dim-256 kernels "
+        f"wgmma/TMA instructions of the bf16s, gh and head_dim-256 kernels "
         f"{new_sass}")
-    check(not new_rows or len(new_rows) == 4 and all(
+    check(not new_rows or len(new_rows) == 12 and all(
         r.endswith("spills 0/0 bytes") for r in new_rows),
-        f"the bf16s or head_dim-256 wgmma kernels spill: {new_rows}")
-    print("phase 2 SASS of P6d's wgmma kernel (attention_probe, BF16S) and "
-          "K3b's at head_dim 256 (HGMMA = bf16 wgmma, UTMALDG = TMA load, "
+        f"the bf16s, gh or head_dim-256 wgmma kernels spill: {new_rows}")
+    print("phase 2 SASS of P6d's and P6e's wgmma kernel (attention_probe, "
+          "BF16S and G 1-8) and K3b's at head_dim 256 (HGMMA = bf16 wgmma, "
+          "UTMALDG = TMA load, "
           "HMMA = mma.sync): " + "; ".join(
               f"{k}: " + ", ".join(f"{c[g]} {g}" for g in (
                   "HGMMA", "UTMALDG", "HMMA")) + f" of {c['instructions']} "
@@ -7817,9 +8289,9 @@ def main() -> int:
     lib = timed(17, phase_library, dev, gpu)
     probe_err, probe_plain = timed(18, phase_probe_kernels, dev, bf16s_lib)
     rig, rig_launches, p6d = timed(19, phase_probe_rig, dev, gpu)
-    p6ef = timed(20, phase_gh_int8, dev)
+    p6ef = timed(20, phase_gh_int8, dev, gh_lib)
     vpu_err, vpu_plain = timed(21, phase_vpu_kernels, dev)
-    rig2, vpu, rig2_launches = timed(22, phase_rigs)
+    rig2, vpu, rig2_launches = timed(22, phase_rigs, gpu)
     q3 = timed(23, phase_queue3, dev, gpu)
     tiles = timed(24, phase_tile_kernels, dev)
     tune, alone, tune_launches = timed(25, phase_tune_rigs)
@@ -7844,6 +8316,8 @@ def main() -> int:
                Path(keep.name) / "cli_run")
     keep.cleanup()
     bd = timed(42, phase_bwd_d256, dev, gpu, bw["planted_d256"])
+    d128 = timed(43, phase_d128_wgmma, dev, gpu, d128_lib,
+                 built["attention_fwd"][0])
 
     # K1: the bytes of the frames in and the log-mels out, and the FFT
     # route's fp32 operations (the DFT as a product does ~40x more)
@@ -7875,6 +8349,7 @@ def main() -> int:
                                   elem=4),
         "k7_fp32": bwd_bound(2, 866, 12, kind="int8", elem=4),
         "fwd_d128": attn_bound(BATCH, 1676, 6, d=128),
+        "fwd_lse_d128": attn_bound(BATCH, 866, 6, lse=True, d=128),
         "bwd_d128": bwd_bound(BATCH, 866, 6, d=128),
         "fwd_d256": attn_bound(BATCH, 1676, 3, d=256),
         "bwd_d256": bwd_bound(BATCH, 866, 3, d=256),
@@ -7973,14 +8448,29 @@ def main() -> int:
                      "scripts/attn_profile_r2.py:113", rig_launches[var],
                      probe_err[var], (p6d[var], probe_plain[var]), "fwd",
                      p6d["sdpa"]))
-    # P6e (gh8, the TPU rig's group) and P6f: times from phase 22's rig at
-    # (32, 1676); gh computes K2's function, whose library call is SDPA
+    # P6e (gh8, the TPU rig's group) on K2's wgmma kernel and its mma.sync
+    # control, and P6f: times from phase 22's rig at (32, 1676), P6e's the
+    # medians of its interleaved CUDA-graph rounds; gh computes K2's
+    # function, whose library call is SDPA
     r30 = rig2["30s"]
-    rows.append(("attention_probe_gh", "attention_probe.cu",
+    print("kernels line: attention_probe_gh is P6e on K2's wgmma kernel with "
+          "G heads a block, attention_probe_gh_mma its mma.sync control; "
+          "gh8 at (32, 1676), phase 22's medians of interleaved CUDA-graph "
+          "rounds beside SDPA's; launches over every G in phase 22's rig; "
+          "max_abs_err against each one's plain version (phase 20)",
+          flush=True)
+    rows.append(("attention_probe_gh", "attn_fwd_wgmma.cuh",
                  "scripts/attn_profile_r2.py:148",
                  sum(rig2_launches[f"gh{g}"] for g in (1, 2, 4, 8)),
-                 p6ef["gh_err"], (r30["gh8"]["ms"], p6ef["gh_plain"]), "fwd",
-                 r30["sdpa"]["ms"]))
+                 p6ef["gh_err"], (r30["gh8"]["round_median"],
+                                  p6ef["gh_plain"]), "fwd",
+                 r30["sdpa"]["round_median"]))
+    rows.append(("attention_probe_gh_mma", "attention_probe.cu",
+                 "scripts/attn_profile_r2.py:148",
+                 sum(rig2_launches[f"gh{g}_mma"] for g in (1, 2, 4, 8)),
+                 p6ef["gh_mma_err"], (r30["gh8_mma"]["round_median"],
+                                      p6ef["gh_mma_plain"]), "fwd",
+                 r30["sdpa"]["round_median"]))
     rows.append(("attention_probe_int8", "attention_probe.cu",
                  "scripts/attn_profile_r2.py:226", rig2_launches["int8"],
                  p6ef["int8_err"], (r30["int8"]["ms"], p6ef["int8_plain"]),
@@ -8062,11 +8552,39 @@ def main() -> int:
              mw["mlp" + sfx + "_e4m3"], mma["err"][which]["fc1_fp8"],
              (r["mlp"]["fc1_fp8"][ms], mma["plain"]["fc1_fp8"]), "mlp_fp8",
              r["mlp"]["library_fc1_fp8"]["ms"])]
+    # K2/K3a at head_dim 128 on wgmma (launches on phase 27's path: tagging
+    # at num_heads 6 and 8, one recipe step at 6; errors of phases 27 and
+    # 43; phase 43's CUDA-graph medians beside SDPA's) and their mma.sync
+    # control (launches on phase 43's control steps)
+    print("kernels line: attention_fwd_d128 (K2 at (32, 1676, 6, 128)) and "
+          "attention_fwd_lse_d128 (K3a at (32, 866, 6, 128)) are the wgmma "
+          "kernel at D = 128, the *_d128_mma rows its mma.sync control; "
+          "phase 43's medians of interleaved CUDA-graph rounds beside SDPA's, "
+          "plain by events; launches on phase 27's path (the controls' on "
+          "phase 43's control steps)", flush=True)
+    m43 = d128["ms"]
+    l43 = d128["launches"]
     rows += [
-        ("attention_fwd_d128", "attention_fwd.cu",
+        ("attention_fwd_d128", "attn_fwd_wgmma.cuh",
          "maest_tpu/ops/attention.py:176", wide["launches"]["k2_d128"]
-         + wide["launches"]["k2_d96"], wide["err"]["fwd_d128"],
-         wide["ms"]["fwd_d128"], "fwd_d128", wide["ms"]["fwd_d128_sdpa"]),
+         + wide["launches"]["k2_d96"], max(wide["err"]["fwd_d128"],
+                                           d128["err"]["K2"]),
+         (m43["K2"]["wgmma"], m43["K2"]["plain"]), "fwd_d128",
+         m43["K2"]["sdpa"]),
+        ("attention_fwd_lse_d128", "attn_fwd_wgmma.cuh",
+         "maest_tpu/ops/attention.py:404", wide["launches"]["k3a_d128"],
+         max(wide["err"]["fwd_lse_d128"], d128["err"]["K3a"]),
+         (m43["K3a"]["wgmma"], m43["K3a"]["plain"]), "fwd_lse_d128",
+         m43["K3a"]["sdpa"]),
+        ("attention_fwd_d128_mma", "attn_fwd_bf16.cuh",
+         "maest_tpu/ops/attention.py:176", l43[("tagging", "control")][2],
+         d128["err"]["control"], (m43["K2"]["control"], m43["K2"]["plain"]),
+         "fwd_d128", m43["K2"]["sdpa"]),
+        ("attention_fwd_lse_d128_mma", "attn_fwd_bf16.cuh",
+         "maest_tpu/ops/attention.py:404", l43[("recipe", "control")][2],
+         d128["err"]["control_lse"], (m43["K3a"]["control"],
+                                      m43["K3a"]["plain"]), "fwd_lse_d128",
+         m43["K3a"]["sdpa"]),
         ("attention_bwd_d128", "attention_bwd.cu",
          "maest_tpu/ops/attention.py:483", wide["launches"]["k3b_d128"],
          wide["err"]["bwd_d128"], wide["ms"]["bwd_d128"], "bwd_d128",

@@ -61,8 +61,11 @@
 // row's dot is summed across the four with two shuffles; a block owns 32
 // rows and 16-key tiles (32 KB).
 //
-// D_ = 256 in bf16: the template's QSM path (attn_fwd_bf16.cuh), q rows in
-// shared memory.
+// D_ = 128 in bf16 runs the wgmma/TMA kernel of attn_fwd_wgmma.cuh at D =
+// 128 (each row two 64-column chunks; two consumer warpgroups, 80- or
+// 96-key tiles); the mma.sync FLASH instance at D_ = 128 stays as its
+// control, maest_attn_fwd_bf16_d128_mma. D_ = 256 in bf16: the template's
+// QSM path (attn_fwd_bf16.cuh), q rows in shared memory.
 //
 // Any head_dim above 256 (the _dn entries): the width dp, zero-padded by
 // the caller to a multiple of 64, is a runtime argument, so registers and
@@ -699,12 +702,64 @@ int maest_attn_fwd_fp32_d128(const void* q, const void* k, const void* v,
                        batch, n, heads, n_real, strides, sl, stream);
 }
 
+// The bf16 entry at head_dim 128 runs the wgmma kernel (attn_fwd_wgmma.cuh
+// at D = 128) with two consumer warpgroups taking turns, a ring of two
+// stages and the key tile, 80 or 96 keys, that pads n_real the least (80 on
+// a tie; wg128_key_tile): in the tile sweep (maest_attn_fwd_bf16_d128_wgmma,
+// chip_smoke.py phase 43) 80 and 96 keys ran within a few per cent of each
+// other at N 1676 (21 and 18 tiles), 80 was best at N 866 (11 tiles, 14
+// keys padded, where 96 pads 94), 64 keys lost at both and three or four
+// stages gained nothing. It reads q, k and v through TMA, so each view's
+// base address and strides must be multiples of 16 bytes.
 int maest_attn_fwd_bf16_d128(const void* q, const void* k, const void* v,
                              void* out, float* lse, int batch, int n,
                              int heads, int n_real, const long long* strides,
                              float sl, void* stream) {
+  if (wg128_key_tile(n_real) == 96)
+    return launch_fwd_wgmma<96, 2, true, false, 1, 128>(
+        q, k, v, out, lse, batch, n, heads, n_real, strides, sl, stream);
+  return launch_fwd_wgmma<80, 2, true, false, 1, 128>(
+      q, k, v, out, lse, batch, n, heads, n_real, strides, sl, stream);
+}
+
+// The mma.sync kernel that maest_attn_fwd_bf16_d128 ran before the wgmma
+// one (variant FLASH of attn_fwd_bf16.cuh at D_ = 128), kept as its
+// control: the same arguments.
+int maest_attn_fwd_bf16_d128_mma(const void* q, const void* k, const void* v,
+                                 void* out, float* lse, int batch, int n,
+                                 int heads, int n_real,
+                                 const long long* strides, float sl,
+                                 void* stream) {
   return launch_fwd<FLASH, 1, WARPS, MK, false, 128>(
       q, k, v, out, lse, batch, n, heads, n_real, strides, sl, stream);
+}
+
+// The head_dim-128 wgmma kernel's configurations of the tile sweep, chosen
+// by `config` (key tile BK, ring stages ST; two consumer warpgroups taking
+// turns): 0 (64, 2), 1 (64, 3), 2 (80, 2), 3 (80, 3), 4 (96, 2), 5 (96, 3),
+// 6 (64, 4), 7 (80, 4), 8 (96, 4). Otherwise the arguments of
+// maest_attn_fwd_bf16_d128; another config returns cudaErrorInvalidValue.
+int maest_attn_fwd_bf16_d128_wgmma(int config, const void* q, const void* k,
+                                   const void* v, void* out, float* lse,
+                                   int batch, int n, int heads, int n_real,
+                                   const long long* strides, float sl,
+                                   void* stream) {
+#define MAEST_WG(BK, ST)                                                       \
+  launch_fwd_wgmma<BK, 2, true, false, 1, 128, ST>(                            \
+      q, k, v, out, lse, batch, n, heads, n_real, strides, sl, stream)
+  switch (config) {
+    case 0: return MAEST_WG(64, 2);
+    case 1: return MAEST_WG(64, 3);
+    case 2: return MAEST_WG(80, 2);
+    case 3: return MAEST_WG(80, 3);
+    case 4: return MAEST_WG(96, 2);
+    case 5: return MAEST_WG(96, 3);
+    case 6: return MAEST_WG(64, 4);
+    case 7: return MAEST_WG(80, 4);
+    case 8: return MAEST_WG(96, 4);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef MAEST_WG
 }
 
 // The same two entries at head_dim 256: (batch, n, heads, 256) views, sl

@@ -47,10 +47,32 @@
 // memory, the scores rounded to bf16 in registers), through
 // maest_attn_probe_bf16s_wgmma; its mma.sync variant BF16S behind the
 // PyTorch pre-scaling pass stays as the control (maest_attn_probe_bf16,
-// variant 4). The same products as K2's wgmma kernel bound it.
+// variant 4). P6e (gh<G>) runs on the same kernel with G heads a block
+// (the producer loading the next head's q into a second buffer and its K
+// and V into the same ring, so the ring never drains between heads),
+// through maest_attn_probe_gh; K2's mma.sync template with G heads a block
+// stays as its control (maest_attn_probe_gh_mma). The same products as
+// K2's wgmma kernel bound both.
 
 #include "attn_fwd_q8.cuh"     // and attn_fwd_bf16.cuh
 #include "attn_fwd_wgmma.cuh"  // K2's wgmma kernel, its BF16S form
+
+namespace {
+
+// the gh probe's wgmma instance of group G at K2's key tile for n_real
+template <int G>
+int launch_gh_wgmma(const void* q, const void* k, const void* v, void* out,
+                    int batch, int n, int heads, int n_real,
+                    const long long* strides, float sl, void* stream) {
+  using namespace maest;
+  if (wg_key_tile(n_real) == 112)
+    return launch_fwd_wgmma<112, 3, true, false, G>(
+        q, k, v, out, nullptr, batch, n, heads, n_real, strides, sl, stream);
+  return launch_fwd_wgmma<96, 3, true, false, G>(
+      q, k, v, out, nullptr, batch, n, heads, n_real, strides, sl, stream);
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -109,13 +131,43 @@ int maest_attn_probe_bf16s_wgmma(const void* q, const void* k, const void* v,
                                              stream);
 }
 
-// K2 (FLASH) with `group` (batch, head) pairs a block, group 1, 2, 4 or 8
-// dividing batch * heads; the arguments as maest_attn_probe_bf16's, sl =
-// head_dim^-0.5 * log2(e). Returns cudaErrorInvalidValue for another group.
+// P6e on wgmma: K2's wgmma kernel with `group` (batch, head) pairs a
+// block, group 1, 2, 4 or 8 dividing batch * heads, three consumer
+// warpgroups taking turns and K2's key tile, 96 or 112 keys, whichever pads
+// n_real the least (96 on a tie; wg_key_tile, as maest_attn_fwd_bf16
+// chooses it), so each head's output is K2's bit for bit. The arguments as
+// maest_attn_probe_bf16's, each view's base address and strides in
+// multiples of 16 bytes (TMA); sl = head_dim^-0.5 * log2(e). Returns
+// cudaErrorInvalidValue for another group.
 int maest_attn_probe_gh(int group, const void* q, const void* k,
                         const void* v, void* out, int batch, int n, int heads,
                         int n_real, const long long* strides, float sl,
                         void* stream) {
+  if (n_real < 1 || n_real > n) return static_cast<int>(cudaErrorInvalidValue);
+  switch (group) {  // launch_fwd_wgmma refuses a group not dividing B H
+    case 1:
+      return launch_gh_wgmma<1>(q, k, v, out, batch, n, heads, n_real,
+                                strides, sl, stream);
+    case 2:
+      return launch_gh_wgmma<2>(q, k, v, out, batch, n, heads, n_real,
+                                strides, sl, stream);
+    case 4:
+      return launch_gh_wgmma<4>(q, k, v, out, batch, n, heads, n_real,
+                                strides, sl, stream);
+    case 8:
+      return launch_gh_wgmma<8>(q, k, v, out, batch, n, heads, n_real,
+                                strides, sl, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The mma.sync kernel that maest_attn_probe_gh ran before the wgmma one,
+// kept as its control: K2's mma.sync template (FLASH) with `group` (batch,
+// head) pairs a block, its 64-key tiles; the same arguments and groups.
+int maest_attn_probe_gh_mma(int group, const void* q, const void* k,
+                            const void* v, void* out, int batch, int n,
+                            int heads, int n_real, const long long* strides,
+                            float sl, void* stream) {
   using namespace maest;
   decltype(&attn_fwd_bf16_kernel<FLASH>) kernel;
   switch (group) {

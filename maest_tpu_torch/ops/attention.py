@@ -19,10 +19,11 @@ any N, strided views). The kernels are built for head_dim 64, 128 and
 256, and each also as one instance whose width, a multiple of 64 above
 256, is a runtime argument (the ``_dn`` entries); any other head_dim runs
 the next of these on inputs zero-padded to its width with its own
-softmax scale (``pad_head_dim``). The bf16 forward at head_dim 64 runs
-the ``wgmma`` / TMA kernel (``csrc/attn_fwd_wgmma.cuh``), and at every
-width above 256 the one of ``csrc/attn_fwd_dn_wgmma.cuh`` (q resident in
-shared memory, 192-column output slices); the bf16
+softmax scale (``pad_head_dim``). The bf16 forward at head_dim 64 and
+128 (65-127 zero-padded) runs the ``wgmma`` / TMA kernel
+(``csrc/attn_fwd_wgmma.cuh``, at 128 each row two 64-column chunks), and
+at every width above 256 the one of ``csrc/attn_fwd_dn_wgmma.cuh`` (q
+resident in shared memory, 192-column output slices); the bf16
 backward at head_dim 64 the one of ``csrc/attn_bwd_wgmma.cuh`` (one score
 pass per key tile and q tile), at head_dim 256 (and 129-255, zero-padded)
 the two of ``csrc/attn_bwd_d256_wgmma.cuh`` (a dk/dv and a dq kernel, each
@@ -30,7 +31,7 @@ tile's work split between two consumer warpgroups), the int8 backward in bf16 at
 the s8 ``wgmma`` kernels of ``csrc/attn_bwd_q8_wgmma.cuh``, and the 8-bit
 forwards in bf16 at head_dim 64 the s8 / bf16 / e4m3 ``wgmma`` kernel of
 ``csrc/attn_fwd_q8_wgmma.cuh`` behind its CUDA quantisation pass; their
-``mma.sync`` controls stay as ``attention_fwd_mma`` (both bf16 forwards),
+``mma.sync`` controls stay as ``attention_fwd_mma`` (the bf16 forwards),
 ``attention_bwd_mma`` (both bf16 backwards), ``attention_bwd_int8_mma`` and
 ``attention_fwd_q8_mma``. The fp32 forward
 and backward at head_dim 64 run the tf32 ``wgmma`` kernels of
@@ -72,8 +73,10 @@ _LOG2E = 1.4426950408889634
 HEAD_DIM = 64               # the probe kernels' head_dim
 HEAD_DIMS = (HEAD_DIM, 128, 256)  # the production kernels' fixed widths
 # the key tiles of the head_dim-64 wgmma forward (K2, K3a and the bf16s
-# probe), one of them chosen by wg_key_tile
+# and gh probes), one of them chosen by wg_key_tile; and of the head_dim-128
+# one, chosen by wg128_key_tile
 WG_KEY_TILES = (96, 112)
+WG128_KEY_TILES = (80, 96)
 
 _QUANT_MODES = (None, "qk8", "qk8pv8", "fp8", "fp8pv8")
 
@@ -83,13 +86,21 @@ def _scale(x, scale):
     return x.shape[-1]**-0.5 if scale is None else scale
 
 
-def wg_key_tile(n_real: int) -> int:
+def wg_key_tile(n_real: int, tiles=WG_KEY_TILES) -> int:
     """The key tile the head_dim-64 ``wgmma`` forward takes at ``n_real``
     real keys, as ``csrc/attn_fwd_wgmma.cuh wg_key_tile`` chooses it: 112
-    where it pads them less than 96 does, else 96."""
-    small, big = WG_KEY_TILES
+    where it pads them less than 96 does, else 96; of ``tiles`` (small,
+    big) in general."""
+    small, big = tiles
     return big if -(-n_real // big) * big < -(-n_real // small) * small \
         else small
+
+
+def wg128_key_tile(n_real: int) -> int:
+    """The key tile the head_dim-128 ``wgmma`` forward takes, as
+    ``csrc/attn_fwd_wgmma.cuh wg128_key_tile`` chooses it: 96 where it pads
+    ``n_real`` less than 80 does, else 80."""
+    return wg_key_tile(n_real, WG128_KEY_TILES)
 
 
 def _scores(q, k, n_real, scale=None):
@@ -930,36 +941,39 @@ def _fwd(q, k, v, n_real, quant, with_lse):
     return out
 
 
-# Private: True routes the bf16 forward at head_dim 64 and at the widths
-# above 256 through the control (``attention_fwd_mma``) instead of the wgmma
-# kernels, so that a measurement can time the steps of the model with each.
-# Nothing in the package sets it.
+# Private: True routes the bf16 forward at head_dim 64 and 128 (and the
+# widths zero-padded to them) and at the widths above 256 through the
+# control (``attention_fwd_mma``) instead of the wgmma kernels, so that a
+# measurement can time the steps of the model with each. Nothing in the
+# package sets it.
 _K2_CONTROL = False
 
 
 def _has_fwd_control(d: int) -> bool:
     """A bf16 kernel width whose forward kept its ``mma.sync`` kernel as the
-    control of a ``wgmma`` one: 64, and every multiple of 64 above 256."""
-    return d == HEAD_DIM or (d > HEAD_DIMS[-1] and d % 64 == 0)
+    control of a ``wgmma`` one: 64, 128, and every multiple of 64 above
+    256."""
+    return d in HEAD_DIMS[:2] or (d > HEAD_DIMS[-1] and d % 64 == 0)
 
 
 def attention_fwd_mma(q, k, v, n_real: int | None = None,
                       with_lse: bool = False):
     """The control of K2/K3a's wgmma kernels: the ``mma.sync`` kernels, at
-    head_dim 64 variant FLASH of ``csrc/attn_fwd_bf16.cuh`` (entry
-    ``maest_attn_fwd_bf16_mma``) and at a multiple of 64 above 256 the
-    runtime-width kernel of ``csrc/attention_fwd.cu`` (entry
-    ``maest_attn_fwd_bf16_dn_mma``), on bf16 CUDA (B, N, H, D) views; (o,
-    lse or None). It computes what ``flash_attention`` computes, with its
-    own 64-key tiles; counted in ``attention_fwd_mma.launches``."""
+    head_dim 64 and 128 variant FLASH of ``csrc/attn_fwd_bf16.cuh`` (entries
+    ``maest_attn_fwd_bf16_mma``, ``maest_attn_fwd_bf16_d128_mma``) and at a
+    multiple of 64 above 256 the runtime-width kernel of
+    ``csrc/attention_fwd.cu`` (entry ``maest_attn_fwd_bf16_dn_mma``), on
+    bf16 CUDA (B, N, H, D) views; (o, lse or None). It computes what
+    ``flash_attention`` computes, with its own 64-key tiles; counted in
+    ``attention_fwd_mma.launches``."""
     n_real, _, _ = _check_args(q, k, v, n_real, None)
     if q.device.type == "cpu":
         if with_lse:
             return attention_reference_lse(q, k, v, n_real)
         return attention_reference(q, k, v, n_real), None
     if q.dtype != torch.bfloat16 or not _has_fwd_control(q.shape[-1]):
-        raise ValueError("the control takes bf16 q, k, v at head_dim 64 or a "
-                         "multiple of 64 above 256")
+        raise ValueError("the control takes bf16 q, k, v at head_dim 64, 128 "
+                         "or a multiple of 64 above 256")
     out = _launch_fwd_mma(q, k, v, n_real, with_lse, q.shape[-1]**-0.5)
     attention_fwd_mma.launches += 1
     return out
@@ -1185,12 +1199,11 @@ def _launch_fwd(q, k, v, n_real, with_lse, scale):
 
 
 def _launch_fwd_mma(q, k, v, n_real, with_lse, scale):
-    """The control of K2/K3a on checked bf16 views at head_dim 64 or a
+    """The control of K2/K3a on checked bf16 views at head_dim 64, 128 or a
     multiple of 64 above 256 (``maest_attn_fwd_bf16_dn_mma``, which takes
     the width)."""
-    d = q.shape[-1]
-    name, lead = (("maest_attn_fwd_bf16_mma", ()) if d == HEAD_DIM else
-                  ("maest_attn_fwd_bf16_dn_mma", (d,)))
+    name, lead = _instance("maest_attn_fwd_bf16", q.shape[-1])
+    name += "_mma"
     return launch_fwd_entry("attention_fwd", name, lead, q, k, v, n_real,
                             with_lse, scale)
 

@@ -39,7 +39,11 @@ pre-scaled q).
 Two more wrappers, each with its plain version and launch count:
 
 - ``attention_probe_gh(q, k, v, group)``: K2 with ``group`` (batch, head)
-  pairs a block (the rig's ``_gh_kernel``), the same function as K2.
+  pairs a block (the rig's ``_gh_kernel``), the same function as K2: on
+  K2's ``wgmma`` kernel with G heads a block (``csrc/attn_fwd_wgmma.cuh``,
+  entry ``maest_attn_probe_gh``; its plain version on that kernel's 96- or
+  112-key tiles), and ``attention_probe_gh_mma``, its control, on K2's
+  ``mma.sync`` template (entry ``maest_attn_probe_gh_mma``, 64-key tiles).
 - ``attention_probe_int8(q, k, v)``: the rig's ``_int8_kernel`` with its
   quantization pass, fp32 in and out; its output is attention / 127 (see
   its docstring).
@@ -310,9 +314,9 @@ def launch_probe(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # --- P6e: G heads a block ---------------------------------------------------
-def _check_gh(q, k, v, group, n_real):
+def _check_gh(q, k, v, group, n_real, fn="attention_probe_gh"):
     if group not in GROUPS:
-        raise ValueError(f"attention_probe_gh takes a group of "
+        raise ValueError(f"{fn} takes a group of "
                          f"{', '.join(map(str, GROUPS))}; got {group!r}")
     nr = _check_qkv(q, k, v, n_real)
     if q.shape[0] * q.shape[2] % group:
@@ -324,17 +328,20 @@ def _check_gh(q, k, v, group, n_real):
 def attention_probe_gh_reference(q, k, v, group: int,
                                  n_real: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of ``attention_probe_gh``: K2's online softmax
-    over the same 64-key tiles (the group changes which block computes a
-    head, not what it computes)."""
-    return _walk(q, k, v, "flash", _check_gh(q, k, v, group, n_real))
+    over the key tiles of K2's ``wgmma`` kernel, 96 or 112 keys
+    (``wg_key_tile``; the group changes which block computes a head, not
+    what it computes)."""
+    nr = _check_gh(q, k, v, group, n_real)
+    return _walk(q, k, v, "flash", nr, wg_key_tile(nr))
 
 
 def attention_probe_gh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        group: int, n_real: int | None = None) -> torch.Tensor:
     """K2's forward on (B, N, H, 64) bf16 with ``group`` (batch, head) pairs
-    a block, B*H divisible by it (the rig's ``gh<G>``): on CUDA tensors the
-    kernel, whose output equals K2's bit for bit; on CPU tensors
-    ``attention_probe_gh_reference``. Launches counted per group in
+    a block, B*H divisible by it (the rig's ``gh<G>``): on CUDA tensors K2's
+    ``wgmma`` kernel with G heads a block (entry ``maest_attn_probe_gh``),
+    whose output equals K2's (``flash_attention``) bit for bit; on CPU
+    tensors ``attention_probe_gh_reference``. Launches counted per group in
     ``attention_probe_gh.launches``."""
     nr = _check_gh(q, k, v, group, n_real)
     if q.device.type == "cpu":
@@ -342,6 +349,32 @@ def attention_probe_gh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = launch_bf16("maest_attn_probe_gh", group, q, k, v, nr,
                       q.shape[-1]**-0.5 * _LOG2E)
     attention_probe_gh.launches[group] += 1
+    return out
+
+
+def attention_probe_gh_mma_reference(q, k, v, group: int,
+                                     n_real: int | None = None):
+    """Plain PyTorch version of ``attention_probe_gh_mma``: K2's online
+    softmax over the control's 64-key tiles."""
+    nr = _check_gh(q, k, v, group, n_real, "attention_probe_gh_mma")
+    return _walk(q, k, v, "flash", nr)
+
+
+def attention_probe_gh_mma(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, group: int,
+                           n_real: int | None = None) -> torch.Tensor:
+    """The control of the ``wgmma`` gh kernel: K2's ``mma.sync`` template
+    with ``group`` (batch, head) pairs a block (entry
+    ``maest_attn_probe_gh_mma``), whose output equals K2's ``mma.sync``
+    kernel's (``attention_fwd_mma``) bit for bit, on (B, N, H, 64) bf16 CUDA
+    tensors; ``attention_probe_gh_mma_reference`` on CPU tensors. Launches
+    counted per group in ``attention_probe_gh_mma.launches``."""
+    nr = _check_gh(q, k, v, group, n_real, "attention_probe_gh_mma")
+    if q.device.type == "cpu":
+        return attention_probe_gh_mma_reference(q, k, v, group, n_real)
+    out = launch_bf16("maest_attn_probe_gh_mma", group, q, k, v, nr,
+                      q.shape[-1]**-0.5 * _LOG2E)
+    attention_probe_gh_mma.launches[group] += 1
     return out
 
 
@@ -568,6 +601,7 @@ def attention_bwd_tile(q, k, v, o, lse, do, rows: int, tile: int):
 attention_probe.launches = dict.fromkeys(VARIANTS, 0)
 attention_probe_mma.launches = 0
 attention_probe_gh.launches = dict.fromkeys(GROUPS, 0)
+attention_probe_gh_mma.launches = dict.fromkeys(GROUPS, 0)
 attention_probe_int8.launches = 0
 attention_probe_qpad.launches = dict.fromkeys(QPAD_GROUPS, 0)
 attention_probe_tile.launches = {(r, t): 0 for r in Q_ROWS for t in KEY_TILES}

@@ -2,7 +2,7 @@
 
     python -m maest_tpu_torch.probes.attn_profile [--shapes 30s,30s-train]
         [--batch 32] [--heads 12] [--iters 20] [--variants ...] [--seed 0]
-        [--check] [--device cuda]
+        [--rounds 0] [--check] [--device cuda]
 
 Times variants of the bf16 attention forward at (batch, N, heads, 64), N
 from ``--shapes`` (names of ``ARCH_N`` or token counts), on inputs drawn
@@ -22,8 +22,11 @@ pipeline, the softmax arithmetic and the running-max bookkeeping:
   wgmma      K2's wgmma kernel (``flash_attention``), the template of bf16s
   bf16s      the same function on the wgmma template, q pre-scaled inside
              the kernel (``attention_probe``'s route)
-  gh<G>      K2 with G (batch, head) pairs a block, G 1, 2, 4 or 8: the
-             same function, G times fewer blocks (not in the default list)
+  gh<G>      K2's wgmma kernel with G (batch, head) pairs a block, G 1, 2,
+             4 or 8: the same function, G times fewer blocks
+             (``attention_probe_gh``; not in the default list)
+  gh<G>_mma  the same on K2's mma.sync template: gh<G>'s control
+             (``attention_probe_gh_mma``; not in the default list)
   int8       the TPU rig's int8 kernel (int8 q.k and p.v, p's fixed scale
              127) on fp32 copies of the inputs, with its quantization pass;
              its output is attention / 127, as the rig's (not in the
@@ -56,14 +59,19 @@ from events; bf16s has no pass to split off.
 
 After each shape it prints the differences the rig exists for (flash -
 mxu_only, flash - noexp_max, flash - novmax, bf16s_mma - flash and bf16s
-- wgmma: each difference within one template, gh<G> - flash), from the
-event times and, on the card, from the graph times; for a variant with a
-pass also its kernel alone and its pass.
+- wgmma: each difference within one template, gh<G> - wgmma and
+gh<G>_mma - flash), from the event times and, on the card, from the
+graph times; for a variant with a pass also its kernel alone and its
+pass. With ``--rounds R`` on the card it then times every variant but
+plain again, by CUDA graphs of ``--iters`` calls replayed in R
+interleaved rounds (``graph_rounds``: the order reversed every other
+round), and prints each round and the medians: the reading that compares
+two variants within one call.
 
 ``--check`` instead prints each variant's max|diff| against fp32 attention
 (``attention_reference`` on fp32 copies) at (2, N, heads, 64) on N(0, 1)
 inputs, N the first shape's. Only flash, wgmma, noexp_max, bf16s,
-bf16s_mma, gh<G>, plain and sdpa compute softmax attention; mxu_only and novmax are printed beside
+bf16s_mma, gh<G>, gh<G>_mma, plain and sdpa compute softmax attention; mxu_only and novmax are printed beside
 them, and int8 also with its output times 127.
 
 The rig runs on the card; ``--device cpu`` runs the plain versions with the
@@ -89,6 +97,7 @@ from ..ops.attention_probe import VARIANTS as PROBES
 from ..ops.attention_probe import (
     attention_probe,
     attention_probe_gh,
+    attention_probe_gh_mma,
     attention_probe_int8,
     attention_probe_mma,
     int8_rig_pass,
@@ -135,8 +144,8 @@ def _sdpa(q, k, v):
 
 
 def _group(variant: str) -> int | None:
-    """G of a ``gh<G>`` variant, None for another name."""
-    g = variant[2:]
+    """G of a ``gh<G>`` or ``gh<G>_mma`` variant, None for another name."""
+    g = variant[2:].removesuffix("_mma")
     if variant.startswith("gh") and g.isdigit() and int(g) in GROUPS:
         return int(g)
     return None
@@ -151,7 +160,9 @@ def variant_fn(variant: str, q, k, v):
     on fp32 copies of them, made here, outside the call)."""
     g = _group(variant)
     if g is not None:
-        return lambda: attention_probe_gh(q, k, v, g)
+        gh = (attention_probe_gh_mma if variant.endswith("_mma")
+              else attention_probe_gh)
+        return lambda: gh(q, k, v, g)
     if variant == "int8":
         qf, kf, vf = _fp32(q, k, v)
         return lambda: attention_probe_int8(qf, kf, vf)
@@ -168,7 +179,8 @@ def variant_fn(variant: str, q, k, v):
     if variant == "sdpa":
         return lambda: _sdpa(q, k, v)
     raise ValueError(f"unknown variant {variant!r}; expected one of "
-                     f"{DEFAULT_VARIANTS}, gh1, gh2, gh4, gh8, int8")
+                     f"{DEFAULT_VARIANTS}, gh1, gh2, gh4, gh8, gh<G>_mma, "
+                     "int8")
 
 
 def split_fns(variant: str, q, k, v):
@@ -334,18 +346,39 @@ def check(n: int, heads: int, variants, seed: int, device) -> dict:
 
 
 def _diffs(variants):
-    """The (a, b, what) differences printed after a shape: DIFFS and each
-    gh<G> against K2."""
-    return DIFFS + tuple((v, "flash", "head groups of G against K2's one")
-                         for v in variants if _group(v))
+    """The (a, b, what) differences printed after a shape: DIFFS, each gh<G>
+    against K2's wgmma kernel and each gh<G>_mma against its mma.sync
+    kernel."""
+    return DIFFS + tuple(
+        (v, "flash", "head groups of G against K2's one, mma.sync")
+        if v.endswith("_mma") else
+        (v, "wgmma", "head groups of G against K2's one, wgmma")
+        for v in variants if _group(v))
+
+
+def print_rounds(rows: dict, runs: dict, what: str) -> None:
+    """Each round's and the median CUDA-graph ms of ``runs`` (from
+    ``graph_rounds``) into ``rows[variant]["rounds_ms"]`` and
+    ``["round_median"]``, printed."""
+    for r in range(len(next(iter(runs.values())))):
+        print(f"  {what} round {r + 1} graph ms: " + ", ".join(
+            f"{name} {ms[r]:.4f}" for name, ms in runs.items()), flush=True)
+    for name, ms in runs.items():
+        rows[name]["rounds_ms"] = ms
+        rows[name]["round_median"] = float(np.median(ms))
+    print(f"  {what} medians: " + ", ".join(
+        f"{name} {rows[name]['round_median']:.4f}" for name in runs),
+        flush=True)
 
 
 def profile(shapes, batch: int, heads: int, iters: int, variants, seed: int,
-            device: torch.device) -> dict:
+            device: torch.device, rounds: int = 0) -> dict:
     """{shape: {variant: {"ms", "graph_ms", "idle"}}}, and for bf16s and int8
     also "kernel_ms" and "pass_ms" (``None`` where not measured: every field
     but ms on the CPU, graph_ms and idle for plain), printing one line per
-    variant and the decomposition after each shape."""
+    variant and the decomposition after each shape; with ``rounds`` on the
+    card also "rounds_ms" and "round_median" of every variant but plain
+    (``print_rounds``)."""
     on_card = device.type == "cuda"
     out = {}
     for name in shapes:
@@ -385,6 +418,12 @@ def profile(shapes, batch: int, heads: int, iters: int, variants, seed: int,
                              f"{_PASS[variant]} {row['pass_ms']:.4f} ms")
                     del split
                 print(line, flush=True)
+            if on_card and rounds:
+                fns = {var: variant_fn(var, q, k, v) for var in variants
+                       if var != "plain"}
+                print_rounds(rows, graph_rounds(fns, iters, device, rounds),
+                             f"{name} interleaved")
+                del fns
         del q, k, v
         for a, b, what in _diffs(variants):
             if a in rows and b in rows:
@@ -413,6 +452,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--shapes", default="30s")
     ap.add_argument("--variants", default=DEFAULT_VARIANTS)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--rounds", type=int, default=0,
+                    help="on the card, time the variants again by CUDA "
+                         "graphs in this many interleaved rounds")
     ap.add_argument("--check", action="store_true",
                     help="print each variant's max|diff| vs fp32 attention")
     ap.add_argument("--device", default="cuda",
@@ -437,7 +479,7 @@ def main(argv=None) -> dict:
         return check(tokens(shapes[0]), args.heads, variants, args.seed + 1,
                      device)
     return profile(shapes, args.batch, args.heads, args.iters, variants,
-                   args.seed, device)
+                   args.seed, device, args.rounds)
 
 
 if __name__ == "__main__":

@@ -881,7 +881,8 @@ def test_k3b_control_hook_routes_head_dim_256(cuda_device, monkeypatch):
 
 
 # --- P6e (gh), P6f (int8) and the P5 kinds --------------------------------
-# gh: torch.equal to K2 (each head runs K2's arithmetic). int8 (fp32 out):
+# gh: torch.equal to K2's wgmma kernel, its control to K2's mma.sync kernel
+# (each head runs K2's arithmetic on the same key tiles). int8 (fp32 out):
 # each row within one p flip of plain, max|v| / (127 l), + 1e-5 of max|o|.
 # P5 against plain: attention_vpu.plain_gap, 2 bf16 ulps of max|o| (bf16sm,
 # fp8sm, fp8nomask add 2^-7 max|o|: the packed ex2's relative error in each
@@ -889,21 +890,31 @@ def test_k3b_control_hook_routes_head_dim_256(cuda_device, monkeypatch):
 @pytest.mark.parametrize("b,n,n_real", [(2, 1676, None), (4, 272, None),
                                         (2, 300, 290), (2, 1, None)])
 def test_gh_kernels_equal_k2(cuda_device, b, n, n_real):
-    from maest_tpu_torch.ops.attention_probe import GROUPS, attention_probe_gh
+    from maest_tpu_torch.ops.attention_probe import (
+        GROUPS,
+        attention_probe_gh,
+        attention_probe_gh_mma,
+    )
 
     from maest_tpu_torch.ops.attention import attention_fwd_mma
 
     x = _rand((b, n, 3, 12, 64), 18).to(cuda_device, torch.bfloat16)
     q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
-    # K2's mma.sync kernel, the template gh changes (the wgmma kernel's
-    # control)
-    k2 = attention_fwd_mma(q, k, v, n_real)[0]
+    # the route is K2's wgmma kernel with G heads a block; its control K2's
+    # mma.sync template with G heads a block
+    k2 = flash_attention(q, k, v, n_real=n_real)
+    k2_mma = attention_fwd_mma(q, k, v, n_real)[0]
     for g in GROUPS:
-        before = attention_probe_gh.launches[g]
+        before = (attention_probe_gh.launches[g],
+                  attention_probe_gh_mma.launches[g])
         out = attention_probe_gh(q, k, v, g, n_real)
+        ctl = attention_probe_gh_mma(q, k, v, g, n_real)
         torch.cuda.synchronize()
-        assert attention_probe_gh.launches[g] == before + 1
+        assert (attention_probe_gh.launches[g],
+                attention_probe_gh_mma.launches[g]) == (before[0] + 1,
+                                                        before[1] + 1)
         assert torch.equal(out, k2), g
+        assert torch.equal(ctl, k2_mma), g
 
 
 @pytest.mark.parametrize("b,n,n_real", [(3, 100, None), (2, 1676, None),
@@ -1045,9 +1056,12 @@ def test_rigs_time_gh_int8_and_the_vpu_kinds_on_the_card(cuda_device, capsys):
 
     out = attn_profile.main(["--batch", "2", "--heads", "4", "--shapes",
                              "200", "--iters", "4", "--variants",
-                             "flash,gh2,gh8,int8"])
+                             "flash,wgmma,gh2,gh8,gh8_mma,int8",
+                             "--rounds", "2"])
     rows = out["200"]
     assert all(r["graph_ms"] > 0 for r in rows.values())
+    assert all(len(r["rounds_ms"]) == 2 and r["round_median"] > 0
+               for r in rows.values())
     # at this size the pass (~30 small ops) is host-bound and reads as long
     # as the whole wrapper within the noise
     assert 0 < rows["int8"]["kernel_ms"] < rows["int8"]["ms"]
@@ -1057,7 +1071,8 @@ def test_rigs_time_gh_int8_and_the_vpu_kinds_on_the_card(cuda_device, capsys):
     assert all(r["graph_ms"] > 0 for r in vpu.values())
     assert all(vpu[k]["kernel_graph_ms"] > 0 for k in vpu if k.startswith("fp8"))
     text = capsys.readouterr().out
-    assert "gh8 - flash = " in text and "quantization pass" in text
+    assert "gh8 - wgmma = " in text and "gh8_mma - flash = " in text
+    assert "quantization pass" in text and "200 interleaved medians" in text
     assert "product bound (fp8/fp8)" in text
 
 
@@ -1316,6 +1331,58 @@ def test_wgmma_forward_matches_plain_and_control(cuda_device, b, n, n_real,
     assert (c.float() - r.float()).abs().max().item() <= tol
     assert (lse - rl).abs().max().item() <= LSE_TOL
     assert (lse - cl).abs().max().item() <= WG_LSE_TOL
+
+
+# head_dim 128 on wgmma: K2 and K3a (the route, through flash_attention and
+# flash_attention_fwd_lse) against plain, at a ragged N past n_real, the 30 s
+# recipe's N and head_dim 96 zero-padded; the control (attention_fwd_mma at
+# 128) within the same bound; every sweep configuration within it, the
+# 64-key ones equal to the control bit for bit (the same tiles and sums)
+D128_SHAPES = ((2, 1000, 997, 128), (4, 866, None, 128), (2, 300, 281, 96))
+
+
+@pytest.mark.parametrize("b,n,n_real,d", D128_SHAPES)
+def test_d128_wgmma_forward_matches_plain_and_control(cuda_device, b, n,
+                                                      n_real, d):
+    from maest_tpu_torch.ops.attention import attention_fwd_mma
+
+    x = _rand((b, n, 3, 6, d), 90 + d).to(cuda_device, torch.bfloat16)
+    q, k, v = x.unbind(2)
+    before = (flash_attention.launches, flash_attention_fwd_lse.launches)
+    with torch.inference_mode():
+        o = flash_attention(q, k, v, n_real=n_real)
+    ol, lse = flash_attention_fwd_lse(q, k, v, n_real)
+    r, rl = attention_reference_lse(q, k, v, n_real)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_fwd_lse.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(o, ol) and o.shape == q.shape
+    tol = ATTN_TOL[torch.bfloat16]
+    assert (o.float() - r.float()).abs().max().item() <= tol
+    assert (lse - rl).abs().max().item() <= LSE_TOL
+    if d == 128:
+        c, cl = attention_fwd_mma(q, k, v, n_real, with_lse=True)
+        assert (c.float() - r.float()).abs().max().item() <= tol
+        assert (cl - rl).abs().max().item() <= LSE_TOL
+
+
+@pytest.mark.parametrize("cfg", range(9))
+def test_d128_wgmma_sweep_configurations_match_plain(cuda_device, cfg):
+    from maest_tpu_torch.ops import attention as A
+
+    x = _rand((2, 1000, 3, 6, 128), 95).to(cuda_device, torch.bfloat16)
+    q, k, v = x.unbind(2)
+    o, lse = A.launch_fwd_entry("attention_fwd",
+                                "maest_attn_fwd_bf16_d128_wgmma", (cfg,), q,
+                                k, v, 997, True, 128**-0.5)
+    r, rl = attention_reference_lse(q, k, v, 997)
+    c, cl = A.attention_fwd_mma(q, k, v, 997, with_lse=True)
+    torch.cuda.synchronize()
+    assert (o.float() - r.float()).abs().max().item() <= ATTN_TOL[
+        torch.bfloat16]
+    assert (lse - rl).abs().max().item() <= LSE_TOL
+    if cfg in (0, 1, 6):  # 64-key tiles
+        assert torch.equal(o, c) and torch.equal(lse, cl)
 
 
 @pytest.mark.parametrize("cfg", range(8))

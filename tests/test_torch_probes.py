@@ -4,9 +4,9 @@
 mode on the CPU, built as its ``time_variant``, ``time_gh`` and
 ``time_int8`` build them (q pre-scaled for bf16s, G heads a program for
 gh, the rig's quantization for int8), with the port kernel's key tile as
-``block_k``: 64, and for bf16s, whose route is K2's ``wgmma`` kernel, its
-96 or 112 (``wg_key_tile``); bf16s's ``mma.sync`` control
-(``attention_probe_mma``) keeps 64.
+``block_k``: 64, and for bf16s and gh, whose routes are K2's ``wgmma``
+kernel, its 96 or 112 (``wg_key_tile``); their ``mma.sync`` controls
+(``attention_probe_mma``, ``attention_probe_gh_mma``) keep 64.
 
 Tolerances: two bf16 ulps of the largest |o| for the bf16 variants and gh.
 Both sides round one fp32 output to bf16, and their fp32 values differ
@@ -46,6 +46,8 @@ from maest_tpu_torch.ops.attention_probe import (
     VARIANTS,
     attention_probe,
     attention_probe_gh,
+    attention_probe_gh_mma,
+    attention_probe_gh_mma_reference,
     attention_probe_gh_reference,
     attention_probe_int8,
     attention_probe_int8_reference,
@@ -362,15 +364,18 @@ def test_rig_check_prints_a_diff_per_variant(capsys):
 def test_rig_runs_gh_and_int8_and_prints_their_differences(capsys):
     out = attn_profile.main(["--device", "cpu", "--batch", "2", "--heads",
                              "2", "--shapes", "64,90", "--iters", "1",
-                             "--variants", "flash,gh1,gh2,gh4,int8"])
+                             "--variants",
+                             "flash,wgmma,gh1,gh2,gh4,gh2_mma,int8"])
     text = capsys.readouterr().out
     assert list(out) == ["64", "90"]
     for row in out.values():
-        assert set(row) == {"flash", "gh1", "gh2", "gh4", "int8"}
+        assert set(row) == {"flash", "wgmma", "gh1", "gh2", "gh4", "gh2_mma",
+                            "int8"}
         assert all(t["ms"] > 0 and t["graph_ms"] is None
                    for t in row.values())
     for g in (1, 2, 4):
-        assert text.count(f"gh{g} - flash = ") == 2
+        assert text.count(f"gh{g} - wgmma = ") == 2
+    assert text.count("gh2_mma - flash = ") == 2
     assert len(re.findall(r"\s+int8\s+[\d.]+ ms \(host clock", text)) == 2
 
 
@@ -386,7 +391,8 @@ def test_rig_check_prints_int8_times_127(capsys):
     assert diffs["int8 x 127"] <= 5e-2 < 0.5 < diffs["int8"]
 
 
-@pytest.mark.parametrize("variant", ["gh3", "gh16", "gh", "int4"])
+@pytest.mark.parametrize("variant", ["gh3", "gh16", "gh", "int4", "gh3_mma",
+                                     "gh_mma", "gh2_ctl"])
 def test_rig_refuses_groups_it_has_no_kernel_for(variant):
     with pytest.raises(ValueError, match="unknown variant"):
         attn_profile.main(["--device", "cpu", "--variants", f"flash,{variant}",
@@ -425,14 +431,17 @@ def test_launch_probe_refuses_cpu_tensors():
 
 
 # --- P6e (gh) and P6f (int8) against the rig's Pallas kernels -------------
-def _tpu_gh(rig, x, g):
+def _tpu_gh(rig, x, g, block_k=BLOCK_K, n_real=None):
     """The rig's ``_gh_kernel`` on bf16 x (B, N, 3, H, 64) as ``time_gh``
-    builds it (:188-209): G heads a program, keys padded to 128."""
+    builds it (:188-209): G heads a program, keys >= n_real (default N)
+    masked, padded to a multiple of 128 (of ``block_k`` where that does not
+    divide 128, as ``_tpu_variant`` pads for bf16s)."""
     from jax.experimental import pallas as pl
 
     A = rig.A
     b, n, _, h, d = x.shape
-    n_pad, bh = -(-n // 128) * 128, b * h
+    step = 128 if 128 % block_k == 0 else block_k
+    n_pad, bh = -(-n // step) * step, b * h
     xj = jnp.asarray(x).astype(jnp.bfloat16)
     qf, kf, vf = A._flatten_pad(n_pad, xj[:, :, 0], xj[:, :, 1], xj[:, :, 2])
     kt = jnp.swapaxes(kf, 1, 2)
@@ -440,8 +449,9 @@ def _tpu_gh(rig, x, g):
     ktg = kt.reshape(bh // g, g, 64, n_pad)
     vg = vf.reshape(bh // g, g, n_pad, 64)
     (out,) = pl.pallas_call(
-        functools.partial(rig._gh_kernel, scale=64**-0.5, n_real=n,
-                          block_k=BLOCK_K),
+        functools.partial(rig._gh_kernel, scale=64**-0.5,
+                          n_real=n if n_real is None else n_real,
+                          block_k=block_k),
         out_shape=[jax.ShapeDtypeStruct((bh // g, g, n_pad, 64),
                                         jnp.bfloat16)],
         grid=(bh // g,),
@@ -507,8 +517,11 @@ def test_rig_gh_and_int8_kernels_are_the_ported_ones(rig):
 
 @pytest.mark.parametrize("b,n,h,g", [(2, 100, 2, 2), (1, 200, 4, 4)])
 def test_gh_matches_tpu_rig_interpret(rig, b, n, h, g):
+    """The route (K2's wgmma kernel with G heads a block; on CPU tensors its
+    plain version) against the rig's ``_gh_kernel`` at the route's key
+    tile: within two bf16 ulps of the largest |o|."""
     x = _qkv(b, n, h, seed=n + g)
-    want = _tpu_gh(rig, x, g)
+    want = _tpu_gh(rig, x, g, wg_key_tile(n))
     xt = torch.from_numpy(x).to(torch.bfloat16)
     q, k, v = xt[:, :, 0], xt[:, :, 1], xt[:, :, 2]
     got = attention_probe_gh(q, k, v, g)
@@ -519,6 +532,143 @@ def test_gh_matches_tpu_rig_interpret(rig, b, n, h, g):
     for other in GROUPS:
         if b * h % other == 0:
             assert torch.equal(attention_probe_gh(q, k, v, other), got)
+
+
+# gh's route at G 1, 2, 4 and 8, keys masked past n_real, taking each of
+# the wgmma kernel's key tiles (96 at 185 and 90 keys, 112 at 215 and 100)
+GH_CASES = [(1, 200, 8, 1, 185), (1, 100, 4, 2, 90), (2, 220, 2, 4, 215),
+            (1, 112, 8, 8, 100)]
+
+
+def test_gh_cases_take_both_wgmma_key_tiles():
+    assert {wg_key_tile(r) for *_, r in GH_CASES} == set(WG_KEY_TILES)
+    assert {g for _, _, _, g, _ in GH_CASES} == set(GROUPS)
+
+
+@pytest.mark.parametrize("b,n,h,g,n_real", GH_CASES)
+def test_gh_route_matches_tpu_rig_at_its_key_tile(rig, b, n, h, g, n_real):
+    """``attention_probe_gh`` on CPU tensors (the route's plain version, on
+    the wgmma kernel's key tile) against the rig's ``_gh_kernel`` in
+    interpret mode at ``block_k = wg_key_tile(n_real)``, keys >= n_real
+    masked on both sides: within two bf16 ulps of the largest |o|; keys
+    past n_real change nothing."""
+    x = _qkv(b, n, h, seed=11 * n + g)
+    want = _tpu_gh(rig, x, g, wg_key_tile(n_real), n_real)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    q, k, v = xt[:, :, 0], xt[:, :, 1], xt[:, :, 2]
+    got = attention_probe_gh(q, k, v, g, n_real)
+    assert got.shape == (b, n, h, 64) and got.dtype == torch.bfloat16
+    assert np.isfinite(want).all()
+    top = float(np.abs(want).max())
+    assert float(np.abs(got.float().numpy() - want).max()) <= 2 * _bf16_ulp(
+        top)
+    y = xt.clone()
+    y[:, n_real:, 1:] = 7.0
+    assert torch.equal(attention_probe_gh(y[:, :, 0], y[:, :, 1], y[:, :, 2],
+                                          g, n_real), got)
+
+
+@pytest.mark.parametrize("g", GROUPS)
+def test_gh_control_matches_tpu_rig_at_64(rig, g):
+    """The gh control (``attention_probe_gh_mma``, K2's mma.sync template
+    with G heads a block) keeps its 64-key tiles: on CPU tensors its plain
+    version, within two bf16 ulps of the rig's ``_gh_kernel`` at block_k
+    64 with keys masked past n_real, and equal for every group."""
+    b, n, h, n_real = 1, 150, 8, 140
+    x = _qkv(b, n, h, seed=13 + g)
+    want = _tpu_gh(rig, x, g, BLOCK_K, n_real)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    q, k, v = xt[:, :, 0], xt[:, :, 1], xt[:, :, 2]
+    got = attention_probe_gh_mma(q, k, v, g, n_real)
+    top = float(np.abs(want).max())
+    assert float(np.abs(got.float().numpy() - want).max()) <= 2 * _bf16_ulp(
+        top)
+    assert torch.equal(got, attention_probe_gh_mma(q, k, v, 1, n_real))
+
+
+def test_gh_control_on_the_cpu_is_plain_and_counts_no_launch():
+    """On CPU tensors the control is ``attention_probe_gh_mma_reference``
+    (64-key tiles) and counts no launch; it is the route's function on the
+    route's 96- or 112-key tiles within two bf16 ulps; it refuses what the
+    route refuses."""
+    x = torch.from_numpy(_qkv(2, 150, 4, seed=17)).to(torch.bfloat16)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    before = (dict(attention_probe_gh.launches),
+              dict(attention_probe_gh_mma.launches))
+    for g in GROUPS:
+        got = attention_probe_gh_mma(q, k, v, g, 140)
+        assert torch.equal(got, attention_probe_gh_mma_reference(q, k, v, g,
+                                                                 140))
+        route = attention_probe_gh(q, k, v, g, 140)
+        top = route.float().abs().max().item()
+        assert (got.float() - route.float()).abs().max().item() <= \
+            2 * _bf16_ulp(top)
+    assert (attention_probe_gh.launches, attention_probe_gh_mma.launches) == \
+        before
+    with pytest.raises(ValueError, match="attention_probe_gh_mma takes a "
+                       "group of 1, 2, 4, 8"):
+        attention_probe_gh_mma(q, k, v, 3)
+    with pytest.raises(ValueError, match="not divisible by the group 8"):
+        attention_probe_gh_mma(q[:1, :, :2], k[:1, :, :2], v[:1, :, :2], 8)
+
+
+def test_gh_routes_name_their_entries(monkeypatch):
+    """On meta tensors, which take the card's route up to the launch, with
+    the launcher replaced by a recorder: ``attention_probe_gh`` names
+    ``maest_attn_probe_gh`` (the wgmma kernel, G heads a block) with its
+    group, counted in ``attention_probe_gh.launches``; its control names
+    ``maest_attn_probe_gh_mma``, counted in
+    ``attention_probe_gh_mma.launches``; an unknown group is refused before
+    any launch, never run on another kernel."""
+    from maest_tpu_torch.ops import attention_probe as P
+
+    seen = []
+
+    def record(name, select, q, k, v, n_real, sl):
+        seen.append((name, select, n_real, round(sl, 6)))
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+    monkeypatch.setattr(P, "launch_bf16", record)
+    monkeypatch.setattr(P.attention_probe_gh, "launches",
+                        dict.fromkeys(GROUPS, 0))
+    monkeypatch.setattr(P.attention_probe_gh_mma, "launches",
+                        dict.fromkeys(GROUPS, 0))
+    x = torch.zeros(2, 300, 4, 64, dtype=torch.bfloat16, device="meta")
+    sl = round(64**-0.5 * 1.4426950408889634, 6)
+    for g in GROUPS:
+        assert P.attention_probe_gh(x, x, x, g, 281).shape == x.shape
+        P.attention_probe_gh_mma(x, x, x, g)
+    assert seen == [entry for g in GROUPS for entry in (
+        ("maest_attn_probe_gh", g, 281, sl),
+        ("maest_attn_probe_gh_mma", g, 300, sl))]
+    assert P.attention_probe_gh.launches == dict.fromkeys(GROUPS, 1)
+    assert P.attention_probe_gh_mma.launches == dict.fromkeys(GROUPS, 1)
+    for bad in (3, 16, 0):
+        for fn in (P.attention_probe_gh, P.attention_probe_gh_mma):
+            with pytest.raises(ValueError, match="group of 1, 2, 4, 8"):
+                fn(x, x, x, bad)
+    assert len(seen) == 2 * len(GROUPS)
+
+
+def test_gh_entries_name_their_kernels():
+    """The C entries, read from the source: ``maest_attn_probe_gh`` runs K2's
+    wgmma kernel (``launch_fwd_wgmma`` with G heads a block) at K2's key
+    tile rule, ``maest_attn_probe_gh_mma`` the mma.sync template (FLASH)."""
+    src = (ROOT / "maest_tpu_torch" / "csrc" / "attention_probe.cu"
+           ).read_text()
+    route = src[src.index("int launch_gh_wgmma("):]
+    route = route[:route.index("\n}\n")]
+    assert "if (wg_key_tile(n_real) == 112)" in route
+    assert "launch_fwd_wgmma<112, 3, true, false, G>" in route
+    assert "launch_fwd_wgmma<96, 3, true, false, G>" in route
+    entry = src[src.index("int maest_attn_probe_gh(int group"):]
+    entry = entry[:entry.index("\n}\n")]
+    assert all(f"launch_gh_wgmma<{g}>" in entry for g in GROUPS)
+    assert "attn_fwd_bf16_kernel" not in entry
+    control = src[src.index("int maest_attn_probe_gh_mma(int group"):]
+    control = control[:control.index("\n}\n")]
+    assert all(f"attn_fwd_bf16_kernel<FLASH, {g}>" in control for g in GROUPS)
+    assert "launch_fwd_wgmma" not in control
 
 
 @pytest.mark.parametrize("b,n,h", [(1, 100, 2), (2, 200, 2), (1, 64, 3)])
