@@ -218,6 +218,26 @@ control, SDPA and the sweep by CUDA-graph replays in interleaved rounds
 at (32, 1676, 6, 128) and (32, 866, 6, 128), then the ``num_heads=6``
 tagging and recipe steps with each kernel in alternating rounds, each
 gap beside 12 x the kernel gap.
+Phase 44 holds the bf16 backward above head_dim 256 on wgmma
+(``csrc/attn_bwd_dn_wgmma.cuh``: a scores kernel writing p and ds once in
+bf16, then dv, dk and dq as products over them; the route of every width
+above 256, and so of phase 27's ``num_heads=2`` recipe step and phase
+23's K4 shape) and K2/K3a at head_dim 256 on wgmma
+(``csrc/attn_fwd_d256_wgmma.cuh``: two consumer warpgroups, no producer
+warp; the route of 129-256) to plain and to their tiled plain versions at
+dp 320, 384, 512, 1024 and 300 zero-padded, (32, 866, 2, 384), K4's (1,
+4500, 2, 320) n_real 4400 and at 256, 192 zero-padded, with and without
+lse, two backward launches bit-equal, masked dk/dv exactly zero, their
+mma.sync controls (``maest_attn_bwd_bf16_dn_mma``,
+``maest_attn_fwd_bf16_d256_mma``) likewise; counts their registers,
+spills and HGMMA/UTMALDG/HMMA instructions; refuses the kernels built
+with dv's and dk's last q tile left out and with the forward's key mask
+dropped, in a process of its own; times each kernel, its control and
+SDPA by CUDA-graph replays in interleaved rounds at (32, 1676, 3, 256),
+(32, 866, 3, 256), (32, 866, 2, 384) and (1, 4500, 2, 320), then the
+``num_heads=2`` recipe step and the ``num_heads=3`` tagging and recipe
+steps with each kernel in alternating rounds, each gap beside 12 x the
+kernel gap.
 Each phase's seconds print as it ends. A
 split by torch.profiler
 is printed only from a trace that holds every launch its route makes, by
@@ -3631,6 +3651,17 @@ PLANT_D256_DV_LAST = (
     "        if (wg != 0 || it + 1 < n_qt) wgmma_rs_n64_t(acc[c], af[kj], sw128_desc(rows + c * CHUNK) + kj * 128);")
 
 
+# phase 44's planted faults: the _dn wgmma backward's dv and dk products
+# leave out the last q tile (its k-steps end one early), so those q rows'
+# share is missing; the head_dim-256 wgmma forward's key mask dropped
+PLANT_DN_LAST_Q = (
+    "  const int n_k = ((TRANS_A ? n_real : n) + 63) / 64;",
+    "  const int n_k = ((TRANS_A ? n_real : n) + 63) / 64 - !TRANS_A;")
+PLANT_D256_FWD_NO_MASK = (
+    "        const float x = key < n_real ? s[nt][e] * sl : NEG_INF;",
+    "        const float x = s[nt][e] * sl;")
+
+
 # phase 20's planted fault: the gh kernel's producer loads the q of the head
 # before (from the second head of a block on), so every head but a block's
 # first takes its neighbour's queries
@@ -3692,25 +3723,30 @@ def build_planted_to_s8() -> tuple[Path, float]:
 
 def build_planted_no_mask() -> tuple[Path, float]:
     """``csrc/attention_fwd.cu`` with the head_dim-64 wgmma kernel's key
-    mask dropped and the runtime-width wgmma kernel's last K chunk of each
-    key tile left out of S, two kernels of one library, so one build
-    serves phase 30 (maest_attn_fwd_bf16) and phase 27
-    (maest_attn_fwd_bf16_dn), each showing its check refusing its kernel
+    mask dropped, the runtime-width wgmma kernel's last K chunk of each
+    key tile left out of S and the head_dim-256 wgmma kernel's key mask
+    dropped, three kernels of one library, so one build serves phase 30
+    (maest_attn_fwd_bf16), phase 27 (maest_attn_fwd_bf16_dn) and phase 44
+    (maest_attn_fwd_bf16_d256), each showing its check refusing its kernel
     so built."""
     return _build_planted("no_mask", "attention_fwd", "attn_fwd_wgmma.cuh",
                           PLANT_NO_MASK, *(("attn_fwd_dn_wgmma.cuh", *plant)
-                                           for plant in PLANT_DN_LAST_CHUNK))
+                                           for plant in PLANT_DN_LAST_CHUNK),
+                          ("attn_fwd_d256_wgmma.cuh", *PLANT_D256_FWD_NO_MASK))
 
 
 def build_planted_bwd_no_mask() -> tuple[Path, float]:
     """``csrc/attention_bwd.cu`` with the head_dim-64 wgmma backward's key
-    mask dropped and the head_dim-256 wgmma backward's dV of the last q tile
-    left out, two kernels of one library, so one build serves phase 31
-    (maest_attn_bwd_bf16) and phase 42 (maest_attn_bwd_bf16_d256), each
-    showing its check refusing its kernel so built."""
+    mask dropped, the head_dim-256 wgmma backward's dV of the last q tile
+    left out and the _dn wgmma backward's dv and dk of the last q tile left
+    out, three kernels of one library, so one build serves phase 31
+    (maest_attn_bwd_bf16), phase 42 (maest_attn_bwd_bf16_d256) and phase 44
+    (maest_attn_bwd_bf16_dn), each showing its check refusing its kernel so
+    built."""
     return _build_planted("bwd_no_mask", "attention_bwd",
                           "attn_bwd_wgmma.cuh", PLANT_BWD_NO_MASK,
-                          ("attn_bwd_d256_wgmma.cuh", *PLANT_D256_DV_LAST))
+                          ("attn_bwd_d256_wgmma.cuh", *PLANT_D256_DV_LAST),
+                          ("attn_bwd_dn_wgmma.cuh", *PLANT_DN_LAST_Q))
 
 
 def build_planted_bf16s() -> tuple[Path, float]:
@@ -7986,6 +8022,427 @@ def phase_d128_wgmma(dev, gpu, planted_lib, fwd_log):
     return out
 
 
+# phase 44's shapes (b, n, n_real, heads, head_dim): K3b/K4 above 256 at
+# each width phase 23 holds (320, 384, 512, 1024), 300 zero-padded to 320,
+# the 30 s recipe's (32, 866) at num_heads 2 and K4's (1, 4500) n_real
+# 4400; K2/K3a at 256 past n_real, at the tagging and recipe shapes of
+# num_heads 3, 192 zero-padded to 256, one real key
+P44_BWD_SHAPES = ((2, 300, 281, 2, 320), (2, 300, 281, 2, 384),
+                  (2, 200, 190, 2, 512), (2, 200, 190, 1, 1024),
+                  (2, 100, 90, 2, 300), (BATCH, 866, None, 2, 384),
+                  (1, 4500, 4400, 2, 320))
+P44_FWD_SHAPES = ((2, 1000, 997, 3, 256), (BATCH, 1676, None, 3, 256),
+                  (BATCH, 866, None, 3, 256), (2, 300, 281, 3, 192),
+                  (4, 130, 2, 2, 256))
+P44_ROUNDS = 3  # interleaved rounds of phase 44's timings
+# the launches of one call of the wgmma backward above 256, by
+# torch.profiler's kernel names: the prep pass, the scores kernel, the
+# dv/dk and the dq products
+DN_BWD_EXPECT = {"prep": (r"attn_bwd_prep_dn_kernel", 1),
+                 "scores": (r"attn_bwd_dn_scores_kernel", 1),
+                 "dv_dk": (r"attn_bwd_dn_mm_kernel<false>", 1),
+                 "dq": (r"attn_bwd_dn_mm_kernel<true>", 1)}
+
+
+def _p44_bwd_schedule(q, k, v, o, lse, do, n_real):
+    """The wgmma backward above 256's plain version on the route's inputs:
+    ``attention_bwd_tiled_reference`` at its tiles on the inputs
+    zero-padded to the next multiple of 64 with the unpadded head_dim's
+    scale, sliced back."""
+    from maest_tpu_torch.ops import attention as A
+
+    d = q.shape[-1]
+    (qp, kp, vp, op, dop), scale = A.pad_head_dim(q, k, v, o, do)
+    grads = A.attention_bwd_tiled_reference(
+        qp, kp, vp, op, lse, dop, n_real, scale,
+        key_tile=A.BWD_DN_KEY_TILE, q_tile=A.BWD_DN_Q_TILE)
+    return tuple(g[..., :d] for g in grads)
+
+
+def _p44_planted_inputs(dev):
+    """Phase 44's planted faults' bf16 inputs, drawn from seed 44: (2, 256,
+    4, 2, 384) q/k/v/do for the backward (the last 64-row q tile a quarter
+    of every key's rows) and (2, 1000, 3, 3, 256) q/k/v for the forward, v
+    = 8 at keys 900 on."""
+    gen = torch.Generator(device=dev).manual_seed(44)
+    bwd = torch.randn((2, 256, 4, 2, 384), generator=gen, device=dev).to(
+        torch.bfloat16)
+    fwd = torch.randn((2, 1000, 3, 3, 256), generator=gen, device=dev).to(
+        torch.bfloat16)
+    fwd[:, 900:, 2] = 8.0
+    return bwd, fwd
+
+
+def _p44_gaps() -> list:
+    """[the backward's relative gap to its plain version at n_real 250, the
+    forward's max|o - plain| at n_real 900] of this process's libraries on
+    ``_p44_planted_inputs``."""
+    from maest_tpu_torch.ops import attention as A
+
+    bwd, fwd = _p44_planted_inputs(torch.device(DEVICE))
+    q, k, v, do = bwd.unbind(2)
+    o, lse = A.attention_reference_lse(q, k, v, 250)
+    gb = _d256_rel(A.attention_bwd(q, k, v, o, lse, do, 250),
+                   _p44_bwd_schedule(q, k, v, o, lse, do, 250))
+    q, k, v = fwd.unbind(2)
+    gf = max_err(A.flash_attention(q, k, v, n_real=900),
+                 A.attention_reference(q, k, v, 900))
+    return [gb, gf]
+
+
+def _p44_planted(fwd_lib: Path, bwd_lib: Path) -> list:
+    """``_p44_gaps`` of the planted builds (``fwd_lib`` as attention_fwd,
+    ``bwd_lib`` as attention_bwd) in a process of its own: a second copy
+    of a kernel that this process has launched does not take its dynamic
+    shared-memory limit here."""
+    return _own_process(
+        "import ctypes, json, sys, torch\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import chip_smoke as C\n"
+        "from maest_tpu_torch.ops import _build\n"
+        f"_build._libs['attention_fwd'] = ctypes.CDLL({str(fwd_lib)!r})\n"
+        f"_build._libs['attention_bwd'] = ctypes.CDLL({str(bwd_lib)!r})\n"
+        "print(json.dumps(C._p44_gaps()))\n")
+
+
+def _p44_checks(dev, out):
+    """Phase 44's checks on strided views of a fused q/k/v(/do): the
+    backward above 256 at P44_BWD_SHAPES (``attention_bwd``, each launch
+    counted) within D256_REL_TOL of its plain version and of plain, two
+    launches torch.equal, masked dk/dv exactly zero, its control (through
+    ``_K3B_CONTROL``) within the same bound of plain; K2 and K3a at
+    P44_FWD_SHAPES within ATTN_TOL x max(1, max |o|) of plain and of
+    their tiled plain version, lse within LSE_TOL, K2 torch.equal to K3a's
+    o, the control within the same bounds. Worst errors into ``out``."""
+    from maest_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device=dev).manual_seed(44)
+    tol = D256_REL_TOL
+    for b, n, n_real, heads, d in P44_BWD_SHAPES:
+        x = torch.randn((b, n, 4, heads, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        q, k, v, do = x.unbind(2)
+        o, lse = A.attention_reference_lse(q, k, v, n_real)
+        before = (A.attention_bwd.launches, A.attention_bwd_mma.launches)
+        g = A.attention_bwd(q, k, v, o, lse, do, n_real)
+        again = A.attention_bwd(q, k, v, o, lse, do, n_real)
+        A._K3B_CONTROL = True
+        try:
+            c = A.attention_bwd(q, k, v, o, lse, do, n_real)
+        finally:
+            A._K3B_CONTROL = False
+        r = A.attention_bwd_reference(q, k, v, o, lse, do, n_real)
+        tr = _p44_bwd_schedule(q, k, v, o, lse, do, n_real)
+        torch.cuda.synchronize()
+        check((A.attention_bwd.launches - before[0],
+               A.attention_bwd_mma.launches - before[1]) == (2, 1),
+              "K3b above 256 counters")
+        e, et, ec = _d256_rel(g, r), _d256_rel(g, tr), _d256_rel(c, r)
+        same = all(torch.equal(a, z) for a, z in zip(g, again))
+        zero = n_real is None or not (g[1][:, n_real:].any()
+                                      or g[2][:, n_real:].any())
+        check(e <= tol and et <= tol and ec <= tol and same and zero,
+              f"K3b ({b}, {n}, {heads}, {d}) n_real {n_real}: vs plain {e}, "
+              f"vs tiled {et}, control {ec}, deterministic {same}, masked "
+              f"zero {zero}")
+        out["err"]["bwd"] = max(out["err"]["bwd"], e, et)
+        out["err"]["bwd_control"] = max(out["err"]["bwd_control"], ec)
+        out["abs"]["bwd"] = max(out["abs"]["bwd"], max(
+            max_err(a, z) for a, z in zip(g, r)))
+        out["abs"]["bwd_control"] = max(out["abs"]["bwd_control"], max(
+            max_err(a, z) for a, z in zip(c, r)))
+        print(f"phase 44 K3b ({b}, {n}, {heads}, {d}) n_real {n_real}"
+              f"{' zero-padded to 320' * (d == 300)} strided: relative err "
+              f"vs plain {e:.3e}, vs the tiled plain version {et:.3e}, the "
+              f"control vs plain {ec:.3e} <= {tol}; two launches "
+              f"torch.equal: {same}; masked dk/dv exactly 0: {zero}",
+              flush=True)
+        del x, q, k, v, do, o, lse, g, again, c, r, tr
+        torch.cuda.empty_cache()
+    counted = (A.flash_attention, A.flash_attention_fwd_lse,
+               A.attention_fwd_mma)
+    for b, n, n_real, heads, d in P44_FWD_SHAPES:
+        x = torch.randn((b, n, 3, heads, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        q, k, v = x.unbind(2)
+        before = [f.launches for f in counted]
+        with torch.inference_mode():
+            o = A.flash_attention(q, k, v, n_real=n_real)
+        ol, lse = A.flash_attention_fwd_lse(q, k, v, n_real)
+        A._K2_CONTROL = True
+        try:
+            c, cl = A.flash_attention_fwd_lse(q, k, v, n_real)
+        finally:
+            A._K2_CONTROL = False
+        r, rl = A.attention_reference_lse(q, k, v, n_real)
+        (qp, kp, vp), scale = A.pad_head_dim(q, k, v)
+        t, tl = A.attention_fwd_tiled_reference(qp, kp, vp, n_real, scale)
+        torch.cuda.synchronize()
+        grew = [f.launches - c0 for f, c0 in zip(counted, before)]
+        e, el = max_err(o, r), max_err(lse, rl)
+        et, etl = max_err(o, t[..., :d]), max_err(lse, tl)
+        ec, ecl = max_err(c, r), max_err(cl, rl)
+        # o's bound relative to max(1, max |o|): with 2 real keys |o|
+        # reaches 4-8, where one bf16 ulp is 0.03125
+        top = max(1.0, r.float().abs().max().item())
+        check(grew == [1, 1, 1] and torch.equal(o, ol)
+              and max(e, et, ec) <= ATTN_TOL["bfloat16"] * top
+              and max(el, etl, ecl) <= LSE_TOL,
+              f"K2/K3a ({b}, {n}, {heads}, {d}) n_real {n_real}: launches "
+              f"{grew}, o {e} {et}, lse {el} {etl}, control {ec} {ecl}")
+        out["err"]["fwd"] = max(out["err"]["fwd"], e, et)
+        out["err"]["fwd_lse"] = max(out["err"]["fwd_lse"], e, et, el, etl)
+        out["err"]["fwd_control"] = max(out["err"]["fwd_control"], ec)
+        out["err"]["fwd_lse_control"] = max(out["err"]["fwd_lse_control"],
+                                            ec, ecl)
+        print(f"phase 44 K2/K3a ({b}, {n}, {heads}, {d}) n_real {n_real}"
+              f"{' zero-padded to 256' * (d < 256)} strided: vs plain o "
+              f"{e:.3e}, lse {el:.3e}; vs the tiled plain version o {et:.3e},"
+              f" lse {etl:.3e}; K2 torch.equal to K3a's o; the control vs "
+              f"plain o {ec:.3e}, lse {ecl:.3e} (<= {ATTN_TOL['bfloat16']} "
+              f"x max(1, max|o|) = {ATTN_TOL['bfloat16'] * top:.3e}, lse "
+              f"{LSE_TOL})", flush=True)
+        del x, q, k, v, o, ol, lse, c, cl, r, rl, t, tl
+        torch.cuda.empty_cache()
+
+
+def phase_dn_d256_wgmma(dev, gpu, planted_libs, fwd_log, bwd_log):
+    """Phase 44: K3b/K4 above head_dim 256 on wgmma
+    (``csrc/attn_bwd_dn_wgmma.cuh``, the route of ``maest_attn_bwd_bf16_dn``:
+    the prep pass, the scores kernel writing p^T and ds^T once, the dv/dk
+    and the dq products) beside its mma.sync control
+    (``maest_attn_bwd_bf16_dn_mma``), and K2/K3a at head_dim 256 on wgmma
+    (``csrc/attn_fwd_d256_wgmma.cuh``, the route of
+    ``maest_attn_fwd_bf16_d256``: two consumer warpgroups, no producer
+    warp) beside its control (``maest_attn_fwd_bf16_d256_mma``). Their
+    registers and spills (phase 2's ptxas) and SASS (HGMMA, UTMALDG, no
+    HMMA); ``_p44_checks``; the builds of phase 30's and 31's planted
+    libraries with dv/dk's last q tile left out and the forward's key mask
+    dropped (``planted_libs``), refused in a process of their own. Then
+    CUDA-graph replays in P44_ROUNDS interleaved rounds of each kernel, its
+    control and SDPA (flash backend at 256; efficient attention's backward
+    at 320 and 384) at K2's (32, 1676, 3, 256), K3a's (32, 866, 3, 256),
+    K3b's (32, 866, 2, 384) and K4's (1, 4500, 2, 320) n_real 4400, plain
+    by events (the median of 3 calls), the backward's kernels split by
+    torch.profiler (DN_BWD_EXPECT); then the 30 s recipe step at
+    num_heads 2 with each backward (``_K3B_CONTROL``) and the batch-32 30 s
+    bf16 tagging and 30 s recipe steps at num_heads 3 with each forward
+    (``_K2_CONTROL``) in alternating rounds, CUDA events over 3 steps a
+    round after one, the launch counters checked on each, each gap beside
+    12 x the kernel gap. Returns the errors, the medians and the
+    launches."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from maest_tpu_torch import get_maest
+    from maest_tpu_torch.ops import _build
+    from maest_tpu_torch.ops import attention as A
+    from maest_tpu_torch.probes.attn_profile import graph_rounds
+    from maest_tpu_torch.serve import BucketPrograms
+
+    out = {"err": dict.fromkeys(("bwd", "bwd_control", "fwd", "fwd_lse",
+                                 "fwd_control", "fwd_lse_control"), 0.0),
+           "abs": dict.fromkeys(("bwd", "bwd_control"), 0.0), "ms": {},
+           "launches": {}}
+    laps = [("start", time.perf_counter())]  # the parts' seconds, printed
+    rows = [r for r in ptxas_rows(fwd_log) + ptxas_rows(bwd_log)
+            if "attn_fwd_d256_wgmma_kernel" in r or "attn_bwd_dn_" in r
+            or "attn_bwd_prep_dn_kernel" in r]
+    sass = {**sass_kinds(_build.build("attention_fwd")[0],
+                         "attn_fwd_d256_wgmma_kernel"),
+            **sass_kinds(_build.build("attention_bwd")[0], "attn_bwd_dn_")}
+    check(len(sass) == 4 and all(
+        c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0
+        for c in sass.values()),
+        f"wgmma/TMA instructions of phase 44's kernels {sass}")
+    check(not rows or len(rows) == 5 and all(
+        r.endswith("spills 0/0 bytes") for r in rows),
+        f"phase 44's kernels spill: {rows}")
+    print("phase 44 the head_dim-256 forward's and the _dn backward's wgmma "
+          "kernels (HGMMA = bf16 wgmma, UTMALDG = TMA load, HMMA = mma.sync):"
+          " " + "; ".join(
+              f"{k}: " + ", ".join(f"{c[g]} {g}" for g in (
+                  "HGMMA", "UTMALDG", "HMMA")) + f" of {c['instructions']} "
+              "instructions" for k, c in sorted(sass.items()))
+          + "; ptxas: " + "; ".join(rows), flush=True)
+    _p44_checks(dev, out)
+    laps.append(("checks", time.perf_counter()))
+
+    # the planted faults: dv and dk miss the last q tile; the forward's key
+    # mask dropped
+    sound = _p44_gaps()
+    bad = _p44_planted(*planted_libs)
+    tol = (D256_REL_TOL, ATTN_TOL["bfloat16"])
+    check(all(s <= t < p for s, t, p in zip(sound, tol, bad)),
+          f"phase 44 planted {bad}, sound {sound}")
+    print(f"phase 44 planted faults, each in a process of its own: the _dn "
+          f"backward built with dv's and dk's products of the last q tile "
+          f"left out, at (2, 256, 2, 384) n_real 250: relative err vs the "
+          f"tiled plain version {bad[0]:.3e} > {tol[0]}: refused (the sound "
+          f"kernels {sound[0]:.3e}); the head_dim-256 forward built with its "
+          f"key mask dropped, at (2, 1000, 3, 256) n_real 900, v = 8 past "
+          f"it: max_abs_err vs plain {bad[1]:.3e} > {tol[1]}: refused (the "
+          f"sound kernel {sound[1]:.3e})", flush=True)
+    laps.append(("planted", time.perf_counter()))
+
+    gen = torch.Generator(device=dev).manual_seed(45)
+    for name, b, n, n_real, heads, d in (
+            ("K2", BATCH, 1676, None, 3, 256), ("K3a", BATCH, 866, None, 3, 256),
+            ("K3b", BATCH, 866, None, 2, 384), ("K4", 1, 4500, 4400, 2, 320)):
+        x = torch.randn((b, n, 4, heads, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        q, k, v, do = x.unbind(2)
+        nr = n_real or n
+        if name in ("K2", "K3a"):
+            lse_ = name == "K3a"
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+            def sdpa():
+                with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                    return F.scaled_dot_product_attention(qt, kt, vt)
+            fns = {"wgmma": (lambda: A.flash_attention_fwd_lse(q, k, v))
+                   if lse_ else (lambda: A.flash_attention(q, k, v)),
+                   "control": lambda: A.attention_fwd_mma(q, k, v, None, lse_),
+                   "sdpa": sdpa}
+            plain = ((lambda: A.attention_reference_lse(q, k, v)) if lse_
+                     else (lambda: A.attention_reference(q, k, v)))
+        else:
+            o, lse = A.flash_attention_fwd_lse(q, k, v, n_real)
+            fns = {"wgmma": lambda: A.attention_bwd(q, k, v, o, lse, do,
+                                                    n_real),
+                   "control": lambda: A.attention_bwd_mma(q, k, v, o, lse, do,
+                                                          n_real),
+                   # the library takes no key mask: its backward over the
+                   # real keys' rows
+                   "sdpa": sdpa_efficient(q[:, :nr], k[:, :nr], v[:, :nr],
+                                          do[:, :nr])}
+            plain = (lambda: A.attention_bwd_reference(q, k, v, o, lse, do,
+                                                       n_real))
+        with torch.inference_mode(name in ("K2", "K3a")):
+            runs = graph_rounds(fns, 10 if n < 4500 else 5, dev, P44_ROUNDS)
+        for rnd in range(P44_ROUNDS):
+            print(f"phase 44 {name} ({b}, {n}, {heads}, {d}) n_real {n_real} "
+                  f"round {rnd + 1} CUDA-graph ms: " + ", ".join(
+                      f"{key} {ms[rnd]:.4f}" for key, ms in runs.items())
+                  + f" [{gpu}]", flush=True)
+        med = {key: float(np.median(ms)) for key, ms in runs.items()}
+        # the median of 3: one call of plain's (N, N) tensors may meet the
+        # allocator freeing and taking memory back
+        med["plain"] = cuda_ms_median(plain, 1)
+        every = all(w < c and w < s for w, c, s in zip(
+            runs["wgmma"], runs["control"], runs["sdpa"]))
+        print(f"phase 44 {name} ({b}, {n}, {heads}, {d}) medians: wgmma "
+              f"{med['wgmma']:.4f} ms, control {med['control']:.4f} "
+              f"({med['control'] / med['wgmma']:.2f}x), SDPA "
+              f"{med['sdpa']:.4f}, plain {med['plain']:.4f} (events); the "
+              f"wgmma kernel beat the control and SDPA in every round: "
+              f"{every} [{gpu}]", flush=True)
+        check(med["wgmma"] < med["control"] and med["wgmma"] < med["sdpa"],
+              f"phase 44 {name} against the control and SDPA {med}")
+        out["ms"][name] = med
+        if name in ("K3b", "K4"):
+            split = _kernel_ms(fns["wgmma"], DN_BWD_EXPECT, med["wgmma"])
+            out.setdefault("split", {})[name] = split
+            print(f"phase 44 {name} ({b}, {n}, {heads}, {d}) by torch.profiler:"
+                  f" {_fmt_ms(split)} [{gpu}]", flush=True)
+        del x, q, k, v, do, fns
+        torch.cuda.empty_cache()
+    laps.append(("kernel rounds", time.perf_counter()))
+
+    # the steps with each kernel, in turn: the recipe at num_heads 2
+    # (K3b), the tagging (K2) and recipe (K3a) steps at num_heads 3
+    model = get_maest(pretrained=False, embed_dim=768, num_heads=3,
+                      device=dev, dtype=torch.bfloat16)
+    prog = BucketPrograms(model, buckets=(BATCH,), fused_wave=True)
+    waves = torch.from_numpy(np.random.default_rng(44).standard_normal(
+        (BATCH, CLIP)).astype(np.float32) * 0.1).to(dev)
+    recipes, losses = {}, {}
+    for heads in (2, 3):
+        _, mcfg, net, state, step, data = _recipe(
+            dev, RECIPE, BATCH, 44, [f"maest.num_heads={heads}"])
+        drawn = torch.Generator(device=dev).manual_seed(44)
+        with torch.no_grad():  # zero heads give loss ln 2 and do = 0
+            for lin in (net.head[1], net.head_dist):
+                lin.weight.normal_(0.0, 0.05, generator=drawn)
+        gen_step = torch.Generator().manual_seed(44)
+        losses[heads] = []
+
+        def one(step=step, state=state, data=data, gen_step=gen_step,
+                heads=heads):
+            _, metrics = step(state, data, gen_step)
+            losses[heads].append(metrics["train_loss"])
+        recipes[heads] = (one, mcfg.depth, net, state, data)
+    counted = (A.flash_attention, A.flash_attention_fwd_lse, A.attention_bwd,
+               A.attention_fwd_mma, A.attention_bwd_mma)
+    # (step, depth, the hook, the counters a step launches with the kernel
+    # and with the control)
+    steps = {
+        "recipe_d384": (recipes[2][0], recipes[2][1], "_K3B_CONTROL",
+                        (0, 1, 1, 0, 0), (0, 1, 0, 0, 1)),
+        "tagging_d256": (lambda: prog._activations(waves),
+                         model.net.cfg.depth, "_K2_CONTROL",
+                         (1, 0, 0, 0, 0), (0, 0, 0, 1, 0)),
+        "recipe_d256": (recipes[3][0], recipes[3][1], "_K2_CONTROL",
+                        (0, 1, 1, 0, 0), (0, 0, 1, 1, 0))}
+    step_ms = {(s_, r_): [] for s_ in steps for r_ in ("wgmma", "control")}
+    try:
+        for rnd in range(P44_ROUNDS):
+            for what, (fn, depth, hook, per_k, per_c) in steps.items():
+                for route in (("wgmma", "control") if rnd % 2 == 0
+                              else ("control", "wgmma")):
+                    setattr(A, hook, route == "control")
+                    for f in counted:
+                        f.launches = 0
+                    with torch.inference_mode(what.startswith("tagging")):
+                        step_ms[(what, route)].append(cuda_ms(fn, 3))
+                    setattr(A, hook, False)
+                    got = tuple(f.launches for f in counted)
+                    want = tuple(4 * depth * w for w in (
+                        per_c if route == "control" else per_k))
+                    check(got == want, f"phase 44 {what} with the {route}: "
+                          f"launches {got}")
+                    out["launches"][(what, route)] = got
+            print(f"phase 44 steps round {rnd + 1} (CUDA events, ms a step): "
+                  + ", ".join(f"{w} with the {r} {ms[-1]:.3f}"
+                              for (w, r), ms in step_ms.items())
+                  + f" [{gpu}]", flush=True)
+    finally:
+        A._K2_CONTROL = A._K3B_CONTROL = False
+    for heads, ls in losses.items():
+        check(all(np.isfinite(ls)) and abs(ls[0] - np.log(2)) > 1e-3,
+              f"phase 44 num_heads={heads} recipe losses {ls}")
+    for key, ms in step_ms.items():
+        out["ms"][key] = float(np.median(ms))
+    for what, name, depth in (("recipe_d384", "K3b", recipes[2][1]),
+                              ("tagging_d256", "K2", model.net.cfg.depth),
+                              ("recipe_d256", "K3a", recipes[3][1])):
+        gap = out["ms"][(what, "control")] - out["ms"][(what, "wgmma")]
+        kgap = out["ms"][name]["control"] - out["ms"][name]["wgmma"]
+        won = sum(a < b for a, b in zip(step_ms[(what, "wgmma")],
+                                        step_ms[(what, "control")]))
+        out["ms"][(what, "gap")] = (gap, depth * kgap)
+        print(f"phase 44 {what} step (batch {BATCH}, "
+              f"{'30 s bf16' if what.startswith('tagging') else RECIPE + ' N 866'}"
+              f", num_heads {2 if what.endswith('384') else 3}), medians of "
+              f"{P44_ROUNDS} alternating rounds: "
+              f"{out['ms'][(what, 'wgmma')]:.3f} ms with the wgmma kernel "
+              f"against {out['ms'][(what, 'control')]:.3f} with the control: "
+              f"a gap of {gap:.3f} ms against {depth} x the {name} gap "
+              f"{depth * kgap:.3f} ({gap / (depth * kgap) * 100:.1f} %); "
+              f"rounds won by the wgmma kernel {won} of {P44_ROUNDS} [{gpu}]",
+              flush=True)
+    print(f"phase 44 recipe losses: num_heads 2 {losses[2][0]:.6f} (not ln 2)"
+          f" to {losses[2][-1]:.6f}, num_heads 3 {losses[3][0]:.6f} to "
+          f"{losses[3][-1]:.6f}", flush=True)
+    laps.append(("steps", time.perf_counter()))
+    print("phase 44 time: " + ", ".join(
+        f"{name} {t - laps[i][1]:.1f} s"
+        for i, (name, t) in enumerate(laps[1:])), flush=True)
+    del model, prog, waves, recipes
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on a GPU",
@@ -8050,10 +8507,12 @@ def main() -> int:
           + ", ".join(f"{lib} {s:.1f} s" for lib, (_, s) in built.items())
           + f"; phase 29's planted copy of attention_bwd_q8, to_s8 for ds8, "
           f"{planted_s:.1f} s; phase 30's and 27's of attention_fwd, the "
-          f"wgmma kernel's key mask dropped and the _dn wgmma kernel's last "
-          f"K chunk left out of S, {no_mask_s:.1f} s; phase 31's and 42's of "
-          f"attention_bwd, the wgmma backward's key mask dropped and the "
-          f"head_dim-256 wgmma backward's dV of the last q tile left out, "
+          f"wgmma kernel's key mask dropped, the _dn wgmma kernel's last "
+          f"K chunk left out of S and (phase 44) the head_dim-256 wgmma "
+          f"kernel's key mask dropped, {no_mask_s:.1f} s; phase 31's, 42's and "
+          f"44's of attention_bwd, the wgmma backward's key mask dropped, the "
+          f"head_dim-256 wgmma backward's dV of the last q tile left out and "
+          f"the _dn wgmma backward's dv and dk of the last q tile left out, "
           f"{bwd_no_mask_s:.1f} s; phase 32's of attention_bwd_q8, the wgmma "
           f"K7's dq adds of key tile 1 dropped, {k7_dq_s:.1f} s; phase 34's "
           f"of attention_fwd and attention_bwd, one tf32 product in the tf32 "
@@ -8318,6 +8777,9 @@ def main() -> int:
     bd = timed(42, phase_bwd_d256, dev, gpu, bw["planted_d256"])
     d128 = timed(43, phase_d128_wgmma, dev, gpu, d128_lib,
                  built["attention_fwd"][0])
+    p44 = timed(44, phase_dn_d256_wgmma, dev, gpu,
+                (no_mask_lib, bwd_no_mask_lib), built["attention_fwd"][0],
+                built["attention_bwd"][0])
 
     # K1: the bytes of the frames in and the log-mels out, and the FFT
     # route's fp32 operations (the DFT as a product does ~40x more)
@@ -8352,6 +8814,7 @@ def main() -> int:
         "fwd_lse_d128": attn_bound(BATCH, 866, 6, lse=True, d=128),
         "bwd_d128": bwd_bound(BATCH, 866, 6, d=128),
         "fwd_d256": attn_bound(BATCH, 1676, 3, d=256),
+        "fwd_lse_d256": attn_bound(BATCH, 866, 3, lse=True, d=256),
         "bwd_d256": bwd_bound(BATCH, 866, 3, d=256),
         "fwd_dn": attn_bound(BATCH, 1676, 2, d=384),
         "fwd_lse_dn": attn_bound(BATCH, 866, 2, d=384, lse=True),
@@ -8589,10 +9052,39 @@ def main() -> int:
          "maest_tpu/ops/attention.py:483", wide["launches"]["k3b_d128"],
          wide["err"]["bwd_d128"], wide["ms"]["bwd_d128"], "bwd_d128",
          wide["ms"]["bwd_d128_sdpa"]),
-        ("attention_fwd_d256", "attention_fwd.cu",
+    ]
+    # K2/K3a at head_dim 256 on wgmma (launches on phase 27's path: tagging
+    # at num_heads 3, one recipe step; errors of phases 27 and 44; phase
+    # 44's CUDA-graph medians beside SDPA's) and their mma.sync control
+    # (launches on phase 44's control steps)
+    m44, l44 = p44["ms"], p44["launches"]
+    print("kernels line: attention_fwd_d256 (K2 at (32, 1676, 3, 256)) and "
+          "attention_fwd_lse_d256 (K3a at (32, 866, 3, 256)) are the wgmma "
+          "kernel of csrc/attn_fwd_d256_wgmma.cuh, the *_d256_mma rows its "
+          "mma.sync control; phase 44's medians of interleaved CUDA-graph "
+          "rounds beside SDPA's, plain by events; launches on phase 27's path "
+          "(the controls' on phase 44's control steps)", flush=True)
+    rows += [
+        ("attention_fwd_d256", "attn_fwd_d256_wgmma.cuh",
          "maest_tpu/ops/attention.py:176", wide["launches"]["k2_d256"],
-         wide["err"]["fwd_d256"], wide["ms"]["fwd_d256"], "fwd_d256",
-         wide["ms"]["fwd_d256_sdpa"]),
+         max(wide["err"]["fwd_d256"], p44["err"]["fwd"]),
+         (m44["K2"]["wgmma"], m44["K2"]["plain"]), "fwd_d256",
+         m44["K2"]["sdpa"]),
+        ("attention_fwd_lse_d256", "attn_fwd_d256_wgmma.cuh",
+         "maest_tpu/ops/attention.py:404", wide["launches"]["k3a_d256"],
+         max(wide["err"]["fwd_lse_d256"], p44["err"]["fwd_lse"]),
+         (m44["K3a"]["wgmma"], m44["K3a"]["plain"]), "fwd_lse_d256",
+         m44["K3a"]["sdpa"]),
+        ("attention_fwd_d256_mma", "attn_fwd_bf16.cuh",
+         "maest_tpu/ops/attention.py:176",
+         l44[("tagging_d256", "control")][3], p44["err"]["fwd_control"],
+         (m44["K2"]["control"], m44["K2"]["plain"]), "fwd_d256",
+         m44["K2"]["sdpa"]),
+        ("attention_fwd_lse_d256_mma", "attn_fwd_bf16.cuh",
+         "maest_tpu/ops/attention.py:404",
+         l44[("recipe_d256", "control")][3], p44["err"]["fwd_lse_control"],
+         (m44["K3a"]["control"], m44["K3a"]["plain"]), "fwd_lse_d256",
+         m44["K3a"]["sdpa"]),
     ]
     # K3b at head_dim 256 on wgmma (launches on phase 27's recipe step, its
     # errors of phases 27 and 42, phase 42's CUDA-graph medians at (32, 866,
@@ -8648,8 +9140,12 @@ def main() -> int:
           "kernel, the *_dn_mma rows its mma.sync control, phase 27's "
           "CUDA-graph medians beside SDPA's efficient attention, launches on "
           "phase 27's tagging and recipe steps (the controls' with "
-          "_K2_CONTROL); attention_bwd_dn at head_dim 384, library SDPA's "
-          "efficient-attention backend; bwd_rig at the rig's int8 kind, "
+          "_K2_CONTROL); attention_bwd_dn at head_dim 384 is the wgmma "
+          "kernels of csrc/attn_bwd_dn_wgmma.cuh, attention_bwd_dn_mma their "
+          "mma.sync control, phase 44's medians of interleaved CUDA-graph "
+          "rounds, library SDPA's efficient-attention backward alone, "
+          "launches on phase 27's recipe step (the control's on phase 44's "
+          "control steps); bwd_rig at the rig's int8 kind, "
           "bwd_rig_fp8 at its fp8 kind, both at bh 384", flush=True)
     dn, wl = wide["dn"], wide["launches"]
     dk2, dk3 = dn["ms"]["K2"], dn["ms"]["K3a"]
@@ -8670,10 +9166,17 @@ def main() -> int:
          "maest_tpu/ops/attention.py:404", wl["k3a_d384_control"],
          dn["err"]["control_lse"], (dk3["control"], dk3["plain"]),
          "fwd_lse_dn", dk3["sdpa"]),
-        ("attention_bwd_dn", "attention_bwd.cu",
+        ("attention_bwd_dn", "attn_bwd_dn_wgmma.cuh",
          "maest_tpu/ops/attention.py:483", wide["launches"]["k3b_d384"],
-         wide["err"]["bwd_d384"], wide["ms"]["bwd_d384"], "bwd_dn",
-         wide["ms"]["bwd_d384_sdpa"]),
+         max(wide["err"]["bwd_d384"], p44["abs"]["bwd"]),
+         (p44["ms"]["K3b"]["wgmma"], p44["ms"]["K3b"]["plain"]), "bwd_dn",
+         p44["ms"]["K3b"]["sdpa"]),
+        ("attention_bwd_dn_mma", "attention_bwd.cu",
+         "maest_tpu/ops/attention.py:483",
+         p44["launches"][("recipe_d384", "control")][4],
+         p44["abs"]["bwd_control"],
+         (p44["ms"]["K3b"]["control"], p44["ms"]["K3b"]["plain"]), "bwd_dn",
+         p44["ms"]["K3b"]["sdpa"]),
         ("bwd_rig", "attention_bwd_q8.cu", "scripts/bwd_int8_probe.py:52",
          p4["launches"]["int8"], p4["err"]["int8"],
          (p4["rig"]["int8"]["ms"], p4["plain"]["int8"]), "bwd_rig", None),

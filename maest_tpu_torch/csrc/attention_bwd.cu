@@ -9,7 +9,11 @@
 // wgmma/TMA kernels of attn_bwd_d256_wgmma.cuh (a dk/dv and a dq kernel,
 // each tile's work split between two consumer warpgroups); the mma.sync
 // kernels at 256 stay as its control, maest_attn_bwd_bf16_d256_mma. The
-// mma.sync kernels serve every other instance.
+// bf16 entry above 256, maest_attn_bwd_bf16_dn, runs the wgmma/TMA kernels
+// of attn_bwd_dn_wgmma.cuh (a scores kernel that writes p and ds once,
+// then the three gradients as products over them); the mma.sync _dn
+// kernels stay as its control, maest_attn_bwd_bf16_dn_mma. The mma.sync
+// kernels serve every other instance.
 //
 // Replaces maest_tpu/ops/attention.py::_attn_bwd_kernel + _bwd_body (the
 // combined full-K backward, K3b, called from _flash_bwd) and _bwd_dq_kernel +
@@ -111,7 +115,9 @@
 // sums would be 256 registers).
 //
 // Any head_dim above 256 (the _dn entries): one template a tier,
-// attn_bwd_bf16_dn_kernel and attn_bwd_fp32_dn_kernel, whose width dp,
+// attn_bwd_bf16_dn_kernel (since the wgmma kernels of
+// attn_bwd_dn_wgmma.cuh took the bf16 route, the control
+// maest_attn_bwd_bf16_dn_mma) and attn_bwd_fp32_dn_kernel, whose width dp,
 // zero-padded by the caller to a multiple of 64, is a runtime argument, so
 // registers and shared memory do not grow with it. For each streamed tile
 // s and dp are summed over 64-column chunks staged from global memory for
@@ -126,6 +132,7 @@
 #include "attn_bwd_tf32.cuh"   // the fp32 backward at head_dim 64, 3xTF32
 #include "attn_bwd_wgmma.cuh"  // the bf16 backward at head_dim 64
 #include "attn_bwd_d256_wgmma.cuh"  // the bf16 backward at head_dim 256
+#include "attn_bwd_dn_wgmma.cuh"    // the bf16 backward above 256
 #include "mma_8bit.cuh"
 
 namespace {
@@ -1603,12 +1610,37 @@ int maest_attn_bwd_fp32_dn(int dp, const void* q, const void* k,
                               stream);
 }
 
+// The bf16 entry above 256 runs the wgmma kernels (attn_bwd_dn_wgmma.cuh):
+// the prep pass, the scores kernel, the dv/dk and the dq products. Its
+// `delta` is fp32 scratch of maest_attn_bwd_bf16_dn_scratch(batch, n,
+// heads) floats (lse and delta of the padded rows, the p^T and ds^T
+// planes), and each view's base address and strides must be multiples of
+// 16 bytes (TMA).
 int maest_attn_bwd_bf16_dn(int dp, const void* q, const void* k,
                            const void* v, const void* o, const void* dout,
                            const float* lse, float* delta, void* dq, void* dk,
                            void* dv, int batch, int n, int heads, int n_real,
                            const long long* strides, float sl, float scale,
                            void* stream) {
+  return launch_bwd_dn_wgmma(dp, q, k, v, o, dout, lse, delta, dq, dk, dv,
+                             batch, n, heads, n_real, strides, sl, scale,
+                             stream);
+}
+
+long long maest_attn_bwd_bf16_dn_scratch(int batch, int n, int heads) {
+  return bd_scratch_floats(batch, n, heads);
+}
+
+// The mma.sync kernels that maest_attn_bwd_bf16_dn ran before the wgmma
+// ones (delta, dk/dv in 64-column slices, dq in 128-column slices), kept
+// as its control; arguments as the fp32 _dn entry's.
+int maest_attn_bwd_bf16_dn_mma(int dp, const void* q, const void* k,
+                               const void* v, const void* o,
+                               const void* dout, const float* lse,
+                               float* delta, void* dq, void* dk, void* dv,
+                               int batch, int n, int heads, int n_real,
+                               const long long* strides, float sl,
+                               float scale, void* stream) {
   return launch_bwd_dn<bf16>(dp, q, k, v, o, dout, lse, delta, dq, dk, dv,
                              batch, n, heads, n_real, strides, sl, scale,
                              stream);

@@ -64,8 +64,11 @@
 // D_ = 128 in bf16 runs the wgmma/TMA kernel of attn_fwd_wgmma.cuh at D =
 // 128 (each row two 64-column chunks; two consumer warpgroups, 80- or
 // 96-key tiles); the mma.sync FLASH instance at D_ = 128 stays as its
-// control, maest_attn_fwd_bf16_d128_mma. D_ = 256 in bf16: the template's
-// QSM path (attn_fwd_bf16.cuh), q rows in shared memory.
+// control, maest_attn_fwd_bf16_d128_mma. D_ = 256 in bf16 runs the
+// wgmma/TMA kernel of attn_fwd_d256_wgmma.cuh (two consumer warpgroups and
+// no producer warp, O whole in registers, S made once); the template's QSM
+// path (attn_fwd_bf16.cuh, q rows in shared memory) stays as its control,
+// maest_attn_fwd_bf16_d256_mma.
 //
 // Any head_dim above 256 (the _dn entries): the width dp, zero-padded by
 // the caller to a multiple of 64, is a runtime argument, so registers and
@@ -96,6 +99,7 @@
 #include "attn_fwd_bf16.cuh"   // the bf16 kernel (variant FLASH) and launch
 #include "attn_fwd_wgmma.cuh"  // the bf16 kernel at head_dim 64 on wgmma/TMA
 #include "attn_fwd_dn_wgmma.cuh"  // the bf16 kernel above 256 on wgmma/TMA
+#include "attn_fwd_d256_wgmma.cuh"  // the bf16 kernel at 256 on wgmma/TMA
 #include "attn_fwd_tf32.cuh"   // the fp32 kernel at head_dim 64, 3xTF32
 
 namespace {
@@ -773,10 +777,25 @@ int maest_attn_fwd_fp32_d256(const void* q, const void* k, const void* v,
                        out, lse, batch, n, heads, n_real, strides, sl, stream);
 }
 
+// The bf16 entry at head_dim 256 runs the wgmma/TMA kernel
+// (attn_fwd_d256_wgmma.cuh), so each view's base address and strides must
+// be multiples of 16 bytes.
 int maest_attn_fwd_bf16_d256(const void* q, const void* k, const void* v,
                              void* out, float* lse, int batch, int n,
                              int heads, int n_real, const long long* strides,
                              float sl, void* stream) {
+  return launch_fwd_d256_wgmma(q, k, v, out, lse, batch, n, heads, n_real,
+                               strides, sl, stream);
+}
+
+// The mma.sync FLASH instance that maest_attn_fwd_bf16_d256 ran before the
+// wgmma one (q rows in shared memory), kept as its control; the same
+// arguments.
+int maest_attn_fwd_bf16_d256_mma(const void* q, const void* k, const void* v,
+                                 void* out, float* lse, int batch, int n,
+                                 int heads, int n_real,
+                                 const long long* strides, float sl,
+                                 void* stream) {
   return launch_fwd<FLASH, 1, WARPS, MK, false, 256>(
       q, k, v, out, lse, batch, n, heads, n_real, strides, sl, stream);
 }

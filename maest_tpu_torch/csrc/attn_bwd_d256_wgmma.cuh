@@ -90,34 +90,8 @@ __device__ __forceinline__ void wgmma_ss_n64_kt(float (&d)[8][4], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// the PTX of attn_fwd_wgmma.cuh's loads, each issued only where `on`
-// holds, as a predicate of the instruction and not a branch: every thread
-// of the dk/dv kernel's consumers runs the same code, so ptxas sees no
-// divergent path around the wgmma pipeline
-__device__ __forceinline__ void mbar_expect_tx_if(bool on, uint32_t bar,
-                                                  uint32_t bytes) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n"
-      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%1], %2;\n}\n" ::"r"(
-          static_cast<int>(on)),
-      "r"(bar), "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d_if(bool on, uint32_t dst,
-                                               const CUtensorMap* map,
-                                               uint32_t bar, int c0, int c1,
-                                               int c2, int c3) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n"
-      "@p cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%1], [%2, {%4, %5, %6, %7}], [%3];\n}\n" ::"r"(
-          static_cast<int>(on)),
-      "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
+// attn_fwd_wgmma.cuh's predicated loads (mbar_expect_tx_if,
+// tma_load_4d_if), and a bulk copy likewise
 __device__ __forceinline__ void bulk_load_if(bool on, uint32_t dst,
                                              const void* src, uint32_t bytes,
                                              uint32_t bar) {

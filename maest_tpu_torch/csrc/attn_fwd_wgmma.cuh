@@ -151,6 +151,35 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// the PTX of the loads above, each issued only where `on` holds, as a
+// predicate of the instruction and not a branch: every thread of a kernel
+// whose consumers also issue its loads (attn_bwd_d256_wgmma.cuh's dk/dv
+// kernel, attn_fwd_d256_wgmma.cuh) runs the same code, so ptxas sees no
+// divergent path around the wgmma pipeline
+__device__ __forceinline__ void mbar_expect_tx_if(bool on, uint32_t bar,
+                                                  uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%1], %2;\n}\n" ::"r"(
+          static_cast<int>(on)),
+      "r"(bar), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d_if(bool on, uint32_t dst,
+                                               const CUtensorMap* map,
+                                               uint32_t bar, int c0, int c1,
+                                               int c2, int c3) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n"
+      "@p cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%1], [%2, {%4, %5, %6, %7}], [%3];\n}\n" ::"r"(
+          static_cast<int>(on)),
+      "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // this thread's writes to shared memory, visible to wgmma's reads
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -437,6 +466,38 @@ __device__ __forceinline__ void bf16_round2(float& a, float& b) {
   const uint32_t u = pack_bf16(a, b);  // a in the low half
   a = __uint_as_float(u << 16);
   b = __uint_as_float(u & 0xFFFF0000u);
+}
+
+// a when i is 0, b when 1, c when 2, d when 3: a register picked by a
+// runtime index without an array in local memory
+__device__ __forceinline__ uint32_t pick4(uint32_t a, uint32_t b, uint32_t c,
+                                          uint32_t d, int i) {
+  return i == 0 ? a : i == 1 ? b : i == 2 ? c : d;
+}
+
+// a row's 8 16-byte chunks (64 bf16) as the accumulator layout spreads
+// them over a quad: thread t holds word t (columns 8 j + 2 t, + 1) of
+// every chunk j, w[j]. Three shuffles a half move them so that thread t
+// holds whole chunks t (c0) and t + 4 (c1), which it stores as 16 bytes:
+// a warp then writes 64 contiguous bytes a row, two full sectors, where
+// four-byte stores left each 32-byte sector half written per instruction.
+__device__ __forceinline__ void quad_chunks(const uint32_t (&w)[8], int t,
+                                            uint4& c0, uint4& c1) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint32_t a = w[4 * h], b = w[4 * h + 1], c = w[4 * h + 2],
+                   d = w[4 * h + 3];
+    uint32_t g[4];  // g[i]: thread t ^ i's word of chunk 4 h + t
+    g[0] = pick4(a, b, c, d, t);
+#pragma unroll
+    for (int i = 1; i < 4; ++i)
+      g[i] = __shfl_xor_sync(0xffffffffu, pick4(a, b, c, d, t ^ i), i);
+    uint4& out = h ? c1 : c0;  // word s of the chunk is thread s's
+    out.x = pick4(g[0], g[1], g[2], g[3], t);
+    out.y = pick4(g[0], g[1], g[2], g[3], 1 ^ t);
+    out.z = pick4(g[0], g[1], g[2], g[3], 2 ^ t);
+    out.w = pick4(g[0], g[1], g[2], g[3], 3 ^ t);
+  }
 }
 
 template <int R>

@@ -21,13 +21,17 @@ any N, strided views). The kernels are built for head_dim 64, 128 and
 the next of these on inputs zero-padded to its width with its own
 softmax scale (``pad_head_dim``). The bf16 forward at head_dim 64 and
 128 (65-127 zero-padded) runs the ``wgmma`` / TMA kernel
-(``csrc/attn_fwd_wgmma.cuh``, at 128 each row two 64-column chunks), and
-at every width above 256 the one of ``csrc/attn_fwd_dn_wgmma.cuh`` (q
-resident in shared memory, 192-column output slices); the bf16
-backward at head_dim 64 the one of ``csrc/attn_bwd_wgmma.cuh`` (one score
-pass per key tile and q tile), at head_dim 256 (and 129-255, zero-padded)
-the two of ``csrc/attn_bwd_d256_wgmma.cuh`` (a dk/dv and a dq kernel, each
-tile's work split between two consumer warpgroups), the int8 backward in bf16 at head_dim 64
+(``csrc/attn_fwd_wgmma.cuh``, at 128 each row two 64-column chunks), at
+256 (129-255 zero-padded) the one of ``csrc/attn_fwd_d256_wgmma.cuh`` (two
+consumer warpgroups and no producer warp, O whole), and at every width
+above 256 the one of ``csrc/attn_fwd_dn_wgmma.cuh`` (q resident in shared
+memory, 192-column output slices); the bf16 backward at head_dim 64 the
+one of ``csrc/attn_bwd_wgmma.cuh`` (one score pass per key tile and q
+tile), at head_dim 256 (and 129-255, zero-padded) the two of
+``csrc/attn_bwd_d256_wgmma.cuh`` (a dk/dv and a dq kernel, each tile's
+work split between two consumer warpgroups), above 256 those of
+``csrc/attn_bwd_dn_wgmma.cuh`` (a scores kernel that writes p and ds once
+in bf16, then dv, dk and dq as products over them), the int8 backward in bf16 at head_dim 64
 the s8 ``wgmma`` kernels of ``csrc/attn_bwd_q8_wgmma.cuh``, and the 8-bit
 forwards in bf16 at head_dim 64 the s8 / bf16 / e4m3 ``wgmma`` kernel of
 ``csrc/attn_fwd_q8_wgmma.cuh`` behind its CUDA quantisation pass; their
@@ -165,6 +169,17 @@ _BWD_WG_KEYS = 64   # keys a consumer warpgroup: its own partial of dq
 # rows a streamed tile; its dq kernel sums dq over key tiles of 64 in order
 BWD_D256_KEY_TILE = 64
 BWD_D256_Q_TILE = 64
+# the wgmma backward above 256: dv and dk summed over q tiles of
+# BWD_DN_Q_TILE rows, dq over key tiles of BWD_DN_KEY_TILE, each in
+# increasing order, from p and ds written once in bf16 by a scores kernel
+# of BWD_DN_KEYS keys a block; each product block writes BWD_DN_COLS
+# columns of its gradient (its column slice: no score is formed again)
+BWD_DN_KEY_TILE = 64
+BWD_DN_Q_TILE = 64
+BWD_DN_KEYS = 128
+BWD_DN_COLS = 192
+# the wgmma forward at head_dim 256: key tiles of FWD_D256_KEY_TILE keys
+FWD_D256_KEY_TILE = 64
 
 
 def attention_bwd_tiled_reference(q, k, v, o, lse, do,
@@ -176,7 +191,11 @@ def attention_bwd_tiled_reference(q, k, v, o, lse, do,
     ``wgmma`` backward (``csrc/attn_bwd_wgmma.cuh``; at head_dim 256, with
     ``BWD_D256_KEY_TILE`` and ``BWD_D256_Q_TILE``, those of
     ``csrc/attn_bwd_d256_wgmma.cuh``, whose dq kernel sums its one
-    64-key slice a tile in the same order) in its order: per key
+    64-key slice a tile in the same order; above 256, with
+    ``BWD_DN_KEY_TILE`` and ``BWD_DN_Q_TILE``, those of
+    ``csrc/attn_bwd_dn_wgmma.cuh``, whose products sum dv and dk over the
+    q tiles and dq over the key tiles of p and ds as its scores kernel
+    rounded them) in its order: per key
     tile of ``key_tile`` keys, every q tile of ``q_tile`` rows in turn
     forms s and dp once, p = exp2(s scale log2(e) - lse) (keys >= n_real
     at 0) and ds = p (dp - delta) scale, each rounded to the input dtype,
@@ -212,6 +231,38 @@ def attention_bwd_tiled_reference(q, k, v, o, lse, do,
         dq = part if dq is None else dq + part
     dq, dk, dv = _heads(dq, dk, dv)
     return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_fwd_tiled_reference(q, k, v, n_real: int | None = None,
+                                  scale: float | None = None,
+                                  key_tile: int = FWD_D256_KEY_TILE):
+    """``attention_reference_lse``'s function, walked over the key tiles of
+    the ``wgmma`` forward at head_dim 256 (``csrc/attn_fwd_d256_wgmma.cuh``)
+    in its order: per tile of ``key_tile`` keys, fp32 scores scaled by
+    scale log2(e) (keys >= n_real at -1e30), the running max m, o and the
+    running sum l rescaled by exp2(m_old - m), p = exp2(s - m) summed into
+    l in fp32 and rounded to the input dtype for P.V (fp32 sums); o / l at
+    the end in the input dtype, lse = m + log2(l) (B, H, N) fp32."""
+    dt, scale = q.dtype, _scale(q, scale)
+    n = q.shape[1]
+    nr = n if n_real is None else n_real
+    qh, kh, vh = (x.float() for x in _heads(q, k, v))
+    m = torch.full(qh.shape[:3], _NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(qh)
+    for k0 in range(0, nr, key_tile):
+        ks = slice(k0, min(k0 + key_tile, n))
+        s = qh @ kh[:, :, ks].transpose(-1, -2) * (scale * _LOG2E)
+        live = torch.arange(k0, ks.stop, device=q.device) < nr
+        s = torch.where(live, s, _NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + p.to(dt).float() @ vh[:, :, ks]
+        m = m_new
+    out = _heads(o / l[..., None])[0].to(dt)
+    return out, m + torch.log2(l)
 
 
 # --- fp32 at head_dim 64: 3xTF32 (csrc/attn_fwd_tf32.cuh, attn_bwd_tf32.cuh) -
@@ -941,8 +992,8 @@ def _fwd(q, k, v, n_real, quant, with_lse):
     return out
 
 
-# Private: True routes the bf16 forward at head_dim 64 and 128 (and the
-# widths zero-padded to them) and at the widths above 256 through the
+# Private: True routes the bf16 forward at head_dim 64, 128 and 256 (and
+# the widths zero-padded to them) and at the widths above 256 through the
 # control (``attention_fwd_mma``) instead of the wgmma kernels, so that a
 # measurement can time the steps of the model with each. Nothing in the
 # package sets it.
@@ -951,17 +1002,18 @@ _K2_CONTROL = False
 
 def _has_fwd_control(d: int) -> bool:
     """A bf16 kernel width whose forward kept its ``mma.sync`` kernel as the
-    control of a ``wgmma`` one: 64, 128, and every multiple of 64 above
-    256."""
-    return d in HEAD_DIMS[:2] or (d > HEAD_DIMS[-1] and d % 64 == 0)
+    control of a ``wgmma`` one: 64, 128, 256, and every multiple of 64
+    above 256."""
+    return d in HEAD_DIMS or (d > HEAD_DIMS[-1] and d % 64 == 0)
 
 
 def attention_fwd_mma(q, k, v, n_real: int | None = None,
                       with_lse: bool = False):
     """The control of K2/K3a's wgmma kernels: the ``mma.sync`` kernels, at
-    head_dim 64 and 128 variant FLASH of ``csrc/attn_fwd_bf16.cuh`` (entries
-    ``maest_attn_fwd_bf16_mma``, ``maest_attn_fwd_bf16_d128_mma``) and at a
-    multiple of 64 above 256 the runtime-width kernel of
+    head_dim 64, 128 and 256 variant FLASH of ``csrc/attn_fwd_bf16.cuh``
+    (entries ``maest_attn_fwd_bf16_mma``, ``maest_attn_fwd_bf16_d128_mma``,
+    ``maest_attn_fwd_bf16_d256_mma``) and at a multiple of 64 above 256 the
+    runtime-width kernel of
     ``csrc/attention_fwd.cu`` (entry ``maest_attn_fwd_bf16_dn_mma``), on
     bf16 CUDA (B, N, H, D) views; (o, lse or None). It computes what
     ``flash_attention`` computes, with its own 64-key tiles; counted in
@@ -972,8 +1024,8 @@ def attention_fwd_mma(q, k, v, n_real: int | None = None,
             return attention_reference_lse(q, k, v, n_real)
         return attention_reference(q, k, v, n_real), None
     if q.dtype != torch.bfloat16 or not _has_fwd_control(q.shape[-1]):
-        raise ValueError("the control takes bf16 q, k, v at head_dim 64, 128 "
-                         "or a multiple of 64 above 256")
+        raise ValueError("the control takes bf16 q, k, v at head_dim 64, 128, "
+                         "256 or a multiple of 64 above 256")
     out = _launch_fwd_mma(q, k, v, n_real, with_lse, q.shape[-1]**-0.5)
     attention_fwd_mma.launches += 1
     return out
@@ -1199,9 +1251,9 @@ def _launch_fwd(q, k, v, n_real, with_lse, scale):
 
 
 def _launch_fwd_mma(q, k, v, n_real, with_lse, scale):
-    """The control of K2/K3a on checked bf16 views at head_dim 64, 128 or a
-    multiple of 64 above 256 (``maest_attn_fwd_bf16_dn_mma``, which takes
-    the width)."""
+    """The control of K2/K3a on checked bf16 views at head_dim 64, 128, 256
+    or a multiple of 64 above 256 (``maest_attn_fwd_bf16_dn_mma``, which
+    takes the width)."""
     name, lead = _instance("maest_attn_fwd_bf16", q.shape[-1])
     name += "_mma"
     return launch_fwd_entry("attention_fwd", name, lead, q, k, v, n_real,
@@ -1377,41 +1429,53 @@ def attention_bwd(q, k, v, o, lse, do, n_real: int | None = None):
     output gradient ``do``; all (B, N, H, D) but lse (B, H, N) fp32. CUDA
     tensors launch ``csrc/attention_bwd.cu`` (in bf16 at head_dim 64 its
     ``wgmma`` kernel, ``csrc/attn_bwd_wgmma.cuh``, at 129-256 those of
-    ``csrc/attn_bwd_d256_wgmma.cuh``; counted in
+    ``csrc/attn_bwd_d256_wgmma.cuh``, above 256 those of
+    ``csrc/attn_bwd_dn_wgmma.cuh``; counted in
     ``attention_bwd.launches``), CPU tensors run
     ``attention_bwd_reference``."""
     return _bwd_qkv(q, k, v, o, lse, do, n_real, None).unbind(2)
 
 
-# Private: True routes the bf16 backward at head_dim 64 and 256 (129-256
-# zero-padded) through the control (``attention_bwd_mma``) instead of the
-# wgmma kernels, so that a measurement can time the steps of the model with
-# each. Nothing in the package sets it.
+# Private: True routes the bf16 backward at head_dim 64, 256 (129-256
+# zero-padded) and above 256 through the control (``attention_bwd_mma``)
+# instead of the wgmma kernels, so that a measurement can time the steps of
+# the model with each. Nothing in the package sets it.
 _K3B_CONTROL = False
 
-# the bf16 backward's control entries by kernel width: the mma.sync kernels
-# that the wgmma kernels replaced
-_BWD_CONTROL = {HEAD_DIM: "maest_attn_bwd_bf16_mma",
-                256: "maest_attn_bwd_bf16_d256_mma"}
+
+def _bwd_control(d: int):
+    """(the C entry, its leading int arguments) of the bf16 backward's
+    control at kernel width d, the mma.sync kernels that the wgmma kernels
+    replaced (64, 256 and every multiple of 64 above 256), or None."""
+    if d == HEAD_DIM:
+        return "maest_attn_bwd_bf16_mma", ()
+    if d == 256:
+        return "maest_attn_bwd_bf16_d256_mma", ()
+    if d > 256 and d % 64 == 0:
+        return "maest_attn_bwd_bf16_dn_mma", (d,)
+    return None
 
 
 def attention_bwd_mma(q, k, v, o, lse, do, n_real: int | None = None):
     """The control of K3b/K4's wgmma kernels: the ``mma.sync`` kernels
     (delta, dk/dv, dq; entry ``maest_attn_bwd_bf16_mma`` at head_dim 64,
-    ``maest_attn_bwd_bf16_d256_mma`` at 256, of ``csrc/attention_bwd.cu``)
-    on bf16 CUDA (B, N, H, 64 or 256) views; (dq, dk, dv). They compute
-    what ``attention_bwd`` computes, forming the scores once for dk/dv and
-    once for dq (at 256 in 128-column slices of dk/dv); counted in
+    ``maest_attn_bwd_bf16_d256_mma`` at 256, ``maest_attn_bwd_bf16_dn_mma``
+    at a multiple of 64 above 256, of ``csrc/attention_bwd.cu``) on bf16
+    CUDA (B, N, H, D) views; (dq, dk, dv). They compute what
+    ``attention_bwd`` computes, forming the scores once for dk/dv and once
+    for dq (at 256 in 128-column slices of dk/dv, above 256 once for each
+    64-column slice of dk/dv and each 128-column slice of dq); counted in
     ``attention_bwd_mma.launches``. CPU tensors run
     ``attention_bwd_reference``."""
     n_real, _, _ = _check_args(q, k, v, n_real, None)
     if q.device.type == "cpu":
         return attention_bwd_reference(q, k, v, o, lse, do, n_real)
-    if q.dtype != torch.bfloat16 or q.shape[-1] not in _BWD_CONTROL:
-        raise ValueError("the control takes bf16 q, k, v at head_dim 64 or "
-                         "256")
-    grads = launch_bwd_entry(_BWD_CONTROL[q.shape[-1]], (), q, k, v, o, lse,
-                             do, n_real, q.shape[-1]**-0.5)
+    entry = _bwd_control(q.shape[-1])
+    if q.dtype != torch.bfloat16 or entry is None:
+        raise ValueError("the control takes bf16 q, k, v at head_dim 64, 256 "
+                         "or a multiple of 64 above 256")
+    grads = launch_bwd_entry(*entry, q, k, v, o, lse, do, n_real,
+                             q.shape[-1]**-0.5)
     attention_bwd_mma.launches += 1
     return grads.unbind(2)
 
@@ -1497,11 +1561,10 @@ def _bwd_qkv(q, k, v, o, lse, do, n_real, bwd_quant):
             do, n_real)
         attention_bwd_fp32_fma.launches += 1
         return grads
-    if _K3B_CONTROL and q.dtype == torch.bfloat16 and padded_dim(
-            q.shape[-1]) in _BWD_CONTROL:
-        grads = padded_bwd(functools.partial(
-            launch_bwd_entry, _BWD_CONTROL[padded_dim(q.shape[-1])], ()), q,
-            k, v, o, lse, do, n_real)
+    control = _bwd_control(padded_dim(q.shape[-1]))
+    if _K3B_CONTROL and q.dtype == torch.bfloat16 and control is not None:
+        grads = padded_bwd(functools.partial(launch_bwd_entry, *control), q,
+                           k, v, o, lse, do, n_real)
         attention_bwd_mma.launches += 1
         return grads
     name, lead = _instance("maest_attn_bwd_fp32" if q.dtype == torch.float32
@@ -1538,7 +1601,8 @@ def _grads(q):
 def _bwd_scratch(lib, name, b, n, h):
     """The floats of the fp32 scratch the entry ``name`` takes in delta's
     place: ``_scratch_floats`` (the wgmma backward's: dq's sums, the padded
-    lse and delta, the hand-over counters; the tf32 backward's: the tf32
+    lse and delta, the hand-over counters; above 256: the padded lse and
+    delta, the bf16 p^T and ds^T planes; the tf32 backward's: the tf32
     planes, the padded lse and delta), else delta (B, H, N)."""
     floats = _scratch_floats(lib, name, b, n, h)
     return b * h * n if floats is None else floats

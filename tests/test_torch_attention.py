@@ -105,8 +105,9 @@ def test_control_takes_plain_version_and_matches_jax(dtype, monkeypatch):
     the JAX package's Pallas kernel in interpret mode (the tolerances
     above; lse fp32 1e-5), no launch counted; the private hook that routes
     the bf16 forward through it on the card leaves the CPU path as it is.
-    On the card it takes bf16 at head_dim 64, 128 and the multiples of 64
-    above 256 only (here on meta tensors, which take the card's route)."""
+    On the card it takes bf16 at head_dim 64, 128, 256 and the multiples
+    of 64 above 256 only (here on meta tensors, which take the card's
+    route)."""
     from maest_tpu.ops.attention import _flash_fwd_lse
     from maest_tpu_torch.ops import attention as A
 
@@ -133,7 +134,7 @@ def test_control_takes_plain_version_and_matches_jax(dtype, monkeypatch):
         lse.numpy(), np.asarray(ref_lse).reshape(2, 2, -1)[:, :, :256],
         atol=1e-5, rtol=0)
     for bad in (torch.zeros(1, 8, 2, 64, device="meta"),
-                torch.zeros(1, 8, 2, 256, device="meta",
+                torch.zeros(1, 8, 2, 192, device="meta",
                             dtype=torch.bfloat16)):
         with pytest.raises(ValueError, match="bf16 q, k, v at head_dim 64"):
             A.attention_fwd_mma(bad, bad, bad)
@@ -158,9 +159,11 @@ def test_forward_route_names_the_dn_wgmma_entry(control, monkeypatch):
     ``maest_attn_fwd_bf16_dn_mma``, counted in ``attention_fwd_mma``, as
     head_dim 64 names ``maest_attn_fwd_bf16_mma`` and head_dim 128 (96
     zero-padded too) ``maest_attn_fwd_bf16_d128_mma`` in place of the
-    wgmma kernel's ``maest_attn_fwd_bf16_d128``. fp32 and head_dim 256 keep
-    their entries either way. ``attention_fwd_mma`` takes head_dim 128 and
-    the widths above 256 and refuses fp32 and head_dim 256."""
+    wgmma kernel's ``maest_attn_fwd_bf16_d128`` and head_dim 256
+    ``maest_attn_fwd_bf16_d256_mma`` in place of ``maest_attn_fwd_bf16_d256``.
+    fp32 keeps its entries either way. ``attention_fwd_mma`` takes head_dim
+    128, 256 and the widths above 256 and refuses fp32 and head_dim 192
+    (a width the caller pads)."""
     from maest_tpu_torch.ops import attention as A
 
     seen = []
@@ -187,24 +190,25 @@ def test_forward_route_names_the_dn_wgmma_entry(control, monkeypatch):
         (bf16, 64): ("maest_attn_fwd_bf16" + sfx, (), 64),
         (fp32, 384): ("maest_attn_fwd_fp32_dn", (384,), 384),
         (bf16, 128): ("maest_attn_fwd_bf16_d128" + sfx, (), 128),
-        (bf16, 256): ("maest_attn_fwd_bf16_d256", (), 256),
+        (bf16, 256): ("maest_attn_fwd_bf16_d256" + sfx, (), 256),
         (bf16, 96): ("maest_attn_fwd_bf16_d128" + sfx, (), 128)}
     assert seen == [(want[c][0], want[c][1], c[0], want[c][2])
                     for c in cases for _ in range(2)]
-    assert [f.launches for f in counted] == ([2, 2, 14] if control
+    assert [f.launches for f in counted] == ([1, 1, 16] if control
                                              else [9, 9, 0])
     seen.clear()
-    for d in (128, 384, 1024):
+    for d in (128, 256, 384, 1024):
         x = torch.zeros(1, 4, 2, d, dtype=bf16, device="meta")
         assert A.attention_fwd_mma(x, x, x, with_lse=True)[1].shape == (1, 2,
                                                                          4)
-    assert seen == [("maest_attn_fwd_bf16_d128_mma", (), bf16, 128)] + [
+    assert seen == [("maest_attn_fwd_bf16_d128_mma", (), bf16, 128),
+                    ("maest_attn_fwd_bf16_d256_mma", (), bf16, 256)] + [
         ("maest_attn_fwd_bf16_dn_mma", (d,), bf16, d) for d in (384, 1024)]
-    assert A.attention_fwd_mma.launches == (17 if control else 3)
+    assert A.attention_fwd_mma.launches == (20 if control else 4)
     for bad in (torch.zeros(1, 8, 2, 384, device="meta"),
-                torch.zeros(1, 8, 2, 256, device="meta", dtype=bf16)):
+                torch.zeros(1, 8, 2, 192, device="meta", dtype=bf16)):
         with pytest.raises(ValueError, match="bf16 q, k, v at head_dim 64, "
-                           "128 or a multiple of 64 above 256"):
+                           "128, 256 or a multiple of 64 above 256"):
             A.attention_fwd_mma(bad, bad, bad)
 
 

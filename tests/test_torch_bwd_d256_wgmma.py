@@ -172,15 +172,17 @@ def test_d256_route_names_the_wgmma_entry(control, monkeypatch):
 
 
 def test_control_refuses_what_it_has_no_kernel_for():
-    """``attention_bwd_mma`` off the CPU takes bf16 at head_dim 64 and 256
-    only (the widths whose wgmma kernels replaced mma.sync ones): fp32,
-    and bf16 at 128, 192 (the caller pads it) and 320 are refused before
-    any launch; on the CPU it is the plain version at any width."""
+    """``attention_bwd_mma`` off the CPU takes bf16 at head_dim 64, 256 and
+    the multiples of 64 above 256 only (the widths whose wgmma kernels
+    replaced mma.sync ones): fp32, and bf16 at 128, 192 and 300 (the
+    caller pads them) are refused before any launch; on the CPU it is the
+    plain version at any width."""
     for dtype, d in ((torch.float32, 256), (torch.bfloat16, 128),
-                     (torch.bfloat16, 192), (torch.bfloat16, 320)):
+                     (torch.bfloat16, 192), (torch.bfloat16, 300)):
         x = torch.zeros(1, 4, 2, d, dtype=dtype, device="meta")
         lse = torch.zeros(1, 2, 4, device="meta")
-        with pytest.raises(ValueError, match="head_dim 64 or 256"):
+        with pytest.raises(ValueError, match="head_dim 64, 256 or a "
+                           "multiple of 64 above 256"):
             A.attention_bwd_mma(x, x, x, x, lse, x)
     x, g = _inputs(1, 40, 2, 192, seed=3)
     xt = torch.from_numpy(x).to(torch.bfloat16)

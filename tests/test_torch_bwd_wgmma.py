@@ -158,10 +158,11 @@ def test_backward_route_names_the_wgmma_entry(control, monkeypatch):
     zero-padded to 64) names ``maest_attn_bwd_bf16``, the wgmma kernel,
     counted in ``attention_bwd``; with ``_K3B_CONTROL`` it names
     ``maest_attn_bwd_bf16_mma``, counted in ``attention_bwd_mma``; bf16 at
-    head_dim 256 moves with the hook too, to ``maest_attn_bwd_bf16_d256_mma``
-    (tests/test_torch_bwd_d256_wgmma.py holds that route). fp32, head_dim
-    128 and 320 keep their entries either way, and the forward is not
-    moved by the hook."""
+    head_dim 256 and 320 moves with the hook too, to
+    ``maest_attn_bwd_bf16_d256_mma`` and ``maest_attn_bwd_bf16_dn_mma``
+    (tests/test_torch_bwd_d256_wgmma.py and tests/test_torch_bwd_dn_wgmma.py
+    hold those routes). fp32 and head_dim 128 keep their entries either
+    way, and the forward is not moved by the hook."""
     seen = []
     monkeypatch.setattr(A, "launch_bwd_entry", _recorder(seen))
     monkeypatch.setattr(A, "_K3B_CONTROL", control)
@@ -182,10 +183,11 @@ def test_backward_route_names_the_wgmma_entry(control, monkeypatch):
         ("maest_attn_bwd_bf16_d128", (), torch.bfloat16, 128),
         ("maest_attn_bwd_bf16_d256_mma" if control else
          "maest_attn_bwd_bf16_d256", (), torch.bfloat16, 256),
-        ("maest_attn_bwd_bf16_dn", (320,), torch.bfloat16, 320),
+        ("maest_attn_bwd_bf16_dn_mma" if control else
+         "maest_attn_bwd_bf16_dn", (320,), torch.bfloat16, 320),
         ("maest_attn_bwd_fp32_d128", (), torch.float32, 128)]
     assert (A.attention_bwd.launches, A.attention_bwd_mma.launches) == (
-        (4, 3) if control else (7, 0))
+        (3, 4) if control else (7, 0))
     assert A._K2_CONTROL is False
 
 

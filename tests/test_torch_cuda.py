@@ -880,6 +880,202 @@ def test_k3b_control_hook_routes_head_dim_256(cuda_device, monkeypatch):
         assert (grads[True][k] - g).abs().max().item() <= 1e-2 * top, k
 
 
+# --- K3b above head_dim 256 (csrc/attn_bwd_dn_wgmma.cuh) and K2/K3a at 256
+# (csrc/attn_fwd_d256_wgmma.cuh) on wgmma -----------------------------------
+def _dn_schedule(q, k, v, o, lse, do, n_real):
+    from maest_tpu_torch.ops import attention as A
+
+    d = q.shape[-1]
+    (qp, kp, vp, op, dop), scale = A.pad_head_dim(q, k, v, o, do)
+    return tuple(g[..., :d] for g in A.attention_bwd_tiled_reference(
+        qp, kp, vp, op, lse, dop, n_real, scale,
+        key_tile=A.BWD_DN_KEY_TILE, q_tile=A.BWD_DN_Q_TILE))
+
+
+@pytest.mark.parametrize("b,n,n_real,h,d", [
+    (2, 300, 281, 2, 320), (2, 300, 281, 2, 384), (2, 200, 190, 2, 512),
+    (2, 200, 190, 1, 1024), (1, 4500, 4400, 2, 320), (2, 100, 90, 2, 300),
+    (3, 64, 1, 2, 384), (4, 866, None, 2, 384)])
+def test_dn_wgmma_backward_matches_plain_and_control(cuda_device, b, n,
+                                                     n_real, h, d):
+    """K3b above head_dim 256 (and 300, zero-padded to 320) through
+    attention_bwd, each call counted, on strided views of one fused
+    q/k/v/do: within D256_REL of its plain version and of plain, two
+    launches torch.equal, masked dk/dv exactly zero; the mma.sync control
+    (through _K3B_CONTROL) within the same bound of plain."""
+    from maest_tpu_torch.ops import attention as A
+
+    x = _rand((b, n, 4, h, d), 60 + n + d).to(cuda_device, torch.bfloat16)
+    q, k, v, do = x.unbind(2)
+    o, lse = flash_attention_fwd_lse(q, k, v, n_real)
+    before = (A.attention_bwd.launches, A.attention_bwd_mma.launches)
+    got = attention_bwd(q, k, v, o, lse, do, n_real)
+    again = attention_bwd(q, k, v, o, lse, do, n_real)
+    A._K3B_CONTROL = True
+    try:
+        ctrl = attention_bwd(q, k, v, o, lse, do, n_real)
+    finally:
+        A._K3B_CONTROL = False
+    ref = attention_bwd_reference(q, k, v, o, lse, do, n_real)
+    tiled = _dn_schedule(q, k, v, o, lse, do, n_real)
+    torch.cuda.synchronize()
+    assert (A.attention_bwd.launches - before[0],
+            A.attention_bwd_mma.launches - before[1]) == (2, 1)
+    assert all(torch.equal(a, z) for a, z in zip(got, again))
+    assert _d256_rel(got, ref) <= D256_REL and _d256_rel(got, tiled) <= D256_REL
+    assert _d256_rel(ctrl, ref) <= D256_REL
+    if n_real is not None:
+        assert not got[1][:, n_real:].any() and not got[2][:, n_real:].any()
+
+
+# the planted faults' lines: the dv/dk products leave out the last q tile;
+# the head_dim-256 forward drops its key mask
+DN_PLANT = ("  const int n_k = ((TRANS_A ? n_real : n) + 63) / 64;",
+            "  const int n_k = ((TRANS_A ? n_real : n) + 63) / 64 - !TRANS_A;")
+D256_FWD_PLANT = (
+    "        const float x = key < n_real ? s[nt][e] * sl : NEG_INF;",
+    "        const float x = s[nt][e] * sl;")
+
+
+def test_dn_check_refuses_the_last_q_tile_dropped(cuda_device, tmp_path):
+    """The wgmma backward above 256 built with dv's and dk's products of
+    the last q tile left out: at N 256 that tile is a quarter of every
+    key's rows, and the check that holds the sound kernels to their plain
+    version refuses it. Run with -s to see the gap."""
+    code = (
+        "import json, numpy as np\n"
+        "from maest_tpu_torch.ops import attention as A\n"
+        "x = torch.from_numpy(np.random.default_rng(46).standard_normal("
+        "(2, 256, 4, 2, 384)).astype(np.float32)).cuda().bfloat16()\n"
+        "q, k, v, do = x.unbind(2)\n"
+        "o, lse = A.flash_attention_fwd_lse(q, k, v, 250)\n"
+        "g = A.attention_bwd(q, k, v, o, lse, do, 250)\n"
+        "r = A.attention_bwd_tiled_reference(q, k, v, o, lse, do, 250, "
+        "key_tile=A.BWD_DN_KEY_TILE, q_tile=A.BWD_DN_Q_TILE)\n"
+        "print(json.dumps(max(((a.float() - z.float()).abs().max() / max("
+        "1.0, z.float().abs().max().item())).item() for a, z in zip(g, r))))\n")
+    bad = _planted_gap(tmp_path, "attention_bwd", "attn_bwd_dn_wgmma.cuh",
+                       *DN_PLANT, code)
+    x = _rand((2, 256, 4, 2, 384), 46).to(cuda_device, torch.bfloat16)
+    q, k, v, do = x.unbind(2)
+    o, lse = flash_attention_fwd_lse(q, k, v, 250)
+    good = _d256_rel(attention_bwd(q, k, v, o, lse, do, 250),
+                     _dn_schedule(q, k, v, o, lse, do, 250))
+    print(f"planted: dv and dk without the last q tile: relative gap "
+          f"{bad:.4g} against {D256_REL} (sound {good:.4g})")
+    assert good <= D256_REL < bad
+
+
+D256_FWD_SHAPES = ((2, 1000, 997, 3, 256), (4, 866, None, 3, 256),
+                   (2, 300, 281, 3, 192), (4, 130, 2, 2, 256),
+                   (2, 1676, None, 3, 256))
+
+
+@pytest.mark.parametrize("b,n,n_real,h,d", D256_FWD_SHAPES)
+def test_d256_wgmma_forward_matches_plain_and_control(cuda_device, b, n,
+                                                      n_real, h, d):
+    """K2 and K3a at head_dim 256 (and 192, zero-padded) on the wgmma
+    kernel, each launch counted, on strided views of a fused qkv: within
+    the bf16 bound of plain and of the tiled plain version, taken relative
+    to max(1, max |o|) (with 2 real keys |o| reaches 4-8, where one bf16
+    ulp is 0.03125), lse within LSE_TOL, K2's o torch.equal to K3a's; the
+    mma.sync control within the same bounds of plain."""
+    from maest_tpu_torch.ops import attention as A
+
+    x = _rand((b, n, 3, h, d), 70 + n + d).to(cuda_device, torch.bfloat16)
+    q, k, v = x.unbind(2)
+    before = (flash_attention.launches, flash_attention_fwd_lse.launches)
+    with torch.inference_mode():
+        o = flash_attention(q, k, v, n_real=n_real)
+    ol, lse = flash_attention_fwd_lse(q, k, v, n_real)
+    r, rl = attention_reference_lse(q, k, v, n_real)
+    (qp, kp, vp), scale = A.pad_head_dim(q, k, v)
+    t, tl = A.attention_fwd_tiled_reference(qp, kp, vp, n_real, scale)
+    c, cl = A.attention_fwd_mma(qp, kp, vp, n_real, with_lse=True) \
+        if d == 256 else (r, rl)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_fwd_lse.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(o, ol) and o.shape == q.shape
+    tol = ATTN_TOL[torch.bfloat16]
+    for ours, want in ((o, r), (o, t[..., :d]), (c[..., :d], r)):
+        assert (ours.float() - want.float()).abs().max().item() <= tol * max(
+            1.0, want.float().abs().max().item())
+    for got_lse in (lse, cl):
+        assert (got_lse - rl).abs().max().item() <= LSE_TOL
+
+
+def test_d256_check_refuses_the_mask_dropped(cuda_device, tmp_path):
+    """The head_dim-256 wgmma forward built with its key mask dropped: with
+    v = 8 past n_real 900 of 1000 the check that holds the sound kernel to
+    plain refuses it. Run with -s to see the gap."""
+    code = (
+        "import json, numpy as np\n"
+        "from maest_tpu_torch.ops import attention as A\n"
+        "x = torch.from_numpy(np.random.default_rng(47).standard_normal("
+        "(2, 1000, 3, 3, 256)).astype(np.float32)).cuda().bfloat16()\n"
+        "x[:, 900:, 2] = 8.0\n"
+        "q, k, v = x.unbind(2)\n"
+        "o = A.flash_attention(q, k, v, n_real=900)\n"
+        "r = A.attention_reference(q, k, v, 900)\n"
+        "print(json.dumps((o.float() - r.float()).abs().max().item()))\n")
+    bad = _planted_gap(tmp_path, "attention_fwd", "attn_fwd_d256_wgmma.cuh",
+                       *D256_FWD_PLANT, code)
+    x = _rand((2, 1000, 3, 3, 256), 47).to(cuda_device, torch.bfloat16)
+    x[:, 900:, 2] = 8.0
+    q, k, v = x.unbind(2)
+    good = (flash_attention(q, k, v, n_real=900).float()
+            - attention_reference(q, k, v, 900).float()).abs().max().item()
+    print(f"planted: the head_dim-256 forward without its key mask: "
+          f"max|o - plain| {bad:.4g} against {ATTN_TOL[torch.bfloat16]} "
+          f"(sound {good:.4g})")
+    assert good <= ATTN_TOL[torch.bfloat16] < bad
+
+
+@pytest.mark.parametrize("heads", [3, 2], ids=["d256", "d384"])
+def test_controls_route_a_training_step_above_128(cuda_device, monkeypatch,
+                                                  heads):
+    """With both private hooks set, a bf16 training forward and backward of
+    a 768-wide model at 3 heads (head_dim 256) or 2 (384) launches the
+    mma.sync controls, counted in attention_fwd_mma and attention_bwd_mma,
+    and not the wgmma kernels; every parameter's gradient stays within
+    1e-2 of its largest |g| (at least 1e-2 of the largest of all) of the
+    wgmma routes'."""
+    from maest_tpu_torch.models.registry import build_config
+    from maest_tpu_torch.models.vit import MAESTNet
+    from maest_tpu_torch.ops import attention as A
+
+    cfg = build_config("discogs-maest-30s-pw-129e", embed_dim=768, depth=2,
+                       num_heads=heads, input_t=206, n_classes=16)
+    net = MAESTNet(cfg, dtype=torch.bfloat16, param_dtype=torch.float32,
+                   device=cuda_device,
+                   generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():  # zero heads would hide every difference
+        net.head[1].weight.copy_(_rand((16, 768), 16, 0.2))
+    x = _rand((2, 1, 96, 206), 17).to(cuda_device)
+    counted = (flash_attention_fwd_lse, attention_bwd, A.attention_fwd_mma,
+               A.attention_bwd_mma)
+    grads = {}
+    for control in (False, True):
+        monkeypatch.setattr(A, "_K2_CONTROL", control)
+        monkeypatch.setattr(A, "_K3B_CONTROL", control)
+        net.zero_grad()
+        before = [f.launches for f in counted]
+        net(x, train=True, generator=torch.Generator().manual_seed(0))[
+            0].float().square().sum().backward()
+        torch.cuda.synchronize()
+        grew = [f.launches - c for f, c in zip(counted, before)]
+        assert grew == ([0, 0, cfg.depth, cfg.depth] if control
+                        else [cfg.depth, cfg.depth, 0, 0])
+        grads[control] = {k: p.grad.detach().clone()
+                          for k, p in net.named_parameters()
+                          if p.grad is not None}
+    big = max(g.abs().max().item() for g in grads[False].values())
+    for k, g in grads[False].items():
+        top = max(g.abs().max().item(), 1e-2 * big)
+        assert (grads[True][k] - g).abs().max().item() <= 1e-2 * top, k
+
+
 # --- P6e (gh), P6f (int8) and the P5 kinds --------------------------------
 # gh: torch.equal to K2's wgmma kernel, its control to K2's mma.sync kernel
 # (each head runs K2's arithmetic on the same key tiles). int8 (fp32 out):
